@@ -7,16 +7,27 @@ one NVIDIA Hopper card.
 
 Phases, in order; any failure exits non-zero:
   1. device: a CUDA card of compute capability 9.0; its name and power limit.
-  2. build: every kernel of the main path from csrc/ (one nvcc per source,
-     all at once), with the ptxas register / shared-memory / spill report.
-  3. kernels vs plain: P, D1 and D2 at Llama-3-8B attention widths against
-     their plain PyTorch versions on the card (bf16; tolerance below).
-  4. main path: greedy generation of Llama-3-8B (random weights from a
+  2. build: every kernel of the main paths from csrc/ (one nvcc per source,
+     all at once), with the ptxas register / shared-memory / spill report;
+     then the native scheduler (csrc/page_allocator.cpp) with g++.
+  3. kernels vs plain: P, D1, D2, B5 (paged decode), B6 (paged extend) and
+     the paged append at Llama-3-8B attention widths against their plain
+     PyTorch versions on the card (bf16; tolerance below), B5/B6 over
+     NaN-poisoned pools behind permuted page tables.
+  4. main paths: greedy generation of Llama-3-8B (random weights from a
      seeded CUDA generator) at B 4, prompt 512, 64 new tokens; launch
      counters show the kernels carried it; teacher-forced logits of the
-     kernel path agree with the plain-attention path.
+     kernel path agree with the plain-attention path. Then the serving
+     engine over 24 requests in three runs: (A) whole-prompt admission,
+     (B) chunked admission, (C) chunked admission in a pool small enough
+     to preempt. Every request finishes, launch counts match the forwards,
+     and every engine token is within 1.0 of the top logit of one
+     contiguous teacher-forced prefill (kernel P) over its request. Last,
+     the serving forward's logits on the kernel route against its
+     plain_attention route in prefill, extend and decode.
   5. numbers: per-kernel times, bounds and library times as one JSON line;
-     prefill and decode times; peak memory; the card's name and power limit.
+     prefill and decode times; serving wall time, tokens/s, TTFT, rounds;
+     peak memory; the card's name and power limit.
 The last line is {"ok": true, "device": {...}}.
 
 Tolerances: kernel outputs are bf16 results of fp32 arithmetic on bf16
@@ -26,7 +37,13 @@ the plain-attention path: max |diff| <= 1.0 and mean |diff| <= 0.1. The
 logits have std about 1 with these weights, so a wrong kernel moves them by
 O(1) on average; the two paths differ only by bf16 roundings (P rounded
 to bf16 before PV) compounded over 32 layers, which stay an order of
-magnitude below that (0.008 mean at 2 layers on an H100).
+magnitude below that (0.008 mean at 2 layers on an H100). The same limits
+hold the serving forward (`forward_paged`: prefill, extend, decode) on the
+kernel route against its plain_attention route. Serving tokens come from
+bf16 kernels and are held against one contiguous teacher-forced prefill:
+each within 1.0 of the top logit, and at least 0.9 of them its argmax (an
+H100 gave 0.97 at 32 layers and 0.99 at 2: with 128k logits of std 1, an
+error of a few tenths reorders the top and lowers the share).
 
 Kernel times ("ms") are device times from CUDA events with the host's
 launch overhead hidden; "call_ms" is the time per call of back-to-back
@@ -45,6 +62,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 BF16_TOL = 3e-2
 LOGIT_MAX_TOL, LOGIT_MEAN_TOL = 1.0, 0.1
+ARGMAX_SHARE_MIN = 0.9
 # Published H100 SXM peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM3.
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 B, PROMPT, NEW, CAPACITY = 4, 512, 64, 576
@@ -118,6 +136,309 @@ def phase_kernels(torch, flash_fwd, flash_decode, errs):
         check(bool((out[3] == 0).all()), "decode row of length 0 is 0")
 
 
+def paged_pool(torch, randn, gen, ps, rows, capacity=2048, layers=2):
+    """A stacked bf16 pool [layers, 8, P, ps, 128] with room for `rows`
+    rows of `capacity` tokens, and a page table from a seeded permutation
+    of its pages (page 0 in no table)."""
+    pps = capacity // ps
+    num_pages = rows * pps + 1
+    kp = randn(layers, 8, num_pages, ps, 128)
+    vp = randn(layers, 8, num_pages, ps, 128)
+    perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
+    table = perm[: rows * pps].view(rows, pps).to(torch.int32).contiguous()
+    return kp, vp, table
+
+
+def poison_past(torch, pool, table, lengths):
+    """NaN into every pool row at or past each row's length, and page 0."""
+    _, hkv, num_pages, ps, d = pool.shape
+    pps = table.shape[1]
+    pos = torch.arange(pps * ps, device="cuda")
+    for b, n in enumerate(lengths.tolist()):
+        dead = pos[pos >= n]
+        flat = table[b].long()[dead // ps] * ps + dead % ps
+        pool.view(pool.shape[0], hkv, num_pages * ps, d)[:, :, flat] = float("nan")
+    pool[:, :, 0] = float("nan")
+
+
+def phase_paged_kernels(torch, paged_attention, paged_cache, errs):
+    """B5, B6 and the paged append against their plain versions (Hq 32,
+    Hkv 8, D 128, bf16), over NaN-poisoned pools and permuted tables."""
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    for ps in (16, 128):
+        kp, vp, table = paged_pool(torch, randn, gen, ps, rows=8)
+        full = table.shape[1] * ps
+        lens = torch.tensor([0, 1, ps - 1, ps, ps + 1, full, 777, 2 * ps + 1],
+                            dtype=torch.int32, device="cuda")
+        poison_past(torch, kp, table, lens)
+        poison_past(torch, vp, table, lens)
+        q = randn(8, 32, 1, 128)
+        out = paged_attention.paged_attention_decode(q, kp[1], vp[1], lens, table)
+        ref = paged_attention.paged_attention_decode_plain(q, kp[1], vp[1], lens, table)
+        e = max_err(out, ref)
+        errs["paged_decode"] = max(errs.get("paged_decode", 0.0), e)
+        print(f"  B5 page_size {ps}, lengths {lens.tolist()}: max|diff| {e:.3e}")
+        check(bool(torch.isfinite(out).all()), "B5 output finite over NaN-poisoned pages")
+        check(bool((out[0] == 0).all()), "B5 row of length 0 is exactly 0")
+        check(e <= BF16_TOL, f"B5 page_size {ps} within {BF16_TOL}")
+
+        for s in (256, 100):
+            off = torch.tensor([0, 256, 1000, 0], dtype=torch.int32, device="cuda")
+            kvl = torch.tensor([s, 256 + s, 1000 + s, 0], dtype=torch.int32, device="cuda")
+            kp, vp, table = paged_pool(torch, randn, gen, ps, rows=4)
+            poison_past(torch, kp, table, kvl)
+            poison_past(torch, vp, table, kvl)
+            q = randn(4, s, 32, 128).transpose(1, 2)  # the model's [B, S, H, D] view
+            out = paged_attention.paged_attention_extend(q, kp[0], vp[0], off, kvl, table)
+            ref = paged_attention.paged_attention_extend_plain(q, kp[0], vp[0], off, kvl, table)
+            e = max_err(out, ref)
+            errs["paged_extend"] = max(errs.get("paged_extend", 0.0), e)
+            print(f"  B6 page_size {ps}, S {s}, q_offset {off.tolist()}, kv_length "
+                  f"{kvl.tolist()}: max|diff| {e:.3e}")
+            check(bool(torch.isfinite(out).all()), "B6 output finite over NaN-poisoned pages")
+            check(bool((out[3] == 0).all()), "B6 inactive row is exactly 0")
+            check(e <= BF16_TOL, f"B6 page_size {ps} S {s} within {BF16_TOL}")
+
+        # Append: decode rows (one inactive, one past the table) and a
+        # 100-token chunk crossing pages; the kernel must write exactly
+        # what the plain masked scatter writes.
+        for s, starts, act in ((1, [0, 5, ps - 1, full, 37, 2 * ps, 1, 9], [1, 1, 1, 1, 0, 1, 1, 1]),
+                               (100, [0, ps - 3, full - 40, 3], [1, 1, 1, 0])):
+            b = len(starts)
+            kp, vp, table = paged_pool(torch, randn, gen, ps, rows=b)
+            new_k, new_v = randn(b, s, 8, 128).transpose(1, 2), randn(b, s, 8, 128).transpose(1, 2)
+            lengths = torch.tensor(starts, dtype=torch.int32, device="cuda")
+            active = torch.tensor(act, dtype=torch.bool, device="cuda")
+            ref_k, ref_v = kp[1].clone(), vp[1].clone()
+            paged_cache.paged_append_layer(kp[1], vp[1], new_k, new_v, table, lengths, active)
+            paged_cache.paged_append_layer_plain(ref_k, ref_v, new_k, new_v, table, lengths, active)
+            same = torch.equal(kp[1], ref_k) and torch.equal(vp[1], ref_v)
+            errs["paged_append"] = max(errs.get("paged_append", 0.0),
+                                       max_err(kp[1], ref_k), max_err(vp[1], ref_v))
+            print(f"  append page_size {ps}, S {s}, starts {starts}: identical to plain: {same}")
+            check(same, "append kernel writes exactly what the plain scatter writes")
+
+
+def serving_requests(cfg):
+    """24 requests: prompt lengths uniform in 128-1024, max_new_tokens in
+    32-96, ids uniform over the vocabulary, all from numpy seed 0."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    plens = rng.integers(128, 1025, 24)
+    news = rng.integers(32, 97, 24)
+    return [(rid, rng.integers(0, cfg.vocab_size, int(n)).tolist(), int(m))
+            for rid, (n, m) in enumerate(zip(plens, news))]
+
+
+SERVING_RUNS = {
+    "A whole-prompt": dict(slots=8, page_size=128, pages_per_seq=16, num_pages=129,
+                           prefill_group=4, decode_chunk=8),
+    "B chunked": dict(slots=8, page_size=16, pages_per_seq=128, num_pages=561,
+                      prefill_chunk=256),
+    "C preemption": dict(slots=8, page_size=16, pages_per_seq=128, num_pages=321,
+                         prefill_chunk=256),
+}
+
+
+def teacher_forced(torch, cfg, params, prompt, tokens):
+    """Per generated position: (the engine token's logit is within
+    LOGIT_MAX_TOL of the largest, it is the argmax) under one contiguous
+    prefill (kernel P) over prompt + tokens[:-1]."""
+    from flash_attention_cute_tpu_torch.models.transformer import forward
+
+    ids = torch.tensor([prompt + tokens[:-1]], device="cuda")
+    with torch.no_grad():
+        logits = forward(params, cfg, ids)[0][0, len(prompt) - 1:]
+    tok = torch.tensor(tokens, device="cuda")
+    chosen = logits.gather(1, tok[:, None])[:, 0]
+    top = logits.max(dim=1).values
+    return (chosen >= top - LOGIT_MAX_TOL).tolist(), (chosen == top).tolist()
+
+
+def phase_serving(torch, cfg, params, kernels, path_counts):
+    """Runs A-C of the serving engine over 24 requests; launch counts per
+    run, every request's tokens teacher-forced, and the numbers."""
+    from flash_attention_cute_tpu_torch.runtime.engine import ServingEngine
+
+    reqs = serving_requests(cfg)
+    n = cfg.num_layers
+    results = {}
+    for name, kw in SERVING_RUNS.items():
+        eng = ServingEngine(params, cfg, **kw)
+        for rid, prompt, new in reqs:
+            eng.submit(rid, prompt, new)
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: kern.launches for k, kern in kernels.items()}
+        path_counts[name] = counts
+        fw = eng.forwards
+        print(f"  ({name}) {kw}: {wall:.3f} s, forwards {fw}, launches {counts}, "
+              f"stats {eng.stats}")
+        check(sorted(out) == list(range(len(reqs))) and not eng.failed,
+              f"({name}) every request finishes, none fails")
+        check(eng.native, f"({name}) runs on the native scheduler")
+        check(counts["paged_decode"] == n * fw["decode"] == counts["decode_combine"],
+              f"({name}) B5 and D2 launched layers x decode forwards")
+        check(counts["paged_extend"] == n * fw["extend"], f"({name}) B6 = layers x extends")
+        check(counts["flash_fwd"] == n * fw["prefill"], f"({name}) P = layers x prefills")
+        check(counts["paged_append"] == n * sum(fw.values()),
+              f"({name}) append = layers x forwards")
+        check(counts["decode_partials"] == 0, f"({name}) no contiguous decode")
+        if kw.get("prefill_chunk"):
+            check(fw["extend"] > 0, f"({name}) admission by extend")
+        else:
+            check(fw["prefill"] > 0 and fw["extend"] == 0, f"({name}) admission by prefill")
+        if "preemption" in name:
+            check(eng.stats["preemptions"] > 0, f"({name}) preempts")
+
+        near, top = [], []
+        for rid, prompt, _ in reqs:
+            a, b = teacher_forced(torch, cfg, params, prompt, out[rid])
+            near += a
+            top += b
+        print(f"  ({name}) teacher-forced: {sum(near)}/{len(near)} tokens within "
+              f"{LOGIT_MAX_TOL} of the top logit, argmax share {sum(top) / len(top):.4f}")
+        check(all(near), f"({name}) every engine token within {LOGIT_MAX_TOL} of the top logit")
+        check(sum(top) / len(top) >= ARGMAX_SHARE_MIN,
+              f"({name}) argmax share of the engine tokens >= {ARGMAX_SHARE_MIN}")
+        ttft = sorted(m["ttft_s"] for m in eng.request_metrics)
+        gen_tokens = eng.stats["tokens_generated"]
+        results[name] = {
+            "wall_s": wall,
+            "generated_tokens": gen_tokens,
+            "generated_tokens_per_s": gen_tokens / wall,
+            "ttft_p50_s": ttft[len(ttft) // 2],
+            "ttft_p90_s": ttft[int(0.9 * (len(ttft) - 1))],
+            "decode_rounds": eng.decode_rounds,
+            "decode_ms_per_round": 1e3 * eng.decode_round_s / max(eng.decode_rounds, 1),
+            "device_calls": eng.stats["device_calls"],
+            "prefills": eng.stats["prefills"],
+            "preemptions": eng.stats["preemptions"],
+            "teacher_forced_argmax_share": sum(top) / len(top),
+        }
+        del eng, out
+        torch.cuda.empty_cache()
+    results["A whole-prompt"].update(profile_serving(torch, cfg, params, reqs))
+    return results
+
+
+def phase_serving_forward(torch, cfg, params, kernels):
+    """The serving forward (`forward_paged`) on the kernel route against its
+    plain_attention route, teacher-forced on the same ids through the same
+    permuted page table, each route on a pool of its own: a prefill of 4
+    padded prompts (P), a 256-token extend (B6), two decode steps (B5 + D2).
+    The kernel route must launch its kernels and the plain route none (the
+    append kernel writes the pools on both). These comparison launches are
+    not a main path's: the serving runs reset the counts before each run."""
+    import numpy as np
+    from flash_attention_cute_tpu_torch.runtime.paged_cache import create_paged_state
+    from flash_attention_cute_tpu_torch.runtime.paged_forward import forward_paged
+
+    b, ps, pps = 4, 16, 64
+    rng = np.random.default_rng(1)
+    steps = [("prefill", 300, torch.tensor([300, 257, 128, 17], dtype=torch.int32,
+                                           device="cuda")),
+             ("extend", 256, None), ("decode", 1, None), ("decode", 1, None)]
+    steps = [(mode, torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).to("cuda"), vl)
+             for mode, s, vl in steps]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    table = (torch.randperm(b * pps, generator=gen, device="cuda") + 1).view(b, pps)
+    attention = ("flash_fwd", "paged_extend", "paged_decode", "decode_combine",
+                 "decode_partials")
+    logits, launches = {}, {}
+    for plain in (False, True):
+        state = create_paged_state(cfg, b * pps + 1, ps, b, pps)
+        state.page_table = table.to(torch.int32)
+        for k in kernels.values():
+            k.launches = 0
+        with torch.no_grad():
+            outs = []
+            for mode, ids, valid in steps:
+                out, state = forward_paged(params, cfg, ids, state, mode=mode, valid_len=valid,
+                                           plain_attention=plain)
+                outs.append(out)
+        torch.cuda.synchronize()
+        logits[plain] = outs
+        launches[plain] = {k: kern.launches for k, kern in kernels.items()}
+        del state
+    n = cfg.num_layers
+    print(f"  kernel route launches {launches[False]}; plain route {launches[True]}")
+    check(launches[False]["flash_fwd"] == n and launches[False]["paged_extend"] == n
+          and launches[False]["paged_decode"] == 2 * n == launches[False]["decode_combine"],
+          "the kernel route runs P, B6 and B5 + D2 once per layer and forward")
+    check(all(launches[True][k] == 0 for k in attention),
+          "the plain route launches no attention kernel")
+    for (mode, _, _), a, r in zip(steps, logits[False], logits[True]):
+        check(bool(torch.isfinite(a).all()), f"serving {mode} logits finite")
+        d = (a - r).abs()
+        print(f"  serving {mode} logits {tuple(a.shape)} kernel vs plain: max|diff| "
+              f"{d.max().item():.4f}, mean|diff| {d.mean().item():.5f}, argmax agree "
+              f"{(a.argmax(-1) == r.argmax(-1)).float().mean().item():.4f}")
+        check(d.max().item() <= LOGIT_MAX_TOL and d.mean().item() <= LOGIT_MEAN_TOL,
+              f"serving {mode} logits within max {LOGIT_MAX_TOL} / mean {LOGIT_MEAN_TOL}")
+    del logits
+    torch.cuda.empty_cache()
+
+
+def profile_serving(torch, cfg, params, reqs, rounds=3):
+    """Device busy share over a few decode rounds of run A's engine with 8
+    requests resident (the 8 with the most new tokens, so that no round is
+    cut short by a finishing request): device time per round from
+    torch.profiler over `rounds` rounds, over the wall time per round of
+    the `rounds` rounds just before them, timed without the profiler
+    (which slows the host)."""
+    from torch.profiler import ProfilerActivity, profile
+    from flash_attention_cute_tpu_torch.runtime.engine import ServingEngine
+
+    eng = ServingEngine(params, cfg, **SERVING_RUNS["A whole-prompt"])
+    for rid, prompt, new in sorted(reqs, key=lambda r: -r[2])[:8]:
+        eng.submit(rid, prompt, new)
+    with torch.no_grad():
+        eng.step()  # admits all 8, then one decode round
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(rounds):
+                eng.step()
+            torch.cuda.synchronize()
+            prof_wall_ms = 1e3 * (time.perf_counter() - t0)
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+    if not events:
+        return {"decode_busy_share": "not measured: the profiler recorded no device time"}
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    top = sorted(events, key=lambda e: -dev_us(e))[:8]
+    return {
+        "profiled_decode_rounds": rounds,
+        "wall_ms_per_round": wall_ms / rounds,
+        "profiled_wall_ms_per_round": prof_wall_ms / rounds,
+        "device_busy_ms_per_round": busy_ms / rounds,
+        "decode_busy_share": busy_ms / wall_ms,
+        "top_device_kernels_ms_per_round": [
+            [e.key[:60], dev_us(e) / 1e3 / rounds, e.count // rounds] for e in top],
+    }
+
+
 def phase_main_path(torch, cfg, params, kernels, counts):
     from flash_attention_cute_tpu_torch.models.cache import KVCache
     from flash_attention_cute_tpu_torch.models.transformer import forward
@@ -175,7 +496,7 @@ def phase_main_path(torch, cfg, params, kernels, counts):
     return ids
 
 
-def phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode, errs, counts):
+def phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode, errs, path_counts):
     from flash_attention_cute_tpu_torch.runtime.generate import decode_loop, prefill
     from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms, wall_time_s
 
@@ -235,6 +556,8 @@ def phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode, errs, counts
         "library_ms": None,  # no single PyTorch call merges split partials
         "ops": 4 * acc.numel(), "bytes": part_bytes + 2 * qd.numel(), "peak": PEAK_F32,
     })
+    rows += paged_rows(torch, cfg, randn, gen)
+
     # Context only (not a kernel row): the whole decode attention, D1 + D2,
     # beside one SDPA call over the length-masked cache.
     mask = (torch.arange(CAPACITY, device="cuda") < live)[None, None, None, :]
@@ -247,14 +570,17 @@ def phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode, errs, counts
     kernels = []
     for r in rows:
         t_ops, t_bytes = r["ops"] / r["peak"], r["bytes"] / PEAK_BYTES
+        by_path = {path: c[r["name"]] for path, c in path_counts.items()}
         kernels.append({
             "name": r["name"], "route": r["route"], "source": r["source"],
-            "replaces": r["replaces"], "launches": counts[r["name"]],
+            "replaces": r["replaces"], "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": errs[r["name"]], "ms": r["ms"], "call_ms": r["call_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": r["library_ms"],
+            "shape": r.get("shape", "the main path's"),
         })
 
     # Main-path phases on the host clock, each ending in a synchronise.
@@ -283,6 +609,112 @@ def phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode, errs, counts
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
         "layers": cfg.num_layers,
     }, profile
+
+
+def paged_rows(torch, cfg, randn, gen):
+    """Kernel rows of B5 (+ D2), B6 and the paged append at the serving
+    runs' shapes: B5 at run A's decode (8 slots, page_size 128, the first 8
+    requests 32 tokens into their generation), B6 at run B's extend (8
+    rows, chunk 256, page_size 16, offsets 0-768), the append at run A's
+    decode (8 rows, one token each)."""
+    from flash_attention_cute_tpu_torch import dispatch
+    from flash_attention_cute_tpu_torch.ops import paged_attention as pa
+    from flash_attention_cute_tpu_torch.runtime import paged_cache
+    from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms
+
+    f = torch.nn.functional
+    hq, hkv, d = cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim
+    rep = hq // hkv
+    rows = []
+
+    def pool(b, ps, pps):
+        kp, vp, table = paged_pool(torch, randn, gen, ps, rows=b, capacity=pps * ps, layers=1)
+        return kp[0], vp[0], table
+
+    # B5 + D2: the whole paged decode call.
+    b, ps, pps = 8, 128, 16
+    kp, vp, table = pool(b, ps, pps)
+    lens_list = [len(p) + 32 for _, p, _ in serving_requests(cfg)[:b]]
+    lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+    q = randn(b, hq, 1, d)
+    live = sum(lens_list)
+    splits = dispatch.decode_num_splits(b, hkv, pps * ps)
+    part_bytes = 4 * b * hkv * splits * rep * (d + 2)
+    kc, vc = (pa.gather_pages(x, table).repeat_interleave(rep, dim=1) for x in (kp, vp))
+    mask = (torch.arange(pps * ps, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    rows.append({
+        "name": "paged_decode", "route": "cuda",
+        "source": "flash_attention_cute_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "flash_attention_cute_tpu/ops/paged_attention.py:85",
+        "ms": cuda_time_ms(lambda: pa.paged_attention_decode(q, kp, vp, lens, table), 50),
+        "call_ms": call_time_ms(lambda: pa.paged_attention_decode(q, kp, vp, lens, table), 50),
+        "plain_ms": cuda_time_ms(lambda: pa.paged_attention_decode_plain(q, kp, vp, lens, table), 10),
+        "library_ms": cuda_time_ms(lambda: f.scaled_dot_product_attention(q, kc, vc, attn_mask=mask), 50),
+        "ops": 4 * hq * live * d,  # `live` already sums the rows' keys
+        "bytes": (2 * q.numel() + 2 * 2 * hkv * live * d
+                  + 4 * (b + sum(-(-n // ps) for n in lens_list)) + part_bytes + 2 * q.numel()),
+        "peak": PEAK_F32,
+        "shape": f"B {b}, page_size {ps}, lengths {lens_list}, splits {splits}; ms includes D2",
+    })
+    del kp, vp, kc, vc
+
+    # B6 at run B's extend.
+    b, ps, pps, s = 8, 16, 128, 256
+    kp, vp, table = pool(b, ps, pps)
+    offs = [0, 256, 512, 768] * 2
+    off = torch.tensor(offs, dtype=torch.int32, device="cuda")
+    kvl = off + s
+    q = randn(b, s, hq, d).transpose(1, 2)
+    pairs = sum(s * o + s * (s + 1) // 2 for o in offs)
+    kc, vc = (pa.gather_pages(x, table).repeat_interleave(rep, dim=1) for x in (kp, vp))
+    cols = torch.arange(pps * ps, device="cuda")[None, None, :]
+    mask = ((cols <= off[:, None, None] + torch.arange(s, device="cuda")[None, :, None])
+            & (cols < kvl[:, None, None]))[:, None]
+    rows.append({
+        "name": "paged_extend", "route": "cuda",
+        "source": "flash_attention_cute_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "flash_attention_cute_tpu/ops/paged_attention.py:391",
+        "ms": cuda_time_ms(lambda: pa.paged_attention_extend(q, kp, vp, off, kvl, table)),
+        "call_ms": call_time_ms(lambda: pa.paged_attention_extend(q, kp, vp, off, kvl, table)),
+        "plain_ms": cuda_time_ms(lambda: pa.paged_attention_extend_plain(q, kp, vp, off, kvl, table), 5),
+        "library_ms": cuda_time_ms(lambda: f.scaled_dot_product_attention(q, kc, vc, attn_mask=mask)),
+        "ops": 4 * hq * d * pairs,
+        "bytes": (2 * 2 * q.numel() + 2 * 2 * hkv * d * int(kvl.sum())
+                  + 4 * (2 * b + sum(-(-int(n) // ps) for n in kvl.tolist()))),
+        "peak": PEAK_BF16,
+        "shape": f"B {b}, S {s}, page_size {ps}, q_offset {offs}",
+    })
+    del kp, vp, kc, vc, mask
+
+    # The append at run A's decode: one token per row into a page_size 128 pool.
+    b, ps, pps = 8, 128, 16
+    kp, vp, table = pool(b, ps, pps)
+    lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+    nk, nv = randn(b, 1, hkv, d).transpose(1, 2), randn(b, 1, hkv, d).transpose(1, 2)
+    active = torch.ones(b, dtype=torch.bool, device="cuda")
+    flat, _ = paged_cache.append_targets(table, lens, 1, ps)
+    flat = flat.view(-1)
+    kflat, vflat = (x.view(hkv, -1, d) for x in (kp, vp))
+    krows, vrows = (x.permute(1, 0, 2, 3).reshape(hkv, b, d) for x in (nk, nv))
+
+    def library_append():
+        kflat.index_copy_(1, flat, krows)
+        vflat.index_copy_(1, flat, vrows)
+
+    rows.append({
+        "name": "paged_append", "route": "cuda",
+        "source": "flash_attention_cute_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "flash_attention_cute_tpu/runtime/paged_cache.py:130",
+        "ms": cuda_time_ms(lambda: paged_cache.paged_append_layer(kp, vp, nk, nv, table, lens, active), 50),
+        "call_ms": call_time_ms(lambda: paged_cache.paged_append_layer(kp, vp, nk, nv, table, lens, active), 50),
+        "plain_ms": cuda_time_ms(lambda: paged_cache.paged_append_layer_plain(kp, vp, nk, nv, table, lens, active), 10),
+        "library_ms": cuda_time_ms(library_append, 50),
+        "ops": 0,
+        "bytes": 2 * 2 * 2 * nk.numel() + 4 * 3 * b,
+        "peak": PEAK_F32,
+        "shape": f"B {b}, S 1, page_size {ps}; library_ms is index_copy_ on K and on V",
+    })
+    return rows
 
 
 def profile_decode(torch, params, cfg, cache, tok, steps=4):
@@ -351,11 +783,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 2. build
-    from flash_attention_cute_tpu_torch.ops import _build, flash_decode, flash_fwd
+    from flash_attention_cute_tpu_torch.ops import _build, flash_decode, flash_fwd, paged_attention
+    from flash_attention_cute_tpu_torch.runtime import native, paged_cache
 
     t0 = time.perf_counter()
-    reports = _build.build(["flash_fwd.cu", "flash_decode.cu"])
-    print(f"[2] build: {time.perf_counter() - t0:.1f} s")
+    reports = _build.build(["flash_fwd.cu", "flash_decode.cu", "paged_attention.cu"])
+    t_nvcc = time.perf_counter() - t0
+    native.build()
+    print(f"[2] build: nvcc {t_nvcc:.1f} s, then g++ (native scheduler) "
+          f"{time.perf_counter() - t0 - t_nvcc:.1f} s")
     for src, log in reports.items():
         for line in log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
@@ -365,9 +801,10 @@ def main() -> int:
     errs: dict = {}
     print("[3] kernels vs plain (bf16, Hq 32 Hkv 8 D 128)")
     phase_kernels(torch, flash_fwd, flash_decode, errs)
+    phase_paged_kernels(torch, paged_attention, paged_cache, errs)
     torch.cuda.synchronize()
 
-    # 4. main path
+    # 4. main paths
     from flash_attention_cute_tpu_torch.models.llama import llama3_8b_config
     from flash_attention_cute_tpu_torch.models.transformer import init_params
     import dataclasses
@@ -379,20 +816,33 @@ def main() -> int:
     t0 = time.perf_counter()
     params = init_params(cfg, generator=torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
-    print(f"[4] main path: Llama-3-8B widths, {cfg.num_layers} layers, random weights "
+    print(f"[4] main paths: Llama-3-8B widths, {cfg.num_layers} layers, random weights "
           f"({time.perf_counter() - t0:.1f} s to draw)")
     kernels = {"flash_fwd": flash_fwd.PREFILL, "decode_partials": flash_decode.PARTIALS,
-               "decode_combine": flash_decode.COMBINE}
-    counts: dict = {}
+               "decode_combine": flash_decode.COMBINE,
+               "paged_decode": paged_attention.PAGED_DECODE,
+               "paged_extend": paged_attention.PAGED_EXTEND, "paged_append": paged_cache.APPEND}
+    path_counts: dict = {"greedy": {}}
     torch.cuda.reset_peak_memory_stats()
-    ids = phase_main_path(torch, cfg, params, kernels, counts)
+    ids = phase_main_path(torch, cfg, params, kernels, path_counts["greedy"])
+    print("[4b] serving engine: 24 requests, runs A-C")
+    serving = phase_serving(torch, cfg, params, kernels, path_counts)
+    print("[4c] serving forward: kernel route vs plain_attention route")
+    phase_serving_forward(torch, cfg, params, kernels)
+    for name in kernels:
+        check(sum(c[name] for c in path_counts.values()) > 0,
+              f"{name} launched on a main path")
+    print("  D2 (decode_combine) launches by path: "
+          + ", ".join(f"{p} {c['decode_combine']}" for p, c in path_counts.items())
+          + " (greedy: after D1; serving runs: after B5)")
 
     # 5. numbers
     print("[5] numbers (CUDA events for kernels, host clock + synchronise for phases)")
     rows, numbers, profile = phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode,
-                                           errs, counts)
+                                           errs, path_counts)
     print(json.dumps(profile))
     print(json.dumps(numbers))
+    print(json.dumps({"serving": serving}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,209 @@
+"""Attention over a paged KV cache: CUDA kernels B5 (decode) and B6 (extend)
+and their plain versions.
+
+Port of flash_attention_cute_tpu/ops/paged_attention.py. One layer's pool is
+`[Hkv, P, ps, D]` (a view `k_pages[layer]` of the stacked `[L, Hkv, P, ps,
+D]` pool); key n of batch row b sits at page `page_table[b, n // ps]`, row
+`n % ps`. Lengths are clamped to `pages_per_seq * ps`.
+
+  * `paged_attention_decode`: B5 (csrc/paged_attention.cu) writes split-KV
+    partials, D2 (`flash_decode.decode_combine`) merges them.
+  * `paged_attention_extend`: B6, chunked prefill with per-row global
+    causality `col <= q_offset + row` and `col < kv_length`; kv_length 0
+    marks an inactive row, which outputs exact zeros.
+
+Each wrapper routes on the device of `q`: CPU -> plain version, CUDA -> the
+kernel; what the kernel does not take raises (window, soft cap, a pool whose
+dtype differs from q's). Positions at or past a row's length are never read
+by the kernels and are masked out of the plain versions, so unused pages may
+hold anything, even NaN. The TPU-only arguments `pages_per_compute_block`,
+`interpret` and `debug` are gone.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from flash_attention_cute_tpu_torch import dispatch
+from flash_attention_cute_tpu_torch.ops import _build, flash_decode
+from flash_attention_cute_tpu_torch.ops.reference import attention_reference
+
+LOG2E = math.log2(math.e)
+HEAD_DIMS = (64, 128)
+MAX_GROUP = 8
+
+P, I, L, F = _build.P, _build.I, _build.L, _build.F
+PAGED_DECODE = _build.Kernel(
+    "paged_decode", "paged_attention.cu", "fact_paged_decode_partials",
+    [P] * 8 + [I] * 7 + [L] * 8 + [F, I, P],
+)
+PAGED_EXTEND = _build.Kernel(
+    "paged_extend", "paged_attention.cu", "fact_paged_extend",
+    [P] * 7 + [I] * 7 + [L] * 9 + [F, I, P],
+)
+
+
+def gather_pages(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+    """One layer's pool [Hkv, P, ps, D] -> each row's keys in order,
+    [B, Hkv, pages_per_seq * ps, D] (a copy; plain versions only)."""
+    hkv, _, ps, d = pages.shape
+    b, pps = page_table.shape
+    g = pages[:, page_table.long()]  # [Hkv, B, pps, ps, D]
+    return g.permute(1, 0, 2, 3, 4).reshape(b, hkv, pps * ps, d)
+
+
+def _clamp(lengths: torch.Tensor, page_table: torch.Tensor, page_size: int) -> torch.Tensor:
+    return lengths.to(torch.int32).clamp(0, page_table.shape[1] * page_size)
+
+
+def paged_attention_decode_plain(q, k_pages, v_pages, lengths, page_table, sm_scale=None,
+                                 window=None, logit_softcap=None):
+    """Plain version of B5 + D2 on any device: the fp32 reference over the
+    gathered pages."""
+    lens = _clamp(lengths, page_table, k_pages.shape[2]).to(q.device)
+    return attention_reference(
+        q, gather_pages(k_pages, page_table), gather_pages(v_pages, page_table),
+        softmax_scale=sm_scale, kv_length=lens, window=window, logit_softcap=logit_softcap,
+    )
+
+
+def paged_attention_extend_plain(q, k_pages, v_pages, q_offset, kv_length, page_table,
+                                 sm_scale=None, window=None, logit_softcap=None):
+    """Plain version of B6 on any device: the fp32 reference over the
+    gathered pages with per-row offsets."""
+    lens = _clamp(kv_length, page_table, k_pages.shape[2]).to(q.device)
+    return attention_reference(
+        q, gather_pages(k_pages, page_table), gather_pages(v_pages, page_table),
+        softmax_scale=sm_scale, causal=True, kv_length=lens,
+        q_offset=q_offset.to(device=q.device, dtype=torch.int32), window=window,
+        logit_softcap=logit_softcap,
+    )
+
+
+def _check_cuda_call(name, q, k_pages, v_pages, page_table, row_tensors, window, softcap):
+    """Shared refusals of the CUDA routes."""
+    if window is not None or softcap is not None:
+        raise NotImplementedError(
+            f"window / logit_softcap {name} on CUDA is not in the kernel yet "
+            "(plain version only; needed by Qwen2 / Gemma2, ROADMAP.md A10)"
+        )
+    b, hq, _, d = q.shape
+    hkv = k_pages.shape[0]
+    if q.dtype not in _build.DTYPE_CODES:
+        raise NotImplementedError(f"{name} kernel takes bf16/f16, got {q.dtype}")
+    if d not in HEAD_DIMS:
+        raise NotImplementedError(f"{name} kernel takes head_dim in {HEAD_DIMS}, got {d}")
+    if hq % hkv or hq // hkv > MAX_GROUP:
+        raise NotImplementedError(f"{name} kernel takes Hq/Hkv <= {MAX_GROUP}, got {hq}/{hkv}")
+    if k_pages.shape != v_pages.shape or k_pages.shape[3] != d or k_pages.ndim != 4:
+        raise ValueError(f"bad pools k {tuple(k_pages.shape)} v {tuple(v_pages.shape)}")
+    if k_pages.shape[2] % 8:
+        raise ValueError(f"page_size must be a multiple of 8, got {k_pages.shape[2]}")
+    for n, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        # The pool is never cast here: a cast would copy the layer's whole pool.
+        _build.check_cuda_tensor(n, t, q.dtype)
+    for n, t in (("page_table", page_table), *row_tensors):
+        want = (b, page_table.shape[1]) if n == "page_table" else (b,)
+        if t.device != q.device or t.dtype != torch.int32 or t.shape != want or not t.is_contiguous():
+            raise ValueError(f"{n} must be a contiguous {list(want)} int32 tensor on q's device")
+
+
+def paged_attention_decode(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    lengths: torch.Tensor,
+    page_table: torch.Tensor,
+    sm_scale: float | None = None,
+    window: int | None = None,
+    logit_softcap: float | None = None,
+) -> torch.Tensor:
+    """Single-token decode over a paged KV cache.
+
+    Args:
+      q: [B, Hq, 1, D]
+      k_pages, v_pages: one layer's pool [Hkv, P, ps, D]; on CUDA in q's dtype.
+      lengths: [B] int32 valid token counts (0 -> an exact zero row).
+      page_table: [B, pages_per_seq] int32 physical page ids.
+      window, logit_softcap: plain version only.
+
+    Returns [B, Hq, 1, D] in q's dtype.
+    """
+    b, hq, sq, d = q.shape
+    if sq != 1:
+        raise ValueError(f"decode takes one query row, got {sq}")
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    if q.device.type == "cpu":
+        return paged_attention_decode_plain(q, k_pages, v_pages, lengths, page_table,
+                                            sm_scale, window, logit_softcap)
+    _check_cuda_call("paged decode", q, k_pages, v_pages, page_table,
+                     [("lengths", lengths)], window, logit_softcap)
+    hkv, _, ps, _ = k_pages.shape
+    pps = page_table.shape[1]
+    g = hq // hkv
+    splits = dispatch.decode_num_splits(b, hkv, pps * ps)
+    acc = torch.empty((b, hkv, splits, g, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, hkv, splits, g), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    with torch.cuda.device(q.device):
+        PAGED_DECODE(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), lengths.data_ptr(),
+            page_table.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+            b, hkv, g, d, splits, pps, ps, q.stride(0), q.stride(1),
+            *k_pages.stride()[:3], *v_pages.stride()[:3],
+            float(sm_scale) * LOG2E, _build.DTYPE_CODES[q.dtype],
+        )
+    return flash_decode.decode_combine(acc, m, l, q.dtype)
+
+
+def paged_attention_extend(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    q_offset: torch.Tensor,
+    kv_length: torch.Tensor,
+    page_table: torch.Tensor,
+    sm_scale: float | None = None,
+    window: int | None = None,
+    logit_softcap: float | None = None,
+    return_clamps: bool = False,
+):
+    """Chunked prefill over a paged cache.
+
+    Args:
+      q: [B, Hq, S, D], the chunk's queries (global rows q_offset .. +S); any
+        strides with the head dim contiguous.
+      k_pages, v_pages: one layer's pool [Hkv, P, ps, D] with the chunk's K/V
+        already written at positions [q_offset, q_offset + S).
+      q_offset: [B] int32; kv_length: [B] int32 = q_offset + S for active
+        rows, 0 for inactive rows (their output is zeros).
+      page_table: [B, pages_per_seq] int32.
+      return_clamps: also return the softmax clamp count, which is 0: the
+        port's softmax is exact (the TPU kernel's lazy max is not copied).
+
+    Returns [B, Hq, S, D] in q's dtype (with return_clamps, (out, 0)).
+    """
+    b, hq, sq, d = q.shape
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    if q.device.type == "cpu":
+        out = paged_attention_extend_plain(q, k_pages, v_pages, q_offset, kv_length,
+                                           page_table, sm_scale, window, logit_softcap)
+        return (out, 0) if return_clamps else out
+    _check_cuda_call("paged extend", q, k_pages, v_pages, page_table,
+                     [("q_offset", q_offset), ("kv_length", kv_length)], window, logit_softcap)
+    hkv, _, ps, _ = k_pages.shape
+    out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+    if out.numel():
+        with torch.cuda.device(q.device):
+            PAGED_EXTEND(
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
+                q_offset.data_ptr(), kv_length.data_ptr(), page_table.data_ptr(),
+                b, hq, hkv, sq, d, page_table.shape[1], ps,
+                *q.stride()[:3], *k_pages.stride()[:3], *v_pages.stride()[:3],
+                float(sm_scale) * LOG2E, _build.DTYPE_CODES[q.dtype],
+            )
+    return (out, 0) if return_clamps else out

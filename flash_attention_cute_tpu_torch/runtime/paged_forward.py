@@ -1,0 +1,117 @@
+"""Model forward over a paged KV cache: the serving engine's data path.
+
+Port of flash_attention_cute_tpu/runtime/paged_forward.py for the Llama
+family (`models.transformer.check_supported`). Per layer, the fresh K/V are
+written into the page pool through the page table (`paged_append_layer`,
+the append kernel on CUDA), then attention runs:
+
+  * prefill: a fresh request (lengths 0): causal attention over the chunk's
+    own K/V (kernel P on CUDA). Prompts may be padded; lengths advance by
+    `valid_len`, and padded positions write K/V that no later read sees.
+  * extend: chunked admission: the S rows sit at global positions lengths
+    .. lengths + S and attend the paged prefix plus themselves (kernel B6).
+  * decode: one token per row: paged decode attention over the advanced
+    lengths (kernels B5 + D2). Rows of length 0 are inactive: they write
+    nothing, their length stays 0 and their output is discarded.
+
+The pool is updated in place, where the JAX version donates it: the
+returned state shares `k_pages`/`v_pages` with the one passed in.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from flash_attention_cute_tpu_torch.api import flash_attention_forward
+from flash_attention_cute_tpu_torch.models import layers as L
+from flash_attention_cute_tpu_torch.models.config import ModelConfig
+from flash_attention_cute_tpu_torch.models.transformer import check_supported
+from flash_attention_cute_tpu_torch.ops.flash_fwd import flash_attention_fwd_plain
+from flash_attention_cute_tpu_torch.ops.paged_attention import (
+    paged_attention_decode,
+    paged_attention_decode_plain,
+    paged_attention_extend,
+    paged_attention_extend_plain,
+)
+from flash_attention_cute_tpu_torch.runtime.paged_cache import PagedKVState, paged_append_layer
+
+
+def forward_paged(
+    params: dict,
+    cfg: ModelConfig,
+    input_ids: torch.Tensor,
+    state: PagedKVState,
+    mode: str = "decode",
+    valid_len: torch.Tensor | None = None,
+    plain_attention: bool = False,
+) -> tuple[torch.Tensor, PagedKVState]:
+    """Returns (logits [B, S, V] fp32, updated state).
+
+    Args:
+      input_ids: [B, S] on the parameters' device.
+      state: the paged state; its pools are written in place.
+      mode: "prefill" | "extend" | "decode" (S must be 1).
+      valid_len: [B] real (unpadded) lengths in prefill and extend (default
+        S); ignored in decode, where rows with length > 0 advance by 1.
+      plain_attention: run attention through the kernels' plain PyTorch
+        versions whatever the device (the comparison path).
+    """
+    if mode not in ("prefill", "decode", "extend"):
+        raise ValueError(f"unknown mode {mode!r}")
+    check_supported(cfg)
+    b, s = input_ids.shape
+    if mode == "decode" and s != 1:
+        raise ValueError(f"mode='decode' takes one token per row, got {s}")
+    x = params["embed"][input_ids].to(cfg.dtype)
+    dev = x.device
+
+    lengths = state.lengths
+    steps = torch.arange(s, dtype=torch.int32, device=dev)
+    if mode == "prefill":
+        positions = steps.expand(b, s)
+        if valid_len is None:
+            valid_len = torch.full((b,), s, dtype=torch.int32, device=dev)
+    elif mode == "extend":
+        positions = lengths[:, None] + steps
+        if valid_len is None:
+            valid_len = torch.full((b,), s, dtype=torch.int32, device=dev)
+    else:
+        positions = lengths[:, None] + steps
+        # Only active rows (length > 0 after their prefill) advance; empty
+        # slots stay at 0 and the kernel emits zeros for them.
+        valid_len = (lengths > 0).to(torch.int32)
+    cos, sin = L.rope_cos_sin(positions, L.rope_inv_freq(cfg, dev), cfg.dtype)
+    # Rows that do not advance (empty slots, and slots mid chunked admission
+    # whose tables already hold real pages) write nothing.
+    active = valid_len > 0
+    new_len = lengths + valid_len
+    scale = cfg.attention_scale
+    table = state.page_table
+
+    for li in range(cfg.num_layers):
+        lp = {name: w[li] for name, w in params["layers"].items()}
+        h = L.rms_norm(x, lp["input_ln"], cfg.rms_norm_eps)
+        q, k, v = L.qkv_project(h, lp, cfg)
+        q = L.apply_rope(q, cos, sin)
+        k = L.apply_rope(k, cos, sin)
+        kp, vp = state.k_pages[li], state.v_pages[li]  # views: written in place
+        paged_append_layer(kp, vp, k, v, table, lengths, active)
+        if mode == "prefill":
+            if plain_attention:
+                attn = flash_attention_fwd_plain(q, k, v, scale, causal=True)
+            else:
+                attn = flash_attention_forward(q, k, v, softmax_scale=scale, causal=True)
+        elif mode == "extend":
+            extend = paged_attention_extend_plain if plain_attention else paged_attention_extend
+            attn = extend(q, kp, vp, new_len - s, new_len, table, sm_scale=scale)
+        else:
+            decode = paged_attention_decode_plain if plain_attention else paged_attention_decode
+            attn = decode(q, kp, vp, new_len, table, sm_scale=scale)
+        x = L.layer_tail(x, attn, lp, cfg)
+
+    x = L.rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
+    lm_head = params.get("lm_head")
+    if lm_head is None:  # tied embeddings
+        lm_head = params["embed"].T
+    logits = (x @ lm_head.to(x.dtype)).float()
+    return logits, PagedKVState(state.k_pages, state.v_pages, table, new_len)

@@ -9,13 +9,15 @@ Shapes are the Llama-3-8B attention widths (Hq 32, Hkv 8, D 128) that
 results of fp32 arithmetic on bf16 inputs held against the fp32 plain
 version: max |diff| <= 3e-2 (the repository's bf16 figure). D1's partials
 are fp32 sums of the same bf16 inputs in another order: rtol 1e-4 with
-atol 1e-3.
+atol 1e-3. The paged append must write exactly what the plain masked
+scatter writes.
 """
 
 import pytest
 import torch
 
-from flash_attention_cute_tpu_torch.ops import flash_decode, flash_fwd
+from flash_attention_cute_tpu_torch.ops import flash_decode, flash_fwd, paged_attention
+from flash_attention_cute_tpu_torch.runtime import paged_cache
 
 pytestmark = pytest.mark.cuda
 
@@ -128,3 +130,98 @@ def test_kernels_refuse_what_they_do_not_take(device):
     k = torch.zeros(1, 2, 64, 64, dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError, match="int32"):
         flash_decode.flash_attention_decode(q, k, k, kv_length=torch.ones(1, device="cuda"))
+
+
+def paged_pool(gen, ps, rows, capacity=1024, hkv=8, d=128, lengths=None):
+    """One layer's pool [Hkv, P, ps, D] behind a permuted page table (page 0
+    in no table); with `lengths`, every position at or past a row's length
+    and the whole of page 0 hold NaN."""
+    pps = capacity // ps
+    num_pages = rows * pps + 1
+    kp, vp = randn(gen, hkv, num_pages, ps, d), randn(gen, hkv, num_pages, ps, d)
+    perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
+    table = perm[: rows * pps].view(rows, pps).to(torch.int32).contiguous()
+    if lengths is not None:
+        pos = torch.arange(pps * ps, device="cuda")
+        for b, n in enumerate(lengths):
+            dead = pos[pos >= n]
+            flat = table[b].long()[dead // ps] * ps + dead % ps
+            for pool in (kp, vp):
+                pool.view(hkv, num_pages * ps, d)[:, flat] = float("nan")
+                pool[:, 0] = float("nan")
+    return kp, vp, table
+
+
+@pytest.mark.parametrize("ps", [16, 128])
+def test_paged_decode_kernel_matches_plain(device, ps):
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    lens = [0, 1, ps - 1, ps, ps + 1, 1024, 777, 2 * ps + 1]
+    kp, vp, table = paged_pool(gen, ps, len(lens), lengths=lens)
+    q = randn(gen, len(lens), 32, 1, 128)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    before = (paged_attention.PAGED_DECODE.launches, flash_decode.COMBINE.launches)
+    out = paged_attention.paged_attention_decode(q, kp, vp, lengths, table)
+    torch.cuda.synchronize()
+    assert (paged_attention.PAGED_DECODE.launches, flash_decode.COMBINE.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = paged_attention.paged_attention_decode_plain(q, kp, vp, lengths, table)
+    assert torch.isfinite(out).all()
+    assert (out[0] == 0).all()  # length 0: exact zeros
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+
+
+@pytest.mark.parametrize("ps", [16, 128])
+@pytest.mark.parametrize("s", [256, 100])
+def test_paged_extend_kernel_matches_plain(device, ps, s):
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    offs = [0, 256, 700, 0]
+    kvl = [s, 256 + s, 700 + s, 0]  # the last row is inactive
+    kp, vp, table = paged_pool(gen, ps, len(offs), lengths=kvl)
+    q = randn(gen, len(offs), s, 32, 128).transpose(1, 2)  # the model's view
+    off_t = torch.tensor(offs, dtype=torch.int32, device="cuda")
+    kvl_t = torch.tensor(kvl, dtype=torch.int32, device="cuda")
+    before = paged_attention.PAGED_EXTEND.launches
+    out, clamps = paged_attention.paged_attention_extend(q, kp, vp, off_t, kvl_t, table,
+                                                         return_clamps=True)
+    torch.cuda.synchronize()
+    assert paged_attention.PAGED_EXTEND.launches == before + 1 and clamps == 0
+    ref = paged_attention.paged_attention_extend_plain(q, kp, vp, off_t, kvl_t, table)
+    assert torch.isfinite(out).all()
+    assert (out[3] == 0).all()
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+
+
+@pytest.mark.parametrize("s", [1, 100])
+def test_paged_append_kernel_writes_what_plain_writes(device, s):
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    starts, act = [0, 13, 15, 1024, 37, 32], [1, 1, 1, 1, 0, 1]
+    if s > 1:
+        starts[2] = 1024 - 40  # crosses the end of the table
+    kp, vp, table = paged_pool(gen, 16, len(starts))
+    new_k = randn(gen, len(starts), s, 8, 128).transpose(1, 2)
+    new_v = randn(gen, len(starts), s, 8, 128).transpose(1, 2)
+    lengths = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    active = torch.tensor(act, dtype=torch.bool, device="cuda")
+    ref_k, ref_v = kp.clone(), vp.clone()
+    before = paged_cache.APPEND.launches
+    paged_cache.paged_append_layer(kp, vp, new_k, new_v, table, lengths, active)
+    torch.cuda.synchronize()
+    assert paged_cache.APPEND.launches == before + 1
+    paged_cache.paged_append_layer_plain(ref_k, ref_v, new_k, new_v, table, lengths, active)
+    assert torch.equal(kp, ref_k) and torch.equal(vp, ref_v)
+
+
+def test_paged_kernels_refuse_what_they_do_not_take(device):
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    kp, vp, table = paged_pool(gen, 16, 2, capacity=64)
+    q = randn(gen, 2, 32, 1, 128)
+    lengths = torch.tensor([3, 5], dtype=torch.int32, device="cuda")
+    with pytest.raises(NotImplementedError, match="window"):
+        paged_attention.paged_attention_decode(q, kp, vp, lengths, table, window=8)
+    with pytest.raises(ValueError, match="bfloat16"):  # the pool is never cast
+        paged_attention.paged_attention_decode(q, kp.half(), vp.half(), lengths, table)
+    with pytest.raises(ValueError, match="int32"):
+        paged_attention.paged_attention_decode(q, kp, vp, lengths.long(), table)
+    with pytest.raises(NotImplementedError, match="softcap"):
+        paged_attention.paged_attention_extend(randn(gen, 2, 32, 4, 128), kp, vp, lengths,
+                                               lengths + 4, table, logit_softcap=30.0)
