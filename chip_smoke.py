@@ -13,26 +13,40 @@ Phases, in order; any failure exits non-zero:
   3. kernels vs plain: P, D1, D2, B5 (paged decode), B6 (paged extend) and
      the paged append at Llama-3-8B attention widths against their plain
      PyTorch versions on the card (bf16; tolerance below), B5/B6 over
-     NaN-poisoned pools behind permuted page tables.
+     NaN-poisoned pools behind permuted page tables; then (3b) the
+     quantized-cache kernels B7 (decode), B8 (paged decode), B9 (paged
+     extend) over int8 and e4m3 values whose scales (and e4m3 values) hold
+     NaN at and past every length, and QA (quantize-and-append, paged and
+     contiguous), which must be bit-identical to its plain version.
   4. main paths: greedy generation of Llama-3-8B (random weights from a
      seeded CUDA generator) at B 4, prompt 512, 64 new tokens; launch
      counters show the kernels carried it; teacher-forced logits of the
-     kernel path agree with the plain-attention path. Then the serving
-     engine over 24 requests in three runs: (A) whole-prompt admission,
-     (B) chunked admission, (C) chunked admission in a pool small enough
-     to preempt. Every request finishes, launch counts match the forwards,
-     and every engine token is within 1.0 of the top logit of one
-     contiguous teacher-forced prefill (kernel P) over its request. Last,
-     the serving forward's logits on the kernel route against its
-     plain_attention route in prefill, extend and decode.
-  5. numbers: per-kernel times, bounds and library times as one JSON line;
-     prefill and decode times; serving wall time, tokens/s, TTFT, rounds;
-     peak memory; the card's name and power limit.
+     kernel path agree with the plain-attention path. (4a) The same over
+     an int8 KV cache (QA, B7 + D2), its decode step held to the plain
+     route over one and the same quantized cache. (4b) The serving engine
+     over 24 requests in five runs: (A) whole-prompt admission, (B) chunked
+     admission, (C) chunked admission in a pool small enough to preempt,
+     (D) run A over int8 pages, (E) run B over e4m3 pages. Every request
+     finishes, launch counts match the forwards, and every engine token is
+     within 1.0 of the top logit of its request teacher-forced: one
+     contiguous prefill (kernel P) for A-C, and for D and E the run's own
+     admission (one prefill, or 256-token extends) then one extend over the
+     generated tokens through `forward_paged(plain_attention=True)` on
+     quantized pages of the run's dtype, which quantizes every row as the
+     engine did. (4c) The serving forward's logits on the kernel route
+     against its plain_attention route in prefill, extend and decode, over
+     a bf16, an int8 and an e4m3 pool.
+  5. numbers: per-kernel times, bounds and library times as one JSON line
+     (for B7-B9 the library call is SDPA over a dequantized bf16 copy,
+     whose dequantization is not timed); prefill and decode times; serving
+     wall time, tokens/s, TTFT, rounds, pool bytes and peak memory per
+     run; the card's name and power limit.
 The last line is {"ok": true, "device": {...}}.
 
 Tolerances: kernel outputs are bf16 results of fp32 arithmetic on bf16
 inputs, held against the fp32 plain version at max |diff| <= 3e-2 (the
-repository's bf16 figure). Teacher-forced logits of the kernel path and
+repository's bf16 figure); the quantized kernels too (their int8 / e4m3
+values widen to bf16 exactly, P is rounded to bf16 before PV as in B6). Teacher-forced logits of the kernel path and
 the plain-attention path: max |diff| <= 1.0 and mean |diff| <= 0.1. The
 logits have std about 1 with these weights, so a wrong kernel moves them by
 O(1) on average; the two paths differ only by bf16 roundings (P rounded
@@ -223,6 +237,121 @@ def phase_paged_kernels(torch, paged_attention, paged_cache, errs):
             check(same, "append kernel writes exactly what the plain scatter writes")
 
 
+QUANT_DTYPES = ("int8", "float8_e4m3fn")
+
+
+def poison_quant(torch, kv, dead):
+    """NaN into the scales where `dead` is True, and the e4m3 NaN byte 0x7F
+    into the values there (int8 has no NaN)."""
+    kv.scales[dead] = float("nan")
+    if kv.values.dtype == torch.float8_e4m3fn:
+        kv.values.view(torch.uint8)[dead] = 0x7F
+
+
+def quant_pool(torch, quantized, randn, gen, ps, rows, dtype, lengths=None, capacity=2048):
+    """One layer's quantized pools [8, P, ps, 128] behind a seeded permuted
+    table (page 0 in no table); with `lengths`, NaN-poisoned at and past
+    each row's length and in page 0."""
+    pps = capacity // ps
+    num_pages = rows * pps + 1
+    k, v = (quantized.quantize_kv(randn(8, num_pages, ps, 128), dtype) for _ in "kv")
+    perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
+    table = perm[: rows * pps].view(rows, pps).to(torch.int32).contiguous()
+    if lengths is None:
+        return k, v, table
+    dead = torch.zeros(num_pages * ps, dtype=torch.bool, device="cuda")
+    dead[:ps] = True
+    pos = torch.arange(pps * ps, device="cuda")
+    for b, n in enumerate(lengths):
+        p = pos[pos >= n]
+        dead[table[b].long()[p // ps] * ps + p % ps] = True
+    for kv in (k, v):
+        poison_quant(torch, kv, dead.view(1, num_pages, ps).expand(8, -1, -1))
+    return k, v, table
+
+
+def phase_quant_kernels(torch, quantized, errs):
+    """B7, B8, B9 and QA against their plain versions (Hq 32, Hkv 8, D 128,
+    bf16 q over int8 and e4m3 values with f32 scales), over caches whose
+    scales (and e4m3 values) hold NaN at and past every length."""
+    from flash_attention_cute_tpu_torch.ops.quantized import QuantizedKV
+
+    gen = torch.Generator(device="cuda").manual_seed(5678)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def record(name, e, what, out=None, zero_rows=()):
+        errs[name] = max(errs.get(name, 0.0), e)
+        print(f"  {what}: max|diff| {e:.3e}")
+        if out is not None:
+            check(bool(torch.isfinite(out).all()), f"{what}: output finite over NaN-poisoned K/V")
+            for r in zero_rows:
+                check(bool((out[r] == 0).all()), f"{what}: row {r} (length 0) is exactly 0")
+        check(e <= BF16_TOL, f"{what} within {BF16_TOL}")
+
+    for dname in QUANT_DTYPES:
+        dtype = getattr(torch, dname)
+        # B7: the stacked cache of 2 layers, layer 1.
+        lens = [0, 1, 63, 64, 65, 544, 2048]
+        k, v = (quantized.quantize_kv(randn(2, len(lens), 8, 2048, 128), dtype) for _ in "kv")
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        dead = torch.arange(2048, device="cuda")[None, :] >= lengths[:, None]
+        for kv in (k, v):
+            poison_quant(torch, kv, dead[None, :, None, :].expand(2, -1, 8, -1))
+        q = randn(len(lens), 32, 1, 128)
+        out = quantized.flash_attention_decode_quantized(q, k, v, lengths, layer=1)
+        ref = quantized.flash_attention_decode_quantized_plain(q, k, v, lengths, layer=1)
+        record("quant_decode", max_err(out, ref), f"B7 {dname} lengths {lens}", out, [0])
+        del k, v
+
+        for ps in (16, 128):
+            # B8: B5's length set.
+            lens = [0, 1, ps - 1, ps, ps + 1, 2048, 777, 2 * ps + 1]
+            k, v, table = quant_pool(torch, quantized, randn, gen, ps, len(lens), dtype, lens)
+            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            q = randn(len(lens), 32, 1, 128)
+            out = quantized.paged_attention_decode_quantized(q, k, v, lengths, table)
+            ref = quantized.paged_attention_decode_quantized_plain(q, k, v, lengths, table)
+            record("quant_paged_decode", max_err(out, ref),
+                   f"B8 {dname} page_size {ps}, lengths {lens}", out, [0])
+            # B9: chunks of 256 and 100 at offsets 0 / 256 / 1000, one inactive row.
+            for s in (256, 100):
+                off = torch.tensor([0, 256, 1000, 0], dtype=torch.int32, device="cuda")
+                kvl = torch.tensor([s, 256 + s, 1000 + s, 0], dtype=torch.int32, device="cuda")
+                k, v, table = quant_pool(torch, quantized, randn, gen, ps, 4, dtype, kvl.tolist())
+                q = randn(4, s, 32, 128).transpose(1, 2)  # the model's [B, S, H, D] view
+                out = quantized.paged_attention_extend_quantized(q, k, v, off, kvl, table)
+                ref = quantized.paged_attention_extend_quantized_plain(q, k, v, off, kvl, table)
+                record("quant_paged_extend", max_err(out, ref),
+                       f"B9 {dname} page_size {ps}, S {s}, q_offset {off.tolist()}", out, [3])
+            # QA: decode rows and a 100-token chunk, paged (an inactive row, a
+            # row past the table) and into the contiguous cache.
+            for s, starts, act in ((1, [0, 5, ps - 1, 2048, 37, 2 * ps, 1, 9],
+                                    [1, 1, 1, 1, 0, 1, 1, 1]),
+                                   (100, [0, ps - 3, 2048 - 40, 3], [1, 1, 1, 0])):
+                b = len(starts)
+                nk, nv = (randn(b, s, 8, 128).transpose(1, 2) for _ in "kv")
+                lengths = torch.tensor(starts, dtype=torch.int32, device="cuda")
+                active = torch.tensor(act, dtype=torch.bool, device="cuda")
+                k, v, table = quant_pool(torch, quantized, randn, gen, ps, b, dtype, [2048] * b)
+                cont = [quantized.quantize_kv(randn(b, 8, 2048 + s, 128), dtype) for _ in "kv"]
+                for mode, (kc, vc), tbl, act_ in (("paged", (k, v), table, active),
+                                                  ("contiguous", cont, None, None)):
+                    ref = [QuantizedKV(x.values.clone(), x.scales.clone()) for x in (kc, vc)]
+                    quantized.quantize_append(nk, nv, kc, vc, lengths, tbl, act_)
+                    quantized.quantize_append_plain(nk, nv, *ref, lengths, tbl, act_)
+                    same = all(
+                        torch.equal(g.values.view(torch.uint8), w.values.view(torch.uint8))
+                        and torch.equal(g.scales.view(torch.int32), w.scales.view(torch.int32))
+                        for g, w in zip((kc, vc), ref))
+                    errs["quant_append"] = 0.0 if same else float("inf")
+                    print(f"  QA {dname} {mode}, page_size {ps}, S {s}, starts {starts}: "
+                          f"bit-identical to plain: {same}")
+                    check(same, "QA writes exactly what quantize_kv + the indexed write writes")
+                del cont
+
+
 def serving_requests(cfg):
     """24 requests: prompt lengths uniform in 128-1024, max_new_tokens in
     32-96, ids uniform over the vocabulary, all from numpy seed 0."""
@@ -242,7 +371,15 @@ SERVING_RUNS = {
                       prefill_chunk=256),
     "C preemption": dict(slots=8, page_size=16, pages_per_seq=128, num_pages=321,
                          prefill_chunk=256),
+    # Runs A and B over quantized pages.
+    "D int8 whole-prompt": dict(slots=8, page_size=128, pages_per_seq=16, num_pages=129,
+                                prefill_group=4, decode_chunk=8, kv_dtype="int8"),
+    "E e4m3 chunked": dict(slots=8, page_size=16, pages_per_seq=128, num_pages=561,
+                           prefill_chunk=256, kv_dtype="float8_e4m3fn"),
 }
+# The kernels of the dense and of the quantized serving routes.
+DENSE_SERVING = ("paged_decode", "paged_extend", "paged_append")
+QUANT_SERVING = ("quant_paged_decode", "quant_paged_extend", "quant_append")
 
 
 def teacher_forced(torch, cfg, params, prompt, tokens):
@@ -260,16 +397,52 @@ def teacher_forced(torch, cfg, params, prompt, tokens):
     return (chosen >= top - LOGIT_MAX_TOL).tolist(), (chosen == top).tolist()
 
 
+def teacher_forced_paged(torch, cfg, params, state, prompt, tokens, chunk):
+    """`teacher_forced` for a quantized run: the request through
+    `forward_paged(plain_attention=True)` on a quantized state of the run's
+    dtype and page size, admitted as the run admits it (one prefill, or
+    extends of `chunk` tokens), then one extend over the generated tokens.
+    Each K/V row is quantized as the engine quantized it."""
+    import dataclasses
+    from flash_attention_cute_tpu_torch.runtime.paged_forward import forward_paged
+
+    state = dataclasses.replace(state, lengths=torch.zeros_like(state.lengths))
+    with torch.no_grad():
+        for i in range(0, len(prompt), chunk or len(prompt)):
+            ids = torch.tensor([prompt[i: i + (chunk or len(prompt))]], device="cuda")
+            logits, state = forward_paged(params, cfg, ids, state,
+                                          mode="extend" if chunk else "prefill",
+                                          plain_attention=True)
+        rows = [logits[0, -1:]]
+        if len(tokens) > 1:
+            ids = torch.tensor([tokens[:-1]], device="cuda")
+            rows.append(forward_paged(params, cfg, ids, state, mode="extend",
+                                      plain_attention=True)[0][0])
+    logits = torch.cat(rows)
+    tok = torch.tensor(tokens, device="cuda")
+    chosen = logits.gather(1, tok[:, None])[:, 0]
+    top = logits.max(dim=1).values
+    return (chosen >= top - LOGIT_MAX_TOL).tolist(), (chosen == top).tolist()
+
+
 def phase_serving(torch, cfg, params, kernels, path_counts):
-    """Runs A-C of the serving engine over 24 requests; launch counts per
+    """Runs A-E of the serving engine over 24 requests; launch counts per
     run, every request's tokens teacher-forced, and the numbers."""
     from flash_attention_cute_tpu_torch.runtime.engine import ServingEngine
+    from flash_attention_cute_tpu_torch.runtime.paged_cache import create_quantized_paged_state
 
     reqs = serving_requests(cfg)
     n = cfg.num_layers
-    results = {}
+    # The peak of the phases so far; each run then measures its own.
+    results = {"peak_before_serving_gb": torch.cuda.max_memory_allocated() / 1e9}
     for name, kw in SERVING_RUNS.items():
+        quant = "kv_dtype" in kw
+        if quant:
+            kw = {**kw, "kv_dtype": getattr(torch, kw["kv_dtype"])}
+        torch.cuda.reset_peak_memory_stats()
         eng = ServingEngine(params, cfg, **kw)
+        pool_bytes = sum(t.numel() * t.element_size() for f, t in vars(eng.state).items()
+                         if f not in ("page_table", "lengths"))
         for rid, prompt, new in reqs:
             eng.submit(rid, prompt, new)
         for k in kernels.values():
@@ -280,21 +453,28 @@ def phase_serving(torch, cfg, params, kernels, path_counts):
             out = eng.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
         counts = {k: kern.launches for k, kern in kernels.items()}
         path_counts[name] = counts
         fw = eng.forwards
         print(f"  ({name}) {kw}: {wall:.3f} s, forwards {fw}, launches {counts}, "
-              f"stats {eng.stats}")
+              f"stats {eng.stats}; pool {pool_bytes / 1e9:.4f} GB, peak memory "
+              f"{peak / 1e9:.3f} GB")
         check(sorted(out) == list(range(len(reqs))) and not eng.failed,
               f"({name}) every request finishes, none fails")
         check(eng.native, f"({name}) runs on the native scheduler")
-        check(counts["paged_decode"] == n * fw["decode"] == counts["decode_combine"],
-              f"({name}) B5 and D2 launched layers x decode forwards")
-        check(counts["paged_extend"] == n * fw["extend"], f"({name}) B6 = layers x extends")
+        # The route's paged decode (B5 or B8), extend (B6 or B9) and append
+        # (the copy or QA); none of the other route's.
+        dec, ext, app = QUANT_SERVING if quant else DENSE_SERVING
+        check(counts[dec] == n * fw["decode"] == counts["decode_combine"],
+              f"({name}) {dec} and D2 launched layers x decode forwards")
+        check(counts[ext] == n * fw["extend"], f"({name}) {ext} = layers x extends")
         check(counts["flash_fwd"] == n * fw["prefill"], f"({name}) P = layers x prefills")
-        check(counts["paged_append"] == n * sum(fw.values()),
-              f"({name}) append = layers x forwards")
-        check(counts["decode_partials"] == 0, f"({name}) no contiguous decode")
+        check(counts[app] == n * sum(fw.values()), f"({name}) {app} = layers x forwards")
+        check(all(counts[k] == 0 for k in (DENSE_SERVING if quant else QUANT_SERVING)),
+              f"({name}) no kernel of the other route")
+        check(counts["decode_partials"] == 0 and counts["quant_decode"] == 0,
+              f"({name}) no contiguous decode")
         if kw.get("prefill_chunk"):
             check(fw["extend"] > 0, f"({name}) admission by extend")
         else:
@@ -303,10 +483,22 @@ def phase_serving(torch, cfg, params, kernels, path_counts):
             check(eng.stats["preemptions"] > 0, f"({name}) preempts")
 
         near, top = [], []
+        if quant:
+            tf_state = create_quantized_paged_state(
+                cfg, kw["pages_per_seq"] + 1, kw["page_size"], 1, kw["pages_per_seq"],
+                dtype=kw["kv_dtype"])
+            tf_state.page_table = torch.arange(1, kw["pages_per_seq"] + 1, dtype=torch.int32,
+                                               device="cuda")[None]
         for rid, prompt, _ in reqs:
-            a, b = teacher_forced(torch, cfg, params, prompt, out[rid])
+            if quant:
+                a, b = teacher_forced_paged(torch, cfg, params, tf_state, prompt, out[rid],
+                                            kw.get("prefill_chunk", 0))
+            else:
+                a, b = teacher_forced(torch, cfg, params, prompt, out[rid])
             near += a
             top += b
+        if quant:
+            del tf_state
         print(f"  ({name}) teacher-forced: {sum(near)}/{len(near)} tokens within "
               f"{LOGIT_MAX_TOL} of the top logit, argmax share {sum(top) / len(top):.4f}")
         check(all(near), f"({name}) every engine token within {LOGIT_MAX_TOL} of the top logit")
@@ -326,6 +518,8 @@ def phase_serving(torch, cfg, params, kernels, path_counts):
             "prefills": eng.stats["prefills"],
             "preemptions": eng.stats["preemptions"],
             "teacher_forced_argmax_share": sum(top) / len(top),
+            "pool_gb": pool_bytes / 1e9,
+            "peak_memory_gb": peak / 1e9,
         }
         del eng, out
         torch.cuda.empty_cache()
@@ -336,13 +530,17 @@ def phase_serving(torch, cfg, params, kernels, path_counts):
 def phase_serving_forward(torch, cfg, params, kernels):
     """The serving forward (`forward_paged`) on the kernel route against its
     plain_attention route, teacher-forced on the same ids through the same
-    permuted page table, each route on a pool of its own: a prefill of 4
-    padded prompts (P), a 256-token extend (B6), two decode steps (B5 + D2).
-    The kernel route must launch its kernels and the plain route none (the
-    append kernel writes the pools on both). These comparison launches are
-    not a main path's: the serving runs reset the counts before each run."""
+    permuted page table, each route on a pool of its own, for a bf16, an
+    int8 and an e4m3 pool: a prefill of 4 padded prompts (P), a 256-token
+    extend (B6 / B9), two decode steps (B5 / B8, + D2). The kernel route
+    must launch its kernels and the plain route none (the append kernel or
+    QA writes the pools on both). These comparison launches are not a main
+    path's: the serving runs reset the counts before each run."""
     import numpy as np
-    from flash_attention_cute_tpu_torch.runtime.paged_cache import create_paged_state
+    from flash_attention_cute_tpu_torch.runtime.paged_cache import (
+        create_paged_state,
+        create_quantized_paged_state,
+    )
     from flash_attention_cute_tpu_torch.runtime.paged_forward import forward_paged
 
     b, ps, pps = 4, 16, 64
@@ -355,40 +553,49 @@ def phase_serving_forward(torch, cfg, params, kernels):
     gen = torch.Generator(device="cuda").manual_seed(2)
     table = (torch.randperm(b * pps, generator=gen, device="cuda") + 1).view(b, pps)
     attention = ("flash_fwd", "paged_extend", "paged_decode", "decode_combine",
-                 "decode_partials")
-    logits, launches = {}, {}
-    for plain in (False, True):
-        state = create_paged_state(cfg, b * pps + 1, ps, b, pps)
-        state.page_table = table.to(torch.int32)
-        for k in kernels.values():
-            k.launches = 0
-        with torch.no_grad():
-            outs = []
-            for mode, ids, valid in steps:
-                out, state = forward_paged(params, cfg, ids, state, mode=mode, valid_len=valid,
-                                           plain_attention=plain)
-                outs.append(out)
-        torch.cuda.synchronize()
-        logits[plain] = outs
-        launches[plain] = {k: kern.launches for k, kern in kernels.items()}
-        del state
+                 "decode_partials", "quant_decode", "quant_paged_decode", "quant_paged_extend")
     n = cfg.num_layers
-    print(f"  kernel route launches {launches[False]}; plain route {launches[True]}")
-    check(launches[False]["flash_fwd"] == n and launches[False]["paged_extend"] == n
-          and launches[False]["paged_decode"] == 2 * n == launches[False]["decode_combine"],
-          "the kernel route runs P, B6 and B5 + D2 once per layer and forward")
-    check(all(launches[True][k] == 0 for k in attention),
-          "the plain route launches no attention kernel")
-    for (mode, _, _), a, r in zip(steps, logits[False], logits[True]):
-        check(bool(torch.isfinite(a).all()), f"serving {mode} logits finite")
-        d = (a - r).abs()
-        print(f"  serving {mode} logits {tuple(a.shape)} kernel vs plain: max|diff| "
-              f"{d.max().item():.4f}, mean|diff| {d.mean().item():.5f}, argmax agree "
-              f"{(a.argmax(-1) == r.argmax(-1)).float().mean().item():.4f}")
-        check(d.max().item() <= LOGIT_MAX_TOL and d.mean().item() <= LOGIT_MEAN_TOL,
-              f"serving {mode} logits within max {LOGIT_MAX_TOL} / mean {LOGIT_MEAN_TOL}")
-    del logits
-    torch.cuda.empty_cache()
+    for pool in ("bf16",) + QUANT_DTYPES:
+        logits, launches = {}, {}
+        for plain in (False, True):
+            if pool == "bf16":
+                state = create_paged_state(cfg, b * pps + 1, ps, b, pps)
+            else:
+                state = create_quantized_paged_state(cfg, b * pps + 1, ps, b, pps,
+                                                     dtype=getattr(torch, pool))
+            state.page_table = table.to(torch.int32)
+            for k in kernels.values():
+                k.launches = 0
+            with torch.no_grad():
+                outs = []
+                for mode, ids, valid in steps:
+                    out, state = forward_paged(params, cfg, ids, state, mode=mode,
+                                               valid_len=valid, plain_attention=plain)
+                    outs.append(out)
+            torch.cuda.synchronize()
+            logits[plain] = outs
+            launches[plain] = {k: kern.launches for k, kern in kernels.items()}
+            del state
+        dec, ext, _ = DENSE_SERVING if pool == "bf16" else QUANT_SERVING
+        print(f"  {pool} pool: kernel route launches {launches[False]}; plain route "
+              f"{launches[True]}")
+        check(launches[False]["flash_fwd"] == n and launches[False][ext] == n
+              and launches[False][dec] == 2 * n == launches[False]["decode_combine"],
+              f"{pool} pool: the kernel route runs P, {ext} and {dec} + D2 once per layer "
+              "and forward")
+        check(all(launches[True][k] == 0 for k in attention),
+              f"{pool} pool: the plain route launches no attention kernel")
+        for (mode, _, _), a, r in zip(steps, logits[False], logits[True]):
+            check(bool(torch.isfinite(a).all()), f"serving {mode} logits finite ({pool} pool)")
+            d = (a - r).abs()
+            print(f"  {pool} pool: serving {mode} logits {tuple(a.shape)} kernel vs plain: "
+                  f"max|diff| {d.max().item():.4f}, mean|diff| {d.mean().item():.5f}, argmax "
+                  f"agree {(a.argmax(-1) == r.argmax(-1)).float().mean().item():.4f}")
+            check(d.max().item() <= LOGIT_MAX_TOL and d.mean().item() <= LOGIT_MEAN_TOL,
+                  f"serving {mode} logits ({pool} pool) within max {LOGIT_MAX_TOL} / mean "
+                  f"{LOGIT_MEAN_TOL}")
+        del logits
+        torch.cuda.empty_cache()
 
 
 def profile_serving(torch, cfg, params, reqs, rounds=3):
@@ -493,7 +700,64 @@ def phase_main_path(torch, cfg, params, kernels, counts):
     check(counts["flash_fwd"] == n, f"P launched once per layer in prefill ({n})")
     for name in ("decode_partials", "decode_combine"):
         check(counts[name] == n * (NEW - 1), f"{name} launched {n} x {NEW - 1}")
-    return ids
+    return ids, tokens
+
+
+def phase_main_path_int8(torch, cfg, params, ids, bf16_tokens, kernels, counts):
+    """Greedy generation over an int8 KV cache: the decode step on the
+    kernel route (QA, then B7 + D2) against the plain route over one and the
+    same quantized cache, then `greedy_generate(cache_dtype=torch.int8)`
+    with its launch counts. Agreement with the bf16 cache is printed, not
+    held to a limit: quantization moves the logits by design."""
+    import dataclasses
+    from flash_attention_cute_tpu_torch.models.cache import KVCache, QuantizedKVCache
+    from flash_attention_cute_tpu_torch.models.transformer import forward
+    from flash_attention_cute_tpu_torch.runtime.generate import greedy_generate
+
+    with torch.no_grad():
+        cache = QuantizedKVCache.create(cfg, B, CAPACITY, torch.int8)
+        logits, cache = forward(params, cfg, ids, cache=cache, mode="prefill")
+        tok = logits[:, -1].argmax(-1)[:, None]
+        twin = dataclasses.replace(cache, **{f: getattr(cache, f).clone() for f in (
+            "k_values", "k_scales", "v_values", "v_scales")})
+        a = forward(params, cfg, tok, cache=cache, mode="decode")[0]
+        b = forward(params, cfg, tok, cache=twin, mode="decode", plain_attention=True)[0]
+        dense = forward(params, cfg, ids, cache=KVCache.create(cfg, B, CAPACITY), mode="prefill")[1]
+        ref16 = forward(params, cfg, tok, cache=dense, mode="decode")[0]
+        del cache, twin, dense
+    check(bool(torch.isfinite(a).all()), "int8-cache decode logits finite")
+    d = (a - b).abs()
+    print(f"  teacher-forced int8-cache decode step {tuple(a.shape)}, kernel route (B7) vs "
+          f"plain over the same cache: max|diff| {d.max().item():.4f}, mean|diff| "
+          f"{d.mean().item():.5f}; argmax agree with the bf16 cache "
+          f"{(a.argmax(-1) == ref16.argmax(-1)).float().mean().item():.4f} (not gated)")
+    check(d.max().item() <= LOGIT_MAX_TOL and d.mean().item() <= LOGIT_MEAN_TOL,
+          f"int8-cache decode logits within max {LOGIT_MAX_TOL} / mean {LOGIT_MEAN_TOL}")
+    torch.cuda.empty_cache()
+
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        tokens = greedy_generate(params, cfg, ids, NEW, cache_capacity=CAPACITY,
+                                 cache_dtype=torch.int8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts.update({name: k.launches for name, k in kernels.items()})
+    same = (tokens == bf16_tokens).float().mean().item()
+    print(f"  greedy_generate int8 cache B{B} prompt {PROMPT} new {NEW}: {wall:.3f} s, "
+          f"launches {counts}; tokens equal to the bf16 cache's at {same:.4f} of positions "
+          "(free-running: one flip changes the rest; not gated)")
+    check(tuple(tokens.shape) == (B, NEW), "int8 greedy token shape")
+    check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "int8 greedy tokens in vocab")
+    n = cfg.num_layers
+    check(counts["flash_fwd"] == n, f"P launched once per layer in the int8 prefill ({n})")
+    check(counts["quant_decode"] == n * (NEW - 1) == counts["decode_combine"],
+          f"B7 and D2 launched {n} x {NEW - 1}")
+    check(counts["quant_append"] == n * NEW, f"QA launched {n} x (1 + {NEW - 1})")
+    check(counts["decode_partials"] == 0, "no bf16 decode (D1) over the int8 cache")
+    return {"greedy_int8_wall_s": wall, "greedy_int8_token_agreement_with_bf16": same}
 
 
 def phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode, errs, path_counts):
@@ -557,6 +821,7 @@ def phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode, errs, path_c
         "ops": 4 * acc.numel(), "bytes": part_bytes + 2 * qd.numel(), "peak": PEAK_F32,
     })
     rows += paged_rows(torch, cfg, randn, gen)
+    rows += quant_rows(torch, cfg, randn, gen)
 
     # Context only (not a kernel row): the whole decode attention, D1 + D2,
     # beside one SDPA call over the length-masked cache.
@@ -717,6 +982,132 @@ def paged_rows(torch, cfg, randn, gen):
     return rows
 
 
+def quant_rows(torch, cfg, randn, gen):
+    """Kernel rows of B7 (+ D2) at the int8 greedy path's middle decode step
+    (B 4, cache 576, every row 544 keys), B8 (+ D2) at run D's decode (8
+    slots, page_size 128, the first 8 requests 32 tokens into their
+    generation, int8), B9 at run E's extend (8 rows, chunk 256, page_size
+    16, offsets 0-768, e4m3) and QA at run D's decode (8 rows, one token,
+    int8 pages). `library_ms` of B7-B9 is one SDPA call over a dequantized
+    bf16 contiguous copy of the keys (GQA expanded, masked), whose
+    dequantization is not timed; no single PyTorch call quantizes, so QA
+    has none."""
+    from flash_attention_cute_tpu_torch import dispatch
+    from flash_attention_cute_tpu_torch.ops import quantized as qz
+    from flash_attention_cute_tpu_torch.ops.paged_attention import append_targets
+    from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms
+
+    f = torch.nn.functional
+    hq, hkv, d = cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim
+    rep = hq // hkv
+    src = "flash_attention_cute_tpu_torch/csrc/quantized.cu"
+    rows = []
+
+    def dense_copy(kv, table=None):
+        """bf16 keys [B, Hq, n, D] for the library call (not timed)."""
+        x = qz._gather_dequantized(kv, table) if table is not None else qz.dequantize_kv(kv)
+        return x.to(torch.bfloat16).repeat_interleave(rep, dim=1)
+
+    def timed(fn, plain, library, iters=50):
+        return {"ms": cuda_time_ms(fn, iters), "call_ms": call_time_ms(fn, iters),
+                "plain_ms": cuda_time_ms(plain, 10),
+                "library_ms": None if library is None else cuda_time_ms(library, iters)}
+
+    # B7 + D2.
+    b, cap, live = B, CAPACITY, PROMPT + NEW // 2
+    k, v = (qz.quantize_kv(randn(b, hkv, cap, d), torch.int8) for _ in "kv")
+    q = randn(b, hq, 1, d)
+    lengths = torch.full((b,), live, dtype=torch.int32, device="cuda")
+    splits = dispatch.decode_num_splits(b, hkv, cap)
+    kc, vc = dense_copy(k), dense_copy(v)
+    mask = (torch.arange(cap, device="cuda") < live)[None, None, None, :]
+    rows.append({
+        "name": "quant_decode", "route": "cuda", "source": src,
+        "replaces": "flash_attention_cute_tpu/ops/quantized.py:73",
+        **timed(lambda: qz.flash_attention_decode_quantized(q, k, v, lengths),
+                lambda: qz.flash_attention_decode_quantized_plain(q, k, v, lengths),
+                lambda: f.scaled_dot_product_attention(q, kc, vc, attn_mask=mask)),
+        "ops": 4 * b * hq * live * d,
+        "bytes": (2 * q.numel() + 2 * b * hkv * live * d + 2 * 4 * b * hkv * live + 4 * b
+                  + 4 * b * hkv * splits * rep * (d + 2) + 2 * q.numel()),
+        "peak": PEAK_F32,
+        "shape": f"B {b}, cache {cap}, lengths {live}, int8, splits {splits}; ms includes D2",
+    })
+    del k, v, kc, vc
+
+    # B8 + D2 at run D's decode.
+    b, ps, pps = 8, 128, 16
+    k, v, table = quant_pool(torch, qz, randn, gen, ps, b, torch.int8)
+    lens_list = [len(p) + 32 for _, p, _ in serving_requests(cfg)[:b]]
+    lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+    q = randn(b, hq, 1, d)
+    live = sum(lens_list)
+    splits = dispatch.decode_num_splits(b, hkv, pps * ps)
+    kc, vc = dense_copy(k, table), dense_copy(v, table)
+    mask = (torch.arange(pps * ps, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    rows.append({
+        "name": "quant_paged_decode", "route": "cuda", "source": src,
+        "replaces": "flash_attention_cute_tpu/ops/quantized.py:395",
+        **timed(lambda: qz.paged_attention_decode_quantized(q, k, v, lens, table),
+                lambda: qz.paged_attention_decode_quantized_plain(q, k, v, lens, table),
+                lambda: f.scaled_dot_product_attention(q, kc, vc, attn_mask=mask)),
+        "ops": 4 * hq * live * d,  # `live` already sums the rows' keys
+        "bytes": (2 * q.numel() + 2 * hkv * live * d + 2 * 4 * hkv * live
+                  + 4 * (b + sum(-(-n // ps) for n in lens_list))
+                  + 4 * b * hkv * splits * rep * (d + 2) + 2 * q.numel()),
+        "peak": PEAK_F32,
+        "shape": f"B {b}, page_size {ps}, lengths {lens_list}, int8, splits {splits}; "
+                 "ms includes D2",
+    })
+    del k, v, kc, vc
+
+    # B9 at run E's extend.
+    b, ps, pps, s = 8, 16, 128, 256
+    k, v, table = quant_pool(torch, qz, randn, gen, ps, b, torch.float8_e4m3fn)
+    offs = [0, 256, 512, 768] * 2
+    off = torch.tensor(offs, dtype=torch.int32, device="cuda")
+    kvl = off + s
+    q = randn(b, s, hq, d).transpose(1, 2)
+    pairs = sum(s * o + s * (s + 1) // 2 for o in offs)
+    kc, vc = dense_copy(k, table), dense_copy(v, table)
+    cols = torch.arange(pps * ps, device="cuda")[None, None, :]
+    mask = ((cols <= off[:, None, None] + torch.arange(s, device="cuda")[None, :, None])
+            & (cols < kvl[:, None, None]))[:, None]
+    kv_tokens = int(kvl.sum())
+    rows.append({
+        "name": "quant_paged_extend", "route": "cuda", "source": src,
+        "replaces": "flash_attention_cute_tpu/ops/quantized.py:717",
+        **timed(lambda: qz.paged_attention_extend_quantized(q, k, v, off, kvl, table),
+                lambda: qz.paged_attention_extend_quantized_plain(q, k, v, off, kvl, table),
+                lambda: f.scaled_dot_product_attention(q, kc, vc, attn_mask=mask), 20),
+        "ops": 4 * hq * d * pairs,
+        "bytes": (2 * 2 * q.numel() + 2 * hkv * d * kv_tokens + 2 * 4 * hkv * kv_tokens
+                  + 4 * (2 * b + sum(-(-int(n) // ps) for n in kvl.tolist()))),
+        "peak": PEAK_BF16,
+        "shape": f"B {b}, S {s}, page_size {ps}, q_offset {offs}, e4m3",
+    })
+    del k, v, kc, vc, mask
+
+    # QA at run D's decode: one token per row into int8 pages of 128.
+    b, ps, pps = 8, 128, 16
+    k, v, table = quant_pool(torch, qz, randn, gen, ps, b, torch.int8)
+    nk, nv = (randn(b, 1, hkv, d).transpose(1, 2) for _ in "kv")
+    active = torch.ones(b, dtype=torch.bool, device="cuda")
+    assert bool(append_targets(table, lens, 1, ps)[1].all())  # every row writes
+    rows.append({
+        "name": "quant_append", "route": "cuda", "source": src,
+        "replaces": "flash_attention_cute_tpu/runtime/paged_cache.py:206",
+        **timed(lambda: qz.quantize_append(nk, nv, k, v, lens, table, active),
+                lambda: qz.quantize_append_plain(nk, nv, k, v, lens, table, active), None),
+        "ops": 3 * 2 * nk.numel(),  # |x| and max, x / scale, the rounding
+        "bytes": 2 * 2 * nk.numel() + 2 * nk.numel() + 2 * 4 * b * hkv + 4 * 3 * b,
+        "peak": PEAK_F32,
+        "shape": f"B {b}, S 1, page_size {ps}, int8; library_ms null: no single PyTorch "
+                 "call quantizes",
+    })
+    return rows
+
+
 def profile_decode(torch, params, cfg, cache, tok, steps=4):
     """Device time per decode step and its top kernels, from torch.profiler
     (which slows the host side, so its wall time is reported apart)."""
@@ -783,11 +1174,18 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 2. build
-    from flash_attention_cute_tpu_torch.ops import _build, flash_decode, flash_fwd, paged_attention
+    from flash_attention_cute_tpu_torch.ops import (
+        _build,
+        flash_decode,
+        flash_fwd,
+        paged_attention,
+        quantized,
+    )
     from flash_attention_cute_tpu_torch.runtime import native, paged_cache
 
     t0 = time.perf_counter()
-    reports = _build.build(["flash_fwd.cu", "flash_decode.cu", "paged_attention.cu"])
+    reports = _build.build(["flash_fwd.cu", "flash_decode.cu", "paged_attention.cu",
+                            "quantized.cu"])
     t_nvcc = time.perf_counter() - t0
     native.build()
     print(f"[2] build: nvcc {t_nvcc:.1f} s, then g++ (native scheduler) "
@@ -802,6 +1200,8 @@ def main() -> int:
     print("[3] kernels vs plain (bf16, Hq 32 Hkv 8 D 128)")
     phase_kernels(torch, flash_fwd, flash_decode, errs)
     phase_paged_kernels(torch, paged_attention, paged_cache, errs)
+    print("[3b] quantized kernels vs plain (bf16 q, int8 / e4m3 K/V, f32 scales)")
+    phase_quant_kernels(torch, quantized, errs)
     torch.cuda.synchronize()
 
     # 4. main paths
@@ -821,25 +1221,37 @@ def main() -> int:
     kernels = {"flash_fwd": flash_fwd.PREFILL, "decode_partials": flash_decode.PARTIALS,
                "decode_combine": flash_decode.COMBINE,
                "paged_decode": paged_attention.PAGED_DECODE,
-               "paged_extend": paged_attention.PAGED_EXTEND, "paged_append": paged_cache.APPEND}
-    path_counts: dict = {"greedy": {}}
+               "paged_extend": paged_attention.PAGED_EXTEND, "paged_append": paged_cache.APPEND,
+               "quant_decode": quantized.QUANT_DECODE,
+               "quant_paged_decode": quantized.QUANT_PAGED_DECODE,
+               "quant_paged_extend": quantized.QUANT_PAGED_EXTEND,
+               "quant_append": quantized.QUANT_APPEND}
+    path_counts: dict = {"greedy": {}, "greedy int8": {}}
     torch.cuda.reset_peak_memory_stats()
-    ids = phase_main_path(torch, cfg, params, kernels, path_counts["greedy"])
-    print("[4b] serving engine: 24 requests, runs A-C")
+    ids, bf16_tokens = phase_main_path(torch, cfg, params, kernels, path_counts["greedy"])
+    print("[4a] greedy generation over an int8 KV cache")
+    int8_numbers = phase_main_path_int8(torch, cfg, params, ids, bf16_tokens, kernels,
+                                        path_counts["greedy int8"])
+    print("[4b] serving engine: 24 requests, runs A-E")
     serving = phase_serving(torch, cfg, params, kernels, path_counts)
-    print("[4c] serving forward: kernel route vs plain_attention route")
+    print("[4c] serving forward: kernel route vs plain_attention route (bf16, int8, e4m3 pools)")
     phase_serving_forward(torch, cfg, params, kernels)
     for name in kernels:
         check(sum(c[name] for c in path_counts.values()) > 0,
               f"{name} launched on a main path")
     print("  D2 (decode_combine) launches by path: "
           + ", ".join(f"{p} {c['decode_combine']}" for p, c in path_counts.items())
-          + " (greedy: after D1; serving runs: after B5)")
+          + " (greedy: after D1; greedy int8: after B7; runs A-C: after B5; D, E: after B8)")
 
     # 5. numbers
     print("[5] numbers (CUDA events for kernels, host clock + synchronise for phases)")
     rows, numbers, profile = phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode,
                                            errs, path_counts)
+    numbers.update(int8_numbers)
+    # Peak over the whole script: serving reset the counter before each run.
+    numbers["max_memory_allocated_gb"] = max(
+        [numbers["max_memory_allocated_gb"], serving.pop("peak_before_serving_gb")]
+        + [r["peak_memory_gb"] for r in serving.values()])
     print(json.dumps(profile))
     print(json.dumps(numbers))
     print(json.dumps({"serving": serving}))

@@ -1,8 +1,9 @@
 // Tiled attention forward for many query rows, shared by kernel P (prefill
-// over contiguous K/V, flash_fwd.cu) and kernel B6 (chunked prefill over a
-// paged cache, paged_attention.cu): O = softmax(Q K^T * scale + mask) V.
+// over contiguous K/V, flash_fwd.cu), kernel B6 (chunked prefill over a
+// paged cache, paged_attention.cu) and kernel B9 (B6 over a quantized paged
+// cache, quantized.cu): O = softmax(Q K^T * scale + mask) V.
 //
-// Both are causal with a per-block offset: key n is visible from query row
+// All are causal with a per-block offset: key n is visible from query row
 // m iff n <= m + offset and n < skv. P takes offset = Skv - Sq (bottom-right
 // alignment) and skv = Skv; B6 reads offset = q_offset[b] and skv =
 // kv_length[b] from device memory (top-left causality in global positions,
@@ -23,8 +24,13 @@
 // are skipped (a tile walk stops at min(skv, last row + offset + 1)), and
 // only tiles that straddle it or the ragged end are masked. Rows at or past
 // skv load as zeros and are never read. Blocks with the longest causal rows
-// are launched first. Not yet done (later work): TMA/cp.async pipelining,
-// wgmma, loading each K/V tile once per GQA group.
+// are launched first. Quantized K/V (B9): int8 / e4m3 values are staged
+// into the same shared tiles widened to T (exact), beside the tile's 64 K
+// and 64 V scales; each score column is multiplied by its K scale, and P by
+// its V scale before P is rounded to T for the PV product (the TPU kernel's
+// `(p * vscale).astype(compute_dtype)`). Not yet done (later work):
+// TMA/cp.async pipelining, wgmma (FP8 wgmma for e4m3), loading each K/V
+// tile once per GQA group.
 #pragma once
 
 #include "common.cuh"
@@ -48,32 +54,49 @@ struct FwdParams {
   int pps, page_size;     // B6 only
 };
 
+// Extra arguments of the quantized instantiation (B9): the scales of one
+// layer's pool, [Hkv, P, ps] with position stride 1.
+struct QuantFwdParams : FwdParams {
+  const float* k_scale;
+  const float* v_scale;
+  int64_t ks_sh, ks_sp, vs_sh, vs_sp;
+};
+template <typename KV>
+using FwdArgs = std::conditional_t<sizeof(KV) == 1, QuantFwdParams, FwdParams>;
+
 constexpr int kBlockM = 64;   // query rows per block (16 per warp)
 constexpr int kBlockN = 64;   // keys per tile
 constexpr int kFwdThreads = 128;
 
-template <typename T, int D>
+template <typename T, int D, bool kQuant>
 constexpr int fwd_smem_bytes() {
-  return (kBlockM * (D + 8) + kBlockN * (D + 8) + D * (kBlockN + 8)) * static_cast<int>(sizeof(T));
+  return (kBlockM * (D + 8) + kBlockN * (D + 8) + D * (kBlockN + 8)) * static_cast<int>(sizeof(T))
+         + (kQuant ? 2 * kBlockN * static_cast<int>(sizeof(float)) : 0);
 }
 
-template <typename T, int D, bool kPaged>
-__global__ void __launch_bounds__(kFwdThreads) attention_fwd_kernel(const FwdParams p) {
+// T: q, output and the shared tiles; KV: the cache's element type (T, or
+// int8 / e4m3 from a paged pool).
+template <typename T, typename KV, int D, bool kPaged>
+__global__ void __launch_bounds__(kFwdThreads) attention_fwd_kernel(const FwdArgs<KV> p) {
+  constexpr bool kQuant = sizeof(KV) == 1;
+  static_assert(kPaged || !kQuant, "quantized K/V come from a paged pool only");
   constexpr int kRow = D + 8;          // smem row stride of Q and K (bank spread)
   constexpr int kVtRow = kBlockN + 8;  // smem row stride of V^T
-  constexpr int kChunks = D / 8;       // 16-byte chunks per row
+  constexpr int kChunks = D / 8;       // chunks of 8 elements per row
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
   T* sK = sQ + kBlockM * kRow;
   T* sVt = sK + kBlockN * kRow;
+  float* sKs = reinterpret_cast<float*>(sVt + D * kVtRow);  // quantized: the tile's
+  float* sVs = sKs + kBlockN;                               // K and V scales
 
   const int m_block = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / p.group;
   const int m0 = m_block * kBlockM;
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + hk * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + hk * p.v_sh;
+  const KV* k = static_cast<const KV*>(p.k) + hk * p.k_sh;
+  const KV* v = static_cast<const KV*>(p.v) + hk * p.v_sh;
   if constexpr (!kPaged) {
     k += b * p.k_sb;
     v += b * p.v_sb;
@@ -144,13 +167,29 @@ __global__ void __launch_bounds__(kFwdThreads) attention_fwd_kernel(const FwdPar
           krow = static_cast<int64_t>(n) * p.k_ss;
           vrow = static_cast<int64_t>(n) * p.v_ss;
         }
-        kv = *reinterpret_cast<const uint4*>(k + krow + col);
-        vv = *reinterpret_cast<const uint4*>(v + vrow + col);
+        kv = load8_as<T>(k + krow + col);
+        vv = load8_as<T>(v + vrow + col);
       }
       *reinterpret_cast<uint4*>(sK + r * kRow + col) = kv;
       const T* ve = reinterpret_cast<const T*>(&vv);
 #pragma unroll
       for (int e = 0; e < 8; ++e) sVt[(col + e) * kVtRow + r] = ve[e];
+    }
+    if constexpr (kQuant) {
+      // Scales of live keys only (a scale past kv_length may be NaN);
+      // 0 elsewhere, where the scores are masked and P is 0.
+      for (int r = tid; r < kBlockN; r += kFwdThreads) {
+        const int n = n0 + r;
+        float ks = 0.f, vs = 0.f;
+        if (n < skv) {
+          const int64_t page = p.page_table[static_cast<int64_t>(b) * p.pps + n / p.page_size];
+          const int in_page = n % p.page_size;
+          ks = p.k_scale[hk * p.ks_sh + page * p.ks_sp + in_page];
+          vs = p.v_scale[hk * p.vs_sh + page * p.vs_sp + in_page];
+        }
+        sKs[r] = ks;
+        sVs[r] = vs;
+      }
     }
     __syncthreads();
 
@@ -177,6 +216,7 @@ __global__ void __launch_bounds__(kFwdThreads) attention_fwd_kernel(const FwdPar
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         float x = s[nt][i] * p.scale_log2;
+        if constexpr (kQuant) x *= sKs[nt * 8 + 2 * t + (i & 1)];
         if (edge) {
           const int col = n0 + nt * 8 + 2 * t + (i & 1);
           const int row = i < 2 ? row0 : row1;
@@ -209,6 +249,7 @@ __global__ void __launch_bounds__(kFwdThreads) attention_fwd_kernel(const FwdPar
       for (int i = 0; i < 4; ++i) {
         s[nt][i] = exp2f(s[nt][i] - m_use[i >> 1]);
         tile_sum[i >> 1] += s[nt][i];
+        if constexpr (kQuant) s[nt][i] *= sVs[nt * 8 + 2 * t + (i & 1)];  // the sum keeps P
       }
     }
 #pragma unroll
@@ -258,27 +299,47 @@ __global__ void __launch_bounds__(kFwdThreads) attention_fwd_kernel(const FwdPar
   }
 }
 
-template <typename T, int D, bool kPaged>
-int launch_attention_fwd(const FwdParams& p, int batch, cudaStream_t stream) {
-  constexpr int kSmem = fwd_smem_bytes<T, D>();
+template <typename T, typename KV, int D, bool kPaged>
+int launch_attention_fwd(const FwdArgs<KV>& p, int batch, cudaStream_t stream) {
+  constexpr int kSmem = fwd_smem_bytes<T, D, (sizeof(KV) == 1)>();
   static bool configured = false;  // above 48 KB needs an explicit opt-in
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<T, D, kPaged>,
+    cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<T, KV, D, kPaged>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid((p.sq + kBlockM - 1) / kBlockM, p.hq, batch);
-  attention_fwd_kernel<T, D, kPaged><<<grid, kFwdThreads, kSmem, stream>>>(p);
+  attention_fwd_kernel<T, KV, D, kPaged><<<grid, kFwdThreads, kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
+// K/V of q's own type (P, B6).
 template <bool kPaged>
 int dispatch_attention_fwd(const FwdParams& p, int batch, int d, int dtype, cudaStream_t s) {
-  if (dtype == kBF16 && d == 64) return launch_attention_fwd<__nv_bfloat16, 64, kPaged>(p, batch, s);
-  if (dtype == kBF16 && d == 128) return launch_attention_fwd<__nv_bfloat16, 128, kPaged>(p, batch, s);
-  if (dtype == kF16 && d == 64) return launch_attention_fwd<__half, 64, kPaged>(p, batch, s);
-  if (dtype == kF16 && d == 128) return launch_attention_fwd<__half, 128, kPaged>(p, batch, s);
+  using bf16 = __nv_bfloat16;
+  if (dtype == kBF16 && d == 64) return launch_attention_fwd<bf16, bf16, 64, kPaged>(p, batch, s);
+  if (dtype == kBF16 && d == 128) return launch_attention_fwd<bf16, bf16, 128, kPaged>(p, batch, s);
+  if (dtype == kF16 && d == 64) return launch_attention_fwd<__half, __half, 64, kPaged>(p, batch, s);
+  if (dtype == kF16 && d == 128) return launch_attention_fwd<__half, __half, 128, kPaged>(p, batch, s);
+  return cudaErrorInvalidValue;
+}
+
+// Quantized paged K/V (B9): q and output bf16 / f16, values int8 / e4m3.
+template <typename T>
+int dispatch_attention_fwd_quant_values(const QuantFwdParams& p, int batch, int d, int kv_dtype,
+                                        cudaStream_t s) {
+  if (kv_dtype == kInt8 && d == 64) return launch_attention_fwd<T, int8_t, 64, true>(p, batch, s);
+  if (kv_dtype == kInt8 && d == 128) return launch_attention_fwd<T, int8_t, 128, true>(p, batch, s);
+  if (kv_dtype == kE4M3 && d == 64) return launch_attention_fwd<T, e4m3, 64, true>(p, batch, s);
+  if (kv_dtype == kE4M3 && d == 128) return launch_attention_fwd<T, e4m3, 128, true>(p, batch, s);
+  return cudaErrorInvalidValue;
+}
+
+inline int dispatch_attention_fwd_quant(const QuantFwdParams& p, int batch, int d, int dtype,
+                                        int kv_dtype, cudaStream_t s) {
+  if (dtype == kBF16) return dispatch_attention_fwd_quant_values<__nv_bfloat16>(p, batch, d, kv_dtype, s);
+  if (dtype == kF16) return dispatch_attention_fwd_quant_values<__half>(p, batch, d, kv_dtype, s);
   return cudaErrorInvalidValue;
 }
 

@@ -1,5 +1,6 @@
 // Helpers shared by the attention kernels: element types, the bf16/f16
-// tensor-core product m16n8k16 (mma.sync), and warp reductions.
+// tensor-core product m16n8k16 (mma.sync), loads of K/V elements (bf16,
+// f16, or the int8 / e4m3 values of a quantized cache), and warp reductions.
 //
 // The kernels are built by nvcc into shared libraries with a plain C
 // interface (ops/_build.py) and called through ctypes: pointers and the
@@ -8,14 +9,22 @@
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace fact {
 
-// Element type codes passed from Python (ops/_build.py DTYPE_CODES).
+// Element type codes passed from Python (ops/_build.py DTYPE_CODES): q,
+// the output and a dense cache.
 enum DType : int { kBF16 = 0, kF16 = 1 };
+// Value codes of a quantized cache (ops/_build.py KV_DTYPE_CODES).
+enum KVType : int { kInt8 = 0, kE4M3 = 1 };
+
+using e4m3 = __nv_fp8_e4m3;
 
 template <typename T>
 struct Elem;
@@ -69,6 +78,52 @@ __device__ __forceinline__ void unpack8(const uint4& raw, float (&out)[8]) {
   const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
   for (int i = 0; i < 8; ++i) out[i] = Elem<T>::to_float(e[i]);
+}
+
+// A quantized value to float (exact for both types).
+__device__ __forceinline__ float kv_float(int8_t x) { return static_cast<float>(x); }
+__device__ __forceinline__ float kv_float(e4m3 x) { return static_cast<float>(x); }
+
+// Largest magnitude a quantized value takes (ops/quantized.py INT8_MAX,
+// FP8_E4M3_MAX), and the rounding of x / scale to it: half to even, as
+// the plain version's torch.round and .to(float8_e4m3fn) round.
+template <typename KV>
+__host__ __device__ constexpr float kv_qmax() { return std::is_same_v<KV, int8_t> ? 127.f : 448.f; }
+__device__ __forceinline__ void kv_round(float x, int8_t* out) {
+  *out = static_cast<int8_t>(__float2int_rn(x));
+}
+__device__ __forceinline__ void kv_round(float x, e4m3* out) { *out = e4m3(x); }
+
+// Eight consecutive K/V elements to floats: one 16-byte load of a bf16 /
+// f16 cache, one 8-byte load of an int8 / e4m3 one.
+template <typename KV>
+__device__ __forceinline__ void load8(const KV* p, float (&out)[8]) {
+  if constexpr (sizeof(KV) == 2) {
+    unpack8<KV>(*reinterpret_cast<const uint4*>(p), out);
+  } else {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const KV* e = reinterpret_cast<const KV*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) out[i] = kv_float(e[i]);
+  }
+}
+
+// Eight consecutive K/V elements as eight T in one uint4: the 16-byte load
+// itself when the cache holds T, else an 8-byte load of int8 / e4m3 values
+// widened to T (exactly: both fit bf16's and f16's significands).
+template <typename T, typename KV>
+__device__ __forceinline__ uint4 load8_as(const KV* p) {
+  if constexpr (std::is_same_v<T, KV>) {
+    return *reinterpret_cast<const uint4*>(p);
+  } else {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const KV* e = reinterpret_cast<const KV*>(&raw);
+    uint4 out;
+    uint32_t* w = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[i] = Elem<T>::pack(kv_float(e[2 * i]), kv_float(e[2 * i + 1]));
+    return out;
+  }
 }
 
 __device__ __forceinline__ float warp_max(float v) {

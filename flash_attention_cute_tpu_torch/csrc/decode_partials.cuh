@@ -1,18 +1,24 @@
 // Split-KV single-token decode partials, shared by kernel D1 (contiguous
-// cache, flash_decode.cu) and kernel B5 (paged cache, paged_attention.cu).
+// cache, flash_decode.cu), kernel B5 (paged cache, paged_attention.cu) and
+// their quantized-cache twins B7 and B8 (quantized.cu), whose K/V are int8
+// or e4m3 values with one f32 scale per key row: the K scale multiplies the
+// row's score, the V scale its probability before the PV update, so no K/V
+// row is ever dequantized.
 //
 // What bounds it on the H100: decode reads every live K/V row once and
 // does 4 * G * D operations per row for G = Hq / Hkv query rows, about
 // G operations per byte, far below the card's ~295, so the bound is memory
-// bytes. Design: one block of 128 threads per (split, kv head, batch row)
-// carries the whole GQA group of G query rows, so each K/V row is read
-// once per group. D / 8 threads share a key row and each loads 16 bytes of
-// it, so a warp reads whole rows with 16-byte loads. A block reads its own
-// length (and, paged, its page-table entries) from device memory; the grid
-// is sized from the split count, never from the live lengths (no host sync
-// per step), and splits that start past the length write m = -inf, l = 0,
-// acc = 0 and exit. Rows at or past the length are never loaded, so a
-// cache tail of uninitialised memory (even NaN) cannot leak in.
+// bytes (a quantized cache halves them: 1-byte values plus 4 bytes of scale
+// per row and head). Design: one block of 128 threads per (split, kv head,
+// batch row) carries the whole GQA group of G query rows, so each K/V row
+// is read once per group. D / 8 threads share a key row and each loads 8
+// elements of it (16 bytes of bf16, 8 of int8 / e4m3), so a warp reads
+// whole rows; one thread of the row loads its two scales. A block reads its
+// own length (and, paged, its page-table entries) from device memory; the
+// grid is sized from the split count, never from the live lengths (no host
+// sync per step), and splits that start past the length write m = -inf,
+// l = 0, acc = 0 and exit. Rows and scales at or past the length are never
+// loaded, so a cache tail of uninitialised memory (even NaN) cannot leak in.
 // Scores are kept in base 2 (scale * log2(e) folded in), as in the prefill
 // kernel. Not yet done (later work): cp.async/TMA prefetch of the next
 // tile, and a single fused launch with the combine.
@@ -40,6 +46,21 @@ struct DecodeParams {
   float scale_log2;
 };
 
+// Extra arguments of the quantized instantiations (B7, B8): the scales lie
+// like the values without the head dim, [B, Hkv, C] contiguous or
+// [Hkv, P, ps] paged, position stride 1.
+struct KVScales {
+  const float* k;
+  const float* v;
+  int64_t k_sb, k_sh, k_sp;  // k_sb: contiguous only; k_sp: paged only
+  int64_t v_sb, v_sh, v_sp;
+};
+struct QuantDecodeParams : DecodeParams {
+  KVScales scales;
+};
+template <typename KV>
+using DecodeArgs = std::conditional_t<sizeof(KV) == 1, QuantDecodeParams, DecodeParams>;
+
 constexpr int kDecodeThreads = 128;
 constexpr int kDecodeTile = 64;  // keys per softmax step
 
@@ -56,13 +77,16 @@ __device__ __forceinline__ int64_t key_row(const DecodeParams& p, int b, int hk,
   }
 }
 
-template <typename T, int D, int GMAX, bool kPaged>
-__global__ void __launch_bounds__(kDecodeThreads) decode_partials_kernel(const DecodeParams p) {
+// T: q and output type; KV: the cache's element type (T, or int8 / e4m3).
+template <typename T, typename KV, int D, int GMAX, bool kPaged>
+__global__ void __launch_bounds__(kDecodeThreads) decode_partials_kernel(const DecodeArgs<KV> p) {
+  constexpr bool kQuant = sizeof(KV) == 1;
   constexpr int kTpk = D / 8;             // threads per key row
   constexpr int kSlots = kDecodeThreads / kTpk;  // key rows in flight per pass
   __shared__ float s_p[GMAX][kDecodeTile];       // scores, then probabilities
   __shared__ float s_red[kSlots][GMAX][D];  // cross-slot reduction of acc
   __shared__ float s_m[GMAX], s_l[GMAX], s_alpha[GMAX];
+  __shared__ float s_vs[kDecodeTile];  // quantized: the tile's V scales (0 past its end)
 
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int G = p.group;
@@ -87,8 +111,8 @@ __global__ void __launch_bounds__(kDecodeThreads) decode_partials_kernel(const D
 
   const int slot = tid / kTpk, d0 = (tid % kTpk) * 8;
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb;
-  const T* k = static_cast<const T*>(p.k);
-  const T* v = static_cast<const T*>(p.v);
+  const KV* k = static_cast<const KV*>(p.k);
+  const KV* v = static_cast<const KV*>(p.v);
 
   float qr[GMAX][8];  // this thread's 8 head-dim entries of each query row
 #pragma unroll
@@ -121,7 +145,7 @@ __global__ void __launch_bounds__(kDecodeThreads) decode_partials_kernel(const D
       if (kk < tn) {
         float kf[8];
         const int64_t row = key_row<kPaged>(p, b, hk, tile0 + kk, p.k_sb, p.k_sh, p.k_ss, p.k_sp);
-        unpack8<T>(*reinterpret_cast<const uint4*>(k + row + d0), kf);
+        load8(k + row + d0, kf);
 #pragma unroll
         for (int g = 0; g < GMAX; ++g)
 #pragma unroll
@@ -133,9 +157,24 @@ __global__ void __launch_bounds__(kDecodeThreads) decode_partials_kernel(const D
         for (int off = kTpk / 2; off > 0; off >>= 1)
           sc[g] += __shfl_xor_sync(0xffffffffu, sc[g], off);
       if (tid % kTpk == 0) {
+        if constexpr (kQuant) {
+          // The row's scales are loaded only for a live key: a scale at or
+          // past the length may be NaN, and 0 * NaN is NaN.
+          float ks = 0.f, vs = 0.f;
+          if (kk < tn) {
+            const KVScales& c = p.scales;
+            ks = c.k[key_row<kPaged>(p, b, hk, tile0 + kk, c.k_sb, c.k_sh, 1, c.k_sp)];
+            vs = c.v[key_row<kPaged>(p, b, hk, tile0 + kk, c.v_sb, c.v_sh, 1, c.v_sp)];
+          }
+          s_vs[kk] = vs;
 #pragma unroll
-        for (int g = 0; g < GMAX; ++g)
-          if (g < G) s_p[g][kk] = kk < tn ? sc[g] : -INFINITY;
+          for (int g = 0; g < GMAX; ++g)
+            if (g < G) s_p[g][kk] = kk < tn ? sc[g] * ks : -INFINITY;
+        } else {
+#pragma unroll
+          for (int g = 0; g < GMAX; ++g)
+            if (g < G) s_p[g][kk] = kk < tn ? sc[g] : -INFINITY;
+        }
       }
     }
     __syncthreads();
@@ -147,8 +186,13 @@ __global__ void __launch_bounds__(kDecodeThreads) decode_partials_kernel(const D
       const float m_new = fmaxf(m_old, warp_max(fmaxf(x0, x1)));
       const float p0 = exp2f(x0 - m_new), p1 = exp2f(x1 - m_new);
       const float sum = warp_sum(p0 + p1);
-      s_p[g][lane] = p0;
-      s_p[g][lane + 32] = p1;
+      if constexpr (kQuant) {  // V's scale folds into P; the sum l keeps P
+        s_p[g][lane] = p0 * s_vs[lane];
+        s_p[g][lane + 32] = p1 * s_vs[lane + 32];
+      } else {
+        s_p[g][lane] = p0;
+        s_p[g][lane + 32] = p1;
+      }
       if (lane == 0) {
         const float alpha = exp2f(m_old - m_new);  // 0 on the first tile
         s_alpha[g] = alpha;
@@ -169,7 +213,7 @@ __global__ void __launch_bounds__(kDecodeThreads) decode_partials_kernel(const D
     for (int kk = slot; kk < tn; kk += kSlots) {
       float vf[8];
       const int64_t row = key_row<kPaged>(p, b, hk, tile0 + kk, p.v_sb, p.v_sh, p.v_ss, p.v_sp);
-      unpack8<T>(*reinterpret_cast<const uint4*>(v + row + d0), vf);
+      load8(v + row + d0, vf);
 #pragma unroll
       for (int g = 0; g < GMAX; ++g) {
         if (g < G) {
@@ -200,28 +244,49 @@ __global__ void __launch_bounds__(kDecodeThreads) decode_partials_kernel(const D
   }
 }
 
-template <typename T, int D, int GMAX, bool kPaged>
-int launch_partials(const DecodeParams& p, int batch, cudaStream_t stream) {
+template <typename T, typename KV, int D, int GMAX, bool kPaged>
+int launch_partials(const DecodeArgs<KV>& p, int batch, cudaStream_t stream) {
   const dim3 grid(p.num_splits, p.hkv, batch);
-  decode_partials_kernel<T, D, GMAX, kPaged><<<grid, kDecodeThreads, 0, stream>>>(p);
+  decode_partials_kernel<T, KV, D, GMAX, kPaged><<<grid, kDecodeThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool kPaged>
-int dispatch_group(const DecodeParams& p, int batch, cudaStream_t stream) {
-  if (p.group <= 1) return launch_partials<T, D, 1, kPaged>(p, batch, stream);
-  if (p.group <= 2) return launch_partials<T, D, 2, kPaged>(p, batch, stream);
-  if (p.group <= 4) return launch_partials<T, D, 4, kPaged>(p, batch, stream);
-  if (p.group <= 8) return launch_partials<T, D, 8, kPaged>(p, batch, stream);
+template <typename T, typename KV, int D, bool kPaged>
+int dispatch_group(const DecodeArgs<KV>& p, int batch, cudaStream_t stream) {
+  if (p.group <= 1) return launch_partials<T, KV, D, 1, kPaged>(p, batch, stream);
+  if (p.group <= 2) return launch_partials<T, KV, D, 2, kPaged>(p, batch, stream);
+  if (p.group <= 4) return launch_partials<T, KV, D, 4, kPaged>(p, batch, stream);
+  if (p.group <= 8) return launch_partials<T, KV, D, 8, kPaged>(p, batch, stream);
+  return cudaErrorInvalidValue;
+}
+
+// A cache of q's own type (D1, B5).
+template <bool kPaged>
+int dispatch_partials(const DecodeParams& p, int batch, int d, int dtype, cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  if (dtype == kBF16 && d == 64) return dispatch_group<bf16, bf16, 64, kPaged>(p, batch, s);
+  if (dtype == kBF16 && d == 128) return dispatch_group<bf16, bf16, 128, kPaged>(p, batch, s);
+  if (dtype == kF16 && d == 64) return dispatch_group<__half, __half, 64, kPaged>(p, batch, s);
+  if (dtype == kF16 && d == 128) return dispatch_group<__half, __half, 128, kPaged>(p, batch, s);
+  return cudaErrorInvalidValue;
+}
+
+// A quantized cache (B7, B8): q and output bf16 / f16, values int8 / e4m3.
+template <typename T, bool kPaged>
+int dispatch_quant_values(const QuantDecodeParams& p, int batch, int d, int kv_dtype,
+                          cudaStream_t s) {
+  if (kv_dtype == kInt8 && d == 64) return dispatch_group<T, int8_t, 64, kPaged>(p, batch, s);
+  if (kv_dtype == kInt8 && d == 128) return dispatch_group<T, int8_t, 128, kPaged>(p, batch, s);
+  if (kv_dtype == kE4M3 && d == 64) return dispatch_group<T, e4m3, 64, kPaged>(p, batch, s);
+  if (kv_dtype == kE4M3 && d == 128) return dispatch_group<T, e4m3, 128, kPaged>(p, batch, s);
   return cudaErrorInvalidValue;
 }
 
 template <bool kPaged>
-int dispatch_partials(const DecodeParams& p, int batch, int d, int dtype, cudaStream_t s) {
-  if (dtype == kBF16 && d == 64) return dispatch_group<__nv_bfloat16, 64, kPaged>(p, batch, s);
-  if (dtype == kBF16 && d == 128) return dispatch_group<__nv_bfloat16, 128, kPaged>(p, batch, s);
-  if (dtype == kF16 && d == 64) return dispatch_group<__half, 64, kPaged>(p, batch, s);
-  if (dtype == kF16 && d == 128) return dispatch_group<__half, 128, kPaged>(p, batch, s);
+int dispatch_partials_quant(const QuantDecodeParams& p, int batch, int d, int dtype,
+                            int kv_dtype, cudaStream_t s) {
+  if (dtype == kBF16) return dispatch_quant_values<__nv_bfloat16, kPaged>(p, batch, d, kv_dtype, s);
+  if (dtype == kF16) return dispatch_quant_values<__half, kPaged>(p, batch, d, kv_dtype, s);
   return cudaErrorInvalidValue;
 }
 

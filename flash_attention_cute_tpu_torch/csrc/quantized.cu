@@ -1,0 +1,249 @@
+// Attention over a quantized KV cache (int8 or e4m3 values, one f32 scale
+// per token and kv head), and the append that fills it:
+//
+//   * B7, quantized decode: replaces the TPU kernel
+//     flash_attention_cute_tpu/ops/quantized.py `_quant_decode_kernel` (:73,
+//     pallas_call at :337). Split-KV decode partials over one layer of the
+//     contiguous cache [B, Hkv, C, D] with scales [B, Hkv, C]; D2
+//     (flash_decode.cu) merges the splits.
+//   * B8, quantized paged decode: replaces `_quant_paged_kernel` (:395,
+//     pallas_call at :658). The same over a pool [Hkv, P, ps, D] with scales
+//     [Hkv, P, ps] through the page table; the splits cut each row's own
+//     live length, as in B5.
+//   * B9, quantized paged extend: replaces `_quant_paged_extend_kernel`
+//     (:717, pallas_call at :1076). B6's chunked prefill (top-left
+//     causality `col <= q_offset + r`, `col < kv_length`, kv_length 0 gives
+//     an exact zero row) over quantized pages.
+//   * QA, quantize-and-append (not a TPU kernel): replaces the XLA
+//     `quantize_kv` + scatter / dynamic_update_slice of
+//     flash_attention_cute_tpu/runtime/paged_cache.py
+//     `paged_append_layer_quantized` (:206-239) and models/transformer.py
+//     (:167-175). Writes S new K/V rows per batch row, quantized per token,
+//     at positions lengths[b] + s of the contiguous cache or through the
+//     page table; rows of inactive batch rows and positions past the table
+//     (or past the cache) write nothing.
+//
+// What bounds them on the H100, and the design. B7 and B8 are D1's and
+// B5's body (decode_partials.cuh) with the cache's element type as a
+// template parameter: bound by bytes, which 1-byte values halve; the K
+// scale multiplies each score, the V scale each probability, so no row is
+// dequantized. B9 is B6's body (attention_fwd.cuh), bound by tensor-core
+// operations at prefill lengths: the values are widened to bf16 / f16
+// (exact) as they are staged into shared memory, so the bf16 mma.sync
+// products stay; the scales are staged beside them. Not copied from the TPU
+// extend kernel: the chunk split for the VMEM budget, the anchored lazy max
+// with its 75-nat clamp and the `inner` sub-blocks (the softmax is exact);
+// nor the `nh` head packing and 8192-token page blocks of the TPU decode
+// kernels. QA is bound by bytes (each new row read once, its values and
+// scale written once): one block per (token, batch row), one warp per
+// (K or V, kv head) row, an fp32 amax over the row by a warp reduction,
+// scale = amax / qmax (1 where amax is 0), values x / scale rounded half to
+// even. The division is IEEE (no fast-math flags in ops/_build.py), so the
+// values are bit-identical to the plain version's.
+#include "attention_fwd.cuh"
+#include "decode_partials.cuh"
+
+namespace fact {
+
+struct QuantAppendParams {
+  const void* k_new;  // [B, Hkv, S, D] in T (any strides, head dim contiguous)
+  const void* v_new;
+  void* k_vals;       // contiguous: one layer's cache [B, Hkv, C, D];
+  void* v_vals;       // paged: one layer's pool [Hkv, P, ps, D]
+  float* k_scales;    // the same without the head dim, position stride 1
+  float* v_scales;
+  const int* lengths;     // [B] int32: positions before the append
+  const int* page_table;  // paged: [B, pps] int32
+  const int* active;      // [B] int32 or null: 0 drops the row
+  int64_t kn_sb, kn_sh, kn_ss, vn_sb, vn_sh, vn_ss;  // element strides of the new rows
+  int64_t c_sb, c_sh, c_ss, c_sp;  // value strides (K and V pools alike); sb contiguous, sp paged
+  int64_t s_sb, s_sh, s_sp;        // scale strides (K and V alike)
+  int hkv, capacity, pps, page_size;
+};
+
+template <typename T, typename KV, int D, bool kPaged>
+__global__ void __launch_bounds__(128) quant_append_kernel(const QuantAppendParams p) {
+  constexpr int kPer = D / 32;  // elements of a row per lane
+  const int s = blockIdx.x, b = blockIdx.y;
+  if (p.active != nullptr && p.active[b] == 0) return;
+  const int pos = p.lengths[b] + s;
+  int64_t vrow, srow;  // offsets of the target position, head excluded
+  if constexpr (kPaged) {
+    const int slot = pos / p.page_size;
+    if (pos < 0 || slot >= p.pps) return;  // past the table: dropped
+    const int64_t page = p.page_table[static_cast<int64_t>(b) * p.pps + slot];
+    const int off = pos % p.page_size;
+    vrow = page * p.c_sp + off * p.c_ss;
+    srow = page * p.s_sp + off;
+  } else {
+    if (pos < 0 || pos >= p.capacity) return;
+    vrow = b * p.c_sb + pos * p.c_ss;
+    srow = b * p.s_sb + pos;
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int task = warp; task < 2 * p.hkv; task += blockDim.x >> 5) {
+    const bool is_v = task >= p.hkv;
+    const int h = is_v ? task - p.hkv : task;
+    const T* src = is_v
+        ? static_cast<const T*>(p.v_new) + b * p.vn_sb + h * p.vn_sh + s * p.vn_ss
+        : static_cast<const T*>(p.k_new) + b * p.kn_sb + h * p.kn_sh + s * p.kn_ss;
+    float x[kPer];
+    float amax = 0.f;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      x[i] = Elem<T>::to_float(src[lane + 32 * i]);
+      amax = fmaxf(amax, fabsf(x[i]));
+    }
+    amax = warp_max(amax);
+    const float scale = amax == 0.f ? 1.f : amax / kv_qmax<KV>();
+    KV* dst = static_cast<KV*>(is_v ? p.v_vals : p.k_vals) + h * p.c_sh + vrow;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) kv_round(x[i] / scale, dst + lane + 32 * i);
+    if (lane == 0) (is_v ? p.v_scales : p.k_scales)[h * p.s_sh + srow] = scale;
+  }
+}
+
+template <typename T, typename KV, bool kPaged>
+int launch_append(const QuantAppendParams& p, int batch, int s, int d, cudaStream_t stream) {
+  const dim3 grid(s, batch);
+  if (d == 64) quant_append_kernel<T, KV, 64, kPaged><<<grid, 128, 0, stream>>>(p);
+  else if (d == 128) quant_append_kernel<T, KV, 128, kPaged><<<grid, 128, 0, stream>>>(p);
+  else return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+template <typename T, bool kPaged>
+int dispatch_append_values(const QuantAppendParams& p, int batch, int s, int d, int kv_dtype,
+                           cudaStream_t stream) {
+  if (kv_dtype == kInt8) return launch_append<T, int8_t, kPaged>(p, batch, s, d, stream);
+  if (kv_dtype == kE4M3) return launch_append<T, e4m3, kPaged>(p, batch, s, d, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <bool kPaged>
+int dispatch_append(const QuantAppendParams& p, int batch, int s, int d, int dtype,
+                    int kv_dtype, cudaStream_t stream) {
+  if (dtype == kBF16) return dispatch_append_values<__nv_bfloat16, kPaged>(p, batch, s, d, kv_dtype, stream);
+  if (dtype == kF16) return dispatch_append_values<__half, kPaged>(p, batch, s, d, kv_dtype, stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace fact
+
+// Each returns a cudaError_t code (0 on success). Shapes, strides, dtypes
+// and the group bound (G <= 8) are checked by the Python wrapper
+// (ops/quantized.py). `dtype` is q's (and the output's) code, `kv_dtype`
+// the values' code (common.cuh).
+extern "C" int fact_quant_decode_partials(
+    const void* q, const void* k, const void* v, const void* k_scale, const void* v_scale,
+    const void* lengths, void* acc, void* m, void* l, int batch, int hkv, int group,
+    int capacity, int d, int num_splits, int chunk, long long q_sb, long long q_sh,
+    long long k_sb, long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+    long long v_ss, long long ks_sb, long long ks_sh, long long vs_sb, long long vs_sh,
+    float scale_log2, int dtype, int kv_dtype, void* stream) {
+  using namespace fact;
+  QuantDecodeParams p{};
+  p.q = q, p.k = k, p.v = v;
+  p.lengths = static_cast<const int*>(lengths);
+  p.acc = static_cast<float*>(acc);
+  p.m = static_cast<float*>(m);
+  p.l = static_cast<float*>(l);
+  p.q_sb = q_sb, p.q_sh = q_sh;
+  p.k_sb = k_sb, p.k_sh = k_sh, p.k_ss = k_ss;
+  p.v_sb = v_sb, p.v_sh = v_sh, p.v_ss = v_ss;
+  p.hkv = hkv, p.group = group, p.capacity = capacity;
+  p.num_splits = num_splits, p.chunk = chunk;
+  p.scale_log2 = scale_log2;
+  p.scales.k = static_cast<const float*>(k_scale);
+  p.scales.v = static_cast<const float*>(v_scale);
+  p.scales.k_sb = ks_sb, p.scales.k_sh = ks_sh;
+  p.scales.v_sb = vs_sb, p.scales.v_sh = vs_sh;
+  return dispatch_partials_quant<false>(p, batch, d, dtype, kv_dtype,
+                                        static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int fact_quant_paged_decode_partials(
+    const void* q, const void* k, const void* v, const void* k_scale, const void* v_scale,
+    const void* lengths, const void* page_table, void* acc, void* m, void* l, int batch,
+    int hkv, int group, int d, int num_splits, int pps, int page_size, long long q_sb,
+    long long q_sh, long long k_sh, long long k_sp, long long k_ss, long long v_sh,
+    long long v_sp, long long v_ss, long long ks_sh, long long ks_sp, long long vs_sh,
+    long long vs_sp, float scale_log2, int dtype, int kv_dtype, void* stream) {
+  using namespace fact;
+  QuantDecodeParams p{};
+  p.q = q, p.k = k, p.v = v;
+  p.lengths = static_cast<const int*>(lengths);
+  p.page_table = static_cast<const int*>(page_table);
+  p.acc = static_cast<float*>(acc);
+  p.m = static_cast<float*>(m);
+  p.l = static_cast<float*>(l);
+  p.q_sb = q_sb, p.q_sh = q_sh;
+  p.k_sh = k_sh, p.k_sp = k_sp, p.k_ss = k_ss;
+  p.v_sh = v_sh, p.v_sp = v_sp, p.v_ss = v_ss;
+  p.hkv = hkv, p.group = group, p.capacity = pps * page_size;
+  p.num_splits = num_splits;
+  p.pps = pps, p.page_size = page_size;
+  p.scale_log2 = scale_log2;
+  p.scales.k = static_cast<const float*>(k_scale);
+  p.scales.v = static_cast<const float*>(v_scale);
+  p.scales.k_sh = ks_sh, p.scales.k_sp = ks_sp;
+  p.scales.v_sh = vs_sh, p.scales.v_sp = vs_sp;
+  return dispatch_partials_quant<true>(p, batch, d, dtype, kv_dtype,
+                                       static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int fact_quant_paged_extend(
+    const void* q, const void* k, const void* v, const void* k_scale, const void* v_scale,
+    void* o, const void* q_offset, const void* kv_length, const void* page_table, int batch,
+    int hq, int hkv, int sq, int d, int pps, int page_size, long long q_sb, long long q_sh,
+    long long q_ss, long long k_sh, long long k_sp, long long k_ss, long long v_sh,
+    long long v_sp, long long v_ss, long long ks_sh, long long ks_sp, long long vs_sh,
+    long long vs_sp, float scale_log2, int dtype, int kv_dtype, void* stream) {
+  using namespace fact;
+  QuantFwdParams p{};
+  p.q = q, p.k = k, p.v = v, p.o = o;
+  p.q_sb = q_sb, p.q_sh = q_sh, p.q_ss = q_ss;
+  p.k_sh = k_sh, p.k_sp = k_sp, p.k_ss = k_ss;
+  p.v_sh = v_sh, p.v_sp = v_sp, p.v_ss = v_ss;
+  p.hq = hq, p.group = hq / hkv, p.sq = sq;
+  p.scale_log2 = scale_log2;
+  p.causal = 1;
+  p.q_offset = static_cast<const int*>(q_offset);
+  p.kv_length = static_cast<const int*>(kv_length);
+  p.page_table = static_cast<const int*>(page_table);
+  p.pps = pps, p.page_size = page_size;
+  p.k_scale = static_cast<const float*>(k_scale);
+  p.v_scale = static_cast<const float*>(v_scale);
+  p.ks_sh = ks_sh, p.ks_sp = ks_sp, p.vs_sh = vs_sh, p.vs_sp = vs_sp;
+  return dispatch_attention_fwd_quant(p, batch, d, dtype, kv_dtype,
+                                      static_cast<cudaStream_t>(stream));
+}
+
+// paged != 0: positions go through the page table (c_sb, s_sb unused);
+// paged == 0: one layer of the contiguous cache (page_table, c_sp, s_sp
+// unused).
+extern "C" int fact_quant_append(
+    const void* k_new, const void* v_new, void* k_vals, void* v_vals, void* k_scales,
+    void* v_scales, const void* lengths, const void* page_table, const void* active,
+    int paged, int batch, int s, int hkv, int d, int capacity, int pps, int page_size,
+    long long kn_sb, long long kn_sh, long long kn_ss, long long vn_sb, long long vn_sh,
+    long long vn_ss, long long c_sb, long long c_sh, long long c_ss, long long c_sp,
+    long long s_sb, long long s_sh, long long s_sp, int dtype, int kv_dtype, void* stream) {
+  using namespace fact;
+  QuantAppendParams p{};
+  p.k_new = k_new, p.v_new = v_new;
+  p.k_vals = k_vals, p.v_vals = v_vals;
+  p.k_scales = static_cast<float*>(k_scales);
+  p.v_scales = static_cast<float*>(v_scales);
+  p.lengths = static_cast<const int*>(lengths);
+  p.page_table = static_cast<const int*>(page_table);
+  p.active = static_cast<const int*>(active);
+  p.kn_sb = kn_sb, p.kn_sh = kn_sh, p.kn_ss = kn_ss;
+  p.vn_sb = vn_sb, p.vn_sh = vn_sh, p.vn_ss = vn_ss;
+  p.c_sb = c_sb, p.c_sh = c_sh, p.c_ss = c_ss, p.c_sp = c_sp;
+  p.s_sb = s_sb, p.s_sh = s_sh, p.s_sp = s_sp;
+  p.hkv = hkv, p.capacity = capacity, p.pps = pps, p.page_size = page_size;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return paged ? dispatch_append<true>(p, batch, s, d, dtype, kv_dtype, st)
+               : dispatch_append<false>(p, batch, s, d, dtype, kv_dtype, st);
+}

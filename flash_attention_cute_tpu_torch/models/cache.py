@@ -1,10 +1,15 @@
-"""Dense KV cache: fixed-capacity buffers plus per-row lengths.
+"""KV caches: fixed-capacity buffers plus per-row lengths.
 
-The buffers are allocated with `torch.empty`: positions at or past a row's
-length hold uninitialised memory (possibly NaN). No attention path reads
-them: the decode kernel never loads past `lengths`, and the plain versions
-zero those positions out of their products. The model writes new K/V into
-the buffers in place.
+`KVCache` holds K/V in the model's dtype. Its buffers are allocated with
+`torch.empty`: positions at or past a row's length hold uninitialised
+memory (possibly NaN). No attention path reads them: the decode kernel
+never loads past `lengths`, and the plain versions zero those positions out
+of their products. The model writes new K/V into the buffers in place.
+
+`QuantizedKVCache` (port of the JAX package's) holds int8 / float8_e4m3fn
+values with one f32 scale per token and kv head; the model quantizes each
+new row as it writes it (kernel QA) and decode attention folds the scales
+in (kernel B7, ops/quantized.py).
 """
 
 from __future__ import annotations
@@ -12,6 +17,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from flash_attention_cute_tpu_torch.ops.quantized import QuantizedKV
 
 
 @dataclasses.dataclass
@@ -40,3 +47,42 @@ class KVCache:
     @property
     def batch(self) -> int:
         return self.k.shape[1]
+
+
+@dataclasses.dataclass
+class QuantizedKVCache:
+    """k_values/v_values: [num_layers, batch, num_kv_heads, capacity,
+    head_dim] int8 or float8_e4m3fn; k_scales/v_scales: [num_layers, batch,
+    num_kv_heads, capacity] float32; lengths: [batch] int32."""
+
+    k_values: torch.Tensor
+    k_scales: torch.Tensor
+    v_values: torch.Tensor
+    v_scales: torch.Tensor
+    lengths: torch.Tensor
+
+    @classmethod
+    def create(cls, cfg, batch: int, capacity: int, dtype=torch.int8,
+               device="cuda") -> "QuantizedKVCache":
+        """Zero values and unit scales, as the JAX package's."""
+        shape = (cfg.num_layers, batch, cfg.num_kv_heads, capacity, cfg.head_dim)
+        return cls(
+            k_values=torch.zeros(shape, dtype=dtype, device=device),
+            k_scales=torch.ones(shape[:-1], dtype=torch.float32, device=device),
+            v_values=torch.zeros(shape, dtype=dtype, device=device),
+            v_scales=torch.ones(shape[:-1], dtype=torch.float32, device=device),
+            lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
+        )
+
+    @property
+    def capacity(self) -> int:
+        return self.k_values.shape[3]
+
+    @property
+    def batch(self) -> int:
+        return self.k_values.shape[1]
+
+    def layer(self, li: int) -> tuple[QuantizedKV, QuantizedKV]:
+        """Layer `li`'s K and V caches (views, written in place)."""
+        return (QuantizedKV(self.k_values[li], self.k_scales[li]),
+                QuantizedKV(self.v_values[li], self.v_scales[li]))

@@ -11,22 +11,33 @@ embeddings), and `layers`, a dict of stacked [L, ...] weights named
     row's length, then split-KV decode attention (kernels D1 + D2) reads
     layer `l` of the stacked cache through a view.
 
+With a `QuantizedKVCache` the writes quantize each row per token (kernel
+QA on CUDA) and decode attention is kernel B7 (+ D2) over the int8 / e4m3
+values and their scales; prefill still attends the fresh, unquantized K/V.
+
 Layers run as a Python loop; nothing in a step waits on the device.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from flash_attention_cute_tpu_torch.api import flash_attention_forward
 from flash_attention_cute_tpu_torch.models import layers as L
-from flash_attention_cute_tpu_torch.models.cache import KVCache
+from flash_attention_cute_tpu_torch.models.cache import KVCache, QuantizedKVCache
 from flash_attention_cute_tpu_torch.models.config import ModelConfig
 from flash_attention_cute_tpu_torch.ops.flash_decode import (
     flash_attention_decode,
     flash_attention_decode_plain,
 )
 from flash_attention_cute_tpu_torch.ops.flash_fwd import flash_attention_fwd_plain
+from flash_attention_cute_tpu_torch.ops.quantized import (
+    flash_attention_decode_quantized,
+    flash_attention_decode_quantized_plain,
+    quantize_append,
+)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -52,17 +63,18 @@ def forward(
     params: dict,
     cfg: ModelConfig,
     input_ids: torch.Tensor,
-    cache: KVCache | None = None,
+    cache: KVCache | QuantizedKVCache | None = None,
     mode: str = "prefill",
     plain_attention: bool = False,
-) -> tuple[torch.Tensor, KVCache | None]:
+) -> tuple[torch.Tensor, KVCache | QuantizedKVCache | None]:
     """Causal-LM forward.
 
     Args:
       input_ids: [B, S] integer ids on the parameters' device.
       cache: required for mode="decode"; its buffers are updated in place
         and the returned cache shares them (with lengths + S). Caller
-        contract: lengths + S <= capacity.
+        contract: lengths + S <= capacity. A `QuantizedKVCache` selects
+        the quantized writes and decode kernel.
       mode: "prefill" | "decode" ("extend" is ROADMAP.md A6).
       plain_attention: run attention through the kernels' plain PyTorch
         versions whatever the device (the comparison path).
@@ -86,8 +98,13 @@ def forward(
     cos, sin = L.rope_cos_sin(positions, L.rope_inv_freq(cfg, dev), cfg.dtype)
     scale = cfg.attention_scale
 
+    quant = isinstance(cache, QuantizedKVCache)
+    if quant:
+        # Where each row's new tokens go: prefill writes from position 0.
+        write_at = cache.lengths if mode == "decode" else torch.zeros_like(cache.lengths)
     if mode == "decode":
         new_len = cache.lengths + s
+    if mode == "decode" and not quant:
         # Index grids of the in-place append at each row's length.
         rows = torch.arange(b, device=dev)[:, None, None]
         heads = torch.arange(cfg.num_kv_heads, device=dev)[None, :, None]
@@ -104,9 +121,17 @@ def forward(
                 attn = flash_attention_fwd_plain(q, k, v, scale, causal=True)
             else:
                 attn = flash_attention_forward(q, k, v, softmax_scale=scale, causal=True)
-            if cache is not None:
+            if quant:
+                quantize_append(k, v, *cache.layer(li), write_at)
+            elif cache is not None:
                 cache.k[li, :, :, :s] = k
                 cache.v[li, :, :, :s] = v
+        elif quant:
+            kc, vc = cache.layer(li)
+            quantize_append(k, v, kc, vc, write_at)
+            decode = (flash_attention_decode_quantized_plain if plain_attention
+                      else flash_attention_decode_quantized)
+            attn = decode(q, kc, vc, kv_length=new_len, sm_scale=scale)
         else:
             cache.k[li][rows, heads, slots] = k.to(cache.k.dtype)
             cache.v[li][rows, heads, slots] = v.to(cache.v.dtype)
@@ -121,7 +146,7 @@ def forward(
     logits = (x @ lm_head.to(x.dtype)).float()
     if cache is None:
         return logits, None
-    return logits, KVCache(k=cache.k, v=cache.v, lengths=cache.lengths + s)
+    return logits, dataclasses.replace(cache, lengths=cache.lengths + s)
 
 
 def init_params(

@@ -29,8 +29,10 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-# Element type codes understood by the C entry points (csrc/common.cuh).
+# Element type codes understood by the C entry points (csrc/common.cuh):
+# q, the output and a dense cache; the values of a quantized cache.
 DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1}
+KV_DTYPE_CODES = {torch.int8: 0, torch.float8_e4m3fn: 1}
 
 _libs: dict[str, ctypes.CDLL] = {}
 

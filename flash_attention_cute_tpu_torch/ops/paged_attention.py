@@ -54,6 +54,21 @@ def gather_pages(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
     return g.permute(1, 0, 2, 3, 4).reshape(b, hkv, pps * ps, d)
 
 
+def append_targets(page_table, lengths, s, page_size, active=None):
+    """Flat pool rows [B, S] (page * ps + offset) of an append of S tokens
+    at each row's length, and the [B, S] mask of the rows that write: rows
+    of inactive batch rows and positions past the table write nothing (the
+    `mode="drop"` of the JAX scatter, `_scatter_indices`)."""
+    pos = lengths.long()[:, None] + torch.arange(s, device=lengths.device)
+    slot = pos // page_size
+    pps = page_table.shape[1]
+    page = torch.gather(page_table.long(), 1, slot.clamp(max=pps - 1))
+    keep = slot < pps
+    if active is not None:
+        keep &= active.to(torch.bool)[:, None]
+    return page * page_size + pos % page_size, keep
+
+
 def _clamp(lengths: torch.Tensor, page_table: torch.Tensor, page_size: int) -> torch.Tensor:
     return lengths.to(torch.int32).clamp(0, page_table.shape[1] * page_size)
 
@@ -82,8 +97,10 @@ def paged_attention_extend_plain(q, k_pages, v_pages, q_offset, kv_length, page_
     )
 
 
-def _check_cuda_call(name, q, k_pages, v_pages, page_table, row_tensors, window, softcap):
-    """Shared refusals of the CUDA routes."""
+def _check_cuda_call(name, q, k_pages, v_pages, page_table, row_tensors, window, softcap,
+                     pool_dtype=None):
+    """Shared refusals of the CUDA routes; the pools must be `pool_dtype`
+    (default q's dtype)."""
     if window is not None or softcap is not None:
         raise NotImplementedError(
             f"window / logit_softcap {name} on CUDA is not in the kernel yet "
@@ -101,9 +118,10 @@ def _check_cuda_call(name, q, k_pages, v_pages, page_table, row_tensors, window,
         raise ValueError(f"bad pools k {tuple(k_pages.shape)} v {tuple(v_pages.shape)}")
     if k_pages.shape[2] % 8:
         raise ValueError(f"page_size must be a multiple of 8, got {k_pages.shape[2]}")
-    for n, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+    _build.check_cuda_tensor("q", q, q.dtype)
+    for n, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         # The pool is never cast here: a cast would copy the layer's whole pool.
-        _build.check_cuda_tensor(n, t, q.dtype)
+        _build.check_cuda_tensor(n, t, pool_dtype or q.dtype)
     for n, t in (("page_table", page_table), *row_tensors):
         want = (b, page_table.shape[1]) if n == "page_table" else (b,)
         if t.device != q.device or t.dtype != torch.int32 or t.shape != want or not t.is_contiguous():

@@ -5,7 +5,9 @@ greedy and temperature paths) for the Llama family:
 
   * batch slots: a fixed number; a request holds one slot for life.
   * page pool:   `num_pages x page_size` per layer on the device of the
-                 parameters; page tables are assembled on the host by the
+                 parameters, in the model's dtype or, with `kv_dtype=
+                 torch.int8 | torch.float8_e4m3fn`, quantized per token
+                 (kernels QA, B8, B9); page tables are assembled on the host by the
                  native scheduler (csrc/page_allocator.cpp via
                  runtime/native.py), which also admits FCFS within priority
                  classes and picks preemption victims.
@@ -44,10 +46,11 @@ import torch
 from flash_attention_cute_tpu_torch.models.config import ModelConfig
 from flash_attention_cute_tpu_torch.models.transformer import check_supported
 from flash_attention_cute_tpu_torch.runtime.native import NativeScheduler
+from flash_attention_cute_tpu_torch.ops.quantized import KV_DTYPES
 from flash_attention_cute_tpu_torch.runtime.paged_cache import (
     PageAllocator,
-    PagedKVState,
     create_paged_state,
+    create_quantized_paged_state,
 )
 from flash_attention_cute_tpu_torch.runtime.paged_forward import forward_paged
 from flash_attention_cute_tpu_torch.runtime.sampling import filter_logits
@@ -55,7 +58,6 @@ from flash_attention_cute_tpu_torch.runtime.sampling import filter_logits
 # Options of the JAX engine that later slices bring: name -> (neutral value,
 # where it stands in ROADMAP.md). Anything but the neutral value raises.
 _LATER_INIT = {
-    "kv_dtype": (None, "quantized pages are ROADMAP.md B7-B9"),
     "mesh": (None, "tensor-parallel serving is ROADMAP.md A12"),
     "lora_params": (None, "multi-LoRA serving is ROADMAP.md A10"),
     "dfa": (None, "guided decoding is ROADMAP.md A7c"),
@@ -161,6 +163,7 @@ class ServingEngine:
         page_size: int,
         pages_per_seq: int,
         dtype=None,
+        kv_dtype=None,  # torch.int8 / torch.float8_e4m3fn: quantized pages
         sampling=None,  # SamplingParams | None (None / temperature <= 0: greedy)
         seed: int = 0,
         prefill_group: int = 1,  # whole-prompt admissions per prefill forward
@@ -183,9 +186,20 @@ class ServingEngine:
         self.decode_chunk = max(1, decode_chunk)
         self.eos_token_id = eos_token_id
         self.device = params["embed"].device
-        self.state = create_paged_state(cfg, num_pages, page_size, batch=slots,
-                                        pages_per_seq=pages_per_seq, dtype=dtype,
-                                        device=self.device)
+        # A 1-byte kv_dtype selects quantized pages; any other selects the
+        # dense pool in `dtype`, as in the JAX engine.
+        if kv_dtype is not None and kv_dtype.itemsize == 1:
+            if kv_dtype not in KV_DTYPES:
+                raise NotImplementedError(
+                    f"kv_dtype={kv_dtype}: the port's quantized pages hold int8 or "
+                    "float8_e4m3fn values (ROADMAP.md A8a)")
+            self.state = create_quantized_paged_state(
+                cfg, num_pages, page_size, batch=slots, pages_per_seq=pages_per_seq,
+                dtype=kv_dtype, device=self.device)
+        else:
+            self.state = create_paged_state(cfg, num_pages, page_size, batch=slots,
+                                            pages_per_seq=pages_per_seq, dtype=dtype,
+                                            device=self.device)
         # Host mirrors of the device page table and lengths, uploaded once
         # per forward.
         self._table = np.zeros((slots, pages_per_seq), np.int32)
@@ -440,9 +454,8 @@ class ServingEngine:
                 ids[i, : plens[i]] = req.prompt
                 self._sync_table(s)
                 self._set_length(s, 0)
-            sub = PagedKVState(self.state.k_pages, self.state.v_pages,
-                               self._upload(self._table[slots]),
-                               self._upload(np.zeros(len(slots), np.int32)))
+            sub = dataclasses.replace(self.state, page_table=self._upload(self._table[slots]),
+                                      lengths=self._upload(np.zeros(len(slots), np.int32)))
             plens_dev = self._upload(plens)
             logits, _ = forward_paged(self.params, self.cfg, self._upload(ids), sub,
                                       mode="prefill", valid_len=plens_dev)
@@ -474,8 +487,8 @@ class ServingEngine:
             chunk_tokens = req.prompt[p: p + c]
             ids[j, : len(chunk_tokens)] = chunk_tokens
             progress[j] = p
-        sub = PagedKVState(self.state.k_pages, self.state.v_pages,
-                           self._upload(self._table[slots]), self._upload(progress))
+        sub = dataclasses.replace(self.state, page_table=self._upload(self._table[slots]),
+                                  lengths=self._upload(progress))
         logits, _ = forward_paged(self.params, self.cfg, self._upload(ids), sub, mode="extend")
         self.stats["device_calls"] += 1
         self.forwards["extend"] += 1

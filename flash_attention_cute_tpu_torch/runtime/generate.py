@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from flash_attention_cute_tpu_torch.models.cache import KVCache
+from flash_attention_cute_tpu_torch.models.cache import KVCache, QuantizedKVCache
 from flash_attention_cute_tpu_torch.models.config import ModelConfig
 from flash_attention_cute_tpu_torch.models.transformer import forward
 from flash_attention_cute_tpu_torch.runtime.sampling import SamplingParams, sample_token
@@ -22,17 +22,23 @@ def prefill(
     input_ids: torch.Tensor,
     cache_capacity: int,
     cache_dtype=None,
-) -> tuple[torch.Tensor, KVCache]:
+) -> tuple[torch.Tensor, KVCache | QuantizedKVCache]:
     """Run the prompt [B, S] through the model on its device.
+
+    `cache_dtype=torch.int8` (or `torch.float8_e4m3fn`) selects the
+    quantized KV cache: K/V quantize per token as they are written, and
+    decode attention folds the scales in (kernel B7).
 
     Returns (last-position logits [B, V] fp32, filled cache)."""
     b, s = input_ids.shape
     if cache_capacity < s:
         raise ValueError(f"cache_capacity {cache_capacity} < prompt length {s}")
-    if cache_dtype is not None and torch.tensor([], dtype=cache_dtype).element_size() == 1:
-        raise NotImplementedError("quantized KV cache is ROADMAP.md A8")
-    cache = KVCache.create(cfg, batch=b, capacity=cache_capacity, dtype=cache_dtype,
-                           device=input_ids.device)
+    if cache_dtype is not None and cache_dtype.itemsize == 1:
+        cache = QuantizedKVCache.create(cfg, batch=b, capacity=cache_capacity,
+                                        dtype=cache_dtype, device=input_ids.device)
+    else:
+        cache = KVCache.create(cfg, batch=b, capacity=cache_capacity, dtype=cache_dtype,
+                               device=input_ids.device)
     logits, cache = forward(params, cfg, input_ids, cache=cache, mode="prefill")
     return logits[:, -1], cache
 

@@ -1,17 +1,22 @@
 """Paged KV cache: the device-side page pool, the append that fills it, and
 the host-side page allocator.
 
-Port of flash_attention_cute_tpu/runtime/paged_cache.py (dense pages; the
-quantized state and the page-prefix copies come with later slices).
+Port of flash_attention_cute_tpu/runtime/paged_cache.py (dense and
+quantized pages; the page-prefix copies come with the prefix cache).
 
-Layouts (per-layer views `k_pages[l]` feed ops/paged_attention.py):
-  k_pages/v_pages: [L, Hkv, num_pages, page_size, D]
-  page_table:      [B, pages_per_seq] int32 (padding = page 0)
-  lengths:         [B] int32
+Layouts (per-layer views `k_pages[l]` feed ops/paged_attention.py, and
+`k_values[l]` / `k_scales[l]` ops/quantized.py):
+  k_pages/v_pages:   [L, Hkv, num_pages, page_size, D]
+  k_values/v_values: [L, Hkv, num_pages, page_size, D] int8 / float8_e4m3fn
+  k_scales/v_scales: [L, Hkv, num_pages, page_size] float32
+  page_table:        [B, pages_per_seq] int32 (padding = page 0)
+  lengths:           [B] int32
 
-`paged_append_layer` writes in place (the JAX version returns new arrays
-that donation makes in place). On a CUDA pool it launches the append kernel
-(csrc/paged_attention.cu); on the CPU it runs the plain version.
+`paged_append_layer` and `paged_append_layer_quantized` write in place (the
+JAX versions return new arrays that donation makes in place). On a CUDA
+pool they launch the append kernel (csrc/paged_attention.cu) or the
+quantize-and-append kernel QA (csrc/quantized.cu); on the CPU they run the
+plain versions.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ import numpy as np
 import torch
 
 from flash_attention_cute_tpu_torch.ops import _build
+from flash_attention_cute_tpu_torch.ops.paged_attention import append_targets
+from flash_attention_cute_tpu_torch.ops.quantized import QuantizedKV, quantize_append
 
 P_, I_, L_ = _build.P, _build.I, _build.L
 APPEND = _build.Kernel(
@@ -63,19 +70,64 @@ def create_paged_state(
     )
 
 
-def append_targets(page_table, lengths, s, page_size, active=None):
-    """Flat pool rows [B, S] (page * ps + offset) of an append of S tokens
-    at each row's length, and the [B, S] mask of the rows that write: rows
-    of inactive batch rows and positions past the table write nothing (the
-    `mode="drop"` of the JAX scatter, `_scatter_indices`)."""
-    pos = lengths.long()[:, None] + torch.arange(s, device=lengths.device)
-    slot = pos // page_size
-    pps = page_table.shape[1]
-    page = torch.gather(page_table.long(), 1, slot.clamp(max=pps - 1))
-    keep = slot < pps
-    if active is not None:
-        keep &= active.to(torch.bool)[:, None]
-    return page * page_size + pos % page_size, keep
+@dataclasses.dataclass
+class QuantizedPagedKVState:
+    """Paged cache with int8 / float8_e4m3fn values and per-token f32 scales:
+    half the bytes of a bf16 pool per token, plus 4 bytes of scale per token
+    and kv head for each of K and V."""
+
+    k_values: torch.Tensor  # [L, Hkv, P, ps, D]
+    k_scales: torch.Tensor  # [L, Hkv, P, ps]
+    v_values: torch.Tensor
+    v_scales: torch.Tensor
+    page_table: torch.Tensor  # [B, pages_per_seq] int32
+    lengths: torch.Tensor  # [B] int32
+
+    @property
+    def page_size(self) -> int:
+        return self.k_values.shape[3]
+
+    @property
+    def num_pages(self) -> int:
+        return self.k_values.shape[2]
+
+    def layer(self, li: int) -> tuple[QuantizedKV, QuantizedKV]:
+        """Layer `li`'s K and V pools (views, written in place)."""
+        return (QuantizedKV(self.k_values[li], self.k_scales[li]),
+                QuantizedKV(self.v_values[li], self.v_scales[li]))
+
+
+def create_quantized_paged_state(
+    cfg, num_pages: int, page_size: int, batch: int, pages_per_seq: int,
+    dtype=torch.int8, device="cuda",
+) -> QuantizedPagedKVState:
+    """Zero values and unit scales (as the JAX package's), an all-page-0
+    table, lengths 0."""
+    shape = (cfg.num_layers, cfg.num_kv_heads, num_pages, page_size, cfg.head_dim)
+    return QuantizedPagedKVState(
+        k_values=torch.zeros(shape, dtype=dtype, device=device),
+        k_scales=torch.ones(shape[:-1], dtype=torch.float32, device=device),
+        v_values=torch.zeros(shape, dtype=dtype, device=device),
+        v_scales=torch.ones(shape[:-1], dtype=torch.float32, device=device),
+        page_table=torch.zeros((batch, pages_per_seq), dtype=torch.int32, device=device),
+        lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
+    )
+
+
+def paged_append_layer_quantized(k_slab, v_slab, k_new, v_new, page_table, lengths, active=None):
+    """Quantize S new tokens per sequence per token and write values and
+    scales into one layer's quantized pools, in place, with the drop rules
+    of `paged_append_layer` (inactive rows and positions past the table
+    write nothing).
+
+    k_slab/v_slab: (values [Hkv, P, ps, D], scales [Hkv, P, ps]) views of
+    the stacked pools; k_new/v_new [B, Hkv, S, D]; page_table [B, pps];
+    lengths [B] (before the append); active [B] bool or None. The JAX
+    version takes one slab per call; here K and V go in one launch of QA.
+    Returns (k_slab, v_slab)."""
+    quantize_append(k_new, v_new, QuantizedKV(*k_slab), QuantizedKV(*v_slab), lengths,
+                    page_table, active)
+    return k_slab, v_slab
 
 
 def paged_append_layer_plain(k_pages_l, v_pages_l, k_new, v_new, page_table, lengths,

@@ -14,11 +14,17 @@ the append kernel on CUDA), then attention runs:
     lengths (kernels B5 + D2). Rows of length 0 are inactive: they write
     nothing, their length stays 0 and their output is discarded.
 
-The pool is updated in place, where the JAX version donates it: the
-returned state shares `k_pages`/`v_pages` with the one passed in.
+A `QuantizedPagedKVState` takes the quantized route: the append quantizes
+each new row per token (kernel QA), extend runs B9 and decode B8 + D2 over
+the int8 / e4m3 pages; prefill still attends the fresh K/V (kernel P).
+
+The pools are updated in place, where the JAX version donates them: the
+returned state shares its pools with the one passed in.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -33,23 +39,35 @@ from flash_attention_cute_tpu_torch.ops.paged_attention import (
     paged_attention_extend,
     paged_attention_extend_plain,
 )
-from flash_attention_cute_tpu_torch.runtime.paged_cache import PagedKVState, paged_append_layer
+from flash_attention_cute_tpu_torch.ops.quantized import (
+    paged_attention_decode_quantized,
+    paged_attention_decode_quantized_plain,
+    paged_attention_extend_quantized,
+    paged_attention_extend_quantized_plain,
+    quantize_append,
+)
+from flash_attention_cute_tpu_torch.runtime.paged_cache import (
+    PagedKVState,
+    QuantizedPagedKVState,
+    paged_append_layer,
+)
 
 
 def forward_paged(
     params: dict,
     cfg: ModelConfig,
     input_ids: torch.Tensor,
-    state: PagedKVState,
+    state: PagedKVState | QuantizedPagedKVState,
     mode: str = "decode",
     valid_len: torch.Tensor | None = None,
     plain_attention: bool = False,
-) -> tuple[torch.Tensor, PagedKVState]:
+) -> tuple[torch.Tensor, PagedKVState | QuantizedPagedKVState]:
     """Returns (logits [B, S, V] fp32, updated state).
 
     Args:
       input_ids: [B, S] on the parameters' device.
-      state: the paged state; its pools are written in place.
+      state: the paged state, dense or quantized; its pools are written in
+        place.
       mode: "prefill" | "extend" | "decode" (S must be 1).
       valid_len: [B] real (unpadded) lengths in prefill and extend (default
         S); ignored in decode, where rows with length > 0 advance by 1.
@@ -87,6 +105,15 @@ def forward_paged(
     new_len = lengths + valid_len
     scale = cfg.attention_scale
     table = state.page_table
+    quant = isinstance(state, QuantizedPagedKVState)
+    # Attention of extend and decode: (kernel route, plain route).
+    if mode == "extend":
+        attend = ((paged_attention_extend_quantized, paged_attention_extend_quantized_plain)
+                  if quant else (paged_attention_extend, paged_attention_extend_plain))
+    else:
+        attend = ((paged_attention_decode_quantized, paged_attention_decode_quantized_plain)
+                  if quant else (paged_attention_decode, paged_attention_decode_plain))
+    attend = attend[plain_attention]
 
     for li in range(cfg.num_layers):
         lp = {name: w[li] for name, w in params["layers"].items()}
@@ -94,19 +121,22 @@ def forward_paged(
         q, k, v = L.qkv_project(h, lp, cfg)
         q = L.apply_rope(q, cos, sin)
         k = L.apply_rope(k, cos, sin)
-        kp, vp = state.k_pages[li], state.v_pages[li]  # views: written in place
-        paged_append_layer(kp, vp, k, v, table, lengths, active)
+        # One layer's pools: views, written in place.
+        if quant:
+            kp, vp = state.layer(li)
+            quantize_append(k, v, kp, vp, lengths, table, active)
+        else:
+            kp, vp = state.k_pages[li], state.v_pages[li]
+            paged_append_layer(kp, vp, k, v, table, lengths, active)
         if mode == "prefill":
             if plain_attention:
                 attn = flash_attention_fwd_plain(q, k, v, scale, causal=True)
             else:
                 attn = flash_attention_forward(q, k, v, softmax_scale=scale, causal=True)
         elif mode == "extend":
-            extend = paged_attention_extend_plain if plain_attention else paged_attention_extend
-            attn = extend(q, kp, vp, new_len - s, new_len, table, sm_scale=scale)
+            attn = attend(q, kp, vp, new_len - s, new_len, table, sm_scale=scale)
         else:
-            decode = paged_attention_decode_plain if plain_attention else paged_attention_decode
-            attn = decode(q, kp, vp, new_len, table, sm_scale=scale)
+            attn = attend(q, kp, vp, new_len, table, sm_scale=scale)
         x = L.layer_tail(x, attn, lp, cfg)
 
     x = L.rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
@@ -114,4 +144,4 @@ def forward_paged(
     if lm_head is None:  # tied embeddings
         lm_head = params["embed"].T
     logits = (x @ lm_head.to(x.dtype)).float()
-    return logits, PagedKVState(state.k_pages, state.v_pages, table, new_len)
+    return logits, dataclasses.replace(state, lengths=new_len)

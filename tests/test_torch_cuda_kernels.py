@@ -10,13 +10,19 @@ results of fp32 arithmetic on bf16 inputs held against the fp32 plain
 version: max |diff| <= 3e-2 (the repository's bf16 figure). D1's partials
 are fp32 sums of the same bf16 inputs in another order: rtol 1e-4 with
 atol 1e-3. The paged append must write exactly what the plain masked
-scatter writes.
+scatter writes. The quantized kernels (B7, B8, B9: bf16 q over int8 / e4m3
+values with f32 scales) are held to their fp32 plain versions at 3e-2 too,
+over caches whose scales (and e4m3 values) hold NaN at and past every
+length; the quantize-and-append kernel QA must write exactly what the plain
+`quantize_kv` + indexed write writes.
 """
 
 import pytest
 import torch
 
 from flash_attention_cute_tpu_torch.ops import flash_decode, flash_fwd, paged_attention
+from flash_attention_cute_tpu_torch.ops import quantized as quant
+from flash_attention_cute_tpu_torch.ops.quantized import QuantizedKV
 from flash_attention_cute_tpu_torch.runtime import paged_cache
 
 pytestmark = pytest.mark.cuda
@@ -225,3 +231,148 @@ def test_paged_kernels_refuse_what_they_do_not_take(device):
     with pytest.raises(NotImplementedError, match="softcap"):
         paged_attention.paged_attention_extend(randn(gen, 2, 32, 4, 128), kp, vp, lengths,
                                                lengths + 4, table, logit_softcap=30.0)
+
+
+KV_DTYPES = {"int8": torch.int8, "e4m3": torch.float8_e4m3fn}
+
+
+def poison(kv: QuantizedKV, dead):
+    """NaN into the scales where `dead` [..., S] is True, and the e4m3 NaN
+    byte into the values there (int8 has no NaN)."""
+    kv.scales[dead] = float("nan")
+    if kv.values.dtype == torch.float8_e4m3fn:
+        kv.values.view(torch.uint8)[dead] = 0x7F
+
+
+@pytest.mark.parametrize("name", list(KV_DTYPES))
+def test_quant_decode_kernel_matches_plain_on_stacked_cache(device, name):
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    lens = [0, 1, 63, 64, 65, 544, 2048]
+    k = quant.quantize_kv(randn(gen, 2, len(lens), 8, 2048, 128, dtype=torch.float32),
+                          KV_DTYPES[name])
+    v = quant.quantize_kv(randn(gen, 2, len(lens), 8, 2048, 128, dtype=torch.float32),
+                          KV_DTYPES[name])
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    dead = torch.arange(2048, device="cuda")[None, :] >= lengths[:, None]  # [B, C]
+    for kv in (k, v):
+        poison(kv, dead[None, :, None, :].expand(2, -1, 8, -1))
+    q = randn(gen, len(lens), 32, 1, 128)
+    before = (quant.QUANT_DECODE.launches, flash_decode.COMBINE.launches)
+    out = quant.flash_attention_decode_quantized(q, k, v, lengths, layer=1)
+    torch.cuda.synchronize()
+    assert (quant.QUANT_DECODE.launches, flash_decode.COMBINE.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = quant.flash_attention_decode_quantized_plain(q, k, v, lengths, layer=1)
+    assert torch.isfinite(out).all() and (out[0] == 0).all()
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+
+
+def quant_paged_pool(gen, ps, rows, dtype, lengths, capacity=1024, hkv=8, d=128):
+    """One layer's quantized pools behind a permuted page table, with NaN
+    at and past each row's length and in page 0."""
+    pps = capacity // ps
+    num_pages = rows * pps + 1
+    k = quant.quantize_kv(randn(gen, hkv, num_pages, ps, d, dtype=torch.float32), dtype)
+    v = quant.quantize_kv(randn(gen, hkv, num_pages, ps, d, dtype=torch.float32), dtype)
+    perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
+    table = perm[: rows * pps].view(rows, pps).to(torch.int32).contiguous()
+    pos = torch.arange(pps * ps, device="cuda")
+    dead = torch.zeros(num_pages * ps, dtype=torch.bool, device="cuda")
+    dead[:ps] = True
+    for b, n in enumerate(lengths):
+        p = pos[pos >= n]
+        dead[table[b].long()[p // ps] * ps + p % ps] = True
+    for kv in (k, v):
+        poison(kv, dead.view(1, num_pages, ps).expand(hkv, -1, -1))
+    return k, v, table
+
+
+@pytest.mark.parametrize("name", list(KV_DTYPES))
+@pytest.mark.parametrize("ps", [16, 128])
+def test_quant_paged_decode_kernel_matches_plain(device, ps, name):
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    lens = [0, 1, ps - 1, ps, ps + 1, 1024, 777, 2 * ps + 1]
+    k, v, table = quant_paged_pool(gen, ps, len(lens), KV_DTYPES[name], lens)
+    q = randn(gen, len(lens), 32, 1, 128)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    before = quant.QUANT_PAGED_DECODE.launches
+    out = quant.paged_attention_decode_quantized(q, k, v, lengths, table)
+    torch.cuda.synchronize()
+    assert quant.QUANT_PAGED_DECODE.launches == before + 1
+    ref = quant.paged_attention_decode_quantized_plain(q, k, v, lengths, table)
+    assert torch.isfinite(out).all() and (out[0] == 0).all()
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+
+
+@pytest.mark.parametrize("name", list(KV_DTYPES))
+@pytest.mark.parametrize("ps", [16, 128])
+@pytest.mark.parametrize("s", [256, 100])
+def test_quant_paged_extend_kernel_matches_plain(device, s, ps, name):
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    offs = [0, 256, 700, 0]
+    kvl = [s, 256 + s, 700 + s, 0]  # the last row is inactive
+    k, v, table = quant_paged_pool(gen, ps, len(offs), KV_DTYPES[name], kvl)
+    q = randn(gen, len(offs), s, 32, 128).transpose(1, 2)  # the model's view
+    off_t = torch.tensor(offs, dtype=torch.int32, device="cuda")
+    kvl_t = torch.tensor(kvl, dtype=torch.int32, device="cuda")
+    before = quant.QUANT_PAGED_EXTEND.launches
+    out, clamps = quant.paged_attention_extend_quantized(q, k, v, off_t, kvl_t, table,
+                                                         return_clamps=True)
+    torch.cuda.synchronize()
+    assert quant.QUANT_PAGED_EXTEND.launches == before + 1 and clamps == 0
+    ref = quant.paged_attention_extend_quantized_plain(q, k, v, off_t, kvl_t, table)
+    assert torch.isfinite(out).all() and (out[3] == 0).all()
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+
+
+@pytest.mark.parametrize("name", list(KV_DTYPES))
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+@pytest.mark.parametrize("s", [1, 100])
+def test_quant_append_kernel_writes_what_plain_writes(device, s, paged, name):
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    dtype = KV_DTYPES[name]
+    starts = [0, 13, 15, 1024 - 40 if s > 1 else 1024, 37, 32]
+    new_k = randn(gen, len(starts), s, 8, 128).transpose(1, 2)
+    new_v = randn(gen, len(starts), s, 8, 128).transpose(1, 2)
+    if paged:  # row 3 runs past its table, row 4 is inactive
+        k, v, table = quant_paged_pool(gen, 16, len(starts), dtype, [1024] * len(starts))
+        active = torch.tensor([1, 1, 1, 1, 0, 1], dtype=torch.bool, device="cuda")
+    else:
+        starts[3] = 1024 - s
+        cache = [quant.quantize_kv(randn(gen, len(starts), 8, 1024, 128), dtype) for _ in "kv"]
+        k, v = cache
+        table = active = None
+    lengths = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    ref = [QuantizedKV(x.values.clone(), x.scales.clone()) for x in (k, v)]
+    before = quant.QUANT_APPEND.launches
+    quant.quantize_append(new_k, new_v, k, v, lengths, table, active)
+    torch.cuda.synchronize()
+    assert quant.QUANT_APPEND.launches == before + 1
+    quant.quantize_append_plain(new_k, new_v, *ref, lengths, table, active)
+    for got, want in zip((k, v), ref):  # bit for bit (page 0's scales are NaN)
+        assert torch.equal(got.values.view(torch.uint8), want.values.view(torch.uint8))
+        assert torch.equal(got.scales.view(torch.int32), want.scales.view(torch.int32))
+
+
+def test_quantized_kernels_refuse_what_they_do_not_take(device):
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    k, v, table = quant_paged_pool(gen, 16, 2, torch.int8, [64, 64], capacity=64)
+    q = randn(gen, 2, 32, 1, 128)
+    lengths = torch.tensor([3, 5], dtype=torch.int32, device="cuda")
+    with pytest.raises(NotImplementedError, match="window"):
+        quant.paged_attention_decode_quantized(q, k, v, lengths, table, window=8)
+    with pytest.raises(NotImplementedError, match="softcap"):
+        quant.paged_attention_extend_quantized(randn(gen, 2, 32, 4, 128), k, v, lengths,
+                                               lengths + 4, table, logit_softcap=30.0)
+    half = QuantizedKV(k.values.half(), k.scales)
+    with pytest.raises(NotImplementedError, match="int8 / float8_e4m3fn"):
+        quant.paged_attention_decode_quantized(q, half, half, lengths, table)
+    with pytest.raises(ValueError, match="float32"):
+        quant.paged_attention_decode_quantized(q, QuantizedKV(k.values, k.scales.half()), v,
+                                               lengths, table)
+    cache = quant.quantize_kv(randn(gen, 2, 8, 64, 128), torch.int8)
+    with pytest.raises(NotImplementedError, match="window"):
+        quant.flash_attention_decode_quantized(q, cache, cache, lengths, window=8)
+    with pytest.raises(ValueError, match="float32"):
+        quant.quantize_append(randn(gen, 2, 8, 1, 128), randn(gen, 2, 8, 1, 128),
+                              QuantizedKV(cache.values, cache.scales.double()), cache, lengths)

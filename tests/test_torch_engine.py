@@ -7,7 +7,8 @@ weights. `forward_paged` logits must match the JAX `forward_paged`
 (Pallas kernels in interpret mode) to 2e-5; the engine must be
 token-identical to the JAX `ServingEngine` and to the port's own
 `greedy_generate`, and to itself across preemption, chunked admission and
-grouped admission. The JAX engine runs once, in a module fixture.
+grouped admission; over int8 pages (`kv_dtype=torch.int8`) to the JAX engine
+over int8 pages. Each JAX engine runs once, in a module fixture.
 """
 
 import dataclasses
@@ -31,7 +32,12 @@ from flash_attention_cute_tpu_torch.runtime import (
     greedy_generate,
     paged_forward,
 )
-from flash_attention_cute_tpu_torch.runtime.paged_cache import create_paged_state
+from flash_attention_cute_tpu_torch.runtime.paged_cache import (
+    PagedKVState,
+    QuantizedPagedKVState,
+    create_paged_state,
+    create_quantized_paged_state,
+)
 from flash_attention_cute_tpu_torch.runtime.paged_forward import forward_paged
 from flash_attention_cute_tpu_torch.runtime.sampling import SamplingParams
 
@@ -72,6 +78,15 @@ def jax_tokens(tiny):
     for rid, p in PROMPTS.items():
         eng.submit(rid, p, N_NEW[rid])
     return eng.run(), eng.stats
+
+
+@pytest.fixture(scope="module")
+def jax_int8_tokens(tiny):
+    jcfg, jparams, _, _ = tiny
+    eng = JaxServingEngine(jparams, jcfg, **POOL, kv_dtype=jnp.int8, interpret=True)
+    for rid, p in PROMPTS.items():
+        eng.submit(rid, p, N_NEW[rid])
+    return eng.run()
 
 
 def test_forward_paged_prefill_decode_extend_match_jax(tiny):
@@ -134,6 +149,39 @@ def test_forward_paged_plain_attention_is_the_same_on_the_cpu(tiny, monkeypatch)
         assert torch.equal(a, b), mode_step[0]
 
 
+def test_forward_paged_quantized_plain_attention_is_the_same_on_the_cpu(tiny, monkeypatch):
+    """The quantized route's comparison path reaches none of B7-B9's
+    wrappers (each raises here when called) and gives the default route's
+    logits and pools."""
+    _, _, cfg, params = tiny
+    rng = np.random.default_rng(5)
+    steps = [("prefill", 6), ("extend", 3), ("decode", 1)]
+    steps = [(mode, torch.from_numpy(rng.integers(0, 256, (2, s)))) for mode, s in steps]
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain_attention reached a kernel wrapper")
+
+    outs, states = {}, {}
+    for plain in (False, True):
+        if plain:
+            for name in ("flash_attention_forward", "paged_attention_decode_quantized",
+                         "paged_attention_extend_quantized"):
+                monkeypatch.setattr(paged_forward, name, refuse)
+        st = create_quantized_paged_state(cfg, 9, 8, 2, 4, dtype=torch.float8_e4m3fn,
+                                          device="cpu")
+        st.page_table = torch.tensor([[1, 2, 0, 0], [3, 4, 0, 0]], dtype=torch.int32)
+        outs[plain] = []
+        for mode, ids in steps:
+            logits, st = forward_paged(params, cfg, ids, st, mode=mode, plain_attention=plain)
+            outs[plain].append(logits)
+        states[plain] = st
+    assert isinstance(states[True], QuantizedPagedKVState)
+    assert states[True].lengths.tolist() == [10, 10]
+    for mode_step, a, b in zip(steps, outs[False], outs[True]):
+        assert torch.equal(a, b), mode_step[0]
+    assert torch.equal(states[False].k_scales, states[True].k_scales)
+
+
 def test_engine_token_identical_to_jax_engine_and_greedy_generate(tiny, jax_tokens):
     _, _, cfg, params = tiny
     want, jstats = jax_tokens
@@ -164,6 +212,35 @@ def test_engine_admission_modes_give_the_same_tokens(tiny, jax_tokens, kw):
         assert eng.forwards["extend"] > 0 and eng.forwards["prefill"] == 0
     if "prefill_group" in kw:
         assert eng.forwards["prefill"] < len(PROMPTS)
+
+
+@pytest.mark.parametrize("kw", [{}, dict(prefill_chunk=4)], ids=["whole", "chunked"])
+def test_engine_int8_pages_token_identical_to_jax_engine(tiny, jax_int8_tokens, kw):
+    """Whole-prompt admission runs prefill + decode over int8 pages (the
+    quantized append, then B8's plain version here); chunked admission the
+    quantized extend (B9's plain version)."""
+    _, _, cfg, params = tiny
+    got, eng = run_engine(params, cfg, PROMPTS, N_NEW, kv_dtype=torch.int8, **kw)
+    assert isinstance(eng.state, QuantizedPagedKVState) and eng.state.k_values.dtype == torch.int8
+    assert not eng.failed and got == jax_int8_tokens
+    if kw:
+        assert eng.forwards["extend"] > 0 and eng.forwards["prefill"] == 0
+
+
+def test_engine_quantized_chunked_admission_matches_whole_prompt(tiny):
+    """Chunked admission quantizes each token as whole-prompt admission
+    does, so the two generate the same tokens (the JAX engine's test, here
+    over e4m3 pages)."""
+    _, _, cfg, params = tiny
+    prompt = np.random.default_rng(21).integers(0, 256, 21).tolist()
+    pool = dict(slots=1, num_pages=9, page_size=8, pages_per_seq=8,
+                kv_dtype=torch.float8_e4m3fn)
+    whole, _ = run_engine(params, cfg, {0: prompt}, 8, **pool)
+    chunked, eng = run_engine(params, cfg, {0: prompt}, 8, prefill_chunk=8, **pool)
+    assert not eng.failed and len(chunked[0]) == 8 and chunked == whole
+    # A kv_dtype that is not 1 byte wide selects the dense pool, as in JAX.
+    dense = ServingEngine(params, cfg, **{**POOL, "kv_dtype": torch.float32})
+    assert isinstance(dense.state, PagedKVState)
 
 
 @pytest.mark.parametrize("kw", [{}, dict(prefill_chunk=4)], ids=["whole", "chunked"])
@@ -214,8 +291,10 @@ def test_engine_eos_stops_early(tiny):
     assert out[0] == full[: full.index(eos) + 1] and out[0][-1] == eos
 
 
+# kv_dtype: int8 and e4m3 pages are served; another 1-byte type (e5m2,
+# which the JAX engine would quantize to) is refused.
 LATER = [("init", name, value) for name, value in (
-    ("kv_dtype", torch.int8), ("mesh", object()), ("lora_params", {}), ("dfa", {}),
+    ("kv_dtype", torch.float8_e5m2), ("mesh", object()), ("lora_params", {}), ("dfa", {}),
     ("enable_prefix_cache", True), ("host_swap_tokens", 64), ("return_logprobs", True),
     ("collect_clamp_stats", True),
 )] + [("submit", name, value) for name, value in (

@@ -4,7 +4,11 @@ the CPU, plus the port's import boundary and device defaults.
 Parameters come from the JAX `init_params` and cross through
 `params_from_jax` as numpy arrays, so both sides hold identical weights.
 Tolerances are fp32: 1e-4 on logits (two layers of matmuls summed in
-different orders); greedy tokens must be identical.
+different orders); greedy tokens must be identical. Over a quantized KV
+cache the decode logits are held to the JAX package's own tolerances
+(tests/test_quantized_cache.py): 0.15 for int8 and 0.6 for e4m3, because K
+differs from JAX's by fp32 rounding and a value at a rounding edge may move
+by one quantum.
 """
 
 import ast
@@ -21,6 +25,7 @@ import torch
 
 from flash_attention_cute_tpu.models import layers as jax_layers
 from flash_attention_cute_tpu.models.cache import KVCache as JaxKVCache
+from flash_attention_cute_tpu.models.cache import QuantizedKVCache as JaxQuantizedKVCache
 from flash_attention_cute_tpu.models.config import RopeScaling as JaxRopeScaling
 from flash_attention_cute_tpu.models.config import tiny_test_config as jax_tiny
 from flash_attention_cute_tpu.models.transformer import forward as jax_forward
@@ -28,13 +33,13 @@ from flash_attention_cute_tpu.models.transformer import init_params as jax_init
 from flash_attention_cute_tpu.runtime import sampling as jax_sampling
 from flash_attention_cute_tpu.runtime.generate import greedy_generate as jax_greedy
 from flash_attention_cute_tpu_torch.models import layers, presets
-from flash_attention_cute_tpu_torch.models.cache import KVCache
+from flash_attention_cute_tpu_torch.models.cache import KVCache, QuantizedKVCache
 from flash_attention_cute_tpu_torch.models.config import RopeScaling, tiny_test_config
 from flash_attention_cute_tpu_torch.models.convert import params_from_jax
 from flash_attention_cute_tpu_torch.models.llama import llama3_8b_config, llama_config_from_hf
 from flash_attention_cute_tpu_torch.models.transformer import forward, init_params
 from flash_attention_cute_tpu_torch.runtime import sampling
-from flash_attention_cute_tpu_torch.runtime.generate import greedy_generate
+from flash_attention_cute_tpu_torch.runtime.generate import greedy_generate, prefill
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "flash_attention_cute_tpu_torch"
@@ -118,6 +123,52 @@ def test_greedy_generate_eos_done_masking(tiny):
             assert all(x == eos for x in row[cut:])
         else:
             assert row == row_free
+
+
+@pytest.mark.parametrize("tdtype,jdtype,atol", [(torch.int8, jnp.int8, 0.15),
+                                               (torch.float8_e4m3fn, jnp.float8_e4m3fn, 0.6)],
+                         ids=["int8", "e4m3"])
+def test_quantized_cache_prefill_and_decode_track_jax(tiny, tdtype, jdtype, atol):
+    """Prefill attends the fresh K/V (identical to the dense path), then
+    three decode steps over the quantized cache (kernel B7's plain version
+    here, JAX's dequantize-and-attend route)."""
+    jcfg, jparams, cfg, params = tiny
+    ids = prompt(2, 12, seed=8)
+    j_logits, j_cache = jax_forward(jparams, jcfg, jnp.asarray(ids),
+                                    cache=JaxQuantizedKVCache.create(jcfg, 2, 32, jdtype),
+                                    mode="prefill")
+    cache = QuantizedKVCache.create(cfg, 2, 32, tdtype, device="cpu")
+    logits, cache = forward(params, cfg, torch.from_numpy(ids), cache=cache, mode="prefill")
+    np.testing.assert_allclose(logits.numpy(), np.asarray(j_logits), atol=1e-4, rtol=0)
+    assert cache.k_values.dtype == tdtype and cache.lengths.tolist() == [12, 12]
+    tok = np.argmax(np.asarray(j_logits)[:, -1], axis=-1).astype(np.int32)[:, None]
+    for _ in range(3):
+        j_logits, j_cache = jax_forward(jparams, jcfg, jnp.asarray(tok), cache=j_cache,
+                                        mode="decode")
+        logits, cache = forward(params, cfg, torch.from_numpy(tok), cache=cache, mode="decode")
+        np.testing.assert_allclose(logits.numpy(), np.asarray(j_logits), atol=atol, rtol=0)
+        tok = np.argmax(np.asarray(j_logits)[:, -1], axis=-1).astype(np.int32)[:, None]
+    assert cache.lengths.tolist() == [15, 15]
+    np.testing.assert_allclose(cache.k_scales[:, :, :, :15].numpy(),
+                               np.asarray(j_cache.k_scales)[:, :, :, :15], rtol=1e-5, atol=0)
+
+
+def test_greedy_generate_with_quantized_cache(tiny):
+    _, _, cfg, params = tiny
+    ids = torch.from_numpy(prompt(1, 10, seed=9))
+    last, cache = prefill(params, cfg, ids, cache_capacity=24, cache_dtype=torch.int8)
+    assert isinstance(cache, QuantizedKVCache) and cache.lengths.tolist() == [10]
+    out = greedy_generate(params, cfg, ids, 6, cache_capacity=24, cache_dtype=torch.int8)
+    assert out.shape == (1, 6) and out.dtype == torch.int32
+    # The same tokens as a hand-driven decode over the quantized cache.
+    want, tok = [], last.argmax(-1)
+    for _ in range(6):
+        want.append(int(tok))
+        logits, cache = forward(params, cfg, tok[:, None], cache=cache, mode="decode")
+        tok = logits[:, 0].argmax(-1)
+    assert out[0].tolist() == want
+    _, dense = prefill(params, cfg, ids, cache_capacity=24, cache_dtype=torch.float32)
+    assert isinstance(dense, KVCache)
 
 
 def rope_cfgs():
@@ -255,7 +306,7 @@ def test_port_sources_name_no_jax_import():
 
 
 def test_entry_points_default_to_cuda():
-    for fn in (init_params, KVCache.create, params_from_jax):
+    for fn in (init_params, KVCache.create, QuantizedKVCache.create, params_from_jax):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     cfg = tiny_test_config()
     if torch.cuda.is_available():
