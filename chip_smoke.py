@@ -17,38 +17,52 @@ Phases, in order; any failure exits non-zero:
      quantized-cache kernels B7 (decode), B8 (paged decode), B9 (paged
      extend) over int8 and e4m3 values whose scales (and e4m3 values) hold
      NaN at and past every length, and QA (quantize-and-append, paged and
-     contiguous), which must be bit-identical to its plain version.
+     contiguous), which must be bit-identical to its plain version; (3c)
+     the weight-only quantized products B10 (int8) and B11 (int4) at the
+     Llama-3-8B projection shapes (T 1 to 2048, the padded lm_head, a
+     ragged K, an int4 K_pad of 256) against their plain versions.
   4. main paths: greedy generation of Llama-3-8B (random weights from a
      seeded CUDA generator) at B 4, prompt 512, 64 new tokens; launch
      counters show the kernels carried it; teacher-forced logits of the
      kernel path agree with the plain-attention path. (4a) The same over
      an int8 KV cache (QA, B7 + D2), its decode step held to the plain
      route over one and the same quantized cache. (4b) The serving engine
-     over 24 requests in five runs: (A) whole-prompt admission, (B) chunked
+     over 24 requests in seven runs: (A) whole-prompt admission, (B) chunked
      admission, (C) chunked admission in a pool small enough to preempt,
-     (D) run A over int8 pages, (E) run B over e4m3 pages. Every request
+     (D) run A over int8 pages, (E) run B over e4m3 pages, (F) run A with
+     int8 weights, (G) run D with fused int4 weights. Every request
      finishes, launch counts match the forwards, and every engine token is
      within 1.0 of the top logit of its request teacher-forced: one
-     contiguous prefill (kernel P) for A-C, and for D and E the run's own
-     admission (one prefill, or 256-token extends) then one extend over the
-     generated tokens through `forward_paged(plain_attention=True)` on
-     quantized pages of the run's dtype, which quantizes every row as the
-     engine did. (4c) The serving forward's logits on the kernel route
+     contiguous prefill (kernel P) for A-C and F, and for D, E and G the
+     run's own admission (one prefill, or 256-token extends) then one
+     extend over the generated tokens through
+     `forward_paged(plain_attention=True)` on quantized pages of the run's
+     dtype, which quantizes every row as the engine did; F and G are teacher-forced through the dequantized image
+     of their weights. (4c) The serving forward's logits on the kernel route
      against its plain_attention route in prefill, extend and decode, over
-     a bf16, an int8 and an e4m3 pool.
+     a bf16, an int8 and an e4m3 pool. (4d, run before 4b) Greedy
+     generation with weights quantized by `quantize_params` on the card:
+     (i) unfused int8 over the bf16 cache, (ii) fused int4 over an int8
+     cache; B10 / B11 launched forwards x (projections x layers + 1), and
+     the teacher-forced prefill and decode logits of each quantized tree
+     held to those of its dequantized bf16 image (cuBLAS products).
   5. numbers: per-kernel times, bounds and library times as one JSON line
-     (for B7-B9 the library call is SDPA over a dequantized bf16 copy,
-     whose dequantization is not timed); prefill and decode times; serving
-     wall time, tokens/s, TTFT, rounds, pool bytes and peak memory per
-     run; the card's name and power limit.
+     (for B7-B9 the library call is SDPA over a dequantized bf16 copy, for
+     B10 / B11 `x @ w` over a dequantized bf16 weight; the dequantization is
+     not timed); prefill and decode times, also with quantized weights;
+     serving wall time, tokens/s, TTFT, rounds, pool bytes and peak memory
+     per run; the bytes of each parameter tree; the card's name and power
+     limit.
 The last line is {"ok": true, "device": {...}}.
 
 Tolerances: kernel outputs are bf16 results of fp32 arithmetic on bf16
 inputs, held against the fp32 plain version at max |diff| <= 3e-2 (the
 repository's bf16 figure); the quantized kernels too (their int8 / e4m3
-values widen to bf16 exactly, P is rounded to bf16 before PV as in B6). Teacher-forced logits of the kernel path and
-the plain-attention path: max |diff| <= 1.0 and mean |diff| <= 0.1. The
-logits have std about 1 with these weights, so a wrong kernel moves them by
+values widen to bf16 exactly, P is rounded to bf16 before PV as in B6), and
+B10 / B11 (x at unit scale, weights of std fan_in ** -0.5, fp32 sums).
+Teacher-forced logits of the kernel path and the plain-attention path, and
+of a quantized tree and its dequantized image: max |diff| <= 1.0 and mean
+|diff| <= 0.1. The logits have std about 1 with these weights, so a wrong kernel moves them by
 O(1) on average; the two paths differ only by bf16 roundings (P rounded
 to bf16 before PV) compounded over 32 layers, which stay an order of
 magnitude below that (0.008 mean at 2 layers on an H100). The same limits
@@ -352,6 +366,47 @@ def phase_quant_kernels(torch, quantized, errs):
                 del cont
 
 
+# Phase 3c shapes (rows T, K, N): the Llama-3-8B projections at decode,
+# admission and prefill row counts.
+QMM_CASES = {
+    "q_proj / o_proj, T 1": (1, 4096, 4096),
+    "k_proj / v_proj, T 4": (4, 4096, 1024),
+    "fused qkv_proj, T 8": (8, 4096, 6144),
+    "gate_proj / up_proj, T 4": (4, 4096, 14336),
+    "fused gate_up_proj, T 8": (8, 4096, 28672),
+    "down_proj, T 37": (37, 14336, 4096),
+    "gate_proj, T 2048 (prefill)": (2048, 4096, 14336),
+    "lm_head, T 4 (N 128256, padded to 129024)": (4, 4096, 128256),
+    "ragged K 300, T 5": (5, 300, 520),
+    "K 200 (int4 K_pad 256: 2 groups, one pack block), T 3": (3, 200, 130),
+}
+# kernel name -> (bits, projections per layer of the tree it runs on)
+QMM_KERNELS = {"quantized_matmul": (8, 7), "quantized_matmul_int4": (4, 4)}
+
+
+def phase_qmm_kernels(torch, qmm, errs):
+    """B10 and B11 against their fp32 plain versions (bf16 x at unit scale,
+    weights normal with std fan_in ** -0.5 quantized on the card). The
+    kernels round an fp32 sum to bf16 once; a bf16 plain result would add a
+    second rounding, one bf16 step (0.03125) apart for outputs of 4-8."""
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    for what, (t, k, n) in QMM_CASES.items():
+        x = torch.randn((t, k), generator=gen, device="cuda").to(torch.bfloat16)
+        w = torch.randn((k, n), generator=gen, device="cuda").mul_(k ** -0.5)
+        for name, (bits, _) in QMM_KERNELS.items():
+            qw = (qmm.quantize_weight if bits == 8 else qmm.quantize_weight_int4)(w)
+            out = qmm.quantized_matmul(x, qw)
+            # The fp32 plain version on the same (exactly widened) inputs.
+            e = max_err(out, qmm.quantized_matmul_plain(x.float(), qw))
+            errs[name] = max(errs.get(name, 0.0), e)
+            print(f"  {'B10 int8' if bits == 8 else 'B11 int4'} {what} (K {k}, N {n}, padded "
+                  f"{tuple(qw.values.shape)}): max|diff| {e:.3e}")
+            check(tuple(out.shape) == (t, n) and bool(torch.isfinite(out).all()),
+                  f"{name} {what}: finite [{t}, {n}] output")
+            check(e <= BF16_TOL, f"{name} {what} within {BF16_TOL}")
+        del x, w, qw, out
+
+
 def serving_requests(cfg):
     """24 requests: prompt lengths uniform in 128-1024, max_new_tokens in
     32-96, ids uniform over the vocabulary, all from numpy seed 0."""
@@ -376,6 +431,12 @@ SERVING_RUNS = {
                                 prefill_group=4, decode_chunk=8, kv_dtype="int8"),
     "E e4m3 chunked": dict(slots=8, page_size=16, pages_per_seq=128, num_pages=561,
                            prefill_chunk=256, kv_dtype="float8_e4m3fn"),
+    # Run A with int8 weights, run D with fused int4 weights (phase 4d's trees).
+    "F int8 weights": dict(slots=8, page_size=128, pages_per_seq=16, num_pages=129,
+                           prefill_group=4, decode_chunk=8, weights="int8"),
+    "G int4 weights, int8 pages": dict(slots=8, page_size=128, pages_per_seq=16,
+                                       num_pages=129, prefill_group=4, decode_chunk=8,
+                                       kv_dtype="int8", weights="int4"),
 }
 # The kernels of the dense and of the quantized serving routes.
 DENSE_SERVING = ("paged_decode", "paged_extend", "paged_append")
@@ -426,8 +487,11 @@ def teacher_forced_paged(torch, cfg, params, state, prompt, tokens, chunk):
 
 
 def phase_serving(torch, cfg, params, kernels, path_counts):
-    """Runs A-E of the serving engine over 24 requests; launch counts per
-    run, every request's tokens teacher-forced, and the numbers."""
+    """Runs A-G of the serving engine over 24 requests; launch counts per
+    run, every request's tokens teacher-forced, and the numbers. Runs F and
+    G serve the quantized trees of phase 4d, built for the run and dropped
+    after it, and are teacher-forced through their dequantized images."""
+    from flash_attention_cute_tpu_torch.models.quantize import dequantize_params
     from flash_attention_cute_tpu_torch.runtime.engine import ServingEngine
     from flash_attention_cute_tpu_torch.runtime.paged_cache import create_quantized_paged_state
 
@@ -439,8 +503,11 @@ def phase_serving(torch, cfg, params, kernels, path_counts):
         quant = "kv_dtype" in kw
         if quant:
             kw = {**kw, "kv_dtype": getattr(torch, kw["kv_dtype"])}
+        weights = kw.get("weights")
+        kw = {k: v for k, v in kw.items() if k != "weights"}
+        run_params = quantized_tree(torch, params, weights) if weights else params
         torch.cuda.reset_peak_memory_stats()
-        eng = ServingEngine(params, cfg, **kw)
+        eng = ServingEngine(run_params, cfg, **kw)
         pool_bytes = sum(t.numel() * t.element_size() for f, t in vars(eng.state).items()
                          if f not in ("page_table", "lengths"))
         for rid, prompt, new in reqs:
@@ -475,6 +542,10 @@ def phase_serving(torch, cfg, params, kernels, path_counts):
               f"({name}) no kernel of the other route")
         check(counts["decode_partials"] == 0 and counts["quant_decode"] == 0,
               f"({name}) no contiguous decode")
+        for kname, (bits, per_layer) in QMM_KERNELS.items():
+            want = (per_layer * n + 1) * sum(fw.values()) if weights == f"int{bits}" else 0
+            check(counts[kname] == want,
+                  f"({name}) {kname} = (projections x layers + 1) x forwards ({want})")
         if kw.get("prefill_chunk"):
             check(fw["extend"] > 0, f"({name}) admission by extend")
         else:
@@ -483,6 +554,9 @@ def phase_serving(torch, cfg, params, kernels, path_counts):
             check(eng.stats["preemptions"] > 0, f"({name}) preempts")
 
         near, top = [], []
+        # Teacher forcing runs the dense weights, or the exact dense image of
+        # the run's quantized weights.
+        tf_params = dequantize_params(run_params) if weights else params
         if quant:
             tf_state = create_quantized_paged_state(
                 cfg, kw["pages_per_seq"] + 1, kw["page_size"], 1, kw["pages_per_seq"],
@@ -491,12 +565,13 @@ def phase_serving(torch, cfg, params, kernels, path_counts):
                                                device="cuda")[None]
         for rid, prompt, _ in reqs:
             if quant:
-                a, b = teacher_forced_paged(torch, cfg, params, tf_state, prompt, out[rid],
+                a, b = teacher_forced_paged(torch, cfg, tf_params, tf_state, prompt, out[rid],
                                             kw.get("prefill_chunk", 0))
             else:
-                a, b = teacher_forced(torch, cfg, params, prompt, out[rid])
+                a, b = teacher_forced(torch, cfg, tf_params, prompt, out[rid])
             near += a
             top += b
+        del tf_params
         if quant:
             del tf_state
         print(f"  ({name}) teacher-forced: {sum(near)}/{len(near)} tokens within "
@@ -519,9 +594,10 @@ def phase_serving(torch, cfg, params, kernels, path_counts):
             "preemptions": eng.stats["preemptions"],
             "teacher_forced_argmax_share": sum(top) / len(top),
             "pool_gb": pool_bytes / 1e9,
+            "weights_gb": tree_bytes(run_params) / 1e9,
             "peak_memory_gb": peak / 1e9,
         }
-        del eng, out
+        del eng, out, run_params
         torch.cuda.empty_cache()
     results["A whole-prompt"].update(profile_serving(torch, cfg, params, reqs))
     return results
@@ -760,6 +836,140 @@ def phase_main_path_int8(torch, cfg, params, ids, bf16_tokens, kernels, counts):
     return {"greedy_int8_wall_s": wall, "greedy_int8_token_agreement_with_bf16": same}
 
 
+# Phase 4d: (tree, bits, fused, KV cache dtype) of the two quantized paths.
+QUANT_WEIGHT_PATHS = (("int8", 8, False, None), ("int4", 4, True, "int8"))
+
+
+def quantized_tree(torch, params, name):
+    """The int8 tree (unfused) or the fused int4 tree of `params`, quantized
+    on the card (deterministic: phase 4d and runs F, G build the same)."""
+    from flash_attention_cute_tpu_torch.models.fuse import fuse_projections
+    from flash_attention_cute_tpu_torch.models.quantize import quantize_params
+
+    _, bits, fused, _ = next(p for p in QUANT_WEIGHT_PATHS if p[0] == name)
+    with torch.no_grad():
+        return quantize_params(fuse_projections(params) if fused else params, bits=bits)
+
+
+def phase_quant_weights(torch, cfg, params, ids, bf16_tokens, kernels, path_counts):
+    """Greedy generation with weights quantized on the card: (i) unfused
+    int8 over the bf16 cache, (ii) fused int4 over an int8 cache (the JAX
+    package's README configuration). For each tree: the teacher-forced
+    prefill logits and one decode step against its dequantized bf16 image
+    (cuBLAS products; the same cache type), then `greedy_generate` with
+    its launch counts, then prefill and decode timed apart. Each tree is
+    dropped before the next is built."""
+    from flash_attention_cute_tpu_torch.models.cache import KVCache, QuantizedKVCache
+    from flash_attention_cute_tpu_torch.models.quantize import dequantize_params
+    from flash_attention_cute_tpu_torch.models.transformer import forward
+    from flash_attention_cute_tpu_torch.runtime.generate import (
+        decode_loop,
+        greedy_generate,
+        prefill,
+    )
+    from flash_attention_cute_tpu_torch.utils.timing import wall_time_s
+
+    n = cfg.num_layers
+    numbers = {}
+    for name, bits, fused, cache_name in QUANT_WEIGHT_PATHS:
+        cache_dtype = getattr(torch, cache_name) if cache_name else None
+        kname = next(k for k, (b, _) in QMM_KERNELS.items() if b == bits)
+        per_layer = QMM_KERNELS[kname][1]
+        label = f"{'fused ' if fused else ''}{name} weights, {cache_name or 'bf16'} cache"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree = quantized_tree(torch, params, name)
+        torch.cuda.synchronize()
+        quantize_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+
+        def new_cache():
+            if cache_dtype is None:
+                return KVCache.create(cfg, B, CAPACITY)
+            return QuantizedKVCache.create(cfg, B, CAPACITY, cache_dtype)
+
+        # Teacher forcing: the same prompt and next token through the tree
+        # and through its dense image (built one at a time, then dropped).
+        diffs = {}
+        with torch.no_grad():
+            got = forward(tree, cfg, ids, cache=new_cache(), mode="prefill")
+            tok = got[0][:, -1].argmax(-1)[:, None]
+            got_step = forward(tree, cfg, tok, cache=got[1], mode="decode")[0]
+            got = got[0]
+            image = dequantize_params(tree)
+            want = forward(image, cfg, ids, cache=new_cache(), mode="prefill")
+            want_step = forward(image, cfg, tok, cache=want[1], mode="decode")[0]
+            want = want[0]
+            del image
+        for what, a, b in (("prefill", got, want), ("decode step", got_step, want_step)):
+            check(bool(torch.isfinite(a).all()), f"{label}: {what} logits finite")
+            d = (a - b).abs()
+            diffs[what] = [d.max().item(), d.mean().item()]
+            print(f"  {label}: teacher-forced {what} logits {tuple(a.shape)} vs the dequantized "
+                  f"image: max|diff| {diffs[what][0]:.4f}, mean|diff| {diffs[what][1]:.5f}, "
+                  f"argmax agree {(a.argmax(-1) == b.argmax(-1)).float().mean().item():.4f}")
+            check(diffs[what][0] <= LOGIT_MAX_TOL and diffs[what][1] <= LOGIT_MEAN_TOL,
+                  f"{label}: {what} logits within max {LOGIT_MAX_TOL} / mean {LOGIT_MEAN_TOL} "
+                  "of the dequantized image")
+        del got, want, got_step, want_step
+        torch.cuda.empty_cache()
+
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            tokens = greedy_generate(tree, cfg, ids, NEW, cache_capacity=CAPACITY,
+                                     cache_dtype=cache_dtype)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: kern.launches for k, kern in kernels.items()}
+        path_counts[f"greedy {label}"] = counts
+        same = (tokens == bf16_tokens).float().mean().item()
+        print(f"  greedy_generate {label}: {wall:.3f} s, launches {counts}; tokens equal to "
+              f"the bf16 weights' at {same:.4f} of positions (not gated)")
+        check(tuple(tokens.shape) == (B, NEW) and bool(
+            ((tokens >= 0) & (tokens < cfg.vocab_size)).all()), f"{label}: tokens in vocab")
+        want_qmm = NEW * (per_layer * n + 1)
+        check(counts[kname] == want_qmm,
+              f"{label}: {kname} launched {NEW} forwards x ({per_layer} x {n} + 1) = {want_qmm}")
+        check(all(counts[k] == 0 for k in QMM_KERNELS if k != kname),
+              f"{label}: no launch of the other weight kernel")
+        check(counts["flash_fwd"] == n, f"{label}: P launched once per layer in prefill")
+        decode = "quant_decode" if cache_dtype else "decode_partials"
+        check(counts[decode] == n * (NEW - 1) == counts["decode_combine"],
+              f"{label}: {decode} and D2 launched {n} x {NEW - 1}")
+
+        with torch.no_grad():
+            (last, cache), pre_s = wall_time_s(
+                lambda: prefill(tree, cfg, ids, CAPACITY, cache_dtype))
+            first = last.argmax(-1).to(torch.int32)
+            _, dec_s = wall_time_s(lambda: decode_loop(tree, cfg, first, cache, NEW - 1))
+            # decode_loop wrote the buffers in place; `cache` still holds the
+            # prompt's lengths: profile a few steps from there.
+            profile = profile_decode(torch, tree, cfg, cache, first[:, None])
+        del cache
+        if "device_busy_ms_per_step" in profile:
+            profile["decode_device_busy_share"] = (
+                profile["device_busy_ms_per_step"] / (1e3 * dec_s / (NEW - 1)))
+            profile["top_device_kernels_ms_per_step"] = profile[
+                "top_device_kernels_ms_per_step"][:6]
+        numbers[f"greedy {label}"] = {
+            "quantize_s": quantize_s,
+            "weights_gb": tree_bytes(tree) / 1e9,
+            "weights_floor_ms_per_token": 1e3 * tree_bytes(tree) / PEAK_BYTES,
+            "teacher_forced_max_mean_diff": diffs,
+            "greedy_wall_s": wall,
+            "prefill_ms": 1e3 * pre_s,
+            "decode_ms_per_token": 1e3 * dec_s / (NEW - 1),
+            "token_agreement_with_bf16_weights": same,
+            **profile,
+        }
+        del tree
+        torch.cuda.empty_cache()
+    return numbers
+
+
 def phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode, errs, path_counts):
     from flash_attention_cute_tpu_torch.runtime.generate import decode_loop, prefill
     from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms, wall_time_s
@@ -822,6 +1032,7 @@ def phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode, errs, path_c
     })
     rows += paged_rows(torch, cfg, randn, gen)
     rows += quant_rows(torch, cfg, randn, gen)
+    rows += qmm_rows(torch, cfg, gen)
 
     # Context only (not a kernel row): the whole decode attention, D1 + D2,
     # beside one SDPA call over the length-masked cache.
@@ -834,7 +1045,6 @@ def phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode, errs, path_c
 
     kernels = []
     for r in rows:
-        t_ops, t_bytes = r["ops"] / r["peak"], r["bytes"] / PEAK_BYTES
         by_path = {path: c[r["name"]] for path, c in path_counts.items()}
         kernels.append({
             "name": r["name"], "route": r["route"], "source": r["source"],
@@ -842,10 +1052,10 @@ def phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode, errs, path_c
             "launches_by_path": by_path,
             "max_abs_err": errs[r["name"]], "ms": r["ms"], "call_ms": r["call_ms"],
             "plain_ms": r["plain_ms"],
-            "bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            **bound(r["ops"], r["bytes"], r["peak"]),
             "library_ms": r["library_ms"],
             "shape": r.get("shape", "the main path's"),
+            **({"prefill": r["prefill"]} if "prefill" in r else {}),
         })
 
     # Main-path phases on the host clock, each ending in a synchronise.
@@ -856,7 +1066,7 @@ def phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode, errs, path_c
         # decode_loop wrote the buffers in place but `cache` still holds the
         # prompt's lengths: profile a few steps from there.
         profile = profile_decode(torch, params, cfg, cache, first[:, None])
-    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    weight_bytes = tree_bytes(params)
     return kernels, {
         "prefill_ms": 1e3 * pre_s,
         "prefill_tokens_per_s": B * PROMPT / pre_s,
@@ -1108,6 +1318,72 @@ def quant_rows(torch, cfg, randn, gen):
     return rows
 
 
+def bound(ops, nbytes, peak) -> dict:
+    """The least time the card could take: operations at `peak` or bytes at
+    the memory rate, whichever is longer."""
+    t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def qmm_rows(torch, cfg, gen):
+    """Kernel rows of B10 at a decode shape of the int8 tree (T 4 = the
+    greedy batch, gate_proj: K 4096, N 14336) and B11 at one of the fused
+    int4 tree (T 8 = a serving decode round, gate_up_proj: N 28672), each
+    also at the prefill shape (T 2048 = 4 x 512) under "prefill". Bytes:
+    x, the logical weight (1 B or 0.5 B an element) and its scales, y;
+    operations 2 T K N at the bf16 tensor-core rate. `library_ms` is one bf16
+    `x @ w` over a dequantized copy of the weight (not timed)."""
+    from flash_attention_cute_tpu_torch.ops import quantized_matmul as qmm
+    from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms
+
+    e, f = cfg.hidden_size, cfg.intermediate_size
+    rows = []
+    for name, t, n, line, what in (
+            ("quantized_matmul", B, f, 149, "gate_proj, int8"),
+            ("quantized_matmul_int4", 8, 2 * f, 360, "fused gate_up_proj, int4")):
+        bits = QMM_KERNELS[name][0]
+        k = e
+        w = torch.randn((k, n), generator=gen, device="cuda").mul_(k ** -0.5)
+        qw = (qmm.quantize_weight if bits == 8 else qmm.quantize_weight_int4)(w)
+        dense = (qmm.dequantize_weight if bits == 8 else qmm.dequantize_weight4)(
+            qw, torch.bfloat16)
+        del w
+        w_bytes = k * n * bits // 8 + 4 * n * (1 if bits == 8 else k // qmm.GROUP4)
+
+        def measure(rows_t, iters):
+            x = torch.randn((rows_t, k), generator=gen, device="cuda").to(torch.bfloat16)
+            ops, nbytes = 2 * rows_t * k * n, 2 * rows_t * k + w_bytes + 2 * rows_t * n
+            return {
+                "shape": f"T {rows_t}, K {k}, N {n} ({what}); library_ms: bf16 x @ a "
+                         "dequantized copy (dequantization not timed)",
+                "ms": cuda_time_ms(lambda: qmm.quantized_matmul(x, qw), iters),
+                "call_ms": call_time_ms(lambda: qmm.quantized_matmul(x, qw), iters),
+                "plain_ms": cuda_time_ms(lambda: qmm.quantized_matmul_plain(x, qw), 5),
+                "library_ms": cuda_time_ms(lambda: x @ dense, iters),
+                "ops": ops, "bytes": nbytes,
+            }
+
+        row = measure(t, 50)
+        pre = measure(B * PROMPT, 10)
+        pre.update(bound(pre.pop("ops"), pre.pop("bytes"), PEAK_BF16))
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "flash_attention_cute_tpu_torch/csrc/quantized_matmul.cu",
+            "replaces": f"flash_attention_cute_tpu/ops/quantized_matmul.py:{line}",
+            **row, "peak": PEAK_BF16, "prefill": pre,
+        })
+        del qw, dense
+    return rows
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of a parameter dict: dense tensors and quantized leaves."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.nbytes  # a tensor, or a quantized leaf's values and scales
+
+
 def profile_decode(torch, params, cfg, cache, tok, steps=4):
     """Device time per decode step and its top kernels, from torch.profiler
     (which slows the host side, so its wall time is reported apart)."""
@@ -1143,14 +1419,6 @@ def profile_decode(torch, params, cfg, cache, tok, steps=4):
     }
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--layers", type=int, default=0,
@@ -1180,12 +1448,13 @@ def main() -> int:
         flash_fwd,
         paged_attention,
         quantized,
+        quantized_matmul,
     )
     from flash_attention_cute_tpu_torch.runtime import native, paged_cache
 
     t0 = time.perf_counter()
     reports = _build.build(["flash_fwd.cu", "flash_decode.cu", "paged_attention.cu",
-                            "quantized.cu"])
+                            "quantized.cu", "quantized_matmul.cu"])
     t_nvcc = time.perf_counter() - t0
     native.build()
     print(f"[2] build: nvcc {t_nvcc:.1f} s, then g++ (native scheduler) "
@@ -1202,6 +1471,8 @@ def main() -> int:
     phase_paged_kernels(torch, paged_attention, paged_cache, errs)
     print("[3b] quantized kernels vs plain (bf16 q, int8 / e4m3 K/V, f32 scales)")
     phase_quant_kernels(torch, quantized, errs)
+    print("[3c] quantized-weight products vs plain (bf16 x, int8 / int4 weights)")
+    phase_qmm_kernels(torch, quantized_matmul, errs)
     torch.cuda.synchronize()
 
     # 4. main paths
@@ -1225,14 +1496,20 @@ def main() -> int:
                "quant_decode": quantized.QUANT_DECODE,
                "quant_paged_decode": quantized.QUANT_PAGED_DECODE,
                "quant_paged_extend": quantized.QUANT_PAGED_EXTEND,
-               "quant_append": quantized.QUANT_APPEND}
+               "quant_append": quantized.QUANT_APPEND,
+               "quantized_matmul": quantized_matmul.QMM8,
+               "quantized_matmul_int4": quantized_matmul.QMM4}
     path_counts: dict = {"greedy": {}, "greedy int8": {}}
     torch.cuda.reset_peak_memory_stats()
     ids, bf16_tokens = phase_main_path(torch, cfg, params, kernels, path_counts["greedy"])
     print("[4a] greedy generation over an int8 KV cache")
     int8_numbers = phase_main_path_int8(torch, cfg, params, ids, bf16_tokens, kernels,
                                         path_counts["greedy int8"])
-    print("[4b] serving engine: 24 requests, runs A-E")
+    print("[4d] greedy generation with quantized weights: int8, and fused int4 over an "
+          "int8 cache")
+    weight_numbers = phase_quant_weights(torch, cfg, params, ids, bf16_tokens, kernels,
+                                         path_counts)
+    print("[4b] serving engine: 24 requests, runs A-G")
     serving = phase_serving(torch, cfg, params, kernels, path_counts)
     print("[4c] serving forward: kernel route vs plain_attention route (bf16, int8, e4m3 pools)")
     phase_serving_forward(torch, cfg, params, kernels)
@@ -1241,13 +1518,15 @@ def main() -> int:
               f"{name} launched on a main path")
     print("  D2 (decode_combine) launches by path: "
           + ", ".join(f"{p} {c['decode_combine']}" for p, c in path_counts.items())
-          + " (greedy: after D1; greedy int8: after B7; runs A-C: after B5; D, E: after B8)")
+          + " (after D1 over a bf16 cache, B7 over an int8 cache, B5 over bf16 pages, B8 "
+          "over quantized pages)")
 
     # 5. numbers
     print("[5] numbers (CUDA events for kernels, host clock + synchronise for phases)")
     rows, numbers, profile = phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode,
                                            errs, path_counts)
     numbers.update(int8_numbers)
+    numbers.update(weight_numbers)
     # Peak over the whole script: serving reset the counter before each run.
     numbers["max_memory_allocated_gb"] = max(
         [numbers["max_memory_allocated_gb"], serving.pop("peak_before_serving_gb")]

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from flash_attention_cute_tpu_torch.models.config import ModelConfig
+from flash_attention_cute_tpu_torch.ops.quantized_matmul import QUANTIZED, quantized_matmul
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -73,24 +74,42 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return x * c + rotated * s
 
 
-def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w for a plain [in, out] weight (quantized weights: ROADMAP.md A8)."""
+def dense(x: torch.Tensor, w) -> torch.Tensor:
+    """x @ w for a plain [in, out] weight, or through kernel B10 / B11 for
+    one layer of an int8 / int4 quantized weight (ops/quantized_matmul.py)."""
+    if isinstance(w, QUANTIZED):
+        return quantized_matmul(x, w)
     return x @ w
 
 
 def mlp(x: torch.Tensor, p: dict, activation: str = "silu") -> torch.Tensor:
-    """SwiGLU: down(silu(gate(x)) * up(x))."""
+    """SwiGLU: down(silu(gate(x)) * up(x)), with gate and up as one product
+    for a fused layer (models/fuse.py)."""
     if activation != "silu":
         raise NotImplementedError(f"activation {activation!r} is ROADMAP.md A10")
-    return dense(F.silu(dense(x, p["gate_proj"])) * dense(x, p["up_proj"]), p["down_proj"])
+    if "gate_up_proj" in p:
+        gate, up = dense(x, p["gate_up_proj"]).chunk(2, dim=-1)
+    else:
+        gate, up = dense(x, p["gate_proj"]), dense(x, p["up_proj"])
+    return dense(F.silu(gate) * up, p["down_proj"])
 
 
 def qkv_project(x: torch.Tensor, p: dict, cfg: ModelConfig):
-    """x [B, S, E] -> q [B, Hq, S, D], k/v [B, Hkv, S, D] (transposed views)."""
+    """x [B, S, E] -> q [B, Hq, S, D], k/v [B, Hkv, S, D] (transposed views).
+    A fused layer (models/fuse.py) runs one product and splits it."""
     b, s, _ = x.shape
-    q = dense(x, p["q_proj"]).view(b, s, cfg.num_q_heads, cfg.head_dim).transpose(1, 2)
-    k = dense(x, p["k_proj"]).view(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
-    v = dense(x, p["v_proj"]).view(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
+    hq = cfg.num_q_heads * cfg.head_dim
+    hkv = cfg.num_kv_heads * cfg.head_dim
+    if "qkv_proj" in p:
+        qkv = dense(x, p["qkv_proj"])
+        if "qkv_bias" in p:
+            qkv = qkv + p["qkv_bias"]
+        q, k, v = qkv.split([hq, hkv, hkv], dim=-1)
+    else:
+        q, k, v = dense(x, p["q_proj"]), dense(x, p["k_proj"]), dense(x, p["v_proj"])
+    q = q.view(b, s, cfg.num_q_heads, cfg.head_dim).transpose(1, 2)
+    k = k.view(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
+    v = v.view(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
     return q, k, v
 
 
@@ -99,6 +118,17 @@ def attention_output(attn: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Ten
     b, _, s, _ = attn.shape
     attn = attn.transpose(1, 2).reshape(b, s, cfg.num_q_heads * cfg.head_dim)
     return dense(attn, p["o_proj"])
+
+
+def logits(x: torch.Tensor, params: dict) -> torch.Tensor:
+    """fp32 logits of the final hidden states: the lm_head (B10 / B11 when
+    quantized) or, for tied embeddings, the embedding table."""
+    lm_head = params.get("lm_head")
+    if isinstance(lm_head, QUANTIZED):
+        return dense(x, lm_head).float()
+    if lm_head is None:  # tied embeddings
+        lm_head = params["embed"].T
+    return (x @ lm_head.to(x.dtype)).float()
 
 
 def layer_tail(x: torch.Tensor, attn: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:

@@ -4,6 +4,10 @@ Parameters are a dict of tensors in the JAX package's layout: `embed`
 [V, E], `final_ln` [E], optional `lm_head` [E, V] (absent: tied to the
 embeddings), and `layers`, a dict of stacked [L, ...] weights named
 `input_ln`, `post_ln`, `q_proj` ... `down_proj`, each projection [in, out].
+A fused tree (models/fuse.py) holds `qkv_proj` and `gate_up_proj` in place
+of q/k/v and gate/up. Any projection and the lm_head may be an int8 or
+int4 quantized weight (models/quantize.py): `models.layers.dense` runs it
+through kernel B10 or B11 on CUDA, one layer (`w[li]`) at a time.
 
   * mode="prefill": causal attention over the fresh K/V (kernel P on CUDA);
     with a cache, K/V are then written at positions [0, S) in place.
@@ -140,10 +144,7 @@ def forward(
         x = L.layer_tail(x, attn, lp, cfg)
 
     x = L.rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
-    lm_head = params.get("lm_head")
-    if lm_head is None:  # tied embeddings
-        lm_head = params["embed"].T
-    logits = (x @ lm_head.to(x.dtype)).float()
+    logits = L.logits(x, params)
     if cache is None:
         return logits, None
     return logits, dataclasses.replace(cache, lengths=cache.lengths + s)

@@ -140,8 +140,5 @@ def forward_paged(
         x = L.layer_tail(x, attn, lp, cfg)
 
     x = L.rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
-    lm_head = params.get("lm_head")
-    if lm_head is None:  # tied embeddings
-        lm_head = params["embed"].T
-    logits = (x @ lm_head.to(x.dtype)).float()
+    logits = L.logits(x, params)
     return logits, dataclasses.replace(state, lengths=new_len)

@@ -14,14 +14,21 @@ scatter writes. The quantized kernels (B7, B8, B9: bf16 q over int8 / e4m3
 values with f32 scales) are held to their fp32 plain versions at 3e-2 too,
 over caches whose scales (and e4m3 values) hold NaN at and past every
 length; the quantize-and-append kernel QA must write exactly what the plain
-`quantize_kv` + indexed write writes.
+`quantize_kv` + indexed write writes. The weight-only quantized products
+B10 (int8) and B11 (int4) take bf16 / f16 activations at unit scale and
+weights of std fan_in ** -0.5, and are held to their plain versions over
+the same inputs in fp32 at 3e-2 too, at Llama-3-8B projection shapes, a ragged K and the padded
+lm_head.
 """
+
+import dataclasses
 
 import pytest
 import torch
 
 from flash_attention_cute_tpu_torch.ops import flash_decode, flash_fwd, paged_attention
 from flash_attention_cute_tpu_torch.ops import quantized as quant
+from flash_attention_cute_tpu_torch.ops import quantized_matmul as qmm
 from flash_attention_cute_tpu_torch.ops.quantized import QuantizedKV
 from flash_attention_cute_tpu_torch.runtime import paged_cache
 
@@ -376,3 +383,89 @@ def test_quantized_kernels_refuse_what_they_do_not_take(device):
     with pytest.raises(ValueError, match="float32"):
         quant.quantize_append(randn(gen, 2, 8, 1, 128), randn(gen, 2, 8, 1, 128),
                               QuantizedKV(cache.values, cache.scales.double()), cache, lengths)
+
+
+QMM_CASES = {
+    # name: (rows T, K, N); Llama-3-8B projections, the padded lm_head
+    # (N 128256 -> 129024), a ragged K, a K_pad of 256 (int4: 2 groups in
+    # one pack block) and several 512-row pack blocks with a ragged tail.
+    "decode_t1_q": (1, 4096, 4096),
+    "decode_t4_gate": (4, 4096, 14336),
+    "decode_t8_qkv": (8, 4096, 6144),
+    "t37_down": (37, 14336, 4096),
+    "prefill_t2048_kv": (2048, 4096, 1024),
+    "t4_lm_head": (4, 4096, 128256),
+    "ragged_t5_k300": (5, 300, 520),
+    "kpad256_t3": (3, 200, 130),
+    "blocks_t33_k1152": (33, 1152, 384),
+}
+
+
+def qmm_inputs(gen, t, k, n, bits, dtype=torch.bfloat16):
+    x = randn(gen, t, k, dtype=dtype)
+    w = randn(gen, k, n, dtype=torch.float32) * k ** -0.5
+    return x, (qmm.quantize_weight if bits == 8 else qmm.quantize_weight_int4)(w)
+
+
+@pytest.mark.parametrize("case", list(QMM_CASES), ids=list(QMM_CASES))
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_matmul_kernel_matches_plain(device, bits, case):
+    t, k, n = QMM_CASES[case]
+    x, w = qmm_inputs(torch.Generator(device="cuda").manual_seed(12), t, k, n, bits)
+    kern = qmm.QMM8 if bits == 8 else qmm.QMM4
+    before = kern.launches
+    out = qmm.quantized_matmul(x, w)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    assert out.shape == (t, n) and out.dtype == torch.bfloat16
+    ref = qmm.quantized_matmul_plain(x.float(), w)  # fp32: one rounding, the kernel's
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_matmul_f16_strided_rows_and_stacked_layers(device, bits):
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    # x rows of 301 elements: not 16-byte aligned, so the kernel loads them
+    # element by element; a [2, 3, K] batch; layer 1 of a stacked weight.
+    x = randn(gen, 2, 3, 301, dtype=torch.float16)[..., :300]
+    w = randn(gen, 2, 300, 520, dtype=torch.float32) * 300 ** -0.5
+    w = (qmm.quantize_weight if bits == 8 else qmm.quantize_weight_int4)(w)
+    out = qmm.quantized_matmul(x, w[1])
+    ref = qmm.quantized_matmul_plain(x.float(), w[1])
+    assert out.shape == (2, 3, 520) and out.dtype == torch.float16
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+
+
+def test_quantized_matmul_refuses_what_it_does_not_take(device):
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    x, w = qmm_inputs(gen, 4, 256, 128, 8)
+    with pytest.raises(NotImplementedError, match="bf16 / f16"):
+        qmm.quantized_matmul(x.float(), w)
+    stacked = qmm.quantize_weight(randn(gen, 2, 256, 128, dtype=torch.float32))
+    with pytest.raises(ValueError, match="one layer"):
+        qmm.quantized_matmul(x, stacked)
+    with pytest.raises(ValueError, match="scales"):
+        qmm.quantized_matmul(x, qmm.QuantizedWeight(w.values, w.scales.half(), 256, 128))
+    # A leaf carried from a JAX tree with impl="xla" still runs B10 on the
+    # card: the port routes on the device only.
+    before = qmm.QMM8.launches
+    xla = qmm.quantized_matmul(x, dataclasses.replace(w, impl="xla"))
+    assert qmm.QMM8.launches == before + 1
+    assert torch.equal(xla, qmm.quantized_matmul(x, w))
+
+
+@pytest.mark.parametrize("shape", [(300, 520), (3, 384, 200)], ids=["2d", "stacked"])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_weight_quantization_on_the_card_is_bit_identical_to_cpu(device, bits, shape):
+    """The CPU result is bit-identical to the JAX package's (the CPU tests);
+    on the card a division by a Python scalar would be a reciprocal multiply,
+    one ulp off in some scales. Both forms: a 2-D weight and a stacked one."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    w = randn(gen, *shape, dtype=torch.float32)
+    w[..., ::7] = 0.0  # all-zero columns take unit scales
+    quantize = qmm.quantize_weight if bits == 8 else qmm.quantize_weight_int4
+    on_card, on_cpu = quantize(w), quantize(w.cpu())
+    assert on_card.device.type == "cuda"
+    assert torch.equal(on_card.values.cpu(), on_cpu.values)
+    assert torch.equal(on_card.scales.cpu().view(torch.int32), on_cpu.scales.view(torch.int32))
