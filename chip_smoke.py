@@ -20,7 +20,12 @@ Phases, in order; any failure exits non-zero:
      contiguous), which must be bit-identical to its plain version; (3c)
      the weight-only quantized products B10 (int8) and B11 (int4) at the
      Llama-3-8B projection shapes (T 1 to 2048, the padded lm_head, a
-     ragged K, an int4 K_pad of 256) against their plain versions.
+     ragged K, an int4 K_pad of 256) against their plain versions; (3d) the
+     contiguous extend B4 in bf16 and f16 at the verify shape (B 4, S 5,
+     capacity 640, q_offset 0-600), a chunk (S 256, q_offset 0-768,
+     capacity 1100), with a kv_length-0 row (exact zeros), non-causal and
+     at D 64, over caches NaN at and past every kv_length, q/k/v transposed
+     views.
   4. main paths: greedy generation of Llama-3-8B (random weights from a
      seeded CUDA generator) at B 4, prompt 512, 64 new tokens; launch
      counters show the kernels carried it; teacher-forced logits of the
@@ -45,14 +50,29 @@ Phases, in order; any failure exits non-zero:
      (i) unfused int8 over the bf16 cache, (ii) fused int4 over an int8
      cache; B10 / B11 launched forwards x (projections x layers + 1), and
      the teacher-forced prefill and decode logits of each quantized tree
-     held to those of its dequantized bf16 image (cuBLAS products).
+     held to those of its dequantized bf16 image (cuBLAS products). (4e)
+     The extend mode: prefill 512 then extends of 5 and 59 tokens (B4)
+     against one 576-token prefill, and over an int8 cache the kernel route
+     against the plain route; then speculative generation at B 4, prompt
+     512, 64 new tokens, gamma 4: (i) `speculative_generate` with the target
+     as its own draft, (ii) with a 2-layer draft of Llama-3-8B widths, (iii)
+     `prompt_lookup_generate` (ngram 2) on prompts repeating a 64-token
+     segment 8 times, (iv) (i) sampled at temperature 1.0, top-k 50, twice
+     with one seed (equal tokens). Launch counts per run (P: the prefills;
+     B4: layers x rounds of each model; D1 + D2: draft layers x rounds x
+     (gamma - 1)), every greedy token teacher-forced through one contiguous
+     prefill (within 1.0 of the top logit, argmax share >= 0.9), and (i)'s
+     acceptance share accepted / (rounds x gamma x B) >= 0.75.
   5. numbers: per-kernel times, bounds and library times as one JSON line
      (for B7-B9 the library call is SDPA over a dequantized bf16 copy, for
      B10 / B11 `x @ w` over a dequantized bf16 weight; the dequantization is
-     not timed); prefill and decode times, also with quantized weights;
+     not timed; for B4 one SDPA call over the contiguous cache with the
+     causal-offset and length mask, at the verify shape and a chunk);
+     prefill and decode times, also with quantized weights;
      serving wall time, tokens/s, TTFT, rounds, pool bytes and peak memory
-     per run; the bytes of each parameter tree; the card's name and power
-     limit.
+     per run; speculative runs' wall time, tokens/s, rounds, acceptance
+     share and ms per round beside greedy generation's; the bytes of each
+     parameter tree; the card's name and power limit.
 The last line is {"ok": true, "device": {...}}.
 
 Tolerances: kernel outputs are bf16 results of fp32 arithmetic on bf16
@@ -162,6 +182,58 @@ def phase_kernels(torch, flash_fwd, flash_decode, errs):
         check(e2 <= BF16_TOL and e12 <= BF16_TOL, f"D2 and D1+D2 within {BF16_TOL}")
         check(bool(torch.isfinite(out).all()), "decode output finite over a NaN tail")
         check(bool((out[3] == 0).all()), "decode row of length 0 is 0")
+
+
+# Phase 3d: (name, dtype, batch, S, capacity, q_offset, kv_length (None:
+# q_offset + S), head_dim, causal) of kernel B4 against its plain version.
+CHUNKED_CASES = (
+    ("verify B4 S5", "bfloat16", 5, 640, [0, 130, 511, 600], None, 128, True),
+    ("chunk S256", "bfloat16", 256, 1100, [0, 77, 300, 768], None, 128, True),
+    ("kv_length 0 row", "bfloat16", 64, 640, [10, 0, 300, 500], [74, 0, 364, 564], 128, True),
+    ("non-causal", "bfloat16", 100, 640, [0, 50, 300, 520], [100, 200, 450, 620], 128, False),
+    ("D 64", "bfloat16", 70, 640, [0, 33, 263, 569], None, 64, True),
+    ("verify B4 S5 f16", "float16", 5, 640, [0, 130, 511, 600], None, 128, True),
+    ("chunk S256 f16", "float16", 256, 1100, [0, 77, 300, 768], None, 128, True),
+)
+
+
+def chunked_inputs(torch, gen, dtype, s, cap, offs, kvl, d, hq=32, hkv=8):
+    """B4's inputs as the model hands them in: q/k/v transposed views of
+    [B, S, H, D] buffers, K/V NaN at and past every row's kv_length."""
+    kvl = [o + s for o in offs] if kvl is None else kvl
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    b = len(offs)
+    q = randn(b, s, hq, d).transpose(1, 2)
+    k, v = (randn(b, cap, hkv, d).transpose(1, 2) for _ in "kv")
+    for i, n in enumerate(kvl):  # uninitialised cache tail
+        k[i, :, n:] = float("nan")
+        v[i, :, n:] = float("nan")
+    rows = (torch.tensor(x, dtype=torch.int32, device="cuda") for x in (offs, kvl))
+    return q, k, v, *rows
+
+
+def phase_chunked_kernels(torch, flash_chunked, errs):
+    """B4 against its fp32 plain version at Llama-3-8B attention widths (Hq
+    32, Hkv 8, D 128 unless stated), bf16 and f16, over NaN-poisoned caches
+    and transposed views: the verify shape, a chunk, a kv_length-0 row,
+    non-causal, D 64."""
+    gen = torch.Generator(device="cuda").manual_seed(5151)
+    for name, dtype, s, cap, offs, kvl, d, causal in CHUNKED_CASES:
+        q, k, v, off, lens = chunked_inputs(torch, gen, getattr(torch, dtype), s, cap, offs,
+                                            kvl, d)
+        out = flash_chunked.flash_attention_chunked(q, k, v, off, lens, causal=causal)
+        ref = flash_chunked.flash_attention_chunked_plain(q, k, v, off, lens, causal=causal)
+        e = max_err(out, ref)
+        errs["flash_chunked"] = max(errs.get("flash_chunked", 0.0), e)
+        print(f"  B4 {name} (q_offset {offs}, capacity {cap}): max|diff| {e:.3e}")
+        check(e <= BF16_TOL, f"B4 {name} within {BF16_TOL}")
+        check(bool(torch.isfinite(out).all()), f"B4 {name} finite over a NaN tail")
+        for i, n in enumerate(lens.tolist()):
+            if n == 0:
+                check(bool((out[i] == 0).all()), f"B4 {name}: a kv_length-0 row is 0")
 
 
 def paged_pool(torch, randn, gen, ps, rows, capacity=2048, layers=2):
@@ -512,16 +584,8 @@ def phase_serving(torch, cfg, params, kernels, path_counts):
                          if f not in ("page_table", "lengths"))
         for rid, prompt, new in reqs:
             eng.submit(rid, prompt, new)
-        for k in kernels.values():
-            k.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with torch.no_grad():
-            out = eng.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        out, wall, counts = counted_run(torch, kernels, eng.run)
         peak = torch.cuda.max_memory_allocated()
-        counts = {k: kern.launches for k, kern in kernels.items()}
         path_counts[name] = counts
         fw = eng.forwards
         print(f"  ({name}) {kw}: {wall:.3f} s, forwards {fw}, launches {counts}, "
@@ -662,14 +726,7 @@ def phase_serving_forward(torch, cfg, params, kernels):
         check(all(launches[True][k] == 0 for k in attention),
               f"{pool} pool: the plain route launches no attention kernel")
         for (mode, _, _), a, r in zip(steps, logits[False], logits[True]):
-            check(bool(torch.isfinite(a).all()), f"serving {mode} logits finite ({pool} pool)")
-            d = (a - r).abs()
-            print(f"  {pool} pool: serving {mode} logits {tuple(a.shape)} kernel vs plain: "
-                  f"max|diff| {d.max().item():.4f}, mean|diff| {d.mean().item():.5f}, argmax "
-                  f"agree {(a.argmax(-1) == r.argmax(-1)).float().mean().item():.4f}")
-            check(d.max().item() <= LOGIT_MAX_TOL and d.mean().item() <= LOGIT_MEAN_TOL,
-                  f"serving {mode} logits ({pool} pool) within max {LOGIT_MAX_TOL} / mean "
-                  f"{LOGIT_MEAN_TOL}")
+            check_logits(torch, f"{pool} pool: serving {mode}, kernel vs plain", a, r)
         del logits
         torch.cuda.empty_cache()
 
@@ -749,26 +806,13 @@ def phase_main_path(torch, cfg, params, kernels, counts):
         diffs.append(("decode step", step[False], step[True]))
         del caches, step
     for name, a, b in diffs:
-        check(bool(torch.isfinite(a).all()), f"{name} logits finite")
-        d = (a - b).abs()
-        print(f"  teacher-forced {name} logits {tuple(a.shape)}: max|diff| "
-              f"{d.max().item():.4f}, mean|diff| {d.mean().item():.5f}, ref std "
-              f"{b.std().item():.3f}, argmax agree "
-              f"{(a.argmax(-1) == b.argmax(-1)).float().mean().item():.4f}")
-        check(d.max().item() <= LOGIT_MAX_TOL and d.mean().item() <= LOGIT_MEAN_TOL,
-              f"{name} logits within max {LOGIT_MAX_TOL} / mean {LOGIT_MEAN_TOL}")
+        check_logits(torch, f"teacher-forced {name}", a, b)
     del diffs
     torch.cuda.empty_cache()
 
-    for k in kernels.values():
-        k.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        tokens = greedy_generate(params, cfg, ids, NEW, cache_capacity=CAPACITY)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts.update({name: k.launches for name, k in kernels.items()})
+    tokens, wall, launched = counted_run(
+        torch, kernels, lambda: greedy_generate(params, cfg, ids, NEW, cache_capacity=CAPACITY))
+    counts.update(launched)
     print(f"  greedy_generate B{B} prompt {PROMPT} new {NEW}: {wall:.3f} s, launches {counts}")
     check(tuple(tokens.shape) == (B, NEW), "token shape")
     check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "tokens in vocab")
@@ -776,7 +820,165 @@ def phase_main_path(torch, cfg, params, kernels, counts):
     check(counts["flash_fwd"] == n, f"P launched once per layer in prefill ({n})")
     for name in ("decode_partials", "decode_combine"):
         check(counts[name] == n * (NEW - 1), f"{name} launched {n} x {NEW - 1}")
-    return ids, tokens
+    return ids, tokens, wall
+
+
+def counted_run(torch, kernels, fn):
+    """fn() with every launch count set to 0 just before and read just
+    after: (result, wall s ending in a synchronise, counts)."""
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, {name: k.launches for name, k in kernels.items()}
+
+
+def check_logits(torch, name, a, b) -> list:
+    """Logits `a` finite and within LOGIT_MAX_TOL / LOGIT_MEAN_TOL of the
+    reference `b`; returns [max, mean] |diff|."""
+    check(bool(torch.isfinite(a).all()), f"{name} logits finite")
+    d = (a - b).abs()
+    diff = [d.max().item(), d.mean().item()]
+    print(f"  {name} logits {tuple(a.shape)}: max|diff| {diff[0]:.4f}, mean|diff| "
+          f"{diff[1]:.5f}, ref std {b.std().item():.3f}, argmax agree "
+          f"{(a.argmax(-1) == b.argmax(-1)).float().mean().item():.4f}")
+    check(diff[0] <= LOGIT_MAX_TOL and diff[1] <= LOGIT_MEAN_TOL,
+          f"{name} logits within max {LOGIT_MAX_TOL} / mean {LOGIT_MEAN_TOL}")
+    return diff
+
+
+def phase_extend_logits(torch, cfg, params, ids, tokens, kernels):
+    """The extend mode on the kernel route (B4): prefill 512, then extends
+    of 5 and 59 tokens, against one 576-token prefill (P) at the same
+    positions; then over an int8 cache, the kernel route (QA, B4 over the
+    dequantized slab) against the plain route over a copy of one cache."""
+    import dataclasses
+    from flash_attention_cute_tpu_torch.models.cache import KVCache, QuantizedKVCache
+    from flash_attention_cute_tpu_torch.models.transformer import forward
+
+    n = cfg.num_layers
+    full = torch.cat([ids, tokens], dim=1)
+    chunks = ((PROMPT, PROMPT + 5), (PROMPT + 5, PROMPT + NEW))
+
+    def extends(cache, plain=False):
+        out = []
+        for lo, hi in chunks:
+            logits, cache = forward(params, cfg, full[:, lo:hi], cache=cache, mode="extend",
+                                    plain_attention=plain)
+            out.append(logits)
+        return torch.cat(out, dim=1)
+
+    with torch.no_grad():
+        want = forward(params, cfg, full)[0][:, PROMPT:]
+        cache = forward(params, cfg, ids, cache=KVCache.create(cfg, B, CAPACITY))[1]
+        got, _, counts = counted_run(torch, kernels, lambda: extends(cache))
+        check(counts["flash_chunked"] == 2 * n and counts["decode_partials"] == 0,
+              f"extends of 5 and 59 tokens launch B4 2 x {n} times, no decode kernel")
+        check_logits(torch, "extend 5 + 59 after prefill 512 vs one prefill of 576", got, want)
+        del want, got, cache
+
+        qc = QuantizedKVCache.create(cfg, B, CAPACITY, torch.int8)
+        qc = forward(params, cfg, ids, cache=qc)[1]
+        twin = dataclasses.replace(qc, **{f: getattr(qc, f).clone() for f in (
+            "k_values", "k_scales", "v_values", "v_scales")})
+        a, _, counts = counted_run(torch, kernels, lambda: extends(qc))
+        check(counts["flash_chunked"] == 2 * n and counts["quant_append"] == 2 * n,
+              f"int8-cache extends launch QA and B4 2 x {n} times")
+        b, _, counts = counted_run(torch, kernels, lambda: extends(twin, plain=True))
+        check(counts["flash_chunked"] == 0, "the plain route launches no B4")
+        check_logits(torch, "int8-cache extend, kernel route vs plain route", a, b)
+        del qc, twin, a, b
+    torch.cuda.empty_cache()
+
+
+# Phase 4e: speculative generation.
+GAMMA = 4
+SPEC_SAMPLING = {"temperature": 1.0, "top_k": 50}
+
+
+def phase_speculative(torch, cfg, params, ids, kernels, path_counts, greedy_wall_s):
+    """(i) speculative_generate with the target as its own draft, (ii) with
+    a 2-layer draft of Llama-3-8B widths (random weights from its own
+    seeded generator), (iii) prompt_lookup_generate (ngram 2) on prompts
+    that repeat a seeded 64-token segment 8 times, (iv) a sampled run of
+    (i), called twice with one seed. Launch counts per run; every greedy
+    token teacher-forced through one contiguous prefill; (i)'s acceptance
+    share >= 0.75."""
+    import dataclasses
+    import numpy as np
+    from flash_attention_cute_tpu_torch.models.transformer import init_params
+    from flash_attention_cute_tpu_torch.runtime.prompt_lookup import prompt_lookup_generate
+    from flash_attention_cute_tpu_torch.runtime.sampling import SamplingParams
+    from flash_attention_cute_tpu_torch.runtime.speculative import speculative_generate
+
+    n = cfg.num_layers
+    dcfg = dataclasses.replace(cfg, num_layers=2)
+    draft = init_params(dcfg, generator=torch.Generator(device="cuda").manual_seed(1))
+    seg = np.random.default_rng(2).integers(0, cfg.vocab_size, (B, PROMPT // 8))
+    lookup_ids = torch.from_numpy(np.tile(seg, (1, 8))).to("cuda")
+    runs = {
+        "spec self-draft": (ids, n, lambda: speculative_generate(
+            params, cfg, params, cfg, ids, NEW, gamma=GAMMA, return_stats=True)),
+        "spec 2-layer draft": (ids, 2, lambda: speculative_generate(
+            params, cfg, draft, dcfg, ids, NEW, gamma=GAMMA, return_stats=True)),
+        "prompt lookup": (lookup_ids, 0, lambda: prompt_lookup_generate(
+            params, cfg, lookup_ids, NEW, gamma=GAMMA, ngram=2, return_stats=True)),
+        "spec self-draft sampled": (ids, n, lambda: speculative_generate(
+            params, cfg, params, cfg, ids, NEW, gamma=GAMMA, return_stats=True,
+            sampling=SamplingParams(**SPEC_SAMPLING), seed=3)),
+    }
+    results = {}
+    for name, (prompt_ids, draft_layers, fn) in runs.items():
+        (tokens, stats), wall, counts = counted_run(torch, kernels, fn)
+        path_counts[name] = counts
+        rounds = stats["rounds"]
+        share = stats["accepted_drafts"] / (rounds * GAMMA * B)
+        print(f"  ({name}) B{B} prompt {PROMPT} new {NEW} gamma {GAMMA}: {wall:.3f} s, "
+              f"rounds {rounds}, accepted drafts {stats['accepted_drafts']} (share "
+              f"{share:.4f}), launches {counts}")
+        check(tuple(tokens.shape) == (B, NEW), f"({name}) token shape")
+        check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()), f"({name}) tokens in vocab")
+        # Prefills (P), one extend per model a round (B4), the draft's
+        # gamma - 1 decodes a round (D1 + D2); nothing else.
+        want = {"flash_fwd": n + draft_layers, "flash_chunked": (n + draft_layers) * rounds,
+                "decode_partials": draft_layers * rounds * (GAMMA - 1),
+                "decode_combine": draft_layers * rounds * (GAMMA - 1)}
+        for kname, c in counts.items():
+            check(c == want.get(kname, 0), f"({name}) {kname} launched {want.get(kname, 0)} "
+                  f"times, got {c}")
+        results[name] = {
+            "wall_s": wall, "tokens_per_s": B * NEW / wall, "rounds": rounds,
+            "accepted_drafts": stats["accepted_drafts"], "acceptance_share": share,
+            "ms_per_round_incl_prefill": 1e3 * wall / rounds,
+        }
+        if "sampled" in name:
+            again, _, _ = counted_run(torch, kernels, fn)
+            same = torch.equal(again[0], tokens)
+            print(f"  ({name}) second call with the same seed: tokens equal {same}")
+            check(same, f"({name}) one seed gives the same tokens")
+            continue
+        near, top = [], []
+        for row in range(B):
+            a, b = teacher_forced(torch, cfg, params, prompt_ids[row].tolist(),
+                                  tokens[row].tolist())
+            near += a
+            top += b
+        print(f"  ({name}) teacher-forced: {sum(near)}/{len(near)} tokens within "
+              f"{LOGIT_MAX_TOL} of the top logit, argmax share {sum(top) / len(top):.4f}")
+        check(all(near), f"({name}) every token within {LOGIT_MAX_TOL} of the top logit")
+        check(sum(top) / len(top) >= ARGMAX_SHARE_MIN,
+              f"({name}) argmax share >= {ARGMAX_SHARE_MIN}")
+        results[name]["teacher_forced_argmax_share"] = sum(top) / len(top)
+    check(results["spec self-draft"]["acceptance_share"] >= 0.75,
+          "self-draft acceptance share >= 0.75 (a wrong B4 mask or offset drives it to 0)")
+    results["greedy_wall_s"] = greedy_wall_s
+    results["greedy_tokens_per_s"] = B * NEW / greedy_wall_s
+    del draft
+    torch.cuda.empty_cache()
+    return results
 
 
 def phase_main_path_int8(torch, cfg, params, ids, bf16_tokens, kernels, counts):
@@ -811,16 +1013,9 @@ def phase_main_path_int8(torch, cfg, params, ids, bf16_tokens, kernels, counts):
           f"int8-cache decode logits within max {LOGIT_MAX_TOL} / mean {LOGIT_MEAN_TOL}")
     torch.cuda.empty_cache()
 
-    for k in kernels.values():
-        k.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        tokens = greedy_generate(params, cfg, ids, NEW, cache_capacity=CAPACITY,
-                                 cache_dtype=torch.int8)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts.update({name: k.launches for name, k in kernels.items()})
+    tokens, wall, launched = counted_run(torch, kernels, lambda: greedy_generate(
+        params, cfg, ids, NEW, cache_capacity=CAPACITY, cache_dtype=torch.int8))
+    counts.update(launched)
     same = (tokens == bf16_tokens).float().mean().item()
     print(f"  greedy_generate int8 cache B{B} prompt {PROMPT} new {NEW}: {wall:.3f} s, "
           f"launches {counts}; tokens equal to the bf16 cache's at {same:.4f} of positions "
@@ -902,28 +1097,13 @@ def phase_quant_weights(torch, cfg, params, ids, bf16_tokens, kernels, path_coun
             want = want[0]
             del image
         for what, a, b in (("prefill", got, want), ("decode step", got_step, want_step)):
-            check(bool(torch.isfinite(a).all()), f"{label}: {what} logits finite")
-            d = (a - b).abs()
-            diffs[what] = [d.max().item(), d.mean().item()]
-            print(f"  {label}: teacher-forced {what} logits {tuple(a.shape)} vs the dequantized "
-                  f"image: max|diff| {diffs[what][0]:.4f}, mean|diff| {diffs[what][1]:.5f}, "
-                  f"argmax agree {(a.argmax(-1) == b.argmax(-1)).float().mean().item():.4f}")
-            check(diffs[what][0] <= LOGIT_MAX_TOL and diffs[what][1] <= LOGIT_MEAN_TOL,
-                  f"{label}: {what} logits within max {LOGIT_MAX_TOL} / mean {LOGIT_MEAN_TOL} "
-                  "of the dequantized image")
+            diffs[what] = check_logits(
+                torch, f"{label}: teacher-forced {what} vs the dequantized image", a, b)
         del got, want, got_step, want_step
         torch.cuda.empty_cache()
 
-        for k in kernels.values():
-            k.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with torch.no_grad():
-            tokens = greedy_generate(tree, cfg, ids, NEW, cache_capacity=CAPACITY,
-                                     cache_dtype=cache_dtype)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = {k: kern.launches for k, kern in kernels.items()}
+        tokens, wall, counts = counted_run(torch, kernels, lambda: greedy_generate(
+            tree, cfg, ids, NEW, cache_capacity=CAPACITY, cache_dtype=cache_dtype))
         path_counts[f"greedy {label}"] = counts
         same = (tokens == bf16_tokens).float().mean().item()
         print(f"  greedy_generate {label}: {wall:.3f} s, launches {counts}; tokens equal to "
@@ -1030,6 +1210,7 @@ def phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode, errs, path_c
         "library_ms": None,  # no single PyTorch call merges split partials
         "ops": 4 * acc.numel(), "bytes": part_bytes + 2 * qd.numel(), "peak": PEAK_F32,
     })
+    rows += chunked_rows(torch, cfg, gen)
     rows += paged_rows(torch, cfg, randn, gen)
     rows += quant_rows(torch, cfg, randn, gen)
     rows += qmm_rows(torch, cfg, gen)
@@ -1055,7 +1236,7 @@ def phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode, errs, path_c
             **bound(r["ops"], r["bytes"], r["peak"]),
             "library_ms": r["library_ms"],
             "shape": r.get("shape", "the main path's"),
-            **({"prefill": r["prefill"]} if "prefill" in r else {}),
+            **{key: r[key] for key in ("prefill", "chunk") if key in r},
         })
 
     # Main-path phases on the host clock, each ending in a synchronise.
@@ -1318,6 +1499,55 @@ def quant_rows(torch, cfg, randn, gen):
     return rows
 
 
+def chunked_rows(torch, cfg, gen):
+    """Kernel row of B4 at the verify shape of phase 4e's last round (B 4,
+    S gamma + 1 = 5, the default capacity 582, q_offset 571, kv_length 576:
+    bound by the bytes of the live K/V) and, under "chunk", at phase 3d's
+    chunk (S 256, q_offset 0 / 77 / 300 / 768, capacity 1100: bound by
+    operations). `library_ms` is one SDPA call over the contiguous cache
+    with the causal-offset and length mask, GQA expanded (the expansion and
+    the mask are not timed)."""
+    from flash_attention_cute_tpu_torch.ops import flash_chunked as fc
+    from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms
+
+    f = torch.nn.functional
+    hq, hkv, d = cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def measure(s, cap, offs, iters):
+        q, k, v, off, kvl = chunked_inputs(torch, gen, torch.bfloat16, s, cap, offs, None, d)
+        kr, vr = (x.nan_to_num().repeat_interleave(hq // hkv, dim=1) for x in (k, v))
+        cols = torch.arange(cap, device="cuda")[None, None, :]
+        mask = ((cols <= off[:, None, None] + torch.arange(s, device="cuda")[None, :, None])
+                & (cols < kvl[:, None, None]))[:, None]
+        pairs = sum(s * o + s * (s + 1) // 2 for o in offs)  # visible (query, key) pairs
+        live = sum(o + s for o in offs)  # keys read once
+        row = {
+            "shape": f"B {len(offs)}, S {s}, capacity {cap}, q_offset {offs}; library_ms: "
+                     "SDPA over the contiguous cache, causal-offset + length mask, GQA "
+                     "expanded",
+            "ms": cuda_time_ms(lambda: fc.flash_attention_chunked(q, k, v, off, kvl), iters),
+            "call_ms": call_time_ms(lambda: fc.flash_attention_chunked(q, k, v, off, kvl), iters),
+            "plain_ms": cuda_time_ms(
+                lambda: fc.flash_attention_chunked_plain(q, k, v, off, kvl), 5),
+            "library_ms": cuda_time_ms(
+                lambda: f.scaled_dot_product_attention(q, kr, vr, attn_mask=mask), iters),
+        }
+        ops = 4 * hq * d * pairs
+        nbytes = 2 * 2 * q.numel() + 2 * 2 * hkv * d * live + 2 * 4 * len(offs)
+        return row, ops, nbytes
+
+    row, ops, nbytes = measure(GAMMA + 1, PROMPT + NEW + GAMMA + 2, [PROMPT + NEW - GAMMA - 1] * B,
+                               50)
+    chunk, c_ops, c_bytes = measure(256, 1100, [0, 77, 300, 768], 20)
+    chunk.update(bound(c_ops, c_bytes, PEAK_BF16))
+    return [{
+        "name": "flash_chunked", "route": "cuda",
+        "source": "flash_attention_cute_tpu_torch/csrc/flash_chunked.cu",
+        "replaces": "flash_attention_cute_tpu/ops/flash_chunked.py:47",
+        **row, "ops": ops, "bytes": nbytes, "peak": PEAK_BF16, "chunk": chunk,
+    }]
+
+
 def bound(ops, nbytes, peak) -> dict:
     """The least time the card could take: operations at `peak` or bytes at
     the memory rate, whichever is longer."""
@@ -1444,6 +1674,7 @@ def main() -> int:
     # 2. build
     from flash_attention_cute_tpu_torch.ops import (
         _build,
+        flash_chunked,
         flash_decode,
         flash_fwd,
         paged_attention,
@@ -1453,8 +1684,8 @@ def main() -> int:
     from flash_attention_cute_tpu_torch.runtime import native, paged_cache
 
     t0 = time.perf_counter()
-    reports = _build.build(["flash_fwd.cu", "flash_decode.cu", "paged_attention.cu",
-                            "quantized.cu", "quantized_matmul.cu"])
+    reports = _build.build(["flash_fwd.cu", "flash_decode.cu", "flash_chunked.cu",
+                            "paged_attention.cu", "quantized.cu", "quantized_matmul.cu"])
     t_nvcc = time.perf_counter() - t0
     native.build()
     print(f"[2] build: nvcc {t_nvcc:.1f} s, then g++ (native scheduler) "
@@ -1473,6 +1704,8 @@ def main() -> int:
     phase_quant_kernels(torch, quantized, errs)
     print("[3c] quantized-weight products vs plain (bf16 x, int8 / int4 weights)")
     phase_qmm_kernels(torch, quantized_matmul, errs)
+    print("[3d] contiguous extend B4 vs plain (bf16 / f16, NaN past every kv_length)")
+    phase_chunked_kernels(torch, flash_chunked, errs)
     torch.cuda.synchronize()
 
     # 4. main paths
@@ -1490,7 +1723,7 @@ def main() -> int:
     print(f"[4] main paths: Llama-3-8B widths, {cfg.num_layers} layers, random weights "
           f"({time.perf_counter() - t0:.1f} s to draw)")
     kernels = {"flash_fwd": flash_fwd.PREFILL, "decode_partials": flash_decode.PARTIALS,
-               "decode_combine": flash_decode.COMBINE,
+               "decode_combine": flash_decode.COMBINE, "flash_chunked": flash_chunked.CHUNKED,
                "paged_decode": paged_attention.PAGED_DECODE,
                "paged_extend": paged_attention.PAGED_EXTEND, "paged_append": paged_cache.APPEND,
                "quant_decode": quantized.QUANT_DECODE,
@@ -1501,7 +1734,8 @@ def main() -> int:
                "quantized_matmul_int4": quantized_matmul.QMM4}
     path_counts: dict = {"greedy": {}, "greedy int8": {}}
     torch.cuda.reset_peak_memory_stats()
-    ids, bf16_tokens = phase_main_path(torch, cfg, params, kernels, path_counts["greedy"])
+    ids, bf16_tokens, greedy_wall = phase_main_path(torch, cfg, params, kernels,
+                                                    path_counts["greedy"])
     print("[4a] greedy generation over an int8 KV cache")
     int8_numbers = phase_main_path_int8(torch, cfg, params, ids, bf16_tokens, kernels,
                                         path_counts["greedy int8"])
@@ -1513,6 +1747,9 @@ def main() -> int:
     serving = phase_serving(torch, cfg, params, kernels, path_counts)
     print("[4c] serving forward: kernel route vs plain_attention route (bf16, int8, e4m3 pools)")
     phase_serving_forward(torch, cfg, params, kernels)
+    print("[4e] extend mode and speculative generation (B4)")
+    phase_extend_logits(torch, cfg, params, ids, bf16_tokens, kernels)
+    speculative = phase_speculative(torch, cfg, params, ids, kernels, path_counts, greedy_wall)
     for name in kernels:
         check(sum(c[name] for c in path_counts.values()) > 0,
               f"{name} launched on a main path")
@@ -1534,6 +1771,7 @@ def main() -> int:
     print(json.dumps(profile))
     print(json.dumps(numbers))
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"speculative": speculative}))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,9 @@
   * seqlen_q == 1 (decode) -> split-KV decode (ops/flash_decode.py),
     causality being vacuous under bottom-right alignment.
   * kv_length / q_offset with seqlen_q > 1 (extend into a partly filled
-    cache) -> the fp32 reference on the CPU; on CUDA it raises until the
-    chunked kernel is ported (ROADMAP.md A6).
+    cache) -> the chunked extend (ops/flash_chunked.py, kernel B4 on
+    CUDA). kv_length None means the full Skv; q_offset None means
+    kv_length - seqlen_q (bottom-right alignment per row).
   * otherwise (prefill) -> the prefill forward (ops/flash_fwd.py).
 
 Each op chooses kernel or plain version by the device of its tensors. This
@@ -19,9 +20,9 @@ from __future__ import annotations
 import torch
 
 from flash_attention_cute_tpu_torch import dispatch
+from flash_attention_cute_tpu_torch.ops.flash_chunked import flash_attention_chunked
 from flash_attention_cute_tpu_torch.ops.flash_decode import flash_attention_decode
 from flash_attention_cute_tpu_torch.ops.flash_fwd import flash_attention_fwd
-from flash_attention_cute_tpu_torch.ops.reference import attention_reference
 
 
 def flash_attention_forward(
@@ -53,15 +54,14 @@ def flash_attention_forward(
             logit_softcap=logit_softcap, num_splits=cfg.decode_num_splits,
         )
     if kv_length is not None or q_offset is not None:
-        if q.device.type != "cpu":
-            raise NotImplementedError(
-                "extend (kv_length / q_offset with seqlen_q > 1) on CUDA is "
-                "ROADMAP.md A6 (flash_chunked)"
-            )
-        return attention_reference(
-            q, k, v, softmax_scale=softmax_scale, causal=causal,
-            kv_length=kv_length, q_offset=q_offset, window=window,
-            logit_softcap=logit_softcap,
+        if kv_length is None:
+            kv_length = torch.full((q.shape[0],), k.shape[2], dtype=torch.int32,
+                                   device=q.device)
+        if q_offset is None:
+            q_offset = kv_length - sq
+        return flash_attention_chunked(
+            q, k, v, q_offset, kv_length, sm_scale=softmax_scale, causal=causal,
+            window=window, logit_softcap=logit_softcap,
         )
     return flash_attention_fwd(
         q, k, v, sm_scale=softmax_scale, causal=causal, window=window,

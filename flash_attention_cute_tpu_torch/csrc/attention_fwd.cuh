@@ -1,13 +1,18 @@
 // Tiled attention forward for many query rows, shared by kernel P (prefill
-// over contiguous K/V, flash_fwd.cu), kernel B6 (chunked prefill over a
+// over contiguous K/V, flash_fwd.cu), kernel B4 (chunked extend over a
+// contiguous cache, flash_chunked.cu), kernel B6 (chunked prefill over a
 // paged cache, paged_attention.cu) and kernel B9 (B6 over a quantized paged
 // cache, quantized.cu): O = softmax(Q K^T * scale + mask) V.
 //
-// All are causal with a per-block offset: key n is visible from query row
-// m iff n <= m + offset and n < skv. P takes offset = Skv - Sq (bottom-right
-// alignment) and skv = Skv; B6 reads offset = q_offset[b] and skv =
-// kv_length[b] from device memory (top-left causality in global positions,
-// `col <= q_offset + row`), and gathers K/V rows through the page table.
+// Key n is visible from query row m iff n < skv and, when causal,
+// n <= m + offset. An instantiation makes two independent choices:
+//   * kRowOffsets: where offset and skv come from. P takes them from the
+//     shapes (offset = Skv - Sq, bottom-right alignment; skv = Skv); B4, B6
+//     and B9 read offset = q_offset[b] and skv = kv_length[b], clamped to
+//     the cache's capacity, from device memory (top-left causality in
+//     global positions, `col <= q_offset + row`).
+//   * kPaged: how a key row is addressed: by the batch and row strides of a
+//     contiguous cache (P, B4) or through the page table (B6, B9).
 // Exact online softmax in fp32 (the `stable="strict"` semantics, no lazy
 // max), deferred 1/l with the l == 0 -> 0 guard, so rows with no visible
 // key (and whole rows of kv_length 0) emit exact zeros. GQA: q head h
@@ -39,19 +44,19 @@ namespace fact {
 
 struct FwdParams {
   const void* q;
-  const void* k;  // P: [B, Hkv, Skv, D]; B6: one layer's pool [Hkv, P, ps, D]
+  const void* k;  // P, B4: [B, Hkv, Skv, D]; B6: one layer's pool [Hkv, P, ps, D]
   const void* v;
   void* o;  // [B, Hq, Sq, D] contiguous
   int64_t q_sb, q_sh, q_ss;  // element strides; the head dim is contiguous
-  int64_t k_sb, k_sh, k_ss, k_sp;  // k_sb: P only; k_sp: B6 only (page stride)
+  int64_t k_sb, k_sh, k_ss, k_sp;  // k_sb: contiguous only; k_sp: paged only (page stride)
   int64_t v_sb, v_sh, v_ss, v_sp;
-  int hq, group, sq, skv;  // skv: P only
+  int hq, group, sq, skv;  // skv: P's key count, B4's capacity C
   float scale_log2;  // softmax_scale * log2(e): softmax runs in base 2
   int causal;
-  const int* q_offset;    // B6: [B] int32 global position of q row 0
-  const int* kv_length;   // B6: [B] int32 keys visible to the chunk (0 = inactive)
-  const int* page_table;  // B6: [B, pps] int32
-  int pps, page_size;     // B6 only
+  const int* q_offset;    // B4, B6: [B] int32 global position of q row 0
+  const int* kv_length;   // B4, B6: [B] int32 keys visible to the chunk (0 = inactive)
+  const int* page_table;  // paged: [B, pps] int32
+  int pps, page_size;     // paged only
 };
 
 // Extra arguments of the quantized instantiation (B9): the scales of one
@@ -76,10 +81,11 @@ constexpr int fwd_smem_bytes() {
 
 // T: q, output and the shared tiles; KV: the cache's element type (T, or
 // int8 / e4m3 from a paged pool).
-template <typename T, typename KV, int D, bool kPaged>
+template <typename T, typename KV, int D, bool kRowOffsets, bool kPaged>
 __global__ void __launch_bounds__(kFwdThreads) attention_fwd_kernel(const FwdArgs<KV> p) {
   constexpr bool kQuant = sizeof(KV) == 1;
   static_assert(kPaged || !kQuant, "quantized K/V come from a paged pool only");
+  static_assert(kRowOffsets || !kPaged, "a paged cache has per-row lengths");
   constexpr int kRow = D + 8;          // smem row stride of Q and K (bank spread)
   constexpr int kVtRow = kBlockN + 8;  // smem row stride of V^T
   constexpr int kChunks = D / 8;       // chunks of 8 elements per row
@@ -103,8 +109,9 @@ __global__ void __launch_bounds__(kFwdThreads) attention_fwd_kernel(const FwdArg
   }
   T* o = static_cast<T*>(p.o) + (static_cast<int64_t>(b) * p.hq + h) * p.sq * D;
   int skv, offset;
-  if constexpr (kPaged) {
-    skv = min(max(p.kv_length[b], 0), p.pps * p.page_size);
+  if constexpr (kRowOffsets) {
+    const int capacity = kPaged ? p.pps * p.page_size : p.skv;
+    skv = min(max(p.kv_length[b], 0), capacity);
     offset = p.q_offset[b];
   } else {
     skv = p.skv;
@@ -299,29 +306,31 @@ __global__ void __launch_bounds__(kFwdThreads) attention_fwd_kernel(const FwdArg
   }
 }
 
-template <typename T, typename KV, int D, bool kPaged>
+template <typename T, typename KV, int D, bool kRowOffsets, bool kPaged>
 int launch_attention_fwd(const FwdArgs<KV>& p, int batch, cudaStream_t stream) {
   constexpr int kSmem = fwd_smem_bytes<T, D, (sizeof(KV) == 1)>();
   static bool configured = false;  // above 48 KB needs an explicit opt-in
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<T, KV, D, kPaged>,
+    cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<T, KV, D, kRowOffsets, kPaged>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid((p.sq + kBlockM - 1) / kBlockM, p.hq, batch);
-  attention_fwd_kernel<T, KV, D, kPaged><<<grid, kFwdThreads, kSmem, stream>>>(p);
+  attention_fwd_kernel<T, KV, D, kRowOffsets, kPaged><<<grid, kFwdThreads, kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
-// K/V of q's own type (P, B6).
-template <bool kPaged>
+// K/V of q's own type (P, B4, B6).
+template <bool kRowOffsets, bool kPaged>
 int dispatch_attention_fwd(const FwdParams& p, int batch, int d, int dtype, cudaStream_t s) {
   using bf16 = __nv_bfloat16;
-  if (dtype == kBF16 && d == 64) return launch_attention_fwd<bf16, bf16, 64, kPaged>(p, batch, s);
-  if (dtype == kBF16 && d == 128) return launch_attention_fwd<bf16, bf16, 128, kPaged>(p, batch, s);
-  if (dtype == kF16 && d == 64) return launch_attention_fwd<__half, __half, 64, kPaged>(p, batch, s);
-  if (dtype == kF16 && d == 128) return launch_attention_fwd<__half, __half, 128, kPaged>(p, batch, s);
+  using h16 = __half;
+  constexpr bool R = kRowOffsets;
+  if (dtype == kBF16 && d == 64) return launch_attention_fwd<bf16, bf16, 64, R, kPaged>(p, batch, s);
+  if (dtype == kBF16 && d == 128) return launch_attention_fwd<bf16, bf16, 128, R, kPaged>(p, batch, s);
+  if (dtype == kF16 && d == 64) return launch_attention_fwd<h16, h16, 64, R, kPaged>(p, batch, s);
+  if (dtype == kF16 && d == 128) return launch_attention_fwd<h16, h16, 128, R, kPaged>(p, batch, s);
   return cudaErrorInvalidValue;
 }
 
@@ -329,10 +338,10 @@ int dispatch_attention_fwd(const FwdParams& p, int batch, int d, int dtype, cuda
 template <typename T>
 int dispatch_attention_fwd_quant_values(const QuantFwdParams& p, int batch, int d, int kv_dtype,
                                         cudaStream_t s) {
-  if (kv_dtype == kInt8 && d == 64) return launch_attention_fwd<T, int8_t, 64, true>(p, batch, s);
-  if (kv_dtype == kInt8 && d == 128) return launch_attention_fwd<T, int8_t, 128, true>(p, batch, s);
-  if (kv_dtype == kE4M3 && d == 64) return launch_attention_fwd<T, e4m3, 64, true>(p, batch, s);
-  if (kv_dtype == kE4M3 && d == 128) return launch_attention_fwd<T, e4m3, 128, true>(p, batch, s);
+  if (kv_dtype == kInt8 && d == 64) return launch_attention_fwd<T, int8_t, 64, true, true>(p, batch, s);
+  if (kv_dtype == kInt8 && d == 128) return launch_attention_fwd<T, int8_t, 128, true, true>(p, batch, s);
+  if (kv_dtype == kE4M3 && d == 64) return launch_attention_fwd<T, e4m3, 64, true, true>(p, batch, s);
+  if (kv_dtype == kE4M3 && d == 128) return launch_attention_fwd<T, e4m3, 128, true, true>(p, batch, s);
   return cudaErrorInvalidValue;
 }
 

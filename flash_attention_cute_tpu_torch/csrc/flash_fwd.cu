@@ -28,5 +28,5 @@ extern "C" int fact_flash_fwd(const void* q, const void* k, const void* v, void*
   p.hq = hq, p.group = hq / hkv, p.sq = sq, p.skv = skv;
   p.scale_log2 = scale_log2;
   p.causal = causal;
-  return dispatch_attention_fwd<false>(p, batch, d, dtype, static_cast<cudaStream_t>(stream));
+  return dispatch_attention_fwd<false, false>(p, batch, d, dtype, static_cast<cudaStream_t>(stream));
 }

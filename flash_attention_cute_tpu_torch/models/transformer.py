@@ -1,4 +1,5 @@
-"""The Llama transformer: prefill and decode forwards over a stacked cache.
+"""The Llama transformer: prefill, extend and decode forwards over a stacked
+cache.
 
 Parameters are a dict of tensors in the JAX package's layout: `embed`
 [V, E], `final_ln` [E], optional `lm_head` [E, V] (absent: tied to the
@@ -11,13 +12,20 @@ through kernel B10 or B11 on CUDA, one layer (`w[li]`) at a time.
 
   * mode="prefill": causal attention over the fresh K/V (kernel P on CUDA);
     with a cache, K/V are then written at positions [0, S) in place.
+  * mode="extend": S new tokens per row at positions lengths + s; their
+    K/V are written in place, then the chunk attends layer `l` of the cache
+    with q_offset = lengths, kv_length = lengths + S (top-left causality in
+    global positions: kernel B4 on CUDA, or D1 + D2 when S == 1). This is
+    the verify step of speculative decoding and a chunk of chunked prefill.
   * mode="decode": one token per row; K/V are written in place at each
     row's length, then split-KV decode attention (kernels D1 + D2) reads
     layer `l` of the stacked cache through a view.
 
 With a `QuantizedKVCache` the writes quantize each row per token (kernel
 QA on CUDA) and decode attention is kernel B7 (+ D2) over the int8 / e4m3
-values and their scales; prefill still attends the fresh, unquantized K/V.
+values and their scales; prefill still attends the fresh, unquantized K/V,
+and extend dequantizes the layer's slab and takes the dense extend route
+(B4), as the JAX package does.
 
 Layers run as a Python loop; nothing in a step waits on the device.
 """
@@ -32,12 +40,14 @@ from flash_attention_cute_tpu_torch.api import flash_attention_forward
 from flash_attention_cute_tpu_torch.models import layers as L
 from flash_attention_cute_tpu_torch.models.cache import KVCache, QuantizedKVCache
 from flash_attention_cute_tpu_torch.models.config import ModelConfig
+from flash_attention_cute_tpu_torch.ops.flash_chunked import flash_attention_chunked_plain
 from flash_attention_cute_tpu_torch.ops.flash_decode import (
     flash_attention_decode,
     flash_attention_decode_plain,
 )
 from flash_attention_cute_tpu_torch.ops.flash_fwd import flash_attention_fwd_plain
 from flash_attention_cute_tpu_torch.ops.quantized import (
+    dequantize_kv,
     flash_attention_decode_quantized,
     flash_attention_decode_quantized_plain,
     quantize_append,
@@ -75,25 +85,27 @@ def forward(
 
     Args:
       input_ids: [B, S] integer ids on the parameters' device.
-      cache: required for mode="decode"; its buffers are updated in place
-        and the returned cache shares them (with lengths + S). Caller
-        contract: lengths + S <= capacity. A `QuantizedKVCache` selects
-        the quantized writes and decode kernel.
-      mode: "prefill" | "decode" ("extend" is ROADMAP.md A6).
+      cache: required for mode="extend" and "decode"; its buffers are
+        updated in place and the returned cache shares them (with lengths +
+        S). Caller contract: lengths + S <= capacity (an index past the
+        capacity raises on the CPU and faults on the card; the JAX
+        package's clamped write has no counterpart). A `QuantizedKVCache`
+        selects the quantized writes and attention.
+      mode: "prefill" (from position 0) | "extend" (S tokens at each row's
+        length) | "decode" (one token at each row's length).
       plain_attention: run attention through the kernels' plain PyTorch
         versions whatever the device (the comparison path).
 
     Returns (logits [B, S, vocab] fp32, updated cache or None).
     """
-    if mode == "extend":
-        raise NotImplementedError("mode='extend' (chunked prefill) is ROADMAP.md A6")
-    if mode not in ("prefill", "decode"):
+    if mode not in ("prefill", "extend", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     check_supported(cfg)
     b, s = input_ids.shape
-    if mode == "decode":
-        if cache is None or s != 1:
-            raise ValueError("mode='decode' needs a cache and seqlen 1")
+    if mode != "prefill" and cache is None:
+        raise ValueError(f"mode={mode!r} needs a cache")
+    if mode == "decode" and s != 1:
+        raise ValueError("mode='decode' needs seqlen 1")
 
     x = params["embed"][input_ids].to(cfg.dtype)
     dev = x.device
@@ -105,10 +117,10 @@ def forward(
     quant = isinstance(cache, QuantizedKVCache)
     if quant:
         # Where each row's new tokens go: prefill writes from position 0.
-        write_at = cache.lengths if mode == "decode" else torch.zeros_like(cache.lengths)
-    if mode == "decode":
+        write_at = torch.zeros_like(cache.lengths) if mode == "prefill" else cache.lengths
+    if mode != "prefill":
         new_len = cache.lengths + s
-    if mode == "decode" and not quant:
+    if mode != "prefill" and not quant:
         # Index grids of the in-place append at each row's length.
         rows = torch.arange(b, device=dev)[:, None, None]
         heads = torch.arange(cfg.num_kv_heads, device=dev)[None, :, None]
@@ -133,14 +145,24 @@ def forward(
         elif quant:
             kc, vc = cache.layer(li)
             quantize_append(k, v, kc, vc, write_at)
-            decode = (flash_attention_decode_quantized_plain if plain_attention
-                      else flash_attention_decode_quantized)
-            attn = decode(q, kc, vc, kv_length=new_len, sm_scale=scale)
+            if mode == "extend":
+                # Dense extend over the dequantized layer slab (JAX's route).
+                attn = _extend(q, dequantize_kv(kc, q.dtype), dequantize_kv(vc, q.dtype),
+                               cache.lengths, new_len, scale, plain_attention)
+            else:
+                decode = (flash_attention_decode_quantized_plain if plain_attention
+                          else flash_attention_decode_quantized)
+                attn = decode(q, kc, vc, kv_length=new_len, sm_scale=scale)
         else:
             cache.k[li][rows, heads, slots] = k.to(cache.k.dtype)
             cache.v[li][rows, heads, slots] = v.to(cache.v.dtype)
-            decode = flash_attention_decode_plain if plain_attention else flash_attention_decode
-            attn = decode(q, cache.k, cache.v, kv_length=new_len, sm_scale=scale, layer=li)
+            if mode == "extend":
+                attn = _extend(q, cache.k[li].to(q.dtype), cache.v[li].to(q.dtype),
+                               cache.lengths, new_len, scale, plain_attention)
+            else:
+                decode = (flash_attention_decode_plain if plain_attention
+                          else flash_attention_decode)
+                attn = decode(q, cache.k, cache.v, kv_length=new_len, sm_scale=scale, layer=li)
         x = L.layer_tail(x, attn, lp, cfg)
 
     x = L.rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
@@ -148,6 +170,14 @@ def forward(
     if cache is None:
         return logits, None
     return logits, dataclasses.replace(cache, lengths=cache.lengths + s)
+
+
+def _extend(q, k, v, q_offset, kv_length, scale, plain_attention):
+    """The chunk's attention over one layer's cache [B, Hkv, C, D]."""
+    if plain_attention:
+        return flash_attention_chunked_plain(q, k, v, q_offset, kv_length, scale)
+    return flash_attention_forward(q, k, v, softmax_scale=scale, causal=True,
+                                   kv_length=kv_length, q_offset=q_offset)
 
 
 def init_params(

@@ -3,10 +3,11 @@
 Layout throughout: q [B, Hq, Sq, D], k/v [B, Hkv, Skv, D].
 """
 
+from flash_attention_cute_tpu_torch.ops.flash_chunked import flash_attention_chunked
 from flash_attention_cute_tpu_torch.ops.flash_decode import flash_attention_decode
 from flash_attention_cute_tpu_torch.ops.flash_fwd import flash_attention_fwd
 from flash_attention_cute_tpu_torch.ops.paged_attention import paged_attention_decode
 from flash_attention_cute_tpu_torch.ops.reference import attention_reference
 
 __all__ = ["attention_reference", "flash_attention_fwd", "flash_attention_decode",
-           "paged_attention_decode"]
+           "flash_attention_chunked", "paged_attention_decode"]

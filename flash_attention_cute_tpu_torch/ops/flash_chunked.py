@@ -1,0 +1,136 @@
+"""Chunked extend over a contiguous KV cache: the CUDA kernel B4 and its
+plain version.
+
+Port of flash_attention_cute_tpu/ops/flash_chunked.py. A chunk of S new
+queries per batch row attends the cache [B, Hkv, C, D] at full capacity C,
+with the chunk's K/V already written at [q_offset, q_offset + S):
+
+  * `q_offset [B]`: global position of the chunk's first query row;
+    with `causal`, key n is visible from row r iff `n <= q_offset + r`
+    (top-left causality in global positions).
+  * `kv_length [B]`: valid cache length including the chunk, clamped to C;
+    keys at or past it are masked. A row with no visible key, and a batch
+    row of kv_length 0, outputs exact zeros.
+
+Both are device tensors read by the kernel, so one kernel serves every fill
+level and no host sync sizes the grid. `flash_attention_chunked` routes on
+the device of `q`: a CPU tensor takes the plain version (the fp32
+reference), a CUDA tensor launches B4 (csrc/flash_chunked.cu), which
+replaces the TPU kernel `_flash_chunked_kernel`. What the kernel does not
+take raises; nothing falls back. Cache positions at or past a row's length
+are never read by the kernel and are zeroed out of the plain version's
+products, so they may hold uninitialised memory, even NaN. The TPU-only
+arguments `block_q`, `block_kv`, `interpret` and `debug` are gone.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from flash_attention_cute_tpu_torch.ops import _build
+from flash_attention_cute_tpu_torch.ops.reference import (
+    attention_partials_reference,
+    attention_reference,
+)
+
+LOG2E = math.log2(math.e)
+HEAD_DIMS = (64, 128)
+
+P, I, L, F = _build.P, _build.I, _build.L, _build.F
+CHUNKED = _build.Kernel(
+    "flash_chunked", "flash_chunked.cu", "fact_flash_chunked",
+    [P] * 6 + [I] * 6 + [L] * 9 + [F, I, I, P],
+)
+
+
+def flash_attention_chunked_plain(q, k, v, q_offset, kv_length, sm_scale=None, causal=True,
+                                  window=None, logit_softcap=None, return_partials=False):
+    """Plain version of B4 on any device: the fp32 reference with per-row
+    offsets, kv_length clamped to the capacity (the TPU wrapper's
+    `min(kv_length, C)`). With `return_partials`, the JAX kernel's
+    (o_unnorm, m, l) in fp32, m in log2 units."""
+    kvl = kv_length.to(device=q.device, dtype=torch.int32).clamp(0, k.shape[2])
+    qo = q_offset.to(device=q.device, dtype=torch.int32)
+    fn = attention_partials_reference if return_partials else attention_reference
+    return fn(q, k, v, softmax_scale=sm_scale, causal=causal, kv_length=kvl, q_offset=qo,
+              window=window, logit_softcap=logit_softcap)
+
+
+def flash_attention_chunked(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_offset: torch.Tensor,
+    kv_length: torch.Tensor,
+    sm_scale: float | None = None,
+    causal: bool = True,
+    window: int | None = None,
+    logit_softcap: float | None = None,
+    return_partials: bool = False,
+):
+    """Chunked-prefill attention over a partly filled contiguous cache.
+
+    Args:
+      q: [B, Hq, S, D], the chunk's queries; any strides with the head dim
+        contiguous (the model hands in transposed views).
+      k, v: [B, Hkv, C, D], the cache at full capacity with the chunk's K/V
+        written; Hq % Hkv == 0; any strides with the head dim contiguous.
+      q_offset: [B] int global position of q row 0.
+      kv_length: [B] int valid cache length including the chunk.
+      sm_scale: defaults to D ** -0.5.
+      causal: top-left causality in global positions; False keeps only the
+        length mask.
+      window, logit_softcap: plain version only (Qwen2 / Gemma2 / Mistral,
+        ROADMAP.md A10).
+      return_partials: plain version only (ring attention, ROADMAP.md A12):
+        (o_unnorm [B, Hq, S, D] f32, m [B, Hq, S] f32 in log2 units,
+        l [B, Hq, S] f32).
+
+    Returns [B, Hq, S, D] in q's dtype, contiguous (or the partials).
+    """
+    b, hq, sq, d = q.shape
+    _, hkv, cap, _ = k.shape
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_chunked_plain(q, k, v, q_offset, kv_length, sm_scale, causal,
+                                             window, logit_softcap, return_partials)
+    if window is not None or logit_softcap is not None:
+        raise NotImplementedError(
+            "window / logit_softcap extend on CUDA is not in kernel B4 yet (plain version "
+            "only; needed by Qwen2 / Gemma2 / Mistral, ROADMAP.md A10)"
+        )
+    if return_partials:
+        raise NotImplementedError(
+            "return_partials on CUDA is not in kernel B4 yet (plain version only; needed "
+            "by ring attention, ROADMAP.md A12)"
+        )
+    if q.dtype not in _build.DTYPE_CODES:
+        raise NotImplementedError(f"extend kernel takes bf16/f16, got {q.dtype}")
+    if d not in HEAD_DIMS:
+        raise NotImplementedError(f"extend kernel takes head_dim in {HEAD_DIMS}, got {d}")
+    if hq % hkv or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _build.check_cuda_tensor(name, t, q.dtype)
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k, v must be on one device")
+    rows = []
+    for name, t in (("q_offset", q_offset), ("kv_length", kv_length)):
+        if t.device != q.device or t.shape != (b,) or t.dtype.is_floating_point:
+            raise ValueError(f"{name} must be a [{b}] integer tensor on q's device")
+        rows.append(t.to(torch.int32).contiguous())
+
+    out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(q.device):
+        CHUNKED(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            rows[0].data_ptr(), rows[1].data_ptr(), b, hq, hkv, sq, cap, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            float(sm_scale) * LOG2E, int(causal), _build.DTYPE_CODES[q.dtype],
+        )
+    return out

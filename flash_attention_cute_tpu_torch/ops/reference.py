@@ -1,14 +1,17 @@
 """Plain PyTorch reference attention, in fp32 and without tiling.
 
 The numerics oracle of the port and the plain version behind the prefill
-kernel (ops/flash_fwd.py). Causal masking is bottom-right aligned:
-coordinate (m, n) is allowed iff `n <= m + (kv_len - q_len)`, so with a
-longer cache the last query row sees every key. Rows left with no allowed
-key (only possible when q_len > kv_len, or through kv_length / window)
-produce exact zeros.
+and extend kernels (ops/flash_fwd.py, ops/flash_chunked.py), with
+`attention_partials_reference` for the extend's (o, m, l) partials.
+Causal masking is bottom-right aligned: coordinate (m, n) is allowed iff
+`n <= m + (kv_len - q_len)`, so with a longer cache the last query row sees
+every key. Rows left with no allowed key (only possible when q_len >
+kv_len, or through kv_length / window) produce exact zeros.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -52,6 +55,40 @@ def attention_reference(
 
     Returns [B, Hq, Sq, D] in q's dtype.
     """
+    scores, allowed, vf = _masked_scores(q, k, v, softmax_scale, causal, kv_length, q_offset,
+                                         window, logit_softcap)
+    row_has_any = allowed.any(dim=-1, keepdim=True)
+    probs = torch.softmax(scores, dim=-1)
+    # softmax of an all -inf row is NaN; such rows output exact zeros.
+    probs = torch.where(row_has_any, probs, torch.zeros((), device=q.device))
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, vf)
+    return out.to(q.dtype)
+
+
+def attention_partials_reference(
+    q, k, v, softmax_scale=None, causal=False, kv_length=None, q_offset=None, window=None,
+    logit_softcap=None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The unnormalised online-softmax partials of `attention_reference`,
+    in the form the JAX chunked kernel returns them (`return_partials`):
+    (o_unnorm [B, Hq, Sq, D], m [B, Hq, Sq], l [B, Hq, Sq]), fp32, with the
+    scores in log2 units (scale * log2(e) folded in). m is the row's running
+    max from the kernel's initial 0, i.e. max(0, largest visible score), so
+    a row with no visible key has m = 0, l = 0 and o_unnorm = 0; then
+    o = o_unnorm / l and any two partials merge exactly."""
+    scores, allowed, vf = _masked_scores(q, k, v, softmax_scale, causal, kv_length, q_offset,
+                                         window, logit_softcap)
+    s2 = scores * math.log2(math.e)
+    m = s2.amax(dim=-1).clamp(min=0.0)  # -inf (no visible key) -> 0
+    p = torch.exp2(s2 - m[..., None])  # masked scores are -inf: p = 0
+    o = torch.einsum("bhqk,bhkd->bhqd", p, vf)
+    return o, m, p.sum(dim=-1)
+
+
+def _masked_scores(q, k, v, softmax_scale, causal, kv_length, q_offset, window, logit_softcap):
+    """fp32 scores [B, Hq, Sq, Skv] with masked entries at -inf, the
+    [B, 1, Sq, Skv] mask of allowed entries, and V in fp32 with the GQA
+    heads repeated and the keys no query may read zeroed."""
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     if hq % hkv:
@@ -89,13 +126,8 @@ def attention_reference(
         allowed &= cols > rows + base - window
 
     scores = scores.masked_fill(~allowed, float("-inf"))
-    row_has_any = allowed.any(dim=-1, keepdim=True)
-    probs = torch.softmax(scores, dim=-1)
-    # softmax of an all -inf row is NaN; such rows output exact zeros.
-    probs = torch.where(row_has_any, probs, torch.zeros((), device=dev))
     # Masked keys get probability 0, but 0 * NaN is NaN: zero V where no
     # query may read it (an uninitialised cache tail).
     readable = allowed.any(dim=2, keepdim=True).transpose(2, 3)  # [B,1,Skv,1]
     vf = torch.where(readable, vf, torch.zeros((), device=dev))
-    out = torch.einsum("bhqk,bhkd->bhqd", probs, vf)
-    return out.to(q.dtype)
+    return scores, allowed, vf

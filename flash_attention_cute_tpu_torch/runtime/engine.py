@@ -53,7 +53,9 @@ from flash_attention_cute_tpu_torch.runtime.paged_cache import (
     create_quantized_paged_state,
 )
 from flash_attention_cute_tpu_torch.runtime.paged_forward import forward_paged
-from flash_attention_cute_tpu_torch.runtime.sampling import filter_logits
+# `_uniform`: the engine's keyed uniforms (stream 0), which its tests read here.
+from flash_attention_cute_tpu_torch.runtime.sampling import keyed_uniform as _uniform  # noqa: F401
+from flash_attention_cute_tpu_torch.runtime.sampling import sample_keyed
 
 # Options of the JAX engine that later slices bring: name -> (neutral value,
 # where it stands in ROADMAP.md). Anything but the neutral value raises.
@@ -86,42 +88,6 @@ def _refuse_later(where: str, options: dict, later: dict) -> None:
         neutral, item = later[name]
         if value is not neutral and value != neutral:
             raise NotImplementedError(f"{where}({name}=...): {item}")
-
-
-# ---- sampling keyed by (request seed, output position) ----
-
-_M32 = 0xFFFFFFFF
-
-
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """A 32-bit integer hash (xor-shift-multiply rounds) on int64 tensors
-    holding values below 2**32; multipliers below 2**31 keep every product
-    inside int64."""
-    x = x ^ (x >> 16)
-    x = (x * 0x7FEB352D) & _M32
-    x = x ^ (x >> 15)
-    x = (x * 0x68E31DA5) & _M32
-    return x ^ (x >> 16)
-
-
-def _uniform(seeds: torch.Tensor, positions: torch.Tensor, vocab: int) -> torch.Tensor:
-    """[n, vocab] uniforms in (0, 1), a pure function of (seed, position,
-    token): a counter-based generator, so a replay draws the same numbers."""
-    key = _mix32(_mix32(seeds.long() & _M32) ^ (positions.long() & _M32))
-    tok = _mix32(torch.arange(vocab, device=seeds.device, dtype=torch.int64))
-    x = _mix32(_mix32(key[:, None] ^ tok[None, :]) ^ 0x5BD1E995)
-    return ((x >> 8).float() + 0.5) * (1.0 / (1 << 24))
-
-
-def sample_keyed(logits, sampling, seeds, positions) -> torch.Tensor:
-    """logits [n, V] fp32 -> token ids [n] int32. Greedy (sampling None or
-    temperature <= 0) is an argmax; otherwise a Gumbel-max draw from
-    `filter_logits(logits, sampling)` with noise keyed by (seed, position)."""
-    if sampling is None or sampling.temperature <= 0.0:
-        return torch.argmax(logits, dim=-1).to(torch.int32)
-    dist = filter_logits(logits.float(), sampling)
-    gumbel = -torch.log(-torch.log(_uniform(seeds, positions, logits.shape[-1])))
-    return torch.argmax(dist + gumbel, dim=-1).to(torch.int32)
 
 
 def _decode_chunk(params, cfg, last, state, chunk, sampling, seeds, positions):

@@ -1,4 +1,15 @@
-"""Token sampling: greedy, temperature, top-k, top-p, min-p, penalties."""
+"""Token sampling: greedy, temperature, top-k, top-p, min-p, penalties, and
+draws keyed by (seed, output position, stream).
+
+The JAX package keys its sampling randomness by (request seed, output
+position, stream) through `jax.random.fold_in`. PyTorch cannot reproduce
+`jax.random`'s bits, so the port keeps the keying with its own
+counter-based generator (`keyed_uniform`): a replay of the same position
+draws the same numbers whatever happened before it (preemption, a
+speculative round's rollback). Streams, as in the JAX speculative
+decoders: 0 for the engine's draws and draft proposals, 1 for the
+acceptance uniforms, 2 for the residual / bonus draw.
+"""
 
 from __future__ import annotations
 
@@ -75,3 +86,50 @@ def sample_token(
         raise ValueError("sampling with temperature > 0 needs a torch.Generator")
     probs = torch.softmax(filter_logits(logits.float(), params), dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+
+
+# ---- draws keyed by (seed, output position, stream) ----
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash (xor-shift-multiply rounds) on int64 tensors
+    holding values below 2**32; multipliers below 2**31 keep every product
+    inside int64."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x68E31DA5) & _M32
+    return x ^ (x >> 16)
+
+
+def keyed_uniform(seeds: torch.Tensor, positions: torch.Tensor, n: int,
+                  stream: int = 0) -> torch.Tensor:
+    """[rows, n] uniforms in (0, 1), a pure function of (seed, position,
+    stream, column): a counter-based generator, so a replay draws the same
+    numbers. Stream 0 is the serving engine's key."""
+    key = _mix32(_mix32(seeds.long() & _M32) ^ (positions.long() & _M32))
+    if stream:
+        key = _mix32(key ^ ((stream * 0x9E3779B9) & _M32))
+    col = _mix32(torch.arange(n, device=seeds.device, dtype=torch.int64))
+    x = _mix32(_mix32(key[:, None] ^ col[None, :]) ^ 0x5BD1E995)
+    return ((x >> 8).float() + 0.5) * (1.0 / (1 << 24))
+
+
+def keyed_gumbel(seeds, positions, n: int, stream: int = 0) -> torch.Tensor:
+    """[rows, n] standard Gumbel noise from `keyed_uniform`: the argmax of
+    logits + noise is a draw from softmax(logits)."""
+    return -torch.log(-torch.log(keyed_uniform(seeds, positions, n, stream)))
+
+
+def sample_keyed(logits, sampling, seeds, positions, stream: int = 0) -> torch.Tensor:
+    """logits [n, V] fp32 -> token ids [n] int32. Greedy (sampling None or
+    temperature <= 0) is an argmax; otherwise a Gumbel-max draw from
+    `filter_logits(logits, sampling)` with noise keyed by (seed, position,
+    stream)."""
+    if sampling is None or sampling.temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    dist = filter_logits(logits.float(), sampling)
+    gumbel = keyed_gumbel(seeds, positions, logits.shape[-1], stream)
+    return torch.argmax(dist + gumbel, dim=-1).to(torch.int32)

@@ -26,7 +26,11 @@ import dataclasses
 import pytest
 import torch
 
-from flash_attention_cute_tpu_torch.ops import flash_decode, flash_fwd, paged_attention
+from flash_attention_cute_tpu_torch import api
+from flash_attention_cute_tpu_torch.models.cache import KVCache
+from flash_attention_cute_tpu_torch.models.config import tiny_test_config
+from flash_attention_cute_tpu_torch.models.transformer import forward, init_params
+from flash_attention_cute_tpu_torch.ops import flash_chunked, flash_decode, flash_fwd, paged_attention
 from flash_attention_cute_tpu_torch.ops import quantized as quant
 from flash_attention_cute_tpu_torch.ops import quantized_matmul as qmm
 from flash_attention_cute_tpu_torch.ops.quantized import QuantizedKV
@@ -469,3 +473,86 @@ def test_weight_quantization_on_the_card_is_bit_identical_to_cpu(device, bits, s
     assert on_card.device.type == "cuda"
     assert torch.equal(on_card.values.cpu(), on_cpu.values)
     assert torch.equal(on_card.scales.cpu().view(torch.int32), on_cpu.scales.view(torch.int32))
+
+
+CHUNKED = {
+    # name: (hq, hkv, s, capacity, q_offset, kv_length, d, causal, dtype);
+    # kv_length None = q_offset + s.
+    "verify_s5": (32, 8, 5, 640, [0, 130, 511, 600], None, 128, True, torch.bfloat16),
+    "chunk_s256": (32, 8, 256, 1100, [0, 77, 300, 768], None, 128, True, torch.bfloat16),
+    "inactive_row": (32, 8, 64, 256, [10, 0, 100], [74, 0, 164], 128, True, torch.bfloat16),
+    "noncausal": (32, 8, 100, 512, [0, 50, 300], [100, 200, 450], 128, False, torch.bfloat16),
+    "f16_d64": (8, 2, 70, 333, [0, 33, 263], None, 64, True, torch.float16),
+}
+
+
+def chunked_inputs(gen, hq, hkv, s, cap, offs, kvl, d, dtype):
+    """The chunk's queries as the model's transposed view, and caches
+    holding NaN at and past every row's kv_length (uninitialised tails)."""
+    kvl = [o + s for o in offs] if kvl is None else kvl
+    q = randn(gen, len(offs), s, hq, d, dtype=dtype).transpose(1, 2)
+    k = randn(gen, len(offs), cap, hkv, d, dtype=dtype).transpose(1, 2)
+    v = randn(gen, len(offs), cap, hkv, d, dtype=dtype).transpose(1, 2)
+    for i, n in enumerate(kvl):
+        k[i, :, n:] = float("nan")
+        v[i, :, n:] = float("nan")
+    rows = (torch.tensor(x, dtype=torch.int32, device="cuda") for x in (offs, kvl))
+    return q, k, v, *rows
+
+
+@pytest.mark.parametrize("case", list(CHUNKED), ids=list(CHUNKED))
+def test_chunked_extend_kernel_matches_plain(device, case):
+    hq, hkv, s, cap, offs, kvl, d, causal, dtype = CHUNKED[case]
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    q, k, v, off, lens = chunked_inputs(gen, hq, hkv, s, cap, offs, kvl, d, dtype)
+    before = flash_chunked.CHUNKED.launches
+    out = flash_chunked.flash_attention_chunked(q, k, v, off, lens, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_chunked.CHUNKED.launches == before + 1
+    ref = flash_chunked.flash_attention_chunked_plain(q, k, v, off, lens, causal=causal)
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+    for i, n in enumerate(lens.tolist()):
+        if n == 0:
+            assert (out[i] == 0).all()
+
+
+def test_chunked_extend_refuses_what_it_does_not_take(device):
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    q, k, v, off, lens = chunked_inputs(gen, 32, 8, 5, 64, [0, 3], None, 128, torch.bfloat16)
+    for kw, item in (({"window": 8}, "A10"), ({"logit_softcap": 30.0}, "A10"),
+                     ({"return_partials": True}, "A12")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+            flash_chunked.flash_attention_chunked(q, k, v, off, lens, **kw)
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        flash_chunked.flash_attention_chunked(q[..., :96], k[..., :96], v[..., :96], off, lens)
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_chunked.flash_attention_chunked(q, k, v, off.cpu(), lens)
+
+
+def test_api_and_model_extend_launch_the_chunked_kernel(device):
+    """`flash_attn_func` with kv_length / q_offset and S > 1, and the model's
+    extend forward, run B4 (one launch per layer), never a decode kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    q, k, v, off, lens = chunked_inputs(gen, 32, 8, 5, 64, [0, 3], None, 128, torch.bfloat16)
+    before = flash_chunked.CHUNKED.launches
+    out = api.flash_attn_func(q, k, v, causal=True, kv_length=lens, q_offset=off)
+    assert flash_chunked.CHUNKED.launches == before + 1
+    ref = flash_chunked.flash_attention_chunked_plain(q, k, v, off, lens)
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+
+    cfg = tiny_test_config(num_layers=2, num_q_heads=4, num_kv_heads=2, head_dim=64,
+                           dtype=torch.bfloat16)
+    params = init_params(cfg, seed=0)
+    ids = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen, device="cuda")
+    cache = KVCache.create(cfg, 2, 32)
+    _, cache = forward(params, cfg, ids[:, :7], cache=cache)
+    before = (flash_chunked.CHUNKED.launches, flash_decode.PARTIALS.launches)
+    got, cache = forward(params, cfg, ids[:, 7:], cache=cache, mode="extend")
+    torch.cuda.synchronize()
+    assert flash_chunked.CHUNKED.launches == before[0] + cfg.num_layers
+    assert flash_decode.PARTIALS.launches == before[1]
+    assert cache.lengths.tolist() == [12, 12]
+    want, _ = forward(params, cfg, ids, cache=KVCache.create(cfg, 2, 32))
+    assert (got - want[:, 7:]).abs().max().item() <= 0.1
