@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (flash_attention_cute_tpu_torch) on
 one NVIDIA Hopper card.
 
-    python3 chip_smoke.py              # full Llama-3-8B depth
+    python3 chip_smoke.py              # every model at full depth
     python3 chip_smoke.py --layers 4   # depth cut (printed), widths unchanged
 
 Phases, in order; any failure exits non-zero:
@@ -25,7 +25,12 @@ Phases, in order; any failure exits non-zero:
      capacity 640, q_offset 0-600), a chunk (S 256, q_offset 0-768,
      capacity 1100), with a kv_length-0 row (exact zeros), non-causal and
      at D 64, over caches NaN at and past every kv_length, q/k/v transposed
-     views.
+     views; (3e) sliding windows of 1, 100 (an edge inside a 64-key tile),
+     4096 and 8192 (at least every length): B2 (windowed prefill; P where
+     the window cannot bind) at S 5120, 1000 and Sq 256 / Skv 1024, and D1 +
+     D2 (splits below the window dead) at Mistral-7B's (32 / 8) and
+     Qwen2-7B's (28 / 4, group 7) widths; B4, B5, B6, B7, B8, B9 windowed at
+     Mistral widths over contexts up to 5152 keys, NaN past every length.
   4. main paths: greedy generation of Llama-3-8B (random weights from a
      seeded CUDA generator) at B 4, prompt 512, 64 new tokens; launch
      counters show the kernels carried it; teacher-forced logits of the
@@ -63,6 +68,21 @@ Phases, in order; any failure exits non-zero:
      (gamma - 1)), every greedy token teacher-forced through one contiguous
      prefill (within 1.0 of the top logit, argmax share >= 0.9), and (i)'s
      acceptance share accepted / (rounds x gamma x B) >= 0.75.
+     (4f) Mistral-7B (window 4096 on every layer; random weights from a
+     seeded CUDA generator), after the Llama tree is dropped: teacher-forced
+     prefill (B2) and decode-step (D1 + D2) logits at B 2, prompt 5120,
+     against the plain_attention route run one row at a time; greedy
+     generation of 32 tokens over a bf16 cache (B2 32 launches, D1 + D2 31 x
+     32) and over an int8 cache (B2 32, QA 32 x 32, B7 + D2 31 x 32; its
+     decode step held to the plain route over one and the same cache); the
+     serving engine over 8 requests (prompts 4200-5000 tokens, 16-32 new,
+     numpy seed 0, 4 slots) in runs M1 (whole-prompt admission, page_size
+     128: B2, B5 + D2, the append) and M2 (chunked admission of 512-token
+     chunks, page_size 16: B6, B5 + D2), every token teacher-forced through
+     one contiguous prefill (B2). (4g) Qwen2-7B (non-zero q/k/v biases,
+     28 / 4 heads): teacher-forced logits at B 4, prompt 512, and greedy
+     generation of 32 tokens (P 28, D1 + D2 31 x 28). Each tree is dropped
+     before the next is drawn.
   5. numbers: per-kernel times, bounds and library times as one JSON line
      (for B7-B9 the library call is SDPA over a dequantized bf16 copy, for
      B10 / B11 `x @ w` over a dequantized bf16 weight; the dequantization is
@@ -72,7 +92,11 @@ Phases, in order; any failure exits non-zero:
      serving wall time, tokens/s, TTFT, rounds, pool bytes and peak memory
      per run; speculative runs' wall time, tokens/s, rounds, acceptance
      share and ms per round beside greedy generation's; the bytes of each
-     parameter tree; the card's name and power limit.
+     parameter tree; (5b) B2's row at Mistral-7B's greedy prefill (B 2,
+     S 5120, W 4096; library_ms: SDPA with the window as a boolean mask)
+     and, under "window", each of D1, B4, B5-B9 with W 4096 at a Mistral
+     shape past the window; the Mistral / Qwen2 numbers ("families"); the
+     card's name and power limit.
 The last line is {"ok": true, "device": {...}}.
 
 Tolerances: kernel outputs are bf16 results of fp32 arithmetic on bf16
@@ -436,6 +460,172 @@ def phase_quant_kernels(torch, quantized, errs):
                           f"bit-identical to plain: {same}")
                     check(same, "QA writes exactly what quantize_kv + the indexed write writes")
                 del cont
+
+
+# Phase 3e: the windows every attention kernel takes: one key, an edge
+# inside a 64-key tile (and a page or split), Mistral-7B's 4096, and one at
+# least every length (it never binds).
+WINDOW_SIZES = (1, 100, 4096, 8192)
+# Mistral-7B's and Qwen2-7B's attention widths (q heads, kv heads).
+WINDOW_HEADS = ((32, 8), (28, 4))
+
+
+def phase_window_kernels(torch, ops, errs):
+    """B2 and the windows of D1, B4, B5, B6, B7, B8, B9 against their plain
+    versions at Mistral widths (Hq 32, Hkv 8, D 128; B2 and D1 also at
+    Qwen2's 28 / 4, group 7), contexts up to 5152 keys, over caches and
+    pools NaN at and past every length. B2 runs where the window binds
+    (W < Skv); a window of at least Skv is P's launch. The plain versions
+    take q in fp32 and return fp32: with a window of one key the output is
+    one V row, of magnitude up to 4-8, where a bf16 plain result would add a
+    second rounding of one bf16 step (0.03125)."""
+    flash_fwd, flash_decode = ops["flash_fwd"], ops["flash_decode"]
+    flash_chunked = ops["flash_chunked"]
+    pa, qz = ops["paged_attention"], ops["quantized"]
+    gen = torch.Generator(device="cuda").manual_seed(6060)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def record(name, e, what, out, zero_rows=()):
+        errs[name] = max(errs.get(name, 0.0), e)
+        print(f"  {what}: max|diff| {e:.3e}")
+        check(bool(torch.isfinite(out).all()), f"{what}: output finite over NaN tails")
+        for r in zero_rows:
+            check(bool((out[r] == 0).all()), f"{what}: row {r} (no key) is exactly 0")
+        check(e <= BF16_TOL, f"{what} within {BF16_TOL}")
+
+    # B2 (P where the window cannot bind): the model's transposed views.
+    for hq, hkv in WINDOW_HEADS:
+        for b, sq, skv in ((1, 5120, 5120), (2, 1000, 1000), (1, 256, 1024)):
+            q = randn(b, sq, hq, 128).transpose(1, 2)
+            k, v = (randn(b, skv, hkv, 128).transpose(1, 2) for _ in "kv")
+            for w in WINDOW_SIZES:
+                before = (flash_fwd.WINDOWED_PREFILL.launches, flash_fwd.PREFILL.launches)
+                out = flash_fwd.flash_attention_fwd(q, k, v, causal=True, window=w)
+                torch.cuda.synchronize()
+                binds = w < skv
+                got = (flash_fwd.WINDOWED_PREFILL.launches - before[0],
+                       flash_fwd.PREFILL.launches - before[1])
+                check(got == (int(binds), int(not binds)),
+                      f"window {w} of {skv} keys launches {'B2' if binds else 'P'}, got {got}")
+                e = max_err(out, flash_fwd.flash_attention_fwd_plain(q.float(), k, v, causal=True,
+                                                                     window=w))
+                record("flash_fwd_window" if binds else "flash_fwd", e,
+                       f"{'B2' if binds else 'P '} Hq {hq} Hkv {hkv} B {b} Sq {sq} Skv {skv} "
+                       f"window {w}", out)
+            del q, k, v
+
+    # D1 (+ D2) over a stacked cache of capacity 5152.
+    lens = [5152, 5000, 4097, 4096, 100, 1, 0]
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    for hq, hkv in WINDOW_HEADS:
+        kc, vc = randn(2, len(lens), hkv, 5152, 128), randn(2, len(lens), hkv, 5152, 128)
+        for i, n in enumerate(lens):  # uninitialised cache tail
+            kc[:, i, :, n:] = float("nan")
+            vc[:, i, :, n:] = float("nan")
+        q = randn(len(lens), hq, 1, 128)
+        splits = ops["dispatch"].decode_num_splits(len(lens), hkv, 5152)
+        for w in WINDOW_SIZES:
+            acc, m, l = flash_decode.decode_partials(q, kc[1], vc[1], lengths, 128 ** -0.5,
+                                                     splits, w)
+            ref = flash_decode.decode_partials_plain(q.float(), kc[1], vc[1], lengths, 128 ** -0.5,
+                                                     splits, w)
+            e1 = max(max_err(x, y) for x, y in zip((acc, m, l), ref))
+            errs["decode_partials"] = max(errs.get("decode_partials", 0.0), e1)
+            check(e1 <= 1e-2, f"D1 partials window {w} (fp32 sums of the same inputs) within 1e-2")
+            out = flash_decode.flash_attention_decode(q, kc, vc, lengths, window=w, layer=1)
+            ref = flash_decode.flash_attention_decode_plain(q.float(), kc, vc, lengths, window=w,
+                                                            layer=1)
+            record("decode_combine", max_err(out, ref),
+                   f"D1 + D2 Hq {hq} Hkv {hkv} lengths {lens} window {w} (partials {e1:.3e})",
+                   out, [6])
+            if w >= max(lens):
+                check(torch.equal(out, flash_decode.flash_attention_decode(q, kc, vc, lengths,
+                                                                           layer=1)),
+                      "D1 + D2: a window of at least the length is no window")
+        del kc, vc
+
+    # B4: the verify shape and a chunk, windows crossing the chunk.
+    for name, s, offs in (("verify S5", 5, [0, 100, 4100, 5000]),
+                          ("chunk S256", 256, [0, 77, 3900, 4864])):
+        q, k, v, off, kvl = chunked_inputs(torch, gen, torch.bfloat16, s, 5152, offs, None, 128)
+        for w in WINDOW_SIZES:
+            out = flash_chunked.flash_attention_chunked(q, k, v, off, kvl, window=w)
+            ref = flash_chunked.flash_attention_chunked_plain(q.float(), k, v, off, kvl, window=w)
+            record("flash_chunked", max_err(out, ref), f"B4 {name} q_offset {offs} window {w}",
+                   out)
+        del q, k, v
+
+    # B5 (+ D2) and B6 over pools of 5120 keys a row.
+    for ps in (16, 128):
+        lens = [0, 1, 100, 4095, 4097, 5120, 4500, 2 * ps + 1]
+        kp, vp, table = paged_pool(torch, randn, gen, ps, rows=len(lens), capacity=5120,
+                                   layers=1)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        poison_past(torch, kp, table, lengths)
+        poison_past(torch, vp, table, lengths)
+        q = randn(len(lens), 32, 1, 128)
+        for w in WINDOW_SIZES:
+            out = pa.paged_attention_decode(q, kp[0], vp[0], lengths, table, window=w)
+            ref = pa.paged_attention_decode_plain(q.float(), kp[0], vp[0], lengths, table, window=w)
+            record("paged_decode", max_err(out, ref),
+                   f"B5 page_size {ps} lengths {lens} window {w}", out, [0])
+        del kp, vp
+        off = torch.tensor([0, 3900, 4864, 0], dtype=torch.int32, device="cuda")
+        kvl = torch.tensor([256, 4156, 5120, 0], dtype=torch.int32, device="cuda")
+        kp, vp, table = paged_pool(torch, randn, gen, ps, rows=4, capacity=5120, layers=1)
+        poison_past(torch, kp, table, kvl)
+        poison_past(torch, vp, table, kvl)
+        q = randn(4, 256, 32, 128).transpose(1, 2)
+        for w in WINDOW_SIZES:
+            out = pa.paged_attention_extend(q, kp[0], vp[0], off, kvl, table, window=w)
+            ref = pa.paged_attention_extend_plain(q.float(), kp[0], vp[0], off, kvl, table,
+                                                  window=w)
+            record("paged_extend", max_err(out, ref),
+                   f"B6 page_size {ps} S 256 q_offset {off.tolist()} window {w}", out, [3])
+        del kp, vp
+
+    # B7 (+ D2), B8 (+ D2), B9 over int8 and e4m3.
+    for dname in QUANT_DTYPES:
+        dtype = getattr(torch, dname)
+        lens = [0, 1, 100, 4097, 5000, 5152]
+        k, v = (qz.quantize_kv(randn(2, len(lens), 8, 5152, 128), dtype) for _ in "kv")
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        dead = torch.arange(5152, device="cuda")[None, :] >= lengths[:, None]
+        for kv in (k, v):
+            poison_quant(torch, kv, dead[None, :, None, :].expand(2, -1, 8, -1))
+        q = randn(len(lens), 32, 1, 128)
+        for w in WINDOW_SIZES:
+            out = qz.flash_attention_decode_quantized(q, k, v, lengths, window=w, layer=1)
+            ref = qz.flash_attention_decode_quantized_plain(q.float(), k, v, lengths, window=w,
+                                                            layer=1)
+            record("quant_decode", max_err(out, ref), f"B7 {dname} lengths {lens} window {w}",
+                   out, [0])
+        del k, v
+        lens = [0, 1, 100, 4095, 4097, 5120, 4500]
+        k, v, table = quant_pool(torch, qz, randn, gen, 16, len(lens), dtype, lens, capacity=5120)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q = randn(len(lens), 32, 1, 128)
+        for w in WINDOW_SIZES:
+            out = qz.paged_attention_decode_quantized(q, k, v, lengths, table, window=w)
+            ref = qz.paged_attention_decode_quantized_plain(q.float(), k, v, lengths, table,
+                                                            window=w)
+            record("quant_paged_decode", max_err(out, ref),
+                   f"B8 {dname} page_size 16 lengths {lens} window {w}", out, [0])
+        del k, v
+        off = torch.tensor([0, 3900, 4864, 0], dtype=torch.int32, device="cuda")
+        kvl = torch.tensor([256, 4156, 5120, 0], dtype=torch.int32, device="cuda")
+        k, v, table = quant_pool(torch, qz, randn, gen, 16, 4, dtype, kvl.tolist(), capacity=5120)
+        q = randn(4, 256, 32, 128).transpose(1, 2)
+        for w in WINDOW_SIZES:
+            out = qz.paged_attention_extend_quantized(q, k, v, off, kvl, table, window=w)
+            ref = qz.paged_attention_extend_quantized_plain(q.float(), k, v, off, kvl, table,
+                                                            window=w)
+            record("quant_paged_extend", max_err(out, ref),
+                   f"B9 {dname} page_size 16 S 256 q_offset {off.tolist()} window {w}", out, [3])
+        del k, v
+    torch.cuda.empty_cache()
 
 
 # Phase 3c shapes (rows T, K, N): the Llama-3-8B projections at decode,
@@ -1150,7 +1340,7 @@ def phase_quant_weights(torch, cfg, params, ids, bf16_tokens, kernels, path_coun
     return numbers
 
 
-def phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode, errs, path_counts):
+def phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode):
     from flash_attention_cute_tpu_torch.runtime.generate import decode_loop, prefill
     from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms, wall_time_s
 
@@ -1224,20 +1414,8 @@ def phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode, errs, path_c
     sdpa_dec_ms = cuda_time_ms(lambda: f.scaled_dot_product_attention(qd, kcr, vcr, attn_mask=mask), 50)
     del kcr, vcr, kr, vr
 
-    kernels = []
     for r in rows:
-        by_path = {path: c[r["name"]] for path, c in path_counts.items()}
-        kernels.append({
-            "name": r["name"], "route": r["route"], "source": r["source"],
-            "replaces": r["replaces"], "launches": sum(by_path.values()),
-            "launches_by_path": by_path,
-            "max_abs_err": errs[r["name"]], "ms": r["ms"], "call_ms": r["call_ms"],
-            "plain_ms": r["plain_ms"],
-            **bound(r["ops"], r["bytes"], r["peak"]),
-            "library_ms": r["library_ms"],
-            "shape": r.get("shape", "the main path's"),
-            **{key: r[key] for key in ("prefill", "chunk") if key in r},
-        })
+        r.update(bound(r.pop("ops"), r.pop("bytes"), r.pop("peak")))
 
     # Main-path phases on the host clock, each ending in a synchronise.
     with torch.no_grad():
@@ -1248,7 +1426,7 @@ def phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode, errs, path_c
         # prompt's lengths: profile a few steps from there.
         profile = profile_decode(torch, params, cfg, cache, first[:, None])
     weight_bytes = tree_bytes(params)
-    return kernels, {
+    return rows, {
         "prefill_ms": 1e3 * pre_s,
         "prefill_tokens_per_s": B * PROMPT / pre_s,
         "decode_ms_per_token": 1e3 * dec_s / (NEW - 1),
@@ -1265,6 +1443,26 @@ def phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode, errs, path_c
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
         "layers": cfg.num_layers,
     }, profile
+
+
+def kernel_entries(rows, errs, path_counts) -> list:
+    """The `kernels` JSON line: each row with its launches on every main
+    path (the counts of its path runs) and its largest error against its
+    plain version over the whole script."""
+    out = []
+    for r in rows:
+        by_path = {path: c[r["name"]] for path, c in path_counts.items()}
+        out.append({
+            "name": r["name"], "route": r["route"], "source": r["source"],
+            "replaces": r["replaces"], "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": errs[r["name"]], "ms": r["ms"], "call_ms": r["call_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "shape": r.get("shape", "the main path's"),
+            **{key: r[key] for key in ("prefill", "chunk", "window") if key in r},
+        })
+    return out
 
 
 def paged_rows(torch, cfg, randn, gen):
@@ -1548,6 +1746,366 @@ def chunked_rows(torch, cfg, gen):
     }]
 
 
+# Phases 4f / 4g: Mistral-7B (a window of 4096 on every layer) and
+# Qwen2-7B (QKV biases, GQA group 7) at full width.
+MISTRAL_B, MISTRAL_PROMPT, MISTRAL_NEW, WINDOW = 2, 5120, 32, 4096
+MISTRAL_CAPACITY = MISTRAL_PROMPT + MISTRAL_NEW
+QWEN2_B, QWEN2_PROMPT, QWEN2_NEW = 4, 512, 32
+MISTRAL_SERVING_RUNS = {
+    "M1 whole-prompt": dict(slots=4, page_size=128, pages_per_seq=40, num_pages=161,
+                            prefill_group=4, decode_chunk=8),
+    "M2 chunked": dict(slots=4, page_size=16, pages_per_seq=315, num_pages=1261,
+                       prefill_chunk=512),
+}
+
+
+def mistral_requests(vocab_size):
+    """8 requests: prompt lengths uniform in 4200-5000 (past the window),
+    max_new_tokens in 16-32, ids uniform over the vocabulary, all from
+    numpy seed 0."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    plens = rng.integers(4200, 5001, 8)
+    news = rng.integers(16, 33, 8)
+    return [(rid, rng.integers(0, vocab_size, int(n)).tolist(), int(m))
+            for rid, (n, m) in enumerate(zip(plens, news))]
+
+
+def forward_pair(torch, cfg, params, ids, capacity, plain, tok=None):
+    """(prefill logits, logits of one decode step, the step's tokens): a
+    prefill of `ids` into a bf16 cache, then a decode step of `tok` (default:
+    each row's greedy next token). The plain route runs one batch row at a
+    time: its fp32 scores of a 5120-token prompt take 3.4 GB a row."""
+    from flash_attention_cute_tpu_torch.models.cache import KVCache
+    from flash_attention_cute_tpu_torch.models.transformer import forward
+
+    groups = [slice(i, i + 1) for i in range(ids.shape[0])] if plain else [slice(None)]
+    pre, step, toks = [], [], []
+    with torch.no_grad():
+        for g in groups:
+            cache = KVCache.create(cfg, ids[g].shape[0], capacity)
+            logits, cache = forward(params, cfg, ids[g], cache=cache, plain_attention=plain)
+            t = logits[:, -1].argmax(-1)[:, None] if tok is None else tok[g]
+            pre.append(logits)
+            step.append(forward(params, cfg, t, cache=cache, mode="decode",
+                                plain_attention=plain)[0])
+            toks.append(t)
+            del cache, logits
+    return torch.cat(pre), torch.cat(step), torch.cat(toks)
+
+
+def check_counts(counts, want, what):
+    """Every kernel launched exactly `want[name]` times (0 if absent)."""
+    for name, c in counts.items():
+        check(c == want.get(name, 0),
+              f"({what}) {name} launched {want.get(name, 0)} times, got {c}")
+
+
+def phase_family(torch, cfg, params, seed, b, prompt, new, kernels, path_counts, label):
+    """Teacher-forced prefill and decode-step logits of the kernel route
+    against the plain_attention route, then `greedy_generate` over a bf16
+    cache with its launch counts (prefill: B2 where the window binds, else
+    P; D1 + D2 per layer and decode step)."""
+    import numpy as np
+    from flash_attention_cute_tpu_torch.runtime.generate import greedy_generate
+
+    n = cfg.num_layers
+    ids = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, prompt)))
+    ids = ids.to("cuda")
+    pre_p, step_p, tok = forward_pair(torch, cfg, params, ids, prompt + new, True)
+    pre_k, step_k, _ = forward_pair(torch, cfg, params, ids, prompt + new, False, tok)
+    diffs = {"prefill": check_logits(torch, f"{label} teacher-forced prefill, kernel vs plain",
+                                     pre_k, pre_p),
+             "decode step": check_logits(torch, f"{label} teacher-forced decode step, kernel vs "
+                                         "plain", step_k, step_p)}
+    del pre_p, pre_k, step_p, step_k
+    torch.cuda.empty_cache()
+    tokens, wall, counts = counted_run(torch, kernels, lambda: greedy_generate(
+        params, cfg, ids, new, cache_capacity=prompt + new))
+    path_counts[f"{label} greedy"] = counts
+    print(f"  {label} greedy_generate B{b} prompt {prompt} new {new}: {wall:.3f} s, launches "
+          f"{ {k: c for k, c in counts.items() if c} }")
+    check(tuple(tokens.shape) == (b, new) and bool(
+        ((tokens >= 0) & (tokens < cfg.vocab_size)).all()), f"{label}: tokens in vocab")
+    prefill = "flash_fwd_window" if cfg.layer_window(0) and prompt > cfg.layer_window(0) \
+        else "flash_fwd"
+    check_counts(counts, {prefill: n, "decode_partials": n * (new - 1),
+                          "decode_combine": n * (new - 1)}, f"{label} greedy")
+    return ids, tokens, {"teacher_forced_max_mean_diff": diffs, "greedy_wall_s": wall,
+                         "greedy_tokens_per_s": b * new / wall}
+
+
+def phase_mistral(torch, cfg, params, kernels, path_counts):
+    """Mistral-7B: teacher forcing and greedy generation (B2 prefills; D1 +
+    D2 over a bf16 cache, QA and B7 + D2 over an int8 cache), then the
+    serving engine in runs M1 (whole-prompt admission: B2, B5 + D2, the
+    append) and M2 (chunked admission: B6, B5 + D2), every token
+    teacher-forced through one contiguous prefill (B2)."""
+    import dataclasses
+    from flash_attention_cute_tpu_torch.models.cache import QuantizedKVCache
+    from flash_attention_cute_tpu_torch.models.transformer import forward
+    from flash_attention_cute_tpu_torch.runtime.engine import ServingEngine
+    from flash_attention_cute_tpu_torch.runtime.generate import greedy_generate
+
+    label, n = "Mistral-7B", cfg.num_layers
+    ids, _, results = phase_family(torch, cfg, params, 7, MISTRAL_B, MISTRAL_PROMPT,
+                                   MISTRAL_NEW, kernels, path_counts, label)
+
+    # int8 cache: the decode step over one and the same cache, kernel route
+    # (QA, B7 + D2) against the plain route; then greedy generation.
+    with torch.no_grad():
+        cache = QuantizedKVCache.create(cfg, MISTRAL_B, MISTRAL_CAPACITY, torch.int8)
+        logits, cache = forward(params, cfg, ids, cache=cache)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        del logits
+        twin = dataclasses.replace(cache, **{f: getattr(cache, f).clone() for f in (
+            "k_values", "k_scales", "v_values", "v_scales")})
+        a = forward(params, cfg, tok, cache=cache, mode="decode")[0]
+        b = forward(params, cfg, tok, cache=twin, mode="decode", plain_attention=True)[0]
+        del cache, twin
+    results["int8_decode_step_max_mean_diff"] = check_logits(
+        torch, f"{label} int8-cache decode step, kernel route (B7) vs plain", a, b)
+    tokens, wall, counts = counted_run(torch, kernels, lambda: greedy_generate(
+        params, cfg, ids, MISTRAL_NEW, cache_capacity=MISTRAL_CAPACITY, cache_dtype=torch.int8))
+    path_counts[f"{label} greedy int8"] = counts
+    print(f"  {label} greedy_generate int8 cache: {wall:.3f} s, launches "
+          f"{ {k: c for k, c in counts.items() if c} }")
+    check_counts(counts, {"flash_fwd_window": n, "quant_append": n * MISTRAL_NEW,
+                          "quant_decode": n * (MISTRAL_NEW - 1),
+                          "decode_combine": n * (MISTRAL_NEW - 1)}, f"{label} greedy int8")
+    results["greedy_int8_wall_s"] = wall
+    torch.cuda.empty_cache()
+
+    reqs = mistral_requests(cfg.vocab_size)
+    for name, kw in MISTRAL_SERVING_RUNS.items():
+        torch.cuda.reset_peak_memory_stats()
+        eng = ServingEngine(params, cfg, **kw)
+        pool_bytes = sum(t.numel() * t.element_size() for f, t in vars(eng.state).items()
+                         if f not in ("page_table", "lengths"))
+        for rid, prompt, new in reqs:
+            eng.submit(rid, prompt, new)
+        out, wall, counts = counted_run(torch, kernels, eng.run)
+        peak = torch.cuda.max_memory_allocated()
+        path_counts[f"{label} {name}"] = counts
+        fw = eng.forwards
+        print(f"  ({label} {name}) {kw}: {wall:.3f} s, forwards {fw}, launches "
+              f"{ {k: c for k, c in counts.items() if c} }, stats {eng.stats}; pool "
+              f"{pool_bytes / 1e9:.4f} GB, peak memory {peak / 1e9:.3f} GB")
+        check(sorted(out) == list(range(len(reqs))) and not eng.failed,
+              f"({name}) every request finishes, none fails")
+        # Prefill groups are padded past the window: B2, never P.
+        check_counts(counts, {"flash_fwd_window": n * fw["prefill"],
+                              "paged_extend": n * fw["extend"],
+                              "paged_decode": n * fw["decode"],
+                              "decode_combine": n * fw["decode"],
+                              "paged_append": n * sum(fw.values())}, f"{label} {name}")
+        if kw.get("prefill_chunk"):
+            check(fw["extend"] > 0, f"({name}) admission by extend")
+        else:
+            check(fw["prefill"] > 0 and fw["extend"] == 0, f"({name}) admission by prefill")
+        near, top = [], []
+        for rid, prompt, _ in reqs:
+            x, y = teacher_forced(torch, cfg, params, prompt, out[rid])
+            near += x
+            top += y
+        print(f"  ({label} {name}) teacher-forced: {sum(near)}/{len(near)} tokens within "
+              f"{LOGIT_MAX_TOL} of the top logit, argmax share {sum(top) / len(top):.4f}")
+        check(all(near), f"({name}) every engine token within {LOGIT_MAX_TOL} of the top logit")
+        check(sum(top) / len(top) >= ARGMAX_SHARE_MIN,
+              f"({name}) argmax share of the engine tokens >= {ARGMAX_SHARE_MIN}")
+        ttft = sorted(m["ttft_s"] for m in eng.request_metrics)
+        gen_tokens = eng.stats["tokens_generated"]
+        results[name] = {
+            "wall_s": wall, "generated_tokens": gen_tokens,
+            "generated_tokens_per_s": gen_tokens / wall,
+            "ttft_p50_s": ttft[len(ttft) // 2], "ttft_p90_s": ttft[int(0.9 * (len(ttft) - 1))],
+            "decode_rounds": eng.decode_rounds,
+            "decode_ms_per_round": 1e3 * eng.decode_round_s / max(eng.decode_rounds, 1),
+            "prefills": eng.stats["prefills"], "forwards": dict(fw),
+            "teacher_forced_argmax_share": sum(top) / len(top),
+            "pool_gb": pool_bytes / 1e9, "peak_memory_gb": peak / 1e9,
+        }
+        del eng, out
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_qwen2(torch, cfg, params, kernels, path_counts):
+    """Qwen2-7B with non-zero q/k/v biases: teacher forcing and greedy
+    generation (P, D1 + D2 at GQA group 7)."""
+    biases = [params["layers"][k] for k in ("q_bias", "k_bias", "v_bias")]
+    check(all(bool((x != 0).any()) for x in biases), "Qwen2-7B: non-zero q/k/v biases")
+    return phase_family(torch, cfg, params, 8, QWEN2_B, QWEN2_PROMPT, QWEN2_NEW, kernels,
+                        path_counts, "Qwen2-7B")[2]
+
+
+def window_rows(torch, ops, gen):
+    """The kernel row of B2 at Mistral-7B's greedy prefill (B 2, S 5120,
+    W 4096; library_ms: SDPA with the causal window as a boolean mask, GQA
+    expanded), and the `window` entries of the D1, B4, B5, B6, B7, B8 and
+    B9 rows: each kernel with W 4096 at a Mistral-7B shape past the window
+    (library_ms: one SDPA call with the window in the boolean mask over a
+    contiguous, dequantized bf16 copy where the kernel reads pages or
+    quantized values; the copy is not timed). Bounds count the keys the
+    window leaves visible."""
+    from flash_attention_cute_tpu_torch import dispatch
+    from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms
+
+    flash_fwd, flash_decode = ops["flash_fwd"], ops["flash_decode"]
+    flash_chunked = ops["flash_chunked"]
+    pa, qz = ops["paged_attention"], ops["quantized"]
+    f = torch.nn.functional
+    hq, hkv, d, w = 32, 8, 128, WINDOW
+    rep = hq // hkv
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def measure(fn, plain, library, ops_, nbytes, peak, shape, iters=20, plain_iters=5):
+        return {"shape": shape, "ms": cuda_time_ms(fn, iters), "call_ms": call_time_ms(fn, iters),
+                "plain_ms": cuda_time_ms(plain, plain_iters),
+                "library_ms": None if library is None else cuda_time_ms(library, iters),
+                "ops": ops_, "bytes": nbytes, "peak": peak}
+
+    def visible_pairs(offsets, s):
+        """(query, key) pairs a causal window leaves visible, summed over
+        the batch rows (one offset each): the query at global position p
+        sees min(p + 1, W) keys."""
+        return sum(min(o + r + 1, w) for o in offsets for r in range(s))
+
+    def extend_mask(off, s, cols):
+        pos = off[:, None, None] + torch.arange(s, device="cuda")[None, :, None]
+        return ((cols <= pos) & (cols > pos - w))[:, None]
+
+    # B2 at the Mistral greedy prefill.
+    b, s = MISTRAL_B, MISTRAL_PROMPT
+    q, k, v = randn(b, hq, s, d), randn(b, hkv, s, d), randn(b, hkv, s, d)
+    kr, vr = (x.repeat_interleave(rep, dim=1) for x in (k, v))
+    i = torch.arange(s, device="cuda")
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+    b2 = measure(lambda: flash_fwd.flash_attention_fwd(q, k, v, causal=True, window=w),
+                 lambda: flash_fwd.flash_attention_fwd_plain(q, k, v, causal=True, window=w),
+                 lambda: f.scaled_dot_product_attention(q, kr, vr, attn_mask=mask),
+                 4 * hq * d * visible_pairs([0] * b, s), 2 * (2 * q.numel() + 2 * k.numel()),
+                 PEAK_BF16, f"B {b}, S {s}, window {w}, Hq {hq}, Hkv {hkv}; library_ms: SDPA with "
+                 "the causal window as a boolean mask, GQA expanded", iters=10, plain_iters=3)
+    rows = {"flash_fwd_window": {
+        "name": "flash_fwd_window", "route": "cuda",
+        "source": "flash_attention_cute_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "flash_attention_cute_tpu/ops/flash_fwd.py:269", **b2}}
+    del q, k, v, kr, vr, mask
+    torch.cuda.empty_cache()
+
+    # D1 and B7 at the Mistral greedy middle decode step (5136 keys, W 4096).
+    b, cap, live = MISTRAL_B, MISTRAL_CAPACITY, MISTRAL_PROMPT + MISTRAL_NEW // 2
+    lengths = torch.full((b,), live, dtype=torch.int32, device="cuda")
+    splits = dispatch.decode_num_splits(b, hkv, cap)
+    q = randn(b, hq, 1, d)
+    kc, vc = randn(b, hkv, cap, d), randn(b, hkv, cap, d)
+    part_bytes = 4 * b * hkv * splits * rep * (d + 2)
+    shape = f"B {b}, cache {cap}, lengths {live}, window {w}, splits {splits}"
+    rows["decode_partials"] = measure(
+        lambda: flash_decode.decode_partials(q, kc, vc, lengths, d ** -0.5, splits, w),
+        lambda: flash_decode.decode_partials_plain(q, kc, vc, lengths, d ** -0.5, splits, w),
+        None, 4 * b * hq * w * d, 2 * q.numel() + 2 * 2 * b * hkv * w * d + 4 * b + part_bytes,
+        PEAK_F32, shape, 50, 10)
+    k8, v8 = (qz.quantize_kv(x, torch.int8) for x in (kc, vc))
+    pos = torch.arange(cap, device="cuda")
+    dmask = ((pos < live) & (pos >= live - w))[None, None, None, :]
+    kd, vd = (qz.dequantize_kv(x, torch.bfloat16).repeat_interleave(rep, dim=1) for x in (k8, v8))
+    rows["quant_decode"] = measure(
+        lambda: qz.flash_attention_decode_quantized(q, k8, v8, lengths, window=w),
+        lambda: qz.flash_attention_decode_quantized_plain(q, k8, v8, lengths, window=w),
+        lambda: f.scaled_dot_product_attention(q, kd, vd, attn_mask=dmask),
+        4 * b * hq * w * d, 2 * q.numel() + 2 * b * hkv * w * (d + 4) + 4 * b + part_bytes
+        + 2 * q.numel(), PEAK_F32, shape + ", int8; ms includes D2", 50, 10)
+    del kc, vc, k8, v8, kd, vd
+
+    # B4: a 256-token chunk at q_offset 4608 / 4864 (every query past W).
+    offs, s, cap = [4608, 4864], 256, MISTRAL_CAPACITY
+    q, k, v, off, kvl = chunked_inputs(torch, gen, torch.bfloat16, s, cap, offs, None, d)
+    kr, vr = (x.nan_to_num().repeat_interleave(rep, dim=1) for x in (k, v))
+    cols = torch.arange(cap, device="cuda")[None, None, :]
+    rows["flash_chunked"] = measure(
+        lambda: flash_chunked.flash_attention_chunked(q, k, v, off, kvl, window=w),
+        lambda: flash_chunked.flash_attention_chunked_plain(q, k, v, off, kvl, window=w),
+        lambda: f.scaled_dot_product_attention(q, kr, vr, attn_mask=extend_mask(off, s, cols)),
+        4 * hq * d * visible_pairs(offs, s),
+        2 * 2 * q.numel() + 2 * 2 * hkv * d * len(offs) * (w + s - 1) + 2 * 4 * len(offs),
+        PEAK_BF16, f"B {len(offs)}, S {s}, capacity {cap}, q_offset {offs}, window {w}", 20, 3)
+    del q, k, v, kr, vr
+
+    # B5 / B8 at run M1's decode (4 slots, page_size 128), B6 / B9 at run
+    # M2's extend (4 rows of 512, page_size 16).
+    reqs = mistral_requests(32000)  # Mistral-7B's vocabulary
+    lens_list = [len(p) + 24 for _, p, _ in reqs[:4]]
+    lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+    b, ps, pps = 4, 128, 40
+    kp, vp, table = paged_pool(torch, randn, gen, ps, rows=b, capacity=pps * ps, layers=1)
+    kp, vp = kp[0], vp[0]
+    q = randn(b, hq, 1, d)
+    splits = dispatch.decode_num_splits(b, hkv, pps * ps)
+    part_bytes = 4 * b * hkv * splits * rep * (d + 2)
+    pos = torch.arange(pps * ps, device="cuda")[None, :]
+    pmask = ((pos < lens[:, None]) & (pos >= lens[:, None] - w))[:, None, None, :]
+    kc, vc = (pa.gather_pages(x, table).repeat_interleave(rep, dim=1) for x in (kp, vp))
+    tables = 4 * (b + sum(-(-min(n, w) // ps) + 1 for n in lens_list))
+    shape = f"B {b}, page_size {ps}, lengths {lens_list}, window {w}, splits {splits}"
+    rows["paged_decode"] = measure(
+        lambda: pa.paged_attention_decode(q, kp, vp, lens, table, window=w),
+        lambda: pa.paged_attention_decode_plain(q, kp, vp, lens, table, window=w),
+        lambda: f.scaled_dot_product_attention(q, kc, vc, attn_mask=pmask),
+        4 * b * hq * w * d, 2 * q.numel() + 2 * 2 * b * hkv * w * d + tables + part_bytes
+        + 2 * q.numel(), PEAK_F32, shape + "; ms includes D2", 50, 10)
+    k8, v8, table8 = quant_pool(torch, qz, randn, gen, ps, b, torch.int8, capacity=pps * ps)
+    kd, vd = (qz._gather_dequantized(x, table8).to(torch.bfloat16).repeat_interleave(rep, dim=1)
+              for x in (k8, v8))
+    rows["quant_paged_decode"] = measure(
+        lambda: qz.paged_attention_decode_quantized(q, k8, v8, lens, table8, window=w),
+        lambda: qz.paged_attention_decode_quantized_plain(q, k8, v8, lens, table8, window=w),
+        lambda: f.scaled_dot_product_attention(q, kd, vd, attn_mask=pmask),
+        4 * b * hq * w * d, 2 * q.numel() + 2 * b * hkv * w * (d + 4) + tables + part_bytes
+        + 2 * q.numel(), PEAK_F32, shape + ", int8; ms includes D2", 50, 10)
+    del kp, vp, kc, vc, k8, v8, kd, vd
+
+    b, ps, pps, s = 4, 16, 320, 512
+    offs = [3584, 4096, 4096, 4608]
+    off = torch.tensor(offs, dtype=torch.int32, device="cuda")
+    kvl = off + s
+    q = randn(b, s, hq, d).transpose(1, 2)
+    cols = torch.arange(pps * ps, device="cuda")[None, None, :]
+    emask = extend_mask(off, s, cols) & (cols < kvl[:, None, None])[:, None]
+    ops_ = 4 * hq * d * visible_pairs(offs, s)
+    live = sum(min(o + s, w + s - 1) for o in offs)  # keys some query of the chunk sees
+    tables = 4 * (2 * b + sum(-(-min(o + s, w + s) // ps) + 1 for o in offs))
+    shape = f"B {b}, S {s}, page_size {ps}, q_offset {offs}, window {w}"
+    kp, vp, table = paged_pool(torch, randn, gen, ps, rows=b, capacity=pps * ps, layers=1)
+    kp, vp = kp[0], vp[0]
+    kc, vc = (pa.gather_pages(x, table).repeat_interleave(rep, dim=1) for x in (kp, vp))
+    rows["paged_extend"] = measure(
+        lambda: pa.paged_attention_extend(q, kp, vp, off, kvl, table, window=w),
+        lambda: pa.paged_attention_extend_plain(q, kp, vp, off, kvl, table, window=w),
+        lambda: f.scaled_dot_product_attention(q, kc, vc, attn_mask=emask),
+        ops_, 2 * 2 * q.numel() + 2 * 2 * hkv * d * live + tables, PEAK_BF16, shape, 20, 3)
+    del kp, vp, kc, vc
+    k8, v8, table8 = quant_pool(torch, qz, randn, gen, ps, b, torch.float8_e4m3fn,
+                                capacity=pps * ps)
+    kd, vd = (qz._gather_dequantized(x, table8).to(torch.bfloat16).repeat_interleave(rep, dim=1)
+              for x in (k8, v8))
+    rows["quant_paged_extend"] = measure(
+        lambda: qz.paged_attention_extend_quantized(q, k8, v8, off, kvl, table8, window=w),
+        lambda: qz.paged_attention_extend_quantized_plain(q, k8, v8, off, kvl, table8, window=w),
+        lambda: f.scaled_dot_product_attention(q, kd, vd, attn_mask=emask),
+        ops_, 2 * 2 * q.numel() + 2 * hkv * live * (d + 4) + tables, PEAK_BF16,
+        shape + ", e4m3", 20, 3)
+    del k8, v8, kd, vd
+    torch.cuda.empty_cache()
+    for name, r in rows.items():
+        r.update(bound(r.pop("ops"), r.pop("bytes"), r.pop("peak")))
+    return rows
+
+
 def bound(ops, nbytes, peak) -> dict:
     """The least time the card could take: operations at `peak` or bytes at
     the memory rate, whichever is longer."""
@@ -1652,7 +2210,7 @@ def profile_decode(torch, params, cfg, cache, tok, steps=4):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--layers", type=int, default=0,
-                        help="cut the model's depth to this many layers (0 = full)")
+                        help="cut every model's depth to this many layers (0 = full)")
     args = parser.parse_args()
     if not os.path.isdir(os.path.join(HERE, "flash_attention_cute_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -1706,6 +2264,12 @@ def main() -> int:
     phase_qmm_kernels(torch, quantized_matmul, errs)
     print("[3d] contiguous extend B4 vs plain (bf16 / f16, NaN past every kv_length)")
     phase_chunked_kernels(torch, flash_chunked, errs)
+    from flash_attention_cute_tpu_torch import dispatch
+
+    ops = {"flash_fwd": flash_fwd, "flash_decode": flash_decode, "flash_chunked": flash_chunked,
+           "paged_attention": paged_attention, "quantized": quantized, "dispatch": dispatch}
+    print("[3e] sliding windows: B2, and D1, B4, B5-B9 windowed, vs plain (NaN tails)")
+    phase_window_kernels(torch, ops, errs)
     torch.cuda.synchronize()
 
     # 4. main paths
@@ -1722,7 +2286,8 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"[4] main paths: Llama-3-8B widths, {cfg.num_layers} layers, random weights "
           f"({time.perf_counter() - t0:.1f} s to draw)")
-    kernels = {"flash_fwd": flash_fwd.PREFILL, "decode_partials": flash_decode.PARTIALS,
+    kernels = {"flash_fwd": flash_fwd.PREFILL, "flash_fwd_window": flash_fwd.WINDOWED_PREFILL,
+               "decode_partials": flash_decode.PARTIALS,
                "decode_combine": flash_decode.COMBINE, "flash_chunked": flash_chunked.CHUNKED,
                "paged_decode": paged_attention.PAGED_DECODE,
                "paged_extend": paged_attention.PAGED_EXTEND, "paged_append": paged_cache.APPEND,
@@ -1750,6 +2315,39 @@ def main() -> int:
     print("[4e] extend mode and speculative generation (B4)")
     phase_extend_logits(torch, cfg, params, ids, bf16_tokens, kernels)
     speculative = phase_speculative(torch, cfg, params, ids, kernels, path_counts, greedy_wall)
+
+    # 5. numbers of the Llama paths, then its tree is dropped.
+    print("[5] numbers (CUDA events for kernels, host clock + synchronise for phases)")
+    rows, numbers, profile = phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode)
+    numbers.update(int8_numbers)
+    numbers.update(weight_numbers)
+    del params
+    torch.cuda.empty_cache()
+
+    # 4f / 4g. Mistral-7B and Qwen2-7B, one tree at a time.
+    from flash_attention_cute_tpu_torch.models.mistral import mistral_7b_config
+    from flash_attention_cute_tpu_torch.models.qwen2 import qwen2_7b_config
+
+    families = {}
+    for step, name, make, phase, seed in (("4f", "Mistral-7B", mistral_7b_config, phase_mistral, 1),
+                                          ("4g", "Qwen2-7B", qwen2_7b_config, phase_qwen2, 2)):
+        fcfg = make()
+        if args.layers:
+            fcfg = dataclasses.replace(fcfg, num_layers=args.layers)
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        fparams = init_params(fcfg, generator=torch.Generator(device="cuda").manual_seed(seed))
+        torch.cuda.synchronize()
+        print(f"[{step}] {name}: hidden {fcfg.hidden_size}, {fcfg.num_q_heads} / "
+              f"{fcfg.num_kv_heads} heads, {fcfg.num_layers} layers, window "
+              f"{fcfg.sliding_window if fcfg.use_sliding_window else None}, QKV bias "
+              f"{fcfg.attention_bias}, random weights ({time.perf_counter() - t0:.1f} s to draw)")
+        families[name] = phase(torch, fcfg, fparams, kernels, path_counts)
+        families[name]["weights_gb"] = tree_bytes(fparams) / 1e9
+        families[name]["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del fparams
+        torch.cuda.empty_cache()
+
     for name in kernels:
         check(sum(c[name] for c in path_counts.values()) > 0,
               f"{name} launched on a main path")
@@ -1758,21 +2356,24 @@ def main() -> int:
           + " (after D1 over a bf16 cache, B7 over an int8 cache, B5 over bf16 pages, B8 "
           "over quantized pages)")
 
-    # 5. numbers
-    print("[5] numbers (CUDA events for kernels, host clock + synchronise for phases)")
-    rows, numbers, profile = phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode,
-                                           errs, path_counts)
-    numbers.update(int8_numbers)
-    numbers.update(weight_numbers)
+    print("[5b] numbers of the windowed kernels (Mistral-7B shapes, window 4096)")
+    windowed = window_rows(torch, ops, torch.Generator(device="cuda").manual_seed(77))
+    at = next(i for i, r in enumerate(rows) if r["name"] == "flash_fwd") + 1
+    rows.insert(at, windowed.pop("flash_fwd_window"))
+    for r in rows:
+        if r["name"] in windowed:
+            r["window"] = windowed[r["name"]]
     # Peak over the whole script: serving reset the counter before each run.
     numbers["max_memory_allocated_gb"] = max(
         [numbers["max_memory_allocated_gb"], serving.pop("peak_before_serving_gb")]
-        + [r["peak_memory_gb"] for r in serving.values()])
+        + [r["peak_memory_gb"] for r in serving.values()]
+        + [f["peak_memory_gb"] for f in families.values()])
     print(json.dumps(profile))
     print(json.dumps(numbers))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"speculative": speculative}))
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"families": families}))
+    print(json.dumps({"kernels": kernel_entries(rows, errs, path_counts)}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

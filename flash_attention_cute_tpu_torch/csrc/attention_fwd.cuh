@@ -1,11 +1,14 @@
-// Tiled attention forward for many query rows, shared by kernel P (prefill
-// over contiguous K/V, flash_fwd.cu), kernel B4 (chunked extend over a
-// contiguous cache, flash_chunked.cu), kernel B6 (chunked prefill over a
-// paged cache, paged_attention.cu) and kernel B9 (B6 over a quantized paged
-// cache, quantized.cu): O = softmax(Q K^T * scale + mask) V.
+// Tiled attention forward for many query rows, shared by kernels P and B2
+// (prefill over contiguous K/V, without and with a sliding window,
+// flash_fwd.cu), kernel B4 (chunked extend over a contiguous cache,
+// flash_chunked.cu), kernel B6 (chunked prefill over a paged cache,
+// paged_attention.cu) and kernel B9 (B6 over a quantized paged cache,
+// quantized.cu): O = softmax(Q K^T * scale + mask) V.
 //
-// Key n is visible from query row m iff n < skv and, when causal,
-// n <= m + offset. An instantiation makes two independent choices:
+// Key n is visible from query row m iff n < skv, when causal
+// n <= m + offset, and with a sliding window W (a runtime argument, 0 for
+// none) n > m + offset - W, i.e. the W keys ending at the row's own global
+// position. An instantiation makes two independent choices:
 //   * kRowOffsets: where offset and skv come from. P takes them from the
 //     shapes (offset = Skv - Sq, bottom-right alignment; skv = Skv); B4, B6
 //     and B9 read offset = q_offset[b] and skv = kv_length[b], clamped to
@@ -27,9 +30,13 @@
 // the A operand of PV (the accumulator layout of m16n8k16 is its A layout),
 // so scores never touch shared memory. KV tiles past the causal diagonal
 // are skipped (a tile walk stops at min(skv, last row + offset + 1)), and
-// only tiles that straddle it or the ragged end are masked. Rows at or past
-// skv load as zeros and are never read. Blocks with the longest causal rows
-// are launched first. Quantized K/V (B9): int8 / e4m3 values are staged
+// with a window so are the tiles wholly below it (the walk starts at the
+// tile holding the block's first visible key, m0 + offset - W + 1), so a
+// windowed block does O(64 * W) work, not O(64 * Skv). Only tiles that
+// straddle the diagonal, the window's lower edge or the ragged end are
+// masked. Rows at or past skv, and rows below the block's first visible
+// key, load as zeros and are never read. Blocks with the longest causal
+// rows are launched first. Quantized K/V (B9): int8 / e4m3 values are staged
 // into the same shared tiles widened to T (exact), beside the tile's 64 K
 // and 64 V scales; each score column is multiplied by its K scale, and P by
 // its V scale before P is rounded to T for the PV product (the TPU kernel's
@@ -53,6 +60,7 @@ struct FwdParams {
   int hq, group, sq, skv;  // skv: P's key count, B4's capacity C
   float scale_log2;  // softmax_scale * log2(e): softmax runs in base 2
   int causal;
+  int window;  // sliding window W > 0, or 0 for none
   const int* q_offset;    // B4, B6: [B] int32 global position of q row 0
   const int* kv_length;   // B4, B6: [B] int32 keys visible to the chunk (0 = inactive)
   const int* page_table;  // paged: [B, pps] int32
@@ -154,16 +162,17 @@ __global__ void __launch_bounds__(kFwdThreads) attention_fwd_kernel(const FwdArg
 
   int n_end = skv;
   if (p.causal) n_end = min(n_end, m0 + kBlockM + offset);  // skip tiles past the diagonal
-  const int n_tiles = n_end > 0 ? (n_end + kBlockN - 1) / kBlockN : 0;
+  // The block's first visible key: row m0's window start (none below it).
+  const int n_lo = p.window > 0 ? max(0, m0 + offset - p.window + 1) : 0;
+  const int n_begin = n_lo / kBlockN * kBlockN;  // skip tiles wholly below the window
 
-  for (int j = 0; j < n_tiles; ++j) {
-    const int n0 = j * kBlockN;
+  for (int n0 = n_begin; n0 < n_end; n0 += kBlockN) {
     __syncthreads();  // every warp is done with the previous tile
     for (int c = tid; c < kBlockN * kChunks; c += kFwdThreads) {
       const int r = c / kChunks, col = (c % kChunks) * 8;
       const int n = n0 + r;
-      uint4 kv = zero, vv = zero;  // rows past skv load as zeros, never garbage
-      if (n < skv) {
+      uint4 kv = zero, vv = zero;  // rows no query of the block sees load as zeros
+      if (n >= n_lo && n < skv) {
         int64_t krow, vrow;
         if constexpr (kPaged) {
           const int64_t page = p.page_table[static_cast<int64_t>(b) * p.pps + n / p.page_size];
@@ -183,12 +192,12 @@ __global__ void __launch_bounds__(kFwdThreads) attention_fwd_kernel(const FwdArg
       for (int e = 0; e < 8; ++e) sVt[(col + e) * kVtRow + r] = ve[e];
     }
     if constexpr (kQuant) {
-      // Scales of live keys only (a scale past kv_length may be NaN);
-      // 0 elsewhere, where the scores are masked and P is 0.
+      // Scales of keys the block may see only (a scale past kv_length may
+      // be NaN); 0 elsewhere, where the scores are masked and P is 0.
       for (int r = tid; r < kBlockN; r += kFwdThreads) {
         const int n = n0 + r;
         float ks = 0.f, vs = 0.f;
-        if (n < skv) {
+        if (n >= n_lo && n < skv) {
           const int64_t page = p.page_table[static_cast<int64_t>(b) * p.pps + n / p.page_size];
           const int in_page = n % p.page_size;
           ks = p.k_scale[hk * p.ks_sh + page * p.ks_sp + in_page];
@@ -215,9 +224,10 @@ __global__ void __launch_bounds__(kFwdThreads) attention_fwd_kernel(const FwdArg
       }
     }
 
-    // Only tiles straddling the ragged end or the diagonal need the mask.
-    const bool edge =
-        n0 + kBlockN > skv || (p.causal && n0 + kBlockN - 1 > m0 + offset);
+    // Only tiles straddling the ragged end, the diagonal or the lower
+    // window edge of the block's last row need the mask.
+    const bool edge = n0 + kBlockN > skv || (p.causal && n0 + kBlockN - 1 > m0 + offset) ||
+                      (p.window > 0 && n0 <= m0 + kBlockM - 1 + offset - p.window);
 #pragma unroll
     for (int nt = 0; nt < kBlockN / 8; ++nt) {
 #pragma unroll
@@ -227,7 +237,9 @@ __global__ void __launch_bounds__(kFwdThreads) attention_fwd_kernel(const FwdArg
         if (edge) {
           const int col = n0 + nt * 8 + 2 * t + (i & 1);
           const int row = i < 2 ? row0 : row1;
-          if (col >= skv || (p.causal && col > row + offset)) x = -INFINITY;
+          if (col >= skv || (p.causal && col > row + offset) ||
+              (p.window > 0 && col <= row + offset - p.window))
+            x = -INFINITY;
         }
         s[nt][i] = x;
       }
@@ -243,8 +255,9 @@ __global__ void __launch_bounds__(kFwdThreads) attention_fwd_kernel(const FwdArg
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       const float m_new = fmaxf(row_max[r], mx);
-      // A row with no visible key yet keeps max -inf; referencing it to 0
-      // makes exp2(-inf - ref) exactly 0 and never -inf - -inf = NaN.
+      // A row with no visible key yet keeps max -inf (as a windowed row
+      // does in the tiles below its window); referencing it to 0 makes
+      // exp2(-inf - ref) exactly 0 and never -inf - -inf = NaN.
       m_use[r] = m_new == -INFINITY ? 0.f : m_new;
       alpha[r] = exp2f(row_max[r] - m_use[r]);
       row_max[r] = m_new;

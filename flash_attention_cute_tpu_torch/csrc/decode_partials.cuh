@@ -11,13 +11,17 @@
 // bytes (a quantized cache halves them: 1-byte values plus 4 bytes of scale
 // per row and head). Design: one block of 128 threads per (split, kv head,
 // batch row) carries the whole GQA group of G query rows, so each K/V row
-// is read once per group. D / 8 threads share a key row and each loads 8
+// is read once per group. With a sliding window W > 0 the single query at
+// position len - 1 sees keys [max(0, len - W), len): the visible range
+// replaces [0, len) below, so keys under the window are never loaded (nor
+// their scales). D / 8 threads share a key row and each loads 8
 // elements of it (16 bytes of bf16, 8 of int8 / e4m3), so a warp reads
 // whole rows; one thread of the row loads its two scales. A block reads its
 // own length (and, paged, its page-table entries) from device memory; the
 // grid is sized from the split count, never from the live lengths (no host
-// sync per step), and splits that start past the length write m = -inf,
-// l = 0, acc = 0 and exit. Rows and scales at or past the length are never
+// sync per step), and splits with no visible key (past the length or,
+// contiguous, wholly below the window) write m = -inf, l = 0, acc = 0 and
+// exit. Rows and scales at or past the length are never
 // loaded, so a cache tail of uninitialised memory (even NaN) cannot leak in.
 // Scores are kept in base 2 (scale * log2(e) folded in), as in the prefill
 // kernel. Not yet done (later work): cp.async/TMA prefetch of the next
@@ -44,6 +48,7 @@ struct DecodeParams {
   int chunk;             // contiguous: keys per split (paged: from each length)
   int pps, page_size;    // paged only
   float scale_log2;
+  int window;            // sliding window W > 0, or 0 for none
 };
 
 // Extra arguments of the quantized instantiations (B7, B8): the scales lie
@@ -95,11 +100,20 @@ __global__ void __launch_bounds__(kDecodeThreads) decode_partials_kernel(const D
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
   const int len = min(max(p.lengths[b], 0), p.capacity);
-  // Paged splits cut each row's own live length, so every split of a long
-  // row has work whatever the pool's capacity.
-  const int chunk = kPaged ? (len + p.num_splits - 1) / p.num_splits : p.chunk;
-  const int start = split * chunk;
-  const int end = min(start + chunk, len);
+  const int lo = p.window > 0 ? max(0, len - p.window) : 0;  // first visible key
+  // Contiguous splits are fixed `chunk`-key ranges of the capacity, cut to
+  // the visible range [lo, len). Paged splits cut each row's own visible
+  // range, so every split of a long row has work whatever the pool's
+  // capacity and the window.
+  int start, end;
+  if constexpr (kPaged) {
+    const int chunk = (len - lo + p.num_splits - 1) / p.num_splits;
+    start = lo + split * chunk;
+    end = min(start + chunk, len);
+  } else {
+    start = max(split * p.chunk, lo);
+    end = min((split + 1) * p.chunk, len);
+  }
   if (start >= end) {  // dead split: contributes weight 0 in the combine
     for (int i = tid; i < G * D; i += kDecodeThreads) acc_out[i] = 0.f;
     if (tid < G) {

@@ -1,7 +1,8 @@
 // Chunked extend over a contiguous KV cache (kernel B4): the chunk's S query
 // rows sit at global positions q_offset[b] + r and attend cache keys
-// `col <= q_offset[b] + r` (when causal) and `col < min(kv_length[b], C)`;
-// a row with no visible key, and a batch row of kv_length 0, is exact zeros.
+// `col <= q_offset[b] + r` (when causal), `col < min(kv_length[b], C)` and,
+// with a sliding window W > 0, `col > q_offset[b] + r - W`; a row with no
+// visible key, and a batch row of kv_length 0, is exact zeros.
 //
 // Replaces the TPU kernel flash_attention_cute_tpu/ops/flash_chunked.py
 // `_flash_chunked_kernel` (:47, pallas_call at :372). It computes what that
@@ -18,8 +19,8 @@
 // per-row device offsets over contiguous rows. It reads q/k/v through their
 // strides, so the model's transposed views need no copy; cache rows at or
 // past a row's length (uninitialised memory, possibly NaN) are never read.
-// Window, soft cap and the (o, m, l) partials are not in this kernel: the
-// wrapper (ops/flash_chunked.py) raises on them.
+// Soft cap and the (o, m, l) partials are not in this kernel: the wrapper
+// (ops/flash_chunked.py) raises on them.
 #include "attention_fwd.cuh"
 
 // Returns a cudaError_t code (0 on success). Shapes, strides and dtypes are
@@ -30,7 +31,8 @@ extern "C" int fact_flash_chunked(const void* q, const void* k, const void* v, v
                                   long long q_sb, long long q_sh, long long q_ss,
                                   long long k_sb, long long k_sh, long long k_ss,
                                   long long v_sb, long long v_sh, long long v_ss,
-                                  float scale_log2, int causal, int dtype, void* stream) {
+                                  float scale_log2, int causal, int window, int dtype,
+                                  void* stream) {
   using namespace fact;
   FwdParams p{};
   p.q = q, p.k = k, p.v = v, p.o = o;
@@ -40,6 +42,7 @@ extern "C" int fact_flash_chunked(const void* q, const void* k, const void* v, v
   p.hq = hq, p.group = hq / hkv, p.sq = sq, p.skv = capacity;
   p.scale_log2 = scale_log2;
   p.causal = causal;
+  p.window = window;
   p.q_offset = static_cast<const int*>(q_offset);
   p.kv_length = static_cast<const int*>(kv_length);
   return dispatch_attention_fwd<true, false>(p, batch, d, dtype, static_cast<cudaStream_t>(stream));

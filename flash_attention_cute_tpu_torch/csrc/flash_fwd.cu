@@ -1,14 +1,26 @@
-// Prefill attention forward (kernel P): O = softmax(Q K^T * scale + mask) V.
+// Prefill attention forward: O = softmax(Q K^T * scale + mask) V, with
+// bottom-right causal masking (key n visible from query m iff
+// n <= m + (Skv - Sq)) or no mask, and an optional sliding window W (key n
+// also needs n > m + (Skv - Sq) - W).
 //
-// Replaces the TPU kernel flash_attention_cute_tpu/ops/flash_fwd.py
-// `_flash_fwd_kernel_diag` (pallas_call at :1039). It computes what that
-// kernel computes, not its block structure: bottom-right causal masking
-// (key n visible from query m iff n <= m + (Skv - Sq)), or no mask.
+// One launch function serves two kernels of the TPU package, counted apart
+// by the wrapper (ops/flash_fwd.py):
+//   * P (window 0) replaces flash_attention_cute_tpu/ops/flash_fwd.py
+//     `_flash_fwd_kernel_diag` (pallas_call at :1039);
+//   * B2 (a window that binds, W < Skv) replaces `_flash_fwd_kernel_fused`
+//     (:269) and its per-head fallback `_flash_fwd_kernel` (:102), both
+//     behind the pallas_call at :1260, for their windowed geometry. Their
+//     soft cap, head dims outside {64, 128}, lse output and int8 scores are
+//     not in this kernel: the wrapper raises on them.
+// They compute what those kernels compute, not their block structure: the
+// TPU kernels pack a q-head group per grid cell and skip KV blocks wholly
+// below every row's window in the grid; here each block walks its own tile
+// range, from the tile holding its first visible key to the causal end.
 //
 // The kernel body (attention_fwd.cuh, which holds the note on what bounds
-// it on the H100 and its design) is shared with the paged extend kernel B6;
-// here it reads contiguous K/V through their strides, so the model's
-// transposed q/k/v views need no copy.
+// it on the H100 and its design) is shared with B4, B6 and B9; here it
+// reads contiguous K/V through their strides, so the model's transposed
+// q/k/v views need no copy.
 #include "attention_fwd.cuh"
 
 // Returns a cudaError_t code (0 on success). Shapes and strides are checked
@@ -18,7 +30,8 @@ extern "C" int fact_flash_fwd(const void* q, const void* k, const void* v, void*
                               long long q_sb, long long q_sh, long long q_ss,
                               long long k_sb, long long k_sh, long long k_ss,
                               long long v_sb, long long v_sh, long long v_ss,
-                              float scale_log2, int causal, int dtype, void* stream) {
+                              float scale_log2, int causal, int window, int dtype,
+                              void* stream) {
   using namespace fact;
   FwdParams p{};
   p.q = q, p.k = k, p.v = v, p.o = o;
@@ -28,5 +41,6 @@ extern "C" int fact_flash_fwd(const void* q, const void* k, const void* v, void*
   p.hq = hq, p.group = hq / hkv, p.sq = sq, p.skv = skv;
   p.scale_log2 = scale_log2;
   p.causal = causal;
+  p.window = window;
   return dispatch_attention_fwd<false, false>(p, batch, d, dtype, static_cast<cudaStream_t>(stream));
 }

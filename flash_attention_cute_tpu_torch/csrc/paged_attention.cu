@@ -5,10 +5,13 @@
 //     (:85, pallas_call at :341). Split-KV decode partials whose key rows
 //     are addressed through the page table; the splits are merged by D2
 //     (flash_decode.cu), whose partials layout [B, Hkv, S, G, D] is the same.
+//     With a sliding window W the splits cut the visible range
+//     [max(0, length - W), length).
 //   * B6, paged extend: replaces `_paged_extend_kernel` (:391, pallas_call at
 //     :742). Chunked prefill: the chunk's S query rows sit at global
 //     positions q_offset[b] + r and attend keys `col <= q_offset + r`,
-//     `col < kv_length[b]`; kv_length 0 marks an inactive row (exact zeros).
+//     `col < kv_length[b]` and, with a window, `col > q_offset + r - W`;
+//     kv_length 0 marks an inactive row (exact zeros).
 //   * paged append: replaces the XLA scatter / per-row dynamic_update_slice
 //     of flash_attention_cute_tpu/runtime/paged_cache.py `paged_append_layer`
 //     (:130). Writes S new K/V rows per batch row at positions lengths[b] + s
@@ -78,7 +81,7 @@ extern "C" int fact_paged_decode_partials(
     int pps, int page_size, long long q_sb, long long q_sh,
     long long k_sh, long long k_sp, long long k_ss,
     long long v_sh, long long v_sp, long long v_ss,
-    float scale_log2, int dtype, void* stream) {
+    float scale_log2, int window, int dtype, void* stream) {
   using namespace fact;
   DecodeParams p{};
   p.q = q, p.k = k, p.v = v;
@@ -94,6 +97,7 @@ extern "C" int fact_paged_decode_partials(
   p.num_splits = num_splits;
   p.pps = pps, p.page_size = page_size;
   p.scale_log2 = scale_log2;
+  p.window = window;
   return dispatch_partials<true>(p, batch, d, dtype, static_cast<cudaStream_t>(stream));
 }
 
@@ -103,7 +107,7 @@ extern "C" int fact_paged_extend(
     int pps, int page_size, long long q_sb, long long q_sh, long long q_ss,
     long long k_sh, long long k_sp, long long k_ss,
     long long v_sh, long long v_sp, long long v_ss,
-    float scale_log2, int dtype, void* stream) {
+    float scale_log2, int window, int dtype, void* stream) {
   using namespace fact;
   FwdParams p{};
   p.q = q, p.k = k, p.v = v, p.o = o;
@@ -113,6 +117,7 @@ extern "C" int fact_paged_extend(
   p.hq = hq, p.group = hq / hkv, p.sq = sq;
   p.scale_log2 = scale_log2;
   p.causal = 1;
+  p.window = window;
   p.q_offset = static_cast<const int*>(q_offset);
   p.kv_length = static_cast<const int*>(kv_length);
   p.page_table = static_cast<const int*>(page_table);

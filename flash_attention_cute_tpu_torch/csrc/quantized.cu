@@ -14,6 +14,9 @@
 //     (:717, pallas_call at :1076). B6's chunked prefill (top-left
 //     causality `col <= q_offset + r`, `col < kv_length`, kv_length 0 gives
 //     an exact zero row) over quantized pages.
+//   All three take B2's sliding window (0 for none): B7 / B8 as D1 / B5
+//   (keys n >= length - W; the scales of visible keys only are loaded), B9
+//   as B6 (`col > q_offset + r - W`).
 //   * QA, quantize-and-append (not a TPU kernel): replaces the XLA
 //     `quantize_kv` + scatter / dynamic_update_slice of
 //     flash_attention_cute_tpu/runtime/paged_cache.py
@@ -140,7 +143,7 @@ extern "C" int fact_quant_decode_partials(
     int capacity, int d, int num_splits, int chunk, long long q_sb, long long q_sh,
     long long k_sb, long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, long long ks_sb, long long ks_sh, long long vs_sb, long long vs_sh,
-    float scale_log2, int dtype, int kv_dtype, void* stream) {
+    float scale_log2, int window, int dtype, int kv_dtype, void* stream) {
   using namespace fact;
   QuantDecodeParams p{};
   p.q = q, p.k = k, p.v = v;
@@ -154,6 +157,7 @@ extern "C" int fact_quant_decode_partials(
   p.hkv = hkv, p.group = group, p.capacity = capacity;
   p.num_splits = num_splits, p.chunk = chunk;
   p.scale_log2 = scale_log2;
+  p.window = window;
   p.scales.k = static_cast<const float*>(k_scale);
   p.scales.v = static_cast<const float*>(v_scale);
   p.scales.k_sb = ks_sb, p.scales.k_sh = ks_sh;
@@ -168,7 +172,7 @@ extern "C" int fact_quant_paged_decode_partials(
     int hkv, int group, int d, int num_splits, int pps, int page_size, long long q_sb,
     long long q_sh, long long k_sh, long long k_sp, long long k_ss, long long v_sh,
     long long v_sp, long long v_ss, long long ks_sh, long long ks_sp, long long vs_sh,
-    long long vs_sp, float scale_log2, int dtype, int kv_dtype, void* stream) {
+    long long vs_sp, float scale_log2, int window, int dtype, int kv_dtype, void* stream) {
   using namespace fact;
   QuantDecodeParams p{};
   p.q = q, p.k = k, p.v = v;
@@ -184,6 +188,7 @@ extern "C" int fact_quant_paged_decode_partials(
   p.num_splits = num_splits;
   p.pps = pps, p.page_size = page_size;
   p.scale_log2 = scale_log2;
+  p.window = window;
   p.scales.k = static_cast<const float*>(k_scale);
   p.scales.v = static_cast<const float*>(v_scale);
   p.scales.k_sh = ks_sh, p.scales.k_sp = ks_sp;
@@ -198,7 +203,7 @@ extern "C" int fact_quant_paged_extend(
     int hq, int hkv, int sq, int d, int pps, int page_size, long long q_sb, long long q_sh,
     long long q_ss, long long k_sh, long long k_sp, long long k_ss, long long v_sh,
     long long v_sp, long long v_ss, long long ks_sh, long long ks_sp, long long vs_sh,
-    long long vs_sp, float scale_log2, int dtype, int kv_dtype, void* stream) {
+    long long vs_sp, float scale_log2, int window, int dtype, int kv_dtype, void* stream) {
   using namespace fact;
   QuantFwdParams p{};
   p.q = q, p.k = k, p.v = v, p.o = o;
@@ -207,6 +212,7 @@ extern "C" int fact_quant_paged_extend(
   p.v_sh = v_sh, p.v_sp = v_sp, p.v_ss = v_ss;
   p.hq = hq, p.group = hq / hkv, p.sq = sq;
   p.scale_log2 = scale_log2;
+  p.window = window;
   p.causal = 1;
   p.q_offset = static_cast<const int*>(q_offset);
   p.kv_length = static_cast<const int*>(kv_length);

@@ -1,9 +1,9 @@
 """Model configuration (the JAX package's fields, with a torch dtype).
 
-The port runs the Llama architecture. The fields of other families
-(attention bias, sliding windows, soft caps, Gemma2's norms and
-activation) are kept so that configurations carry over unchanged;
-`transformer.forward` raises on the ones this slice does not run.
+The port runs the Llama, Qwen2 and Mistral architectures (QKV bias, sliding
+windows). The fields of Gemma2 (soft caps, its norms and activation, the
+periodic window pattern) are kept so that configurations carry over
+unchanged; `transformer.forward` raises on them.
 """
 
 from __future__ import annotations
@@ -55,6 +55,18 @@ class ModelConfig:
     @property
     def q_per_kv(self) -> int:
         return self.num_q_heads // self.num_kv_heads
+
+    def layer_window(self, li: int) -> int | None:
+        """Layer `li`'s sliding window, or None for full attention: the JAX
+        package's segment rule (HF Qwen2 / Mistral semantics), the window on
+        layers >= max_window_layers when `use_sliding_window` and a window
+        are set."""
+        if self.layer_window_pattern is not None:
+            raise NotImplementedError(
+                "a periodic window pattern (Gemma2) is ROADMAP.md A10b")
+        if self.use_sliding_window and self.sliding_window and li >= self.max_window_layers:
+            return self.sliding_window
+        return None
 
     def __post_init__(self):
         if self.num_q_heads % self.num_kv_heads:

@@ -19,6 +19,7 @@ from flash_attention_cute_tpu_torch.ops.quantized_matmul import QuantizedWeight,
 LAYER_KEYS = {
     "input_ln", "post_ln", "q_proj", "k_proj", "v_proj", "o_proj",
     "gate_proj", "up_proj", "down_proj", "qkv_proj", "gate_up_proj",
+    "q_bias", "k_bias", "v_bias", "qkv_bias",  # Qwen2
 }
 
 
@@ -58,6 +59,6 @@ def params_from_jax(np_params: dict, device="cuda", dtype: torch.dtype | None = 
     unknown = set(np_params["layers"]) - LAYER_KEYS
     if unknown:
         raise NotImplementedError(
-            f"parameters {sorted(unknown)} belong to later slices (ROADMAP.md A10)"
+            f"parameters {sorted(unknown)} belong to later slices (Gemma2, ROADMAP.md A10b)"
         )
     return conv(np_params)

@@ -86,7 +86,7 @@ def mlp(x: torch.Tensor, p: dict, activation: str = "silu") -> torch.Tensor:
     """SwiGLU: down(silu(gate(x)) * up(x)), with gate and up as one product
     for a fused layer (models/fuse.py)."""
     if activation != "silu":
-        raise NotImplementedError(f"activation {activation!r} is ROADMAP.md A10")
+        raise NotImplementedError(f"activation {activation!r} (Gemma2) is ROADMAP.md A10b")
     if "gate_up_proj" in p:
         gate, up = dense(x, p["gate_up_proj"]).chunk(2, dim=-1)
     else:
@@ -96,17 +96,21 @@ def mlp(x: torch.Tensor, p: dict, activation: str = "silu") -> torch.Tensor:
 
 def qkv_project(x: torch.Tensor, p: dict, cfg: ModelConfig):
     """x [B, S, E] -> q [B, Hq, S, D], k/v [B, Hkv, S, D] (transposed views).
-    A fused layer (models/fuse.py) runs one product and splits it."""
+    A fused layer (models/fuse.py) runs one product and splits it. With
+    `cfg.attention_bias` (Qwen2) the q/k/v biases, kept in the model dtype,
+    are added after the products."""
     b, s, _ = x.shape
     hq = cfg.num_q_heads * cfg.head_dim
     hkv = cfg.num_kv_heads * cfg.head_dim
     if "qkv_proj" in p:
         qkv = dense(x, p["qkv_proj"])
-        if "qkv_bias" in p:
+        if cfg.attention_bias:
             qkv = qkv + p["qkv_bias"]
         q, k, v = qkv.split([hq, hkv, hkv], dim=-1)
     else:
         q, k, v = dense(x, p["q_proj"]), dense(x, p["k_proj"]), dense(x, p["v_proj"])
+        if cfg.attention_bias:
+            q, k, v = q + p["q_bias"], k + p["k_bias"], v + p["v_bias"]
     q = q.view(b, s, cfg.num_q_heads, cfg.head_dim).transpose(1, 2)
     k = k.view(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
     v = v.view(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)

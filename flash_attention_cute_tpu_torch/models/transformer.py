@@ -1,5 +1,5 @@
-"""The Llama transformer: prefill, extend and decode forwards over a stacked
-cache.
+"""The Llama-family transformer (Llama, Qwen2, Mistral): prefill, extend
+and decode forwards over a stacked cache.
 
 Parameters are a dict of tensors in the JAX package's layout: `embed`
 [V, E], `final_ln` [E], optional `lm_head` [E, V] (absent: tied to the
@@ -8,7 +8,14 @@ embeddings), and `layers`, a dict of stacked [L, ...] weights named
 A fused tree (models/fuse.py) holds `qkv_proj` and `gate_up_proj` in place
 of q/k/v and gate/up. Any projection and the lm_head may be an int8 or
 int4 quantized weight (models/quantize.py): `models.layers.dense` runs it
-through kernel B10 or B11 on CUDA, one layer (`w[li]`) at a time.
+through kernel B10 or B11 on CUDA, one layer (`w[li]`) at a time. Qwen2
+trees add `q_bias` / `k_bias` / `v_bias` (or a fused `qkv_bias`), kept in
+the model dtype.
+
+Sliding windows follow `ModelConfig.layer_window` (the JAX package's
+segment rule): each layer's attention, in every mode, takes its window, so
+a windowed prefill runs kernel B2 where the window binds (P otherwise) and
+decode and extend read only the keys inside it.
 
   * mode="prefill": causal attention over the fresh K/V (kernel P on CUDA);
     with a cache, K/V are then written at positions [0, S) in place.
@@ -54,12 +61,14 @@ from flash_attention_cute_tpu_torch.ops.quantized import (
 )
 
 
+BIAS_STD = 0.5  # init_params' q/k/v biases: against projections of std about 1
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise on configuration bits of families this slice does not run."""
+    """Raise on configuration bits of families the port does not run yet."""
     later = [
         name for name, on in (
-            ("attention_bias", cfg.attention_bias),
-            ("sliding window", cfg.use_sliding_window or cfg.layer_window_pattern is not None),
+            ("layer_window_pattern", cfg.layer_window_pattern is not None),
             ("logit_softcap", cfg.logit_softcap is not None),
             ("final_logit_softcap", cfg.final_logit_softcap is not None),
             ("sandwich_norms", cfg.sandwich_norms),
@@ -69,7 +78,7 @@ def check_supported(cfg: ModelConfig) -> None:
     ]
     if later:
         raise NotImplementedError(
-            f"{', '.join(later)}: Qwen2 / Gemma2 / Mistral features are ROADMAP.md A10"
+            f"{', '.join(later)}: Gemma2 features are ROADMAP.md A10b"
         )
 
 
@@ -128,15 +137,17 @@ def forward(
 
     for li in range(cfg.num_layers):
         lp = {name: w[li] for name, w in params["layers"].items()}
+        window = cfg.layer_window(li)
         h = L.rms_norm(x, lp["input_ln"], cfg.rms_norm_eps)
         q, k, v = L.qkv_project(h, lp, cfg)
         q = L.apply_rope(q, cos, sin)
         k = L.apply_rope(k, cos, sin)
         if mode == "prefill":
             if plain_attention:
-                attn = flash_attention_fwd_plain(q, k, v, scale, causal=True)
+                attn = flash_attention_fwd_plain(q, k, v, scale, causal=True, window=window)
             else:
-                attn = flash_attention_forward(q, k, v, softmax_scale=scale, causal=True)
+                attn = flash_attention_forward(q, k, v, softmax_scale=scale, causal=True,
+                                               window=window)
             if quant:
                 quantize_append(k, v, *cache.layer(li), write_at)
             elif cache is not None:
@@ -148,21 +159,22 @@ def forward(
             if mode == "extend":
                 # Dense extend over the dequantized layer slab (JAX's route).
                 attn = _extend(q, dequantize_kv(kc, q.dtype), dequantize_kv(vc, q.dtype),
-                               cache.lengths, new_len, scale, plain_attention)
+                               cache.lengths, new_len, scale, window, plain_attention)
             else:
                 decode = (flash_attention_decode_quantized_plain if plain_attention
                           else flash_attention_decode_quantized)
-                attn = decode(q, kc, vc, kv_length=new_len, sm_scale=scale)
+                attn = decode(q, kc, vc, kv_length=new_len, sm_scale=scale, window=window)
         else:
             cache.k[li][rows, heads, slots] = k.to(cache.k.dtype)
             cache.v[li][rows, heads, slots] = v.to(cache.v.dtype)
             if mode == "extend":
                 attn = _extend(q, cache.k[li].to(q.dtype), cache.v[li].to(q.dtype),
-                               cache.lengths, new_len, scale, plain_attention)
+                               cache.lengths, new_len, scale, window, plain_attention)
             else:
                 decode = (flash_attention_decode_plain if plain_attention
                           else flash_attention_decode)
-                attn = decode(q, cache.k, cache.v, kv_length=new_len, sm_scale=scale, layer=li)
+                attn = decode(q, cache.k, cache.v, kv_length=new_len, sm_scale=scale,
+                              window=window, layer=li)
         x = L.layer_tail(x, attn, lp, cfg)
 
     x = L.rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
@@ -172,12 +184,13 @@ def forward(
     return logits, dataclasses.replace(cache, lengths=cache.lengths + s)
 
 
-def _extend(q, k, v, q_offset, kv_length, scale, plain_attention):
+def _extend(q, k, v, q_offset, kv_length, scale, window, plain_attention):
     """The chunk's attention over one layer's cache [B, Hkv, C, D]."""
     if plain_attention:
-        return flash_attention_chunked_plain(q, k, v, q_offset, kv_length, scale)
+        return flash_attention_chunked_plain(q, k, v, q_offset, kv_length, scale,
+                                             window=window)
     return flash_attention_forward(q, k, v, softmax_scale=scale, causal=True,
-                                   kv_length=kv_length, q_offset=q_offset)
+                                   kv_length=kv_length, q_offset=q_offset, window=window)
 
 
 def init_params(
@@ -188,9 +201,12 @@ def init_params(
 ) -> dict:
     """Random parameters for tests and benchmarks, drawn on `device` from
     `generator` (or a new one seeded with `seed`). Projections are normal
-    with std fan_in ** -0.5, embeddings with std 0.02, norms are ones. Each
-    stacked weight is drawn one layer at a time in fp32 and cast, so the
-    fp32 staging stays one layer's size."""
+    with std fan_in ** -0.5, embeddings with std 0.02, norms are ones. With
+    `cfg.attention_bias` the q/k/v biases are normal with std BIAS_STD,
+    drawn after every other tensor (so the other tensors do not depend on
+    the flag); the JAX package's init sets them to zeros, which would leave
+    the bias path untested. Each stacked weight is drawn one layer at a
+    time in fp32 and cast, so the fp32 staging stays one layer's size."""
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(seed)
     dt = cfg.dtype
@@ -229,4 +245,7 @@ def init_params(
     }
     if not cfg.tie_word_embeddings:
         params["lm_head"] = normal((e, cfg.vocab_size), e ** -0.5)
+    if cfg.attention_bias:
+        for name, width in (("q_bias", hq), ("k_bias", hkv), ("v_bias", hkv)):
+            params["layers"][name] = normal((nl, width), BIAS_STD)
     return params

@@ -149,3 +149,26 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtype=None) -> None:
             f"{name} rows must be 16-byte aligned (pointer {t.data_ptr():#x}, "
             f"strides {t.stride()})"
         )
+
+
+def window_arg(window: int | None) -> int:
+    """A sliding window as the kernels take it: W >= 1, or 0 for none."""
+    if window is None:
+        return 0
+    if window < 1:
+        raise ValueError(f"window must be a positive key count, got {window}")
+    return int(window)
+
+
+def refuse_softcap(logit_softcap: float | None, what: str) -> None:
+    """The attention kernels take no soft cap yet: raise on one."""
+    if logit_softcap is not None:
+        raise NotImplementedError(
+            f"logit_softcap {what} on CUDA is not in the kernel yet (plain version only; "
+            "Gemma2, ROADMAP.md A10b)")
+
+
+def check_head_dim(d: int, head_dims: tuple, what: str) -> None:
+    if d not in head_dims:
+        raise NotImplementedError(
+            f"{what} kernel takes head_dim in {head_dims}, got {d} (D 256 is ROADMAP.md A10b)")

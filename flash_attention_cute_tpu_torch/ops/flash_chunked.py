@@ -11,6 +11,7 @@ with the chunk's K/V already written at [q_offset, q_offset + S):
   * `kv_length [B]`: valid cache length including the chunk, clamped to C;
     keys at or past it are masked. A row with no visible key, and a batch
     row of kv_length 0, outputs exact zeros.
+  * `window`: a sliding window W also masks keys `n <= q_offset + r - W`.
 
 Both are device tensors read by the kernel, so one kernel serves every fill
 level and no host sync sizes the grid. `flash_attention_chunked` routes on
@@ -41,7 +42,7 @@ HEAD_DIMS = (64, 128)
 P, I, L, F = _build.P, _build.I, _build.L, _build.F
 CHUNKED = _build.Kernel(
     "flash_chunked", "flash_chunked.cu", "fact_flash_chunked",
-    [P] * 6 + [I] * 6 + [L] * 9 + [F, I, I, P],
+    [P] * 6 + [I] * 6 + [L] * 9 + [F, I, I, I, P],
 )
 
 
@@ -82,8 +83,8 @@ def flash_attention_chunked(
       sm_scale: defaults to D ** -0.5.
       causal: top-left causality in global positions; False keeps only the
         length mask.
-      window, logit_softcap: plain version only (Qwen2 / Gemma2 / Mistral,
-        ROADMAP.md A10).
+      window: sliding window W: row r also masks keys n <= q_offset + r - W.
+      logit_softcap: plain version only (Gemma2, ROADMAP.md A10b).
       return_partials: plain version only (ring attention, ROADMAP.md A12):
         (o_unnorm [B, Hq, S, D] f32, m [B, Hq, S] f32 in log2 units,
         l [B, Hq, S] f32).
@@ -97,11 +98,8 @@ def flash_attention_chunked(
     if q.device.type == "cpu":
         return flash_attention_chunked_plain(q, k, v, q_offset, kv_length, sm_scale, causal,
                                              window, logit_softcap, return_partials)
-    if window is not None or logit_softcap is not None:
-        raise NotImplementedError(
-            "window / logit_softcap extend on CUDA is not in kernel B4 yet (plain version "
-            "only; needed by Qwen2 / Gemma2 / Mistral, ROADMAP.md A10)"
-        )
+    _build.refuse_softcap(logit_softcap, "extend")
+    window = _build.window_arg(window)
     if return_partials:
         raise NotImplementedError(
             "return_partials on CUDA is not in kernel B4 yet (plain version only; needed "
@@ -109,8 +107,7 @@ def flash_attention_chunked(
         )
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"extend kernel takes bf16/f16, got {q.dtype}")
-    if d not in HEAD_DIMS:
-        raise NotImplementedError(f"extend kernel takes head_dim in {HEAD_DIMS}, got {d}")
+    _build.check_head_dim(d, HEAD_DIMS, "extend")
     if hq % hkv or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -131,6 +128,6 @@ def flash_attention_chunked(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             rows[0].data_ptr(), rows[1].data_ptr(), b, hq, hkv, sq, cap, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            float(sm_scale) * LOG2E, int(causal), _build.DTYPE_CODES[q.dtype],
+            float(sm_scale) * LOG2E, int(causal), window, _build.DTYPE_CODES[q.dtype],
         )
     return out

@@ -8,7 +8,9 @@ of the group over the chunk's live keys (positions < length), with the
 running max m (base 2: scores carry scale * log2(e)) and sum l. D2 merges
 the splits: weights exp2(m_s - max m), splits with m = -inf weigh 0, and a
 total l of 0 gives 0. D1 replaces `_flash_decode_kernel` and D2 the XLA
-combine of flash_attention_cute_tpu/ops/flash_decode.py.
+combine of flash_attention_cute_tpu/ops/flash_decode.py. With a sliding
+window W the query at position length - 1 sees keys [length - W, length):
+D1 cuts each split to that range, and a split wholly below it is dead.
 
 Each wrapper routes on the device of `q`: CPU -> plain version, CUDA -> the
 kernel; what the kernel does not take raises. Cache positions at or past a
@@ -32,7 +34,7 @@ MAX_GROUP = 8
 P, I, L, F = _build.P, _build.I, _build.L, _build.F
 PARTIALS = _build.Kernel(
     "decode_partials", "flash_decode.cu", "fact_decode_partials",
-    [P, P, P, P, P, P, P, I, I, I, I, I, I, I, L, L, L, L, L, L, L, L, F, I, P],
+    [P, P, P, P, P, P, P, I, I, I, I, I, I, I, L, L, L, L, L, L, L, L, F, I, I, P],
 )
 COMBINE = _build.Kernel(
     "decode_combine", "flash_decode.cu", "fact_decode_combine",
@@ -87,17 +89,17 @@ def decode_combine_plain(acc, m, l, dtype):
     return o.reshape(b, hkv * g, 1, d).to(dtype)
 
 
-def decode_partials(q, k, v, lengths, sm_scale, num_splits):
+def decode_partials(q, k, v, lengths, sm_scale, num_splits, window=None):
     """D1 on one layer's cache: the kernel for CUDA tensors, else plain."""
     if q.device.type == "cpu":
-        return decode_partials_plain(q, k, v, lengths, sm_scale, num_splits)
+        return decode_partials_plain(q, k, v, lengths, sm_scale, num_splits, window)
     b, hq, sq, d = q.shape
     _, hkv, cap, _ = k.shape
     g = hq // hkv
+    window = _build.window_arg(window)
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"decode kernel takes bf16/f16, got {q.dtype}")
-    if d not in HEAD_DIMS:
-        raise NotImplementedError(f"decode kernel takes head_dim in {HEAD_DIMS}, got {d}")
+    _build.check_head_dim(d, HEAD_DIMS, "decode")
     if g > MAX_GROUP:
         raise NotImplementedError(f"decode kernel takes Hq/Hkv <= {MAX_GROUP}, got {g}")
     if sq != 1 or hq % hkv or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
@@ -119,7 +121,7 @@ def decode_partials(q, k, v, lengths, sm_scale, num_splits):
             acc.data_ptr(), m.data_ptr(), l.data_ptr(),
             b, hkv, g, cap, d, num_splits, -(-cap // num_splits),
             q.stride(0), q.stride(1), *k.stride()[:3], *v.stride()[:3],
-            float(sm_scale) * LOG2E, _build.DTYPE_CODES[q.dtype],
+            float(sm_scale) * LOG2E, window, _build.DTYPE_CODES[q.dtype],
         )
     return acc, m, l
 
@@ -192,7 +194,8 @@ def flash_attention_decode(
         cache [L, B, Hkv, C, D] (`k[layer]` is a view, so nothing is copied).
       kv_length: [B] int32 live lengths on q's device; None = full cache.
       num_splits: KV-axis splits; 0 picks `dispatch.decode_num_splits`.
-      window, logit_softcap: plain version only (ROADMAP.md B3 follow-up).
+      window: sliding window W: only the keys [length - W, length) are read.
+      logit_softcap: plain version only (ROADMAP.md A10b).
 
     Returns [B, Hq, 1, D] in q's dtype.
     """
@@ -200,11 +203,7 @@ def flash_attention_decode(
         return flash_attention_decode_plain(
             q, k, v, kv_length, sm_scale, window, logit_softcap, num_splits, layer
         )
-    if window is not None or logit_softcap is not None:
-        raise NotImplementedError(
-            "window / logit_softcap decode on CUDA is not in the kernel yet "
-            "(ROADMAP.md B3 follow-up)"
-        )
+    _build.refuse_softcap(logit_softcap, "decode")
     k, v = _layer_cache(k, v, layer)
     b, hq, _, d = q.shape
     cap = k.shape[2]
@@ -214,5 +213,5 @@ def flash_attention_decode(
         num_splits = dispatch.decode_num_splits(b, k.shape[1], cap)
     if kv_length is None:
         kv_length = torch.full((b,), cap, dtype=torch.int32, device=q.device)
-    acc, m, l = decode_partials(q, k, v, kv_length, sm_scale, num_splits)
+    acc, m, l = decode_partials(q, k, v, kv_length, sm_scale, num_splits, window)
     return decode_combine(acc, m, l, q.dtype)

@@ -1,10 +1,20 @@
-"""Prefill attention forward: the CUDA kernel P and its plain version.
+"""Prefill attention forward: the CUDA kernels P and B2 and their plain
+version.
 
 `flash_attention_fwd` routes on the device of `q`: a CPU tensor takes the
-plain version (the fp32 reference), a CUDA tensor launches kernel P
-(csrc/flash_fwd.cu), which replaces the TPU kernel `_flash_fwd_kernel_diag`
-of flash_attention_cute_tpu/ops/flash_fwd.py. What the kernel does not take
-raises; nothing falls back.
+plain version (the fp32 reference), a CUDA tensor launches the kernel of
+csrc/flash_fwd.cu, counted as one of two kernels of the TPU package's
+flash_attention_cute_tpu/ops/flash_fwd.py:
+
+  * P (`PREFILL`): no window, or a window of at least Skv, which can never
+    bind (p - W < 0 <= n for every key; the JAX wrapper drops it the same
+    way). Replaces `_flash_fwd_kernel_diag`.
+  * B2 (`WINDOWED_PREFILL`): a sliding window W < Skv, key n visible from
+    row m iff n > m + (Skv - Sq) - W (and causal / in range); each block
+    walks only the tiles its rows' windows reach. Replaces the windowed
+    geometry of `_flash_fwd_kernel_fused` and `_flash_fwd_kernel`.
+
+What the kernel does not take raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -20,16 +30,16 @@ LOG2E = math.log2(math.e)
 HEAD_DIMS = (64, 128)
 
 P, I, L, F = _build.P, _build.I, _build.L, _build.F
-PREFILL = _build.Kernel(
-    "flash_fwd", "flash_fwd.cu", "fact_flash_fwd",
-    [P, P, P, P, I, I, I, I, I, I, L, L, L, L, L, L, L, L, L, F, I, I, P],
-)
+_ARGS = [P, P, P, P, I, I, I, I, I, I, L, L, L, L, L, L, L, L, L, F, I, I, I, P]
+PREFILL = _build.Kernel("flash_fwd", "flash_fwd.cu", "fact_flash_fwd", _ARGS)
+# The same launch function with a window that binds: counted as B2.
+WINDOWED_PREFILL = _build.Kernel("flash_fwd_window", "flash_fwd.cu", "fact_flash_fwd", _ARGS)
 
 
 def flash_attention_fwd_plain(
     q, k, v, sm_scale=None, causal=False, window=None, logit_softcap=None
 ) -> torch.Tensor:
-    """Plain version of kernel P on any device: the fp32 reference."""
+    """Plain version of kernels P and B2 on any device: the fp32 reference."""
     return attention_reference(
         q, k, v, softmax_scale=sm_scale, causal=causal, window=window,
         logit_softcap=logit_softcap,
@@ -53,7 +63,9 @@ def flash_attention_fwd(
       sm_scale: defaults to D ** -0.5.
       causal: bottom-right-aligned causal masking; rows with no visible key
         (Sq > Skv) are exact zeros.
-      window, logit_softcap: plain version only (ROADMAP.md B2).
+      window: sliding window W (HF semantics): row m also masks keys
+        n <= m + (Skv - Sq) - W. On CUDA a binding window runs B2.
+      logit_softcap: plain version only (ROADMAP.md A10b).
 
     Returns [B, Hq, Sq, D] in q's dtype, contiguous.
     """
@@ -63,15 +75,13 @@ def flash_attention_fwd(
         sm_scale = d ** -0.5
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, sm_scale, causal, window, logit_softcap)
-    if window is not None or logit_softcap is not None:
-        raise NotImplementedError(
-            "window / logit_softcap prefill on CUDA is ROADMAP.md B2 "
-            "(_flash_fwd_kernel_fused)"
-        )
+    _build.refuse_softcap(logit_softcap, "prefill")
+    window = _build.window_arg(window)
+    if window >= skv:
+        window = 0  # cannot bind: P's geometry
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"prefill kernel takes bf16/f16, got {q.dtype}")
-    if d not in HEAD_DIMS:
-        raise NotImplementedError(f"prefill kernel takes head_dim in {HEAD_DIMS}, got {d}")
+    _build.check_head_dim(d, HEAD_DIMS, "prefill")
     if hq % hkv or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -83,10 +93,10 @@ def flash_attention_fwd(
     if out.numel() == 0:
         return out
     with torch.cuda.device(q.device):
-        PREFILL(
+        (WINDOWED_PREFILL if window else PREFILL)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, hq, hkv, sq, skv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            float(sm_scale) * LOG2E, int(causal), _build.DTYPE_CODES[q.dtype],
+            float(sm_scale) * LOG2E, int(causal), window, _build.DTYPE_CODES[q.dtype],
         )
     return out

@@ -21,8 +21,9 @@ per-token scales s_j the kernels never dequantize a K/V row:
     in place, into the contiguous cache or through the page table.
 
 Each wrapper routes on the device of its tensors: CPU -> plain version,
-CUDA -> the kernel; what the kernel does not take raises (window, soft cap,
-values that are neither int8 nor e4m3, scales that are not f32). The plain
+CUDA -> the kernel; what the kernel does not take raises (soft cap, values
+that are neither int8 nor e4m3, scales that are not f32). B7 - B9 take a
+sliding window as D1, B5 and B6 do. The plain
 versions dequantize to fp32 and run the port's `attention_reference` over
 the gathered rows. Positions at or past a row's length are never read by
 the kernels and are masked out of the plain versions, so they may hold
@@ -57,15 +58,15 @@ LOG2E = math.log2(math.e)
 P, I, L, F = _build.P, _build.I, _build.L, _build.F
 QUANT_DECODE = _build.Kernel(
     "quant_decode", "quantized.cu", "fact_quant_decode_partials",
-    [P] * 9 + [I] * 7 + [L] * 12 + [F, I, I, P],
+    [P] * 9 + [I] * 7 + [L] * 12 + [F, I, I, I, P],
 )
 QUANT_PAGED_DECODE = _build.Kernel(
     "quant_paged_decode", "quantized.cu", "fact_quant_paged_decode_partials",
-    [P] * 10 + [I] * 7 + [L] * 12 + [F, I, I, P],
+    [P] * 10 + [I] * 7 + [L] * 12 + [F, I, I, I, P],
 )
 QUANT_PAGED_EXTEND = _build.Kernel(
     "quant_paged_extend", "quantized.cu", "fact_quant_paged_extend",
-    [P] * 9 + [I] * 7 + [L] * 13 + [F, I, I, P],
+    [P] * 9 + [I] * 7 + [L] * 13 + [F, I, I, I, P],
 )
 QUANT_APPEND = _build.Kernel(
     "quant_append", "quantized.cu", "fact_quant_append",
@@ -181,7 +182,8 @@ def flash_attention_decode_quantized(
       kv_length: [B] int32 live lengths on q's device, clamped to C; None =
         the full cache. A length-0 row outputs exact zeros.
       num_splits: KV-axis splits; 0 picks `dispatch.decode_num_splits`.
-      window, logit_softcap: plain version only (ROADMAP.md A10).
+      window: sliding window W: only keys [length - W, length) are read.
+      logit_softcap: plain version only (ROADMAP.md A10b).
 
     Returns [B, Hq, 1, D] in q's dtype.
     """
@@ -190,18 +192,15 @@ def flash_attention_decode_quantized(
     if q.device.type == "cpu":
         return flash_attention_decode_quantized_plain(
             q, k, v, kv_length, sm_scale, window, logit_softcap, num_splits, layer)
-    if window is not None or logit_softcap is not None:
-        raise NotImplementedError(
-            "window / logit_softcap quantized decode on CUDA is not in the kernel yet "
-            "(plain version only; ROADMAP.md A10)")
+    _build.refuse_softcap(logit_softcap, "quantized decode")
+    window = _build.window_arg(window)
     k, v = _layer(k, layer), _layer(v, layer)
     b, hq, sq, d = q.shape
     _, hkv, cap, _ = k.values.shape
     g = hq // hkv
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"quantized decode kernel takes bf16/f16 q, got {q.dtype}")
-    if d not in HEAD_DIMS:
-        raise NotImplementedError(f"quantized decode kernel takes head_dim in {HEAD_DIMS}, got {d}")
+    _build.check_head_dim(d, HEAD_DIMS, "quantized decode")
     if hq % hkv or g > MAX_GROUP:
         raise NotImplementedError(f"quantized decode kernel takes Hq/Hkv <= {MAX_GROUP}, "
                                   f"got {hq}/{hkv}")
@@ -231,7 +230,7 @@ def flash_attention_decode_quantized(
             l.data_ptr(), b, hkv, g, cap, d, splits, -(-cap // splits),
             q.stride(0), q.stride(1), *k.values.stride()[:3], *v.values.stride()[:3],
             *k.scales.stride()[:2], *v.scales.stride()[:2],
-            float(sm_scale) * LOG2E, _build.DTYPE_CODES[q.dtype],
+            float(sm_scale) * LOG2E, window, _build.DTYPE_CODES[q.dtype],
             _build.KV_DTYPE_CODES[k.values.dtype],
         )
     return flash_decode.decode_combine(acc, m, l, q.dtype)
@@ -264,11 +263,12 @@ def paged_attention_extend_quantized_plain(q, k_pages, v_pages, q_offset, kv_len
     )
 
 
-def _check_paged(name, q, k_pages, v_pages, page_table, row_tensors, window, softcap):
-    _check_cuda_call(name, q, k_pages.values, v_pages.values, page_table, row_tensors, window,
-                     softcap, pool_dtype=k_pages.values.dtype)
+def _check_paged(name, q, k_pages, v_pages, page_table, row_tensors, window, softcap) -> int:
+    window = _check_cuda_call(name, q, k_pages.values, v_pages.values, page_table, row_tensors,
+                              window, softcap, pool_dtype=k_pages.values.dtype)
     _check_quantized("k_pages", k_pages)
     _check_quantized("v_pages", v_pages, k_pages.values.dtype)
+    return window
 
 
 def paged_attention_decode_quantized(
@@ -290,7 +290,8 @@ def paged_attention_decode_quantized(
       lengths: [B] int32 valid token counts, clamped to pages_per_seq * ps
         (0 -> an exact zero row).
       page_table: [B, pages_per_seq] int32 physical page ids.
-      window, logit_softcap: plain version only.
+      window: sliding window W: only keys [length - W, length) are read.
+      logit_softcap: plain version only (ROADMAP.md A10b).
 
     Returns [B, Hq, 1, D] in q's dtype.
     """
@@ -302,8 +303,8 @@ def paged_attention_decode_quantized(
     if q.device.type == "cpu":
         return paged_attention_decode_quantized_plain(q, k_pages, v_pages, lengths, page_table,
                                                       sm_scale, window, logit_softcap)
-    _check_paged("quantized paged decode", q, k_pages, v_pages, page_table,
-                 [("lengths", lengths)], window, logit_softcap)
+    window = _check_paged("quantized paged decode", q, k_pages, v_pages, page_table,
+                          [("lengths", lengths)], window, logit_softcap)
     hkv, _, ps, _ = k_pages.values.shape
     pps = page_table.shape[1]
     g = hq // hkv
@@ -319,7 +320,7 @@ def paged_attention_decode_quantized(
             b, hkv, g, d, splits, pps, ps, q.stride(0), q.stride(1),
             *k_pages.values.stride()[:3], *v_pages.values.stride()[:3],
             *k_pages.scales.stride()[:2], *v_pages.scales.stride()[:2],
-            float(sm_scale) * LOG2E, _build.DTYPE_CODES[q.dtype],
+            float(sm_scale) * LOG2E, window, _build.DTYPE_CODES[q.dtype],
             _build.KV_DTYPE_CODES[k_pages.values.dtype],
         )
     return flash_decode.decode_combine(acc, m, l, q.dtype)
@@ -348,6 +349,8 @@ def paged_attention_extend_quantized(
       q_offset: [B] int32; kv_length: [B] int32 = q_offset + S for active
         rows, 0 for inactive rows (their output is zeros).
       page_table: [B, pages_per_seq] int32.
+      window: sliding window W: row r also masks keys n <= q_offset + r - W.
+      logit_softcap: plain version only (ROADMAP.md A10b).
       return_clamps: also return the softmax clamp count, which is 0: the
         port's softmax is exact (the TPU kernel's lazy max is not copied).
 
@@ -360,8 +363,9 @@ def paged_attention_extend_quantized(
         out = paged_attention_extend_quantized_plain(q, k_pages, v_pages, q_offset, kv_length,
                                                      page_table, sm_scale, window, logit_softcap)
         return (out, 0) if return_clamps else out
-    _check_paged("quantized paged extend", q, k_pages, v_pages, page_table,
-                 [("q_offset", q_offset), ("kv_length", kv_length)], window, logit_softcap)
+    window = _check_paged("quantized paged extend", q, k_pages, v_pages, page_table,
+                          [("q_offset", q_offset), ("kv_length", kv_length)], window,
+                          logit_softcap)
     hkv, _, ps, _ = k_pages.values.shape
     out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
     if out.numel():
@@ -373,7 +377,7 @@ def paged_attention_extend_quantized(
                 b, hq, hkv, sq, d, page_table.shape[1], ps, *q.stride()[:3],
                 *k_pages.values.stride()[:3], *v_pages.values.stride()[:3],
                 *k_pages.scales.stride()[:2], *v_pages.scales.stride()[:2],
-                float(sm_scale) * LOG2E, _build.DTYPE_CODES[q.dtype],
+                float(sm_scale) * LOG2E, window, _build.DTYPE_CODES[q.dtype],
                 _build.KV_DTYPE_CODES[k_pages.values.dtype],
             )
     return (out, 0) if return_clamps else out
@@ -443,8 +447,7 @@ def quantize_append(
     kv_dtype = k_cache.values.dtype
     if k_new.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"quantize-append kernel takes bf16/f16 rows, got {k_new.dtype}")
-    if d not in HEAD_DIMS:
-        raise NotImplementedError(f"quantize-append kernel takes head_dim in {HEAD_DIMS}, got {d}")
+    _build.check_head_dim(d, HEAD_DIMS, "quantize-append")
     if v_new.shape != k_new.shape or v_new.dtype != k_new.dtype:
         raise ValueError(f"bad new rows {tuple(k_new.shape)} {tuple(v_new.shape)}")
     _check_quantized("k_cache", k_cache)

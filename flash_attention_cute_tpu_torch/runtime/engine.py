@@ -61,7 +61,7 @@ from flash_attention_cute_tpu_torch.runtime.sampling import sample_keyed
 # where it stands in ROADMAP.md). Anything but the neutral value raises.
 _LATER_INIT = {
     "mesh": (None, "tensor-parallel serving is ROADMAP.md A12"),
-    "lora_params": (None, "multi-LoRA serving is ROADMAP.md A10"),
+    "lora_params": (None, "multi-LoRA serving is ROADMAP.md A10c"),
     "dfa": (None, "guided decoding is ROADMAP.md A7c"),
     "enable_prefix_cache": (False, "the prefix cache is ROADMAP.md A7b"),
     "host_swap_tokens": (0, "the host swap tier is ROADMAP.md A7b"),
@@ -74,7 +74,7 @@ _LATER_SUBMIT = {
     "min_new_tokens": (0, "guided decoding is ROADMAP.md A7c"),
     "stop_sequences": (None, "guided decoding is ROADMAP.md A7c"),
     "constrain": (False, "guided decoding is ROADMAP.md A7c"),
-    "adapter": (0, "multi-LoRA serving is ROADMAP.md A10"),
+    "adapter": (0, "multi-LoRA serving is ROADMAP.md A10c"),
     "repetition_penalty": (1.0, "sampling penalties are ROADMAP.md A7c"),
     "presence_penalty": (0.0, "sampling penalties are ROADMAP.md A7c"),
     "frequency_penalty": (0.0, "sampling penalties are ROADMAP.md A7c"),

@@ -1,13 +1,16 @@
 """Model forward over a paged KV cache: the serving engine's data path.
 
 Port of flash_attention_cute_tpu/runtime/paged_forward.py for the Llama
-family (`models.transformer.check_supported`). Per layer, the fresh K/V are
-written into the page pool through the page table (`paged_append_layer`,
-the append kernel on CUDA), then attention runs:
+family, Qwen2 and Mistral included (`models.transformer.check_supported`).
+Per layer, the fresh K/V are written into the page pool through the page
+table (`paged_append_layer`, the append kernel on CUDA), then attention
+runs with the layer's sliding window (`ModelConfig.layer_window`, JAX's
+`make_layer(window)`):
 
   * prefill: a fresh request (lengths 0): causal attention over the chunk's
-    own K/V (kernel P on CUDA). Prompts may be padded; lengths advance by
-    `valid_len`, and padded positions write K/V that no later read sees.
+    own K/V (kernel P on CUDA, B2 where a window binds). Prompts may be
+    padded; lengths advance by `valid_len`, and padded positions write K/V
+    that no later read sees.
   * extend: chunked admission: the S rows sit at global positions lengths
     .. lengths + S and attend the paged prefix plus themselves (kernel B6).
   * decode: one token per row: paged decode attention over the advanced
@@ -117,6 +120,7 @@ def forward_paged(
 
     for li in range(cfg.num_layers):
         lp = {name: w[li] for name, w in params["layers"].items()}
+        window = cfg.layer_window(li)
         h = L.rms_norm(x, lp["input_ln"], cfg.rms_norm_eps)
         q, k, v = L.qkv_project(h, lp, cfg)
         q = L.apply_rope(q, cos, sin)
@@ -130,13 +134,14 @@ def forward_paged(
             paged_append_layer(kp, vp, k, v, table, lengths, active)
         if mode == "prefill":
             if plain_attention:
-                attn = flash_attention_fwd_plain(q, k, v, scale, causal=True)
+                attn = flash_attention_fwd_plain(q, k, v, scale, causal=True, window=window)
             else:
-                attn = flash_attention_forward(q, k, v, softmax_scale=scale, causal=True)
+                attn = flash_attention_forward(q, k, v, softmax_scale=scale, causal=True,
+                                               window=window)
         elif mode == "extend":
-            attn = attend(q, kp, vp, new_len - s, new_len, table, sm_scale=scale)
+            attn = attend(q, kp, vp, new_len - s, new_len, table, sm_scale=scale, window=window)
         else:
-            attn = attend(q, kp, vp, new_len, table, sm_scale=scale)
+            attn = attend(q, kp, vp, new_len, table, sm_scale=scale, window=window)
         x = L.layer_tail(x, attn, lp, cfg)
 
     x = L.rms_norm(x, params["final_ln"], cfg.rms_norm_eps)

@@ -226,8 +226,8 @@ def test_non_cpu_tensors_take_the_kernel_route_and_never_fall_back():
         flash_decode.flash_attention_decode(q[:, :, :1], k, k)
     with pytest.raises(ValueError, match="CUDA tensor"):
         api.flash_attn_func(q, k, k, causal=True, kv_length=torch.ones(1, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md B2"):
-        flash_fwd.flash_attention_fwd(q, k, k, causal=True, window=8)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A10b"):
+        flash_fwd.flash_attention_fwd(q, k, k, causal=True, logit_softcap=30.0)
     with pytest.raises(NotImplementedError):
         flash_fwd.flash_attention_fwd(q.float(), k.float(), k.float())
 

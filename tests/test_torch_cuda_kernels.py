@@ -233,8 +233,8 @@ def test_paged_kernels_refuse_what_they_do_not_take(device):
     kp, vp, table = paged_pool(gen, 16, 2, capacity=64)
     q = randn(gen, 2, 32, 1, 128)
     lengths = torch.tensor([3, 5], dtype=torch.int32, device="cuda")
-    with pytest.raises(NotImplementedError, match="window"):
-        paged_attention.paged_attention_decode(q, kp, vp, lengths, table, window=8)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A10b"):
+        paged_attention.paged_attention_decode(q, kp, vp, lengths, table, logit_softcap=30.0)
     with pytest.raises(ValueError, match="bfloat16"):  # the pool is never cast
         paged_attention.paged_attention_decode(q, kp.half(), vp.half(), lengths, table)
     with pytest.raises(ValueError, match="int32"):
@@ -370,8 +370,8 @@ def test_quantized_kernels_refuse_what_they_do_not_take(device):
     k, v, table = quant_paged_pool(gen, 16, 2, torch.int8, [64, 64], capacity=64)
     q = randn(gen, 2, 32, 1, 128)
     lengths = torch.tensor([3, 5], dtype=torch.int32, device="cuda")
-    with pytest.raises(NotImplementedError, match="window"):
-        quant.paged_attention_decode_quantized(q, k, v, lengths, table, window=8)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A10b"):
+        quant.paged_attention_decode_quantized(q, k, v, lengths, table, logit_softcap=30.0)
     with pytest.raises(NotImplementedError, match="softcap"):
         quant.paged_attention_extend_quantized(randn(gen, 2, 32, 4, 128), k, v, lengths,
                                                lengths + 4, table, logit_softcap=30.0)
@@ -382,8 +382,8 @@ def test_quantized_kernels_refuse_what_they_do_not_take(device):
         quant.paged_attention_decode_quantized(q, QuantizedKV(k.values, k.scales.half()), v,
                                                lengths, table)
     cache = quant.quantize_kv(randn(gen, 2, 8, 64, 128), torch.int8)
-    with pytest.raises(NotImplementedError, match="window"):
-        quant.flash_attention_decode_quantized(q, cache, cache, lengths, window=8)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A10b"):
+        quant.flash_attention_decode_quantized(q, cache, cache, lengths, logit_softcap=30.0)
     with pytest.raises(ValueError, match="float32"):
         quant.quantize_append(randn(gen, 2, 8, 1, 128), randn(gen, 2, 8, 1, 128),
                               QuantizedKV(cache.values, cache.scales.double()), cache, lengths)
@@ -521,8 +521,7 @@ def test_chunked_extend_kernel_matches_plain(device, case):
 def test_chunked_extend_refuses_what_it_does_not_take(device):
     gen = torch.Generator(device="cuda").manual_seed(17)
     q, k, v, off, lens = chunked_inputs(gen, 32, 8, 5, 64, [0, 3], None, 128, torch.bfloat16)
-    for kw, item in (({"window": 8}, "A10"), ({"logit_softcap": 30.0}, "A10"),
-                     ({"return_partials": True}, "A12")):
+    for kw, item in (({"logit_softcap": 30.0}, "A10b"), ({"return_partials": True}, "A12")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
             flash_chunked.flash_attention_chunked(q, k, v, off, lens, **kw)
     with pytest.raises(NotImplementedError, match="head_dim"):
@@ -556,3 +555,189 @@ def test_api_and_model_extend_launch_the_chunked_kernel(device):
     assert cache.lengths.tolist() == [12, 12]
     want, _ = forward(params, cfg, ids, cache=KVCache.create(cfg, 2, 32))
     assert (got - want[:, 7:]).abs().max().item() <= 0.1
+
+
+# ---- sliding windows: B2, and the windows of D1, B4, B5-B9 ----
+# One key, an edge inside a 64-key tile (and a page or split), and one at
+# least every length (it never binds: P's and the unwindowed geometry).
+# The plain versions run on q in fp32 and return fp32: a window of one key
+# makes the output a single V row, whose magnitude reaches 4-8, where one
+# bf16 step is 0.03125; a bf16 plain result would add a second rounding.
+WINDOWS = [1, 100, 4096]
+
+WINDOWED_PREFILL = {
+    # name: (batch, hq, hkv, sq, skv, d, causal, dtype)
+    "mistral_s1536": (1, 32, 8, 1536, 1536, 128, True, torch.bfloat16),
+    "qwen2_group7_s1000": (2, 28, 4, 1000, 1000, 128, True, torch.bfloat16),
+    "offset_256_1024": (1, 32, 8, 256, 1024, 128, True, torch.bfloat16),
+    "noncausal_700": (1, 32, 8, 700, 700, 128, False, torch.bfloat16),
+    "f16_d64": (2, 8, 1, 333, 333, 64, True, torch.float16),
+}
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("case", list(WINDOWED_PREFILL), ids=list(WINDOWED_PREFILL))
+def test_windowed_prefill_kernel_matches_plain(device, case, window):
+    """B2 where the window binds (W < Skv), P where it cannot."""
+    b, hq, hkv, sq, skv, d, causal, dtype = WINDOWED_PREFILL[case]
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    q = randn(gen, b, sq, hq, d, dtype=dtype).transpose(1, 2)  # the model's view
+    k = randn(gen, b, skv, hkv, d, dtype=dtype).transpose(1, 2)
+    v = randn(gen, b, skv, hkv, d, dtype=dtype).transpose(1, 2)
+    before = (flash_fwd.WINDOWED_PREFILL.launches, flash_fwd.PREFILL.launches)
+    out = flash_fwd.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    binds = window < skv
+    assert (flash_fwd.WINDOWED_PREFILL.launches, flash_fwd.PREFILL.launches) == (
+        before[0] + binds, before[1] + (not binds))
+    ref = flash_fwd.flash_attention_fwd_plain(q.float(), k, v, causal=causal, window=window)
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("hq,hkv", [(32, 8), (28, 4)], ids=["group4", "group7"])
+def test_windowed_decode_kernels_match_plain(device, hq, hkv, window):
+    """D1's partials (splits wholly below the window dead) and D1 + D2."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    lens = [576, 513, 100, 37, 1, 0]
+    kc, vc = stacked_cache(gen, lens, hkv=hkv)
+    q = randn(gen, len(lens), hq, 1, 128)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    scale = 128 ** -0.5
+    acc, m, l = flash_decode.decode_partials(q, kc[1], vc[1], lengths, scale, 5, window)
+    acc_p, m_p, l_p = flash_decode.decode_partials_plain(q, kc[1], vc[1], lengths, scale, 5,
+                                                         window)
+    torch.testing.assert_close(m, m_p, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(l, l_p, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(acc, acc_p, rtol=1e-4, atol=1e-3)
+    before = flash_decode.PARTIALS.launches
+    out = flash_decode.flash_attention_decode(q, kc, vc, kv_length=lengths, window=window,
+                                              layer=1)
+    torch.cuda.synchronize()
+    assert flash_decode.PARTIALS.launches == before + 1
+    ref = flash_decode.flash_attention_decode_plain(q.float(), kc, vc, kv_length=lengths,
+                                                    window=window, layer=1)
+    assert torch.isfinite(out).all() and (out[5] == 0).all()
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+    if window >= max(lens):  # a window at least the length is no window
+        assert torch.equal(out, flash_decode.flash_attention_decode(q, kc, vc, lengths, layer=1))
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("case", ["verify_s5", "chunk_s256", "inactive_row", "noncausal"])
+def test_windowed_chunked_extend_kernel_matches_plain(device, case, window):
+    hq, hkv, s, cap, offs, kvl, d, causal, dtype = CHUNKED[case]
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    q, k, v, off, lens = chunked_inputs(gen, hq, hkv, s, cap, offs, kvl, d, dtype)
+    before = flash_chunked.CHUNKED.launches
+    out = flash_chunked.flash_attention_chunked(q, k, v, off, lens, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_chunked.CHUNKED.launches == before + 1
+    ref = flash_chunked.flash_attention_chunked_plain(q.float(), k, v, off, lens, causal=causal,
+                                                      window=window)
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("ps", [16, 128])
+def test_windowed_paged_kernels_match_plain(device, ps, window):
+    """B5 (+ D2) and B6 over NaN-poisoned pools."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    lens = [0, 1, ps - 1, ps + 1, 100, 1024, 777, 2 * ps + 1]
+    kp, vp, table = paged_pool(gen, ps, len(lens), lengths=lens)
+    q = randn(gen, len(lens), 32, 1, 128)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    out = paged_attention.paged_attention_decode(q, kp, vp, lengths, table, window=window)
+    ref = paged_attention.paged_attention_decode_plain(q.float(), kp, vp, lengths, table,
+                                                       window=window)
+    assert torch.isfinite(out).all() and (out[0] == 0).all()
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+
+    offs, kvl = [0, 256, 700, 0], [256, 512, 956, 0]
+    kp, vp, table = paged_pool(gen, ps, len(offs), lengths=kvl)
+    q = randn(gen, len(offs), 256, 32, 128).transpose(1, 2)
+    off_t, kvl_t = (torch.tensor(x, dtype=torch.int32, device="cuda") for x in (offs, kvl))
+    before = paged_attention.PAGED_EXTEND.launches
+    out = paged_attention.paged_attention_extend(q, kp, vp, off_t, kvl_t, table, window=window)
+    torch.cuda.synchronize()
+    assert paged_attention.PAGED_EXTEND.launches == before + 1
+    ref = paged_attention.paged_attention_extend_plain(q.float(), kp, vp, off_t, kvl_t, table,
+                                                       window=window)
+    assert torch.isfinite(out).all() and (out[3] == 0).all()
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("name", list(KV_DTYPES))
+def test_windowed_quant_kernels_match_plain(device, name, window):
+    """B7 (+ D2) over the stacked cache, B8 (+ D2) and B9 over pools, the
+    scales (and e4m3 values) NaN at and past every length."""
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    dtype = KV_DTYPES[name]
+    lens = [0, 1, 63, 100, 544, 2048]
+    k, v = (quant.quantize_kv(randn(gen, 2, len(lens), 8, 2048, 128, dtype=torch.float32), dtype)
+            for _ in "kv")
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    dead = torch.arange(2048, device="cuda")[None, :] >= lengths[:, None]
+    for kv in (k, v):
+        poison(kv, dead[None, :, None, :].expand(2, -1, 8, -1))
+    q = randn(gen, len(lens), 32, 1, 128)
+    out = quant.flash_attention_decode_quantized(q, k, v, lengths, window=window, layer=1)
+    ref = quant.flash_attention_decode_quantized_plain(q.float(), k, v, lengths, window=window,
+                                                       layer=1)
+    assert torch.isfinite(out).all() and (out[0] == 0).all()
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+    del k, v
+
+    lens = [0, 1, 15, 17, 100, 1024, 777]
+    k, v, table = quant_paged_pool(gen, 16, len(lens), dtype, lens)
+    q = randn(gen, len(lens), 32, 1, 128)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    out = quant.paged_attention_decode_quantized(q, k, v, lengths, table, window=window)
+    ref = quant.paged_attention_decode_quantized_plain(q.float(), k, v, lengths, table,
+                                                       window=window)
+    assert torch.isfinite(out).all() and (out[0] == 0).all()
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+
+    offs, kvl = [0, 256, 700, 0], [100, 356, 800, 0]
+    k, v, table = quant_paged_pool(gen, 16, len(offs), dtype, kvl)
+    q = randn(gen, len(offs), 100, 32, 128).transpose(1, 2)
+    off_t, kvl_t = (torch.tensor(x, dtype=torch.int32, device="cuda") for x in (offs, kvl))
+    before = quant.QUANT_PAGED_EXTEND.launches
+    out = quant.paged_attention_extend_quantized(q, k, v, off_t, kvl_t, table, window=window)
+    torch.cuda.synchronize()
+    assert quant.QUANT_PAGED_EXTEND.launches == before + 1
+    ref = quant.paged_attention_extend_quantized_plain(q.float(), k, v, off_t, kvl_t, table,
+                                                       window=window)
+    assert torch.isfinite(out).all() and (out[3] == 0).all()
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+
+
+def test_windowed_model_forwards_launch_the_windowed_kernels(device):
+    """A Mistral-style model (window 48 on every layer) prefills 100 tokens
+    through B2, decodes through D1 + D2 and extends through B4, each launch
+    windowed, and agrees with its plain_attention route."""
+    cfg = tiny_test_config(num_layers=2, num_q_heads=4, num_kv_heads=2, head_dim=64,
+                           sliding_window=48, use_sliding_window=True, dtype=torch.bfloat16)
+    params = init_params(cfg, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    ids = torch.randint(0, cfg.vocab_size, (2, 106), generator=gen, device="cuda")
+    logits = {}
+    for plain in (False, True):
+        cache = KVCache.create(cfg, 2, 128)
+        before = (flash_fwd.WINDOWED_PREFILL.launches, flash_fwd.PREFILL.launches,
+                  flash_decode.PARTIALS.launches, flash_chunked.CHUNKED.launches)
+        outs = []
+        for lo, hi, mode in ((0, 100, "prefill"), (100, 101, "decode"), (101, 106, "extend")):
+            out, cache = forward(params, cfg, ids[:, lo:hi], cache=cache, mode=mode,
+                                 plain_attention=plain)
+            outs.append(out)
+        torch.cuda.synchronize()
+        after = (flash_fwd.WINDOWED_PREFILL.launches, flash_fwd.PREFILL.launches,
+                 flash_decode.PARTIALS.launches, flash_chunked.CHUNKED.launches)
+        want = (0, 0, 0, 0) if plain else (2, 0, 2, 2)  # B2, P, D1, B4: layers x forwards
+        assert tuple(a - b for a, b in zip(after, before)) == want
+        logits[plain] = torch.cat(outs, dim=1)
+    assert (logits[False] - logits[True]).abs().max().item() <= 0.1

@@ -6,8 +6,8 @@ kernels run in interpret mode (its own tests' CPU route); the port's CPU
 tensors take the plain versions of kernels B7, B8, B9 and QA. Tolerances:
 `quantize_kv` and the appends must be bit-identical to JAX's; attention
 agrees to 2e-5 absolute at fp32 (the same scores summed in another order).
-The CUDA kernels do not take window and soft cap; the plain versions do,
-and are held to the JAX kernels with them too.
+The CUDA kernels take the window but not the soft cap; the plain versions
+take both and are held to the JAX kernels with them too.
 """
 
 import jax.numpy as jnp
