@@ -30,7 +30,20 @@ Phases, in order; any failure exits non-zero:
      the window cannot bind) at S 5120, 1000 and Sq 256 / Skv 1024, and D1 +
      D2 (splits below the window dead) at Mistral-7B's (32 / 8) and
      Qwen2-7B's (28 / 4, group 7) widths; B4, B5, B6, B7, B8, B9 windowed at
-     Mistral widths over contexts up to 5152 keys, NaN past every length.
+     Mistral widths over contexts up to 5152 keys, NaN past every length;
+     (3f) the training kernels: the lse of P and B2 against the plain lse
+     (finite entries within LSE_TOL, the same +inf rows), then B13a (dK,
+     dV) and B13b (dQ) against the plain recompute backward fed the same o,
+     dO and lse, on transposed q / k / v views and a non-contiguous dO:
+     causal B 2 S 2048, non-causal, windows 100 and 4096 at S 5120, Sq 256
+     / Skv 1024, Sq 1024 / Skv 256 (dQ rows of exact zeros), ragged S 1000,
+     D 64, f16, Qwen2-7B's 28 / 4; then autograd through
+     `ops.autodiff.flash_attention` against autograd through the fp32
+     reference; (3g) B12 (packed ragged batch) against its plain version
+     (each sequence's dense attention, run per segment) over 32 sequences of
+     numpy-seeded lengths 100-2048 (one of 1 token, a total not a multiple
+     of 64) at Llama widths: causal, full, kv 0-512 tokens longer, window
+     256.
   4. main paths: greedy generation of Llama-3-8B (random weights from a
      seeded CUDA generator) at B 4, prompt 512, 64 new tokens; launch
      counters show the kernels carried it; teacher-forced logits of the
@@ -82,7 +95,19 @@ Phases, in order; any failure exits non-zero:
      one contiguous prefill (B2). (4g) Qwen2-7B (non-zero q/k/v biases,
      28 / 4 heads): teacher-forced logits at B 4, prompt 512, and greedy
      generation of 32 tokens (P 28, D1 + D2 31 x 28). Each tree is dropped
-     before the next is drawn.
+     before the next is drawn. (4h) Training: Llama-3-8B at full width,
+     depth cut to 8 layers (printed; AdamW over 32 bf16 layers needs about
+     64 GB before activations), random weights from a seeded CUDA
+     generator, every parameter trained: the first step's gradients on the
+     plain route (`plain_attention=True`), then three `torch.optim.AdamW`
+     steps (lr TRAIN_LR) of the next-token loss on one batch of B 2 x S 2048
+     numpy-seeded ids; the loss falls from step 1 to step 3, every gradient
+     is finite, P (with its lse), B13a and B13b launch layers x steps times
+     and nothing else launches, and the first step's gradients on the
+     kernel route are held to the plain route's leaf by leaf (relative norm
+     error <= TRAIN_GRAD_TOL); step times, tokens/s, peak memory and the
+     profiler's split of a fourth step. (4i) The varlen entry point
+     (`flash_attention_varlen`) over 3g's packed batch: B12 once.
   5. numbers: per-kernel times, bounds and library times as one JSON line
      (for B7-B9 the library call is SDPA over a dequantized bf16 copy, for
      B10 / B11 `x @ w` over a dequantized bf16 weight; the dequantization is
@@ -95,8 +120,12 @@ Phases, in order; any failure exits non-zero:
      parameter tree; (5b) B2's row at Mistral-7B's greedy prefill (B 2,
      S 5120, W 4096; library_ms: SDPA with the window as a boolean mask)
      and, under "window", each of D1, B4, B5-B9 with W 4096 at a Mistral
-     shape past the window; the Mistral / Qwen2 numbers ("families"); the
-     card's name and power limit.
+     shape past the window; the Mistral / Qwen2 numbers ("families"); (5c)
+     the rows of B13a and B13b at the training step's attention (B 2, S
+     2048, causal; library_ms: SDPA's backward, forward + backward minus
+     forward) and of B12 at 3g's packed batch (library_ms: SDPA over the
+     padded batch), and the lse's cost on P and B2 (with and without it);
+     the training numbers ("training"); the card's name and power limit.
 The last line is {"ok": true, "device": {...}}.
 
 Tolerances: kernel outputs are bf16 results of fp32 arithmetic on bf16
@@ -1460,7 +1489,8 @@ def kernel_entries(rows, errs, path_counts) -> list:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "shape": r.get("shape", "the main path's"),
-            **{key: r[key] for key in ("prefill", "chunk", "window") if key in r},
+            **{key: r[key] for key in ("prefill", "chunk", "window", "lse", "max_rel_err")
+               if key in r},
         })
     return out
 
@@ -2207,6 +2237,416 @@ def profile_decode(torch, params, cfg, cache, tok, steps=4):
     }
 
 
+# Phase 3f: (name, batch, hq, hkv, sq, skv, d, causal, window, dtype) of the
+# backward kernels B13a / B13b (and the lse of P / B2) against their plain
+# versions; Llama-3-8B attention widths unless the name says otherwise.
+BWD_CASES = (
+    ("causal B2 S2048", 2, 32, 8, 2048, 2048, 128, True, None, "bfloat16"),
+    ("non-causal S1024", 1, 32, 8, 1024, 1024, 128, False, None, "bfloat16"),
+    ("window 100 S5120", 1, 32, 8, 5120, 5120, 128, True, 100, "bfloat16"),
+    ("window 4096 S5120", 1, 32, 8, 5120, 5120, 128, True, 4096, "bfloat16"),
+    ("Sq256 Skv1024", 1, 32, 8, 256, 1024, 128, True, None, "bfloat16"),
+    ("Sq1024 Skv256 zero rows", 1, 32, 8, 1024, 256, 128, True, None, "bfloat16"),
+    ("ragged S1000", 1, 32, 8, 1000, 1000, 128, True, None, "bfloat16"),
+    ("D64 S1024", 2, 32, 8, 1024, 1024, 64, True, None, "bfloat16"),
+    ("f16 S1024", 1, 32, 8, 1024, 1024, 128, True, None, "float16"),
+    ("Qwen2-7B 28/4 S1024", 1, 28, 4, 1024, 1024, 128, True, None, "bfloat16"),
+)
+LSE_TOL = 1e-3
+GRAD_REL_TOL = 2e-2
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b|: gradients grow with the sequence."""
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1e-30)).item()
+
+
+def phase_training_kernels(torch, ops, errs, rel_errs):
+    """The lse of P / B2 and the backward kernels B13a (dK, dV) and B13b (dQ)
+    against their plain versions, fed one and the same o, dO and lse (the
+    kernel forward's), on the model's transposed q / k / v views and a
+    non-contiguous dO; then autograd through `ops.autodiff.flash_attention`
+    against autograd through the fp32 reference.
+
+    Tolerances: the lse (log2 units) within LSE_TOL of the plain fp32 lse on
+    finite entries, the same +inf pattern (both sum the same fp32
+    probabilities in another order). Gradients within GRAD_REL_TOL of the
+    plain fp32 gradient, as max |diff| / max |plain|: they grow with S, and
+    the kernels round P and dS to bf16 / f16 before their products (one step
+    is 2^-8 relative), as the forward rounds P before PV."""
+    flash_fwd, flash_bwd, autodiff = ops["flash_fwd"], ops["flash_bwd"], ops["autodiff"]
+    gen = torch.Generator(device="cuda").manual_seed(7070)
+    for name, b, hq, hkv, sq, skv, d, causal, window, dt in BWD_CASES:
+        dtype = getattr(torch, dt)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+        q = randn(b, sq, hq, d).transpose(1, 2)
+        k, v = (randn(b, skv, hkv, d).transpose(1, 2) for _ in "kv")
+        do = randn(b, sq, hq, d).transpose(1, 2)
+        o, lse = flash_fwd.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                               return_lse=True)
+        _, ref = flash_fwd.flash_attention_fwd_plain(q, k, v, causal=causal, window=window,
+                                                     return_lse=True)
+        check(torch.equal(torch.isinf(lse), torch.isinf(ref)), f"{name}: lse +inf pattern")
+        fin = torch.isfinite(ref)
+        e_lse = (lse[fin] - ref[fin]).abs().max().item()
+        fwd_name = "flash_fwd_window" if window and window < skv else "flash_fwd"
+        errs[f"{fwd_name} lse"] = max(errs.get(f"{fwd_name} lse", 0.0), e_lse)
+        check(e_lse <= LSE_TOL, f"{name}: lse within {LSE_TOL}")
+        if sq > skv and causal:
+            check(bool(torch.isinf(lse[:, :, : sq - skv]).all()), f"{name}: dead rows' lse +inf")
+        del ref
+        before = (flash_bwd.DKV.launches, flash_bwd.DQ.launches)
+        got = flash_bwd.flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window)
+        torch.cuda.synchronize()
+        check((flash_bwd.DKV.launches - before[0], flash_bwd.DQ.launches - before[1]) == (1, 1),
+              f"{name}: one launch each of B13a and B13b")
+        want = flash_bwd.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o, do, lse,
+                                                   causal=causal, window=window)
+        rel = [rel_err(a, w) for a, w in zip(got, want)]
+        for kname, idx in (("flash_bwd_dq", (0,)), ("flash_bwd_dkv", (1, 2))):
+            errs[kname] = max([errs.get(kname, 0.0)] + [max_err(got[i], want[i]) for i in idx])
+            rel_errs[kname] = max([rel_errs.get(kname, 0.0)] + [rel[i] for i in idx])
+        print(f"  B13 {name} (Hq {hq} Hkv {hkv} D {d} {dt}, window {window}): lse max|diff| "
+              f"{e_lse:.2e}; dq / dk / dv max|diff| / max|plain| "
+              + " / ".join(f"{r:.2e}" for r in rel))
+        check(all(bool(torch.isfinite(g).all()) for g in got), f"{name}: gradients finite")
+        check(max(rel) <= GRAD_REL_TOL, f"{name}: gradients within {GRAD_REL_TOL} (relative)")
+        if sq > skv and causal:
+            check(bool((got[0][:, :, : sq - skv] == 0).all()), f"{name}: dq rows with no key 0")
+        del q, k, v, do, o, lse, got, want
+        torch.cuda.empty_cache()
+
+    # autograd through the op against autograd through the fp32 reference.
+    q = torch.randn((2, 32, 2048, 128), generator=gen, device="cuda").bfloat16().requires_grad_()
+    k, v = (torch.randn((2, 8, 2048, 128), generator=gen, device="cuda").bfloat16()
+            .requires_grad_() for _ in "kv")
+    do = torch.randn((2, 32, 2048, 128), generator=gen, device="cuda").bfloat16()
+    got = torch.autograd.grad(autodiff.flash_attention(q, k, v, causal=True), (q, k, v), do)
+    leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(flash_fwd.flash_attention_fwd_plain(*leaves, causal=True),
+                               leaves, do.float())
+    rel = [rel_err(a, w) for a, w in zip(got, want)]
+    print("  autograd through ops.autodiff.flash_attention vs the fp32 reference (B 2, S 2048, "
+          "causal): dq / dk / dv max|diff| / max|ref| " + " / ".join(f"{r:.2e}" for r in rel))
+    check(max(rel) <= GRAD_REL_TOL, f"autograd grads within {GRAD_REL_TOL} (relative)")
+    del q, k, v, do, got, want, leaves
+    torch.cuda.empty_cache()
+
+
+def varlen_batch(rng_seed=0, count=32):
+    """The packed batch of phases 3g / 4i: `count` sequences of numpy-seeded
+    lengths in [100, 2048], one of them a single token, the total not a
+    multiple of 64; kv lengths 0-512 longer for the cross case."""
+    import numpy as np
+
+    rng = np.random.default_rng(rng_seed)
+    lens = rng.integers(100, 2049, count)
+    lens[5] = 1
+    if lens.sum() % 64 == 0:
+        lens[-1] -= 1
+    extra = rng.integers(0, 513, count)
+    return [int(x) for x in lens], [int(x + e) for x, e in zip(lens, extra)]
+
+
+def varlen_inputs(torch, gen, lens_q, lens_kv, hq=32, hkv=8, d=128):
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def cu(lens):
+        return torch.tensor([0] + lens, device="cuda").cumsum(0).to(torch.int32)
+
+    return (randn(sum(lens_q), hq, d), randn(sum(lens_kv), hkv, d), randn(sum(lens_kv), hkv, d),
+            cu(lens_q), cu(lens_kv))
+
+
+def phase_varlen_kernels(torch, flash_varlen, errs):
+    """B12 against its plain version (each sequence's dense attention in
+    fp32, run per segment: never a [T, T] matrix) over 32 packed sequences
+    of 100-2048 tokens at Llama-3-8B widths: self-attention causal and
+    full, kv 0-512 tokens longer than q per sequence (bottom-right
+    causality, rows of a sequence longer than its keys exact zeros), a
+    causal window of 256. Tolerance BF16_TOL (a bf16 result of fp32
+    arithmetic on bf16 inputs)."""
+    gen = torch.Generator(device="cuda").manual_seed(7171)
+    lens_q, lens_kv = varlen_batch()
+    print(f"  packed batch: {len(lens_q)} sequences, {sum(lens_q)} tokens (lengths "
+          f"{min(lens_q)}-{max(lens_q)}; kv {sum(lens_kv)} tokens in the cross case)")
+    for name, kv_lens, causal, window in (("causal", None, True, None),
+                                          ("full", None, False, None),
+                                          ("cross kv +0-512", lens_kv, True, None),
+                                          ("window 256", None, True, 256)):
+        q, k, v, cu_q, cu_kv = varlen_inputs(torch, gen, lens_q, kv_lens or lens_q)
+        before = flash_varlen.VARLEN.launches
+        out = flash_varlen.flash_attention_varlen(q, k, v, cu_q, cu_kv, causal=causal,
+                                                  window=window)
+        torch.cuda.synchronize()
+        check(flash_varlen.VARLEN.launches == before + 1, f"B12 {name}: one launch")
+        seg_q, pos_q = flash_varlen._seg_metadata(cu_q, q.shape[0])
+        seg_kv, pos_kv = flash_varlen._seg_metadata(cu_kv, k.shape[0])
+        bounds = pos_q + (cu_kv.diff() - cu_q.diff())[seg_q.long()]
+        ref = flash_varlen.flash_attention_packed_plain(
+            q.float().transpose(0, 1), k.transpose(0, 1), v.transpose(0, 1), seg_q, seg_kv,
+            bounds, pos_kv, causal=causal, window=window).transpose(0, 1)
+        e = max_err(out, ref)
+        errs["flash_varlen"] = max(errs.get("flash_varlen", 0.0), e)
+        print(f"  B12 {name}: max|diff| {e:.3e}")
+        check(bool(torch.isfinite(out).all()), f"B12 {name}: finite")
+        check(e <= BF16_TOL, f"B12 {name} within {BF16_TOL}")
+        if kv_lens is None and causal:
+            one = sum(lens_q[:5])  # the 1-token sequence sees itself: its V row
+            check(max_err(out[one], v[one].repeat_interleave(4, dim=0)) == 0.0,
+                  "B12: a 1-token sequence returns its own V row")
+        del q, k, v, out, ref
+        torch.cuda.empty_cache()
+
+
+TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 8, 2, 2048, 3, 3e-4
+TRAIN_GRAD_TOL = 0.05
+
+
+def next_token_loss(torch, params, cfg, ids, plain=False):
+    """The loss of tests/test_autodiff.py: mean next-token NLL in fp32."""
+    from flash_attention_cute_tpu_torch.models.transformer import forward
+
+    logits, _ = forward(params, cfg, ids, plain_attention=plain)
+    return torch.nn.functional.cross_entropy(logits[:, :-1].flatten(0, 1), ids[:, 1:].flatten())
+
+
+def phase_training(torch, cfg, kernels, path_counts):
+    """Three AdamW steps of Llama-3-8B at full width, depth cut (printed),
+    on one batch of numpy-seeded ids; every parameter trained."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from flash_attention_cute_tpu_torch.models.transformer import init_params
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, generator=torch.Generator(device="cuda").manual_seed(3))
+    leaves = [params["embed"], params["final_ln"], params["lm_head"],
+              *params["layers"].values()]
+    names = ["embed", "final_ln", "lm_head", *params["layers"]]
+    for w in leaves:
+        w.requires_grad_()
+    ids = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (TRAIN_B, TRAIN_S))).to("cuda")
+    torch.cuda.synchronize()
+    print(f"  tree drawn in {time.perf_counter() - t0:.1f} s ({tree_bytes(params) / 1e9:.2f} GB)")
+
+    # First-step gradients on the plain route (fp32 attention scores).
+    next_token_loss(torch, params, cfg, ids, plain=True).backward()
+    plain_grads = [w.grad for w in leaves]
+    for w in leaves:
+        w.grad = None
+    torch.cuda.empty_cache()
+
+    opt = torch.optim.AdamW(leaves, lr=TRAIN_LR)
+    for k in kernels.values():
+        k.launches = 0
+    losses, step_s, grad_rel = [], [], {}
+    for step in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = next_token_loss(torch, params, cfg, ids)
+        loss.backward()
+        torch.cuda.synchronize()
+        t_bwd = time.perf_counter() - t0
+        if step == 0:  # not timed: the first step's gradients vs the plain route's
+            for n, w, g in zip(names, leaves, plain_grads):
+                check(bool(torch.isfinite(w.grad).all()), f"training: {n} gradient finite")
+                grad_rel[n] = ((w.grad.float() - g.float()).norm() / g.float().norm()).item()
+            del plain_grads
+        t0 = time.perf_counter()
+        opt.step()
+        torch.cuda.synchronize()
+        step_s.append(t_bwd + time.perf_counter() - t0)
+        losses.append(loss.item())
+    counts = {name: k.launches for name, k in kernels.items()}
+    path_counts["training"] = counts
+    n = cfg.num_layers * TRAIN_STEPS
+    print(f"  losses {[round(x, 4) for x in losses]} (lr {TRAIN_LR}); step s "
+          f"{[round(x, 3) for x in step_s]}; launches { {k: c for k, c in counts.items() if c} }")
+    print("  first-step gradients, kernel route vs plain route, |diff| / |plain| per leaf: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in grad_rel.items()))
+    check_counts(counts, {"flash_fwd": n, "flash_bwd_dkv": n, "flash_bwd_dq": n}, "training")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"training loss falls from step 1 to step {TRAIN_STEPS}: {losses}")
+    check(max(grad_rel.values()) <= TRAIN_GRAD_TOL,
+          f"first-step gradients within {TRAIN_GRAD_TOL} of the plain route's (relative norm)")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    # The profiler's split of one more step (not counted: a fourth step).
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        opt.zero_grad(set_to_none=True)
+        next_token_loss(torch, params, cfg, ids).backward()
+        opt.step()
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    # Kernels only: a user annotation's range (the optimizer step's) would
+    # count its kernels twice.
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
+              and not getattr(e, "is_user_annotation", False)]
+    split = {"B13a dK/dV": 0.0, "B13b dQ": 0.0, "P (forward with lse)": 0.0,
+             "cuBLAS products": 0.0, "other": 0.0}
+    other = []
+    for e in events:
+        key = e.key
+        part = ("B13a dK/dV" if "flash_bwd_dkv" in key else "B13b dQ" if "flash_bwd_dq" in key
+                else "P (forward with lse)" if "attention_fwd" in key
+                else "cuBLAS products" if any(s in key.lower() for s in (
+                    "nvjet", "gemm", "cutlass", "xmma", "cublas")) else "other")
+        split[part] += dev_us(e) / 1e3
+        if part == "other":
+            other.append([key[:70], dev_us(e) / 1e3, e.count])
+    top_other = sorted(other, key=lambda x: -x[1])[:6]
+    print("  profiled step, device ms: " + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+          + f" (total {sum(split.values()):.2f}); largest other: {top_other}"
+          if events else "  profiler recorded no device time")
+    mean_s = sum(step_s[1:]) / len(step_s[1:])
+    out = {
+        "layers": cfg.num_layers, "batch": TRAIN_B, "seq": TRAIN_S, "lr": TRAIN_LR,
+        "losses": losses, "step_s": step_s, "step_ms_steady": 1e3 * mean_s,
+        "tokens_per_s_steady": TRAIN_B * TRAIN_S / mean_s,
+        "first_step_grad_rel_norm_err_max": max(grad_rel.values()),
+        "first_step_grad_rel_norm_err": grad_rel, "peak_memory_gb": peak,
+        "profiled_step_device_ms": split if events else "not measured",
+        "profiled_step_largest_other_ms": top_other,
+    }
+    del params, leaves, opt, loss
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_varlen_path(torch, kernels, path_counts):
+    """The cu_seqlens entry point as a caller runs it: the 32-sequence
+    packed batch of phase 3g, causal, once (B12 1 launch)."""
+    from flash_attention_cute_tpu_torch import flash_attention_varlen
+
+    lens_q, _ = varlen_batch()
+    q, k, v, cu, _ = varlen_inputs(torch, torch.Generator(device="cuda").manual_seed(7272),
+                                   lens_q, lens_q)
+    out, wall, counts = counted_run(torch, kernels,
+                                    lambda: flash_attention_varlen(q, k, v, cu, causal=True))
+    path_counts["varlen"] = counts
+    check_counts(counts, {"flash_varlen": 1}, "varlen")
+    check(tuple(out.shape) == tuple(q.shape) and bool(torch.isfinite(out).all()),
+          "varlen output finite, [T, Hq, D]")
+    print(f"  flash_attention_varlen over {len(lens_q)} sequences ({q.shape[0]} tokens): "
+          f"{wall * 1e3:.2f} ms (host clock), launches { {k: c for k, c in counts.items() if c} }")
+
+
+def training_rows(torch, ops, gen):
+    """Kernel rows of B13a and B13b at the training step's attention (B 2,
+    S 2048, causal, Llama-3-8B widths) and of B12 at the 32-sequence packed
+    batch. Bounds: B13a 8 D and B13b 6 D operations per visible (row, key)
+    pair and q head, B12 4 D, at the bf16 tensor-core rate, or their bytes
+    (inputs once, outputs once), whichever is longer. `plain_ms` of B13a and
+    B13b is the whole plain backward (it computes dq, dk and dv at once),
+    their `library_ms` the backward of SDPA (is_causal, enable_gqa) timed as
+    forward + backward minus forward, also for all three gradients. B12's
+    `library_ms` is SDPA (is_causal, enable_gqa) over the batch padded to
+    [32, 32, 2048, 128]: it computes the padding too."""
+    from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms
+
+    flash_fwd, flash_bwd, flash_varlen = ops["flash_fwd"], ops["flash_bwd"], ops["flash_varlen"]
+    f = torch.nn.functional
+    b, hq, hkv, s, d = TRAIN_B, 32, 8, TRAIN_S, 128
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    q, do = randn(b, hq, s, d), randn(b, hq, s, d)
+    k, v = randn(b, hkv, s, d), randn(b, hkv, s, d)
+    o, lse = flash_fwd.flash_attention_fwd(q, k, v, causal=True, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    pairs = b * hq * s * (s + 1) // 2
+    io = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * 2 * lse.numel()  # q, dO, k, v; lse, delta
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def sdpa():
+        return f.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+
+    lib_ms = (cuda_time_ms(lambda: torch.autograd.grad(sdpa(), (qs, ks, vs), do), 10)
+              - cuda_time_ms(sdpa, 10))
+    plain_ms = cuda_time_ms(lambda: flash_bwd.flash_attention_bwd_plain(q, k, v, o, do, lse,
+                                                                        causal=True), 3)
+    rows = []
+    for name, kernel, outs, ops_per_pair, out_bytes, line in (
+            ("flash_bwd_dkv", flash_bwd.DKV, (dk, dv), 8, 2 * 2 * k.numel(), 84),
+            ("flash_bwd_dq", flash_bwd.DQ, (dq, None), 6, 2 * q.numel(), 173)):
+        def fn(kernel=kernel, outs=outs):
+            flash_bwd.launch(kernel, q, k, v, do, lse, delta, *outs, d ** -0.5, True, 0)
+        rows.append({
+            "name": name, "route": "cuda", "source": "flash_attention_cute_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": f"flash_attention_cute_tpu/ops/flash_bwd.py:{line}",
+            "shape": f"B {b}, S {s}, causal, Hq {hq}, Hkv {hkv}, D {d}; plain_ms: the whole plain "
+                     "backward; library_ms: SDPA backward (is_causal, enable_gqa), fwd + bwd - fwd, "
+                     "all three gradients",
+            "ms": cuda_time_ms(fn, 10), "call_ms": call_time_ms(fn, 10), "plain_ms": plain_ms,
+            "library_ms": lib_ms, "ops": ops_per_pair * d * pairs, "bytes": io + out_bytes,
+            "peak": PEAK_BF16})
+    # The lse's cost: P at the training shape, B2 at its row's (Mistral-7B
+    # greedy prefill, W 4096).
+    lse_cost = {}
+    del do, o, lse, delta, dq, dk, dv, qs, ks, vs
+    for name, bb, ss, w in (("flash_fwd", b, s, None),
+                            ("flash_fwd_window", MISTRAL_B, MISTRAL_PROMPT, WINDOW)):
+        if ss != s:
+            q, k, v = randn(bb, hq, ss, d), randn(bb, hkv, ss, d), randn(bb, hkv, ss, d)
+        lse_cost[name] = {
+            "shape": f"B {bb}, S {ss}, causal, window {w}",
+            "ms_without_lse": cuda_time_ms(lambda: flash_fwd.flash_attention_fwd(
+                q, k, v, causal=True, window=w), 10),
+            "ms_with_lse": cuda_time_ms(lambda: flash_fwd.flash_attention_fwd(
+                q, k, v, causal=True, window=w, return_lse=True), 10)}
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    lens, _ = varlen_batch()
+    q, k, v, cu, _ = varlen_inputs(torch, gen, lens, lens)
+    seg, pos = flash_varlen._seg_metadata(cu, q.shape[0])
+    qp, kp, vp = (torch.zeros((len(lens), h, max(lens), d), dtype=torch.bfloat16, device="cuda")
+                  for h in (hq, hkv, hkv))
+    for i, n in enumerate(lens):
+        a = int(cu[i])
+        for dst, src in ((qp, q), (kp, k), (vp, v)):
+            dst[i, :, :n] = src[a:a + n].transpose(0, 1)
+    pairs = sum(n * (n + 1) // 2 for n in lens)
+
+    def run():
+        return flash_varlen.flash_attention_varlen(q, k, v, cu, causal=True)
+
+    rows.append({
+        "name": "flash_varlen", "route": "cuda",
+        "source": "flash_attention_cute_tpu_torch/csrc/flash_varlen.cu",
+        "replaces": "flash_attention_cute_tpu/ops/flash_varlen.py:48",
+        "shape": f"{len(lens)} sequences of {min(lens)}-{max(lens)} tokens ({q.shape[0]} packed), "
+                 f"causal, Hq {hq}, Hkv {hkv}, D {d}; library_ms: SDPA (is_causal, enable_gqa) over "
+                 f"the batch padded to [{len(lens)}, {hq}, {max(lens)}, {d}], padding computed too",
+        "ms": cuda_time_ms(run, 10), "call_ms": call_time_ms(run, 10),
+        "plain_ms": cuda_time_ms(lambda: flash_varlen.flash_attention_packed_plain(
+            q.transpose(0, 1), k.transpose(0, 1), v.transpose(0, 1), seg, seg, pos, pos,
+            causal=True), 2),
+        "library_ms": cuda_time_ms(lambda: f.scaled_dot_product_attention(
+            qp, kp, vp, is_causal=True, enable_gqa=True), 10),
+        "ops": 4 * d * hq * pairs, "bytes": 2 * (2 * q.numel() + 2 * k.numel()) + 4 * 4 * q.shape[0],
+        "peak": PEAK_BF16})
+    del q, k, v, qp, kp, vp
+    torch.cuda.empty_cache()
+    for r in rows:
+        r.update(bound(r.pop("ops"), r.pop("bytes"), r.pop("peak")))
+    return rows, lse_cost
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--layers", type=int, default=0,
@@ -2232,9 +2672,12 @@ def main() -> int:
     # 2. build
     from flash_attention_cute_tpu_torch.ops import (
         _build,
+        autodiff,
+        flash_bwd,
         flash_chunked,
         flash_decode,
         flash_fwd,
+        flash_varlen,
         paged_attention,
         quantized,
         quantized_matmul,
@@ -2243,7 +2686,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     reports = _build.build(["flash_fwd.cu", "flash_decode.cu", "flash_chunked.cu",
-                            "paged_attention.cu", "quantized.cu", "quantized_matmul.cu"])
+                            "paged_attention.cu", "quantized.cu", "quantized_matmul.cu",
+                            "flash_bwd.cu", "flash_varlen.cu"])
     t_nvcc = time.perf_counter() - t0
     native.build()
     print(f"[2] build: nvcc {t_nvcc:.1f} s, then g++ (native scheduler) "
@@ -2270,6 +2714,12 @@ def main() -> int:
            "paged_attention": paged_attention, "quantized": quantized, "dispatch": dispatch}
     print("[3e] sliding windows: B2, and D1, B4, B5-B9 windowed, vs plain (NaN tails)")
     phase_window_kernels(torch, ops, errs)
+    ops.update(flash_bwd=flash_bwd, flash_varlen=flash_varlen, autodiff=autodiff)
+    rel_errs: dict = {}
+    print("[3f] training kernels: the lse of P / B2, B13a (dK, dV) and B13b (dQ) vs plain")
+    phase_training_kernels(torch, ops, errs, rel_errs)
+    print("[3g] packed ragged batch: B12 vs plain (per-sequence dense attention)")
+    phase_varlen_kernels(torch, flash_varlen, errs)
     torch.cuda.synchronize()
 
     # 4. main paths
@@ -2296,7 +2746,9 @@ def main() -> int:
                "quant_paged_extend": quantized.QUANT_PAGED_EXTEND,
                "quant_append": quantized.QUANT_APPEND,
                "quantized_matmul": quantized_matmul.QMM8,
-               "quantized_matmul_int4": quantized_matmul.QMM4}
+               "quantized_matmul_int4": quantized_matmul.QMM4,
+               "flash_bwd_dkv": flash_bwd.DKV, "flash_bwd_dq": flash_bwd.DQ,
+               "flash_varlen": flash_varlen.VARLEN}
     path_counts: dict = {"greedy": {}, "greedy int8": {}}
     torch.cuda.reset_peak_memory_stats()
     ids, bf16_tokens, greedy_wall = phase_main_path(torch, cfg, params, kernels,
@@ -2348,6 +2800,17 @@ def main() -> int:
         del fparams
         torch.cuda.empty_cache()
 
+    # 4h / 4i. Training steps of Llama-3-8B, then the varlen entry point.
+    tcfg = dataclasses.replace(llama3_8b_config(), num_layers=min(
+        TRAIN_LAYERS, args.layers or TRAIN_LAYERS))
+    print(f"[4h] training: Llama-3-8B widths, depth cut {llama3_8b_config().num_layers} -> "
+          f"{tcfg.num_layers} layers (AdamW over 32 bf16 layers needs weights + grads + two "
+          f"states, about 64 GB, before activations), B {TRAIN_B} x S {TRAIN_S}, "
+          f"{TRAIN_STEPS} AdamW steps")
+    training = phase_training(torch, tcfg, kernels, path_counts)
+    print("[4i] varlen: the cu_seqlens entry point over the packed batch of 3g")
+    phase_varlen_path(torch, kernels, path_counts)
+
     for name in kernels:
         check(sum(c[name] for c in path_counts.values()) > 0,
               f"{name} launched on a main path")
@@ -2363,16 +2826,26 @@ def main() -> int:
     for r in rows:
         if r["name"] in windowed:
             r["window"] = windowed[r["name"]]
+    print("[5c] numbers of the training kernels (B 2, S 2048) and of B12 (the packed batch)")
+    trows, lse_cost = training_rows(torch, ops, torch.Generator(device="cuda").manual_seed(78))
+    for r in trows:
+        if r["name"] in rel_errs:
+            r["max_rel_err"] = rel_errs[r["name"]]
+    rows += trows
+    for r in rows:
+        if r["name"] in ("flash_fwd", "flash_fwd_window"):
+            r["lse"] = {"max_abs_err": errs[f"{r['name']} lse"], **lse_cost[r["name"]]}
     # Peak over the whole script: serving reset the counter before each run.
     numbers["max_memory_allocated_gb"] = max(
         [numbers["max_memory_allocated_gb"], serving.pop("peak_before_serving_gb")]
         + [r["peak_memory_gb"] for r in serving.values()]
-        + [f["peak_memory_gb"] for f in families.values()])
+        + [f["peak_memory_gb"] for f in families.values()] + [training["peak_memory_gb"]])
     print(json.dumps(profile))
     print(json.dumps(numbers))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"speculative": speculative}))
     print(json.dumps({"families": families}))
+    print(json.dumps({"training": training}))
     print(json.dumps({"kernels": kernel_entries(rows, errs, path_counts)}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

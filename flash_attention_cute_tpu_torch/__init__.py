@@ -14,6 +14,7 @@ device="cuda".
 """
 
 from flash_attention_cute_tpu_torch.api import flash_attention_forward, flash_attn_func
+from flash_attention_cute_tpu_torch.ops.flash_varlen import flash_attention_varlen
 from flash_attention_cute_tpu_torch.ops.reference import attention_reference
 
 __version__ = "0.1.0"
@@ -21,6 +22,7 @@ __version__ = "0.1.0"
 __all__ = [
     "flash_attn_func",
     "flash_attention_forward",
+    "flash_attention_varlen",
     "attention_reference",
     "__version__",
 ]

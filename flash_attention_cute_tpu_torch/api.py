@@ -9,10 +9,17 @@
     cache) -> the chunked extend (ops/flash_chunked.py, kernel B4 on
     CUDA). kv_length None means the full Skv; q_offset None means
     kv_length - seqlen_q (bottom-right alignment per row).
-  * otherwise (prefill) -> the prefill forward (ops/flash_fwd.py).
+  * otherwise (prefill) -> the prefill forward (ops/flash_fwd.py). When
+    autograd records (`torch.is_grad_enabled()` and q, k or v requires
+    grad) and there is no soft cap, dense prefill goes through the
+    differentiable op `ops.autodiff.flash_attention` instead: the same
+    forward kernel with its lse, and the recompute backward kernels
+    (ops/flash_bwd.py). The JAX package routes dense prefill at default
+    knobs through its custom-VJP op the same way. Under `torch.no_grad`
+    (serving, generation) the call is the plain forward, with no lse.
 
-Each op chooses kernel or plain version by the device of its tensors. This
-slice is forward only: the autograd route arrives with the training slice.
+Each op chooses kernel or plain version by the device of its tensors.
+Decode and extend are forward only.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from flash_attention_cute_tpu_torch import dispatch
+from flash_attention_cute_tpu_torch.ops import autodiff
 from flash_attention_cute_tpu_torch.ops.flash_chunked import flash_attention_chunked
 from flash_attention_cute_tpu_torch.ops.flash_decode import flash_attention_decode
 from flash_attention_cute_tpu_torch.ops.flash_fwd import flash_attention_fwd
@@ -63,6 +71,10 @@ def flash_attention_forward(
             q, k, v, q_offset, kv_length, sm_scale=softmax_scale, causal=causal,
             window=window, logit_softcap=logit_softcap,
         )
+    if (logit_softcap is None and torch.is_grad_enabled()
+            and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        return autodiff.flash_attention(q, k, v, sm_scale=softmax_scale, causal=causal,
+                                        window=window)
     return flash_attention_fwd(
         q, k, v, sm_scale=softmax_scale, causal=causal, window=window,
         logit_softcap=logit_softcap,

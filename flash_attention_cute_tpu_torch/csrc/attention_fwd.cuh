@@ -2,8 +2,9 @@
 // (prefill over contiguous K/V, without and with a sliding window,
 // flash_fwd.cu), kernel B4 (chunked extend over a contiguous cache,
 // flash_chunked.cu), kernel B6 (chunked prefill over a paged cache,
-// paged_attention.cu) and kernel B9 (B6 over a quantized paged cache,
-// quantized.cu): O = softmax(Q K^T * scale + mask) V.
+// paged_attention.cu), kernel B9 (B6 over a quantized paged cache,
+// quantized.cu) and kernel B12 (a packed ragged batch, flash_varlen.cu):
+// O = softmax(Q K^T * scale + mask) V.
 //
 // Key n is visible from query row m iff n < skv, when causal
 // n <= m + offset, and with a sliding window W (a runtime argument, 0 for
@@ -16,6 +17,16 @@
 //     global positions, `col <= q_offset + row`).
 //   * kPaged: how a key row is addressed: by the batch and row strides of a
 //     contiguous cache (P, B4) or through the page table (B6, B9).
+// B12 (kVarlen, neither of the two) runs one batch row of packed tokens:
+// key n is visible from row m iff kv_seg[n] == q_seg[m], when causal
+// kv_pos[n] <= q_bound[m], and with a window kv_pos[n] > q_bound[m] - W.
+// Each block finds its live key range from the sorted segment ids on the
+// device (binary searches: the first key of its first row's segment, past
+// that row's window, to the last key of its last row's segment, cut at
+// that row's causal bound), walks only those keys, and masks every tile
+// with the segment ids and positions staged in shared memory.
+// P and B2 may also write the per-row lse (FwdParams::lse, null otherwise):
+// m + log2(l) of the base-2 scores, +inf on a row with no visible key.
 // Exact online softmax in fp32 (the `stable="strict"` semantics, no lazy
 // max), deferred 1/l with the l == 0 -> 0 guard, so rows with no visible
 // key (and whole rows of kv_length 0) emit exact zeros. GQA: q head h
@@ -45,6 +56,8 @@
 // tile once per GQA group.
 #pragma once
 
+#include <climits>
+
 #include "common.cuh"
 
 namespace fact {
@@ -65,6 +78,13 @@ struct FwdParams {
   const int* kv_length;   // B4, B6: [B] int32 keys visible to the chunk (0 = inactive)
   const int* page_table;  // paged: [B, pps] int32
   int pps, page_size;     // paged only
+  float* lse;  // P, B2: [B, Hq, Sq] f32 per-row log2-sum-exp, or null (read by P / B2 only)
+  // B12: int32 metadata of the packed tokens (sq = Tq, skv = Tkv, batch 1);
+  // segment ids non-decreasing, kv_pos counting from 0 at a segment's first key.
+  const int* q_seg;
+  const int* q_bound;
+  const int* kv_seg;
+  const int* kv_pos;
 };
 
 // Extra arguments of the quantized instantiation (B9): the scales of one
@@ -81,19 +101,36 @@ constexpr int kBlockM = 64;   // query rows per block (16 per warp)
 constexpr int kBlockN = 64;   // keys per tile
 constexpr int kFwdThreads = 128;
 
-template <typename T, int D, bool kQuant>
+// kTileMeta: two 4-byte words per key of a tile (B9's K and V scales, B12's
+// segment ids and positions).
+template <typename T, int D, bool kTileMeta>
 constexpr int fwd_smem_bytes() {
   return (kBlockM * (D + 8) + kBlockN * (D + 8) + D * (kBlockN + 8)) * static_cast<int>(sizeof(T))
-         + (kQuant ? 2 * kBlockN * static_cast<int>(sizeof(float)) : 0);
+         + (kTileMeta ? 2 * kBlockN * static_cast<int>(sizeof(float)) : 0);
+}
+
+// First index in [0, n) whose value is >= x (kPast: > x), n if none; `a`
+// non-decreasing.
+template <bool kPast>
+__device__ __forceinline__ int search(const int* a, int n, int x) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (kPast ? a[mid] <= x : a[mid] < x) lo = mid + 1; else hi = mid;
+  }
+  return lo;
 }
 
 // T: q, output and the shared tiles; KV: the cache's element type (T, or
-// int8 / e4m3 from a paged pool).
-template <typename T, typename KV, int D, bool kRowOffsets, bool kPaged>
-__global__ void __launch_bounds__(kFwdThreads) attention_fwd_kernel(const FwdArgs<KV> p) {
+// int8 / e4m3 from a paged pool); kLse: P / B2 writing the lse (the kernel
+// attention_fwd_lse_kernel below).
+template <typename T, typename KV, int D, bool kRowOffsets, bool kPaged, bool kVarlen, bool kLse>
+__device__ __forceinline__ void attention_fwd_body(const FwdArgs<KV> p) {
   constexpr bool kQuant = sizeof(KV) == 1;
   static_assert(kPaged || !kQuant, "quantized K/V come from a paged pool only");
   static_assert(kRowOffsets || !kPaged, "a paged cache has per-row lengths");
+  static_assert(!kVarlen || !kRowOffsets, "a packed batch has no per-row offsets");
+  static_assert(!kLse || (!kRowOffsets && !kVarlen), "only P / B2 write the lse");
   constexpr int kRow = D + 8;          // smem row stride of Q and K (bank spread)
   constexpr int kVtRow = kBlockN + 8;  // smem row stride of V^T
   constexpr int kChunks = D / 8;       // chunks of 8 elements per row
@@ -103,6 +140,8 @@ __global__ void __launch_bounds__(kFwdThreads) attention_fwd_kernel(const FwdArg
   T* sVt = sK + kBlockN * kRow;
   float* sKs = reinterpret_cast<float*>(sVt + D * kVtRow);  // quantized: the tile's
   float* sVs = sKs + kBlockN;                               // K and V scales
+  int* sKseg = reinterpret_cast<int*>(sKs);                 // varlen: the tile's
+  int* sKpos = sKseg + kBlockN;                             // segment ids, positions
 
   const int m_block = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -159,12 +198,37 @@ __global__ void __launch_bounds__(kFwdThreads) attention_fwd_kernel(const FwdArg
   float row_max[2] = {-INFINITY, -INFINITY};
   float row_sum[2] = {0.f, 0.f};
   const int row0 = m0 + wr + g, row1 = row0 + 8;
+  int row_seg[2] = {0, 0}, row_bound[2] = {0, 0};  // varlen: each row's segment and bound
+  if constexpr (kVarlen) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r ? row1 : row0;
+      row_seg[r] = row < p.sq ? p.q_seg[row] : INT_MIN;  // rows past Tq are never stored
+      row_bound[r] = row < p.sq ? p.q_bound[row] : -1;
+    }
+  }
 
-  int n_end = skv;
-  if (p.causal) n_end = min(n_end, m0 + kBlockM + offset);  // skip tiles past the diagonal
-  // The block's first visible key: row m0's window start (none below it).
-  const int n_lo = p.window > 0 ? max(0, m0 + offset - p.window + 1) : 0;
-  const int n_begin = n_lo / kBlockN * kBlockN;  // skip tiles wholly below the window
+  // Keys [n_lo, n_end) hold every key a row of the block may see; skv
+  // bounds the loads and the mask.
+  int n_lo, n_end;
+  if constexpr (kVarlen) {  // B12: skv becomes the end of the block's live range
+    const int last = min(m0 + kBlockM, p.sq) - 1;
+    const int seg_lo = p.q_seg[m0], seg_hi = p.q_seg[last];
+    n_lo = search<false>(p.kv_seg, p.skv, seg_lo);  // first key of the first row's segment
+    skv = search<true>(p.kv_seg, p.skv, seg_hi);    // past the last key of the last row's
+    if (p.causal)  // the last row sees its segment's keys up to position q_bound[last]
+      skv = min(skv, search<false>(p.kv_seg, p.skv, seg_hi) + max(p.q_bound[last] + 1, 0));
+    if (p.window > 0 && n_lo < p.skv && p.kv_seg[n_lo] == seg_lo)
+      n_lo += max(0, p.q_bound[m0] - p.window + 1);  // below the first row's window
+    n_end = skv;
+  } else {
+    n_end = skv;
+    if (p.causal) n_end = min(n_end, m0 + kBlockM + offset);  // skip tiles past the diagonal
+    // The block's first visible key: row m0's window start (none below it).
+    n_lo = p.window > 0 ? max(0, m0 + offset - p.window + 1) : 0;
+  }
+  // Skip tiles wholly below the window (B12 starts at its first live key).
+  const int n_begin = kVarlen ? n_lo : n_lo / kBlockN * kBlockN;
 
   for (int n0 = n_begin; n0 < n_end; n0 += kBlockN) {
     __syncthreads();  // every warp is done with the previous tile
@@ -207,6 +271,13 @@ __global__ void __launch_bounds__(kFwdThreads) attention_fwd_kernel(const FwdArg
         sVs[r] = vs;
       }
     }
+    if constexpr (kVarlen) {
+      for (int r = tid; r < kBlockN; r += kFwdThreads) {
+        const int n = n0 + r;
+        sKseg[r] = n < skv ? p.kv_seg[n] : INT_MAX;
+        sKpos[r] = n < skv ? p.kv_pos[n] : INT_MAX;
+      }
+    }
     __syncthreads();
 
     float s[kBlockN / 8][4];
@@ -226,7 +297,7 @@ __global__ void __launch_bounds__(kFwdThreads) attention_fwd_kernel(const FwdArg
 
     // Only tiles straddling the ragged end, the diagonal or the lower
     // window edge of the block's last row need the mask.
-    const bool edge = n0 + kBlockN > skv || (p.causal && n0 + kBlockN - 1 > m0 + offset) ||
+    const bool edge = kVarlen || n0 + kBlockN > skv || (p.causal && n0 + kBlockN - 1 > m0 + offset) ||
                       (p.window > 0 && n0 <= m0 + kBlockM - 1 + offset - p.window);
 #pragma unroll
     for (int nt = 0; nt < kBlockN / 8; ++nt) {
@@ -236,10 +307,18 @@ __global__ void __launch_bounds__(kFwdThreads) attention_fwd_kernel(const FwdArg
         if constexpr (kQuant) x *= sKs[nt * 8 + 2 * t + (i & 1)];
         if (edge) {
           const int col = n0 + nt * 8 + 2 * t + (i & 1);
-          const int row = i < 2 ? row0 : row1;
-          if (col >= skv || (p.causal && col > row + offset) ||
-              (p.window > 0 && col <= row + offset - p.window))
-            x = -INFINITY;
+          bool masked;
+          if constexpr (kVarlen) {
+            const int kseg = sKseg[col - n0], kpos = sKpos[col - n0];
+            const int bound = row_bound[i >> 1];
+            masked = kseg != row_seg[i >> 1] || col >= skv || (p.causal && kpos > bound) ||
+                     (p.window > 0 && kpos <= bound - p.window);
+          } else {
+            const int row = i < 2 ? row0 : row1;
+            masked = col >= skv || (p.causal && col > row + offset) ||
+                     (p.window > 0 && col <= row + offset - p.window);
+          }
+          if (masked) x = -INFINITY;
         }
         s[nt][i] = x;
       }
@@ -306,6 +385,12 @@ __global__ void __launch_bounds__(kFwdThreads) attention_fwd_kernel(const FwdArg
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[r] = l > 0.f ? 1.f / l : 0.f;  // no visible key -> exact zero row
+    if constexpr (kLse) {
+      const int row = r ? row1 : row0;
+      if (t == 0 && row < p.sq)  // the backward's residual
+        p.lse[(static_cast<int64_t>(b) * p.hq + h) * p.sq + row] =
+            l > 0.f ? row_max[r] + log2f(l) : INFINITY;
+    }
   }
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
@@ -319,31 +404,51 @@ __global__ void __launch_bounds__(kFwdThreads) attention_fwd_kernel(const FwdArg
   }
 }
 
-template <typename T, typename KV, int D, bool kRowOffsets, bool kPaged>
+template <typename T, typename KV, int D, bool kRowOffsets, bool kPaged, bool kVarlen>
+__global__ void __launch_bounds__(kFwdThreads) attention_fwd_kernel(const FwdArgs<KV> p) {
+  attention_fwd_body<T, KV, D, kRowOffsets, kPaged, kVarlen, false>(p);
+}
+
+// P / B2 with the lse: the row max stays live to the lse's store, which at
+// D 128 would take 170 registers, allocated as 176, fitting two blocks an
+// SM where P's 168 fit three; the bound asks for three.
+template <typename T, int D>
+__global__ void __launch_bounds__(kFwdThreads, 3) attention_fwd_lse_kernel(const FwdParams p) {
+  attention_fwd_body<T, T, D, false, false, false, true>(p);
+}
+
+template <typename T, typename KV, int D, bool kRowOffsets, bool kPaged, bool kVarlen = false,
+          bool kLse = false>
 int launch_attention_fwd(const FwdArgs<KV>& p, int batch, cudaStream_t stream) {
-  constexpr int kSmem = fwd_smem_bytes<T, D, (sizeof(KV) == 1)>();
+  constexpr int kSmem = fwd_smem_bytes<T, D, (sizeof(KV) == 1 || kVarlen)>();
+  void (*kernel)(const FwdArgs<KV>);
+  if constexpr (kLse) kernel = attention_fwd_lse_kernel<T, D>;
+  else kernel = attention_fwd_kernel<T, KV, D, kRowOffsets, kPaged, kVarlen>;
   static bool configured = false;  // above 48 KB needs an explicit opt-in
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<T, KV, D, kRowOffsets, kPaged>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid((p.sq + kBlockM - 1) / kBlockM, p.hq, batch);
-  attention_fwd_kernel<T, KV, D, kRowOffsets, kPaged><<<grid, kFwdThreads, kSmem, stream>>>(p);
+  kernel<<<grid, kFwdThreads, kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
-// K/V of q's own type (P, B4, B6).
-template <bool kRowOffsets, bool kPaged>
+// K/V of q's own type (P, B2, B4, B6, B12); P / B2 with a non-null lse
+// launch the lse kernel.
+template <bool kRowOffsets, bool kPaged, bool kVarlen = false, bool kLse = false>
 int dispatch_attention_fwd(const FwdParams& p, int batch, int d, int dtype, cudaStream_t s) {
   using bf16 = __nv_bfloat16;
   using h16 = __half;
-  constexpr bool R = kRowOffsets;
-  if (dtype == kBF16 && d == 64) return launch_attention_fwd<bf16, bf16, 64, R, kPaged>(p, batch, s);
-  if (dtype == kBF16 && d == 128) return launch_attention_fwd<bf16, bf16, 128, R, kPaged>(p, batch, s);
-  if (dtype == kF16 && d == 64) return launch_attention_fwd<h16, h16, 64, R, kPaged>(p, batch, s);
-  if (dtype == kF16 && d == 128) return launch_attention_fwd<h16, h16, 128, R, kPaged>(p, batch, s);
+  constexpr bool R = kRowOffsets, V = kVarlen;
+  if constexpr (!kRowOffsets && !kVarlen && !kLse)
+    if (p.lse != nullptr) return dispatch_attention_fwd<false, false, false, true>(p, batch, d, dtype, s);
+  if (dtype == kBF16 && d == 64) return launch_attention_fwd<bf16, bf16, 64, R, kPaged, V, kLse>(p, batch, s);
+  if (dtype == kBF16 && d == 128) return launch_attention_fwd<bf16, bf16, 128, R, kPaged, V, kLse>(p, batch, s);
+  if (dtype == kF16 && d == 64) return launch_attention_fwd<h16, h16, 64, R, kPaged, V, kLse>(p, batch, s);
+  if (dtype == kF16 && d == 128) return launch_attention_fwd<h16, h16, 128, R, kPaged, V, kLse>(p, batch, s);
   return cudaErrorInvalidValue;
 }
 

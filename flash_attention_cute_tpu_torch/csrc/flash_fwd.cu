@@ -10,8 +10,15 @@
 //   * B2 (a window that binds, W < Skv) replaces `_flash_fwd_kernel_fused`
 //     (:269) and its per-head fallback `_flash_fwd_kernel` (:102), both
 //     behind the pallas_call at :1260, for their windowed geometry. Their
-//     soft cap, head dims outside {64, 128}, lse output and int8 scores are
-//     not in this kernel: the wrapper raises on them.
+//     soft cap, head dims outside {64, 128} and int8 scores are not in this
+//     kernel: the wrapper raises on them.
+// Both write the per-row lse the backward (flash_bwd.cu) needs when `lse`
+// is not null (`return_lse`, flash_fwd.py:845): m + log2(l) in the base-2
+// units of the scores (scale * log2(e) folded in), +inf on a row with no
+// visible key, exactly the TPU kernels' convention (:258-266, :580-592),
+// so either package's lse feeds either package's backward. That launch is
+// the body's second instantiation, attention_fwd_lse_kernel (one 4-byte
+// store a row more), so the kernel without the lse is unchanged.
 // They compute what those kernels compute, not their block structure: the
 // TPU kernels pack a q-head group per grid cell and skip KV blocks wholly
 // below every row's window in the grid; here each block walks its own tile
@@ -25,7 +32,7 @@
 
 // Returns a cudaError_t code (0 on success). Shapes and strides are checked
 // by the Python wrapper (ops/flash_fwd.py).
-extern "C" int fact_flash_fwd(const void* q, const void* k, const void* v, void* o,
+extern "C" int fact_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                               int batch, int hq, int hkv, int sq, int skv, int d,
                               long long q_sb, long long q_sh, long long q_ss,
                               long long k_sb, long long k_sh, long long k_ss,
@@ -35,6 +42,7 @@ extern "C" int fact_flash_fwd(const void* q, const void* k, const void* v, void*
   using namespace fact;
   FwdParams p{};
   p.q = q, p.k = k, p.v = v, p.o = o;
+  p.lse = static_cast<float*>(lse);
   p.q_sb = q_sb, p.q_sh = q_sh, p.q_ss = q_ss;
   p.k_sb = k_sb, p.k_sh = k_sh, p.k_ss = k_ss;
   p.v_sb = v_sb, p.v_sh = v_sh, p.v_ss = v_ss;

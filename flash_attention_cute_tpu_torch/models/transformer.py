@@ -59,6 +59,7 @@ from flash_attention_cute_tpu_torch.ops.quantized import (
     flash_attention_decode_quantized_plain,
     quantize_append,
 )
+from flash_attention_cute_tpu_torch.ops.quantized_matmul import QUANTIZED
 
 
 BIAS_STD = 0.5  # init_params' q/k/v biases: against projections of std about 1
@@ -135,8 +136,13 @@ def forward(
         heads = torch.arange(cfg.num_kv_heads, device=dev)[None, :, None]
         slots = positions[:, None, :]
 
+    # One unbind per plain stacked weight: its backward stacks the layers'
+    # gradients once, where `w[li]` would write a zero [L, ...] gradient per
+    # layer. Quantized leaves (not trained) take one layer as a view.
+    stacked = {name: w if isinstance(w, QUANTIZED) else w.unbind(0)
+               for name, w in params["layers"].items()}
     for li in range(cfg.num_layers):
-        lp = {name: w[li] for name, w in params["layers"].items()}
+        lp = {name: w[li] for name, w in stacked.items()}
         window = cfg.layer_window(li)
         h = L.rms_norm(x, lp["input_ln"], cfg.rms_norm_eps)
         q, k, v = L.qkv_project(h, lp, cfg)

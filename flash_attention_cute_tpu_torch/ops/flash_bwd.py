@@ -1,0 +1,134 @@
+"""Attention backward from the saved lse: the CUDA kernels B13a (dK, dV)
+and B13b (dQ) and their plain version.
+
+Port of flash_attention_cute_tpu/ops/flash_bwd.py. The recompute backward
+of FlashAttention-2: from q, k, v, the forward's output o, its cotangent dO
+and the forward's per-row lse (`flash_attention_fwd(..., return_lse=True)`:
+log2 units of the scaled scores, +inf on a row with no visible key), it
+recomputes p = exp2(s * log2(e) - lse) tile by tile and never holds a
+[Sq, Skv] matrix in device memory. delta = rowsum(dO * O) is one fp32
+PyTorch expression, as it is one XLA expression in the JAX package.
+
+`flash_attention_bwd` routes on the device of `q`: a CPU tensor takes the
+plain version, a CUDA tensor launches B13a then B13b (csrc/flash_bwd.cu),
+which replace `_flash_bwd_dkv_kernel` and `_flash_bwd_dq_kernel`. The
+kernels take bf16 / f16, D 64 / 128, bottom-right causal masking, the
+sliding window, GQA / MQA (dK and dV sum over the q-head group inside a
+block, deterministically) and any strides with the head dim contiguous.
+What they do not take raises (the soft cap is not an argument here, as in
+JAX; D 256 is ROADMAP.md A10b); nothing falls back. The TPU block
+arguments `block_q` / `block_kv` are accepted and ignored.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from flash_attention_cute_tpu_torch.ops import _build
+from flash_attention_cute_tpu_torch.ops.reference import prefill_mask
+
+LOG2E = math.log2(math.e)
+HEAD_DIMS = (64, 128)
+
+P, I, L, F = _build.P, _build.I, _build.L, _build.F
+_ARGS = [P] * 8 + [I] * 6 + [L] * 12 + [F, F, I, I, I, I, P]
+# One C entry point, counted as two kernels by its `dkv` argument.
+DKV = _build.Kernel("flash_bwd_dkv", "flash_bwd.cu", "fact_flash_bwd", _ARGS)
+DQ = _build.Kernel("flash_bwd_dq", "flash_bwd.cu", "fact_flash_bwd", _ARGS)
+
+
+def flash_attention_bwd_plain(q, k, v, o, do, lse, sm_scale=None, causal=False, window=None,
+                              block_q=0, block_kv=0):
+    """Plain version of B13a + B13b on any device: the fp32 recompute from
+    the lse, (dq, dk, dv) in the input dtypes."""
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    group = hq // hkv
+    scale = d ** -0.5 if sm_scale is None else sm_scale
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    s2 = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * (scale * LOG2E)
+    allowed = prefill_mask(sq, skv, causal, window, q.device)
+    p = torch.where(allowed, torch.exp2(s2 - lse.float()[..., None]), 0.0)
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - delta)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = (torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale).view(b, hkv, group, skv, d).sum(2)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof).view(b, hkv, group, skv, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    do: torch.Tensor,
+    lse: torch.Tensor,
+    sm_scale: float | None = None,
+    causal: bool = False,
+    window: int | None = None,
+    block_q: int = 0,
+    block_kv: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """dQ, dK, dV of prefill attention.
+
+    Args:
+      q: [B, Hq, Sq, D]; k, v: [B, Hkv, Skv, D], Hq % Hkv == 0; o, do:
+        [B, Hq, Sq, D] (the forward's output and its cotangent); any
+        strides with the head dim contiguous.
+      lse: [B, Hq, Sq] from `flash_attention_fwd(..., return_lse=True)` of
+        this package or of the JAX package (the same convention).
+      sm_scale, causal, window: those of the forward.
+      block_q, block_kv: accepted for call-site parity, ignored.
+
+    Returns (dq [B, Hq, Sq, D], dk, dv [B, Hkv, Skv, D]), contiguous, in the
+    dtypes of q, k, v.
+    """
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, do, lse, sm_scale, causal, window)
+    window = _build.window_arg(window)
+    if window >= skv:
+        window = 0  # cannot bind, as in the forward
+    if q.dtype not in _build.DTYPE_CODES:
+        raise NotImplementedError(f"backward kernels take bf16/f16, got {q.dtype}")
+    _build.check_head_dim(d, HEAD_DIMS, "backward")
+    if (hq % hkv or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
+            or o.shape != q.shape or do.shape != q.shape or lse.shape != (b, hq, sq)):
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} "
+                         f"o {tuple(o.shape)} do {tuple(do.shape)} lse {tuple(lse.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        _build.check_cuda_tensor(name, t, q.dtype)
+    if not (q.device == k.device == v.device == do.device == o.device == lse.device):
+        raise ValueError("q, k, v, o, do, lse must be on one device")
+
+    lse = lse.to(torch.float32).contiguous()
+    delta = (do.float() * o.float()).sum(-1)  # [B, Hq, Sq] fp32, contiguous
+    dq = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, hkv, skv, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if dk.numel():
+        launch(DKV, q, k, v, do, lse, delta, dk, dv, sm_scale, causal, window)
+    if dq.numel():
+        launch(DQ, q, k, v, do, lse, delta, dq, None, sm_scale, causal, window)
+    return dq, dk, dv
+
+
+def launch(kernel, q, k, v, do, lse, delta, out0, out1, sm_scale, causal, window: int) -> None:
+    """One launch of B13a (`DKV`: out0 = dK, out1 = dV) or B13b (`DQ`: out0 =
+    dQ) on inputs `flash_attention_bwd` has checked (window 0 for none)."""
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    with torch.cuda.device(q.device):
+        kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+               delta.data_ptr(), out0.data_ptr(), None if out1 is None else out1.data_ptr(),
+               b, hq, hkv, sq, skv, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               *do.stride()[:3], float(sm_scale) * LOG2E, float(sm_scale), int(causal), window,
+               _build.DTYPE_CODES[q.dtype], int(kernel is DKV))

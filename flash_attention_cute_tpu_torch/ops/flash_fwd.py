@@ -14,6 +14,10 @@ flash_attention_cute_tpu/ops/flash_fwd.py:
     walks only the tiles its rows' windows reach. Replaces the windowed
     geometry of `_flash_fwd_kernel_fused` and `_flash_fwd_kernel`.
 
+With `return_lse` either kernel also writes the per-row log-sum-exp the
+backward needs (ops/flash_bwd.py), in the TPU kernels' convention: log2
+units of the scaled scores, +inf on a row with no visible key.
+
 What the kernel does not take raises; nothing falls back.
 """
 
@@ -30,19 +34,20 @@ LOG2E = math.log2(math.e)
 HEAD_DIMS = (64, 128)
 
 P, I, L, F = _build.P, _build.I, _build.L, _build.F
-_ARGS = [P, P, P, P, I, I, I, I, I, I, L, L, L, L, L, L, L, L, L, F, I, I, I, P]
+_ARGS = [P, P, P, P, P, I, I, I, I, I, I, L, L, L, L, L, L, L, L, L, F, I, I, I, P]
 PREFILL = _build.Kernel("flash_fwd", "flash_fwd.cu", "fact_flash_fwd", _ARGS)
 # The same launch function with a window that binds: counted as B2.
 WINDOWED_PREFILL = _build.Kernel("flash_fwd_window", "flash_fwd.cu", "fact_flash_fwd", _ARGS)
 
 
 def flash_attention_fwd_plain(
-    q, k, v, sm_scale=None, causal=False, window=None, logit_softcap=None
-) -> torch.Tensor:
-    """Plain version of kernels P and B2 on any device: the fp32 reference."""
+    q, k, v, sm_scale=None, causal=False, window=None, logit_softcap=None, return_lse=False
+):
+    """Plain version of kernels P and B2 on any device: the fp32 reference
+    (with `return_lse`, also its fp32 lse)."""
     return attention_reference(
         q, k, v, softmax_scale=sm_scale, causal=causal, window=window,
-        logit_softcap=logit_softcap,
+        logit_softcap=logit_softcap, return_lse=return_lse,
     )
 
 
@@ -54,7 +59,8 @@ def flash_attention_fwd(
     causal: bool = False,
     window: int | None = None,
     logit_softcap: float | None = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """Attention forward for prefill.
 
     Args:
@@ -66,15 +72,20 @@ def flash_attention_fwd(
       window: sliding window W (HF semantics): row m also masks keys
         n <= m + (Skv - Sq) - W. On CUDA a binding window runs B2.
       logit_softcap: plain version only (ROADMAP.md A10b).
+      return_lse: also return the lse [B, Hq, Sq] fp32: log2 of the row's
+        sum of 2^(s * log2(e)) over its visible scaled scores s, +inf on a
+        row with no visible key (the JAX package's `return_lse`).
 
-    Returns [B, Hq, Sq, D] in q's dtype, contiguous.
+    Returns [B, Hq, Sq, D] in q's dtype, contiguous; (out, lse) with
+    `return_lse`.
     """
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     if sm_scale is None:
         sm_scale = d ** -0.5
     if q.device.type == "cpu":
-        return flash_attention_fwd_plain(q, k, v, sm_scale, causal, window, logit_softcap)
+        return flash_attention_fwd_plain(q, k, v, sm_scale, causal, window, logit_softcap,
+                                         return_lse)
     _build.refuse_softcap(logit_softcap, "prefill")
     window = _build.window_arg(window)
     if window >= skv:
@@ -90,13 +101,15 @@ def flash_attention_fwd(
         raise ValueError("q, k, v must be on one device")
 
     out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if return_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     with torch.cuda.device(q.device):
         (WINDOWED_PREFILL if window else PREFILL)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if return_lse else None,
             b, hq, hkv, sq, skv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             float(sm_scale) * LOG2E, int(causal), window, _build.DTYPE_CODES[q.dtype],
         )
-    return out
+    return (out, lse) if return_lse else out

@@ -1,8 +1,9 @@
 """Plain PyTorch reference attention, in fp32 and without tiling.
 
 The numerics oracle of the port and the plain version behind the prefill
-and extend kernels (ops/flash_fwd.py, ops/flash_chunked.py), with
-`attention_partials_reference` for the extend's (o, m, l) partials.
+and extend kernels (ops/flash_fwd.py, ops/flash_chunked.py), with the
+prefill's lse (`return_lse`), `attention_partials_reference` for the
+extend's (o, m, l) partials and `prefill_mask` for the plain backward.
 Causal masking is bottom-right aligned: coordinate (m, n) is allowed iff
 `n <= m + (kv_len - q_len)`, so with a longer cache the last query row sees
 every key. Rows left with no allowed key (only possible when q_len >
@@ -25,6 +26,20 @@ def bottom_right_causal_mask(
     return (cols <= rows + (kv_len - q_len)).to(dtype)
 
 
+def prefill_mask(sq: int, skv: int, causal: bool, window: int | None, device=None) -> torch.Tensor:
+    """[sq, skv] bool, True where key n is visible from row m in prefill:
+    bottom-right causal `n <= m + (skv - sq)` and the window
+    `n > m + (skv - sq) - window`."""
+    rows = torch.arange(sq, device=device)[:, None] + (skv - sq)
+    cols = torch.arange(skv, device=device)[None, :]
+    allowed = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        allowed &= cols <= rows
+    if window is not None:
+        allowed &= cols > rows - window
+    return allowed
+
+
 def attention_reference(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -35,7 +50,8 @@ def attention_reference(
     q_offset: torch.Tensor | None = None,
     window: int | None = None,
     logit_softcap: float | None = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """O = softmax(Q K^T * scale + mask) V in fp32.
 
     Args:
@@ -52,8 +68,12 @@ def attention_reference(
         W - 1 positions behind it.
       logit_softcap: optional tanh soft cap applied to the scores before
         the mask.
+      return_lse: also return the per-row log-sum-exp of the scores in log2
+        units ([B, Hq, Sq] fp32, log2 of sum 2^(scores * log2(e))), +inf on
+        a row with no allowed key: the backward's residual, in the
+        convention of the prefill kernels.
 
-    Returns [B, Hq, Sq, D] in q's dtype.
+    Returns [B, Hq, Sq, D] in q's dtype, and the lse with `return_lse`.
     """
     scores, allowed, vf = _masked_scores(q, k, v, softmax_scale, causal, kv_length, q_offset,
                                          window, logit_softcap)
@@ -61,8 +81,11 @@ def attention_reference(
     probs = torch.softmax(scores, dim=-1)
     # softmax of an all -inf row is NaN; such rows output exact zeros.
     probs = torch.where(row_has_any, probs, torch.zeros((), device=q.device))
-    out = torch.einsum("bhqk,bhkd->bhqd", probs, vf)
-    return out.to(q.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, vf).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(scores, dim=-1) * math.log2(math.e)
+    return out, torch.where(row_has_any[..., 0], lse, math.inf)
 
 
 def attention_partials_reference(

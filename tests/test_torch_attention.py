@@ -22,7 +22,7 @@ from flash_attention_cute_tpu.ops.reference import (
     attention_reference as jax_reference,
 )
 from flash_attention_cute_tpu_torch import api, dispatch
-from flash_attention_cute_tpu_torch.ops import flash_decode, flash_fwd
+from flash_attention_cute_tpu_torch.ops import autodiff, flash_bwd, flash_decode, flash_fwd, flash_varlen
 from flash_attention_cute_tpu_torch.ops.reference import (
     attention_reference,
     bottom_right_causal_mask,
@@ -230,6 +230,21 @@ def test_non_cpu_tensors_take_the_kernel_route_and_never_fall_back():
         flash_fwd.flash_attention_fwd(q, k, k, causal=True, logit_softcap=30.0)
     with pytest.raises(NotImplementedError):
         flash_fwd.flash_attention_fwd(q.float(), k.float(), k.float())
+    # The training and varlen wrappers (B13a / B13b, B12) and the autograd op.
+    lse = torch.empty(1, 4, 64, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_fwd.flash_attention_fwd(q, k, k, causal=True, return_lse=True)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_bwd.flash_attention_bwd(q, k, k, q, q, lse, causal=True)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        autodiff.flash_attention(q.requires_grad_(), k, k, causal=True)
+    cu = torch.tensor([0, 64], dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_varlen.flash_attention_varlen(q[0].transpose(0, 1), k[0].transpose(0, 1),
+                                            k[0].transpose(0, 1), cu, causal=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A10b"):
+        flash_varlen.flash_attention_varlen(q[0].transpose(0, 1), k[0].transpose(0, 1),
+                                            k[0].transpose(0, 1), cu, logit_softcap=30.0)
 
 
 def test_validate_inputs_and_split_heuristic():

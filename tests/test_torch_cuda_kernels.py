@@ -19,6 +19,16 @@ B10 (int8) and B11 (int4) take bf16 / f16 activations at unit scale and
 weights of std fan_in ** -0.5, and are held to their plain versions over
 the same inputs in fp32 at 3e-2 too, at Llama-3-8B projection shapes, a ragged K and the padded
 lm_head.
+
+Training and varlen: the lse of P and B2 is held to the plain fp32 lse at
+1e-3 absolute on finite entries (log2 units; both sum the same fp32
+probabilities in another order) with an identical +inf pattern. The
+backward kernels B13a / B13b take the kernel forward's o and lse and are
+held to `flash_attention_bwd_plain` on the same inputs by max |diff| over
+max |plain| <= 2e-2: gradients grow with the sequence, and the kernels
+round P and dS to bf16 / f16 before their products (one step is 2^-8
+relative), as the forward rounds P before PV. The packed-batch kernel B12
+is held to its fp32 plain version at 3e-2.
 """
 
 import dataclasses
@@ -30,6 +40,7 @@ from flash_attention_cute_tpu_torch import api
 from flash_attention_cute_tpu_torch.models.cache import KVCache
 from flash_attention_cute_tpu_torch.models.config import tiny_test_config
 from flash_attention_cute_tpu_torch.models.transformer import forward, init_params
+from flash_attention_cute_tpu_torch.ops import autodiff, flash_bwd, flash_varlen
 from flash_attention_cute_tpu_torch.ops import flash_chunked, flash_decode, flash_fwd, paged_attention
 from flash_attention_cute_tpu_torch.ops import quantized as quant
 from flash_attention_cute_tpu_torch.ops import quantized_matmul as qmm
@@ -741,3 +752,165 @@ def test_windowed_model_forwards_launch_the_windowed_kernels(device):
         assert tuple(a - b for a, b in zip(after, before)) == want
         logits[plain] = torch.cat(outs, dim=1)
     assert (logits[False] - logits[True]).abs().max().item() <= 0.1
+
+
+# ---- training: the lse of P / B2, B13a / B13b, the autograd route; B12 ----
+LSE_TOL = 1e-3
+GRAD_REL_TOL = 2e-2
+
+BACKWARD = {
+    # name: (batch, hq, hkv, sq, skv, d, causal, window, dtype)
+    "causal_b2_s1024": (2, 32, 8, 1024, 1024, 128, True, None, torch.bfloat16),
+    "noncausal_700": (1, 32, 8, 700, 700, 128, False, None, torch.bfloat16),
+    "window_100_s1536": (1, 32, 8, 1536, 1536, 128, True, 100, torch.bfloat16),
+    "offset_256_1024": (1, 32, 8, 256, 1024, 128, True, None, torch.bfloat16),
+    "zero_rows_1024_256": (1, 32, 8, 1024, 256, 128, True, None, torch.bfloat16),
+    "ragged_s1000": (1, 32, 8, 1000, 1000, 128, True, None, torch.bfloat16),
+    "qwen2_group7": (1, 28, 4, 512, 512, 128, True, None, torch.bfloat16),
+    "f16_d64_mqa": (2, 8, 1, 333, 333, 64, True, None, torch.float16),
+}
+
+
+def rel_err(a, b) -> float:
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1e-6)).item()
+
+
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("case", ["causal_b2_s1024", "zero_rows_1024_256", "f16_d64_mqa"])
+def test_prefill_lse_matches_plain(device, case, window):
+    b, hq, hkv, sq, skv, d, causal, _, dtype = BACKWARD[case]
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    q = randn(gen, b, sq, hq, d, dtype=dtype).transpose(1, 2)
+    k = randn(gen, b, skv, hkv, d, dtype=dtype).transpose(1, 2)
+    v = randn(gen, b, skv, hkv, d, dtype=dtype).transpose(1, 2)
+    out, lse = flash_fwd.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                             return_lse=True)
+    assert torch.equal(out, flash_fwd.flash_attention_fwd(q, k, v, causal=causal, window=window))
+    _, ref = flash_fwd.flash_attention_fwd_plain(q, k, v, causal=causal, window=window,
+                                                 return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (b, hq, sq)
+    assert torch.equal(torch.isinf(lse), torch.isinf(ref))
+    fin = torch.isfinite(ref)
+    assert (lse[fin] - ref[fin]).abs().max().item() <= LSE_TOL
+    if sq > skv:
+        assert torch.isinf(lse[:, :, : sq - skv]).all()
+
+
+@pytest.mark.parametrize("case", list(BACKWARD), ids=list(BACKWARD))
+def test_backward_kernels_match_plain(device, case):
+    b, hq, hkv, sq, skv, d, causal, window, dtype = BACKWARD[case]
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    q = randn(gen, b, sq, hq, d, dtype=dtype).transpose(1, 2)  # the model's views
+    k = randn(gen, b, skv, hkv, d, dtype=dtype).transpose(1, 2)
+    v = randn(gen, b, skv, hkv, d, dtype=dtype).transpose(1, 2)
+    do = randn(gen, b, sq, hq, d, dtype=dtype).transpose(1, 2)  # a non-contiguous cotangent
+    o, lse = flash_fwd.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                           return_lse=True)
+    before = (flash_bwd.DKV.launches, flash_bwd.DQ.launches)
+    got = flash_bwd.flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (flash_bwd.DKV.launches, flash_bwd.DQ.launches) == (before[0] + 1, before[1] + 1)
+    want = flash_bwd.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o, do, lse,
+                                               causal=causal, window=window)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == w.shape and torch.isfinite(a).all(), name
+        assert rel_err(a, w) <= GRAD_REL_TOL, (name, rel_err(a, w))
+    if sq > skv and causal:
+        assert (got[0][:, :, : sq - skv] == 0).all()  # rows with no key
+
+
+@pytest.mark.parametrize("window", [None, 48])
+def test_autodiff_grads_match_reference_autograd(device, window):
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    q, k, v = (randn(gen, 2, h, 300, 64).requires_grad_() for h in (8, 2, 2))
+    do = randn(gen, 2, 8, 300, 64)
+    before = (flash_fwd.PREFILL.launches + flash_fwd.WINDOWED_PREFILL.launches,
+              flash_bwd.DKV.launches, flash_bwd.DQ.launches)
+    out = autodiff.flash_attention(q, k, v, causal=True, window=window)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    after = (flash_fwd.PREFILL.launches + flash_fwd.WINDOWED_PREFILL.launches,
+             flash_bwd.DKV.launches, flash_bwd.DQ.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1)
+    leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    ref = flash_fwd.flash_attention_fwd_plain(*leaves, causal=True, window=window)
+    want = torch.autograd.grad(ref, leaves, do.float())
+    for a, w in zip(got, want):
+        assert rel_err(a, w) <= GRAD_REL_TOL
+
+
+def test_model_backward_launches_the_training_kernels(device):
+    """loss.backward() through `forward` runs P with its lse and B13a / B13b
+    once per layer; under no_grad the same forward launches P alone."""
+    cfg = tiny_test_config(num_layers=2, num_q_heads=4, num_kv_heads=2, head_dim=64,
+                           dtype=torch.bfloat16)
+    params = init_params(cfg, seed=0)
+    for w in params["layers"].values():
+        w.requires_grad_()
+    ids = torch.randint(0, cfg.vocab_size, (2, 130), generator=torch.Generator(
+        device="cuda").manual_seed(33), device="cuda")
+    counters = (flash_fwd.PREFILL, flash_bwd.DKV, flash_bwd.DQ)
+    before = [c.launches for c in counters]
+    logits, _ = forward(params, cfg, ids)
+    torch.nn.functional.cross_entropy(logits[:, :-1].flatten(0, 1), ids[:, 1:].flatten()).backward()
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 2, 2]
+    assert all(torch.isfinite(w.grad).all() for w in params["layers"].values())
+    before = [c.launches for c in counters]
+    with torch.no_grad():
+        forward(params, cfg, ids)
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 0, 0]
+
+
+VARLEN = {
+    # name: (q lengths, kv lengths (None: q's), causal, window)
+    "equal_causal": ([100, 37, 256, 1, 190], None, True, None),
+    "equal_full": ([100, 37, 256, 1], None, False, None),
+    "cross_bottom_right": ([64, 200, 32, 16], [128, 100, 32, 400], True, None),
+    "window_64": ([300, 80, 700], None, True, 64),
+    "ragged_total": ([1000, 33], None, True, None),
+}
+
+
+@pytest.mark.parametrize("case", list(VARLEN), ids=list(VARLEN))
+def test_varlen_kernel_matches_plain(device, case):
+    lens_q, lens_kv, causal, window = VARLEN[case]
+    lens_kv = lens_kv or lens_q
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    q = randn(gen, sum(lens_q), 32, 128)
+    k, v = randn(gen, sum(lens_kv), 8, 128), randn(gen, sum(lens_kv), 8, 128)
+
+    def cu(lens):
+        return torch.tensor([0] + lens, device="cuda").cumsum(0).to(torch.int32)
+
+    before = flash_varlen.VARLEN.launches
+    out = flash_varlen.flash_attention_varlen(q, k, v, cu(lens_q), cu(lens_kv), causal=causal,
+                                              window=window)
+    torch.cuda.synchronize()
+    assert flash_varlen.VARLEN.launches == before + 1
+    ref = flash_varlen.flash_attention_varlen(q.cpu().float(), k.cpu().float(), v.cpu().float(),
+                                              cu(lens_q).cpu(), cu(lens_kv).cpu(), causal=causal,
+                                              window=window)
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    assert (out.float().cpu() - ref).abs().max().item() <= BF16_TOL
+    if case == "cross_bottom_right":  # q longer than kv: the first 100 rows of seq 1 are 0
+        assert (out[64:164] == 0).all()
+
+
+def test_training_and_varlen_kernels_refuse_what_they_do_not_take(device):
+    q = torch.zeros(1, 4, 64, 256, dtype=torch.bfloat16, device="cuda")
+    lse = torch.zeros(1, 4, 64, device="cuda")
+    with pytest.raises(NotImplementedError, match="A10b"):
+        flash_fwd.flash_attention_fwd(q, q[:, :2], q[:, :2], return_lse=True)
+    with pytest.raises(NotImplementedError, match="A10b"):
+        flash_fwd.flash_attention_fwd(q[..., :128], q[:, :2, :, :128], q[:, :2, :, :128],
+                                      logit_softcap=30.0, return_lse=True)
+    with pytest.raises(NotImplementedError, match="A10b"):
+        flash_bwd.flash_attention_bwd(q, q[:, :2], q[:, :2], q, q, lse)
+    qv = torch.zeros(64, 4, 128, dtype=torch.bfloat16, device="cuda")
+    cu = torch.tensor([0, 64], dtype=torch.int32, device="cuda")
+    with pytest.raises(NotImplementedError, match="A10b"):
+        flash_varlen.flash_attention_varlen(qv, qv[:, :2], qv[:, :2], cu, logit_softcap=30.0)
+    with pytest.raises(NotImplementedError, match="A10b"):
+        flash_varlen.flash_attention_varlen(q[0].transpose(0, 1), q[0, :2].transpose(0, 1),
+                                            q[0, :2].transpose(0, 1), cu)
