@@ -43,7 +43,15 @@ Phases, in order; any failure exits non-zero:
      (each sequence's dense attention, run per segment) over 32 sequences of
      numpy-seeded lengths 100-2048 (one of 1 token, a total not a multiple
      of 64) at Llama widths: causal, full, kv 0-512 tokens longer, window
-     256.
+     256; (3h) Gemma2's soft cap and head dim 256, at Gemma-2-9B attention
+     widths (Hq 16, Hkv 8, D 256, scale 256 ** -0.5), each case with the
+     model's cap 50 and with 1.0 (which binds on every score), against the
+     fp32 plain versions run on q's fp32 image: P (causal B 2 S 4608, Sq 256
+     / Skv 1024, ragged S 1000 in f16) and B2 (B 2 S 4608, window 4096), D1
+     + D2 (capacity 4640, windows none and 4096, NaN past every length), B5
+     and B6 (page sizes 16 and 128, NaN-poisoned pools behind permuted
+     tables, B6 with and without the window), the paged append at D 256
+     (bit-identical), and P, D1, B5, B6 with the caps at Llama widths.
   4. main paths: greedy generation of Llama-3-8B (random weights from a
      seeded CUDA generator) at B 4, prompt 512, 64 new tokens; launch
      counters show the kernels carried it; teacher-forced logits of the
@@ -107,7 +115,18 @@ Phases, in order; any failure exits non-zero:
      kernel route are held to the plain route's leaf by leaf (relative norm
      error <= TRAIN_GRAD_TOL); step times, tokens/s, peak memory and the
      profiler's split of a fourth step. (4i) The varlen entry point
-     (`flash_attention_varlen`) over 3g's packed batch: B12 once.
+     (`flash_attention_varlen`) over 3g's packed batch: B12 once. (4j)
+     Gemma-2-9B (42 layers, D 256, a window of 4096 on the even layers,
+     soft caps 50 / 30, GeGLU, sandwich norms, scaled embeddings, vocabulary
+     256000; random weights from a seeded CUDA generator), drawn after the
+     Qwen2 tree is dropped: teacher-forced prefill logits (every 64th
+     position and the last, both routes a row at a time: one 4608-token row
+     of fp32 logits is 4.7 GB) and decode-step logits at B 2, prompt 4608,
+     kernel route against the plain route; greedy generation of 32 tokens
+     over a bf16 cache (B2 21, P 21, D1 + D2 31 x 42) with its prefill and
+     decode times; the serving engine over Mistral's 8 long requests in runs
+     G1 (whole-prompt, page_size 128) and G2 (chunked 512, page_size 16),
+     launch counts per forward, every token teacher-forced.
   5. numbers: per-kernel times, bounds and library times as one JSON line
      (for B7-B9 the library call is SDPA over a dequantized bf16 copy, for
      B10 / B11 `x @ w` over a dequantized bf16 weight; the dequantization is
@@ -125,7 +144,11 @@ Phases, in order; any failure exits non-zero:
      2048, causal; library_ms: SDPA's backward, forward + backward minus
      forward) and of B12 at 3g's packed batch (library_ms: SDPA over the
      padded batch), and the lse's cost on P and B2 (with and without it);
-     the training numbers ("training"); the card's name and power limit.
+     the training numbers ("training"); (5d) the "gemma2" entries of the P,
+     B2, D1, D2, B5, B6 and append rows at Gemma-2-9B shapes with the cap
+     50 (library_ms: `flex_attention` with a tanh score_mod for P / B2 where
+     it compiles, else SDPA without the cap; SDPA without the cap for B5 /
+     B6; labelled in each entry's shape); the card's name and power limit.
 The last line is {"ok": true, "device": {...}}.
 
 Tolerances: kernel outputs are bf16 results of fp32 arithmetic on bf16
@@ -289,14 +312,14 @@ def phase_chunked_kernels(torch, flash_chunked, errs):
                 check(bool((out[i] == 0).all()), f"B4 {name}: a kv_length-0 row is 0")
 
 
-def paged_pool(torch, randn, gen, ps, rows, capacity=2048, layers=2):
-    """A stacked bf16 pool [layers, 8, P, ps, 128] with room for `rows`
-    rows of `capacity` tokens, and a page table from a seeded permutation
-    of its pages (page 0 in no table)."""
+def paged_pool(torch, randn, gen, ps, rows, capacity=2048, layers=2, d=128):
+    """A stacked bf16 pool [layers, 8, P, ps, d] with room for `rows` rows
+    of `capacity` tokens, and a page table from a seeded permutation of its
+    pages (page 0 in no table)."""
     pps = capacity // ps
     num_pages = rows * pps + 1
-    kp = randn(layers, 8, num_pages, ps, 128)
-    vp = randn(layers, 8, num_pages, ps, 128)
+    kp = randn(layers, 8, num_pages, ps, d)
+    vp = randn(layers, 8, num_pages, ps, d)
     perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
     table = perm[: rows * pps].view(rows, pps).to(torch.int32).contiguous()
     return kp, vp, table
@@ -1489,8 +1512,8 @@ def kernel_entries(rows, errs, path_counts) -> list:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "shape": r.get("shape", "the main path's"),
-            **{key: r[key] for key in ("prefill", "chunk", "window", "lse", "max_rel_err")
-               if key in r},
+            **{key: r[key] for key in ("prefill", "chunk", "window", "lse", "max_rel_err",
+                                       "gemma2") if key in r},
         })
     return out
 
@@ -1802,22 +1825,26 @@ def mistral_requests(vocab_size):
             for rid, (n, m) in enumerate(zip(plens, news))]
 
 
-def forward_pair(torch, cfg, params, ids, capacity, plain, tok=None):
+def forward_pair(torch, cfg, params, ids, capacity, plain, tok=None, keep=None):
     """(prefill logits, logits of one decode step, the step's tokens): a
     prefill of `ids` into a bf16 cache, then a decode step of `tok` (default:
     each row's greedy next token). The plain route runs one batch row at a
-    time: its fp32 scores of a 5120-token prompt take 3.4 GB a row."""
+    time: its fp32 scores of a 5120-token prompt take 3.4 GB a row. With
+    `keep` (prefill positions) both routes run a row at a time and keep
+    only those positions' logits: at Gemma2's vocabulary of 256000 one
+    4608-token row of fp32 logits is 4.7 GB."""
     from flash_attention_cute_tpu_torch.models.cache import KVCache
     from flash_attention_cute_tpu_torch.models.transformer import forward
 
-    groups = [slice(i, i + 1) for i in range(ids.shape[0])] if plain else [slice(None)]
+    rows = plain or keep is not None
+    groups = [slice(i, i + 1) for i in range(ids.shape[0])] if rows else [slice(None)]
     pre, step, toks = [], [], []
     with torch.no_grad():
         for g in groups:
             cache = KVCache.create(cfg, ids[g].shape[0], capacity)
             logits, cache = forward(params, cfg, ids[g], cache=cache, plain_attention=plain)
             t = logits[:, -1].argmax(-1)[:, None] if tok is None else tok[g]
-            pre.append(logits)
+            pre.append(logits if keep is None else logits[:, keep])
             step.append(forward(params, cfg, t, cache=cache, mode="decode",
                                 plain_attention=plain)[0])
             toks.append(t)
@@ -1832,19 +1859,28 @@ def check_counts(counts, want, what):
               f"({what}) {name} launched {want.get(name, 0)} times, got {c}")
 
 
-def phase_family(torch, cfg, params, seed, b, prompt, new, kernels, path_counts, label):
+def prefill_counts(cfg, prompt):
+    """Launches of one prefill forward of `prompt` tokens: B2 on each layer
+    whose window binds (W < prompt), P on every other layer."""
+    win = sum(1 for li in range(cfg.num_layers) if (cfg.layer_window(li) or prompt) < prompt)
+    return {"flash_fwd_window": win, "flash_fwd": cfg.num_layers - win}
+
+
+def phase_family(torch, cfg, params, seed, b, prompt, new, kernels, path_counts, label,
+                 keep=None):
     """Teacher-forced prefill and decode-step logits of the kernel route
-    against the plain_attention route, then `greedy_generate` over a bf16
-    cache with its launch counts (prefill: B2 where the window binds, else
-    P; D1 + D2 per layer and decode step)."""
+    against the plain_attention route (at the prefill positions `keep`, if
+    given), then `greedy_generate` over a bf16 cache with its launch counts
+    (prefill: B2 on each layer whose window binds, else P; D1 + D2 per layer
+    and decode step)."""
     import numpy as np
     from flash_attention_cute_tpu_torch.runtime.generate import greedy_generate
 
     n = cfg.num_layers
     ids = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, prompt)))
     ids = ids.to("cuda")
-    pre_p, step_p, tok = forward_pair(torch, cfg, params, ids, prompt + new, True)
-    pre_k, step_k, _ = forward_pair(torch, cfg, params, ids, prompt + new, False, tok)
+    pre_p, step_p, tok = forward_pair(torch, cfg, params, ids, prompt + new, True, keep=keep)
+    pre_k, step_k, _ = forward_pair(torch, cfg, params, ids, prompt + new, False, tok, keep)
     diffs = {"prefill": check_logits(torch, f"{label} teacher-forced prefill, kernel vs plain",
                                      pre_k, pre_p),
              "decode step": check_logits(torch, f"{label} teacher-forced decode step, kernel vs "
@@ -1858,9 +1894,7 @@ def phase_family(torch, cfg, params, seed, b, prompt, new, kernels, path_counts,
           f"{ {k: c for k, c in counts.items() if c} }")
     check(tuple(tokens.shape) == (b, new) and bool(
         ((tokens >= 0) & (tokens < cfg.vocab_size)).all()), f"{label}: tokens in vocab")
-    prefill = "flash_fwd_window" if cfg.layer_window(0) and prompt > cfg.layer_window(0) \
-        else "flash_fwd"
-    check_counts(counts, {prefill: n, "decode_partials": n * (new - 1),
+    check_counts(counts, {**prefill_counts(cfg, prompt), "decode_partials": n * (new - 1),
                           "decode_combine": n * (new - 1)}, f"{label} greedy")
     return ids, tokens, {"teacher_forced_max_mean_diff": diffs, "greedy_wall_s": wall,
                          "greedy_tokens_per_s": b * new / wall}
@@ -1875,7 +1909,6 @@ def phase_mistral(torch, cfg, params, kernels, path_counts):
     import dataclasses
     from flash_attention_cute_tpu_torch.models.cache import QuantizedKVCache
     from flash_attention_cute_tpu_torch.models.transformer import forward
-    from flash_attention_cute_tpu_torch.runtime.engine import ServingEngine
     from flash_attention_cute_tpu_torch.runtime.generate import greedy_generate
 
     label, n = "Mistral-7B", cfg.num_layers
@@ -1907,8 +1940,24 @@ def phase_mistral(torch, cfg, params, kernels, path_counts):
     results["greedy_int8_wall_s"] = wall
     torch.cuda.empty_cache()
 
+    results.update(serve_long_requests(torch, cfg, params, kernels, path_counts, label,
+                                       MISTRAL_SERVING_RUNS))
+    return results
+
+
+def serve_long_requests(torch, cfg, params, kernels, path_counts, label, runs):
+    """The serving engine over `mistral_requests` (8 prompts of 4200-5000
+    tokens, past every window) in each run of `runs` (name -> engine
+    options): every request finishes, launch counts match the forwards
+    (a prefill forward runs `prefill_counts` at its padded length, an
+    extend B6, a decode B5 + D2, every forward the append, per layer), and
+    every token is teacher-forced through one contiguous prefill."""
+    from flash_attention_cute_tpu_torch.runtime.engine import ServingEngine
+
+    n, results = cfg.num_layers, {}
     reqs = mistral_requests(cfg.vocab_size)
-    for name, kw in MISTRAL_SERVING_RUNS.items():
+    per_prefill = prefill_counts(cfg, min(len(p) for _, p, _ in reqs))
+    for name, kw in runs.items():
         torch.cuda.reset_peak_memory_stats()
         eng = ServingEngine(params, cfg, **kw)
         pool_bytes = sum(t.numel() * t.element_size() for f, t in vars(eng.state).items()
@@ -1924,8 +1973,7 @@ def phase_mistral(torch, cfg, params, kernels, path_counts):
               f"{pool_bytes / 1e9:.4f} GB, peak memory {peak / 1e9:.3f} GB")
         check(sorted(out) == list(range(len(reqs))) and not eng.failed,
               f"({name}) every request finishes, none fails")
-        # Prefill groups are padded past the window: B2, never P.
-        check_counts(counts, {"flash_fwd_window": n * fw["prefill"],
+        check_counts(counts, {**{k: c * fw["prefill"] for k, c in per_prefill.items()},
                               "paged_extend": n * fw["extend"],
                               "paged_decode": n * fw["decode"],
                               "decode_combine": n * fw["decode"],
@@ -2647,6 +2695,341 @@ def training_rows(torch, ops, gen):
     return rows, lse_cost
 
 
+# Phases 3h / 4j / 5d: Gemma-2-9B (head dim 256, a window of 4096 on the
+# even layers, soft caps 50 on the scores and 30 on the final logits).
+GEMMA2_B, GEMMA2_PROMPT, GEMMA2_NEW = 2, 4608, 32
+GEMMA2_CAPACITY = GEMMA2_PROMPT + GEMMA2_NEW
+GEMMA2_CAPS = (50.0, 1.0)  # the model's, and one that binds on every score
+GEMMA2_KEEP = 64  # teacher forcing compares every 64th prefill position and the last
+
+
+def phase_gemma2_kernels(torch, ops, errs):
+    """P / B2, D1 + D2, B5, B6 and the paged append at Gemma-2-9B attention
+    widths (Hq 16, Hkv 8, D 256, scale 256 ** -0.5) with the soft caps 50
+    and 1.0, and P, D1, B5, B6 with the caps at Llama widths (32 / 8, D
+    128), against their fp32 plain versions (run on q's fp32 image); caches
+    and pools NaN past every length, pools behind permuted tables. Errors at
+    D 256 also go to the "<kernel> gemma2" entries of `errs`."""
+    from flash_attention_cute_tpu_torch.runtime import paged_cache
+
+    flash_fwd, flash_decode, pa = ops["flash_fwd"], ops["flash_decode"], ops["paged_attention"]
+    gen = torch.Generator(device="cuda").manual_seed(8080)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def record(name, d, e):
+        for key in (name, f"{name} gemma2") if d == 256 else (name,):
+            errs[key] = max(errs.get(key, 0.0), e)
+
+    def held(name, what, d, out, ref, tol=BF16_TOL):
+        """`out` within tol of `ref`; its error recorded under `name` (None:
+        checked only, as for D1 + D2 against the fp32 plain route)."""
+        e = max_err(out, ref)
+        if name:
+            record(name, d, e)
+        print(f"  {what}: max|diff| {e:.3e}")
+        check(bool(torch.isfinite(out).all()), f"{what}: finite")
+        check(e <= tol, f"{what} within {tol}")
+
+    for cap in GEMMA2_CAPS:
+        for name, b, sq, skv, w, dt, (hq, hkv, d) in (
+                ("causal B2 S4608", 2, 4608, 4608, None, torch.bfloat16, (16, 8, 256)),
+                ("window 4096 B2 S4608", 2, 4608, 4608, WINDOW, torch.bfloat16, (16, 8, 256)),
+                ("Sq256 Skv1024", 1, 256, 1024, None, torch.bfloat16, (16, 8, 256)),
+                ("ragged S1000 f16", 1, 1000, 1000, None, torch.float16, (16, 8, 256)),
+                ("causal B2 S1024 (Llama widths)", 2, 1024, 1024, None, torch.bfloat16,
+                 (32, 8, 128))):
+            q, k, v = randn(b, hq, sq, d, dtype=dt), randn(b, hkv, skv, d, dtype=dt), \
+                randn(b, hkv, skv, d, dtype=dt)
+            out = flash_fwd.flash_attention_fwd(q, k, v, causal=True, window=w, logit_softcap=cap)
+            ref = flash_fwd.flash_attention_fwd_plain(q.float(), k.float(), v.float(),
+                                                      causal=True, window=w, logit_softcap=cap)
+            held("flash_fwd_window" if w else "flash_fwd",
+                 f"{'B2' if w else 'P'} D {d} cap {cap:g} {name}", d, out, ref)
+            del q, k, v, out, ref
+        torch.cuda.empty_cache()
+
+        for hq, hkv, d, cap_len, lens_list in ((16, 8, 256, GEMMA2_CAPACITY, [4640, 4600, 2000, 0]),
+                                               (32, 8, 128, 576, [576, 513, 37, 0])):
+            kc, vc = randn(4, hkv, cap_len, d), randn(4, hkv, cap_len, d)
+            for i, n in enumerate(lens_list):  # uninitialised cache tail
+                kc[i, :, n:] = float("nan")
+                vc[i, :, n:] = float("nan")
+            q = randn(4, hq, 1, d)
+            lengths = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+            for w in ((None, WINDOW) if d == 256 else (None,)):
+                splits = 5
+                acc, m, l = flash_decode.decode_partials(q, kc, vc, lengths, d ** -0.5, splits,
+                                                         w, cap)
+                ref = flash_decode.decode_partials_plain(q, kc, vc, lengths, d ** -0.5, splits,
+                                                         w, cap)
+                e1 = max(max_err(x, y) for x, y in zip((acc, m, l), ref))
+                record("decode_partials", d, e1)
+                check(e1 <= 1e-2, f"D1 D {d} cap {cap:g} window {w} partials within 1e-2")
+                o = flash_decode.decode_combine(acc, m, l, torch.bfloat16)
+                held("decode_combine", f"D2 D {d} cap {cap:g} window {w} (D1 partials "
+                     f"{e1:.3e})", d, o, flash_decode.decode_combine_plain(acc, m, l,
+                                                                            torch.bfloat16))
+                out = flash_decode.flash_attention_decode(q, kc, vc, kv_length=lengths, window=w,
+                                                          logit_softcap=cap)
+                ref = flash_decode.flash_attention_decode_plain(q.float(), kc, vc,
+                                                                kv_length=lengths, window=w,
+                                                                logit_softcap=cap)
+                held(None, f"D1 + D2 D {d} cap {cap:g} window {w}, lengths "
+                     f"{lens_list}", d, out, ref)
+                check(bool((out[3] == 0).all()), "decode row of length 0 is 0")
+            del kc, vc
+
+        for ps in (16, 128):
+            for hq, d in ((16, 256), (32, 128)):
+                kp, vp, table = paged_pool(torch, randn, gen, ps, rows=8, capacity=4096,
+                                           layers=1, d=d)
+                full = table.shape[1] * ps
+                lens = torch.tensor([0, 1, ps - 1, ps + 1, full, 4000, 777, 33],
+                                    dtype=torch.int32, device="cuda")
+                poison_past(torch, kp, table, lens)
+                poison_past(torch, vp, table, lens)
+                q = randn(8, hq, 1, d)
+                out = pa.paged_attention_decode(q, kp[0], vp[0], lens, table, logit_softcap=cap)
+                ref = pa.paged_attention_decode_plain(q.float(), kp[0], vp[0], lens, table,
+                                                      logit_softcap=cap)
+                held("paged_decode", f"B5 D {d} cap {cap:g} page_size {ps}", d, out, ref)
+                check(bool((out[0] == 0).all()), "B5 row of length 0 is exactly 0")
+                s = 512 if ps == 16 else 100
+                off = torch.tensor([0, 512, 3000, 0], dtype=torch.int32, device="cuda")
+                kvl = torch.tensor([s, 512 + s, 3000 + s, 0], dtype=torch.int32, device="cuda")
+                kp, vp, table = paged_pool(torch, randn, gen, ps, rows=4, capacity=4096,
+                                           layers=1, d=d)
+                poison_past(torch, kp, table, kvl)
+                poison_past(torch, vp, table, kvl)
+                q = randn(4, s, hq, d).transpose(1, 2)  # the model's [B, S, H, D] view
+                for w in ((None, WINDOW) if d == 256 else (None,)):
+                    out = pa.paged_attention_extend(q, kp[0], vp[0], off, kvl, table, window=w,
+                                                    logit_softcap=cap)
+                    ref = pa.paged_attention_extend_plain(q.float(), kp[0], vp[0], off, kvl,
+                                                          table, window=w, logit_softcap=cap)
+                    held("paged_extend", f"B6 D {d} cap {cap:g} page_size {ps} S {s} window {w}",
+                         d, out, ref)
+                    check(bool((out[3] == 0).all()), "B6 inactive row is exactly 0")
+                del kp, vp
+
+    # The append at D 256: decode rows (one inactive, one past the table)
+    # and a 100-token chunk; exactly what the plain masked scatter writes.
+    for s, starts, act in ((1, [0, 5, 127, 4096, 37, 256, 1, 9], [1, 1, 1, 1, 0, 1, 1, 1]),
+                           (100, [0, 13, 4096 - 40, 3], [1, 1, 1, 0])):
+        b = len(starts)
+        kp, vp, table = paged_pool(torch, randn, gen, 16, rows=b, capacity=4096, layers=1, d=256)
+        new_k, new_v = (randn(b, s, 8, 256).transpose(1, 2) for _ in "kv")
+        lengths = torch.tensor(starts, dtype=torch.int32, device="cuda")
+        active = torch.tensor(act, dtype=torch.bool, device="cuda")
+        ref_k, ref_v = kp[0].clone(), vp[0].clone()
+        paged_cache.paged_append_layer(kp[0], vp[0], new_k, new_v, table, lengths, active)
+        paged_cache.paged_append_layer_plain(ref_k, ref_v, new_k, new_v, table, lengths, active)
+        same = torch.equal(kp[0], ref_k) and torch.equal(vp[0], ref_v)
+        record("paged_append", 256, max(max_err(kp[0], ref_k), max_err(vp[0], ref_v)))
+        print(f"  append D 256, S {s}, starts {starts}: identical to plain: {same}")
+        check(same, "append kernel at D 256 writes exactly what the plain scatter writes")
+    torch.cuda.empty_cache()
+
+
+def phase_gemma2(torch, cfg, params, kernels, path_counts):
+    """Gemma-2-9B: teacher-forced prefill (every GEMMA2_KEEP-th position and
+    the last) and decode-step logits of the kernel route against the plain
+    route, a row at a time; greedy generation over a bf16 cache (B2 on the
+    21 windowed layers, P on the 21 full ones; D1 + D2 per layer and step)
+    and its prefill and decode times; then the serving engine in runs G1
+    (whole-prompt admission, page_size 128) and G2 (chunked admission of
+    512, page_size 16) over `mistral_requests`, every token teacher-forced."""
+    from flash_attention_cute_tpu_torch.runtime.generate import decode_loop, prefill
+    from flash_attention_cute_tpu_torch.utils.timing import wall_time_s
+
+    label = "Gemma-2-9B"
+    keep = torch.arange(0, GEMMA2_PROMPT, GEMMA2_KEEP).tolist() + [GEMMA2_PROMPT - 1]
+    ids, _, results = phase_family(torch, cfg, params, 9, GEMMA2_B, GEMMA2_PROMPT, GEMMA2_NEW,
+                                   kernels, path_counts, label, keep=keep)
+    with torch.no_grad():
+        (last, cache), pre_s = wall_time_s(lambda: prefill(params, cfg, ids, GEMMA2_CAPACITY))
+        first = last.argmax(-1).to(torch.int32)
+        _, dec_s = wall_time_s(lambda: decode_loop(params, cfg, first, cache, GEMMA2_NEW - 1))
+    del cache, last
+    torch.cuda.empty_cache()
+    results.update(prefill_ms=1e3 * pre_s, prefill_tokens_per_s=GEMMA2_B * GEMMA2_PROMPT / pre_s,
+                   decode_ms_per_token=1e3 * dec_s / (GEMMA2_NEW - 1))
+    print(f"  {label} prefill B{GEMMA2_B} x {GEMMA2_PROMPT}: {1e3 * pre_s:.1f} ms; decode "
+          f"{1e3 * dec_s / (GEMMA2_NEW - 1):.2f} ms/token")
+    results.update(serve_long_requests(torch, cfg, params, kernels, path_counts, label, {
+        "G1 whole-prompt": MISTRAL_SERVING_RUNS["M1 whole-prompt"],
+        "G2 chunked": MISTRAL_SERVING_RUNS["M2 chunked"]}))
+    return results
+
+
+def flex_or_sdpa(torch, q, k, v, cap, window):
+    """library_ms of P / B2 at Gemma-2-9B shapes: one call of
+    `flex_attention` (compiled) with the tanh soft cap as its score_mod and
+    the causal (windowed) mask as a block mask, GQA by enable_gqa; where it
+    does not compile, SDPA without the soft cap over GQA-expanded K/V.
+    Returns (callable, label)."""
+    f = torch.nn.functional
+    s, d = q.shape[2], q.shape[3]
+    try:
+        from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+        def score_mod(score, b, h, qi, ki):
+            return cap * torch.tanh(score / cap)
+
+        def mask_mod(b, h, qi, ki):
+            m = ki <= qi
+            return m & (ki > qi - window) if window else m
+
+        block_mask = create_block_mask(mask_mod, None, None, s, s, device="cuda")
+        flex = torch.compile(flex_attention)
+
+        def call():
+            return flex(q, k, v, score_mod=score_mod, block_mask=block_mask, enable_gqa=True,
+                        scale=d ** -0.5)
+
+        call()
+        torch.cuda.synchronize()
+        return call, "flex_attention (compiled) with the tanh soft cap as score_mod"
+    except Exception as exc:  # a yardstick only: the port never calls it
+        print(f"  flex_attention did not compile ({type(exc).__name__}): library_ms is SDPA "
+              "without the soft cap")
+        rep = q.shape[1] // k.shape[1]
+        kr, vr = (x.repeat_interleave(rep, dim=1) for x in (k, v))
+        i = torch.arange(s, device="cuda")
+        mask = (i[None, :] <= i[:, None]) & ((i[None, :] > i[:, None] - window) if window
+                                            else True)
+        return (lambda: f.scaled_dot_product_attention(q, kr, vr, attn_mask=mask),
+                "SDPA without the soft cap (flex_attention did not compile), GQA expanded")
+
+
+def gemma2_rows(torch, ops, gen):
+    """The `gemma2` entries of the P, B2, D1, D2, B5, B6 and append rows, at
+    Gemma-2-9B shapes with the soft cap 50: P and B2 at the greedy prefill
+    (B 2, S 4608; B2 with W 4096), D1 / D2 at the greedy middle decode step
+    (B 2, 4624 of 4640 positions, a full layer), B5 at run G1's decode (4
+    slots, page_size 128), B6 at run G2's extend (4 rows of 512, page_size
+    16, on a full layer), the append at G1's decode. library_ms: see
+    `flex_or_sdpa` for P / B2; SDPA without the soft cap over a contiguous
+    copy for B5 / B6 (the copy not timed); `index_copy_` for the append;
+    null for D1 / D2 (no call computes split partials). Bounds count the
+    visible (query, key) pairs."""
+    from flash_attention_cute_tpu_torch import dispatch
+    from flash_attention_cute_tpu_torch.runtime import paged_cache
+    from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms
+
+    flash_fwd, flash_decode, pa = ops["flash_fwd"], ops["flash_decode"], ops["paged_attention"]
+    f = torch.nn.functional
+    hq, hkv, d, cap, w = 16, 8, 256, 50.0, WINDOW
+    rep, scale = hq // hkv, d ** -0.5
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def measure(fn, plain, library, ops_, nbytes, peak, shape, iters=20, plain_iters=5):
+        return {"shape": shape, "ms": cuda_time_ms(fn, iters), "call_ms": call_time_ms(fn, iters),
+                "plain_ms": cuda_time_ms(plain, plain_iters),
+                "library_ms": None if library is None else cuda_time_ms(library, iters),
+                **bound(ops_, nbytes, peak)}
+
+    rows = {}
+    b, s = GEMMA2_B, GEMMA2_PROMPT
+    q, k, v = randn(b, hq, s, d), randn(b, hkv, s, d), randn(b, hkv, s, d)
+    for name, win in (("flash_fwd", None), ("flash_fwd_window", w)):
+        pairs = sum(min(r + 1, win or s) for r in range(s))
+        library, lib_label = flex_or_sdpa(torch, q, k, v, cap, win)
+        rows[name] = measure(
+            lambda: flash_fwd.flash_attention_fwd(q, k, v, scale, True, win, cap),
+            lambda: flash_fwd.flash_attention_fwd_plain(q, k, v, scale, True, win, cap),
+            library, 4 * b * hq * pairs * d, 2 * (2 * q.numel() + k.numel() + v.numel()),
+            PEAK_BF16, f"B {b}, S {s}, window {win}, Hq {hq}, Hkv {hkv}, D {d}, soft cap {cap:g}; "
+            f"library_ms: {lib_label}", iters=10, plain_iters=3)
+        del library
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    cap_len, live = GEMMA2_CAPACITY, GEMMA2_PROMPT + GEMMA2_NEW // 2
+    kc, vc, qd = randn(b, hkv, cap_len, d), randn(b, hkv, cap_len, d), randn(b, hq, 1, d)
+    lengths = torch.full((b,), live, dtype=torch.int32, device="cuda")
+    splits = dispatch.decode_num_splits(b, hkv, cap_len)
+    acc, m, l = flash_decode.decode_partials(qd, kc, vc, lengths, scale, splits, None, cap)
+    part_bytes = 4 * (acc.numel() + m.numel() + l.numel())
+    shape = f"B {b}, cache {cap_len}, lengths {live}, splits {splits}, D {d}, soft cap {cap:g}"
+    rows["decode_partials"] = measure(
+        lambda: flash_decode.decode_partials(qd, kc, vc, lengths, scale, splits, None, cap),
+        lambda: flash_decode.decode_partials_plain(qd, kc, vc, lengths, scale, splits, None, cap),
+        None, 4 * b * hq * live * d, 2 * qd.numel() + 2 * 2 * b * hkv * live * d + 4 * b
+        + part_bytes, PEAK_F32, shape, 50, 10)
+    rows["decode_combine"] = measure(
+        lambda: flash_decode.decode_combine(acc, m, l, torch.bfloat16),
+        lambda: flash_decode.decode_combine_plain(acc, m, l, torch.bfloat16),
+        None, 4 * acc.numel(), part_bytes + 2 * qd.numel(), PEAK_F32, shape, 50, 10)
+    del kc, vc
+
+    reqs = mistral_requests(256000)  # Gemma-2-9B's vocabulary
+    lens_list = [len(p) + 24 for _, p, _ in reqs[:4]]
+    lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+    b, ps, pps = 4, 128, 40
+    kp, vp, table = paged_pool(torch, randn, gen, ps, rows=b, capacity=pps * ps, layers=1, d=d)
+    kp, vp = kp[0], vp[0]
+    q = randn(b, hq, 1, d)
+    splits = dispatch.decode_num_splits(b, hkv, pps * ps)
+    part_bytes = 4 * b * hkv * splits * rep * (d + 2)
+    pos = torch.arange(pps * ps, device="cuda")[None, :]
+    pmask = (pos < lens[:, None])[:, None, None, :]
+    kc, vc = (pa.gather_pages(x, table).repeat_interleave(rep, dim=1) for x in (kp, vp))
+    live = sum(lens_list)
+    rows["paged_decode"] = measure(
+        lambda: pa.paged_attention_decode(q, kp, vp, lens, table, logit_softcap=cap),
+        lambda: pa.paged_attention_decode_plain(q, kp, vp, lens, table, logit_softcap=cap),
+        lambda: f.scaled_dot_product_attention(q, kc, vc, attn_mask=pmask),
+        4 * hq * live * d, 2 * q.numel() + 2 * 2 * hkv * live * d
+        + 4 * (b + sum(-(-n // ps) for n in lens_list)) + part_bytes + 2 * q.numel(), PEAK_F32,
+        f"B {b}, page_size {ps}, lengths {lens_list}, splits {splits}, D {d}, soft cap {cap:g} "
+        "(a full layer); ms includes D2; library_ms: SDPA without the soft cap", 50, 10)
+    nk, nv = randn(b, 1, hkv, d).transpose(1, 2), randn(b, 1, hkv, d).transpose(1, 2)
+    active = torch.ones(b, dtype=torch.bool, device="cuda")
+    flat = paged_cache.append_targets(table, lens, 1, ps)[0].view(-1)
+    kflat, vflat = (x.view(hkv, -1, d) for x in (kp, vp))
+    krows, vrows = (x.permute(1, 0, 2, 3).reshape(hkv, b, d) for x in (nk, nv))
+
+    def library_append():
+        kflat.index_copy_(1, flat, krows)
+        vflat.index_copy_(1, flat, vrows)
+
+    rows["paged_append"] = measure(
+        lambda: paged_cache.paged_append_layer(kp, vp, nk, nv, table, lens, active),
+        lambda: paged_cache.paged_append_layer_plain(kp, vp, nk, nv, table, lens, active),
+        library_append, 0, 2 * 2 * 2 * nk.numel() + 4 * 3 * b, PEAK_F32,
+        f"B {b}, S 1, page_size {ps}, D {d}; library_ms is index_copy_ on K and on V", 50, 10)
+    del kp, vp, kc, vc
+
+    b, ps, pps, s = 4, 16, 320, 512
+    offs = [3584, 4096, 4096, 4608]
+    off = torch.tensor(offs, dtype=torch.int32, device="cuda")
+    kvl = off + s
+    q = randn(b, s, hq, d).transpose(1, 2)
+    kp, vp, table = paged_pool(torch, randn, gen, ps, rows=b, capacity=pps * ps, layers=1, d=d)
+    kp, vp = kp[0], vp[0]
+    kc, vc = (pa.gather_pages(x, table).repeat_interleave(rep, dim=1) for x in (kp, vp))
+    cols = torch.arange(pps * ps, device="cuda")[None, None, :]
+    emask = ((cols <= off[:, None, None] + torch.arange(s, device="cuda")[None, :, None])
+             & (cols < kvl[:, None, None]))[:, None]
+    pairs = sum(s * o + s * (s + 1) // 2 for o in offs)
+    rows["paged_extend"] = measure(
+        lambda: pa.paged_attention_extend(q, kp, vp, off, kvl, table, logit_softcap=cap),
+        lambda: pa.paged_attention_extend_plain(q, kp, vp, off, kvl, table, logit_softcap=cap),
+        lambda: f.scaled_dot_product_attention(q, kc, vc, attn_mask=emask),
+        4 * hq * d * pairs, 2 * 2 * q.numel() + 2 * 2 * hkv * d * int(kvl.sum())
+        + 4 * (2 * b + sum(-(-int(n) // ps) for n in kvl.tolist())), PEAK_BF16,
+        f"B {b}, S {s}, page_size {ps}, q_offset {offs}, D {d}, soft cap {cap:g} (a full "
+        "layer); library_ms: SDPA without the soft cap", 10, 3)
+    del kp, vp, kc, vc, emask
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--layers", type=int, default=0,
@@ -2720,6 +3103,9 @@ def main() -> int:
     phase_training_kernels(torch, ops, errs, rel_errs)
     print("[3g] packed ragged batch: B12 vs plain (per-sequence dense attention)")
     phase_varlen_kernels(torch, flash_varlen, errs)
+    print("[3h] Gemma2: soft caps 50 and 1.0 at D 256 (Hq 16, Hkv 8) in P / B2, D1 + D2, B5, "
+          "B6, the append at D 256, and the caps at D 128, vs plain")
+    phase_gemma2_kernels(torch, ops, errs)
     torch.cuda.synchronize()
 
     # 4. main paths
@@ -2777,12 +3163,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 4f / 4g. Mistral-7B and Qwen2-7B, one tree at a time.
+    from flash_attention_cute_tpu_torch.models.gemma2 import gemma2_9b_config
     from flash_attention_cute_tpu_torch.models.mistral import mistral_7b_config
     from flash_attention_cute_tpu_torch.models.qwen2 import qwen2_7b_config
 
     families = {}
     for step, name, make, phase, seed in (("4f", "Mistral-7B", mistral_7b_config, phase_mistral, 1),
-                                          ("4g", "Qwen2-7B", qwen2_7b_config, phase_qwen2, 2)):
+                                          ("4g", "Qwen2-7B", qwen2_7b_config, phase_qwen2, 2),
+                                          ("4j", "Gemma-2-9B", gemma2_9b_config, phase_gemma2, 3)):
         fcfg = make()
         if args.layers:
             fcfg = dataclasses.replace(fcfg, num_layers=args.layers)
@@ -2790,10 +3178,13 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         fparams = init_params(fcfg, generator=torch.Generator(device="cuda").manual_seed(seed))
         torch.cuda.synchronize()
+        windows = fcfg.layer_window_pattern or (
+            fcfg.sliding_window if fcfg.use_sliding_window else None)
         print(f"[{step}] {name}: hidden {fcfg.hidden_size}, {fcfg.num_q_heads} / "
-              f"{fcfg.num_kv_heads} heads, {fcfg.num_layers} layers, window "
-              f"{fcfg.sliding_window if fcfg.use_sliding_window else None}, QKV bias "
-              f"{fcfg.attention_bias}, random weights ({time.perf_counter() - t0:.1f} s to draw)")
+              f"{fcfg.num_kv_heads} heads, head dim {fcfg.head_dim}, {fcfg.num_layers} layers, "
+              f"window {windows}, QKV bias {fcfg.attention_bias}, soft caps "
+              f"{fcfg.logit_softcap} / {fcfg.final_logit_softcap}, random weights "
+              f"({time.perf_counter() - t0:.1f} s to draw)")
         families[name] = phase(torch, fcfg, fparams, kernels, path_counts)
         families[name]["weights_gb"] = tree_bytes(fparams) / 1e9
         families[name]["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -2835,6 +3226,13 @@ def main() -> int:
     for r in rows:
         if r["name"] in ("flash_fwd", "flash_fwd_window"):
             r["lse"] = {"max_abs_err": errs[f"{r['name']} lse"], **lse_cost[r["name"]]}
+    print("[5d] numbers of the Gemma2 kernels (D 256, soft cap 50, Gemma-2-9B shapes)")
+    gemma = gemma2_rows(torch, ops, torch.Generator(device="cuda").manual_seed(79))
+    for r in rows:
+        if r["name"] in gemma:
+            r["gemma2"] = {"max_abs_err": errs[f"{r['name']} gemma2"], "launches": sum(
+                c[r["name"]] for p, c in path_counts.items() if p.startswith("Gemma-2-9B")),
+                **gemma[r["name"]]}
     # Peak over the whole script: serving reset the counter before each run.
     numbers["max_memory_allocated_gb"] = max(
         [numbers["max_memory_allocated_gb"], serving.pop("peak_before_serving_gb")]

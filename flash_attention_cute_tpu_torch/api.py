@@ -17,6 +17,11 @@
     (ops/flash_bwd.py). The JAX package routes dense prefill at default
     knobs through its custom-VJP op the same way. Under `torch.no_grad`
     (serving, generation) the call is the plain forward, with no lse.
+    A soft cap keeps prefill on the forward-only route, as in the JAX
+    package; no backward kernel takes the cap, so under autograd a capped
+    prefill of CUDA tensors raises (the kernel's output would carry no
+    gradient), while CPU tensors take the plain version, which autograd
+    differentiates.
 
 Each op chooses kernel or plain version by the device of its tensors.
 Decode and extend are forward only.
@@ -71,10 +76,14 @@ def flash_attention_forward(
             q, k, v, q_offset, kv_length, sm_scale=softmax_scale, causal=causal,
             window=window, logit_softcap=logit_softcap,
         )
-    if (logit_softcap is None and torch.is_grad_enabled()
-            and (q.requires_grad or k.requires_grad or v.requires_grad)):
-        return autodiff.flash_attention(q, k, v, sm_scale=softmax_scale, causal=causal,
-                                        window=window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if logit_softcap is None:
+            return autodiff.flash_attention(q, k, v, sm_scale=softmax_scale, causal=causal,
+                                            window=window)
+        if q.device.type != "cpu":
+            raise NotImplementedError(
+                "a soft-capped prefill under autograd: no backward kernel takes the soft cap "
+                "(ROADMAP.md A10b); run it under torch.no_grad()")
     return flash_attention_fwd(
         q, k, v, sm_scale=softmax_scale, causal=causal, window=window,
         logit_softcap=logit_softcap,

@@ -27,6 +27,11 @@
 // with the segment ids and positions staged in shared memory.
 // P and B2 may also write the per-row lse (FwdParams::lse, null otherwise):
 // m + log2(l) of the base-2 scores, +inf on a row with no visible key.
+// A tanh soft cap c (a runtime argument, 0 for none; only P, B2 and B6
+// compile it)
+// bounds every score before the mask, in the base-2 units of the body:
+// x = c2 * tanh(x / c2) with c2 = c * log2(e), which is log2(e) times
+// c * tanh(s / c) of the natural score s (the TPU kernels' formula).
 // Exact online softmax in fp32 (the `stable="strict"` semantics, no lazy
 // max), deferred 1/l with the l == 0 -> 0 guard, so rows with no visible
 // key (and whole rows of kv_length 0) emit exact zeros. GQA: q head h
@@ -54,6 +59,11 @@
 // `(p * vscale).astype(compute_dtype)`). Not yet done (later work):
 // TMA/cp.async pipelining, wgmma (FP8 wgmma for e4m3), loading each K/V
 // tile once per GQA group.
+// Head dim 256 (Gemma2; P, B2 and B6 only): O alone is 128 fp32 registers a
+// thread and S 32 more, so Q's A fragments are not held in registers (64
+// more at D 256) but read from the Q tile in shared memory at each k-step of
+// QK^T; shared memory is then Q 64 x 264 + K 64 x 264 + V^T 256 x 72 bf16,
+// 104,448 bytes, two blocks an SM.
 #pragma once
 
 #include <climits>
@@ -72,6 +82,8 @@ struct FwdParams {
   int64_t v_sb, v_sh, v_ss, v_sp;
   int hq, group, sq, skv;  // skv: P's key count, B4's capacity C
   float scale_log2;  // softmax_scale * log2(e): softmax runs in base 2
+  float softcap_log2;  // soft cap c * log2(e) (base-2 units), or 0 for none
+  float softcap_rcp;   // 1 / softcap_log2 (0 for none), set by the C entry
   int causal;
   int window;  // sliding window W > 0, or 0 for none
   const int* q_offset;    // B4, B6: [B] int32 global position of q row 0
@@ -134,6 +146,10 @@ __device__ __forceinline__ void attention_fwd_body(const FwdArgs<KV> p) {
   constexpr int kRow = D + 8;          // smem row stride of Q and K (bank spread)
   constexpr int kVtRow = kBlockN + 8;  // smem row stride of V^T
   constexpr int kChunks = D / 8;       // chunks of 8 elements per row
+  constexpr bool kQRegs = D <= 128;    // Q's A fragments held in registers
+  // The soft cap is compiled into the instantiations whose wrappers take it
+  // (P / B2 without the lse, B6); B4, B9, B12 and the lse raise on a cap.
+  constexpr bool kCap = !kVarlen && !kQuant && !kLse && (kPaged || !kRowOffsets);
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
   T* sK = sQ + kBlockM * kRow;
@@ -178,14 +194,18 @@ __device__ __forceinline__ void attention_fwd_body(const FwdArgs<KV> p) {
     *reinterpret_cast<uint4*>(sQ + r * kRow + col) = val;
   }
   __syncthreads();
-  uint32_t qf[D / 16][4];  // this warp's 16 query rows as A fragments
+  // This warp's 16 query rows as A fragments, held in registers up to D
+  // 128; at D 256 each k-step of QK^T reads its fragment from sQ.
+  uint32_t qf[kQRegs ? D / 16 : 1][4];
+  if constexpr (kQRegs) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const T* base = sQ + (wr + g) * kRow + kk * 16 + 2 * t;
-    qf[kk][0] = *reinterpret_cast<const uint32_t*>(base);
-    qf[kk][1] = *reinterpret_cast<const uint32_t*>(base + 8 * kRow);
-    qf[kk][2] = *reinterpret_cast<const uint32_t*>(base + 8);
-    qf[kk][3] = *reinterpret_cast<const uint32_t*>(base + 8 * kRow + 8);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const T* base = sQ + (wr + g) * kRow + kk * 16 + 2 * t;
+      qf[kk][0] = *reinterpret_cast<const uint32_t*>(base);
+      qf[kk][1] = *reinterpret_cast<const uint32_t*>(base + 8 * kRow);
+      qf[kk][2] = *reinterpret_cast<const uint32_t*>(base + 8);
+      qf[kk][3] = *reinterpret_cast<const uint32_t*>(base + 8 * kRow + 8);
+    }
   }
 
   float acc[D / 8][4];
@@ -287,14 +307,37 @@ __device__ __forceinline__ void attention_fwd_body(const FwdArgs<KV> p) {
       for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
+      if constexpr (!kQRegs) {
+        const T* base = sQ + (wr + g) * kRow + kk * 16 + 2 * t;
+        qf[0][0] = *reinterpret_cast<const uint32_t*>(base);
+        qf[0][1] = *reinterpret_cast<const uint32_t*>(base + 8 * kRow);
+        qf[0][2] = *reinterpret_cast<const uint32_t*>(base + 8);
+        qf[0][3] = *reinterpret_cast<const uint32_t*>(base + 8 * kRow + 8);
+      }
 #pragma unroll
       for (int nt = 0; nt < kBlockN / 8; ++nt) {
         const T* base = sK + (nt * 8 + g) * kRow + kk * 16 + 2 * t;
-        Elem<T>::mma(s[nt], qf[kk], *reinterpret_cast<const uint32_t*>(base),
+        Elem<T>::mma(s[nt], qf[kQRegs ? kk : 0], *reinterpret_cast<const uint32_t*>(base),
                      *reinterpret_cast<const uint32_t*>(base + 8));
       }
     }
 
+    if constexpr (kCap) {
+      // Scale, then the soft cap before the mask (a masked score stays
+      // -inf): separate passes over the registers. The cap is a uniform
+      // branch whose two parameters need no register outside it.
+#pragma unroll
+      for (int nt = 0; nt < kBlockN / 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[nt][i] *= p.scale_log2;
+      if (p.softcap_log2 > 0.f) {
+#pragma unroll
+        for (int nt = 0; nt < kBlockN / 8; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            s[nt][i] = p.softcap_log2 * tanhf(s[nt][i] * p.softcap_rcp);
+      }
+    }
     // Only tiles straddling the ragged end, the diagonal or the lower
     // window edge of the block's last row need the mask.
     const bool edge = kVarlen || n0 + kBlockN > skv || (p.causal && n0 + kBlockN - 1 > m0 + offset) ||
@@ -303,8 +346,11 @@ __device__ __forceinline__ void attention_fwd_body(const FwdArgs<KV> p) {
     for (int nt = 0; nt < kBlockN / 8; ++nt) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        float x = s[nt][i] * p.scale_log2;
-        if constexpr (kQuant) x *= sKs[nt * 8 + 2 * t + (i & 1)];
+        float x = s[nt][i];
+        if constexpr (!kCap) {  // scaled here, in the masking pass
+          x *= p.scale_log2;
+          if constexpr (kQuant) x *= sKs[nt * 8 + 2 * t + (i & 1)];
+        }
         if (edge) {
           const int col = n0 + nt * 8 + 2 * t + (i & 1);
           bool masked;
@@ -437,8 +483,10 @@ int launch_attention_fwd(const FwdArgs<KV>& p, int batch, cudaStream_t stream) {
 }
 
 // K/V of q's own type (P, B2, B4, B6, B12); P / B2 with a non-null lse
-// launch the lse kernel.
-template <bool kRowOffsets, bool kPaged, bool kVarlen = false, bool kLse = false>
+// launch the lse kernel. kD256: also head dim 256, instantiated only for the
+// callers that take it (P / B2 without the lse, B6), so B4's, B12's and the
+// lse's builds do not compile it.
+template <bool kRowOffsets, bool kPaged, bool kVarlen = false, bool kLse = false, bool kD256 = false>
 int dispatch_attention_fwd(const FwdParams& p, int batch, int d, int dtype, cudaStream_t s) {
   using bf16 = __nv_bfloat16;
   using h16 = __half;
@@ -449,6 +497,10 @@ int dispatch_attention_fwd(const FwdParams& p, int batch, int d, int dtype, cuda
   if (dtype == kBF16 && d == 128) return launch_attention_fwd<bf16, bf16, 128, R, kPaged, V, kLse>(p, batch, s);
   if (dtype == kF16 && d == 64) return launch_attention_fwd<h16, h16, 64, R, kPaged, V, kLse>(p, batch, s);
   if (dtype == kF16 && d == 128) return launch_attention_fwd<h16, h16, 128, R, kPaged, V, kLse>(p, batch, s);
+  if constexpr (kD256 && !kLse && !kVarlen) {
+    if (dtype == kBF16 && d == 256) return launch_attention_fwd<bf16, bf16, 256, R, kPaged, V>(p, batch, s);
+    if (dtype == kF16 && d == 256) return launch_attention_fwd<h16, h16, 256, R, kPaged, V>(p, batch, s);
+  }
   return cudaErrorInvalidValue;
 }
 

@@ -24,8 +24,12 @@
 // exit. Rows and scales at or past the length are never
 // loaded, so a cache tail of uninitialised memory (even NaN) cannot leak in.
 // Scores are kept in base 2 (scale * log2(e) folded in), as in the prefill
-// kernel. Not yet done (later work): cp.async/TMA prefetch of the next
-// tile, and a single fused launch with the combine.
+// kernel, and so is the tanh soft cap of D1 and B5 (their kCap
+// instantiations): x = c2 * tanh(x / c2), c2 = c * log2(e), on each
+// score before it is stored for the softmax. At head dim 256 a key row is one warp's (kTpk 32) and
+// four rows are in flight, so the score reduction stays within a warp and
+// s_red keeps its 32 KB at G 8. Not yet done (later work): cp.async/TMA
+// prefetch of the next tile, and a single fused launch with the combine.
 #pragma once
 
 #include "common.cuh"
@@ -48,6 +52,8 @@ struct DecodeParams {
   int chunk;             // contiguous: keys per split (paged: from each length)
   int pps, page_size;    // paged only
   float scale_log2;
+  float softcap_log2;    // soft cap c * log2(e) (base-2 units), or 0 for none
+  float softcap_rcp;     // 1 / softcap_log2 (0 for none), set by the C entry
   int window;            // sliding window W > 0, or 0 for none
 };
 
@@ -82,8 +88,10 @@ __device__ __forceinline__ int64_t key_row(const DecodeParams& p, int b, int hk,
   }
 }
 
-// T: q and output type; KV: the cache's element type (T, or int8 / e4m3).
-template <typename T, typename KV, int D, int GMAX, bool kPaged>
+// T: q and output type; KV: the cache's element type (T, or int8 / e4m3);
+// kCap: the soft cap (D1, B5 with a cap; a template flag, so the kernels
+// without it are unchanged: a runtime branch here cost D1 / B5 up to 12 %).
+template <typename T, typename KV, int D, int GMAX, bool kPaged, bool kCap = false>
 __global__ void __launch_bounds__(kDecodeThreads) decode_partials_kernel(const DecodeArgs<KV> p) {
   constexpr bool kQuant = sizeof(KV) == 1;
   constexpr int kTpk = D / 8;             // threads per key row
@@ -185,6 +193,10 @@ __global__ void __launch_bounds__(kDecodeThreads) decode_partials_kernel(const D
           for (int g = 0; g < GMAX; ++g)
             if (g < G) s_p[g][kk] = kk < tn ? sc[g] * ks : -INFINITY;
         } else {
+          if constexpr (kCap) {
+#pragma unroll
+            for (int g = 0; g < GMAX; ++g) sc[g] = p.softcap_log2 * tanhf(sc[g] * p.softcap_rcp);
+          }
 #pragma unroll
           for (int g = 0; g < GMAX; ++g)
             if (g < G) s_p[g][kk] = kk < tn ? sc[g] : -INFINITY;
@@ -258,30 +270,35 @@ __global__ void __launch_bounds__(kDecodeThreads) decode_partials_kernel(const D
   }
 }
 
-template <typename T, typename KV, int D, int GMAX, bool kPaged>
+template <typename T, typename KV, int D, int GMAX, bool kPaged, bool kCap>
 int launch_partials(const DecodeArgs<KV>& p, int batch, cudaStream_t stream) {
   const dim3 grid(p.num_splits, p.hkv, batch);
-  decode_partials_kernel<T, KV, D, GMAX, kPaged><<<grid, kDecodeThreads, 0, stream>>>(p);
+  decode_partials_kernel<T, KV, D, GMAX, kPaged, kCap><<<grid, kDecodeThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, typename KV, int D, bool kPaged>
+template <typename T, typename KV, int D, bool kPaged, bool kCap = false>
 int dispatch_group(const DecodeArgs<KV>& p, int batch, cudaStream_t stream) {
-  if (p.group <= 1) return launch_partials<T, KV, D, 1, kPaged>(p, batch, stream);
-  if (p.group <= 2) return launch_partials<T, KV, D, 2, kPaged>(p, batch, stream);
-  if (p.group <= 4) return launch_partials<T, KV, D, 4, kPaged>(p, batch, stream);
-  if (p.group <= 8) return launch_partials<T, KV, D, 8, kPaged>(p, batch, stream);
+  if (p.group <= 1) return launch_partials<T, KV, D, 1, kPaged, kCap>(p, batch, stream);
+  if (p.group <= 2) return launch_partials<T, KV, D, 2, kPaged, kCap>(p, batch, stream);
+  if (p.group <= 4) return launch_partials<T, KV, D, 4, kPaged, kCap>(p, batch, stream);
+  if (p.group <= 8) return launch_partials<T, KV, D, 8, kPaged, kCap>(p, batch, stream);
   return cudaErrorInvalidValue;
 }
 
-// A cache of q's own type (D1, B5).
-template <bool kPaged>
+// A cache of q's own type (D1, B5), head dims 64, 128 and 256; a soft cap
+// (softcap_log2 > 0) launches the kCap instantiation.
+template <bool kPaged, bool kCap = false>
 int dispatch_partials(const DecodeParams& p, int batch, int d, int dtype, cudaStream_t s) {
   using bf16 = __nv_bfloat16;
-  if (dtype == kBF16 && d == 64) return dispatch_group<bf16, bf16, 64, kPaged>(p, batch, s);
-  if (dtype == kBF16 && d == 128) return dispatch_group<bf16, bf16, 128, kPaged>(p, batch, s);
-  if (dtype == kF16 && d == 64) return dispatch_group<__half, __half, 64, kPaged>(p, batch, s);
-  if (dtype == kF16 && d == 128) return dispatch_group<__half, __half, 128, kPaged>(p, batch, s);
+  if constexpr (!kCap)
+    if (p.softcap_log2 > 0.f) return dispatch_partials<kPaged, true>(p, batch, d, dtype, s);
+  if (dtype == kBF16 && d == 64) return dispatch_group<bf16, bf16, 64, kPaged, kCap>(p, batch, s);
+  if (dtype == kBF16 && d == 128) return dispatch_group<bf16, bf16, 128, kPaged, kCap>(p, batch, s);
+  if (dtype == kBF16 && d == 256) return dispatch_group<bf16, bf16, 256, kPaged, kCap>(p, batch, s);
+  if (dtype == kF16 && d == 64) return dispatch_group<__half, __half, 64, kPaged, kCap>(p, batch, s);
+  if (dtype == kF16 && d == 128) return dispatch_group<__half, __half, 128, kPaged, kCap>(p, batch, s);
+  if (dtype == kF16 && d == 256) return dispatch_group<__half, __half, 256, kPaged, kCap>(p, batch, s);
   return cudaErrorInvalidValue;
 }
 

@@ -2,8 +2,9 @@
 // (kernel D2).
 //
 // D1 replaces the TPU kernel flash_attention_cute_tpu/ops/flash_decode.py
-// `_flash_decode_kernel` (pallas_call at :311), sliding window included
-// (keys n >= length - W; splits wholly below it are dead); D2 replaces the
+// `_flash_decode_kernel` (pallas_call at :311), sliding window (keys
+// n >= length - W; splits wholly below it are dead), tanh soft cap and head
+// dims 64, 128 and 256 included; D2 replaces the
 // XLA combine
 // at flash_decode.py:345-358 and also merges the splits of the paged decode
 // kernel B5 (paged_attention.cu), whose partials have the same layout.
@@ -52,7 +53,8 @@ extern "C" int fact_decode_partials(const void* q, const void* k, const void* v,
                                     long long q_sb, long long q_sh,
                                     long long k_sb, long long k_sh, long long k_ss,
                                     long long v_sb, long long v_sh, long long v_ss,
-                                    float scale_log2, int window, int dtype, void* stream) {
+                                    float scale_log2, float softcap_log2, int window, int dtype,
+                                    void* stream) {
   using namespace fact;
   DecodeParams p{};
   p.q = q;
@@ -68,6 +70,8 @@ extern "C" int fact_decode_partials(const void* q, const void* k, const void* v,
   p.hkv = hkv, p.group = group, p.capacity = capacity;
   p.num_splits = num_splits, p.chunk = chunk;
   p.scale_log2 = scale_log2;
+  p.softcap_log2 = softcap_log2;
+  p.softcap_rcp = softcap_log2 > 0.f ? 1.f / softcap_log2 : 0.f;
   p.window = window;
   return dispatch_partials<false>(p, batch, d, dtype, static_cast<cudaStream_t>(stream));
 }

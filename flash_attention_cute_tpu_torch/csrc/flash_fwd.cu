@@ -10,8 +10,10 @@
 //   * B2 (a window that binds, W < Skv) replaces `_flash_fwd_kernel_fused`
 //     (:269) and its per-head fallback `_flash_fwd_kernel` (:102), both
 //     behind the pallas_call at :1260, for their windowed geometry. Their
-//     soft cap, head dims outside {64, 128} and int8 scores are not in this
-//     kernel: the wrapper raises on them.
+//     int8 scores are not in this kernel: the wrapper raises on them.
+// Both take the tanh soft cap (`softcap_log2`, c * log2(e), 0 for none) and
+// head dims 64, 128 and 256 (Gemma2: D 256, c 50); the lse kernel takes
+// neither the cap nor D 256 (no backward takes them).
 // Both write the per-row lse the backward (flash_bwd.cu) needs when `lse`
 // is not null (`return_lse`, flash_fwd.py:845): m + log2(l) in the base-2
 // units of the scores (scale * log2(e) folded in), +inf on a row with no
@@ -37,8 +39,8 @@ extern "C" int fact_flash_fwd(const void* q, const void* k, const void* v, void*
                               long long q_sb, long long q_sh, long long q_ss,
                               long long k_sb, long long k_sh, long long k_ss,
                               long long v_sb, long long v_sh, long long v_ss,
-                              float scale_log2, int causal, int window, int dtype,
-                              void* stream) {
+                              float scale_log2, float softcap_log2, int causal, int window,
+                              int dtype, void* stream) {
   using namespace fact;
   FwdParams p{};
   p.q = q, p.k = k, p.v = v, p.o = o;
@@ -48,7 +50,10 @@ extern "C" int fact_flash_fwd(const void* q, const void* k, const void* v, void*
   p.v_sb = v_sb, p.v_sh = v_sh, p.v_ss = v_ss;
   p.hq = hq, p.group = hq / hkv, p.sq = sq, p.skv = skv;
   p.scale_log2 = scale_log2;
+  p.softcap_log2 = softcap_log2;
+  p.softcap_rcp = softcap_log2 > 0.f ? 1.f / softcap_log2 : 0.f;
   p.causal = causal;
   p.window = window;
-  return dispatch_attention_fwd<false, false>(p, batch, d, dtype, static_cast<cudaStream_t>(stream));
+  return dispatch_attention_fwd<false, false, false, false, true>(
+      p, batch, d, dtype, static_cast<cudaStream_t>(stream));
 }

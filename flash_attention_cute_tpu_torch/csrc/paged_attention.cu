@@ -6,7 +6,9 @@
 //     are addressed through the page table; the splits are merged by D2
 //     (flash_decode.cu), whose partials layout [B, Hkv, S, G, D] is the same.
 //     With a sliding window W the splits cut the visible range
-//     [max(0, length - W), length).
+//     [max(0, length - W), length). B5 and B6 take the tanh soft cap
+//     (`softcap_log2`, c * log2(e), 0 for none) and head dims 64, 128 and
+//     256; the append takes any row of a multiple of 16 bytes.
 //   * B6, paged extend: replaces `_paged_extend_kernel` (:391, pallas_call at
 //     :742). Chunked prefill: the chunk's S query rows sit at global
 //     positions q_offset[b] + r and attend keys `col <= q_offset + r`,
@@ -81,7 +83,7 @@ extern "C" int fact_paged_decode_partials(
     int pps, int page_size, long long q_sb, long long q_sh,
     long long k_sh, long long k_sp, long long k_ss,
     long long v_sh, long long v_sp, long long v_ss,
-    float scale_log2, int window, int dtype, void* stream) {
+    float scale_log2, float softcap_log2, int window, int dtype, void* stream) {
   using namespace fact;
   DecodeParams p{};
   p.q = q, p.k = k, p.v = v;
@@ -97,6 +99,8 @@ extern "C" int fact_paged_decode_partials(
   p.num_splits = num_splits;
   p.pps = pps, p.page_size = page_size;
   p.scale_log2 = scale_log2;
+  p.softcap_log2 = softcap_log2;
+  p.softcap_rcp = softcap_log2 > 0.f ? 1.f / softcap_log2 : 0.f;
   p.window = window;
   return dispatch_partials<true>(p, batch, d, dtype, static_cast<cudaStream_t>(stream));
 }
@@ -107,7 +111,7 @@ extern "C" int fact_paged_extend(
     int pps, int page_size, long long q_sb, long long q_sh, long long q_ss,
     long long k_sh, long long k_sp, long long k_ss,
     long long v_sh, long long v_sp, long long v_ss,
-    float scale_log2, int window, int dtype, void* stream) {
+    float scale_log2, float softcap_log2, int window, int dtype, void* stream) {
   using namespace fact;
   FwdParams p{};
   p.q = q, p.k = k, p.v = v, p.o = o;
@@ -116,13 +120,16 @@ extern "C" int fact_paged_extend(
   p.v_sh = v_sh, p.v_sp = v_sp, p.v_ss = v_ss;
   p.hq = hq, p.group = hq / hkv, p.sq = sq;
   p.scale_log2 = scale_log2;
+  p.softcap_log2 = softcap_log2;
+  p.softcap_rcp = softcap_log2 > 0.f ? 1.f / softcap_log2 : 0.f;
   p.causal = 1;
   p.window = window;
   p.q_offset = static_cast<const int*>(q_offset);
   p.kv_length = static_cast<const int*>(kv_length);
   p.page_table = static_cast<const int*>(page_table);
   p.pps = pps, p.page_size = page_size;
-  return dispatch_attention_fwd<true, true>(p, batch, d, dtype, static_cast<cudaStream_t>(stream));
+  return dispatch_attention_fwd<true, true, false, false, true>(
+      p, batch, d, dtype, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int fact_paged_append(

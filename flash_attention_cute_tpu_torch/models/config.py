@@ -1,9 +1,11 @@
 """Model configuration (the JAX package's fields, with a torch dtype).
 
-The port runs the Llama, Qwen2 and Mistral architectures (QKV bias, sliding
-windows). The fields of Gemma2 (soft caps, its norms and activation, the
-periodic window pattern) are kept so that configurations carry over
-unchanged; `transformer.forward` raises on them.
+The port runs the Llama, Qwen2, Mistral and Gemma2 architectures: QKV
+biases, sliding windows by a suffix of layers (Qwen2, Mistral) or by a
+periodic per-layer pattern (Gemma2's alternating windowed and full layers),
+the attention and final-logit tanh soft caps, GeGLU, sandwich norms and
+scaled embeddings. `rms_norm_plus_one` is read by weight conversion only:
+the JAX package folds Gemma's +1 into the stored norm weights.
 """
 
 from __future__ import annotations
@@ -57,13 +59,15 @@ class ModelConfig:
         return self.num_q_heads // self.num_kv_heads
 
     def layer_window(self, li: int) -> int | None:
-        """Layer `li`'s sliding window, or None for full attention: the JAX
-        package's segment rule (HF Qwen2 / Mistral semantics), the window on
+        """Layer `li`'s sliding window, or None for full attention, by the
+        JAX package's rules: a periodic `layer_window_pattern` gives
+        pattern[li % len(pattern)] (Gemma2: even layers windowed); otherwise
+        the segment rule (HF Qwen2 / Mistral semantics), the window on
         layers >= max_window_layers when `use_sliding_window` and a window
         are set."""
-        if self.layer_window_pattern is not None:
-            raise NotImplementedError(
-                "a periodic window pattern (Gemma2) is ROADMAP.md A10b")
+        pattern = self.layer_window_pattern
+        if pattern is not None:
+            return pattern[li % len(pattern)]
         if self.use_sliding_window and self.sliding_window and li >= self.max_window_layers:
             return self.sliding_window
         return None
@@ -71,6 +75,12 @@ class ModelConfig:
     def __post_init__(self):
         if self.num_q_heads % self.num_kv_heads:
             raise ValueError("num_q_heads must be a multiple of num_kv_heads")
+        if self.layer_window_pattern is not None:
+            if self.num_layers % len(self.layer_window_pattern):
+                raise ValueError("layer_window_pattern must tile num_layers")
+            if self.use_sliding_window:
+                raise ValueError("layer_window_pattern and use_sliding_window (suffix "
+                                 "semantics) are mutually exclusive")
 
 
 def tiny_test_config(**overrides) -> ModelConfig:

@@ -20,6 +20,7 @@ LAYER_KEYS = {
     "input_ln", "post_ln", "q_proj", "k_proj", "v_proj", "o_proj",
     "gate_proj", "up_proj", "down_proj", "qkv_proj", "gate_up_proj",
     "q_bias", "k_bias", "v_bias", "qkv_bias",  # Qwen2
+    "pre_ffw_ln", "post_ffw_ln",  # Gemma2's sandwich norms
 }
 
 
@@ -59,6 +60,6 @@ def params_from_jax(np_params: dict, device="cuda", dtype: torch.dtype | None = 
     unknown = set(np_params["layers"]) - LAYER_KEYS
     if unknown:
         raise NotImplementedError(
-            f"parameters {sorted(unknown)} belong to later slices (Gemma2, ROADMAP.md A10b)"
+            f"layer parameters {sorted(unknown)} are not in the port's models"
         )
     return conv(np_params)

@@ -82,16 +82,31 @@ def dense(x: torch.Tensor, w) -> torch.Tensor:
     return x @ w
 
 
+def embed(params: dict, input_ids: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The embedding rows in the model dtype; with `cfg.scale_embeddings`
+    (Gemma) times sqrt(hidden) rounded to the model dtype first, as the JAX
+    package and HF do (a bf16 59.75 for 3584, not the fp32 59.87)."""
+    x = params["embed"][input_ids].to(cfg.dtype)
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=cfg.dtype)
+    return x
+
+
 def mlp(x: torch.Tensor, p: dict, activation: str = "silu") -> torch.Tensor:
-    """SwiGLU: down(silu(gate(x)) * up(x)), with gate and up as one product
-    for a fused layer (models/fuse.py)."""
-    if activation != "silu":
-        raise NotImplementedError(f"activation {activation!r} (Gemma2) is ROADMAP.md A10b")
+    """Gated MLP: down(act(gate(x)) * up(x)), SwiGLU (silu) or GeGLU
+    (gelu_tanh, Gemma2), with gate and up as one product for a fused layer
+    (models/fuse.py)."""
     if "gate_up_proj" in p:
         gate, up = dense(x, p["gate_up_proj"]).chunk(2, dim=-1)
     else:
         gate, up = dense(x, p["gate_proj"]), dense(x, p["up_proj"])
-    return dense(F.silu(gate) * up, p["down_proj"])
+    if activation == "silu":
+        act = F.silu(gate)
+    elif activation == "gelu_tanh":
+        act = F.gelu(gate, approximate="tanh")
+    else:
+        raise ValueError(f"unknown activation {activation!r}")
+    return dense(act * up, p["down_proj"])
 
 
 def qkv_project(x: torch.Tensor, p: dict, cfg: ModelConfig):
@@ -124,19 +139,38 @@ def attention_output(attn: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Ten
     return dense(attn, p["o_proj"])
 
 
-def logits(x: torch.Tensor, params: dict) -> torch.Tensor:
+def logits(x: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.Tensor:
     """fp32 logits of the final hidden states: the lm_head (B10 / B11 when
-    quantized) or, for tied embeddings, the embedding table."""
+    quantized) or, for tied embeddings, the embedding table; with
+    `cfg.final_logit_softcap` c (Gemma2) then c * tanh(logits / c). Outside
+    autograd the cap runs in place: at a vocabulary of 256000 a 4608-token
+    row of fp32 logits is 4.7 GB, and each temporary as large again."""
     lm_head = params.get("lm_head")
     if isinstance(lm_head, QUANTIZED):
-        return dense(x, lm_head).float()
-    if lm_head is None:  # tied embeddings
-        lm_head = params["embed"].T
-    return (x @ lm_head.to(x.dtype)).float()
+        out = dense(x, lm_head).float()
+    else:
+        if lm_head is None:  # tied embeddings
+            lm_head = params["embed"].T
+        out = (x @ lm_head.to(x.dtype)).float()
+    c = cfg.final_logit_softcap
+    if c is None:
+        return out
+    if torch.is_grad_enabled() and out.requires_grad:
+        return torch.tanh(out / c) * c
+    return out.div_(c).tanh_().mul_(c)
 
 
 def layer_tail(x: torch.Tensor, attn: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
-    """Residual tail of a Llama layer: output projection, then the MLP."""
-    x = x + attention_output(attn, lp, cfg)
+    """Residual tail of a layer: output projection, then the MLP. With
+    `cfg.sandwich_norms` (Gemma2) the attention output is normed (`post_ln`,
+    HF's post_attention_layernorm) before its residual add, and the MLP sits
+    between `pre_ffw_ln` and `post_ffw_ln`."""
+    a = attention_output(attn, lp, cfg)
+    if cfg.sandwich_norms:
+        x = x + rms_norm(a, lp["post_ln"], cfg.rms_norm_eps)
+        h = rms_norm(x, lp["pre_ffw_ln"], cfg.rms_norm_eps)
+        m = mlp(h, lp, cfg.hidden_activation)
+        return x + rms_norm(m, lp["post_ffw_ln"], cfg.rms_norm_eps)
+    x = x + a
     h = rms_norm(x, lp["post_ln"], cfg.rms_norm_eps)
     return x + mlp(h, lp, cfg.hidden_activation)

@@ -1,5 +1,5 @@
-"""The Llama-family transformer (Llama, Qwen2, Mistral): prefill, extend
-and decode forwards over a stacked cache.
+"""The Llama-family transformer (Llama, Qwen2, Mistral, Gemma2): prefill,
+extend and decode forwards over a stacked cache.
 
 Parameters are a dict of tensors in the JAX package's layout: `embed`
 [V, E], `final_ln` [E], optional `lm_head` [E, V] (absent: tied to the
@@ -10,12 +10,17 @@ of q/k/v and gate/up. Any projection and the lm_head may be an int8 or
 int4 quantized weight (models/quantize.py): `models.layers.dense` runs it
 through kernel B10 or B11 on CUDA, one layer (`w[li]`) at a time. Qwen2
 trees add `q_bias` / `k_bias` / `v_bias` (or a fused `qkv_bias`), kept in
-the model dtype.
+the model dtype. Gemma2 trees add `pre_ffw_ln` / `post_ffw_ln` (sandwich
+norms, `models.layers.layer_tail`), their norm weights already holding
+Gemma's +1 (the JAX package folds it in at conversion).
 
 Sliding windows follow `ModelConfig.layer_window` (the JAX package's
-segment rule): each layer's attention, in every mode, takes its window, so
-a windowed prefill runs kernel B2 where the window binds (P otherwise) and
-decode and extend read only the keys inside it.
+segment rule, or Gemma2's periodic pattern): each layer's attention, in
+every mode, takes its window, so a windowed prefill runs kernel B2 where
+the window binds (P otherwise) and decode and extend read only the keys
+inside it. Every attention call takes `cfg.logit_softcap` (Gemma2's tanh
+soft cap, on P, B2, D1 in kernel form; B4 and B7 raise on it on CUDA, as
+they do on head dim 256: ROADMAP.md A10b).
 
   * mode="prefill": causal attention over the fresh K/V (kernel P on CUDA);
     with a cache, K/V are then written at positions [0, S) in place.
@@ -65,24 +70,6 @@ from flash_attention_cute_tpu_torch.ops.quantized_matmul import QUANTIZED
 BIAS_STD = 0.5  # init_params' q/k/v biases: against projections of std about 1
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise on configuration bits of families the port does not run yet."""
-    later = [
-        name for name, on in (
-            ("layer_window_pattern", cfg.layer_window_pattern is not None),
-            ("logit_softcap", cfg.logit_softcap is not None),
-            ("final_logit_softcap", cfg.final_logit_softcap is not None),
-            ("sandwich_norms", cfg.sandwich_norms),
-            ("scale_embeddings", cfg.scale_embeddings),
-            ("hidden_activation", cfg.hidden_activation != "silu"),
-        ) if on
-    ]
-    if later:
-        raise NotImplementedError(
-            f"{', '.join(later)}: Gemma2 features are ROADMAP.md A10b"
-        )
-
-
 def forward(
     params: dict,
     cfg: ModelConfig,
@@ -110,19 +97,18 @@ def forward(
     """
     if mode not in ("prefill", "extend", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
-    check_supported(cfg)
     b, s = input_ids.shape
     if mode != "prefill" and cache is None:
         raise ValueError(f"mode={mode!r} needs a cache")
     if mode == "decode" and s != 1:
         raise ValueError("mode='decode' needs seqlen 1")
 
-    x = params["embed"][input_ids].to(cfg.dtype)
+    x = L.embed(params, input_ids, cfg)
     dev = x.device
     steps = torch.arange(s, device=dev)
     positions = steps.expand(b, s) if mode == "prefill" else cache.lengths[:, None] + steps
     cos, sin = L.rope_cos_sin(positions, L.rope_inv_freq(cfg, dev), cfg.dtype)
-    scale = cfg.attention_scale
+    scale, softcap = cfg.attention_scale, cfg.logit_softcap
 
     quant = isinstance(cache, QuantizedKVCache)
     if quant:
@@ -150,10 +136,11 @@ def forward(
         k = L.apply_rope(k, cos, sin)
         if mode == "prefill":
             if plain_attention:
-                attn = flash_attention_fwd_plain(q, k, v, scale, causal=True, window=window)
+                attn = flash_attention_fwd_plain(q, k, v, scale, causal=True, window=window,
+                                                 logit_softcap=softcap)
             else:
                 attn = flash_attention_forward(q, k, v, softmax_scale=scale, causal=True,
-                                               window=window)
+                                               window=window, logit_softcap=softcap)
             if quant:
                 quantize_append(k, v, *cache.layer(li), write_at)
             elif cache is not None:
@@ -165,38 +152,40 @@ def forward(
             if mode == "extend":
                 # Dense extend over the dequantized layer slab (JAX's route).
                 attn = _extend(q, dequantize_kv(kc, q.dtype), dequantize_kv(vc, q.dtype),
-                               cache.lengths, new_len, scale, window, plain_attention)
+                               cache.lengths, new_len, scale, window, softcap, plain_attention)
             else:
                 decode = (flash_attention_decode_quantized_plain if plain_attention
                           else flash_attention_decode_quantized)
-                attn = decode(q, kc, vc, kv_length=new_len, sm_scale=scale, window=window)
+                attn = decode(q, kc, vc, kv_length=new_len, sm_scale=scale, window=window,
+                              logit_softcap=softcap)
         else:
             cache.k[li][rows, heads, slots] = k.to(cache.k.dtype)
             cache.v[li][rows, heads, slots] = v.to(cache.v.dtype)
             if mode == "extend":
                 attn = _extend(q, cache.k[li].to(q.dtype), cache.v[li].to(q.dtype),
-                               cache.lengths, new_len, scale, window, plain_attention)
+                               cache.lengths, new_len, scale, window, softcap, plain_attention)
             else:
                 decode = (flash_attention_decode_plain if plain_attention
                           else flash_attention_decode)
                 attn = decode(q, cache.k, cache.v, kv_length=new_len, sm_scale=scale,
-                              window=window, layer=li)
+                              window=window, logit_softcap=softcap, layer=li)
         x = L.layer_tail(x, attn, lp, cfg)
 
     x = L.rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
-    logits = L.logits(x, params)
+    logits = L.logits(x, params, cfg)
     if cache is None:
         return logits, None
     return logits, dataclasses.replace(cache, lengths=cache.lengths + s)
 
 
-def _extend(q, k, v, q_offset, kv_length, scale, window, plain_attention):
+def _extend(q, k, v, q_offset, kv_length, scale, window, softcap, plain_attention):
     """The chunk's attention over one layer's cache [B, Hkv, C, D]."""
     if plain_attention:
         return flash_attention_chunked_plain(q, k, v, q_offset, kv_length, scale,
-                                             window=window)
+                                             window=window, logit_softcap=softcap)
     return flash_attention_forward(q, k, v, softmax_scale=scale, causal=True,
-                                   kv_length=kv_length, q_offset=q_offset, window=window)
+                                   kv_length=kv_length, q_offset=q_offset, window=window,
+                                   logit_softcap=softcap)
 
 
 def init_params(
@@ -207,7 +196,8 @@ def init_params(
 ) -> dict:
     """Random parameters for tests and benchmarks, drawn on `device` from
     `generator` (or a new one seeded with `seed`). Projections are normal
-    with std fan_in ** -0.5, embeddings with std 0.02, norms are ones. With
+    with std fan_in ** -0.5, embeddings with std 0.02, norms are ones (the
+    sandwich norms of `cfg.sandwich_norms` too). With
     `cfg.attention_bias` the q/k/v biases are normal with std BIAS_STD,
     drawn after every other tensor (so the other tensors do not depend on
     the flag); the JAX package's init sets them to zeros, which would leave
@@ -249,6 +239,9 @@ def init_params(
         },
         "final_ln": ones(e),
     }
+    if cfg.sandwich_norms:
+        params["layers"]["pre_ffw_ln"] = ones(nl, e)
+        params["layers"]["post_ffw_ln"] = ones(nl, e)
     if not cfg.tie_word_embeddings:
         params["lm_head"] = normal((e, cfg.vocab_size), e ** -0.5)
     if cfg.attention_bias:

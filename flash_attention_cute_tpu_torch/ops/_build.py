@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import pathlib
 import shutil
@@ -33,6 +34,7 @@ NVCC_FLAGS = [
 # q, the output and a dense cache; the values of a quantized cache.
 DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1}
 KV_DTYPE_CODES = {torch.int8: 0, torch.float8_e4m3fn: 1}
+LOG2E = math.log2(math.e)
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -160,15 +162,26 @@ def window_arg(window: int | None) -> int:
     return int(window)
 
 
+def softcap_arg(logit_softcap: float | None) -> float:
+    """A tanh soft cap c as the kernels take it: c * log2(e), in the base-2
+    units of their scores, or 0 for none."""
+    if logit_softcap is None:
+        return 0.0
+    if not logit_softcap > 0:
+        raise ValueError(f"logit_softcap must be positive, got {logit_softcap}")
+    return float(logit_softcap) * LOG2E
+
+
 def refuse_softcap(logit_softcap: float | None, what: str) -> None:
-    """The attention kernels take no soft cap yet: raise on one."""
+    """For the kernels that take no soft cap yet (B4, B7-B9, B12): raise on one."""
     if logit_softcap is not None:
         raise NotImplementedError(
             f"logit_softcap {what} on CUDA is not in the kernel yet (plain version only; "
-            "Gemma2, ROADMAP.md A10b)")
+            "ROADMAP.md A10b)")
 
 
 def check_head_dim(d: int, head_dims: tuple, what: str) -> None:
     if d not in head_dims:
         raise NotImplementedError(
-            f"{what} kernel takes head_dim in {head_dims}, got {d} (D 256 is ROADMAP.md A10b)")
+            f"{what} kernel takes head_dim in {head_dims}, got {d} (other head dims: "
+            "ROADMAP.md A10b)")

@@ -11,6 +11,8 @@ total l of 0 gives 0. D1 replaces `_flash_decode_kernel` and D2 the XLA
 combine of flash_attention_cute_tpu/ops/flash_decode.py. With a sliding
 window W the query at position length - 1 sees keys [length - W, length):
 D1 cuts each split to that range, and a split wholly below it is dead.
+D1 takes the tanh soft cap (Gemma2) and head dims 64, 128 and 256; D2
+merges partials of any head dim (one thread per entry).
 
 Each wrapper routes on the device of `q`: CPU -> plain version, CUDA -> the
 kernel; what the kernel does not take raises. Cache positions at or past a
@@ -28,13 +30,13 @@ from flash_attention_cute_tpu_torch import dispatch
 from flash_attention_cute_tpu_torch.ops import _build
 
 LOG2E = math.log2(math.e)
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 8
 
 P, I, L, F = _build.P, _build.I, _build.L, _build.F
 PARTIALS = _build.Kernel(
     "decode_partials", "flash_decode.cu", "fact_decode_partials",
-    [P, P, P, P, P, P, P, I, I, I, I, I, I, I, L, L, L, L, L, L, L, L, F, I, I, P],
+    [P, P, P, P, P, P, P, I, I, I, I, I, I, I, L, L, L, L, L, L, L, L, F, F, I, I, P],
 )
 COMBINE = _build.Kernel(
     "decode_combine", "flash_decode.cu", "fact_decode_combine",
@@ -89,13 +91,15 @@ def decode_combine_plain(acc, m, l, dtype):
     return o.reshape(b, hkv * g, 1, d).to(dtype)
 
 
-def decode_partials(q, k, v, lengths, sm_scale, num_splits, window=None):
+def decode_partials(q, k, v, lengths, sm_scale, num_splits, window=None, logit_softcap=None):
     """D1 on one layer's cache: the kernel for CUDA tensors, else plain."""
     if q.device.type == "cpu":
-        return decode_partials_plain(q, k, v, lengths, sm_scale, num_splits, window)
+        return decode_partials_plain(q, k, v, lengths, sm_scale, num_splits, window,
+                                     logit_softcap)
     b, hq, sq, d = q.shape
     _, hkv, cap, _ = k.shape
     g = hq // hkv
+    softcap = _build.softcap_arg(logit_softcap)
     window = _build.window_arg(window)
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"decode kernel takes bf16/f16, got {q.dtype}")
@@ -121,7 +125,7 @@ def decode_partials(q, k, v, lengths, sm_scale, num_splits, window=None):
             acc.data_ptr(), m.data_ptr(), l.data_ptr(),
             b, hkv, g, cap, d, num_splits, -(-cap // num_splits),
             q.stride(0), q.stride(1), *k.stride()[:3], *v.stride()[:3],
-            float(sm_scale) * LOG2E, window, _build.DTYPE_CODES[q.dtype],
+            float(sm_scale) * LOG2E, softcap, window, _build.DTYPE_CODES[q.dtype],
         )
     return acc, m, l
 
@@ -195,7 +199,8 @@ def flash_attention_decode(
       kv_length: [B] int32 live lengths on q's device; None = full cache.
       num_splits: KV-axis splits; 0 picks `dispatch.decode_num_splits`.
       window: sliding window W: only the keys [length - W, length) are read.
-      logit_softcap: plain version only (ROADMAP.md A10b).
+      logit_softcap: tanh soft cap c of the scaled scores (Gemma2); None
+        for none.
 
     Returns [B, Hq, 1, D] in q's dtype.
     """
@@ -203,7 +208,6 @@ def flash_attention_decode(
         return flash_attention_decode_plain(
             q, k, v, kv_length, sm_scale, window, logit_softcap, num_splits, layer
         )
-    _build.refuse_softcap(logit_softcap, "decode")
     k, v = _layer_cache(k, v, layer)
     b, hq, _, d = q.shape
     cap = k.shape[2]
@@ -213,5 +217,6 @@ def flash_attention_decode(
         num_splits = dispatch.decode_num_splits(b, k.shape[1], cap)
     if kv_length is None:
         kv_length = torch.full((b,), cap, dtype=torch.int32, device=q.device)
-    acc, m, l = decode_partials(q, k, v, kv_length, sm_scale, num_splits, window)
+    acc, m, l = decode_partials(q, k, v, kv_length, sm_scale, num_splits, window,
+                                logit_softcap)
     return decode_combine(acc, m, l, q.dtype)

@@ -14,9 +14,11 @@ flash_attention_cute_tpu/ops/flash_fwd.py:
     walks only the tiles its rows' windows reach. Replaces the windowed
     geometry of `_flash_fwd_kernel_fused` and `_flash_fwd_kernel`.
 
-With `return_lse` either kernel also writes the per-row log-sum-exp the
-backward needs (ops/flash_bwd.py), in the TPU kernels' convention: log2
-units of the scaled scores, +inf on a row with no visible key.
+Both take the tanh soft cap (`logit_softcap`, Gemma2's 50) and head dims
+64, 128 and 256. With `return_lse` either kernel also writes the per-row
+log-sum-exp the backward needs (ops/flash_bwd.py), in the TPU kernels'
+convention: log2 units of the scaled scores, +inf on a row with no visible
+key; no backward takes the soft cap or D 256, so neither does the lse.
 
 What the kernel does not take raises; nothing falls back.
 """
@@ -31,10 +33,11 @@ from flash_attention_cute_tpu_torch.ops import _build
 from flash_attention_cute_tpu_torch.ops.reference import attention_reference
 
 LOG2E = math.log2(math.e)
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
+LSE_HEAD_DIMS = (64, 128)  # the backward kernels' (ops/flash_bwd.py)
 
 P, I, L, F = _build.P, _build.I, _build.L, _build.F
-_ARGS = [P, P, P, P, P, I, I, I, I, I, I, L, L, L, L, L, L, L, L, L, F, I, I, I, P]
+_ARGS = [P, P, P, P, P, I, I, I, I, I, I, L, L, L, L, L, L, L, L, L, F, F, I, I, I, P]
 PREFILL = _build.Kernel("flash_fwd", "flash_fwd.cu", "fact_flash_fwd", _ARGS)
 # The same launch function with a window that binds: counted as B2.
 WINDOWED_PREFILL = _build.Kernel("flash_fwd_window", "flash_fwd.cu", "fact_flash_fwd", _ARGS)
@@ -71,7 +74,8 @@ def flash_attention_fwd(
         (Sq > Skv) are exact zeros.
       window: sliding window W (HF semantics): row m also masks keys
         n <= m + (Skv - Sq) - W. On CUDA a binding window runs B2.
-      logit_softcap: plain version only (ROADMAP.md A10b).
+      logit_softcap: tanh soft cap c of the scaled scores, c * tanh(s / c),
+        before the mask (Gemma2); None for none.
       return_lse: also return the lse [B, Hq, Sq] fp32: log2 of the row's
         sum of 2^(s * log2(e)) over its visible scaled scores s, +inf on a
         row with no visible key (the JAX package's `return_lse`).
@@ -86,13 +90,15 @@ def flash_attention_fwd(
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, sm_scale, causal, window, logit_softcap,
                                          return_lse)
-    _build.refuse_softcap(logit_softcap, "prefill")
+    softcap = _build.softcap_arg(logit_softcap)
+    if return_lse:  # for the backward, which takes neither the cap nor D 256
+        _build.refuse_softcap(logit_softcap, "with the lse")
     window = _build.window_arg(window)
     if window >= skv:
         window = 0  # cannot bind: P's geometry
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"prefill kernel takes bf16/f16, got {q.dtype}")
-    _build.check_head_dim(d, HEAD_DIMS, "prefill")
+    _build.check_head_dim(d, LSE_HEAD_DIMS if return_lse else HEAD_DIMS, "prefill")
     if hq % hkv or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -110,6 +116,6 @@ def flash_attention_fwd(
             lse.data_ptr() if return_lse else None,
             b, hq, hkv, sq, skv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            float(sm_scale) * LOG2E, int(causal), window, _build.DTYPE_CODES[q.dtype],
+            float(sm_scale) * LOG2E, softcap, int(causal), window, _build.DTYPE_CODES[q.dtype],
         )
     return (out, lse) if return_lse else out

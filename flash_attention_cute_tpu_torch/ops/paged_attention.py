@@ -14,9 +14,10 @@ D]` pool); key n of batch row b sits at page `page_table[b, n // ps]`, row
     window `col > q_offset + row - W`); kv_length 0 marks an inactive row,
     which outputs exact zeros.
 
+B5 and B6 take the tanh soft cap (Gemma2) and head dims 64, 128 and 256.
 Each wrapper routes on the device of `q`: CPU -> plain version, CUDA -> the
-kernel; what the kernel does not take raises (soft cap, a pool whose dtype
-differs from q's). Positions at or past a row's length are never read
+kernel; what the kernel does not take raises (a pool whose dtype differs
+from q's). Positions at or past a row's length are never read
 by the kernels and are masked out of the plain versions, so unused pages may
 hold anything, even NaN. The TPU-only arguments `pages_per_compute_block`,
 `interpret` and `debug` are gone.
@@ -33,17 +34,17 @@ from flash_attention_cute_tpu_torch.ops import _build, flash_decode
 from flash_attention_cute_tpu_torch.ops.reference import attention_reference
 
 LOG2E = math.log2(math.e)
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 8
 
 P, I, L, F = _build.P, _build.I, _build.L, _build.F
 PAGED_DECODE = _build.Kernel(
     "paged_decode", "paged_attention.cu", "fact_paged_decode_partials",
-    [P] * 8 + [I] * 7 + [L] * 8 + [F, I, I, P],
+    [P] * 8 + [I] * 7 + [L] * 8 + [F, F, I, I, P],
 )
 PAGED_EXTEND = _build.Kernel(
     "paged_extend", "paged_attention.cu", "fact_paged_extend",
-    [P] * 7 + [I] * 7 + [L] * 9 + [F, I, I, P],
+    [P] * 7 + [I] * 7 + [L] * 9 + [F, F, I, I, P],
 )
 
 
@@ -99,17 +100,16 @@ def paged_attention_extend_plain(q, k_pages, v_pages, q_offset, kv_length, page_
     )
 
 
-def _check_cuda_call(name, q, k_pages, v_pages, page_table, row_tensors, window, softcap,
-                     pool_dtype=None) -> int:
+def _check_cuda_call(name, q, k_pages, v_pages, page_table, row_tensors, window,
+                     pool_dtype=None, head_dims=HEAD_DIMS) -> int:
     """Shared refusals of the CUDA routes; the pools must be `pool_dtype`
     (default q's dtype). Returns the window as the kernels take it."""
-    _build.refuse_softcap(softcap, name)
     window = _build.window_arg(window)
     b, hq, _, d = q.shape
     hkv = k_pages.shape[0]
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"{name} kernel takes bf16/f16, got {q.dtype}")
-    _build.check_head_dim(d, HEAD_DIMS, name)
+    _build.check_head_dim(d, head_dims, name)
     if hq % hkv or hq // hkv > MAX_GROUP:
         raise NotImplementedError(f"{name} kernel takes Hq/Hkv <= {MAX_GROUP}, got {hq}/{hkv}")
     if k_pages.shape != v_pages.shape or k_pages.shape[3] != d or k_pages.ndim != 4:
@@ -145,7 +145,8 @@ def paged_attention_decode(
       lengths: [B] int32 valid token counts (0 -> an exact zero row).
       page_table: [B, pages_per_seq] int32 physical page ids.
       window: sliding window W: only keys [length - W, length) are read.
-      logit_softcap: plain version only (ROADMAP.md A10b).
+      logit_softcap: tanh soft cap c of the scaled scores (Gemma2); None
+        for none.
 
     Returns [B, Hq, 1, D] in q's dtype.
     """
@@ -157,8 +158,9 @@ def paged_attention_decode(
     if q.device.type == "cpu":
         return paged_attention_decode_plain(q, k_pages, v_pages, lengths, page_table,
                                             sm_scale, window, logit_softcap)
+    softcap = _build.softcap_arg(logit_softcap)
     window = _check_cuda_call("paged decode", q, k_pages, v_pages, page_table,
-                              [("lengths", lengths)], window, logit_softcap)
+                              [("lengths", lengths)], window)
     hkv, _, ps, _ = k_pages.shape
     pps = page_table.shape[1]
     g = hq // hkv
@@ -172,7 +174,7 @@ def paged_attention_decode(
             page_table.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
             b, hkv, g, d, splits, pps, ps, q.stride(0), q.stride(1),
             *k_pages.stride()[:3], *v_pages.stride()[:3],
-            float(sm_scale) * LOG2E, window, _build.DTYPE_CODES[q.dtype],
+            float(sm_scale) * LOG2E, softcap, window, _build.DTYPE_CODES[q.dtype],
         )
     return flash_decode.decode_combine(acc, m, l, q.dtype)
 
@@ -200,7 +202,8 @@ def paged_attention_extend(
         rows, 0 for inactive rows (their output is zeros).
       page_table: [B, pages_per_seq] int32.
       window: sliding window W: row r also masks keys n <= q_offset + r - W.
-      logit_softcap: plain version only (ROADMAP.md A10b).
+      logit_softcap: tanh soft cap c of the scaled scores (Gemma2); None
+        for none.
       return_clamps: also return the softmax clamp count, which is 0: the
         port's softmax is exact (the TPU kernel's lazy max is not copied).
 
@@ -213,9 +216,9 @@ def paged_attention_extend(
         out = paged_attention_extend_plain(q, k_pages, v_pages, q_offset, kv_length,
                                            page_table, sm_scale, window, logit_softcap)
         return (out, 0) if return_clamps else out
+    softcap = _build.softcap_arg(logit_softcap)
     window = _check_cuda_call("paged extend", q, k_pages, v_pages, page_table,
-                              [("q_offset", q_offset), ("kv_length", kv_length)], window,
-                              logit_softcap)
+                              [("q_offset", q_offset), ("kv_length", kv_length)], window)
     hkv, _, ps, _ = k_pages.shape
     out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
     if out.numel():
@@ -225,6 +228,6 @@ def paged_attention_extend(
                 q_offset.data_ptr(), kv_length.data_ptr(), page_table.data_ptr(),
                 b, hq, hkv, sq, d, page_table.shape[1], ps,
                 *q.stride()[:3], *k_pages.stride()[:3], *v_pages.stride()[:3],
-                float(sm_scale) * LOG2E, window, _build.DTYPE_CODES[q.dtype],
+                float(sm_scale) * LOG2E, softcap, window, _build.DTYPE_CODES[q.dtype],
             )
     return (out, 0) if return_clamps else out

@@ -41,7 +41,6 @@ import torch
 from flash_attention_cute_tpu_torch import dispatch
 from flash_attention_cute_tpu_torch.ops import _build, flash_decode
 from flash_attention_cute_tpu_torch.ops.paged_attention import (
-    HEAD_DIMS,
     MAX_GROUP,
     _check_cuda_call,
     _clamp,
@@ -50,6 +49,7 @@ from flash_attention_cute_tpu_torch.ops.paged_attention import (
 )
 from flash_attention_cute_tpu_torch.ops.reference import attention_reference
 
+HEAD_DIMS = (64, 128)  # D 256 is ROADMAP.md A10b
 INT8_MAX = 127.0
 FP8_E4M3_MAX = 448.0
 KV_DTYPES = tuple(_build.KV_DTYPE_CODES)
@@ -264,8 +264,9 @@ def paged_attention_extend_quantized_plain(q, k_pages, v_pages, q_offset, kv_len
 
 
 def _check_paged(name, q, k_pages, v_pages, page_table, row_tensors, window, softcap) -> int:
+    _build.refuse_softcap(softcap, name)
     window = _check_cuda_call(name, q, k_pages.values, v_pages.values, page_table, row_tensors,
-                              window, softcap, pool_dtype=k_pages.values.dtype)
+                              window, k_pages.values.dtype, HEAD_DIMS)
     _check_quantized("k_pages", k_pages)
     _check_quantized("v_pages", v_pages, k_pages.values.dtype)
     return window

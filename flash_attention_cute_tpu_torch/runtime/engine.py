@@ -44,7 +44,6 @@ import numpy as np
 import torch
 
 from flash_attention_cute_tpu_torch.models.config import ModelConfig
-from flash_attention_cute_tpu_torch.models.transformer import check_supported
 from flash_attention_cute_tpu_torch.runtime.native import NativeScheduler
 from flash_attention_cute_tpu_torch.ops.quantized import KV_DTYPES
 from flash_attention_cute_tpu_torch.runtime.paged_cache import (
@@ -139,7 +138,6 @@ class ServingEngine:
         **later,
     ):
         _refuse_later("ServingEngine", later, _LATER_INIT)
-        check_supported(cfg)
         self.params = params
         self.cfg = cfg
         self.slots = slots

@@ -1,11 +1,12 @@
 """Model forward over a paged KV cache: the serving engine's data path.
 
 Port of flash_attention_cute_tpu/runtime/paged_forward.py for the Llama
-family, Qwen2 and Mistral included (`models.transformer.check_supported`).
-Per layer, the fresh K/V are written into the page pool through the page
-table (`paged_append_layer`, the append kernel on CUDA), then attention
-runs with the layer's sliding window (`ModelConfig.layer_window`, JAX's
-`make_layer(window)`):
+family, Qwen2, Mistral and Gemma2 included. Per layer, the fresh K/V are
+written into the page pool through the page table (`paged_append_layer`,
+the append kernel on CUDA), then attention runs with the layer's sliding
+window (`ModelConfig.layer_window`, JAX's `make_layer(window)`) and the
+model's soft cap (`cfg.logit_softcap`, Gemma2; B8 and B9 raise on it on
+CUDA, ROADMAP.md A10b):
 
   * prefill: a fresh request (lengths 0): causal attention over the chunk's
     own K/V (kernel P on CUDA, B2 where a window binds). Prompts may be
@@ -34,7 +35,6 @@ import torch
 from flash_attention_cute_tpu_torch.api import flash_attention_forward
 from flash_attention_cute_tpu_torch.models import layers as L
 from flash_attention_cute_tpu_torch.models.config import ModelConfig
-from flash_attention_cute_tpu_torch.models.transformer import check_supported
 from flash_attention_cute_tpu_torch.ops.flash_fwd import flash_attention_fwd_plain
 from flash_attention_cute_tpu_torch.ops.paged_attention import (
     paged_attention_decode,
@@ -79,11 +79,10 @@ def forward_paged(
     """
     if mode not in ("prefill", "decode", "extend"):
         raise ValueError(f"unknown mode {mode!r}")
-    check_supported(cfg)
     b, s = input_ids.shape
     if mode == "decode" and s != 1:
         raise ValueError(f"mode='decode' takes one token per row, got {s}")
-    x = params["embed"][input_ids].to(cfg.dtype)
+    x = L.embed(params, input_ids, cfg)
     dev = x.device
 
     lengths = state.lengths
@@ -106,7 +105,7 @@ def forward_paged(
     # whose tables already hold real pages) write nothing.
     active = valid_len > 0
     new_len = lengths + valid_len
-    scale = cfg.attention_scale
+    scale, softcap = cfg.attention_scale, cfg.logit_softcap
     table = state.page_table
     quant = isinstance(state, QuantizedPagedKVState)
     # Attention of extend and decode: (kernel route, plain route).
@@ -134,16 +133,19 @@ def forward_paged(
             paged_append_layer(kp, vp, k, v, table, lengths, active)
         if mode == "prefill":
             if plain_attention:
-                attn = flash_attention_fwd_plain(q, k, v, scale, causal=True, window=window)
+                attn = flash_attention_fwd_plain(q, k, v, scale, causal=True, window=window,
+                                                 logit_softcap=softcap)
             else:
                 attn = flash_attention_forward(q, k, v, softmax_scale=scale, causal=True,
-                                               window=window)
+                                               window=window, logit_softcap=softcap)
         elif mode == "extend":
-            attn = attend(q, kp, vp, new_len - s, new_len, table, sm_scale=scale, window=window)
+            attn = attend(q, kp, vp, new_len - s, new_len, table, sm_scale=scale, window=window,
+                          logit_softcap=softcap)
         else:
-            attn = attend(q, kp, vp, new_len, table, sm_scale=scale, window=window)
+            attn = attend(q, kp, vp, new_len, table, sm_scale=scale, window=window,
+                          logit_softcap=softcap)
         x = L.layer_tail(x, attn, lp, cfg)
 
     x = L.rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
-    logits = L.logits(x, params)
+    logits = L.logits(x, params, cfg)
     return logits, dataclasses.replace(state, lengths=new_len)

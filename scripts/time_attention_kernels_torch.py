@@ -1,0 +1,109 @@
+#!/usr/bin/env python3
+"""Device times of the port's attention kernels on one NVIDIA H100, for
+comparing two trees of the repository in one call:
+
+    cd <tree> && python3 <this script>
+
+The package is imported from the current directory. Llama / Mistral shapes
+(Hq 32, Hkv 8, D 128, bf16, causal): P at the Llama-3-8B greedy prefill
+(B 4, S 512) and the training step (B 2, S 2048), with its lse where the
+tree has `return_lse`; B2 at Mistral-7B's greedy prefill (B 2, S 5120,
+window 4096); D1 at the greedy middle decode step (B 4, 544 of 576
+positions, the dispatch's splits); B5 (+ D2) at serving run A's decode (8
+rows of 174-923 keys, page_size 128); B6 at run B's extend (8 rows, chunk
+256, offsets 0-768, page_size 16). Gemma-2-9B shapes (Hq 16, Hkv 8, D 256,
+scale 256 ** -0.5) with and without the soft cap 50, where the tree takes
+them (null where it raises NotImplementedError): P at B 2, S 4608; B2 with
+window 4096 there; D1 at B 2, 4624 of 4640 positions; B6 at run B's extend.
+Prints one JSON line with the card's name and power limit.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+sys.path.insert(0, os.getcwd())
+
+import torch  # noqa: E402
+
+from flash_attention_cute_tpu_torch import dispatch  # noqa: E402
+from flash_attention_cute_tpu_torch.ops import flash_decode, flash_fwd  # noqa: E402
+from flash_attention_cute_tpu_torch.ops import paged_attention as pa  # noqa: E402
+from flash_attention_cute_tpu_torch.utils.timing import cuda_time_ms  # noqa: E402
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    def pool(b, ps, pps, hkv, d):
+        num_pages = b * pps + 1
+        table = (torch.randperm(num_pages - 1, generator=gen, device="cuda")[: b * pps] + 1)
+        return (randn(hkv, num_pages, ps, d), randn(hkv, num_pages, ps, d),
+                table.view(b, pps).to(torch.int32).contiguous())
+
+    def capped(cap):  # no keyword at all without a cap: older trees lack it
+        return {} if cap is None else {"logit_softcap": cap}
+
+    def timed(fn, iters):
+        try:
+            return cuda_time_ms(fn, iters)
+        except (NotImplementedError, TypeError):  # a tree without the cap or D 256
+            return None
+
+    out = {"card": subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip(), "tree": os.getcwd()}
+    lse = "return_lse" in flash_fwd.flash_attention_fwd.__code__.co_varnames
+    for name, b, hq, s, d, w in (("P B4 S512", 4, 32, 512, 128, None),
+                                 ("P B2 S2048", 2, 32, 2048, 128, None),
+                                 ("B2 B2 S5120 W4096", 2, 32, 5120, 128, 4096),
+                                 ("gemma2 P B2 S4608", 2, 16, 4608, 256, None),
+                                 ("gemma2 B2 B2 S4608 W4096", 2, 16, 4608, 256, 4096)):
+        q, k, v = randn(b, hq, s, d), randn(b, 8, s, d), randn(b, 8, s, d)
+        caps = (None, 50.0) if d == 256 else (None,)
+        for cap in caps:
+            label = name + (f" cap {cap:g}" if cap else "")
+            out[label] = timed(lambda: flash_fwd.flash_attention_fwd(
+                q, k, v, causal=True, window=w, **capped(cap)), 20)
+        if lse and d == 128 and w is None:
+            out[name + " with lse"] = timed(lambda: flash_fwd.flash_attention_fwd(
+                q, k, v, causal=True, return_lse=True), 20)
+        del q, k, v
+
+    for name, b, hq, cap_len, live, d in (("D1 B4 C576 L544", 4, 32, 576, 544, 128),
+                                          ("gemma2 D1 B2 C4640 L4624", 2, 16, 4640, 4624, 256)):
+        kc, vc, qd = randn(b, 8, cap_len, d), randn(b, 8, cap_len, d), randn(b, hq, 1, d)
+        lengths = torch.full((b,), live, dtype=torch.int32, device="cuda")
+        splits = dispatch.decode_num_splits(b, 8, cap_len)
+        for cap in ((None, 50.0) if d == 256 else (None,)):
+            label = name + (f" cap {cap:g}" if cap else "")
+            out[label] = timed(lambda: flash_decode.decode_partials(
+                qd, kc, vc, lengths, d ** -0.5, splits, **capped(cap)), 50)
+
+    lens = torch.tensor([923, 731, 618, 401, 436, 196, 227, 174], dtype=torch.int32,
+                        device="cuda")  # chip_smoke.serving_requests' first 8, 32 tokens in
+    kp, vp, table = pool(8, 128, 16, 8, 128)
+    q = randn(8, 32, 1, 128)
+    out["B5 B8 ps128 (+ D2)"] = timed(lambda: pa.paged_attention_decode(q, kp, vp, lens, table),
+                                      50)
+    del kp, vp
+    off = torch.tensor([0, 256, 512, 768] * 2, dtype=torch.int32, device="cuda")
+    for name, hq, d in (("B6 B8 S256 ps16", 32, 128), ("gemma2 B6 B8 S256 ps16", 16, 256)):
+        kp, vp, table = pool(8, 16, 128, 8, d)
+        q = randn(8, 256, hq, d).transpose(1, 2)
+        for cap in ((None, 50.0) if d == 256 else (None,)):
+            label = name + (f" cap {cap:g}" if cap else "")
+            out[label] = timed(lambda: pa.paged_attention_extend(
+                q, kp, vp, off, off + 256, table, **capped(cap)), 20)
+        del kp, vp
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

@@ -240,19 +240,26 @@ def test_paged_append_kernel_writes_what_plain_writes(device, s):
 
 
 def test_paged_kernels_refuse_what_they_do_not_take(device):
+    """B5 and B6 take a soft cap (held to their plain versions here); they
+    refuse a pool of another dtype and lengths that are not int32."""
     gen = torch.Generator(device="cuda").manual_seed(6)
-    kp, vp, table = paged_pool(gen, 16, 2, capacity=64)
+    kp, vp, table = paged_pool(gen, 16, 2, capacity=64, lengths=[7, 9])
     q = randn(gen, 2, 32, 1, 128)
     lengths = torch.tensor([3, 5], dtype=torch.int32, device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10b"):
-        paged_attention.paged_attention_decode(q, kp, vp, lengths, table, logit_softcap=30.0)
+    out = paged_attention.paged_attention_decode(q, kp, vp, lengths, table, logit_softcap=30.0)
+    ref = paged_attention.paged_attention_decode_plain(q.float(), kp, vp, lengths, table,
+                                                       logit_softcap=30.0)
+    assert (out.float() - ref).abs().max().item() <= BF16_TOL
     with pytest.raises(ValueError, match="bfloat16"):  # the pool is never cast
         paged_attention.paged_attention_decode(q, kp.half(), vp.half(), lengths, table)
     with pytest.raises(ValueError, match="int32"):
         paged_attention.paged_attention_decode(q, kp, vp, lengths.long(), table)
-    with pytest.raises(NotImplementedError, match="softcap"):
-        paged_attention.paged_attention_extend(randn(gen, 2, 32, 4, 128), kp, vp, lengths,
-                                               lengths + 4, table, logit_softcap=30.0)
+    qe = randn(gen, 2, 32, 4, 128)
+    out = paged_attention.paged_attention_extend(qe, kp, vp, lengths, lengths + 4, table,
+                                                 logit_softcap=30.0)
+    ref = paged_attention.paged_attention_extend_plain(qe.float(), kp, vp, lengths, lengths + 4,
+                                                       table, logit_softcap=30.0)
+    assert (out.float() - ref).abs().max().item() <= BF16_TOL
 
 
 KV_DTYPES = {"int8": torch.int8, "e4m3": torch.float8_e4m3fn}
@@ -914,3 +921,136 @@ def test_training_and_varlen_kernels_refuse_what_they_do_not_take(device):
     with pytest.raises(NotImplementedError, match="A10b"):
         flash_varlen.flash_attention_varlen(q[0].transpose(0, 1), q[0, :2].transpose(0, 1),
                                             q[0, :2].transpose(0, 1), cu)
+
+
+# Gemma2 (soft caps, head dim 256) on P / B2, D1 + D2, B5, B6 and the append,
+# at Gemma-2-9B attention widths (Hq 16, Hkv 8, D 256, scale 256 ** -0.5)
+# and, for the cap alone, Llama widths (32 / 8, D 128). Each case runs with
+# the model's cap 50 and with 1.0, which binds on every score. The plain
+# version runs on the fp32 image of q (an fp32 result), as for windows.
+GEMMA_WIDTHS = {"d256": (16, 8, 256), "d128": (32, 8, 128)}
+CAPS = {"cap50": 50.0, "cap1": 1.0}
+GEMMA_PREFILL = {
+    # name: (batch, sq, skv, window, dtype)
+    "causal_b2_s1024": (2, 1024, 1024, None, torch.bfloat16),
+    "window256_s1024": (2, 1024, 1024, 256, torch.bfloat16),
+    "offset_256_1024": (1, 256, 1024, None, torch.bfloat16),
+    "ragged_s1000": (1, 1000, 1000, None, torch.float16),
+}
+
+
+@pytest.mark.parametrize("cap", list(CAPS))
+@pytest.mark.parametrize("case", list(GEMMA_PREFILL))
+@pytest.mark.parametrize("widths", list(GEMMA_WIDTHS))
+def test_gemma2_prefill_kernel_matches_plain(device, widths, case, cap):
+    hq, hkv, d = GEMMA_WIDTHS[widths]
+    b, sq, skv, window, dtype = GEMMA_PREFILL[case]
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    q = randn(gen, b, hq, sq, d, dtype=dtype)
+    k, v = randn(gen, b, hkv, skv, d, dtype=dtype), randn(gen, b, hkv, skv, d, dtype=dtype)
+    counter = flash_fwd.WINDOWED_PREFILL if window else flash_fwd.PREFILL
+    before = counter.launches
+    out = flash_fwd.flash_attention_fwd(q, k, v, causal=True, window=window,
+                                        logit_softcap=CAPS[cap])
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    ref = flash_fwd.flash_attention_fwd_plain(q.float(), k.float(), v.float(), causal=True,
+                                              window=window, logit_softcap=CAPS[cap])
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    assert (out.float() - ref).abs().max().item() <= BF16_TOL
+
+
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("cap", list(CAPS))
+@pytest.mark.parametrize("widths", list(GEMMA_WIDTHS))
+def test_gemma2_decode_kernels_match_plain(device, widths, cap, window):
+    hq, hkv, d = GEMMA_WIDTHS[widths]
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    lens = [576, 513, 37, 0]
+    kc, vc = stacked_cache(gen, lens, layers=2, hkv=hkv, d=d)
+    q = randn(gen, 4, hq, 1, d)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    before = (flash_decode.PARTIALS.launches, flash_decode.COMBINE.launches)
+    out = flash_decode.flash_attention_decode(q, kc, vc, kv_length=lengths, window=window,
+                                              logit_softcap=CAPS[cap], num_splits=5, layer=1)
+    torch.cuda.synchronize()
+    assert (flash_decode.PARTIALS.launches, flash_decode.COMBINE.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = flash_decode.flash_attention_decode_plain(q.float(), kc, vc, kv_length=lengths,
+                                                    window=window, logit_softcap=CAPS[cap],
+                                                    num_splits=5, layer=1)
+    assert torch.isfinite(out).all() and (out[3] == 0).all()
+    assert (out.float() - ref).abs().max().item() <= BF16_TOL
+
+
+@pytest.mark.parametrize("cap", list(CAPS))
+@pytest.mark.parametrize("widths", list(GEMMA_WIDTHS))
+def test_gemma2_paged_kernels_match_plain(device, widths, cap):
+    """B5 (+ D2) and B6 (chunk of 100, window 64 on one call) over NaN past
+    every length behind a permuted table."""
+    hq, hkv, d = GEMMA_WIDTHS[widths]
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    lens = [0, 1, 17, 1024, 777, 33]  # decode; the extend's kv_length below
+    kvl_list = [0, 100, 100, 1024, 777, 120]
+    kp, vp, table = paged_pool(gen, 16, len(lens), hkv=hkv, d=d, lengths=kvl_list)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = randn(gen, len(lens), hq, 1, d)
+    out = paged_attention.paged_attention_decode(q, kp, vp, lengths, table,
+                                                 logit_softcap=CAPS[cap])
+    ref = paged_attention.paged_attention_decode_plain(q.float(), kp, vp, lengths, table,
+                                                       logit_softcap=CAPS[cap])
+    assert torch.isfinite(out).all() and (out[0] == 0).all()
+    assert (out.float() - ref).abs().max().item() <= BF16_TOL
+    qe = randn(gen, len(lens), 100, hq, d).transpose(1, 2)
+    kvl = torch.tensor(kvl_list, dtype=torch.int32, device="cuda")
+    off = (kvl - 100).clamp(min=0)
+    for window in (None, 64):
+        out = paged_attention.paged_attention_extend(qe, kp, vp, off, kvl, table, window=window,
+                                                     logit_softcap=CAPS[cap])
+        ref = paged_attention.paged_attention_extend_plain(qe.float(), kp, vp, off, kvl, table,
+                                                           window=window,
+                                                           logit_softcap=CAPS[cap])
+        assert torch.isfinite(out).all() and (out[0] == 0).all()
+        assert (out.float() - ref).abs().max().item() <= BF16_TOL
+
+
+def test_gemma2_paged_append_at_d256_writes_what_plain_writes(device):
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    starts, act = [0, 13, 1024 - 40, 37], [1, 1, 1, 0]
+    kp, vp, table = paged_pool(gen, 16, len(starts), d=256)
+    new_k = randn(gen, len(starts), 100, 8, 256).transpose(1, 2)
+    new_v = randn(gen, len(starts), 100, 8, 256).transpose(1, 2)
+    lengths = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    active = torch.tensor(act, dtype=torch.bool, device="cuda")
+    ref_k, ref_v = kp.clone(), vp.clone()
+    paged_cache.paged_append_layer(kp, vp, new_k, new_v, table, lengths, active)
+    paged_cache.paged_append_layer_plain(ref_k, ref_v, new_k, new_v, table, lengths, active)
+    assert torch.equal(kp, ref_k) and torch.equal(vp, ref_v)
+
+
+def test_gemma2_routes_outside_the_slice_raise(device):
+    """The soft cap and D 256 stay refused by B4, B7-B9 + QA, B12 and B13,
+    naming ROADMAP.md A10b; nothing falls back to a plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    q, k, v, off, lens = chunked_inputs(gen, 16, 8, 5, 64, [0, 3], None, 256, torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="A10b"):
+        flash_chunked.flash_attention_chunked(q, k, v, off, lens)
+    cache = QuantizedKV(torch.zeros(2, 8, 64, 256, dtype=torch.int8, device="cuda"),
+                        torch.ones(2, 8, 64, device="cuda"))
+    qd = randn(gen, 2, 16, 1, 256)
+    with pytest.raises(NotImplementedError, match="A10b"):
+        quant.flash_attention_decode_quantized(qd, cache, cache, lens)
+    with pytest.raises(NotImplementedError, match="A10b"):
+        quant.quantize_append(k, v, cache, cache, lens)
+    pages = QuantizedKV(torch.zeros(8, 9, 16, 256, dtype=torch.int8, device="cuda"),
+                        torch.ones(8, 9, 16, device="cuda"))
+    table = torch.arange(1, 9, dtype=torch.int32, device="cuda").view(2, 4)
+    with pytest.raises(NotImplementedError, match="A10b"):
+        quant.paged_attention_decode_quantized(qd, pages, pages, lens, table)
+    with pytest.raises(NotImplementedError, match="A10b"):
+        quant.paged_attention_extend_quantized(q, pages, pages, off, lens, table)
+    with pytest.raises(NotImplementedError, match="A10b"):
+        flash_bwd.flash_attention_bwd(q, k, v, q, q, torch.zeros(2, 16, 5, device="cuda"))
+    q.requires_grad_()
+    with pytest.raises(NotImplementedError, match="A10b"):  # no backward takes the cap
+        api.flash_attn_func(q, k, v, causal=True, logit_softcap=50.0)

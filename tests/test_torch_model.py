@@ -265,10 +265,15 @@ def test_configs_and_presets():
     assert llama_config_from_hf(hf) == llama3_8b_config()
     assert presets.get_preset("llama3-8b").dtype == torch.bfloat16
     assert presets.get_preset("tiny", dtype=torch.float32) == tiny_test_config()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
-        presets.get_preset("gemma2-9b")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
-        forward({}, tiny_test_config(logit_softcap=30.0), torch.zeros(1, 1, dtype=torch.long))
+    gemma = presets.get_preset("gemma2-9b")  # builds: Gemma2 runs in the port
+    assert (gemma.head_dim, gemma.logit_softcap, gemma.final_logit_softcap) == (256, 50.0, 30.0)
+    # `forward` takes a soft cap: on the CPU the plain version applies it.
+    cfg = tiny_test_config(logit_softcap=1.0)
+    params = init_params(cfg, seed=0, device="cpu")
+    ids = torch.arange(12).reshape(1, 12)
+    capped, _ = forward(params, cfg, ids)
+    plain, _ = forward(params, tiny_test_config(), ids)
+    assert torch.isfinite(capped).all() and (capped - plain).abs().max() > 1e-4
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():

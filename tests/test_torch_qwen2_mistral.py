@@ -121,13 +121,16 @@ def test_configs_presets_and_window_plan():
         [None, None, 16, 16]
     assert [presets.get_preset("mistral-7b").layer_window(i) for i in (0, 31)] == [4096, 4096]
     assert presets.get_preset("qwen2-7b").layer_window(27) is None  # use_sliding_window false
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10b"):
-        presets.get_preset("gemma2-9b")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10b"):
-        tiny_test_config(layer_window_pattern=(8, None)).layer_window(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10b"):
-        forward({}, tiny_test_config(layer_window_pattern=(8, None)),
-                torch.zeros(1, 1, dtype=torch.long))
+    # A periodic pattern (Gemma2) gives each layer its window, and the
+    # preset's alternate from layer 0.
+    assert [tiny_test_config(num_layers=4, layer_window_pattern=(8, None)).layer_window(i)
+            for i in range(4)] == [8, None, 8, None]
+    gemma = presets.get_preset("gemma2-9b")
+    assert [gemma.layer_window(i) for i in (0, 1, 40, 41)] == [4096, None, 4096, None]
+    pcfg = tiny_test_config(num_layers=2, layer_window_pattern=(8, None))
+    logits, _ = forward(init_params(pcfg, seed=0, device="cpu"), pcfg,
+                        torch.from_numpy(ids_of(1, 20, 12)))
+    assert logits.shape == (1, 20, 256) and torch.isfinite(logits).all()
 
 
 @pytest.mark.parametrize("cache_dtype", ["bfloat16", "int8", "float8_e4m3fn"])
