@@ -8,8 +8,10 @@ one NVIDIA Hopper card.
 Phases, in order; any failure exits non-zero:
   1. device: a CUDA card of compute capability 9.0; its name and power limit.
   2. build: every kernel of the main paths from csrc/ (one nvcc per source,
-     all at once), with the ptxas register / shared-memory / spill report;
-     then the native scheduler (csrc/page_allocator.cpp) with g++.
+     all at once), with the ptxas register / shared-memory / spill report
+     and, for every B10 / B11 instantiation, the runtime's registers, spill
+     bytes and launch shared memory (no spill allowed); then the native
+     scheduler (csrc/page_allocator.cpp) with g++.
   3. kernels vs plain: P, D1, D2, B5 (paged decode), B6 (paged extend) and
      the paged append at Llama-3-8B attention widths against their plain
      PyTorch versions on the card (bf16; tolerance below), B5/B6 over
@@ -19,8 +21,12 @@ Phases, in order; any failure exits non-zero:
      NaN at and past every length, and QA (quantize-and-append, paged and
      contiguous), which must be bit-identical to its plain version; (3c)
      the weight-only quantized products B10 (int8) and B11 (int4) at the
-     Llama-3-8B projection shapes (T 1 to 2048, the padded lm_head, a
-     ragged K, an int4 K_pad of 256) against their plain versions; (3d) the
+     Llama-3-8B projection shapes (T 1 to 2048, either side of the decode /
+     prefill crossover at 16 / 17, a verify round of 20, 63 / 64, a chunk
+     of 256, the padded lm_head, a ragged K, an int4 K_pad of 256, f16, x
+     rows TMA cannot take) against their plain versions, each on the
+     plan's route and, where the plan splits K, in one pass over K, every
+     output repeated bit for bit; (3d) the
      contiguous extend B4 in bf16 and f16 at the verify shape (B 4, S 5,
      capacity 640, q_offset 0-600), a chunk (S 256, q_offset 0-768,
      capacity 1100), with a kv_length-0 row (exact zeros), non-causal and
@@ -129,8 +135,10 @@ Phases, in order; any failure exits non-zero:
      launch counts per forward, every token teacher-forced.
   5. numbers: per-kernel times, bounds and library times as one JSON line
      (for B7-B9 the library call is SDPA over a dequantized bf16 copy, for
-     B10 / B11 `x @ w` over a dequantized bf16 weight; the dequantization is
-     not timed; for B4 one SDPA call over the contiguous cache with the
+     B10 / B11 `x @ w` over a dequantized bf16 weight, the dequantization
+     not timed, at every projection of the int8 and fused int4 trees at
+     decode rows and T 2048 under "projections", timed over weight copies
+     larger than the L2; for B4 one SDPA call over the contiguous cache with the
      causal-offset and length mask, at the verify shape and a chunk);
      prefill and decode times, also with quantized weights;
      serving wall time, tokens/s, TTFT, rounds, pool bytes and peak memory
@@ -681,44 +689,81 @@ def phase_window_kernels(torch, ops, errs):
 
 
 # Phase 3c shapes (rows T, K, N): the Llama-3-8B projections at decode,
-# admission and prefill row counts.
+# admission and prefill row counts, either side of the kernels' decode /
+# prefill crossover (DECODE_MAX_T = 16), a speculative verify, a chunk.
 QMM_CASES = {
     "q_proj / o_proj, T 1": (1, 4096, 4096),
     "k_proj / v_proj, T 4": (4, 4096, 1024),
     "fused qkv_proj, T 8": (8, 4096, 6144),
     "gate_proj / up_proj, T 4": (4, 4096, 14336),
     "fused gate_up_proj, T 8": (8, 4096, 28672),
+    "down_proj, T 4 (K 14336)": (4, 14336, 4096),
+    "q_proj, T 16 (the last decode row count)": (16, 4096, 4096),
+    "q_proj, T 17 (the first prefill row count)": (17, 4096, 4096),
+    "q_proj, T 20 (a verify round, B 4 x (gamma + 1))": (20, 4096, 4096),
     "down_proj, T 37": (37, 14336, 4096),
+    "q_proj, T 63": (63, 4096, 4096),
+    "q_proj, T 64": (64, 4096, 4096),
+    "q_proj, T 256 (a chunk)": (256, 4096, 4096),
     "gate_proj, T 2048 (prefill)": (2048, 4096, 14336),
+    "k_proj / v_proj, T 2048": (2048, 4096, 1024),
+    "down_proj, T 2048": (2048, 14336, 4096),
     "lm_head, T 4 (N 128256, padded to 129024)": (4, 4096, 128256),
     "ragged K 300, T 5": (5, 300, 520),
     "K 200 (int4 K_pad 256: 2 groups, one pack block), T 3": (3, 200, 130),
+}
+# Cases of x that are not bf16 rows of 16-byte aligned strides: (T, K, N,
+# dtype name, the width x is sliced from).
+QMM_X_CASES = {
+    "f16, T 8": (8, 4096, 4096, "float16", None),
+    "f16, T 2048": (2048, 4096, 4096, "float16", None),
+    "T 2048, x rows of 301 elements sliced to K 300 (unaligned: the decode design)":
+        (2048, 300, 520, "bfloat16", 301),
 }
 # kernel name -> (bits, projections per layer of the tree it runs on)
 QMM_KERNELS = {"quantized_matmul": (8, 7), "quantized_matmul_int4": (4, 4)}
 
 
 def phase_qmm_kernels(torch, qmm, errs):
-    """B10 and B11 against their fp32 plain versions (bf16 x at unit scale,
-    weights normal with std fan_in ** -0.5 quantized on the card). The
-    kernels round an fp32 sum to bf16 once; a bf16 plain result would add a
-    second rounding, one bf16 step (0.03125) apart for outputs of 4-8."""
+    """B10 and B11 against their fp32 plain versions (x at unit scale,
+    weights normal with std fan_in ** -0.5 quantized on the card), in
+    every case on the plan's route and, where the plan splits K, also in
+    one pass over K; every output must repeat bit for bit. The kernels
+    round an fp32 sum to bf16 once; a bf16 plain result would add a second
+    rounding, one bf16 step (0.03125) apart for outputs of 4-8."""
     gen = torch.Generator(device="cuda").manual_seed(2468)
-    for what, (t, k, n) in QMM_CASES.items():
-        x = torch.randn((t, k), generator=gen, device="cuda").to(torch.bfloat16)
+    cases = {what: (t, k, n, "bfloat16", None) for what, (t, k, n) in QMM_CASES.items()}
+    cases.update(QMM_X_CASES)
+    for what, (t, k, n, dtype, width) in cases.items():
+        x = torch.randn((t, width or k), generator=gen, device="cuda").to(getattr(torch, dtype))
+        x = x[:, :k]
         w = torch.randn((k, n), generator=gen, device="cuda").mul_(k ** -0.5)
         for name, (bits, _) in QMM_KERNELS.items():
             qw = (qmm.quantize_weight if bits == 8 else qmm.quantize_weight_int4)(w)
+            k_pad = qw.values.shape[0] * (2 if bits == 4 else 1)
+            aligned = x.data_ptr() % 16 == 0 and x.stride(0) * x.element_size() % 16 == 0
+            plan = qmm.qmm_plan(t, k, n, k_pad, qw.values.shape[1], bits == 4, aligned)
             out = qmm.quantized_matmul(x, qw)
             # The fp32 plain version on the same (exactly widened) inputs.
-            e = max_err(out, qmm.quantized_matmul_plain(x.float(), qw))
-            errs[name] = max(errs.get(name, 0.0), e)
-            print(f"  {'B10 int8' if bits == 8 else 'B11 int4'} {what} (K {k}, N {n}, padded "
-                  f"{tuple(qw.values.shape)}): max|diff| {e:.3e}")
+            ref = qmm.quantized_matmul_plain(x.float(), qw)
+            e = max_err(out, ref)
+            same = torch.equal(out, qmm.quantized_matmul(x, qw))
+            kname = "B10 int8" if bits == 8 else "B11 int4"
+            print(f"  {kname} {what} (K {k}, N {n}, padded {tuple(qw.values.shape)}): "
+                  f"{plan.route}, {plan.splits} split(s), max|diff| {e:.3e}, repeat "
+                  f"{'bit-identical' if same else 'DIFFERS'}")
             check(tuple(out.shape) == (t, n) and bool(torch.isfinite(out).all()),
                   f"{name} {what}: finite [{t}, {n}] output")
             check(e <= BF16_TOL, f"{name} {what} within {BF16_TOL}")
-        del x, w, qw, out
+            check(same, f"{name} {what}: a second call gives the same bits")
+            if plan.splits > 1:
+                one = qmm.quantized_matmul(x, qw, splits=1)
+                e1, e_split = max_err(one, ref), max_err(out, one)
+                print(f"    one pass over K: max|diff| {e1:.3e}, against the split {e_split:.3e}")
+                check(max(e1, e_split) <= BF16_TOL, f"{name} {what}: one pass over K agrees")
+                e = max(e, e1)
+            errs[name] = max(errs.get(name, 0.0), e)
+        del x, w, qw, out, ref
 
 
 def serving_requests(cfg):
@@ -1513,7 +1558,7 @@ def kernel_entries(rows, errs, path_counts) -> list:
             "library_ms": r["library_ms"],
             "shape": r.get("shape", "the main path's"),
             **{key: r[key] for key in ("prefill", "chunk", "window", "lse", "max_rel_err",
-                                       "gemma2") if key in r},
+                                       "gemma2", "projections") if key in r},
         })
     return out
 
@@ -2192,54 +2237,94 @@ def bound(ops, nbytes, peak) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+L2_ROTATE = 100e6  # bytes of weight copies a timing cycles over: twice the H100's 50 MB L2
+
+
 def qmm_rows(torch, cfg, gen):
-    """Kernel rows of B10 at a decode shape of the int8 tree (T 4 = the
-    greedy batch, gate_proj: K 4096, N 14336) and B11 at one of the fused
-    int4 tree (T 8 = a serving decode round, gate_up_proj: N 28672), each
-    also at the prefill shape (T 2048 = 4 x 512) under "prefill". Bytes:
-    x, the logical weight (1 B or 0.5 B an element) and its scales, y;
-    operations 2 T K N at the bf16 tensor-core rate. `library_ms` is one bf16
-    `x @ w` over a dequantized copy of the weight (not timed)."""
+    """Kernel rows of B10 (the unfused int8 tree) and B11 (the fused int4
+    tree): every projection of the tree at its decode rows (T 4 = the
+    greedy batch for int8, T 8 = a serving round for int4) and at T 2048 =
+    4 x 512 (the greedy prefill), under "projections"; the row itself is the
+    recorded shape (int8 gate_proj, N 14336; int4 fused gate_up_proj, N
+    28672), with T 2048 under "prefill". Each timing cycles over copies of
+    the weight totalling at least L2_ROTATE bytes, so that the weight comes
+    from device memory as it does when a model streams its layers. Bytes:
+    x, the logical weight (1 B or 0.5 B an element) and its scales, y, each
+    once; operations 2 T K N at the bf16 tensor-core rate. `library_ms` is
+    one bf16 `x @ w` over dequantized copies (the dequantization not
+    timed)."""
+    import dataclasses
+    import itertools
+
     from flash_attention_cute_tpu_torch.ops import quantized_matmul as qmm
     from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms
 
     e, f = cfg.hidden_size, cfg.intermediate_size
+    q, kv = cfg.num_q_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    trees = (
+        ("quantized_matmul", B, 149, "gate_proj / up_proj",
+         {"q_proj / o_proj": (e, q), "k_proj / v_proj": (e, kv), "gate_proj / up_proj": (e, f),
+          "down_proj": (f, e), "lm_head": (e, cfg.vocab_size)}),
+        ("quantized_matmul_int4", 8, 360, "fused gate_up_proj",
+         {"fused qkv_proj": (e, q + 2 * kv), "o_proj": (q, e), "fused gate_up_proj": (e, 2 * f),
+          "down_proj": (f, e), "lm_head": (e, cfg.vocab_size)}),
+    )
+
+    def cycling(fn, items):
+        it = itertools.cycle(items)
+        return lambda: fn(next(it))
+
+    def cycles(iters, copies):  # whole cycles over the copies, about `iters` calls
+        return copies * max(1, round(iters / copies))
+
     rows = []
-    for name, t, n, line, what in (
-            ("quantized_matmul", B, f, 149, "gate_proj, int8"),
-            ("quantized_matmul_int4", 8, 2 * f, 360, "fused gate_up_proj, int4")):
+    for name, t_dec, line, recorded, shapes in trees:
         bits = QMM_KERNELS[name][0]
-        k = e
-        w = torch.randn((k, n), generator=gen, device="cuda").mul_(k ** -0.5)
-        qw = (qmm.quantize_weight if bits == 8 else qmm.quantize_weight_int4)(w)
-        dense = (qmm.dequantize_weight if bits == 8 else qmm.dequantize_weight4)(
-            qw, torch.bfloat16)
-        del w
-        w_bytes = k * n * bits // 8 + 4 * n * (1 if bits == 8 else k // qmm.GROUP4)
-
-        def measure(rows_t, iters):
-            x = torch.randn((rows_t, k), generator=gen, device="cuda").to(torch.bfloat16)
-            ops, nbytes = 2 * rows_t * k * n, 2 * rows_t * k + w_bytes + 2 * rows_t * n
-            return {
-                "shape": f"T {rows_t}, K {k}, N {n} ({what}); library_ms: bf16 x @ a "
-                         "dequantized copy (dequantization not timed)",
-                "ms": cuda_time_ms(lambda: qmm.quantized_matmul(x, qw), iters),
-                "call_ms": call_time_ms(lambda: qmm.quantized_matmul(x, qw), iters),
-                "plain_ms": cuda_time_ms(lambda: qmm.quantized_matmul_plain(x, qw), 5),
-                "library_ms": cuda_time_ms(lambda: x @ dense, iters),
-                "ops": ops, "bytes": nbytes,
-            }
-
-        row = measure(t, 50)
-        pre = measure(B * PROMPT, 10)
-        pre.update(bound(pre.pop("ops"), pre.pop("bytes"), PEAK_BF16))
+        projections, row = [], None
+        for proj, (k, n) in shapes.items():
+            w = torch.randn((k, n), generator=gen, device="cuda").mul_(k ** -0.5)
+            qw = (qmm.quantize_weight if bits == 8 else qmm.quantize_weight_int4)(w)
+            del w
+            w_bytes = k * n * bits // 8 + 4 * n * (1 if bits == 8 else k // qmm.GROUP4)
+            copies = [qw] + [dataclasses.replace(qw, values=qw.values.clone(),
+                                                 scales=qw.scales.clone())
+                             for _ in range(-(-int(L2_ROTATE) // w_bytes) - 1)]
+            dequant = qmm.dequantize_weight if bits == 8 else qmm.dequantize_weight4
+            dense = [dequant(qw, torch.bfloat16)]
+            dense += [dense[0].clone() for _ in range(-(-int(L2_ROTATE) // (2 * k * n)) - 1)]
+            for t in (t_dec, B * PROMPT):
+                x = torch.randn((t, k), generator=gen, device="cuda").to(torch.bfloat16)
+                iters = 50 if t == t_dec else 10
+                kernel = cycling(lambda w_: qmm.quantized_matmul(x, w_), copies)
+                ops, nbytes = 2 * t * k * n, 2 * t * k + w_bytes + 2 * t * n
+                entry = {
+                    "projection": proj, "shape": f"T {t}, K {k}, N {n}",
+                    "weight_copies": len(copies),
+                    "ms": cuda_time_ms(kernel, cycles(iters, len(copies))),
+                    "library_ms": cuda_time_ms(cycling(lambda d_: x @ d_, dense),
+                                               cycles(iters, len(dense))),
+                    **bound(ops, nbytes, PEAK_BF16),
+                }
+                projections.append(entry)
+                if proj == recorded:
+                    entry = dict(entry, call_ms=call_time_ms(kernel, cycles(iters, len(copies))),
+                                 plain_ms=cuda_time_ms(
+                                     lambda: qmm.quantized_matmul_plain(x, qw), 5))
+                    if t == t_dec:
+                        row = dict(entry, ops=ops, bytes=nbytes)
+                    else:
+                        row["prefill"] = entry
+                del x
+            del qw, copies, dense
+            torch.cuda.empty_cache()
         rows.append({
             "name": name, "route": "cuda",
             "source": "flash_attention_cute_tpu_torch/csrc/quantized_matmul.cu",
             "replaces": f"flash_attention_cute_tpu/ops/quantized_matmul.py:{line}",
-            **row, "peak": PEAK_BF16, "prefill": pre,
+            **{key: row[key] for key in ("shape", "ms", "call_ms", "plain_ms", "library_ms",
+                                         "ops", "bytes", "prefill")},
+            "peak": PEAK_BF16, "projections": projections,
         })
-        del qw, dense
     return rows
 
 
@@ -3079,6 +3164,10 @@ def main() -> int:
         for line in log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
+    print("  B10 / B11 instantiations (the runtime's attributes, launch shared memory):")
+    for line in quantized_matmul.kernel_report().splitlines():
+        print(f"    {line}")
+        check("0 bytes local" in line, f"no spill in {line}")
 
     # 3. kernels vs plain
     errs: dict = {}

@@ -4,329 +4,974 @@
 //     flash_attention_cute_tpu/ops/quantized_matmul.py `_qmm_kernel` (:149,
 //     pallas_call at :178). W = values[K_pad, N_pad] int8 with one f32 scale
 //     per column: y = (x @ values) * scales, the scale applied once to the
-//     fp32 sum (exact: it is constant along K).
+//     fully combined fp32 sum (exact: it is constant along K).
 //   * B11, int4: replaces `_qmm4_kernel` (:360, pallas_call at :429). W is
 //     nibble-packed (biased u = q + 8, block-local packing in blocks of
-//     bk = min(512, K_pad) rows) with one f32 scale per (128-row group,
-//     column): y = sum over groups g of s[g, n] * (x_g @ q_g). Each 64-row
-//     half of a group is summed in fp32 on its own and multiplied by its
-//     fp32 scale into the accumulator; the scale is never folded into a
-//     bf16 weight (that would round q * s to bf16).
+//     bk = min(512, K_pad) rows: packed row r of a block holds K row r in
+//     its low nibble and row bk/2 + r in its high nibble) with one f32 scale
+//     per (128-row group, column): y = sum over groups g of s[g, n] *
+//     (x_g @ q_g). Each group's product is summed in fp32 on its own and
+//     multiplied by its fp32 scale into the accumulator; the scale is never
+//     folded into a bf16 weight (that would round q * s to bf16).
 //
 // x is bf16 or f16 with its last dim contiguous, read only up to its logical
-// K (the rest of a tile is zero-filled, so x is never padded in memory); y is
-// written only at its logical T x N, contiguous. The packing and padding
-// are the JAX package's (ops/quantized_matmul.py in both packages).
+// K (never padded in memory); y is written only at its logical T x N,
+// contiguous. The packing and padding are the JAX package's
+// (ops/quantized_matmul.py in both packages). Numerics: int8 and q = u - 8
+// widen to bf16 / f16 exactly, every product is summed in fp32, and y is
+// rounded once; sums run in a fixed order, so two calls give the same bits.
 //
-// What bounds them on the H100. Decode (T of 1-16) streams the weight once
-// per call: bound by its bytes (1 B an element in int8, 0.5 B in int4, plus
-// scales) at 3.35 TB/s. Prefill (T in the thousands) does 2 T K N operations,
-// far above the card's ~295 per byte: bound by the bf16 tensor-core rate.
-// Design, simple first: one block of 4 warps per (BM rows, BN columns) of y,
-// walking K in tiles of 128 rows. Each tile's weights are loaded 16 bytes a
-// thread into registers one tile ahead (so the next tile's loads are in
-// flight during this tile's products), widened to bf16 / f16 (exact: int8
-// and q = u - 8 fit both significands) into shared memory as [K][N], and
-// read as B fragments by ldmatrix.trans; x is staged beside them; the
-// products run on mma.sync m16n8k16 with fp32 accumulators. T <= 16 takes
-// 16 x 64 tiles (more blocks for the few-row decode grids), larger T 64 x
-// 128. Not copied from the TPU kernels: their tile caps, the scale rows
-// padded to 8 sublanes, the compile-service workaround, and the -8 *
-// rowsum(x) correction (subtracting 8 at unpack is exact here). Not yet done
-// (later work): wgmma and TMA, int8 / fp8 tensor-core products, split-K for
-// the decode grids of narrow outputs.
+// Both designs walk the weight in tiles of kRows = 64 stored rows by kBN =
+// 128 columns (8 KB; int8: 64 K rows; int4: 64 packed rows, that is the
+// low-nibble rows of one 64-row half of a group and the high-nibble rows of
+// another). The wrapper's plan (ops/quantized_matmul.py `qmm_plan`) picks
+// the design and the number of K splits; a split covers whole units (one
+// tile for the int8 prefill; a pair of tiles for int4, so that a group's two
+// halves stay in one split, and for the decode design, whose stages hold
+// two tiles). With more than one split, each block writes an fp32 partial
+// into a workspace and a second small pass in this same entry point adds
+// the partials in split order, applies int8's scale and rounds.
+//
+// Design A, decode and small T (bound by the weight's bytes at 3.35 TB/s;
+// compute is under 1 % of the bound). A block of 8 warps owns 128 columns
+// (256 where 128-column blocks would already put more than one block on an
+// SM), up to 16 rows of x and one K split; splits give about one block per
+// SM at every projection of the Llama-3-8B trees. Stages of 16 KB of
+// weights (two tiles by 128 columns, or one by 256), with the x rows and
+// int4 scale rows that go with them, stream through a ring of kStagesA
+// stages in shared memory, filled by 16-byte cp.async.cg copies (3 stages,
+// 48 KB of weights, in flight per block). The product is mma.sync
+// m16n8k16 with the roles swapped: the weight is the A operand (16 columns
+// per m16 tile) and x^T the B operand (8 rows of x per n8 tile), so the few
+// rows of x waste no tensor-core work on the weight side. K is permuted
+// inside each k16 step (a thread's four k slots are four consecutive stored
+// rows) and so are the columns (a thread's 16 m slots are 16 consecutive
+// columns): each thread reads its weights with four 16-byte shared loads
+// (swizzled against bank conflicts) and its x fragment with one 8-byte
+// shared load. Each warp sums 16 of a stage's rows for its 128 columns; the
+// warps' sums are added in warp order at the end. Eight warps, not four,
+// because one warp a scheduler left the widening's latency bare (measured,
+// PERF.md).
+//
+// Design B, prefill (bound by the bf16 tensor-core rate). A block of three
+// warpgroups owns a 128 x 128 tile of y and one K split: warpgroup 0 is the
+// producer (one thread issues TMA copies and gives back its registers by
+// setmaxnreg), warpgroups 1 and 2 are the consumers. x comes by TMA with
+// the 128-byte swizzle (its out-of-bounds zero fill covers the ragged K and
+// T edges) through a ring of kXS stages, the raw weight tiles by TMA through
+// a ring of kWS stages, each signalled by mbarriers. The block computes
+// y^T = W^T x^T with wgmma m64n128k16: the weight is the A operand, read
+// from the raw tile by ldmatrix.trans (which hands each lane two columns of
+// two K rows, the A fragment's pairs) and widened in registers, 64 weight
+// columns per consumer warpgroup; x is the B operand, read K-major straight
+// from its TMA stage by all 128 of its rows. Nothing widened goes back to
+// shared memory and the two consumers never wait for each other. The next
+// step's fragments are widened while the current step's products run.
+// int8 accumulates into one fp32 accumulator; int4 orders its K steps so
+// that one group's two halves accumulate into one fp32 partial, which is
+// multiplied by the group's fp32 scale into the accumulator.
+//
+// Unpacking, all exact, two values per 32-bit register: a nibble u OR-ed
+// into bf16 0x4300 (128 + u) or f16 0x6400 (1024 + u), and one bf16x2 /
+// f16x2 fma subtracting 136 / 1032; an int8 byte's low 7 bits OR-ed into the
+// same magic, and one fma subtracting the magic with the sign bit folded in
+// (`int8_pair`). Not copied from the TPU kernels: their tile caps, the scale
+// rows padded to 8 sublanes, the compile-service workaround, and the -8 *
+// rowsum(x) correction (subtracting 8 at unpack is exact here).
 #include "common.cuh"
+
+#include <cuda.h>
+
+#include <cstdio>
 
 namespace fact {
 
-struct QmmParams {
+constexpr int kBN = 128;                 // columns of y per block (both designs)
+constexpr int kRows = 64;                // stored weight rows per tile
+constexpr int kTileBytes = kRows * kBN;  // 8 KB of raw weight bytes
+constexpr int kGroup4 = 128;             // K rows per int4 scale group
+
+struct QmmArgs {
   const void* x;    // [T, K] in T; row stride x_st, last dim contiguous
   const int8_t* w;  // int8: values [K_pad, N_pad]; int4: packed [K_pad / 2, N_pad]
   const float* s;   // int8: [N_pad]; int4: [K_pad / 128, N_pad]
   void* y;          // [T, N] in T, contiguous
+  float* ws;        // [splits, T, N] fp32 partials (splits > 1)
   int t, k, n, k_pad, n_pad;
   int64_t x_st;
-  int x_vec;        // x rows are 16-byte aligned: 16-byte loads
+  int x_vec;   // x rows are 16-byte aligned: vector loads
+  int splits;  // K splits (blockIdx.y in design A, blockIdx.z in design B)
+  int tiles;   // weight tiles the product walks
+  int unit;    // tiles per split unit: 1 (the int8 prefill) or 2
 };
 
-constexpr int kQmmBK = 128;  // K rows of a tile (int4: two 64-row halves)
-constexpr int kQmmHalf = 64;
-constexpr int kQmmThreads = 128;
-constexpr int kGroup4 = 128;
-
-template <int BM, int BN>
-struct QmmTile {
-  static constexpr int kWarpsM = BM >= 32 ? BM / 32 : 1;
-  static constexpr int kWarpsN = 4 / kWarpsM;
-  static constexpr int kWM = BM / kWarpsM;  // rows of y per warp
-  static constexpr int kWN = BN / kWarpsN;  // columns of y per warp
-  static constexpr int kMT = kWM / 16;      // m16 tiles per warp
-  static constexpr int kNT = kWN / 8;       // n8 tiles per warp
-  static constexpr int kXRow = kQmmBK + 8;  // smem row strides (elements), bank spread
-  static constexpr int kWRow = BN + 8;
-  static_assert(kNT % 2 == 0, "ldmatrix.x4 loads n8 tiles in pairs");
-  template <typename T>
-  static constexpr int smem_bytes() {
-    return (BM * kXRow + kQmmBK * kWRow) * static_cast<int>(sizeof(T));
-  }
-};
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+// Tiles [j0, j0 + nj) of split `s`.
+__device__ __forceinline__ void split_range(const QmmArgs& p, int s, int& j0, int& nj) {
+  const int units = p.tiles / p.unit;
+  const int u0 = static_cast<int>(static_cast<int64_t>(s) * units / p.splits);
+  const int u1 = static_cast<int>(static_cast<int64_t>(s + 1) * units / p.splits);
+  j0 = u0 * p.unit;
+  nj = (u1 - u0) * p.unit;
 }
 
-// Sixteen values (floats of small integers, exact) as two uint4 of T.
+// K rows of tile j: int8 rows klo .. klo + 63; int4 the low nibbles hold
+// rows klo .. klo + 63 and the high nibbles khi .. khi + 63 (pack blocks of
+// bk = min(512, K_pad) rows: 256 or 512, so bk / 2 = 1 << lb).
+template <bool kInt4>
+__device__ __forceinline__ void tile_rows(int j, int k_pad, int& klo, int& khi) {
+  if constexpr (kInt4) {
+    const int lb = k_pad >= 512 ? 8 : 7, pr = j * kRows;
+    klo = ((pr >> lb) << (lb + 1)) | (pr & ((1 << lb) - 1));
+    khi = klo + (1 << lb);
+  } else {
+    klo = j * kRows;
+    khi = klo;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Exact unpacking.
+
+// Two int8 values b (bytes 0 and 2 of t) to a T2 pair. v = magic + (b & 127)
+// with magic 128 (bf16 0x4300) or 1024 (f16 0x6400); b = v - magic - 128 *
+// (sign bit), and magic + 128 * (sign bit) is the magic with the sign bit
+// OR-ed into its lowest exponent (bf16) or mantissa (f16) bit: one fma.
 template <typename T>
-__device__ __forceinline__ void store16(T* dst, const float (&f)[16]) {
-  uint4 lo, hi;
-  uint32_t* a = reinterpret_cast<uint32_t*>(&lo);
-  uint32_t* b = reinterpret_cast<uint32_t*>(&hi);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    a[i] = Elem<T>::pack(f[2 * i], f[2 * i + 1]);
-    b[i] = Elem<T>::pack(f[8 + 2 * i], f[8 + 2 * i + 1]);
+__device__ __forceinline__ uint32_t int8_pair(uint32_t t) {
+  uint32_t out;
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    const uint32_t v = (t & 0x007F007Fu) | 0x43004300u, c = (t & 0x00800080u) | 0xC300C300u;
+    asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(out) : "r"(v), "r"(0x3F803F80u), "r"(c));
+  } else {
+    const uint32_t v = (t & 0x007F007Fu) | 0x64006400u, c = (t & 0x00800080u) | 0xE400E400u;
+    asm("fma.rn.f16x2 %0, %1, %2, %3;" : "=r"(out) : "r"(v), "r"(0x3C003C00u), "r"(c));
   }
-  *reinterpret_cast<uint4*>(dst) = lo;
-  *reinterpret_cast<uint4*>(dst + 8) = hi;
+  return out;
 }
 
-// acc += sX[:, kk*16 .. +16] @ sW[kk*16 .. +16, warp's columns] for each of
-// the warp's m16 x n8 tiles.
-template <typename T, typename Tile>
-__device__ __forceinline__ void mma_k16(float (&acc)[Tile::kMT][Tile::kNT][4], const T* sX,
-                                        const T* sW, int kk, int wm, int wn, int lane) {
-  const int g = lane >> 2, t4 = lane & 3;
-  uint32_t a[Tile::kMT][4];
-#pragma unroll
-  for (int mt = 0; mt < Tile::kMT; ++mt) {
-    const T* base = sX + (wm + mt * 16 + g) * Tile::kXRow + kk * 16 + 2 * t4;
-    a[mt][0] = *reinterpret_cast<const uint32_t*>(base);
-    a[mt][1] = *reinterpret_cast<const uint32_t*>(base + 8 * Tile::kXRow);
-    a[mt][2] = *reinterpret_cast<const uint32_t*>(base + 8);
-    a[mt][3] = *reinterpret_cast<const uint32_t*>(base + 8 * Tile::kXRow + 8);
+// Two nibbles u (bits 0-3 and 16-19 of t) to a T2 pair of u - 8.
+template <typename T>
+__device__ __forceinline__ uint32_t nibbles(uint32_t t) {
+  uint32_t out;
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    const uint32_t v = (t & 0x000F000Fu) | 0x43004300u;  // 128 + u
+    asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(out) : "r"(v), "r"(0x3F803F80u), "r"(0xC308C308u));
+  } else {
+    const uint32_t v = (t & 0x000F000Fu) | 0x64006400u;  // 1024 + u
+    asm("fma.rn.f16x2 %0, %1, %2, %3;" : "=r"(out) : "r"(v), "r"(0x3C003C00u), "r"(0xE408E408u));
   }
-#pragma unroll
-  for (int np = 0; np < Tile::kNT / 2; ++np) {
-    // Lanes 0-15 address rows k of the pair's first n8 tile, lanes 16-31 of
-    // its second: r[0], r[1] are the first tile's b0, b1, r[2], r[3] the
-    // second's.
-    uint32_t b[4];
-    ldmatrix_x4_trans(b, sW + (kk * 16 + (lane & 15)) * Tile::kWRow + wn + np * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int mt = 0; mt < Tile::kMT; ++mt) {
-      Elem<T>::mma(acc[mt][2 * np], a[mt], b[0], b[1]);
-      Elem<T>::mma(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
-    }
-  }
+  return out;
 }
 
-template <typename T, int BM, int BN, bool kInt4>
-__global__ void __launch_bounds__(kQmmThreads) qmm_kernel(const QmmParams p) {
-  using Tile = QmmTile<BM, BN>;
-  constexpr int kMT = Tile::kMT, kNT = Tile::kNT;
-  constexpr int kChunksPerRow = BN / 16;                        // 16-byte weight loads per row
-  constexpr int kWRows = kInt4 ? kQmmHalf : kQmmBK;             // stored rows per tile
-  constexpr int kWLoads = kWRows * kChunksPerRow / kQmmThreads;  // per thread
-  static_assert(kWRows * kChunksPerRow % kQmmThreads == 0, "whole weight loads per thread");
+// ---------------------------------------------------------------------------
+// Asynchronous copies, barriers and wgmma (sm_90a).
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint4 lds128(uint32_t a) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(a));
+  return v;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Returns once the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma boundaries.
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// ---------------------------------------------------------------------------
+// Design A: decode and small T (mma.sync, split K, cp.async ring).
+
+constexpr int kDecWarps = 8;
+constexpr int kDecThreads = 32 * kDecWarps;
+constexpr int kStageW = 16 * kDecWarps * kBN;  // 16 KB of raw weight bytes a stage
+constexpr int kStagesA = 4;
+
+// The decode design's stage: kHalves column halves of 128 columns, each
+// taken by 8 / kHalves warps of 16 stored rows: 128 rows (two tiles) by 128
+// columns, or 64 rows (one tile) by 256 columns.
+template <int kHalves>
+struct DecodeStage {
+  static constexpr int kCols = kBN * kHalves;             // columns of y per block
+  static constexpr int kKWarps = kDecWarps / kHalves;     // warps along K
+  static constexpr int kRowsS = 16 * kKWarps;             // stored rows a stage
+  static constexpr int kTiles = kRowsS / kRows;           // tiles a stage
+  static constexpr int kXRow = 2 * kRowsS + 32;           // bytes per row of x, padded
+};
+
+// A stage: its tiles' weights, x's rows for their K rows (int4: the low and
+// the high nibbles' K rows), int4: the scale rows of the two groups (a
+// stage starts at an even tile or is one tile, so its low-nibble rows are
+// one group, and so are its high-nibble rows).
+template <bool kInt4, int kNT8, int kHalves>
+__host__ __device__ constexpr int decode_stage_bytes() {
+  using S = DecodeStage<kHalves>;
+  return kStageW + (kInt4 ? 2 : 1) * 8 * kNT8 * S::kXRow + (kInt4 ? 2 * S::kCols * 4 : 0);
+}
+template <bool kInt4, int kNT8, int kHalves>
+__host__ __device__ constexpr int decode_smem() {
+  return kStagesA * decode_stage_bytes<kInt4, kNT8, kHalves>();
+}
+static_assert(decode_smem<false, 2, 1>() >= kDecWarps * 16 * kBN * 4, "the warps' sums fit the ring");
+
+// Stored row r of a stage (rows of `row_bytes`) keeps its 16-byte chunk c at
+// chunk c ^ ((r >> 1) & 6): the four rows 4 t4 .. 4 t4 + 3 and the 16
+// columns that a lane reads then fall into distinct banks within each
+// quarter warp.
+__device__ __forceinline__ uint32_t decode_chunk(int r, int c, int row_bytes) {
+  return r * row_bytes + ((c ^ ((r >> 1) & 6)) << 4);
+}
+
+__device__ __forceinline__ uint2 lds64(uint32_t a) {
+  uint2 v;
+  asm volatile("ld.shared.v2.u32 {%0,%1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(a));
+  return v;
+}
+__device__ __forceinline__ void sts128(uint32_t a, const uint4& v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1,%2,%3,%4};\n" ::"r"(a), "r"(v.x), "r"(v.y), "r"(v.z),
+               "r"(v.w)
+               : "memory");
+}
+
+template <typename T, bool kInt4, int kNT8, int kHalves>
+__global__ void __launch_bounds__(kDecThreads) qmm_decode_kernel(const QmmArgs p) {
+  using S = DecodeStage<kHalves>;
+  constexpr int kRowsT = 8 * kNT8;  // rows of x per block
+  constexpr int kXHalf = kRowsT * S::kXRow;
+  constexpr int kScales = kStageW + (kInt4 ? 2 : 1) * kXHalf;
+  constexpr int kStage = decode_stage_bytes<kInt4, kNT8, kHalves>();
+  constexpr int kChunksRow = S::kCols / 16;  // 16-byte chunks of a stored row
   extern __shared__ __align__(16) unsigned char smem[];
-  T* sX = reinterpret_cast<T*>(smem);
-  T* sW = sX + BM * Tile::kXRow;
-
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = (warp / Tile::kWarpsN) * Tile::kWM;
-  const int wn = (warp % Tile::kWarpsN) * Tile::kWN;
+  const uint32_t sbase = smem_u32(smem);
+  const int n0 = blockIdx.x * S::kCols, split = blockIdx.y, t0 = blockIdx.z * kRowsT;
+  int j0, nj;
+  split_range(p, split, j0, nj);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int half = warp / S::kKWarps;  // the warp's 128 columns
   const T* x = static_cast<const T*>(p.x);
-  const int bk = min(512, p.k_pad);  // int4 pack block
-  // int8: tiles past the logical K hold only zero rows and are skipped.
-  const int n_tiles = kInt4 ? p.k_pad / 2 / kQmmHalf : (p.k + kQmmBK - 1) / kQmmBK;
 
-  // K positions of tile j's two 64-row halves (x columns 0-63 and 64-127 of
-  // the tile). int4: packed rows j*64 .. +64 hold one half of a group in
-  // their low nibbles and one in their high nibbles.
-  auto half_rows = [&](int j, int& klo, int& khi) {
+  // Copy assignments, fixed for the loop: weight chunks (rows wr + q *
+  // kDecThreads / kChunksRow, chunk wc) and at most two chunks of x rows.
+  constexpr int kXCh = S::kRowsS / 8;  // 16-byte chunks of a stage's x row
+  constexpr int kXChunks = (kInt4 ? 2 : 1) * kRowsT * kXCh;
+  constexpr int kWStep = kDecThreads / kChunksRow;
+  const int wr = tid / kChunksRow, wc = tid % kChunksRow;
+  const int8_t* wsrc = p.w + static_cast<int64_t>(j0 * kRows + wr) * p.n_pad + n0 + wc * 16;
+  const int64_t wstep = static_cast<int64_t>(kWStep) * p.n_pad;
+  const T* xsrc[2];
+  uint32_t xdst[2];
+  int xhalf[2], xk[2];
+  bool xlive[2];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int c = tid + q * kDecThreads;
+    const int h = c / (kRowsT * kXCh), tok = (c / kXCh) % kRowsT, ch = c % kXCh;
+    xlive[q] = c < kXChunks && t0 + tok < p.t;
+    xsrc[q] = x + static_cast<int64_t>(t0 + tok) * p.x_st + ch * 8;
+    xdst[q] = kStageW + h * kXHalf + tok * S::kXRow + ch * 16;
+    xhalf[q] = h;
+    xk[q] = ch * 8;
+  }
+
+  // Stage i (tiles j0 + i kTiles ..) into ring slot `slot`. Rows of x past
+  // T are left as they are (their outputs are never stored); K columns past
+  // the logical K are written as zeros (the weight's rows there are zero,
+  // and x must not be read there).
+  auto issue = [&](int i, int slot) {
+    const int j = j0 + i * S::kTiles;
+    const uint32_t dst = sbase + slot * kStage;
+    const int8_t* src = wsrc + static_cast<int64_t>(i) * S::kRowsS * p.n_pad;
+#pragma unroll
+    for (int q = 0; q < kStageW / 16 / kDecThreads; ++q)
+      cp_async16(dst + decode_chunk(wr + q * kWStep, wc, S::kCols), src + q * wstep);
+    int klo, khi;
+    tile_rows<kInt4>(j, p.k_pad, klo, khi);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      if (!xlive[q]) continue;
+      const int k0 = xhalf[q] ? khi : klo, k = k0 + xk[q];
+      const T* xs = xsrc[q] + k0;
+      if (p.x_vec && k + 8 <= p.k) {
+        cp_async16(dst + xdst[q], xs);
+      } else {
+        float e[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) e[i] = k + i < p.k ? Elem<T>::to_float(xs[i]) : 0.f;
+        sts128(dst + xdst[q], make_uint4(Elem<T>::pack(e[0], e[1]), Elem<T>::pack(e[2], e[3]),
+                                         Elem<T>::pack(e[4], e[5]), Elem<T>::pack(e[6], e[7])));
+      }
+    }
     if constexpr (kInt4) {
-      const int pr = j * kQmmHalf, blk = pr / (bk / 2);
-      klo = blk * bk + pr % (bk / 2);
-      khi = klo + bk / 2;
-    } else {
-      klo = j * kQmmBK;
-      khi = klo + kQmmHalf;
-    }
-  };
-  uint4 wreg[kWLoads];
-  auto load_w = [&](int j) {
-#pragma unroll
-    for (int i = 0; i < kWLoads; ++i) {
-      const int c = tid + i * kQmmThreads;
-      const int r = c / kChunksPerRow, col = (c % kChunksPerRow) * 16;
-      const int64_t row = static_cast<int64_t>(j) * kWRows + r;
-      wreg[i] = *reinterpret_cast<const uint4*>(p.w + row * p.n_pad + n0 + col);
+      if (tid < 2 * kChunksRow * 4) {  // the scale rows of the low and the high nibbles' groups
+        const int h = tid / (kChunksRow * 4), ch = tid % (kChunksRow * 4);
+        const float* sr = p.s + static_cast<int64_t>((h ? khi : klo) >> 7) * p.n_pad + n0;
+        cp_async16(dst + kScales + h * S::kCols * 4 + ch * 16, sr + ch * 4);
+      }
     }
   };
 
-  float acc[kMT][kNT][4];
+  // x^T fragments (B operand) for the lane's K rows kr .. kr + 3 of x rows
+  // 8 nt + g, from a stage's x rows at `xrows`.
+  auto x_frag = [&](uint32_t xrows, int kr, uint32_t (&b)[kNT8][2]) {
 #pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
+    for (int nt = 0; nt < kNT8; ++nt) {
+      const uint2 v = lds64(xrows + (nt * 8 + g) * S::kXRow + kr * 2);
+      b[nt][0] = v.x;
+      b[nt][1] = v.y;
+    }
+  };
+
+  float acc[8][kNT8][4];
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
+  for (int mt = 0; mt < 8; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT8; ++nt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
 
-  if (n_tiles > 0) load_w(0);
-  for (int j = 0; j < n_tiles; ++j) {
-    int klo, khi;
-    half_rows(j, klo, khi);
-    __syncthreads();  // every warp is done with the previous tile
-    for (int c = tid; c < BM * (kQmmBK / 8); c += kQmmThreads) {
-      const int r = c / (kQmmBK / 8), col = (c % (kQmmBK / 8)) * 8;
-      const int kx = col < kQmmHalf ? klo + col : khi + col - kQmmHalf;
-      const int row = m0 + r;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (row < p.t && kx < p.k) {
-        const T* src = x + row * p.x_st + kx;
-        if (p.x_vec && kx + 8 <= p.k) {
-          val = *reinterpret_cast<const uint4*>(src);
-        } else {
-          T* e = reinterpret_cast<T*>(&val);
+  const int nst = nj / S::kTiles;  // stages: the split holds whole pairs of tiles
 #pragma unroll
-          for (int i = 0; i < 8; ++i) e[i] = kx + i < p.k ? src[i] : Elem<T>::from_float(0.f);
-        }
-      }
-      *reinterpret_cast<uint4*>(sX + r * Tile::kXRow + col) = val;
-    }
-#pragma unroll
-    for (int i = 0; i < kWLoads; ++i) {
-      const int c = tid + i * kQmmThreads;
-      const int r = c / kChunksPerRow, col = (c % kChunksPerRow) * 16;
-      const int8_t* b = reinterpret_cast<const int8_t*>(&wreg[i]);
-      float lo[16];
-      if constexpr (kInt4) {
-        float hi[16];
-#pragma unroll
-        for (int e = 0; e < 16; ++e) {
-          const int u = static_cast<uint8_t>(b[e]);
-          lo[e] = static_cast<float>((u & 0xF) - 8);
-          hi[e] = static_cast<float>((u >> 4) - 8);
-        }
-        store16<T>(sW + (kQmmHalf + r) * Tile::kWRow + col, hi);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 16; ++e) lo[e] = static_cast<float>(b[e]);
-      }
-      store16<T>(sW + r * Tile::kWRow + col, lo);
-    }
-    __syncthreads();
-    if (j + 1 < n_tiles) load_w(j + 1);  // in flight during this tile's products
+  for (int s = 0; s < kStagesA - 1; ++s) {
+    if (s < nst) issue(s, s);
+    cp_async_commit();
+  }
+  const int kr = (warp % S::kKWarps) * 16 + 4 * t4;  // the lane's first stored row in a stage
+  const int wchunk = 8 * half + g;                   // the lane's 16 columns
+  for (int i = 0; i < nst; ++i) {
+    cp_async_wait<kStagesA - 2>();
+    __syncthreads();  // stage i landed for all; every warp is done with stage i - 1
+    if (i + kStagesA - 1 < nst) issue(i + kStagesA - 1, (i + kStagesA - 1) % kStagesA);
+    cp_async_commit();
 
+    const uint32_t st = sbase + (i % kStagesA) * kStage;
+    uint32_t xlo[kNT8][2], xhi[kNT8][2];
+    x_frag(st + kStageW, kr, xlo);
+    if constexpr (kInt4) x_frag(st + kStageW + kXHalf, kr, xhi);
+    uint32_t w[4][4];  // rows kr .. kr + 3, the lane's 16 columns
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const uint4 v = lds128(st + decode_chunk(kr + r, wchunk, S::kCols));
+      w[r][0] = v.x, w[r][1] = v.y, w[r][2] = v.z, w[r][3] = v.w;
+    }
     if constexpr (kInt4) {
+      float slo[16], shi[16];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float part[kMT][kNT][4];
+      for (int q = 0; q < 4; ++q) {
+        const uint32_t sc = st + kScales + (16 * wchunk + 4 * q) * 4;
+        const uint4 a = lds128(sc), b = lds128(sc + S::kCols * 4);
+        slo[4 * q] = __uint_as_float(a.x), slo[4 * q + 1] = __uint_as_float(a.y);
+        slo[4 * q + 2] = __uint_as_float(a.z), slo[4 * q + 3] = __uint_as_float(a.w);
+        shi[4 * q] = __uint_as_float(b.x), shi[4 * q + 1] = __uint_as_float(b.y);
+        shi[4 * q + 2] = __uint_as_float(b.z), shi[4 * q + 3] = __uint_as_float(b.w);
+      }
 #pragma unroll
-        for (int mt = 0; mt < kMT; ++mt)
+      for (int mt = 0; mt < 8; ++mt) {
+        // Columns 2 mt and 2 mt + 1 of the lane's 16: bytes pos, pos + 1 of word q.
+        const int q = mt >> 1, pos = 2 * (mt & 1);
+        const uint32_t sel = pos | (pos + 1) << 4 | (pos + 4) << 8 | (pos + 5) << 12;
+        const uint32_t t01 = __byte_perm(w[0][q], w[1][q], sel);  // rows kr, kr + 1
+        const uint32_t t23 = __byte_perm(w[2][q], w[3][q], sel);  // rows kr + 2, kr + 3
+        const uint32_t alo[4] = {nibbles<T>(t01), nibbles<T>(t01 >> 8), nibbles<T>(t23),
+                                 nibbles<T>(t23 >> 8)};
+        const uint32_t ahi[4] = {nibbles<T>(t01 >> 4), nibbles<T>(t01 >> 12),
+                                 nibbles<T>(t23 >> 4), nibbles<T>(t23 >> 12)};
 #pragma unroll
-          for (int nt = 0; nt < kNT; ++nt)
+        for (int nt = 0; nt < kNT8; ++nt) {
+          float plo[4] = {0.f, 0.f, 0.f, 0.f}, phi[4] = {0.f, 0.f, 0.f, 0.f};
+          Elem<T>::mma(plo, alo, xlo[nt][0], xlo[nt][1]);
+          Elem<T>::mma(phi, ahi, xhi[nt][0], xhi[nt][1]);
 #pragma unroll
-            for (int i = 0; i < 4; ++i) part[mt][nt][i] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < kQmmHalf / 16; ++kk)
-          mma_k16<T, Tile>(part, sX, sW, h * (kQmmHalf / 16) + kk, wm, wn, lane);
-        const float* srow = p.s + static_cast<int64_t>((h ? khi : klo) / kGroup4) * p.n_pad + n0 + wn;
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) {
-          const float2 sc = *reinterpret_cast<const float2*>(srow + nt * 8 + 2 * (lane & 3));
-#pragma unroll
-          for (int mt = 0; mt < kMT; ++mt) {
-            acc[mt][nt][0] += part[mt][nt][0] * sc.x;
-            acc[mt][nt][1] += part[mt][nt][1] * sc.y;
-            acc[mt][nt][2] += part[mt][nt][2] * sc.x;
-            acc[mt][nt][3] += part[mt][nt][3] * sc.y;
+          for (int e = 0; e < 4; ++e) {
+            const int c = 2 * mt + (e >> 1);
+            acc[mt][nt][e] = fmaf(plo[e], slo[c], acc[mt][nt][e]);
+            acc[mt][nt][e] = fmaf(phi[e], shi[c], acc[mt][nt][e]);
           }
         }
       }
     } else {
 #pragma unroll
-      for (int kk = 0; kk < kQmmBK / 16; ++kk) mma_k16<T, Tile>(acc, sX, sW, kk, wm, wn, lane);
+      for (int mt = 0; mt < 8; ++mt) {
+        // t: bytes pos, pos + 1 (columns 2 mt, 2 mt + 1) of two rows, at
+        // bytes 0, 1 and 2, 3; int8_pair takes bytes 0 and 2.
+        const int q = mt >> 1, pos = 2 * (mt & 1);
+        const uint32_t sel = pos | (pos + 1) << 4 | (pos + 4) << 8 | (pos + 5) << 12;
+        const uint32_t t01 = __byte_perm(w[0][q], w[1][q], sel);
+        const uint32_t t23 = __byte_perm(w[2][q], w[3][q], sel);
+        const uint32_t a[4] = {int8_pair<T>(t01), int8_pair<T>(t01 >> 8), int8_pair<T>(t23),
+                               int8_pair<T>(t23 >> 8)};
+#pragma unroll
+        for (int nt = 0; nt < kNT8; ++nt) Elem<T>::mma(acc[mt][nt], a, xlo[nt][0], xlo[nt][1]);
+      }
     }
   }
 
-  T* y = static_cast<T*>(p.y);
-  const int g = lane >> 2, t4 = lane & 3;
+  // The warps' sums, added in warp order.
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem);  // [kDecWarps][kRowsT][kBN]
 #pragma unroll
-  for (int mt = 0; mt < kMT; ++mt) {
+  for (int mt = 0; mt < 8; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      const int col = n0 + wn + nt * 8 + 2 * t4;
+    for (int nt = 0; nt < kNT8; ++nt)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = m0 + wm + mt * 16 + g + (i < 2 ? 0 : 8);
-        const int c = col + (i & 1);
-        if (row < p.t && c < p.n) {
-          float v = acc[mt][nt][i];
-          if constexpr (!kInt4) v *= p.s[c];
-          y[static_cast<int64_t>(row) * p.n + c] = Elem<T>::from_float(v);
+      for (int e = 0; e < 4; ++e)
+        red[(warp * kRowsT + nt * 8 + 2 * t4 + (e & 1)) * kBN + 16 * g + 2 * mt + (e >> 1)] =
+            acc[mt][nt][e];
+  __syncthreads();
+  for (int o = tid; o < kRowsT * S::kCols; o += kDecThreads) {
+    const int tok = o / S::kCols, c = o % S::kCols, row = t0 + tok, col = n0 + c;
+    if (row >= p.t || col >= p.n) continue;
+    // The sums of the warps of column half c / 128, in warp order.
+    const float* r0 = red + ((c / kBN) * S::kKWarps * kRowsT + tok) * kBN + c % kBN;
+    float v = r0[0];
+#pragma unroll
+    for (int wi = 1; wi < S::kKWarps; ++wi) v += r0[wi * kRowsT * kBN];
+    const int64_t at = static_cast<int64_t>(row) * p.n + col;
+    if (p.splits > 1) {
+      p.ws[static_cast<int64_t>(split) * p.t * p.n + at] = v;
+    } else {
+      if constexpr (!kInt4) v *= p.s[col];
+      static_cast<T*>(p.y)[at] = Elem<T>::from_float(v);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Design B: prefill (wgmma, TMA rings, a producer warpgroup).
+
+constexpr int kPreThreads = 384;
+constexpr int kPreBM = 128;               // rows of x per block
+constexpr int kXS = 6, kWS = 6;           // x and raw weight ring stages
+constexpr int kXBytes = kPreBM * 64 * 2;  // 64 K columns of 128 rows
+constexpr int kPreSmem = 1024 + kXS * kXBytes + kWS * kTileBytes + (2 * kXS + 2 * kWS) * 8;
+
+// Step i of a block: its local weight tile and which nibbles (int4). int4
+// walks pairs of tiles 2p, 2p + 1: their low nibbles (one group, 128 K rows)
+// in steps 4p, 4p + 1, then their high nibbles (another group) in 4p + 2,
+// 4p + 3. int8: step i is tile i.
+template <bool kInt4>
+__device__ __forceinline__ void step_tile(int i, int& lt, int& half) {
+  if constexpr (kInt4) {
+    lt = 2 * (i >> 2) + (i & 1);
+    half = (i >> 1) & 1;
+  } else {
+    lt = i;
+    half = 0;
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// One register of ldmatrix.trans over raw weight bytes holds, for the lane
+// (g, t4), columns 2g, 2g + 1 (bytes 0, 1) of K row 2 t4 and the same
+// columns (bytes 2, 3) of K row 2 t4 + 1: the A fragment pair of column 2g
+// is bytes 0 and 2, that of column 2g + 1 bytes 1 and 3. int4 takes the
+// low or the high nibbles (`half`).
+template <typename T, bool kInt4>
+__device__ __forceinline__ void widen_a(uint32_t r, int half, uint32_t& even, uint32_t& odd) {
+  if constexpr (kInt4) {
+    const uint32_t v = r >> (4 * half);
+    even = nibbles<T>(v);
+    odd = nibbles<T>(v >> 8);
+  } else {
+    even = int8_pair<T>(r);
+    odd = int8_pair<T>(r >> 8);
+  }
+}
+
+__device__ __forceinline__ void fence_a(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+#define QMM_D8(i)                                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define QMM_WGMMA_RS_128(TYPE)                                                                   \
+  asm volatile(                                                                                  \
+      "{\n .reg .pred p;\n setp.ne.b32 p, %68, 0;\n"                                             \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TYPE "." TYPE                               \
+      " {%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23," \
+      "%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45," \
+      "%46,%47,%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63},"                \
+      " {%64,%65,%66,%67}, %69, p, 1, 1, 0;\n}\n"                                                \
+      : QMM_D8(0), QMM_D8(8), QMM_D8(16), QMM_D8(24), QMM_D8(32), QMM_D8(40), QMM_D8(48),        \
+        QMM_D8(56)                                                                               \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d), "l"(db))
+
+// d (+)= A[64 x 16] (registers) @ B[16 x 128] (shared memory, K-major).
+template <typename T>
+__device__ __forceinline__ void wgmma_rs_128(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                             int scale_d) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    QMM_WGMMA_RS_128("bf16");
+  } else {
+    QMM_WGMMA_RS_128("f16");
+  }
+}
+
+// y^T = W^T x^T per block: the weight is wgmma's A operand, widened into
+// registers (M = 128 weight columns, 64 per consumer warpgroup); x is the B
+// operand read from its TMA stage (N = 128 rows of x, K-major).
+template <typename T, bool kInt4>
+__global__ void __launch_bounds__(kPreThreads, 1)
+    qmm_prefill_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap wmap, const QmmArgs p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t sx = (smem_u32(smem) + 1023) & ~1023u;  // the 128-byte swizzle needs 1 KB
+  const uint32_t sw = sx + kXS * kXBytes, bars = sw + kWS * kTileBytes;
+  auto full_x = [&](int s) { return bars + 8 * s; };
+  auto empty_x = [&](int s) { return bars + 8 * (kXS + s); };
+  auto full_w = [&](int s) { return bars + 8 * (2 * kXS + s); };
+  auto empty_w = [&](int s) { return bars + 8 * (2 * kXS + kWS + s); };
+
+  const int m0 = blockIdx.x * kPreBM, n0 = blockIdx.y * kBN;
+  int j0, nj;
+  split_range(p, blockIdx.z, j0, nj);
+  const int nsteps = kInt4 ? 2 * nj : nj;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kXS; ++s) mbar_init(full_x(s), 1), mbar_init(empty_x(s), 8);
+    for (int s = 0; s < kWS; ++s) mbar_init(full_w(s), 1), mbar_init(empty_w(s), 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // Producer warpgroup: one thread keeps the rings full.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < nsteps; ++i) {
+        int lt, half, klo, khi;
+        step_tile<kInt4>(i, lt, half);
+        tile_rows<kInt4>(j0 + lt, p.k_pad, klo, khi);
+        const int xs = i % kXS;
+        mbar_wait(empty_x(xs), ((i / kXS) & 1) ^ 1);
+        mbar_expect_tx(full_x(xs), kXBytes);
+        tma_load_2d(sx + xs * kXBytes, &xmap, half ? khi : klo, m0, full_x(xs));
+        if (half == 0) {  // the tile's first use
+          const int ws = lt % kWS;
+          mbar_wait(empty_w(ws), ((lt / kWS) & 1) ^ 1);
+          mbar_expect_tx(full_w(ws), kTileBytes);
+          tma_load_2d(sw + ws * kTileBytes, &wmap, n0, (j0 + lt) * kRows, full_w(ws));
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int ct = threadIdx.x - 128, cwg = ct >> 7, lane = ct & 31, g = lane >> 2;
+    // The warp's 16 weight columns: 16-byte chunk 4 cwg + (warp in the
+    // warpgroup) of the tile's 128-byte rows. ldmatrix lane addresses: lanes
+    // 8q .. 8q + 7 give the 8 rows of matrix q (K rows 8q .. 8q + 7 of two
+    // k16 steps).
+    const int chunk = 4 * cwg + ((ct >> 5) & 3);
+    const int lrow = 8 * (lane >> 3) + (lane & 7);
+
+    // Step i's A fragments (4 k16 steps) from its raw tile.
+    auto load_a = [&](int i, uint32_t (&a)[4][4]) {
+      int lt, half;
+      step_tile<kInt4>(i, lt, half);
+      const int slot = lt % kWS;
+      mbar_wait(full_w(slot), (lt / kWS) & 1);
+      const uint32_t tile = sw + slot * kTileBytes;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int kr = 32 * h + lrow;
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, tile + kr * 128 + ((chunk ^ (kr & 7)) << 4));
+#pragma unroll
+        for (int s2 = 0; s2 < 2; ++s2) {
+          widen_a<T, kInt4>(r[2 * s2], half, a[2 * h + s2][0], a[2 * h + s2][1]);
+          widen_a<T, kInt4>(r[2 * s2 + 1], half, a[2 * h + s2][2], a[2 * h + s2][3]);
+        }
+      }
+      if (!kInt4 || half == 1) {  // the tile's last use
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty_w(slot));
+      }
+    };
+
+    float acc[64], part[64];
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[e] = 0.f, part[e] = 0.f;
+    const int col = n0 + 16 * chunk + 2 * g;  // the lane's two weight columns
+
+    // One step: its products from `cur`, then step i + 1's fragments into
+    // `nxt` once the products that read `nxt` last (step i - 1) are done.
+    float2 sc = make_float2(0.f, 0.f);  // int4: the current group's scales of the two columns
+    auto step = [&](int i, uint32_t (&cur)[4][4], uint32_t (&nxt)[4][4]) {
+      const int xs = i % kXS;
+      if constexpr (kInt4) {
+        if (!(i & 1)) {  // a group's first step: its scales, in flight until its last
+          int lt, half, klo, khi;
+          step_tile<true>(i, lt, half);
+          tile_rows<true>(j0 + lt, p.k_pad, klo, khi);
+          sc = *reinterpret_cast<const float2*>(
+              p.s + static_cast<int64_t>((half ? khi : klo) / kGroup4) * p.n_pad + col);
+        }
+      }
+      mbar_wait(full_x(xs), (i / kXS) & 1);
+      const uint64_t db = wgmma_desc(sx + xs * kXBytes, 16, 1024);
+      float(&d)[64] = *(kInt4 ? &part : &acc);
+      fence_regs(d);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_128<T>(d, cur[kk], db + 2 * kk, (kInt4 && !(i & 1) && kk == 0) ? 0 : 1);
+      wgmma_commit();
+      fence_regs(d);
+      wgmma_wait<1>();  // step i - 1's products are done
+      fence_regs(d);
+      fence_a(nxt);
+      if (!kInt4 && i > 0 && lane == 0) mbar_arrive(empty_x((i - 1) % kXS));
+      if (i + 1 < nsteps) load_a(i + 1, nxt);
+      if constexpr (kInt4) {
+        if (i & 1) {  // the group is complete: acc += part * s
+          wgmma_wait<0>();
+          fence_regs(part);
+          fence_a(cur);
+#pragma unroll
+          for (int e = 0; e < 64; ++e) acc[e] = fmaf(part[e], (e & 2) ? sc.y : sc.x, acc[e]);
+          if (lane == 0) {
+            mbar_arrive(empty_x((i - 1) % kXS));
+            mbar_arrive(empty_x(xs));
+          }
+        }
+      }
+    };
+
+    uint32_t a0[4][4], a1[4][4];
+    if (nsteps > 0) load_a(0, a0);
+    for (int i = 0; i < nsteps; i += 2) {
+      step(i, a0, a1);
+      if (i + 1 < nsteps) step(i + 1, a1, a0);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_a(a0);
+    fence_a(a1);
+
+    // acc[4 jb + e]: weight column col + (e >> 1), x row 8 jb + 2 t4 + (e & 1).
+    float s0 = 1.f, s1 = 1.f;
+    if constexpr (!kInt4) {
+      if (col < p.n) s0 = p.s[col];
+      if (col + 1 < p.n) s1 = p.s[col + 1];
+    }
+    const int rbase = m0 + 2 * (lane & 3);
+#pragma unroll
+    for (int jb = 0; jb < 16; ++jb) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = rbase + 8 * jb + h;
+        if (row >= p.t) continue;
+        const float v0 = acc[4 * jb + h], v1 = acc[4 * jb + 2 + h];
+        const int64_t at = static_cast<int64_t>(row) * p.n + col;
+        if (p.splits > 1) {
+          float* dst = p.ws + static_cast<int64_t>(blockIdx.z) * p.t * p.n + at;
+          if (col < p.n) dst[0] = v0;
+          if (col + 1 < p.n) dst[1] = v1;
+        } else {
+          T* y = static_cast<T*>(p.y) + at;
+          if (col + 1 < p.n && !(p.n & 1)) {
+            *reinterpret_cast<uint32_t*>(y) = Elem<T>::pack(v0 * s0, v1 * s1);
+          } else {
+            if (col < p.n) y[0] = Elem<T>::from_float(v0 * s0);
+            if (col + 1 < p.n) y[1] = Elem<T>::from_float(v1 * s1);
+          }
         }
       }
     }
   }
 }
 
-template <typename T, int BM, int BN, bool kInt4>
-int launch_qmm(const QmmParams& p, cudaStream_t stream) {
-  constexpr int kSmem = QmmTile<BM, BN>::template smem_bytes<T>();
-  static bool configured = false;  // above 48 KB needs an explicit opt-in
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(qmm_kernel<T, BM, BN, kInt4>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (err != cudaSuccess) return err;
-    configured = true;
+// ---------------------------------------------------------------------------
+// The split-K combine: y = round(sum of the partials in split order [* s]).
+
+template <typename T, bool kScale>
+__global__ void __launch_bounds__(256) qmm_combine_kernel(const QmmArgs p) {
+  const int64_t total = static_cast<int64_t>(p.t) * p.n;
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
+  if (idx >= total) return;
+  float v = p.ws[idx];
+  for (int s = 1; s < p.splits; ++s) v += p.ws[s * total + idx];
+  if constexpr (kScale) v *= p.s[idx % p.n];
+  static_cast<T*>(p.y)[idx] = Elem<T>::from_float(v);
+}
+
+// ---------------------------------------------------------------------------
+// Host side.
+
+// libcuda's cuTensorMapEncodeTiled, fetched through the runtime, so that no
+// -lcuda is needed.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
   }
-  const dim3 grid((p.n + BN - 1) / BN, (p.t + BM - 1) / BM);
-  qmm_kernel<T, BM, BN, kInt4><<<grid, kQmmThreads, kSmem, stream>>>(p);
+  return fn;
+}
+
+// A 2-D map of a row-major [rows, cols] array, boxes of box_cols x box_rows
+// with the 128-byte swizzle; out-of-bounds elements read as zero.
+static bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, uint64_t cols,
+                     uint64_t rows, uint64_t row_bytes, uint32_t box_cols, uint32_t box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename Kernel>
+static int allow_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <typename T, bool kInt4, int kNT8, int kHalves>
+static int launch_decode(const QmmArgs& p, cudaStream_t stream) {
+  constexpr int kSmem = decode_smem<kInt4, kNT8, kHalves>();
+  constexpr int kCols = DecodeStage<kHalves>::kCols;
+  static const int configured = allow_smem(qmm_decode_kernel<T, kInt4, kNT8, kHalves>, kSmem);
+  if (configured != cudaSuccess) return configured;
+  const dim3 grid((p.n + kCols - 1) / kCols, p.splits, (p.t + 8 * kNT8 - 1) / (8 * kNT8));
+  qmm_decode_kernel<T, kInt4, kNT8, kHalves><<<grid, kDecThreads, kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
+template <typename T, bool kInt4, int kHalves>
+static int launch_decode_rows(const QmmArgs& p, cudaStream_t stream) {
+  return p.t <= 8 ? launch_decode<T, kInt4, 1, kHalves>(p, stream)
+                  : launch_decode<T, kInt4, 2, kHalves>(p, stream);
+}
+
 template <typename T, bool kInt4>
-int dispatch_qmm_rows(const QmmParams& p, cudaStream_t stream) {
-  if (p.t <= 16) return launch_qmm<T, 16, 64, kInt4>(p, stream);
-  return launch_qmm<T, 64, 128, kInt4>(p, stream);
+static int launch_prefill(const QmmArgs& p, int dtype, cudaStream_t stream) {
+  static const int configured = allow_smem(qmm_prefill_kernel<T, kInt4>, kPreSmem);
+  if (configured != cudaSuccess) return configured;
+  CUtensorMap xmap, wmap;
+  const CUtensorMapDataType xt =
+      dtype == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  const int w_rows = kInt4 ? p.k_pad / 2 : p.k_pad;
+  if (!make_map(&xmap, xt, p.x, p.k, p.t, p.x_st * 2, 64, kPreBM) ||
+      !make_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, p.w, p.n_pad, w_rows, p.n_pad, kBN, kRows))
+    return cudaErrorInvalidValue;
+  const dim3 grid((p.t + kPreBM - 1) / kPreBM, (p.n + kBN - 1) / kBN, p.splits);
+  qmm_prefill_kernel<T, kInt4><<<grid, kPreThreads, kPreSmem, stream>>>(xmap, wmap, p);
+  return cudaGetLastError();
+}
+
+enum Route : int { kDecode = 0, kPrefill = 1 };
+
+template <typename T, bool kInt4>
+static int run_qmm(const QmmArgs& p, int route, int tile_n, int dtype, cudaStream_t stream) {
+  int err;
+  if (route == kPrefill) {
+    err = launch_prefill<T, kInt4>(p, dtype, stream);
+  } else if (tile_n == kBN) {
+    err = launch_decode_rows<T, kInt4, 1>(p, stream);
+  } else {
+    err = launch_decode_rows<T, kInt4, 2>(p, stream);
+  }
+  if (err != cudaSuccess || p.splits == 1) return err;
+  const int64_t total = static_cast<int64_t>(p.t) * p.n;
+  qmm_combine_kernel<T, !kInt4><<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(p);
+  return cudaGetLastError();
 }
 
 template <bool kInt4>
-int dispatch_qmm(const void* x, const void* w, const void* s, void* y, int t, int k, int n,
-                 int k_pad, int n_pad, long long x_st, int x_vec, int dtype, void* stream) {
-  QmmParams p{};
+static int dispatch_qmm(const void* x, const void* w, const void* s, void* y, void* ws, int t,
+                        int k, int n, int k_pad, int n_pad, long long x_st, int x_vec, int route,
+                        int splits, int tile_n, int dtype, void* stream) {
+  QmmArgs p{};
   p.x = x;
   p.w = static_cast<const int8_t*>(w);
   p.s = static_cast<const float*>(s);
   p.y = y;
+  p.ws = static_cast<float*>(ws);
   p.t = t, p.k = k, p.n = n, p.k_pad = k_pad, p.n_pad = n_pad;
   p.x_st = x_st;
   p.x_vec = x_vec;
+  p.splits = splits;
+  // int8 prefill walks the 64-row tiles up to K; the decode design walks
+  // pairs of tiles (its stages); int4 every packed row, in pairs.
+  p.tiles = kInt4 ? k_pad / 2 / kRows
+                  : (route == kPrefill ? (k + kRows - 1) / kRows : 2 * ((k + 2 * kRows - 1) / (2 * kRows)));
+  p.unit = kInt4 || route != kPrefill ? 2 : 1;
+  if (splits < 1 || splits > p.tiles / p.unit || (splits > 1 && ws == nullptr) ||
+      (route == kPrefill && (!x_vec || tile_n != kBN)) || (route != kPrefill && route != kDecode) ||
+      (tile_n != kBN && tile_n != 2 * kBN))
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16) return dispatch_qmm_rows<__nv_bfloat16, kInt4>(p, st);
-  if (dtype == kF16) return dispatch_qmm_rows<__half, kInt4>(p, st);
+  if (dtype == kBF16) return run_qmm<__nv_bfloat16, kInt4>(p, route, tile_n, dtype, st);
+  if (dtype == kF16) return run_qmm<__half, kInt4>(p, route, tile_n, dtype, st);
   return cudaErrorInvalidValue;
+}
+
+// One line per kernel instantiation: registers, local (spill) bytes and the
+// dynamic shared memory it is launched with.
+template <typename Kernel>
+static void report_one(char* out, int cap, int& used, const char* name, Kernel kernel, int smem) {
+  cudaFuncAttributes a{};
+  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (used >= cap) return;
+  const int n = err == cudaSuccess
+                    ? snprintf(out + used, cap - used,
+                               "%s: %d registers, %zu bytes local (spill), %d bytes shared memory\n",
+                               name, a.numRegs, a.localSizeBytes, smem + static_cast<int>(a.sharedSizeBytes))
+                    : snprintf(out + used, cap - used, "%s: %s\n", name, cudaGetErrorString(err));
+  used += n > 0 ? n : 0;
+}
+
+template <typename T>
+static void report_type(char* out, int cap, int& used, const char* t) {
+  char name[96];
+#define QMM_REPORT(label, kernel, smem)                 \
+  snprintf(name, sizeof(name), "%s %s", label, t);     \
+  report_one(out, cap, used, name, kernel, smem)
+  QMM_REPORT("B10 decode x rows <= 8", (qmm_decode_kernel<T, false, 1, 1>),
+             (decode_smem<false, 1, 1>()));
+  QMM_REPORT("B10 decode x rows <= 16", (qmm_decode_kernel<T, false, 2, 1>),
+             (decode_smem<false, 2, 1>()));
+  QMM_REPORT("B10 decode 256 columns, x rows <= 8", (qmm_decode_kernel<T, false, 1, 2>),
+             (decode_smem<false, 1, 2>()));
+  QMM_REPORT("B10 decode 256 columns, x rows <= 16", (qmm_decode_kernel<T, false, 2, 2>),
+             (decode_smem<false, 2, 2>()));
+  QMM_REPORT("B10 prefill", (qmm_prefill_kernel<T, false>), kPreSmem);
+  QMM_REPORT("B10 combine", (qmm_combine_kernel<T, true>), 0);
+  QMM_REPORT("B11 decode x rows <= 8", (qmm_decode_kernel<T, true, 1, 1>),
+             (decode_smem<true, 1, 1>()));
+  QMM_REPORT("B11 decode x rows <= 16", (qmm_decode_kernel<T, true, 2, 1>),
+             (decode_smem<true, 2, 1>()));
+  QMM_REPORT("B11 decode 256 columns, x rows <= 8", (qmm_decode_kernel<T, true, 1, 2>),
+             (decode_smem<true, 1, 2>()));
+  QMM_REPORT("B11 decode 256 columns, x rows <= 16", (qmm_decode_kernel<T, true, 2, 2>),
+             (decode_smem<true, 2, 2>()));
+  QMM_REPORT("B11 prefill", (qmm_prefill_kernel<T, true>), kPreSmem);
+  QMM_REPORT("B11 combine", (qmm_combine_kernel<T, false>), 0);
+#undef QMM_REPORT
 }
 
 }  // namespace fact
 
-// Each returns a cudaError_t code (0 on success). Shapes, dtypes and
-// contiguity are checked by the Python wrapper (ops/quantized_matmul.py):
-// K_pad a multiple of 128 (int8) or 256 (int4), N_pad of 128, k <= K_pad.
-// `dtype` is x's (and y's) code (common.cuh).
-extern "C" int fact_qmm_int8(const void* x, const void* w, const void* s, void* y, int t, int k,
-                             int n, int k_pad, int n_pad, long long x_st, int x_vec, int dtype,
-                             void* stream) {
-  return fact::dispatch_qmm<false>(x, w, s, y, t, k, n, k_pad, n_pad, x_st, x_vec, dtype, stream);
+// Writes the report of every B10 / B11 instantiation into `out` (at most
+// `cap` bytes, NUL-terminated); returns 0.
+extern "C" int fact_qmm_report(char* out, int cap) {
+  int used = 0;
+  if (cap <= 0) return 0;
+  out[0] = 0;
+  fact::report_type<__nv_bfloat16>(out, cap, used, "bf16");
+  fact::report_type<__half>(out, cap, used, "f16");
+  out[cap - 1] = 0;
+  return 0;
 }
 
-extern "C" int fact_qmm_int4(const void* x, const void* w, const void* s, void* y, int t, int k,
-                             int n, int k_pad, int n_pad, long long x_st, int x_vec, int dtype,
-                             void* stream) {
-  return fact::dispatch_qmm<true>(x, w, s, y, t, k, n, k_pad, n_pad, x_st, x_vec, dtype, stream);
+// Each returns a cudaError_t code (0 on success). Shapes, dtypes and
+// contiguity are checked by the Python wrapper (ops/quantized_matmul.py),
+// which also plans `route` (0 decode, 1 prefill), `splits` and the decode
+// design's block width `tile_n` (128 or 256 columns; `qmm_plan`)
+// and allocates the fp32 workspace `ws` [splits, T, N] when splits > 1:
+// K_pad a multiple of 128 (int8) or 256 (int4), N_pad of 128, k <= K_pad.
+// `dtype` is x's (and y's) code (common.cuh).
+extern "C" int fact_qmm_int8(const void* x, const void* w, const void* s, void* y, void* ws,
+                             int t, int k, int n, int k_pad, int n_pad, long long x_st, int x_vec,
+                             int route, int splits, int tile_n, int dtype, void* stream) {
+  return fact::dispatch_qmm<false>(x, w, s, y, ws, t, k, n, k_pad, n_pad, x_st, x_vec, route,
+                                   splits, tile_n, dtype, stream);
+}
+
+extern "C" int fact_qmm_int4(const void* x, const void* w, const void* s, void* y, void* ws,
+                             int t, int k, int n, int k_pad, int n_pad, long long x_st, int x_vec,
+                             int route, int splits, int tile_n, int dtype, void* stream) {
+  return fact::dispatch_qmm<true>(x, w, s, y, ws, t, k, n, k_pad, n_pad, x_st, x_vec, route,
+                                  splits, tile_n, dtype, stream);
 }

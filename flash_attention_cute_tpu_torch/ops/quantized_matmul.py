@@ -27,7 +27,14 @@ slices it.
 
 `quantized_matmul(x, w)` routes on x's device only: a CPU tensor takes the
 plain version, a CUDA tensor kernel B10 or B11 (csrc/quantized_matmul.cu),
-and what they do not take raises (fp32 activations, stacked weights). The
+and what they do not take raises (fp32 activations, stacked weights). On
+the card `qmm_plan` picks one of the kernels' two designs and the number of
+K splits from the shapes alone: the decode design (mma.sync over a
+cp.async ring, K split to about one block per SM) for at most
+`DECODE_MAX_T` rows of x, or for x rows that TMA cannot take (a base or row
+stride not 16-byte aligned); the prefill design (wgmma fed by TMA) for the
+rest. The choice is a documented dispatch between two hand-written kernels,
+never a fallback. The
 `impl` field is carried so that trees cross between the packages unchanged;
 the port reads it nowhere (it selects a product form for a tensor-parallel
 mesh in the JAX package, and the port has no meshes yet).
@@ -43,6 +50,7 @@ multiplies by its reciprocal, which would move some values on the card.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
@@ -57,9 +65,91 @@ GROUP4 = 128     # K rows per int4 scale group
 ACT_DTYPES = tuple(_build.DTYPE_CODES)
 
 P, I, L = _build.P, _build.I, _build.L
-_ARGS = [P] * 4 + [I] * 5 + [L, I, I, P]
+_ARGS = [P] * 5 + [I] * 5 + [L] + [I] * 5 + [P]
 QMM8 = _build.Kernel("quantized_matmul", "quantized_matmul.cu", "fact_qmm_int8", _ARGS)
 QMM4 = _build.Kernel("quantized_matmul_int4", "quantized_matmul.cu", "fact_qmm_int4", _ARGS)
+
+# The kernels' tiling (csrc/quantized_matmul.cu): weight tiles of TILE_ROWS
+# stored rows (int8: K rows; int4: packed rows, two K rows a byte) by
+# TILE_N columns; the decode design takes up to 16 rows of x per block, the
+# prefill design 128.
+TILE_ROWS, TILE_N = 64, 128
+DECODE_ROWS, PREFILL_ROWS = 16, 128
+DECODE_MAX_T = 16  # x rows up to which the decode design runs (the measured crossover)
+SMS = 132          # streaming multiprocessors of an H100 SXM
+ROUTES = ("decode", "prefill")
+
+
+@dataclasses.dataclass(frozen=True)
+class QmmPlan:
+    """How B10 / B11 run one product: the design, and K cut into `splits`
+    ranges of whole units (`unit` tiles each: one for the int8 prefill; a
+    pair for int4, so that a group's two 64-row halves stay in one split,
+    and for the decode design, whose stages hold two tiles) over a grid of
+    `blocks` = column tiles (of `tile_n` columns) x row tiles x splits."""
+
+    route: str
+    splits: int
+    tiles: int
+    unit: int
+    col_tiles: int
+    row_tiles: int
+    tile_n: int = TILE_N
+
+    @property
+    def blocks(self) -> int:
+        return self.col_tiles * self.row_tiles * self.splits
+
+    def split_tiles(self, s: int) -> tuple[int, int]:
+        """Tiles [begin, end) of split s (the kernels' `split_range`)."""
+        units = self.tiles // self.unit
+        return (s * units // self.splits * self.unit, (s + 1) * units // self.splits * self.unit)
+
+
+def qmm_plan(t: int, k: int, n: int, k_pad: int, n_pad: int, int4: bool,
+             x_aligned: bool, route: str | None = None, splits: int | None = None) -> QmmPlan:
+    """The design and K splits of one product of x [t, k] and a weight of
+    padded shape k_pad x n_pad. `x_aligned`: x's base and row stride are
+    16-byte aligned, which TMA needs. `route` and `splits` force a design
+    and a split count (for comparing them); the prefill design still needs
+    aligned x, and splits stay within 1 .. the units of K.
+
+    int8 prefill walks ceil(k / 64) tiles (rows past K are zero and
+    skipped), int8 decode the pairs of tiles that cover K (its stages), int4
+    all k_pad / 128 tiles in pairs (the block-local packing interleaves
+    halves). Decode: K is split until the grid holds about one block per SM
+    (splits = SMS / tiles of y, rounded), never finer than one unit a
+    split. On the H100 that beat two waves at every Llama-3-8B decode shape:
+    a second resident block per SM adds no bandwidth there and costs its
+    share of the partials and a tail (PERF.md). Prefill: one block an SM; K
+    is split only when the tiles of y cover fewer than half the SMs (each
+    split adds an fp32 round trip of y through the workspace)."""
+    if route is None:
+        route = "prefill" if t > DECODE_MAX_T and x_aligned else "decode"
+    if route not in ROUTES or (route == "prefill" and not x_aligned):
+        raise ValueError(f"no {route!r} route for x rows aligned={x_aligned}")
+    if int4:
+        tiles, unit = k_pad // 2 // TILE_ROWS, 2
+    elif route == "decode":  # its stages are pairs of tiles
+        tiles, unit = 2 * -(-k // (2 * TILE_ROWS)), 2
+    else:
+        tiles, unit = -(-k // TILE_ROWS), 1
+    units = tiles // unit
+    # The decode design takes 256-column blocks (one tile a stage) where
+    # 128-column blocks would already put more than one block on an SM.
+    tile_n = 2 * TILE_N if route == "decode" and -(-n // TILE_N) > SMS else TILE_N
+    col_tiles = -(-n // tile_n)
+    row_tiles = -(-t // (DECODE_ROWS if route == "decode" else PREFILL_ROWS))
+    base = col_tiles * row_tiles
+    if splits is not None:
+        want = splits
+        if not 1 <= splits <= units:
+            raise ValueError(f"splits must be in 1 .. {units}, got {splits}")
+    elif route == "decode":
+        want = (SMS + base // 2) // base
+    else:
+        want = 1 if 2 * base >= SMS else -(-SMS // base)
+    return QmmPlan(route, max(1, min(units, want)), tiles, unit, col_tiles, row_tiles, tile_n)
 
 
 # fp32 reciprocals of the int8 and int4 maxima, as XLA folds them.
@@ -236,6 +326,18 @@ def dequantize_weight4(qw: QuantizedWeight4, dtype=torch.float32) -> torch.Tenso
     return _dequant4_padded(qw)[..., : qw.in_dim, : qw.out].to(dtype)
 
 
+def kernel_report() -> str:
+    """Registers, spill bytes and shared memory of every B10 / B11 kernel
+    instantiation, as the card's runtime reports them (builds the library
+    if needed; needs the card)."""
+    lib = _build.load(QMM8.source)
+    fn = lib.fact_qmm_report
+    fn.argtypes, fn.restype = [ctypes.c_char_p, ctypes.c_int], ctypes.c_int
+    buf = ctypes.create_string_buffer(4096)
+    fn(buf, len(buf))
+    return buf.value.decode()
+
+
 def quantized_matmul_plain(x: torch.Tensor, qw) -> torch.Tensor:
     """Plain version of B10 / B11 on any device: x [..., K] times the
     dequantized weight in fp32, rounded to x's dtype. For int8 the scale
@@ -249,12 +351,15 @@ def quantized_matmul_plain(x: torch.Tensor, qw) -> torch.Tensor:
     return y[..., : qw.out].to(x.dtype)
 
 
-def quantized_matmul(x: torch.Tensor, qw) -> torch.Tensor:
+def quantized_matmul(x: torch.Tensor, qw, *, route: str | None = None,
+                     splits: int | None = None) -> torch.Tensor:
     """x [..., K] @ qw -> [..., out] in x's dtype (fp32 accumulation).
 
     `qw` is one layer's `QuantizedWeight` (kernel B10 on CUDA) or
     `QuantizedWeight4` (kernel B11). x's K may be anything up to the
-    weight's K_pad: the rows past it are zero."""
+    weight's K_pad: the rows past it are zero. `route` and `splits` force
+    the kernels' design and K splits (`qmm_plan`); by default the plan picks
+    them from the shapes."""
     if x.device.type == "cpu":
         return quantized_matmul_plain(x, qw)
     int4 = isinstance(qw, QuantizedWeight4)
@@ -288,8 +393,13 @@ def quantized_matmul(x: torch.Tensor, qw) -> torch.Tensor:
     if t == 0:
         return y.view(*lead, qw.out)
     es = x2.element_size()
-    vec = int(x2.data_ptr() % 16 == 0 and (x2.stride(0) * es) % 16 == 0)
+    vec = x2.data_ptr() % 16 == 0 and (x2.stride(0) * es) % 16 == 0
+    plan = qmm_plan(t, k, qw.out, k_pad, n_pad, int4, vec, route, splits)
+    ws = (torch.empty((plan.splits, t, qw.out), dtype=torch.float32, device=x.device)
+          if plan.splits > 1 else None)
     (QMM4 if int4 else QMM8)(
         x2.data_ptr(), vals.data_ptr(), scales.data_ptr(), y.data_ptr(),
-        t, k, qw.out, k_pad, n_pad, x2.stride(0), vec, _build.DTYPE_CODES[x.dtype])
+        0 if ws is None else ws.data_ptr(), t, k, qw.out, k_pad, n_pad, x2.stride(0),
+        int(vec), ROUTES.index(plan.route), plan.splits, plan.tile_n,
+        _build.DTYPE_CODES[x.dtype])
     return y.view(*lead, qw.out)

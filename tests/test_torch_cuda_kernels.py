@@ -18,7 +18,9 @@ length; the quantize-and-append kernel QA must write exactly what the plain
 B10 (int8) and B11 (int4) take bf16 / f16 activations at unit scale and
 weights of std fan_in ** -0.5, and are held to their plain versions over
 the same inputs in fp32 at 3e-2 too, at Llama-3-8B projection shapes, a ragged K and the padded
-lm_head.
+lm_head; at every projection of the int8 and fused int4 Llama-3-8B trees at
+decode rows and at T 2048; either side of the decode / prefill crossover;
+with split K against one pass over K; and they repeat bit for bit.
 
 Training and varlen: the lse of P and B2 is held to the plain fp32 lse at
 1e-3 absolute on finite entries (log2 units; both sum the same fp32
@@ -443,6 +445,101 @@ def test_quantized_matmul_kernel_matches_plain(device, bits, case):
     ref = qmm.quantized_matmul_plain(x.float(), w)  # fp32: one rounding, the kernel's
     assert torch.isfinite(out).all()
     assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+
+
+# Every projection (K, N) of the Llama-3-8B trees that B10 / B11 serve: the
+# unfused int8 tree and the fused int4 tree, lm_head included; each at its
+# decode rows (the greedy batch 4, a serving round of 8) and at T 2048.
+PROJECTIONS = {
+    8: {"q_o": (4096, 4096), "k_v": (4096, 1024), "gate_up": (4096, 14336),
+        "down": (14336, 4096), "lm_head": (4096, 128256)},
+    4: {"qkv": (4096, 6144), "o": (4096, 4096), "gate_up": (4096, 28672),
+        "down": (14336, 4096), "lm_head": (4096, 128256)},
+}
+DECODE_T = {8: 4, 4: 8}
+PROJECTION_CASES = [(bits, name, t) for bits, shapes in PROJECTIONS.items() for name in shapes
+                    for t in (DECODE_T[bits], 2048)]
+
+
+def check_qmm(x, w, out, kern=None, before=None):
+    ref = qmm.quantized_matmul_plain(x.float(), w)  # fp32: one rounding, the kernel's
+    torch.cuda.synchronize()
+    if kern is not None:
+        assert kern.launches == before + 1
+    assert out.shape == ref.shape and out.dtype == x.dtype
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+
+
+@pytest.mark.parametrize("bits,name,t", PROJECTION_CASES,
+                         ids=[f"int{b}_{n}_t{t}" for b, n, t in PROJECTION_CASES])
+def test_quantized_matmul_every_llama_projection(device, bits, name, t):
+    k, n = PROJECTIONS[bits][name]
+    x, w = qmm_inputs(torch.Generator(device="cuda").manual_seed(16), t, k, n, bits)
+    kern = qmm.QMM8 if bits == 8 else qmm.QMM4
+    before = kern.launches
+    check_qmm(x, w, qmm.quantized_matmul(x, w), kern, before)
+
+
+@pytest.mark.parametrize("t", [16, 17, 20, 63, 64, 256])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_matmul_either_side_of_the_crossover(device, bits, t):
+    """Rows either side of DECODE_MAX_T (16 / 17), a speculative verify
+    (20 = 4 x 5), 63 / 64 and a prefill chunk: the plan's route, and each
+    design forced, against the plain version."""
+    x, w = qmm_inputs(torch.Generator(device="cuda").manual_seed(17), t, 4096, 4096, bits)
+    plan = qmm.qmm_plan(t, 4096, 4096, 4096, 4096, bits == 4, True)
+    assert plan.route == ("decode" if t <= qmm.DECODE_MAX_T else "prefill")
+    for route in qmm.ROUTES:
+        check_qmm(x, w, qmm.quantized_matmul(x, w, route=route))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_matmul_t2048_unaligned_rows(device, bits, dtype):
+    """x rows of 301 elements (K 300): neither base nor stride 16-byte
+    aligned, so TMA cannot take them and the plan sends T 2048 to the
+    decode design; f16 and bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    x = randn(gen, 2048, 301, dtype=dtype)[:, :300]
+    w = randn(gen, 300, 520, dtype=torch.float32) * 300 ** -0.5
+    w = (qmm.quantize_weight if bits == 8 else qmm.quantize_weight_int4)(w)
+    k_pad, n_pad = w.values.shape[0] * (2 if bits == 4 else 1), w.values.shape[1]
+    assert qmm.qmm_plan(2048, 300, 520, k_pad, n_pad, bits == 4, False).route == "decode"
+    check_qmm(x, w, qmm.quantized_matmul(x, w))
+    xa = x.contiguous()[:, :296]  # rows of 592 bytes: not 16-byte aligned either
+    check_qmm(xa, w, qmm.quantized_matmul(xa, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_matmul_repeats_bit_for_bit(device, bits, dtype):
+    """Fixed summation orders: the split-K partials combined in split order,
+    the decode warps' sums in warp order, wgmma chains in K order."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    for t, k, n in ((4, 4096, 1024), (8, 14336, 4096), (64, 4096, 4096), (300, 4096, 1024)):
+        x, w = qmm_inputs(gen, t, k, n, bits, dtype)
+        first = qmm.quantized_matmul(x, w)
+        for _ in range(3):
+            assert torch.equal(first, qmm.quantized_matmul(x, w))
+
+
+@pytest.mark.parametrize("t", [4, 64])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_matmul_split_k_agrees_with_one_pass(device, bits, t):
+    """The plan splits K here (decode at N 4096, prefill at T 64); one pass
+    over the whole of K, and other split counts, agree within BF16_TOL and
+    each with the plain version."""
+    x, w = qmm_inputs(torch.Generator(device="cuda").manual_seed(20), t, 4096, 4096, bits)
+    plan = qmm.qmm_plan(t, 4096, 4096, 4096, 4096, bits == 4, True)
+    assert plan.splits > 1
+    split = qmm.quantized_matmul(x, w)
+    one = qmm.quantized_matmul(x, w, splits=1)
+    check_qmm(x, w, split)
+    check_qmm(x, w, one)
+    assert (split.float() - one.float()).abs().max().item() <= BF16_TOL
+    units = plan.tiles // plan.unit
+    check_qmm(x, w, qmm.quantized_matmul(x, w, splits=units))
 
 
 @pytest.mark.parametrize("bits", [8, 4])

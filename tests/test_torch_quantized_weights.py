@@ -280,3 +280,88 @@ def test_quantize_rejects_unknown_options():
     with pytest.raises(ValueError):
         quantize_params(init_params(tiny_test_config(), device="cpu"), bits=2)
     assert dataclasses.replace(qm.quantize_weight(w), impl="xla").impl == "xla"
+
+
+# The kernels' plan (`qmm_plan`, pure Python) at every projection of the
+# Llama-3-8B int8 and fused int4 trees, at decode rows and T 2048, either
+# side of the decode / prefill crossover, and for x rows TMA cannot take.
+PLAN_SHAPES = {
+    8: {"q_o": (4096, 4096), "k_v": (4096, 1024), "gate_up": (4096, 14336),
+        "down": (14336, 4096), "lm_head": (4096, 128256)},
+    4: {"qkv": (4096, 6144), "o": (4096, 4096), "gate_up": (4096, 28672),
+        "down": (14336, 4096), "lm_head": (4096, 128256)},
+}
+PLAN_CASES = (
+    [(b, k, n, t, True) for b, shapes in PLAN_SHAPES.items() for k, n in shapes.values()
+     for t in ((4 if b == 8 else 8), 2048)]
+    + [(b, 4096, 4096, t, True) for b in (8, 4) for t in (16, 17, 20, 63, 64, 256)]
+    + [(b, 300, 520, t, False) for b in (8, 4) for t in (5, 2048)])
+
+
+def _padded(bits, k, n):
+    """K_pad and N_pad of a quantized [k, n] weight (the packages' rule)."""
+    if bits == 8:
+        return (qm._round_up(k, min(qm.BLOCK_K, qm._round_up(k, qm.LANES))),
+                qm._round_up(n, min(qm.BLOCK_N8, qm._round_up(n, qm.LANES))))
+    return (qm._round_up(k, min(qm.BLOCK_K, qm._round_up(k, 2 * qm.GROUP4))),
+            qm._round_up(n, min(qm.BLOCK_N, qm._round_up(n, qm.LANES))))
+
+
+@pytest.mark.parametrize("bits,k,n,t,aligned", PLAN_CASES,
+                         ids=[f"int{b}_k{k}_n{n}_t{t}_{'aligned' if a else 'unaligned'}"
+                              for b, k, n, t, a in PLAN_CASES])
+def test_qmm_plan_splits_cover_k_and_fill_the_card(bits, k, n, t, aligned):
+    k_pad, n_pad = _padded(bits, k, n)
+    plan = qm.qmm_plan(t, k, n, k_pad, n_pad, bits == 4, aligned)
+    # Routes follow T and alignment.
+    assert plan.route == ("prefill" if t > qm.DECODE_MAX_T and aligned else "decode")
+    # The tiles walk K exactly: int8 the 64-row tiles up to the logical K
+    # (the decode design in pairs: its stages), int4 every packed row (its
+    # pack blocks interleave the halves).
+    if bits == 8 and plan.route == "prefill":
+        assert plan.unit == 1 and (plan.tiles - 1) * qm.TILE_ROWS < k <= plan.tiles * qm.TILE_ROWS
+    elif bits == 8:
+        step = 2 * qm.TILE_ROWS
+        assert plan.unit == 2 and (plan.tiles - 2) * qm.TILE_ROWS < k <= plan.tiles * qm.TILE_ROWS
+        assert plan.tiles * qm.TILE_ROWS <= k_pad and plan.tiles * qm.TILE_ROWS % step == 0
+    else:
+        assert plan.unit == 2 and plan.tiles * qm.TILE_ROWS == k_pad // 2
+    # The splits cover the tiles once, in order, in whole units (int4: pairs
+    # of tiles, so a group's two 64-row halves stay in one split).
+    ranges = [plan.split_tiles(s) for s in range(plan.splits)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == plan.tiles
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(e > b and (e - b) % plan.unit == 0 and b % plan.unit == 0 for b, e in ranges)
+    # The grid: decode about one block per SM; prefill one pass over K
+    # unless the tiles of y cover fewer than half the SMs.
+    base = plan.col_tiles * plan.row_tiles
+    wide = plan.route == "decode" and -(-n // qm.TILE_N) > qm.SMS
+    assert plan.tile_n == (2 * qm.TILE_N if wide else qm.TILE_N)
+    assert plan.col_tiles == -(-n // plan.tile_n)
+    rows = qm.DECODE_ROWS if plan.route == "decode" else qm.PREFILL_ROWS
+    assert plan.row_tiles == -(-t // rows)
+    units = plan.tiles // plan.unit
+    if plan.route == "decode":
+        if base >= qm.SMS:
+            assert plan.splits == 1
+        else:
+            assert plan.splits == units or qm.SMS // 2 <= plan.blocks <= 3 * qm.SMS // 2
+    elif 2 * base >= qm.SMS:
+        assert plan.splits == 1
+    else:
+        assert plan.blocks >= qm.SMS or plan.splits == units
+
+
+def test_qmm_plan_refuses_what_the_kernels_cannot_run():
+    for bits in (8, 4):  # the pads the plan cases use are the quantizers' own
+        values = QUANTIZE[bits][0](torch.zeros(300, 520)).values
+        assert _padded(bits, 300, 520) == (values.shape[0] * (2 if bits == 4 else 1),
+                                           values.shape[1])
+    with pytest.raises(ValueError, match="prefill"):
+        qm.qmm_plan(2048, 300, 520, 384, 640, False, False, route="prefill")
+    with pytest.raises(ValueError, match="splits"):
+        qm.qmm_plan(4, 4096, 4096, 4096, 4096, False, True, splits=65)
+    with pytest.raises(ValueError, match="splits"):
+        qm.qmm_plan(4, 4096, 4096, 4096, 4096, True, True, splits=0)
+    forced = qm.qmm_plan(4, 4096, 4096, 4096, 4096, True, True, route="prefill", splits=16)
+    assert (forced.route, forced.splits, forced.unit) == ("prefill", 16, 2)
