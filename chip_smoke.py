@@ -9,9 +9,9 @@ Phases, in order; any failure exits non-zero:
   1. device: a CUDA card of compute capability 9.0; its name and power limit.
   2. build: every kernel of the main paths from csrc/ (one nvcc per source,
      all at once), with the ptxas register / shared-memory / spill report
-     and, for every B10 / B11 instantiation, the runtime's registers, spill
-     bytes and launch shared memory (no spill allowed); then the native
-     scheduler (csrc/page_allocator.cpp) with g++.
+     and, for every B10 / B11 and B13a / B13b instantiation, the runtime's
+     registers, spill bytes and launch shared memory (no spill allowed);
+     then the native scheduler (csrc/page_allocator.cpp) with g++.
   3. kernels vs plain: P, D1, D2, B5 (paged decode), B6 (paged extend) and
      the paged append at Llama-3-8B attention widths against their plain
      PyTorch versions on the card (bf16; tolerance below), B5/B6 over
@@ -43,7 +43,10 @@ Phases, in order; any failure exits non-zero:
      dO and lse, on transposed q / k / v views and a non-contiguous dO:
      causal B 2 S 2048, non-causal, windows 100 and 4096 at S 5120, Sq 256
      / Skv 1024, Sq 1024 / Skv 256 (dQ rows of exact zeros), ragged S 1000,
-     D 64, f16, Qwen2-7B's 28 / 4; then autograd through
+     D 64, f16, Qwen2-7B's 28 / 4; tiles of 128 keys and 64 rows cut short
+     or ragged: S 130, Sq 64 / Skv 1000, Sq 1000 / Skv 64 (rows with no
+     key), and MQA with a group of 32; each case called twice, the second
+     call's dq / dk / dv bit-identical to the first's; then autograd through
      `ops.autodiff.flash_attention` against autograd through the fp32
      reference; (3g) B12 (packed ragged batch) against its plain version
      (each sequence's dense attention, run per segment) over 32 sequences of
@@ -187,6 +190,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1558,7 +1562,7 @@ def kernel_entries(rows, errs, path_counts) -> list:
             "library_ms": r["library_ms"],
             "shape": r.get("shape", "the main path's"),
             **{key: r[key] for key in ("prefill", "chunk", "window", "lse", "max_rel_err",
-                                       "gemma2", "projections") if key in r},
+                                       "gemma2", "projections", "runtime_attributes") if key in r},
         })
     return out
 
@@ -2384,9 +2388,23 @@ BWD_CASES = (
     ("D64 S1024", 2, 32, 8, 1024, 1024, 64, True, None, "bfloat16"),
     ("f16 S1024", 1, 32, 8, 1024, 1024, 128, True, None, "float16"),
     ("Qwen2-7B 28/4 S1024", 1, 28, 4, 1024, 1024, 128, True, None, "bfloat16"),
+    ("short S130", 1, 32, 8, 130, 130, 128, True, None, "bfloat16"),
+    ("Sq64 Skv1000", 1, 32, 8, 64, 1000, 128, True, None, "bfloat16"),
+    ("Sq1000 Skv64 zero rows", 1, 32, 8, 1000, 64, 128, True, None, "bfloat16"),
+    ("MQA group 32 S1024", 1, 32, 1, 1024, 1024, 128, True, None, "bfloat16"),
 )
 LSE_TOL = 1e-3
 GRAD_REL_TOL = 2e-2
+
+
+def bwd_attributes(report: str, label: str) -> dict:
+    """Registers, spill and shared bytes of one B13a / B13b instantiation
+    as the runtime reports them (`flash_bwd.kernel_report()`; the training
+    step's: D 128, bf16)."""
+    line = next(x for x in report.splitlines() if x.startswith(label + ":"))
+    regs, spill, shared = (int(n) for n in re.findall(r"(\d+) (?:registers|bytes)", line))
+    return {"instantiation": label, "registers_at_launch": regs, "spill_bytes": spill,
+            "shared_bytes": shared}
 
 
 def rel_err(a, b) -> float:
@@ -2436,6 +2454,10 @@ def phase_training_kernels(torch, ops, errs, rel_errs):
         torch.cuda.synchronize()
         check((flash_bwd.DKV.launches - before[0], flash_bwd.DQ.launches - before[1]) == (1, 1),
               f"{name}: one launch each of B13a and B13b")
+        again = flash_bwd.flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window)
+        check(all(torch.equal(a, b2) for a, b2 in zip(got, again)),
+              f"{name}: a second call gives bit-identical dq / dk / dv")
+        del again
         want = flash_bwd.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o, do, lse,
                                                    causal=causal, window=window)
         rel = [rel_err(a, w) for a, w in zip(got, want)]
@@ -2444,7 +2466,9 @@ def phase_training_kernels(torch, ops, errs, rel_errs):
             rel_errs[kname] = max([rel_errs.get(kname, 0.0)] + [rel[i] for i in idx])
         print(f"  B13 {name} (Hq {hq} Hkv {hkv} D {d} {dt}, window {window}): lse max|diff| "
               f"{e_lse:.2e}; dq / dk / dv max|diff| / max|plain| "
-              + " / ".join(f"{r:.2e}" for r in rel))
+              + " / ".join(f"{r:.2e}" for r in rel)
+              + f"; B13a splits {flash_bwd.dkv_splits(b, hkv, hq // hkv, sq, skv)}; repeated bit "
+              "for bit")
         check(all(bool(torch.isfinite(g).all()) for g in got), f"{name}: gradients finite")
         check(max(rel) <= GRAD_REL_TOL, f"{name}: gradients within {GRAD_REL_TOL} (relative)")
         if sq > skv and causal:
@@ -3164,10 +3188,13 @@ def main() -> int:
         for line in log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
-    print("  B10 / B11 instantiations (the runtime's attributes, launch shared memory):")
-    for line in quantized_matmul.kernel_report().splitlines():
+    print("  B10 / B11 and B13a / B13b instantiations (the runtime's attributes, launch shared "
+          "memory; B13a / B13b consumers raise theirs to 240 by setmaxnreg):")
+    bwd_report = flash_bwd.kernel_report()
+    for line in quantized_matmul.kernel_report().splitlines() + bwd_report.splitlines():
         print(f"    {line}")
-        check("0 bytes local" in line, f"no spill in {line}")
+        spill = re.search(r"(\d+) bytes local", line)
+        check(spill is not None and int(spill.group(1)) == 0, f"no spill in {line}")
 
     # 3. kernels vs plain
     errs: dict = {}
@@ -3311,6 +3338,9 @@ def main() -> int:
     for r in trows:
         if r["name"] in rel_errs:
             r["max_rel_err"] = rel_errs[r["name"]]
+        if r["name"] in ("flash_bwd_dkv", "flash_bwd_dq"):
+            label = "B13a D128 bf16" if r["name"] == "flash_bwd_dkv" else "B13b D128 bf16"
+            r["runtime_attributes"] = bwd_attributes(bwd_report, label)
     rows += trows
     for r in rows:
         if r["name"] in ("flash_fwd", "flash_fwd_window"):

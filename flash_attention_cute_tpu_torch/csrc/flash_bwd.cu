@@ -24,395 +24,610 @@
 // the transposed S^T orientation for lane-vector statistics, and fold
 // scale * log2(e) into a pre-rounded q. Here a block loops over its tiles
 // itself, the scores are scaled in fp32 after the product (as the forward
-// does), and dK is scaled once at the store.
+// does), and dK and dQ are scaled once at the store.
 //
 // What bounds them on the H100: tensor-core operations. Per visible
 // (row, key) pair and q head, B13a runs four products of depth D (S^T,
-// dP^T, dV, dK: 8 D operations) and B13b three (S, dP, dQ: 6 D), far
-// above the card's ~295 operations per byte at training lengths. Design
-// (mma.sync m16n8k16, fp32 accumulators, bf16 / f16 operands; simple and
-// right first, no pipelining):
-//   * B13a: one block of 8 warps per (64 keys, kv head, batch row). It
-//     holds the K and V tile in shared memory and walks the group's q heads
-//     and, for each, the 64-row q tiles between the causal edge and the
-//     window's far edge (the TPU kernel's `should_run`). Keys are the rows
-//     of the products (S^T = K Q^T, dP^T = V dO^T), so P^T and dS^T come
-//     out in the accumulator layout, which is the A layout of dV += P^T dO
-//     and dK += dS^T Q. The dK and dV accumulators of 64 keys x D would be
-//     128 fp32 registers a thread over 4 warps at D 128; instead warp w
-//     owns keys 16 (w % 4).. and, in the first half of a tile, query
-//     columns 32 (w / 4).. of S^T and dP^T, whose P^T and dS^T go through
-//     shared memory (bf16, as the forward rounds P before PV), and in the
-//     second half D / 2 columns of dK and dV: 64 accumulators a thread.
-//     The group is folded inside the block: no atomics, deterministic.
-//   * B13b: one block of 4 warps per (64 q rows, q head, batch row), each
-//     warp 16 rows, walking the kv tiles from the window's near edge to the
-//     causal edge: S = Q K^T and dP = dO V^T in registers, dS in the
-//     accumulator layout is the A operand of dQ += dS K, whose B operand is
-//     a transposed K tile in shared memory (the forward's V^T).
-// Q, dO and K^T tiles are read from shared memory per product rather than
-// held as fragments, to stay clear of register spills. Later work: wgmma,
-// TMA / cp.async pipelining, ldmatrix.trans in place of transposed copies.
-#include "common.cuh"
+// dP^T, dV, dK: 8 D operations) and B13b three (S, dP, dQ: 6 D), far above
+// the card's ~295 operations per byte at training lengths. So both are
+// built for wgmma, fed by TMA, with no copy that transposes a tile:
+//
+//   * A block is three warpgroups: warpgroup 0 is the producer (one thread
+//     issues every copy; setmaxnreg gives its registers to the others),
+//     warpgroups 1 and 2 are consumers of 64 rows each (240 registers).
+//   * Tiles arrive by TMA with the 128-byte swizzle, through 4-D maps of
+//     the strided [B, H, S, D] views (each D half of 64 columns is one box;
+//     rows past S read as zeros), into a ring of kStages stages signalled by
+//     mbarriers. The lse and delta rows come by bulk copy from padded
+//     [B, Hq, Sq rounded up to 128] fp32 buffers (ops/flash_bwd.py).
+//   * B13a: one block per (128 keys, kv head, batch row); consumer c owns
+//     keys 64 c ... K and V arrive once. The stages carry the group's (Q,
+//     dO, lse, delta) tiles of 64 rows: for each q head of the group, the q
+//     tiles from the causal edge to the window's far edge. S^T = K Q^T and
+//     dP^T = V dO^T are wgmma with both operands in shared memory, K-major
+//     (D is contiguous in both). P^T and dS^T stay in registers: the
+//     accumulator layout, rounded to the input type, is the register A
+//     operand of dV += P^T dO and dK += dS^T Q, whose B operands dO and Q
+//     are read MN-major from the same stage (the descriptor's transpose
+//     bit). dK, dV of 64 keys x D are 2 x D / 2 fp32 registers a thread.
+//   * B13b: one block per (128 q rows, q head, batch row); consumer c owns
+//     rows 64 c ... Q, dO, lse and delta arrive once; the (K, V) tiles of 64
+//     keys stream through the stages, from the window's near edge to the
+//     causal edge. S = Q K^T and dP = dO V^T from shared memory; dS in
+//     registers is the A operand of dQ += dS K, K read MN-major from the
+//     stage.
+//   * S (S^T) and dP (dP^T) are committed as two wgmma groups: the
+//     exponentials run while dP is still in the tensor cores, and in B13a
+//     dS^T while dV is. The two consumers interleave their products and
+//     their elementwise work on the SM. (Keeping the next tile's products
+//     in flight across iterations needs more than 240 registers in B13a,
+//     and was slower in B13b: PERF.md.)
+//   * The mask runs only on tiles that cross the causal or window edge or
+//     the end of Sq / Skv; a consumer skips a tile in which it sees no
+//     pair (it still releases the stage).
+//   * Causal grids start with the heaviest tiles: the keys with the most
+//     rows (B13a), the rows with the most keys (B13b), over all heads.
+//   * Where the key blocks are too few to fill the card (few kv heads,
+//     short sequences: Qwen2-7B's 4 kv heads at S 1024 give 32 blocks), the
+//     wrapper's plan (ops/flash_bwd.py `dkv_splits`) cuts each key block's
+//     walk into `splits` parts, one block each, that write fp32 partials
+//     of dK and dV; a second pass in the same C call adds them in split
+//     order, scales dK and rounds.
+// The group is summed inside a B13a block (and across its splits) in a
+// fixed order: no atomics, and two calls give the same bits.
+#include "hopper.cuh"
 
 namespace fact {
 
 struct BwdParams {
-  const void* q;     // [B, Hq, Sq, D]
-  const void* k;     // [B, Hkv, Skv, D]
-  const void* v;
-  const void* dout;  // [B, Hq, Sq, D]
-  const float* lse;    // [B, Hq, Sq] contiguous, log2 units
-  const float* delta;  // [B, Hq, Sq] contiguous
+  const float* lse;    // [B, Hq, sq_pad] contiguous, log2 units; +inf past Sq
+  const float* delta;  // [B, Hq, sq_pad] contiguous; 0 past Sq
   void* out0;  // B13a: dK [B, Hkv, Skv, D]; B13b: dQ [B, Hq, Sq, D] (contiguous)
   void* out1;  // B13a: dV [B, Hkv, Skv, D]
-  int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;  // o_: dO
-  int hq, group, sq, skv;
+  float* ws;   // B13a with splits > 1: fp32 partials [2][splits][B, Hkv, Skv, D]
+  int batch, hq, hkv, group, sq, skv, sq_pad;
+  int splits;  // B13a: parts of each key block's walk, one block each
   float scale_log2;  // softmax_scale * log2(e)
   float scale;
   int causal;
   int window;  // W > 0, or 0 for none
 };
 
-constexpr int kTile = 64;  // rows and keys of a tile
-constexpr int kTRow = kTile + 8;  // smem row stride of a transposed tile
-constexpr int kDkvThreads = 256;
-constexpr int kDqThreads = 128;
+constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int kTile = 64;      // rows (or keys) of a consumer's tile
+constexpr int kBlock = 128;    // keys of a B13a block, rows of a B13b block
+constexpr int kStages = 4;
+constexpr int kRowPad = 128;   // lse / delta rows are padded to a multiple of this
+constexpr int kBox = kTile * 128;  // bytes of one 64-row box of a D half
 
 __device__ __forceinline__ bool visible(const BwdParams& p, int m, int n, int offset) {
   return n < p.skv && m < p.sq && (!p.causal || n <= m + offset) &&
          (p.window <= 0 || n > m + offset - p.window);
 }
-
-// Rows [r0, r0 + 64) of a [rows, D] matrix (row stride rs, head dim
-// contiguous) into shared memory, rows at or past `rows` as zeros: row-major
-// with stride D + 8 (kRowMajor) and / or transposed [D][kTRow].
-template <typename T, int D, int kThreads, bool kRowMajor, bool kTransposed>
-__device__ __forceinline__ void load_tile(const T* src, int64_t rs, int r0, int rows, T* dst,
-                                          T* dst_t) {
-  constexpr int kChunks = D / 8;
-  for (int c = threadIdx.x; c < kTile * kChunks; c += kThreads) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < rows) val = *reinterpret_cast<const uint4*>(src + static_cast<int64_t>(r0 + r) * rs + col);
-    if constexpr (kRowMajor) *reinterpret_cast<uint4*>(dst + r * (D + 8) + col) = val;
-    if constexpr (kTransposed) {
-      const T* e = reinterpret_cast<const T*>(&val);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) dst_t[(col + i) * kTRow + r] = e[i];
-    }
-  }
+// No pair of the 64 x 64 tile (rows m0.., keys n0..) is visible.
+__device__ __forceinline__ bool tile_dead(const BwdParams& p, int m0, int n0, int offset) {
+  return m0 >= p.sq || n0 >= p.skv || (p.causal && n0 > m0 + kTile - 1 + offset) ||
+         (p.window > 0 && n0 + kTile - 1 <= m0 + offset - p.window);
+}
+// Every pair of the tile is visible: no mask needed.
+__device__ __forceinline__ bool tile_full(const BwdParams& p, int m0, int n0, int offset) {
+  return m0 + kTile <= p.sq && n0 + kTile <= p.skv &&
+         (!p.causal || n0 + kTile - 1 <= m0 + offset) &&
+         (p.window <= 0 || n0 > m0 + kTile - 1 + offset - p.window);
 }
 
-__device__ __forceinline__ uint32_t ld32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// K-major operand of 64 rows from a tile of 128-byte rows: k-step kk of D.
+// `half_bytes` is the size of one D half of the tile.
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk, int half_bytes) {
+  return wgmma_desc(tile + (kk >> 2) * half_bytes + (kk & 3) * 32, 16, 1024);
+}
+// MN-major B operand (N = D) from a 64-row tile: k-step kk over its rows.
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
+  return wgmma_desc(tile + kk * 2048, kBox, 1024);
 }
 
-// The A fragment of m16n8k16 from a row-major tile: `base` points at
-// element (row g, column 2 t) of the 16 x 16 sub-tile, `ld` is the stride.
+// The m16n8k16 A fragments of a 64 x 64 accumulator (each warp's 16 rows),
+// rounded to T: k-step kk holds columns 16 kk .. 16 kk + 15.
 template <typename T>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const T* base, int ld) {
-  a[0] = ld32(base);
-  a[1] = ld32(base + 8 * ld);
-  a[2] = ld32(base + 8);
-  a[3] = ld32(base + 8 * ld + 8);
+__device__ __forceinline__ void to_a(const float (&d)[32], uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kk][r] = Elem<T>::pack(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
 }
 
-template <typename T, int D>
-constexpr int dkv_smem_bytes() {
-  return (4 * kTile * (D + 8) + 2 * D * kTRow + 2 * kTile * kTRow) * static_cast<int>(sizeof(T)) +
-         2 * kTile * static_cast<int>(sizeof(float));
-}
+template <int D>
+struct DkvSmem {
+  static constexpr int kHalves = D / 64;
+  static constexpr int kKV = kHalves * 2 * kBox;    // K or V: 128 keys
+  static constexpr int kStage = kHalves * 2 * kBox;  // Q and dO: 64 rows
+  static constexpr int kRows = 2 * kTile * 4;        // lse, delta
+  static constexpr int kBars = 2 * kKV + kStages * kStage + kStages * kRows;
+  static constexpr int kBytes = 1024 + kBars + (1 + 2 * kStages) * 8;
+};
 
-// B13a: dK, dV of 64 keys of one kv head, summed over its q-head group.
+// B13a: dK, dV of 128 keys of one kv head, summed over its q-head group.
 template <typename T, int D>
-__global__ void __launch_bounds__(kDkvThreads) flash_bwd_dkv_kernel(const BwdParams p) {
-  constexpr int kRow = D + 8;
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap omap,
+                         const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap, const BwdParams p) {
+  using S = DkvSmem<D>;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* sK = reinterpret_cast<T*>(smem);
-  T* sV = sK + kTile * kRow;
-  T* sQ = sV + kTile * kRow;
-  T* sdO = sQ + kTile * kRow;
-  T* sQt = sdO + kTile * kRow;
-  T* sdOt = sQt + D * kTRow;
-  T* sP = sdOt + D * kTRow;  // P^T [64 keys][64 rows]
-  T* sdS = sP + kTile * kTRow;
-  float* sLse = reinterpret_cast<float*>(sdS + kTile * kTRow);
-  float* sDelta = sLse + kTile;
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t base = (raw + 1023) & ~1023u;  // the 128-byte swizzle needs 1 KB
+  const unsigned char* gbase = smem + (base - raw);
+  const uint32_t sK = base, sV = base + S::kKV, sQ0 = base + 2 * S::kKV;
+  const int rows_off = 2 * S::kKV + kStages * S::kStage;
+  const uint32_t bars = base + S::kBars;
+  const uint32_t kv_full = bars;
+  auto sQ = [&](int s) { return sQ0 + s * S::kStage; };
+  auto sO = [&](int s) { return sQ0 + s * S::kStage + S::kHalves * kBox; };
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + kStages + s); };
 
-  const int n0 = blockIdx.x * kTile;  // the keys with the most causal rows first
-  const int hk = blockIdx.y, b = blockIdx.z;
+  const int heads = p.hkv * p.batch, per = heads * p.splits;
+  const int n0 = (blockIdx.x / per) * kBlock;  // the keys with the most causal rows first
+  const int split = blockIdx.x % per / heads, hb = blockIdx.x % heads;
+  const int hk = hb % p.hkv, b = hb / p.hkv;
   const int offset = p.skv - p.sq;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment coordinates
-  const int kr = (warp & 3) * 16;         // this warp's 16 keys
-  const int half = warp >> 2;             // its 32 q columns, then its D / 2 columns
 
-  load_tile<T, D, kDkvThreads, true, false>(
-      static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh, p.k_ss, n0, p.skv, sK, nullptr);
-  load_tile<T, D, kDkvThreads, true, false>(
-      static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh, p.v_ss, n0, p.skv, sV, nullptr);
-
-  // The q rows that see a key of this tile: from the causal edge (row
+  // The q rows that see a key of the block: from the causal edge (row
   // n0 - offset sees key n0) to the window's far edge (the last key is
   // visible up to row n_last - offset + W - 1).
   int m_begin = p.causal ? max(0, n0 - offset) : 0;
   int m_end = p.sq;
-  if (p.window > 0) m_end = min(m_end, min(n0 + kTile, p.skv) - 1 - offset + p.window);
+  if (p.window > 0) m_end = min(m_end, min(n0 + kBlock, p.skv) - 1 - offset + p.window);
   m_begin = m_begin / kTile * kTile;
+  const int nm = m_end > m_begin ? (m_end - m_begin + kTile - 1) / kTile : 0;
+  // This block's part of the walk over (q head of the group, q tile).
+  const int it0 = nm * p.group * split / p.splits, it1 = nm * p.group * (split + 1) / p.splits;
+  const int total = it1 - it0;
 
-  float dk[D / 16][4], dv[D / 16][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 16; ++dt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dk[dt][i] = dv[dt][i] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) mbar_init(full(s), 1), mbar_init(empty(s), 8);
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  for (int gi = 0; gi < p.group; ++gi) {
-    const int h = hk * p.group + gi;
-    const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const T* dout = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
-    const float* lse = p.lse + (static_cast<int64_t>(b) * p.hq + h) * p.sq;
-    const float* delta = p.delta + (static_cast<int64_t>(b) * p.hq + h) * p.sq;
-    for (int m0 = m_begin; m0 < m_end; m0 += kTile) {
-      __syncthreads();  // every warp is done with the previous tile
-      load_tile<T, D, kDkvThreads, true, true>(q, p.q_ss, m0, p.sq, sQ, sQt);
-      load_tile<T, D, kDkvThreads, true, true>(dout, p.o_ss, m0, p.sq, sdO, sdOt);
-      if (tid < kTile) {
-        const int m = m0 + tid;
-        sLse[tid] = m < p.sq ? lse[m] : INFINITY;  // a padded row has p = 0
-        sDelta[tid] = m < p.sq ? delta[m] : 0.f;
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0 && total > 0) {
+      mbar_expect_tx(kv_full, 2 * S::kKV);
+      for (int h = 0; h < S::kHalves; ++h) {
+        tma_load_4d(sK + h * 2 * kBox, &kmap, 64 * h, n0, hk, b, kv_full);
+        tma_load_4d(sV + h * 2 * kBox, &vmap, 64 * h, n0, hk, b, kv_full);
       }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 32 q columns.
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[nt][i] = dp[nt][i] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ak[4], av[4];
-        load_a(ak, sK + (kr + g) * kRow + kk * 16 + 2 * t, kRow);
-        load_a(av, sV + (kr + g) * kRow + kk * 16 + 2 * t, kRow);
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int r = (half * 32 + nt * 8 + g) * kRow + kk * 16 + 2 * t;
-          Elem<T>::mma(s[nt], ak, ld32(sQ + r), ld32(sQ + r + 8));
-          Elem<T>::mma(dp[nt], av, ld32(sdO + r), ld32(sdO + r + 8));
+      for (int it = 0; it < total; ++it) {
+        const int s = it % kStages, h = hk * p.group + (it0 + it) / nm;
+        const int m0 = m_begin + (it0 + it) % nm * kTile;
+        mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(full(s), S::kStage + S::kRows);
+        for (int hh = 0; hh < S::kHalves; ++hh) {
+          tma_load_4d(sQ(s) + hh * kBox, &qmap, 64 * hh, m0, h, b, full(s));
+          tma_load_4d(sO(s) + hh * kBox, &omap, 64 * hh, m0, h, b, full(s));
         }
+        const int64_t row = (static_cast<int64_t>(b) * p.hq + h) * p.sq_pad + m0;
+        const uint32_t rows = base + rows_off + s * S::kRows;
+        bulk_load(rows, p.lse + row, kTile * 4, full(s));
+        bulk_load(rows + kTile * 4, p.delta + row, kTile * 4, full(s));
       }
-      // P^T = exp2(S^T * scale_log2 - lse) on visible pairs, dS^T = P^T (dP^T - delta).
+    }
+  } else {
+    setmaxnreg_inc<240>();
+    const int ct = threadIdx.x - 128, wg = ct >> 7, wi = (ct >> 5) & 3, lane = ct & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int nw = n0 + kTile * wg;  // this warpgroup's first key
+    const uint32_t ka = sK + wg * kBox, va = sV + wg * kBox;
+
+    float dk[D / 2], dv[D / 2];
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    if (total > 0) mbar_wait(kv_full, 0);
+
+    for (int it = 0; it < total; ++it) {
+      const int st = it % kStages;
+      const int m0 = m_begin + (it0 + it) % nm * kTile;
+      mbar_wait(full(st), (it / kStages) & 1);
+      if (!tile_dead(p, m0, nw, offset)) {
+        const bool edge = !tile_full(p, m0, nw, offset);
+        // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 rows, two groups, so
+        // that P^T is computed while dP^T runs.
+        float s[32], dp[32];
+        wgmma_fence();
+        wgmma_ss_64<T, false>(s, kmajor(ka, 0, 2 * kBox), kmajor(sQ(st), 0, kBox));
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int key = kr + g + 8 * j;
-          const int c = half * 32 + nt * 8 + 2 * t;  // local q row of elements 2j, 2j + 1
-          float pv[2], dsv[2];
+        for (int kk = 1; kk < D / 16; ++kk)
+          wgmma_ss_64<T, true>(s, kmajor(ka, kk, 2 * kBox), kmajor(sQ(st), kk, kBox));
+        wgmma_commit();
+        wgmma_ss_64<T, false>(dp, kmajor(va, 0, 2 * kBox), kmajor(sO(st), 0, kBox));
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int i = 2 * j + e;
-            const float pr = visible(p, m0 + c + e, n0 + key, offset)
-                                 ? exp2f(s[nt][i] * p.scale_log2 - sLse[c + e]) : 0.f;
-            pv[e] = pr;
-            dsv[e] = pr * (dp[nt][i] - sDelta[c + e]);
+        for (int kk = 1; kk < D / 16; ++kk)
+          wgmma_ss_64<T, true>(dp, kmajor(va, kk, 2 * kBox), kmajor(sO(st), kk, kBox));
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s);
+
+        // P^T = exp2(S^T * scale_log2 - lse) on visible pairs. Element 4 j + e:
+        // key nw + 16 wi + g + 8 (e >> 1), row m0 + 8 j + 2 t + (e & 1).
+        const float* rows = reinterpret_cast<const float*>(gbase + rows_off + st * S::kRows);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 l = *reinterpret_cast<const float2*>(rows + 8 * j + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            float pr = exp2f(s[i] * p.scale_log2 - ((e & 1) ? l.y : l.x));
+            if (edge && !visible(p, m0 + 8 * j + 2 * t + (e & 1), nw + 16 * wi + g + 8 * (e >> 1),
+                                 offset))
+              pr = 0.f;
+            s[i] = pr;
           }
-          *reinterpret_cast<uint32_t*>(sP + key * kTRow + c) = Elem<T>::pack(pv[0], pv[1]);
-          *reinterpret_cast<uint32_t*>(sdS + key * kTRow + c) = Elem<T>::pack(dsv[0], dsv[1]);
         }
-      }
-      __syncthreads();
+        uint32_t pa[4][4], sa[4][4];
+        to_a<T>(s, pa);
 
-      // dV += P^T dO and dK += dS^T Q over the tile's 64 rows: this warp's
-      // 16 keys x D / 2 columns.
+        // dV += P^T dO over the tile's 64 rows, dO MN-major from the stage;
+        // it runs while dS^T = P^T (dP^T - delta) is computed.
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        uint32_t ap[4], as[4];
-        load_a(ap, sP + (kr + g) * kTRow + kk * 16 + 2 * t, kTRow);
-        load_a(as, sdS + (kr + g) * kTRow + kk * 16 + 2 * t, kTRow);
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs<T, D, true>(dv, pa[kk], mnmajor(sO(st), kk), 1);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(dp);
 #pragma unroll
-        for (int dt = 0; dt < D / 16; ++dt) {
-          const int r = (half * (D / 2) + dt * 8 + g) * kTRow + kk * 16 + 2 * t;
-          Elem<T>::mma(dv[dt], ap, ld32(sdOt + r), ld32(sdOt + r + 8));
-          Elem<T>::mma(dk[dt], as, ld32(sQt + r), ld32(sQt + r + 8));
+        for (int j = 0; j < 8; ++j) {
+          const float2 dl = *reinterpret_cast<const float2*>(rows + kTile + 8 * j + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? dl.y : dl.x));
         }
+        to_a<T>(dp, sa);
+
+        // dK += dS^T Q, Q MN-major from the stage.
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs<T, D, true>(dk, sa[kk], mnmajor(sQ(st), kk), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv);
+        fence_regs(dk);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]), fence_regs(sa[kk]);
       }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(st));
     }
-  }
 
-  const int64_t base = (static_cast<int64_t>(b) * (p.hq / p.group) + hk) * p.skv * D;
-  T* dkp = static_cast<T*>(p.out0) + base;
-  T* dvp = static_cast<T*>(p.out1) + base;
+    const int64_t out = (static_cast<int64_t>(b) * p.hkv + hk) * p.skv * D;
+    if (p.splits > 1) {  // fp32 partials, added by flash_bwd_dkv_combine
+      const int64_t part = static_cast<int64_t>(p.batch) * p.hkv * p.skv * D;
+      float* wk = p.ws + split * part + out;
+      float* wv = p.ws + (p.splits + split) * part + out;
 #pragma unroll
-  for (int dt = 0; dt < D / 16; ++dt) {
-    const int col = half * (D / 2) + dt * 8 + 2 * t;
+      for (int j = 0; j < D / 8; ++j) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int key = n0 + kr + g + 8 * j;
-      if (key < p.skv) {
-        const int64_t at = static_cast<int64_t>(key) * D + col;
-        *reinterpret_cast<uint32_t*>(dkp + at) =
-            Elem<T>::pack(dk[dt][2 * j] * p.scale, dk[dt][2 * j + 1] * p.scale);
-        *reinterpret_cast<uint32_t*>(dvp + at) = Elem<T>::pack(dv[dt][2 * j], dv[dt][2 * j + 1]);
+        for (int r = 0; r < 2; ++r) {
+          const int key = nw + 16 * wi + g + 8 * r;
+          if (key < p.skv) {
+            const int64_t at = static_cast<int64_t>(key) * D + 8 * j + 2 * t;
+            const int e = 4 * j + 2 * r;
+            *reinterpret_cast<float2*>(wk + at) = make_float2(dk[e], dk[e + 1]);
+            *reinterpret_cast<float2*>(wv + at) = make_float2(dv[e], dv[e + 1]);
+          }
+        }
+      }
+      return;
+    }
+    T* dkp = static_cast<T*>(p.out0) + out;
+    T* dvp = static_cast<T*>(p.out1) + out;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = nw + 16 * wi + g + 8 * r;
+        if (key < p.skv) {
+          const int64_t at = static_cast<int64_t>(key) * D + 8 * j + 2 * t;
+          const int e = 4 * j + 2 * r;
+          *reinterpret_cast<uint32_t*>(dkp + at) = Elem<T>::pack(dk[e] * p.scale, dk[e + 1] * p.scale);
+          *reinterpret_cast<uint32_t*>(dvp + at) = Elem<T>::pack(dv[e], dv[e + 1]);
+        }
       }
     }
   }
 }
 
-template <typename T, int D>
-constexpr int dq_smem_bytes() {
-  return (4 * kTile * (D + 8) + D * kTRow) * static_cast<int>(sizeof(T));
+// dK = scale * (sum of the splits' partials in split order), dV = the same
+// sum unscaled, four elements a thread.
+template <typename T>
+__global__ void __launch_bounds__(256) flash_bwd_dkv_combine(const BwdParams p, int64_t part) {
+  const int64_t i = (static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x) * 4;
+  if (i >= part) return;
+#pragma unroll
+  for (int o = 0; o < 2; ++o) {
+    const float* src = p.ws + o * p.splits * part + i;
+    float4 acc = *reinterpret_cast<const float4*>(src);
+    for (int sp = 1; sp < p.splits; ++sp) {
+      const float4 v = *reinterpret_cast<const float4*>(src + sp * part);
+      acc.x += v.x, acc.y += v.y, acc.z += v.z, acc.w += v.w;
+    }
+    const float sc = o ? 1.f : p.scale;
+    uint2 packed;
+    packed.x = Elem<T>::pack(acc.x * sc, acc.y * sc);
+    packed.y = Elem<T>::pack(acc.z * sc, acc.w * sc);
+    *reinterpret_cast<uint2*>(static_cast<T*>(o ? p.out1 : p.out0) + i) = packed;
+  }
 }
 
-// B13b: dQ of 64 rows of one q head.
+template <int D>
+struct DqSmem {
+  static constexpr int kHalves = D / 64;
+  static constexpr int kQO = kHalves * 2 * kBox;     // Q or dO: 128 rows
+  static constexpr int kStage = kHalves * 2 * kBox;  // K and V: 64 keys
+  static constexpr int kRows = 2 * kBlock * 4;       // lse, delta
+  static constexpr int kBars = 2 * kQO + kStages * kStage + kRows;
+  static constexpr int kBytes = 1024 + kBars + (1 + 2 * kStages) * 8;
+};
+
+// B13b: dQ of 128 rows of one q head.
 template <typename T, int D>
-__global__ void __launch_bounds__(kDqThreads) flash_bwd_dq_kernel(const BwdParams p) {
-  constexpr int kRow = D + 8;
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap omap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap, const BwdParams p) {
+  using S = DqSmem<D>;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sdO = sQ + kTile * kRow;
-  T* sK = sdO + kTile * kRow;
-  T* sV = sK + kTile * kRow;
-  T* sKt = sV + kTile * kRow;  // K^T [D][64 keys]
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const unsigned char* gbase = smem + (base - raw);
+  const uint32_t sQ = base, sO = base + S::kQO, sK0 = base + 2 * S::kQO;
+  const int rows_off = 2 * S::kQO + kStages * S::kStage;
+  const uint32_t bars = base + S::kBars;
+  const uint32_t q_full = bars;
+  auto sK = [&](int s) { return sK0 + s * S::kStage; };
+  auto sV = [&](int s) { return sK0 + s * S::kStage + S::kHalves * kBox; };
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + kStages + s); };
 
-  const int m0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // the longest causal rows first
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / p.group;
+  const int per = p.hq * p.batch;
+  const int nqb = (p.sq + kBlock - 1) / kBlock;
+  const int m0 = (nqb - 1 - static_cast<int>(blockIdx.x) / per) * kBlock;  // most keys first
+  const int h = blockIdx.x % per % p.hq, b = blockIdx.x % per / p.hq, hk = h / p.group;
   const int offset = p.skv - p.sq;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = warp * 16;
-  const int row0 = m0 + wr + g, row1 = row0 + 8;
-
-  load_tile<T, D, kDqThreads, true, false>(
-      static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss, m0, p.sq, sQ, nullptr);
-  load_tile<T, D, kDqThreads, true, false>(
-      static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh, p.o_ss, m0, p.sq, sdO, nullptr);
-  const float* lse = p.lse + (static_cast<int64_t>(b) * p.hq + h) * p.sq;
-  const float* delta = p.delta + (static_cast<int64_t>(b) * p.hq + h) * p.sq;
-  float row_lse[2], row_delta[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r ? row1 : row0;
-    row_lse[r] = row < p.sq ? lse[row] : INFINITY;
-    row_delta[r] = row < p.sq ? delta[row] : 0.f;
-  }
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
   // Keys from the window's near edge (row m0's first visible key) to the
   // causal edge (the last row's last).
   int n_end = p.skv;
-  if (p.causal) n_end = min(n_end, m0 + kTile + offset);
-  const int n_lo = p.window > 0 ? max(0, m0 + offset - p.window + 1) : 0;
+  if (p.causal) n_end = min(n_end, m0 + kBlock + offset);
+  const int n_begin = (p.window > 0 ? max(0, m0 + offset - p.window + 1) : 0) / kTile * kTile;
+  const int total = n_end > n_begin ? (n_end - n_begin + kTile - 1) / kTile : 0;
 
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[dt][i] = 0.f;
-
-  for (int n0 = n_lo / kTile * kTile; n0 < n_end; n0 += kTile) {
-    __syncthreads();  // every warp is done with the previous tile (and Q, dO are in)
-    load_tile<T, D, kDqThreads, true, true>(k, p.k_ss, n0, p.skv, sK, sKt);
-    load_tile<T, D, kDqThreads, true, false>(v, p.v_ss, n0, p.skv, sV, nullptr);
-    __syncthreads();
-
-    float s[kTile / 8][4], dp[kTile / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[nt][i] = dp[nt][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ao[4];
-      load_a(aq, sQ + (wr + g) * kRow + kk * 16 + 2 * t, kRow);
-      load_a(ao, sdO + (wr + g) * kRow + kk * 16 + 2 * t, kRow);
-#pragma unroll
-      for (int nt = 0; nt < kTile / 8; ++nt) {
-        const int r = (nt * 8 + g) * kRow + kk * 16 + 2 * t;
-        Elem<T>::mma(s[nt], aq, ld32(sK + r), ld32(sK + r + 8));
-        Elem<T>::mma(dp[nt], ao, ld32(sV + r), ld32(sV + r + 8));
-      }
-    }
-    // dS = P (dP - delta), P = exp2(S * scale_log2 - lse) on visible pairs.
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = i >> 1;
-        const float pr = visible(p, r ? row1 : row0, n0 + nt * 8 + 2 * t + (i & 1), offset)
-                             ? exp2f(s[nt][i] * p.scale_log2 - row_lse[r]) : 0.f;
-        s[nt][i] = pr * (dp[nt][i] - row_delta[r]);
-      }
-    }
-    // dQ += dS K, dS taken from the registers (accumulator layout = A layout).
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = Elem<T>::pack(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = Elem<T>::pack(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = Elem<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = Elem<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const int r = (dt * 8 + g) * kTRow + kk * 16 + 2 * t;
-        Elem<T>::mma(acc[dt], a, ld32(sKt + r), ld32(sKt + r + 8));
-      }
-    }
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) mbar_init(full(s), 1), mbar_init(empty(s), 8);
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  T* dq = static_cast<T*>(p.out0) + (static_cast<int64_t>(b) * p.hq + h) * p.sq * D;
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0 && total > 0) {
+      mbar_expect_tx(q_full, 2 * S::kQO + S::kRows);
+      for (int hh = 0; hh < S::kHalves; ++hh) {
+        tma_load_4d(sQ + hh * 2 * kBox, &qmap, 64 * hh, m0, h, b, q_full);
+        tma_load_4d(sO + hh * 2 * kBox, &omap, 64 * hh, m0, h, b, q_full);
+      }
+      const int64_t row = (static_cast<int64_t>(b) * p.hq + h) * p.sq_pad + m0;
+      bulk_load(base + rows_off, p.lse + row, kBlock * 4, q_full);
+      bulk_load(base + rows_off + kBlock * 4, p.delta + row, kBlock * 4, q_full);
+      for (int it = 0; it < total; ++it) {
+        const int s = it % kStages, n0 = n_begin + it * kTile;
+        mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(full(s), S::kStage);
+        for (int hh = 0; hh < S::kHalves; ++hh) {
+          tma_load_4d(sK(s) + hh * kBox, &kmap, 64 * hh, n0, hk, b, full(s));
+          tma_load_4d(sV(s) + hh * kBox, &vmap, 64 * hh, n0, hk, b, full(s));
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<240>();
+    const int ct = threadIdx.x - 128, wg = ct >> 7, wi = (ct >> 5) & 3, lane = ct & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int mw = m0 + kTile * wg;  // this warpgroup's first row
+    const uint32_t qa = sQ + wg * kBox, oa = sO + wg * kBox;
+
+    float dq[D / 2];
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + 2 * t;
-    if (row0 < p.sq)
-      *reinterpret_cast<uint32_t*>(dq + static_cast<int64_t>(row0) * D + col) =
-          Elem<T>::pack(acc[dt][0] * p.scale, acc[dt][1] * p.scale);
-    if (row1 < p.sq)
-      *reinterpret_cast<uint32_t*>(dq + static_cast<int64_t>(row1) * D + col) =
-          Elem<T>::pack(acc[dt][2] * p.scale, acc[dt][3] * p.scale);
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    float row_lse[2] = {INFINITY, INFINITY}, row_delta[2] = {0.f, 0.f};
+    if (total > 0) {
+      mbar_wait(q_full, 0);
+      const float* rows = reinterpret_cast<const float*>(gbase + rows_off);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int rb = kTile * wg + 16 * wi + g + 8 * r;
+        row_lse[r] = rows[rb];
+        row_delta[r] = rows[kBlock + rb];
+      }
+    }
+
+    for (int it = 0; it < total; ++it) {
+      const int st = it % kStages, n0 = n_begin + it * kTile;
+      mbar_wait(full(st), (it / kStages) & 1);
+      if (!tile_dead(p, mw, n0, offset)) {
+        const bool edge = !tile_full(p, mw, n0, offset);
+        // S = Q K^T and dP = dO V^T: 64 rows x 64 keys, two groups, so that
+        // P is computed while dP runs.
+        float s[32], dp[32];
+        wgmma_fence();
+        wgmma_ss_64<T, false>(s, kmajor(qa, 0, 2 * kBox), kmajor(sK(st), 0, kBox));
+#pragma unroll
+        for (int kk = 1; kk < D / 16; ++kk)
+          wgmma_ss_64<T, true>(s, kmajor(qa, kk, 2 * kBox), kmajor(sK(st), kk, kBox));
+        wgmma_commit();
+        wgmma_ss_64<T, false>(dp, kmajor(oa, 0, 2 * kBox), kmajor(sV(st), 0, kBox));
+#pragma unroll
+        for (int kk = 1; kk < D / 16; ++kk)
+          wgmma_ss_64<T, true>(dp, kmajor(oa, kk, 2 * kBox), kmajor(sV(st), kk, kBox));
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s);
+
+        // P = exp2(S * scale_log2 - lse) on visible pairs, then dS = P (dP - delta).
+        // Element 4 j + e: row mw + 16 wi + g + 8 (e >> 1), key n0 + 8 j + 2 t + (e & 1).
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e, r = e >> 1;
+            float pr = exp2f(s[i] * p.scale_log2 - row_lse[r]);
+            if (edge && !visible(p, mw + 16 * wi + g + 8 * r, n0 + 8 * j + 2 * t + (e & 1), offset))
+              pr = 0.f;
+            s[i] = pr;
+          }
+        }
+        wgmma_wait<0>();
+        fence_regs(dp);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - row_delta[(i >> 1) & 1]);
+        uint32_t sa[4][4];
+        to_a<T>(dp, sa);
+
+        // dQ += dS K over the tile's 64 keys, K MN-major from the stage.
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs<T, D, true>(dq, sa[kk], mnmajor(sK(st), kk), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) fence_regs(sa[kk]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(st));
+    }
+
+    T* dqp = static_cast<T*>(p.out0) + (static_cast<int64_t>(b) * p.hq + h) * p.sq * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = mw + 16 * wi + g + 8 * r;
+        if (row < p.sq)
+          *reinterpret_cast<uint32_t*>(dqp + static_cast<int64_t>(row) * D + 8 * j + 2 * t) =
+              Elem<T>::pack(dq[4 * j + 2 * r] * p.scale, dq[4 * j + 2 * r + 1] * p.scale);
+      }
+    }
   }
 }
 
+// ---------------------------------------------------------------------------
+// Host side.
+
+// A [B, H, S, D] view (strides in elements, D contiguous) as a 4-D TMA map
+// with boxes of 64 columns x `box_rows` rows. A dimension of size 1 gets
+// the row's byte count as its stride (never stepped; any multiple of 16
+// would do); no dimension of size 0 reaches the map (S is taken as at
+// least 1, and a block with nothing to load issues no copy).
+static bool head_map(CUtensorMap* map, int dtype, const void* base, int batch, int heads, int s,
+                     int d, long long sb, long long sh, long long ss, int box_rows) {
+  const long long row = 2LL * d;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(s > 1 ? s : 1),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s > 1 ? 2 * ss : row),
+                                 static_cast<cuuint64_t>(heads > 1 ? 2 * sh : row),
+                                 static_cast<cuuint64_t>(batch > 1 ? 2 * sb : row)};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
+  return make_map(map, dtype == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+                  4, base, dims, strides, box);
+}
+
+struct BwdViews {
+  const void *q, *k, *v, *dout;
+  long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
+  int d, dtype;
+};
+
 template <typename T, int D, bool kDkv>
-int launch_bwd(const BwdParams& p, int batch, cudaStream_t stream) {
-  constexpr int kSmem = kDkv ? dkv_smem_bytes<T, D>() : dq_smem_bytes<T, D>();
+int launch_bwd(const BwdParams& p, const BwdViews& w, cudaStream_t stream) {
+  constexpr int kSmem = kDkv ? DkvSmem<D>::kBytes : DqSmem<D>::kBytes;
   auto kernel = kDkv ? flash_bwd_dkv_kernel<T, D> : flash_bwd_dq_kernel<T, D>;
-  static bool configured = false;  // above 48 KB needs an explicit opt-in
-  if (!configured) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
-  if (kDkv) {
-    const dim3 grid((p.skv + kTile - 1) / kTile, p.hq / p.group, batch);
-    kernel<<<grid, kDkvThreads, kSmem, stream>>>(p);
-  } else {
-    const dim3 grid((p.sq + kTile - 1) / kTile, p.hq, batch);
-    kernel<<<grid, kDqThreads, kSmem, stream>>>(p);
-  }
+  static const int configured = allow_smem(kernel, kSmem);  // above 48 KB needs an opt-in
+  if (configured != cudaSuccess) return configured;
+  const int q_rows = kDkv ? kTile : kBlock, kv_rows = kDkv ? kBlock : kTile;
+  CUtensorMap qmap, omap, kmap, vmap;
+  if (!head_map(&qmap, w.dtype, w.q, p.batch, p.hq, p.sq, D, w.q_sb, w.q_sh, w.q_ss, q_rows) ||
+      !head_map(&omap, w.dtype, w.dout, p.batch, p.hq, p.sq, D, w.o_sb, w.o_sh, w.o_ss, q_rows) ||
+      !head_map(&kmap, w.dtype, w.k, p.batch, p.hkv, p.skv, D, w.k_sb, w.k_sh, w.k_ss, kv_rows) ||
+      !head_map(&vmap, w.dtype, w.v, p.batch, p.hkv, p.skv, D, w.v_sb, w.v_sh, w.v_ss, kv_rows))
+    return cudaErrorInvalidValue;
+  const long long blocks =
+      kDkv ? static_cast<long long>((p.skv + kBlock - 1) / kBlock) * p.hkv * p.batch * p.splits
+           : static_cast<long long>((p.sq + kBlock - 1) / kBlock) * p.hq * p.batch;
+  if (blocks <= 0) return cudaSuccess;
+  if (blocks > 0x7FFFFFFF) return cudaErrorInvalidValue;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, kSmem, stream>>>(qmap, omap, kmap, vmap, p);
+  if (!kDkv || p.splits == 1) return cudaGetLastError();
+  const int64_t part = static_cast<int64_t>(p.batch) * p.hkv * p.skv * D;
+  const unsigned combine_blocks = static_cast<unsigned>((part / 4 + 255) / 256);
+  flash_bwd_dkv_combine<T><<<combine_blocks, 256, 0, stream>>>(p, part);
   return cudaGetLastError();
 }
 
 template <bool kDkv>
-int dispatch_bwd(const BwdParams& p, int batch, int d, int dtype, cudaStream_t s) {
+int dispatch_bwd(const BwdParams& p, const BwdViews& w, cudaStream_t s) {
   using bf16 = __nv_bfloat16;
   using h16 = __half;
-  if (dtype == kBF16 && d == 64) return launch_bwd<bf16, 64, kDkv>(p, batch, s);
-  if (dtype == kBF16 && d == 128) return launch_bwd<bf16, 128, kDkv>(p, batch, s);
-  if (dtype == kF16 && d == 64) return launch_bwd<h16, 64, kDkv>(p, batch, s);
-  if (dtype == kF16 && d == 128) return launch_bwd<h16, 128, kDkv>(p, batch, s);
+  if (w.dtype == kBF16 && w.d == 64) return launch_bwd<bf16, 64, kDkv>(p, w, s);
+  if (w.dtype == kBF16 && w.d == 128) return launch_bwd<bf16, 128, kDkv>(p, w, s);
+  if (w.dtype == kF16 && w.d == 64) return launch_bwd<h16, 64, kDkv>(p, w, s);
+  if (w.dtype == kF16 && w.d == 128) return launch_bwd<h16, 128, kDkv>(p, w, s);
   return cudaErrorInvalidValue;
+}
+
+template <typename T>
+static void report_type(char* out, int cap, int& used, const char* t) {
+  char name[96];
+#define BWD_REPORT(label, kernel, smem)             \
+  snprintf(name, sizeof(name), "%s %s", label, t); \
+  report_one(out, cap, used, name, kernel, smem)
+  BWD_REPORT("B13a D64", (flash_bwd_dkv_kernel<T, 64>), DkvSmem<64>::kBytes);
+  BWD_REPORT("B13a D128", (flash_bwd_dkv_kernel<T, 128>), DkvSmem<128>::kBytes);
+  BWD_REPORT("B13b D64", (flash_bwd_dq_kernel<T, 64>), DqSmem<64>::kBytes);
+  BWD_REPORT("B13b D128", (flash_bwd_dq_kernel<T, 128>), DqSmem<128>::kBytes);
+  BWD_REPORT("B13a split combine", (flash_bwd_dkv_combine<T>), 0);
+#undef BWD_REPORT
 }
 
 }  // namespace fact
 
+// Writes the report of every B13a / B13b instantiation (the launch's
+// registers: the consumers raise theirs to 240 by setmaxnreg; local
+// (spill) bytes; shared memory) into `out` (at most `cap` bytes,
+// NUL-terminated); returns 0.
+extern "C" int fact_bwd_report(char* out, int cap) {
+  int used = 0;
+  if (cap <= 0) return 0;
+  out[0] = 0;
+  fact::report_type<__nv_bfloat16>(out, cap, used, "bf16");
+  fact::report_type<__half>(out, cap, used, "f16");
+  out[cap - 1] = 0;
+  return 0;
+}
+
 // One launch function for both kernels, counted apart by the wrapper
-// (ops/flash_bwd.py): `dkv` 1 launches B13a into out0 = dK and out1 = dV,
-// 0 launches B13b into out0 = dQ. Returns a cudaError_t code (0 on
-// success). Shapes, strides and dtypes are checked by the wrapper.
+// (ops/flash_bwd.py): `dkv` 1 launches B13a into out0 = dK and out1 = dV
+// (with `splits` > 1, through the fp32 workspace `ws` of 2 x splits x
+// B x Hkv x Skv x D floats and the combine pass), 0 launches B13b into
+// out0 = dQ (`ws`, `splits` unused). lse and delta are [B, Hq, Sq rounded
+// up to 128] fp32, contiguous, +inf / 0 past Sq. Returns a cudaError_t code
+// (0 on success). Shapes, strides, dtypes and the plan are checked by the
+// wrapper.
 extern "C" int fact_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
                               const void* lse, const void* delta, void* out0, void* out1,
                               int batch, int hq, int hkv, int sq, int skv, int d,
@@ -421,20 +636,21 @@ extern "C" int fact_flash_bwd(const void* q, const void* k, const void* v, const
                               long long v_sb, long long v_sh, long long v_ss,
                               long long o_sb, long long o_sh, long long o_ss,
                               float scale_log2, float scale, int causal, int window, int dtype,
-                              int dkv, void* stream) {
+                              int dkv, void* ws, int splits, void* stream) {
   using namespace fact;
   BwdParams p{};
-  p.q = q, p.k = k, p.v = v, p.dout = dout;
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
   p.out0 = out0, p.out1 = out1;
-  p.q_sb = q_sb, p.q_sh = q_sh, p.q_ss = q_ss;
-  p.k_sb = k_sb, p.k_sh = k_sh, p.k_ss = k_ss;
-  p.v_sb = v_sb, p.v_sh = v_sh, p.v_ss = v_ss;
-  p.o_sb = o_sb, p.o_sh = o_sh, p.o_ss = o_ss;
-  p.hq = hq, p.group = hq / hkv, p.sq = sq, p.skv = skv;
+  p.ws = static_cast<float*>(ws);
+  p.splits = dkv ? splits : 1;
+  if (p.splits < 1 || (p.splits > 1 && ws == nullptr)) return cudaErrorInvalidValue;
+  p.batch = batch, p.hq = hq, p.hkv = hkv, p.group = hq / hkv, p.sq = sq, p.skv = skv;
+  p.sq_pad = (sq + kRowPad - 1) / kRowPad * kRowPad;
   p.scale_log2 = scale_log2, p.scale = scale;
   p.causal = causal, p.window = window;
+  const BwdViews w{q, k, v, dout, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
+                   v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, d, dtype};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dkv ? dispatch_bwd<true>(p, batch, d, dtype, s) : dispatch_bwd<false>(p, batch, d, dtype, s);
+  return dkv ? dispatch_bwd<true>(p, w, s) : dispatch_bwd<false>(p, w, s);
 }

@@ -78,11 +78,9 @@
 // (`int8_pair`). Not copied from the TPU kernels: their tile caps, the scale
 // rows padded to 8 sublanes, the compile-service workaround, and the -8 *
 // rowsum(x) correction (subtracting 8 at unpack is exact here).
-#include "common.cuh"
-
-#include <cuda.h>
-
 #include <cstdio>
+
+#include "hopper.cuh"
 
 namespace fact {
 
@@ -164,11 +162,7 @@ __device__ __forceinline__ uint32_t nibbles(uint32_t t) {
 }
 
 // ---------------------------------------------------------------------------
-// Asynchronous copies, barriers and wgmma (sm_90a).
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+// cp.async copies and shared-memory loads (TMA, mbarriers and wgmma: hopper.cuh).
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
@@ -187,62 +181,6 @@ __device__ __forceinline__ uint4 lds128(uint32_t a) {
                : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
                : "r"(a));
   return v;
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// Returns once the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes.
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keeps the compiler from moving reads or writes of accumulator registers
-// across the asynchronous wgmma boundaries.
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -526,12 +464,6 @@ __device__ __forceinline__ void step_tile(int i, int& lt, int& half) {
   }
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
 // One register of ldmatrix.trans over raw weight bytes holds, for the lane
 // (g, t4), columns 2g, 2g + 1 (bytes 0, 1) of K row 2 t4 and the same
 // columns (bytes 2, 3) of K row 2 t4 + 1: the A fragment pair of column 2g
@@ -554,32 +486,6 @@ __device__ __forceinline__ void fence_a(uint32_t (&a)[4][4]) {
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
-}
-
-#define QMM_D8(i)                                                                       \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-      "+f"(d[i + 6]), "+f"(d[i + 7])
-#define QMM_WGMMA_RS_128(TYPE)                                                                   \
-  asm volatile(                                                                                  \
-      "{\n .reg .pred p;\n setp.ne.b32 p, %68, 0;\n"                                             \
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TYPE "." TYPE                               \
-      " {%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23," \
-      "%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45," \
-      "%46,%47,%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63},"                \
-      " {%64,%65,%66,%67}, %69, p, 1, 1, 0;\n}\n"                                                \
-      : QMM_D8(0), QMM_D8(8), QMM_D8(16), QMM_D8(24), QMM_D8(32), QMM_D8(40), QMM_D8(48),        \
-        QMM_D8(56)                                                                               \
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d), "l"(db))
-
-// d (+)= A[64 x 16] (registers) @ B[16 x 128] (shared memory, K-major).
-template <typename T>
-__device__ __forceinline__ void wgmma_rs_128(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
-                                             int scale_d) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    QMM_WGMMA_RS_128("bf16");
-  } else {
-    QMM_WGMMA_RS_128("f16");
-  }
 }
 
 // y^T = W^T x^T per block: the weight is wgmma's A operand, widened into
@@ -605,13 +511,13 @@ __global__ void __launch_bounds__(kPreThreads, 1)
   if (threadIdx.x == 0) {
     for (int s = 0; s < kXS; ++s) mbar_init(full_x(s), 1), mbar_init(empty_x(s), 8);
     for (int s = 0; s < kWS; ++s) mbar_init(full_w(s), 1), mbar_init(empty_w(s), 8);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
   if (threadIdx.x < 128) {
     // Producer warpgroup: one thread keeps the rings full.
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
       for (int i = 0; i < nsteps; ++i) {
         int lt, half, klo, khi;
@@ -630,7 +536,7 @@ __global__ void __launch_bounds__(kPreThreads, 1)
       }
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    setmaxnreg_inc<232>();
     const int ct = threadIdx.x - 128, cwg = ct >> 7, lane = ct & 31, g = lane >> 2;
     // The warp's 16 weight columns: 16-byte chunk 4 cwg + (warp in the
     // warpgroup) of the tile's 128-byte rows. ldmatrix lane addresses: lanes
@@ -689,7 +595,7 @@ __global__ void __launch_bounds__(kPreThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs_128<T>(d, cur[kk], db + 2 * kk, (kInt4 && !(i & 1) && kk == 0) ? 0 : 1);
+        wgmma_rs<T, 128, false>(d, cur[kk], db + 2 * kk, (kInt4 && !(i & 1) && kk == 0) ? 0 : 1);
       wgmma_commit();
       fence_regs(d);
       wgmma_wait<1>();  // step i - 1's products are done
@@ -773,50 +679,6 @@ __global__ void __launch_bounds__(256) qmm_combine_kernel(const QmmArgs p) {
 // ---------------------------------------------------------------------------
 // Host side.
 
-// libcuda's cuTensorMapEncodeTiled, fetched through the runtime, so that no
-// -lcuda is needed.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
-                                     &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A 2-D map of a row-major [rows, cols] array, boxes of box_cols x box_rows
-// with the 128-byte swizzle; out-of-bounds elements read as zero.
-static bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, uint64_t cols,
-                     uint64_t rows, uint64_t row_bytes, uint32_t box_cols, uint32_t box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-template <typename Kernel>
-static int allow_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
 template <typename T, bool kInt4, int kNT8, int kHalves>
 static int launch_decode(const QmmArgs& p, cudaStream_t stream) {
   constexpr int kSmem = decode_smem<kInt4, kNT8, kHalves>();
@@ -895,21 +757,6 @@ static int dispatch_qmm(const void* x, const void* w, const void* s, void* y, vo
   if (dtype == kBF16) return run_qmm<__nv_bfloat16, kInt4>(p, route, tile_n, dtype, st);
   if (dtype == kF16) return run_qmm<__half, kInt4>(p, route, tile_n, dtype, st);
   return cudaErrorInvalidValue;
-}
-
-// One line per kernel instantiation: registers, local (spill) bytes and the
-// dynamic shared memory it is launched with.
-template <typename Kernel>
-static void report_one(char* out, int cap, int& used, const char* name, Kernel kernel, int smem) {
-  cudaFuncAttributes a{};
-  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
-  if (used >= cap) return;
-  const int n = err == cudaSuccess
-                    ? snprintf(out + used, cap - used,
-                               "%s: %d registers, %zu bytes local (spill), %d bytes shared memory\n",
-                               name, a.numRegs, a.localSizeBytes, smem + static_cast<int>(a.sharedSizeBytes))
-                    : snprintf(out + used, cap - used, "%s: %s\n", name, cudaGetErrorString(err));
-  used += n > 0 ? n : 0;
 }
 
 template <typename T>

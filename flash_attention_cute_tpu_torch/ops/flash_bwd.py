@@ -14,29 +14,87 @@ plain version, a CUDA tensor launches B13a then B13b (csrc/flash_bwd.cu),
 which replace `_flash_bwd_dkv_kernel` and `_flash_bwd_dq_kernel`. The
 kernels take bf16 / f16, D 64 / 128, bottom-right causal masking, the
 sliding window, GQA / MQA (dK and dV sum over the q-head group inside a
-block, deterministically) and any strides with the head dim contiguous.
-What they do not take raises (the soft cap is not an argument here, as in
-JAX; D 256 is ROADMAP.md A10b); nothing falls back. The TPU block
-arguments `block_q` / `block_kv` are accepted and ignored.
+block, deterministically) and the strided views `_build.check_cuda_tensor`
+takes (head dim contiguous, 16-byte aligned rows), which they read by TMA
+in place. What they do not take raises (the soft cap is not an argument
+here, as in JAX; D 256 is ROADMAP.md A10b); nothing falls back. The TPU
+block arguments `block_q` / `block_kv` are accepted and ignored.
+
+B13a runs one block per (128 keys, kv head, batch row). Where those are
+too few to fill the card, `dkv_splits` (pure Python, from the shapes
+alone) cuts each block's walk over the group's q tiles into parts, one
+block each, whose fp32 partials a second pass of the same C call adds in
+split order: the result still repeats bit for bit.
+
+The kernels read the lse and delta rows by bulk copies of whole 64- or
+128-row tiles, so they take both as fp32 [B, Hq, Sq rounded up to
+ROW_PAD] buffers, +inf and 0 past Sq (`padded_rows`). delta is computed
+into one; the lse is copied into one only when Sq is not a multiple of
+ROW_PAD (B * Hq * Sq * 4 bytes).
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
+from flash_attention_cute_tpu_torch.dispatch import NUM_SMS
 from flash_attention_cute_tpu_torch.ops import _build
 from flash_attention_cute_tpu_torch.ops.reference import prefill_mask
 
 LOG2E = math.log2(math.e)
 HEAD_DIMS = (64, 128)
+ROW_PAD = 128  # csrc/flash_bwd.cu kRowPad: the lse / delta rows a B13b block reads
+KEY_BLOCK = 128  # keys of a B13a block (csrc/flash_bwd.cu kBlock)
+Q_TILE = 64  # q rows of a B13a tile
+MAX_SPLITS = 8
+MIN_SPLIT_TILES = 4  # q tiles a split walks at the least, on the longest walk
 
 P, I, L, F = _build.P, _build.I, _build.L, _build.F
-_ARGS = [P] * 8 + [I] * 6 + [L] * 12 + [F, F, I, I, I, I, P]
+_ARGS = [P] * 8 + [I] * 6 + [L] * 12 + [F, F, I, I, I, I, P, I, P]
 # One C entry point, counted as two kernels by its `dkv` argument.
 DKV = _build.Kernel("flash_bwd_dkv", "flash_bwd.cu", "fact_flash_bwd", _ARGS)
 DQ = _build.Kernel("flash_bwd_dq", "flash_bwd.cu", "fact_flash_bwd", _ARGS)
+
+
+def dkv_splits(batch: int, hkv: int, group: int, sq: int, skv: int) -> int:
+    """Parts into which B13a cuts each key block's walk (1: no split).
+
+    A block walks up to group x ceil(Sq / 64) q tiles. Split only while
+    the blocks cover at most half the SMs: then to about one block an SM
+    (NUM_SMS // blocks), at most MAX_SPLITS, and no finer than MIN_SPLIT_TILES
+    tiles a part on the longest walk. Each part beyond the first costs an
+    fp32 round trip of dK and dV through the workspace."""
+    blocks = -(-skv // KEY_BLOCK) * hkv * batch
+    if blocks == 0 or 2 * blocks > NUM_SMS:
+        return 1
+    walk = group * -(-sq // Q_TILE)
+    return max(1, min(NUM_SMS // blocks, MAX_SPLITS, walk // MIN_SPLIT_TILES))
+
+
+def padded_rows(x: torch.Tensor, sq: int, fill: float) -> torch.Tensor:
+    """Per-row fp32 values [B, Hq, Sq] as the kernels read them: contiguous
+    [B, Hq, Sq rounded up to ROW_PAD], `fill` past Sq. `x` itself when it
+    already is such a buffer (an lse at Sq a multiple of ROW_PAD)."""
+    width = -(-sq // ROW_PAD) * ROW_PAD
+    if (x.shape[-1] == width and x.dtype == torch.float32 and x.is_contiguous()
+            and x.data_ptr() % 16 == 0):
+        return x
+    return torch.nn.functional.pad(x[..., :sq].float(), (0, width - sq), value=fill).contiguous()
+
+
+def kernel_report() -> str:
+    """Registers, spill bytes and shared memory of every B13a / B13b kernel
+    instantiation, as the card's runtime reports them (builds the library
+    if needed; needs the card)."""
+    lib = _build.load(DKV.source)
+    fn = lib.fact_bwd_report
+    fn.argtypes, fn.restype = [ctypes.c_char_p, ctypes.c_int], ctypes.c_int
+    buf = ctypes.create_string_buffer(4096)
+    fn(buf, len(buf))
+    return buf.value.decode()
 
 
 def flash_attention_bwd_plain(q, k, v, o, do, lse, sm_scale=None, causal=False, window=None,
@@ -109,8 +167,8 @@ def flash_attention_bwd(
     if not (q.device == k.device == v.device == do.device == o.device == lse.device):
         raise ValueError("q, k, v, o, do, lse must be on one device")
 
-    lse = lse.to(torch.float32).contiguous()
-    delta = (do.float() * o.float()).sum(-1)  # [B, Hq, Sq] fp32, contiguous
+    lse = padded_rows(lse, sq, math.inf)
+    delta = padded_rows((do.float() * o.float()).sum(-1), sq, 0.0)
     dq = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, hkv, skv, d), dtype=k.dtype, device=q.device)
     dv = torch.empty_like(dk)
@@ -122,13 +180,24 @@ def flash_attention_bwd(
 
 
 def launch(kernel, q, k, v, do, lse, delta, out0, out1, sm_scale, causal, window: int) -> None:
-    """One launch of B13a (`DKV`: out0 = dK, out1 = dV) or B13b (`DQ`: out0 =
-    dQ) on inputs `flash_attention_bwd` has checked (window 0 for none)."""
+    """One launch of B13a (`DKV`: out0 = dK, out1 = dV, split as `dkv_splits`
+    plans) or B13b (`DQ`: out0 = dQ) on inputs `flash_attention_bwd` has
+    checked (window 0 for none); lse and delta [B, Hq, Sq], or already
+    padded (`padded_rows`)."""
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
+    lse, delta = padded_rows(lse, sq, math.inf), padded_rows(delta, sq, 0.0)
+    ws = None
+    if kernel is DKV:
+        splits = dkv_splits(b, hkv, hq // hkv, sq, skv)
+        if splits > 1:
+            ws = torch.empty((2, splits, b, hkv, skv, d), dtype=torch.float32, device=q.device)
+    else:
+        splits = 1
     with torch.cuda.device(q.device):
         kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                delta.data_ptr(), out0.data_ptr(), None if out1 is None else out1.data_ptr(),
                b, hq, hkv, sq, skv, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                *do.stride()[:3], float(sm_scale) * LOG2E, float(sm_scale), int(causal), window,
-               _build.DTYPE_CODES[q.dtype], int(kernel is DKV))
+               _build.DTYPE_CODES[q.dtype], int(kernel is DKV),
+               None if ws is None else ws.data_ptr(), splits)

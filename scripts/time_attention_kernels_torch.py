@@ -15,7 +15,16 @@ rows of 174-923 keys, page_size 128); B6 at run B's extend (8 rows, chunk
 scale 256 ** -0.5) with and without the soft cap 50, where the tree takes
 them (null where it raises NotImplementedError): P at B 2, S 4608; B2 with
 window 4096 there; D1 at B 2, 4624 of 4640 positions; B6 at run B's extend.
-Prints one JSON line with the card's name and power limit.
+The backward kernels B13a (dK, dV) and B13b (dQ), each launched alone
+through `flash_bwd.launch` (causal, bf16, q / k / v / dO contiguous, the
+kernel forward's o and lse): at the training step's attention (B 2, S 2048,
+32 / 8 heads, D 128), at D 64 (B 2, S 1024), with the window of 4096 at B 1,
+S 5120, at Qwen2-7B's 28 / 4 heads (B 1, S 1024), and non-causal at B 1, S
+2048 (as many visible pairs as the training shape, in blocks of equal
+work). Their bounds ("bound" entries, the same for every tree): B13a 8 D
+and B13b 6 D operations per visible (row, key) pair and q head at the bf16
+peak, or their bytes (inputs and outputs once) at 3.35 TB/s, whichever is
+longer. Prints one JSON line with the card's name and power limit.
 """
 
 import json
@@ -28,9 +37,44 @@ sys.path.insert(0, os.getcwd())
 import torch  # noqa: E402
 
 from flash_attention_cute_tpu_torch import dispatch  # noqa: E402
-from flash_attention_cute_tpu_torch.ops import flash_decode, flash_fwd  # noqa: E402
+from flash_attention_cute_tpu_torch.ops import flash_bwd, flash_decode, flash_fwd  # noqa: E402
 from flash_attention_cute_tpu_torch.ops import paged_attention as pa  # noqa: E402
 from flash_attention_cute_tpu_torch.utils.timing import cuda_time_ms  # noqa: E402
+
+PEAK_BF16, PEAK_BYTES = 989e12, 3.35e12
+
+
+def visible_pairs(s: int, causal: bool, window: int | None) -> int:
+    """(row, key) pairs a head sees at Sq = Skv = s."""
+    if not causal:
+        return s * s
+    w = window or s
+    return sum(min(m + 1, w) for m in range(s))
+
+
+def backward_times(randn, timed, out):
+    for name, b, hq, s, d, causal, w in (("B2 S2048", 2, 32, 2048, 128, True, None),
+                                         ("D64 B2 S1024", 2, 32, 1024, 64, True, None),
+                                         ("W4096 B1 S5120", 1, 32, 5120, 128, True, 4096),
+                                         ("qwen2 28/4 B1 S1024", 1, 28, 1024, 128, True, None),
+                                         ("non-causal B1 S2048", 1, 32, 2048, 128, False, None)):
+        hkv = 4 if hq == 28 else 8
+        q, do = randn(b, hq, s, d), randn(b, hq, s, d)
+        k, v = randn(b, hkv, s, d), randn(b, hkv, s, d)
+        o, lse = flash_fwd.flash_attention_fwd(q, k, v, causal=causal, window=w, return_lse=True)
+        delta = (do.float() * o.float()).sum(-1)
+        pairs = b * hq * visible_pairs(s, causal, w)
+        io = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * 2 * lse.numel()
+        dk, dv, dq = torch.empty_like(k), torch.empty_like(v), torch.empty_like(q)
+        for kname, kernel, outs, ops, out_bytes in (
+                ("B13a", flash_bwd.DKV, (dk, dv), 8, 4 * k.numel()),
+                ("B13b", flash_bwd.DQ, (dq, None), 6, 2 * q.numel())):
+            label = f"{kname} {name}"
+            out[label] = timed(lambda: flash_bwd.launch(kernel, q, k, v, do, lse, delta, *outs,
+                                                        d ** -0.5, causal, w or 0), 20)
+            out[f"bound {label}"] = 1e3 * max(ops * d * pairs / PEAK_BF16,
+                                              (io + out_bytes) / PEAK_BYTES)
+        del q, k, v, do, o, lse, delta, dk, dv, dq
 
 
 def main() -> None:
@@ -102,6 +146,7 @@ def main() -> None:
             out[label] = timed(lambda: pa.paged_attention_extend(
                 q, kp, vp, off, off + 256, table, **capped(cap)), 20)
         del kp, vp
+    backward_times(randn, timed, out)
     print(json.dumps(out))
 
 

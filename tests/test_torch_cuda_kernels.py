@@ -29,8 +29,10 @@ backward kernels B13a / B13b take the kernel forward's o and lse and are
 held to `flash_attention_bwd_plain` on the same inputs by max |diff| over
 max |plain| <= 2e-2: gradients grow with the sequence, and the kernels
 round P and dS to bf16 / f16 before their products (one step is 2^-8
-relative), as the forward rounds P before PV. The packed-batch kernel B12
-is held to its fp32 plain version at 3e-2.
+relative), as the forward rounds P before PV. A second call repeats them
+bit for bit; B13a's split walk is held to one pass over the walk within
+2^-7 relative (the same fp32 sums grouped otherwise, each rounded once).
+The packed-batch kernel B12 is held to its fp32 plain version at 3e-2.
 """
 
 import dataclasses
@@ -872,6 +874,12 @@ BACKWARD = {
     "ragged_s1000": (1, 32, 8, 1000, 1000, 128, True, None, torch.bfloat16),
     "qwen2_group7": (1, 28, 4, 512, 512, 128, True, None, torch.bfloat16),
     "f16_d64_mqa": (2, 8, 1, 333, 333, 64, True, None, torch.float16),
+    # tiles of 128 keys and 64 rows cut short or ragged; the split walk
+    "short_s130": (1, 32, 8, 130, 130, 128, True, None, torch.bfloat16),
+    "sq64_skv1000": (1, 32, 8, 64, 1000, 128, True, None, torch.bfloat16),
+    "sq1000_skv64_zero_rows": (1, 32, 8, 1000, 64, 128, True, None, torch.bfloat16),
+    "mqa_group32": (1, 32, 1, 512, 512, 128, True, None, torch.bfloat16),
+    "window_48_ragged_d64": (1, 8, 2, 300, 300, 64, True, 48, torch.bfloat16),
 }
 
 
@@ -921,6 +929,24 @@ def test_backward_kernels_match_plain(device, case):
         assert rel_err(a, w) <= GRAD_REL_TOL, (name, rel_err(a, w))
     if sq > skv and causal:
         assert (got[0][:, :, : sq - skv] == 0).all()  # rows with no key
+
+
+@pytest.mark.parametrize("case", list(BACKWARD), ids=list(BACKWARD))
+def test_backward_kernels_repeat_bit_for_bit(device, case):
+    """No atomics: a second call, with the same split plan, gives the same
+    bits (dK and dV sum the group and the splits in a fixed order)."""
+    b, hq, hkv, sq, skv, d, causal, window, dtype = BACKWARD[case]
+    gen = torch.Generator(device="cuda").manual_seed(35)
+    q = randn(gen, b, sq, hq, d, dtype=dtype).transpose(1, 2)
+    k = randn(gen, b, skv, hkv, d, dtype=dtype).transpose(1, 2)
+    v = randn(gen, b, skv, hkv, d, dtype=dtype).transpose(1, 2)
+    do = randn(gen, b, sq, hq, d, dtype=dtype).transpose(1, 2)
+    o, lse = flash_fwd.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                           return_lse=True)
+    first = flash_bwd.flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window)
+    second = flash_bwd.flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window)
+    for name, a, c in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, c), name
 
 
 @pytest.mark.parametrize("window", [None, 48])
