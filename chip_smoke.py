@@ -9,10 +9,16 @@ Phases, in order; any failure exits non-zero:
   1. device: a CUDA card of compute capability 9.0; its name and power limit.
   2. build: every kernel of the main paths from csrc/ (one nvcc per source,
      all at once), with the ptxas register / shared-memory / spill report
-     and, for every B10 / B11 and B13a / B13b instantiation, the runtime's
-     registers, spill bytes and launch shared memory (no spill allowed);
-     then the native scheduler (csrc/page_allocator.cpp) with g++.
-  3. kernels vs plain: P, D1, D2, B5 (paged decode), B6 (paged extend) and
+     and, for every B10 / B11, P / B2 and B13a / B13b instantiation, the
+     runtime's registers, spill bytes and launch shared memory (no spill
+     allowed); then the native scheduler (csrc/page_allocator.cpp) with g++.
+  3. kernels vs plain: P / B2 with their lse (PREFILL_CASES: the main
+     path's B 4 S 512, S 1, 63, 65, 130 and 1000 at the edges of the
+     kernel's 128-row blocks and 128-key tiles, Sq 64 / Skv 1000, Sq 1000 /
+     Skv 64 and Sq 1024 / Skv 256 with rows of no key (exact zeros, lse
+     +inf), GQA groups 1, 7 and 32, f16, non-causal, windows of 1, 45 and
+     400 keys, transposed q / k / v views; every call repeated, output and
+     lse bit for bit), D1, D2, B5 (paged decode), B6 (paged extend) and
      the paged append at Llama-3-8B attention widths against their plain
      PyTorch versions on the card (bf16; tolerance below), B5/B6 over
      NaN-poisoned pools behind permuted page tables; then (3b) the
@@ -56,7 +62,9 @@ Phases, in order; any failure exits non-zero:
      widths (Hq 16, Hkv 8, D 256, scale 256 ** -0.5), each case with the
      model's cap 50 and with 1.0 (which binds on every score), against the
      fp32 plain versions run on q's fp32 image: P (causal B 2 S 4608, Sq 256
-     / Skv 1024, ragged S 1000 in f16) and B2 (B 2 S 4608, window 4096), D1
+     / Skv 1024, ragged S 1000 in f16, Sq 1000 / Skv 64 with rows of no
+     key, MQA group 16) and B2 (B 2 S 4608, window 4096), each with its lse
+     (LSE_TOL) and repeated bit for bit, D1
      + D2 (capacity 4640, windows none and 4096, NaN past every length), B5
      and B6 (page sizes 16 and 128, NaN-poisoned pools behind permuted
      tables, B6 with and without the window), the paged append at D 256
@@ -103,7 +111,8 @@ Phases, in order; any failure exits non-zero:
      prefill (B2) and decode-step (D1 + D2) logits at B 2, prompt 5120,
      against the plain_attention route run one row at a time; greedy
      generation of 32 tokens over a bf16 cache (B2 32 launches, D1 + D2 31 x
-     32) and over an int8 cache (B2 32, QA 32 x 32, B7 + D2 31 x 32; its
+     32) with its prefill and decode times apart, and over an int8 cache
+     (B2 32, QA 32 x 32, B7 + D2 31 x 32; its
      decode step held to the plain route over one and the same cache); the
      serving engine over 8 requests (prompts 4200-5000 tokens, 16-32 new,
      numpy seed 0, 4 slots) in runs M1 (whole-prompt admission, page_size
@@ -111,7 +120,8 @@ Phases, in order; any failure exits non-zero:
      chunks, page_size 16: B6, B5 + D2), every token teacher-forced through
      one contiguous prefill (B2). (4g) Qwen2-7B (non-zero q/k/v biases,
      28 / 4 heads): teacher-forced logits at B 4, prompt 512, and greedy
-     generation of 32 tokens (P 28, D1 + D2 31 x 28). Each tree is dropped
+     generation of 32 tokens (P 28, D1 + D2 31 x 28) with its prefill and
+     decode times apart. Each tree is dropped
      before the next is drawn. (4h) Training: Llama-3-8B at full width,
      depth cut to 8 layers (printed; AdamW over 32 bf16 layers needs about
      64 GB before activations), random weights from a seeded CUDA
@@ -154,7 +164,9 @@ Phases, in order; any failure exits non-zero:
      the rows of B13a and B13b at the training step's attention (B 2, S
      2048, causal; library_ms: SDPA's backward, forward + backward minus
      forward) and of B12 at 3g's packed batch (library_ms: SDPA over the
-     padded batch), and the lse's cost on P and B2 (with and without it);
+     padded batch), and the lse's cost on P and B2 (with and without it;
+     at the training shape also its launches, bound, plain version and
+     SDPA's forward);
      the training numbers ("training"); (5d) the "gemma2" entries of the P,
      B2, D1, D2, B5, B6 and append rows at Gemma-2-9B shapes with the cap
      50 (library_ms: `flex_attention` with a tanh score_mod for P / B2 where
@@ -220,29 +232,87 @@ def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
+# Phase 3: (name, batch, hq, hkv, sq, skv, causal, window, dtype, transposed)
+# of P / B2 at Llama widths (D 128) against the fp32 plain version: the
+# main path's shape, the edges of the kernel's 128-row blocks and 128-key
+# tiles, rows with no key, GQA groups 1, 7 (Qwen2) and 32, f16, non-causal,
+# windows of 1, 45 and 400 keys, the model's transposed views.
+PREFILL_CASES = (
+    ("B4 S512 main path", 4, 32, 8, 512, 512, True, None, "bfloat16", False),
+    ("B2 S1024 causal", 2, 32, 8, 1024, 1024, True, None, "bfloat16", False),
+    ("S1", 2, 32, 8, 1, 1, True, None, "bfloat16", False),
+    ("S63", 1, 32, 8, 63, 63, True, None, "bfloat16", False),
+    ("S65", 1, 32, 8, 65, 65, True, None, "bfloat16", True),
+    ("S130", 1, 32, 8, 130, 130, True, None, "bfloat16", True),
+    ("S1000 ragged", 1, 32, 8, 1000, 1000, True, None, "bfloat16", True),
+    ("Sq256 Skv1024 offset", 1, 32, 8, 256, 1024, True, None, "bfloat16", False),
+    ("Sq64 Skv1000", 1, 32, 8, 64, 1000, True, None, "bfloat16", False),
+    ("Sq1024 Skv256 zero rows", 1, 32, 8, 1024, 256, True, None, "bfloat16", False),
+    ("Sq1000 Skv64 zero rows", 1, 32, 8, 1000, 64, True, None, "bfloat16", True),
+    ("group 1", 1, 8, 8, 300, 300, True, None, "bfloat16", False),
+    ("Qwen2 group 7", 2, 28, 4, 700, 700, True, None, "bfloat16", True),
+    ("MQA group 32", 1, 32, 1, 1000, 1000, True, None, "bfloat16", False),
+    ("f16", 1, 32, 8, 333, 333, True, None, "float16", True),
+    ("non-causal Sq300 Skv1000", 1, 32, 8, 300, 1000, False, None, "bfloat16", False),
+    ("window 1", 1, 32, 8, 1000, 1000, True, 1, "bfloat16", True),
+    ("window 45", 1, 32, 8, 1000, 1000, True, 45, "bfloat16", True),
+    ("window 400", 1, 32, 8, 1000, 1000, True, 400, "bfloat16", True),
+)
+
+
+def held_prefill(torch, flash_fwd, errs, what, q, k, v, causal, window, cap=None, gemma=False):
+    """One P / B2 call with its lse against the fp32 plain version run on q's
+    fp32 image: output within BF16_TOL and finite, lse within LSE_TOL on
+    finite entries with the same +inf rows, rows with no key exact zeros; a
+    second call (with and without the lse) repeats the bits. Errors go to
+    the kernel's entries of `errs` (also "<kernel> gemma2" with `gemma`)."""
+    kw = dict(causal=causal, window=window, logit_softcap=cap)
+    out, lse = flash_fwd.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    again, lse_again = flash_fwd.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    bare = flash_fwd.flash_attention_fwd(q, k, v, **kw)
+    same = torch.equal(out, again) and torch.equal(lse, lse_again) and torch.equal(out, bare)
+    del again, lse_again, bare
+    ref, ref_lse = flash_fwd.flash_attention_fwd_plain(q.float(), k.float(), v.float(),
+                                                       return_lse=True, **kw)
+    e = max_err(out, ref)
+    fin = torch.isfinite(ref_lse)
+    e_lse = (lse[fin] - ref_lse[fin]).abs().max().item() if bool(fin.any()) else 0.0
+    name = "flash_fwd_window" if window and window < k.shape[2] else "flash_fwd"
+    for key in (name, f"{name} gemma2") if gemma else (name,):
+        errs[key] = max(errs.get(key, 0.0), e)
+        errs[f"{key} lse"] = max(errs.get(f"{key} lse", 0.0), e_lse)
+    print(f"  {what}: max|diff| {e:.3e}, lse {e_lse:.2e}, repeated bit for bit: {same}")
+    check(bool(torch.isfinite(out).all()), f"{what}: finite")
+    check(e <= BF16_TOL, f"{what} within {BF16_TOL}")
+    check(torch.equal(torch.isinf(lse), torch.isinf(ref_lse)), f"{what}: lse +inf pattern")
+    check(e_lse <= LSE_TOL, f"{what}: lse within {LSE_TOL}")
+    check(same, f"{what}: a second call repeats output and lse bit for bit")
+    sq, skv = q.shape[2], k.shape[2]
+    if causal and sq > skv:
+        dead = slice(0, sq - skv)
+        check(bool((out[:, :, dead] == 0).all()) and bool(torch.isinf(lse[:, :, dead]).all()),
+              f"{what}: rows with no key are exact zeros with lse +inf")
+
+
 def phase_kernels(torch, flash_fwd, flash_decode, errs):
-    """P, D1, D2 against their plain versions (Hq 32, Hkv 8, D 128, bf16)."""
+    """P / B2 (PREFILL_CASES, with the lse), D1, D2 against their plain
+    versions (Hq 32, Hkv 8, D 128, bf16)."""
     gen = torch.Generator(device="cuda").manual_seed(1234)
 
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    for name, (b, sq, skv) in {
-        "B2 S1024 causal": (2, 1024, 1024),
-        "S1000 ragged": (1, 1000, 1000),
-        "Sq256 Skv1024 offset": (1, 256, 1024),
-        "Sq1024 Skv256 zero rows": (1, 1024, 256),
-        "B4 S512 main path": (4, 512, 512),
-    }.items():
-        q, k, v = randn(b, 32, sq, 128), randn(b, 8, skv, 128), randn(b, 8, skv, 128)
-        out = flash_fwd.flash_attention_fwd(q, k, v, causal=True)
-        ref = flash_fwd.flash_attention_fwd_plain(q, k, v, causal=True)
-        e = max_err(out, ref)
-        errs["flash_fwd"] = max(errs.get("flash_fwd", 0.0), e)
-        print(f"  P {name}: max|diff| {e:.3e}")
-        check(e <= BF16_TOL, f"P {name} within {BF16_TOL}")
-        if sq > skv:
-            check(bool((out[:, :, : sq - skv] == 0).all()), "P rows with no key are 0")
+    for name, b, hq, hkv, sq, skv, causal, w, dt, transposed in PREFILL_CASES:
+        dtype = getattr(torch, dt)
+        if transposed:  # the model's [B, S, H, D] projections
+            q = randn(b, sq, hq, 128, dtype=dtype).transpose(1, 2)
+            k, v = (randn(b, skv, hkv, 128, dtype=dtype).transpose(1, 2) for _ in "kv")
+        else:
+            q = randn(b, hq, sq, 128, dtype=dtype)
+            k, v = randn(b, hkv, skv, 128, dtype=dtype), randn(b, hkv, skv, 128, dtype=dtype)
+        held_prefill(torch, flash_fwd, errs, f"{'B2' if w else 'P'} {name} ({hq} / {hkv} heads, "
+                     f"{dt}{', transposed views' if transposed else ''})", q, k, v, causal, w)
+        del q, k, v
 
     lens = [576, 513, 37, 0]
     kc, vc = randn(4, 4, 8, 576, 128), randn(4, 4, 8, 576, 128)
@@ -1923,7 +1993,8 @@ def phase_family(torch, cfg, params, seed, b, prompt, new, kernels, path_counts,
     (prefill: B2 on each layer whose window binds, else P; D1 + D2 per layer
     and decode step)."""
     import numpy as np
-    from flash_attention_cute_tpu_torch.runtime.generate import greedy_generate
+    from flash_attention_cute_tpu_torch.runtime.generate import decode_loop, greedy_generate, prefill
+    from flash_attention_cute_tpu_torch.utils.timing import wall_time_s
 
     n = cfg.num_layers
     ids = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, prompt)))
@@ -1945,8 +2016,19 @@ def phase_family(torch, cfg, params, seed, b, prompt, new, kernels, path_counts,
         ((tokens >= 0) & (tokens < cfg.vocab_size)).all()), f"{label}: tokens in vocab")
     check_counts(counts, {**prefill_counts(cfg, prompt), "decode_partials": n * (new - 1),
                           "decode_combine": n * (new - 1)}, f"{label} greedy")
+    # Prefill and decode apart, on the host clock (not a counted path).
+    with torch.no_grad():
+        (last, cache), pre_s = wall_time_s(lambda: prefill(params, cfg, ids, prompt + new))
+        first = last.argmax(-1).to(torch.int32)
+        _, dec_s = wall_time_s(lambda: decode_loop(params, cfg, first, cache, new - 1))
+    del cache, last
+    torch.cuda.empty_cache()
+    print(f"  {label} prefill B{b} x {prompt}: {1e3 * pre_s:.1f} ms; decode "
+          f"{1e3 * dec_s / (new - 1):.2f} ms/token")
     return ids, tokens, {"teacher_forced_max_mean_diff": diffs, "greedy_wall_s": wall,
-                         "greedy_tokens_per_s": b * new / wall}
+                         "greedy_tokens_per_s": b * new / wall, "prefill_ms": 1e3 * pre_s,
+                         "prefill_tokens_per_s": b * prompt / pre_s,
+                         "decode_ms_per_token": 1e3 * dec_s / (new - 1)}
 
 
 def phase_mistral(torch, cfg, params, kernels, path_counts):
@@ -2397,10 +2479,10 @@ LSE_TOL = 1e-3
 GRAD_REL_TOL = 2e-2
 
 
-def bwd_attributes(report: str, label: str) -> dict:
-    """Registers, spill and shared bytes of one B13a / B13b instantiation
-    as the runtime reports them (`flash_bwd.kernel_report()`; the training
-    step's: D 128, bf16)."""
+def runtime_attributes(report: str, label: str) -> dict:
+    """Registers, spill and shared bytes of one P / B2 or B13a / B13b
+    instantiation as the runtime reports them (`flash_fwd.kernel_report()`,
+    `flash_bwd.kernel_report()`)."""
     line = next(x for x in report.splitlines() if x.startswith(label + ":"))
     regs, spill, shared = (int(n) for n in re.findall(r"(\d+) (?:registers|bytes)", line))
     return {"instantiation": label, "registers_at_launch": regs, "spill_bytes": spill,
@@ -2657,7 +2739,7 @@ def phase_training(torch, cfg, kernels, path_counts):
     for e in events:
         key = e.key
         part = ("B13a dK/dV" if "flash_bwd_dkv" in key else "B13b dQ" if "flash_bwd_dq" in key
-                else "P (forward with lse)" if "attention_fwd" in key
+                else "P (forward with lse)" if "flash_fwd_kernel" in key
                 else "cuBLAS products" if any(s in key.lower() for s in (
                     "nvjet", "gemm", "cutlass", "xmma", "cublas")) else "other")
         split[part] += dev_us(e) / 1e3
@@ -2700,7 +2782,7 @@ def phase_varlen_path(torch, kernels, path_counts):
           f"{wall * 1e3:.2f} ms (host clock), launches { {k: c for k, c in counts.items() if c} }")
 
 
-def training_rows(torch, ops, gen):
+def training_rows(torch, ops, gen, path_counts):
     """Kernel rows of B13a and B13b at the training step's attention (B 2,
     S 2048, causal, Llama-3-8B widths) and of B12 at the 32-sequence packed
     batch. Bounds: B13a 8 D and B13b 6 D operations per visible (row, key)
@@ -2765,6 +2847,17 @@ def training_rows(torch, ops, gen):
                 q, k, v, causal=True, window=w), 10),
             "ms_with_lse": cuda_time_ms(lambda: flash_fwd.flash_attention_fwd(
                 q, k, v, causal=True, window=w, return_lse=True), 10)}
+        if w is None:  # the training step's forward: its launches, bound and SDPA's forward
+            pairs = bb * hq * ss * (ss + 1) // 2
+            lse_cost[name].update(
+                launches_with_lse=path_counts["training"]["flash_fwd"],
+                plain_ms=cuda_time_ms(lambda: flash_fwd.flash_attention_fwd_plain(
+                    q, k, v, causal=True, return_lse=True), 3),
+                library_ms=cuda_time_ms(lambda: f.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True), 10),
+                library="SDPA forward (is_causal, enable_gqa)",
+                **bound(4 * d * pairs, 2 * (2 * q.numel() + 2 * k.numel()) + 4 * bb * hq * ss,
+                        PEAK_BF16))
     del q, k, v
     torch.cuda.empty_cache()
 
@@ -2847,16 +2940,15 @@ def phase_gemma2_kernels(torch, ops, errs):
                 ("window 4096 B2 S4608", 2, 4608, 4608, WINDOW, torch.bfloat16, (16, 8, 256)),
                 ("Sq256 Skv1024", 1, 256, 1024, None, torch.bfloat16, (16, 8, 256)),
                 ("ragged S1000 f16", 1, 1000, 1000, None, torch.float16, (16, 8, 256)),
+                ("Sq1000 Skv64 zero rows", 1, 1000, 64, None, torch.bfloat16, (16, 8, 256)),
+                ("MQA group 16 S1000", 1, 1000, 1000, None, torch.bfloat16, (16, 1, 256)),
                 ("causal B2 S1024 (Llama widths)", 2, 1024, 1024, None, torch.bfloat16,
                  (32, 8, 128))):
             q, k, v = randn(b, hq, sq, d, dtype=dt), randn(b, hkv, skv, d, dtype=dt), \
                 randn(b, hkv, skv, d, dtype=dt)
-            out = flash_fwd.flash_attention_fwd(q, k, v, causal=True, window=w, logit_softcap=cap)
-            ref = flash_fwd.flash_attention_fwd_plain(q.float(), k.float(), v.float(),
-                                                      causal=True, window=w, logit_softcap=cap)
-            held("flash_fwd_window" if w else "flash_fwd",
-                 f"{'B2' if w else 'P'} D {d} cap {cap:g} {name}", d, out, ref)
-            del q, k, v, out, ref
+            held_prefill(torch, flash_fwd, errs, f"{'B2' if w else 'P'} D {d} cap {cap:g} {name}",
+                         q, k, v, True, w, cap, gemma=d == 256)
+            del q, k, v
         torch.cuda.empty_cache()
 
         for hq, hkv, d, cap_len, lens_list in ((16, 8, 256, GEMMA2_CAPACITY, [4640, 4600, 2000, 0]),
@@ -2950,23 +3042,10 @@ def phase_gemma2(torch, cfg, params, kernels, path_counts):
     and its prefill and decode times; then the serving engine in runs G1
     (whole-prompt admission, page_size 128) and G2 (chunked admission of
     512, page_size 16) over `mistral_requests`, every token teacher-forced."""
-    from flash_attention_cute_tpu_torch.runtime.generate import decode_loop, prefill
-    from flash_attention_cute_tpu_torch.utils.timing import wall_time_s
-
     label = "Gemma-2-9B"
     keep = torch.arange(0, GEMMA2_PROMPT, GEMMA2_KEEP).tolist() + [GEMMA2_PROMPT - 1]
     ids, _, results = phase_family(torch, cfg, params, 9, GEMMA2_B, GEMMA2_PROMPT, GEMMA2_NEW,
                                    kernels, path_counts, label, keep=keep)
-    with torch.no_grad():
-        (last, cache), pre_s = wall_time_s(lambda: prefill(params, cfg, ids, GEMMA2_CAPACITY))
-        first = last.argmax(-1).to(torch.int32)
-        _, dec_s = wall_time_s(lambda: decode_loop(params, cfg, first, cache, GEMMA2_NEW - 1))
-    del cache, last
-    torch.cuda.empty_cache()
-    results.update(prefill_ms=1e3 * pre_s, prefill_tokens_per_s=GEMMA2_B * GEMMA2_PROMPT / pre_s,
-                   decode_ms_per_token=1e3 * dec_s / (GEMMA2_NEW - 1))
-    print(f"  {label} prefill B{GEMMA2_B} x {GEMMA2_PROMPT}: {1e3 * pre_s:.1f} ms; decode "
-          f"{1e3 * dec_s / (GEMMA2_NEW - 1):.2f} ms/token")
     results.update(serve_long_requests(torch, cfg, params, kernels, path_counts, label, {
         "G1 whole-prompt": MISTRAL_SERVING_RUNS["M1 whole-prompt"],
         "G2 chunked": MISTRAL_SERVING_RUNS["M2 chunked"]}))
@@ -3188,10 +3267,11 @@ def main() -> int:
         for line in log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
-    print("  B10 / B11 and B13a / B13b instantiations (the runtime's attributes, launch shared "
-          "memory; B13a / B13b consumers raise theirs to 240 by setmaxnreg):")
-    bwd_report = flash_bwd.kernel_report()
-    for line in quantized_matmul.kernel_report().splitlines() + bwd_report.splitlines():
+    print("  B10 / B11, P / B2 and B13a / B13b instantiations (the runtime's attributes, launch "
+          "shared memory; P / B2 and B13a / B13b consumers raise theirs to 240 by setmaxnreg):")
+    fwd_report, bwd_report = flash_fwd.kernel_report(), flash_bwd.kernel_report()
+    for line in (quantized_matmul.kernel_report().splitlines() + fwd_report.splitlines()
+                 + bwd_report.splitlines()):
         print(f"    {line}")
         spill = re.search(r"(\d+) bytes local", line)
         check(spill is not None and int(spill.group(1)) == 0, f"no spill in {line}")
@@ -3334,17 +3414,19 @@ def main() -> int:
         if r["name"] in windowed:
             r["window"] = windowed[r["name"]]
     print("[5c] numbers of the training kernels (B 2, S 2048) and of B12 (the packed batch)")
-    trows, lse_cost = training_rows(torch, ops, torch.Generator(device="cuda").manual_seed(78))
+    trows, lse_cost = training_rows(torch, ops, torch.Generator(device="cuda").manual_seed(78),
+                                    path_counts)
     for r in trows:
         if r["name"] in rel_errs:
             r["max_rel_err"] = rel_errs[r["name"]]
         if r["name"] in ("flash_bwd_dkv", "flash_bwd_dq"):
             label = "B13a D128 bf16" if r["name"] == "flash_bwd_dkv" else "B13b D128 bf16"
-            r["runtime_attributes"] = bwd_attributes(bwd_report, label)
+            r["runtime_attributes"] = runtime_attributes(bwd_report, label)
     rows += trows
     for r in rows:
         if r["name"] in ("flash_fwd", "flash_fwd_window"):
             r["lse"] = {"max_abs_err": errs[f"{r['name']} lse"], **lse_cost[r["name"]]}
+            r["runtime_attributes"] = runtime_attributes(fwd_report, "P / B2 D128 bf16")
     print("[5d] numbers of the Gemma2 kernels (D 256, soft cap 50, Gemma-2-9B shapes)")
     gemma = gemma2_rows(torch, ops, torch.Generator(device="cuda").manual_seed(79))
     for r in rows:
@@ -3352,6 +3434,10 @@ def main() -> int:
             r["gemma2"] = {"max_abs_err": errs[f"{r['name']} gemma2"], "launches": sum(
                 c[r["name"]] for p, c in path_counts.items() if p.startswith("Gemma-2-9B")),
                 **gemma[r["name"]]}
+            if r["name"] in ("flash_fwd", "flash_fwd_window"):
+                r["gemma2"].update(lse_max_abs_err=errs[f"{r['name']} gemma2 lse"],
+                                   runtime_attributes=runtime_attributes(
+                                       fwd_report, "P / B2 D256 bf16 cap"))
     # Peak over the whole script: serving reset the counter before each run.
     numbers["max_memory_allocated_gb"] = max(
         [numbers["max_memory_allocated_gb"], serving.pop("peak_before_serving_gb")]

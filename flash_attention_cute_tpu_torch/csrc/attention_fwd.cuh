@@ -1,22 +1,22 @@
-// Tiled attention forward for many query rows, shared by kernels P and B2
-// (prefill over contiguous K/V, without and with a sliding window,
-// flash_fwd.cu), kernel B4 (chunked extend over a contiguous cache,
-// flash_chunked.cu), kernel B6 (chunked prefill over a paged cache,
-// paged_attention.cu), kernel B9 (B6 over a quantized paged cache,
-// quantized.cu) and kernel B12 (a packed ragged batch, flash_varlen.cu):
-// O = softmax(Q K^T * scale + mask) V.
+// Tiled attention forward for many query rows, shared by kernel B4
+// (chunked extend over a contiguous cache, flash_chunked.cu), kernel B6
+// (chunked prefill over a paged cache, paged_attention.cu), kernel B9 (B6
+// over a quantized paged cache, quantized.cu) and kernel B12 (a packed
+// ragged batch, flash_varlen.cu): O = softmax(Q K^T * scale + mask) V.
+// (The prefill kernels P and B2 have a body of their own, built for
+// Hopper's wgmma and TMA: flash_fwd.cu.)
 //
 // Key n is visible from query row m iff n < skv, when causal
 // n <= m + offset, and with a sliding window W (a runtime argument, 0 for
 // none) n > m + offset - W, i.e. the W keys ending at the row's own global
 // position. An instantiation makes two independent choices:
-//   * kRowOffsets: where offset and skv come from. P takes them from the
-//     shapes (offset = Skv - Sq, bottom-right alignment; skv = Skv); B4, B6
-//     and B9 read offset = q_offset[b] and skv = kv_length[b], clamped to
-//     the cache's capacity, from device memory (top-left causality in
-//     global positions, `col <= q_offset + row`).
+//   * kRowOffsets: where offset and skv come from. B4, B6 and B9 read
+//     offset = q_offset[b] and skv = kv_length[b], clamped to the cache's
+//     capacity, from device memory (top-left causality in global
+//     positions, `col <= q_offset + row`); without it they come from the
+//     shapes (offset = Skv - Sq, bottom-right alignment; skv = Skv).
 //   * kPaged: how a key row is addressed: by the batch and row strides of a
-//     contiguous cache (P, B4) or through the page table (B6, B9).
+//     contiguous cache (B4) or through the page table (B6, B9).
 // B12 (kVarlen, neither of the two) runs one batch row of packed tokens:
 // key n is visible from row m iff kv_seg[n] == q_seg[m], when causal
 // kv_pos[n] <= q_bound[m], and with a window kv_pos[n] > q_bound[m] - W.
@@ -25,10 +25,7 @@
 // that row's window, to the last key of its last row's segment, cut at
 // that row's causal bound), walks only those keys, and masks every tile
 // with the segment ids and positions staged in shared memory.
-// P and B2 may also write the per-row lse (FwdParams::lse, null otherwise):
-// m + log2(l) of the base-2 scores, +inf on a row with no visible key.
-// A tanh soft cap c (a runtime argument, 0 for none; only P, B2 and B6
-// compile it)
+// A tanh soft cap c (a runtime argument, 0 for none; only B6 compiles it)
 // bounds every score before the mask, in the base-2 units of the body:
 // x = c2 * tanh(x / c2) with c2 = c * log2(e), which is log2(e) times
 // c * tanh(s / c) of the natural score s (the TPU kernels' formula).
@@ -37,7 +34,7 @@
 // key (and whole rows of kv_length 0) emit exact zeros. GQA: q head h
 // reads kv head h / (Hq / Hkv), the head-repeat order of the reference.
 //
-// What bounds it on the H100: at prefill lengths the work is tensor-core
+// What bounds it on the H100: at extend lengths the work is tensor-core
 // operations (4 * Sq * Skv * D per head, about half of it under the causal
 // mask), far above the card's ~295 operations per byte, so the bound is the
 // bf16 tensor-core rate. Design: one block of 4 warps per (64 query rows,
@@ -56,10 +53,11 @@
 // into the same shared tiles widened to T (exact), beside the tile's 64 K
 // and 64 V scales; each score column is multiplied by its K scale, and P by
 // its V scale before P is rounded to T for the PV product (the TPU kernel's
-// `(p * vscale).astype(compute_dtype)`). Not yet done (later work):
-// TMA/cp.async pipelining, wgmma (FP8 wgmma for e4m3), loading each K/V
-// tile once per GQA group.
-// Head dim 256 (Gemma2; P, B2 and B6 only): O alone is 128 fp32 registers a
+// `(p * vscale).astype(compute_dtype)`). Not yet done (later work, as
+// flash_fwd.cu does it for P / B2): TMA pipelining, wgmma (FP8 wgmma for
+// e4m3), V read MN-major in place of the V^T copy (whose 2-byte stores
+// conflict in one bank), loading each K/V tile once per GQA group.
+// Head dim 256 (Gemma2; B6 only): O alone is 128 fp32 registers a
 // thread and S 32 more, so Q's A fragments are not held in registers (64
 // more at D 256) but read from the Q tile in shared memory at each k-step of
 // QK^T; shared memory is then Q 64 x 264 + K 64 x 264 + V^T 256 x 72 bf16,
@@ -74,13 +72,13 @@ namespace fact {
 
 struct FwdParams {
   const void* q;
-  const void* k;  // P, B4: [B, Hkv, Skv, D]; B6: one layer's pool [Hkv, P, ps, D]
+  const void* k;  // B4: [B, Hkv, Skv, D]; B6: one layer's pool [Hkv, P, ps, D]
   const void* v;
   void* o;  // [B, Hq, Sq, D] contiguous
   int64_t q_sb, q_sh, q_ss;  // element strides; the head dim is contiguous
   int64_t k_sb, k_sh, k_ss, k_sp;  // k_sb: contiguous only; k_sp: paged only (page stride)
   int64_t v_sb, v_sh, v_ss, v_sp;
-  int hq, group, sq, skv;  // skv: P's key count, B4's capacity C
+  int hq, group, sq, skv;  // skv: B4's capacity C, B12's packed key count
   float scale_log2;  // softmax_scale * log2(e): softmax runs in base 2
   float softcap_log2;  // soft cap c * log2(e) (base-2 units), or 0 for none
   float softcap_rcp;   // 1 / softcap_log2 (0 for none), set by the C entry
@@ -90,7 +88,6 @@ struct FwdParams {
   const int* kv_length;   // B4, B6: [B] int32 keys visible to the chunk (0 = inactive)
   const int* page_table;  // paged: [B, pps] int32
   int pps, page_size;     // paged only
-  float* lse;  // P, B2: [B, Hq, Sq] f32 per-row log2-sum-exp, or null (read by P / B2 only)
   // B12: int32 metadata of the packed tokens (sq = Tq, skv = Tkv, batch 1);
   // segment ids non-decreasing, kv_pos counting from 0 at a segment's first key.
   const int* q_seg;
@@ -134,22 +131,20 @@ __device__ __forceinline__ int search(const int* a, int n, int x) {
 }
 
 // T: q, output and the shared tiles; KV: the cache's element type (T, or
-// int8 / e4m3 from a paged pool); kLse: P / B2 writing the lse (the kernel
-// attention_fwd_lse_kernel below).
-template <typename T, typename KV, int D, bool kRowOffsets, bool kPaged, bool kVarlen, bool kLse>
+// int8 / e4m3 from a paged pool).
+template <typename T, typename KV, int D, bool kRowOffsets, bool kPaged, bool kVarlen>
 __device__ __forceinline__ void attention_fwd_body(const FwdArgs<KV> p) {
   constexpr bool kQuant = sizeof(KV) == 1;
   static_assert(kPaged || !kQuant, "quantized K/V come from a paged pool only");
   static_assert(kRowOffsets || !kPaged, "a paged cache has per-row lengths");
   static_assert(!kVarlen || !kRowOffsets, "a packed batch has no per-row offsets");
-  static_assert(!kLse || (!kRowOffsets && !kVarlen), "only P / B2 write the lse");
   constexpr int kRow = D + 8;          // smem row stride of Q and K (bank spread)
   constexpr int kVtRow = kBlockN + 8;  // smem row stride of V^T
   constexpr int kChunks = D / 8;       // chunks of 8 elements per row
   constexpr bool kQRegs = D <= 128;    // Q's A fragments held in registers
-  // The soft cap is compiled into the instantiations whose wrappers take it
-  // (P / B2 without the lse, B6); B4, B9, B12 and the lse raise on a cap.
-  constexpr bool kCap = !kVarlen && !kQuant && !kLse && (kPaged || !kRowOffsets);
+  // The soft cap is compiled into the instantiation whose wrapper takes it
+  // (B6); B4, B9 and B12 raise on a cap.
+  constexpr bool kCap = kPaged && !kQuant;
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
   T* sK = sQ + kBlockM * kRow;
@@ -431,12 +426,6 @@ __device__ __forceinline__ void attention_fwd_body(const FwdArgs<KV> p) {
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[r] = l > 0.f ? 1.f / l : 0.f;  // no visible key -> exact zero row
-    if constexpr (kLse) {
-      const int row = r ? row1 : row0;
-      if (t == 0 && row < p.sq)  // the backward's residual
-        p.lse[(static_cast<int64_t>(b) * p.hq + h) * p.sq + row] =
-            l > 0.f ? row_max[r] + log2f(l) : INFINITY;
-    }
   }
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
@@ -452,24 +441,13 @@ __device__ __forceinline__ void attention_fwd_body(const FwdArgs<KV> p) {
 
 template <typename T, typename KV, int D, bool kRowOffsets, bool kPaged, bool kVarlen>
 __global__ void __launch_bounds__(kFwdThreads) attention_fwd_kernel(const FwdArgs<KV> p) {
-  attention_fwd_body<T, KV, D, kRowOffsets, kPaged, kVarlen, false>(p);
+  attention_fwd_body<T, KV, D, kRowOffsets, kPaged, kVarlen>(p);
 }
 
-// P / B2 with the lse: the row max stays live to the lse's store, which at
-// D 128 would take 170 registers, allocated as 176, fitting two blocks an
-// SM where P's 168 fit three; the bound asks for three.
-template <typename T, int D>
-__global__ void __launch_bounds__(kFwdThreads, 3) attention_fwd_lse_kernel(const FwdParams p) {
-  attention_fwd_body<T, T, D, false, false, false, true>(p);
-}
-
-template <typename T, typename KV, int D, bool kRowOffsets, bool kPaged, bool kVarlen = false,
-          bool kLse = false>
+template <typename T, typename KV, int D, bool kRowOffsets, bool kPaged, bool kVarlen = false>
 int launch_attention_fwd(const FwdArgs<KV>& p, int batch, cudaStream_t stream) {
   constexpr int kSmem = fwd_smem_bytes<T, D, (sizeof(KV) == 1 || kVarlen)>();
-  void (*kernel)(const FwdArgs<KV>);
-  if constexpr (kLse) kernel = attention_fwd_lse_kernel<T, D>;
-  else kernel = attention_fwd_kernel<T, KV, D, kRowOffsets, kPaged, kVarlen>;
+  void (*kernel)(const FwdArgs<KV>) = attention_fwd_kernel<T, KV, D, kRowOffsets, kPaged, kVarlen>;
   static bool configured = false;  // above 48 KB needs an explicit opt-in
   if (!configured) {
     cudaError_t err =
@@ -482,22 +460,19 @@ int launch_attention_fwd(const FwdArgs<KV>& p, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// K/V of q's own type (P, B2, B4, B6, B12); P / B2 with a non-null lse
-// launch the lse kernel. kD256: also head dim 256, instantiated only for the
-// callers that take it (P / B2 without the lse, B6), so B4's, B12's and the
-// lse's builds do not compile it.
-template <bool kRowOffsets, bool kPaged, bool kVarlen = false, bool kLse = false, bool kD256 = false>
+// K/V of q's own type (B4, B6, B12). kD256: also head dim 256, instantiated
+// only for the caller that takes it (B6), so B4's and B12's builds do not
+// compile it.
+template <bool kRowOffsets, bool kPaged, bool kVarlen = false, bool kD256 = false>
 int dispatch_attention_fwd(const FwdParams& p, int batch, int d, int dtype, cudaStream_t s) {
   using bf16 = __nv_bfloat16;
   using h16 = __half;
   constexpr bool R = kRowOffsets, V = kVarlen;
-  if constexpr (!kRowOffsets && !kVarlen && !kLse)
-    if (p.lse != nullptr) return dispatch_attention_fwd<false, false, false, true>(p, batch, d, dtype, s);
-  if (dtype == kBF16 && d == 64) return launch_attention_fwd<bf16, bf16, 64, R, kPaged, V, kLse>(p, batch, s);
-  if (dtype == kBF16 && d == 128) return launch_attention_fwd<bf16, bf16, 128, R, kPaged, V, kLse>(p, batch, s);
-  if (dtype == kF16 && d == 64) return launch_attention_fwd<h16, h16, 64, R, kPaged, V, kLse>(p, batch, s);
-  if (dtype == kF16 && d == 128) return launch_attention_fwd<h16, h16, 128, R, kPaged, V, kLse>(p, batch, s);
-  if constexpr (kD256 && !kLse && !kVarlen) {
+  if (dtype == kBF16 && d == 64) return launch_attention_fwd<bf16, bf16, 64, R, kPaged, V>(p, batch, s);
+  if (dtype == kBF16 && d == 128) return launch_attention_fwd<bf16, bf16, 128, R, kPaged, V>(p, batch, s);
+  if (dtype == kF16 && d == 64) return launch_attention_fwd<h16, h16, 64, R, kPaged, V>(p, batch, s);
+  if (dtype == kF16 && d == 128) return launch_attention_fwd<h16, h16, 128, R, kPaged, V>(p, batch, s);
+  if constexpr (kD256 && !kVarlen) {
     if (dtype == kBF16 && d == 256) return launch_attention_fwd<bf16, bf16, 256, R, kPaged, V>(p, batch, s);
     if (dtype == kF16 && d == 256) return launch_attention_fwd<h16, h16, 256, R, kPaged, V>(p, batch, s);
   }

@@ -116,26 +116,6 @@ __device__ __forceinline__ bool tile_full(const BwdParams& p, int m0, int n0, in
          (p.window <= 0 || n0 > m0 + kTile - 1 + offset - p.window);
 }
 
-// K-major operand of 64 rows from a tile of 128-byte rows: k-step kk of D.
-// `half_bytes` is the size of one D half of the tile.
-__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk, int half_bytes) {
-  return wgmma_desc(tile + (kk >> 2) * half_bytes + (kk & 3) * 32, 16, 1024);
-}
-// MN-major B operand (N = D) from a 64-row tile: k-step kk over its rows.
-__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
-  return wgmma_desc(tile + kk * 2048, kBox, 1024);
-}
-
-// The m16n8k16 A fragments of a 64 x 64 accumulator (each warp's 16 rows),
-// rounded to T: k-step kk holds columns 16 kk .. 16 kk + 15.
-template <typename T>
-__device__ __forceinline__ void to_a(const float (&d)[32], uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) a[kk][r] = Elem<T>::pack(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
-}
-
 template <int D>
 struct DkvSmem {
   static constexpr int kHalves = D / 64;
@@ -237,15 +217,15 @@ __global__ void __launch_bounds__(kThreads, 1)
         // that P^T is computed while dP^T runs.
         float s[32], dp[32];
         wgmma_fence();
-        wgmma_ss_64<T, false>(s, kmajor(ka, 0, 2 * kBox), kmajor(sQ(st), 0, kBox));
+        wgmma_ss<T, 64, false>(s, kmajor(ka, 0, 2 * kBox), kmajor(sQ(st), 0, kBox));
 #pragma unroll
         for (int kk = 1; kk < D / 16; ++kk)
-          wgmma_ss_64<T, true>(s, kmajor(ka, kk, 2 * kBox), kmajor(sQ(st), kk, kBox));
+          wgmma_ss<T, 64, true>(s, kmajor(ka, kk, 2 * kBox), kmajor(sQ(st), kk, kBox));
         wgmma_commit();
-        wgmma_ss_64<T, false>(dp, kmajor(va, 0, 2 * kBox), kmajor(sO(st), 0, kBox));
+        wgmma_ss<T, 64, false>(dp, kmajor(va, 0, 2 * kBox), kmajor(sO(st), 0, kBox));
 #pragma unroll
         for (int kk = 1; kk < D / 16; ++kk)
-          wgmma_ss_64<T, true>(dp, kmajor(va, kk, 2 * kBox), kmajor(sO(st), kk, kBox));
+          wgmma_ss<T, 64, true>(dp, kmajor(va, kk, 2 * kBox), kmajor(sO(st), kk, kBox));
         wgmma_commit();
         wgmma_wait<1>();
         fence_regs(s);
@@ -273,7 +253,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         // it runs while dS^T = P^T (dP^T - delta) is computed.
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_rs<T, D, true>(dv, pa[kk], mnmajor(sO(st), kk), 1);
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs<T, D, true>(dv, pa[kk], mnmajor(sO(st), kk, kBox), 1);
         wgmma_commit();
         wgmma_wait<1>();
         fence_regs(dp);
@@ -289,7 +269,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         // dK += dS^T Q, Q MN-major from the stage.
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_rs<T, D, true>(dk, sa[kk], mnmajor(sQ(st), kk), 1);
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs<T, D, true>(dk, sa[kk], mnmajor(sQ(st), kk, kBox), 1);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dv);
@@ -464,15 +444,15 @@ __global__ void __launch_bounds__(kThreads, 1)
         // P is computed while dP runs.
         float s[32], dp[32];
         wgmma_fence();
-        wgmma_ss_64<T, false>(s, kmajor(qa, 0, 2 * kBox), kmajor(sK(st), 0, kBox));
+        wgmma_ss<T, 64, false>(s, kmajor(qa, 0, 2 * kBox), kmajor(sK(st), 0, kBox));
 #pragma unroll
         for (int kk = 1; kk < D / 16; ++kk)
-          wgmma_ss_64<T, true>(s, kmajor(qa, kk, 2 * kBox), kmajor(sK(st), kk, kBox));
+          wgmma_ss<T, 64, true>(s, kmajor(qa, kk, 2 * kBox), kmajor(sK(st), kk, kBox));
         wgmma_commit();
-        wgmma_ss_64<T, false>(dp, kmajor(oa, 0, 2 * kBox), kmajor(sV(st), 0, kBox));
+        wgmma_ss<T, 64, false>(dp, kmajor(oa, 0, 2 * kBox), kmajor(sV(st), 0, kBox));
 #pragma unroll
         for (int kk = 1; kk < D / 16; ++kk)
-          wgmma_ss_64<T, true>(dp, kmajor(oa, kk, 2 * kBox), kmajor(sV(st), kk, kBox));
+          wgmma_ss<T, 64, true>(dp, kmajor(oa, kk, 2 * kBox), kmajor(sV(st), kk, kBox));
         wgmma_commit();
         wgmma_wait<1>();
         fence_regs(s);
@@ -500,7 +480,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         // dQ += dS K over the tile's 64 keys, K MN-major from the stage.
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_rs<T, D, true>(dq, sa[kk], mnmajor(sK(st), kk), 1);
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs<T, D, true>(dq, sa[kk], mnmajor(sK(st), kk, kBox), 1);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dq);
@@ -527,25 +507,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---------------------------------------------------------------------------
 // Host side.
-
-// A [B, H, S, D] view (strides in elements, D contiguous) as a 4-D TMA map
-// with boxes of 64 columns x `box_rows` rows. A dimension of size 1 gets
-// the row's byte count as its stride (never stepped; any multiple of 16
-// would do); no dimension of size 0 reaches the map (S is taken as at
-// least 1, and a block with nothing to load issues no copy).
-static bool head_map(CUtensorMap* map, int dtype, const void* base, int batch, int heads, int s,
-                     int d, long long sb, long long sh, long long ss, int box_rows) {
-  const long long row = 2LL * d;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(s > 1 ? s : 1),
-                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s > 1 ? 2 * ss : row),
-                                 static_cast<cuuint64_t>(heads > 1 ? 2 * sh : row),
-                                 static_cast<cuuint64_t>(batch > 1 ? 2 * sb : row)};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
-  return make_map(map, dtype == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-                  4, base, dims, strides, box);
-}
 
 struct BwdViews {
   const void *q, *k, *v, *dout;

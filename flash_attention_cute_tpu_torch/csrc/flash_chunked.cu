@@ -15,7 +15,7 @@
 // is sized from shapes alone, so no host sync sizes it. The softmax is exact.
 //
 // The kernel body (attention_fwd.cuh, which holds the note on what bounds
-// it on the H100 and its design) is the one of P and B6, instantiated with
+// it on the H100 and its design) is the one of B6, instantiated with
 // per-row device offsets over contiguous rows. It reads q/k/v through their
 // strides, so the model's transposed views need no copy; cache rows at or
 // past a row's length (uninitialised memory, possibly NaN) are never read.

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the kernels that use TMA and
-// wgmma (quantized_matmul.cu: B10 / B11 prefill; flash_bwd.cu: B13a /
-// B13b): mbarriers, TMA tensor copies and their maps, bulk copies, wgmma
-// descriptors and products, ldmatrix, and the register hand-over between
-// warpgroups (setmaxnreg).
+// wgmma (quantized_matmul.cu: B10 / B11 prefill; flash_fwd.cu: P / B2;
+// flash_bwd.cu: B13a / B13b): mbarriers, TMA tensor copies and their maps,
+// bulk copies, wgmma descriptors and products, ldmatrix, and the register
+// hand-over between warpgroups (setmaxnreg).
 #pragma once
 
 #include <cuda.h>
@@ -134,8 +134,9 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N]) {
 #define FACT_RW(x) "+f"(x)
 #define FACT_WO(x) "=f"(x)
 
-// d[64 x 64] (+)= A[64 x 16] @ B[16 x 64], both from shared memory, K-major.
-// Without kAcc, d = A B: the old values of d are neither read nor kept.
+// d[64 x N] (+)= A[64 x 16] @ B[16 x N], both from shared memory, K-major,
+// N 64 or 128. Without kAcc, d = A B: the old values of d are neither read
+// nor kept.
 #define FACT_WGMMA_SS_64(TYPE, C)                                                    \
   asm volatile(                                                                      \
       "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"                                 \
@@ -145,13 +146,33 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N]) {
       : FACT_D8(C, 0), FACT_D8(C, 8), FACT_D8(C, 16), FACT_D8(C, 24)                 \
       : "l"(da), "l"(db), "r"(kAcc ? 1 : 0))
 
-template <typename T, bool kAcc>
-__device__ __forceinline__ void wgmma_ss_64(float (&d)[32], uint64_t da, uint64_t db) {
+#define FACT_WGMMA_SS_128(TYPE, C)                                                                \
+  asm volatile(                                                                                   \
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"                                              \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TYPE "." TYPE                                \
+      " {%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23," \
+      "%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45," \
+      "%46,%47,%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63},"                \
+      " %64, %65, p, 1, 1, 0, 0;\n}\n"                                                           \
+      : FACT_D8(C, 0), FACT_D8(C, 8), FACT_D8(C, 16), FACT_D8(C, 24), FACT_D8(C, 32),           \
+        FACT_D8(C, 40), FACT_D8(C, 48), FACT_D8(C, 56)                                          \
+      : "l"(da), "l"(db), "r"(kAcc ? 1 : 0))
+
+template <typename T, int N, bool kAcc>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db) {
+  static_assert(N == 64 || N == 128, "wgmma_ss takes N 64 or 128");
   constexpr bool kBF16 = std::is_same_v<T, __nv_bfloat16>;
-  if constexpr (kBF16 && kAcc) FACT_WGMMA_SS_64("bf16", FACT_RW);
-  else if constexpr (kBF16) FACT_WGMMA_SS_64("bf16", FACT_WO);
-  else if constexpr (kAcc) FACT_WGMMA_SS_64("f16", FACT_RW);
-  else FACT_WGMMA_SS_64("f16", FACT_WO);
+  if constexpr (N == 64) {
+    if constexpr (kBF16 && kAcc) FACT_WGMMA_SS_64("bf16", FACT_RW);
+    else if constexpr (kBF16) FACT_WGMMA_SS_64("bf16", FACT_WO);
+    else if constexpr (kAcc) FACT_WGMMA_SS_64("f16", FACT_RW);
+    else FACT_WGMMA_SS_64("f16", FACT_WO);
+  } else {
+    if constexpr (kBF16 && kAcc) FACT_WGMMA_SS_128("bf16", FACT_RW);
+    else if constexpr (kBF16) FACT_WGMMA_SS_128("bf16", FACT_WO);
+    else if constexpr (kAcc) FACT_WGMMA_SS_128("f16", FACT_RW);
+    else FACT_WGMMA_SS_128("f16", FACT_WO);
+  }
 }
 
 // d[64 x N] (+)= A[64 x 16] (registers, the m16n8k16 A fragment of each
@@ -197,11 +218,35 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 }
 
 #undef FACT_WGMMA_SS_64
+#undef FACT_WGMMA_SS_128
 #undef FACT_WGMMA_RS_64
 #undef FACT_WGMMA_RS_128
 #undef FACT_D8
 #undef FACT_RW
 #undef FACT_WO
+
+// Descriptors of tiles that TMA wrote with the 128-byte swizzle as boxes of
+// 64 columns (128 bytes) x R rows, one box after the other.
+// K-major operand (rows along M or N, D contiguous): k-step kk of the
+// depth; `box_bytes` is the size of one box (one 64-column block of D).
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk, int box_bytes) {
+  return wgmma_desc(tile + (kk >> 2) * box_bytes + (kk & 3) * 32, 16, 1024);
+}
+// MN-major B operand (N along the contiguous columns, K along the rows):
+// k-step kk over the rows; `box_bytes` is the stride of 64-column blocks.
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk, int box_bytes) {
+  return wgmma_desc(tile + kk * 2048, box_bytes, 1024);
+}
+
+// The m16n8k16 A fragments of a 64 x N accumulator (each warp's 16 rows),
+// rounded to T: k-step kk holds columns 16 kk .. 16 kk + 15.
+template <typename T, int N>
+__device__ __forceinline__ void to_a(const float (&d)[N], uint32_t (&a)[N / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kk][r] = Elem<T>::pack(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+}
 
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -256,6 +301,25 @@ static bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* bas
   const cuuint64_t strides[1] = {row_bytes};
   const cuuint32_t box[2] = {box_cols, box_rows};
   return make_map(map, type, 2, base, dims, strides, box);
+}
+
+// A [B, H, S, D] view (strides in elements, D contiguous) as a 4-D TMA map
+// with boxes of 64 columns x `box_rows` rows. A dimension of size 1 gets
+// the row's byte count as its stride (never stepped; any multiple of 16
+// would do); no dimension of size 0 reaches the map (S is taken as at
+// least 1, and a block with nothing to load issues no copy).
+static bool head_map(CUtensorMap* map, int dtype, const void* base, int batch, int heads, int s,
+                     int d, long long sb, long long sh, long long ss, int box_rows) {
+  const long long row = 2LL * d;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(s > 1 ? s : 1),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s > 1 ? 2 * ss : row),
+                                 static_cast<cuuint64_t>(heads > 1 ? 2 * sh : row),
+                                 static_cast<cuuint64_t>(batch > 1 ? 2 * sb : row)};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
+  return make_map(map, dtype == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+                  4, base, dims, strides, box);
 }
 
 template <typename Kernel>

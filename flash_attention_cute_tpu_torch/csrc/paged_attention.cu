@@ -128,7 +128,7 @@ extern "C" int fact_paged_extend(
   p.kv_length = static_cast<const int*>(kv_length);
   p.page_table = static_cast<const int*>(page_table);
   p.pps = pps, p.page_size = page_size;
-  return dispatch_attention_fwd<true, true, false, false, true>(
+  return dispatch_attention_fwd<true, true, false, true>(
       p, batch, d, dtype, static_cast<cudaStream_t>(stream));
 }
 

@@ -103,6 +103,18 @@ def load(source: str) -> ctypes.CDLL:
     return lib
 
 
+def runtime_report(source: str, symbol: str) -> str:
+    """The report a `csrc` source's C function `symbol` writes: registers,
+    spill bytes and shared memory of its kernel instantiations, as the
+    card's runtime gives them (builds the library if needed; needs the
+    card)."""
+    fn = getattr(load(source), symbol)
+    fn.argtypes, fn.restype = [ctypes.c_char_p, ctypes.c_int], ctypes.c_int
+    buf = ctypes.create_string_buffer(4096)
+    fn(buf, len(buf))
+    return buf.value.decode()
+
+
 P = ctypes.c_void_p  # every pointer and the stream: a c_int would cut them to 32 bits
 I = ctypes.c_int
 L = ctypes.c_longlong

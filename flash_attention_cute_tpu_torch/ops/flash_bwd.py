@@ -35,7 +35,6 @@ ROW_PAD (B * Hq * Sq * 4 bytes).
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -87,14 +86,8 @@ def padded_rows(x: torch.Tensor, sq: int, fill: float) -> torch.Tensor:
 
 def kernel_report() -> str:
     """Registers, spill bytes and shared memory of every B13a / B13b kernel
-    instantiation, as the card's runtime reports them (builds the library
-    if needed; needs the card)."""
-    lib = _build.load(DKV.source)
-    fn = lib.fact_bwd_report
-    fn.argtypes, fn.restype = [ctypes.c_char_p, ctypes.c_int], ctypes.c_int
-    buf = ctypes.create_string_buffer(4096)
-    fn(buf, len(buf))
-    return buf.value.decode()
+    instantiation, as the card's runtime reports them."""
+    return _build.runtime_report(DKV.source, "fact_bwd_report")
 
 
 def flash_attention_bwd_plain(q, k, v, o, do, lse, sm_scale=None, causal=False, window=None,

@@ -18,9 +18,13 @@ Both take the tanh soft cap (`logit_softcap`, Gemma2's 50) and head dims
 64, 128 and 256. With `return_lse` either kernel also writes the per-row
 log-sum-exp the backward needs (ops/flash_bwd.py), in the TPU kernels'
 convention: log2 units of the scaled scores, +inf on a row with no visible
-key; no backward takes the soft cap or D 256, so neither does the lse.
+key, at every head dim and with the cap, as the JAX forward returns it
+(the backward kernels take neither: ops/autodiff.py refuses D 256 on CUDA
+before the forward runs).
 
-What the kernel does not take raises; nothing falls back.
+The kernel (wgmma fed by a TMA ring, csrc/flash_fwd.cu) reads q, k and v in
+place through their strides, as `_build.check_cuda_tensor` takes them. What
+it does not take raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -34,13 +38,18 @@ from flash_attention_cute_tpu_torch.ops.reference import attention_reference
 
 LOG2E = math.log2(math.e)
 HEAD_DIMS = (64, 128, 256)
-LSE_HEAD_DIMS = (64, 128)  # the backward kernels' (ops/flash_bwd.py)
 
 P, I, L, F = _build.P, _build.I, _build.L, _build.F
 _ARGS = [P, P, P, P, P, I, I, I, I, I, I, L, L, L, L, L, L, L, L, L, F, F, I, I, I, P]
 PREFILL = _build.Kernel("flash_fwd", "flash_fwd.cu", "fact_flash_fwd", _ARGS)
 # The same launch function with a window that binds: counted as B2.
 WINDOWED_PREFILL = _build.Kernel("flash_fwd_window", "flash_fwd.cu", "fact_flash_fwd", _ARGS)
+
+
+def kernel_report() -> str:
+    """Registers, spill bytes and shared memory of every P / B2 kernel
+    instantiation, as the card's runtime reports them."""
+    return _build.runtime_report(PREFILL.source, "fact_fwd_report")
 
 
 def flash_attention_fwd_plain(
@@ -91,14 +100,12 @@ def flash_attention_fwd(
         return flash_attention_fwd_plain(q, k, v, sm_scale, causal, window, logit_softcap,
                                          return_lse)
     softcap = _build.softcap_arg(logit_softcap)
-    if return_lse:  # for the backward, which takes neither the cap nor D 256
-        _build.refuse_softcap(logit_softcap, "with the lse")
     window = _build.window_arg(window)
     if window >= skv:
         window = 0  # cannot bind: P's geometry
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"prefill kernel takes bf16/f16, got {q.dtype}")
-    _build.check_head_dim(d, LSE_HEAD_DIMS if return_lse else HEAD_DIMS, "prefill")
+    _build.check_head_dim(d, HEAD_DIMS, "prefill")
     if hq % hkv or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):

@@ -50,7 +50,6 @@ multiplies by its reciprocal, which would move some values on the card.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import torch
@@ -328,14 +327,8 @@ def dequantize_weight4(qw: QuantizedWeight4, dtype=torch.float32) -> torch.Tenso
 
 def kernel_report() -> str:
     """Registers, spill bytes and shared memory of every B10 / B11 kernel
-    instantiation, as the card's runtime reports them (builds the library
-    if needed; needs the card)."""
-    lib = _build.load(QMM8.source)
-    fn = lib.fact_qmm_report
-    fn.argtypes, fn.restype = [ctypes.c_char_p, ctypes.c_int], ctypes.c_int
-    buf = ctypes.create_string_buffer(4096)
-    fn(buf, len(buf))
-    return buf.value.decode()
+    instantiation, as the card's runtime reports them."""
+    return _build.runtime_report(QMM8.source, "fact_qmm_report")
 
 
 def quantized_matmul_plain(x: torch.Tensor, qw) -> torch.Tensor:

@@ -1,0 +1,88 @@
+#!/usr/bin/env python3
+"""Compare the SASS of kernel libraries built from two trees of the
+repository, function by function:
+
+    python3 scripts/compare_sass_torch.py <tree A> <tree B> flash_chunked.cu paged_attention.cu
+
+Each source is built in each tree by that tree's own build code
+(`flash_attention_cute_tpu_torch/ops/_build.py`, into the tree's `_build/`),
+and the libraries are disassembled with `cuobjdump -sass`. Prints one JSON
+line: for each source, the kernel functions whose SASS is byte-identical,
+and for each one that differs, whether it is identical once the offsets
+into the kernel's parameter bank (`c[0x0][...]`) are masked, i.e. whether
+only the layout of its argument struct moved. Needs the CUDA toolkit
+(nvcc, cuobjdump); no card.
+"""
+
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+_LIB_PATH = (
+    "import sys; sys.path.insert(0, '.'); "
+    "from flash_attention_cute_tpu_torch.ops import _build; "
+    "_build.build(sys.argv[1:]); "
+    "print('\\n'.join(str(_build._library_path(s)) for s in sys.argv[1:]))"
+)
+
+
+def build(tree: str, sources: list[str]) -> list[str]:
+    out = subprocess.run([sys.executable, "-c", _LIB_PATH, *sources], cwd=tree, check=True,
+                         capture_output=True, text=True).stdout
+    return out.strip().splitlines()[-len(sources):]
+
+
+def cuobjdump() -> str:
+    for cand in (os.environ.get("CUDA_HOME") and os.path.join(os.environ["CUDA_HOME"], "bin",
+                                                              "cuobjdump"),
+                 shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("cuobjdump not found")
+
+
+def functions(lib: str) -> dict[str, str]:
+    """{mangled kernel name: its SASS text} of one library."""
+    text = subprocess.run([cuobjdump(), "-sass", lib], check=True, capture_output=True,
+                          text=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = ""
+        elif name is not None:
+            out[name] += line + "\n"
+    return out
+
+
+def masked(sass: str) -> str:
+    """SASS with parameter-bank offsets and instruction encodings masked."""
+    sass = re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][.]", sass)
+    return re.sub(r"/\* 0x[0-9a-f]+ \*/", "", sass)
+
+
+def main() -> None:
+    tree_a, tree_b, sources = sys.argv[1], sys.argv[2], sys.argv[3:]
+    libs_a, libs_b = build(tree_a, sources), build(tree_b, sources)
+    report = {}
+    for src, la, lb in zip(sources, libs_a, libs_b):
+        fa, fb = functions(la), functions(lb)
+        same, differ = [], {}
+        for name in sorted(set(fa) | set(fb)):
+            if fa.get(name) == fb.get(name):
+                same.append(name)
+            elif name in fa and name in fb:
+                differ[name] = ("differs only in parameter offsets"
+                                if masked(fa[name]) == masked(fb[name]) else "differs")
+            else:
+                differ[name] = "only in " + ("A" if name in fa else "B")
+        report[src] = {"identical": len(same), "of": len(set(fa) | set(fb)), "differing": differ}
+    print(json.dumps(report))
+
+
+if __name__ == "__main__":
+    main()

@@ -7,11 +7,18 @@ comparing two trees of the repository in one call:
 The package is imported from the current directory. Llama / Mistral shapes
 (Hq 32, Hkv 8, D 128, bf16, causal): P at the Llama-3-8B greedy prefill
 (B 4, S 512) and the training step (B 2, S 2048), with its lse where the
-tree has `return_lse`; B2 at Mistral-7B's greedy prefill (B 2, S 5120,
-window 4096); D1 at the greedy middle decode step (B 4, 544 of 576
-positions, the dispatch's splits); B5 (+ D2) at serving run A's decode (8
-rows of 174-923 keys, page_size 128); B6 at run B's extend (8 rows, chunk
-256, offsets 0-768, page_size 16). Gemma-2-9B shapes (Hq 16, Hkv 8, D 256,
+tree has `return_lse`; P at Qwen2-7B's 28 / 4 heads (B 4, S 512), at D 64
+(B 2, S 1024), non-causal (B 1, S 2048) and ragged (B 2, S 1000); B2 at
+Mistral-7B's greedy prefill (B 2, S 5120, window 4096); D1 at the greedy
+middle decode step (B 4, 544 of 576 positions, the dispatch's splits); B5
+(+ D2) at serving run A's decode (8 rows of 174-923 keys, page_size 128);
+B6 at run B's extend (8 rows, chunk 256, offsets 0-768, page_size 16); B4
+at a verify round (B 4, S 5, capacity 640) and a chunk (B 4, S 256,
+offsets 0-768, capacity 1100); B9 at run E's extend (B6's shape over e4m3
+pages); B12 over 8 packed causal sequences of 100-2048 tokens. Every P / B2
+shape also has a "bound" entry: 4 D operations per visible (row, key) pair
+and q head at the bf16 peak, or its bytes (q, k, v read once, the output
+written once) at 3.35 TB/s, whichever is longer. Gemma-2-9B shapes (Hq 16, Hkv 8, D 256,
 scale 256 ** -0.5) with and without the soft cap 50, where the tree takes
 them (null where it raises NotImplementedError): P at B 2, S 4608; B2 with
 window 4096 there; D1 at B 2, 4624 of 4640 positions; B6 at run B's extend.
@@ -37,8 +44,10 @@ sys.path.insert(0, os.getcwd())
 import torch  # noqa: E402
 
 from flash_attention_cute_tpu_torch import dispatch  # noqa: E402
-from flash_attention_cute_tpu_torch.ops import flash_bwd, flash_decode, flash_fwd  # noqa: E402
+from flash_attention_cute_tpu_torch.ops import flash_bwd, flash_chunked, flash_decode, flash_fwd  # noqa: E402
+from flash_attention_cute_tpu_torch.ops import flash_varlen  # noqa: E402
 from flash_attention_cute_tpu_torch.ops import paged_attention as pa  # noqa: E402
+from flash_attention_cute_tpu_torch.ops import quantized as qz  # noqa: E402
 from flash_attention_cute_tpu_torch.utils.timing import cuda_time_ms  # noqa: E402
 
 PEAK_BF16, PEAK_BYTES = 989e12, 3.35e12
@@ -50,6 +59,28 @@ def visible_pairs(s: int, causal: bool, window: int | None) -> int:
         return s * s
     w = window or s
     return sum(min(m + 1, w) for m in range(s))
+
+
+def other_bodies(randn, pool, timed, out):
+    """B4, B9 and B12: the kernels on the mma.sync body (csrc/attention_fwd.cuh)."""
+    for name, s, cap_len, offs in (("B4 verify B4 S5 C640", 5, 640, [0, 200, 400, 600]),
+                                   ("B4 chunk B4 S256 C1100", 256, 1100, [0, 256, 512, 768])):
+        q = randn(4, s, 32, 128).transpose(1, 2)
+        kc, vc = randn(4, 8, cap_len, 128), randn(4, 8, cap_len, 128)
+        off = torch.tensor(offs, dtype=torch.int32, device="cuda")
+        out[name] = timed(lambda: flash_chunked.flash_attention_chunked(
+            q, kc, vc, off, off + s), 20)
+    kp, vp, table = pool(8, 16, 128, 8, 128)
+    k, v = (qz.quantize_kv(x, torch.float8_e4m3fn) for x in (kp, vp))
+    off = torch.tensor([0, 256, 512, 768] * 2, dtype=torch.int32, device="cuda")
+    q = randn(8, 256, 32, 128).transpose(1, 2)
+    out["B9 e4m3 B8 S256 ps16"] = timed(lambda: qz.paged_attention_extend_quantized(
+        q, k, v, off, off + 256, table), 20)
+    lens = [1800, 100, 2048, 731, 1024, 333, 1500, 600]
+    cu = torch.tensor([0] + lens, device="cuda").cumsum(0).to(torch.int32)
+    q, k, v = randn(sum(lens), 32, 128), randn(sum(lens), 8, 128), randn(sum(lens), 8, 128)
+    out["B12 8 sequences causal"] = timed(lambda: flash_varlen.flash_attention_varlen(
+        q, k, v, cu, causal=True), 20)
 
 
 def backward_times(randn, timed, out):
@@ -104,20 +135,28 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(), "tree": os.getcwd()}
     lse = "return_lse" in flash_fwd.flash_attention_fwd.__code__.co_varnames
-    for name, b, hq, s, d, w in (("P B4 S512", 4, 32, 512, 128, None),
-                                 ("P B2 S2048", 2, 32, 2048, 128, None),
-                                 ("B2 B2 S5120 W4096", 2, 32, 5120, 128, 4096),
-                                 ("gemma2 P B2 S4608", 2, 16, 4608, 256, None),
-                                 ("gemma2 B2 B2 S4608 W4096", 2, 16, 4608, 256, 4096)):
-        q, k, v = randn(b, hq, s, d), randn(b, 8, s, d), randn(b, 8, s, d)
+    for name, b, hq, hkv, s, d, causal, w in (
+            ("P B4 S512", 4, 32, 8, 512, 128, True, None),
+            ("P B2 S2048", 2, 32, 8, 2048, 128, True, None),
+            ("P qwen2 28/4 B4 S512", 4, 28, 4, 512, 128, True, None),
+            ("P D64 B2 S1024", 2, 32, 8, 1024, 64, True, None),
+            ("P non-causal B1 S2048", 1, 32, 8, 2048, 128, False, None),
+            ("P ragged B2 S1000", 2, 32, 8, 1000, 128, True, None),
+            ("B2 B2 S5120 W4096", 2, 32, 8, 5120, 128, True, 4096),
+            ("gemma2 P B2 S4608", 2, 16, 8, 4608, 256, True, None),
+            ("gemma2 B2 B2 S4608 W4096", 2, 16, 8, 4608, 256, True, 4096)):
+        q, k, v = randn(b, hq, s, d), randn(b, hkv, s, d), randn(b, hkv, s, d)
         caps = (None, 50.0) if d == 256 else (None,)
         for cap in caps:
             label = name + (f" cap {cap:g}" if cap else "")
             out[label] = timed(lambda: flash_fwd.flash_attention_fwd(
-                q, k, v, causal=True, window=w, **capped(cap)), 20)
-        if lse and d == 128 and w is None:
+                q, k, v, causal=causal, window=w, **capped(cap)), 20)
+        if lse and name in ("P B4 S512", "P B2 S2048"):
             out[name + " with lse"] = timed(lambda: flash_fwd.flash_attention_fwd(
                 q, k, v, causal=True, return_lse=True), 20)
+        io = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v read, the output written
+        out[f"bound {name}"] = 1e3 * max(4 * d * b * hq * visible_pairs(s, causal, w) / PEAK_BF16,
+                                          io / PEAK_BYTES)
         del q, k, v
 
     for name, b, hq, cap_len, live, d in (("D1 B4 C576 L544", 4, 32, 576, 544, 128),
@@ -146,6 +185,7 @@ def main() -> None:
             out[label] = timed(lambda: pa.paged_attention_extend(
                 q, kp, vp, off, off + 256, table, **capped(cap)), 20)
         del kp, vp
+    other_bodies(randn, pool, timed, out)
     backward_times(randn, timed, out)
     print(json.dumps(out))
 

@@ -114,6 +114,33 @@ def test_prefill_matches_jax_diag_kernel():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
 
 
+LSE_CASES = {
+    # name: (head_dim, soft cap, window), at Sq 70 / Skv 90, Hq 4 / Hkv 2
+    "d256": (256, None, None),
+    "d256_cap50": (256, 50.0, None),
+    "d256_cap1_window40": (256, 1.0, 40),
+    "d128_cap2": (128, 2.0, None),
+}
+
+
+@pytest.mark.parametrize("case", list(LSE_CASES), ids=list(LSE_CASES))
+def test_prefill_with_lse_matches_jax_at_d256_and_with_the_cap(case):
+    """The output and lse the prefill kernel writes at D 256 and with the
+    soft cap: the plain version against the JAX forward (strict softmax,
+    interpret mode) with `return_lse`, both at 1e-5."""
+    d, cap, window = LSE_CASES[case]
+    q, k, v = qkv(5, 1, 4, 2, 70, 90, d)
+    want, want_lse = jax_fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True, window=window,
+        logit_softcap=cap, return_lse=True, stable="strict", interpret=True,
+    )
+    got, lse = flash_fwd.flash_attention_fwd(t(q), t(k), t(v), causal=True, window=window,
+                                             logit_softcap=cap, return_lse=True)
+    assert lse.shape == (1, 4, 70) and lse.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=1e-5, rtol=0)
+
+
 @pytest.mark.parametrize("num_splits", [1, 4])
 def test_decode_matches_jax_kernel_stacked_cache(num_splits):
     """Stacked [L,B,Hkv,C,D] cache, layer 1, ragged lengths; the port's
@@ -242,6 +269,13 @@ def test_non_cpu_tensors_take_the_kernel_route_and_never_fall_back():
         flash_bwd.flash_attention_bwd(q, k, k, q, q, lse, causal=True)
     with pytest.raises(ValueError, match="CUDA tensor"):
         autodiff.flash_attention(q.requires_grad_(), k, k, causal=True)
+    # D 256 under autograd: refused before the forward, which would take it.
+    q256 = torch.empty(1, 4, 64, 256, dtype=torch.bfloat16, device="meta")
+    k256 = torch.empty(1, 2, 64, 256, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_fwd.flash_attention_fwd(q256, k256, k256, causal=True, return_lse=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A10b"):
+        autodiff.flash_attention(q256.requires_grad_(), k256, k256, causal=True)
     cu = torch.tensor([0, 64], dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensor"):
         flash_varlen.flash_attention_varlen(q[0].transpose(0, 1), k[0].transpose(0, 1),

@@ -24,7 +24,10 @@ with split K against one pass over K; and they repeat bit for bit.
 
 Training and varlen: the lse of P and B2 is held to the plain fp32 lse at
 1e-3 absolute on finite entries (log2 units; both sum the same fp32
-probabilities in another order) with an identical +inf pattern. The
+probabilities in another order) with an identical +inf pattern, also at
+D 256 and with the soft cap, and at the edges of the kernel's tiles (S 1,
+63, 65, 130, rows with no key, GQA groups 1 / 7 / 32, windows 1 / 45 / 400),
+where a second call repeats output and lse bit for bit. The
 backward kernels B13a / B13b take the kernel forward's o and lse and are
 held to `flash_attention_bwd_plain` on the same inputs by max |diff| over
 max |plain| <= 2e-2: gradients grow with the sequence, and the kernels
@@ -1031,11 +1034,6 @@ def test_training_and_varlen_kernels_refuse_what_they_do_not_take(device):
     q = torch.zeros(1, 4, 64, 256, dtype=torch.bfloat16, device="cuda")
     lse = torch.zeros(1, 4, 64, device="cuda")
     with pytest.raises(NotImplementedError, match="A10b"):
-        flash_fwd.flash_attention_fwd(q, q[:, :2], q[:, :2], return_lse=True)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        flash_fwd.flash_attention_fwd(q[..., :128], q[:, :2, :, :128], q[:, :2, :, :128],
-                                      logit_softcap=30.0, return_lse=True)
-    with pytest.raises(NotImplementedError, match="A10b"):
         flash_bwd.flash_attention_bwd(q, q[:, :2], q[:, :2], q, q, lse)
     qv = torch.zeros(64, 4, 128, dtype=torch.bfloat16, device="cuda")
     cu = torch.tensor([0, 64], dtype=torch.int32, device="cuda")
@@ -1044,6 +1042,86 @@ def test_training_and_varlen_kernels_refuse_what_they_do_not_take(device):
     with pytest.raises(NotImplementedError, match="A10b"):
         flash_varlen.flash_attention_varlen(q[0].transpose(0, 1), q[0, :2].transpose(0, 1),
                                             q[0, :2].transpose(0, 1), cu)
+
+
+@pytest.mark.parametrize("d,cap", [(256, None), (128, 30.0)], ids=["d256", "cap30"])
+def test_prefill_lse_takes_d256_and_the_cap(device, d, cap):
+    """The forward writes its lse at D 256 and with the soft cap (the JAX
+    forward returns both): output within BF16_TOL and lse within LSE_TOL of
+    the fp32 plain version, at the shapes the kernel refused before."""
+    gen = torch.Generator(device="cuda").manual_seed(36)
+    q, k, v = randn(gen, 1, 4, 64, d), randn(gen, 1, 2, 64, d), randn(gen, 1, 2, 64, d)
+    out, lse = flash_fwd.flash_attention_fwd(q, k, v, logit_softcap=cap, return_lse=True)
+    ref, ref_lse = flash_fwd.flash_attention_fwd_plain(q.float(), k.float(), v.float(),
+                                                       logit_softcap=cap, return_lse=True)
+    assert (out.float() - ref).abs().max().item() <= BF16_TOL
+    assert (lse - ref_lse).abs().max().item() <= LSE_TOL
+
+
+def test_autodiff_refuses_d256_before_the_forward_launches(device):
+    """The backward kernels take no D 256 (ROADMAP.md A10b): the autograd op
+    raises before P runs, not after a forward whose gradient cannot come."""
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    q = randn(gen, 1, 4, 64, 256).requires_grad_()
+    k, v = randn(gen, 1, 2, 64, 256), randn(gen, 1, 2, 64, 256)
+    before = (flash_fwd.PREFILL.launches, flash_fwd.WINDOWED_PREFILL.launches)
+    with pytest.raises(NotImplementedError, match="A10b"):
+        autodiff.flash_attention(q, k, v, causal=True)
+    with pytest.raises(NotImplementedError, match="A10b"):
+        api.flash_attn_func(q, k, v, causal=True)
+    assert (flash_fwd.PREFILL.launches, flash_fwd.WINDOWED_PREFILL.launches) == before
+
+
+# P / B2 at the edges of their tiles (128 q rows a block, 128 keys a tile at
+# D 64 / 128, 64 at D 256), with the lse, on the model's transposed views,
+# each call repeated: output and lse bit-identical, and the call without the
+# lse writes the same output.
+PREFILL_EDGES = {
+    # name: (batch, hq, hkv, sq, skv, d, causal, window, cap, dtype)
+    "s1": (2, 32, 8, 1, 1, 128, True, None, None, torch.bfloat16),
+    "s63": (1, 32, 8, 63, 63, 128, True, None, None, torch.bfloat16),
+    "s65": (1, 32, 8, 65, 65, 128, True, None, None, torch.bfloat16),
+    "s130": (1, 32, 8, 130, 130, 128, True, None, None, torch.bfloat16),
+    "s1000": (1, 32, 8, 1000, 1000, 128, True, None, None, torch.bfloat16),
+    "sq64_skv1000": (1, 32, 8, 64, 1000, 128, True, None, None, torch.bfloat16),
+    "sq1000_skv64_zero_rows": (1, 32, 8, 1000, 64, 128, True, None, None, torch.bfloat16),
+    "group1": (1, 8, 8, 300, 300, 128, True, None, None, torch.bfloat16),
+    "group7": (1, 28, 4, 700, 700, 128, True, None, None, torch.bfloat16),
+    "group32": (1, 32, 1, 512, 512, 128, True, None, None, torch.bfloat16),
+    "f16": (1, 32, 8, 333, 333, 128, True, None, None, torch.float16),
+    "noncausal": (1, 32, 8, 300, 1000, 128, False, None, None, torch.bfloat16),
+    "window1": (1, 32, 8, 1000, 1000, 128, True, 1, None, torch.bfloat16),
+    "window45": (1, 32, 8, 1000, 1000, 128, True, 45, None, torch.bfloat16),
+    "window400": (1, 32, 8, 1000, 1000, 128, True, 400, None, torch.bfloat16),
+    "d64_window45": (1, 8, 2, 700, 700, 64, True, 45, None, torch.bfloat16),
+    "d256_cap50": (2, 16, 8, 700, 700, 256, True, None, 50.0, torch.bfloat16),
+    "d256_cap1_window400": (1, 16, 8, 1000, 1000, 256, True, 400, 1.0, torch.bfloat16),
+    "d256_sq1000_skv64_zero_rows": (1, 16, 8, 1000, 64, 256, True, None, None, torch.bfloat16),
+    "d256_f16_noncausal": (1, 16, 8, 300, 500, 256, False, None, 50.0, torch.float16),
+}
+
+
+@pytest.mark.parametrize("case", list(PREFILL_EDGES), ids=list(PREFILL_EDGES))
+def test_prefill_kernel_edges_with_lse_repeat_bit_for_bit(device, case):
+    b, hq, hkv, sq, skv, d, causal, window, cap, dtype = PREFILL_EDGES[case]
+    gen = torch.Generator(device="cuda").manual_seed(38)
+    q = randn(gen, b, sq, hq, d, dtype=dtype).transpose(1, 2)
+    k = randn(gen, b, skv, hkv, d, dtype=dtype).transpose(1, 2)
+    v = randn(gen, b, skv, hkv, d, dtype=dtype).transpose(1, 2)
+    kw = dict(causal=causal, window=window, logit_softcap=cap)
+    out, lse = flash_fwd.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    again, lse_again = flash_fwd.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)
+    assert torch.equal(out, flash_fwd.flash_attention_fwd(q, k, v, **kw))
+    ref, ref_lse = flash_fwd.flash_attention_fwd_plain(q.float(), k.float(), v.float(),
+                                                       return_lse=True, **kw)
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref).abs().max().item() <= BF16_TOL
+    assert torch.equal(torch.isinf(lse), torch.isinf(ref_lse))
+    fin = torch.isfinite(ref_lse)
+    assert (lse[fin] - ref_lse[fin]).abs().max().item() <= LSE_TOL
+    if causal and sq > skv:  # rows with no key: exact zeros, lse +inf
+        assert (out[:, :, : sq - skv] == 0).all() and torch.isinf(lse[:, :, : sq - skv]).all()
 
 
 # Gemma2 (soft caps, head dim 256) on P / B2, D1 + D2, B5, B6 and the append,
