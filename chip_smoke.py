@@ -9,23 +9,28 @@ Phases, in order; any failure exits non-zero:
   1. device: a CUDA card of compute capability 9.0; its name and power limit.
   2. build: every kernel of the main paths from csrc/ (one nvcc per source,
      all at once), with the ptxas register / shared-memory / spill report
-     and, for every B10 / B11, P / B2 and B13a / B13b instantiation, the
-     runtime's registers, spill bytes and launch shared memory (no spill
-     allowed); then the native scheduler (csrc/page_allocator.cpp) with g++.
+     and, for every B10 / B11, P / B2, B6, B9 and B13a / B13b
+     instantiation, the runtime's registers, spill bytes and launch shared
+     memory (no spill allowed); then the native scheduler
+     (csrc/page_allocator.cpp) with g++.
   3. kernels vs plain: P / B2 with their lse (PREFILL_CASES: the main
      path's B 4 S 512, S 1, 63, 65, 130 and 1000 at the edges of the
      kernel's 128-row blocks and 128-key tiles, Sq 64 / Skv 1000, Sq 1000 /
      Skv 64 and Sq 1024 / Skv 256 with rows of no key (exact zeros, lse
      +inf), GQA groups 1, 7 and 32, f16, non-causal, windows of 1, 45 and
      400 keys, transposed q / k / v views; every call repeated, output and
-     lse bit for bit), D1, D2, B5 (paged decode), B6 (paged extend) and
-     the paged append at Llama-3-8B attention widths against their plain
-     PyTorch versions on the card (bf16; tolerance below), B5/B6 over
-     NaN-poisoned pools behind permuted page tables; then (3b) the
+     lse bit for bit), D1, D2, B5 (paged decode) and the paged append at
+     Llama-3-8B attention widths against their plain PyTorch versions on
+     the card (bf16; tolerance below), B6 (paged extend) over
+     EXTEND_CASES (page sizes 8 / 16 / 128, D 64 / 128 / 256, S 1 to 512,
+     offsets off the tiles, windows 1 / 45 / 4096, groups 1 / 7 / 8, f16,
+     an inactive row of exact zeros, every call repeated bit for bit), B5 /
+     B6 over NaN-poisoned pools behind permuted page tables; then (3b) the
      quantized-cache kernels B7 (decode), B8 (paged decode), B9 (paged
-     extend) over int8 and e4m3 values whose scales (and e4m3 values) hold
-     NaN at and past every length, and QA (quantize-and-append, paged and
-     contiguous), which must be bit-identical to its plain version; (3c)
+     extend, over EXTEND_CASES, int8 and e4m3 in turn) over int8 and e4m3
+     values whose scales (and e4m3 values) hold NaN at and past every
+     length, and QA (quantize-and-append, paged and contiguous), which must
+     be bit-identical to its plain version; (3c)
      the weight-only quantized products B10 (int8) and B11 (int4) at the
      Llama-3-8B projection shapes (T 1 to 2048, either side of the decode /
      prefill crossover at 16 / 17, a verify round of 20, 63 / 64, a chunk
@@ -65,10 +70,11 @@ Phases, in order; any failure exits non-zero:
      / Skv 1024, ragged S 1000 in f16, Sq 1000 / Skv 64 with rows of no
      key, MQA group 16) and B2 (B 2 S 4608, window 4096), each with its lse
      (LSE_TOL) and repeated bit for bit, D1
-     + D2 (capacity 4640, windows none and 4096, NaN past every length), B5
-     and B6 (page sizes 16 and 128, NaN-poisoned pools behind permuted
-     tables, B6 with and without the window), the paged append at D 256
-     (bit-identical), and P, D1, B5, B6 with the caps at Llama widths.
+     + D2 (capacity 4640, windows none and 4096, NaN past every length), B5,
+     B6 and B9 (page sizes 16 and 128, NaN-poisoned pools behind permuted
+     tables, B6 / B9 with and without the window; B9 over int8 pages of 16
+     and e4m3 pages of 128), the paged append at D 256 (bit-identical),
+     and P, D1, B5, B6, B9 with the caps at Llama widths.
   4. main paths: greedy generation of Llama-3-8B (random weights from a
      seeded CUDA generator) at B 4, prompt 512, 64 new tokens; launch
      counters show the kernels carried it; teacher-forced logits of the
@@ -168,16 +174,20 @@ Phases, in order; any failure exits non-zero:
      at the training shape also its launches, bound, plain version and
      SDPA's forward);
      the training numbers ("training"); (5d) the "gemma2" entries of the P,
-     B2, D1, D2, B5, B6 and append rows at Gemma-2-9B shapes with the cap
-     50 (library_ms: `flex_attention` with a tanh score_mod for P / B2 where
-     it compiles, else SDPA without the cap; SDPA without the cap for B5 /
-     B6; labelled in each entry's shape); the card's name and power limit.
+     B2, D1, D2, B5, B6, B9 and append rows at Gemma-2-9B shapes with the
+     cap 50 (library_ms: `flex_attention` with a tanh score_mod for P / B2
+     where it compiles, else SDPA without the cap; SDPA without the cap for
+     B5 / B6 / B9, over a dequantized copy for B9; labelled in each entry's
+     shape); the rows of P / B2, B6, B9 and B13a / B13b carry the runtime's
+     registers, spill and shared bytes of their instantiation
+     ("runtime_attributes"); the card's name and power limit.
 The last line is {"ok": true, "device": {...}}.
 
 Tolerances: kernel outputs are bf16 results of fp32 arithmetic on bf16
 inputs, held against the fp32 plain version at max |diff| <= 3e-2 (the
 repository's bf16 figure); the quantized kernels too (their int8 / e4m3
-values widen to bf16 exactly, P is rounded to bf16 before PV as in B6), and
+values widen to bf16 exactly, P is rounded to bf16 before PV as in B6,
+and B6 / B9 repeat bit for bit), and
 B10 / B11 (x at unit scale, weights of std fan_in ** -0.5, fp32 sums).
 Teacher-forced logits of the kernel path and the plain-attention path, and
 of a quantized tree and its dequantized image: max |diff| <= 1.0 and mean
@@ -394,14 +404,14 @@ def phase_chunked_kernels(torch, flash_chunked, errs):
                 check(bool((out[i] == 0).all()), f"B4 {name}: a kv_length-0 row is 0")
 
 
-def paged_pool(torch, randn, gen, ps, rows, capacity=2048, layers=2, d=128):
-    """A stacked bf16 pool [layers, 8, P, ps, d] with room for `rows` rows
-    of `capacity` tokens, and a page table from a seeded permutation of its
-    pages (page 0 in no table)."""
+def paged_pool(torch, randn, gen, ps, rows, capacity=2048, layers=2, d=128, hkv=8):
+    """A stacked pool [layers, hkv, P, ps, d] (randn's dtype) with room for
+    `rows` rows of `capacity` tokens, and a page table from a seeded
+    permutation of its pages (page 0 in no table)."""
     pps = capacity // ps
     num_pages = rows * pps + 1
-    kp = randn(layers, 8, num_pages, ps, d)
-    vp = randn(layers, 8, num_pages, ps, d)
+    kp = randn(layers, hkv, num_pages, ps, d)
+    vp = randn(layers, hkv, num_pages, ps, d)
     perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
     table = perm[: rows * pps].view(rows, pps).to(torch.int32).contiguous()
     return kp, vp, table
@@ -419,13 +429,80 @@ def poison_past(torch, pool, table, lengths):
     pool[:, :, 0] = float("nan")
 
 
+# Phases 3 / 3b: (name, page_size, head_dim, hq, hkv, S, q_offset of rows
+# 0-2, window, dtype) of the paged extends B6 and B9 against their fp32 plain
+# versions: run B's chunk, page sizes 8, 16 and 128, head dims 64, 128 and
+# 256, chunks of 1, 63, 65, 130 and 512 rows across the kernels' 128-row
+# blocks and 128- / 64-key tiles, offsets off every tile and page boundary,
+# windows of 1, 45 and 4096 keys, GQA groups 1, 7 and 8, f16. Row 3 of each
+# is inactive (kv_length 0, exact zeros); pools are NaN at and past every
+# length behind permuted tables; every call is repeated bit for bit.
+EXTEND_CASES = (
+    ("run B's chunk", 16, 128, 32, 8, 256, [0, 256, 1000], None, "bfloat16"),
+    ("S 100, page_size 128", 128, 128, 32, 8, 100, [0, 256, 1000], None, "bfloat16"),
+    ("S 63, page_size 8", 8, 128, 32, 8, 63, [5, 130, 1001], None, "bfloat16"),
+    ("S 65, page_size 128, f16", 128, 128, 32, 8, 65, [127, 300, 77], None, "float16"),
+    ("D 64, S 130, group 1", 16, 64, 8, 8, 130, [0, 61, 999], None, "bfloat16"),
+    ("D 256, S 512", 16, 256, 16, 8, 512, [0, 512, 1003], None, "bfloat16"),
+    ("D 256, S 1, page_size 128", 128, 256, 16, 8, 1, [0, 37, 3000], None, "bfloat16"),
+    ("S 1, group 7", 16, 128, 28, 4, 1, [0, 37, 1500], None, "bfloat16"),
+    ("window 1, S 130", 16, 128, 32, 8, 130, [0, 200, 1000], 1, "bfloat16"),
+    ("window 45, S 65, page_size 8", 8, 128, 32, 8, 65, [10, 90, 2000], 45, "bfloat16"),
+    ("window 4096, S 512", 16, 128, 32, 8, 512, [3584, 4096, 100], 4096, "bfloat16"),
+    ("group 8, S 130, f16", 16, 128, 8, 1, 130, [3, 700, 1999], None, "float16"),
+)
+
+
+def held_extends(torch, errs, name, fn, plain, pools, tag):
+    """Every EXTEND_CASES case of one paged extend (`fn` and `plain` take q,
+    the case's pools, offsets, lengths, table and window) held to its fp32
+    plain version; `pools(i, ps, d, hkv, lengths, dtype)` makes case i's
+    NaN-poisoned pools and a permuted table for 4 rows of 5120 keys."""
+    gen = torch.Generator(device="cuda").manual_seed(4322)
+    for i, (what, ps, d, hq, hkv, s, offs, w, dname) in enumerate(EXTEND_CASES):
+        dtype = getattr(torch, dname)
+        off = torch.tensor(offs + [0], dtype=torch.int32, device="cuda")
+        kvl = torch.tensor([o + s for o in offs] + [0], dtype=torch.int32, device="cuda")
+        kp, vp, table = pools(i, ps, d, hkv, kvl.tolist(), dtype)
+        q = torch.randn(4, s, hq, d, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+        out = fn(q, kp, vp, off, kvl, table, w)
+        again = fn(q, kp, vp, off, kvl, table, w)
+        ref = plain(q.float(), kp, vp, off, kvl, table, w)
+        e = max_err(out, ref)
+        errs[name] = max(errs.get(name, 0.0), e)
+        label = f"{tag} {what}, q_offset {offs}, window {w}"
+        print(f"  {label}: max|diff| {e:.3e}")
+        check(bool(torch.isfinite(out).all()), f"{label}: finite over NaN-poisoned pages")
+        check(bool((out[3] == 0).all()), f"{label}: inactive row is exactly 0")
+        check(torch.equal(out, again), f"{label}: a second call repeats bit for bit")
+        check(e <= BF16_TOL, f"{label} within {BF16_TOL}")
+        del kp, vp
+
+
 def phase_paged_kernels(torch, paged_attention, paged_cache, errs):
     """B5, B6 and the paged append against their plain versions (Hq 32,
-    Hkv 8, D 128, bf16), over NaN-poisoned pools and permuted tables."""
+    Hkv 8, D 128, bf16; B6 over EXTEND_CASES), over NaN-poisoned pools and
+    permuted tables."""
     gen = torch.Generator(device="cuda").manual_seed(4321)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def pools(_, ps, d, hkv, lengths, dtype):
+        kp, vp, table = paged_pool(torch, lambda *sh: randn(*sh).to(dtype), gen, ps, rows=4,
+                                   capacity=5120, layers=1, d=d, hkv=hkv)
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        poison_past(torch, kp, table, lens)
+        poison_past(torch, vp, table, lens)
+        return kp[0], vp[0], table
+
+    held_extends(
+        torch, errs, "paged_extend",
+        lambda q, k, v, off, kvl, t, w: paged_attention.paged_attention_extend(
+            q, k, v, off, kvl, t, window=w),
+        lambda q, k, v, off, kvl, t, w: paged_attention.paged_attention_extend_plain(
+            q, k, v, off, kvl, t, window=w),
+        pools, "B6")
 
     for ps in (16, 128):
         kp, vp, table = paged_pool(torch, randn, gen, ps, rows=8)
@@ -443,23 +520,6 @@ def phase_paged_kernels(torch, paged_attention, paged_cache, errs):
         check(bool(torch.isfinite(out).all()), "B5 output finite over NaN-poisoned pages")
         check(bool((out[0] == 0).all()), "B5 row of length 0 is exactly 0")
         check(e <= BF16_TOL, f"B5 page_size {ps} within {BF16_TOL}")
-
-        for s in (256, 100):
-            off = torch.tensor([0, 256, 1000, 0], dtype=torch.int32, device="cuda")
-            kvl = torch.tensor([s, 256 + s, 1000 + s, 0], dtype=torch.int32, device="cuda")
-            kp, vp, table = paged_pool(torch, randn, gen, ps, rows=4)
-            poison_past(torch, kp, table, kvl)
-            poison_past(torch, vp, table, kvl)
-            q = randn(4, s, 32, 128).transpose(1, 2)  # the model's [B, S, H, D] view
-            out = paged_attention.paged_attention_extend(q, kp[0], vp[0], off, kvl, table)
-            ref = paged_attention.paged_attention_extend_plain(q, kp[0], vp[0], off, kvl, table)
-            e = max_err(out, ref)
-            errs["paged_extend"] = max(errs.get("paged_extend", 0.0), e)
-            print(f"  B6 page_size {ps}, S {s}, q_offset {off.tolist()}, kv_length "
-                  f"{kvl.tolist()}: max|diff| {e:.3e}")
-            check(bool(torch.isfinite(out).all()), "B6 output finite over NaN-poisoned pages")
-            check(bool((out[3] == 0).all()), "B6 inactive row is exactly 0")
-            check(e <= BF16_TOL, f"B6 page_size {ps} S {s} within {BF16_TOL}")
 
         # Append: decode rows (one inactive, one past the table) and a
         # 100-token chunk crossing pages; the kernel must write exactly
@@ -492,13 +552,14 @@ def poison_quant(torch, kv, dead):
         kv.values.view(torch.uint8)[dead] = 0x7F
 
 
-def quant_pool(torch, quantized, randn, gen, ps, rows, dtype, lengths=None, capacity=2048):
-    """One layer's quantized pools [8, P, ps, 128] behind a seeded permuted
+def quant_pool(torch, quantized, randn, gen, ps, rows, dtype, lengths=None, capacity=2048, d=128,
+               hkv=8):
+    """One layer's quantized pools [hkv, P, ps, d] behind a seeded permuted
     table (page 0 in no table); with `lengths`, NaN-poisoned at and past
     each row's length and in page 0."""
     pps = capacity // ps
     num_pages = rows * pps + 1
-    k, v = (quantized.quantize_kv(randn(8, num_pages, ps, 128), dtype) for _ in "kv")
+    k, v = (quantized.quantize_kv(randn(hkv, num_pages, ps, d), dtype) for _ in "kv")
     perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
     table = perm[: rows * pps].view(rows, pps).to(torch.int32).contiguous()
     if lengths is None:
@@ -510,7 +571,7 @@ def quant_pool(torch, quantized, randn, gen, ps, rows, dtype, lengths=None, capa
         p = pos[pos >= n]
         dead[table[b].long()[p // ps] * ps + p % ps] = True
     for kv in (k, v):
-        poison_quant(torch, kv, dead.view(1, num_pages, ps).expand(8, -1, -1))
+        poison_quant(torch, kv, dead.view(1, num_pages, ps).expand(hkv, -1, -1))
     return k, v, table
 
 
@@ -559,16 +620,6 @@ def phase_quant_kernels(torch, quantized, errs):
             ref = quantized.paged_attention_decode_quantized_plain(q, k, v, lengths, table)
             record("quant_paged_decode", max_err(out, ref),
                    f"B8 {dname} page_size {ps}, lengths {lens}", out, [0])
-            # B9: chunks of 256 and 100 at offsets 0 / 256 / 1000, one inactive row.
-            for s in (256, 100):
-                off = torch.tensor([0, 256, 1000, 0], dtype=torch.int32, device="cuda")
-                kvl = torch.tensor([s, 256 + s, 1000 + s, 0], dtype=torch.int32, device="cuda")
-                k, v, table = quant_pool(torch, quantized, randn, gen, ps, 4, dtype, kvl.tolist())
-                q = randn(4, s, 32, 128).transpose(1, 2)  # the model's [B, S, H, D] view
-                out = quantized.paged_attention_extend_quantized(q, k, v, off, kvl, table)
-                ref = quantized.paged_attention_extend_quantized_plain(q, k, v, off, kvl, table)
-                record("quant_paged_extend", max_err(out, ref),
-                       f"B9 {dname} page_size {ps}, S {s}, q_offset {off.tolist()}", out, [3])
             # QA: decode rows and a 100-token chunk, paged (an inactive row, a
             # row past the table) and into the contiguous cache.
             for s, starts, act in ((1, [0, 5, ps - 1, 2048, 37, 2 * ps, 1, 9],
@@ -594,6 +645,19 @@ def phase_quant_kernels(torch, quantized, errs):
                           f"bit-identical to plain: {same}")
                     check(same, "QA writes exactly what quantize_kv + the indexed write writes")
                 del cont
+
+    def pools(i, ps, d, hkv, lengths, _):
+        # Values alternate between int8 and e4m3 from case to case.
+        return quant_pool(torch, quantized, randn, gen, ps, 4, getattr(torch, QUANT_DTYPES[i % 2]),
+                          lengths, capacity=5120, d=d, hkv=hkv)
+
+    held_extends(
+        torch, errs, "quant_paged_extend",
+        lambda q, k, v, off, kvl, t, w: quantized.paged_attention_extend_quantized(
+            q, k, v, off, kvl, t, window=w),
+        lambda q, k, v, off, kvl, t, w: quantized.paged_attention_extend_quantized_plain(
+            q, k, v, off, kvl, t, window=w),
+        pools, "B9 (int8 / e4m3 in turn)")
 
 
 # Phase 3e: the windows every attention kernel takes: one key, an edge
@@ -1698,7 +1762,7 @@ def paged_rows(torch, cfg, randn, gen):
             & (cols < kvl[:, None, None]))[:, None]
     rows.append({
         "name": "paged_extend", "route": "cuda",
-        "source": "flash_attention_cute_tpu_torch/csrc/paged_attention.cu",
+        "source": "flash_attention_cute_tpu_torch/csrc/paged_extend.cuh",
         "replaces": "flash_attention_cute_tpu/ops/paged_attention.py:391",
         "ms": cuda_time_ms(lambda: pa.paged_attention_extend(q, kp, vp, off, kvl, table)),
         "call_ms": call_time_ms(lambda: pa.paged_attention_extend(q, kp, vp, off, kvl, table)),
@@ -1836,7 +1900,8 @@ def quant_rows(torch, cfg, randn, gen):
             & (cols < kvl[:, None, None]))[:, None]
     kv_tokens = int(kvl.sum())
     rows.append({
-        "name": "quant_paged_extend", "route": "cuda", "source": src,
+        "name": "quant_paged_extend", "route": "cuda",
+        "source": "flash_attention_cute_tpu_torch/csrc/paged_extend.cuh",
         "replaces": "flash_attention_cute_tpu/ops/quantized.py:717",
         **timed(lambda: qz.paged_attention_extend_quantized(q, k, v, off, kvl, table),
                 lambda: qz.paged_attention_extend_quantized_plain(q, k, v, off, kvl, table),
@@ -2480,9 +2545,10 @@ GRAD_REL_TOL = 2e-2
 
 
 def runtime_attributes(report: str, label: str) -> dict:
-    """Registers, spill and shared bytes of one P / B2 or B13a / B13b
-    instantiation as the runtime reports them (`flash_fwd.kernel_report()`,
-    `flash_bwd.kernel_report()`)."""
+    """Registers, spill and shared bytes of one P / B2, B6, B9 or B13a /
+    B13b instantiation as the runtime reports them (`kernel_report()` of
+    ops/flash_fwd.py, ops/paged_attention.py and ops/flash_bwd.py,
+    `extend_kernel_report()` of ops/quantized.py)."""
     line = next(x for x in report.splitlines() if x.startswith(label + ":"))
     regs, spill, shared = (int(n) for n in re.findall(r"(\d+) (?:registers|bytes)", line))
     return {"instantiation": label, "registers_at_launch": regs, "spill_bytes": spill,
@@ -2906,15 +2972,17 @@ GEMMA2_KEEP = 64  # teacher forcing compares every 64th prefill position and the
 
 
 def phase_gemma2_kernels(torch, ops, errs):
-    """P / B2, D1 + D2, B5, B6 and the paged append at Gemma-2-9B attention
-    widths (Hq 16, Hkv 8, D 256, scale 256 ** -0.5) with the soft caps 50
-    and 1.0, and P, D1, B5, B6 with the caps at Llama widths (32 / 8, D
-    128), against their fp32 plain versions (run on q's fp32 image); caches
-    and pools NaN past every length, pools behind permuted tables. Errors at
-    D 256 also go to the "<kernel> gemma2" entries of `errs`."""
+    """P / B2, D1 + D2, B5, B6, B9 and the paged append at Gemma-2-9B
+    attention widths (Hq 16, Hkv 8, D 256, scale 256 ** -0.5) with the soft
+    caps 50 and 1.0, and P, D1, B5, B6, B9 with the caps at Llama widths (32
+    / 8, D 128), against their fp32 plain versions (run on q's fp32 image);
+    caches and pools NaN past every length (B9: its scales and e4m3
+    values), pools behind permuted tables. Errors at D 256 also go to the
+    "<kernel> gemma2" entries of `errs`."""
     from flash_attention_cute_tpu_torch.runtime import paged_cache
 
     flash_fwd, flash_decode, pa = ops["flash_fwd"], ops["flash_decode"], ops["paged_attention"]
+    qz = ops["quantized"]
     gen = torch.Generator(device="cuda").manual_seed(8080)
 
     def randn(*shape, dtype=torch.bfloat16):
@@ -3014,6 +3082,20 @@ def phase_gemma2_kernels(torch, ops, errs):
                          d, out, ref)
                     check(bool((out[3] == 0).all()), "B6 inactive row is exactly 0")
                 del kp, vp
+                # B9 over the same rows: int8 pages of 16, e4m3 pages of 128.
+                dname = "int8" if ps == 16 else "float8_e4m3fn"
+                kq, vq, tq = quant_pool(torch, qz, randn, gen, ps, 4, getattr(torch, dname),
+                                        kvl.tolist(), capacity=4096, d=d)
+                for w in ((None, WINDOW) if d == 256 else (None,)):
+                    out = qz.paged_attention_extend_quantized(q, kq, vq, off, kvl, tq, window=w,
+                                                              logit_softcap=cap)
+                    ref = qz.paged_attention_extend_quantized_plain(q.float(), kq, vq, off, kvl,
+                                                                    tq, window=w,
+                                                                    logit_softcap=cap)
+                    held("quant_paged_extend", f"B9 {dname} D {d} cap {cap:g} page_size {ps} "
+                         f"S {s} window {w}", d, out, ref)
+                    check(bool((out[3] == 0).all()), "B9 inactive row is exactly 0")
+                del kq, vq
 
     # The append at D 256: decode rows (one inactive, one past the table)
     # and a 100-token chunk; exactly what the plain masked scatter writes.
@@ -3093,16 +3175,17 @@ def flex_or_sdpa(torch, q, k, v, cap, window):
 
 
 def gemma2_rows(torch, ops, gen):
-    """The `gemma2` entries of the P, B2, D1, D2, B5, B6 and append rows, at
-    Gemma-2-9B shapes with the soft cap 50: P and B2 at the greedy prefill
-    (B 2, S 4608; B2 with W 4096), D1 / D2 at the greedy middle decode step
-    (B 2, 4624 of 4640 positions, a full layer), B5 at run G1's decode (4
-    slots, page_size 128), B6 at run G2's extend (4 rows of 512, page_size
-    16, on a full layer), the append at G1's decode. library_ms: see
-    `flex_or_sdpa` for P / B2; SDPA without the soft cap over a contiguous
-    copy for B5 / B6 (the copy not timed); `index_copy_` for the append;
-    null for D1 / D2 (no call computes split partials). Bounds count the
-    visible (query, key) pairs."""
+    """The `gemma2` entries of the P, B2, D1, D2, B5, B6, B9 and append rows,
+    at Gemma-2-9B shapes with the soft cap 50: P and B2 at the greedy
+    prefill (B 2, S 4608; B2 with W 4096), D1 / D2 at the greedy middle
+    decode step (B 2, 4624 of 4640 positions, a full layer), B5 at run G1's
+    decode (4 slots, page_size 128), B6 at run G2's extend (4 rows of 512,
+    page_size 16, on a full layer) and B9 there over int8 pages (Gemma's
+    serving runs take bf16 pages: its launches there are 0), the append at
+    G1's decode. library_ms: see `flex_or_sdpa` for P / B2; SDPA without the
+    soft cap over a contiguous copy for B5 / B6 (dequantized for B9; the
+    copy not timed); `index_copy_` for the append; null for D1 / D2 (no call
+    computes split partials). Bounds count the visible (query, key) pairs."""
     from flash_attention_cute_tpu_torch import dispatch
     from flash_attention_cute_tpu_torch.runtime import paged_cache
     from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms
@@ -3213,7 +3296,22 @@ def gemma2_rows(torch, ops, gen):
         + 4 * (2 * b + sum(-(-int(n) // ps) for n in kvl.tolist())), PEAK_BF16,
         f"B {b}, S {s}, page_size {ps}, q_offset {offs}, D {d}, soft cap {cap:g} (a full "
         "layer); library_ms: SDPA without the soft cap", 10, 3)
-    del kp, vp, kc, vc, emask
+    del kp, vp, kc, vc
+    qz = ops["quantized"]
+    k8, v8, table8 = quant_pool(torch, qz, randn, gen, ps, b, torch.int8, capacity=pps * ps, d=d)
+    kd, vd = (qz._gather_dequantized(x, table8).to(torch.bfloat16).repeat_interleave(rep, dim=1)
+              for x in (k8, v8))
+    rows["quant_paged_extend"] = measure(
+        lambda: qz.paged_attention_extend_quantized(q, k8, v8, off, kvl, table8,
+                                                    logit_softcap=cap),
+        lambda: qz.paged_attention_extend_quantized_plain(q, k8, v8, off, kvl, table8,
+                                                          logit_softcap=cap),
+        lambda: f.scaled_dot_product_attention(q, kd, vd, attn_mask=emask),
+        4 * hq * d * pairs, 2 * 2 * q.numel() + 2 * hkv * (d + 4) * int(kvl.sum())
+        + 4 * (2 * b + sum(-(-int(n) // ps) for n in kvl.tolist())), PEAK_BF16,
+        f"B {b}, S {s}, page_size {ps}, q_offset {offs}, D {d}, soft cap {cap:g}, int8 (a full "
+        "layer); library_ms: SDPA without the soft cap over a dequantized bf16 copy", 10, 3)
+    del k8, v8, kd, vd, emask
     torch.cuda.empty_cache()
     return rows
 
@@ -3257,8 +3355,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     reports = _build.build(["flash_fwd.cu", "flash_decode.cu", "flash_chunked.cu",
-                            "paged_attention.cu", "quantized.cu", "quantized_matmul.cu",
-                            "flash_bwd.cu", "flash_varlen.cu"])
+                            "paged_attention.cu", "quantized.cu", "quant_paged_extend.cu",
+                            "quantized_matmul.cu", "flash_bwd.cu", "flash_varlen.cu"])
     t_nvcc = time.perf_counter() - t0
     native.build()
     print(f"[2] build: nvcc {t_nvcc:.1f} s, then g++ (native scheduler) "
@@ -3267,11 +3365,13 @@ def main() -> int:
         for line in log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
-    print("  B10 / B11, P / B2 and B13a / B13b instantiations (the runtime's attributes, launch "
-          "shared memory; P / B2 and B13a / B13b consumers raise theirs to 240 by setmaxnreg):")
+    print("  B10 / B11, P / B2, B6, B9 and B13a / B13b instantiations (the runtime's attributes, "
+          "launch shared memory; the consumers of P / B2, B6 and B13a / B13b raise theirs to 240 "
+          "by setmaxnreg, B9's to 232):")
     fwd_report, bwd_report = flash_fwd.kernel_report(), flash_bwd.kernel_report()
+    b6_report, b9_report = paged_attention.kernel_report(), quantized.extend_kernel_report()
     for line in (quantized_matmul.kernel_report().splitlines() + fwd_report.splitlines()
-                 + bwd_report.splitlines()):
+                 + b6_report.splitlines() + b9_report.splitlines() + bwd_report.splitlines()):
         print(f"    {line}")
         spill = re.search(r"(\d+) bytes local", line)
         check(spill is not None and int(spill.group(1)) == 0, f"no spill in {line}")
@@ -3423,10 +3523,16 @@ def main() -> int:
             label = "B13a D128 bf16" if r["name"] == "flash_bwd_dkv" else "B13b D128 bf16"
             r["runtime_attributes"] = runtime_attributes(bwd_report, label)
     rows += trows
+    paged_reports = {"paged_extend": (b6_report, "B6 bf16 D128", "B6 bf16 D256 cap"),
+                     "quant_paged_extend": (b9_report, "B9 bf16 e4m3 D128",
+                                            "B9 bf16 int8 D256 cap")}
     for r in rows:
         if r["name"] in ("flash_fwd", "flash_fwd_window"):
             r["lse"] = {"max_abs_err": errs[f"{r['name']} lse"], **lse_cost[r["name"]]}
             r["runtime_attributes"] = runtime_attributes(fwd_report, "P / B2 D128 bf16")
+        if r["name"] in paged_reports:
+            report, label, _ = paged_reports[r["name"]]
+            r["runtime_attributes"] = runtime_attributes(report, label)
     print("[5d] numbers of the Gemma2 kernels (D 256, soft cap 50, Gemma-2-9B shapes)")
     gemma = gemma2_rows(torch, ops, torch.Generator(device="cuda").manual_seed(79))
     for r in rows:
@@ -3438,6 +3544,9 @@ def main() -> int:
                 r["gemma2"].update(lse_max_abs_err=errs[f"{r['name']} gemma2 lse"],
                                    runtime_attributes=runtime_attributes(
                                        fwd_report, "P / B2 D256 bf16 cap"))
+            if r["name"] in paged_reports:
+                report, _, label = paged_reports[r["name"]]
+                r["gemma2"]["runtime_attributes"] = runtime_attributes(report, label)
     # Peak over the whole script: serving reset the counter before each run.
     numbers["max_memory_allocated_gb"] = max(
         [numbers["max_memory_allocated_gb"], serving.pop("peak_before_serving_gb")]

@@ -1,23 +1,19 @@
 // Tiled attention forward for many query rows, shared by kernel B4
-// (chunked extend over a contiguous cache, flash_chunked.cu), kernel B6
-// (chunked prefill over a paged cache, paged_attention.cu), kernel B9 (B6
-// over a quantized paged cache, quantized.cu) and kernel B12 (a packed
-// ragged batch, flash_varlen.cu): O = softmax(Q K^T * scale + mask) V.
-// (The prefill kernels P and B2 have a body of their own, built for
-// Hopper's wgmma and TMA: flash_fwd.cu.)
+// (chunked extend over a contiguous cache, flash_chunked.cu) and kernel B12
+// (a packed ragged batch, flash_varlen.cu): O = softmax(Q K^T * scale +
+// mask) V. (The prefill kernels P and B2 and the paged extends B6 and B9
+// have a body of their own, built for Hopper's wgmma and TMA:
+// attention_wgmma.cuh.)
 //
 // Key n is visible from query row m iff n < skv, when causal
 // n <= m + offset, and with a sliding window W (a runtime argument, 0 for
 // none) n > m + offset - W, i.e. the W keys ending at the row's own global
-// position. An instantiation makes two independent choices:
-//   * kRowOffsets: where offset and skv come from. B4, B6 and B9 read
-//     offset = q_offset[b] and skv = kv_length[b], clamped to the cache's
-//     capacity, from device memory (top-left causality in global
-//     positions, `col <= q_offset + row`); without it they come from the
-//     shapes (offset = Skv - Sq, bottom-right alignment; skv = Skv).
-//   * kPaged: how a key row is addressed: by the batch and row strides of a
-//     contiguous cache (B4) or through the page table (B6, B9).
-// B12 (kVarlen, neither of the two) runs one batch row of packed tokens:
+// position. kRowOffsets: where offset and skv come from. B4 reads
+// offset = q_offset[b] and skv = kv_length[b], clamped to the cache's
+// capacity, from device memory (top-left causality in global positions,
+// `col <= q_offset + row`); without it they come from the shapes
+// (offset = Skv - Sq, bottom-right alignment; skv = Skv).
+// B12 (kVarlen) runs one batch row of packed tokens:
 // key n is visible from row m iff kv_seg[n] == q_seg[m], when causal
 // kv_pos[n] <= q_bound[m], and with a window kv_pos[n] > q_bound[m] - W.
 // Each block finds its live key range from the sorted segment ids on the
@@ -25,14 +21,11 @@
 // that row's window, to the last key of its last row's segment, cut at
 // that row's causal bound), walks only those keys, and masks every tile
 // with the segment ids and positions staged in shared memory.
-// A tanh soft cap c (a runtime argument, 0 for none; only B6 compiles it)
-// bounds every score before the mask, in the base-2 units of the body:
-// x = c2 * tanh(x / c2) with c2 = c * log2(e), which is log2(e) times
-// c * tanh(s / c) of the natural score s (the TPU kernels' formula).
 // Exact online softmax in fp32 (the `stable="strict"` semantics, no lazy
 // max), deferred 1/l with the l == 0 -> 0 guard, so rows with no visible
 // key (and whole rows of kv_length 0) emit exact zeros. GQA: q head h
 // reads kv head h / (Hq / Hkv), the head-repeat order of the reference.
+// Head dims 64 and 128; neither kernel takes the soft cap (ROADMAP.md A10b).
 //
 // What bounds it on the H100: at extend lengths the work is tensor-core
 // operations (4 * Sq * Skv * D per head, about half of it under the causal
@@ -49,19 +42,10 @@
 // straddle the diagonal, the window's lower edge or the ragged end are
 // masked. Rows at or past skv, and rows below the block's first visible
 // key, load as zeros and are never read. Blocks with the longest causal
-// rows are launched first. Quantized K/V (B9): int8 / e4m3 values are staged
-// into the same shared tiles widened to T (exact), beside the tile's 64 K
-// and 64 V scales; each score column is multiplied by its K scale, and P by
-// its V scale before P is rounded to T for the PV product (the TPU kernel's
-// `(p * vscale).astype(compute_dtype)`). Not yet done (later work, as
-// flash_fwd.cu does it for P / B2): TMA pipelining, wgmma (FP8 wgmma for
-// e4m3), V read MN-major in place of the V^T copy (whose 2-byte stores
-// conflict in one bank), loading each K/V tile once per GQA group.
-// Head dim 256 (Gemma2; B6 only): O alone is 128 fp32 registers a
-// thread and S 32 more, so Q's A fragments are not held in registers (64
-// more at D 256) but read from the Q tile in shared memory at each k-step of
-// QK^T; shared memory is then Q 64 x 264 + K 64 x 264 + V^T 256 x 72 bf16,
-// 104,448 bytes, two blocks an SM.
+// rows are launched first. Not yet done (later work, as attention_wgmma.cuh
+// does it for P / B2 / B6 / B9): TMA pipelining, wgmma, V read MN-major in
+// place of the V^T copy (whose 2-byte stores conflict in one bank), loading
+// each K/V tile once per GQA group.
 #pragma once
 
 #include <climits>
@@ -72,22 +56,18 @@ namespace fact {
 
 struct FwdParams {
   const void* q;
-  const void* k;  // B4: [B, Hkv, Skv, D]; B6: one layer's pool [Hkv, P, ps, D]
+  const void* k;  // B4: [B, Hkv, Skv, D]; B12: [Tkv, Hkv, D] as batch 1
   const void* v;
   void* o;  // [B, Hq, Sq, D] contiguous
   int64_t q_sb, q_sh, q_ss;  // element strides; the head dim is contiguous
-  int64_t k_sb, k_sh, k_ss, k_sp;  // k_sb: contiguous only; k_sp: paged only (page stride)
-  int64_t v_sb, v_sh, v_ss, v_sp;
+  int64_t k_sb, k_sh, k_ss;
+  int64_t v_sb, v_sh, v_ss;
   int hq, group, sq, skv;  // skv: B4's capacity C, B12's packed key count
   float scale_log2;  // softmax_scale * log2(e): softmax runs in base 2
-  float softcap_log2;  // soft cap c * log2(e) (base-2 units), or 0 for none
-  float softcap_rcp;   // 1 / softcap_log2 (0 for none), set by the C entry
   int causal;
   int window;  // sliding window W > 0, or 0 for none
-  const int* q_offset;    // B4, B6: [B] int32 global position of q row 0
-  const int* kv_length;   // B4, B6: [B] int32 keys visible to the chunk (0 = inactive)
-  const int* page_table;  // paged: [B, pps] int32
-  int pps, page_size;     // paged only
+  const int* q_offset;    // B4: [B] int32 global position of q row 0
+  const int* kv_length;   // B4: [B] int32 keys visible to the chunk (0 = inactive)
   // B12: int32 metadata of the packed tokens (sq = Tq, skv = Tkv, batch 1);
   // segment ids non-decreasing, kv_pos counting from 0 at a segment's first key.
   const int* q_seg;
@@ -96,22 +76,12 @@ struct FwdParams {
   const int* kv_pos;
 };
 
-// Extra arguments of the quantized instantiation (B9): the scales of one
-// layer's pool, [Hkv, P, ps] with position stride 1.
-struct QuantFwdParams : FwdParams {
-  const float* k_scale;
-  const float* v_scale;
-  int64_t ks_sh, ks_sp, vs_sh, vs_sp;
-};
-template <typename KV>
-using FwdArgs = std::conditional_t<sizeof(KV) == 1, QuantFwdParams, FwdParams>;
-
 constexpr int kBlockM = 64;   // query rows per block (16 per warp)
 constexpr int kBlockN = 64;   // keys per tile
 constexpr int kFwdThreads = 128;
 
-// kTileMeta: two 4-byte words per key of a tile (B9's K and V scales, B12's
-// segment ids and positions).
+// kTileMeta: two 4-byte words per key of a tile (B12's segment ids and
+// positions).
 template <typename T, int D, bool kTileMeta>
 constexpr int fwd_smem_bytes() {
   return (kBlockM * (D + 8) + kBlockN * (D + 8) + D * (kBlockN + 8)) * static_cast<int>(sizeof(T))
@@ -130,46 +100,31 @@ __device__ __forceinline__ int search(const int* a, int n, int x) {
   return lo;
 }
 
-// T: q, output and the shared tiles; KV: the cache's element type (T, or
-// int8 / e4m3 from a paged pool).
-template <typename T, typename KV, int D, bool kRowOffsets, bool kPaged, bool kVarlen>
-__device__ __forceinline__ void attention_fwd_body(const FwdArgs<KV> p) {
-  constexpr bool kQuant = sizeof(KV) == 1;
-  static_assert(kPaged || !kQuant, "quantized K/V come from a paged pool only");
-  static_assert(kRowOffsets || !kPaged, "a paged cache has per-row lengths");
+// T: q, K, V, the output and the shared tiles.
+template <typename T, int D, bool kRowOffsets, bool kVarlen>
+__device__ __forceinline__ void attention_fwd_body(const FwdParams p) {
   static_assert(!kVarlen || !kRowOffsets, "a packed batch has no per-row offsets");
   constexpr int kRow = D + 8;          // smem row stride of Q and K (bank spread)
   constexpr int kVtRow = kBlockN + 8;  // smem row stride of V^T
   constexpr int kChunks = D / 8;       // chunks of 8 elements per row
-  constexpr bool kQRegs = D <= 128;    // Q's A fragments held in registers
-  // The soft cap is compiled into the instantiation whose wrapper takes it
-  // (B6); B4, B9 and B12 raise on a cap.
-  constexpr bool kCap = kPaged && !kQuant;
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
   T* sK = sQ + kBlockM * kRow;
   T* sVt = sK + kBlockN * kRow;
-  float* sKs = reinterpret_cast<float*>(sVt + D * kVtRow);  // quantized: the tile's
-  float* sVs = sKs + kBlockN;                               // K and V scales
-  int* sKseg = reinterpret_cast<int*>(sKs);                 // varlen: the tile's
-  int* sKpos = sKseg + kBlockN;                             // segment ids, positions
+  int* sKseg = reinterpret_cast<int*>(sVt + D * kVtRow);  // varlen: the tile's
+  int* sKpos = sKseg + kBlockN;                           // segment ids, positions
 
   const int m_block = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / p.group;
   const int m0 = m_block * kBlockM;
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const KV* k = static_cast<const KV*>(p.k) + hk * p.k_sh;
-  const KV* v = static_cast<const KV*>(p.v) + hk * p.v_sh;
-  if constexpr (!kPaged) {
-    k += b * p.k_sb;
-    v += b * p.v_sb;
-  }
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
   T* o = static_cast<T*>(p.o) + (static_cast<int64_t>(b) * p.hq + h) * p.sq * D;
   int skv, offset;
   if constexpr (kRowOffsets) {
-    const int capacity = kPaged ? p.pps * p.page_size : p.skv;
-    skv = min(max(p.kv_length[b], 0), capacity);
+    skv = min(max(p.kv_length[b], 0), p.skv);
     offset = p.q_offset[b];
   } else {
     skv = p.skv;
@@ -189,18 +144,15 @@ __device__ __forceinline__ void attention_fwd_body(const FwdArgs<KV> p) {
     *reinterpret_cast<uint4*>(sQ + r * kRow + col) = val;
   }
   __syncthreads();
-  // This warp's 16 query rows as A fragments, held in registers up to D
-  // 128; at D 256 each k-step of QK^T reads its fragment from sQ.
-  uint32_t qf[kQRegs ? D / 16 : 1][4];
-  if constexpr (kQRegs) {
+  // This warp's 16 query rows as A fragments, held in registers.
+  uint32_t qf[D / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const T* base = sQ + (wr + g) * kRow + kk * 16 + 2 * t;
-      qf[kk][0] = *reinterpret_cast<const uint32_t*>(base);
-      qf[kk][1] = *reinterpret_cast<const uint32_t*>(base + 8 * kRow);
-      qf[kk][2] = *reinterpret_cast<const uint32_t*>(base + 8);
-      qf[kk][3] = *reinterpret_cast<const uint32_t*>(base + 8 * kRow + 8);
-    }
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const T* base = sQ + (wr + g) * kRow + kk * 16 + 2 * t;
+    qf[kk][0] = *reinterpret_cast<const uint32_t*>(base);
+    qf[kk][1] = *reinterpret_cast<const uint32_t*>(base + 8 * kRow);
+    qf[kk][2] = *reinterpret_cast<const uint32_t*>(base + 8);
+    qf[kk][3] = *reinterpret_cast<const uint32_t*>(base + 8 * kRow + 8);
   }
 
   float acc[D / 8][4];
@@ -252,39 +204,13 @@ __device__ __forceinline__ void attention_fwd_body(const FwdArgs<KV> p) {
       const int n = n0 + r;
       uint4 kv = zero, vv = zero;  // rows no query of the block sees load as zeros
       if (n >= n_lo && n < skv) {
-        int64_t krow, vrow;
-        if constexpr (kPaged) {
-          const int64_t page = p.page_table[static_cast<int64_t>(b) * p.pps + n / p.page_size];
-          const int in_page = n % p.page_size;
-          krow = page * p.k_sp + in_page * p.k_ss;
-          vrow = page * p.v_sp + in_page * p.v_ss;
-        } else {
-          krow = static_cast<int64_t>(n) * p.k_ss;
-          vrow = static_cast<int64_t>(n) * p.v_ss;
-        }
-        kv = load8_as<T>(k + krow + col);
-        vv = load8_as<T>(v + vrow + col);
+        kv = *reinterpret_cast<const uint4*>(k + static_cast<int64_t>(n) * p.k_ss + col);
+        vv = *reinterpret_cast<const uint4*>(v + static_cast<int64_t>(n) * p.v_ss + col);
       }
       *reinterpret_cast<uint4*>(sK + r * kRow + col) = kv;
       const T* ve = reinterpret_cast<const T*>(&vv);
 #pragma unroll
       for (int e = 0; e < 8; ++e) sVt[(col + e) * kVtRow + r] = ve[e];
-    }
-    if constexpr (kQuant) {
-      // Scales of keys the block may see only (a scale past kv_length may
-      // be NaN); 0 elsewhere, where the scores are masked and P is 0.
-      for (int r = tid; r < kBlockN; r += kFwdThreads) {
-        const int n = n0 + r;
-        float ks = 0.f, vs = 0.f;
-        if (n >= n_lo && n < skv) {
-          const int64_t page = p.page_table[static_cast<int64_t>(b) * p.pps + n / p.page_size];
-          const int in_page = n % p.page_size;
-          ks = p.k_scale[hk * p.ks_sh + page * p.ks_sp + in_page];
-          vs = p.v_scale[hk * p.vs_sh + page * p.vs_sp + in_page];
-        }
-        sKs[r] = ks;
-        sVs[r] = vs;
-      }
     }
     if constexpr (kVarlen) {
       for (int r = tid; r < kBlockN; r += kFwdThreads) {
@@ -302,37 +228,14 @@ __device__ __forceinline__ void attention_fwd_body(const FwdArgs<KV> p) {
       for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      if constexpr (!kQRegs) {
-        const T* base = sQ + (wr + g) * kRow + kk * 16 + 2 * t;
-        qf[0][0] = *reinterpret_cast<const uint32_t*>(base);
-        qf[0][1] = *reinterpret_cast<const uint32_t*>(base + 8 * kRow);
-        qf[0][2] = *reinterpret_cast<const uint32_t*>(base + 8);
-        qf[0][3] = *reinterpret_cast<const uint32_t*>(base + 8 * kRow + 8);
-      }
 #pragma unroll
       for (int nt = 0; nt < kBlockN / 8; ++nt) {
         const T* base = sK + (nt * 8 + g) * kRow + kk * 16 + 2 * t;
-        Elem<T>::mma(s[nt], qf[kQRegs ? kk : 0], *reinterpret_cast<const uint32_t*>(base),
+        Elem<T>::mma(s[nt], qf[kk], *reinterpret_cast<const uint32_t*>(base),
                      *reinterpret_cast<const uint32_t*>(base + 8));
       }
     }
 
-    if constexpr (kCap) {
-      // Scale, then the soft cap before the mask (a masked score stays
-      // -inf): separate passes over the registers. The cap is a uniform
-      // branch whose two parameters need no register outside it.
-#pragma unroll
-      for (int nt = 0; nt < kBlockN / 8; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[nt][i] *= p.scale_log2;
-      if (p.softcap_log2 > 0.f) {
-#pragma unroll
-        for (int nt = 0; nt < kBlockN / 8; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            s[nt][i] = p.softcap_log2 * tanhf(s[nt][i] * p.softcap_rcp);
-      }
-    }
     // Only tiles straddling the ragged end, the diagonal or the lower
     // window edge of the block's last row need the mask.
     const bool edge = kVarlen || n0 + kBlockN > skv || (p.causal && n0 + kBlockN - 1 > m0 + offset) ||
@@ -341,11 +244,7 @@ __device__ __forceinline__ void attention_fwd_body(const FwdArgs<KV> p) {
     for (int nt = 0; nt < kBlockN / 8; ++nt) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        float x = s[nt][i];
-        if constexpr (!kCap) {  // scaled here, in the masking pass
-          x *= p.scale_log2;
-          if constexpr (kQuant) x *= sKs[nt * 8 + 2 * t + (i & 1)];
-        }
+        float x = s[nt][i] * p.scale_log2;  // scaled here, in the masking pass
         if (edge) {
           const int col = n0 + nt * 8 + 2 * t + (i & 1);
           bool masked;
@@ -389,7 +288,6 @@ __device__ __forceinline__ void attention_fwd_body(const FwdArgs<KV> p) {
       for (int i = 0; i < 4; ++i) {
         s[nt][i] = exp2f(s[nt][i] - m_use[i >> 1]);
         tile_sum[i >> 1] += s[nt][i];
-        if constexpr (kQuant) s[nt][i] *= sVs[nt * 8 + 2 * t + (i & 1)];  // the sum keeps P
       }
     }
 #pragma unroll
@@ -439,15 +337,15 @@ __device__ __forceinline__ void attention_fwd_body(const FwdArgs<KV> p) {
   }
 }
 
-template <typename T, typename KV, int D, bool kRowOffsets, bool kPaged, bool kVarlen>
-__global__ void __launch_bounds__(kFwdThreads) attention_fwd_kernel(const FwdArgs<KV> p) {
-  attention_fwd_body<T, KV, D, kRowOffsets, kPaged, kVarlen>(p);
+template <typename T, int D, bool kRowOffsets, bool kVarlen>
+__global__ void __launch_bounds__(kFwdThreads) attention_fwd_kernel(const FwdParams p) {
+  attention_fwd_body<T, D, kRowOffsets, kVarlen>(p);
 }
 
-template <typename T, typename KV, int D, bool kRowOffsets, bool kPaged, bool kVarlen = false>
-int launch_attention_fwd(const FwdArgs<KV>& p, int batch, cudaStream_t stream) {
-  constexpr int kSmem = fwd_smem_bytes<T, D, (sizeof(KV) == 1 || kVarlen)>();
-  void (*kernel)(const FwdArgs<KV>) = attention_fwd_kernel<T, KV, D, kRowOffsets, kPaged, kVarlen>;
+template <typename T, int D, bool kRowOffsets, bool kVarlen>
+int launch_attention_fwd(const FwdParams& p, int batch, cudaStream_t stream) {
+  constexpr int kSmem = fwd_smem_bytes<T, D, kVarlen>();
+  void (*kernel)(const FwdParams) = attention_fwd_kernel<T, D, kRowOffsets, kVarlen>;
   static bool configured = false;  // above 48 KB needs an explicit opt-in
   if (!configured) {
     cudaError_t err =
@@ -460,40 +358,15 @@ int launch_attention_fwd(const FwdArgs<KV>& p, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// K/V of q's own type (B4, B6, B12). kD256: also head dim 256, instantiated
-// only for the caller that takes it (B6), so B4's and B12's builds do not
-// compile it.
-template <bool kRowOffsets, bool kPaged, bool kVarlen = false, bool kD256 = false>
+template <bool kRowOffsets, bool kVarlen = false>
 int dispatch_attention_fwd(const FwdParams& p, int batch, int d, int dtype, cudaStream_t s) {
   using bf16 = __nv_bfloat16;
   using h16 = __half;
   constexpr bool R = kRowOffsets, V = kVarlen;
-  if (dtype == kBF16 && d == 64) return launch_attention_fwd<bf16, bf16, 64, R, kPaged, V>(p, batch, s);
-  if (dtype == kBF16 && d == 128) return launch_attention_fwd<bf16, bf16, 128, R, kPaged, V>(p, batch, s);
-  if (dtype == kF16 && d == 64) return launch_attention_fwd<h16, h16, 64, R, kPaged, V>(p, batch, s);
-  if (dtype == kF16 && d == 128) return launch_attention_fwd<h16, h16, 128, R, kPaged, V>(p, batch, s);
-  if constexpr (kD256 && !kVarlen) {
-    if (dtype == kBF16 && d == 256) return launch_attention_fwd<bf16, bf16, 256, R, kPaged, V>(p, batch, s);
-    if (dtype == kF16 && d == 256) return launch_attention_fwd<h16, h16, 256, R, kPaged, V>(p, batch, s);
-  }
-  return cudaErrorInvalidValue;
-}
-
-// Quantized paged K/V (B9): q and output bf16 / f16, values int8 / e4m3.
-template <typename T>
-int dispatch_attention_fwd_quant_values(const QuantFwdParams& p, int batch, int d, int kv_dtype,
-                                        cudaStream_t s) {
-  if (kv_dtype == kInt8 && d == 64) return launch_attention_fwd<T, int8_t, 64, true, true>(p, batch, s);
-  if (kv_dtype == kInt8 && d == 128) return launch_attention_fwd<T, int8_t, 128, true, true>(p, batch, s);
-  if (kv_dtype == kE4M3 && d == 64) return launch_attention_fwd<T, e4m3, 64, true, true>(p, batch, s);
-  if (kv_dtype == kE4M3 && d == 128) return launch_attention_fwd<T, e4m3, 128, true, true>(p, batch, s);
-  return cudaErrorInvalidValue;
-}
-
-inline int dispatch_attention_fwd_quant(const QuantFwdParams& p, int batch, int d, int dtype,
-                                        int kv_dtype, cudaStream_t s) {
-  if (dtype == kBF16) return dispatch_attention_fwd_quant_values<__nv_bfloat16>(p, batch, d, kv_dtype, s);
-  if (dtype == kF16) return dispatch_attention_fwd_quant_values<__half>(p, batch, d, kv_dtype, s);
+  if (dtype == kBF16 && d == 64) return launch_attention_fwd<bf16, 64, R, V>(p, batch, s);
+  if (dtype == kBF16 && d == 128) return launch_attention_fwd<bf16, 128, R, V>(p, batch, s);
+  if (dtype == kF16 && d == 64) return launch_attention_fwd<h16, 64, R, V>(p, batch, s);
+  if (dtype == kF16 && d == 128) return launch_attention_fwd<h16, 128, R, V>(p, batch, s);
   return cudaErrorInvalidValue;
 }
 

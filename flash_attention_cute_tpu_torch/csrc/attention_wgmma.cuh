@@ -1,0 +1,437 @@
+// The Hopper body of the attention forwards over many query rows, shared by
+// P / B2 (flash_fwd.cu: K and V from strided [B, H, S, D] views) and B6 / B9
+// (paged_extend.cuh: K and V from the pages of a pool, B9's widened from
+// int8 / e4m3). Each kernel has a producer warpgroup of its own that fills
+// the rings below; this header holds the rings' layout and the consumers'
+// side, which is the same for all four:
+//
+//   * One block per (128 q rows, q head, batch row), three warpgroups:
+//     warpgroup 0 produces, warpgroups 1 and 2 consume 64 rows each.
+//   * Q arrives once into a 128-row tile; K and V tiles of kN keys stream
+//     through two rings (K and V apart, each slot with a full and an empty
+//     mbarrier), each 64-column block of D one box of 128-byte rows in the
+//     128-byte swizzle.
+//   * S = Q K^T is wgmma with both operands in shared memory, K-major. S
+//     stays in registers: scaled by the keys' scales (B9), capped, masked
+//     and exponentiated there, multiplied by the values' scales (B9) and
+//     rounded to the input type, its accumulator layout is the register A
+//     operand of O += P V, whose B operand V is read MN-major from its slot
+//     (the descriptor's transpose bit): no V^T copy, no round trip of P
+//     through shared memory.
+//   * The softmax is exact, in fp32 (the `stable="strict"` semantics: the
+//     row max is updated at every tile, no lazy rescale); 1/l is applied
+//     once at the end, and a row with no visible key (l = 0) is written as
+//     exact zeros. Row statistics are reduced over the four threads (a
+//     quad) that hold a row in the accumulator layout. No atomics: a second
+//     call writes the same bits.
+//   * Overlap: a consumer issues S of tile j together with P V of tile
+//     j - 1 and computes tile j's exponentials while P V runs; the two
+//     consumers take turns issuing (named barriers, "ping-pong"), so one's
+//     products run while the other computes. A K slot is free once S is, a
+//     V slot only a tile later, so the K ring is the deeper.
+//   * The walk is a block's tile range; the mask runs only on tiles that
+//     cross the diagonal, the window's lower edge or the end of the keys,
+//     and a consumer skips a tile in which it sees no key (it still hands
+//     back its slots). The wgmma products stay in straight-line code: ptxas
+//     serializes a wgmma inside a data-dependent branch (C7520).
+//   * D 64 / 128: tiles of 128 keys, S 64 fp32 registers a thread, O 32 /
+//     64, P 32; D 256: tiles of 64 keys, S 32, O 128 (two products of N 128
+//     per k-step of P V), P 16.
+#pragma once
+
+#include "hopper.cuh"
+
+namespace fact {
+
+constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int kBlockM = 128;   // q rows of a block
+constexpr int kTileM = 64;     // q rows of a consumer
+
+// Tile sizes by head dim, in bytes: a 64-column box of Q or of a K / V tile.
+template <int D>
+struct Tiles {
+  static constexpr int kN = D == 256 ? 64 : 128;  // keys of a tile
+  static constexpr int kQBox = kBlockM * 128;
+  static constexpr int kKVBox = kN * 128;
+  static constexpr int kQ = D / 64 * kQBox;
+  static constexpr int kKV = D / 64 * kKVBox;  // a K or a V tile
+};
+
+// A block's shared memory from `base` (1 KB aligned, for the swizzle): the
+// Q tile, the K ring, the V ring (kKStages / kVStages slots of a tile),
+// the kernel's own bytes, and at `kBars` the mbarriers: q_full, then a full
+// and an empty barrier a slot (K's, then V's), then `extra(i)`, the
+// producer's own. Tile `it` of the walk takes slot it % stages. Every
+// address is base plus a constant, so the consumers hold one register.
+template <int D, int kKStages, int kVStages, int kBars>
+struct Rings {
+  static constexpr int kBarriers = 1 + 2 * (kKStages + kVStages);
+  static constexpr int kK0 = Tiles<D>::kQ, kV0 = kK0 + kKStages * Tiles<D>::kKV;
+  uint32_t base;
+
+  __device__ __forceinline__ uint32_t sQ() const { return base; }
+  __device__ __forceinline__ uint32_t q_full() const { return base + kBars; }
+  __device__ __forceinline__ uint32_t sK(int it) const {
+    return base + kK0 + it % kKStages * Tiles<D>::kKV;
+  }
+  __device__ __forceinline__ uint32_t sV(int it) const {
+    return base + kV0 + it % kVStages * Tiles<D>::kKV;
+  }
+  __device__ __forceinline__ uint32_t full_k(int it) const {
+    return base + kBars + 8 * (1 + it % kKStages);
+  }
+  __device__ __forceinline__ uint32_t empty_k(int it) const {
+    return base + kBars + 8 * (1 + kKStages + it % kKStages);
+  }
+  __device__ __forceinline__ uint32_t full_v(int it) const {
+    return base + kBars + 8 * (1 + 2 * kKStages + it % kVStages);
+  }
+  __device__ __forceinline__ uint32_t empty_v(int it) const {
+    return base + kBars + 8 * (1 + 2 * kKStages + kVStages + it % kVStages);
+  }
+  __device__ __forceinline__ uint32_t extra(int i) const {
+    return base + kBars + 8 * (kBarriers + i);
+  }
+  // The parity of tile it's pass through its slot.
+  __device__ __forceinline__ int k_pass(int it) const { return (it / kKStages) & 1; }
+  __device__ __forceinline__ int v_pass(int it) const { return (it / kVStages) & 1; }
+
+  // One thread: `arrivals` arrive on a full barrier (1: the producer's
+  // expect_tx), the consumers' 8 warps on an empty one.
+  __device__ __forceinline__ void init(int arrivals) const {
+    mbar_init(q_full(), 1);
+    for (int s = 0; s < kKStages; ++s) mbar_init(full_k(s), arrivals), mbar_init(empty_k(s), 8);
+    for (int s = 0; s < kVStages; ++s) mbar_init(full_v(s), arrivals), mbar_init(empty_v(s), 8);
+  }
+};
+
+// Which keys the rows of a block see: key n from row m iff n < skv, when
+// causal n <= m + offset, and with a window W > 0 n > m + offset - W.
+struct Visible {
+  int sq, skv, offset, causal, window;
+};
+
+// The softmax's scalars: softmax_scale * log2(e) (softmax runs in base 2),
+// the cap c * log2(e) (0 for none) and softcap()'s factor of a raw score.
+struct Scores {
+  float scale_log2, softcap_log2, cap_exp;
+};
+
+// The Scores of a launch, from the two scalars the wrappers pass.
+inline Scores scores(float scale_log2, float softcap_log2) {
+  return {scale_log2, softcap_log2,
+          softcap_log2 > 0.f ? 2.f * 1.4426950408889634f * scale_log2 / softcap_log2 : 0.f};
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The soft cap of a raw score s: c2 tanh(y), y = s * scale_log2 / c2, as
+// c2 - 2 c2 / (1 + 2^(2 log2(e) y)): two approximate MUFU operations
+// (relative errors near 2^-22) where tanhf takes a dozen instructions more.
+// Its absolute error stays near 1e-6 c2 (about 1e-4 in the base-2 score at
+// Gemma 2's c2 = 72), far inside P's rounding to the input type.
+__device__ __forceinline__ float softcap_of(float x, const Scores& p) {  // x = s * cap_exp
+  return fmaf(-2.f * p.softcap_log2, rcp(1.f + ex2(x)), p.softcap_log2);
+}
+__device__ __forceinline__ float softcap(float s, const Scores& p) {
+  return softcap_of(s * p.cap_exp, p);
+}
+
+// Named barriers of the two consumer warpgroups (ids 1 and 2; 0 is
+// __syncthreads): a sync waits for the other's `n / 2` arrivals.
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// S = Q K^T of a consumer's 64 rows and a tile's kN keys, both K-major.
+template <typename T, int D, int kN>
+__device__ __forceinline__ void qk_products(float (&s)[kN / 2], uint32_t q, uint32_t k) {
+  constexpr int kQBox = kBlockM * 128, kKBox = kN * 128;
+  wgmma_ss<T, kN, false>(s, kmajor(q, 0, kQBox), kmajor(k, 0, kKBox));
+#pragma unroll
+  for (int kk = 1; kk < D / 16; ++kk) wgmma_ss<T, kN, true>(s, kmajor(q, kk, kQBox), kmajor(k, kk, kKBox));
+}
+
+// O += P V over a tile's kN keys: P in registers (the A fragments of each
+// k-step of 16 keys), V MN-major from its slot; at D 256 two products of N
+// 128 a k-step.
+template <typename T, int D, int kN>
+__device__ __forceinline__ void pv_products(float (&o)[D == 256 ? 2 : 1][D == 256 ? 64 : D / 2],
+                                            const uint32_t (&pa)[kN / 16][4], uint32_t v) {
+  constexpr int kOBlocks = D == 256 ? 2 : 1, kON = D / kOBlocks, kBox = kN * 128;
+#pragma unroll
+  for (int kk = 0; kk < kN / 16; ++kk)
+#pragma unroll
+    for (int c = 0; c < kOBlocks; ++c)
+      wgmma_rs<T, kON, true>(o[c], pa[kk], mnmajor(v + c * 2 * kBox, kk, kBox), 1);
+}
+
+// No pair of the 64 rows (m0..) x kN keys (n0..) is visible.
+template <int kN>
+__device__ __forceinline__ bool tile_dead(const Visible& p, int m0, int n0) {
+  return m0 >= p.sq || n0 >= p.skv || (p.causal && n0 > m0 + kTileM - 1 + p.offset) ||
+         (p.window > 0 && n0 + kN - 1 <= m0 + p.offset - p.window);
+}
+// Every key of the tile is visible from every row: no mask needed (rows
+// past Sq are never stored).
+template <int kN>
+__device__ __forceinline__ bool tile_full(const Visible& p, int m0, int n0) {
+  return n0 + kN <= p.skv && (!p.causal || n0 + kN - 1 <= m0 + p.offset) &&
+         (p.window <= 0 || n0 > m0 + kTileM - 1 + p.offset - p.window);
+}
+
+// Two fp32 scales of neighbouring keys from shared memory.
+__device__ __forceinline__ float2 lds_f32x2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr));
+  return v;
+}
+
+// A consumer warpgroup's whole part of a block (threads 128..383): its 64
+// rows of the walk over `total` tiles from key n_begin, then its rows of O
+// (rows < Sq) into `o` ([B * Hq, Sq, D]) at head `head` (b * Hq + h) and,
+// with `lse` not null, each row's m + log2(l) (+inf on a row with no
+// visible key). The output's address is formed only then, so that it takes
+// no register through the walk.
+// kScaleOff (B9; 0 for none): each tile's kN K and V scales lie at
+// base + kScaleOff (kKStages K slots, then kVStages V slots) and land with
+// the tile: S is multiplied by
+// the K scale of its key (times the softmax scale, or the cap's factor)
+// before the cap, P by the V scale of its key after its row sum and before its
+// rounding to T.
+template <typename T, int D, bool kCap, int kScaleOff, int kKStages, int kVStages, int kBars>
+__device__ __forceinline__ void consume(const Rings<D, kKStages, kVStages, kBars>& ring,
+                                        const Visible& vis, const Scores& sco, int m0,
+                                        int n_begin, int total, T* o, float* lse, int head) {
+  constexpr int kN = Tiles<D>::kN;
+  constexpr bool kScaled = kScaleOff > 0;
+  const int ct = threadIdx.x - 128, wg = ct >> 7, wi = (ct >> 5) & 3, lane = ct & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int mw = m0 + kTileM * wg;       // this warpgroup's first row
+  const int row0 = mw + 16 * wi + g;     // this thread's rows: row0, row0 + 8
+  const uint32_t qa = ring.sQ() + wg * kTileM * 128;
+  constexpr int kOBlocks = D == 256 ? 2 : 1;  // PV products of N = D / kOBlocks a k-step
+  constexpr int kON = D / kOBlocks;
+  // Element 4 j + e of an accumulator: row row0 + 8 (e >> 1), column
+  // 8 j + 2 t + (e & 1) (of keys for S, of D within the block for O).
+  float acc[kOBlocks][kON / 2];
+#pragma unroll
+  for (int c = 0; c < kOBlocks; ++c)
+#pragma unroll
+    for (int i = 0; i < kON / 2; ++i) acc[c][i] = 0.f;
+  // Each row's running max (base-2 units of the scaled score) and this
+  // thread's part of its running sum, reduced over the quad at the end.
+  float row_max[2] = {-INFINITY, -INFINITY}, row_sum[2] = {0.f, 0.f};
+  // Scores leave the product raw; the cap scales them inside the tanh, B9
+  // with its keys' scales (the TPU kernel's s * (kscale * scale)), which
+  // then also carry the cap's factor.
+  const float sc = kCap || kScaled ? 1.f : sco.scale_log2;
+  if (total > 0) mbar_wait(ring.q_full(), 0);
+  // This thread's keys' scales of tile it (B9): column 8 j + 2 t.
+  auto k_scales = [&](int it) { return ring.base + kScaleOff + (it % kKStages * kN + 2 * t) * 4; };
+  auto v_scales = [&](int it) {
+    return ring.base + kScaleOff + ((kKStages + it % kVStages) * kN + 2 * t) * 4;
+  };
+  // S of tile it times its keys' scales (B9), before the slot goes back.
+  auto scale_keys = [&](float (&s)[kN / 2], int it) {
+    if constexpr (kScaled) {
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j) {
+        float2 ks = lds_f32x2(k_scales(it) + 32 * j);
+        const float f = kCap ? sco.cap_exp : sco.scale_log2;
+        ks.x *= f, ks.y *= f;
+        s[4 * j] *= ks.x, s[4 * j + 1] *= ks.y, s[4 * j + 2] *= ks.x, s[4 * j + 3] *= ks.y;
+      }
+    }
+  };
+
+  // Cap, mask and exponentiate the scores of tile it in place, updating
+  // the running max and sum; alpha: the factor of O's old rows.
+  auto softmax = [&](float (&s)[kN / 2], int it, float (&alpha)[2]) {
+    const int n0 = n_begin + it * kN;
+    if constexpr (kCap) {
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) s[i] = kScaled ? softcap_of(s[i], sco) : softcap(s[i], sco);
+    }
+    if (!tile_full<kN>(vis, mw, n0)) {
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) {
+        const int row = row0 + 8 * ((i >> 1) & 1), col = n0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        if (col >= vis.skv || (vis.causal && col > row + vis.offset) ||
+            (vis.window > 0 && col <= row + vis.offset - vis.window))
+          s[i] = -INFINITY;
+      }
+    }
+    float m_use[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(row_max[r], mx * sc);
+      // A row with no visible key yet keeps max -inf (as a windowed row does
+      // below its window); referencing it to 0 makes exp2(-inf - ref)
+      // exactly 0 and never -inf - -inf = NaN.
+      m_use[r] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[r] = ex2(row_max[r] - m_use[r]);
+      row_max[r] = m_new;
+    }
+    float tile_sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) {
+      s[i] = ex2(fmaf(s[i], sc, -m_use[(i >> 1) & 1]));
+      tile_sum[(i >> 1) & 1] += s[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) row_sum[r] = row_sum[r] * alpha[r] + tile_sum[r];
+  };
+  // P of tile it rounded to T into the A fragments, after its row sums and
+  // after the previous tile's P V (whose fragments it overwrites); B9 first
+  // multiplies P by its keys' V scales (the TPU kernel's
+  // (p * vscale).astype(compute_dtype)), which land with the V tile that
+  // this turn has not waited for yet (its P V runs next turn).
+  auto round_p = [&](float (&s)[kN / 2], int it, uint32_t (&pa)[kN / 16][4]) {
+    if constexpr (kScaled) {
+      mbar_wait(ring.full_v(it), ring.v_pass(it));
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j) {
+        const float2 vs = lds_f32x2(v_scales(it) + 32 * j);
+        s[4 * j] *= vs.x, s[4 * j + 1] *= vs.y, s[4 * j + 2] *= vs.x, s[4 * j + 3] *= vs.y;
+      }
+    }
+    to_a<T>(s, pa);
+  };
+
+  // Warpgroup ping-pong: a consumer issues its products of a tile between a
+  // sync on its named barrier and an arrive on the other's, so that one
+  // consumer's products run while the other computes its exponentials.
+  // Within a consumer the products of a tile are S of this tile and O += P V
+  // of the previous one: the exponentials of S run while P V does. Every
+  // tile of the walk takes a turn (a tile this consumer sees nothing of
+  // too), consumer 0 first; consumer 1 skips its last arrive, so that each
+  // sync has its arrive.
+  const int my_bar = 1 + wg, other_bar = 2 - wg;
+  if (wg == 1 && total > 0) named_arrive(1, 256);
+  auto take_turn = [&](int it) {
+    mbar_wait(ring.full_k(it), ring.k_pass(it));
+    named_sync(my_bar, 256);
+  };
+  auto pass_turn = [&](int it) {
+    if (wg == 0 || it + 1 < total) named_arrive(other_bar, 256);
+  };
+  auto release = [&](uint32_t bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  // A tile this consumer sees nothing of: its turn, and both slots back
+  // (once full, so that no arrive runs ahead into the next pass).
+  auto skip = [&](int it) {
+    take_turn(it);
+    pass_turn(it);
+    mbar_wait(ring.full_v(it), ring.v_pass(it));
+    release(ring.empty_k(it));
+    release(ring.empty_v(it));
+  };
+  // The tiles this consumer sees a key of are one run [it_lo, it_hi) of the
+  // walk; the wgmma products stay out of data-dependent branches (ptxas
+  // serializes them there).
+  int it_lo = 0, it_hi = total;
+  while (it_lo < total && tile_dead<kN>(vis, mw, n_begin + it_lo * kN)) ++it_lo;
+  while (it_hi > it_lo && tile_dead<kN>(vis, mw, n_begin + (it_hi - 1) * kN)) --it_hi;
+  for (int it = 0; it < it_lo; ++it) skip(it);
+  if (it_lo < it_hi) {
+    uint32_t pa[kN / 16][4];  // P of the previous tile, rounded to T
+    {
+      float s[kN / 2], alpha[2];
+      take_turn(it_lo);
+      wgmma_fence();
+      qk_products<T, D, kN>(s, qa, ring.sK(it_lo));
+      wgmma_commit();
+      pass_turn(it_lo);
+      wgmma_wait<0>();
+      fence_regs(s);
+      scale_keys(s, it_lo);
+      release(ring.empty_k(it_lo));
+      softmax(s, it_lo, alpha);  // O is 0: alpha unused
+      round_p(s, it_lo, pa);
+    }
+    for (int it = it_lo + 1; it < it_hi; ++it) {
+      float s[kN / 2], alpha[2];
+      take_turn(it);
+      mbar_wait(ring.full_v(it - 1), ring.v_pass(it - 1));
+      wgmma_fence();
+      qk_products<T, D, kN>(s, qa, ring.sK(it));
+      wgmma_commit();
+      pv_products<T, D, kN>(acc, pa, ring.sV(it - 1));
+      wgmma_commit();
+      pass_turn(it);
+      wgmma_wait<1>();  // S done; P V may still run
+      fence_regs(s);
+      scale_keys(s, it);
+      release(ring.empty_k(it));
+      softmax(s, it, alpha);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < kOBlocks; ++c) fence_regs(acc[c]);
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk) fence_regs(pa[kk]);
+      release(ring.empty_v(it - 1));
+#pragma unroll
+      for (int c = 0; c < kOBlocks; ++c)
+#pragma unroll
+        for (int i = 0; i < kON / 2; ++i) acc[c][i] *= alpha[(i >> 1) & 1];
+      round_p(s, it, pa);
+    }
+    mbar_wait(ring.full_v(it_hi - 1), ring.v_pass(it_hi - 1));
+    wgmma_fence();  // the last tile's P V
+    pv_products<T, D, kN>(acc, pa, ring.sV(it_hi - 1));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < kOBlocks; ++c) fence_regs(acc[c]);
+#pragma unroll
+    for (int kk = 0; kk < kN / 16; ++kk) fence_regs(pa[kk]);
+    release(ring.empty_v(it_hi - 1));
+  }
+  for (int it = it_hi; it < total; ++it) skip(it);
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = row_sum[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[r] = l > 0.f ? 1.f / l : 0.f;  // no visible key -> exact zero row
+    const int row = row0 + 8 * r;
+    if (lse != nullptr && t == 0 && row < vis.sq)  // the backward's residual
+      lse[static_cast<int64_t>(head) * vis.sq + row] = l > 0.f ? row_max[r] + log2f(l) : INFINITY;
+  }
+  T* out = o + static_cast<int64_t>(head) * vis.sq * D;
+#pragma unroll
+  for (int c = 0; c < kOBlocks; ++c)
+#pragma unroll
+    for (int j = 0; j < kON / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        if (row < vis.sq)
+          *reinterpret_cast<uint32_t*>(out + static_cast<int64_t>(row) * D + c * kON + 8 * j + 2 * t) =
+              Elem<T>::pack(acc[c][4 * j + 2 * r] * inv[r], acc[c][4 * j + 2 * r + 1] * inv[r]);
+      }
+}
+
+}  // namespace fact

@@ -108,24 +108,6 @@ __device__ __forceinline__ void load8(const KV* p, float (&out)[8]) {
   }
 }
 
-// Eight consecutive K/V elements as eight T in one uint4: the 16-byte load
-// itself when the cache holds T, else an 8-byte load of int8 / e4m3 values
-// widened to T (exactly: both fit bf16's and f16's significands).
-template <typename T, typename KV>
-__device__ __forceinline__ uint4 load8_as(const KV* p) {
-  if constexpr (std::is_same_v<T, KV>) {
-    return *reinterpret_cast<const uint4*>(p);
-  } else {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const KV* e = reinterpret_cast<const KV*>(&raw);
-    uint4 out;
-    uint32_t* w = reinterpret_cast<uint32_t*>(&out);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) w[i] = Elem<T>::pack(kv_float(e[2 * i]), kv_float(e[2 * i + 1]));
-    return out;
-  }
-}
-
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));

@@ -15,7 +15,7 @@
 // is sized from shapes alone, so no host sync sizes it. The softmax is exact.
 //
 // The kernel body (attention_fwd.cuh, which holds the note on what bounds
-// it on the H100 and its design) is the one of B6, instantiated with
+// it on the H100 and its design) is shared with B12, instantiated here with
 // per-row device offsets over contiguous rows. It reads q/k/v through their
 // strides, so the model's transposed views need no copy; cache rows at or
 // past a row's length (uninitialised memory, possibly NaN) are never read.
@@ -45,5 +45,5 @@ extern "C" int fact_flash_chunked(const void* q, const void* k, const void* v, v
   p.window = window;
   p.q_offset = static_cast<const int*>(q_offset);
   p.kv_length = static_cast<const int*>(kv_length);
-  return dispatch_attention_fwd<true, false>(p, batch, d, dtype, static_cast<cudaStream_t>(stream));
+  return dispatch_attention_fwd<true>(p, batch, d, dtype, static_cast<cudaStream_t>(stream));
 }

@@ -26,7 +26,7 @@
 // What bounds it on the H100: tensor-core operations, 4 * D per visible
 // (row, key) pair and q head, as for P; the sequences' own causal
 // triangles are the work, plus the tiles' overhang across segment edges.
-// The kernel body (attention_fwd.cuh, kVarlen) is B4's / B6's mma.sync body, which
+// The kernel body (attention_fwd.cuh, kVarlen) is B4's mma.sync body, which
 // holds the note on its design; the soft cap (Gemma2, ROADMAP.md A10b) and
 // D 256 are not in it: the wrapper (ops/flash_varlen.py) raises on them.
 #include "attention_fwd.cuh"
@@ -51,5 +51,5 @@ extern "C" int fact_flash_varlen(const void* q, const void* k, const void* v, vo
   p.scale_log2 = scale_log2;
   p.causal = causal;
   p.window = window;
-  return dispatch_attention_fwd<false, false, true>(p, 1, d, dtype, static_cast<cudaStream_t>(stream));
+  return dispatch_attention_fwd<false, true>(p, 1, d, dtype, static_cast<cudaStream_t>(stream));
 }

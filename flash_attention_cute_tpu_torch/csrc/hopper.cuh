@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the kernels that use TMA and
 // wgmma (quantized_matmul.cu: B10 / B11 prefill; flash_fwd.cu: P / B2;
-// flash_bwd.cu: B13a / B13b): mbarriers, TMA tensor copies and their maps,
+// paged_extend.cuh: B6 / B9; flash_bwd.cu: B13a / B13b): mbarriers, TMA tensor copies and their maps,
 // bulk copies, wgmma descriptors and products, ldmatrix, and the register
 // hand-over between warpgroups (setmaxnreg).
 #pragma once
@@ -47,6 +47,12 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// Orders this thread's writes to shared memory before later reads of it by
+// the asynchronous proxy (wgmma, TMA); before the arrive that hands them on.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -282,14 +288,15 @@ static EncodeTiled encode_tiled() {
 
 // A map of a `rank`-dimensional array (dims[0] contiguous; strides in bytes
 // of dims 1..rank-1), boxes of box[0..rank) elements with the 128-byte
-// swizzle; out-of-bounds elements read as zero.
+// swizzle (or `swizzle`); out-of-bounds elements read as zero.
 static bool make_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
-                     const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
+                     const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                     CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   return encode(map, type, rank, const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -22,20 +22,21 @@
 //
 // What bounds them on the H100, and the design: B5 reads each live K/V row
 // once per GQA group and is bound by memory bytes (decode_partials.cuh); B6
-// is bound by tensor-core operations at prefill lengths (attention_fwd.cuh).
-// The TPU kernels walk `ppcb` pages per grid step with double-buffered DMAs
-// and scalar-prefetched tables, and size their grid from max(lengths) on the
-// device. Here every block reads its own length, offset and page-table
-// entries from device memory and gathers key rows one by one through the
-// table; the grid is sized from shapes alone, so no host sync sizes it. B5
-// cuts each row's own live length into the splits, so every split of a long
-// row has work whatever the pool's capacity. Not copied from the TPU extend
-// kernel: the chunk split for the VMEM budget (`_extend_chunk_split`), the
-// anchored lazy max with its 75-nat clamp, and the `inner` sub-blocks; the
-// softmax here is exact. The append is bound by bytes (each new row read
-// and written once): one block per (token, batch row), 16 bytes a thread.
-#include "attention_fwd.cuh"
+// is bound by tensor-core operations at chunk lengths and is built for
+// wgmma, fed by TMA copies of single pages (paged_extend.cuh, shared with
+// B9). The TPU kernels walk `ppcb` pages per grid step with double-buffered
+// DMAs and scalar-prefetched tables, and size their grid from max(lengths)
+// on the device. Here every block reads its own length, offset and
+// page-table entries from device memory; the grid is sized from shapes
+// alone, so no host sync sizes it. B5 cuts each row's own live length into
+// the splits, so every split of a long row has work whatever the pool's
+// capacity. Not copied from the TPU extend kernel: the chunk split for the
+// VMEM budget (`_extend_chunk_split`), the anchored lazy max with its
+// 75-nat clamp, and the `inner` sub-blocks; the softmax here is exact. The
+// append is bound by bytes (each new row read and written once): one block
+// per (token, batch row), 16 bytes a thread.
 #include "decode_partials.cuh"
+#include "paged_extend.cuh"
 
 namespace fact {
 
@@ -108,28 +109,39 @@ extern "C" int fact_paged_decode_partials(
 extern "C" int fact_paged_extend(
     const void* q, const void* k, const void* v, void* o, const void* q_offset,
     const void* kv_length, const void* page_table, int batch, int hq, int hkv, int sq, int d,
-    int pps, int page_size, long long q_sb, long long q_sh, long long q_ss,
-    long long k_sh, long long k_sp, long long k_ss,
+    int pps, int page_size, int num_pages, int box_rows, long long q_sb, long long q_sh,
+    long long q_ss, long long k_sh, long long k_sp, long long k_ss,
     long long v_sh, long long v_sp, long long v_ss,
     float scale_log2, float softcap_log2, int window, int dtype, void* stream) {
   using namespace fact;
-  FwdParams p{};
-  p.q = q, p.k = k, p.v = v, p.o = o;
-  p.q_sb = q_sb, p.q_sh = q_sh, p.q_ss = q_ss;
-  p.k_sh = k_sh, p.k_sp = k_sp, p.k_ss = k_ss;
-  p.v_sh = v_sh, p.v_sp = v_sp, p.v_ss = v_ss;
-  p.hq = hq, p.group = hq / hkv, p.sq = sq;
-  p.scale_log2 = scale_log2;
-  p.softcap_log2 = softcap_log2;
-  p.softcap_rcp = softcap_log2 > 0.f ? 1.f / softcap_log2 : 0.f;
-  p.causal = 1;
-  p.window = window;
+  PagedParams p{};
+  p.o = o;
   p.q_offset = static_cast<const int*>(q_offset);
   p.kv_length = static_cast<const int*>(kv_length);
   p.page_table = static_cast<const int*>(page_table);
-  p.pps = pps, p.page_size = page_size;
-  return dispatch_attention_fwd<true, true, false, true>(
-      p, batch, d, dtype, static_cast<cudaStream_t>(stream));
+  p.batch = batch, p.hq = hq, p.group = hq / hkv, p.sq = sq;
+  p.pps = pps, p.page_size = page_size, p.box_rows = box_rows;
+  p.sc = scores(scale_log2, softcap_log2);
+  p.window = window;
+  const PagedViews w{q, k, v, q_sb, q_sh, q_ss, k_sh, k_sp, k_ss, v_sh, v_sp, v_ss,
+                     hkv, num_pages, dtype};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16) return dispatch_paged_extend<__nv_bfloat16, __nv_bfloat16>(p, w, d, s);
+  if (dtype == kF16) return dispatch_paged_extend<__half, __half>(p, w, d, s);
+  return cudaErrorInvalidValue;
+}
+
+// Writes the report of every B6 instantiation (the launch's registers: the
+// consumers raise theirs to 240 by setmaxnreg; local (spill) bytes; shared
+// memory) into `out` (at most `cap` bytes, NUL-terminated); returns 0.
+extern "C" int fact_paged_extend_report(char* out, int cap) {
+  int used = 0;
+  if (cap <= 0) return 0;
+  out[0] = 0;
+  fact::report_paged_extend<__nv_bfloat16, __nv_bfloat16>(out, cap, used, "B6 bf16");
+  fact::report_paged_extend<__half, __half>(out, cap, used, "B6 f16");
+  out[cap - 1] = 0;
+  return 0;
 }
 
 extern "C" int fact_paged_append(

@@ -10,13 +10,9 @@
 //     pallas_call at :658). The same over a pool [Hkv, P, ps, D] with scales
 //     [Hkv, P, ps] through the page table; the splits cut each row's own
 //     live length, as in B5.
-//   * B9, quantized paged extend: replaces `_quant_paged_extend_kernel`
-//     (:717, pallas_call at :1076). B6's chunked prefill (top-left
-//     causality `col <= q_offset + r`, `col < kv_length`, kv_length 0 gives
-//     an exact zero row) over quantized pages.
-//   All three take B2's sliding window (0 for none): B7 / B8 as D1 / B5
-//   (keys n >= length - W; the scales of visible keys only are loaded), B9
-//   as B6 (`col > q_offset + r - W`).
+//   Both take B2's sliding window (0 for none) as D1 / B5 do (keys
+//   n >= length - W; the scales of visible keys only are loaded). B9, the
+//   quantized paged extend, is quant_paged_extend.cu.
 //   * QA, quantize-and-append (not a TPU kernel): replaces the XLA
 //     `quantize_kv` + scatter / dynamic_update_slice of
 //     flash_attention_cute_tpu/runtime/paged_cache.py
@@ -30,20 +26,13 @@
 // B5's body (decode_partials.cuh) with the cache's element type as a
 // template parameter: bound by bytes, which 1-byte values halve; the K
 // scale multiplies each score, the V scale each probability, so no row is
-// dequantized. B9 is B6's body (attention_fwd.cuh), bound by tensor-core
-// operations at prefill lengths: the values are widened to bf16 / f16
-// (exact) as they are staged into shared memory, so the bf16 mma.sync
-// products stay; the scales are staged beside them. Not copied from the TPU
-// extend kernel: the chunk split for the VMEM budget, the anchored lazy max
-// with its 75-nat clamp and the `inner` sub-blocks (the softmax is exact);
-// nor the `nh` head packing and 8192-token page blocks of the TPU decode
-// kernels. QA is bound by bytes (each new row read once, its values and
+// dequantized. Not copied from the TPU decode kernels: the `nh` head
+// packing and 8192-token page blocks. QA is bound by bytes (each new row read once, its values and
 // scale written once): one block per (token, batch row), one warp per
 // (K or V, kv head) row, an fp32 amax over the row by a warp reduction,
 // scale = amax / qmax (1 where amax is 0), values x / scale rounded half to
 // even. The division is IEEE (no fast-math flags in ops/_build.py), so the
 // values are bit-identical to the plain version's.
-#include "attention_fwd.cuh"
 #include "decode_partials.cuh"
 
 namespace fact {
@@ -195,34 +184,6 @@ extern "C" int fact_quant_paged_decode_partials(
   p.scales.v_sh = vs_sh, p.scales.v_sp = vs_sp;
   return dispatch_partials_quant<true>(p, batch, d, dtype, kv_dtype,
                                        static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int fact_quant_paged_extend(
-    const void* q, const void* k, const void* v, const void* k_scale, const void* v_scale,
-    void* o, const void* q_offset, const void* kv_length, const void* page_table, int batch,
-    int hq, int hkv, int sq, int d, int pps, int page_size, long long q_sb, long long q_sh,
-    long long q_ss, long long k_sh, long long k_sp, long long k_ss, long long v_sh,
-    long long v_sp, long long v_ss, long long ks_sh, long long ks_sp, long long vs_sh,
-    long long vs_sp, float scale_log2, int window, int dtype, int kv_dtype, void* stream) {
-  using namespace fact;
-  QuantFwdParams p{};
-  p.q = q, p.k = k, p.v = v, p.o = o;
-  p.q_sb = q_sb, p.q_sh = q_sh, p.q_ss = q_ss;
-  p.k_sh = k_sh, p.k_sp = k_sp, p.k_ss = k_ss;
-  p.v_sh = v_sh, p.v_sp = v_sp, p.v_ss = v_ss;
-  p.hq = hq, p.group = hq / hkv, p.sq = sq;
-  p.scale_log2 = scale_log2;
-  p.window = window;
-  p.causal = 1;
-  p.q_offset = static_cast<const int*>(q_offset);
-  p.kv_length = static_cast<const int*>(kv_length);
-  p.page_table = static_cast<const int*>(page_table);
-  p.pps = pps, p.page_size = page_size;
-  p.k_scale = static_cast<const float*>(k_scale);
-  p.v_scale = static_cast<const float*>(v_scale);
-  p.ks_sh = ks_sh, p.ks_sp = ks_sp, p.vs_sh = vs_sh, p.vs_sp = vs_sp;
-  return dispatch_attention_fwd_quant(p, batch, d, dtype, kv_dtype,
-                                      static_cast<cudaStream_t>(stream));
 }
 
 // paged != 0: positions go through the page table (c_sb, s_sb unused);

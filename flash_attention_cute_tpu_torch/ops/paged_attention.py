@@ -12,7 +12,9 @@ D]` pool); key n of batch row b sits at page `page_table[b, n // ps]`, row
   * `paged_attention_extend`: B6, chunked prefill with per-row global
     causality `col <= q_offset + row` and `col < kv_length` (and with a
     window `col > q_offset + row - W`); kv_length 0 marks an inactive row,
-    which outputs exact zeros.
+    which outputs exact zeros. The kernel (csrc/paged_extend.cuh, shared with
+    B9) is wgmma fed by TMA copies of single pages, in the parts
+    `extend_plan` picks.
 
 B5 and B6 take the tanh soft cap (Gemma2) and head dims 64, 128 and 256.
 Each wrapper routes on the device of `q`: CPU -> plain version, CUDA -> the
@@ -44,8 +46,25 @@ PAGED_DECODE = _build.Kernel(
 )
 PAGED_EXTEND = _build.Kernel(
     "paged_extend", "paged_attention.cu", "fact_paged_extend",
-    [P] * 7 + [I] * 7 + [L] * 9 + [F, F, I, I, P],
+    [P] * 7 + [I] * 9 + [L] * 9 + [F, F, I, I, P],
 )
+
+
+def extend_plan(head_dim: int, page_size: int) -> tuple[int, int]:
+    """(keys of a tile, keys of one copy) of the paged extend kernels B6 /
+    B9: tiles of 128 keys (64 at D 256, where O takes twice the registers),
+    each copied by TMA in parts of `gcd(tile, page_size)` keys, a whole page
+    where pages are no wider than the tile. Parts start on a tile's and a
+    page's boundaries alike, and page_size % 8 == 0 keeps each one at least
+    eight 128-byte rows (the 1 KB the swizzle's pattern spans)."""
+    tile = 64 if head_dim == 256 else 128
+    return tile, math.gcd(tile, page_size)
+
+
+def kernel_report() -> str:
+    """Registers, spill bytes and shared memory of every B6 instantiation,
+    as the card's runtime reports them."""
+    return _build.runtime_report(PAGED_EXTEND.source, "fact_paged_extend_report")
 
 
 def gather_pages(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
@@ -219,14 +238,14 @@ def paged_attention_extend(
     softcap = _build.softcap_arg(logit_softcap)
     window = _check_cuda_call("paged extend", q, k_pages, v_pages, page_table,
                               [("q_offset", q_offset), ("kv_length", kv_length)], window)
-    hkv, _, ps, _ = k_pages.shape
+    hkv, num_pages, ps, _ = k_pages.shape
     out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
     if out.numel():
         with torch.cuda.device(q.device):
             PAGED_EXTEND(
                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
                 q_offset.data_ptr(), kv_length.data_ptr(), page_table.data_ptr(),
-                b, hq, hkv, sq, d, page_table.shape[1], ps,
+                b, hq, hkv, sq, d, page_table.shape[1], ps, num_pages, extend_plan(d, ps)[1],
                 *q.stride()[:3], *k_pages.stride()[:3], *v_pages.stride()[:3],
                 float(sm_scale) * LOG2E, softcap, window, _build.DTYPE_CODES[q.dtype],
             )

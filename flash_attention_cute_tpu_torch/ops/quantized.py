@@ -15,15 +15,18 @@ per-token scales s_j the kernels never dequantize a K/V row:
     `layer`), D2 (`flash_decode.decode_combine`) merges them.
   * `paged_attention_decode_quantized`: B8, the same over a pool (values
     [Hkv, P, ps, D], scales [Hkv, P, ps]) through the page table; D2 merges.
-  * `paged_attention_extend_quantized`: B9, chunked prefill over quantized
-    pages with per-row causality `col <= q_offset + row`, `col < kv_length`.
+  * `paged_attention_extend_quantized`: B9 (csrc/quant_paged_extend.cu, the
+    kernel of B6 whose producer widens the values exactly to q's type),
+    chunked prefill over quantized pages with per-row causality
+    `col <= q_offset + row`, `col < kv_length`; it takes the soft cap and
+    head dim 256.
   * `quantize_append`: QA, quantizes new K/V rows per token and writes them
     in place, into the contiguous cache or through the page table.
 
 Each wrapper routes on the device of its tensors: CPU -> plain version,
-CUDA -> the kernel; what the kernel does not take raises (soft cap, values
-that are neither int8 nor e4m3, scales that are not f32). B7 - B9 take a
-sliding window as D1, B5 and B6 do. The plain
+CUDA -> the kernel; what the kernel does not take raises (B7, B8 and QA: a
+soft cap and D 256; values that are neither int8 nor e4m3, scales that are
+not f32). B7 - B9 take a sliding window as D1, B5 and B6 do. The plain
 versions dequantize to fp32 and run the port's `attention_reference` over
 the gathered rows. Positions at or past a row's length are never read by
 the kernels and are masked out of the plain versions, so they may hold
@@ -45,11 +48,13 @@ from flash_attention_cute_tpu_torch.ops.paged_attention import (
     _check_cuda_call,
     _clamp,
     append_targets,
+    extend_plan,
     gather_pages,
 )
 from flash_attention_cute_tpu_torch.ops.reference import attention_reference
 
-HEAD_DIMS = (64, 128)  # D 256 is ROADMAP.md A10b
+HEAD_DIMS = (64, 128)  # B7, B8, QA; their D 256 is ROADMAP.md A10b
+EXTEND_HEAD_DIMS = (64, 128, 256)  # B9
 INT8_MAX = 127.0
 FP8_E4M3_MAX = 448.0
 KV_DTYPES = tuple(_build.KV_DTYPE_CODES)
@@ -65,8 +70,8 @@ QUANT_PAGED_DECODE = _build.Kernel(
     [P] * 10 + [I] * 7 + [L] * 12 + [F, I, I, I, P],
 )
 QUANT_PAGED_EXTEND = _build.Kernel(
-    "quant_paged_extend", "quantized.cu", "fact_quant_paged_extend",
-    [P] * 9 + [I] * 7 + [L] * 13 + [F, I, I, I, P],
+    "quant_paged_extend", "quant_paged_extend.cu", "fact_quant_paged_extend",
+    [P] * 9 + [I] * 9 + [L] * 13 + [F, F, I, I, I, P],
 )
 QUANT_APPEND = _build.Kernel(
     "quant_append", "quantized.cu", "fact_quant_append",
@@ -263,10 +268,16 @@ def paged_attention_extend_quantized_plain(q, k_pages, v_pages, q_offset, kv_len
     )
 
 
-def _check_paged(name, q, k_pages, v_pages, page_table, row_tensors, window, softcap) -> int:
-    _build.refuse_softcap(softcap, name)
+def extend_kernel_report() -> str:
+    """Registers, spill bytes and shared memory of every B9 instantiation,
+    as the card's runtime reports them."""
+    return _build.runtime_report(QUANT_PAGED_EXTEND.source, "fact_quant_paged_extend_report")
+
+
+def _check_paged(name, q, k_pages, v_pages, page_table, row_tensors, window,
+                 head_dims=HEAD_DIMS) -> int:
     window = _check_cuda_call(name, q, k_pages.values, v_pages.values, page_table, row_tensors,
-                              window, k_pages.values.dtype, HEAD_DIMS)
+                              window, k_pages.values.dtype, head_dims)
     _check_quantized("k_pages", k_pages)
     _check_quantized("v_pages", v_pages, k_pages.values.dtype)
     return window
@@ -304,8 +315,9 @@ def paged_attention_decode_quantized(
     if q.device.type == "cpu":
         return paged_attention_decode_quantized_plain(q, k_pages, v_pages, lengths, page_table,
                                                       sm_scale, window, logit_softcap)
+    _build.refuse_softcap(logit_softcap, "quantized paged decode")
     window = _check_paged("quantized paged decode", q, k_pages, v_pages, page_table,
-                          [("lengths", lengths)], window, logit_softcap)
+                          [("lengths", lengths)], window)
     hkv, _, ps, _ = k_pages.values.shape
     pps = page_table.shape[1]
     g = hq // hkv
@@ -351,7 +363,8 @@ def paged_attention_extend_quantized(
         rows, 0 for inactive rows (their output is zeros).
       page_table: [B, pages_per_seq] int32.
       window: sliding window W: row r also masks keys n <= q_offset + r - W.
-      logit_softcap: plain version only (ROADMAP.md A10b).
+      logit_softcap: tanh soft cap c of the scaled scores (Gemma2); None
+        for none.
       return_clamps: also return the softmax clamp count, which is 0: the
         port's softmax is exact (the TPU kernel's lazy max is not copied).
 
@@ -364,10 +377,17 @@ def paged_attention_extend_quantized(
         out = paged_attention_extend_quantized_plain(q, k_pages, v_pages, q_offset, kv_length,
                                                      page_table, sm_scale, window, logit_softcap)
         return (out, 0) if return_clamps else out
+    softcap = _build.softcap_arg(logit_softcap)
     window = _check_paged("quantized paged extend", q, k_pages, v_pages, page_table,
                           [("q_offset", q_offset), ("kv_length", kv_length)], window,
-                          logit_softcap)
-    hkv, _, ps, _ = k_pages.values.shape
+                          EXTEND_HEAD_DIMS)
+    for name, kv in (("k_pages", k_pages), ("v_pages", v_pages)):
+        # Each page's scales arrive by one 16-byte aligned bulk copy a part.
+        sc = kv.scales
+        if sc.data_ptr() % 16 or sc.stride(0) % 4 or sc.stride(1) % 4:
+            raise ValueError(f"{name} scales need a 16-byte aligned base and head and page "
+                             f"strides, got {sc.data_ptr():#x} strides {sc.stride()}")
+    hkv, num_pages, ps, _ = k_pages.values.shape
     out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
     if out.numel():
         with torch.cuda.device(q.device):
@@ -375,10 +395,10 @@ def paged_attention_extend_quantized(
                 q.data_ptr(), k_pages.values.data_ptr(), v_pages.values.data_ptr(),
                 k_pages.scales.data_ptr(), v_pages.scales.data_ptr(), out.data_ptr(),
                 q_offset.data_ptr(), kv_length.data_ptr(), page_table.data_ptr(),
-                b, hq, hkv, sq, d, page_table.shape[1], ps, *q.stride()[:3],
-                *k_pages.values.stride()[:3], *v_pages.values.stride()[:3],
+                b, hq, hkv, sq, d, page_table.shape[1], ps, num_pages, extend_plan(d, ps)[1],
+                *q.stride()[:3], *k_pages.values.stride()[:3], *v_pages.values.stride()[:3],
                 *k_pages.scales.stride()[:2], *v_pages.scales.stride()[:2],
-                float(sm_scale) * LOG2E, window, _build.DTYPE_CODES[q.dtype],
+                float(sm_scale) * LOG2E, softcap, window, _build.DTYPE_CODES[q.dtype],
                 _build.KV_DTYPE_CODES[k_pages.values.dtype],
             )
     return (out, 0) if return_clamps else out

@@ -12,16 +12,22 @@ tree has `return_lse`; P at Qwen2-7B's 28 / 4 heads (B 4, S 512), at D 64
 Mistral-7B's greedy prefill (B 2, S 5120, window 4096); D1 at the greedy
 middle decode step (B 4, 544 of 576 positions, the dispatch's splits); B5
 (+ D2) at serving run A's decode (8 rows of 174-923 keys, page_size 128);
-B6 at run B's extend (8 rows, chunk 256, offsets 0-768, page_size 16); B4
-at a verify round (B 4, S 5, capacity 640) and a chunk (B 4, S 256,
-offsets 0-768, capacity 1100); B9 at run E's extend (B6's shape over e4m3
-pages); B12 over 8 packed causal sequences of 100-2048 tokens. Every P / B2
-shape also has a "bound" entry: 4 D operations per visible (row, key) pair
-and q head at the bf16 peak, or its bytes (q, k, v read once, the output
-written once) at 3.35 TB/s, whichever is longer. Gemma-2-9B shapes (Hq 16, Hkv 8, D 256,
-scale 256 ** -0.5) with and without the soft cap 50, where the tree takes
-them (null where it raises NotImplementedError): P at B 2, S 4608; B2 with
-window 4096 there; D1 at B 2, 4624 of 4640 positions; B6 at run B's extend.
+B4 at a verify round (B 4, S 5, capacity 640) and a chunk (B 4, S 256,
+offsets 0-768, capacity 1100); B12 over 8 packed causal sequences of
+100-2048 tokens. Every P / B2 shape also has a "bound" entry: 4 D
+operations per visible (row, key) pair and q head at the bf16 peak, or its
+bytes (q, k, v read once, the output written once) at 3.35 TB/s,
+whichever is longer. Gemma-2-9B shapes (Hq 16, Hkv 8, D 256, scale
+256 ** -0.5) with and without the soft cap 50, where the tree takes them
+(null where it raises NotImplementedError): P at B 2, S 4608; B2 with
+window 4096 there; D1 at B 2, 4624 of 4640 positions. The paged extends B6
+(bf16 pages) and B9 (quantized pages), page_size 16, each with its
+"bound" (operations as above, or q read, the output written and the live
+K / V rows read once): at serving run B's / E's extend (B 8, S 256,
+offsets 0-768; B9 over e4m3; B6 also at Gemma's widths, with and without
+the cap), at Mistral-7B run M2's extend ("W": B 4, S 512, offsets
+3584-4608, window 4096; B9 over e4m3) and at Gemma-2-9B run G2's ("G": the
+same rows at Gemma's widths with the cap 50; B9 over int8).
 The backward kernels B13a (dK, dV) and B13b (dQ), each launched alone
 through `flash_bwd.launch` (causal, bf16, q / k / v / dO contiguous, the
 kernel forward's o and lse): at the training step's attention (B 2, S 2048,
@@ -61,8 +67,8 @@ def visible_pairs(s: int, causal: bool, window: int | None) -> int:
     return sum(min(m + 1, w) for m in range(s))
 
 
-def other_bodies(randn, pool, timed, out):
-    """B4, B9 and B12: the kernels on the mma.sync body (csrc/attention_fwd.cuh)."""
+def other_bodies(randn, timed, out):
+    """B4 and B12: the kernels on the mma.sync body (csrc/attention_fwd.cuh)."""
     for name, s, cap_len, offs in (("B4 verify B4 S5 C640", 5, 640, [0, 200, 400, 600]),
                                    ("B4 chunk B4 S256 C1100", 256, 1100, [0, 256, 512, 768])):
         q = randn(4, s, 32, 128).transpose(1, 2)
@@ -70,17 +76,47 @@ def other_bodies(randn, pool, timed, out):
         off = torch.tensor(offs, dtype=torch.int32, device="cuda")
         out[name] = timed(lambda: flash_chunked.flash_attention_chunked(
             q, kc, vc, off, off + s), 20)
-    kp, vp, table = pool(8, 16, 128, 8, 128)
-    k, v = (qz.quantize_kv(x, torch.float8_e4m3fn) for x in (kp, vp))
-    off = torch.tensor([0, 256, 512, 768] * 2, dtype=torch.int32, device="cuda")
-    q = randn(8, 256, 32, 128).transpose(1, 2)
-    out["B9 e4m3 B8 S256 ps16"] = timed(lambda: qz.paged_attention_extend_quantized(
-        q, k, v, off, off + 256, table), 20)
     lens = [1800, 100, 2048, 731, 1024, 333, 1500, 600]
     cu = torch.tensor([0] + lens, device="cuda").cumsum(0).to(torch.int32)
     q, k, v = randn(sum(lens), 32, 128), randn(sum(lens), 8, 128), randn(sum(lens), 8, 128)
     out["B12 8 sequences causal"] = timed(lambda: flash_varlen.flash_attention_varlen(
         q, k, v, cu, causal=True), 20)
+
+
+def paged_extends(randn, pool, timed, out):
+    """B6 and B9 at run B's / E's, M2's ("W") and G2's ("G") extends."""
+    for name, b, s, offs, hq, d, w, caps, values in (
+            ("B8 S256 ps16", 8, 256, [0, 256, 512, 768] * 2, 32, 128, None, (None,), "e4m3"),
+            ("gemma2 B8 S256 ps16", 8, 256, [0, 256, 512, 768] * 2, 16, 256, None, (None, 50.0),
+             None),
+            ("W B4 S512 ps16 W4096", 4, 512, [3584, 4096, 4096, 4608], 32, 128, 4096, (None,),
+             "e4m3"),
+            ("G gemma2 B4 S512 ps16", 4, 512, [3584, 4096, 4096, 4608], 16, 256, None, (50.0,),
+             "int8")):
+        pps = -(-(max(offs) + s) // 16)
+        kp, vp, table = pool(b, 16, pps, 8, d)
+        off = torch.tensor(offs, dtype=torch.int32, device="cuda")
+        q = randn(b, s, hq, d).transpose(1, 2)
+        quant = values and tuple(qz.quantize_kv(x, getattr(torch, {"e4m3": "float8_e4m3fn"}.get(
+            values, values))) for x in (kp, vp))
+        pairs = sum(min(o + r + 1, w or o + r + 1) for o in offs for r in range(s))
+        live = sum(min(o + s, (w or o + s) + s - 1) for o in offs)  # keys some row sees
+        for cap in caps:
+            label = name + (f" cap {cap:g}" if cap else "")
+            out["B6 " + label] = timed(lambda: pa.paged_attention_extend(
+                q, kp, vp, off, off + s, table, window=w, **capped(cap)), 20)
+            if quant:
+                out[f"B9 {values} " + label] = timed(lambda: qz.paged_attention_extend_quantized(
+                    q, *quant, off, off + s, table, window=w, **capped(cap)), 20)
+        io = 2 * 2 * q.numel() + 4 * 2 * b
+        for kname, row_bytes in (("B6", 2 * 2 * 8 * d), ("B9", 2 * 8 * (d + 4))):
+            out[f"bound {kname} {name}"] = 1e3 * max(4 * d * hq * pairs / PEAK_BF16,
+                                                     (io + row_bytes * live) / PEAK_BYTES)
+        del kp, vp, quant
+
+
+def capped(cap):  # no keyword at all without a cap: older trees lack it
+    return {} if cap is None else {"logit_softcap": cap}
 
 
 def backward_times(randn, timed, out):
@@ -121,9 +157,6 @@ def main() -> None:
         table = (torch.randperm(num_pages - 1, generator=gen, device="cuda")[: b * pps] + 1)
         return (randn(hkv, num_pages, ps, d), randn(hkv, num_pages, ps, d),
                 table.view(b, pps).to(torch.int32).contiguous())
-
-    def capped(cap):  # no keyword at all without a cap: older trees lack it
-        return {} if cap is None else {"logit_softcap": cap}
 
     def timed(fn, iters):
         try:
@@ -176,16 +209,8 @@ def main() -> None:
     out["B5 B8 ps128 (+ D2)"] = timed(lambda: pa.paged_attention_decode(q, kp, vp, lens, table),
                                       50)
     del kp, vp
-    off = torch.tensor([0, 256, 512, 768] * 2, dtype=torch.int32, device="cuda")
-    for name, hq, d in (("B6 B8 S256 ps16", 32, 128), ("gemma2 B6 B8 S256 ps16", 16, 256)):
-        kp, vp, table = pool(8, 16, 128, 8, d)
-        q = randn(8, 256, hq, d).transpose(1, 2)
-        for cap in ((None, 50.0) if d == 256 else (None,)):
-            label = name + (f" cap {cap:g}" if cap else "")
-            out[label] = timed(lambda: pa.paged_attention_extend(
-                q, kp, vp, off, off + 256, table, **capped(cap)), 20)
-        del kp, vp
-    other_bodies(randn, pool, timed, out)
+    paged_extends(randn, pool, timed, out)
+    other_bodies(randn, timed, out)
     backward_times(randn, timed, out)
     print(json.dumps(out))
 

@@ -205,25 +205,63 @@ def test_paged_decode_kernel_matches_plain(device, ps):
     assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
 
 
-@pytest.mark.parametrize("ps", [16, 128])
-@pytest.mark.parametrize("s", [256, 100])
-def test_paged_extend_kernel_matches_plain(device, ps, s):
+# Edge cases of the paged extends B6 and B9 (name: page_size, head_dim, hq,
+# hkv, S, q_offset of rows 0-2, window, soft cap, q's dtype): page sizes 8,
+# 16 and 128, head dims 64, 128 and 256, chunks across the kernels' 128-row
+# blocks and 128- / 64-key tiles, offsets off every tile and page boundary,
+# windows of 1, 45 and 4096 keys, GQA groups 1, 7 and 8, f16, the soft cap.
+# Row 3 is inactive (kv_length 0); pools hold NaN at and past every length.
+EXTEND_CASES = {
+    "ps16_s256": (16, 128, 32, 8, 256, [0, 256, 700], None, None, torch.bfloat16),
+    "ps128_s100": (128, 128, 32, 8, 100, [0, 256, 700], None, None, torch.bfloat16),
+    "ps8_s63": (8, 128, 32, 8, 63, [5, 130, 601], None, None, torch.bfloat16),
+    "ps128_s65_f16": (128, 128, 32, 8, 65, [127, 300, 77], None, None, torch.float16),
+    "d64_s130_group1": (16, 64, 8, 8, 130, [0, 61, 599], None, None, torch.bfloat16),
+    "d256_s512_cap50": (16, 256, 16, 8, 512, [0, 300, 503], None, 50.0, torch.bfloat16),
+    "d256_s1_ps128_cap1": (128, 256, 16, 8, 1, [0, 37, 1000], None, 1.0, torch.bfloat16),
+    "s1_group7": (16, 128, 28, 4, 1, [0, 37, 1000], None, None, torch.bfloat16),
+    "window1_s130": (16, 128, 32, 8, 130, [0, 200, 700], 1, None, torch.bfloat16),
+    "window45_ps8_s65": (8, 128, 32, 8, 65, [10, 90, 900], 45, None, torch.bfloat16),
+    "window4096_s512": (16, 128, 32, 8, 512, [3584, 4096, 100], 4096, None, torch.bfloat16),
+    "group8_s130_f16": (16, 128, 8, 1, 130, [3, 700, 899], None, None, torch.float16),
+}
+
+
+def extend_inputs(gen, case, pools):
+    """q (the model's transposed view), pools, table, offsets and lengths of
+    one EXTEND_CASES case; `pools(ps, d, hkv, lengths)` makes the pools."""
+    ps, d, hq, hkv, s, offs, _, _, dtype = EXTEND_CASES[case]
+    kvl = [o + s for o in offs] + [0]
+    k, v, table = pools(ps, d, hkv, kvl)
+    q = randn(gen, 4, s, hq, d, dtype=dtype).transpose(1, 2)
+    return (q, k, v, torch.tensor(offs + [0], dtype=torch.int32, device="cuda"),
+            torch.tensor(kvl, dtype=torch.int32, device="cuda"), table)
+
+
+@pytest.mark.parametrize("case", list(EXTEND_CASES))
+def test_paged_extend_kernel_matches_plain(device, case):
+    """B6 within 3e-2 of its fp32 plain version, one launch a call, the
+    inactive row exactly 0, a second call bit for bit."""
     gen = torch.Generator(device="cuda").manual_seed(4)
-    offs = [0, 256, 700, 0]
-    kvl = [s, 256 + s, 700 + s, 0]  # the last row is inactive
-    kp, vp, table = paged_pool(gen, ps, len(offs), lengths=kvl)
-    q = randn(gen, len(offs), s, 32, 128).transpose(1, 2)  # the model's view
-    off_t = torch.tensor(offs, dtype=torch.int32, device="cuda")
-    kvl_t = torch.tensor(kvl, dtype=torch.int32, device="cuda")
+    w, cap, dtype = EXTEND_CASES[case][6:]
+
+    def pools(ps, d, hkv, kvl):
+        kp, vp, table = paged_pool(gen, ps, 4, capacity=5120, hkv=hkv, d=d, lengths=kvl)
+        return kp.to(dtype), vp.to(dtype), table
+
+    args = extend_inputs(gen, case, pools)
     before = paged_attention.PAGED_EXTEND.launches
-    out, clamps = paged_attention.paged_attention_extend(q, kp, vp, off_t, kvl_t, table,
+    out, clamps = paged_attention.paged_attention_extend(*args, window=w, logit_softcap=cap,
                                                          return_clamps=True)
     torch.cuda.synchronize()
     assert paged_attention.PAGED_EXTEND.launches == before + 1 and clamps == 0
-    ref = paged_attention.paged_attention_extend_plain(q, kp, vp, off_t, kvl_t, table)
+    assert torch.equal(paged_attention.paged_attention_extend(*args, window=w,
+                                                              logit_softcap=cap), out)
+    ref = paged_attention.paged_attention_extend_plain(args[0].float(), *args[1:], window=w,
+                                                       logit_softcap=cap)
     assert torch.isfinite(out).all()
     assert (out[3] == 0).all()
-    assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+    assert (out.float() - ref).abs().max().item() <= BF16_TOL
 
 
 @pytest.mark.parametrize("s", [1, 100])
@@ -341,24 +379,44 @@ def test_quant_paged_decode_kernel_matches_plain(device, ps, name):
 
 
 @pytest.mark.parametrize("name", list(KV_DTYPES))
-@pytest.mark.parametrize("ps", [16, 128])
-@pytest.mark.parametrize("s", [256, 100])
-def test_quant_paged_extend_kernel_matches_plain(device, s, ps, name):
+@pytest.mark.parametrize("case", list(EXTEND_CASES))
+def test_quant_paged_extend_kernel_matches_plain(device, case, name):
+    """B9 over B6's edge cases: within 3e-2 of its fp32 plain version over
+    NaN scales (and e4m3 NaN values) at and past every length, one launch a
+    call, the inactive row exactly 0, a second call bit for bit."""
     gen = torch.Generator(device="cuda").manual_seed(9)
-    offs = [0, 256, 700, 0]
-    kvl = [s, 256 + s, 700 + s, 0]  # the last row is inactive
-    k, v, table = quant_paged_pool(gen, ps, len(offs), KV_DTYPES[name], kvl)
-    q = randn(gen, len(offs), s, 32, 128).transpose(1, 2)  # the model's view
-    off_t = torch.tensor(offs, dtype=torch.int32, device="cuda")
-    kvl_t = torch.tensor(kvl, dtype=torch.int32, device="cuda")
+    w, cap = EXTEND_CASES[case][6:8]
+    args = extend_inputs(gen, case, lambda ps, d, hkv, kvl: quant_paged_pool(
+        gen, ps, 4, KV_DTYPES[name], kvl, capacity=5120, hkv=hkv, d=d))
     before = quant.QUANT_PAGED_EXTEND.launches
-    out, clamps = quant.paged_attention_extend_quantized(q, k, v, off_t, kvl_t, table,
+    out, clamps = quant.paged_attention_extend_quantized(*args, window=w, logit_softcap=cap,
                                                          return_clamps=True)
     torch.cuda.synchronize()
     assert quant.QUANT_PAGED_EXTEND.launches == before + 1 and clamps == 0
-    ref = quant.paged_attention_extend_quantized_plain(q, k, v, off_t, kvl_t, table)
+    assert torch.equal(quant.paged_attention_extend_quantized(*args, window=w,
+                                                              logit_softcap=cap), out)
+    ref = quant.paged_attention_extend_quantized_plain(args[0].float(), *args[1:], window=w,
+                                                       logit_softcap=cap)
     assert torch.isfinite(out).all() and (out[3] == 0).all()
-    assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+    assert (out.float() - ref).abs().max().item() <= BF16_TOL
+
+
+@pytest.mark.parametrize("cap", [50.0, 1.0])
+@pytest.mark.parametrize("name", list(KV_DTYPES))
+def test_quant_paged_extend_kernel_takes_the_cap_and_d256(device, name, cap):
+    """B9 at Gemma-2-9B's widths (16 / 8 heads, D 256) with its soft cap
+    50 and one that binds on every score, held to its plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    kvl = [40, 300, 1000, 0]
+    k, v, table = quant_paged_pool(gen, 16, 4, KV_DTYPES[name], kvl, d=256)
+    q = randn(gen, 4, 40, 16, 256).transpose(1, 2)
+    off = torch.tensor([0, 260, 960, 0], dtype=torch.int32, device="cuda")
+    lengths = torch.tensor(kvl, dtype=torch.int32, device="cuda")
+    out = quant.paged_attention_extend_quantized(q, k, v, off, lengths, table, logit_softcap=cap)
+    ref = quant.paged_attention_extend_quantized_plain(q.float(), k, v, off, lengths, table,
+                                                       logit_softcap=cap)
+    assert torch.isfinite(out).all() and (out[3] == 0).all()
+    assert (out.float() - ref).abs().max().item() <= BF16_TOL
 
 
 @pytest.mark.parametrize("name", list(KV_DTYPES))
@@ -397,9 +455,10 @@ def test_quantized_kernels_refuse_what_they_do_not_take(device):
     lengths = torch.tensor([3, 5], dtype=torch.int32, device="cuda")
     with pytest.raises(NotImplementedError, match="ROADMAP.md A10b"):
         quant.paged_attention_decode_quantized(q, k, v, lengths, table, logit_softcap=30.0)
-    with pytest.raises(NotImplementedError, match="softcap"):
-        quant.paged_attention_extend_quantized(randn(gen, 2, 32, 4, 128), k, v, lengths,
-                                               lengths + 4, table, logit_softcap=30.0)
+    k256, v256, table256 = quant_paged_pool(gen, 16, 2, torch.int8, [64, 64], capacity=64, d=256)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A10b"):  # B8 at D 256
+        quant.paged_attention_decode_quantized(randn(gen, 2, 16, 1, 256), k256, v256, lengths,
+                                               table256)
     half = QuantizedKV(k.values.half(), k.scales)
     with pytest.raises(NotImplementedError, match="int8 / float8_e4m3fn"):
         quant.paged_attention_decode_quantized(q, half, half, lengths, table)
@@ -1230,8 +1289,9 @@ def test_gemma2_paged_append_at_d256_writes_what_plain_writes(device):
 
 
 def test_gemma2_routes_outside_the_slice_raise(device):
-    """The soft cap and D 256 stay refused by B4, B7-B9 + QA, B12 and B13,
-    naming ROADMAP.md A10b; nothing falls back to a plain version."""
+    """The soft cap and D 256 stay refused by B4, B7, B8 + QA, B12 and B13,
+    naming ROADMAP.md A10b; nothing falls back to a plain version. B9 takes
+    D 256 (and the cap: test_quant_paged_extend_kernel_takes_the_cap_and_d256)."""
     gen = torch.Generator(device="cuda").manual_seed(44)
     q, k, v, off, lens = chunked_inputs(gen, 16, 8, 5, 64, [0, 3], None, 256, torch.bfloat16)
     with pytest.raises(NotImplementedError, match="A10b"):
@@ -1248,8 +1308,9 @@ def test_gemma2_routes_outside_the_slice_raise(device):
     table = torch.arange(1, 9, dtype=torch.int32, device="cuda").view(2, 4)
     with pytest.raises(NotImplementedError, match="A10b"):
         quant.paged_attention_decode_quantized(qd, pages, pages, lens, table)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        quant.paged_attention_extend_quantized(q, pages, pages, off, lens, table)
+    before = quant.QUANT_PAGED_EXTEND.launches
+    out = quant.paged_attention_extend_quantized(q, pages, pages, off, lens, table)
+    assert quant.QUANT_PAGED_EXTEND.launches == before + 1 and torch.isfinite(out).all()
     with pytest.raises(NotImplementedError, match="A10b"):
         flash_bwd.flash_attention_bwd(q, k, v, q, q, torch.zeros(2, 16, 5, device="cuda"))
     q.requires_grad_()

@@ -74,18 +74,19 @@ def test_paged_decode_plain_matches_jax_kernel(case):
 
 
 EXTEND = {
-    # name: (b, sq, ps, pps, q_offset, kv_length, window, softcap)
-    "offsets_inactive_ps8": (4, 16, 8, 16, [0, 50, 96, 20], [16, 66, 112, 0], None, None),
-    "offsets_ps16_s32": (2, 32, 16, 8, [50, 17], [82, 49], None, None),
-    "windowed": (2, 16, 8, 16, [80, 10], [96, 26], 30, None),
-    "softcap": (2, 32, 8, 16, [0, 40], [32, 72], None, 10.0),
+    # name: (b, sq, ps, pps, q_offset, kv_length, window, softcap, head_dim)
+    "offsets_inactive_ps8": (4, 16, 8, 16, [0, 50, 96, 20], [16, 66, 112, 0], None, None, 64),
+    "offsets_ps16_s32": (2, 32, 16, 8, [50, 17], [82, 49], None, None, 64),
+    "windowed": (2, 16, 8, 16, [80, 10], [96, 26], 30, None, 64),
+    "softcap": (2, 32, 8, 16, [0, 40], [32, 72], None, 10.0, 64),
+    "d256_softcap_window_inactive": (3, 16, 16, 8, [70, 3, 0], [86, 19, 0], 24, 50.0, 256),
 }
 
 
 @pytest.mark.parametrize("case", list(EXTEND))
 def test_paged_extend_plain_matches_jax_kernel(case):
-    b, sq, ps, pps, offs, kvl, window, softcap = EXTEND[case]
-    q, kp, vp, table = paged_inputs(len(case) + 100, b, 4, 2, sq, ps, pps)
+    b, sq, ps, pps, offs, kvl, window, softcap, d = EXTEND[case]
+    q, kp, vp, table = paged_inputs(len(case) + 100, b, 4, 2, sq, ps, pps, d)
     off, kvl = np.asarray(offs, np.int32), np.asarray(kvl, np.int32)
     want = jax_pa.paged_attention_extend(
         *j(q, kp, vp, off, kvl, table), window=window, logit_softcap=softcap,
@@ -98,6 +99,27 @@ def test_paged_extend_plain_matches_jax_kernel(case):
     for i, n in enumerate(kvl):
         if n == 0:
             assert (got[i] == 0).all()
+
+
+@pytest.mark.parametrize("d,ps,want", [
+    (64, 8, (128, 8)), (128, 16, (128, 16)), (128, 128, (128, 128)), (128, 256, (128, 128)),
+    (256, 16, (64, 16)), (256, 128, (64, 64)), (128, 24, (128, 8)), (256, 40, (64, 8)),
+])
+def test_extend_plan(d, ps, want):
+    """B6 / B9 copy tiles of 128 keys (64 at D 256) in parts of a page, or
+    of a page's largest power-of-two divisor when it does not divide the
+    tile, never more than a tile."""
+    assert pa.extend_plan(d, ps) == want
+
+
+def test_extend_plan_parts_fit_tiles_and_pages():
+    """Every part starts on a tile's and a page's boundary and holds at
+    least the 8 rows the copies' 128-byte swizzle spans, for every page
+    size the wrapper takes (multiples of 8)."""
+    for d in (64, 128, 256):
+        for ps in range(8, 1032, 8):
+            tile, part = pa.extend_plan(d, ps)
+            assert tile % part == 0 and ps % part == 0 and part >= 8
 
 
 def test_paged_plain_versions_never_read_past_the_lengths():

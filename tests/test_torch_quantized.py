@@ -6,8 +6,9 @@ kernels run in interpret mode (its own tests' CPU route); the port's CPU
 tensors take the plain versions of kernels B7, B8, B9 and QA. Tolerances:
 `quantize_kv` and the appends must be bit-identical to JAX's; attention
 agrees to 2e-5 absolute at fp32 (the same scores summed in another order).
-The CUDA kernels take the window but not the soft cap; the plain versions
-take both and are held to the JAX kernels with them too.
+The CUDA kernels take the window; B9 also the soft cap and head dim 256,
+B7 and B8 neither. The plain versions take both and are held to the JAX
+kernels with them too.
 """
 
 import jax.numpy as jnp
@@ -141,20 +142,23 @@ def test_quant_paged_decode_plain_matches_jax_kernel(case):
 
 
 PAGED_EXTEND = {
-    # name: (dtype, hq, sq, ps, pps, q_offset, kv_length, window, softcap)
-    "int8_offsets": ("int8", 4, 16, 8, 16, [50, 17], [66, 33], None, None),
-    "e4m3_offsets": ("e4m3", 4, 16, 8, 16, [0, 40], [16, 56], None, None),
-    "int8_window_softcap_inactive": ("int8", 8, 8, 8, 16, [60, 0, 4], [68, 0, 12], 24, 10.0),
+    # name: (dtype, hq, sq, ps, pps, q_offset, kv_length, window, softcap, head_dim)
+    "int8_offsets": ("int8", 4, 16, 8, 16, [50, 17], [66, 33], None, None, 64),
+    "e4m3_offsets": ("e4m3", 4, 16, 8, 16, [0, 40], [16, 56], None, None, 64),
+    "int8_window_softcap_inactive": ("int8", 8, 8, 8, 16, [60, 0, 4], [68, 0, 12], 24, 10.0, 64),
+    "int8_d256_window_softcap": ("int8", 4, 16, 16, 8, [60, 3], [76, 19], 24, 50.0, 256),
+    "e4m3_d256_softcap_inactive": ("e4m3", 4, 8, 16, 8, [17, 0, 40], [25, 0, 48], None, 1.0,
+                                   256),
 }
 
 
 @pytest.mark.parametrize("case", list(PAGED_EXTEND))
 def test_quant_paged_extend_plain_matches_jax_kernel(case):
-    name, hq, sq, ps, pps, offs, kvl, window, softcap = PAGED_EXTEND[case]
+    name, hq, sq, ps, pps, offs, kvl, window, softcap, d = PAGED_EXTEND[case]
     b = len(offs)
     (jk, jv), (tk, tv), table, rng = paged_pools(len(case) + 100, b, 2, pps, ps,
-                                                 DTYPES[name][1])
-    qa = rng.standard_normal((b, hq, sq, 64), dtype=np.float32)
+                                                 DTYPES[name][1], d)
+    qa = rng.standard_normal((b, hq, sq, d), dtype=np.float32)
     off, kvl = np.asarray(offs, np.int32), np.asarray(kvl, np.int32)
     want = jax_q.paged_attention_extend_quantized(
         jnp.asarray(qa), jk, jv, jnp.asarray(off), jnp.asarray(kvl), jnp.asarray(table),
@@ -168,6 +172,25 @@ def test_quant_paged_extend_plain_matches_jax_kernel(case):
     for i, n in enumerate(kvl):
         if n == 0:
             assert (got[i] == 0).all()
+
+
+def test_cuda_routes_take_or_refuse_the_cap_and_d256():
+    """Off the CPU (here the `meta` device, on which no kernel runs) B9 takes
+    the soft cap and head dim 256 and stops only at the CUDA-tensor check;
+    B8 refuses both, naming ROADMAP.md A10b."""
+    meta = torch.device("meta")
+    qm = torch.empty(2, 16, 8, 256, dtype=torch.bfloat16, device=meta)
+    kv = QuantizedKV(torch.empty(8, 9, 16, 256, dtype=torch.int8, device=meta),
+                     torch.empty(8, 9, 16, device=meta))
+    rows = torch.zeros(2, dtype=torch.int32, device=meta)
+    table = torch.zeros(2, 4, dtype=torch.int32, device=meta)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        q.paged_attention_extend_quantized(qm, kv, kv, rows, rows, table, window=45,
+                                           logit_softcap=50.0)
+    with pytest.raises(NotImplementedError, match="A10b"):
+        q.paged_attention_decode_quantized(qm[:, :, :1], kv, kv, rows, table, logit_softcap=50.0)
+    with pytest.raises(NotImplementedError, match="A10b"):  # D 256
+        q.paged_attention_decode_quantized(qm[:, :, :1], kv, kv, rows, table)
 
 
 def test_quant_plain_versions_never_read_past_the_lengths():
