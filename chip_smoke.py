@@ -9,7 +9,7 @@ Phases, in order; any failure exits non-zero:
   1. device: a CUDA card of compute capability 9.0; its name and power limit.
   2. build: every kernel of the main paths from csrc/ (one nvcc per source,
      all at once), with the ptxas register / shared-memory / spill report
-     and, for every B10 / B11, P / B2, B6, B9 and B13a / B13b
+     and, for every B10 / B11, P / B2, B4, B6, B9, B12 and B13a / B13b
      instantiation, the runtime's registers, spill bytes and launch shared
      memory (no spill allowed); then the native scheduler
      (csrc/page_allocator.cpp) with g++.
@@ -42,7 +42,10 @@ Phases, in order; any failure exits non-zero:
      capacity 640, q_offset 0-600), a chunk (S 256, q_offset 0-768,
      capacity 1100), with a kv_length-0 row (exact zeros), non-causal and
      at D 64, over caches NaN at and past every kv_length, q/k/v transposed
-     views; (3e) sliding windows of 1, 100 (an edge inside a 64-key tile),
+     views; the soft caps 30 / 50 / 1.0, D 256 and the window of 4096 at
+     Gemma-2-9B's widths (16 / 8), and Qwen2-7B's group of 7 at S 5 (seven
+     heads packed in a block) and S 20 (one head a block); every call
+     repeated bit for bit; (3e) sliding windows of 1, 100 (an edge inside a 64-key tile),
      4096 and 8192 (at least every length): B2 (windowed prefill; P where
      the window cannot bind) at S 5120, 1000 and Sq 256 / Skv 1024, and D1 +
      D2 (splits below the window dead) at Mistral-7B's (32 / 8) and
@@ -63,7 +66,9 @@ Phases, in order; any failure exits non-zero:
      (each sequence's dense attention, run per segment) over 32 sequences of
      numpy-seeded lengths 100-2048 (one of 1 token, a total not a multiple
      of 64) at Llama widths: causal, full, kv 0-512 tokens longer, window
-     256; (3h) Gemma2's soft cap and head dim 256, at Gemma-2-9B attention
+     256, and at Gemma-2-9B widths (D 256) with the caps 50 and 1.0, causal
+     and kv longer with the window of 4096; every call repeated bit for bit;
+     (3h) Gemma2's soft cap and head dim 256, at Gemma-2-9B attention
      widths (Hq 16, Hkv 8, D 256, scale 256 ** -0.5), each case with the
      model's cap 50 and with 1.0 (which binds on every score), against the
      fp32 plain versions run on q's fp32 image: P (causal B 2 S 4608, Sq 256
@@ -149,9 +154,12 @@ Phases, in order; any failure exits non-zero:
      of fp32 logits is 4.7 GB) and decode-step logits at B 2, prompt 4608,
      kernel route against the plain route; greedy generation of 32 tokens
      over a bf16 cache (B2 21, P 21, D1 + D2 31 x 42) with its prefill and
-     decode times; the serving engine over Mistral's 8 long requests in runs
-     G1 (whole-prompt, page_size 128) and G2 (chunked 512, page_size 16),
-     launch counts per forward, every token teacher-forced.
+     decode times; `prompt_lookup_generate` (ngram 2, gamma 4) over a bf16
+     cache at B 2 on prompts repeating a 64-token segment 8 times, 32 new
+     (B4 at D 256 with the cap: layers x rounds launches, P 42), every token
+     teacher-forced; the serving engine over Mistral's 8 long requests in
+     runs G1 (whole-prompt, page_size 128) and G2 (chunked 512, page_size
+     16), launch counts per forward, every token teacher-forced.
   5. numbers: per-kernel times, bounds and library times as one JSON line
      (for B7-B9 the library call is SDPA over a dequantized bf16 copy, for
      B10 / B11 `x @ w` over a dequantized bf16 weight, the dequantization
@@ -174,13 +182,14 @@ Phases, in order; any failure exits non-zero:
      at the training shape also its launches, bound, plain version and
      SDPA's forward);
      the training numbers ("training"); (5d) the "gemma2" entries of the P,
-     B2, D1, D2, B5, B6, B9 and append rows at Gemma-2-9B shapes with the
-     cap 50 (library_ms: `flex_attention` with a tanh score_mod for P / B2
-     where it compiles, else SDPA without the cap; SDPA without the cap for
-     B5 / B6 / B9, over a dequantized copy for B9; labelled in each entry's
-     shape); the rows of P / B2, B6, B9 and B13a / B13b carry the runtime's
-     registers, spill and shared bytes of their instantiation
-     ("runtime_attributes"); the card's name and power limit.
+     B2, D1, D2, B4, B5, B6, B9, B12 and append rows at Gemma-2-9B shapes
+     with the cap 50 (library_ms: `flex_attention` with a tanh score_mod for
+     P / B2 where it compiles, else SDPA without the cap; SDPA without the
+     cap for B4 / B5 / B6 / B9 / B12, over a dequantized copy for B9;
+     labelled in each entry's shape); the rows of P / B2, B4, B6, B9, B12
+     and B13a / B13b carry the runtime's registers, spill and shared bytes
+     of their instantiation ("runtime_attributes"); every timed entry its
+     share of its bound ("of_bound"); the card's name and power limit.
 The last line is {"ok": true, "device": {...}}.
 
 Tolerances: kernel outputs are bf16 results of fp32 arithmetic on bf16
@@ -352,16 +361,39 @@ def phase_kernels(torch, flash_fwd, flash_decode, errs):
         check(bool((out[3] == 0).all()), "decode row of length 0 is 0")
 
 
-# Phase 3d: (name, dtype, batch, S, capacity, q_offset, kv_length (None:
-# q_offset + S), head_dim, causal) of kernel B4 against its plain version.
+# Phase 3d: (name, dtype, S, capacity, q_offset, kv_length (None:
+# q_offset + S), head_dim, causal, (q heads, kv heads), window, soft cap) of
+# kernel B4 against its plain version: Llama-3-8B widths, then the soft cap
+# and D 256 at Gemma-2-9B's (16 / 8), with its window of 4096, and the GQA
+# packing at Qwen2-7B's group of 7 (S 5: 7 heads a block; S 20: one).
 CHUNKED_CASES = (
-    ("verify B4 S5", "bfloat16", 5, 640, [0, 130, 511, 600], None, 128, True),
-    ("chunk S256", "bfloat16", 256, 1100, [0, 77, 300, 768], None, 128, True),
-    ("kv_length 0 row", "bfloat16", 64, 640, [10, 0, 300, 500], [74, 0, 364, 564], 128, True),
-    ("non-causal", "bfloat16", 100, 640, [0, 50, 300, 520], [100, 200, 450, 620], 128, False),
-    ("D 64", "bfloat16", 70, 640, [0, 33, 263, 569], None, 64, True),
-    ("verify B4 S5 f16", "float16", 5, 640, [0, 130, 511, 600], None, 128, True),
-    ("chunk S256 f16", "float16", 256, 1100, [0, 77, 300, 768], None, 128, True),
+    ("verify B4 S5", "bfloat16", 5, 640, [0, 130, 511, 600], None, 128, True, (32, 8), None,
+     None),
+    ("chunk S256", "bfloat16", 256, 1100, [0, 77, 300, 768], None, 128, True, (32, 8), None,
+     None),
+    ("kv_length 0 row", "bfloat16", 64, 640, [10, 0, 300, 500], [74, 0, 364, 564], 128, True,
+     (32, 8), None, None),
+    ("non-causal", "bfloat16", 100, 640, [0, 50, 300, 520], [100, 200, 450, 620], 128, False,
+     (32, 8), None, None),
+    ("D 64", "bfloat16", 70, 640, [0, 33, 263, 569], None, 64, True, (32, 8), None, None),
+    ("verify B4 S5 f16", "float16", 5, 640, [0, 130, 511, 600], None, 128, True, (32, 8), None,
+     None),
+    ("chunk S256 f16", "float16", 256, 1100, [0, 77, 300, 768], None, 128, True, (32, 8), None,
+     None),
+    ("D 64 cap 30, window 100", "bfloat16", 70, 640, [0, 33, 263, 569], None, 64, True,
+     (32, 8), 100, 30.0),
+    ("Gemma verify S5 D 256 cap 50", "bfloat16", 5, 4640, [4600, 0, 2000, 13],
+     [4605, 0, 2005, 18], 256, True, (16, 8), None, 50.0),
+    ("Gemma verify S5 D 256 cap 50 window 4096 f16", "float16", 5, 4640, [4600, 0, 2000, 13],
+     [4605, 0, 2005, 18], 256, True, (16, 8), 4096, 50.0),
+    ("Gemma chunk S256 D 256 cap 1.0 window 4096", "bfloat16", 256, 4640, [4096, 300, 0, 4352],
+     None, 256, True, (16, 8), 4096, 1.0),
+    ("Gemma chunk S300 D 256 cap 50, non-causal", "bfloat16", 300, 4640, [0, 0, 500, 4000],
+     [300, 0, 4340, 4340], 256, False, (16, 8), None, 50.0),
+    ("Qwen2 group 7 verify S5 (7 heads a block)", "bfloat16", 5, 640, [0, 130, 511, 600], None,
+     128, True, (28, 4), None, None),
+    ("Qwen2 group 7 S20 cap 50 (one head a block)", "bfloat16", 20, 640, [0, 130, 500, 600],
+     None, 128, True, (28, 4), None, 50.0),
 )
 
 
@@ -384,21 +416,27 @@ def chunked_inputs(torch, gen, dtype, s, cap, offs, kvl, d, hq=32, hkv=8):
 
 
 def phase_chunked_kernels(torch, flash_chunked, errs):
-    """B4 against its fp32 plain version at Llama-3-8B attention widths (Hq
-    32, Hkv 8, D 128 unless stated), bf16 and f16, over NaN-poisoned caches
-    and transposed views: the verify shape, a chunk, a kv_length-0 row,
-    non-causal, D 64."""
+    """B4 against its fp32 plain version (run on q's fp32 image) over
+    CHUNKED_CASES, bf16 and f16, over NaN-poisoned caches and transposed
+    views: the verify shape, a chunk, a kv_length-0 row, non-causal, D 64,
+    the soft caps 30 / 50 / 1.0, D 256 and windows at Gemma-2-9B's widths,
+    Qwen2-7B's group of 7; every call repeated bit for bit. Errors at D 256
+    also go to the "flash_chunked gemma2" entry of `errs`."""
     gen = torch.Generator(device="cuda").manual_seed(5151)
-    for name, dtype, s, cap, offs, kvl, d, causal in CHUNKED_CASES:
+    for name, dtype, s, cap, offs, kvl, d, causal, (hq, hkv), w, sc in CHUNKED_CASES:
         q, k, v, off, lens = chunked_inputs(torch, gen, getattr(torch, dtype), s, cap, offs,
-                                            kvl, d)
-        out = flash_chunked.flash_attention_chunked(q, k, v, off, lens, causal=causal)
-        ref = flash_chunked.flash_attention_chunked_plain(q, k, v, off, lens, causal=causal)
+                                            kvl, d, hq, hkv)
+        kw = dict(causal=causal, window=w, logit_softcap=sc)
+        out = flash_chunked.flash_attention_chunked(q, k, v, off, lens, **kw)
+        again = flash_chunked.flash_attention_chunked(q, k, v, off, lens, **kw)
+        ref = flash_chunked.flash_attention_chunked_plain(q.float(), k, v, off, lens, **kw)
         e = max_err(out, ref)
-        errs["flash_chunked"] = max(errs.get("flash_chunked", 0.0), e)
+        for key in ("flash_chunked", "flash_chunked gemma2") if d == 256 else ("flash_chunked",):
+            errs[key] = max(errs.get(key, 0.0), e)
         print(f"  B4 {name} (q_offset {offs}, capacity {cap}): max|diff| {e:.3e}")
         check(e <= BF16_TOL, f"B4 {name} within {BF16_TOL}")
         check(bool(torch.isfinite(out).all()), f"B4 {name} finite over a NaN tail")
+        check(torch.equal(out, again), f"B4 {name} repeats bit for bit")
         for i, n in enumerate(lens.tolist()):
             if n == 0:
                 check(bool((out[i] == 0).all()), f"B4 {name}: a kv_length-0 row is 0")
@@ -1684,8 +1722,16 @@ def kernel_entries(rows, errs, path_counts) -> list:
     """The `kernels` JSON line: each row with its launches on every main
     path (the counts of its path runs) and its largest error against its
     plain version over the whole script."""
+    def share_of_bound(entry):  # each timed shape's share of its bound, nested ones too
+        if entry.get("ms") and entry.get("bound_ms"):
+            entry["of_bound"] = entry["bound_ms"] / entry["ms"]
+        for key in ("chunk", "window", "gemma2"):
+            if isinstance(entry.get(key), dict):
+                share_of_bound(entry[key])
+
     out = []
     for r in rows:
+        share_of_bound(r)
         by_path = {path: c[r["name"]] for path, c in path_counts.items()}
         out.append({
             "name": r["name"], "route": r["route"], "source": r["source"],
@@ -1693,7 +1739,7 @@ def kernel_entries(rows, errs, path_counts) -> list:
             "launches_by_path": by_path,
             "max_abs_err": errs[r["name"]], "ms": r["ms"], "call_ms": r["call_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
+            "library_ms": r["library_ms"], "of_bound": r.get("of_bound"),
             "shape": r.get("shape", "the main path's"),
             **{key: r[key] for key in ("prefill", "chunk", "window", "lse", "max_rel_err",
                                        "gemma2", "projections", "runtime_attributes") if key in r},
@@ -2669,42 +2715,52 @@ def varlen_inputs(torch, gen, lens_q, lens_kv, hq=32, hkv=8, d=128):
 
 def phase_varlen_kernels(torch, flash_varlen, errs):
     """B12 against its plain version (each sequence's dense attention in
-    fp32, run per segment: never a [T, T] matrix) over 32 packed sequences
-    of 100-2048 tokens at Llama-3-8B widths: self-attention causal and
-    full, kv 0-512 tokens longer than q per sequence (bottom-right
+    fp32 on q's fp32 image, run per segment: never a [T, T] matrix) over 32
+    packed sequences of 100-2048 tokens at Llama-3-8B widths: self-attention
+    causal and full, kv 0-512 tokens longer than q per sequence (bottom-right
     causality, rows of a sequence longer than its keys exact zeros), a
-    causal window of 256. Tolerance BF16_TOL (a bf16 result of fp32
-    arithmetic on bf16 inputs)."""
+    causal window of 256; then at Gemma-2-9B widths (16 / 8 heads, D 256)
+    with the soft caps 50 and 1.0, causal and with kv longer and its window
+    of 4096. Every call repeated bit for bit. Tolerance BF16_TOL (a bf16
+    result of fp32 arithmetic on bf16 inputs). Errors at D 256 also go to
+    the "flash_varlen gemma2" entry of `errs`."""
     gen = torch.Generator(device="cuda").manual_seed(7171)
     lens_q, lens_kv = varlen_batch()
     print(f"  packed batch: {len(lens_q)} sequences, {sum(lens_q)} tokens (lengths "
           f"{min(lens_q)}-{max(lens_q)}; kv {sum(lens_kv)} tokens in the cross case)")
-    for name, kv_lens, causal, window in (("causal", None, True, None),
-                                          ("full", None, False, None),
-                                          ("cross kv +0-512", lens_kv, True, None),
-                                          ("window 256", None, True, 256)):
-        q, k, v, cu_q, cu_kv = varlen_inputs(torch, gen, lens_q, kv_lens or lens_q)
+    for name, kv_lens, causal, window, (hq, hkv, d), cap in (
+            ("causal", None, True, None, (32, 8, 128), None),
+            ("full", None, False, None, (32, 8, 128), None),
+            ("cross kv +0-512", lens_kv, True, None, (32, 8, 128), None),
+            ("window 256", None, True, 256, (32, 8, 128), None),
+            ("Gemma widths D 256 cap 50, causal", None, True, None, (16, 8, 256), 50.0),
+            ("Gemma widths D 256 cap 1.0, cross kv +0-512, window 4096", lens_kv, True, 4096,
+             (16, 8, 256), 1.0)):
+        q, k, v, cu_q, cu_kv = varlen_inputs(torch, gen, lens_q, kv_lens or lens_q, hq, hkv, d)
+        kw = dict(causal=causal, window=window, logit_softcap=cap)
         before = flash_varlen.VARLEN.launches
-        out = flash_varlen.flash_attention_varlen(q, k, v, cu_q, cu_kv, causal=causal,
-                                                  window=window)
+        out = flash_varlen.flash_attention_varlen(q, k, v, cu_q, cu_kv, **kw)
+        again = flash_varlen.flash_attention_varlen(q, k, v, cu_q, cu_kv, **kw)
         torch.cuda.synchronize()
-        check(flash_varlen.VARLEN.launches == before + 1, f"B12 {name}: one launch")
+        check(flash_varlen.VARLEN.launches == before + 2, f"B12 {name}: one launch a call")
         seg_q, pos_q = flash_varlen._seg_metadata(cu_q, q.shape[0])
         seg_kv, pos_kv = flash_varlen._seg_metadata(cu_kv, k.shape[0])
         bounds = pos_q + (cu_kv.diff() - cu_q.diff())[seg_q.long()]
         ref = flash_varlen.flash_attention_packed_plain(
             q.float().transpose(0, 1), k.transpose(0, 1), v.transpose(0, 1), seg_q, seg_kv,
-            bounds, pos_kv, causal=causal, window=window).transpose(0, 1)
+            bounds, pos_kv, **kw).transpose(0, 1)
         e = max_err(out, ref)
-        errs["flash_varlen"] = max(errs.get("flash_varlen", 0.0), e)
+        for key in ("flash_varlen", "flash_varlen gemma2") if d == 256 else ("flash_varlen",):
+            errs[key] = max(errs.get(key, 0.0), e)
         print(f"  B12 {name}: max|diff| {e:.3e}")
         check(bool(torch.isfinite(out).all()), f"B12 {name}: finite")
         check(e <= BF16_TOL, f"B12 {name} within {BF16_TOL}")
-        if kv_lens is None and causal:
+        check(torch.equal(out, again), f"B12 {name} repeats bit for bit")
+        if kv_lens is None and causal and cap is None:
             one = sum(lens_q[:5])  # the 1-token sequence sees itself: its V row
-            check(max_err(out[one], v[one].repeat_interleave(4, dim=0)) == 0.0,
+            check(max_err(out[one], v[one].repeat_interleave(hq // hkv, dim=0)) == 0.0,
                   "B12: a 1-token sequence returns its own V row")
-        del q, k, v, out, ref
+        del q, k, v, out, again, ref
         torch.cuda.empty_cache()
 
 
@@ -3128,10 +3184,56 @@ def phase_gemma2(torch, cfg, params, kernels, path_counts):
     keep = torch.arange(0, GEMMA2_PROMPT, GEMMA2_KEEP).tolist() + [GEMMA2_PROMPT - 1]
     ids, _, results = phase_family(torch, cfg, params, 9, GEMMA2_B, GEMMA2_PROMPT, GEMMA2_NEW,
                                    kernels, path_counts, label, keep=keep)
+    results["prompt lookup"] = gemma2_prompt_lookup(torch, cfg, params, kernels, path_counts,
+                                                    label)
     results.update(serve_long_requests(torch, cfg, params, kernels, path_counts, label, {
         "G1 whole-prompt": MISTRAL_SERVING_RUNS["M1 whole-prompt"],
         "G2 chunked": MISTRAL_SERVING_RUNS["M2 chunked"]}))
     return results
+
+
+GEMMA2_LOOKUP_SEGMENT, GEMMA2_LOOKUP_REPEATS = 64, 8
+
+
+def gemma2_prompt_lookup(torch, cfg, params, kernels, path_counts, label):
+    """`prompt_lookup_generate` (ngram 2, gamma GAMMA) over a bf16 cache at
+    B GEMMA2_B on prompts that repeat a seeded 64-token segment 8 times,
+    GEMMA2_NEW new tokens: every round's verify extend runs B4 at D 256 with
+    the soft cap (layers x rounds launches), the prefill P on every layer
+    (the window of 4096 cannot bind at 512); every token teacher-forced
+    through one contiguous prefill."""
+    import numpy as np
+    from flash_attention_cute_tpu_torch.runtime.prompt_lookup import prompt_lookup_generate
+
+    n = cfg.num_layers
+    seg = np.random.default_rng(10).integers(0, cfg.vocab_size,
+                                             (GEMMA2_B, GEMMA2_LOOKUP_SEGMENT))
+    ids = torch.from_numpy(np.tile(seg, (1, GEMMA2_LOOKUP_REPEATS))).to("cuda")
+    (tokens, stats), wall, counts = counted_run(torch, kernels, lambda: prompt_lookup_generate(
+        params, cfg, ids, GEMMA2_NEW, gamma=GAMMA, ngram=2, return_stats=True))
+    path_counts[f"{label} prompt lookup"] = counts
+    rounds = stats["rounds"]
+    share = stats["accepted_drafts"] / (rounds * GAMMA * GEMMA2_B)
+    print(f"  {label} prompt lookup B{GEMMA2_B} prompt {ids.shape[1]} new {GEMMA2_NEW} gamma "
+          f"{GAMMA}: {wall:.3f} s, rounds {rounds}, accepted drafts {stats['accepted_drafts']} "
+          f"(share {share:.4f}), launches { {k: c for k, c in counts.items() if c} }")
+    check(tuple(tokens.shape) == (GEMMA2_B, GEMMA2_NEW) and bool(
+        ((tokens >= 0) & (tokens < cfg.vocab_size)).all()), f"{label} prompt lookup: tokens")
+    check_counts(counts, {**prefill_counts(cfg, ids.shape[1]), "flash_chunked": n * rounds},
+                 f"{label} prompt lookup")
+    near, top = [], []
+    for row in range(GEMMA2_B):
+        a, b = teacher_forced(torch, cfg, params, ids[row].tolist(), tokens[row].tolist())
+        near += a
+        top += b
+    print(f"  {label} prompt lookup teacher-forced: {sum(near)}/{len(near)} tokens within "
+          f"{LOGIT_MAX_TOL} of the top logit, argmax share {sum(top) / len(top):.4f}")
+    check(all(near), f"{label} prompt lookup: every token within {LOGIT_MAX_TOL} of the top logit")
+    check(sum(top) / len(top) >= ARGMAX_SHARE_MIN,
+          f"{label} prompt lookup: argmax share >= {ARGMAX_SHARE_MIN}")
+    return {"wall_s": wall, "tokens_per_s": GEMMA2_B * GEMMA2_NEW / wall, "rounds": rounds,
+            "accepted_drafts": stats["accepted_drafts"], "acceptance_share": share,
+            "teacher_forced_argmax_share": sum(top) / len(top)}
 
 
 def flex_or_sdpa(torch, q, k, v, cap, window):
@@ -3182,10 +3284,15 @@ def gemma2_rows(torch, ops, gen):
     decode (4 slots, page_size 128), B6 at run G2's extend (4 rows of 512,
     page_size 16, on a full layer) and B9 there over int8 pages (Gemma's
     serving runs take bf16 pages: its launches there are 0), the append at
-    G1's decode. library_ms: see `flex_or_sdpa` for P / B2; SDPA without the
-    soft cap over a contiguous copy for B5 / B6 (dequantized for B9; the
-    copy not timed); `index_copy_` for the append; null for D1 / D2 (no call
-    computes split partials). Bounds count the visible (query, key) pairs."""
+    G1's decode; B4 at the verify round of 4j's prompt lookup (B 2, S 5, the
+    default capacity 550, q_offset 539) and, under "chunk", at a chunk (B 2,
+    S 256, capacity 4640, q_offset 4096 / 4352); B12 over 3g's 32 packed
+    sequences (causal). library_ms: see `flex_or_sdpa` for P / B2; SDPA
+    without the soft cap over a contiguous copy for B5 / B6 (dequantized for
+    B9; the copy not timed), over the contiguous cache with the extend mask
+    for B4, over the padded batch for B12; `index_copy_` for the append;
+    null for D1 / D2 (no call computes split partials). Bounds count the
+    visible (query, key) pairs."""
     from flash_attention_cute_tpu_torch import dispatch
     from flash_attention_cute_tpu_torch.runtime import paged_cache
     from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms
@@ -3313,6 +3420,53 @@ def gemma2_rows(torch, ops, gen):
         "layer); library_ms: SDPA without the soft cap over a dequantized bf16 copy", 10, 3)
     del k8, v8, kd, vd, emask
     torch.cuda.empty_cache()
+
+    fc, fv = ops["flash_chunked"], ops["flash_varlen"]
+
+    def extend_row(b, s, cap_len, offs, iters):
+        q, k, v, off, kvl = chunked_inputs(torch, gen, torch.bfloat16, s, cap_len, offs, None,
+                                           d, hq, hkv)
+        kr, vr = (x.nan_to_num().repeat_interleave(rep, dim=1) for x in (k, v))
+        cols = torch.arange(cap_len, device="cuda")[None, None, :]
+        mask = ((cols <= off[:, None, None] + torch.arange(s, device="cuda")[None, :, None])
+                & (cols < kvl[:, None, None]))[:, None]
+        pairs = sum(s * o + s * (s + 1) // 2 for o in offs)
+        return measure(
+            lambda: fc.flash_attention_chunked(q, k, v, off, kvl, logit_softcap=cap),
+            lambda: fc.flash_attention_chunked_plain(q, k, v, off, kvl, logit_softcap=cap),
+            lambda: f.scaled_dot_product_attention(q, kr, vr, attn_mask=mask),
+            4 * hq * d * pairs, 2 * 2 * q.numel() + 2 * 2 * hkv * d * sum(o + s for o in offs)
+            + 2 * 4 * b, PEAK_BF16, f"B {b}, S {s}, capacity {cap_len}, q_offset {offs}, Hq "
+            f"{hq}, Hkv {hkv}, D {d}, soft cap {cap:g}; library_ms: SDPA without the soft cap, "
+            "causal-offset + length mask, GQA expanded", iters, 3)
+
+    look = GEMMA2_LOOKUP_SEGMENT * GEMMA2_LOOKUP_REPEATS
+    rows["flash_chunked"] = extend_row(GEMMA2_B, GAMMA + 1, look + GEMMA2_NEW + GAMMA + 2,
+                                       [look + GEMMA2_NEW - GAMMA - 1] * GEMMA2_B, 50)
+    rows["flash_chunked"]["chunk"] = extend_row(2, 256, GEMMA2_CAPACITY, [4096, 4352], 20)
+
+    lens, _ = varlen_batch()
+    q, k, v, cu, _ = varlen_inputs(torch, gen, lens, lens, hq, hkv, d)
+    seg, pos = fv._seg_metadata(cu, q.shape[0])
+    qp, kp, vp = (torch.zeros((len(lens), h, max(lens), d), dtype=torch.bfloat16, device="cuda")
+                  for h in (hq, hkv, hkv))
+    for i, n in enumerate(lens):
+        a = int(cu[i])
+        for dst, src in ((qp, q), (kp, k), (vp, v)):
+            dst[i, :, :n] = src[a:a + n].transpose(0, 1)
+    pairs = sum(n * (n + 1) // 2 for n in lens)
+    rows["flash_varlen"] = measure(
+        lambda: fv.flash_attention_varlen(q, k, v, cu, causal=True, logit_softcap=cap),
+        lambda: fv.flash_attention_packed_plain(q.transpose(0, 1), k.transpose(0, 1),
+                                                v.transpose(0, 1), seg, seg, pos, pos,
+                                                causal=True, logit_softcap=cap),
+        lambda: f.scaled_dot_product_attention(qp, kp, vp, is_causal=True, enable_gqa=True),
+        4 * d * hq * pairs, 2 * (2 * q.numel() + 2 * k.numel()) + 4 * 4 * q.shape[0], PEAK_BF16,
+        f"{len(lens)} sequences of {min(lens)}-{max(lens)} tokens ({q.shape[0]} packed), causal, "
+        f"Hq {hq}, Hkv {hkv}, D {d}, soft cap {cap:g}; library_ms: SDPA without the soft cap "
+        "(is_causal, enable_gqa) over the padded batch", 10, 2)
+    del q, k, v, qp, kp, vp
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -3365,13 +3519,15 @@ def main() -> int:
         for line in log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
-    print("  B10 / B11, P / B2, B6, B9 and B13a / B13b instantiations (the runtime's attributes, "
-          "launch shared memory; the consumers of P / B2, B6 and B13a / B13b raise theirs to 240 "
-          "by setmaxnreg, B9's to 232):")
+    print("  B10 / B11, P / B2, B4, B6, B9, B12 and B13a / B13b instantiations (the runtime's "
+          "attributes, launch shared memory; the consumers of P / B2, B4, B6, B12 and B13a / "
+          "B13b raise theirs to 240 by setmaxnreg, B9's to 232):")
     fwd_report, bwd_report = flash_fwd.kernel_report(), flash_bwd.kernel_report()
     b6_report, b9_report = paged_attention.kernel_report(), quantized.extend_kernel_report()
+    b4_report, b12_report = flash_chunked.kernel_report(), flash_varlen.kernel_report()
     for line in (quantized_matmul.kernel_report().splitlines() + fwd_report.splitlines()
-                 + b6_report.splitlines() + b9_report.splitlines() + bwd_report.splitlines()):
+                 + b4_report.splitlines() + b6_report.splitlines() + b9_report.splitlines()
+                 + b12_report.splitlines() + bwd_report.splitlines()):
         print(f"    {line}")
         spill = re.search(r"(\d+) bytes local", line)
         check(spill is not None and int(spill.group(1)) == 0, f"no spill in {line}")
@@ -3525,7 +3681,9 @@ def main() -> int:
     rows += trows
     paged_reports = {"paged_extend": (b6_report, "B6 bf16 D128", "B6 bf16 D256 cap"),
                      "quant_paged_extend": (b9_report, "B9 bf16 e4m3 D128",
-                                            "B9 bf16 int8 D256 cap")}
+                                            "B9 bf16 int8 D256 cap"),
+                     "flash_chunked": (b4_report, "B4 D128 bf16 split-P", "B4 D256 bf16 cap"),
+                     "flash_varlen": (b12_report, "B12 D128 bf16", "B12 D256 bf16 cap")}
     for r in rows:
         if r["name"] in ("flash_fwd", "flash_fwd_window"):
             r["lse"] = {"max_abs_err": errs[f"{r['name']} lse"], **lse_cost[r["name"]]}

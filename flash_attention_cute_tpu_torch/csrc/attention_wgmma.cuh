@@ -1,9 +1,12 @@
 // The Hopper body of the attention forwards over many query rows, shared by
-// P / B2 (flash_fwd.cu: K and V from strided [B, H, S, D] views) and B6 / B9
+// P / B2 (flash_fwd.cu: K and V from strided [B, H, S, D] views), B6 / B9
 // (paged_extend.cuh: K and V from the pages of a pool, B9's widened from
-// int8 / e4m3). Each kernel has a producer warpgroup of its own that fills
-// the rings below; this header holds the rings' layout and the consumers'
-// side, which is the same for all four:
+// int8 / e4m3), B4 (flash_chunked.cu: a contiguous cache, q heads of a GQA
+// group packed into a block) and B12 (flash_varlen.cu: packed sequences).
+// Each kernel has a producer warpgroup of its own that fills the rings
+// below; this header holds the rings' layout and the consumers' side, which
+// is the same for all six but for the mask (`Visible`, `Extend`,
+// `Segments`, a template choice) and B4's P in two parts at verify rounds:
 //
 //   * One block per (128 q rows, q head, batch row), three warpgroups:
 //     warpgroup 0 produces, warpgroups 1 and 2 consume 64 rows each.
@@ -198,6 +201,165 @@ __device__ __forceinline__ float2 lds_f32x2(uint32_t addr) {
   asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr));
   return v;
 }
+__device__ __forceinline__ void sts_u32x4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+__device__ __forceinline__ int lds_s32(uint32_t addr) {
+  int v;
+  asm volatile("ld.shared.s32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ int2 lds_s32x2(uint32_t addr) {
+  int2 v;
+  asm volatile("ld.shared.v2.s32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(addr));
+  return v;
+}
+
+// The consumers' mask modes besides `Visible` (P / B2 / B6 / B9, whose
+// code they leave as it is). Each holds the block's view in shared memory;
+// row_state() gives a thread its two rows' bounds and its consumer's key
+// range [start, end) once, mask_tile() masks a tile's scores in place, and
+// kKeyMeta says that mask_tile() reads the tile's K slot (so the slot goes
+// back only after it).
+struct NoRows {};
+__device__ __forceinline__ NoRows row_state(const Visible&, int, int) { return {}; }
+template <typename Vis>
+struct KeyMeta {
+  static constexpr bool value = Vis::kKeyMeta;
+};
+template <>
+struct KeyMeta<Visible> {
+  static constexpr bool value = false;
+};
+
+// B4: row r of a block is query position r % s of q head (the run's first)
+// + r / s, so a block packs `sq / s` heads of one GQA group (their keys
+// are one kv head's), or holds 128 positions of one head (sq = s). Key n
+// is visible from a row at position pos iff n < skv, when causal
+// n <= pos + offset, and with a window W > 0 n > pos + offset - W.
+// kSplit: P enters P V as two parts rounded to T, hi = P rounded and
+// lo = P - hi rounded (about 2^-16 of P lost, not 2^-9), so that a verify
+// round's attention matches the decode kernels', which keep P in fp32.
+template <bool kSplit>
+struct Extend {
+  int sq;  // rows of a run of heads (heads x S): the stores' bound and a run's stride
+  int s;   // S, the positions of a head
+  int skv, offset, causal, window;
+  static constexpr bool kKeyMeta = false;
+};
+template <typename Vis>
+struct SplitP {
+  static constexpr bool value = false;
+};
+template <bool kSplit>
+struct SplitP<Extend<kSplit>> {
+  static constexpr bool value = kSplit;
+};
+struct ExtendRows {
+  int bound0, bound1;  // this thread's rows' causal bound: pos + offset
+  int start, end;      // keys some row of the consumer sees
+};
+template <bool kSplit>
+__device__ __forceinline__ ExtendRows row_state(const Extend<kSplit>& v, int mw, int row0) {
+  ExtendRows r;
+  r.bound0 = row0 % v.s + v.offset;
+  r.bound1 = (row0 + 8) % v.s + v.offset;
+  // The positions [lo, hi] of the consumer's rows below sq.
+  const int last = min(mw + kTileM, v.sq) - 1;
+  int lo = 0, hi = v.s - 1;
+  if (mw / v.s == last / v.s) lo = mw % v.s, hi = last % v.s;
+  r.start = v.window > 0 ? max(0, lo + v.offset - v.window + 1) : 0;
+  r.end = mw < v.sq ? min(v.skv, v.causal ? hi + v.offset + 1 : v.skv) : 0;
+  return r;
+}
+template <int kN, bool kSplit>
+__device__ __forceinline__ void mask_tile(const Extend<kSplit>& v, float (&s)[kN / 2],
+                                          const ExtendRows& r, int n0, uint32_t, int, int t) {
+  // A tile whose every key both of this thread's rows see needs no mask.
+  if (n0 + kN <= v.skv && (!v.causal || n0 + kN - 1 <= min(r.bound0, r.bound1)) &&
+      (v.window <= 0 || n0 > max(r.bound0, r.bound1) - v.window))
+    return;
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) {
+    const int b = i & 2 ? r.bound1 : r.bound0, col = n0 + 8 * (i >> 2) + 2 * t + (i & 1);
+    if (col >= v.skv || (v.causal && col > b) || (v.window > 0 && col <= b - v.window))
+      s[i] = -INFINITY;
+  }
+}
+
+// B12: packed tokens. Key n is visible from row m iff kv_seg[n] == q_seg[m],
+// when causal kv_pos[n] <= q_bound[m], and with a window W > 0
+// kv_pos[n] > q_bound[m] - W. Each K slot carries its keys' kv_seg and
+// kv_pos (kN ints each, at base + kMetaOff). a, b, c, d: the first key of
+// seg_lo (the block's first row's segment), past the last key of seg_hi
+// (its last row's), the first key of seg_hi, past the last key of seg_lo.
+// q_bound is non-decreasing within a segment (the varlen front end's
+// pos + kv_len - q_len), so a run of rows of one segment is bounded by its
+// first row below and its last row above.
+template <int kMetaOff, int kKStages>
+struct Segments {
+  int sq;  // Tq
+  int causal, window;
+  const int* q_seg;
+  const int* q_bound;
+  int seg_lo, seg_hi, bound_lo, bound_hi;  // the block's first and last rows'
+  int a, b, c, d;
+  static constexpr bool kKeyMeta = true;
+};
+struct SegmentRows {
+  int seg[2], bound[2];  // this thread's rows'
+  int start, end;        // keys some row of the consumer sees
+};
+template <int kMetaOff, int kKStages>
+__device__ __forceinline__ SegmentRows row_state(const Segments<kMetaOff, kKStages>& v, int mw,
+                                                 int row0) {
+  SegmentRows r;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = min(row0 + 8 * i, v.sq - 1);  // rows past Tq are never stored
+    r.seg[i] = v.q_seg[row];
+    r.bound[i] = v.q_bound[row];
+  }
+  r.start = r.end = 0;
+  if (mw >= v.sq) return r;
+  const int last = min(mw + kTileM, v.sq) - 1;
+  const int sf = v.q_seg[mw], sl = v.q_seg[last];
+  const int shift = v.window > 0 ? max(0, v.q_bound[mw] - v.window + 1) : 0;
+  // From the consumer's first row's window start (its segment's first key
+  // when that is seg_lo or seg_hi), to its last row's causal end (the first
+  // key of seg_hi when the last row lies in an earlier segment).
+  r.start = sf == v.seg_lo ? min(v.a + shift, v.d) : sf == v.seg_hi ? min(v.c + shift, v.b) : v.a;
+  r.end = sl != v.seg_hi ? v.c : v.causal ? min(v.b, v.c + max(v.q_bound[last] + 1, 0)) : v.b;
+  return r;
+}
+template <int kN, int kMetaOff, int kKStages>
+__device__ __forceinline__ void mask_tile(const Segments<kMetaOff, kKStages>& v,
+                                          float (&s)[kN / 2], const SegmentRows& r, int n0,
+                                          uint32_t base, int it, int t) {
+  const uint32_t meta = base + kMetaOff + it % kKStages * 8 * kN;  // kv_seg, then kv_pos
+  // A tile of one segment (segment ids are sorted) whose every key both
+  // rows see needs no mask.
+  const int s0 = lds_s32(meta), s1 = lds_s32(meta + 4 * (kN - 1));
+  const int p0 = lds_s32(meta + 4 * kN), p1 = lds_s32(meta + 4 * (2 * kN - 1));
+  if (s0 == s1 && s0 == r.seg[0] && s0 == r.seg[1] &&
+      (!v.causal || p1 <= min(r.bound[0], r.bound[1])) &&
+      (v.window <= 0 || p0 > max(r.bound[0], r.bound[1]) - v.window))
+    return;
+#pragma unroll
+  for (int j = 0; j < kN / 8; ++j) {
+    const int2 ks = lds_s32x2(meta + (8 * j + 2 * t) * 4);
+    const int2 kp = lds_s32x2(meta + (kN + 8 * j + 2 * t) * 4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int seg = e & 1 ? ks.y : ks.x, pos = e & 1 ? kp.y : kp.x, i = e >> 1;
+      if (seg != r.seg[i] || (v.causal && pos > r.bound[i]) ||
+          (v.window > 0 && pos <= r.bound[i] - v.window))
+        s[4 * j + e] = -INFINITY;
+    }
+  }
+}
 
 // A consumer warpgroup's whole part of a block (threads 128..383): its 64
 // rows of the walk over `total` tiles from key n_begin, then its rows of O
@@ -211,17 +373,22 @@ __device__ __forceinline__ float2 lds_f32x2(uint32_t addr) {
 // the K scale of its key (times the softmax scale, or the cap's factor)
 // before the cap, P by the V scale of its key after its row sum and before its
 // rounding to T.
-template <typename T, int D, bool kCap, int kScaleOff, int kKStages, int kVStages, int kBars>
+// Vis: which keys a row sees, `Visible` or a mode above (B4, B12).
+template <typename T, int D, bool kCap, int kScaleOff, int kKStages, int kVStages, int kBars,
+          typename Vis>
 __device__ __forceinline__ void consume(const Rings<D, kKStages, kVStages, kBars>& ring,
-                                        const Visible& vis, const Scores& sco, int m0,
+                                        const Vis& vis, const Scores& sco, int m0,
                                         int n_begin, int total, T* o, float* lse, int head) {
   constexpr int kN = Tiles<D>::kN;
   constexpr bool kScaled = kScaleOff > 0;
+  constexpr bool kDense = std::is_same_v<Vis, Visible>, kKeyMeta = KeyMeta<Vis>::value;
+  constexpr bool kSplit = SplitP<Vis>::value;
   const int ct = threadIdx.x - 128, wg = ct >> 7, wi = (ct >> 5) & 3, lane = ct & 31;
   const int g = lane >> 2, t = lane & 3;
   const int mw = m0 + kTileM * wg;       // this warpgroup's first row
   const int row0 = mw + 16 * wi + g;     // this thread's rows: row0, row0 + 8
   const uint32_t qa = ring.sQ() + wg * kTileM * 128;
+  [[maybe_unused]] const auto rows = row_state(vis, mw, row0);
   constexpr int kOBlocks = D == 256 ? 2 : 1;  // PV products of N = D / kOBlocks a k-step
   constexpr int kON = D / kOBlocks;
   // Element 4 j + e of an accumulator: row row0 + 8 (e >> 1), column
@@ -265,14 +432,18 @@ __device__ __forceinline__ void consume(const Rings<D, kKStages, kVStages, kBars
 #pragma unroll
       for (int i = 0; i < kN / 2; ++i) s[i] = kScaled ? softcap_of(s[i], sco) : softcap(s[i], sco);
     }
-    if (!tile_full<kN>(vis, mw, n0)) {
+    if constexpr (kDense) {
+      if (!tile_full<kN>(vis, mw, n0)) {
 #pragma unroll
-      for (int i = 0; i < kN / 2; ++i) {
-        const int row = row0 + 8 * ((i >> 1) & 1), col = n0 + 8 * (i >> 2) + 2 * t + (i & 1);
-        if (col >= vis.skv || (vis.causal && col > row + vis.offset) ||
-            (vis.window > 0 && col <= row + vis.offset - vis.window))
-          s[i] = -INFINITY;
+        for (int i = 0; i < kN / 2; ++i) {
+          const int row = row0 + 8 * ((i >> 1) & 1), col = n0 + 8 * (i >> 2) + 2 * t + (i & 1);
+          if (col >= vis.skv || (vis.causal && col > row + vis.offset) ||
+              (vis.window > 0 && col <= row + vis.offset - vis.window))
+            s[i] = -INFINITY;
+        }
       }
+    } else {
+      mask_tile<kN>(vis, s, rows, n0, ring.base, it, t);
     }
     float m_use[2];
 #pragma unroll
@@ -304,7 +475,8 @@ __device__ __forceinline__ void consume(const Rings<D, kKStages, kVStages, kBars
   // multiplies P by its keys' V scales (the TPU kernel's
   // (p * vscale).astype(compute_dtype)), which land with the V tile that
   // this turn has not waited for yet (its P V runs next turn).
-  auto round_p = [&](float (&s)[kN / 2], int it, uint32_t (&pa)[kN / 16][4]) {
+  auto round_p = [&](float (&s)[kN / 2], int it, uint32_t (&pa)[kN / 16][4],
+                     uint32_t (&pl)[kSplit ? kN / 16 : 1][4]) {
     if constexpr (kScaled) {
       mbar_wait(ring.full_v(it), ring.v_pass(it));
 #pragma unroll
@@ -313,7 +485,22 @@ __device__ __forceinline__ void consume(const Rings<D, kKStages, kVStages, kBars
         s[4 * j] *= vs.x, s[4 * j + 1] *= vs.y, s[4 * j + 2] *= vs.x, s[4 * j + 3] *= vs.y;
       }
     }
-    to_a<T>(s, pa);
+    if constexpr (kSplit) to_a_split<T>(s, pa, pl);
+    else to_a<T>(s, pa);
+  };
+  // O += P V of tile it's slot (kSplit: hi V, then lo V).
+  auto pv = [&](uint32_t (&pa)[kN / 16][4], uint32_t (&pl)[kSplit ? kN / 16 : 1][4],
+                int it) {
+    pv_products<T, D, kN>(acc, pa, ring.sV(it));
+    if constexpr (kSplit) pv_products<T, D, kN>(acc, pl, ring.sV(it));
+  };
+  auto fence_p = [&](uint32_t (&pa)[kN / 16][4], uint32_t (&pl)[kSplit ? kN / 16 : 1][4]) {
+#pragma unroll
+    for (int kk = 0; kk < kN / 16; ++kk) fence_regs(pa[kk]);
+    if constexpr (kSplit) {
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk) fence_regs(pl[kk]);
+    }
   };
 
   // Warpgroup ping-pong: a consumer issues its products of a tile between a
@@ -349,12 +536,17 @@ __device__ __forceinline__ void consume(const Rings<D, kKStages, kVStages, kBars
   // The tiles this consumer sees a key of are one run [it_lo, it_hi) of the
   // walk; the wgmma products stay out of data-dependent branches (ptxas
   // serializes them there).
+  auto dead = [&](int n0) {
+    if constexpr (kDense) return tile_dead<kN>(vis, mw, n0);
+    else return n0 >= rows.end || n0 + kN <= rows.start;
+  };
   int it_lo = 0, it_hi = total;
-  while (it_lo < total && tile_dead<kN>(vis, mw, n_begin + it_lo * kN)) ++it_lo;
-  while (it_hi > it_lo && tile_dead<kN>(vis, mw, n_begin + (it_hi - 1) * kN)) --it_hi;
+  while (it_lo < total && dead(n_begin + it_lo * kN)) ++it_lo;
+  while (it_hi > it_lo && dead(n_begin + (it_hi - 1) * kN)) --it_hi;
   for (int it = 0; it < it_lo; ++it) skip(it);
   if (it_lo < it_hi) {
     uint32_t pa[kN / 16][4];  // P of the previous tile, rounded to T
+    uint32_t pl[kSplit ? kN / 16 : 1][4];  // kSplit: the rest of P, rounded to T
     {
       float s[kN / 2], alpha[2];
       take_turn(it_lo);
@@ -365,9 +557,10 @@ __device__ __forceinline__ void consume(const Rings<D, kKStages, kVStages, kBars
       wgmma_wait<0>();
       fence_regs(s);
       scale_keys(s, it_lo);
-      release(ring.empty_k(it_lo));
+      if constexpr (!kKeyMeta) release(ring.empty_k(it_lo));
       softmax(s, it_lo, alpha);  // O is 0: alpha unused
-      round_p(s, it_lo, pa);
+      if constexpr (kKeyMeta) release(ring.empty_k(it_lo));
+      round_p(s, it_lo, pa, pl);
     }
     for (int it = it_lo + 1; it < it_hi; ++it) {
       float s[kN / 2], alpha[2];
@@ -376,35 +569,34 @@ __device__ __forceinline__ void consume(const Rings<D, kKStages, kVStages, kBars
       wgmma_fence();
       qk_products<T, D, kN>(s, qa, ring.sK(it));
       wgmma_commit();
-      pv_products<T, D, kN>(acc, pa, ring.sV(it - 1));
+      pv(pa, pl, it - 1);
       wgmma_commit();
       pass_turn(it);
       wgmma_wait<1>();  // S done; P V may still run
       fence_regs(s);
       scale_keys(s, it);
-      release(ring.empty_k(it));
+      if constexpr (!kKeyMeta) release(ring.empty_k(it));
       softmax(s, it, alpha);
+      if constexpr (kKeyMeta) release(ring.empty_k(it));
       wgmma_wait<0>();
 #pragma unroll
       for (int c = 0; c < kOBlocks; ++c) fence_regs(acc[c]);
-#pragma unroll
-      for (int kk = 0; kk < kN / 16; ++kk) fence_regs(pa[kk]);
+      fence_p(pa, pl);
       release(ring.empty_v(it - 1));
 #pragma unroll
       for (int c = 0; c < kOBlocks; ++c)
 #pragma unroll
         for (int i = 0; i < kON / 2; ++i) acc[c][i] *= alpha[(i >> 1) & 1];
-      round_p(s, it, pa);
+      round_p(s, it, pa, pl);
     }
     mbar_wait(ring.full_v(it_hi - 1), ring.v_pass(it_hi - 1));
     wgmma_fence();  // the last tile's P V
-    pv_products<T, D, kN>(acc, pa, ring.sV(it_hi - 1));
+    pv(pa, pl, it_hi - 1);
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
     for (int c = 0; c < kOBlocks; ++c) fence_regs(acc[c]);
-#pragma unroll
-    for (int kk = 0; kk < kN / 16; ++kk) fence_regs(pa[kk]);
+    fence_p(pa, pl);
     release(ring.empty_v(it_hi - 1));
   }
   for (int it = it_hi; it < total; ++it) skip(it);

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the kernels that use TMA and
 // wgmma (quantized_matmul.cu: B10 / B11 prefill; flash_fwd.cu: P / B2;
-// paged_extend.cuh: B6 / B9; flash_bwd.cu: B13a / B13b): mbarriers, TMA tensor copies and their maps,
+// paged_extend.cuh: B6 / B9; flash_chunked.cu: B4; flash_varlen.cu: B12;
+// flash_bwd.cu: B13a / B13b): mbarriers, TMA tensor copies and their maps,
 // bulk copies, wgmma descriptors and products, ldmatrix, and the register
 // hand-over between warpgroups (setmaxnreg).
 #pragma once
@@ -252,6 +253,30 @@ __device__ __forceinline__ void to_a(const float (&d)[N], uint32_t (&a)[N / 8][4
   for (int kk = 0; kk < N / 8; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r) a[kk][r] = Elem<T>::pack(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+}
+
+// to_a() of d as two parts: hi = d rounded to T, lo = (d - hi) rounded to
+// T, so that hi + lo carries d to about 2^-16 of itself (d - hi is exact in
+// fp32).
+template <typename T, int N>
+__device__ __forceinline__ void to_a_split(const float (&d)[N], uint32_t (&hi)[N / 8][4],
+                                           uint32_t (&lo)[N / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float x0 = d[8 * kk + 2 * r], x1 = d[8 * kk + 2 * r + 1];
+      const uint32_t h = Elem<T>::pack(x0, x1);
+      float h0, h1;  // the halves of h as floats, exactly
+      if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+        h0 = __uint_as_float(h << 16), h1 = __uint_as_float(h & 0xFFFF0000u);
+      } else {
+        h0 = __half2float(__ushort_as_half(static_cast<unsigned short>(h & 0xFFFFu)));
+        h1 = __half2float(__ushort_as_half(static_cast<unsigned short>(h >> 16)));
+      }
+      hi[kk][r] = h;
+      lo[kk][r] = Elem<T>::pack(x0 - h0, x1 - h1);
+    }
 }
 
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {

@@ -94,11 +94,6 @@ __device__ __forceinline__ uint4 lds_u32x4(uint32_t addr) {
                : "r"(addr));
   return v;
 }
-__device__ __forceinline__ void sts_u32x4(uint32_t addr, uint4 v) {
-  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
-               "r"(v.z), "r"(v.w)
-               : "memory");
-}
 __device__ __forceinline__ void sts_f32(uint32_t addr, float v) {
   asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
 }

@@ -19,8 +19,8 @@ segment rule, or Gemma2's periodic pattern): each layer's attention, in
 every mode, takes its window, so a windowed prefill runs kernel B2 where
 the window binds (P otherwise) and decode and extend read only the keys
 inside it. Every attention call takes `cfg.logit_softcap` (Gemma2's tanh
-soft cap, on P, B2, D1 in kernel form; B4 and B7 raise on it on CUDA, as
-they do on head dim 256: ROADMAP.md A10b).
+soft cap, on P, B2, D1 and B4 in kernel form; B7 raises on it on CUDA, as
+it does on head dim 256: ROADMAP.md A10b).
 
   * mode="prefill": causal attention over the fresh K/V (kernel P on CUDA);
     with a cache, K/V are then written at positions [0, S) in place.

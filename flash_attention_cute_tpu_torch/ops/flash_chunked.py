@@ -16,12 +16,15 @@ with the chunk's K/V already written at [q_offset, q_offset + S):
 Both are device tensors read by the kernel, so one kernel serves every fill
 level and no host sync sizes the grid. `flash_attention_chunked` routes on
 the device of `q`: a CPU tensor takes the plain version (the fp32
-reference), a CUDA tensor launches B4 (csrc/flash_chunked.cu), which
-replaces the TPU kernel `_flash_chunked_kernel`. What the kernel does not
-take raises; nothing falls back. Cache positions at or past a row's length
-are never read by the kernel and are zeroed out of the plain version's
-products, so they may hold uninitialised memory, even NaN. The TPU-only
-arguments `block_q`, `block_kv`, `interpret` and `debug` are gone.
+reference), a CUDA tensor launches B4 (csrc/flash_chunked.cu: wgmma fed by
+TMA, the GQA group's heads packed into a block where their rows fit),
+which replaces the TPU kernel `_flash_chunked_kernel`. Both take the tanh
+soft cap (Gemma2's 50) and head dims 64, 128 and 256. What the kernel does
+not take raises; nothing falls back. Cache positions at or past a row's
+length may hold uninitialised memory, even NaN: the kernel masks their
+scores and zeroes their V rows before P V, and the plain version zeroes
+them out of its products. The TPU-only arguments `block_q`, `block_kv`,
+`interpret` and `debug` are gone.
 """
 
 from __future__ import annotations
@@ -37,13 +40,19 @@ from flash_attention_cute_tpu_torch.ops.reference import (
 )
 
 LOG2E = math.log2(math.e)
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 P, I, L, F = _build.P, _build.I, _build.L, _build.F
 CHUNKED = _build.Kernel(
     "flash_chunked", "flash_chunked.cu", "fact_flash_chunked",
-    [P] * 6 + [I] * 6 + [L] * 9 + [F, I, I, I, P],
+    [P] * 6 + [I] * 6 + [L] * 9 + [F, F, I, I, I, P],
 )
+
+
+def kernel_report() -> str:
+    """Registers, spill bytes and shared memory of every B4 kernel
+    instantiation, as the card's runtime reports them."""
+    return _build.runtime_report(CHUNKED.source, "fact_chunked_report")
 
 
 def flash_attention_chunked_plain(q, k, v, q_offset, kv_length, sm_scale=None, causal=True,
@@ -84,7 +93,8 @@ def flash_attention_chunked(
       causal: top-left causality in global positions; False keeps only the
         length mask.
       window: sliding window W: row r also masks keys n <= q_offset + r - W.
-      logit_softcap: plain version only (Gemma2, ROADMAP.md A10b).
+      logit_softcap: tanh soft cap c (Gemma2's 50): scores become
+        c * tanh(s / c) before the mask.
       return_partials: plain version only (ring attention, ROADMAP.md A12):
         (o_unnorm [B, Hq, S, D] f32, m [B, Hq, S] f32 in log2 units,
         l [B, Hq, S] f32).
@@ -98,7 +108,7 @@ def flash_attention_chunked(
     if q.device.type == "cpu":
         return flash_attention_chunked_plain(q, k, v, q_offset, kv_length, sm_scale, causal,
                                              window, logit_softcap, return_partials)
-    _build.refuse_softcap(logit_softcap, "extend")
+    softcap = _build.softcap_arg(logit_softcap)
     window = _build.window_arg(window)
     if return_partials:
         raise NotImplementedError(
@@ -128,6 +138,6 @@ def flash_attention_chunked(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             rows[0].data_ptr(), rows[1].data_ptr(), b, hq, hkv, sq, cap, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            float(sm_scale) * LOG2E, int(causal), window, _build.DTYPE_CODES[q.dtype],
+            float(sm_scale) * LOG2E, softcap, int(causal), window, _build.DTYPE_CODES[q.dtype],
         )
     return out

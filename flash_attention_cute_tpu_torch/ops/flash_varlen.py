@@ -13,13 +13,14 @@ along one token axis and delimited by int32 metadata vectors:
 flash-attn layout); `flash_attention_packed` is the core ([H, T, D]).
 Both route on the device of `q`: a CPU tensor takes the plain version (per
 segment dense attention in fp32, never a [Tq, Tkv] matrix), a CUDA tensor
-launches B12 (csrc/flash_varlen.cu), which replaces `_flash_varlen_kernel`.
-The metadata are derived and read on the device: no length, offset or
-segment id becomes a Python int on the kernel route. Rows with no visible
-key are exact zeros. The soft cap runs in the plain version only (ROADMAP.md
-A10b); `equal_lengths`, `max_seqlen`, `block_q`, `block_kv` and `stable`
-(TPU grid and softmax knobs) are accepted and ignored: the kernel finds
-each block's live key range itself and its softmax is exact.
+launches B12 (csrc/flash_varlen.cu: wgmma fed by TMA), which replaces
+`_flash_varlen_kernel`. Both take the tanh soft cap and head dims 64, 128
+and 256. The metadata are derived and read on the device: no length, offset
+or segment id becomes a Python int on the kernel route. Rows with no
+visible key are exact zeros. `equal_lengths`, `max_seqlen`, `block_q`,
+`block_kv` and `stable` (TPU grid and softmax knobs) are accepted and
+ignored: the kernel finds each block's live key range itself and its
+softmax is exact.
 """
 
 from __future__ import annotations
@@ -31,11 +32,35 @@ import torch
 from flash_attention_cute_tpu_torch.ops import _build
 
 LOG2E = math.log2(math.e)
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
+# Keys past Tkv in the kernel's padded copy of the kv metadata: no row sees
+# them (segment INT_MIN, position INT_MAX); a tile of 128 keys may start at
+# any key below Tkv.
+PAD_SEG, PAD_POS, PAD_KEYS = -(2 ** 31), 2 ** 31 - 1, 128
 
 P, I, L, F = _build.P, _build.I, _build.L, _build.F
 VARLEN = _build.Kernel("flash_varlen", "flash_varlen.cu", "fact_flash_varlen",
-                       [P] * 8 + [I] * 5 + [L] * 6 + [F, I, I, I, P])
+                       [P] * 7 + [I] * 6 + [L] * 6 + [F, F, I, I, I, P])
+
+
+def kernel_report() -> str:
+    """Registers, spill bytes and shared memory of every B12 kernel
+    instantiation, as the card's runtime reports them."""
+    return _build.runtime_report(VARLEN.source, "fact_varlen_report")
+
+
+def kv_metadata(kv_seg: torch.Tensor, kv_pos: torch.Tensor) -> torch.Tensor:
+    """The kernel's copy of the kv metadata: int32 [2, Tpad] (segment ids,
+    then positions), padded past Tkv with keys no row sees to a length the
+    kernel's 16-byte copies of a whole tile never overrun."""
+    tkv = kv_seg.shape[0]
+    tpad = -(-(tkv + PAD_KEYS) // 8) * 8
+    meta = torch.empty((2, tpad), dtype=torch.int32, device=kv_seg.device)
+    meta[0, tkv:] = PAD_SEG
+    meta[1, tkv:] = PAD_POS
+    meta[0, :tkv] = kv_seg
+    meta[1, :tkv] = kv_pos
+    return meta
 
 
 def flash_attention_packed_plain(q, k, v, q_segment_ids, kv_segment_ids, q_bounds=None,
@@ -100,8 +125,13 @@ def flash_attention_packed(
         the head dim contiguous.
       q_segment_ids [Tq], kv_segment_ids [Tkv]: int32, non-decreasing.
       q_bounds [Tq], kv_positions [Tkv]: int32, required when causal or with
-        a window; kv positions count from 0 at a segment's first key.
+        a window; kv positions count from 0 at a segment's first key, and
+        bounds do not decrease within a segment (the varlen front end's
+        pos + kv_len - q_len): the kernel bounds a run of rows of one
+        segment by its first and last row. Segment ids are above INT_MIN.
       causal / window: `pos_kv <= bound` / `pos_kv > bound - window`.
+      logit_softcap: tanh soft cap c: scores become c * tanh(s / c) before
+        the mask.
 
     Returns [Hq, Tq, D] in q's dtype, contiguous.
     """
@@ -113,7 +143,7 @@ def flash_attention_packed(
         return flash_attention_packed_plain(q, k, v, q_segment_ids, kv_segment_ids, q_bounds,
                                             kv_positions, sm_scale, causal, window,
                                             logit_softcap)
-    _build.refuse_softcap(logit_softcap, "varlen")
+    softcap = _build.softcap_arg(logit_softcap)
     window = _build.window_arg(window)
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"varlen kernel takes bf16/f16, got {q.dtype}")
@@ -132,17 +162,17 @@ def flash_attention_packed(
             raise ValueError(f"metadata of shape {tuple(x.shape)} for {n} tokens")
         return x.to(device=q.device, dtype=torch.int32).contiguous()
 
-    q_seg, kv_seg = meta(q_segment_ids, tq), meta(kv_segment_ids, tkv)
-    q_bound, kv_pos = meta(q_bounds, tq), meta(kv_positions, tkv)
+    q_seg, q_bound = meta(q_segment_ids, tq), meta(q_bounds, tq)
     out = torch.empty((hq, tq, d), dtype=q.dtype, device=q.device)
     if tq == 0:
         return out
+    kv_meta = kv_metadata(meta(kv_segment_ids, tkv), meta(kv_positions, tkv))
     with torch.cuda.device(q.device):
         VARLEN(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), q_seg.data_ptr(),
-            q_bound.data_ptr(), kv_seg.data_ptr(), kv_pos.data_ptr(), hq, hkv, tq, tkv, d,
+            q_bound.data_ptr(), kv_meta.data_ptr(), kv_meta.shape[1], hq, hkv, tq, tkv, d,
             *q.stride()[:2], *k.stride()[:2], *v.stride()[:2], float(sm_scale) * LOG2E,
-            int(causal), window, _build.DTYPE_CODES[q.dtype],
+            softcap, int(causal), window, _build.DTYPE_CODES[q.dtype],
         )
     return out
 

@@ -2,9 +2,10 @@
 """Device times of the port's attention kernels on one NVIDIA H100, for
 comparing two trees of the repository in one call:
 
-    cd <tree> && python3 <this script>
+    cd <tree> && python3 <this script> [prefill] [decode] [paged] [extends] [backward]
 
-The package is imported from the current directory. Llama / Mistral shapes
+The package is imported from the current directory; the arguments pick
+groups of kernels to time (all without any). Llama / Mistral shapes
 (Hq 32, Hkv 8, D 128, bf16, causal): P at the Llama-3-8B greedy prefill
 (B 4, S 512) and the training step (B 2, S 2048), with its lse where the
 tree has `return_lse`; P at Qwen2-7B's 28 / 4 heads (B 4, S 512), at D 64
@@ -12,12 +13,16 @@ tree has `return_lse`; P at Qwen2-7B's 28 / 4 heads (B 4, S 512), at D 64
 Mistral-7B's greedy prefill (B 2, S 5120, window 4096); D1 at the greedy
 middle decode step (B 4, 544 of 576 positions, the dispatch's splits); B5
 (+ D2) at serving run A's decode (8 rows of 174-923 keys, page_size 128);
-B4 at a verify round (B 4, S 5, capacity 640) and a chunk (B 4, S 256,
-offsets 0-768, capacity 1100); B12 over 8 packed causal sequences of
-100-2048 tokens. Every P / B2 shape also has a "bound" entry: 4 D
-operations per visible (row, key) pair and q head at the bf16 peak, or its
-bytes (q, k, v read once, the output written once) at 3.35 TB/s,
-whichever is longer. Gemma-2-9B shapes (Hq 16, Hkv 8, D 256, scale
+B4 at a verify round (B 4, S 5, capacity 640; and chip_smoke.py's: capacity
+582, q_offset 571), a chunk (B 4, S 256, offsets 0-768, capacity 1100) and
+Mistral-7B's window ("W": B 2, S 256, offsets 4608 / 4864, W 4096); B12 over
+8 packed causal sequences of 100-2048 tokens and over chip_smoke.py's 32
+(35874 tokens); B4 (a verify round and a chunk, capacity 4640) and B12
+(the 32 sequences) at Gemma-2-9B's widths with and without the cap 50.
+Every P / B2, B4 and B12 shape also has a "bound" entry: 4 D operations per
+visible (row, key) pair and q head at the bf16 peak, or its bytes (q, the
+live k / v read once, the output written once) at 3.35 TB/s, whichever is
+longer. Gemma-2-9B shapes (Hq 16, Hkv 8, D 256, scale
 256 ** -0.5) with and without the soft cap 50, where the tree takes them
 (null where it raises NotImplementedError): P at B 2, S 4608; B2 with
 window 4096 there; D1 at B 2, 4624 of 4640 positions. The paged extends B6
@@ -47,6 +52,7 @@ import sys
 
 sys.path.insert(0, os.getcwd())
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from flash_attention_cute_tpu_torch import dispatch  # noqa: E402
@@ -67,20 +73,59 @@ def visible_pairs(s: int, causal: bool, window: int | None) -> int:
     return sum(min(m + 1, w) for m in range(s))
 
 
-def other_bodies(randn, timed, out):
-    """B4 and B12: the kernels on the mma.sync body (csrc/attention_fwd.cuh)."""
-    for name, s, cap_len, offs in (("B4 verify B4 S5 C640", 5, 640, [0, 200, 400, 600]),
-                                   ("B4 chunk B4 S256 C1100", 256, 1100, [0, 256, 512, 768])):
-        q = randn(4, s, 32, 128).transpose(1, 2)
-        kc, vc = randn(4, 8, cap_len, 128), randn(4, 8, cap_len, 128)
+def varlen_batch(count=32):
+    """chip_smoke.py's packed batch: numpy-seeded lengths in [100, 2048],
+    one of a single token, the total not a multiple of 64."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(100, 2049, count)
+    lens[5] = 1
+    if lens.sum() % 64 == 0:
+        lens[-1] -= 1
+    return [int(x) for x in lens]
+
+
+def extends_and_varlen(randn, timed, out):
+    """B4 (contiguous extend) and B12 (packed sequences), each with its
+    bound."""
+    for name, b, s, cap_len, offs, hq, d, w, caps in (
+            ("B4 verify B4 S5 C640", 4, 5, 640, [0, 200, 400, 600], 32, 128, None, (None,)),
+            ("B4 verify B4 S5 C582 q_offset 571", 4, 5, 582, [571] * 4, 32, 128, None, (None,)),
+            ("B4 chunk B4 S256 C1100", 4, 256, 1100, [0, 256, 512, 768], 32, 128, None, (None,)),
+            ("B4 W B2 S256 C5152 W4096", 2, 256, 5152, [4608, 4864], 32, 128, 4096, (None,)),
+            ("gemma2 B4 verify B2 S5 C4640", 2, 5, 4640, [4600, 4600], 16, 256, None,
+             (None, 50.0)),
+            ("gemma2 B4 chunk B2 S256 C4640", 2, 256, 4640, [4096, 4352], 16, 256, None,
+             (None, 50.0))):
+        q = randn(b, s, hq, d).transpose(1, 2)
+        kc, vc = randn(b, 8, cap_len, d), randn(b, 8, cap_len, d)
         off = torch.tensor(offs, dtype=torch.int32, device="cuda")
-        out[name] = timed(lambda: flash_chunked.flash_attention_chunked(
-            q, kc, vc, off, off + s), 20)
+        for cap in caps:
+            label = name + (f" cap {cap:g}" if cap else "")
+            out[label] = timed(lambda: flash_chunked.flash_attention_chunked(
+                q, kc, vc, off, off + s, window=w, **capped(cap)), 20)
+        pairs = sum(min(o + r + 1, w or o + r + 1) for o in offs for r in range(s))
+        live = sum(min(o + s, (w or o + s) + s - 1) for o in offs)  # keys some row sees
+        out[f"bound {name}"] = 1e3 * max(4 * d * hq * pairs / PEAK_BF16,
+                                          (2 * 2 * q.numel() + 2 * 2 * 8 * d * live) / PEAK_BYTES)
+        del q, kc, vc
     lens = [1800, 100, 2048, 731, 1024, 333, 1500, 600]
     cu = torch.tensor([0] + lens, device="cuda").cumsum(0).to(torch.int32)
     q, k, v = randn(sum(lens), 32, 128), randn(sum(lens), 8, 128), randn(sum(lens), 8, 128)
     out["B12 8 sequences causal"] = timed(lambda: flash_varlen.flash_attention_varlen(
         q, k, v, cu, causal=True), 20)
+    lens = varlen_batch()
+    cu = torch.tensor([0] + lens, device="cuda").cumsum(0).to(torch.int32)
+    pairs = sum(n * (n + 1) // 2 for n in lens)
+    for name, hq, d, caps in (("B12 32 sequences causal", 32, 128, (None,)),
+                              ("gemma2 B12 32 sequences causal", 16, 256, (None, 50.0))):
+        q, k, v = randn(sum(lens), hq, d), randn(sum(lens), 8, d), randn(sum(lens), 8, d)
+        for cap in caps:
+            label = name + (f" cap {cap:g}" if cap else "")
+            out[label] = timed(lambda: flash_varlen.flash_attention_varlen(
+                q, k, v, cu, causal=True, **capped(cap)), 10)
+        out[f"bound {name}"] = 1e3 * max(4 * d * hq * pairs / PEAK_BF16,
+                                          2 * (2 * q.numel() + 2 * k.numel()) / PEAK_BYTES)
+        del q, k, v
 
 
 def paged_extends(randn, pool, timed, out):
@@ -164,11 +209,14 @@ def main() -> None:
         except (NotImplementedError, TypeError):  # a tree without the cap or D 256
             return None
 
+    # Groups to time (all by default): prefill, decode, paged, extends,
+    # backward.
+    groups = set(sys.argv[1:]) or {"prefill", "decode", "paged", "extends", "backward"}
     out = {"card": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(), "tree": os.getcwd()}
     lse = "return_lse" in flash_fwd.flash_attention_fwd.__code__.co_varnames
-    for name, b, hq, hkv, s, d, causal, w in (
+    for name, b, hq, hkv, s, d, causal, w in () if "prefill" not in groups else (
             ("P B4 S512", 4, 32, 8, 512, 128, True, None),
             ("P B2 S2048", 2, 32, 8, 2048, 128, True, None),
             ("P qwen2 28/4 B4 S512", 4, 28, 4, 512, 128, True, None),
@@ -192,8 +240,9 @@ def main() -> None:
                                           io / PEAK_BYTES)
         del q, k, v
 
-    for name, b, hq, cap_len, live, d in (("D1 B4 C576 L544", 4, 32, 576, 544, 128),
-                                          ("gemma2 D1 B2 C4640 L4624", 2, 16, 4640, 4624, 256)):
+    for name, b, hq, cap_len, live, d in () if "decode" not in groups else (
+            ("D1 B4 C576 L544", 4, 32, 576, 544, 128),
+            ("gemma2 D1 B2 C4640 L4624", 2, 16, 4640, 4624, 256)):
         kc, vc, qd = randn(b, 8, cap_len, d), randn(b, 8, cap_len, d), randn(b, hq, 1, d)
         lengths = torch.full((b,), live, dtype=torch.int32, device="cuda")
         splits = dispatch.decode_num_splits(b, 8, cap_len)
@@ -204,14 +253,18 @@ def main() -> None:
 
     lens = torch.tensor([923, 731, 618, 401, 436, 196, 227, 174], dtype=torch.int32,
                         device="cuda")  # chip_smoke.serving_requests' first 8, 32 tokens in
-    kp, vp, table = pool(8, 128, 16, 8, 128)
-    q = randn(8, 32, 1, 128)
-    out["B5 B8 ps128 (+ D2)"] = timed(lambda: pa.paged_attention_decode(q, kp, vp, lens, table),
-                                      50)
-    del kp, vp
-    paged_extends(randn, pool, timed, out)
-    other_bodies(randn, timed, out)
-    backward_times(randn, timed, out)
+    if "decode" in groups:
+        kp, vp, table = pool(8, 128, 16, 8, 128)
+        q = randn(8, 32, 1, 128)
+        out["B5 B8 ps128 (+ D2)"] = timed(lambda: pa.paged_attention_decode(
+            q, kp, vp, lens, table), 50)
+        del kp, vp
+    if "paged" in groups:
+        paged_extends(randn, pool, timed, out)
+    if "extends" in groups:
+        extends_and_varlen(randn, timed, out)
+    if "backward" in groups:
+        backward_times(randn, timed, out)
     print(json.dumps(out))
 
 

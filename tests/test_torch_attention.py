@@ -280,9 +280,17 @@ def test_non_cpu_tensors_take_the_kernel_route_and_never_fall_back():
     with pytest.raises(ValueError, match="CUDA tensor"):
         flash_varlen.flash_attention_varlen(q[0].transpose(0, 1), k[0].transpose(0, 1),
                                             k[0].transpose(0, 1), cu, causal=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10b"):
+    # B12 and B4 take the soft cap and D 256: such calls reach the
+    # CUDA-tensor check of the kernel route.
+    with pytest.raises(ValueError, match="CUDA tensor"):
         flash_varlen.flash_attention_varlen(q[0].transpose(0, 1), k[0].transpose(0, 1),
                                             k[0].transpose(0, 1), cu, logit_softcap=30.0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_varlen.flash_attention_varlen(q256[0].transpose(0, 1), k256[0].transpose(0, 1),
+                                            k256[0].transpose(0, 1), cu, causal=True)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        api.flash_attn_func(q256.detach(), k256, k256, causal=True, logit_softcap=50.0,
+                            kv_length=torch.ones(1, dtype=torch.int32))
 
 
 def test_validate_inputs_and_split_heuristic():

@@ -79,6 +79,35 @@ def test_chunked_plain_matches_jax_kernel(case, partials):
     assert torch.isfinite(out).all()
 
 
+# Gemma-2-9B's head dim and soft caps (its 50, and 1.0, which binds on every
+# score), windowed and not, at Qwen2-7B's GQA group of 7: (q_offset,
+# kv_length (None: q_offset + s), window, cap).
+D256_CASES = {
+    "cap50": ([0, 40], None, None, 50.0),
+    "cap1": ([7, 60], [15, 68], None, 1.0),
+    "cap50_window16": ([30, 70], None, 16, 50.0),
+    "cap1_window16_inactive_row": ([0, 55], [0, 63], 16, 1.0),
+}
+
+
+@pytest.mark.parametrize("case", list(D256_CASES), ids=list(D256_CASES))
+def test_chunked_plain_at_d256_with_cap_matches_jax_kernel(case):
+    """B4's plain version at D 256 with the caps and windows, GQA group 7,
+    against the JAX kernel in interpret mode at atol 1e-5 (fp32 sums in
+    another order)."""
+    offs, kvl, window, cap = D256_CASES[case]
+    q, k, v, offs, kvl = chunk_inputs(2, 14, 2, 8, 96, 256, offs, kvl, seed=3)
+    kw = dict(causal=True, window=window, logit_softcap=cap)
+    want = jax_chunked(*(jnp.asarray(x) for x in (q, k, v, offs, kvl)), interpret=True, **kw)
+    got = flash_chunked.flash_attention_chunked(
+        *(torch.from_numpy(x) for x in (q, k, v, offs, kvl)), **kw)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+    for i, n in enumerate(kvl):
+        if n == 0:
+            assert (got[i] == 0).all()
+
+
 def test_chunked_plain_never_reads_past_kv_length():
     """The cache tail past kv_length is uninitialised memory: NaN there
     must not reach the output or the partials."""

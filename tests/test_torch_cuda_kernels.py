@@ -698,11 +698,18 @@ def test_chunked_extend_kernel_matches_plain(device, case):
 
 
 def test_chunked_extend_refuses_what_it_does_not_take(device):
+    """The (o, m, l) partials raise (A12); the soft cap, which the kernel
+    takes since its Hopper redesign, launches it."""
     gen = torch.Generator(device="cuda").manual_seed(17)
     q, k, v, off, lens = chunked_inputs(gen, 32, 8, 5, 64, [0, 3], None, 128, torch.bfloat16)
-    for kw, item in (({"logit_softcap": 30.0}, "A10b"), ({"return_partials": True}, "A12")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-            flash_chunked.flash_attention_chunked(q, k, v, off, lens, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A12"):
+        flash_chunked.flash_attention_chunked(q, k, v, off, lens, return_partials=True)
+    before = flash_chunked.CHUNKED.launches
+    out = flash_chunked.flash_attention_chunked(q, k, v, off, lens, logit_softcap=30.0)
+    assert flash_chunked.CHUNKED.launches == before + 1
+    ref = flash_chunked.flash_attention_chunked_plain(q.float(), k, v, off, lens,
+                                                      logit_softcap=30.0)
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
     with pytest.raises(NotImplementedError, match="head_dim"):
         flash_chunked.flash_attention_chunked(q[..., :96], k[..., :96], v[..., :96], off, lens)
     with pytest.raises(ValueError, match="q_offset"):
@@ -1090,17 +1097,24 @@ def test_varlen_kernel_matches_plain(device, case):
 
 
 def test_training_and_varlen_kernels_refuse_what_they_do_not_take(device):
-    q = torch.zeros(1, 4, 64, 256, dtype=torch.bfloat16, device="cuda")
+    """The backward refuses D 256 (A10b); B12 takes the soft cap and D 256
+    since its Hopper redesign: both launch it."""
+    gen = torch.Generator(device="cuda").manual_seed(35)
+    q = randn(gen, 1, 4, 64, 256)
     lse = torch.zeros(1, 4, 64, device="cuda")
     with pytest.raises(NotImplementedError, match="A10b"):
         flash_bwd.flash_attention_bwd(q, q[:, :2], q[:, :2], q, q, lse)
-    qv = torch.zeros(64, 4, 128, dtype=torch.bfloat16, device="cuda")
+    qv = randn(gen, 64, 4, 128)
     cu = torch.tensor([0, 64], dtype=torch.int32, device="cuda")
-    with pytest.raises(NotImplementedError, match="A10b"):
-        flash_varlen.flash_attention_varlen(qv, qv[:, :2], qv[:, :2], cu, logit_softcap=30.0)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        flash_varlen.flash_attention_varlen(q[0].transpose(0, 1), q[0, :2].transpose(0, 1),
-                                            q[0, :2].transpose(0, 1), cu)
+    for args, kw in (((qv, qv[:, :2], qv[:, :2]), {"logit_softcap": 30.0}),
+                     ((q[0].transpose(0, 1), q[0, :2].transpose(0, 1),
+                       q[0, :2].transpose(0, 1)), {})):
+        before = flash_varlen.VARLEN.launches
+        out = flash_varlen.flash_attention_varlen(*args, cu, **kw)
+        assert flash_varlen.VARLEN.launches == before + 1
+        ref = flash_varlen.flash_attention_varlen(*(x.cpu().float() for x in args), cu.cpu(),
+                                                  **kw)
+        assert (out.float().cpu() - ref).abs().max().item() <= BF16_TOL
 
 
 @pytest.mark.parametrize("d,cap", [(256, None), (128, 30.0)], ids=["d256", "cap30"])
@@ -1289,13 +1303,19 @@ def test_gemma2_paged_append_at_d256_writes_what_plain_writes(device):
 
 
 def test_gemma2_routes_outside_the_slice_raise(device):
-    """The soft cap and D 256 stay refused by B4, B7, B8 + QA, B12 and B13,
-    naming ROADMAP.md A10b; nothing falls back to a plain version. B9 takes
-    D 256 (and the cap: test_quant_paged_extend_kernel_takes_the_cap_and_d256)."""
+    """The soft cap and D 256 stay refused by B7, B8 + QA and B13, naming
+    ROADMAP.md A10b; nothing falls back to a plain version. B4 (here), B9
+    and B12 take both (test_chunked_extend_kernel_geometry,
+    test_quant_paged_extend_kernel_takes_the_cap_and_d256,
+    test_varlen_kernel_takes_the_cap_and_d256)."""
     gen = torch.Generator(device="cuda").manual_seed(44)
     q, k, v, off, lens = chunked_inputs(gen, 16, 8, 5, 64, [0, 3], None, 256, torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        flash_chunked.flash_attention_chunked(q, k, v, off, lens)
+    before = flash_chunked.CHUNKED.launches
+    out = flash_chunked.flash_attention_chunked(q, k, v, off, lens, logit_softcap=50.0)
+    assert flash_chunked.CHUNKED.launches == before + 1
+    ref = flash_chunked.flash_attention_chunked_plain(q.float(), k, v, off, lens,
+                                                      logit_softcap=50.0)
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
     cache = QuantizedKV(torch.zeros(2, 8, 64, 256, dtype=torch.int8, device="cuda"),
                         torch.ones(2, 8, 64, device="cuda"))
     qd = randn(gen, 2, 16, 1, 256)
@@ -1316,3 +1336,88 @@ def test_gemma2_routes_outside_the_slice_raise(device):
     q.requires_grad_()
     with pytest.raises(NotImplementedError, match="A10b"):  # no backward takes the cap
         api.flash_attn_func(q, k, v, causal=True, logit_softcap=50.0)
+
+
+# B4's geometry since its Hopper redesign: (hq, hkv, s, capacity, q_offset,
+# kv_length (None: q_offset + s, but 0 in row 1), d, causal, window, cap,
+# dtype). A block
+# packs the largest divisor of the GQA group whose heads' rows fit 128
+# (S 5 at groups 2 / 7 / 4, S 16 at group 8: 128 rows exactly, S 40 at
+# group 4: two heads); S 20 at group 7 and S 256 take one head a block.
+# Row 1 is inactive (kv_length 0, exact zeros); caches are NaN at and past
+# every kv_length; q / k / v are the model's transposed views.
+CHUNKED_GEOMETRY = {
+    "pack_s5_g2_d256_cap50": (16, 8, 5, 700, [600, 0, 13], None, 256, True, None, 50.0,
+                              torch.bfloat16),
+    "pack_s5_g2_d256_cap1_w45": (16, 8, 5, 700, [600, 0, 13], None, 256, True, 45, 1.0,
+                                 torch.bfloat16),
+    "pack_s5_g7_d128": (28, 4, 5, 640, [511, 0, 130], None, 128, True, None, None,
+                        torch.bfloat16),
+    "pack_s16_g8_d128_cap30": (32, 4, 16, 640, [300, 0, 1], None, 128, True, None, 30.0,
+                               torch.float16),
+    "pack_s40_g4_d64_w100": (32, 8, 40, 512, [400, 0, 7], None, 64, True, 100, None,
+                             torch.bfloat16),
+    "pack_s1_g4_d128": (32, 8, 1, 300, [299, 0, 0], None, 128, True, None, None,
+                        torch.bfloat16),
+    "fallback_s20_g7_d128_cap50": (28, 4, 20, 640, [500, 0, 33], None, 128, True, None, 50.0,
+                                   torch.bfloat16),
+    "fallback_s256_g2_d256_cap50_w4096": (16, 8, 256, 1200, [900, 0, 70], None, 256, True, 4096,
+                                          50.0, torch.bfloat16),
+    "noncausal_s300_d256": (16, 8, 300, 900, [0, 0, 500], [300, 0, 800], 256, False, None, None,
+                            torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("case", list(CHUNKED_GEOMETRY), ids=list(CHUNKED_GEOMETRY))
+def test_chunked_extend_kernel_geometry(device, case):
+    """B4 at D 64 / 128 / 256, with and without the cap and windows, packed
+    and one head a block, against its fp32 plain version run on q's fp32
+    image; an inactive row of exact zeros over NaN tails; a second call
+    bit-identical to the first."""
+    hq, hkv, s, cap_len, offs, kvl, d, causal, window, cap, dtype = CHUNKED_GEOMETRY[case]
+    kvl = kvl or [o + s if i != 1 else 0 for i, o in enumerate(offs)]
+    gen = torch.Generator(device="cuda").manual_seed(36)
+    q, k, v, off, lens = chunked_inputs(gen, hq, hkv, s, cap_len, offs, kvl, d, dtype)
+    kw = dict(causal=causal, window=window, logit_softcap=cap)
+    before = flash_chunked.CHUNKED.launches
+    out = flash_chunked.flash_attention_chunked(q, k, v, off, lens, **kw)
+    again = flash_chunked.flash_attention_chunked(q, k, v, off, lens, **kw)
+    torch.cuda.synchronize()
+    assert flash_chunked.CHUNKED.launches == before + 2
+    assert torch.equal(out, again)
+    ref = flash_chunked.flash_attention_chunked_plain(q.float(), k, v, off, lens, **kw)
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    assert (out[1] == 0).all()
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+
+
+@pytest.mark.parametrize("d,cap,window", [(64, None, None), (64, 50.0, 64), (128, 30.0, None),
+                                          (128, 1.0, 100), (256, None, None), (256, 50.0, 64),
+                                          (256, 1.0, None)])
+@pytest.mark.parametrize("case", ["equal_causal", "cross_bottom_right", "equal_full"])
+def test_varlen_kernel_takes_the_cap_and_d256(device, case, d, cap, window):
+    """B12 at D 64 / 128 / 256 with the soft cap and windows (Gemma-2-9B's
+    16 / 8 heads) against its fp32 plain version; rows with no key exact
+    zeros; a second call bit-identical to the first."""
+    lens_q, lens_kv, causal, _ = VARLEN[case]
+    lens_kv = lens_kv or lens_q
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    q = randn(gen, sum(lens_q), 16, d)
+    k, v = randn(gen, sum(lens_kv), 8, d), randn(gen, sum(lens_kv), 8, d)
+
+    def cu(lens):
+        return torch.tensor([0] + lens, device="cuda").cumsum(0).to(torch.int32)
+
+    kw = dict(causal=causal, window=window, logit_softcap=cap)
+    before = flash_varlen.VARLEN.launches
+    out = flash_varlen.flash_attention_varlen(q, k, v, cu(lens_q), cu(lens_kv), **kw)
+    again = flash_varlen.flash_attention_varlen(q, k, v, cu(lens_q), cu(lens_kv), **kw)
+    torch.cuda.synchronize()
+    assert flash_varlen.VARLEN.launches == before + 2
+    assert torch.equal(out, again)
+    ref = flash_varlen.flash_attention_varlen(q.cpu().float(), k.cpu().float(), v.cpu().float(),
+                                              cu(lens_q).cpu(), cu(lens_kv).cpu(), **kw)
+    assert torch.isfinite(out).all()
+    assert (out.float().cpu() - ref).abs().max().item() <= BF16_TOL
+    if case == "cross_bottom_right":  # q longer than kv: the first 100 rows of seq 1 are 0
+        assert (out[64:164] == 0).all()

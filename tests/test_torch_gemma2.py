@@ -16,7 +16,8 @@ to JAX's at rtol 2**-7, then JAX's contents copied in). Greedy and engine
 tokens identical. HF `Gemma2ForCausalLM` (random weights, eager attention,
 built in process, converted through the JAX package's
 `params_from_state_dict`, which folds the +1 of Gemma's norms) at atol
-1e-4. The plain versions of kernels P / B2, D1 + D2, B5 and B6 at head dim
+1e-4. Prompt-lookup and self-draft speculative tokens (the extend mode)
+identical to JAX's, with JAX's round and acceptance counts. The plain versions of kernels P / B2, D1 + D2, B5 and B6 at head dim
 256 with a binding cap against the JAX kernels in interpret mode at atol
 1e-5. The JAX engine runs once, in a module fixture.
 """
@@ -42,6 +43,8 @@ from flash_attention_cute_tpu.ops import paged_attention as jax_pa
 from flash_attention_cute_tpu.ops.flash_decode import flash_attention_decode as jax_decode
 from flash_attention_cute_tpu.ops.flash_fwd import flash_attention_fwd as jax_fwd
 from flash_attention_cute_tpu.runtime.engine import ServingEngine as JaxServingEngine
+from flash_attention_cute_tpu.runtime import prompt_lookup as jax_pl
+from flash_attention_cute_tpu.runtime import speculative as jax_spec
 from flash_attention_cute_tpu.runtime.generate import greedy_generate as jax_greedy
 from flash_attention_cute_tpu_torch import api
 from flash_attention_cute_tpu_torch.models import gemma2_9b_config, gemma2_config_from_hf
@@ -54,6 +57,8 @@ from flash_attention_cute_tpu_torch.ops import flash_decode, flash_fwd
 from flash_attention_cute_tpu_torch.ops import paged_attention as pa
 from flash_attention_cute_tpu_torch.runtime import ServingEngine
 from flash_attention_cute_tpu_torch.runtime.generate import greedy_generate
+from flash_attention_cute_tpu_torch.runtime.prompt_lookup import prompt_lookup_generate
+from flash_attention_cute_tpu_torch.runtime.speculative import speculative_generate
 
 GEMMA2 = dict(num_layers=4, head_dim=16, layer_window_pattern=(8, None),
               attention_scale=24 ** -0.5, hidden_activation="gelu_tanh", sandwich_norms=True,
@@ -206,6 +211,38 @@ def test_greedy_generate_token_identical_to_jax(model):
     want = np.asarray(jax_greedy(jparams, jcfg, jnp.asarray(ids), 10))
     got = greedy_generate(params, cfg, torch.from_numpy(ids), 10)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_prompt_lookup_token_identical_to_jax(model):
+    """Prompt lookup (the extend mode, B4's route, with the soft cap and the
+    windows) on a repeating prompt longer than the window: JAX's tokens,
+    rounds and accepted drafts, and greedy's tokens."""
+    jcfg, jparams, cfg, params = model
+    ids = np.tile(ids_of(1, 6, 23), (2, 4))
+    want, jst = jax_pl.prompt_lookup_generate(jparams, jcfg, jnp.asarray(ids), 10, gamma=4,
+                                              ngram=2, return_stats=True)
+    got, st = prompt_lookup_generate(params, cfg, torch.from_numpy(ids), 10, gamma=4, ngram=2,
+                                     return_stats=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(),
+                                  greedy_generate(params, cfg, torch.from_numpy(ids), 10).numpy())
+    assert st == jst
+
+
+def test_self_draft_speculative_token_identical_to_jax(model):
+    """Speculative generation with the model as its own draft (verify
+    extends through B4's route, draft decodes through D1's): JAX's tokens,
+    rounds and accepted drafts, and greedy's tokens."""
+    jcfg, jparams, cfg, params = model
+    ids = ids_of(2, 18, 6)
+    want, jst = jax_spec.speculative_generate(jparams, jcfg, jparams, jcfg, jnp.asarray(ids), 12,
+                                              gamma=3, return_stats=True)
+    got, st = speculative_generate(params, cfg, params, cfg, torch.from_numpy(ids), 12, gamma=3,
+                                   return_stats=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(),
+                                  greedy_generate(params, cfg, torch.from_numpy(ids), 12).numpy())
+    assert st == jst
 
 
 # Two requests (13 and 6 prompt tokens, the first past the window), 5 new

@@ -64,6 +64,39 @@ def test_varlen_matches_jax(case):
         assert (got[64:164] == 0).all()
 
 
+# Gemma-2-9B's head dim and soft caps (its 50, and 1.0, which binds on every
+# score), windowed and not, at Qwen2-7B's GQA group of 7 (14 / 2 heads):
+# (q lengths, kv lengths (None: q's), causal, window, cap).
+D256_CASES = {
+    "causal_cap50": ([40, 1, 70], None, True, None, 50.0),
+    "causal_cap1_window16": ([40, 1, 70], None, True, 16, 1.0),
+    "cross_cap50_window16": ([24, 60], [40, 30], True, 16, 50.0),
+    "full_cap1": ([33, 50], None, False, None, 1.0),
+}
+
+
+@pytest.mark.parametrize("case", list(D256_CASES), ids=list(D256_CASES))
+def test_varlen_plain_at_d256_with_cap_matches_jax_kernel(case):
+    """B12's plain version at D 256 with the caps and windows, GQA group 7,
+    against the JAX kernel in interpret mode at atol 1e-5 (fp32 sums in
+    another order); rows with no visible key exact zeros in both."""
+    lens_q, lens_kv, causal, window, cap = D256_CASES[case]
+    q, k, v, cu_q, cu_kv = pack(4, lens_q, lens_kv or lens_q, 14, 2, 256)
+    kv_arg = None if lens_kv is None else cu_kv
+    want = jax_varlen.flash_attention_varlen(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(cu_q),
+        None if kv_arg is None else jnp.asarray(kv_arg), causal=causal, window=window,
+        logit_softcap=cap, block_q=128, block_kv=128, interpret=True)
+    got = flash_attention_varlen(
+        *map(torch.from_numpy, (q, k, v, cu_q)),
+        None if kv_arg is None else torch.from_numpy(kv_arg), causal=causal, window=window,
+        logit_softcap=cap)
+    assert got.shape == q.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+    if case == "cross_cap50_window16":  # q longer than kv: seq 1's first 30 rows are 0
+        assert (got[24:54] == 0).all()
+
+
 def test_packed_core_and_metadata_match_jax():
     """`_seg_metadata` equals JAX's; the packed core with the front end's
     metadata (and with windowed, non-causal masking) equals JAX's."""
