@@ -9,9 +9,9 @@ Phases, in order; any failure exits non-zero:
   1. device: a CUDA card of compute capability 9.0; its name and power limit.
   2. build: every kernel of the main paths from csrc/ (one nvcc per source,
      all at once), with the ptxas register / shared-memory / spill report
-     and, for every B10 / B11, P / B2, B4, B6, B9, B12 and B13a / B13b
-     instantiation, the runtime's registers, spill bytes and launch shared
-     memory (no spill allowed); then the native scheduler
+     and, for every B10 / B11, P / B2, B4, B5, B6, B8, B9, B12 and B13a /
+     B13b instantiation, the runtime's registers, spill bytes and launch
+     shared memory (no spill allowed); then the native scheduler
      (csrc/page_allocator.cpp) with g++.
   3. kernels vs plain: P / B2 with their lse (PREFILL_CASES: the main
      path's B 4 S 512, S 1, 63, 65, 130 and 1000 at the edges of the
@@ -76,10 +76,12 @@ Phases, in order; any failure exits non-zero:
      key, MQA group 16) and B2 (B 2 S 4608, window 4096), each with its lse
      (LSE_TOL) and repeated bit for bit, D1
      + D2 (capacity 4640, windows none and 4096, NaN past every length), B5,
-     B6 and B9 (page sizes 16 and 128, NaN-poisoned pools behind permuted
-     tables, B6 / B9 with and without the window; B9 over int8 pages of 16
-     and e4m3 pages of 128), the paged append at D 256 (bit-identical),
-     and P, D1, B5, B6, B9 with the caps at Llama widths.
+     B6, B8 and B9 (page sizes 16 and 128, NaN-poisoned pools behind
+     permuted tables, B6 / B9 with and without the window; B8 / B9 over int8
+     pages of 16 and e4m3 pages of 128; B5 / B8 repeated bit for bit), the
+     paged append and QA at D 256 (bit-identical), and P, D1, B5, B6, B8, B9
+     with the caps at Llama widths, B5 / B8 also at a group of 32 (Hq 32,
+     Hkv 1).
   4. main paths: greedy generation of Llama-3-8B (random weights from a
      seeded CUDA generator) at B 4, prompt 512, 64 new tokens; launch
      counters show the kernels carried it; teacher-forced logits of the
@@ -158,10 +160,14 @@ Phases, in order; any failure exits non-zero:
      cache at B 2 on prompts repeating a 64-token segment 8 times, 32 new
      (B4 at D 256 with the cap: layers x rounds launches, P 42), every token
      teacher-forced; the serving engine over Mistral's 8 long requests in
-     runs G1 (whole-prompt, page_size 128) and G2 (chunked 512, page_size
-     16), launch counts per forward, every token teacher-forced.
+     runs G1 (whole-prompt, page_size 128), G2 (chunked 512, page_size 16)
+     and G3 (G2 over int8 pages: B9, B8 and QA at D 256 with the cap;
+     teacher-forced over int8 pages as runs D / E are), launch counts per
+     forward, every token teacher-forced.
   5. numbers: per-kernel times, bounds and library times as one JSON line
-     (for B7-B9 the library call is SDPA over a dequantized bf16 copy, for
+     (for D1 one SDPA call over the length-masked cache against D1 + D2
+     together, "with_combine_ms"; for B7-B9 SDPA over a dequantized bf16
+     copy, for
      B10 / B11 `x @ w` over a dequantized bf16 weight, the dequantization
      not timed, at every projection of the int8 and fused int4 trees at
      decode rows and T 2048 under "projections", timed over weight copies
@@ -182,13 +188,15 @@ Phases, in order; any failure exits non-zero:
      at the training shape also its launches, bound, plain version and
      SDPA's forward);
      the training numbers ("training"); (5d) the "gemma2" entries of the P,
-     B2, D1, D2, B4, B5, B6, B9, B12 and append rows at Gemma-2-9B shapes
+     B2, D1, D2, B4, B5, B6, B8, B9, B12, QA and append rows at Gemma-2-9B
+     shapes
      with the cap 50 (library_ms: `flex_attention` with a tanh score_mod for
      P / B2 where it compiles, else SDPA without the cap; SDPA without the
-     cap for B4 / B5 / B6 / B9 / B12, over a dequantized copy for B9;
-     labelled in each entry's shape); the rows of P / B2, B4, B6, B9, B12
-     and B13a / B13b carry the runtime's registers, spill and shared bytes
-     of their instantiation ("runtime_attributes"); every timed entry its
+     cap for D1 + D2 / B4 / B5 / B6 / B8 / B9 / B12, over a dequantized copy
+     for B8 / B9;
+     labelled in each entry's shape); the rows of P / B2, B4, B5, B6, B8,
+     B9, B12 and B13a / B13b carry the runtime's registers, spill and shared
+     bytes of their instantiation ("runtime_attributes"); every timed entry its
      share of its bound ("of_bound"); the card's name and power limit.
 The last line is {"ok": true, "device": {...}}.
 
@@ -196,7 +204,7 @@ Tolerances: kernel outputs are bf16 results of fp32 arithmetic on bf16
 inputs, held against the fp32 plain version at max |diff| <= 3e-2 (the
 repository's bf16 figure); the quantized kernels too (their int8 / e4m3
 values widen to bf16 exactly, P is rounded to bf16 before PV as in B6,
-and B6 / B9 repeat bit for bit), and
+and B5 / B6 / B8 / B9 repeat bit for bit), and
 B10 / B11 (x at unit scale, weights of std fan_in ** -0.5, fp32 sums).
 Teacher-forced logits of the kernel path and the plain-attention path, and
 of a quantized tree and its dequantized image: max |diff| <= 1.0 and mean
@@ -230,6 +238,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 BF16_TOL = 3e-2
 LOGIT_MAX_TOL, LOGIT_MEAN_TOL = 1.0, 0.1
 ARGMAX_SHARE_MIN = 0.9
+# D1 computes split partials, which no PyTorch call does: its row's
+# library_ms is one SDPA call over the cache against D1 + D2 together
+# (`with_combine_ms`), as B7's and B5 / B8's rows include D2.
+LIBRARY_OF_D1 = ("D1 + D2 (with_combine_ms) against one SDPA call over the length-masked "
+                 "cache (the window too where the entry has one), GQA expanded")
 # Published H100 SXM peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM3.
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 B, PROMPT, NEW, CAPACITY = 4, 512, 64, 576
@@ -993,6 +1006,18 @@ def teacher_forced(torch, cfg, params, prompt, tokens):
     return (chosen >= top - LOGIT_MAX_TOL).tolist(), (chosen == top).tolist()
 
 
+def quantized_tf_state(torch, cfg, kw):
+    """One row's quantized state for `teacher_forced_paged`, of the run's
+    (engine options `kw`) value dtype and page size."""
+    from flash_attention_cute_tpu_torch.runtime.paged_cache import create_quantized_paged_state
+
+    state = create_quantized_paged_state(cfg, kw["pages_per_seq"] + 1, kw["page_size"], 1,
+                                         kw["pages_per_seq"], dtype=kw["kv_dtype"])
+    state.page_table = torch.arange(1, kw["pages_per_seq"] + 1, dtype=torch.int32,
+                                    device="cuda")[None]
+    return state
+
+
 def teacher_forced_paged(torch, cfg, params, state, prompt, tokens, chunk):
     """`teacher_forced` for a quantized run: the request through
     `forward_paged(plain_attention=True)` on a quantized state of the run's
@@ -1028,7 +1053,6 @@ def phase_serving(torch, cfg, params, kernels, path_counts):
     after it, and are teacher-forced through their dequantized images."""
     from flash_attention_cute_tpu_torch.models.quantize import dequantize_params
     from flash_attention_cute_tpu_torch.runtime.engine import ServingEngine
-    from flash_attention_cute_tpu_torch.runtime.paged_cache import create_quantized_paged_state
 
     reqs = serving_requests(cfg)
     n = cfg.num_layers
@@ -1085,11 +1109,7 @@ def phase_serving(torch, cfg, params, kernels, path_counts):
         # the run's quantized weights.
         tf_params = dequantize_params(run_params) if weights else params
         if quant:
-            tf_state = create_quantized_paged_state(
-                cfg, kw["pages_per_seq"] + 1, kw["page_size"], 1, kw["pages_per_seq"],
-                dtype=kw["kv_dtype"])
-            tf_state.page_table = torch.arange(1, kw["pages_per_seq"] + 1, dtype=torch.int32,
-                                               device="cuda")[None]
+            tf_state = quantized_tf_state(torch, cfg, kw)
         for rid, prompt, _ in reqs:
             if quant:
                 a, b = teacher_forced_paged(torch, cfg, tf_params, tf_state, prompt, out[rid],
@@ -1651,6 +1671,14 @@ def phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode):
     scale = d ** -0.5
     acc, m, l = flash_decode.decode_partials(qd, kc, vc, lengths, scale, splits)
     part_bytes = 4 * (acc.numel() + m.numel() + l.numel())
+    # The whole decode attention, D1 + D2, beside one SDPA call over the
+    # length-masked cache: D1's library time (no call computes partials).
+    mask = (torch.arange(CAPACITY, device="cuda") < live)[None, None, None, :]
+    kcr, vcr = (x.repeat_interleave(hq // hkv, dim=1) for x in (kc, vc))
+    dec_ms = cuda_time_ms(lambda: flash_decode.flash_attention_decode(qd, kc, vc, lengths), 50)
+    dec_call_ms = call_time_ms(lambda: flash_decode.flash_attention_decode(qd, kc, vc, lengths), 50)
+    sdpa_dec_ms = cuda_time_ms(lambda: f.scaled_dot_product_attention(qd, kcr, vcr, attn_mask=mask), 50)
+    del kcr, vcr
     rows.append({
         "name": "decode_partials", "route": "cuda",
         "source": "flash_attention_cute_tpu_torch/csrc/flash_decode.cu",
@@ -1658,7 +1686,8 @@ def phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode):
         "ms": cuda_time_ms(lambda: flash_decode.decode_partials(qd, kc, vc, lengths, scale, splits), 50),
         "call_ms": call_time_ms(lambda: flash_decode.decode_partials(qd, kc, vc, lengths, scale, splits), 50),
         "plain_ms": cuda_time_ms(lambda: flash_decode.decode_partials_plain(qd, kc, vc, lengths, scale, splits), 10),
-        "library_ms": None,  # no single PyTorch call computes split partials
+        "library_ms": sdpa_dec_ms, "with_combine_ms": dec_ms,
+        "library_of": LIBRARY_OF_D1,
         "ops": 4 * B * hq * live * d,
         "bytes": 2 * qd.numel() + 2 * 2 * B * hkv * live * d + 4 * B + part_bytes,
         "peak": PEAK_F32,
@@ -1678,14 +1707,7 @@ def phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode):
     rows += quant_rows(torch, cfg, randn, gen)
     rows += qmm_rows(torch, cfg, gen)
 
-    # Context only (not a kernel row): the whole decode attention, D1 + D2,
-    # beside one SDPA call over the length-masked cache.
-    mask = (torch.arange(CAPACITY, device="cuda") < live)[None, None, None, :]
-    kcr, vcr = (x.repeat_interleave(hq // hkv, dim=1) for x in (kc, vc))
-    dec_ms = cuda_time_ms(lambda: flash_decode.flash_attention_decode(qd, kc, vc, lengths), 50)
-    dec_call_ms = call_time_ms(lambda: flash_decode.flash_attention_decode(qd, kc, vc, lengths), 50)
-    sdpa_dec_ms = cuda_time_ms(lambda: f.scaled_dot_product_attention(qd, kcr, vcr, attn_mask=mask), 50)
-    del kcr, vcr, kr, vr
+    del kr, vr
 
     for r in rows:
         r.update(bound(r.pop("ops"), r.pop("bytes"), r.pop("peak")))
@@ -1741,8 +1763,9 @@ def kernel_entries(rows, errs, path_counts) -> list:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "of_bound": r.get("of_bound"),
             "shape": r.get("shape", "the main path's"),
-            **{key: r[key] for key in ("prefill", "chunk", "window", "lse", "max_rel_err",
-                                       "gemma2", "projections", "runtime_attributes") if key in r},
+            **{key: r[key] for key in ("library_of", "with_combine_ms", "prefill", "chunk",
+                                       "window", "lse", "max_rel_err", "gemma2", "projections",
+                                       "runtime_attributes") if key in r},
         })
     return out
 
@@ -1774,8 +1797,7 @@ def paged_rows(torch, cfg, randn, gen):
     lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
     q = randn(b, hq, 1, d)
     live = sum(lens_list)
-    splits = dispatch.decode_num_splits(b, hkv, pps * ps)
-    part_bytes = 4 * b * hkv * splits * rep * (d + 2)
+    splits = dispatch.paged_decode_splits(b, hkv, pps * ps, d)
     kc, vc = (pa.gather_pages(x, table).repeat_interleave(rep, dim=1) for x in (kp, vp))
     mask = (torch.arange(pps * ps, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
     rows.append({
@@ -1788,8 +1810,8 @@ def paged_rows(torch, cfg, randn, gen):
         "library_ms": cuda_time_ms(lambda: f.scaled_dot_product_attention(q, kc, vc, attn_mask=mask), 50),
         "ops": 4 * hq * live * d,  # `live` already sums the rows' keys
         "bytes": (2 * q.numel() + 2 * 2 * hkv * live * d
-                  + 4 * (b + sum(-(-n // ps) for n in lens_list)) + part_bytes + 2 * q.numel()),
-        "peak": PEAK_F32,
+                  + 4 * (b + sum(-(-n // ps) for n in lens_list)) + 2 * q.numel()),
+        "peak": PEAK_BF16,
         "shape": f"B {b}, page_size {ps}, lengths {lens_list}, splits {splits}; ms includes D2",
     })
     del kp, vp, kc, vc
@@ -1913,20 +1935,20 @@ def quant_rows(torch, cfg, randn, gen):
     lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
     q = randn(b, hq, 1, d)
     live = sum(lens_list)
-    splits = dispatch.decode_num_splits(b, hkv, pps * ps)
+    splits = dispatch.paged_decode_splits(b, hkv, pps * ps, d)
     kc, vc = dense_copy(k, table), dense_copy(v, table)
     mask = (torch.arange(pps * ps, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
     rows.append({
-        "name": "quant_paged_decode", "route": "cuda", "source": src,
+        "name": "quant_paged_decode", "route": "cuda",
+        "source": "flash_attention_cute_tpu_torch/csrc/quant_paged_decode.cu",
         "replaces": "flash_attention_cute_tpu/ops/quantized.py:395",
         **timed(lambda: qz.paged_attention_decode_quantized(q, k, v, lens, table),
                 lambda: qz.paged_attention_decode_quantized_plain(q, k, v, lens, table),
                 lambda: f.scaled_dot_product_attention(q, kc, vc, attn_mask=mask)),
         "ops": 4 * hq * live * d,  # `live` already sums the rows' keys
         "bytes": (2 * q.numel() + 2 * hkv * live * d + 2 * 4 * hkv * live
-                  + 4 * (b + sum(-(-n // ps) for n in lens_list))
-                  + 4 * b * hkv * splits * rep * (d + 2) + 2 * q.numel()),
-        "peak": PEAK_F32,
+                  + 4 * (b + sum(-(-n // ps) for n in lens_list)) + 2 * q.numel()),
+        "peak": PEAK_BF16,
         "shape": f"B {b}, page_size {ps}, lengths {lens_list}, int8, splits {splits}; "
                  "ms includes D2",
     })
@@ -2190,16 +2212,22 @@ def phase_mistral(torch, cfg, params, kernels, path_counts):
 def serve_long_requests(torch, cfg, params, kernels, path_counts, label, runs):
     """The serving engine over `mistral_requests` (8 prompts of 4200-5000
     tokens, past every window) in each run of `runs` (name -> engine
-    options): every request finishes, launch counts match the forwards
-    (a prefill forward runs `prefill_counts` at its padded length, an
-    extend B6, a decode B5 + D2, every forward the append, per layer), and
-    every token is teacher-forced through one contiguous prefill."""
+    options; a `kv_dtype` name takes quantized pages): every request
+    finishes, launch counts match the forwards (a prefill forward runs
+    `prefill_counts` at its padded length, an extend B6 or B9, a decode B5
+    or B8 + D2, every forward the append or QA, per layer), and every token
+    is teacher-forced: through one contiguous prefill, or over quantized
+    pages through `teacher_forced_paged` as the run admitted it."""
     from flash_attention_cute_tpu_torch.runtime.engine import ServingEngine
 
     n, results = cfg.num_layers, {}
     reqs = mistral_requests(cfg.vocab_size)
     per_prefill = prefill_counts(cfg, min(len(p) for _, p, _ in reqs))
     for name, kw in runs.items():
+        quant = "kv_dtype" in kw
+        if quant:
+            kw = {**kw, "kv_dtype": getattr(torch, kw["kv_dtype"])}
+        dec, ext, app = QUANT_SERVING if quant else DENSE_SERVING
         torch.cuda.reset_peak_memory_stats()
         eng = ServingEngine(params, cfg, **kw)
         pool_bytes = sum(t.numel() * t.element_size() for f, t in vars(eng.state).items()
@@ -2216,19 +2244,24 @@ def serve_long_requests(torch, cfg, params, kernels, path_counts, label, runs):
         check(sorted(out) == list(range(len(reqs))) and not eng.failed,
               f"({name}) every request finishes, none fails")
         check_counts(counts, {**{k: c * fw["prefill"] for k, c in per_prefill.items()},
-                              "paged_extend": n * fw["extend"],
-                              "paged_decode": n * fw["decode"],
+                              ext: n * fw["extend"], dec: n * fw["decode"],
                               "decode_combine": n * fw["decode"],
-                              "paged_append": n * sum(fw.values())}, f"{label} {name}")
+                              app: n * sum(fw.values())}, f"{label} {name}")
         if kw.get("prefill_chunk"):
             check(fw["extend"] > 0, f"({name}) admission by extend")
         else:
             check(fw["prefill"] > 0 and fw["extend"] == 0, f"({name}) admission by prefill")
         near, top = [], []
+        tf_state = quantized_tf_state(torch, cfg, kw) if quant else None
         for rid, prompt, _ in reqs:
-            x, y = teacher_forced(torch, cfg, params, prompt, out[rid])
+            if quant:
+                x, y = teacher_forced_paged(torch, cfg, params, tf_state, prompt, out[rid],
+                                            kw.get("prefill_chunk", 0))
+            else:
+                x, y = teacher_forced(torch, cfg, params, prompt, out[rid])
             near += x
             top += y
+        del tf_state
         print(f"  ({label} {name}) teacher-forced: {sum(near)}/{len(near)} tokens within "
               f"{LOGIT_MAX_TOL} of the top logit, argmax share {sum(top) / len(top):.4f}")
         check(all(near), f"({name}) every engine token within {LOGIT_MAX_TOL} of the top logit")
@@ -2325,14 +2358,20 @@ def window_rows(torch, ops, gen):
     kc, vc = randn(b, hkv, cap, d), randn(b, hkv, cap, d)
     part_bytes = 4 * b * hkv * splits * rep * (d + 2)
     shape = f"B {b}, cache {cap}, lengths {live}, window {w}, splits {splits}"
+    pos = torch.arange(cap, device="cuda")
+    dmask = ((pos < live) & (pos >= live - w))[None, None, None, :]
+    kcr, vcr = (x.repeat_interleave(rep, dim=1) for x in (kc, vc))
     rows["decode_partials"] = measure(
         lambda: flash_decode.decode_partials(q, kc, vc, lengths, d ** -0.5, splits, w),
         lambda: flash_decode.decode_partials_plain(q, kc, vc, lengths, d ** -0.5, splits, w),
-        None, 4 * b * hq * w * d, 2 * q.numel() + 2 * 2 * b * hkv * w * d + 4 * b + part_bytes,
+        lambda: f.scaled_dot_product_attention(q, kcr, vcr, attn_mask=dmask),
+        4 * b * hq * w * d, 2 * q.numel() + 2 * 2 * b * hkv * w * d + 4 * b + part_bytes,
         PEAK_F32, shape, 50, 10)
+    rows["decode_partials"].update(
+        library_of=LIBRARY_OF_D1, with_combine_ms=cuda_time_ms(
+            lambda: flash_decode.flash_attention_decode(q, kc, vc, lengths, window=w), 50))
+    del kcr, vcr
     k8, v8 = (qz.quantize_kv(x, torch.int8) for x in (kc, vc))
-    pos = torch.arange(cap, device="cuda")
-    dmask = ((pos < live) & (pos >= live - w))[None, None, None, :]
     kd, vd = (qz.dequantize_kv(x, torch.bfloat16).repeat_interleave(rep, dim=1) for x in (k8, v8))
     rows["quant_decode"] = measure(
         lambda: qz.flash_attention_decode_quantized(q, k8, v8, lengths, window=w),
@@ -2365,19 +2404,18 @@ def window_rows(torch, ops, gen):
     kp, vp, table = paged_pool(torch, randn, gen, ps, rows=b, capacity=pps * ps, layers=1)
     kp, vp = kp[0], vp[0]
     q = randn(b, hq, 1, d)
-    splits = dispatch.decode_num_splits(b, hkv, pps * ps)
-    part_bytes = 4 * b * hkv * splits * rep * (d + 2)
     pos = torch.arange(pps * ps, device="cuda")[None, :]
     pmask = ((pos < lens[:, None]) & (pos >= lens[:, None] - w))[:, None, None, :]
     kc, vc = (pa.gather_pages(x, table).repeat_interleave(rep, dim=1) for x in (kp, vp))
     tables = 4 * (b + sum(-(-min(n, w) // ps) + 1 for n in lens_list))
-    shape = f"B {b}, page_size {ps}, lengths {lens_list}, window {w}, splits {splits}"
+    shape = (f"B {b}, page_size {ps}, lengths {lens_list}, window {w}, splits "
+             f"{dispatch.paged_decode_splits(b, hkv, pps * ps, d)}")
     rows["paged_decode"] = measure(
         lambda: pa.paged_attention_decode(q, kp, vp, lens, table, window=w),
         lambda: pa.paged_attention_decode_plain(q, kp, vp, lens, table, window=w),
         lambda: f.scaled_dot_product_attention(q, kc, vc, attn_mask=pmask),
-        4 * b * hq * w * d, 2 * q.numel() + 2 * 2 * b * hkv * w * d + tables + part_bytes
-        + 2 * q.numel(), PEAK_F32, shape + "; ms includes D2", 50, 10)
+        4 * b * hq * w * d, 2 * q.numel() + 2 * 2 * b * hkv * w * d + tables + 2 * q.numel(),
+        PEAK_BF16, shape + "; ms includes D2", 50, 10)
     k8, v8, table8 = quant_pool(torch, qz, randn, gen, ps, b, torch.int8, capacity=pps * ps)
     kd, vd = (qz._gather_dequantized(x, table8).to(torch.bfloat16).repeat_interleave(rep, dim=1)
               for x in (k8, v8))
@@ -2385,8 +2423,8 @@ def window_rows(torch, ops, gen):
         lambda: qz.paged_attention_decode_quantized(q, k8, v8, lens, table8, window=w),
         lambda: qz.paged_attention_decode_quantized_plain(q, k8, v8, lens, table8, window=w),
         lambda: f.scaled_dot_product_attention(q, kd, vd, attn_mask=pmask),
-        4 * b * hq * w * d, 2 * q.numel() + 2 * b * hkv * w * (d + 4) + tables + part_bytes
-        + 2 * q.numel(), PEAK_F32, shape + ", int8; ms includes D2", 50, 10)
+        4 * b * hq * w * d, 2 * q.numel() + 2 * b * hkv * w * (d + 4) + tables + 2 * q.numel(),
+        PEAK_BF16, shape + ", int8; ms includes D2", 50, 10)
     del kp, vp, kc, vc, k8, v8, kd, vd
 
     b, ps, pps, s = 4, 16, 320, 512
@@ -3107,20 +3145,36 @@ def phase_gemma2_kernels(torch, ops, errs):
             del kc, vc
 
         for ps in (16, 128):
-            for hq, d in ((16, 256), (32, 128)):
+            # B5 / B8 at Gemma's widths, at Llama's, and at Llama's q heads
+            # over one kv head (a group of 32: two m-tiles a block).
+            for hq, hkv, d in ((16, 8, 256), (32, 8, 128), (32, 1, 128)):
                 kp, vp, table = paged_pool(torch, randn, gen, ps, rows=8, capacity=4096,
-                                           layers=1, d=d)
+                                           layers=1, d=d, hkv=hkv)
                 full = table.shape[1] * ps
                 lens = torch.tensor([0, 1, ps - 1, ps + 1, full, 4000, 777, 33],
                                     dtype=torch.int32, device="cuda")
                 poison_past(torch, kp, table, lens)
                 poison_past(torch, vp, table, lens)
                 q = randn(8, hq, 1, d)
-                out = pa.paged_attention_decode(q, kp[0], vp[0], lens, table, logit_softcap=cap)
-                ref = pa.paged_attention_decode_plain(q.float(), kp[0], vp[0], lens, table,
-                                                      logit_softcap=cap)
-                held("paged_decode", f"B5 D {d} cap {cap:g} page_size {ps}", d, out, ref)
-                check(bool((out[0] == 0).all()), "B5 row of length 0 is exactly 0")
+                # B8 over the same rows: int8 pages of 16, e4m3 pages of 128.
+                dname = "int8" if ps == 16 else "float8_e4m3fn"
+                kq, vq, tq = quant_pool(torch, qz, randn, gen, ps, 8, getattr(torch, dname),
+                                        lens.tolist(), capacity=4096, d=d, hkv=hkv)
+                for kname, what, fn, plain, pools in (
+                        ("paged_decode", "B5", pa.paged_attention_decode,
+                         pa.paged_attention_decode_plain, (kp[0], vp[0], lens, table)),
+                        ("quant_paged_decode", f"B8 {dname}", qz.paged_attention_decode_quantized,
+                         qz.paged_attention_decode_quantized_plain, (kq, vq, lens, tq))):
+                    out = fn(q, *pools, logit_softcap=cap)
+                    again = fn(q, *pools, logit_softcap=cap)
+                    ref = plain(q.float(), *pools, logit_softcap=cap)
+                    label = f"{what} D {d} group {hq // hkv} cap {cap:g} page_size {ps}"
+                    held(kname, label, d, out, ref)
+                    check(bool((out[0] == 0).all()), f"{label}: row of length 0 is exactly 0")
+                    check(torch.equal(out, again), f"{label}: a second call repeats bit for bit")
+                del kq, vq
+                if hkv == 1:
+                    continue
                 s = 512 if ps == 16 else 100
                 off = torch.tensor([0, 512, 3000, 0], dtype=torch.int32, device="cuda")
                 kvl = torch.tensor([s, 512 + s, 3000 + s, 0], dtype=torch.int32, device="cuda")
@@ -3169,6 +3223,25 @@ def phase_gemma2_kernels(torch, ops, errs):
         record("paged_append", 256, max(max_err(kp[0], ref_k), max_err(vp[0], ref_v)))
         print(f"  append D 256, S {s}, starts {starts}: identical to plain: {same}")
         check(same, "append kernel at D 256 writes exactly what the plain scatter writes")
+        # QA at D 256 over the same rows, paged (int8) and into the
+        # contiguous cache (e4m3); exactly what quantize_kv + the indexed
+        # write writes.
+        from flash_attention_cute_tpu_torch.ops.quantized import QuantizedKV
+        kq, vq, tq = quant_pool(torch, qz, randn, gen, 16, b, torch.int8, [4096] * b,
+                                capacity=4096, d=256)
+        cont = [qz.quantize_kv(randn(b, 8, 4096 + s, 256), torch.float8_e4m3fn) for _ in "kv"]
+        for mode, (kc, vc), tbl, act_ in (("paged int8", (kq, vq), tq, active),
+                                          ("contiguous e4m3", cont, None, None)):
+            ref = [QuantizedKV(x.values.clone(), x.scales.clone()) for x in (kc, vc)]
+            qz.quantize_append(new_k, new_v, kc, vc, lengths, tbl, act_)
+            qz.quantize_append_plain(new_k, new_v, *ref, lengths, tbl, act_)
+            same = all(torch.equal(g.values.view(torch.uint8), w.values.view(torch.uint8))
+                       and torch.equal(g.scales.view(torch.int32), w.scales.view(torch.int32))
+                       for g, w in zip((kc, vc), ref))
+            record("quant_append", 256, 0.0 if same else float("inf"))
+            print(f"  QA D 256 {mode}, S {s}, starts {starts}: bit-identical to plain: {same}")
+            check(same, "QA at D 256 writes exactly what quantize_kv + the indexed write writes")
+        del kq, vq, cont
     torch.cuda.empty_cache()
 
 
@@ -3178,8 +3251,9 @@ def phase_gemma2(torch, cfg, params, kernels, path_counts):
     route, a row at a time; greedy generation over a bf16 cache (B2 on the
     21 windowed layers, P on the 21 full ones; D1 + D2 per layer and step)
     and its prefill and decode times; then the serving engine in runs G1
-    (whole-prompt admission, page_size 128) and G2 (chunked admission of
-    512, page_size 16) over `mistral_requests`, every token teacher-forced."""
+    (whole-prompt admission, page_size 128), G2 (chunked admission of 512,
+    page_size 16) and G3 (G2 over int8 pages: B9, B8 and QA at D 256 with
+    the cap) over `mistral_requests`, every token teacher-forced."""
     label = "Gemma-2-9B"
     keep = torch.arange(0, GEMMA2_PROMPT, GEMMA2_KEEP).tolist() + [GEMMA2_PROMPT - 1]
     ids, _, results = phase_family(torch, cfg, params, 9, GEMMA2_B, GEMMA2_PROMPT, GEMMA2_NEW,
@@ -3188,7 +3262,8 @@ def phase_gemma2(torch, cfg, params, kernels, path_counts):
                                                     label)
     results.update(serve_long_requests(torch, cfg, params, kernels, path_counts, label, {
         "G1 whole-prompt": MISTRAL_SERVING_RUNS["M1 whole-prompt"],
-        "G2 chunked": MISTRAL_SERVING_RUNS["M2 chunked"]}))
+        "G2 chunked": MISTRAL_SERVING_RUNS["M2 chunked"],
+        "G3 chunked int8": {**MISTRAL_SERVING_RUNS["M2 chunked"], "kv_dtype": "int8"}}))
     return results
 
 
@@ -3277,22 +3352,25 @@ def flex_or_sdpa(torch, q, k, v, cap, window):
 
 
 def gemma2_rows(torch, ops, gen):
-    """The `gemma2` entries of the P, B2, D1, D2, B5, B6, B9 and append rows,
-    at Gemma-2-9B shapes with the soft cap 50: P and B2 at the greedy
-    prefill (B 2, S 4608; B2 with W 4096), D1 / D2 at the greedy middle
-    decode step (B 2, 4624 of 4640 positions, a full layer), B5 at run G1's
-    decode (4 slots, page_size 128), B6 at run G2's extend (4 rows of 512,
-    page_size 16, on a full layer) and B9 there over int8 pages (Gemma's
-    serving runs take bf16 pages: its launches there are 0), the append at
-    G1's decode; B4 at the verify round of 4j's prompt lookup (B 2, S 5, the
-    default capacity 550, q_offset 539) and, under "chunk", at a chunk (B 2,
-    S 256, capacity 4640, q_offset 4096 / 4352); B12 over 3g's 32 packed
+    """The `gemma2` entries of the P, B2, D1, D2, B5, B6, B8, B9, QA and
+    append rows, at Gemma-2-9B shapes with the soft cap 50: P and B2 at the
+    greedy prefill (B 2, S 4608; B2 with W 4096), D1 / D2 at the greedy
+    middle decode step (B 2, 4624 of 4640 positions, a full layer), B5 at
+    run G1's decode (4 slots, page_size 128) and B8 there over int8 pages,
+    QA at run G3's decode (one token a row into int8 pages of 16), B6 at run
+    G2's extend (4 rows of 512, page_size 16, on a full layer) and B9 there
+    over int8 pages (run G3's), the append at G1's decode; B4 at the verify
+    round of 4j's prompt lookup (B 2, S 5, the default capacity 550,
+    q_offset 539) and, under "chunk", at a chunk (B 2, S 256, capacity 4640,
+    q_offset 4096 / 4352); B12 over 3g's 32 packed
     sequences (causal). library_ms: see `flex_or_sdpa` for P / B2; SDPA
     without the soft cap over a contiguous copy for B5 / B6 (dequantized for
-    B9; the copy not timed), over the contiguous cache with the extend mask
+    B8 / B9; the copy not timed), over the contiguous cache with the extend mask
     for B4, over the padded batch for B12; `index_copy_` for the append;
-    null for D1 / D2 (no call computes split partials). Bounds count the
-    visible (query, key) pairs."""
+    null for D2 and QA (no call merges split partials or quantizes); D1's is
+    one SDPA call over the length-masked cache (GQA expanded, without the
+    cap) against D1 + D2 together ("library_of": "D1 + D2"). Bounds count
+    the visible (query, key) pairs."""
     from flash_attention_cute_tpu_torch import dispatch
     from flash_attention_cute_tpu_torch.runtime import paged_cache
     from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms
@@ -3334,11 +3412,19 @@ def gemma2_rows(torch, ops, gen):
     acc, m, l = flash_decode.decode_partials(qd, kc, vc, lengths, scale, splits, None, cap)
     part_bytes = 4 * (acc.numel() + m.numel() + l.numel())
     shape = f"B {b}, cache {cap_len}, lengths {live}, splits {splits}, D {d}, soft cap {cap:g}"
+    kcr, vcr = (x.repeat_interleave(rep, dim=1) for x in (kc, vc))
+    dmask = (torch.arange(cap_len, device="cuda") < live)[None, None, None, :]
     rows["decode_partials"] = measure(
         lambda: flash_decode.decode_partials(qd, kc, vc, lengths, scale, splits, None, cap),
         lambda: flash_decode.decode_partials_plain(qd, kc, vc, lengths, scale, splits, None, cap),
-        None, 4 * b * hq * live * d, 2 * qd.numel() + 2 * 2 * b * hkv * live * d + 4 * b
-        + part_bytes, PEAK_F32, shape, 50, 10)
+        lambda: f.scaled_dot_product_attention(qd, kcr, vcr, attn_mask=dmask),
+        4 * b * hq * live * d, 2 * qd.numel() + 2 * 2 * b * hkv * live * d + 4 * b
+        + part_bytes, PEAK_F32, shape + "; library_ms: SDPA without the soft cap", 50, 10)
+    rows["decode_partials"].update(
+        library_of=LIBRARY_OF_D1, with_combine_ms=cuda_time_ms(
+            lambda: flash_decode.flash_attention_decode(qd, kc, vc, kv_length=lengths,
+                                                        logit_softcap=cap), 50))
+    del kcr, vcr
     rows["decode_combine"] = measure(
         lambda: flash_decode.decode_combine(acc, m, l, torch.bfloat16),
         lambda: flash_decode.decode_combine_plain(acc, m, l, torch.bfloat16),
@@ -3352,20 +3438,49 @@ def gemma2_rows(torch, ops, gen):
     kp, vp, table = paged_pool(torch, randn, gen, ps, rows=b, capacity=pps * ps, layers=1, d=d)
     kp, vp = kp[0], vp[0]
     q = randn(b, hq, 1, d)
-    splits = dispatch.decode_num_splits(b, hkv, pps * ps)
-    part_bytes = 4 * b * hkv * splits * rep * (d + 2)
     pos = torch.arange(pps * ps, device="cuda")[None, :]
     pmask = (pos < lens[:, None])[:, None, None, :]
     kc, vc = (pa.gather_pages(x, table).repeat_interleave(rep, dim=1) for x in (kp, vp))
     live = sum(lens_list)
+    tables = 4 * (b + sum(-(-n // ps) for n in lens_list))
+    shape = (f"B {b}, page_size {ps}, lengths {lens_list}, splits "
+             f"{dispatch.paged_decode_splits(b, hkv, pps * ps, d)}, D {d}, soft cap {cap:g} "
+             "(a full layer); ms includes D2; library_ms: SDPA without the soft cap")
     rows["paged_decode"] = measure(
         lambda: pa.paged_attention_decode(q, kp, vp, lens, table, logit_softcap=cap),
         lambda: pa.paged_attention_decode_plain(q, kp, vp, lens, table, logit_softcap=cap),
         lambda: f.scaled_dot_product_attention(q, kc, vc, attn_mask=pmask),
-        4 * hq * live * d, 2 * q.numel() + 2 * 2 * hkv * live * d
-        + 4 * (b + sum(-(-n // ps) for n in lens_list)) + part_bytes + 2 * q.numel(), PEAK_F32,
-        f"B {b}, page_size {ps}, lengths {lens_list}, splits {splits}, D {d}, soft cap {cap:g} "
-        "(a full layer); ms includes D2; library_ms: SDPA without the soft cap", 50, 10)
+        4 * hq * live * d, 2 * q.numel() + 2 * 2 * hkv * live * d + tables + 2 * q.numel(),
+        PEAK_BF16, shape, 50, 10)
+    del kc, vc
+    # B8 at G1's decode over int8 pages, and QA at G3's decode (one token a
+    # row into int8 pages of 16).
+    qz = ops["quantized"]
+    k8, v8, table8 = quant_pool(torch, qz, randn, gen, ps, b, torch.int8, capacity=pps * ps, d=d)
+    kd, vd = (qz._gather_dequantized(x, table8).to(torch.bfloat16).repeat_interleave(rep, dim=1)
+              for x in (k8, v8))
+    shape8 = (f"B {b}, page_size {ps}, lengths {lens_list}, splits "
+              f"{dispatch.paged_decode_splits(b, hkv, pps * ps, d)}, D {d}, soft cap "
+              f"{cap:g}, int8 (a full layer); ms includes D2; library_ms: SDPA without the "
+              "soft cap over a dequantized bf16 copy")
+    rows["quant_paged_decode"] = measure(
+        lambda: qz.paged_attention_decode_quantized(q, k8, v8, lens, table8, logit_softcap=cap),
+        lambda: qz.paged_attention_decode_quantized_plain(q, k8, v8, lens, table8,
+                                                          logit_softcap=cap),
+        lambda: f.scaled_dot_product_attention(q, kd, vd, attn_mask=pmask),
+        4 * hq * live * d, 2 * q.numel() + 2 * hkv * live * (d + 4) + tables + 2 * q.numel(),
+        PEAK_BF16, shape8, 50, 10)
+    del k8, v8, kd, vd
+    k8, v8, table8 = quant_pool(torch, qz, randn, gen, 16, b, torch.int8, capacity=pps * 128, d=d)
+    nk, nv = randn(b, 1, hkv, d).transpose(1, 2), randn(b, 1, hkv, d).transpose(1, 2)
+    active = torch.ones(b, dtype=torch.bool, device="cuda")
+    rows["quant_append"] = measure(
+        lambda: qz.quantize_append(nk, nv, k8, v8, lens, table8, active),
+        lambda: qz.quantize_append_plain(nk, nv, k8, v8, lens, table8, active),
+        None, 0, 2 * 2 * nk.numel() + 2 * (nk.numel() + 4 * b * hkv) + 4 * 3 * b, PEAK_F32,
+        f"B {b}, S 1, page_size 16, D {d}, int8; library_ms: null (no single call quantizes)",
+        50, 10)
+    del k8, v8
     nk, nv = randn(b, 1, hkv, d).transpose(1, 2), randn(b, 1, hkv, d).transpose(1, 2)
     active = torch.ones(b, dtype=torch.bool, device="cuda")
     flat = paged_cache.append_targets(table, lens, 1, ps)[0].view(-1)
@@ -3381,7 +3496,7 @@ def gemma2_rows(torch, ops, gen):
         lambda: paged_cache.paged_append_layer_plain(kp, vp, nk, nv, table, lens, active),
         library_append, 0, 2 * 2 * 2 * nk.numel() + 4 * 3 * b, PEAK_F32,
         f"B {b}, S 1, page_size {ps}, D {d}; library_ms is index_copy_ on K and on V", 50, 10)
-    del kp, vp, kc, vc
+    del kp, vp
 
     b, ps, pps, s = 4, 16, 320, 512
     offs = [3584, 4096, 4096, 4608]
@@ -3404,7 +3519,6 @@ def gemma2_rows(torch, ops, gen):
         f"B {b}, S {s}, page_size {ps}, q_offset {offs}, D {d}, soft cap {cap:g} (a full "
         "layer); library_ms: SDPA without the soft cap", 10, 3)
     del kp, vp, kc, vc
-    qz = ops["quantized"]
     k8, v8, table8 = quant_pool(torch, qz, randn, gen, ps, b, torch.int8, capacity=pps * ps, d=d)
     kd, vd = (qz._gather_dequantized(x, table8).to(torch.bfloat16).repeat_interleave(rep, dim=1)
               for x in (k8, v8))
@@ -3509,8 +3623,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     reports = _build.build(["flash_fwd.cu", "flash_decode.cu", "flash_chunked.cu",
-                            "paged_attention.cu", "quantized.cu", "quant_paged_extend.cu",
-                            "quantized_matmul.cu", "flash_bwd.cu", "flash_varlen.cu"])
+                            "paged_attention.cu", "quantized.cu", "quant_paged_decode.cu",
+                            "quant_paged_extend.cu", "quantized_matmul.cu", "flash_bwd.cu",
+                            "flash_varlen.cu"])
     t_nvcc = time.perf_counter() - t0
     native.build()
     print(f"[2] build: nvcc {t_nvcc:.1f} s, then g++ (native scheduler) "
@@ -3525,8 +3640,10 @@ def main() -> int:
     fwd_report, bwd_report = flash_fwd.kernel_report(), flash_bwd.kernel_report()
     b6_report, b9_report = paged_attention.kernel_report(), quantized.extend_kernel_report()
     b4_report, b12_report = flash_chunked.kernel_report(), flash_varlen.kernel_report()
+    b5_report, b8_report = paged_attention.decode_kernel_report(), quantized.decode_kernel_report()
     for line in (quantized_matmul.kernel_report().splitlines() + fwd_report.splitlines()
-                 + b4_report.splitlines() + b6_report.splitlines() + b9_report.splitlines()
+                 + b4_report.splitlines() + b5_report.splitlines() + b6_report.splitlines()
+                 + b8_report.splitlines() + b9_report.splitlines()
                  + b12_report.splitlines() + bwd_report.splitlines()):
         print(f"    {line}")
         spill = re.search(r"(\d+) bytes local", line)
@@ -3556,7 +3673,8 @@ def main() -> int:
     print("[3g] packed ragged batch: B12 vs plain (per-sequence dense attention)")
     phase_varlen_kernels(torch, flash_varlen, errs)
     print("[3h] Gemma2: soft caps 50 and 1.0 at D 256 (Hq 16, Hkv 8) in P / B2, D1 + D2, B5, "
-          "B6, the append at D 256, and the caps at D 128, vs plain")
+          "B6, B8, B9, the append and QA at D 256, and the caps at D 128 (B5 / B8 also at a "
+          "group of 32), vs plain")
     phase_gemma2_kernels(torch, ops, errs)
     torch.cuda.synchronize()
 
@@ -3679,7 +3797,10 @@ def main() -> int:
             label = "B13a D128 bf16" if r["name"] == "flash_bwd_dkv" else "B13b D128 bf16"
             r["runtime_attributes"] = runtime_attributes(bwd_report, label)
     rows += trows
-    paged_reports = {"paged_extend": (b6_report, "B6 bf16 D128", "B6 bf16 D256 cap"),
+    paged_reports = {"paged_decode": (b5_report, "B5 bf16 D128", "B5 bf16 D256 cap"),
+                     "quant_paged_decode": (b8_report, "B8 bf16 int8 D128",
+                                            "B8 bf16 int8 D256 cap"),
+                     "paged_extend": (b6_report, "B6 bf16 D128", "B6 bf16 D256 cap"),
                      "quant_paged_extend": (b9_report, "B9 bf16 e4m3 D128",
                                             "B9 bf16 int8 D256 cap"),
                      "flash_chunked": (b4_report, "B4 D128 bf16 split-P", "B4 D256 bf16 cap"),

@@ -1,9 +1,10 @@
 // Split-KV single-token decode partials, shared by kernel D1 (contiguous
-// cache, flash_decode.cu), kernel B5 (paged cache, paged_attention.cu) and
-// their quantized-cache twins B7 and B8 (quantized.cu), whose K/V are int8
-// or e4m3 values with one f32 scale per key row: the K scale multiplies the
-// row's score, the V scale its probability before the PV update, so no K/V
-// row is ever dequantized.
+// cache, flash_decode.cu) and its quantized-cache twin B7 (quantized.cu),
+// whose K/V are int8 or e4m3 values with one f32 scale per key row: the K
+// scale multiplies the row's score, the V scale its probability before the
+// PV update, so no K/V row is ever dequantized. The kPaged branch (key rows
+// through a page table) has no instantiation left: the paged decodes B5 and
+// B8 are paged_decode.cuh.
 //
 // What bounds it on the H100: decode reads every live K/V row once and
 // does 4 * G * D operations per row for G = Hq / Hkv query rows, about
@@ -24,7 +25,7 @@
 // exit. Rows and scales at or past the length are never
 // loaded, so a cache tail of uninitialised memory (even NaN) cannot leak in.
 // Scores are kept in base 2 (scale * log2(e) folded in), as in the prefill
-// kernel, and so is the tanh soft cap of D1 and B5 (their kCap
+// kernel, and so is the tanh soft cap of D1 (its kCap
 // instantiations): x = c2 * tanh(x / c2), c2 = c * log2(e), on each
 // score before it is stored for the softmax. At head dim 256 a key row is one warp's (kTpk 32) and
 // four rows are in flight, so the score reduction stays within a warp and
@@ -57,7 +58,7 @@ struct DecodeParams {
   int window;            // sliding window W > 0, or 0 for none
 };
 
-// Extra arguments of the quantized instantiations (B7, B8): the scales lie
+// Extra arguments of the quantized instantiations (B7): the scales lie
 // like the values without the head dim, [B, Hkv, C] contiguous or
 // [Hkv, P, ps] paged, position stride 1.
 struct KVScales {
@@ -89,7 +90,7 @@ __device__ __forceinline__ int64_t key_row(const DecodeParams& p, int b, int hk,
 }
 
 // T: q and output type; KV: the cache's element type (T, or int8 / e4m3);
-// kCap: the soft cap (D1, B5 with a cap; a template flag, so the kernels
+// kCap: the soft cap (D1 with a cap; a template flag, so the kernels
 // without it are unchanged: a runtime branch here cost D1 / B5 up to 12 %).
 template <typename T, typename KV, int D, int GMAX, bool kPaged, bool kCap = false>
 __global__ void __launch_bounds__(kDecodeThreads) decode_partials_kernel(const DecodeArgs<KV> p) {
@@ -286,7 +287,7 @@ int dispatch_group(const DecodeArgs<KV>& p, int batch, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
-// A cache of q's own type (D1, B5), head dims 64, 128 and 256; a soft cap
+// A cache of q's own type (D1), head dims 64, 128 and 256; a soft cap
 // (softcap_log2 > 0) launches the kCap instantiation.
 template <bool kPaged, bool kCap = false>
 int dispatch_partials(const DecodeParams& p, int batch, int d, int dtype, cudaStream_t s) {
@@ -302,7 +303,7 @@ int dispatch_partials(const DecodeParams& p, int batch, int d, int dtype, cudaSt
   return cudaErrorInvalidValue;
 }
 
-// A quantized cache (B7, B8): q and output bf16 / f16, values int8 / e4m3.
+// A quantized cache (B7): q and output bf16 / f16, values int8 / e4m3.
 template <typename T, bool kPaged>
 int dispatch_quant_values(const QuantDecodeParams& p, int batch, int d, int kv_dtype,
                           cudaStream_t s) {

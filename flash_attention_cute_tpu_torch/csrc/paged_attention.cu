@@ -2,11 +2,11 @@
 //
 //   * B5, paged decode: replaces the TPU kernel
 //     flash_attention_cute_tpu/ops/paged_attention.py `_paged_decode_kernel`
-//     (:85, pallas_call at :341). Split-KV decode partials whose key rows
-//     are addressed through the page table; the splits are merged by D2
-//     (flash_decode.cu), whose partials layout [B, Hkv, S, G, D] is the same.
-//     With a sliding window W the splits cut the visible range
-//     [max(0, length - W), length). B5 and B6 take the tanh soft cap
+//     (:85, pallas_call at :341). Split-KV decode partials of a GQA group
+//     (up to 32 q heads a kv head) through the page table; the splits are
+//     merged by D2 (flash_decode.cu), whose partials layout [B, Hkv, S, G,
+//     D] is the same. With a sliding window W the splits cut the visible
+//     range [max(0, length - W), length). B5 and B6 take the tanh soft cap
 //     (`softcap_log2`, c * log2(e), 0 for none) and head dims 64, 128 and
 //     256; the append takes any row of a multiple of 16 bytes.
 //   * B6, paged extend: replaces `_paged_extend_kernel` (:391, pallas_call at
@@ -20,23 +20,23 @@
 //     through the page table; rows of inactive batch rows and positions past
 //     the table write nothing (the `mode="drop"` of the JAX scatter).
 //
-// What bounds them on the H100, and the design: B5 reads each live K/V row
-// once per GQA group and is bound by memory bytes (decode_partials.cuh); B6
-// is bound by tensor-core operations at chunk lengths and is built for
-// wgmma, fed by TMA copies of single pages (paged_extend.cuh, shared with
-// B9). The TPU kernels walk `ppcb` pages per grid step with double-buffered
-// DMAs and scalar-prefetched tables, and size their grid from max(lengths)
-// on the device. Here every block reads its own length, offset and
-// page-table entries from device memory; the grid is sized from shapes
-// alone, so no host sync sizes it. B5 cuts each row's own live length into
-// the splits, so every split of a long row has work whatever the pool's
-// capacity. Not copied from the TPU extend kernel: the chunk split for the
-// VMEM budget (`_extend_chunk_split`), the anchored lazy max with its
-// 75-nat clamp, and the `inner` sub-blocks; the softmax here is exact. The
-// append is bound by bytes (each new row read and written once): one block
-// per (token, batch row), 16 bytes a thread.
-#include "decode_partials.cuh"
-#include "paged_extend.cuh"
+// What bounds them on the H100, and the design: B5 reads each visible K/V
+// row once per GQA group and is bound by memory bytes: a TMA ring of pages
+// feeding tensor-core consumers (paged_decode.cuh, shared with B8); B6 is
+// bound by tensor-core operations at chunk lengths and is built for wgmma,
+// fed by TMA copies of single pages (paged_extend.cuh, shared with B9). The
+// TPU kernels walk `ppcb` pages per grid step with double-buffered DMAs and
+// scalar-prefetched tables, and size their grid from max(lengths) on the
+// device. Here every block reads its own length, offset and page-table
+// entries from device memory; the grid is sized from shapes alone, so no
+// host sync sizes it. B5 cuts each row's own visible tiles into the splits,
+// so every split of a long row has work whatever the pool's capacity. Not
+// copied from the TPU extend kernel: the chunk split for the VMEM budget
+// (`_extend_chunk_split`), the anchored lazy max with its 75-nat clamp, and
+// the `inner` sub-blocks; the softmax here is exact. The append is bound by
+// bytes (each new row read and written once): one block per (token, batch
+// row), 16 bytes a thread.
+#include "paged_decode.cuh"
 
 namespace fact {
 
@@ -76,34 +76,34 @@ __global__ void paged_append_kernel(const AppendParams p) {
 }  // namespace fact
 
 // Each returns a cudaError_t code (0 on success). Shapes, strides, dtypes and
-// the group bound (G <= 8) are checked by the Python wrapper
-// (ops/paged_attention.py, runtime/paged_cache.py).
+// the group bounds (B5: G <= 32, B6: G <= 8) are checked by the Python
+// wrapper (ops/paged_attention.py, runtime/paged_cache.py).
 extern "C" int fact_paged_decode_partials(
     const void* q, const void* k, const void* v, const void* lengths, const void* page_table,
     void* acc, void* m, void* l, int batch, int hkv, int group, int d, int num_splits,
-    int pps, int page_size, long long q_sb, long long q_sh,
+    int pps, int page_size, int num_pages, int box_rows, long long q_sb, long long q_sh,
     long long k_sh, long long k_sp, long long k_ss,
     long long v_sh, long long v_sp, long long v_ss,
     float scale_log2, float softcap_log2, int window, int dtype, void* stream) {
   using namespace fact;
-  DecodeParams p{};
-  p.q = q, p.k = k, p.v = v;
+  PagedDecodeParams p{};
+  p.q = q;
   p.lengths = static_cast<const int*>(lengths);
   p.page_table = static_cast<const int*>(page_table);
   p.acc = static_cast<float*>(acc);
   p.m = static_cast<float*>(m);
   p.l = static_cast<float*>(l);
   p.q_sb = q_sb, p.q_sh = q_sh;
-  p.k_sh = k_sh, p.k_sp = k_sp, p.k_ss = k_ss;
-  p.v_sh = v_sh, p.v_sp = v_sp, p.v_ss = v_ss;
-  p.hkv = hkv, p.group = group, p.capacity = pps * page_size;
-  p.num_splits = num_splits;
-  p.pps = pps, p.page_size = page_size;
-  p.scale_log2 = scale_log2;
-  p.softcap_log2 = softcap_log2;
-  p.softcap_rcp = softcap_log2 > 0.f ? 1.f / softcap_log2 : 0.f;
+  p.hkv = hkv, p.group = group, p.num_splits = num_splits;
+  p.pps = pps, p.page_size = page_size, p.box_rows = box_rows;
+  p.sc = scores(scale_log2, softcap_log2);
   p.window = window;
-  return dispatch_partials<true>(p, batch, d, dtype, static_cast<cudaStream_t>(stream));
+  const PagedViews w{q, k, v, q_sb, q_sh, 0, k_sh, k_sp, k_ss, v_sh, v_sp, v_ss,
+                     hkv, num_pages, dtype};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16) return dispatch_paged_decode<__nv_bfloat16, __nv_bfloat16>(p, w, batch, d, s);
+  if (dtype == kF16) return dispatch_paged_decode<__half, __half>(p, w, batch, d, s);
+  return cudaErrorInvalidValue;
 }
 
 extern "C" int fact_paged_extend(
@@ -140,6 +140,17 @@ extern "C" int fact_paged_extend_report(char* out, int cap) {
   out[0] = 0;
   fact::report_paged_extend<__nv_bfloat16, __nv_bfloat16>(out, cap, used, "B6 bf16");
   fact::report_paged_extend<__half, __half>(out, cap, used, "B6 f16");
+  out[cap - 1] = 0;
+  return 0;
+}
+
+// The same report of every B5 instantiation.
+extern "C" int fact_paged_decode_report(char* out, int cap) {
+  int used = 0;
+  if (cap <= 0) return 0;
+  out[0] = 0;
+  fact::report_paged_decode<__nv_bfloat16, __nv_bfloat16>(out, cap, used, "B5 bf16");
+  fact::report_paged_decode<__half, __half>(out, cap, used, "B5 f16");
   out[cap - 1] = 0;
   return 0;
 }

@@ -5,14 +5,11 @@
 //     flash_attention_cute_tpu/ops/quantized.py `_quant_decode_kernel` (:73,
 //     pallas_call at :337). Split-KV decode partials over one layer of the
 //     contiguous cache [B, Hkv, C, D] with scales [B, Hkv, C]; D2
-//     (flash_decode.cu) merges the splits.
-//   * B8, quantized paged decode: replaces `_quant_paged_kernel` (:395,
-//     pallas_call at :658). The same over a pool [Hkv, P, ps, D] with scales
-//     [Hkv, P, ps] through the page table; the splits cut each row's own
-//     live length, as in B5.
-//   Both take B2's sliding window (0 for none) as D1 / B5 do (keys
-//   n >= length - W; the scales of visible keys only are loaded). B9, the
-//   quantized paged extend, is quant_paged_extend.cu.
+//     (flash_decode.cu) merges the splits. It takes B2's sliding window (0
+//     for none) as D1 does (keys n >= length - W; the scales of visible keys
+//     only are loaded). B8, the quantized paged decode, is
+//     quant_paged_decode.cu; B9, the quantized paged extend,
+//     quant_paged_extend.cu.
 //   * QA, quantize-and-append (not a TPU kernel): replaces the XLA
 //     `quantize_kv` + scatter / dynamic_update_slice of
 //     flash_attention_cute_tpu/runtime/paged_cache.py
@@ -20,13 +17,13 @@
 //     (:167-175). Writes S new K/V rows per batch row, quantized per token,
 //     at positions lengths[b] + s of the contiguous cache or through the
 //     page table; rows of inactive batch rows and positions past the table
-//     (or past the cache) write nothing.
+//     (or past the cache) write nothing. Head dims 64, 128 and 256.
 //
-// What bounds them on the H100, and the design. B7 and B8 are D1's and
-// B5's body (decode_partials.cuh) with the cache's element type as a
-// template parameter: bound by bytes, which 1-byte values halve; the K
-// scale multiplies each score, the V scale each probability, so no row is
-// dequantized. Not copied from the TPU decode kernels: the `nh` head
+// What bounds them on the H100, and the design. B7 is D1's body
+// (decode_partials.cuh) with the cache's element type as a template
+// parameter: bound by bytes, which 1-byte values halve; the K scale
+// multiplies each score, the V scale each probability, so no row is
+// dequantized. Not copied from the TPU decode kernel: the `nh` head
 // packing and 8192-token page blocks. QA is bound by bytes (each new row read once, its values and
 // scale written once): one block per (token, batch row), one warp per
 // (K or V, kv head) row, an fp32 amax over the row by a warp reduction,
@@ -100,6 +97,7 @@ int launch_append(const QuantAppendParams& p, int batch, int s, int d, cudaStrea
   const dim3 grid(s, batch);
   if (d == 64) quant_append_kernel<T, KV, 64, kPaged><<<grid, 128, 0, stream>>>(p);
   else if (d == 128) quant_append_kernel<T, KV, 128, kPaged><<<grid, 128, 0, stream>>>(p);
+  else if (d == 256) quant_append_kernel<T, KV, 256, kPaged><<<grid, 128, 0, stream>>>(p);
   else return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
@@ -123,7 +121,7 @@ int dispatch_append(const QuantAppendParams& p, int batch, int s, int d, int dty
 }  // namespace fact
 
 // Each returns a cudaError_t code (0 on success). Shapes, strides, dtypes
-// and the group bound (G <= 8) are checked by the Python wrapper
+// and B7's group bound (G <= 8) are checked by the Python wrapper
 // (ops/quantized.py). `dtype` is q's (and the output's) code, `kv_dtype`
 // the values' code (common.cuh).
 extern "C" int fact_quant_decode_partials(
@@ -153,37 +151,6 @@ extern "C" int fact_quant_decode_partials(
   p.scales.v_sb = vs_sb, p.scales.v_sh = vs_sh;
   return dispatch_partials_quant<false>(p, batch, d, dtype, kv_dtype,
                                         static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int fact_quant_paged_decode_partials(
-    const void* q, const void* k, const void* v, const void* k_scale, const void* v_scale,
-    const void* lengths, const void* page_table, void* acc, void* m, void* l, int batch,
-    int hkv, int group, int d, int num_splits, int pps, int page_size, long long q_sb,
-    long long q_sh, long long k_sh, long long k_sp, long long k_ss, long long v_sh,
-    long long v_sp, long long v_ss, long long ks_sh, long long ks_sp, long long vs_sh,
-    long long vs_sp, float scale_log2, int window, int dtype, int kv_dtype, void* stream) {
-  using namespace fact;
-  QuantDecodeParams p{};
-  p.q = q, p.k = k, p.v = v;
-  p.lengths = static_cast<const int*>(lengths);
-  p.page_table = static_cast<const int*>(page_table);
-  p.acc = static_cast<float*>(acc);
-  p.m = static_cast<float*>(m);
-  p.l = static_cast<float*>(l);
-  p.q_sb = q_sb, p.q_sh = q_sh;
-  p.k_sh = k_sh, p.k_sp = k_sp, p.k_ss = k_ss;
-  p.v_sh = v_sh, p.v_sp = v_sp, p.v_ss = v_ss;
-  p.hkv = hkv, p.group = group, p.capacity = pps * page_size;
-  p.num_splits = num_splits;
-  p.pps = pps, p.page_size = page_size;
-  p.scale_log2 = scale_log2;
-  p.window = window;
-  p.scales.k = static_cast<const float*>(k_scale);
-  p.scales.v = static_cast<const float*>(v_scale);
-  p.scales.k_sh = ks_sh, p.scales.k_sp = ks_sp;
-  p.scales.v_sh = vs_sh, p.scales.v_sp = vs_sp;
-  return dispatch_partials_quant<true>(p, batch, d, dtype, kv_dtype,
-                                       static_cast<cudaStream_t>(stream));
 }
 
 // paged != 0: positions go through the page table (c_sb, s_sb unused);

@@ -185,7 +185,7 @@ def softcap_arg(logit_softcap: float | None) -> float:
 
 
 def refuse_softcap(logit_softcap: float | None, what: str) -> None:
-    """For the kernels that take no soft cap yet (B7, B8, QA): raise on one."""
+    """For the kernel that takes no soft cap yet (B7): raise on one."""
     if logit_softcap is not None:
         raise NotImplementedError(
             f"logit_softcap {what} on CUDA is not in the kernel yet (plain version only; "

@@ -6,9 +6,12 @@ Port of flash_attention_cute_tpu/ops/paged_attention.py. One layer's pool is
 D]` pool); key n of batch row b sits at page `page_table[b, n // ps]`, row
 `n % ps`. Lengths are clamped to `pages_per_seq * ps`.
 
-  * `paged_attention_decode`: B5 (csrc/paged_attention.cu) writes split-KV
-    partials, D2 (`flash_decode.decode_combine`) merges them. With a
-    sliding window W only keys [length - W, length) are read.
+  * `paged_attention_decode`: B5 (csrc/paged_attention.cu, the kernel of
+    csrc/paged_decode.cuh shared with B8: a TMA ring of pages feeding
+    tensor-core consumers) writes split-KV partials of GQA groups up to 32,
+    D2 (`flash_decode.decode_combine`) merges them. The splits come from
+    shapes alone (`dispatch.paged_decode_splits`). With a sliding window W
+    only keys [length - W, length) are read.
   * `paged_attention_extend`: B6, chunked prefill with per-row global
     causality `col <= q_offset + row` and `col < kv_length` (and with a
     window `col > q_offset + row - W`); kv_length 0 marks an inactive row,
@@ -37,12 +40,13 @@ from flash_attention_cute_tpu_torch.ops.reference import attention_reference
 
 LOG2E = math.log2(math.e)
 HEAD_DIMS = (64, 128, 256)
-MAX_GROUP = 8
+MAX_GROUP = 8  # B6, B7 and B9; their groups above 8 are ROADMAP.md B.5
+DECODE_MAX_GROUP = 32  # B5 and B8
 
 P, I, L, F = _build.P, _build.I, _build.L, _build.F
 PAGED_DECODE = _build.Kernel(
     "paged_decode", "paged_attention.cu", "fact_paged_decode_partials",
-    [P] * 8 + [I] * 7 + [L] * 8 + [F, F, I, I, P],
+    [P] * 8 + [I] * 9 + [L] * 8 + [F, F, I, I, P],
 )
 PAGED_EXTEND = _build.Kernel(
     "paged_extend", "paged_attention.cu", "fact_paged_extend",
@@ -61,10 +65,24 @@ def extend_plan(head_dim: int, page_size: int) -> tuple[int, int]:
     return tile, math.gcd(tile, page_size)
 
 
+def decode_plan(head_dim: int, page_size: int) -> tuple[int, int]:
+    """(keys of a tile, keys of one copy) of the paged decodes B5 / B8: the
+    tile of `dispatch.paged_decode_tile`, copied by TMA in parts of
+    `gcd(tile, page_size)` keys that start on a tile's and a page's
+    boundaries alike (at least eight rows: page_size % 8 == 0)."""
+    tile = dispatch.paged_decode_tile(head_dim)
+    return tile, math.gcd(tile, page_size)
+
+
 def kernel_report() -> str:
     """Registers, spill bytes and shared memory of every B6 instantiation,
     as the card's runtime reports them."""
     return _build.runtime_report(PAGED_EXTEND.source, "fact_paged_extend_report")
+
+
+def decode_kernel_report() -> str:
+    """The same of every B5 instantiation."""
+    return _build.runtime_report(PAGED_DECODE.source, "fact_paged_decode_report")
 
 
 def gather_pages(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
@@ -120,17 +138,18 @@ def paged_attention_extend_plain(q, k_pages, v_pages, q_offset, kv_length, page_
 
 
 def _check_cuda_call(name, q, k_pages, v_pages, page_table, row_tensors, window,
-                     pool_dtype=None, head_dims=HEAD_DIMS) -> int:
+                     pool_dtype=None, head_dims=HEAD_DIMS, max_group=MAX_GROUP) -> int:
     """Shared refusals of the CUDA routes; the pools must be `pool_dtype`
-    (default q's dtype). Returns the window as the kernels take it."""
+    (default q's dtype), GQA groups at most `max_group`. Returns the window
+    as the kernels take it."""
     window = _build.window_arg(window)
     b, hq, _, d = q.shape
     hkv = k_pages.shape[0]
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"{name} kernel takes bf16/f16, got {q.dtype}")
     _build.check_head_dim(d, head_dims, name)
-    if hq % hkv or hq // hkv > MAX_GROUP:
-        raise NotImplementedError(f"{name} kernel takes Hq/Hkv <= {MAX_GROUP}, got {hq}/{hkv}")
+    if hq % hkv or hq // hkv > max_group:
+        raise NotImplementedError(f"{name} kernel takes Hq/Hkv <= {max_group}, got {hq}/{hkv}")
     if k_pages.shape != v_pages.shape or k_pages.shape[3] != d or k_pages.ndim != 4:
         raise ValueError(f"bad pools k {tuple(k_pages.shape)} v {tuple(v_pages.shape)}")
     if k_pages.shape[2] % 8:
@@ -179,11 +198,11 @@ def paged_attention_decode(
                                             sm_scale, window, logit_softcap)
     softcap = _build.softcap_arg(logit_softcap)
     window = _check_cuda_call("paged decode", q, k_pages, v_pages, page_table,
-                              [("lengths", lengths)], window)
-    hkv, _, ps, _ = k_pages.shape
+                              [("lengths", lengths)], window, max_group=DECODE_MAX_GROUP)
+    hkv, num_pages, ps, _ = k_pages.shape
     pps = page_table.shape[1]
     g = hq // hkv
-    splits = dispatch.decode_num_splits(b, hkv, pps * ps)
+    splits = dispatch.paged_decode_splits(b, hkv, pps * ps, d)
     acc = torch.empty((b, hkv, splits, g, d), dtype=torch.float32, device=q.device)
     m = torch.empty((b, hkv, splits, g), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
@@ -191,8 +210,8 @@ def paged_attention_decode(
         PAGED_DECODE(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), lengths.data_ptr(),
             page_table.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-            b, hkv, g, d, splits, pps, ps, q.stride(0), q.stride(1),
-            *k_pages.stride()[:3], *v_pages.stride()[:3],
+            b, hkv, g, d, splits, pps, ps, num_pages, decode_plan(d, ps)[1],
+            q.stride(0), q.stride(1), *k_pages.stride()[:3], *v_pages.stride()[:3],
             float(sm_scale) * LOG2E, softcap, window, _build.DTYPE_CODES[q.dtype],
         )
     return flash_decode.decode_combine(acc, m, l, q.dtype)

@@ -13,8 +13,11 @@ per-token scales s_j the kernels never dequantize a K/V row:
     split-KV partials over one layer of the contiguous cache (values
     [B, Hkv, C, D], scales [B, Hkv, C], or the stacked [L, ...] cache with
     `layer`), D2 (`flash_decode.decode_combine`) merges them.
-  * `paged_attention_decode_quantized`: B8, the same over a pool (values
-    [Hkv, P, ps, D], scales [Hkv, P, ps]) through the page table; D2 merges.
+  * `paged_attention_decode_quantized`: B8 (csrc/quant_paged_decode.cu, the
+    kernel of B5 whose consumers widen the values exactly to q's type in
+    registers), the same over a pool (values [Hkv, P, ps, D], scales
+    [Hkv, P, ps]) through the page table for GQA groups up to 32; D2
+    merges. It takes the soft cap and head dim 256.
   * `paged_attention_extend_quantized`: B9 (csrc/quant_paged_extend.cu, the
     kernel of B6 whose producer widens the values exactly to q's type),
     chunked prefill over quantized pages with per-row causality
@@ -24,13 +27,14 @@ per-token scales s_j the kernels never dequantize a K/V row:
     in place, into the contiguous cache or through the page table.
 
 Each wrapper routes on the device of its tensors: CPU -> plain version,
-CUDA -> the kernel; what the kernel does not take raises (B7, B8 and QA: a
-soft cap and D 256; values that are neither int8 nor e4m3, scales that are
-not f32). B7 - B9 take a sliding window as D1, B5 and B6 do. The plain
-versions dequantize to fp32 and run the port's `attention_reference` over
-the gathered rows. Positions at or past a row's length are never read by
-the kernels and are masked out of the plain versions, so they may hold
-anything, even NaN. The TPU-only arguments `block_kv`,
+CUDA -> the kernel; what the kernel does not take raises (B7: a soft cap
+and D 256; every kernel: values that are neither int8 nor e4m3, scales that
+are not f32). QA takes D 256. B7 - B9 take a sliding window as D1, B5 and
+B6 do. The plain versions dequantize to fp32 and run the port's
+`attention_reference` over the gathered rows. Positions at or past a row's
+length are never read by the kernels and are masked out of the plain
+versions, so they may hold anything, even NaN. The TPU-only arguments
+`block_kv`,
 `pages_per_compute_block`, `interpret` and `debug` are gone.
 """
 
@@ -44,17 +48,19 @@ import torch
 from flash_attention_cute_tpu_torch import dispatch
 from flash_attention_cute_tpu_torch.ops import _build, flash_decode
 from flash_attention_cute_tpu_torch.ops.paged_attention import (
+    DECODE_MAX_GROUP,
     MAX_GROUP,
     _check_cuda_call,
     _clamp,
     append_targets,
+    decode_plan,
     extend_plan,
     gather_pages,
 )
 from flash_attention_cute_tpu_torch.ops.reference import attention_reference
 
-HEAD_DIMS = (64, 128)  # B7, B8, QA; their D 256 is ROADMAP.md A10b
-EXTEND_HEAD_DIMS = (64, 128, 256)  # B9
+HEAD_DIMS = (64, 128)  # B7; its D 256 is ROADMAP.md A10b
+PAGED_HEAD_DIMS = (64, 128, 256)  # B8, B9 and QA
 INT8_MAX = 127.0
 FP8_E4M3_MAX = 448.0
 KV_DTYPES = tuple(_build.KV_DTYPE_CODES)
@@ -66,8 +72,8 @@ QUANT_DECODE = _build.Kernel(
     [P] * 9 + [I] * 7 + [L] * 12 + [F, I, I, I, P],
 )
 QUANT_PAGED_DECODE = _build.Kernel(
-    "quant_paged_decode", "quantized.cu", "fact_quant_paged_decode_partials",
-    [P] * 10 + [I] * 7 + [L] * 12 + [F, I, I, I, P],
+    "quant_paged_decode", "quant_paged_decode.cu", "fact_quant_paged_decode_partials",
+    [P] * 10 + [I] * 9 + [L] * 12 + [F, F, I, I, I, P],
 )
 QUANT_PAGED_EXTEND = _build.Kernel(
     "quant_paged_extend", "quant_paged_extend.cu", "fact_quant_paged_extend",
@@ -274,12 +280,24 @@ def extend_kernel_report() -> str:
     return _build.runtime_report(QUANT_PAGED_EXTEND.source, "fact_quant_paged_extend_report")
 
 
+def decode_kernel_report() -> str:
+    """The same of every B8 instantiation."""
+    return _build.runtime_report(QUANT_PAGED_DECODE.source, "fact_quant_paged_decode_report")
+
+
 def _check_paged(name, q, k_pages, v_pages, page_table, row_tensors, window,
-                 head_dims=HEAD_DIMS) -> int:
+                 max_group=MAX_GROUP) -> int:
+    """The refusals of B8 / B9: those of B5 / B6, the quantized pools', and
+    scales each page part of which one 16-byte aligned bulk copy brings."""
     window = _check_cuda_call(name, q, k_pages.values, v_pages.values, page_table, row_tensors,
-                              window, k_pages.values.dtype, head_dims)
+                              window, k_pages.values.dtype, PAGED_HEAD_DIMS, max_group)
     _check_quantized("k_pages", k_pages)
     _check_quantized("v_pages", v_pages, k_pages.values.dtype)
+    for pname, kv in (("k_pages", k_pages), ("v_pages", v_pages)):
+        sc = kv.scales
+        if sc.data_ptr() % 16 or sc.stride(0) % 4 or sc.stride(1) % 4:
+            raise ValueError(f"{pname} scales need a 16-byte aligned base and head and page "
+                             f"strides, got {sc.data_ptr():#x} strides {sc.stride()}")
     return window
 
 
@@ -303,7 +321,8 @@ def paged_attention_decode_quantized(
         (0 -> an exact zero row).
       page_table: [B, pages_per_seq] int32 physical page ids.
       window: sliding window W: only keys [length - W, length) are read.
-      logit_softcap: plain version only (ROADMAP.md A10b).
+      logit_softcap: tanh soft cap c of the scaled scores (Gemma2), applied
+        after the K scale; None for none.
 
     Returns [B, Hq, 1, D] in q's dtype.
     """
@@ -315,13 +334,13 @@ def paged_attention_decode_quantized(
     if q.device.type == "cpu":
         return paged_attention_decode_quantized_plain(q, k_pages, v_pages, lengths, page_table,
                                                       sm_scale, window, logit_softcap)
-    _build.refuse_softcap(logit_softcap, "quantized paged decode")
+    softcap = _build.softcap_arg(logit_softcap)
     window = _check_paged("quantized paged decode", q, k_pages, v_pages, page_table,
-                          [("lengths", lengths)], window)
-    hkv, _, ps, _ = k_pages.values.shape
+                          [("lengths", lengths)], window, DECODE_MAX_GROUP)
+    hkv, num_pages, ps, _ = k_pages.values.shape
     pps = page_table.shape[1]
     g = hq // hkv
-    splits = dispatch.decode_num_splits(b, hkv, pps * ps)
+    splits = dispatch.paged_decode_splits(b, hkv, pps * ps, d)
     acc = torch.empty((b, hkv, splits, g, d), dtype=torch.float32, device=q.device)
     m = torch.empty((b, hkv, splits, g), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
@@ -330,11 +349,11 @@ def paged_attention_decode_quantized(
             q.data_ptr(), k_pages.values.data_ptr(), v_pages.values.data_ptr(),
             k_pages.scales.data_ptr(), v_pages.scales.data_ptr(), lengths.data_ptr(),
             page_table.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-            b, hkv, g, d, splits, pps, ps, q.stride(0), q.stride(1),
-            *k_pages.values.stride()[:3], *v_pages.values.stride()[:3],
-            *k_pages.scales.stride()[:2], *v_pages.scales.stride()[:2],
-            float(sm_scale) * LOG2E, window, _build.DTYPE_CODES[q.dtype],
-            _build.KV_DTYPE_CODES[k_pages.values.dtype],
+            b, hkv, g, d, splits, pps, ps, num_pages, decode_plan(d, ps)[1],
+            q.stride(0), q.stride(1), *k_pages.values.stride()[:3],
+            *v_pages.values.stride()[:3], *k_pages.scales.stride()[:2],
+            *v_pages.scales.stride()[:2], float(sm_scale) * LOG2E, softcap, window,
+            _build.DTYPE_CODES[q.dtype], _build.KV_DTYPE_CODES[k_pages.values.dtype],
         )
     return flash_decode.decode_combine(acc, m, l, q.dtype)
 
@@ -379,14 +398,7 @@ def paged_attention_extend_quantized(
         return (out, 0) if return_clamps else out
     softcap = _build.softcap_arg(logit_softcap)
     window = _check_paged("quantized paged extend", q, k_pages, v_pages, page_table,
-                          [("q_offset", q_offset), ("kv_length", kv_length)], window,
-                          EXTEND_HEAD_DIMS)
-    for name, kv in (("k_pages", k_pages), ("v_pages", v_pages)):
-        # Each page's scales arrive by one 16-byte aligned bulk copy a part.
-        sc = kv.scales
-        if sc.data_ptr() % 16 or sc.stride(0) % 4 or sc.stride(1) % 4:
-            raise ValueError(f"{name} scales need a 16-byte aligned base and head and page "
-                             f"strides, got {sc.data_ptr():#x} strides {sc.stride()}")
+                          [("q_offset", q_offset), ("kv_length", kv_length)], window)
     hkv, num_pages, ps, _ = k_pages.values.shape
     out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
     if out.numel():
@@ -468,7 +480,7 @@ def quantize_append(
     kv_dtype = k_cache.values.dtype
     if k_new.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"quantize-append kernel takes bf16/f16 rows, got {k_new.dtype}")
-    _build.check_head_dim(d, HEAD_DIMS, "quantize-append")
+    _build.check_head_dim(d, PAGED_HEAD_DIMS, "quantize-append")
     if v_new.shape != k_new.shape or v_new.dtype != k_new.dtype:
         raise ValueError(f"bad new rows {tuple(k_new.shape)} {tuple(v_new.shape)}")
     _check_quantized("k_cache", k_cache)

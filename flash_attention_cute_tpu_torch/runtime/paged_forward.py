@@ -5,8 +5,8 @@ family, Qwen2, Mistral and Gemma2 included. Per layer, the fresh K/V are
 written into the page pool through the page table (`paged_append_layer`,
 the append kernel on CUDA), then attention runs with the layer's sliding
 window (`ModelConfig.layer_window`, JAX's `make_layer(window)`) and the
-model's soft cap (`cfg.logit_softcap`, Gemma2; on CUDA B8 raises on it and
-B8 and QA on head dim 256, ROADMAP.md A10b; B9 takes both):
+model's soft cap (`cfg.logit_softcap`, Gemma2; every kernel of this path,
+bf16 or quantized, takes the cap and head dim 256):
 
   * prefill: a fresh request (lengths 0): causal attention over the chunk's
     own K/V (kernel P on CUDA, B2 where a window binds). Prompts may be

@@ -2,7 +2,8 @@
 """Compare the SASS of kernel libraries built from two trees of the
 repository, function by function:
 
-    python3 scripts/compare_sass_torch.py <tree A> <tree B> flash_chunked.cu paged_attention.cu
+    python3 scripts/compare_sass_torch.py <tree A> <tree B> flash_decode.cu quantized.cu \
+        flash_fwd.cu flash_chunked.cu paged_attention.cu quant_paged_extend.cu flash_varlen.cu
 
 Each source is built in each tree by that tree's own build code
 (`flash_attention_cute_tpu_torch/ops/_build.py`, into the tree's `_build/`),

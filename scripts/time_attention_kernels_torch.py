@@ -11,8 +11,18 @@ groups of kernels to time (all without any). Llama / Mistral shapes
 tree has `return_lse`; P at Qwen2-7B's 28 / 4 heads (B 4, S 512), at D 64
 (B 2, S 1024), non-causal (B 1, S 2048) and ragged (B 2, S 1000); B2 at
 Mistral-7B's greedy prefill (B 2, S 5120, window 4096); D1 at the greedy
-middle decode step (B 4, 544 of 576 positions, the dispatch's splits); B5
-(+ D2) at serving run A's decode (8 rows of 174-923 keys, page_size 128);
+middle decode step (B 4, 544 of 576 positions, the dispatch's splits); B5 and
+B8 (+ D2) at serving run A's / D's decode (8 rows of 174-923 keys,
+page_size 128; B8 over int8), run B's / E's (the same rows at page_size
+16; B8 over e4m3), Mistral-7B run M1's ("W": 4 rows of 4200-5000 + 24
+keys, page_size 128, window 4096) and Gemma-2-9B run G1's ("G": the same
+rows at 16 / 8 heads, D 256, cap 50, every key; B8 over int8), each with
+its "bound" (q read, the output written and the visible K / V rows, their
+scales and the page-table entries read once at 3.35 TB/s, or 4 D
+operations a visible key and q head at the bf16 peak, whichever is longer)
+and its "SDPA" yardstick (one SDPA call over a contiguous, GQA-expanded
+bf16 copy, dequantized for B8, with the lengths and the window as a
+boolean mask, without the cap; the copy not timed);
 B4 at a verify round (B 4, S 5, capacity 640; and chip_smoke.py's: capacity
 582, q_offset 571), a chunk (B 4, S 256, offsets 0-768, capacity 1100) and
 Mistral-7B's window ("W": B 2, S 256, offsets 4608 / 4864, W 4096); B12 over
@@ -160,6 +170,44 @@ def paged_extends(randn, pool, timed, out):
         del kp, vp, quant
 
 
+def paged_decodes(randn, pool, timed, out):
+    """B5 and B8 at run A's / D's, B's / E's, M1's ("W") and G1's ("G")
+    decodes, with their bounds and SDPA yardsticks."""
+    f = torch.nn.functional
+    run_a = [923, 731, 618, 401, 436, 196, 227, 174]  # chip_smoke.serving_requests' first 8, 32 in
+    mistral = (np.random.default_rng(0).integers(4200, 5001, 8)[:4] + 24).tolist()  # M1 / G1
+    for name, lens_list, ps, hq, d, w, cap, values in (
+            ("B8 ps128", run_a, 128, 32, 128, None, None, "int8"),
+            ("B8 ps16", run_a, 16, 32, 128, None, None, "float8_e4m3fn"),
+            ("W B4 ps128 W4096", mistral, 128, 32, 128, 4096, None, "int8"),
+            ("G gemma2 B4 ps128", mistral, 128, 16, 256, None, 50.0, "int8")):
+        b, pps = len(lens_list), 5120 // ps if w or cap else 2048 // ps
+        kp, vp, table = pool(b, ps, pps, 8, d)
+        lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+        q = randn(b, hq, 1, d)
+        quant = tuple(qz.quantize_kv(x, getattr(torch, values)) for x in (kp, vp))
+        label = name + (f" cap {cap:g}" if cap else "")
+        out[f"B5 {label} (+ D2)"] = timed(lambda: pa.paged_attention_decode(
+            q, kp, vp, lens, table, window=w, **capped(cap)), 50)
+        out[f"B8 {values} {label} (+ D2)"] = timed(lambda: qz.paged_attention_decode_quantized(
+            q, *quant, lens, table, window=w, **capped(cap)), 50)
+        pos = torch.arange(pps * ps, device="cuda")[None, :]
+        mask = ((pos < lens[:, None]) & (pos >= lens[:, None] - (w or pps * ps)))[:, None, None]
+        for kname, kv in (("B5", (kp, vp)), ("B8", quant)):
+            dense = tuple((pa.gather_pages(x, table) if kname == "B5" else
+                           qz._gather_dequantized(x, table).bfloat16())
+                          .repeat_interleave(hq // 8, dim=1) for x in kv)
+            out[f"SDPA {kname} {name}"] = timed(lambda: f.scaled_dot_product_attention(
+                q, *dense, attn_mask=mask), 50)
+            del dense
+        live = sum(min(n, w or n) for n in lens_list)
+        io = 2 * 2 * q.numel() + 4 * (b + sum(-(-n // ps) for n in lens_list))
+        for kname, row_bytes in (("B5", 2 * 2 * d), ("B8", 2 * (d + 4))):
+            out[f"bound {kname} {name}"] = 1e3 * max(4 * d * hq * live / PEAK_BF16,
+                                                     (io + 8 * row_bytes * live) / PEAK_BYTES)
+        del kp, vp, quant
+
+
 def capped(cap):  # no keyword at all without a cap: older trees lack it
     return {} if cap is None else {"logit_softcap": cap}
 
@@ -251,14 +299,8 @@ def main() -> None:
             out[label] = timed(lambda: flash_decode.decode_partials(
                 qd, kc, vc, lengths, d ** -0.5, splits, **capped(cap)), 50)
 
-    lens = torch.tensor([923, 731, 618, 401, 436, 196, 227, 174], dtype=torch.int32,
-                        device="cuda")  # chip_smoke.serving_requests' first 8, 32 tokens in
     if "decode" in groups:
-        kp, vp, table = pool(8, 128, 16, 8, 128)
-        q = randn(8, 32, 1, 128)
-        out["B5 B8 ps128 (+ D2)"] = timed(lambda: pa.paged_attention_decode(
-            q, kp, vp, lens, table), 50)
-        del kp, vp
+        paged_decodes(randn, pool, timed, out)
     if "paged" in groups:
         paged_extends(randn, pool, timed, out)
     if "extends" in groups:

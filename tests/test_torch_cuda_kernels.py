@@ -14,7 +14,11 @@ scatter writes. The quantized kernels (B7, B8, B9: bf16 q over int8 / e4m3
 values with f32 scales) are held to their fp32 plain versions at 3e-2 too,
 over caches whose scales (and e4m3 values) hold NaN at and past every
 length; the quantize-and-append kernel QA must write exactly what the plain
-`quantize_kv` + indexed write writes. The weight-only quantized products
+`quantize_kv` + indexed write writes, also at head dim 256. The paged
+decodes B5 and B8 (one kernel since their Hopper redesign) are held at page
+sizes 8 / 16 / 128, head dims 64 / 128 / 256, GQA groups 1-32, windows,
+the soft cap and f16, each call repeated bit for bit. The weight-only
+quantized products
 B10 (int8) and B11 (int4) take bf16 / f16 activations at unit scale and
 weights of std fan_in ** -0.5, and are held to their plain versions over
 the same inputs in fp32 at 3e-2 too, at Llama-3-8B projection shapes, a ragged K and the padded
@@ -203,6 +207,74 @@ def test_paged_decode_kernel_matches_plain(device, ps):
     assert torch.isfinite(out).all()
     assert (out[0] == 0).all()  # length 0: exact zeros
     assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+
+
+# The paged decodes B5 and B8 since their Hopper redesign (name: page_size,
+# head_dim, hq, hkv, capacity, window, soft cap, q's dtype): page sizes 8,
+# 16, 24 and 128 (copies of a part of a page, of whole pages, several pages
+# a tile, parts of 8 keys of a page that no tile size divides), head dims
+# 64, 128 and 256, GQA groups 1, 2, 4, 7, 8, 16 and 32
+# (two m-tiles), windows of 1, 45 and 4096 keys, caps 50 and 1.0, f16.
+# Rows of lengths 0, 1, a page edge either side, the full table and 777,
+# NaN at and past every length and in page 0, behind a permuted table.
+PAGED_DECODE = {
+    "ps8_d64_g1": (8, 64, 8, 8, 1024, None, None, torch.bfloat16),
+    "ps16_d128_g4": (16, 128, 32, 8, 1024, None, None, torch.bfloat16),
+    "ps128_d128_g2_w45": (128, 128, 16, 8, 1024, 45, None, torch.bfloat16),
+    "ps16_d256_g2_cap50": (16, 256, 16, 8, 1024, None, 50.0, torch.bfloat16),
+    "ps128_d256_g2_cap1_w4096": (128, 256, 16, 8, 5120, 4096, 1.0, torch.bfloat16),
+    "ps8_d128_g7_w1": (8, 128, 28, 4, 1024, 1, None, torch.bfloat16),
+    "ps16_d64_g8_f16_cap50": (16, 64, 32, 4, 1024, None, 50.0, torch.float16),
+    "ps128_d128_g16_cap50_w4096": (128, 128, 32, 2, 5120, 4096, 50.0, torch.bfloat16),
+    "ps16_d128_g32_w45": (16, 128, 32, 1, 1024, 45, None, torch.bfloat16),
+    "ps8_d256_g32_f16_cap1": (8, 256, 32, 1, 1024, None, 1.0, torch.float16),
+    "ps128_d64_g32": (128, 64, 32, 1, 1024, None, None, torch.bfloat16),
+    "ps24_d128_g4_w45": (24, 128, 32, 8, 1032, 45, None, torch.bfloat16),
+}
+
+
+def paged_decode_inputs(gen, case, values=None):
+    """Case's q, lengths, and NaN-poisoned pools (bf16 / f16 in q's dtype,
+    or quantized to `values`) behind a permuted table."""
+    ps, d, hq, hkv, cap_len, _, _, dtype = PAGED_DECODE[case]
+    lens = [0, 1, ps - 1, ps, ps + 1, cap_len, 777, 2 * ps + 1]
+    if values is None:
+        kp, vp, table = paged_pool(gen, ps, len(lens), capacity=cap_len, hkv=hkv, d=d,
+                                   lengths=lens)
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    else:
+        kp, vp, table = quant_paged_pool(gen, ps, len(lens), values, lens, capacity=cap_len,
+                                         hkv=hkv, d=d)
+    q = randn(gen, len(lens), hq, 1, d, dtype=dtype)
+    return q, kp, vp, torch.tensor(lens, dtype=torch.int32, device="cuda"), table
+
+
+@pytest.mark.parametrize("values", ["bf16", "int8", "e4m3"])
+@pytest.mark.parametrize("case", list(PAGED_DECODE), ids=list(PAGED_DECODE))
+def test_paged_decode_kernels_geometry(device, case, values):
+    """B5 (bf16 / f16 pages) and B8 (int8 / e4m3 pages) against their fp32
+    plain versions run on q's fp32 image; a length-0 row of exact zeros
+    over NaN tails; a second call bit-identical to the first; one launch
+    each of the kernel and of D2 a call."""
+    _, _, _, _, _, window, cap, _ = PAGED_DECODE[case]
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    q, kp, vp, lengths, table = paged_decode_inputs(gen, case, KV_DTYPES.get(values))
+    if values == "bf16":
+        kernel, fn, plain = (paged_attention.PAGED_DECODE, paged_attention.paged_attention_decode,
+                             paged_attention.paged_attention_decode_plain)
+    else:
+        kernel, fn, plain = (quant.QUANT_PAGED_DECODE, quant.paged_attention_decode_quantized,
+                             quant.paged_attention_decode_quantized_plain)
+    kw = dict(window=window, logit_softcap=cap)
+    before = (kernel.launches, flash_decode.COMBINE.launches)
+    out = fn(q, kp, vp, lengths, table, **kw)
+    again = fn(q, kp, vp, lengths, table, **kw)
+    torch.cuda.synchronize()
+    assert (kernel.launches, flash_decode.COMBINE.launches) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(out, again)
+    ref = plain(q.float(), kp, vp, lengths, table, **kw)
+    assert out.dtype == q.dtype and torch.isfinite(out).all() and (out[0] == 0).all()
+    assert (out.float() - ref).abs().max().item() <= BF16_TOL
 
 
 # Edge cases of the paged extends B6 and B9 (name: page_size, head_dim, hq,
@@ -449,28 +521,61 @@ def test_quant_append_kernel_writes_what_plain_writes(device, s, paged, name):
 
 
 def test_quantized_kernels_refuse_what_they_do_not_take(device):
+    """B7 refuses the cap and D 256 (ROADMAP.md A10b); every quantized
+    kernel refuses values other than int8 / e4m3 and scales other than
+    f32. B8 and QA take the cap and D 256 (test_paged_decode_kernels_geometry,
+    test_quant_append_kernel_writes_what_plain_writes_at_d256)."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     k, v, table = quant_paged_pool(gen, 16, 2, torch.int8, [64, 64], capacity=64)
     q = randn(gen, 2, 32, 1, 128)
     lengths = torch.tensor([3, 5], dtype=torch.int32, device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10b"):
-        quant.paged_attention_decode_quantized(q, k, v, lengths, table, logit_softcap=30.0)
-    k256, v256, table256 = quant_paged_pool(gen, 16, 2, torch.int8, [64, 64], capacity=64, d=256)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10b"):  # B8 at D 256
-        quant.paged_attention_decode_quantized(randn(gen, 2, 16, 1, 256), k256, v256, lengths,
-                                               table256)
     half = QuantizedKV(k.values.half(), k.scales)
     with pytest.raises(NotImplementedError, match="int8 / float8_e4m3fn"):
         quant.paged_attention_decode_quantized(q, half, half, lengths, table)
     with pytest.raises(ValueError, match="float32"):
         quant.paged_attention_decode_quantized(q, QuantizedKV(k.values, k.scales.half()), v,
                                                lengths, table)
+    with pytest.raises(NotImplementedError, match="Hq/Hkv <= 32"):
+        quant.paged_attention_decode_quantized(randn(gen, 2, 8 * 33, 1, 128), k, v, lengths,
+                                               table)
     cache = quant.quantize_kv(randn(gen, 2, 8, 64, 128), torch.int8)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A10b"):
         quant.flash_attention_decode_quantized(q, cache, cache, lengths, logit_softcap=30.0)
+    cache256 = quant.quantize_kv(randn(gen, 2, 8, 64, 256), torch.int8)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A10b"):  # B7 at D 256
+        quant.flash_attention_decode_quantized(randn(gen, 2, 16, 1, 256), cache256, cache256,
+                                               lengths)
     with pytest.raises(ValueError, match="float32"):
         quant.quantize_append(randn(gen, 2, 8, 1, 128), randn(gen, 2, 8, 1, 128),
                               QuantizedKV(cache.values, cache.scales.double()), cache, lengths)
+
+
+@pytest.mark.parametrize("name", list(KV_DTYPES))
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_quant_append_kernel_writes_what_plain_writes_at_d256(device, paged, name):
+    """QA at Gemma-2-9B's head dim: a 100-token chunk (one inactive row,
+    one across the end of the table) bit-identical to the plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    starts = [0, 13, 1024 - 40, 37]
+    new_k = randn(gen, len(starts), 100, 8, 256).transpose(1, 2)
+    new_v = randn(gen, len(starts), 100, 8, 256).transpose(1, 2)
+    lengths = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    if paged:
+        k, v, table = quant_paged_pool(gen, 16, len(starts), KV_DTYPES[name], [1024] * 4, d=256)
+        active = torch.tensor([1, 1, 1, 0], dtype=torch.bool, device="cuda")
+    else:
+        k, v = (quant.quantize_kv(randn(gen, len(starts), 8, 1124, 256), KV_DTYPES[name])
+                for _ in "kv")
+        table = active = None
+    ref = [QuantizedKV(x.values.clone(), x.scales.clone()) for x in (k, v)]
+    before = quant.QUANT_APPEND.launches
+    quant.quantize_append(new_k, new_v, k, v, lengths, table, active)
+    torch.cuda.synchronize()
+    assert quant.QUANT_APPEND.launches == before + 1
+    quant.quantize_append_plain(new_k, new_v, *ref, lengths, table, active)
+    for got, want in zip((k, v), ref):
+        assert torch.equal(got.values.view(torch.uint8), want.values.view(torch.uint8))
+        assert torch.equal(got.scales.view(torch.int32), want.scales.view(torch.int32))
 
 
 QMM_CASES = {
@@ -1303,11 +1408,13 @@ def test_gemma2_paged_append_at_d256_writes_what_plain_writes(device):
 
 
 def test_gemma2_routes_outside_the_slice_raise(device):
-    """The soft cap and D 256 stay refused by B7, B8 + QA and B13, naming
-    ROADMAP.md A10b; nothing falls back to a plain version. B4 (here), B9
-    and B12 take both (test_chunked_extend_kernel_geometry,
+    """The soft cap and D 256 stay refused by B7 and B13, naming ROADMAP.md
+    A10b; nothing falls back to a plain version. B4 (here), B8, B9, B12 and
+    QA take both (test_chunked_extend_kernel_geometry,
+    test_paged_decode_kernels_geometry,
     test_quant_paged_extend_kernel_takes_the_cap_and_d256,
-    test_varlen_kernel_takes_the_cap_and_d256)."""
+    test_varlen_kernel_takes_the_cap_and_d256,
+    test_quant_append_kernel_writes_what_plain_writes_at_d256)."""
     gen = torch.Generator(device="cuda").manual_seed(44)
     q, k, v, off, lens = chunked_inputs(gen, 16, 8, 5, 64, [0, 3], None, 256, torch.bfloat16)
     before = flash_chunked.CHUNKED.launches
@@ -1321,16 +1428,17 @@ def test_gemma2_routes_outside_the_slice_raise(device):
     qd = randn(gen, 2, 16, 1, 256)
     with pytest.raises(NotImplementedError, match="A10b"):
         quant.flash_attention_decode_quantized(qd, cache, cache, lens)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        quant.quantize_append(k, v, cache, cache, lens)
     pages = QuantizedKV(torch.zeros(8, 9, 16, 256, dtype=torch.int8, device="cuda"),
                         torch.ones(8, 9, 16, device="cuda"))
     table = torch.arange(1, 9, dtype=torch.int32, device="cuda").view(2, 4)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        quant.paged_attention_decode_quantized(qd, pages, pages, lens, table)
-    before = quant.QUANT_PAGED_EXTEND.launches
-    out = quant.paged_attention_extend_quantized(q, pages, pages, off, lens, table)
-    assert quant.QUANT_PAGED_EXTEND.launches == before + 1 and torch.isfinite(out).all()
+    for kernel, fn in ((quant.QUANT_PAGED_DECODE, quant.paged_attention_decode_quantized),
+                       (quant.QUANT_PAGED_EXTEND, quant.paged_attention_extend_quantized)):
+        args = (qd, pages, pages, lens, table) if kernel is quant.QUANT_PAGED_DECODE else (
+            q, pages, pages, off, lens, table)
+        before = kernel.launches
+        out = fn(*args, logit_softcap=50.0)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1 and torch.isfinite(out).all()
     with pytest.raises(NotImplementedError, match="A10b"):
         flash_bwd.flash_attention_bwd(q, k, v, q, q, torch.zeros(2, 16, 5, device="cuda"))
     q.requires_grad_()

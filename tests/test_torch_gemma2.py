@@ -17,7 +17,8 @@ tokens identical. HF `Gemma2ForCausalLM` (random weights, eager attention,
 built in process, converted through the JAX package's
 `params_from_state_dict`, which folds the +1 of Gemma's norms) at atol
 1e-4. Prompt-lookup and self-draft speculative tokens (the extend mode)
-identical to JAX's, with JAX's round and acceptance counts. The plain versions of kernels P / B2, D1 + D2, B5 and B6 at head dim
+identical to JAX's, with JAX's round and acceptance counts; engine tokens
+identical to the JAX engine's over fp32, int8 and e4m3 pages. The plain versions of kernels P / B2, D1 + D2, B5 and B6 at head dim
 256 with a binding cap against the JAX kernels in interpret mode at atol
 1e-5. The JAX engine runs once, in a module fixture.
 """
@@ -246,9 +247,21 @@ def test_self_draft_speculative_token_identical_to_jax(model):
 
 
 # Two requests (13 and 6 prompt tokens, the first past the window), 5 new
-# tokens each, 2 slots: whole-prompt admission, and chunks of 4 tokens.
-ENGINE_RUNS = {"whole": {}, "chunked": {"prefill_chunk": 4}}
+# tokens each, 2 slots: whole-prompt admission, and chunks of 4 tokens, over
+# fp32 pages and over int8 / e4m3 pages (`kv_dtype`, by name).
+ENGINE_RUNS = {"whole": {}, "chunked": {"prefill_chunk": 4},
+               "whole int8": {"kv_dtype": "int8"},
+               "chunked e4m3": {"prefill_chunk": 4, "kv_dtype": "float8_e4m3fn"}}
 ENGINE_POOL = dict(slots=2, num_pages=33, page_size=8, pages_per_seq=8)
+
+
+def engine_options(name, module):
+    """ENGINE_RUNS[name] with its value dtype taken from `module` (jnp or
+    torch)."""
+    kw = dict(ENGINE_RUNS[name])
+    if "kv_dtype" in kw:
+        kw["kv_dtype"] = getattr(module, kw["kv_dtype"])
+    return kw
 
 
 def engine_prompts():
@@ -261,8 +274,9 @@ def jax_engine_tokens():
     """The JAX engine's tokens for each run of ENGINE_RUNS, once."""
     jcfg, jparams, _, _ = build("caps_bind_1_2", key=3)
     out = {}
-    for name, kw in ENGINE_RUNS.items():
-        eng = JaxServingEngine(jparams, jcfg, **ENGINE_POOL, **kw, interpret=True)
+    for name in ENGINE_RUNS:
+        eng = JaxServingEngine(jparams, jcfg, **ENGINE_POOL, **engine_options(name, jnp),
+                               interpret=True)
         for rid, prompt in engine_prompts().items():
             eng.submit(rid, prompt, 5)
         out[name] = eng.run()
@@ -272,13 +286,15 @@ def jax_engine_tokens():
 @pytest.mark.parametrize("name", list(ENGINE_RUNS))
 def test_engine_token_identical_to_jax_engine(name, jax_engine_tokens):
     _, _, cfg, params = build("caps_bind_1_2", key=3)
-    eng = ServingEngine(params, cfg, **ENGINE_POOL, **ENGINE_RUNS[name])
+    eng = ServingEngine(params, cfg, **ENGINE_POOL, **engine_options(name, torch))
     prompts = engine_prompts()
     for rid, prompt in prompts.items():
         eng.submit(rid, prompt, 5)
     got = eng.run()
     assert not eng.failed and sorted(got) == [0, 1]
     assert got == jax_engine_tokens[name]
+    if "kv_dtype" in ENGINE_RUNS[name]:
+        return  # quantized pages: their rows are not the fp32 cache's
     for rid, prompt in prompts.items():  # and the contiguous-cache greedy chain
         ref = greedy_generate(params, cfg, torch.tensor([prompt]), 5)[0].tolist()
         assert got[rid] == ref

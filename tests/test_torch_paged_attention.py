@@ -16,6 +16,7 @@ import torch
 
 from flash_attention_cute_tpu.ops import paged_attention as jax_pa
 from flash_attention_cute_tpu.runtime import paged_cache as jax_cache
+from flash_attention_cute_tpu_torch import dispatch
 from flash_attention_cute_tpu_torch.ops import paged_attention as pa
 from flash_attention_cute_tpu_torch.runtime import engine, native, paged_cache
 from flash_attention_cute_tpu_torch.runtime.paged_cache import PageAllocator
@@ -120,6 +121,55 @@ def test_extend_plan_parts_fit_tiles_and_pages():
         for ps in range(8, 1032, 8):
             tile, part = pa.extend_plan(d, ps)
             assert tile % part == 0 and ps % part == 0 and part >= 8
+
+
+@pytest.mark.parametrize("d,ps,want", [
+    (64, 8, (64, 8)), (64, 128, (64, 64)), (128, 16, (32, 16)), (128, 128, (32, 32)),
+    (256, 16, (32, 16)), (256, 24, (32, 8)), (128, 8, (32, 8)),
+])
+def test_decode_plan(d, ps, want):
+    """B5 / B8 walk tiles of 64 keys at D 64 and 32 above, each copied in
+    parts of a page, or of the largest divisor of the tile and the page."""
+    assert pa.decode_plan(d, ps) == want
+
+
+def test_decode_plan_parts_fit_tiles_and_pages():
+    for d in (64, 128, 256):
+        for ps in range(8, 1032, 8):
+            tile, part = pa.decode_plan(d, ps)
+            assert tile % part == 0 and ps % part == 0 and part >= 8
+
+
+# The decode shapes of chip_smoke.py's serving runs: (batch, kv heads,
+# table capacity, head dim): runs A-G (8 slots of 2048 keys), Mistral M1 /
+# M2 and Gemma G1 / G2 / G3 (4 slots of 5120 / 5040), Llama's greedy batch.
+SMOKE_DECODES = {"runs_a_g": (8, 8, 2048, 128), "m1": (4, 8, 5120, 128),
+                 "m2": (4, 8, 5040, 128), "g1": (4, 8, 5120, 256), "g2_g3": (4, 8, 5040, 256),
+                 "greedy_b4": (4, 8, 576, 128)}
+
+
+@pytest.mark.parametrize("shape", list(SMOKE_DECODES))
+def test_paged_decode_splits_fill_whole_waves(shape):
+    """At the smoke's decode shapes the grid is one whole wave: at most the
+    card's slots (132 SMs x blocks an SM: 1 at D 256, 2 below) and at
+    least 90 % of them."""
+    b, hkv, cap, d = SMOKE_DECODES[shape]
+    slots = dispatch.NUM_SMS * (1 if d == 256 else 2)
+    blocks = b * hkv * dispatch.paged_decode_splits(b, hkv, cap, d)
+    assert 0.9 * slots <= blocks <= slots
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_paged_decode_splits_at_least_one_and_no_shorter_than_a_tile(d):
+    """At least one split; more than one only where each covers a tile of
+    the capacity; the count is a function of the shapes alone."""
+    tile = dispatch.paged_decode_tile(d)
+    for b in (1, 2, 3, 8, 64, 300):
+        for hkv in (1, 2, 8):
+            for cap in (8, 16, 40, 64, 576, 2048, 5120):
+                s = dispatch.paged_decode_splits(b, hkv, cap, d)
+                assert s >= 1
+                assert s == 1 or cap // s >= tile
 
 
 def test_paged_plain_versions_never_read_past_the_lengths():

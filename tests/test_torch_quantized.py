@@ -6,9 +6,9 @@ kernels run in interpret mode (its own tests' CPU route); the port's CPU
 tensors take the plain versions of kernels B7, B8, B9 and QA. Tolerances:
 `quantize_kv` and the appends must be bit-identical to JAX's; attention
 agrees to 2e-5 absolute at fp32 (the same scores summed in another order).
-The CUDA kernels take the window; B9 also the soft cap and head dim 256,
-B7 and B8 neither. The plain versions take both and are held to the JAX
-kernels with them too.
+The CUDA kernels take the window; B8, B9 and QA also the soft cap (QA has
+none to take) and head dim 256, B7 neither. The plain versions take both
+and are held to the JAX kernels with them too.
 """
 
 import jax.numpy as jnp
@@ -141,6 +141,66 @@ def test_quant_paged_decode_plain_matches_jax_kernel(case):
             assert (got[i] == 0).all()
 
 
+def poisoned_copy(kv: QuantizedKV, table, lens) -> QuantizedKV:
+    """A copy of one pool with NaN scales (and the e4m3 NaN byte 0x7F) at
+    and past each row's length and in page 0, which no table holds."""
+    out = QuantizedKV(kv.values.clone(), kv.scales.clone())
+    hkv, num_pages, ps, d = out.values.shape
+    pps = table.shape[1]
+    dead = np.concatenate([table[b, np.arange(n, pps * ps) // ps] * ps + np.arange(n, pps * ps) % ps
+                           for b, n in enumerate(lens)] + [np.arange(ps)])
+    out.scales.view(hkv, -1)[:, dead] = float("nan")
+    if out.values.dtype == torch.float8_e4m3fn:
+        out.values.view(torch.uint8).view(hkv, -1, d)[:, dead] = 0x7F
+    return out
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_quant_paged_decode_plain_at_d256_with_cap_matches_jax_kernel(name):
+    """B8's plain version at Gemma-2-9B's head dim 256 with a cap of 1.0,
+    which binds on every score, at GQA group 2 (the twin of the bf16 test in
+    tests/test_torch_gemma2.py). The port's pools are NaN at and past every
+    length and in page 0; JAX's are not (its kernel multiplies a dead key's
+    zero probability by the key's V scale). Lengths 64 (the full table), 17
+    and 0; the pool's 4 pages a row are two of JAX's compute blocks."""
+    (jk, jv), (tk, tv), table, rng = paged_pools(40, 3, 2, 4, 16, DTYPES[name][1], d=256)
+    lens = np.asarray([64, 17, 0], np.int32)
+    qa = rng.standard_normal((3, 4, 1, 256), dtype=np.float32)
+    want = jax_q.paged_attention_decode_quantized(
+        jnp.asarray(qa), jk, jv, jnp.asarray(lens), jnp.asarray(table), logit_softcap=1.0,
+        pages_per_compute_block=2, interpret=True)
+    args = (torch.from_numpy(qa), poisoned_copy(tk, table, lens), poisoned_copy(tv, table, lens),
+            torch.from_numpy(lens), torch.from_numpy(table))
+    got = q.paged_attention_decode_quantized(*args, logit_softcap=1.0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    assert (got[2] == 0).all()
+    assert (got - q.paged_attention_decode_quantized(*args)).abs().max() > 1e-2
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_quantize_append_paged_at_d256_bit_identical_to_jax(name):
+    """QA's plain version at head dim 256 through a page table (a row past
+    its table's end, an inactive row): the bytes and scales JAX's
+    `quantize_kv` + scatter write."""
+    jdtype = DTYPES[name][1]
+    rng = np.random.default_rng(14)
+    hkv, ps, s = 2, 8, 3
+    (jk, jv), (tk, tv), _, _ = paged_pools(15, 4, hkv, 4, ps, jdtype, d=256)
+    table = np.array([[5, 9, 2, 14], [1, 7, 11, 3], [16, 4, 6, 8], [10, 12, 13, 15]], np.int32)
+    k_new = rng.standard_normal((4, hkv, s, 256), dtype=np.float32)
+    v_new = rng.standard_normal((4, hkv, s, 256), dtype=np.float32)
+    lengths, active = np.asarray([3, 0, 31, 9], np.int32), np.asarray([True, True, True, False])
+    want = [jax_cache.paged_append_layer_quantized(
+        (slab.values, slab.scales), jnp.asarray(new), jnp.asarray(table), jnp.asarray(lengths),
+        jnp.asarray(active)) for slab, new in ((jk, k_new), (jv, v_new))]
+    q.quantize_append(torch.from_numpy(k_new), torch.from_numpy(v_new), tk, tv,
+                      torch.from_numpy(lengths), torch.from_numpy(table),
+                      torch.from_numpy(active))
+    for got, (vals, scales) in zip((tk, tv), want):
+        assert_same_bytes(got.values, vals)
+        np.testing.assert_array_equal(got.scales.numpy(), np.asarray(scales))
+
+
 PAGED_EXTEND = {
     # name: (dtype, hq, sq, ps, pps, q_offset, kv_length, window, softcap, head_dim)
     "int8_offsets": ("int8", 4, 16, 8, 16, [50, 17], [66, 33], None, None, 64),
@@ -175,9 +235,10 @@ def test_quant_paged_extend_plain_matches_jax_kernel(case):
 
 
 def test_cuda_routes_take_or_refuse_the_cap_and_d256():
-    """Off the CPU (here the `meta` device, on which no kernel runs) B9 takes
-    the soft cap and head dim 256 and stops only at the CUDA-tensor check;
-    B8 refuses both, naming ROADMAP.md A10b."""
+    """Off the CPU (here the `meta` device, on which no kernel runs) B8 and
+    B9 take the soft cap, head dim 256 and B8 groups up to 32, and stop only
+    at the CUDA-tensor check; B7 refuses the cap and D 256, naming
+    ROADMAP.md A10b, and B8 a group above 32."""
     meta = torch.device("meta")
     qm = torch.empty(2, 16, 8, 256, dtype=torch.bfloat16, device=meta)
     kv = QuantizedKV(torch.empty(8, 9, 16, 256, dtype=torch.int8, device=meta),
@@ -187,10 +248,19 @@ def test_cuda_routes_take_or_refuse_the_cap_and_d256():
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         q.paged_attention_extend_quantized(qm, kv, kv, rows, rows, table, window=45,
                                            logit_softcap=50.0)
-    with pytest.raises(NotImplementedError, match="A10b"):
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
         q.paged_attention_decode_quantized(qm[:, :, :1], kv, kv, rows, table, logit_softcap=50.0)
+    q32 = torch.empty(2, 8 * 32, 1, 256, dtype=torch.bfloat16, device=meta)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):  # D 256, group 32
+        q.paged_attention_decode_quantized(q32, kv, kv, rows, table, window=4096)
+    with pytest.raises(NotImplementedError, match="Hq/Hkv <= 32"):
+        q.paged_attention_decode_quantized(torch.cat([q32, q32[:, :8]], 1), kv, kv, rows, table)
+    cache = QuantizedKV(torch.empty(2, 8, 64, 256, dtype=torch.int8, device=meta),
+                        torch.empty(2, 8, 64, device=meta))
+    with pytest.raises(NotImplementedError, match="A10b"):
+        q.flash_attention_decode_quantized(qm[:, :, :1], cache, cache, rows, logit_softcap=50.0)
     with pytest.raises(NotImplementedError, match="A10b"):  # D 256
-        q.paged_attention_decode_quantized(qm[:, :, :1], kv, kv, rows, table)
+        q.flash_attention_decode_quantized(qm[:, :, :1], cache, cache, rows)
 
 
 def test_quant_plain_versions_never_read_past_the_lengths():
