@@ -9,8 +9,8 @@ Phases, in order; any failure exits non-zero:
   1. device: a CUDA card of compute capability 9.0; its name and power limit.
   2. build: every kernel of the main paths from csrc/ (one nvcc per source,
      all at once), with the ptxas register / shared-memory / spill report
-     and, for every B10 / B11, P / B2, B4, B5, B6, B8, B9, B12 and B13a /
-     B13b instantiation, the runtime's registers, spill bytes and launch
+     and, for every B10 / B11, P / B2, B4, D1, B7, B5, B6, B8, B9, B12 and
+     B13a / B13b instantiation, the runtime's registers, spill bytes and launch
      shared memory (no spill allowed); then the native scheduler
      (csrc/page_allocator.cpp) with g++.
   3. kernels vs plain: P / B2 with their lse (PREFILL_CASES: the main
@@ -25,9 +25,14 @@ Phases, in order; any failure exits non-zero:
      EXTEND_CASES (page sizes 8 / 16 / 128, D 64 / 128 / 256, S 1 to 512,
      offsets off the tiles, windows 1 / 45 / 4096, groups 1 / 7 / 8, f16,
      an inactive row of exact zeros, every call repeated bit for bit), B5 /
-     B6 over NaN-poisoned pools behind permuted page tables; then (3b) the
+     B6 over NaN-poisoned pools behind permuted page tables, and D1 + D2
+     over CONTIG_DECODE_CASES["llama"] (D 64 / 128, groups 1-32,
+     capacities no multiple of 4 or of a tile, lengths 0, 1, 37, C - 1, C,
+     NaN tails, the stacked cache, every call repeated bit for bit); then
+     (3b) the
      quantized-cache kernels B7 (decode), B8 (paged decode), B9 (paged
-     extend, over EXTEND_CASES, int8 and e4m3 in turn) over int8 and e4m3
+     extend, over EXTEND_CASES, int8 and e4m3 in turn; B7 also over
+     CONTIG_DECODE_CASES["llama"]) over int8 and e4m3
      values whose scales (and e4m3 values) hold NaN at and past every
      length, and QA (quantize-and-append, paged and contiguous), which must
      be bit-identical to its plain version; (3c)
@@ -49,7 +54,8 @@ Phases, in order; any failure exits non-zero:
      4096 and 8192 (at least every length): B2 (windowed prefill; P where
      the window cannot bind) at S 5120, 1000 and Sq 256 / Skv 1024, and D1 +
      D2 (splits below the window dead) at Mistral-7B's (32 / 8) and
-     Qwen2-7B's (28 / 4, group 7) widths; B4, B5, B6, B7, B8, B9 windowed at
+     Qwen2-7B's (28 / 4, group 7) widths, D1 + D2 and B7 + D2 over
+     CONTIG_DECODE_CASES["window"]; B4, B5, B6, B7, B8, B9 windowed at
      Mistral widths over contexts up to 5152 keys, NaN past every length;
      (3f) the training kernels: the lse of P and B2 against the plain lse
      (finite entries within LSE_TOL, the same +inf rows), then B13a (dK,
@@ -74,7 +80,9 @@ Phases, in order; any failure exits non-zero:
      fp32 plain versions run on q's fp32 image: P (causal B 2 S 4608, Sq 256
      / Skv 1024, ragged S 1000 in f16, Sq 1000 / Skv 64 with rows of no
      key, MQA group 16) and B2 (B 2 S 4608, window 4096), each with its lse
-     (LSE_TOL) and repeated bit for bit, D1
+     (LSE_TOL) and repeated bit for bit, D1 + D2 and B7 + D2 over
+     CONTIG_DECODE_CASES["gemma2"] (D 256 and 128 with the caps, groups 2,
+     16 and 32, capacities 4641, 1027, 770), D1
      + D2 (capacity 4640, windows none and 4096, NaN past every length), B5,
      B6, B8 and B9 (page sizes 16 and 128, NaN-poisoned pools behind
      permuted tables, B6 / B9 with and without the window; B8 / B9 over int8
@@ -156,7 +164,10 @@ Phases, in order; any failure exits non-zero:
      of fp32 logits is 4.7 GB) and decode-step logits at B 2, prompt 4608,
      kernel route against the plain route; greedy generation of 32 tokens
      over a bf16 cache (B2 21, P 21, D1 + D2 31 x 42) with its prefill and
-     decode times; `prompt_lookup_generate` (ngram 2, gamma 4) over a bf16
+     decode times; over int8 and e4m3 caches the decode step, kernel route
+     (QA, B7 + D2 at D 256 with the cap) against the plain route over one
+     and the same cache, and greedy generation (B2 21, P 21, QA 32 x 42, B7
+     + D2 31 x 42); `prompt_lookup_generate` (ngram 2, gamma 4) over a bf16
      cache at B 2 on prompts repeating a 64-token segment 8 times, 32 new
      (B4 at D 256 with the cap: layers x rounds launches, P 42), every token
      teacher-forced; the serving engine over Mistral's 8 long requests in
@@ -188,7 +199,7 @@ Phases, in order; any failure exits non-zero:
      at the training shape also its launches, bound, plain version and
      SDPA's forward);
      the training numbers ("training"); (5d) the "gemma2" entries of the P,
-     B2, D1, D2, B4, B5, B6, B8, B9, B12, QA and append rows at Gemma-2-9B
+     B2, D1, D2, B7, B4, B5, B6, B8, B9, B12, QA and append rows at Gemma-2-9B
      shapes
      with the cap 50 (library_ms: `flex_attention` with a tanh score_mod for
      P / B2 where it compiles, else SDPA without the cap; SDPA without the
@@ -204,7 +215,8 @@ Tolerances: kernel outputs are bf16 results of fp32 arithmetic on bf16
 inputs, held against the fp32 plain version at max |diff| <= 3e-2 (the
 repository's bf16 figure); the quantized kernels too (their int8 / e4m3
 values widen to bf16 exactly, P is rounded to bf16 before PV as in B6,
-and B5 / B6 / B8 / B9 repeat bit for bit), and
+and B5 / B6 / B7 / B8 / B9 and D1 repeat bit for bit; D1 takes P in two
+bf16 parts, so its partials are held to the plain fp32 sums at 1e-2), and
 B10 / B11 (x at unit scale, weights of std fan_in ** -0.5, fp32 sums).
 Teacher-forced logits of the kernel path and the plain-attention path, and
 of a quantized tree and its dequantized image: max |diff| <= 1.0 and mean
@@ -372,6 +384,83 @@ def phase_kernels(torch, flash_fwd, flash_decode, errs):
         check(e2 <= BF16_TOL and e12 <= BF16_TOL, f"D2 and D1+D2 within {BF16_TOL}")
         check(bool(torch.isfinite(out).all()), "decode output finite over a NaN tail")
         check(bool((out[3] == 0).all()), "decode row of length 0 is 0")
+    held_contiguous_decodes(torch, flash_decode, None, errs, gen, CONTIG_DECODE_CASES["llama"],
+                            (None,))
+
+
+# Edges of the contiguous decodes D1 and B7, which run B5 / B8's kernel
+# (name, head dim, q heads, kv heads, capacity, window, soft cap, q's
+# dtype): head dims 64 / 128 / 256, GQA groups 1-32, capacities that are no
+# multiple of 4 nor of a tile (B7's scale rows off every 16-byte boundary),
+# windows, the caps, f16. Each case runs over a stacked [2, B, Hkv, C, D]
+# cache through `layer`, rows of lengths 0, 1, 37, C - 1, C and C / 2 + 3,
+# NaN at and past every length.
+CONTIG_DECODE_CASES = {
+    "llama": (("D 128 group 4 capacity 577", 128, 32, 8, 577, None, None, "bfloat16"),
+              ("D 64 group 1 capacity 1030", 64, 8, 8, 1030, None, None, "bfloat16"),
+              ("D 128 group 2 capacity 130 f16", 128, 16, 8, 130, None, None, "float16"),
+              ("D 64 group 16 capacity 999", 64, 32, 2, 999, None, None, "bfloat16"),
+              ("D 128 group 32 capacity 2051", 128, 32, 1, 2051, None, None, "bfloat16")),
+    "window": (("window 45 group 8 capacity 5153", 128, 32, 4, 5153, 45, None, "bfloat16"),
+               ("window 4096 group 7 capacity 5153", 128, 28, 4, 5153, 4096, None, "bfloat16"),
+               ("window 1 D 64 group 16 capacity 1031", 64, 32, 2, 1031, 1, None, "bfloat16")),
+    "gemma2": (("D 256 group 2 cap 50 capacity 4641", 256, 16, 8, 4641, None, 50.0, "bfloat16"),
+               ("D 256 group 2 cap 1.0 window 4096 capacity 4641", 256, 16, 8, 4641, 4096, 1.0,
+                "bfloat16"),
+               ("D 256 group 16 cap 50 capacity 1027 f16", 256, 16, 1, 1027, None, 50.0,
+                "float16"),
+               ("D 256 group 32 cap 1.0 capacity 770", 256, 32, 1, 770, None, 1.0, "bfloat16"),
+               ("D 128 group 4 cap 50 capacity 577", 128, 32, 8, 577, None, 50.0, "bfloat16")),
+}
+
+
+def held_contiguous_decodes(torch, flash_decode, quantized, errs, gen, cases,
+                            values=(None, "int8", "float8_e4m3fn")):
+    """D1 + D2 (`values` None: a cache in q's dtype) and B7 + D2 (int8 and
+    e4m3 caches, NaN in the scales and e4m3 values past the lengths) on each
+    case of `cases`
+    against their fp32 plain versions run on q's fp32 image; a length-0 row
+    of exact zeros, a second call bit-identical to the first. D1 + D2's
+    errors go to "decode_combine", B7's to "quant_decode" (at D 256 also
+    "quant_decode gemma2")."""
+    for name, d, hq, hkv, cap_len, w, cap, dt in cases:
+        dtype = getattr(torch, dt)
+        lens = [0, 1, 37, cap_len - 1, cap_len, cap_len // 2 + 3]
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        dead = torch.arange(cap_len, device="cuda")[None, :] >= lengths[:, None]
+        dead = dead[None, :, None, :].expand(2, -1, hkv, -1)
+        q = torch.randn((len(lens), hq, 1, d), generator=gen, device="cuda").to(dtype)
+        for vname in values:
+            caches = []
+            for _ in "kv":
+                x = torch.randn((2, len(lens), hkv, cap_len, d), generator=gen, device="cuda")
+                if vname is None:
+                    x = x.to(dtype)
+                    x[dead] = float("nan")
+                else:
+                    x = quantized.quantize_kv(x, getattr(torch, vname))
+                    poison_quant(torch, x, dead)
+                caches.append(x)
+            if vname is None:
+                key, what = "decode_combine", f"D1 + D2 {name}"
+                fn = flash_decode.flash_attention_decode
+                plain = flash_decode.flash_attention_decode_plain
+            else:
+                key, what = "quant_decode", f"B7 + D2 {vname} {name}"
+                fn = quantized.flash_attention_decode_quantized
+                plain = quantized.flash_attention_decode_quantized_plain
+            kw = dict(window=w, logit_softcap=cap, layer=1)
+            out, again = fn(q, *caches, lengths, **kw), fn(q, *caches, lengths, **kw)
+            e = max_err(out, plain(q.float(), *caches, lengths, **kw))
+            for k in (key, f"{key} gemma2") if vname is not None and d == 256 else (key,):
+                errs[k] = max(errs.get(k, 0.0), e)
+            print(f"  {what}, lengths {lens}: max|diff| {e:.3e}")
+            check(bool(torch.isfinite(out).all()), f"{what}: output finite over NaN tails")
+            check(bool((out[0] == 0).all()), f"{what}: row of length 0 is exactly 0")
+            check(torch.equal(out, again), f"{what}: a second call repeats the first bit for bit")
+            check(e <= BF16_TOL, f"{what} within {BF16_TOL}")
+            del caches
+        torch.cuda.empty_cache()
 
 
 # Phase 3d: (name, dtype, S, capacity, q_offset, kv_length (None:
@@ -660,6 +749,8 @@ def phase_quant_kernels(torch, quantized, errs):
         ref = quantized.flash_attention_decode_quantized_plain(q, k, v, lengths, layer=1)
         record("quant_decode", max_err(out, ref), f"B7 {dname} lengths {lens}", out, [0])
         del k, v
+        held_contiguous_decodes(torch, None, quantized, errs, gen, CONTIG_DECODE_CASES["llama"],
+                                (dname,))
 
         for ps in (16, 128):
             # B8: B5's length set.
@@ -774,7 +865,7 @@ def phase_window_kernels(torch, ops, errs):
             kc[:, i, :, n:] = float("nan")
             vc[:, i, :, n:] = float("nan")
         q = randn(len(lens), hq, 1, 128)
-        splits = ops["dispatch"].decode_num_splits(len(lens), hkv, 5152)
+        splits = ops["dispatch"].decode_num_splits(len(lens), hkv, 5152, 128)
         for w in WINDOW_SIZES:
             acc, m, l = flash_decode.decode_partials(q, kc[1], vc[1], lengths, 128 ** -0.5,
                                                      splits, w)
@@ -794,6 +885,7 @@ def phase_window_kernels(torch, ops, errs):
                                                                            layer=1)),
                       "D1 + D2: a window of at least the length is no window")
         del kc, vc
+    held_contiguous_decodes(torch, flash_decode, qz, errs, gen, CONTIG_DECODE_CASES["window"])
 
     # B4: the verify shape and a chunk, windows crossing the chunk.
     for name, s, offs in (("verify S5", 5, [0, 100, 4100, 5000]),
@@ -1667,7 +1759,7 @@ def phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode):
     live = PROMPT + NEW // 2
     lengths = torch.full((B,), live, dtype=torch.int32, device="cuda")
     from flash_attention_cute_tpu_torch import dispatch
-    splits = dispatch.decode_num_splits(B, hkv, CAPACITY)
+    splits = dispatch.decode_num_splits(B, hkv, CAPACITY, d)
     scale = d ** -0.5
     acc, m, l = flash_decode.decode_partials(qd, kc, vc, lengths, scale, splits)
     part_bytes = 4 * (acc.numel() + m.numel() + l.numel())
@@ -1688,9 +1780,11 @@ def phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode):
         "plain_ms": cuda_time_ms(lambda: flash_decode.decode_partials_plain(qd, kc, vc, lengths, scale, splits), 10),
         "library_ms": sdpa_dec_ms, "with_combine_ms": dec_ms,
         "library_of": LIBRARY_OF_D1,
+        # As B5 / B8's rows: operations at the bf16 tensor peak, the split
+        # partials not counted.
         "ops": 4 * B * hq * live * d,
-        "bytes": 2 * qd.numel() + 2 * 2 * B * hkv * live * d + 4 * B + part_bytes,
-        "peak": PEAK_F32,
+        "bytes": 2 * qd.numel() + 2 * 2 * B * hkv * live * d + 4 * B,
+        "peak": PEAK_BF16,
     })
     rows.append({
         "name": "decode_combine", "route": "cuda",
@@ -1797,7 +1891,7 @@ def paged_rows(torch, cfg, randn, gen):
     lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
     q = randn(b, hq, 1, d)
     live = sum(lens_list)
-    splits = dispatch.paged_decode_splits(b, hkv, pps * ps, d)
+    splits = dispatch.decode_num_splits(b, hkv, pps * ps, d)
     kc, vc = (pa.gather_pages(x, table).repeat_interleave(rep, dim=1) for x in (kp, vp))
     mask = (torch.arange(pps * ps, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
     rows.append({
@@ -1911,7 +2005,7 @@ def quant_rows(torch, cfg, randn, gen):
     k, v = (qz.quantize_kv(randn(b, hkv, cap, d), torch.int8) for _ in "kv")
     q = randn(b, hq, 1, d)
     lengths = torch.full((b,), live, dtype=torch.int32, device="cuda")
-    splits = dispatch.decode_num_splits(b, hkv, cap)
+    splits = dispatch.decode_num_splits(b, hkv, cap, d)
     kc, vc = dense_copy(k), dense_copy(v)
     mask = (torch.arange(cap, device="cuda") < live)[None, None, None, :]
     rows.append({
@@ -1922,8 +2016,8 @@ def quant_rows(torch, cfg, randn, gen):
                 lambda: f.scaled_dot_product_attention(q, kc, vc, attn_mask=mask)),
         "ops": 4 * b * hq * live * d,
         "bytes": (2 * q.numel() + 2 * b * hkv * live * d + 2 * 4 * b * hkv * live + 4 * b
-                  + 4 * b * hkv * splits * rep * (d + 2) + 2 * q.numel()),
-        "peak": PEAK_F32,
+                  + 2 * q.numel()),
+        "peak": PEAK_BF16,
         "shape": f"B {b}, cache {cap}, lengths {live}, int8, splits {splits}; ms includes D2",
     })
     del k, v, kc, vc
@@ -1935,7 +2029,7 @@ def quant_rows(torch, cfg, randn, gen):
     lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
     q = randn(b, hq, 1, d)
     live = sum(lens_list)
-    splits = dispatch.paged_decode_splits(b, hkv, pps * ps, d)
+    splits = dispatch.decode_num_splits(b, hkv, pps * ps, d)
     kc, vc = dense_copy(k, table), dense_copy(v, table)
     mask = (torch.arange(pps * ps, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
     rows.append({
@@ -2170,42 +2264,55 @@ def phase_mistral(torch, cfg, params, kernels, path_counts):
     serving engine in runs M1 (whole-prompt admission: B2, B5 + D2, the
     append) and M2 (chunked admission: B6, B5 + D2), every token
     teacher-forced through one contiguous prefill (B2)."""
-    import dataclasses
-    from flash_attention_cute_tpu_torch.models.cache import QuantizedKVCache
-    from flash_attention_cute_tpu_torch.models.transformer import forward
-    from flash_attention_cute_tpu_torch.runtime.generate import greedy_generate
-
-    label, n = "Mistral-7B", cfg.num_layers
+    label = "Mistral-7B"
     ids, _, results = phase_family(torch, cfg, params, 7, MISTRAL_B, MISTRAL_PROMPT,
                                    MISTRAL_NEW, kernels, path_counts, label)
 
-    # int8 cache: the decode step over one and the same cache, kernel route
-    # (QA, B7 + D2) against the plain route; then greedy generation.
-    with torch.no_grad():
-        cache = QuantizedKVCache.create(cfg, MISTRAL_B, MISTRAL_CAPACITY, torch.int8)
-        logits, cache = forward(params, cfg, ids, cache=cache)
-        tok = logits[:, -1].argmax(-1)[:, None]
-        del logits
-        twin = dataclasses.replace(cache, **{f: getattr(cache, f).clone() for f in (
-            "k_values", "k_scales", "v_values", "v_scales")})
-        a = forward(params, cfg, tok, cache=cache, mode="decode")[0]
-        b = forward(params, cfg, tok, cache=twin, mode="decode", plain_attention=True)[0]
-        del cache, twin
-    results["int8_decode_step_max_mean_diff"] = check_logits(
-        torch, f"{label} int8-cache decode step, kernel route (B7) vs plain", a, b)
-    tokens, wall, counts = counted_run(torch, kernels, lambda: greedy_generate(
-        params, cfg, ids, MISTRAL_NEW, cache_capacity=MISTRAL_CAPACITY, cache_dtype=torch.int8))
-    path_counts[f"{label} greedy int8"] = counts
-    print(f"  {label} greedy_generate int8 cache: {wall:.3f} s, launches "
-          f"{ {k: c for k, c in counts.items() if c} }")
-    check_counts(counts, {"flash_fwd_window": n, "quant_append": n * MISTRAL_NEW,
-                          "quant_decode": n * (MISTRAL_NEW - 1),
-                          "decode_combine": n * (MISTRAL_NEW - 1)}, f"{label} greedy int8")
-    results["greedy_int8_wall_s"] = wall
-    torch.cuda.empty_cache()
-
+    results.update(quantized_greedy(torch, cfg, params, ids, MISTRAL_NEW, kernels,
+                                    path_counts, label, ("int8",)))
     results.update(serve_long_requests(torch, cfg, params, kernels, path_counts, label,
                                        MISTRAL_SERVING_RUNS))
+    return results
+
+
+def quantized_greedy(torch, cfg, params, ids, new, kernels, path_counts, label, values):
+    """Over a cache of each value type of `values`: the decode step after
+    the prefill of `ids` over one and the same cache, kernel route (QA, B7 +
+    D2) against the plain route; then `greedy_generate` of `new` tokens with
+    its exact launch counts: the prefill's, QA layers x new, B7 and D2
+    layers x (new - 1)."""
+    import dataclasses
+    from flash_attention_cute_tpu_torch.models.transformer import forward
+    from flash_attention_cute_tpu_torch.runtime.generate import greedy_generate, prefill
+
+    n, prompt = cfg.num_layers, ids.shape[1]
+    results = {}
+    for vname in values:
+        dtype, short = getattr(torch, vname), vname.replace("float8_e4m3fn", "e4m3")
+        with torch.no_grad():
+            last, cache = prefill(params, cfg, ids, prompt + new, dtype)
+            tok = last.argmax(-1)[:, None]
+            del last
+            twin = dataclasses.replace(cache, **{f: getattr(cache, f).clone() for f in (
+                "k_values", "k_scales", "v_values", "v_scales")})
+            a = forward(params, cfg, tok, cache=cache, mode="decode")[0]
+            b = forward(params, cfg, tok, cache=twin, mode="decode", plain_attention=True)[0]
+            del cache, twin
+        results[f"{short}_decode_step_max_mean_diff"] = check_logits(
+            torch, f"{label} {short}-cache decode step, kernel route (B7) vs plain", a, b)
+        del a, b
+        tokens, wall, counts = counted_run(torch, kernels, lambda: greedy_generate(
+            params, cfg, ids, new, cache_capacity=prompt + new, cache_dtype=dtype))
+        path_counts[f"{label} greedy {short}"] = counts
+        print(f"  {label} greedy_generate {short} cache: {wall:.3f} s, launches "
+              f"{ {k: c for k, c in counts.items() if c} }")
+        check(tuple(tokens.shape) == (ids.shape[0], new) and bool(
+            ((tokens >= 0) & (tokens < cfg.vocab_size)).all()), f"{label} {short}: tokens")
+        check_counts(counts, {**prefill_counts(cfg, prompt), "quant_append": n * new,
+                              "quant_decode": n * (new - 1), "decode_combine": n * (new - 1)},
+                     f"{label} greedy {short}")
+        results[f"greedy_{short}_wall_s"] = wall
+        torch.cuda.empty_cache()
     return results
 
 
@@ -2353,10 +2460,9 @@ def window_rows(torch, ops, gen):
     # D1 and B7 at the Mistral greedy middle decode step (5136 keys, W 4096).
     b, cap, live = MISTRAL_B, MISTRAL_CAPACITY, MISTRAL_PROMPT + MISTRAL_NEW // 2
     lengths = torch.full((b,), live, dtype=torch.int32, device="cuda")
-    splits = dispatch.decode_num_splits(b, hkv, cap)
+    splits = dispatch.decode_num_splits(b, hkv, cap, d)
     q = randn(b, hq, 1, d)
     kc, vc = randn(b, hkv, cap, d), randn(b, hkv, cap, d)
-    part_bytes = 4 * b * hkv * splits * rep * (d + 2)
     shape = f"B {b}, cache {cap}, lengths {live}, window {w}, splits {splits}"
     pos = torch.arange(cap, device="cuda")
     dmask = ((pos < live) & (pos >= live - w))[None, None, None, :]
@@ -2365,8 +2471,8 @@ def window_rows(torch, ops, gen):
         lambda: flash_decode.decode_partials(q, kc, vc, lengths, d ** -0.5, splits, w),
         lambda: flash_decode.decode_partials_plain(q, kc, vc, lengths, d ** -0.5, splits, w),
         lambda: f.scaled_dot_product_attention(q, kcr, vcr, attn_mask=dmask),
-        4 * b * hq * w * d, 2 * q.numel() + 2 * 2 * b * hkv * w * d + 4 * b + part_bytes,
-        PEAK_F32, shape, 50, 10)
+        4 * b * hq * w * d, 2 * q.numel() + 2 * 2 * b * hkv * w * d + 4 * b,
+        PEAK_BF16, shape, 50, 10)
     rows["decode_partials"].update(
         library_of=LIBRARY_OF_D1, with_combine_ms=cuda_time_ms(
             lambda: flash_decode.flash_attention_decode(q, kc, vc, lengths, window=w), 50))
@@ -2377,8 +2483,8 @@ def window_rows(torch, ops, gen):
         lambda: qz.flash_attention_decode_quantized(q, k8, v8, lengths, window=w),
         lambda: qz.flash_attention_decode_quantized_plain(q, k8, v8, lengths, window=w),
         lambda: f.scaled_dot_product_attention(q, kd, vd, attn_mask=dmask),
-        4 * b * hq * w * d, 2 * q.numel() + 2 * b * hkv * w * (d + 4) + 4 * b + part_bytes
-        + 2 * q.numel(), PEAK_F32, shape + ", int8; ms includes D2", 50, 10)
+        4 * b * hq * w * d, 2 * q.numel() + 2 * b * hkv * w * (d + 4) + 4 * b
+        + 2 * q.numel(), PEAK_BF16, shape + ", int8; ms includes D2", 50, 10)
     del kc, vc, k8, v8, kd, vd
 
     # B4: a 256-token chunk at q_offset 4608 / 4864 (every query past W).
@@ -2409,7 +2515,7 @@ def window_rows(torch, ops, gen):
     kc, vc = (pa.gather_pages(x, table).repeat_interleave(rep, dim=1) for x in (kp, vp))
     tables = 4 * (b + sum(-(-min(n, w) // ps) + 1 for n in lens_list))
     shape = (f"B {b}, page_size {ps}, lengths {lens_list}, window {w}, splits "
-             f"{dispatch.paged_decode_splits(b, hkv, pps * ps, d)}")
+             f"{dispatch.decode_num_splits(b, hkv, pps * ps, d)}")
     rows["paged_decode"] = measure(
         lambda: pa.paged_attention_decode(q, kp, vp, lens, table, window=w),
         lambda: pa.paged_attention_decode_plain(q, kp, vp, lens, table, window=w),
@@ -3066,7 +3172,8 @@ GEMMA2_KEEP = 64  # teacher forcing compares every 64th prefill position and the
 
 
 def phase_gemma2_kernels(torch, ops, errs):
-    """P / B2, D1 + D2, B5, B6, B9 and the paged append at Gemma-2-9B
+    """D1 + D2 and B7 + D2 over CONTIG_DECODE_CASES["gemma2"]; P / B2, D1 +
+    D2, B5, B6, B9 and the paged append at Gemma-2-9B
     attention widths (Hq 16, Hkv 8, D 256, scale 256 ** -0.5) with the soft
     caps 50 and 1.0, and P, D1, B5, B6, B9 with the caps at Llama widths (32
     / 8, D 128), against their fp32 plain versions (run on q's fp32 image);
@@ -3096,6 +3203,7 @@ def phase_gemma2_kernels(torch, ops, errs):
         check(bool(torch.isfinite(out).all()), f"{what}: finite")
         check(e <= tol, f"{what} within {tol}")
 
+    held_contiguous_decodes(torch, flash_decode, qz, errs, gen, CONTIG_DECODE_CASES["gemma2"])
     for cap in GEMMA2_CAPS:
         for name, b, sq, skv, w, dt, (hq, hkv, d) in (
                 ("causal B2 S4608", 2, 4608, 4608, None, torch.bfloat16, (16, 8, 256)),
@@ -3250,7 +3358,10 @@ def phase_gemma2(torch, cfg, params, kernels, path_counts):
     the last) and decode-step logits of the kernel route against the plain
     route, a row at a time; greedy generation over a bf16 cache (B2 on the
     21 windowed layers, P on the 21 full ones; D1 + D2 per layer and step)
-    and its prefill and decode times; then the serving engine in runs G1
+    and its prefill and decode times; over int8 and e4m3 caches the decode
+    step, kernel route (QA, B7 + D2 at D 256 with the cap) against the plain
+    route, and greedy generation with its launch counts
+    (`quantized_greedy`); then the serving engine in runs G1
     (whole-prompt admission, page_size 128), G2 (chunked admission of 512,
     page_size 16) and G3 (G2 over int8 pages: B9, B8 and QA at D 256 with
     the cap) over `mistral_requests`, every token teacher-forced."""
@@ -3258,6 +3369,8 @@ def phase_gemma2(torch, cfg, params, kernels, path_counts):
     keep = torch.arange(0, GEMMA2_PROMPT, GEMMA2_KEEP).tolist() + [GEMMA2_PROMPT - 1]
     ids, _, results = phase_family(torch, cfg, params, 9, GEMMA2_B, GEMMA2_PROMPT, GEMMA2_NEW,
                                    kernels, path_counts, label, keep=keep)
+    results.update(quantized_greedy(torch, cfg, params, ids, GEMMA2_NEW, kernels, path_counts,
+                                    label, ("int8", "float8_e4m3fn")))
     results["prompt lookup"] = gemma2_prompt_lookup(torch, cfg, params, kernels, path_counts,
                                                     label)
     results.update(serve_long_requests(torch, cfg, params, kernels, path_counts, label, {
@@ -3352,10 +3465,11 @@ def flex_or_sdpa(torch, q, k, v, cap, window):
 
 
 def gemma2_rows(torch, ops, gen):
-    """The `gemma2` entries of the P, B2, D1, D2, B5, B6, B8, B9, QA and
+    """The `gemma2` entries of the P, B2, D1, D2, B7, B5, B6, B8, B9, QA and
     append rows, at Gemma-2-9B shapes with the soft cap 50: P and B2 at the
     greedy prefill (B 2, S 4608; B2 with W 4096), D1 / D2 at the greedy
-    middle decode step (B 2, 4624 of 4640 positions, a full layer), B5 at
+    middle decode step (B 2, 4624 of 4640 positions, a full layer), B7 + D2
+    there over int8 and (its "e4m3" entry) e4m3 values, B5 at
     run G1's decode (4 slots, page_size 128) and B8 there over int8 pages,
     QA at run G3's decode (one token a row into int8 pages of 16), B6 at run
     G2's extend (4 rows of 512, page_size 16, on a full layer) and B9 there
@@ -3365,7 +3479,7 @@ def gemma2_rows(torch, ops, gen):
     q_offset 4096 / 4352); B12 over 3g's 32 packed
     sequences (causal). library_ms: see `flex_or_sdpa` for P / B2; SDPA
     without the soft cap over a contiguous copy for B5 / B6 (dequantized for
-    B8 / B9; the copy not timed), over the contiguous cache with the extend mask
+    B7 / B8 / B9; the copy not timed), over the contiguous cache with the extend mask
     for B4, over the padded batch for B12; `index_copy_` for the append;
     null for D2 and QA (no call merges split partials or quantizes); D1's is
     one SDPA call over the length-masked cache (GQA expanded, without the
@@ -3376,6 +3490,7 @@ def gemma2_rows(torch, ops, gen):
     from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms
 
     flash_fwd, flash_decode, pa = ops["flash_fwd"], ops["flash_decode"], ops["paged_attention"]
+    qz = ops["quantized"]
     f = torch.nn.functional
     hq, hkv, d, cap, w = 16, 8, 256, 50.0, WINDOW
     rep, scale = hq // hkv, d ** -0.5
@@ -3408,7 +3523,7 @@ def gemma2_rows(torch, ops, gen):
     cap_len, live = GEMMA2_CAPACITY, GEMMA2_PROMPT + GEMMA2_NEW // 2
     kc, vc, qd = randn(b, hkv, cap_len, d), randn(b, hkv, cap_len, d), randn(b, hq, 1, d)
     lengths = torch.full((b,), live, dtype=torch.int32, device="cuda")
-    splits = dispatch.decode_num_splits(b, hkv, cap_len)
+    splits = dispatch.decode_num_splits(b, hkv, cap_len, d)
     acc, m, l = flash_decode.decode_partials(qd, kc, vc, lengths, scale, splits, None, cap)
     part_bytes = 4 * (acc.numel() + m.numel() + l.numel())
     shape = f"B {b}, cache {cap_len}, lengths {live}, splits {splits}, D {d}, soft cap {cap:g}"
@@ -3418,13 +3533,33 @@ def gemma2_rows(torch, ops, gen):
         lambda: flash_decode.decode_partials(qd, kc, vc, lengths, scale, splits, None, cap),
         lambda: flash_decode.decode_partials_plain(qd, kc, vc, lengths, scale, splits, None, cap),
         lambda: f.scaled_dot_product_attention(qd, kcr, vcr, attn_mask=dmask),
-        4 * b * hq * live * d, 2 * qd.numel() + 2 * 2 * b * hkv * live * d + 4 * b
-        + part_bytes, PEAK_F32, shape + "; library_ms: SDPA without the soft cap", 50, 10)
+        4 * b * hq * live * d, 2 * qd.numel() + 2 * 2 * b * hkv * live * d + 4 * b,
+        PEAK_BF16, shape + "; library_ms: SDPA without the soft cap", 50, 10)
     rows["decode_partials"].update(
         library_of=LIBRARY_OF_D1, with_combine_ms=cuda_time_ms(
             lambda: flash_decode.flash_attention_decode(qd, kc, vc, kv_length=lengths,
                                                         logit_softcap=cap), 50))
     del kcr, vcr
+    # B7 + D2 over the same keys quantized to int8 (the row) and e4m3 (its
+    # "e4m3" entry); library_ms: SDPA over a dequantized bf16 copy without
+    # the cap.
+    for vname in ("int8", "float8_e4m3fn"):
+        k8, v8 = (qz.quantize_kv(x, getattr(torch, vname)) for x in (kc, vc))
+        kd, vd = (qz.dequantize_kv(x, torch.bfloat16).repeat_interleave(rep, dim=1)
+                  for x in (k8, v8))
+        entry = measure(
+            lambda: qz.flash_attention_decode_quantized(qd, k8, v8, lengths, logit_softcap=cap),
+            lambda: qz.flash_attention_decode_quantized_plain(qd, k8, v8, lengths,
+                                                              logit_softcap=cap),
+            lambda: f.scaled_dot_product_attention(qd, kd, vd, attn_mask=dmask),
+            4 * b * hq * live * d, 2 * 2 * qd.numel() + 2 * b * hkv * live * (d + 4) + 4 * b,
+            PEAK_BF16, f"{shape}, {vname}; ms includes D2; library_ms: SDPA over a dequantized "
+            "copy without the soft cap", 50, 10)
+        if vname == "int8":
+            rows["quant_decode"] = entry
+        else:
+            rows["quant_decode"]["e4m3"] = entry
+        del k8, v8, kd, vd
     rows["decode_combine"] = measure(
         lambda: flash_decode.decode_combine(acc, m, l, torch.bfloat16),
         lambda: flash_decode.decode_combine_plain(acc, m, l, torch.bfloat16),
@@ -3444,7 +3579,7 @@ def gemma2_rows(torch, ops, gen):
     live = sum(lens_list)
     tables = 4 * (b + sum(-(-n // ps) for n in lens_list))
     shape = (f"B {b}, page_size {ps}, lengths {lens_list}, splits "
-             f"{dispatch.paged_decode_splits(b, hkv, pps * ps, d)}, D {d}, soft cap {cap:g} "
+             f"{dispatch.decode_num_splits(b, hkv, pps * ps, d)}, D {d}, soft cap {cap:g} "
              "(a full layer); ms includes D2; library_ms: SDPA without the soft cap")
     rows["paged_decode"] = measure(
         lambda: pa.paged_attention_decode(q, kp, vp, lens, table, logit_softcap=cap),
@@ -3460,7 +3595,7 @@ def gemma2_rows(torch, ops, gen):
     kd, vd = (qz._gather_dequantized(x, table8).to(torch.bfloat16).repeat_interleave(rep, dim=1)
               for x in (k8, v8))
     shape8 = (f"B {b}, page_size {ps}, lengths {lens_list}, splits "
-              f"{dispatch.paged_decode_splits(b, hkv, pps * ps, d)}, D {d}, soft cap "
+              f"{dispatch.decode_num_splits(b, hkv, pps * ps, d)}, D {d}, soft cap "
               f"{cap:g}, int8 (a full layer); ms includes D2; library_ms: SDPA without the "
               "soft cap over a dequantized bf16 copy")
     rows["quant_paged_decode"] = measure(
@@ -3634,15 +3769,18 @@ def main() -> int:
         for line in log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
-    print("  B10 / B11, P / B2, B4, B6, B9, B12 and B13a / B13b instantiations (the runtime's "
+    print("  B10 / B11, P / B2, B4, D1, B7, B5, B6, B8, B9, B12 and B13a / B13b instantiations "
+          "(the runtime's "
           "attributes, launch shared memory; the consumers of P / B2, B4, B6, B12 and B13a / "
           "B13b raise theirs to 240 by setmaxnreg, B9's to 232):")
     fwd_report, bwd_report = flash_fwd.kernel_report(), flash_bwd.kernel_report()
     b6_report, b9_report = paged_attention.kernel_report(), quantized.extend_kernel_report()
     b4_report, b12_report = flash_chunked.kernel_report(), flash_varlen.kernel_report()
     b5_report, b8_report = paged_attention.decode_kernel_report(), quantized.decode_kernel_report()
+    d1_report, b7_report = flash_decode.kernel_report(), quantized.contiguous_decode_kernel_report()
     for line in (quantized_matmul.kernel_report().splitlines() + fwd_report.splitlines()
-                 + b4_report.splitlines() + b5_report.splitlines() + b6_report.splitlines()
+                 + b4_report.splitlines() + d1_report.splitlines() + b7_report.splitlines()
+                 + b5_report.splitlines() + b6_report.splitlines()
                  + b8_report.splitlines() + b9_report.splitlines()
                  + b12_report.splitlines() + bwd_report.splitlines()):
         print(f"    {line}")
@@ -3797,7 +3935,9 @@ def main() -> int:
             label = "B13a D128 bf16" if r["name"] == "flash_bwd_dkv" else "B13b D128 bf16"
             r["runtime_attributes"] = runtime_attributes(bwd_report, label)
     rows += trows
-    paged_reports = {"paged_decode": (b5_report, "B5 bf16 D128", "B5 bf16 D256 cap"),
+    paged_reports = {"decode_partials": (d1_report, "D1 bf16 D128", "D1 bf16 D256 cap"),
+                     "quant_decode": (b7_report, "B7 bf16 int8 D128", "B7 bf16 int8 D256 cap"),
+                     "paged_decode": (b5_report, "B5 bf16 D128", "B5 bf16 D256 cap"),
                      "quant_paged_decode": (b8_report, "B8 bf16 int8 D128",
                                             "B8 bf16 int8 D256 cap"),
                      "paged_extend": (b6_report, "B6 bf16 D128", "B6 bf16 D256 cap"),

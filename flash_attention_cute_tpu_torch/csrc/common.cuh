@@ -1,6 +1,6 @@
 // Helpers shared by the attention kernels: element types, the bf16/f16
-// tensor-core product m16n8k16 (mma.sync), loads of K/V elements (bf16,
-// f16, or the int8 / e4m3 values of a quantized cache), and warp reductions.
+// tensor-core product m16n8k16 (mma.sync), the rounding of the int8 / e4m3
+// values of a quantized cache, and a warp reduction.
 //
 // The kernels are built by nvcc into shared libraries with a plain C
 // interface (ops/_build.py) and called through ctypes: pointers and the
@@ -72,18 +72,6 @@ struct Elem<__half> {
   }
 };
 
-// Eight consecutive elements (one 16-byte load) to floats.
-template <typename T>
-__device__ __forceinline__ void unpack8(const uint4& raw, float (&out)[8]) {
-  const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) out[i] = Elem<T>::to_float(e[i]);
-}
-
-// A quantized value to float (exact for both types).
-__device__ __forceinline__ float kv_float(int8_t x) { return static_cast<float>(x); }
-__device__ __forceinline__ float kv_float(e4m3 x) { return static_cast<float>(x); }
-
 // Largest magnitude a quantized value takes (ops/quantized.py INT8_MAX,
 // FP8_E4M3_MAX), and the rounding of x / scale to it: half to even, as
 // the plain version's torch.round and .to(float8_e4m3fn) round.
@@ -94,29 +82,9 @@ __device__ __forceinline__ void kv_round(float x, int8_t* out) {
 }
 __device__ __forceinline__ void kv_round(float x, e4m3* out) { *out = e4m3(x); }
 
-// Eight consecutive K/V elements to floats: one 16-byte load of a bf16 /
-// f16 cache, one 8-byte load of an int8 / e4m3 one.
-template <typename KV>
-__device__ __forceinline__ void load8(const KV* p, float (&out)[8]) {
-  if constexpr (sizeof(KV) == 2) {
-    unpack8<KV>(*reinterpret_cast<const uint4*>(p), out);
-  } else {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const KV* e = reinterpret_cast<const KV*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) out[i] = kv_float(e[i]);
-  }
-}
-
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
 

@@ -3,18 +3,18 @@
 //
 // D1 replaces the TPU kernel flash_attention_cute_tpu/ops/flash_decode.py
 // `_flash_decode_kernel` (pallas_call at :311), sliding window (keys
-// n >= length - W; splits wholly below it are dead), tanh soft cap and head
-// dims 64, 128 and 256 included; D2 replaces the
-// XLA combine
-// at flash_decode.py:345-358 and also merges the splits of the paged decode
-// kernel B5 (paged_attention.cu), whose partials have the same layout.
+// n >= length - W), tanh soft cap, head dims 64, 128 and 256 and GQA groups
+// up to 32 included; D2 replaces the XLA combine at flash_decode.py:345-358
+// and also merges the splits of B5, B7 and B8, whose partials have the
+// same layout.
 //
-// D1's kernel body is shared with B5 (decode_partials.cuh, which holds the
-// note on what bounds it and its design); here it walks a contiguous cache
-// whose KV axis is cut into `num_splits` chunks of `chunk` positions. D2 is
-// a small pass over the fp32 partials. Not yet done (later work): a single
-// fused launch for D1 and D2.
-#include "decode_partials.cuh"
+// D1 is the kernel of B5 (paged_decode.cuh, which holds the note on what
+// bounds it and its design) over a contiguous cache: one layer's [B, Hkv,
+// C, D] is read as a pool of B pages of C keys through one 4-D TMA map, and
+// split s takes the keys [s chunk, (s + 1) chunk) of the visible range,
+// chunk = ceil(C / num_splits). D2 is a small pass over the fp32 partials.
+// Not yet done (later work): a single fused launch for D1 and D2.
+#include "paged_decode.cuh"
 
 namespace fact {
 
@@ -44,8 +44,9 @@ __global__ void decode_combine_kernel(const float* __restrict__ acc, const float
 
 }  // namespace fact
 
-// Both return a cudaError_t code (0 on success). Shapes, strides and the
-// group bound (G <= 8) are checked by the Python wrapper (ops/flash_decode.py).
+// Both return a cudaError_t code (0 on success). Shapes, strides, their
+// 16-byte alignment and the group bound (G <= 32) are checked by the
+// Python wrapper (ops/flash_decode.py).
 extern "C" int fact_decode_partials(const void* q, const void* k, const void* v,
                                     const void* lengths, void* acc, void* m, void* l,
                                     int batch, int hkv, int group, int capacity, int d,
@@ -56,24 +57,36 @@ extern "C" int fact_decode_partials(const void* q, const void* k, const void* v,
                                     float scale_log2, float softcap_log2, int window, int dtype,
                                     void* stream) {
   using namespace fact;
-  DecodeParams p{};
+  PagedDecodeParams p{};
   p.q = q;
-  p.k = k;
-  p.v = v;
   p.lengths = static_cast<const int*>(lengths);
   p.acc = static_cast<float*>(acc);
   p.m = static_cast<float*>(m);
   p.l = static_cast<float*>(l);
   p.q_sb = q_sb, p.q_sh = q_sh;
-  p.k_sb = k_sb, p.k_sh = k_sh, p.k_ss = k_ss;
-  p.v_sb = v_sb, p.v_sh = v_sh, p.v_ss = v_ss;
-  p.hkv = hkv, p.group = group, p.capacity = capacity;
-  p.num_splits = num_splits, p.chunk = chunk;
-  p.scale_log2 = scale_log2;
-  p.softcap_log2 = softcap_log2;
-  p.softcap_rcp = softcap_log2 > 0.f ? 1.f / softcap_log2 : 0.f;
+  p.hkv = hkv, p.group = group, p.num_splits = num_splits;
+  p.pps = 1, p.page_size = capacity, p.chunk = chunk;
+  p.sc = scores(scale_log2, softcap_log2);
   p.window = window;
-  return dispatch_partials<false>(p, batch, d, dtype, static_cast<cudaStream_t>(stream));
+  const PagedViews w{q, k, v, q_sb, q_sh, 0, k_sh, k_sb, k_ss, v_sh, v_sb, v_ss,
+                     hkv, batch, dtype};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16) return dispatch_paged_decode<__nv_bfloat16, __nv_bfloat16, true>(p, w, batch, d, s);
+  if (dtype == kF16) return dispatch_paged_decode<__half, __half, true>(p, w, batch, d, s);
+  return cudaErrorInvalidValue;
+}
+
+// Writes the report of every D1 instantiation (registers, local (spill)
+// bytes, shared memory) into `out` (at most `cap` bytes, NUL-terminated);
+// returns 0.
+extern "C" int fact_decode_report(char* out, int cap) {
+  int used = 0;
+  if (cap <= 0) return 0;
+  out[0] = 0;
+  fact::report_paged_decode<__nv_bfloat16, __nv_bfloat16, true>(out, cap, used, "D1 bf16");
+  fact::report_paged_decode<__half, __half, true>(out, cap, used, "D1 f16");
+  out[cap - 1] = 0;
+  return 0;
 }
 
 extern "C" int fact_decode_combine(const void* acc, const void* m, const void* l, void* out,

@@ -1,23 +1,39 @@
-// Split-KV single-token decode over a paged KV cache, the kernel of
+// Split-KV single-token decode, the kernel of
 //
 //   * B5 (paged_attention.cu, bf16 / f16 pages): replaces the TPU kernel
 //     flash_attention_cute_tpu/ops/paged_attention.py `_paged_decode_kernel`
 //     (:85, pallas_call at :341);
 //   * B8 (quant_paged_decode.cu, int8 / e4m3 pages with one f32 scale per
 //     token and kv head): replaces flash_attention_cute_tpu/ops/quantized.py
-//     `_quant_paged_kernel` (:395, pallas_call at :658).
+//     `_quant_paged_kernel` (:395, pallas_call at :658);
+//   * D1 (flash_decode.cu, a contiguous bf16 / f16 cache): replaces
+//     flash_attention_cute_tpu/ops/flash_decode.py `_flash_decode_kernel`
+//     (:42, pallas_call at :311);
+//   * B7 (quantized.cu, a contiguous int8 / e4m3 cache with one f32 scale
+//     per token and kv head): replaces flash_attention_cute_tpu/ops/
+//     quantized.py `_quant_decode_kernel` (:73, pallas_call at :337).
 //
 // One block per (split, kv head, batch row) writes the partials of the
 // whole GQA group (G = Hq / Hkv <= 32 query rows) over its split's keys:
 // acc [B, Hkv, S, G, D] unnormalised, m and l [B, Hkv, S, G] in base 2;
-// D2 (flash_decode.cu) merges the splits. Key n of batch row b sits at
-// page page_table[b, n / ps], row n % ps, of one layer's pool [Hkv, P, ps,
-// D]. The query at position len - 1 sees keys [lo, len), lo = len - W with
-// a window W, else 0. The tanh soft cap applies to the scaled score. B8
-// computes what the TPU kernel computes: values widened exactly to q's
-// type, each score multiplied in fp32 by its key's K scale before the cap,
-// each probability by its key's V scale before it is rounded to q's type;
-// the running sum l keeps the unscaled probability.
+// D2 (flash_decode.cu) merges the splits. How keys are found is a template
+// choice, kContig. Paged (B5 / B8): key n of batch row b sits at page
+// page_table[b, n / ps], row n % ps, of one layer's pool [Hkv, P, ps, D].
+// Contiguous (D1 / B7): key n of row b is row n of one layer's cache [B,
+// Hkv, C, D], which is the pool with ps = C and page b, so the same 4-D
+// map (D, C, B, Hkv) serves and no table is read. The query at position
+// len - 1 sees keys [lo, len), lo = len - W with a window W, else 0. The
+// tanh soft cap applies to the scaled score. B7 / B8 compute what their TPU
+// kernels compute: values widened exactly to q's type, each score
+// multiplied in fp32 by its key's K scale before the cap, each probability
+// by its key's V scale before it is rounded to q's type; the running sum l
+// keeps the unscaled probability. P meets V in q's type: B5, B7 and B8
+// round it once, as their TPU kernels do; D1 takes it in two parts (hi = P
+// rounded, lo = P - hi rounded), which carry P to about 2^-16 of itself, as
+// the fp32 P of its TPU kernel does: speculative drafts run on D1, and a P
+// rounded once in B4's verify rounds cut the self-draft acceptance, PERF.md. The
+// second part costs a product per V tile and fits the registers at every
+// head dim (D 256: 251-252 a thread, no spill).
 //
 // What bounds it on the H100: decode reads every visible K / V row once
 // and does 4 G D operations a row, about G operations a byte (2 G over
@@ -25,40 +41,48 @@
 // design keeps the bytes moving:
 //
 //   * The walk is cut into tiles of kN keys aligned to multiples of kN
-//     (64 at D 64, else 32); the tiles that hold a visible
-//     key are shared out evenly among the splits, so only a walk's first and
-//     last tiles hold keys outside [lo, len). A split with no tile writes
-//     m = -inf, l = 0, acc = 0. The grid is sized from shapes alone
-//     (dispatch.paged_decode_splits), never from the live lengths.
-//   * Warp 0 produces: lane i copies part i of a tile (keys n0 + i br ..,
-//     br = gcd(kN, ps), one page or a part of one) by TMA through a 4-D map
-//     of the pool (D, ps, P, Hkv), one copy per box of 128-byte (int8 at D
-//     64: 64-byte) swizzled rows, K's and V's onto one barrier, B8's scales
-//     beside them by bulk copies. Each lane reads its page-table entry once
-//     a tile part, a tile ahead of its copies; parts wholly outside [lo, len)
-//     are not copied (the table holds page 0 or anything past the row's
-//     pages). A ring of kStages tiles (a multiple of the consumers' slots,
-//     so a slot always refills the same stages) keeps 64-195 KB in flight a
-//     block, one or two blocks an SM.
+//     (64 at D 64, else 32). Paged: the tiles that hold a visible key are
+//     shared out evenly among the splits, so only a walk's first and last
+//     tiles hold keys outside [lo, len). Contiguous: split s takes the keys
+//     [s chunk, (s + 1) chunk) of [lo, len), chunk = ceil(C / S) (the
+//     partials' public meaning), so a chunk edge inside a tile is masked
+//     like an edge of [lo, len). A split with no key writes m = -inf, l =
+//     0, acc = 0. The grid is sized from shapes alone
+//     (dispatch.decode_num_splits), never from the live lengths.
+//   * Warp 0 produces. Paged: lane i copies part i of a tile (keys n0 + i
+//     br .., br = gcd(kN, ps), one page or a part of one) by TMA through a
+//     4-D map of the pool (D, ps, P, Hkv), one copy per box of 128-byte
+//     (int8 at D 64: 64-byte) swizzled rows, K's and V's onto one barrier,
+//     B8's scales beside them by bulk copies. Each lane reads its page-table
+//     entry once a tile part, a tile ahead of its copies; parts wholly
+//     outside [lo, len) are not copied (the table holds page 0 or anything
+//     past the row's pages). Contiguous: lane 0 copies the tile whole, one
+//     box of kN rows a segment (rows past C read as zeros), and B7's scales
+//     come by 4-byte cp.async copies of the tile's live keys, one key a
+//     lane, whose completion arrives on the same barrier: the scale rows
+//     [B, Hkv, C] start at any 4-byte boundary (any capacity), which a bulk
+//     copy's 16-byte rule would refuse. A ring of kStages tiles (a multiple
+//     of the consumers' slots, so a slot always refills the same stages)
+//     keeps 64-195 KB in flight a block, one or two blocks an SM.
 //   * Four consumer warps take the tiles in turn, each with its own online
 //     softmax, on tensor cores (mma.sync m16n8k16): S = Q K^T with the
 //     group's rows as M (padded to 16; groups above 16 give each warp pair
 //     one of two m-tiles, so a tile is read by both), then O += P V with P
-//     from S's registers and V read MN-major by ldmatrix.trans (B8: its
+//     from S's registers and V read MN-major by ldmatrix.trans (B7 / B8: its
 //     byte pairs regrouped by key and widened in registers); no V^T copy,
 //     no round trip of P through shared memory. The contraction order over
-//     D is free, so a thread reads (B8: widens) whole 16-byte runs of a K
-//     row and takes q in the same order. B8 widens int8 to bf16 in bf16
-//     arithmetic (widen4_pairs: two operations a pair; with B9's fp32 route
-//     and a 4-byte load a key and column group, B8 took 0.062 ms at Gemma's
-//     shape against 0.046, PERF.md). O lives in
+//     D is free, so a thread reads (B7 / B8: widens) whole 16-byte runs of a
+//     K row and takes q in the same order. B7 / B8 widen int8 to bf16 in
+//     bf16 arithmetic (widen4_pairs: two operations a pair; with B9's fp32
+//     route and a 4-byte load a key and column group, B8 took 0.062 ms at
+//     Gemma's shape against 0.046, PERF.md). O lives in
 //     registers (D / 2 a thread) until the warps of an m-tile merge it
 //     through the idle ring in a fixed order: a second call writes the same
 //     bits.
 //   * Masks run only on a walk's edge tiles: scores of keys outside
-//     [lo, len) become -inf by a select, their V rows (and B8's V scales)
-//     are zeroed in registers, so stale or NaN bytes of a tile's dead rows
-//     never reach a product (0 x NaN is NaN).
+//     [lo, len) become -inf by a select, their V rows (and B7 / B8's V
+//     scales) are zeroed in registers, so stale or NaN bytes of a tile's
+//     dead rows never reach a product (0 x NaN is NaN).
 #pragma once
 
 #include "paged_extend.cuh"
@@ -72,16 +96,17 @@ struct PagedDecodeParams {
   const void* q;          // [B, Hq, 1, D]
   const int* lengths;     // [B] int32
   const int* page_table;  // [B, pps] int32
-  const float* k_scale;   // B8: one layer's scales [Hkv, P, ps], position stride 1
-  const float* v_scale;
+  const float* k_scale;   // B7 / B8: one layer's scales [Hkv, P, ps] (B7: [B, Hkv, C]),
+  const float* v_scale;   // position stride 1
   float* acc;             // [B, Hkv, S, G, D] unnormalised partial outputs
   float* m;               // [B, Hkv, S, G] running max (base 2)
   float* l;               // [B, Hkv, S, G] running sum
-  int64_t q_sb, q_sh, ks_sh, ks_sp, vs_sh, vs_sp;
-  int hkv, group, num_splits, pps, page_size;
-  int box_rows;  // keys of one copy: a page, or a part of one
+  int64_t q_sb, q_sh, ks_sh, ks_sp, vs_sh, vs_sp;  // contiguous: ks_sp / vs_sp step b
+  int hkv, group, num_splits, pps, page_size;       // contiguous: pps 1, page_size C
+  int box_rows;  // paged: keys of one copy, a page or a part of one
   Scores sc;
   int window;  // W > 0, or 0 for none
+  int chunk;   // contiguous: keys a split, ceil(C / num_splits)
 };
 
 // Shared memory from a 1 KB aligned base: the ring (stage s: its K tile,
@@ -139,13 +164,40 @@ __device__ __forceinline__ uint2 widen4_pairs(uint32_t w) {
   }
 }
 
-// KV: T (B5) or int8 / e4m3 (B8). kCap: the soft cap is compiled in.
-template <typename T, typename KV, int D, bool kCap>
-__global__ void __launch_bounds__(kPagedDecodeThreads, DecodeTiles<KV, D>::kMinBlocks)
-    paged_decode_kernel(const __grid_constant__ CUtensorMap kmap,
-                        const __grid_constant__ CUtensorMap vmap, const PagedDecodeParams p) {
+// P's two parts in T (see the header): hi = (x0, x1) rounded, lo = the
+// rounding's error rounded (x - hi is exact in fp32).
+template <typename T>
+__device__ __forceinline__ void pack_split(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  hi = Elem<T>::pack(x0, x1);
+  float h0, h1;
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    h0 = __uint_as_float(hi << 16), h1 = __uint_as_float(hi & 0xFFFF0000u);
+  } else {
+    h0 = __half2float(__ushort_as_half(static_cast<unsigned short>(hi & 0xFFFFu)));
+    h1 = __half2float(__ushort_as_half(static_cast<unsigned short>(hi >> 16)));
+  }
+  lo = Elem<T>::pack(x0 - h0, x1 - h1);
+}
+
+// 4 bytes from global to shared memory, and the arrival on `bar` once this
+// thread's copies so far have landed (the barrier's pending count is raised
+// now, so its phase cannot complete before they do).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// The kernel's body. KV: T (B5, D1) or int8 / e4m3 (B8, B7). kCap: the
+// soft cap is compiled in. kContig: keys of a contiguous cache (D1, B7),
+// else through the page table (B5, B8).
+template <typename T, typename KV, int D, bool kCap, bool kContig>
+__device__ __forceinline__ void decode_body(const CUtensorMap& kmap, const CUtensorMap& vmap,
+                                            const PagedDecodeParams& p) {
   using L = DecodeTiles<KV, D>;
   constexpr bool kQuant = L::kQuant;
+  constexpr bool kSplitP = kContig && !kQuant;
   constexpr int kN = L::kN, kStages = L::kStages;
   extern __shared__ __align__(16) unsigned char smem[];
   const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;  // the 128-byte swizzle needs 1 KB
@@ -154,13 +206,20 @@ __global__ void __launch_bounds__(kPagedDecodeThreads, DecodeTiles<KV, D>::kMinB
   const int64_t part = (static_cast<int64_t>(b) * p.hkv + hk) * p.num_splits + split;
   float* acc_out = p.acc + part * G * D;
 
-  // This split's tiles [t0, t0 + total) of the visible ones.
-  const int len = min(max(p.lengths[b], 0), p.pps * p.page_size);
-  const int lo = p.window > 0 ? max(0, len - p.window) : 0;
+  // This split's tiles [t0, t0 + total) of the visible ones; contiguous,
+  // [lo, len) is first cut to the split's chunk.
+  int len = min(max(p.lengths[b], 0), p.pps * p.page_size);
+  int lo = p.window > 0 ? max(0, len - p.window) : 0;
+  if constexpr (kContig) {
+    lo = max(lo, split * p.chunk);
+    len = min(len, (split + 1) * p.chunk);
+  }
   const int first = lo / kN, count = len > lo ? (len + kN - 1) / kN - first : 0;
-  const int t0 = first + static_cast<int>(static_cast<int64_t>(count) * split / p.num_splits);
-  const int total =
-      first + static_cast<int>(static_cast<int64_t>(count) * (split + 1) / p.num_splits) - t0;
+  int t0 = first, total = count;
+  if constexpr (!kContig) {
+    t0 = first + static_cast<int>(static_cast<int64_t>(count) * split / p.num_splits);
+    total = first + static_cast<int>(static_cast<int64_t>(count) * (split + 1) / p.num_splits) - t0;
+  }
   if (total <= 0) {  // weight 0 in the combine
     for (int i = threadIdx.x; i < G * D; i += kPagedDecodeThreads) acc_out[i] = 0.f;
     if (threadIdx.x < G) {
@@ -182,43 +241,74 @@ __global__ void __launch_bounds__(kPagedDecodeThreads, DecodeTiles<KV, D>::kMinB
   }
   __syncthreads();
 
-  if (warp == 0) {
-    const int br = p.box_rows, parts = kN / br;
-    const int* table = p.page_table + static_cast<int64_t>(b) * p.pps;
-    // This lane's page of tile it, or -1: no copy of a part outside [lo, len).
-    auto page_of = [&](int it) {
-      const int n = (t0 + it) * kN + lane * br;
-      return lane < parts && n + br > lo && n < len ? table[n / p.page_size] : -1;
-    };
-    constexpr int kRowBytes = 2 * (L::kRowBytes + (kQuant ? 4 : 0));  // K's and V's of a key
-    int page_next = page_of(0);
-    for (int it = 0; it < total; ++it) {
-      const int n0 = (t0 + it) * kN, s = it % kStages, page = page_next;
-      if (it + 1 < total) page_next = page_of(it + 1);
-      if (lane == 0) {
-        const int i0 = max(lo - n0, 0) / br, i1 = (min(len - n0, kN) + br - 1) / br;
-        mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
-        mbar_expect_tx(full(s), (i1 - i0) * br * kRowBytes);
-      }
-      __syncwarp();
-      if (page >= 0) {
-        const int row = (n0 + lane * br) % p.page_size;
-        const uint32_t at = lane * br * L::kSegBytes;
-        for (int c = 0; c < L::kSegs; ++c) {
-          tma_load_4d(sK(s) + c * L::kBox + at, &kmap, L::kSegD * c, row, page, hk, full(s));
-          tma_load_4d(sV(s) + c * L::kBox + at, &vmap, L::kSegD * c, row, page, hk, full(s));
+  if constexpr (kContig) {
+    if (warp == 0) {
+      for (int it = 0; it < total; ++it) {
+        const int n0 = (t0 + it) * kN, s = it % kStages;
+        if (lane == 0) mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+        __syncwarp();
+        if constexpr (kQuant) {  // the live keys' scales, one key a lane
+          const int64_t row = hk * p.ks_sh + b * p.ks_sp + n0, vrow = hk * p.vs_sh + b * p.vs_sp + n0;
+          for (int i = lane; i < kN; i += 32) {
+            if (n0 + i >= lo && n0 + i < len) {
+              cp_async4(k_scales(s) + 4 * i, p.k_scale + row + i);
+              cp_async4(v_scales(s) + 4 * i, p.v_scale + vrow + i);
+            }
+          }
+          cp_async_arrive(full(s));
+          __syncwarp();
         }
-        if constexpr (kQuant) {
-          bulk_load(k_scales(s) + lane * br * 4,
-                    p.k_scale + hk * p.ks_sh + static_cast<int64_t>(page) * p.ks_sp + row, br * 4,
-                    full(s));
-          bulk_load(v_scales(s) + lane * br * 4,
-                    p.v_scale + hk * p.vs_sh + static_cast<int64_t>(page) * p.vs_sp + row, br * 4,
-                    full(s));
+        if (lane == 0) {
+          mbar_expect_tx(full(s), 2 * L::kTile);
+          for (int c = 0; c < L::kSegs; ++c) {
+            tma_load_4d(sK(s) + c * L::kBox, &kmap, L::kSegD * c, n0, b, hk, full(s));
+            tma_load_4d(sV(s) + c * L::kBox, &vmap, L::kSegD * c, n0, b, hk, full(s));
+          }
         }
       }
+      if constexpr (kQuant) asm volatile("cp.async.wait_all;\n" ::: "memory");
+      return;
     }
-    return;
+  }
+  if constexpr (!kContig) {
+    if (warp == 0) {
+      const int br = p.box_rows, parts = kN / br;
+      const int* table = p.page_table + static_cast<int64_t>(b) * p.pps;
+      // This lane's page of tile it, or -1: no copy of a part outside [lo, len).
+      auto page_of = [&](int it) {
+        const int n = (t0 + it) * kN + lane * br;
+        return lane < parts && n + br > lo && n < len ? table[n / p.page_size] : -1;
+      };
+      constexpr int kRowBytes = 2 * (L::kRowBytes + (kQuant ? 4 : 0));  // K's and V's of a key
+      int page_next = page_of(0);
+      for (int it = 0; it < total; ++it) {
+        const int n0 = (t0 + it) * kN, s = it % kStages, page = page_next;
+        if (it + 1 < total) page_next = page_of(it + 1);
+        if (lane == 0) {
+          const int i0 = max(lo - n0, 0) / br, i1 = (min(len - n0, kN) + br - 1) / br;
+          mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+          mbar_expect_tx(full(s), (i1 - i0) * br * kRowBytes);
+        }
+        __syncwarp();
+        if (page >= 0) {
+          const int row = (n0 + lane * br) % p.page_size;
+          const uint32_t at = lane * br * L::kSegBytes;
+          for (int c = 0; c < L::kSegs; ++c) {
+            tma_load_4d(sK(s) + c * L::kBox + at, &kmap, L::kSegD * c, row, page, hk, full(s));
+            tma_load_4d(sV(s) + c * L::kBox + at, &vmap, L::kSegD * c, row, page, hk, full(s));
+          }
+          if constexpr (kQuant) {
+            bulk_load(k_scales(s) + lane * br * 4,
+                      p.k_scale + hk * p.ks_sh + static_cast<int64_t>(page) * p.ks_sp + row, br * 4,
+                      full(s));
+            bulk_load(v_scales(s) + lane * br * 4,
+                      p.v_scale + hk * p.vs_sh + static_cast<int64_t>(page) * p.vs_sp + row, br * 4,
+                      full(s));
+          }
+        }
+      }
+      return;
+    }
   }
 
   // Consumers: warp w takes m-tile w % mts and tiles w / mts, + slots, ...
@@ -357,10 +447,18 @@ __global__ void __launch_bounds__(kPagedDecodeThreads, DecodeTiles<KV, D>::kMinB
     // O += P V, a k-step of 16 keys at a time: P from S's registers.
 #pragma unroll
     for (int i = 0; i < kN / 16; ++i) {
-      const uint32_t pa[4] = {Elem<T>::pack(sf[2 * i][0], sf[2 * i][1]),
-                              Elem<T>::pack(sf[2 * i][2], sf[2 * i][3]),
-                              Elem<T>::pack(sf[2 * i + 1][0], sf[2 * i + 1][1]),
-                              Elem<T>::pack(sf[2 * i + 1][2], sf[2 * i + 1][3])};
+      uint32_t pa[4], pl[4];  // P (its rounded part), and D1's second part
+      if constexpr (kSplitP) {
+        pack_split<T>(sf[2 * i][0], sf[2 * i][1], pa[0], pl[0]);
+        pack_split<T>(sf[2 * i][2], sf[2 * i][3], pa[1], pl[1]);
+        pack_split<T>(sf[2 * i + 1][0], sf[2 * i + 1][1], pa[2], pl[2]);
+        pack_split<T>(sf[2 * i + 1][2], sf[2 * i + 1][3], pa[3], pl[3]);
+      } else {
+        pa[0] = Elem<T>::pack(sf[2 * i][0], sf[2 * i][1]);
+        pa[1] = Elem<T>::pack(sf[2 * i][2], sf[2 * i][3]);
+        pa[2] = Elem<T>::pack(sf[2 * i + 1][0], sf[2 * i + 1][1]);
+        pa[3] = Elem<T>::pack(sf[2 * i + 1][2], sf[2 * i + 1][3]);
+      }
       const int k0 = n0 + 16 * i + 2 * c;  // this thread's keys k0, k0 + 1, k0 + 8, k0 + 9
       // V rows of dead keys: the halves of k0 / k0 + 1 and of k0 + 8 / + 9.
       const uint32_t m0 = (live(k0) || !edge ? 0xFFFFu : 0u) |
@@ -384,6 +482,10 @@ __global__ void __launch_bounds__(kPagedDecodeThreads, DecodeTiles<KV, D>::kMinB
         if constexpr (!kQuant) {
           Elem<T>::mma(o[x], pa, v[0], v[1]);
           Elem<T>::mma(o[x + 1], pa, v[2], v[3]);
+          if constexpr (kSplitP) {
+            Elem<T>::mma(o[x], pl, v[0], v[1]);
+            Elem<T>::mma(o[x + 1], pl, v[2], v[3]);
+          }
         } else {
           // Bytes by key: n-tiles x .. x + 3 take values 2 j, 2 j + 1 of
           // chunk x / 2 and of chunk x / 2 + 1, column j.
@@ -455,18 +557,41 @@ __global__ void __launch_bounds__(kPagedDecodeThreads, DecodeTiles<KV, D>::kMinB
   }
 }
 
+// B5 / B8: keys through the page table.
+template <typename T, typename KV, int D, bool kCap>
+__global__ void __launch_bounds__(kPagedDecodeThreads, DecodeTiles<KV, D>::kMinBlocks)
+    paged_decode_kernel(const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap, const PagedDecodeParams p) {
+  decode_body<T, KV, D, kCap, false>(kmap, vmap, p);
+}
+
+// D1 / B7: keys of a contiguous cache.
+template <typename T, typename KV, int D, bool kCap>
+__global__ void __launch_bounds__(kPagedDecodeThreads, DecodeTiles<KV, D>::kMinBlocks)
+    contiguous_decode_kernel(const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap, const PagedDecodeParams p) {
+  decode_body<T, KV, D, kCap, true>(kmap, vmap, p);
+}
+
+template <typename T, typename KV, int D, bool kCap, bool kContig>
+auto decode_kernel() {
+  if constexpr (kContig) return contiguous_decode_kernel<T, KV, D, kCap>;
+  else return paged_decode_kernel<T, KV, D, kCap>;
+}
+
 // ---------------------------------------------------------------------------
 // Host side.
 
-template <typename T, typename KV, int D, bool kCap>
+template <typename T, typename KV, int D, bool kCap, bool kContig>
 int launch_paged_decode(const PagedDecodeParams& p, const PagedViews& w, int batch,
                         cudaStream_t stream) {
   using L = DecodeTiles<KV, D>;
-  auto kernel = paged_decode_kernel<T, KV, D, kCap>;
+  auto kernel = decode_kernel<T, KV, D, kCap, kContig>();
   static const int configured = allow_smem(kernel, L::kBytes);  // above 48 KB needs an opt-in
   if (configured != cudaSuccess) return configured;
-  if (p.group < 1 || p.group > 32 || p.num_splits < 1 || p.box_rows < 8 || L::kN % p.box_rows ||
-      p.page_size % p.box_rows)
+  if (p.group < 1 || p.group > 32 || p.num_splits < 1) return cudaErrorInvalidValue;
+  if (kContig ? p.chunk < 1 || p.pps != 1
+              : p.box_rows < 8 || L::kN % p.box_rows || p.page_size % p.box_rows)
     return cudaErrorInvalidValue;
   if (batch <= 0 || p.hkv <= 0) return cudaSuccess;
   const CUtensorMapDataType type = L::kQuant ? CU_TENSOR_MAP_DATA_TYPE_UINT8
@@ -475,40 +600,45 @@ int launch_paged_decode(const PagedDecodeParams& p, const PagedViews& w, int bat
   const CUtensorMapSwizzle swizzle =
       L::kSegBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   const int elem = static_cast<int>(sizeof(KV));
+  const int rows = kContig ? L::kN : p.box_rows;  // contiguous: a whole tile a box
   CUtensorMap kmap, vmap;
   if (!pool_map(&kmap, type, elem, w.k, D, p.page_size, w.num_pages, w.hkv, w.k_ss, w.k_sp, w.k_sh,
-                L::kSegD, p.box_rows, swizzle) ||
+                L::kSegD, rows, swizzle) ||
       !pool_map(&vmap, type, elem, w.v, D, p.page_size, w.num_pages, w.hkv, w.v_ss, w.v_sp, w.v_sh,
-                L::kSegD, p.box_rows, swizzle))
+                L::kSegD, rows, swizzle))
     return cudaErrorInvalidValue;
   const dim3 grid(p.num_splits, p.hkv, batch);
   kernel<<<grid, kPagedDecodeThreads, L::kBytes, stream>>>(kmap, vmap, p);
   return cudaGetLastError();
 }
 
-template <typename T, typename KV, int D>
+template <typename T, typename KV, int D, bool kContig>
 int launch_paged_decode_cap(const PagedDecodeParams& p, const PagedViews& w, int batch,
                             cudaStream_t s) {
-  return p.sc.softcap_log2 > 0.f ? launch_paged_decode<T, KV, D, true>(p, w, batch, s)
-                                 : launch_paged_decode<T, KV, D, false>(p, w, batch, s);
+  return p.sc.softcap_log2 > 0.f ? launch_paged_decode<T, KV, D, true, kContig>(p, w, batch, s)
+                                 : launch_paged_decode<T, KV, D, false, kContig>(p, w, batch, s);
 }
 
-template <typename T, typename KV>
+// kContig: `p` and `w` describe one layer's contiguous cache [B, Hkv, C, D]
+// as a pool of B pages of C keys (pps 1, page_size C, num_pages B, the page
+// strides those of b), its scales' page strides those of b too.
+template <typename T, typename KV, bool kContig = false>
 int dispatch_paged_decode(const PagedDecodeParams& p, const PagedViews& w, int batch, int d,
                           cudaStream_t s) {
-  if (d == 64) return launch_paged_decode_cap<T, KV, 64>(p, w, batch, s);
-  if (d == 128) return launch_paged_decode_cap<T, KV, 128>(p, w, batch, s);
-  if (d == 256) return launch_paged_decode_cap<T, KV, 256>(p, w, batch, s);
+  if (d == 64) return launch_paged_decode_cap<T, KV, 64, kContig>(p, w, batch, s);
+  if (d == 128) return launch_paged_decode_cap<T, KV, 128, kContig>(p, w, batch, s);
+  if (d == 256) return launch_paged_decode_cap<T, KV, 256, kContig>(p, w, batch, s);
   return cudaErrorInvalidValue;
 }
 
-// The report lines of the six instantiations (D x cap) of one T and KV.
-template <typename T, typename KV>
+// The report lines of the six instantiations (D x cap) of one T, KV and way
+// of finding keys.
+template <typename T, typename KV, bool kContig = false>
 static void report_paged_decode(char* out, int cap, int& used, const char* what) {
   char name[96];
-#define DECODE_REPORT(d, c)                                                 \
-  snprintf(name, sizeof(name), "%s D%d%s", what, d, c ? " cap" : "");      \
-  report_one(out, cap, used, name, (paged_decode_kernel<T, KV, d, c>),     \
+#define DECODE_REPORT(d, c)                                                      \
+  snprintf(name, sizeof(name), "%s D%d%s", what, d, c ? " cap" : "");           \
+  report_one(out, cap, used, name, (decode_kernel<T, KV, d, c, kContig>()),       \
              DecodeTiles<KV, d>::kBytes)
   DECODE_REPORT(64, false);
   DECODE_REPORT(64, true);

@@ -6,8 +6,8 @@
 //     pallas_call at :337). Split-KV decode partials over one layer of the
 //     contiguous cache [B, Hkv, C, D] with scales [B, Hkv, C]; D2
 //     (flash_decode.cu) merges the splits. It takes B2's sliding window (0
-//     for none) as D1 does (keys n >= length - W; the scales of visible keys
-//     only are loaded). B8, the quantized paged decode, is
+//     for none), the tanh soft cap, head dims 64, 128 and 256 and GQA groups
+//     up to 32, as D1 does. B8, the quantized paged decode, is
 //     quant_paged_decode.cu; B9, the quantized paged extend,
 //     quant_paged_extend.cu.
 //   * QA, quantize-and-append (not a TPU kernel): replaces the XLA
@@ -19,18 +19,20 @@
 //     page table; rows of inactive batch rows and positions past the table
 //     (or past the cache) write nothing. Head dims 64, 128 and 256.
 //
-// What bounds them on the H100, and the design. B7 is D1's body
-// (decode_partials.cuh) with the cache's element type as a template
-// parameter: bound by bytes, which 1-byte values halve; the K scale
-// multiplies each score, the V scale each probability, so no row is
-// dequantized. Not copied from the TPU decode kernel: the `nh` head
-// packing and 8192-token page blocks. QA is bound by bytes (each new row read once, its values and
-// scale written once): one block per (token, batch row), one warp per
-// (K or V, kv head) row, an fp32 amax over the row by a warp reduction,
-// scale = amax / qmax (1 where amax is 0), values x / scale rounded half to
-// even. The division is IEEE (no fast-math flags in ops/_build.py), so the
-// values are bit-identical to the plain version's.
-#include "decode_partials.cuh"
+// What bounds them on the H100, and the design. B7 is B8's kernel
+// (paged_decode.cuh) over a contiguous cache, as D1 is B5's: bound by
+// bytes, which 1-byte values halve; the values are widened exactly to q's
+// type in registers, the K scale multiplies each score before the cap, the
+// V scale each probability, so no row is dequantized; the scales of any
+// capacity come by 4-byte copies. Not copied from the TPU decode kernel:
+// the `nh` head packing and 8192-token page blocks. QA is bound by bytes
+// (each new row read once, its values and scale written once): one block
+// per (token, batch row), one warp per (K or V, kv head) row, an fp32 amax
+// over the row by a warp reduction, scale = amax / qmax (1 where amax is
+// 0), values x / scale rounded half to even. The division is IEEE (no
+// fast-math flags in ops/_build.py), so the values are bit-identical to the
+// plain version's.
+#include "paged_decode.cuh"
 
 namespace fact {
 
@@ -120,37 +122,56 @@ int dispatch_append(const QuantAppendParams& p, int batch, int s, int d, int dty
 
 }  // namespace fact
 
-// Each returns a cudaError_t code (0 on success). Shapes, strides, dtypes
-// and B7's group bound (G <= 8) are checked by the Python wrapper
-// (ops/quantized.py). `dtype` is q's (and the output's) code, `kv_dtype`
-// the values' code (common.cuh).
+// Each returns a cudaError_t code (0 on success). Shapes, strides, dtypes,
+// their 16-byte alignment (the values') and B7's group bound (G <= 32) are
+// checked by the Python wrapper (ops/quantized.py). `dtype` is q's (and the
+// output's) code, `kv_dtype` the values' code (common.cuh).
 extern "C" int fact_quant_decode_partials(
     const void* q, const void* k, const void* v, const void* k_scale, const void* v_scale,
     const void* lengths, void* acc, void* m, void* l, int batch, int hkv, int group,
     int capacity, int d, int num_splits, int chunk, long long q_sb, long long q_sh,
     long long k_sb, long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, long long ks_sb, long long ks_sh, long long vs_sb, long long vs_sh,
-    float scale_log2, int window, int dtype, int kv_dtype, void* stream) {
+    float scale_log2, float softcap_log2, int window, int dtype, int kv_dtype, void* stream) {
   using namespace fact;
-  QuantDecodeParams p{};
-  p.q = q, p.k = k, p.v = v;
+  using bf16 = __nv_bfloat16;
+  PagedDecodeParams p{};
+  p.q = q;
   p.lengths = static_cast<const int*>(lengths);
+  p.k_scale = static_cast<const float*>(k_scale);
+  p.v_scale = static_cast<const float*>(v_scale);
   p.acc = static_cast<float*>(acc);
   p.m = static_cast<float*>(m);
   p.l = static_cast<float*>(l);
   p.q_sb = q_sb, p.q_sh = q_sh;
-  p.k_sb = k_sb, p.k_sh = k_sh, p.k_ss = k_ss;
-  p.v_sb = v_sb, p.v_sh = v_sh, p.v_ss = v_ss;
-  p.hkv = hkv, p.group = group, p.capacity = capacity;
-  p.num_splits = num_splits, p.chunk = chunk;
-  p.scale_log2 = scale_log2;
+  p.ks_sh = ks_sh, p.ks_sp = ks_sb, p.vs_sh = vs_sh, p.vs_sp = vs_sb;
+  p.hkv = hkv, p.group = group, p.num_splits = num_splits;
+  p.pps = 1, p.page_size = capacity, p.chunk = chunk;
+  p.sc = scores(scale_log2, softcap_log2);
   p.window = window;
-  p.scales.k = static_cast<const float*>(k_scale);
-  p.scales.v = static_cast<const float*>(v_scale);
-  p.scales.k_sb = ks_sb, p.scales.k_sh = ks_sh;
-  p.scales.v_sb = vs_sb, p.scales.v_sh = vs_sh;
-  return dispatch_partials_quant<false>(p, batch, d, dtype, kv_dtype,
-                                        static_cast<cudaStream_t>(stream));
+  const PagedViews w{q, k, v, q_sb, q_sh, 0, k_sh, k_sb, k_ss, v_sh, v_sb, v_ss,
+                     hkv, batch, dtype};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16 && kv_dtype == kInt8) return dispatch_paged_decode<bf16, int8_t, true>(p, w, batch, d, s);
+  if (dtype == kBF16 && kv_dtype == kE4M3) return dispatch_paged_decode<bf16, e4m3, true>(p, w, batch, d, s);
+  if (dtype == kF16 && kv_dtype == kInt8) return dispatch_paged_decode<__half, int8_t, true>(p, w, batch, d, s);
+  if (dtype == kF16 && kv_dtype == kE4M3) return dispatch_paged_decode<__half, e4m3, true>(p, w, batch, d, s);
+  return cudaErrorInvalidValue;
+}
+
+// Writes the report of every B7 instantiation (registers, local (spill)
+// bytes, shared memory) into `out` (at most `cap` bytes, NUL-terminated);
+// returns 0.
+extern "C" int fact_quant_decode_report(char* out, int cap) {
+  int used = 0;
+  if (cap <= 0) return 0;
+  out[0] = 0;
+  fact::report_paged_decode<__nv_bfloat16, int8_t, true>(out, cap, used, "B7 bf16 int8");
+  fact::report_paged_decode<__nv_bfloat16, fact::e4m3, true>(out, cap, used, "B7 bf16 e4m3");
+  fact::report_paged_decode<__half, int8_t, true>(out, cap, used, "B7 f16 int8");
+  fact::report_paged_decode<__half, fact::e4m3, true>(out, cap, used, "B7 f16 e4m3");
+  out[cap - 1] = 0;
+  return 0;
 }
 
 // paged != 0: positions go through the page table (c_sb, s_sb unused);

@@ -13,7 +13,7 @@ import dataclasses
 import torch
 
 # The Hopper card the kernels are built for has 132 SMs; the decode split
-# heuristic aims to give every one of them a block.
+# heuristic fills them.
 NUM_SMS = 132
 
 
@@ -23,7 +23,6 @@ class BlockConfig:
     block_q: int = 64  # prefill: query rows per block
     block_kv: int = 64  # prefill: keys per tile
     # Decode path
-    decode_block_kv: int = 64  # keys per softmax step
     decode_num_splits: int = 0  # 0 = heuristic in the decode wrapper
 
 
@@ -44,29 +43,24 @@ def select_block_config(
     return BlockConfig()
 
 
-def decode_num_splits(batch: int, num_kv_heads: int, capacity: int) -> int:
-    """Splits of the KV axis so that batch * heads * splits covers the SMs,
-    without splits shorter than one 64-key tile."""
-    want = -(-NUM_SMS // max(batch * num_kv_heads, 1))
-    return max(1, min(want, capacity // BlockConfig.decode_block_kv))
-
-
-def paged_decode_tile(head_dim: int) -> int:
-    """Keys of a tile of the paged decodes B5 / B8 (csrc/paged_decode.cuh,
-    `DecodeTiles::kN`): 64 at head dim 64, else 32."""
+def decode_tile(head_dim: int) -> int:
+    """Keys of a tile of the decode kernels D1, B5, B7 and B8
+    (csrc/paged_decode.cuh, `DecodeTiles::kN`): 64 at head dim 64, else
+    32."""
     return 64 if head_dim == 64 else 32
 
 
-def paged_decode_splits(batch: int, num_kv_heads: int, capacity: int, head_dim: int) -> int:
-    """Splits of B5 / B8 from shapes alone (never the live lengths): the
-    count whose blocks fill the card's slots (132 SMs x the kernel's blocks
-    an SM: one at D 256, two below) in the fewest waves for the work each
-    split carries, i.e. the least ceil(blocks / slots) / splits, the fewer
-    splits on a tie; at least one, and no more than the tiles of the
-    capacity, so that no split is shorter than a tile."""
+def decode_num_splits(batch: int, num_kv_heads: int, capacity: int, head_dim: int) -> int:
+    """Splits of the decode kernels D1, B5, B7 and B8 from shapes alone
+    (never the live lengths): the count whose blocks fill the card's slots
+    (132 SMs x the kernel's blocks an SM: one at D 256, two below) in the
+    fewest waves for the work each split carries, i.e. the least
+    ceil(blocks / slots) / splits, the fewer splits on a tie; at least one,
+    and no more than the tiles of the capacity, so that no split is shorter
+    than a tile."""
     slots = NUM_SMS * (1 if head_dim == 256 else 2)
     rows = max(batch * num_kv_heads, 1)
-    most = max(1, min(capacity // paged_decode_tile(head_dim), 2 * -(-slots // rows)))
+    most = max(1, min(capacity // decode_tile(head_dim), 2 * -(-slots // rows)))
     return min(range(1, most + 1), key=lambda s: (-(-rows * s // slots) / s, s))
 
 

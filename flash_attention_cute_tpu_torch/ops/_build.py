@@ -184,14 +184,6 @@ def softcap_arg(logit_softcap: float | None) -> float:
     return float(logit_softcap) * LOG2E
 
 
-def refuse_softcap(logit_softcap: float | None, what: str) -> None:
-    """For the kernel that takes no soft cap yet (B7): raise on one."""
-    if logit_softcap is not None:
-        raise NotImplementedError(
-            f"logit_softcap {what} on CUDA is not in the kernel yet (plain version only; "
-            "ROADMAP.md A10b)")
-
-
 def check_head_dim(d: int, head_dims: tuple, what: str) -> None:
     if d not in head_dims:
         raise NotImplementedError(

@@ -11,8 +11,12 @@ total l of 0 gives 0. D1 replaces `_flash_decode_kernel` and D2 the XLA
 combine of flash_attention_cute_tpu/ops/flash_decode.py. With a sliding
 window W the query at position length - 1 sees keys [length - W, length):
 D1 cuts each split to that range, and a split wholly below it is dead.
-D1 takes the tanh soft cap (Gemma2) and head dims 64, 128 and 256; D2
-merges partials of any head dim (one thread per entry).
+D1 takes the tanh soft cap (Gemma2), head dims 64, 128 and 256 and GQA
+groups up to 32; its kernel is B5's (csrc/paged_decode.cuh: a TMA ring of
+tiles feeding tensor-core consumers) over the contiguous cache, with P
+taken into P V in two bf16 / f16 parts (P to about 2^-16). The default
+split count is `dispatch.decode_num_splits`. D2 merges partials of any
+head dim (one thread per entry).
 
 Each wrapper routes on the device of `q`: CPU -> plain version, CUDA -> the
 kernel; what the kernel does not take raises. Cache positions at or past a
@@ -31,7 +35,7 @@ from flash_attention_cute_tpu_torch.ops import _build
 
 LOG2E = math.log2(math.e)
 HEAD_DIMS = (64, 128, 256)
-MAX_GROUP = 8
+MAX_GROUP = 32  # larger groups: ROADMAP.md B.5
 
 P, I, L, F = _build.P, _build.I, _build.L, _build.F
 PARTIALS = _build.Kernel(
@@ -80,6 +84,12 @@ def decode_partials_plain(q, k, v, lengths, sm_scale, num_splits,
     return acc, m.transpose(2, 3).contiguous(), l.transpose(2, 3).contiguous()
 
 
+def kernel_report() -> str:
+    """Registers, spill bytes and shared memory of every D1 instantiation,
+    as the card's runtime reports them."""
+    return _build.runtime_report(PARTIALS.source, "fact_decode_report")
+
+
 def decode_combine_plain(acc, m, l, dtype):
     """Plain version of D2: partials -> [B, Hq, 1, D] in `dtype`."""
     b, hkv, _, g, d = acc.shape
@@ -105,10 +115,11 @@ def decode_partials(q, k, v, lengths, sm_scale, num_splits, window=None, logit_s
         raise NotImplementedError(f"decode kernel takes bf16/f16, got {q.dtype}")
     _build.check_head_dim(d, HEAD_DIMS, "decode")
     if g > MAX_GROUP:
-        raise NotImplementedError(f"decode kernel takes Hq/Hkv <= {MAX_GROUP}, got {g}")
+        raise NotImplementedError(f"decode kernel takes Hq/Hkv <= {MAX_GROUP}, got {g} "
+                                  "(larger groups: ROADMAP.md B.5)")
     if sq != 1 or hq % hkv or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in (("q", q), ("k", k), ("v", v)):  # k, v: also TMA's 16-byte rule
         _build.check_cuda_tensor(name, t, q.dtype)
     if (lengths.device != q.device or lengths.dtype != torch.int32
             or lengths.shape != (b,) or not lengths.is_contiguous()):
@@ -170,7 +181,7 @@ def flash_attention_decode_plain(q, k, v, kv_length=None, sm_scale=None, window=
     if sm_scale is None:
         sm_scale = d ** -0.5
     if num_splits <= 0:
-        num_splits = dispatch.decode_num_splits(b, k.shape[1], cap)
+        num_splits = dispatch.decode_num_splits(b, k.shape[1], cap, d)
     if kv_length is None:
         kv_length = torch.full((b,), cap, dtype=torch.int32, device=q.device)
     acc, m, l = decode_partials_plain(
@@ -214,7 +225,7 @@ def flash_attention_decode(
     if sm_scale is None:
         sm_scale = d ** -0.5
     if num_splits <= 0:
-        num_splits = dispatch.decode_num_splits(b, k.shape[1], cap)
+        num_splits = dispatch.decode_num_splits(b, k.shape[1], cap, d)
     if kv_length is None:
         kv_length = torch.full((b,), cap, dtype=torch.int32, device=q.device)
     acc, m, l = decode_partials(q, k, v, kv_length, sm_scale, num_splits, window,

@@ -10,7 +10,7 @@ D]` pool); key n of batch row b sits at page `page_table[b, n // ps]`, row
     csrc/paged_decode.cuh shared with B8: a TMA ring of pages feeding
     tensor-core consumers) writes split-KV partials of GQA groups up to 32,
     D2 (`flash_decode.decode_combine`) merges them. The splits come from
-    shapes alone (`dispatch.paged_decode_splits`). With a sliding window W
+    shapes alone (`dispatch.decode_num_splits`). With a sliding window W
     only keys [length - W, length) are read.
   * `paged_attention_extend`: B6, chunked prefill with per-row global
     causality `col <= q_offset + row` and `col < kv_length` (and with a
@@ -40,8 +40,8 @@ from flash_attention_cute_tpu_torch.ops.reference import attention_reference
 
 LOG2E = math.log2(math.e)
 HEAD_DIMS = (64, 128, 256)
-MAX_GROUP = 8  # B6, B7 and B9; their groups above 8 are ROADMAP.md B.5
-DECODE_MAX_GROUP = 32  # B5 and B8
+MAX_GROUP = 8  # B6 and B9; their groups above 8 are ROADMAP.md B.5
+DECODE_MAX_GROUP = 32  # B5, B7 and B8 (D1: flash_decode.MAX_GROUP)
 
 P, I, L, F = _build.P, _build.I, _build.L, _build.F
 PAGED_DECODE = _build.Kernel(
@@ -67,10 +67,10 @@ def extend_plan(head_dim: int, page_size: int) -> tuple[int, int]:
 
 def decode_plan(head_dim: int, page_size: int) -> tuple[int, int]:
     """(keys of a tile, keys of one copy) of the paged decodes B5 / B8: the
-    tile of `dispatch.paged_decode_tile`, copied by TMA in parts of
+    tile of `dispatch.decode_tile`, copied by TMA in parts of
     `gcd(tile, page_size)` keys that start on a tile's and a page's
     boundaries alike (at least eight rows: page_size % 8 == 0)."""
-    tile = dispatch.paged_decode_tile(head_dim)
+    tile = dispatch.decode_tile(head_dim)
     return tile, math.gcd(tile, page_size)
 
 
@@ -202,7 +202,7 @@ def paged_attention_decode(
     hkv, num_pages, ps, _ = k_pages.shape
     pps = page_table.shape[1]
     g = hq // hkv
-    splits = dispatch.paged_decode_splits(b, hkv, pps * ps, d)
+    splits = dispatch.decode_num_splits(b, hkv, pps * ps, d)
     acc = torch.empty((b, hkv, splits, g, d), dtype=torch.float32, device=q.device)
     m = torch.empty((b, hkv, splits, g), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)

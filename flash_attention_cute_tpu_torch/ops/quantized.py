@@ -9,10 +9,12 @@ per-token scales s_j the kernels never dequantize a K/V row:
     S_ij = (q_i . k_j) * kscale_j        folded into each score
     O_i  = sum_j P_ij * vscale_j * v_j   folded into each probability
 
-  * `flash_attention_decode_quantized`: B7 (csrc/quantized.cu) writes
-    split-KV partials over one layer of the contiguous cache (values
-    [B, Hkv, C, D], scales [B, Hkv, C], or the stacked [L, ...] cache with
-    `layer`), D2 (`flash_decode.decode_combine`) merges them.
+  * `flash_attention_decode_quantized`: B7 (csrc/quantized.cu, B8's kernel
+    over a contiguous cache, as D1 is B5's) writes split-KV partials over
+    one layer of the contiguous cache (values [B, Hkv, C, D], scales
+    [B, Hkv, C] of any capacity, or the stacked [L, ...] cache with
+    `layer`) for GQA groups up to 32, D2 (`flash_decode.decode_combine`)
+    merges them. It takes the soft cap and head dim 256.
   * `paged_attention_decode_quantized`: B8 (csrc/quant_paged_decode.cu, the
     kernel of B5 whose consumers widen the values exactly to q's type in
     registers), the same over a pool (values [Hkv, P, ps, D], scales
@@ -27,10 +29,10 @@ per-token scales s_j the kernels never dequantize a K/V row:
     in place, into the contiguous cache or through the page table.
 
 Each wrapper routes on the device of its tensors: CPU -> plain version,
-CUDA -> the kernel; what the kernel does not take raises (B7: a soft cap
-and D 256; every kernel: values that are neither int8 nor e4m3, scales that
-are not f32). QA takes D 256. B7 - B9 take a sliding window as D1, B5 and
-B6 do. The plain versions dequantize to fp32 and run the port's
+CUDA -> the kernel; what the kernel does not take raises (values that are
+neither int8 nor e4m3, scales that are not f32, groups above 32 in B7 /
+B8 and above 8 in B9). QA takes D 256. B7 - B9 take a sliding window as
+D1, B5 and B6 do. The plain versions dequantize to fp32 and run the port's
 `attention_reference` over the gathered rows. Positions at or past a row's
 length are never read by the kernels and are masked out of the plain
 versions, so they may hold anything, even NaN. The TPU-only arguments
@@ -59,8 +61,7 @@ from flash_attention_cute_tpu_torch.ops.paged_attention import (
 )
 from flash_attention_cute_tpu_torch.ops.reference import attention_reference
 
-HEAD_DIMS = (64, 128)  # B7; its D 256 is ROADMAP.md A10b
-PAGED_HEAD_DIMS = (64, 128, 256)  # B8, B9 and QA
+HEAD_DIMS = (64, 128, 256)  # B7, B8, B9 and QA
 INT8_MAX = 127.0
 FP8_E4M3_MAX = 448.0
 KV_DTYPES = tuple(_build.KV_DTYPE_CODES)
@@ -69,7 +70,7 @@ LOG2E = math.log2(math.e)
 P, I, L, F = _build.P, _build.I, _build.L, _build.F
 QUANT_DECODE = _build.Kernel(
     "quant_decode", "quantized.cu", "fact_quant_decode_partials",
-    [P] * 9 + [I] * 7 + [L] * 12 + [F, I, I, I, P],
+    [P] * 9 + [I] * 7 + [L] * 12 + [F, F, I, I, I, P],
 )
 QUANT_PAGED_DECODE = _build.Kernel(
     "quant_paged_decode", "quant_paged_decode.cu", "fact_quant_paged_decode_partials",
@@ -194,7 +195,8 @@ def flash_attention_decode_quantized(
         the full cache. A length-0 row outputs exact zeros.
       num_splits: KV-axis splits; 0 picks `dispatch.decode_num_splits`.
       window: sliding window W: only keys [length - W, length) are read.
-      logit_softcap: plain version only (ROADMAP.md A10b).
+      logit_softcap: tanh soft cap c of the scaled scores (Gemma2), applied
+        after the K scale; None for none.
 
     Returns [B, Hq, 1, D] in q's dtype.
     """
@@ -203,7 +205,7 @@ def flash_attention_decode_quantized(
     if q.device.type == "cpu":
         return flash_attention_decode_quantized_plain(
             q, k, v, kv_length, sm_scale, window, logit_softcap, num_splits, layer)
-    _build.refuse_softcap(logit_softcap, "quantized decode")
+    softcap = _build.softcap_arg(logit_softcap)
     window = _build.window_arg(window)
     k, v = _layer(k, layer), _layer(v, layer)
     b, hq, sq, d = q.shape
@@ -212,9 +214,9 @@ def flash_attention_decode_quantized(
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"quantized decode kernel takes bf16/f16 q, got {q.dtype}")
     _build.check_head_dim(d, HEAD_DIMS, "quantized decode")
-    if hq % hkv or g > MAX_GROUP:
-        raise NotImplementedError(f"quantized decode kernel takes Hq/Hkv <= {MAX_GROUP}, "
-                                  f"got {hq}/{hkv}")
+    if hq % hkv or g > DECODE_MAX_GROUP:
+        raise NotImplementedError(f"quantized decode kernel takes Hq/Hkv <= {DECODE_MAX_GROUP}, "
+                                  f"got {hq}/{hkv} (larger groups: ROADMAP.md B.5)")
     if sq != 1 or k.values.shape != v.values.shape or k.values.shape[0] != b \
             or k.values.shape[3] != d:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.values.shape)} "
@@ -227,7 +229,7 @@ def flash_attention_decode_quantized(
     if (kv_length.device != q.device or kv_length.dtype != torch.int32
             or kv_length.shape != (b,) or not kv_length.is_contiguous()):
         raise ValueError("kv_length must be a contiguous [B] int32 tensor on q's device")
-    splits = num_splits if num_splits > 0 else dispatch.decode_num_splits(b, hkv, cap)
+    splits = num_splits if num_splits > 0 else dispatch.decode_num_splits(b, hkv, cap, d)
     if not (0 < splits <= cap):
         raise ValueError(f"num_splits {splits} outside 1..{cap}")
 
@@ -241,7 +243,7 @@ def flash_attention_decode_quantized(
             l.data_ptr(), b, hkv, g, cap, d, splits, -(-cap // splits),
             q.stride(0), q.stride(1), *k.values.stride()[:3], *v.values.stride()[:3],
             *k.scales.stride()[:2], *v.scales.stride()[:2],
-            float(sm_scale) * LOG2E, window, _build.DTYPE_CODES[q.dtype],
+            float(sm_scale) * LOG2E, softcap, window, _build.DTYPE_CODES[q.dtype],
             _build.KV_DTYPE_CODES[k.values.dtype],
         )
     return flash_decode.decode_combine(acc, m, l, q.dtype)
@@ -285,12 +287,17 @@ def decode_kernel_report() -> str:
     return _build.runtime_report(QUANT_PAGED_DECODE.source, "fact_quant_paged_decode_report")
 
 
+def contiguous_decode_kernel_report() -> str:
+    """The same of every B7 instantiation."""
+    return _build.runtime_report(QUANT_DECODE.source, "fact_quant_decode_report")
+
+
 def _check_paged(name, q, k_pages, v_pages, page_table, row_tensors, window,
                  max_group=MAX_GROUP) -> int:
     """The refusals of B8 / B9: those of B5 / B6, the quantized pools', and
     scales each page part of which one 16-byte aligned bulk copy brings."""
     window = _check_cuda_call(name, q, k_pages.values, v_pages.values, page_table, row_tensors,
-                              window, k_pages.values.dtype, PAGED_HEAD_DIMS, max_group)
+                              window, k_pages.values.dtype, HEAD_DIMS, max_group)
     _check_quantized("k_pages", k_pages)
     _check_quantized("v_pages", v_pages, k_pages.values.dtype)
     for pname, kv in (("k_pages", k_pages), ("v_pages", v_pages)):
@@ -340,7 +347,7 @@ def paged_attention_decode_quantized(
     hkv, num_pages, ps, _ = k_pages.values.shape
     pps = page_table.shape[1]
     g = hq // hkv
-    splits = dispatch.paged_decode_splits(b, hkv, pps * ps, d)
+    splits = dispatch.decode_num_splits(b, hkv, pps * ps, d)
     acc = torch.empty((b, hkv, splits, g, d), dtype=torch.float32, device=q.device)
     m = torch.empty((b, hkv, splits, g), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
@@ -480,7 +487,7 @@ def quantize_append(
     kv_dtype = k_cache.values.dtype
     if k_new.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"quantize-append kernel takes bf16/f16 rows, got {k_new.dtype}")
-    _build.check_head_dim(d, PAGED_HEAD_DIMS, "quantize-append")
+    _build.check_head_dim(d, HEAD_DIMS, "quantize-append")
     if v_new.shape != k_new.shape or v_new.dtype != k_new.dtype:
         raise ValueError(f"bad new rows {tuple(k_new.shape)} {tuple(v_new.shape)}")
     _check_quantized("k_cache", k_cache)

@@ -46,7 +46,11 @@ def cuobjdump() -> str:
 
 
 def functions(lib: str) -> dict[str, str]:
-    """{mangled kernel name: its SASS text} of one library."""
+    """{mangled kernel name: its SASS text} of one library. Each line's
+    address is written without padding and its runs of blanks are cut to
+    one: cuobjdump pads a whole listing's address column to its longest
+    function, so an unchanged kernel would otherwise read as changed in a
+    library that gained a larger one."""
     text = subprocess.run([cuobjdump(), "-sass", lib], check=True, capture_output=True,
                           text=True).stdout
     out, name = {}, None
@@ -56,7 +60,8 @@ def functions(lib: str) -> dict[str, str]:
             name = m.group(1)
             out[name] = ""
         elif name is not None:
-            out[name] += line + "\n"
+            line = re.sub(r"/\*([0-9a-f]+)\*/", lambda a: f"/*{int(a.group(1), 16):x}*/", line)
+            out[name] += " ".join(line.split()) + "\n"
     return out
 
 

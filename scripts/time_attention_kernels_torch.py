@@ -10,8 +10,16 @@ groups of kernels to time (all without any). Llama / Mistral shapes
 (B 4, S 512) and the training step (B 2, S 2048), with its lse where the
 tree has `return_lse`; P at Qwen2-7B's 28 / 4 heads (B 4, S 512), at D 64
 (B 2, S 1024), non-causal (B 1, S 2048) and ragged (B 2, S 1000); B2 at
-Mistral-7B's greedy prefill (B 2, S 5120, window 4096); D1 at the greedy
-middle decode step (B 4, 544 of 576 positions, the dispatch's splits); B5 and
+Mistral-7B's greedy prefill (B 2, S 5120, window 4096); D1 and B7 (+ D2, the
+wrapper's own splits; B7 over int8) at the greedy middle decode steps of
+Llama-3-8B (B 4, 544 of 576 positions), Mistral-7B ("W": B 2, 5136 of 5152,
+window 4096) and Gemma-2-9B ("G": B 2, 4624 of 4640, 16 / 8 heads, D 256,
+cap 50; B7 also over e4m3), each with its "bound" (q read, the output
+written, the visible K / V rows and B7's scales read once at 3.35 TB/s, or
+4 D operations a visible key and q head at the bf16 peak, whichever is
+longer), its "SDPA" yardstick (one SDPA call over a GQA-expanded bf16 copy,
+dequantized for B7, with the lengths and the window as a boolean mask,
+without the cap) and its "call" time (host overhead included); B5 and
 B8 (+ D2) at serving run A's / D's decode (8 rows of 174-923 keys,
 page_size 128; B8 over int8), run B's / E's (the same rows at page_size
 16; B8 over e4m3), Mistral-7B run M1's ("W": 4 rows of 4200-5000 + 24
@@ -35,7 +43,7 @@ live k / v read once, the output written once) at 3.35 TB/s, whichever is
 longer. Gemma-2-9B shapes (Hq 16, Hkv 8, D 256, scale
 256 ** -0.5) with and without the soft cap 50, where the tree takes them
 (null where it raises NotImplementedError): P at B 2, S 4608; B2 with
-window 4096 there; D1 at B 2, 4624 of 4640 positions. The paged extends B6
+window 4096 there. The paged extends B6
 (bf16 pages) and B9 (quantized pages), page_size 16, each with its
 "bound" (operations as above, or q read, the output written and the live
 K / V rows read once): at serving run B's / E's extend (B 8, S 256,
@@ -70,7 +78,7 @@ from flash_attention_cute_tpu_torch.ops import flash_bwd, flash_chunked, flash_d
 from flash_attention_cute_tpu_torch.ops import flash_varlen  # noqa: E402
 from flash_attention_cute_tpu_torch.ops import paged_attention as pa  # noqa: E402
 from flash_attention_cute_tpu_torch.ops import quantized as qz  # noqa: E402
-from flash_attention_cute_tpu_torch.utils.timing import cuda_time_ms  # noqa: E402
+from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms  # noqa: E402
 
 PEAK_BF16, PEAK_BYTES = 989e12, 3.35e12
 
@@ -168,6 +176,46 @@ def paged_extends(randn, pool, timed, out):
             out[f"bound {kname} {name}"] = 1e3 * max(4 * d * hq * pairs / PEAK_BF16,
                                                      (io + row_bytes * live) / PEAK_BYTES)
         del kp, vp, quant
+
+
+def contiguous_decodes(randn, timed, out):
+    """D1 and B7 (+ D2) at the greedy decode steps of Llama-3-8B, Mistral-7B
+    ("W") and Gemma-2-9B ("G"), each with its bound, its SDPA yardstick and
+    its time per call with the host's overhead ("call")."""
+    f = torch.nn.functional
+    for name, b, hq, cap_len, live, d, w, cap, values in (
+            ("Llama B4 C576 L544", 4, 32, 576, 544, 128, None, None, ("int8",)),
+            ("W B2 C5152 L5136 W4096", 2, 32, 5152, 5136, 128, 4096, None, ("int8",)),
+            ("G gemma2 B2 C4640 L4624", 2, 16, 4640, 4624, 256, None, 50.0,
+             ("int8", "float8_e4m3fn"))):
+        kc, vc, q = randn(b, 8, cap_len, d), randn(b, 8, cap_len, d), randn(b, hq, 1, d)
+        lengths = torch.full((b,), live, dtype=torch.int32, device="cuda")
+        label = name + (f" cap {cap:g}" if cap else "")
+        kw = dict(kv_length=lengths, window=w, **capped(cap))
+        runs = {"D1": (lambda: flash_decode.flash_attention_decode(q, kc, vc, **kw), (kc, vc))}
+        for vname in values:
+            quant = tuple(qz.quantize_kv(x, getattr(torch, vname)) for x in (kc, vc))
+            runs[f"B7 {vname}"] = (
+                lambda quant=quant: qz.flash_attention_decode_quantized(q, *quant, **kw),
+                tuple(qz.dequantize_kv(x, torch.bfloat16) for x in quant))
+        pos = torch.arange(cap_len, device="cuda")
+        mask = ((pos < live) & (pos >= live - (w or live)))[None, None, None, :]
+        visible = min(live, w or live)
+        for kname, (fn, dense) in runs.items():
+            out[f"{kname} {label} (+ D2)"] = timed(fn, 50)
+            try:
+                out[f"call {kname} {label} (+ D2)"] = call_time_ms(fn, 50)
+            except (NotImplementedError, TypeError):  # a tree that refuses the shape
+                out[f"call {kname} {label} (+ D2)"] = None
+            kr, vr = (x.repeat_interleave(hq // 8, dim=1) for x in dense)
+            out[f"SDPA {kname} {name}"] = timed(lambda: f.scaled_dot_product_attention(
+                q, kr, vr, attn_mask=mask), 50)
+            del kr, vr
+            row_bytes = 2 * 2 * d if kname == "D1" else 2 * (d + 4)
+            io = 2 * 2 * q.numel() + 4 * b + row_bytes * 8 * b * visible
+            out[f"bound {kname} {name}"] = 1e3 * max(4 * d * hq * b * visible / PEAK_BF16,
+                                                     io / PEAK_BYTES)
+        del kc, vc, runs
 
 
 def paged_decodes(randn, pool, timed, out):
@@ -288,18 +336,8 @@ def main() -> None:
                                           io / PEAK_BYTES)
         del q, k, v
 
-    for name, b, hq, cap_len, live, d in () if "decode" not in groups else (
-            ("D1 B4 C576 L544", 4, 32, 576, 544, 128),
-            ("gemma2 D1 B2 C4640 L4624", 2, 16, 4640, 4624, 256)):
-        kc, vc, qd = randn(b, 8, cap_len, d), randn(b, 8, cap_len, d), randn(b, hq, 1, d)
-        lengths = torch.full((b,), live, dtype=torch.int32, device="cuda")
-        splits = dispatch.decode_num_splits(b, 8, cap_len)
-        for cap in ((None, 50.0) if d == 256 else (None,)):
-            label = name + (f" cap {cap:g}" if cap else "")
-            out[label] = timed(lambda: flash_decode.decode_partials(
-                qd, kc, vc, lengths, d ** -0.5, splits, **capped(cap)), 50)
-
     if "decode" in groups:
+        contiguous_decodes(randn, timed, out)
         paged_decodes(randn, pool, timed, out)
     if "paged" in groups:
         paged_extends(randn, pool, timed, out)

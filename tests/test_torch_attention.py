@@ -171,6 +171,24 @@ def test_decode_matches_jax_kernel_stacked_cache(num_splits):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
 
 
+@pytest.mark.parametrize("window,softcap", [(None, None), (50, 10.0)], ids=["full", "window_cap"])
+def test_decode_plain_at_group_24_matches_jax_kernel(window, softcap):
+    """A GQA group of 24 (48 / 2 heads, which the kernel takes since it runs
+    B5's body; JAX pads the group to 24 rows): the plain D1 + D2 against
+    the JAX kernel in interpret mode, ragged lengths, 3 splits."""
+    rng = np.random.default_rng(8)
+    b, hq, hkv, cap, d = 2, 48, 2, 256, 64
+    q, kc, vc = normal(rng, b, hq, 1, d), normal(rng, b, hkv, cap, d), normal(rng, b, hkv, cap, d)
+    lens = np.array([256, 77], np.int32)
+    want = jax_decode(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                      kv_length=jnp.asarray(lens), window=window, logit_softcap=softcap,
+                      num_splits=3, block_kv=128, interpret=True)
+    got = flash_decode.flash_attention_decode(t(q), t(kc), t(vc), kv_length=t(lens),
+                                              window=window, logit_softcap=softcap, num_splits=3)
+    assert got.shape == (b, hq, 1, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
+
+
 def test_decode_split_count_invariance_and_dead_rows():
     rng = np.random.default_rng(4)
     q = t(normal(rng, 3, 8, 1, 32))
@@ -251,6 +269,11 @@ def test_non_cpu_tensors_take_the_kernel_route_and_never_fall_back():
         flash_fwd.flash_attention_fwd(q, k, k, causal=True)
     with pytest.raises(ValueError, match="CUDA tensor"):
         flash_decode.flash_attention_decode(q[:, :, :1], k, k)
+    q32 = torch.empty(1, 64, 1, 64, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor"):  # D1 takes groups up to 32
+        flash_decode.flash_attention_decode(q32, k, k)
+    with pytest.raises(NotImplementedError, match="Hq/Hkv <= 32.*ROADMAP.md"):
+        flash_decode.flash_attention_decode(torch.cat([q32, q32[:, :2]], 1), k, k)
     with pytest.raises(ValueError, match="CUDA tensor"):
         api.flash_attn_func(q, k, k, causal=True, kv_length=torch.ones(1, dtype=torch.int32))
     # P takes a soft cap: a capped call reaches the CUDA-tensor check; under
@@ -299,8 +322,10 @@ def test_validate_inputs_and_split_heuristic():
         dispatch.validate_inputs(q, torch.zeros(1, 3, 8, 16), torch.zeros(1, 3, 8, 16))
     with pytest.raises(ValueError, match="dtype"):
         dispatch.validate_inputs(q, q.half(), q.half())
-    # Llama-3-8B decode at batch 4: 32 (row, head) pairs -> 5 splits >= 132 SMs.
-    assert dispatch.decode_num_splits(4, 8, 576) == 5
-    assert 4 * 8 * dispatch.decode_num_splits(4, 8, 576) >= dispatch.NUM_SMS
-    assert dispatch.decode_num_splits(64, 8, 4096) == 1
-    assert dispatch.decode_num_splits(1, 1, 100) == 1  # never below one tile
+    # Llama-3-8B decode at batch 4: 32 (row, head) pairs x 8 splits = 256
+    # blocks, one wave of the 264 slots (132 SMs x 2 blocks an SM below D 256).
+    assert dispatch.decode_num_splits(4, 8, 576, 128) == 8
+    assert 4 * 8 * dispatch.decode_num_splits(4, 8, 576, 128) >= dispatch.NUM_SMS
+    assert dispatch.decode_num_splits(64, 8, 4096, 128) == 1
+    assert dispatch.decode_num_splits(1, 1, 100, 64) == 1  # never below one tile (64 keys)
+    assert dispatch.decode_num_splits(1, 1, 100, 128) == 3  # 34-key chunks of 32-key tiles

@@ -277,6 +277,85 @@ def test_paged_decode_kernels_geometry(device, case, values):
     assert (out.float() - ref).abs().max().item() <= BF16_TOL
 
 
+# Geometry of the contiguous decodes D1 and B7 since they run B5 / B8's
+# kernel (name: head_dim, hq, hkv, capacity, window, soft cap, q's dtype):
+# head dims 64, 128 and 256, GQA groups 1, 2, 4, 7, 8, 16 and 32,
+# capacities that are no multiple of 4 nor of a tile (B7's scale rows start
+# off any 16-byte boundary), windows of 1, 45, 100 and 4096 keys, caps 50
+# and 1.0, f16. Rows of lengths 0, 1, 37, the capacity, one short of it and
+# half of it; NaN at and past every length (B7: its scales and e4m3
+# values); the stacked [2, B, Hkv, C, D] cache through `layer`.
+CONTIG_DECODE = {
+    "d64_g1_c577": (64, 8, 8, 577, None, None, torch.bfloat16),
+    "d64_g7_c130_w1": (64, 28, 4, 130, 1, None, torch.bfloat16),
+    "d64_g16_c999_cap50": (64, 32, 2, 999, None, 50.0, torch.bfloat16),
+    "d128_g2_c1030_w45": (128, 16, 8, 1030, 45, None, torch.bfloat16),
+    "d128_g4_c576": (128, 32, 8, 576, None, None, torch.bfloat16),
+    "d128_g8_c513_f16_cap50": (128, 32, 4, 513, None, 50.0, torch.float16),
+    "d128_g32_c2051_w100_cap1": (128, 32, 1, 2051, 100, 1.0, torch.bfloat16),
+    "d256_g2_c4641_cap50_w4096": (256, 16, 8, 4641, 4096, 50.0, torch.bfloat16),
+    "d256_g2_c1023_cap1": (256, 16, 8, 1023, None, 1.0, torch.bfloat16),
+    "d256_g32_c770_f16": (256, 32, 1, 770, None, None, torch.float16),
+}
+
+
+def contig_decode_inputs(gen, case, values=None):
+    """Case's q, lengths and NaN-tailed stacked cache (q's dtype, or
+    quantized to `values`)."""
+    d, hq, hkv, cap_len, _, _, dtype = CONTIG_DECODE[case]
+    lens = [0, 1, 37, cap_len, cap_len - 1, cap_len // 2 + 3]
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    dead = torch.arange(cap_len, device="cuda")[None, :] >= lengths[:, None]  # [B, C]
+    dead = dead[None, :, None, :].expand(2, -1, hkv, -1)
+    caches = []
+    for _ in "kv":
+        x = randn(gen, 2, len(lens), hkv, cap_len, d, dtype=torch.float32)
+        if values is None:
+            x = x.to(dtype)
+            x[dead] = float("nan")
+        else:
+            x = quant.quantize_kv(x, values)
+            poison(x, dead)
+        caches.append(x)
+    return randn(gen, len(lens), hq, 1, d, dtype=dtype), *caches, lengths
+
+
+@pytest.mark.parametrize("values", ["bf16", "int8", "e4m3"])
+@pytest.mark.parametrize("case", list(CONTIG_DECODE), ids=list(CONTIG_DECODE))
+def test_contiguous_decode_kernels_geometry(device, case, values):
+    """D1 (bf16 / f16 cache) and B7 (int8 / e4m3 cache) + D2 against their
+    fp32 plain versions run on q's fp32 image: exact zeros for a length-0
+    row over NaN tails, a second call bit-identical to the first, one launch
+    each of the kernel and of D2 a call. D1's partials at 7 splits (chunk
+    edges inside the kernel's tiles) against the plain partials: fp32 sums
+    of the same inputs, P taken in two parts."""
+    _, _, _, _, window, cap, _ = CONTIG_DECODE[case]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    q, k, v, lengths = contig_decode_inputs(gen, case, KV_DTYPES.get(values))
+    if values == "bf16":
+        kernel, fn, plain = (flash_decode.PARTIALS, flash_decode.flash_attention_decode,
+                             flash_decode.flash_attention_decode_plain)
+    else:
+        kernel, fn, plain = (quant.QUANT_DECODE, quant.flash_attention_decode_quantized,
+                             quant.flash_attention_decode_quantized_plain)
+    kw = dict(window=window, logit_softcap=cap, layer=1)
+    before = (kernel.launches, flash_decode.COMBINE.launches)
+    out = fn(q, k, v, lengths, **kw)
+    again = fn(q, k, v, lengths, **kw)
+    torch.cuda.synchronize()
+    assert (kernel.launches, flash_decode.COMBINE.launches) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(out, again)
+    ref = plain(q.float(), k, v, lengths, **kw)
+    assert out.dtype == q.dtype and torch.isfinite(out).all() and (out[0] == 0).all()
+    assert (out.float() - ref).abs().max().item() <= BF16_TOL
+    if values == "bf16":
+        scale = q.shape[-1] ** -0.5
+        got = flash_decode.decode_partials(q, k[1], v[1], lengths, scale, 7, window, cap)
+        want = flash_decode.decode_partials_plain(q, k[1], v[1], lengths, scale, 7, window, cap)
+        for x, y in zip(got, want):
+            torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-3)
+
+
 # Edge cases of the paged extends B6 and B9 (name: page_size, head_dim, hq,
 # hkv, S, q_offset of rows 0-2, window, soft cap, q's dtype): page sizes 8,
 # 16 and 128, head dims 64, 128 and 256, chunks across the kernels' 128-row
@@ -521,9 +600,10 @@ def test_quant_append_kernel_writes_what_plain_writes(device, s, paged, name):
 
 
 def test_quantized_kernels_refuse_what_they_do_not_take(device):
-    """B7 refuses the cap and D 256 (ROADMAP.md A10b); every quantized
-    kernel refuses values other than int8 / e4m3 and scales other than
-    f32. B8 and QA take the cap and D 256 (test_paged_decode_kernels_geometry,
+    """Every quantized kernel refuses values other than int8 / e4m3 and
+    scales other than f32; B7 and B8 a group above 32. B7, B8 and QA take
+    the cap and D 256 (test_contiguous_decode_kernels_geometry,
+    test_paged_decode_kernels_geometry,
     test_quant_append_kernel_writes_what_plain_writes_at_d256)."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     k, v, table = quant_paged_pool(gen, 16, 2, torch.int8, [64, 64], capacity=64)
@@ -539,11 +619,8 @@ def test_quantized_kernels_refuse_what_they_do_not_take(device):
         quant.paged_attention_decode_quantized(randn(gen, 2, 8 * 33, 1, 128), k, v, lengths,
                                                table)
     cache = quant.quantize_kv(randn(gen, 2, 8, 64, 128), torch.int8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10b"):
-        quant.flash_attention_decode_quantized(q, cache, cache, lengths, logit_softcap=30.0)
-    cache256 = quant.quantize_kv(randn(gen, 2, 8, 64, 256), torch.int8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10b"):  # B7 at D 256
-        quant.flash_attention_decode_quantized(randn(gen, 2, 16, 1, 256), cache256, cache256,
+    with pytest.raises(NotImplementedError, match="Hq/Hkv <= 32"):
+        quant.flash_attention_decode_quantized(randn(gen, 2, 8 * 33, 1, 128), cache, cache,
                                                lengths)
     with pytest.raises(ValueError, match="float32"):
         quant.quantize_append(randn(gen, 2, 8, 1, 128), randn(gen, 2, 8, 1, 128),
@@ -1408,9 +1485,10 @@ def test_gemma2_paged_append_at_d256_writes_what_plain_writes(device):
 
 
 def test_gemma2_routes_outside_the_slice_raise(device):
-    """The soft cap and D 256 stay refused by B7 and B13, naming ROADMAP.md
-    A10b; nothing falls back to a plain version. B4 (here), B8, B9, B12 and
+    """The soft cap and D 256 stay refused by B13, naming ROADMAP.md A10b;
+    nothing falls back to a plain version. B4, B7, B8, B9 (here), B12 and
     QA take both (test_chunked_extend_kernel_geometry,
+    test_contiguous_decode_kernels_geometry,
     test_paged_decode_kernels_geometry,
     test_quant_paged_extend_kernel_takes_the_cap_and_d256,
     test_varlen_kernel_takes_the_cap_and_d256,
@@ -1426,15 +1504,15 @@ def test_gemma2_routes_outside_the_slice_raise(device):
     cache = QuantizedKV(torch.zeros(2, 8, 64, 256, dtype=torch.int8, device="cuda"),
                         torch.ones(2, 8, 64, device="cuda"))
     qd = randn(gen, 2, 16, 1, 256)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        quant.flash_attention_decode_quantized(qd, cache, cache, lens)
     pages = QuantizedKV(torch.zeros(8, 9, 16, 256, dtype=torch.int8, device="cuda"),
                         torch.ones(8, 9, 16, device="cuda"))
     table = torch.arange(1, 9, dtype=torch.int32, device="cuda").view(2, 4)
-    for kernel, fn in ((quant.QUANT_PAGED_DECODE, quant.paged_attention_decode_quantized),
-                       (quant.QUANT_PAGED_EXTEND, quant.paged_attention_extend_quantized)):
-        args = (qd, pages, pages, lens, table) if kernel is quant.QUANT_PAGED_DECODE else (
-            q, pages, pages, off, lens, table)
+    for kernel, fn, args in (
+            (quant.QUANT_DECODE, quant.flash_attention_decode_quantized, (qd, cache, cache, lens)),
+            (quant.QUANT_PAGED_DECODE, quant.paged_attention_decode_quantized,
+             (qd, pages, pages, lens, table)),
+            (quant.QUANT_PAGED_EXTEND, quant.paged_attention_extend_quantized,
+             (q, pages, pages, off, lens, table))):
         before = kernel.launches
         out = fn(*args, logit_softcap=50.0)
         torch.cuda.synchronize()

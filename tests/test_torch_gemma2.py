@@ -17,7 +17,8 @@ tokens identical. HF `Gemma2ForCausalLM` (random weights, eager attention,
 built in process, converted through the JAX package's
 `params_from_state_dict`, which folds the +1 of Gemma's norms) at atol
 1e-4. Prompt-lookup and self-draft speculative tokens (the extend mode)
-identical to JAX's, with JAX's round and acceptance counts; engine tokens
+identical to JAX's, with JAX's round and acceptance counts; greedy tokens
+over int8 and e4m3 contiguous caches identical to JAX's; engine tokens
 identical to the JAX engine's over fp32, int8 and e4m3 pages. The plain versions of kernels P / B2, D1 + D2, B5 and B6 at head dim
 256 with a binding cap against the JAX kernels in interpret mode at atol
 1e-5. The JAX engine runs once, in a module fixture.
@@ -211,6 +212,21 @@ def test_greedy_generate_token_identical_to_jax(model):
     ids = ids_of(2, 18, 5)
     want = np.asarray(jax_greedy(jparams, jcfg, jnp.asarray(ids), 10))
     got = greedy_generate(params, cfg, torch.from_numpy(ids), 10)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("cache_dtype", ["int8", "float8_e4m3fn"])
+def test_greedy_generate_over_quantized_cache_token_identical_to_jax(model, cache_dtype):
+    """Greedy generation over an int8 / e4m3 contiguous cache (QA, then B7 +
+    D2 with the soft cap and the windows) gives JAX's tokens. The capacity
+    is one block_kv of JAX's kernel (ROADMAP.md C: its interpret mode gives
+    NaN on a ragged e4m3 tail block)."""
+    jcfg, jparams, cfg, params = model
+    ids = ids_of(2, 18, 5)
+    want = np.asarray(jax_greedy(jparams, jcfg, jnp.asarray(ids), 10, cache_capacity=128,
+                                 cache_dtype=getattr(jnp, cache_dtype)))
+    got = greedy_generate(params, cfg, torch.from_numpy(ids), 10, cache_capacity=128,
+                          cache_dtype=getattr(torch, cache_dtype))
     np.testing.assert_array_equal(got.numpy(), want)
 
 

@@ -155,7 +155,7 @@ def test_paged_decode_splits_fill_whole_waves(shape):
     least 90 % of them."""
     b, hkv, cap, d = SMOKE_DECODES[shape]
     slots = dispatch.NUM_SMS * (1 if d == 256 else 2)
-    blocks = b * hkv * dispatch.paged_decode_splits(b, hkv, cap, d)
+    blocks = b * hkv * dispatch.decode_num_splits(b, hkv, cap, d)
     assert 0.9 * slots <= blocks <= slots
 
 
@@ -163,11 +163,11 @@ def test_paged_decode_splits_fill_whole_waves(shape):
 def test_paged_decode_splits_at_least_one_and_no_shorter_than_a_tile(d):
     """At least one split; more than one only where each covers a tile of
     the capacity; the count is a function of the shapes alone."""
-    tile = dispatch.paged_decode_tile(d)
+    tile = dispatch.decode_tile(d)
     for b in (1, 2, 3, 8, 64, 300):
         for hkv in (1, 2, 8):
             for cap in (8, 16, 40, 64, 576, 2048, 5120):
-                s = dispatch.paged_decode_splits(b, hkv, cap, d)
+                s = dispatch.decode_num_splits(b, hkv, cap, d)
                 assert s >= 1
                 assert s == 1 or cap // s >= tile
 

@@ -6,9 +6,9 @@ kernels run in interpret mode (its own tests' CPU route); the port's CPU
 tensors take the plain versions of kernels B7, B8, B9 and QA. Tolerances:
 `quantize_kv` and the appends must be bit-identical to JAX's; attention
 agrees to 2e-5 absolute at fp32 (the same scores summed in another order).
-The CUDA kernels take the window; B8, B9 and QA also the soft cap (QA has
-none to take) and head dim 256, B7 neither. The plain versions take both
-and are held to the JAX kernels with them too.
+The CUDA kernels take the window, the soft cap (QA has none to take) and
+head dim 256; B7 and B8 GQA groups up to 32. The plain versions take them
+too and are held to the JAX kernels with them (B7 also at a group of 24).
 """
 
 import jax.numpy as jnp
@@ -68,22 +68,29 @@ def test_quantize_kv_bit_identical_to_jax(name):
 
 
 DECODE = {
-    # name: (dtype, b, hq, hkv, cap, lengths, window, softcap, layers)
-    "e4m3_len0_len1": ("e4m3", 3, 8, 2, 256, [0, 1, 200], None, None, 0),
-    "int8_stacked_layer1": ("int8", 2, 8, 2, 192, [150, 192], None, None, 3),
-    "int8_window_softcap": ("int8", 2, 8, 2, 256, [200, 77], 50, 10.0, 0),
+    # name: (dtype, b, hq, hkv, cap, lengths, window, softcap, layers, head_dim). The
+    # e4m3 capacities at D 256 are multiples of block_kv (ROADMAP.md C: the
+    # JAX kernel's interpret mode gives NaN on an e4m3 tail block).
+    "e4m3_len0_len1": ("e4m3", 3, 8, 2, 256, [0, 1, 200], None, None, 0, 64),
+    "int8_stacked_layer1": ("int8", 2, 8, 2, 192, [150, 192], None, None, 3, 64),
+    "int8_window_softcap": ("int8", 2, 8, 2, 256, [200, 77], 50, 10.0, 0, 64),
+    "int8_d256_cap50": ("int8", 2, 4, 2, 200, [200, 77], None, 50.0, 0, 256),
+    "int8_d256_cap1_window_stacked": ("int8", 2, 4, 2, 160, [150, 33], 24, 1.0, 2, 256),
+    "e4m3_d256_cap50": ("e4m3", 2, 4, 2, 256, [250, 0], None, 50.0, 0, 256),
+    "e4m3_d256_cap1_window": ("e4m3", 2, 4, 2, 256, [256, 90], 40, 1.0, 0, 256),
+    "int8_group24": ("int8", 2, 48, 2, 192, [192, 50], None, None, 0, 64),
 }
 
 
 @pytest.mark.parametrize("case", list(DECODE))
 def test_quant_decode_plain_matches_jax_kernel(case):
-    name, b, hq, hkv, cap, lens, window, softcap, layers = DECODE[case]
+    name, b, hq, hkv, cap, lens, window, softcap, layers, d = DECODE[case]
     rng = np.random.default_rng(len(case))
     lead = (layers,) if layers else ()
-    qa = rng.standard_normal((b, hq, 1, 64), dtype=np.float32)
-    jk, tk = quantized_pair(rng.standard_normal(lead + (b, hkv, cap, 64), dtype=np.float32),
+    qa = rng.standard_normal((b, hq, 1, d), dtype=np.float32)
+    jk, tk = quantized_pair(rng.standard_normal(lead + (b, hkv, cap, d), dtype=np.float32),
                             DTYPES[name][1])
-    jv, tv = quantized_pair(rng.standard_normal(lead + (b, hkv, cap, 64), dtype=np.float32),
+    jv, tv = quantized_pair(rng.standard_normal(lead + (b, hkv, cap, d), dtype=np.float32),
                             DTYPES[name][1])
     lengths = np.asarray(lens, np.int32)
     layer = 1 if layers else None
@@ -95,7 +102,7 @@ def test_quant_decode_plain_matches_jax_kernel(case):
     got = q.flash_attention_decode_quantized(torch.from_numpy(qa), tk, tv,
                                              torch.from_numpy(lengths), window=window,
                                              logit_softcap=softcap, layer=layer)
-    assert got.shape == (b, hq, 1, 64) and got.dtype == torch.float32
+    assert got.shape == (b, hq, 1, d) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
     for i, n in enumerate(lens):
         if n == 0:
@@ -235,10 +242,10 @@ def test_quant_paged_extend_plain_matches_jax_kernel(case):
 
 
 def test_cuda_routes_take_or_refuse_the_cap_and_d256():
-    """Off the CPU (here the `meta` device, on which no kernel runs) B8 and
-    B9 take the soft cap, head dim 256 and B8 groups up to 32, and stop only
-    at the CUDA-tensor check; B7 refuses the cap and D 256, naming
-    ROADMAP.md A10b, and B8 a group above 32."""
+    """Off the CPU (here the `meta` device, on which no kernel runs) B7, B8
+    and B9 take the soft cap, head dim 256 and B7 / B8 groups up to 32, and
+    stop only at the CUDA-tensor check; B7 and B8 refuse a group above 32,
+    naming ROADMAP.md."""
     meta = torch.device("meta")
     qm = torch.empty(2, 16, 8, 256, dtype=torch.bfloat16, device=meta)
     kv = QuantizedKV(torch.empty(8, 9, 16, 256, dtype=torch.int8, device=meta),
@@ -257,10 +264,12 @@ def test_cuda_routes_take_or_refuse_the_cap_and_d256():
         q.paged_attention_decode_quantized(torch.cat([q32, q32[:, :8]], 1), kv, kv, rows, table)
     cache = QuantizedKV(torch.empty(2, 8, 64, 256, dtype=torch.int8, device=meta),
                         torch.empty(2, 8, 64, device=meta))
-    with pytest.raises(NotImplementedError, match="A10b"):
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):  # the cap at D 256
         q.flash_attention_decode_quantized(qm[:, :, :1], cache, cache, rows, logit_softcap=50.0)
-    with pytest.raises(NotImplementedError, match="A10b"):  # D 256
-        q.flash_attention_decode_quantized(qm[:, :, :1], cache, cache, rows)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):  # D 256, group 32
+        q.flash_attention_decode_quantized(q32, cache, cache, rows, window=4096)
+    with pytest.raises(NotImplementedError, match="Hq/Hkv <= 32.*ROADMAP.md"):
+        q.flash_attention_decode_quantized(torch.cat([q32, q32[:, :8]], 1), cache, cache, rows)
 
 
 def test_quant_plain_versions_never_read_past_the_lengths():
