@@ -175,6 +175,25 @@ Phases, in order; any failure exits non-zero:
      and G3 (G2 over int8 pages: B9, B8 and QA at D 256 with the cap;
      teacher-forced over int8 pages as runs D / E are), launch counts per
      forward, every token teacher-forced.
+     (4k, run after 4e over the Llama tree; launches counted as path "hf")
+     The HF surface: (a) HF-named transposed views of the parameters
+     through `params_from_state_dict`, then greedy generation: phase 4's
+     tokens and launch counts exactly; (b) `interop.attention_forward` on a
+     stand-in module (layer 0's projections as bf16 Linears, an HF-style
+     config, a cache grown by torch.cat as HF's DynamicCache grows) at B 4
+     x 512: an unpadded prefill (P), a right-padded prefill of lengths 512
+     / 400 / 257 / 1 (B4), 8 decode steps (D1 + D2), then the same with a
+     window of 256 (B2, windowed D1), each attention output within 3e-2 of
+     the fp32 reference on the same q / k / v, and one torch.compile
+     (inductor) of a call of the custom op, equal to the eager call; (c)
+     where `transformers` imports (otherwise one line says why not): HF
+     `LlamaForCausalLM` of these widths holding the same weights,
+     `patch_llama()`, greedy generation of 32 tokens over HF's DynamicCache
+     (P layers, D1 + D2 layers x 31) teacher-forced against the port's
+     `forward` (logit limits below, argmax share >= 0.9), prefill ms,
+     decode ms/token and host wall, and `sequence_classification_forward`
+     with a random [hidden, 2] score head, kernel route vs plain route
+     within 3e-2; the original `LlamaAttention.forward` restored.
   5. numbers: per-kernel times, bounds and library times as one JSON line
      (for D1 one SDPA call over the length-masked cache against D1 + D2
      together, "with_combine_ms"; for B7-B9 SDPA over a dequantized bf16
@@ -198,7 +217,7 @@ Phases, in order; any failure exits non-zero:
      padded batch), and the lse's cost on P and B2 (with and without it;
      at the training shape also its launches, bound, plain version and
      SDPA's forward);
-     the training numbers ("training"); (5d) the "gemma2" entries of the P,
+     the training numbers ("training"); phase 4k's numbers ("hf"); (5d) the "gemma2" entries of the P,
      B2, D1, D2, B7, B4, B5, B6, B8, B9, B12, QA and append rows at Gemma-2-9B
      shapes
      with the cap 50 (library_ms: `flex_attention` with a tanh score_mod for
@@ -1555,6 +1574,313 @@ def phase_speculative(torch, cfg, params, ids, kernels, path_counts, greedy_wall
     torch.cuda.empty_cache()
     return results
 
+
+# Phase 4k: the HF surface (interop.torch_patch, HF state-dict conversion,
+# the task heads) at Llama-3-8B widths over the main path's weights.
+HF_PADDED_LENGTHS = (512, 400, 257, 1)
+HF_DECODE_STEPS, HF_WINDOW, HF_NEW = 8, 256, 32
+
+
+def hf_state_dict(params, cfg) -> dict:
+    """The parameters under HF Llama's names, each Linear [out, in] as a
+    transposed view (nothing is copied)."""
+    lp = params["layers"]
+    sd = {"model.embed_tokens.weight": params["embed"], "model.norm.weight": params["final_ln"],
+          "lm_head.weight": params["lm_head"].T}
+    for i in range(cfg.num_layers):
+        pre = f"model.layers.{i}."
+        sd[pre + "input_layernorm.weight"] = lp["input_ln"][i]
+        sd[pre + "post_attention_layernorm.weight"] = lp["post_ln"][i]
+        for name in ("q", "k", "v", "o"):
+            sd[pre + f"self_attn.{name}_proj.weight"] = lp[f"{name}_proj"][i].T
+        for name in ("gate", "up", "down"):
+            sd[pre + f"mlp.{name}_proj.weight"] = lp[f"{name}_proj"][i].T
+    return sd
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for name, c in counts.items():
+        total[name] = total.get(name, 0) + c
+
+
+def check_launched(counts: dict, want: dict, what: str) -> None:
+    """Exactly the launches of `want`, no other kernel."""
+    for name, c in counts.items():
+        check(c == want.get(name, 0),
+              f"{what}: {name} launched {want.get(name, 0)} times, got {c}")
+
+
+class GrowingCache:
+    """HF's `DynamicCache.update` for one layer: the first call keeps K / V
+    as given (the projections' transposed views), each later call returns
+    torch.cat([old, new]) along the sequence axis, one key longer a step."""
+
+    def __init__(self, cat):
+        self.cat, self.k, self.v = cat, None, None
+
+    def update(self, k, v, layer_idx, cache_kwargs=None):
+        if self.k is not None:
+            k, v = self.cat([self.k, k], dim=-2), self.cat([self.v, v], dim=-2)
+        self.k, self.v = k, v
+        return k, v
+
+
+def stand_in_attention(torch, cfg, params, window):
+    """A module holding only what `attention_forward` reads: layer 0's
+    q / k / v / o projections as bf16 Linears, an HF-style `config`,
+    `head_dim` and `layer_idx`. Its o_proj keeps its input, the attention
+    output, for the check."""
+    import types
+
+    lp = params["layers"]
+
+    def linear(w):  # w [in, out] -> Linear with weight [out, in] (a view)
+        lin = torch.nn.Linear(w.shape[0], w.shape[1], bias=False, device="meta")
+        lin.weight = torch.nn.Parameter(w.T, requires_grad=False)
+        return lin
+
+    class Recorder(torch.nn.Module):
+        def __init__(self, inner):
+            super().__init__()
+            self.inner, self.seen = inner, None
+
+        def forward(self, x):
+            self.seen = x
+            return self.inner(x)
+
+    mod = torch.nn.Module()
+    for name in ("q", "k", "v"):
+        setattr(mod, f"{name}_proj", linear(lp[f"{name}_proj"][0]))
+    mod.o_proj = Recorder(linear(lp["o_proj"][0]))
+    mod.config = types.SimpleNamespace(
+        num_attention_heads=cfg.num_q_heads, num_key_value_heads=cfg.num_kv_heads,
+        hidden_size=cfg.hidden_size, use_sliding_window=window is not None,
+        sliding_window=window, max_window_layers=0)
+    mod.head_dim, mod.layer_idx = cfg.head_dim, 0
+    return mod
+
+
+def phase_hf(torch, cfg, params, ids, bf16_tokens, kernels, path_counts):
+    """(a) HF-named transposed views of the main path's parameters through
+    `params_from_state_dict`, then greedy generation: phase 4's tokens and
+    launch counts exactly. (b) `attention_forward` on a stand-in module
+    (layer 0's projections, an HF-style config and a cache growing by
+    torch.cat as HF's DynamicCache does) at B 4 x 512: an unpadded prefill
+    (P), a right-padded one (B4), 8 decode steps (D1 + D2), then the same
+    with a window of 256 (B2, windowed D1), each attention output within
+    BF16_TOL of the fp32 reference on the same q / k / v; one torch.compile
+    of a call of the op. (c) Where transformers imports: HF
+    `LlamaForCausalLM` holding the same weights, `patch_llama()`, greedy
+    over HF's DynamicCache, teacher-forced against the port's `forward`,
+    and `sequence_classification_forward` kernel route vs plain route."""
+    from flash_attention_cute_tpu_torch.interop import attention_forward, torch_patch
+    from flash_attention_cute_tpu_torch.models import layers as L
+    from flash_attention_cute_tpu_torch.models.convert import params_from_state_dict
+    from flash_attention_cute_tpu_torch.ops.reference import attention_reference
+    from flash_attention_cute_tpu_torch.runtime.generate import greedy_generate
+
+    hf_counts = path_counts["hf"]
+    out = {}
+
+    # (a) conversion at full width, exact.
+    t0 = time.perf_counter()
+    converted = params_from_state_dict(hf_state_dict(params, cfg), cfg)
+    torch.cuda.synchronize()
+    out["convert_s"] = time.perf_counter() - t0
+    tokens, wall, counts = counted_run(
+        torch, kernels, lambda: greedy_generate(converted, cfg, ids, NEW, cache_capacity=CAPACITY))
+    add_counts(hf_counts, counts)
+    same = torch.equal(tokens, bf16_tokens)
+    print(f"  (a) params_from_state_dict over HF-named views ({out['convert_s']:.2f} s), greedy "
+          f"B{B} prompt {PROMPT} new {NEW}: {wall:.3f} s, tokens equal phase 4's: {same}, "
+          f"launches {counts}")
+    check(same, "(a) converted parameters give phase 4's tokens exactly")
+    check_launched(counts, path_counts["greedy"], "(a) greedy over converted parameters")
+    del converted, tokens
+    torch.cuda.empty_cache()
+
+    # (b) the patch itself, on a stand-in module.
+    gen = torch.Generator(device="cuda").manual_seed(80)
+    x = torch.randn(B, PROMPT, cfg.hidden_size, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    xs = torch.randn(B, HF_DECODE_STEPS, cfg.hidden_size, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    inv_freq = L.rope_inv_freq(cfg, "cuda")
+    scale = cfg.head_dim ** -0.5
+    errs = {}
+
+    def rope(start, s):
+        pos = (start + torch.arange(s, device="cuda")).expand(B, s)
+        return L.rope_cos_sin(pos, inv_freq, cfg.dtype)
+
+    def held(name, mod, h, start, mask, cache, kv_length, window, want):
+        """One attention_forward call, its attention output (o_proj's input)
+        against the fp32 reference on the q / k / v it formed."""
+        cos, sin = rope(start, h.shape[1])
+        with torch.no_grad():
+            (_, none), _, counts = counted_run(torch, kernels, lambda: attention_forward(
+                mod, h, position_embeddings=(cos, sin), attention_mask=mask,
+                past_key_values=cache))
+            s = h.shape[1]
+            q = L.apply_rope(mod.q_proj(h).view(B, s, -1, cfg.head_dim).transpose(1, 2), cos, sin)
+            q_offset = None if kv_length is None or s == 1 else torch.zeros_like(kv_length)
+            ref = attention_reference(q.float(), cache.k.float(), cache.v.float(), scale,
+                                      causal=True, kv_length=kv_length, q_offset=q_offset,
+                                      window=window)
+            got = mod.o_proj.seen.view(B, s, -1, cfg.head_dim).transpose(1, 2)
+            e = max_err(got, ref)
+        add_counts(hf_counts, counts)
+        errs[name] = max(errs.get(name, 0.0), e)
+        check(none is None, f"(b) {name}: attention_forward returns (out, None)")
+        check(bool(torch.isfinite(got).all()) and e <= BF16_TOL,
+              f"(b) {name}: finite, within {BF16_TOL} of the fp32 reference (max|diff| {e:.3e})")
+        check_launched(counts, want, f"(b) {name}")
+
+    lengths = torch.tensor(HF_PADDED_LENGTHS, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(PROMPT, device="cuda")[None, :] < lengths[:, None]).long()
+    decode = {"decode_partials": 1, "decode_combine": 1}
+    for window, prefill in ((None, "flash_fwd"), (HF_WINDOW, "flash_fwd_window")):
+        mod = stand_in_attention(torch, cfg, params, window)
+        tag = "" if window is None else f" window {window}"
+        if window is None:
+            held("right-padded prefill (B4)", mod, x, 0, mask, GrowingCache(torch.cat), lengths,
+                 None, {"flash_chunked": 1})
+        cache = GrowingCache(torch.cat)
+        held(f"prefill{tag} ({'P' if window is None else 'B2'})", mod, x, 0, None, cache, None,
+             window, {prefill: 1})
+        for t in range(HF_DECODE_STEPS):
+            held(f"decode{tag} (D1 + D2)", mod, xs[:, t:t + 1], PROMPT + t, None, cache, None,
+                 window, decode)
+        check(cache.k.shape[2] == PROMPT + HF_DECODE_STEPS and cache.k.is_contiguous(),
+              "(b) the decode steps read a torch.cat-grown cache")
+    for name, e in errs.items():
+        print(f"  (b) attention_forward, {name}: max|diff| {e:.3e} vs fp32 reference")
+    out["stand_in_max_abs_err"] = errs
+
+    q = torch.randn(B, cfg.num_q_heads, PROMPT, cfg.head_dim, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    k = torch.randn(B, cfg.num_kv_heads, PROMPT, cfg.head_dim, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    v = torch.randn_like(k)
+
+    def attend(q, k, v):
+        return torch_patch._flash_attention_core(q, k, v, scale, True, None).float() * 2.0
+
+    t0 = time.perf_counter()
+    compiled = torch.compile(attend, dynamic=False)
+    got, _, counts = counted_run(torch, kernels, lambda: compiled(q, k, v))
+    out["compile_s"] = time.perf_counter() - t0
+    add_counts(hf_counts, counts)
+    with torch.no_grad():
+        want = attend(q, k, v)
+    e = max_err(got, want)
+    print(f"  (b) torch.compile (inductor) of a call of {torch_patch.OP_NAME}: "
+          f"{out['compile_s']:.1f} s, max|diff| vs eager {e:.3e}, launches {counts}")
+    check(e == 0.0, "(b) the compiled call equals the eager one")
+    check_launched(counts, {"flash_fwd": 1}, "(b) compiled call")
+    del x, xs, q, k, v, got, want
+
+    # (c) the HF model, where transformers imports.
+    try:
+        import transformers
+    except ImportError as exc:
+        print(f"  (c) did not run: transformers does not import here ({exc})")
+        out["hf_model"] = f"not run: transformers does not import ({exc})"
+        return out
+    out["hf_model"] = phase_hf_model(torch, transformers, cfg, params, ids, kernels, hf_counts)
+    return out
+
+
+def phase_hf_model(torch, transformers, cfg, params, ids, kernels, hf_counts):
+    """(c): HF `LlamaForCausalLM` at the config's widths holding the main
+    path's weights, patched onto the port; the original forward restored."""
+    from transformers.models.llama import modeling_llama
+    from flash_attention_cute_tpu_torch.interop import patch_llama
+    from flash_attention_cute_tpu_torch.models.heads import sequence_classification_forward
+    from flash_attention_cute_tpu_torch.models.transformer import forward
+
+    n = cfg.num_layers
+    hf_cfg = transformers.LlamaConfig(
+        vocab_size=cfg.vocab_size, hidden_size=cfg.hidden_size,
+        intermediate_size=cfg.intermediate_size, num_hidden_layers=n,
+        num_attention_heads=cfg.num_q_heads, num_key_value_heads=cfg.num_kv_heads,
+        max_position_embeddings=cfg.max_position_embeddings, rms_norm_eps=cfg.rms_norm_eps,
+        rope_theta=cfg.rope_theta, tie_word_embeddings=False, attn_implementation="eager")
+    default = torch.get_default_dtype()
+    torch.set_default_dtype(torch.bfloat16)
+    try:
+        with torch.device("cuda"):
+            model = transformers.LlamaForCausalLM(hf_cfg).eval()
+    finally:
+        torch.set_default_dtype(default)
+    model.load_state_dict(hf_state_dict(params, cfg))
+    orig = modeling_llama.LlamaAttention.forward
+    res = {"transformers": transformers.__version__}
+    try:
+        patch_llama()
+        cache = transformers.DynamicCache()
+        steps = []
+        for k in kernels.values():
+            k.launches = 0
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = model(input_ids=ids, past_key_values=cache, use_cache=True).logits[:, -1]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            steps.append(logits.float())
+            tok = logits.argmax(-1)
+            tokens = [tok]
+            for _ in range(HF_NEW - 1):
+                logits = model(input_ids=tok[:, None], past_key_values=cache,
+                               use_cache=True).logits[:, -1]
+                steps.append(logits.float())
+                tok = logits.argmax(-1)
+                tokens.append(tok)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        counts = {name: k.launches for name, k in kernels.items()}
+        add_counts(hf_counts, counts)
+        res.update(prefill_ms=1e3 * (t1 - t0), decode_ms_per_token=1e3 * (t2 - t1) / (HF_NEW - 1),
+                   host_wall_s=t2 - t0, launches={k: c for k, c in counts.items() if c})
+        print(f"  (c) transformers {transformers.__version__}: patched LlamaForCausalLM, greedy "
+              f"B{B} prompt {PROMPT} new {HF_NEW} over DynamicCache: prefill "
+              f"{res['prefill_ms']:.2f} ms, decode {res['decode_ms_per_token']:.2f} ms/token, "
+              f"host wall {res['host_wall_s']:.3f} s, launches {res['launches']}")
+        check_launched(counts, {"flash_fwd": n, "decode_partials": n * (HF_NEW - 1),
+                                "decode_combine": n * (HF_NEW - 1)}, "(c) patched HF greedy")
+        tokens = torch.stack(tokens, dim=1)
+        with torch.no_grad():
+            ref = forward(params, cfg, torch.cat([ids, tokens[:, :-1]], dim=1))[0][:, PROMPT - 1:]
+        got = torch.stack(steps, dim=1)
+        diff = check_logits(torch, "(c) patched HF teacher-forced vs the port's forward", got, ref)
+        share = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        check(share >= ARGMAX_SHARE_MIN, f"(c) argmax share >= {ARGMAX_SHARE_MIN}")
+        res.update(teacher_forced_max_mean=diff, argmax_share=share)
+        del logits, steps, got, ref, cache
+
+        gen = torch.Generator(device="cuda").manual_seed(81)
+        head = dict(params, score=torch.randn(cfg.hidden_size, 2, generator=gen, device="cuda")
+                    .mul_(cfg.hidden_size ** -0.5).to(cfg.dtype))
+        kern, _, counts = counted_run(torch, kernels, lambda: sequence_classification_forward(
+            head, cfg, ids))
+        add_counts(hf_counts, counts)
+        plain, _, plain_counts = counted_run(torch, kernels, lambda: sequence_classification_forward(
+            head, cfg, ids, plain_attention=True))
+        e = max_err(kern, plain)
+        print(f"  (c) sequence_classification_forward [B {B}, 2]: kernel route vs plain route "
+              f"max|diff| {e:.3e}, launches {counts}")
+        check(tuple(kern.shape) == (B, 2) and bool(torch.isfinite(kern).all()),
+              "(c) classification logits finite, [B, 2]")
+        check(e <= BF16_TOL, f"(c) classification kernel route within {BF16_TOL} of plain")
+        check_launched(counts, {"flash_fwd": n}, "(c) classification, kernel route")
+        check_launched(plain_counts, {}, "(c) classification, plain route")
+        res["classification_max_abs_err"] = e
+    finally:
+        modeling_llama.LlamaAttention.forward = orig
+    del model
+    torch.cuda.empty_cache()
+    return res
 
 def phase_main_path_int8(torch, cfg, params, ids, bf16_tokens, kernels, counts):
     """Greedy generation over an int8 KV cache: the decode step on the
@@ -3861,6 +4187,13 @@ def main() -> int:
     print("[4e] extend mode and speculative generation (B4)")
     phase_extend_logits(torch, cfg, params, ids, bf16_tokens, kernels)
     speculative = phase_speculative(torch, cfg, params, ids, kernels, path_counts, greedy_wall)
+    print("[4k] the HF surface: HF state-dict conversion, attention_forward on a stand-in "
+          "module, the patched HF model")
+    path_counts["hf"] = {}
+    t0 = time.perf_counter()
+    hf_numbers = phase_hf(torch, cfg, params, ids, bf16_tokens, kernels, path_counts)
+    hf_numbers["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 4k: {hf_numbers['phase_s']:.1f} s")
 
     # 5. numbers of the Llama paths, then its tree is dropped.
     print("[5] numbers (CUDA events for kernels, host clock + synchronise for phases)")
@@ -3977,6 +4310,7 @@ def main() -> int:
     print(json.dumps({"speculative": speculative}))
     print(json.dumps({"families": families}))
     print(json.dumps({"training": training}))
+    print(json.dumps({"hf": hf_numbers}))
     print(json.dumps({"kernels": kernel_entries(rows, errs, path_counts)}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

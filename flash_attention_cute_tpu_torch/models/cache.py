@@ -48,6 +48,27 @@ class KVCache:
     def batch(self) -> int:
         return self.k.shape[1]
 
+    def update_layer(self, layer: int, k_new: torch.Tensor, v_new: torch.Tensor) -> "KVCache":
+        """Write k_new / v_new [B, Hkv, S, D] into layer `layer` at each
+        row's length, in place, and return the cache (lengths unchanged: the
+        model advances them once after the last layer). As the JAX
+        package's `dynamic_update_slice`, a start past C - S is clamped to
+        C - S."""
+        b, hkv, s, _ = k_new.shape
+        dev = self.k.device
+        start = self.lengths.clamp(0, max(self.capacity - s, 0))
+        rows = torch.arange(b, device=dev)[:, None, None]
+        heads = torch.arange(hkv, device=dev)[None, :, None]
+        slots = (start[:, None] + torch.arange(s, device=dev))[:, None, :]
+        self.k[layer][rows, heads, slots] = k_new.to(self.k.dtype)
+        self.v[layer][rows, heads, slots] = v_new.to(self.v.dtype)
+        return self
+
+    def advance(self, num_tokens) -> "KVCache":
+        """The cache with lengths + num_tokens (an int or a [B] tensor);
+        the buffers are shared."""
+        return dataclasses.replace(self, lengths=self.lengths + num_tokens)
+
 
 @dataclasses.dataclass
 class QuantizedKVCache:

@@ -19,8 +19,8 @@ segment rule, or Gemma2's periodic pattern): each layer's attention, in
 every mode, takes its window, so a windowed prefill runs kernel B2 where
 the window binds (P otherwise) and decode and extend read only the keys
 inside it. Every attention call takes `cfg.logit_softcap` (Gemma2's tanh
-soft cap, on P, B2, D1 and B4 in kernel form; B7 raises on it on CUDA, as
-it does on head dim 256: ROADMAP.md A10b).
+soft cap): P, B2, D1, B4, B5-B9 and B12 take it and head dim 256 in kernel
+form; only the backward (B13a / B13b) takes neither.
 
   * mode="prefill": causal attention over the fresh K/V (kernel P on CUDA);
     with a cache, K/V are then written at positions [0, S) in place.
@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from flash_attention_cute_tpu_torch.api import flash_attention_forward
@@ -77,6 +78,7 @@ def forward(
     cache: KVCache | QuantizedKVCache | None = None,
     mode: str = "prefill",
     plain_attention: bool = False,
+    return_hidden: bool = False,
 ) -> tuple[torch.Tensor, KVCache | QuantizedKVCache | None]:
     """Causal-LM forward.
 
@@ -92,6 +94,9 @@ def forward(
         length) | "decode" (one token at each row's length).
       plain_attention: run attention through the kernels' plain PyTorch
         versions whatever the device (the comparison path).
+      return_hidden: return the final-norm hidden states [B, S, E] in the
+        model dtype in place of the logits (the task heads' trunk,
+        models/heads.py).
 
     Returns (logits [B, S, vocab] fp32, updated cache or None).
     """
@@ -172,10 +177,10 @@ def forward(
         x = L.layer_tail(x, attn, lp, cfg)
 
     x = L.rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
-    logits = L.logits(x, params, cfg)
+    out = x if return_hidden else L.logits(x, params, cfg)
     if cache is None:
-        return logits, None
-    return logits, dataclasses.replace(cache, lengths=cache.lengths + s)
+        return out, None
+    return out, dataclasses.replace(cache, lengths=cache.lengths + s)
 
 
 def _extend(q, k, v, q_offset, kv_length, scale, window, softcap, plain_attention):
@@ -247,4 +252,47 @@ def init_params(
     if cfg.attention_bias:
         for name, width in (("q_bias", hq), ("k_bias", hkv), ("v_bias", hkv)):
             params["layers"][name] = normal((nl, width), BIAS_STD)
+    return params
+
+
+def init_params_host(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
+    """Random parameters drawn with numpy on the host, then moved to
+    `device`: the JAX package's `init_params_host`, the same generator
+    (`numpy.random.default_rng(seed)`), draw order and scales, so each
+    tensor equals the JAX array bit for bit. As there, a stacked weight's
+    scale is `shape[0] ** -0.5` (its layer count), embeddings have std
+    0.02, norms are ones and q/k/v biases zeros."""
+    rng = np.random.default_rng(seed)
+    e, f = cfg.hidden_size, cfg.intermediate_size
+    hq = cfg.num_q_heads * cfg.head_dim
+    hkv = cfg.num_kv_heads * cfg.head_dim
+    nl = cfg.num_layers
+
+    def norm(shape, scale=None):
+        scale = scale or (shape[0] ** -0.5)
+        a = rng.standard_normal(shape, dtype=np.float32) * scale
+        return torch.from_numpy(a).to(device=device, dtype=cfg.dtype)
+
+    def fill(value, *shape):
+        return torch.full(shape, value, dtype=cfg.dtype, device=device)
+
+    layers = {
+        "input_ln": fill(1, nl, e),
+        "post_ln": fill(1, nl, e),
+        "q_proj": norm((nl, e, hq)),
+        "k_proj": norm((nl, e, hkv)),
+        "v_proj": norm((nl, e, hkv)),
+        "o_proj": norm((nl, hq, e)),
+        "gate_proj": norm((nl, e, f)),
+        "up_proj": norm((nl, e, f)),
+        "down_proj": norm((nl, f, e)),
+    }
+    if cfg.attention_bias:
+        layers.update(q_bias=fill(0, nl, hq), k_bias=fill(0, nl, hkv), v_bias=fill(0, nl, hkv))
+    if cfg.sandwich_norms:
+        layers.update(pre_ffw_ln=fill(1, nl, e), post_ffw_ln=fill(1, nl, e))
+    params = {"embed": norm((cfg.vocab_size, e), scale=0.02), "layers": layers,
+              "final_ln": fill(1, e)}
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = norm((e, cfg.vocab_size))
     return params
