@@ -89,7 +89,18 @@ Phases, in order; any failure exits non-zero:
      pages of 16 and e4m3 pages of 128; B5 / B8 repeated bit for bit), the
      paged append and QA at D 256 (bit-identical), and P, D1, B5, B6, B8, B9
      with the caps at Llama widths, B5 / B8 also at a group of 32 (Hq 32,
-     Hkv 1).
+     Hkv 1); (3i) int8 scores (`score_dtype="int8"`) over INT8_CASES
+     (Llama-3-8B attention at B 4 S 512 and B 1 S 8192, Mistral-7B's B 2 S
+     5120 W 4096 (B2-i8), Gemma-2-9B's D 256 with the cap 50, also with
+     its window, D 64 non-causal Sq 300 / Skv 1000, f16 Sq 1000 / Skv 700
+     with rows of no key; transposed views): K8 bit-identical to its plain
+     version, P-i8 / B2-i8 with their lse against the plain int8 version
+     (BF16_TOL, LSE_TOL), within INT8_ORACLE_TOL of the fp32 oracle of
+     bf16 scores, more than INT8_MIN_DIFF from the bf16-score P / B2, and
+     repeated bit for bit; then the API's int8 route (path "int8 scores"):
+     `api.flash_attention_forward(score_dtype="int8")` at Llama B 4 S 512
+     and Mistral B 2 S 5120 W 4096, counted (K8 2, P-i8 1, B2-i8 1, nothing
+     else), each output against the plain int8 version.
   4. main paths: greedy generation of Llama-3-8B (random weights from a
      seeded CUDA generator) at B 4, prompt 512, 64 new tokens; launch
      counters show the kernels carried it; teacher-forced logits of the
@@ -226,7 +237,13 @@ Phases, in order; any failure exits non-zero:
      for B8 / B9;
      labelled in each entry's shape); the rows of P / B2, B4, B5, B6, B8,
      B9, B12 and B13a / B13b carry the runtime's registers, spill and shared
-     bytes of their instantiation ("runtime_attributes"); every timed entry its
+     bytes of their instantiation ("runtime_attributes"); (5e) the rows of
+     P-i8 (B 4 S 512; "long": B 1 S 8192; "gemma2": B 2 S 4608, D 256, cap
+     50), B2-i8 (Mistral B 2 S 5120 W 4096) and K8 (the K of P-i8's row and
+     of "long"): the kernel alone ("ms"), the wrapper's K8 + kernel
+     ("with_k8_ms"), the bf16-score P / B2 on the same inputs ("bf16_ms"),
+     bounds of QK^T at the int8 peak plus PV at the bf16 peak (or the
+     bytes), library_ms null; every timed entry its
      share of its bound ("of_bound"); the card's name and power limit.
 The last line is {"ok": true, "device": {...}}.
 
@@ -237,7 +254,10 @@ values widen to bf16 exactly, P is rounded to bf16 before PV as in B6,
 and B5 / B6 / B7 / B8 / B9 and D1 repeat bit for bit; D1 takes P in two
 bf16 parts, so its partials are held to the plain fp32 sums at 1e-2), and
 B10 / B11 (x at unit scale, weights of std fan_in ** -0.5, fp32 sums).
-Teacher-forced logits of the kernel path and the plain-attention path, and
+P-i8 / B2-i8 compute the same fp32 scores as their plain int8 version (the
+same quantization, exact integer products), so they are held to its fp32
+output at 3e-2 as well; int8 scores against bf16 ones move the output by
+up to 5e-2 (the JAX package's envelope of int8 scores). Teacher-forced logits of the kernel path and the plain-attention path, and
 of a quantized tree and its dequantized image: max |diff| <= 1.0 and mean
 |diff| <= 0.1. The logits have std about 1 with these weights, so a wrong kernel moves them by
 O(1) on average; the two paths differ only by bf16 roundings (P rounded
@@ -2167,7 +2187,7 @@ def kernel_entries(rows, errs, path_counts) -> list:
     def share_of_bound(entry):  # each timed shape's share of its bound, nested ones too
         if entry.get("ms") and entry.get("bound_ms"):
             entry["of_bound"] = entry["bound_ms"] / entry["ms"]
-        for key in ("chunk", "window", "gemma2"):
+        for key in ("chunk", "window", "gemma2", "long"):
             if isinstance(entry.get(key), dict):
                 share_of_bound(entry[key])
 
@@ -2185,7 +2205,8 @@ def kernel_entries(rows, errs, path_counts) -> list:
             "shape": r.get("shape", "the main path's"),
             **{key: r[key] for key in ("library_of", "with_combine_ms", "prefill", "chunk",
                                        "window", "lse", "max_rel_err", "gemma2", "projections",
-                                       "runtime_attributes") if key in r},
+                                       "runtime_attributes", "with_k8_ms", "bf16_ms", "long",
+                                       "oracle_max_abs_err") if key in r},
         })
     return out
 
@@ -4045,6 +4066,210 @@ def gemma2_rows(torch, ops, gen):
     return rows
 
 
+# Phase 3i / 5e: int8 scores (`score_dtype="int8"`): K8, then P-i8 (B2-i8
+# where the window binds), each with its lse. (name, batch, hq, hkv, sq,
+# skv, d, causal, window, cap, dtype, transposed views): Llama-3-8B
+# attention at the main path's B 4 S 512 and at B 1 S 8192, where the score
+# product weighs most; Mistral-7B's window (B2-i8); Gemma-2-9B's D 256 with
+# the cap 50, also windowed; D 64, non-causal, Sq < Skv; f16 with rows of
+# no key.
+INT8_CASES = (
+    ("Llama-3-8B B4 S512", 4, 32, 8, 512, 512, 128, True, None, None, "bfloat16", True),
+    ("Llama-3-8B B1 S8192", 1, 32, 8, 8192, 8192, 128, True, None, None, "bfloat16", False),
+    ("Mistral-7B B2 S5120 W4096", MISTRAL_B, 32, 8, MISTRAL_PROMPT, MISTRAL_PROMPT, 128, True,
+     WINDOW, None, "bfloat16", True),
+    ("Gemma-2-9B B2 S4608 cap 50", GEMMA2_B, 16, 8, GEMMA2_PROMPT, GEMMA2_PROMPT, 256, True,
+     None, 50.0, "bfloat16", True),
+    ("Gemma-2-9B W4096 cap 50", 1, 16, 8, GEMMA2_PROMPT, GEMMA2_PROMPT, 256, True, WINDOW, 50.0,
+     "bfloat16", False),
+    ("D64 non-causal Sq300 Skv1000", 1, 32, 8, 300, 1000, 64, False, None, None, "bfloat16",
+     False),
+    ("f16 Sq1000 Skv700 rows of no key", 1, 32, 8, 1000, 700, 128, True, None, None, "float16",
+     True),
+)
+INT8_ORACLE_TOL = 5e-2  # int8 scores against bf16 ones: the JAX package's envelope
+INT8_MIN_DIFF = 1e-4  # int8 scores must move the output: they do quantize
+PEAK_I8 = 1979e12  # published H100 SXM dense int8 tensor-core rate
+
+
+def by_kv_head(torch, fn, q, k, v):
+    """fn over one kv head and its q heads at a time, concatenated over the
+    heads: the plain versions at full width within the card's memory."""
+    g = q.shape[1] // k.shape[1]
+    outs = [fn(q[:, h * g:(h + 1) * g], k[:, h:h + 1], v[:, h:h + 1]) for h in range(k.shape[1])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(x, 1) for x in zip(*outs))
+    return torch.cat(outs, 1)
+
+
+def int8_inputs(torch, gen, b, hq, hkv, sq, skv, d, dt, views):
+    dtype = getattr(torch, dt)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    if views:  # the model's [B, S, H, D] projections
+        return (randn(b, sq, hq, d).transpose(1, 2), randn(b, skv, hkv, d).transpose(1, 2),
+                randn(b, skv, hkv, d).transpose(1, 2))
+    return randn(b, hq, sq, d), randn(b, hkv, skv, d), randn(b, hkv, skv, d)
+
+
+def phase_int8_kernels(torch, flash_fwd, errs):
+    """K8 bit-identical to its plain version; P-i8 / B2-i8 over INT8_CASES
+    against the plain int8 version (fp32 output, BF16_TOL; lse LSE_TOL),
+    the fp32 oracle of bf16 scores (INT8_ORACLE_TOL), the bf16-score kernel
+    (more than INT8_MIN_DIFF apart), each call repeated bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    for name, b, hq, hkv, sq, skv, d, causal, w, cap, dt, views in INT8_CASES:
+        q, k, v = int8_inputs(torch, gen, b, hq, hkv, sq, skv, d, dt, views)
+        kw = dict(causal=causal, window=w, logit_softcap=cap)
+        values, scales = flash_fwd.quantize_k_rows(k)
+        want_v, want_s = flash_fwd.quantize_rows_plain(k)
+        k8_same = torch.equal(values, want_v) and torch.equal(scales, want_s)
+        errs["quantize_k_rows"] = max(errs.get("quantize_k_rows", 0.0), max_err(values, want_v),
+                                      max_err(scales, want_s))
+        del values, scales, want_v, want_s
+        out, lse = flash_fwd.flash_attention_fwd(q, k, v, return_lse=True, score_dtype="int8",
+                                                 **kw)
+        again, lse_again = flash_fwd.flash_attention_fwd(q, k, v, return_lse=True,
+                                                         score_dtype="int8", **kw)
+        bare = flash_fwd.flash_attention_fwd(q, k, v, score_dtype="int8", **kw)
+        same = torch.equal(out, again) and torch.equal(lse, lse_again) and torch.equal(out, bare)
+        del again, lse_again, bare
+        ref, ref_lse = by_kv_head(torch, lambda q_, k_, v_: flash_fwd.int8_attention_plain(
+            q_, k_, v_, d ** -0.5, causal, w, cap, True, out_dtype=torch.float32), q, k, v)
+        e = max_err(out, ref)
+        fin = torch.isfinite(ref_lse)
+        e_lse = (lse[fin] - ref_lse[fin]).abs().max().item() if bool(fin.any()) else 0.0
+        lse_inf_same = torch.equal(fin, torch.isfinite(lse))
+        del ref, ref_lse
+        oracle = by_kv_head(torch, lambda q_, k_, v_: flash_fwd.flash_attention_fwd_plain(
+            q_.float(), k_.float(), v_.float(), **kw), q, k, v)
+        e_oracle = max_err(out, oracle)
+        del oracle
+        e_bf16 = max_err(out, flash_fwd.flash_attention_fwd(q, k, v, **kw))
+        key = "flash_fwd_window_int8" if w and w < skv else "flash_fwd_int8"
+        errs[key] = max(errs.get(key, 0.0), e)
+        errs[f"{key} oracle"] = max(errs.get(f"{key} oracle", 0.0), e_oracle)
+        errs[f"{key} lse"] = max(errs.get(f"{key} lse", 0.0), e_lse)
+        what = (f"{'B2-i8' if key.endswith('window_int8') else 'P-i8'} {name} ({hq} / {hkv} "
+                f"heads, D {d}, {dt}{', transposed views' if views else ''})")
+        print(f"  {what}: K8 bit-identical {k8_same}; vs plain int8 {e:.3e}, lse {e_lse:.2e}; "
+              f"vs fp32 oracle {e_oracle:.3e}; vs bf16 scores {e_bf16:.3e}; repeated bit for "
+              f"bit: {same}")
+        check(k8_same, f"{what}: K8 bit-identical to its plain version")
+        check(bool(torch.isfinite(out).all()), f"{what}: finite")
+        check(e <= BF16_TOL, f"{what}: within {BF16_TOL} of the plain int8 version")
+        check(lse_inf_same and e_lse <= LSE_TOL, f"{what}: lse within {LSE_TOL}, same +inf rows")
+        check(e_oracle <= INT8_ORACLE_TOL, f"{what}: within {INT8_ORACLE_TOL} of the fp32 oracle")
+        check(e_bf16 > INT8_MIN_DIFF, f"{what}: differs from bf16 scores by > {INT8_MIN_DIFF}")
+        check(same, f"{what}: a second call repeats output and lse bit for bit")
+        if causal and sq > skv:
+            check(bool((out[:, :, :sq - skv] == 0).all()), f"{what}: rows with no key are zeros")
+        del q, k, v, out, lse
+        torch.cuda.empty_cache()
+
+
+def phase_int8_path(torch, api, flash_fwd, kernels, counts):
+    """The API's dense prefill with score_dtype="int8" at full width: Llama-3-8B
+    attention at B 4 S 512 (transposed views, causal) and Mistral-7B's
+    window at B 2 S 5120, counted: K8 twice, P-i8 once, B2-i8 once, no
+    bf16-score P / B2; each output against the plain int8 version."""
+    gen = torch.Generator(device="cuda").manual_seed(4322)
+    llama = int8_inputs(torch, gen, B, 32, 8, PROMPT, PROMPT, 128, "bfloat16", True)
+    mistral = int8_inputs(torch, gen, MISTRAL_B, 32, 8, MISTRAL_PROMPT, MISTRAL_PROMPT, 128,
+                          "bfloat16", True)
+    outs, wall, launched = counted_run(torch, kernels, lambda: (
+        api.flash_attention_forward(*llama, causal=True, score_dtype="int8"),
+        api.flash_attention_forward(*mistral, causal=True, window=WINDOW, score_dtype="int8")))
+    counts.update(launched)
+    print(f"  api.flash_attention_forward(score_dtype='int8'): Llama B{B} S{PROMPT}, Mistral "
+          f"B{MISTRAL_B} S{MISTRAL_PROMPT} W{WINDOW}: {wall:.3f} s, launches "
+          f"{ {n: c for n, c in counts.items() if c} }")
+    check_launched(counts, {"quantize_k_rows": 2, "flash_fwd_int8": 1, "flash_fwd_window_int8": 1},
+                   "the int8-score API route")
+    for (q, k, v), out, w in zip((llama, mistral), outs, (None, WINDOW)):
+        ref = by_kv_head(torch, lambda q_, k_, v_: flash_fwd.int8_attention_plain(
+            q_, k_, v_, 128 ** -0.5, True, w, None, False, out_dtype=torch.float32), q, k, v)
+        e = max_err(out, ref)
+        print(f"  API int8 route (window {w}): vs plain int8 {e:.3e}")
+        check(e <= BF16_TOL, f"API int8 route (window {w}) within {BF16_TOL}")
+
+
+def int8_rows(torch, flash_fwd, gen):
+    """Kernel rows of P-i8 (at the main path's B 4 S 512; "long": B 1 S
+    8192; "gemma2": Gemma-2-9B's B 2 S 4608, D 256, cap 50), B2-i8 (Mistral
+    B 2 S 5120 W 4096) and K8 (the K of the P-i8 row; "long": of B 1 S 8192).
+    "ms" / "call_ms" are the kernel alone (P-i8 / B2-i8 over K8's output),
+    "with_k8_ms" the wrapper's call (K8 + the kernel, device time),
+    "bf16_ms" the bf16-score P / B2 at the same inputs. Bounds: the bytes (q, K8's int8 K and scales, v, the
+    output) at the memory rate, or QK^T at the int8 peak plus PV at the bf16
+    peak, whichever is longer; K8's are its bytes. library_ms: null, no
+    single PyTorch call computes attention over int8 scores or quantizes
+    rows so."""
+    from flash_attention_cute_tpu_torch.ops import _build
+    from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms
+
+    def pairs(b, sq, skv, causal, w):
+        """Visible (query, key) pairs over the batch."""
+        return b * sum(max(0, min(skv, m + skv - sq + 1 if causal else skv)
+                           - (max(0, m + skv - sq - w + 1) if w else 0)) for m in range(sq))
+
+    def entry(b, hq, hkv, s, d, w, cap, shape, plain=True, iters=20):
+        q, k, v = int8_inputs(torch, gen, b, hq, hkv, s, s, d, "bfloat16", True)
+        kw = dict(causal=True, window=w, logit_softcap=cap)
+        k8, kscale = flash_fwd._quantize_k_padded(k)
+        out = torch.empty((b, hq, s, d), dtype=q.dtype, device="cuda")
+        win = _build.window_arg(w) if w and w < s else 0
+        n = pairs(b, s, s, True, w) * hq
+        nbytes = 2 * q.numel() + k8.numel() + 4 * kscale.numel() + 2 * v.numel() + 2 * out.numel()
+        t_ops = 2 * d * n / PEAK_I8 + 2 * d * n / PEAK_BF16
+        def kernel():
+            flash_fwd.launch_int8(q, k8, kscale, v, out, None, d ** -0.5, True, win,
+                                  _build.softcap_arg(cap))
+
+        e = {"shape": shape, "ms": cuda_time_ms(kernel, iters),
+             "call_ms": call_time_ms(kernel, iters),
+             "with_k8_ms": cuda_time_ms(lambda: flash_fwd.flash_attention_fwd(
+                 q, k, v, score_dtype="int8", **kw), iters),
+             "bf16_ms": cuda_time_ms(lambda: flash_fwd.flash_attention_fwd(q, k, v, **kw), iters),
+             "plain_ms": cuda_time_ms(lambda: flash_fwd.flash_attention_fwd_plain(
+                 q, k, v, score_dtype="int8", **kw), 3, 1) if plain else None,
+             "library_ms": None,
+             "bound_ms": 1e3 * max(nbytes / PEAK_BYTES, t_ops),
+             "bound_by": "operations" if t_ops >= nbytes / PEAK_BYTES else "bytes"}
+        k_entry = {"shape": f"K of {shape}",
+                   "ms": cuda_time_ms(lambda: flash_fwd._quantize_k_padded(k), iters),
+                   "call_ms": call_time_ms(lambda: flash_fwd._quantize_k_padded(k), iters),
+                   "plain_ms": cuda_time_ms(lambda: flash_fwd.quantize_rows_plain(k), 5),
+                   "library_ms": None,
+                   **bound(3 * k.numel(), 3 * k.numel() + 4 * kscale.numel(), PEAK_F32)}
+        del q, k, v, k8, kscale, out
+        torch.cuda.empty_cache()
+        return e, k_entry
+
+    p_i8, k8_row = entry(B, 32, 8, PROMPT, 128, None, None,
+                         f"B {B}, S {PROMPT}, Hq 32, Hkv 8, D 128, causal (the main path's)")
+    long_p, long_k = entry(1, 32, 8, 8192, 128, None, None, "B 1, S 8192, Hq 32, Hkv 8, D 128, "
+                           "causal", plain=False, iters=10)
+    gemma, _ = entry(GEMMA2_B, 16, 8, GEMMA2_PROMPT, 256, None, 50.0,
+                     f"B {GEMMA2_B}, S {GEMMA2_PROMPT}, Hq 16, Hkv 8, D 256, causal, cap 50",
+                     plain=False, iters=10)
+    b2_i8, _ = entry(MISTRAL_B, 32, 8, MISTRAL_PROMPT, 128, WINDOW, None,
+                     f"B {MISTRAL_B}, S {MISTRAL_PROMPT}, window {WINDOW}, Hq 32, Hkv 8, D 128",
+                     iters=10)
+    src = "flash_attention_cute_tpu_torch/csrc/flash_fwd.cu"
+    return [
+        {"name": "flash_fwd_int8", "route": "cuda", "source": src,
+         "replaces": "flash_attention_cute_tpu/ops/flash_fwd.py:595", **p_i8,
+         "long": long_p, "gemma2": gemma},
+        {"name": "flash_fwd_window_int8", "route": "cuda", "source": src,
+         "replaces": "flash_attention_cute_tpu/ops/flash_fwd.py:269", **b2_i8},
+        {"name": "quantize_k_rows", "route": "cuda", "source": src,
+         "replaces": "flash_attention_cute_tpu/ops/flash_fwd.py:79", **k8_row, "long": long_k},
+    ]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--layers", type=int, default=0,
@@ -4114,6 +4339,23 @@ def main() -> int:
         check(spill is not None and int(spill.group(1)) == 0, f"no spill in {line}")
 
     # 3. kernels vs plain
+    kernels = {"flash_fwd": flash_fwd.PREFILL, "flash_fwd_window": flash_fwd.WINDOWED_PREFILL,
+               "flash_fwd_int8": flash_fwd.PREFILL_INT8,
+               "flash_fwd_window_int8": flash_fwd.WINDOWED_PREFILL_INT8,
+               "quantize_k_rows": flash_fwd.QUANTIZE_K,
+               "decode_partials": flash_decode.PARTIALS,
+               "decode_combine": flash_decode.COMBINE, "flash_chunked": flash_chunked.CHUNKED,
+               "paged_decode": paged_attention.PAGED_DECODE,
+               "paged_extend": paged_attention.PAGED_EXTEND, "paged_append": paged_cache.APPEND,
+               "quant_decode": quantized.QUANT_DECODE,
+               "quant_paged_decode": quantized.QUANT_PAGED_DECODE,
+               "quant_paged_extend": quantized.QUANT_PAGED_EXTEND,
+               "quant_append": quantized.QUANT_APPEND,
+               "quantized_matmul": quantized_matmul.QMM8,
+               "quantized_matmul_int4": quantized_matmul.QMM4,
+               "flash_bwd_dkv": flash_bwd.DKV, "flash_bwd_dq": flash_bwd.DQ,
+               "flash_varlen": flash_varlen.VARLEN}
+    path_counts: dict = {"int8 scores": {}, "greedy": {}, "greedy int8": {}}
     errs: dict = {}
     print("[3] kernels vs plain (bf16, Hq 32 Hkv 8 D 128)")
     phase_kernels(torch, flash_fwd, flash_decode, errs)
@@ -4140,7 +4382,15 @@ def main() -> int:
           "B6, B8, B9, the append and QA at D 256, and the caps at D 128 (B5 / B8 also at a "
           "group of 32), vs plain")
     phase_gemma2_kernels(torch, ops, errs)
+    print("[3i] int8 scores: K8, P-i8 / B2-i8 vs plain at Llama-3-8B, Mistral-7B and Gemma-2-9B "
+          "widths, then the API's int8-score route")
+    t0 = time.perf_counter()
+    phase_int8_kernels(torch, flash_fwd, errs)
+    from flash_attention_cute_tpu_torch import api
+
+    phase_int8_path(torch, api, flash_fwd, kernels, path_counts["int8 scores"])
     torch.cuda.synchronize()
+    print(f"  phase 3i: {time.perf_counter() - t0:.1f} s")
 
     # 4. main paths
     from flash_attention_cute_tpu_torch.models.llama import llama3_8b_config
@@ -4156,20 +4406,6 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"[4] main paths: Llama-3-8B widths, {cfg.num_layers} layers, random weights "
           f"({time.perf_counter() - t0:.1f} s to draw)")
-    kernels = {"flash_fwd": flash_fwd.PREFILL, "flash_fwd_window": flash_fwd.WINDOWED_PREFILL,
-               "decode_partials": flash_decode.PARTIALS,
-               "decode_combine": flash_decode.COMBINE, "flash_chunked": flash_chunked.CHUNKED,
-               "paged_decode": paged_attention.PAGED_DECODE,
-               "paged_extend": paged_attention.PAGED_EXTEND, "paged_append": paged_cache.APPEND,
-               "quant_decode": quantized.QUANT_DECODE,
-               "quant_paged_decode": quantized.QUANT_PAGED_DECODE,
-               "quant_paged_extend": quantized.QUANT_PAGED_EXTEND,
-               "quant_append": quantized.QUANT_APPEND,
-               "quantized_matmul": quantized_matmul.QMM8,
-               "quantized_matmul_int4": quantized_matmul.QMM4,
-               "flash_bwd_dkv": flash_bwd.DKV, "flash_bwd_dq": flash_bwd.DQ,
-               "flash_varlen": flash_varlen.VARLEN}
-    path_counts: dict = {"greedy": {}, "greedy int8": {}}
     torch.cuda.reset_peak_memory_stats()
     ids, bf16_tokens, greedy_wall = phase_main_path(torch, cfg, params, kernels,
                                                     path_counts["greedy"])
@@ -4299,6 +4535,16 @@ def main() -> int:
             if r["name"] in paged_reports:
                 report, _, label = paged_reports[r["name"]]
                 r["gemma2"]["runtime_attributes"] = runtime_attributes(report, label)
+    print("[5e] numbers of the int8-score kernels (P-i8, B2-i8, K8)")
+    i8_rows = int8_rows(torch, flash_fwd, torch.Generator(device="cuda").manual_seed(80))
+    for r in i8_rows:
+        if r["name"] != "quantize_k_rows":
+            r["oracle_max_abs_err"] = errs[f"{r['name']} oracle"]
+            r["lse"] = {"max_abs_err": errs[f"{r['name']} lse"]}
+            r["runtime_attributes"] = runtime_attributes(fwd_report, "P-i8 / B2-i8 D128 bf16")
+    r = next(r for r in i8_rows if r["name"] == "flash_fwd_int8")
+    r["gemma2"]["runtime_attributes"] = runtime_attributes(fwd_report, "P-i8 / B2-i8 D256 bf16 cap")
+    rows += i8_rows
     # Peak over the whole script: serving reset the counter before each run.
     numbers["max_memory_allocated_gb"] = max(
         [numbers["max_memory_allocated_gb"], serving.pop("peak_before_serving_gb")]

@@ -61,21 +61,24 @@ struct Tiles {
 };
 
 // A block's shared memory from `base` (1 KB aligned, for the swizzle): the
-// Q tile, the K ring, the V ring (kKStages / kVStages slots of a tile),
-// the kernel's own bytes, and at `kBars` the mbarriers: q_full, then a full
-// and an empty barrier a slot (K's, then V's), then `extra(i)`, the
-// producer's own. Tile `it` of the walk takes slot it % stages. Every
-// address is base plus a constant, so the consumers hold one register.
-template <int D, int kKStages, int kVStages, int kBars>
+// Q tile (kQBytes; P-i8 / B2-i8 follow it with their int8 Q tile), the K
+// ring (kKStages slots of kKSlot bytes: a tile, or P-i8's int8 tile), the V
+// ring (kVStages slots of a tile), the kernel's own bytes, and at `kBars`
+// the mbarriers: q_full, then a full and an empty barrier a slot (K's, then
+// V's), then `extra(i)`, the producer's own. Tile `it` of the walk takes
+// slot it % stages. Every address is base plus a constant, so the consumers
+// hold one register.
+template <int D, int kKStages, int kVStages, int kBars, int kKSlot = Tiles<D>::kKV,
+          int kQBytes = Tiles<D>::kQ>
 struct Rings {
   static constexpr int kBarriers = 1 + 2 * (kKStages + kVStages);
-  static constexpr int kK0 = Tiles<D>::kQ, kV0 = kK0 + kKStages * Tiles<D>::kKV;
+  static constexpr int kK0 = kQBytes, kV0 = kK0 + kKStages * kKSlot;
   uint32_t base;
 
   __device__ __forceinline__ uint32_t sQ() const { return base; }
   __device__ __forceinline__ uint32_t q_full() const { return base + kBars; }
   __device__ __forceinline__ uint32_t sK(int it) const {
-    return base + kK0 + it % kKStages * Tiles<D>::kKV;
+    return base + kK0 + it % kKStages * kKSlot;
   }
   __device__ __forceinline__ uint32_t sV(int it) const {
     return base + kV0 + it % kVStages * Tiles<D>::kKV;
@@ -167,6 +170,25 @@ __device__ __forceinline__ void qk_products(float (&s)[kN / 2], uint32_t q, uint
   for (int kk = 1; kk < D / 16; ++kk) wgmma_ss<T, kN, true>(s, kmajor(q, kk, kQBox), kmajor(k, kk, kKBox));
 }
 
+// P-i8 / B2-i8: S = Q K^T of int8 rows, K-major, into s32 accumulators: a
+// consumer's 64 rows of the int8 Q tile (`q`: its first row) and a tile's
+// kN int8 keys, D / 32 k-steps of 32 bytes (the byte step of bf16's k16).
+// Rows of D bytes: 128-byte boxes (two at D 256); at D 64 one box of 64-byte
+// rows in the 64-byte swizzle.
+template <int D, int kN>
+__device__ __forceinline__ void qk_products_i8(uint32_t (&s)[kN / 2], uint32_t q, uint32_t k) {
+  if constexpr (D == 64) {
+    wgmma_ss_s8<kN, false>(s, kmajor_sw64(q, 0), kmajor_sw64(k, 0));
+    wgmma_ss_s8<kN, true>(s, kmajor_sw64(q, 1), kmajor_sw64(k, 1));
+  } else {
+    constexpr int kQBox = kBlockM * 128, kKBox = kN * 128;
+    wgmma_ss_s8<kN, false>(s, kmajor(q, 0, kQBox), kmajor(k, 0, kKBox));
+#pragma unroll
+    for (int kk = 1; kk < D / 32; ++kk)
+      wgmma_ss_s8<kN, true>(s, kmajor(q, kk, kQBox), kmajor(k, kk, kKBox));
+  }
+}
+
 // O += P V over a tile's kN keys: P in registers (the A fragments of each
 // k-step of 16 keys), V MN-major from its slot; at D 256 two products of N
 // 128 a k-step.
@@ -206,6 +228,13 @@ __device__ __forceinline__ void sts_u32x4(uint32_t addr, uint4 v) {
                "r"(v.z), "r"(v.w)
                : "memory");
 }
+__device__ __forceinline__ uint4 lds_u32x4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
 __device__ __forceinline__ int lds_s32(uint32_t addr) {
   int v;
   asm volatile("ld.shared.s32 %0, [%1];\n" : "=r"(v) : "r"(addr));
@@ -215,6 +244,82 @@ __device__ __forceinline__ int2 lds_s32x2(uint32_t addr) {
   int2 v;
   asm volatile("ld.shared.v2.s32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(addr));
   return v;
+}
+
+// The two values of T packed in a 32-bit word, as floats (exact).
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t w) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>)
+    return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xFFFF0000u));
+  else
+    return make_float2(__half2float(__ushort_as_half(static_cast<unsigned short>(w & 0xFFFFu))),
+                       __half2float(__ushort_as_half(static_cast<unsigned short>(w >> 16))));
+}
+
+// P-i8 / B2-i8: a consumer's part of the int8 Q tile (at q8) from the
+// block's bf16 / f16 Q tile (at q16, 128-byte swizzled boxes of 64
+// columns). A quad (t = 0..3) takes the rows `row` and row + 8 of the block
+// that it holds in the accumulator layout, each thread their 16-byte int8
+// chunks t, t + 4, ...: q times q_scale rounded to T (the TPU wrapper
+// pre-scales q so, in fp32, and rounds it to q's type), a = max |q_row|
+// (1 where 0), q8 = rint(q * (127 / a)) clipped to +-127, written in the
+// layout of the K tiles (qk_products_i8). Per-row scales: the TPU kernel's
+// one scale a tile is a workaround of its lane layout; here each thread
+// holds its rows anyway. Returns each row's factor (a / 127) / 127 (the
+// TPU kernel's qa * (1 / 127)) in qf.
+template <typename T, int D>
+__device__ __forceinline__ void quantize_q(uint32_t q16, uint32_t q8, int row, int t,
+                                           float q_scale, float (&qf)[2]) {
+  constexpr int kChunks = D / 16;
+  constexpr float kInv = static_cast<float>(1.0 / 127.0);
+  auto load = [&](int r, int c, float (&x)[16]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int cc = 2 * c + h;  // a chunk of 8 values of T
+      const uint4 u = lds_u32x4(q16 + (cc >> 3) * (kBlockM * 128) + r * 128 +
+                                (((cc & 7) ^ (r & 7)) << 4));
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = unpack2<T>(w[i]);
+        x[8 * h + 2 * i] = Elem<T>::to_float(Elem<T>::from_float(f.x * q_scale));
+        x[8 * h + 2 * i + 1] = Elem<T>::to_float(Elem<T>::from_float(f.y * q_scale));
+      }
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row + 8 * i;
+    float amax = 0.f;
+#pragma unroll
+    for (int c = t; c < kChunks; c += 4) {
+      float x[16];
+      load(r, c, x);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) amax = fmaxf(amax, fabsf(x[e]));
+    }
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
+    const float a = amax == 0.f ? 1.f : amax;
+    const float mul = 127.f / a;
+#pragma unroll
+    for (int c = t; c < kChunks; c += 4) {
+      float x[16];
+      load(r, c, x);
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const int v = min(127, max(-127, __float2int_rn(x[e] * mul)));
+        w[e >> 2] |= (static_cast<uint32_t>(v) & 0xFFu) << (8 * (e & 3));
+      }
+      const uint32_t addr = D == 64 ? q8 + r * 64 + ((c ^ ((r >> 1) & 3)) << 4)
+                                    : q8 + (c >> 3) * (kBlockM * 128) + r * 128 +
+                                          (((c & 7) ^ (r & 7)) << 4);
+      sts_u32x4(addr, make_uint4(w[0], w[1], w[2], w[3]));
+    }
+    qf[i] = (a * kInv) * kInv;
+  }
+  fence_proxy_async();  // before the wgmma reads the tile
 }
 
 // The consumers' mask modes besides `Visible` (P / B2 / B6 / B9, whose
@@ -374,13 +479,23 @@ __device__ __forceinline__ void mask_tile(const Segments<kMetaOff, kKStages>& v,
 // before the cap, P by the V scale of its key after its row sum and before its
 // rounding to T.
 // Vis: which keys a row sees, `Visible` or a mode above (B4, B12).
-template <typename T, int D, bool kCap, int kScaleOff, int kKStages, int kVStages, int kBars,
-          typename Vis>
-__device__ __forceinline__ void consume(const Rings<D, kKStages, kVStages, kBars>& ring,
-                                        const Vis& vis, const Scores& sco, int m0,
-                                        int n_begin, int total, T* o, float* lse, int head) {
+// kI8 (P-i8 / B2-i8): S is the s8 product of the int8 Q tile, which the
+// consumers quantize from the Q tile first (quantize_q, with
+// sco.scale_log2 as q's pre-scale), and of int8 K tiles, whose keys'
+// scales lie at base + kScaleOff a K slot; each s32 score is converted to
+// fp32 (exact: |s| <= 127^2 D < 2^24) and multiplied by its key's scale
+// times its row's factor (the TPU kernel's s * (bsc * (qa / 127))), giving
+// the score in base-2 units: the softmax scale is 1 and the cap's factor
+// sco.cap_exp is that of such scores. The conversion is I2F: an exact one
+// by the float's bits (an integer add and an fp32 add) measured 4-6 %
+// slower at Llama's and Mistral's long prefills on the H100 (PERF.md).
+template <typename T, int D, bool kCap, int kScaleOff, bool kI8 = false, int kKStages,
+          int kVStages, int kBars, int kKSlot, int kQBytes, typename Vis>
+__device__ __forceinline__ void consume(
+    const Rings<D, kKStages, kVStages, kBars, kKSlot, kQBytes>& ring, const Vis& vis,
+    const Scores& sco, int m0, int n_begin, int total, T* o, float* lse, int head) {
   constexpr int kN = Tiles<D>::kN;
-  constexpr bool kScaled = kScaleOff > 0;
+  constexpr bool kScaled = kScaleOff > 0 && !kI8;
   constexpr bool kDense = std::is_same_v<Vis, Visible>, kKeyMeta = KeyMeta<Vis>::value;
   constexpr bool kSplit = SplitP<Vis>::value;
   const int ct = threadIdx.x - 128, wg = ct >> 7, wi = (ct >> 5) & 3, lane = ct & 31;
@@ -404,12 +519,45 @@ __device__ __forceinline__ void consume(const Rings<D, kKStages, kVStages, kBars
   // Scores leave the product raw; the cap scales them inside the tanh, B9
   // with its keys' scales (the TPU kernel's s * (kscale * scale)), which
   // then also carry the cap's factor.
-  const float sc = kCap || kScaled ? 1.f : sco.scale_log2;
+  const float sc = kCap || kScaled || kI8 ? 1.f : sco.scale_log2;
   if (total > 0) mbar_wait(ring.q_full(), 0);
+  // kI8: the int8 Q tile after the Q tile (rows of min(D, 128) bytes in
+  // boxes of 128 rows), this consumer's rows' factors, and its first row.
+  constexpr int kQ8Row = D == 64 ? 64 : 128;
+  [[maybe_unused]] const uint32_t qa8 = ring.sQ() + Tiles<D>::kQ + wg * kTileM * kQ8Row;
+  [[maybe_unused]] float qf[2] = {0.f, 0.f};
+  if constexpr (kI8) {
+    if (total > 0) {
+      quantize_q<T, D>(ring.sQ(), ring.sQ() + Tiles<D>::kQ, kTileM * wg + 16 * wi + g, t,
+                       sco.scale_log2, qf);
+      named_sync(3 + wg, 128);  // the warpgroup's rows of the int8 tile are written
+    }
+  }
   // This thread's keys' scales of tile it (B9): column 8 j + 2 t.
   auto k_scales = [&](int it) { return ring.base + kScaleOff + (it % kKStages * kN + 2 * t) * 4; };
   auto v_scales = [&](int it) {
     return ring.base + kScaleOff + ((kKStages + it % kVStages) * kN + 2 * t) * 4;
+  };
+  // kI8: S of tile it as fp32 scores, before the slot goes back.
+  auto dequantize = [&](float (&s)[kN / 2], uint32_t (&si)[kI8 ? kN / 2 : 1], int it) {
+    if constexpr (kI8) {
+      fence_regs(si);
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j) {
+        const float2 ks = lds_f32x2(k_scales(it) + 32 * j);
+        s[4 * j] = static_cast<float>(static_cast<int>(si[4 * j])) * (ks.x * qf[0]);
+        s[4 * j + 1] = static_cast<float>(static_cast<int>(si[4 * j + 1])) * (ks.y * qf[0]);
+        s[4 * j + 2] = static_cast<float>(static_cast<int>(si[4 * j + 2])) * (ks.x * qf[1]);
+        s[4 * j + 3] = static_cast<float>(static_cast<int>(si[4 * j + 3])) * (ks.y * qf[1]);
+      }
+    } else {
+      fence_regs(s);
+    }
+  };
+  // S of tile it (the s8 product with kI8).
+  auto s_products = [&](float (&s)[kN / 2], uint32_t (&si)[kI8 ? kN / 2 : 1], int it) {
+    if constexpr (kI8) qk_products_i8<D, kN>(si, qa8, ring.sK(it));
+    else qk_products<T, D, kN>(s, qa, ring.sK(it));
   };
   // S of tile it times its keys' scales (B9), before the slot goes back.
   auto scale_keys = [&](float (&s)[kN / 2], int it) {
@@ -549,13 +697,14 @@ __device__ __forceinline__ void consume(const Rings<D, kKStages, kVStages, kBars
     uint32_t pl[kSplit ? kN / 16 : 1][4];  // kSplit: the rest of P, rounded to T
     {
       float s[kN / 2], alpha[2];
+      uint32_t si[kI8 ? kN / 2 : 1];
       take_turn(it_lo);
       wgmma_fence();
-      qk_products<T, D, kN>(s, qa, ring.sK(it_lo));
+      s_products(s, si, it_lo);
       wgmma_commit();
       pass_turn(it_lo);
       wgmma_wait<0>();
-      fence_regs(s);
+      dequantize(s, si, it_lo);
       scale_keys(s, it_lo);
       if constexpr (!kKeyMeta) release(ring.empty_k(it_lo));
       softmax(s, it_lo, alpha);  // O is 0: alpha unused
@@ -564,16 +713,17 @@ __device__ __forceinline__ void consume(const Rings<D, kKStages, kVStages, kBars
     }
     for (int it = it_lo + 1; it < it_hi; ++it) {
       float s[kN / 2], alpha[2];
+      uint32_t si[kI8 ? kN / 2 : 1];
       take_turn(it);
       mbar_wait(ring.full_v(it - 1), ring.v_pass(it - 1));
       wgmma_fence();
-      qk_products<T, D, kN>(s, qa, ring.sK(it));
+      s_products(s, si, it);
       wgmma_commit();
       pv(pa, pl, it - 1);
       wgmma_commit();
       pass_turn(it);
       wgmma_wait<1>();  // S done; P V may still run
-      fence_regs(s);
+      dequantize(s, si, it);
       scale_keys(s, it);
       if constexpr (!kKeyMeta) release(ring.empty_k(it));
       softmax(s, it, alpha);

@@ -9,8 +9,16 @@
 //     `_flash_fwd_kernel_diag` (pallas_call at :1039);
 //   * B2 (a window that binds, W < Skv) replaces `_flash_fwd_kernel_fused`
 //     (:269) and its per-head fallback `_flash_fwd_kernel` (:102), both
-//     behind the pallas_call at :1260, for their windowed geometry. Their
-//     int8 scores are not in this kernel: the wrapper raises on them.
+//     behind the pallas_call at :1260, for their windowed geometry.
+// Their int8 scores (`score_dtype="int8"`: the int8 branches of
+// `_flash_fwd_kernel_diag` and `_flash_fwd_kernel_fused`, :617-700 and
+// :335-418) are the kI8 instantiations of the same kernel, counted as P-i8
+// and B2-i8: K comes as K8's int8 rows and fp32 row scales (below), the
+// consumers quantize their q rows into an int8 tile once a block, and S is
+// the s8 wgmma (m64nNk32, s32 accumulators, twice the bf16 rate), scaled
+// back to fp32 per row and key before the cap and the mask; V stays bf16 /
+// f16 and P V is unchanged. Q is quantized with one scale a row, where the
+// TPU kernels take one a tile (a workaround of their lane layout).
 // Both take the tanh soft cap (`softcap_log2`, c * log2(e), 0 for none),
 // applied to every score before the mask in the base-2 units of the body:
 // x = c2 * tanh(x / c2), c2 = c * log2(e), which is log2(e) times the TPU
@@ -39,7 +47,9 @@
 // causal grids start with the rows that see the most keys. The tanh of the
 // soft cap is two MUFU operations (softcap()). Shared memory: Q 16 / 32 /
 // 64 KB, K slots 4 / 4 / 3 and V slots 4 / 2 / 2 of 16 / 32 / 32 KB at D 64
-// / 128 / 256: 144 / 224 / 224 KB, one block an SM.
+// / 128 / 256: 144 / 224 / 224 KB, one block an SM. P-i8 / B2-i8 add the
+// int8 Q tile (8 / 16 / 32 KB) and take K slots of half the size, with the
+// keys' scales beside them: about 122 / 178 / 209 KB.
 #include "attention_wgmma.cuh"
 
 namespace fact {
@@ -51,32 +61,42 @@ struct FwdParams {
   Scores sc;
   int causal;
   int window;  // W > 0, or 0 for none
+  // P-i8 / B2-i8: K8's scales, [B, Hkv, kscale_rows] fp32 (kscale_rows a
+  // multiple of 128 >= Skv, 0 past Skv).
+  const float* kscale;
+  int kscale_rows;
 };
 
 // K and V stream through rings of their own (attention_wgmma.cuh): a K tile
 // is free once S is, a V tile only after the next tile's S (its P V runs
-// then).
-template <int D>
+// then). kI8: the int8 Q tile follows the Q tile, K slots hold int8 tiles,
+// and the keys' scales of each K slot follow the V ring.
+template <int D, bool kI8 = false>
 struct FwdSmem {
   static constexpr int kKStages = D == 256 ? 3 : 4;
   static constexpr int kVStages = D == 64 ? 4 : 2;
-  static constexpr int kBars = Tiles<D>::kQ + (kKStages + kVStages) * Tiles<D>::kKV;
-  static constexpr int kBytes = 1024 + kBars + Rings<D, kKStages, kVStages, kBars>::kBarriers * 8;
+  static constexpr int kQBytes = Tiles<D>::kQ + (kI8 ? kBlockM * D : 0);
+  static constexpr int kKSlot = kI8 ? Tiles<D>::kN * D : Tiles<D>::kKV;
+  static constexpr int kScaleOff = kQBytes + kKStages * kKSlot + kVStages * Tiles<D>::kKV;
+  static constexpr int kBars = kScaleOff + (kI8 ? kKStages * Tiles<D>::kN * 4 : 0);
+  using Ring = Rings<D, kKStages, kVStages, kBars, kKSlot, kQBytes>;
+  static constexpr int kBytes = 1024 + kBars + Ring::kBarriers * 8;
 };
 
 // kCap: the soft cap is compiled in (a launch with softcap_log2 > 0).
-template <typename T, int D, bool kCap>
+// kI8: int8 scores (P-i8 / B2-i8): k is K8's int8 [B, Hkv, Skv, D].
+template <typename T, int D, bool kCap, bool kI8>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap kmap,
                      const __grid_constant__ CUtensorMap vmap, const FwdParams p) {
-  using S = FwdSmem<D>;
+  using S = FwdSmem<D, kI8>;
   using Tl = Tiles<D>;
-  constexpr int kN = Tl::kN, kKStages = S::kKStages, kVStages = S::kVStages;
+  constexpr int kN = Tl::kN, kKStages = S::kKStages;
   extern __shared__ __align__(16) unsigned char smem[];
   const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;  // the 128-byte swizzle needs 1 KB
   const uint32_t sQ = base;
-  const Rings<D, kKStages, kVStages, S::kBars> r{base};
+  const typename S::Ring r{base};
 
   const int per = p.hq * p.batch;
   const int nqb = (p.sq + kBlockM - 1) / kBlockM;
@@ -106,9 +126,18 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int it = 0; it < total; ++it) {
         const int n0 = n_begin + it * kN;
         mbar_wait(r.empty_k(it), r.k_pass(it) ^ 1);
-        mbar_expect_tx(r.full_k(it), Tl::kKV);
-        for (int c = 0; c < D / 64; ++c)
-          tma_load_4d(r.sK(it) + c * Tl::kKVBox, &kmap, 64 * c, n0, hk, b, r.full_k(it));
+        if constexpr (kI8) {  // int8 rows in boxes of 128 bytes, and the keys' scales
+          mbar_expect_tx(r.full_k(it), S::kKSlot + kN * 4);
+          for (int c = 0; c < (D + 127) / 128; ++c)
+            tma_load_4d(r.sK(it) + c * kN * 128, &kmap, 128 * c, n0, hk, b, r.full_k(it));
+          bulk_load(base + S::kScaleOff + it % kKStages * kN * 4,
+                    p.kscale + (static_cast<int64_t>(b) * (p.hq / p.group) + hk) * p.kscale_rows + n0,
+                    kN * 4, r.full_k(it));
+        } else {
+          mbar_expect_tx(r.full_k(it), Tl::kKV);
+          for (int c = 0; c < D / 64; ++c)
+            tma_load_4d(r.sK(it) + c * Tl::kKVBox, &kmap, 64 * c, n0, hk, b, r.full_k(it));
+        }
         mbar_wait(r.empty_v(it), r.v_pass(it) ^ 1);
         mbar_expect_tx(r.full_v(it), Tl::kKV);
         for (int c = 0; c < D / 64; ++c)
@@ -119,8 +148,83 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   setmaxnreg_inc<240>();
-  consume<T, D, kCap, 0>(r, Visible{p.sq, p.skv, offset, p.causal, p.window}, p.sc, m0, n_begin,
-                         total, static_cast<T*>(p.o), p.lse, b * p.hq + h);
+  consume<T, D, kCap, kI8 ? S::kScaleOff : 0, kI8>(
+      r, Visible{p.sq, p.skv, offset, p.causal, p.window}, p.sc, m0, n_begin, total,
+      static_cast<T*>(p.o), p.lse, b * p.hq + h);
+}
+
+// ---------------------------------------------------------------------------
+// K8: the per-row int8 quantization of K that P-i8 / B2-i8 read, once a
+// call (the TPU kernels quantize each K sub-block again for every q tile,
+// `_quantize_k_rows`, flash_attention_cute_tpu/ops/flash_fwd.py:79): for
+// each row of a strided [B, Hkv, Skv, D] view, b = max |k_row| (1 where 0),
+// values rint(k * (127 / b)) clipped to +-127 into a contiguous int8
+// [B, Hkv, Skv, D], and b into fp32 [B, Hkv, kscale_rows], 0 past Skv.
+// Bit-identical to the plain version: one IEEE quotient, one product, ties
+// to even. It moves 2 D + D + 4 bytes a row and computes next to nothing:
+// bytes bound it, so a warp takes a row with coalesced 4-byte loads and
+// 2-byte stores, eight warps a block.
+constexpr int kQuantRowsPerBlock = 8;
+
+template <typename T, int D>
+__global__ void __launch_bounds__(32 * kQuantRowsPerBlock)
+    quantize_k_rows_kernel(const T* k, int8_t* values, float* scales, int hkv, int skv,
+                           int kscale_rows, long long rows, long long sb, long long sh,
+                           long long ss) {
+  const long long row = static_cast<long long>(blockIdx.x) * kQuantRowsPerBlock + threadIdx.x / 32;
+  if (row >= rows) return;
+  const int lane = threadIdx.x & 31;
+  const int n = static_cast<int>(row % kscale_rows);
+  const long long bh = row / kscale_rows;
+  if (n >= skv) {
+    if (lane == 0) scales[row] = 0.f;
+    return;
+  }
+  const uint32_t* src = reinterpret_cast<const uint32_t*>(
+      k + bh / hkv * sb + bh % hkv * sh + static_cast<long long>(n) * ss);
+  constexpr int kPairs = D / 64;  // pairs of values a lane
+  float x[2 * kPairs];
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < kPairs; ++i) {
+    const float2 f = unpack2<T>(src[lane + 32 * i]);
+    x[2 * i] = f.x, x[2 * i + 1] = f.y;
+    amax = fmaxf(amax, fmaxf(fabsf(f.x), fabsf(f.y)));
+  }
+  amax = warp_max(amax);
+  const float b = amax == 0.f ? 1.f : amax;
+  const float mul = 127.f / b;
+  uint16_t* dst = reinterpret_cast<uint16_t*>(values + (bh * skv + n) * D);
+#pragma unroll
+  for (int i = 0; i < kPairs; ++i) {
+    const int v0 = min(127, max(-127, __float2int_rn(x[2 * i] * mul)));
+    const int v1 = min(127, max(-127, __float2int_rn(x[2 * i + 1] * mul)));
+    dst[lane + 32 * i] = static_cast<uint16_t>((v0 & 0xFF) | ((v1 & 0xFF) << 8));
+  }
+  if (lane == 0) scales[row] = b;
+}
+
+template <typename T>
+int launch_quantize_k(const void* k, void* values, void* scales, int batch, int hkv, int skv,
+                      int d, int kscale_rows, long long sb, long long sh, long long ss,
+                      cudaStream_t stream) {
+  const long long rows = static_cast<long long>(batch) * hkv * kscale_rows;
+  const long long blocks = (rows + kQuantRowsPerBlock - 1) / kQuantRowsPerBlock;
+  if (blocks <= 0) return cudaSuccess;
+  if (blocks > 0x7FFFFFFF) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(blocks)), block(32 * kQuantRowsPerBlock);
+  const T* kt = static_cast<const T*>(k);
+  int8_t* vt = static_cast<int8_t*>(values);
+  float* st = static_cast<float*>(scales);
+  if (d == 64)
+    quantize_k_rows_kernel<T, 64><<<grid, block, 0, stream>>>(kt, vt, st, hkv, skv, kscale_rows, rows, sb, sh, ss);
+  else if (d == 128)
+    quantize_k_rows_kernel<T, 128><<<grid, block, 0, stream>>>(kt, vt, st, hkv, skv, kscale_rows, rows, sb, sh, ss);
+  else if (d == 256)
+    quantize_k_rows_kernel<T, 256><<<grid, block, 0, stream>>>(kt, vt, st, hkv, skv, kscale_rows, rows, sb, sh, ss);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -132,10 +236,10 @@ struct FwdViews {
   int hkv, dtype;
 };
 
-template <typename T, int D, bool kCap>
+template <typename T, int D, bool kCap, bool kI8>
 int launch_fwd(const FwdParams& p, const FwdViews& w, cudaStream_t stream) {
-  using S = FwdSmem<D>;
-  auto kernel = flash_fwd_kernel<T, D, kCap>;
+  using S = FwdSmem<D, kI8>;
+  auto kernel = flash_fwd_kernel<T, D, kCap, kI8>;
   static const int configured = allow_smem(kernel, S::kBytes);  // above 48 KB needs an opt-in
   if (configured != cudaSuccess) return configured;
   const long long blocks = static_cast<long long>((p.sq + kBlockM - 1) / kBlockM) * p.hq * p.batch;
@@ -143,39 +247,50 @@ int launch_fwd(const FwdParams& p, const FwdViews& w, cudaStream_t stream) {
   if (blocks > 0x7FFFFFFF) return cudaErrorInvalidValue;
   CUtensorMap qmap, kmap, vmap;
   const int sq = p.sq, skv = p.skv, kN = Tiles<D>::kN;
+  const bool kmap_ok = kI8 ? int8_head_map(&kmap, w.k, p.batch, w.hkv, skv, D, kN)
+                            : head_map(&kmap, w.dtype, w.k, p.batch, w.hkv, skv, D, w.k_sb,
+                                       w.k_sh, w.k_ss, kN);
   if (!head_map(&qmap, w.dtype, w.q, p.batch, p.hq, sq, D, w.q_sb, w.q_sh, w.q_ss, kBlockM) ||
-      !head_map(&kmap, w.dtype, w.k, p.batch, w.hkv, skv, D, w.k_sb, w.k_sh, w.k_ss, kN) ||
+      !kmap_ok ||
       !head_map(&vmap, w.dtype, w.v, p.batch, w.hkv, skv, D, w.v_sb, w.v_sh, w.v_ss, kN))
     return cudaErrorInvalidValue;
   kernel<<<static_cast<unsigned>(blocks), kThreads, S::kBytes, stream>>>(qmap, kmap, vmap, p);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kI8>
 int launch_cap(const FwdParams& p, const FwdViews& w, cudaStream_t s) {
-  return p.sc.softcap_log2 > 0.f ? launch_fwd<T, D, true>(p, w, s) : launch_fwd<T, D, false>(p, w, s);
+  return p.sc.softcap_log2 > 0.f ? launch_fwd<T, D, true, kI8>(p, w, s)
+                                 : launch_fwd<T, D, false, kI8>(p, w, s);
 }
 
-template <typename T>
+template <typename T, bool kI8>
 int dispatch_fwd(const FwdParams& p, const FwdViews& w, int d, cudaStream_t s) {
-  if (d == 64) return launch_cap<T, 64>(p, w, s);
-  if (d == 128) return launch_cap<T, 128>(p, w, s);
-  if (d == 256) return launch_cap<T, 256>(p, w, s);
+  if (d == 64) return launch_cap<T, 64, kI8>(p, w, s);
+  if (d == 128) return launch_cap<T, 128, kI8>(p, w, s);
+  if (d == 256) return launch_cap<T, 256, kI8>(p, w, s);
   return cudaErrorInvalidValue;
 }
 
 template <typename T>
 static void report_type(char* out, int cap, int& used, const char* t) {
   char name[96];
-#define FWD_REPORT(d, c)                                                          \
-  snprintf(name, sizeof(name), "P / B2 D%d %s%s", d, t, c ? " cap" : "");        \
-  report_one(out, cap, used, name, (flash_fwd_kernel<T, d, c>), FwdSmem<d>::kBytes)
-  FWD_REPORT(64, false);
-  FWD_REPORT(64, true);
-  FWD_REPORT(128, false);
-  FWD_REPORT(128, true);
-  FWD_REPORT(256, false);
-  FWD_REPORT(256, true);
+#define FWD_REPORT(d, c, i)                                                                  \
+  snprintf(name, sizeof(name), "%s D%d %s%s", i ? "P-i8 / B2-i8" : "P / B2", d, t,           \
+           c ? " cap" : "");                                                                \
+  report_one(out, cap, used, name, (flash_fwd_kernel<T, d, c, i>), FwdSmem<d, i>::kBytes)
+  FWD_REPORT(64, false, false);
+  FWD_REPORT(64, true, false);
+  FWD_REPORT(128, false, false);
+  FWD_REPORT(128, true, false);
+  FWD_REPORT(256, false, false);
+  FWD_REPORT(256, true, false);
+  FWD_REPORT(64, false, true);
+  FWD_REPORT(64, true, true);
+  FWD_REPORT(128, false, true);
+  FWD_REPORT(128, true, true);
+  FWD_REPORT(256, false, true);
+  FWD_REPORT(256, true, true);
 #undef FWD_REPORT
 }
 
@@ -213,7 +328,56 @@ extern "C" int fact_flash_fwd(const void* q, const void* k, const void* v, void*
   p.window = window;
   const FwdViews w{q, k, v, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, hkv, dtype};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16) return dispatch_fwd<__nv_bfloat16>(p, w, d, s);
-  if (dtype == kF16) return dispatch_fwd<__half>(p, w, d, s);
+  if (dtype == kBF16) return dispatch_fwd<__nv_bfloat16, false>(p, w, d, s);
+  if (dtype == kF16) return dispatch_fwd<__half, false>(p, w, d, s);
+  return cudaErrorInvalidValue;
+}
+
+// P-i8 / B2-i8: as fact_flash_fwd, with k8 K8's int8 [B, Hkv, Skv, D]
+// (contiguous) and kscale its fp32 scales [B, Hkv, kscale_rows]
+// (kscale_rows a multiple of 128 >= Skv); q and v as there. scale_log2
+// pre-scales q (sm_scale * log2(e)) before its quantization.
+extern "C" int fact_flash_fwd_int8(const void* q, const void* k8, const void* kscale,
+                                   const void* v, void* o, void* lse, int batch, int hq, int hkv,
+                                   int sq, int skv, int d, int kscale_rows, long long q_sb,
+                                   long long q_sh, long long q_ss, long long v_sb, long long v_sh,
+                                   long long v_ss, float scale_log2, float softcap_log2,
+                                   int causal, int window, int dtype, void* stream) {
+  using namespace fact;
+  if (kscale_rows % 128 || kscale_rows < skv) return cudaErrorInvalidValue;
+  FwdParams p{};
+  p.o = o;
+  p.lse = static_cast<float*>(lse);
+  p.batch = batch, p.hq = hq, p.group = hq / hkv, p.sq = sq, p.skv = skv;
+  // The scores leave the product in base-2 units: the cap's factor is that
+  // of a softmax scale of 1; scale_log2 goes to q's pre-scale.
+  p.sc = scores(1.f, softcap_log2);
+  p.sc.scale_log2 = scale_log2;
+  p.causal = causal;
+  p.window = window;
+  p.kscale = static_cast<const float*>(kscale);
+  p.kscale_rows = kscale_rows;
+  const FwdViews w{q, k8, v, q_sb, q_sh, q_ss, 0, 0, 0, v_sb, v_sh, v_ss, hkv, dtype};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16) return dispatch_fwd<__nv_bfloat16, true>(p, w, d, s);
+  if (dtype == kF16) return dispatch_fwd<__half, true>(p, w, d, s);
+  return cudaErrorInvalidValue;
+}
+
+// K8: k a strided [B, Hkv, Skv, D] bf16 / f16 view (strides in elements,
+// D contiguous); values int8 [B, Hkv, Skv, D] and scales fp32
+// [B, Hkv, kscale_rows] contiguous (kscale_rows a multiple of 128 >= Skv).
+extern "C" int fact_quantize_k_rows(const void* k, void* values, void* scales, int batch, int hkv,
+                                    int skv, int d, int kscale_rows, long long k_sb,
+                                    long long k_sh, long long k_ss, int dtype, void* stream) {
+  using namespace fact;
+  if (kscale_rows % 128 || kscale_rows < skv) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16)
+    return launch_quantize_k<__nv_bfloat16>(k, values, scales, batch, hkv, skv, d, kscale_rows,
+                                            k_sb, k_sh, k_ss, s);
+  if (dtype == kF16)
+    return launch_quantize_k<__half>(k, values, scales, batch, hkv, skv, d, kscale_rows, k_sb,
+                                     k_sh, k_ss, s);
   return cudaErrorInvalidValue;
 }

@@ -224,13 +224,54 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   }
 }
 
+// d[64 x N] (+)= A[64 x 32] @ B[32 x N] of int8 values, both from shared
+// memory, K-major (the only layout 8-bit operands take), N 64 or 128; s32
+// accumulators, exact. Without kAcc, d = A B.
+#define FACT_RWI(x) "+r"(x)
+#define FACT_WOI(x) "=r"(x)
+#define FACT_WGMMA_SS_S8_64(C)                                                       \
+  asm volatile(                                                                      \
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"                                 \
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8"                             \
+      " {%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20," \
+      "%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, %32, %33, p;\n}\n"              \
+      : FACT_D8(C, 0), FACT_D8(C, 8), FACT_D8(C, 16), FACT_D8(C, 24)                 \
+      : "l"(da), "l"(db), "r"(kAcc ? 1 : 0))
+#define FACT_WGMMA_SS_S8_128(C)                                                                   \
+  asm volatile(                                                                                   \
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"                                              \
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8"                                         \
+      " {%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23," \
+      "%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45," \
+      "%46,%47,%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63},"                \
+      " %64, %65, p;\n}\n"                                                                       \
+      : FACT_D8(C, 0), FACT_D8(C, 8), FACT_D8(C, 16), FACT_D8(C, 24), FACT_D8(C, 32),           \
+        FACT_D8(C, 40), FACT_D8(C, 48), FACT_D8(C, 56)                                          \
+      : "l"(da), "l"(db), "r"(kAcc ? 1 : 0))
+
+template <int N, bool kAcc>
+__device__ __forceinline__ void wgmma_ss_s8(uint32_t (&d)[N / 2], uint64_t da, uint64_t db) {
+  static_assert(N == 64 || N == 128, "wgmma_ss_s8 takes N 64 or 128");
+  if constexpr (N == 64) {
+    if constexpr (kAcc) FACT_WGMMA_SS_S8_64(FACT_RWI);
+    else FACT_WGMMA_SS_S8_64(FACT_WOI);
+  } else {
+    if constexpr (kAcc) FACT_WGMMA_SS_S8_128(FACT_RWI);
+    else FACT_WGMMA_SS_S8_128(FACT_WOI);
+  }
+}
+
 #undef FACT_WGMMA_SS_64
 #undef FACT_WGMMA_SS_128
 #undef FACT_WGMMA_RS_64
 #undef FACT_WGMMA_RS_128
+#undef FACT_WGMMA_SS_S8_64
+#undef FACT_WGMMA_SS_S8_128
 #undef FACT_D8
 #undef FACT_RW
 #undef FACT_WO
+#undef FACT_RWI
+#undef FACT_WOI
 
 // Descriptors of tiles that TMA wrote with the 128-byte swizzle as boxes of
 // 64 columns (128 bytes) x R rows, one box after the other.
@@ -243,6 +284,14 @@ __device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk, int box_bytes)
 // k-step kk over the rows; `box_bytes` is the stride of 64-column blocks.
 __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk, int box_bytes) {
   return wgmma_desc(tile + kk * 2048, box_bytes, 1024);
+}
+// A K-major tile that TMA wrote with the 64-byte swizzle as one box of
+// 64-byte rows (layout type 2; 8-row groups 512 bytes apart): k-step kk of
+// 32 bytes.
+__device__ __forceinline__ uint64_t kmajor_sw64(uint32_t tile, int kk) {
+  const uint32_t addr = tile + kk * 32;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
 }
 
 // The m16n8k16 A fragments of a 64 x N accumulator (each warp's 16 rows),
@@ -352,6 +401,22 @@ static bool head_map(CUtensorMap* map, int dtype, const void* base, int batch, i
   return make_map(map, dtype == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
                   4, base, dims, strides, box);
+}
+
+// A contiguous int8 [B, H, S, D] array as a 4-D TMA map with boxes of
+// min(D, 128) bytes x `box_rows` rows: the 128-byte swizzle, the 64-byte
+// one at D 64 (whose rows are 64 bytes).
+static bool int8_head_map(CUtensorMap* map, const void* base, int batch, int heads, int s, int d,
+                          int box_rows) {
+  const long long row = d, head = static_cast<long long>(s > 1 ? s : 1) * row;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(s > 1 ? s : 1),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(row), static_cast<cuuint64_t>(head),
+                                 static_cast<cuuint64_t>(heads * head)};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(d < 128 ? d : 128),
+                             static_cast<cuuint32_t>(box_rows), 1, 1};
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, base, dims, strides, box,
+                  d == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <typename Kernel>

@@ -87,13 +87,6 @@ struct PagedSmem {
       1024 + kBars + (Rings<D, kKStages, kVStages, kBars>::kBarriers + kExtra) * 8;
 };
 
-__device__ __forceinline__ uint4 lds_u32x4(uint32_t addr) {
-  uint4 v;
-  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "r"(addr));
-  return v;
-}
 __device__ __forceinline__ void sts_f32(uint32_t addr, float v) {
   asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
 }

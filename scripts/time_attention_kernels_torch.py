@@ -2,7 +2,7 @@
 """Device times of the port's attention kernels on one NVIDIA H100, for
 comparing two trees of the repository in one call:
 
-    cd <tree> && python3 <this script> [prefill] [decode] [paged] [extends] [backward]
+    cd <tree> && python3 <this script> [prefill] [decode] [paged] [extends] [backward] [int8]
 
 The package is imported from the current directory; the arguments pick
 groups of kernels to time (all without any). Llama / Mistral shapes
@@ -60,7 +60,15 @@ S 5120, at Qwen2-7B's 28 / 4 heads (B 1, S 1024), and non-causal at B 1, S
 work). Their bounds ("bound" entries, the same for every tree): B13a 8 D
 and B13b 6 D operations per visible (row, key) pair and q head at the bf16
 peak, or their bytes (inputs and outputs once) at 3.35 TB/s, whichever is
-longer. Prints one JSON line with the card's name and power limit.
+longer. int8 scores (where the tree takes `score_dtype`), at chip_smoke.py's
+phase 5e shapes (Llama-3-8B B 4 S 512 and B 1 S 8192, Mistral-7B's B 2 S
+5120 W 4096, Gemma-2-9B's B 2 S 4608 with the cap 50; causal, transposed
+views): "int8 ..." the wrapper's call (K8 + P-i8 / B2-i8), "int8 kernel
+..." P-i8 / B2-i8 alone over K8's output, "bf16 ..." P / B2 at the same
+inputs, "K8 ..." K8 alone, and "bound int8 ..." (QK^T at the int8 peak
+plus PV at the bf16 peak, or the bytes of q, K8's K and scales, v and the
+output, whichever is longer). Prints one JSON line with the card's name
+and power limit.
 """
 
 import json
@@ -80,7 +88,7 @@ from flash_attention_cute_tpu_torch.ops import paged_attention as pa  # noqa: E4
 from flash_attention_cute_tpu_torch.ops import quantized as qz  # noqa: E402
 from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms  # noqa: E402
 
-PEAK_BF16, PEAK_BYTES = 989e12, 3.35e12
+PEAK_BF16, PEAK_I8, PEAK_BYTES = 989e12, 1979e12, 3.35e12
 
 
 def visible_pairs(s: int, causal: bool, window: int | None) -> int:
@@ -285,6 +293,33 @@ def backward_times(randn, timed, out):
         del q, k, v, do, o, lse, delta, dk, dv, dq
 
 
+def int8_times(randn, timed, out):
+    if "score_dtype" not in flash_fwd.flash_attention_fwd.__code__.co_varnames:
+        return  # a tree without int8 scores
+    for name, b, hq, hkv, s, d, w, cap in (("B4 S512", 4, 32, 8, 512, 128, None, None),
+                                           ("B1 S8192", 1, 32, 8, 8192, 128, None, None),
+                                           ("B2 S5120 W4096", 2, 32, 8, 5120, 128, 4096, None),
+                                           ("gemma2 B2 S4608 cap 50", 2, 16, 8, 4608, 256, None,
+                                            50.0)):
+        q = randn(b, s, hq, d).transpose(1, 2)
+        k, v = randn(b, s, hkv, d).transpose(1, 2), randn(b, s, hkv, d).transpose(1, 2)
+        kw = dict(causal=True, window=w, **capped(cap))
+        out[f"int8 {name}"] = timed(lambda: flash_fwd.flash_attention_fwd(
+            q, k, v, score_dtype="int8", **kw), 20)
+        k8, kscale = flash_fwd._quantize_k_padded(k)
+        o = torch.empty((b, hq, s, d), dtype=q.dtype, device="cuda")
+        softcap = 0.0 if cap is None else cap * 1.4426950408889634
+        out[f"int8 kernel {name}"] = timed(lambda: flash_fwd.launch_int8(
+            q, k8, kscale, v, o, None, d ** -0.5, True, w or 0, softcap), 20)
+        out[f"bf16 {name}"] = timed(lambda: flash_fwd.flash_attention_fwd(q, k, v, **kw), 20)
+        out[f"K8 {name}"] = timed(lambda: flash_fwd._quantize_k_padded(k), 20)
+        pairs = b * hq * visible_pairs(s, True, w)
+        io = 2 * q.numel() + k8.numel() + 4 * kscale.numel() + 2 * v.numel() + 2 * o.numel()
+        out[f"bound int8 {name}"] = 1e3 * max(2 * d * pairs / PEAK_I8 + 2 * d * pairs / PEAK_BF16,
+                                               io / PEAK_BYTES)
+        del q, k, v, k8, kscale, o
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -306,8 +341,8 @@ def main() -> None:
             return None
 
     # Groups to time (all by default): prefill, decode, paged, extends,
-    # backward.
-    groups = set(sys.argv[1:]) or {"prefill", "decode", "paged", "extends", "backward"}
+    # backward, int8.
+    groups = set(sys.argv[1:]) or {"prefill", "decode", "paged", "extends", "backward", "int8"}
     out = {"card": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(), "tree": os.getcwd()}
@@ -345,6 +380,8 @@ def main() -> None:
         extends_and_varlen(randn, timed, out)
     if "backward" in groups:
         backward_times(randn, timed, out)
+    if "int8" in groups:
+        int8_times(randn, timed, out)
     print(json.dumps(out))
 
 

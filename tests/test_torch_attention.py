@@ -284,6 +284,22 @@ def test_non_cpu_tensors_take_the_kernel_route_and_never_fall_back():
         api.flash_attn_func(q.detach().requires_grad_(), k, k, causal=True, logit_softcap=30.0)
     with pytest.raises(NotImplementedError):
         flash_fwd.flash_attention_fwd(q.float(), k.float(), k.float())
+    # int8 scores (K8, then P-i8 / B2-i8) reach the same check, K8 alone
+    # too; under autograd they and a non-default `stable` raise (forward
+    # only, as in the JAX package).
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_fwd.flash_attention_fwd(q, k, k, causal=True, score_dtype="int8")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        api.flash_attn_func(q, k, k, causal=True, window=16, score_dtype="int8",
+                            logit_softcap=50.0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_fwd.quantize_k_rows(k)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        api.flash_attn_func(q.detach().requires_grad_(), k, k, causal=True, score_dtype="int8")
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        api.flash_attn_func(q.detach().requires_grad_(), k, k, causal=True, stable="strict")
+    with pytest.raises(NotImplementedError):
+        flash_fwd.flash_attention_fwd(q.float(), k.float(), k.float(), score_dtype="int8")
     # The training and varlen wrappers (B13a / B13b, B12) and the autograd op.
     lse = torch.empty(1, 4, 64, device="meta")
     with pytest.raises(ValueError, match="CUDA tensor"):

@@ -40,6 +40,14 @@ relative), as the forward rounds P before PV. A second call repeats them
 bit for bit; B13a's split walk is held to one pass over the walk within
 2^-7 relative (the same fp32 sums grouped otherwise, each rounded once).
 The packed-batch kernel B12 is held to its fp32 plain version at 3e-2.
+
+int8 scores: K8 must write exactly what the plain row quantizer writes
+(values and scales). P-i8 / B2-i8 compute the same fp32 scores as their
+plain version (the same quantization and exact integer products), so they
+are held to it at 3e-2 (the output's bf16 / f16 rounding and P's), the lse
+at 1e-3 as P's; to the fp32 oracle of bf16 scores at 5e-2 (the JAX
+package's envelope of int8 scores); they must differ from the bf16-score
+kernel by more than 1e-4 (they do quantize) and repeat bit for bit.
 """
 
 import dataclasses
@@ -1607,3 +1615,96 @@ def test_varlen_kernel_takes_the_cap_and_d256(device, case, d, cap, window):
     assert (out.float().cpu() - ref).abs().max().item() <= BF16_TOL
     if case == "cross_bottom_right":  # q longer than kv: the first 100 rows of seq 1 are 0
         assert (out[64:164] == 0).all()
+
+
+INT8_PREFILL = {
+    # name: (batch, hq, hkv, sq, skv, d, causal, window, cap, dtype, transposed, lse)
+    "d128_b4_s512": (4, 32, 8, 512, 512, 128, True, None, None, torch.bfloat16, False, False),
+    "d128_window100_views": (1, 32, 8, 1000, 1000, 128, True, 100, None, torch.bfloat16, True,
+                             True),
+    "d64_noncausal_cross_lse": (2, 8, 2, 200, 700, 64, False, None, None, torch.bfloat16, False,
+                                True),
+    "d64_f16_zero_rows_cap": (1, 8, 1, 300, 100, 64, True, None, 30.0, torch.float16, True, True),
+    "d256_cap50_ragged": (2, 16, 8, 333, 333, 256, True, None, 50.0, torch.bfloat16, True, True),
+    "d256_window64_cap1_f16": (1, 16, 8, 600, 600, 256, True, 64, 1.0, torch.float16, False,
+                               True),
+}
+
+
+@pytest.mark.parametrize("case", list(INT8_PREFILL), ids=list(INT8_PREFILL))
+def test_int8_prefill_kernels_match_plain(device, case):
+    """K8 then P-i8 (B2-i8 where the window binds) against the plain int8
+    version, the fp32 oracle and the bf16-score kernel."""
+    b, hq, hkv, sq, skv, d, causal, window, cap, dtype, views, with_lse = INT8_PREFILL[case]
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    if views:  # the model's [B, S, H, D] projections
+        q = randn(gen, b, sq, hq, d, dtype=dtype).transpose(1, 2)
+        k = randn(gen, b, skv, hkv, d, dtype=dtype).transpose(1, 2)
+        v = randn(gen, b, skv, hkv, d, dtype=dtype).transpose(1, 2)
+    else:
+        q, k, v = (randn(gen, b, h, s, d, dtype=dtype) for h, s in ((hq, sq), (hkv, skv),
+                                                                     (hkv, skv)))
+    kw = dict(causal=causal, window=window, logit_softcap=cap)
+    kern = flash_fwd.WINDOWED_PREFILL_INT8 if window else flash_fwd.PREFILL_INT8
+    before = (kern.launches, flash_fwd.QUANTIZE_K.launches, flash_fwd.PREFILL.launches)
+    out, lse = flash_fwd.flash_attention_fwd(q, k, v, return_lse=True, score_dtype="int8", **kw)
+    again = flash_fwd.flash_attention_fwd(q, k, v, return_lse=with_lse, score_dtype="int8", **kw)
+    torch.cuda.synchronize()
+    assert (kern.launches, flash_fwd.QUANTIZE_K.launches, flash_fwd.PREFILL.launches) == (
+        before[0] + 2, before[1] + 2, before[2])
+    assert torch.equal(out, again[0] if with_lse else again)
+    if with_lse:
+        assert torch.equal(lse, again[1])
+    ref, ref_lse = flash_fwd.int8_attention_plain(q, k, v, d ** -0.5, causal, window, cap, True,
+                                                  out_dtype=torch.float32)
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    assert (out.float() - ref).abs().max().item() <= BF16_TOL
+    fin = torch.isfinite(ref_lse)
+    assert torch.equal(fin, torch.isfinite(lse))
+    assert (lse[fin] - ref_lse[fin]).abs().max().item() <= 1e-3
+    oracle = flash_fwd.flash_attention_fwd_plain(q.float(), k.float(), v.float(), **kw)
+    assert (out.float() - oracle).abs().max().item() <= 5e-2
+    bf16_scores = flash_fwd.flash_attention_fwd(q, k, v, **kw)
+    assert (out.float() - bf16_scores.float()).abs().max().item() > 1e-4
+    if causal and sq > skv:
+        assert (out[:, :, : sq - skv] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_k8_is_bit_identical_to_plain(device, d, dtype):
+    """K8 over a transposed view with a zero row and a ragged length: the
+    plain quantizer's values and scales exactly, zeros past Skv."""
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    k = (4 * randn(gen, 2, 333, 8, d, dtype=dtype)).transpose(1, 2)
+    k[1, 3, 7] = 0
+    before = flash_fwd.QUANTIZE_K.launches
+    values, scales = flash_fwd.quantize_k_rows(k)
+    _, padded = flash_fwd._quantize_k_padded(k)
+    torch.cuda.synchronize()
+    assert flash_fwd.QUANTIZE_K.launches == before + 2
+    want_v, want_s = flash_fwd.quantize_rows_plain(k)
+    assert values.dtype == torch.int8 and torch.equal(values, want_v)
+    assert torch.equal(scales, want_s) and scales[1, 3, 7] == 1
+    assert padded.shape[2] == 384 and (padded[..., 333:] == 0).all()
+    cpu_v, cpu_s = flash_fwd.quantize_rows_plain(k.cpu())
+    assert torch.equal(values.cpu(), cpu_v) and torch.equal(scales.cpu(), cpu_s)
+
+
+def test_api_int8_scores_launch_k8_and_p_i8(device):
+    """The API's dense prefill with score_dtype="int8": K8 and P-i8 once
+    each, no bf16-score P; a binding window: B2-i8."""
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    q, k, v = randn(gen, 2, 32, 256, 128), randn(gen, 2, 8, 256, 128), randn(gen, 2, 8, 256, 128)
+    counted = (flash_fwd.QUANTIZE_K, flash_fwd.PREFILL_INT8, flash_fwd.WINDOWED_PREFILL_INT8,
+               flash_fwd.PREFILL, flash_fwd.WINDOWED_PREFILL)
+    before = [x.launches for x in counted]
+    with torch.no_grad():
+        out = api.flash_attention_forward(q, k, v, causal=True, score_dtype="int8")
+        api.flash_attention_forward(q, k, v, causal=True, window=100, score_dtype="int8")
+    torch.cuda.synchronize()
+    assert [x.launches - n for x, n in zip(counted, before)] == [2, 1, 1, 0, 0]
+    ref = flash_fwd.flash_attention_fwd_plain(q, k, v, causal=True, score_dtype="int8")
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        api.flash_attention_forward(q.requires_grad_(), k, v, causal=True, score_dtype="int8")
