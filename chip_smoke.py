@@ -166,7 +166,15 @@ Phases, in order; any failure exits non-zero:
      kernel route are held to the plain route's leaf by leaf (relative norm
      error <= TRAIN_GRAD_TOL); step times, tokens/s, peak memory and the
      profiler's split of a fourth step. (4i) The varlen entry point
-     (`flash_attention_varlen`) over 3g's packed batch: B12 once. (4j)
+     (`flash_attention_varlen`) over 3g's packed batch: B12 once. (4l, run
+     after 4i; launches counted as path "training Gemma 2") Training of
+     Gemma 2 at Gemma-2-9B's widths with the attention cap off
+     (`logit_softcap=None`; the final-logit cap 30, the window of 4096 on
+     the even layers, sandwich norms, GeGLU and tied embeddings kept), depth
+     cut to 8 layers (printed with the memory reckoning that sets it: 6 if
+     the plain route's first step would not fit the card), as 4h does over
+     one batch of B 1 x S 4608: B2 on the windowed layers and P on the
+     others, B13a and B13b at D 256 on every layer, each once a step. (4j)
      Gemma-2-9B (42 layers, D 256, a window of 4096 on the even layers,
      soft caps 50 / 30, GeGLU, sandwich norms, scaled embeddings, vocabulary
      256000; random weights from a seeded CUDA generator), drawn after the
@@ -227,8 +235,12 @@ Phases, in order; any failure exits non-zero:
      forward) and of B12 at 3g's packed batch (library_ms: SDPA over the
      padded batch), and the lse's cost on P and B2 (with and without it;
      at the training shape also its launches, bound, plain version and
-     SDPA's forward);
-     the training numbers ("training"); phase 4k's numbers ("hf"); (5d) the "gemma2" entries of the P,
+     SDPA's forward); the B13a / B13b rows' "gemma2" entries at 4l's global
+     layer (B 1, S 4608, 16 / 8 heads, D 256, causal; library_ms: SDPA's
+     backward at D 256 with enable_gqa, or null with the reason where no
+     backend of the card takes it) with the "B13a D256" / "B13b D256"
+     runtime attributes;
+     the training numbers ("training", and 4l's "training_gemma2"); phase 4k's numbers ("hf"); (5d) the "gemma2" entries of the P,
      B2, D1, D2, B7, B4, B5, B6, B8, B9, B12, QA and append rows at Gemma-2-9B
      shapes
      with the cap 50 (library_ms: `flex_attention` with a tanh score_mod for
@@ -3076,9 +3088,21 @@ BWD_CASES = (
     ("Sq64 Skv1000", 1, 32, 8, 64, 1000, 128, True, None, "bfloat16"),
     ("Sq1000 Skv64 zero rows", 1, 32, 8, 1000, 64, 128, True, None, "bfloat16"),
     ("MQA group 32 S1024", 1, 32, 1, 1024, 1024, 128, True, None, "bfloat16"),
+    # D 256 (B13a / B13b's own layout): Gemma-2-9B's 16 / 8 heads at its
+    # prompt length, globally and under its window; Gemma-7B's MHA 16 / 16.
+    ("Gemma2 D256 S4608", 1, 16, 8, 4608, 4608, 256, True, None, "bfloat16"),
+    ("Gemma2 D256 window 4096 S4608", 1, 16, 8, 4608, 4608, 256, True, 4096, "bfloat16"),
+    ("Gemma-7B MHA 16/16 D256 S2048", 1, 16, 16, 2048, 2048, 256, True, None, "bfloat16"),
+    ("D256 ragged S1000", 1, 16, 8, 1000, 1000, 256, True, None, "bfloat16"),
+    ("D256 Sq256 Skv1024", 1, 16, 8, 256, 1024, 256, True, None, "bfloat16"),
+    ("D256 Sq1024 Skv256 zero rows", 1, 16, 8, 1024, 256, 256, True, None, "bfloat16"),
+    ("D256 MQA group 32 S1024", 1, 32, 1, 1024, 1024, 256, True, None, "bfloat16"),
+    ("D256 f16 S1024", 1, 16, 8, 1024, 1024, 256, True, None, "float16"),
+    ("D256 split window 48 S300", 1, 4, 2, 300, 300, 256, True, 48, "bfloat16"),
 )
 LSE_TOL = 1e-3
 GRAD_REL_TOL = 2e-2
+SPLIT_REL_TOL = 2 ** -7  # B13a's split walk against one pass: fp32 sums grouped otherwise
 
 
 def runtime_attributes(report: str, label: str) -> dict:
@@ -3109,7 +3133,11 @@ def phase_training_kernels(torch, ops, errs, rel_errs):
     probabilities in another order). Gradients within GRAD_REL_TOL of the
     plain fp32 gradient, as max |diff| / max |plain|: they grow with S, and
     the kernels round P and dS to bf16 / f16 before their products (one step
-    is 2^-8 relative), as the forward rounds P before PV."""
+    is 2^-8 relative), as the forward rounds P before PV. Where `dkv_splits`
+    splits B13a's walk, its dK / dV are held to one pass over the walk
+    (`launch(..., splits=1)`) within SPLIT_REL_TOL: the same fp32 sums,
+    grouped otherwise, each rounded once. Errors at D 256 also go to the
+    "<kernel> d256" entries of `errs` / `rel_errs`."""
     flash_fwd, flash_bwd, autodiff = ops["flash_fwd"], ops["flash_bwd"], ops["autodiff"]
     gen = torch.Generator(device="cuda").manual_seed(7070)
     for name, b, hq, hkv, sq, skv, d, causal, window, dt in BWD_CASES:
@@ -3147,18 +3175,31 @@ def phase_training_kernels(torch, ops, errs, rel_errs):
                                                    causal=causal, window=window)
         rel = [rel_err(a, w) for a, w in zip(got, want)]
         for kname, idx in (("flash_bwd_dq", (0,)), ("flash_bwd_dkv", (1, 2))):
-            errs[kname] = max([errs.get(kname, 0.0)] + [max_err(got[i], want[i]) for i in idx])
-            rel_errs[kname] = max([rel_errs.get(kname, 0.0)] + [rel[i] for i in idx])
+            for key in (kname, f"{kname} d256") if d == 256 else (kname,):
+                errs[key] = max([errs.get(key, 0.0)] + [max_err(got[i], want[i]) for i in idx])
+                rel_errs[key] = max([rel_errs.get(key, 0.0)] + [rel[i] for i in idx])
+        del want
+        splits = flash_bwd.dkv_splits(b, hkv, hq // hkv, sq, skv, d)
+        split_note = ""
+        if splits > 1:  # the split walk against one pass over it
+            one = (torch.empty_like(got[1]), torch.empty_like(got[2]))
+            delta = (do.float() * o.float()).sum(-1)
+            flash_bwd.launch(flash_bwd.DKV, q, k, v, do, lse, delta, *one, d ** -0.5, causal,
+                             window or 0, splits=1)
+            e_split = max(rel_err(got[1], one[0]), rel_err(got[2], one[1]))
+            split_note = f" (against one pass: {e_split:.2e})"
+            check(e_split <= SPLIT_REL_TOL,
+                  f"{name}: B13a in {splits} parts within {SPLIT_REL_TOL} of one pass")
+            del one, delta
         print(f"  B13 {name} (Hq {hq} Hkv {hkv} D {d} {dt}, window {window}): lse max|diff| "
               f"{e_lse:.2e}; dq / dk / dv max|diff| / max|plain| "
               + " / ".join(f"{r:.2e}" for r in rel)
-              + f"; B13a splits {flash_bwd.dkv_splits(b, hkv, hq // hkv, sq, skv)}; repeated bit "
-              "for bit")
+              + f"; B13a splits {splits}{split_note}; repeated bit for bit")
         check(all(bool(torch.isfinite(g).all()) for g in got), f"{name}: gradients finite")
         check(max(rel) <= GRAD_REL_TOL, f"{name}: gradients within {GRAD_REL_TOL} (relative)")
         if sq > skv and causal:
             check(bool((got[0][:, :, : sq - skv] == 0).all()), f"{name}: dq rows with no key 0")
-        del q, k, v, do, o, lse, got, want
+        del q, k, v, do, o, lse, got
         torch.cuda.empty_cache()
 
     # autograd through the op against autograd through the fp32 reference.
@@ -3267,23 +3308,26 @@ def next_token_loss(torch, params, cfg, ids, plain=False):
     return torch.nn.functional.cross_entropy(logits[:, :-1].flatten(0, 1), ids[:, 1:].flatten())
 
 
-def phase_training(torch, cfg, kernels, path_counts):
-    """Three AdamW steps of Llama-3-8B at full width, depth cut (printed),
-    on one batch of numpy-seeded ids; every parameter trained."""
+def phase_training(torch, cfg, kernels, path_counts, batch=TRAIN_B, seq=TRAIN_S,
+                   path="training", seed=3):
+    """Three AdamW steps of a model at full width, depth cut (printed), on
+    one batch of numpy-seeded ids; every parameter trained. Launches per
+    step: P on each layer whose window cannot bind, B2 on the others
+    (`prefill_counts`), B13a and B13b on every layer, counted under `path`."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from flash_attention_cute_tpu_torch.models.transformer import init_params
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = init_params(cfg, generator=torch.Generator(device="cuda").manual_seed(3))
-    leaves = [params["embed"], params["final_ln"], params["lm_head"],
-              *params["layers"].values()]
-    names = ["embed", "final_ln", "lm_head", *params["layers"]]
+    params = init_params(cfg, generator=torch.Generator(device="cuda").manual_seed(seed))
+    top = [n for n in params if n != "layers"]  # embed, final_ln and lm_head unless tied
+    names = top + list(params["layers"])
+    leaves = [params[n] for n in top] + list(params["layers"].values())
     for w in leaves:
         w.requires_grad_()
     ids = torch.from_numpy(np.random.default_rng(11).integers(
-        0, cfg.vocab_size, (TRAIN_B, TRAIN_S))).to("cuda")
+        0, cfg.vocab_size, (batch, seq))).to("cuda")
     torch.cuda.synchronize()
     print(f"  tree drawn in {time.perf_counter() - t0:.1f} s ({tree_bytes(params) / 1e9:.2f} GB)")
 
@@ -3317,13 +3361,14 @@ def phase_training(torch, cfg, kernels, path_counts):
         step_s.append(t_bwd + time.perf_counter() - t0)
         losses.append(loss.item())
     counts = {name: k.launches for name, k in kernels.items()}
-    path_counts["training"] = counts
+    path_counts[path] = counts
     n = cfg.num_layers * TRAIN_STEPS
     print(f"  losses {[round(x, 4) for x in losses]} (lr {TRAIN_LR}); step s "
           f"{[round(x, 3) for x in step_s]}; launches { {k: c for k, c in counts.items() if c} }")
     print("  first-step gradients, kernel route vs plain route, |diff| / |plain| per leaf: "
           + ", ".join(f"{k} {v:.2e}" for k, v in grad_rel.items()))
-    check_counts(counts, {"flash_fwd": n, "flash_bwd_dkv": n, "flash_bwd_dq": n}, "training")
+    fwd = {k: c * TRAIN_STEPS for k, c in prefill_counts(cfg, seq).items() if c}
+    check_counts(counts, {**fwd, "flash_bwd_dkv": n, "flash_bwd_dq": n}, path)
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
           f"training loss falls from step 1 to step {TRAIN_STEPS}: {losses}")
     check(max(grad_rel.values()) <= TRAIN_GRAD_TOL,
@@ -3346,13 +3391,14 @@ def phase_training(torch, cfg, kernels, path_counts):
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
               and not getattr(e, "is_user_annotation", False)]
-    split = {"B13a dK/dV": 0.0, "B13b dQ": 0.0, "P (forward with lse)": 0.0,
-             "cuBLAS products": 0.0, "other": 0.0}
+    fwd_part = "P / B2 (forward with lse)" if "flash_fwd_window" in fwd else "P (forward with lse)"
+    split = {"B13a dK/dV": 0.0, "B13b dQ": 0.0, fwd_part: 0.0, "cuBLAS products": 0.0,
+             "other": 0.0}
     other = []
     for e in events:
         key = e.key
         part = ("B13a dK/dV" if "flash_bwd_dkv" in key else "B13b dQ" if "flash_bwd_dq" in key
-                else "P (forward with lse)" if "flash_fwd_kernel" in key
+                else fwd_part if "flash_fwd_kernel" in key
                 else "cuBLAS products" if any(s in key.lower() for s in (
                     "nvjet", "gemm", "cutlass", "xmma", "cublas")) else "other")
         split[part] += dev_us(e) / 1e3
@@ -3364,17 +3410,59 @@ def phase_training(torch, cfg, kernels, path_counts):
           if events else "  profiler recorded no device time")
     mean_s = sum(step_s[1:]) / len(step_s[1:])
     out = {
-        "layers": cfg.num_layers, "batch": TRAIN_B, "seq": TRAIN_S, "lr": TRAIN_LR,
+        "layers": cfg.num_layers, "batch": batch, "seq": seq, "lr": TRAIN_LR,
         "losses": losses, "step_s": step_s, "step_ms_steady": 1e3 * mean_s,
-        "tokens_per_s_steady": TRAIN_B * TRAIN_S / mean_s,
+        "tokens_per_s_steady": batch * seq / mean_s,
         "first_step_grad_rel_norm_err_max": max(grad_rel.values()),
         "first_step_grad_rel_norm_err": grad_rel, "peak_memory_gb": peak,
         "profiled_step_device_ms": split if events else "not measured",
         "profiled_step_largest_other_ms": top_other,
     }
+    print(f"  step ms (steps 2-{TRAIN_STEPS}) {out['step_ms_steady']:.1f}, tokens/s "
+          f"{out['tokens_per_s_steady']:.0f}, peak {peak:.2f} GB")
     del params, leaves, opt, loss
     torch.cuda.empty_cache()
     return out
+
+
+# Phase 4l: Gemma-2-9B's widths with the attention cap off, trained over
+# Gemma's prompt length (past its window of 4096).
+GEMMA2_TRAIN_LAYERS, GEMMA2_TRAIN_B, GEMMA2_TRAIN_S = 8, 1, 4608
+GEMMA2_TRAIN_PATH = "training Gemma 2"
+CARD_GB, CARD_USE = 80, 0.9  # H100 memory, and the share a reckoning may fill
+
+
+def gemma2_training_config(layers=0):
+    """(config, why): Gemma-2-9B with `logit_softcap=None`, its depth cut to
+    GEMMA2_TRAIN_LAYERS, or to 6 where the reckoning of the plain route's
+    first step does not fit CARD_USE of the card, or to `layers` (the
+    smoke's --layers) if fewer. The reckoning: weights, gradients and two
+    AdamW states in bf16 (8 bytes a parameter); the plain route's saved fp32
+    scores (the softmax output and the masked probabilities, 8 B Hq S^2
+    bytes a layer); about five fp32 [B, S, vocab] tensors of the logits,
+    their final cap and the loss."""
+    import dataclasses
+    from flash_attention_cute_tpu_torch.models.gemma2 import gemma2_9b_config
+
+    full = dataclasses.replace(gemma2_9b_config(), logit_softcap=None)
+    e, f, d = full.hidden_size, full.intermediate_size, full.head_dim
+    per_layer = e * d * (2 * full.num_q_heads + 2 * full.num_kv_heads) + 3 * e * f + 4 * e
+
+    def reckon(n):
+        states = 8 * (n * per_layer + full.vocab_size * e + e) / 1e9
+        scores = 8 * GEMMA2_TRAIN_B * full.num_q_heads * GEMMA2_TRAIN_S ** 2 * n / 1e9
+        logits = 20 * GEMMA2_TRAIN_B * GEMMA2_TRAIN_S * full.vocab_size / 1e9
+        return states, scores, logits
+
+    n = GEMMA2_TRAIN_LAYERS if sum(reckon(GEMMA2_TRAIN_LAYERS)) <= CARD_USE * CARD_GB else 6
+    states, scores, logits = reckon(n)
+    why = (f"AdamW over {full.num_layers} bf16 layers needs {reckon(full.num_layers)[0]:.1f} GB "
+           f"for weights, gradients and two states alone; at {n} layers those take "
+           f"{states:.1f} GB, the plain route's saved fp32 scores {scores:.1f} GB and the "
+           f"logits and loss about {logits:.1f} GB: {states + scores + logits:.1f} of {CARD_GB} GB")
+    if layers and layers < n:
+        n, why = layers, f"--layers {layers}"
+    return dataclasses.replace(full, num_layers=n), why
 
 
 def phase_varlen_path(torch, kernels, path_counts):
@@ -3408,48 +3496,26 @@ def training_rows(torch, ops, gen, path_counts):
     [32, 32, 2048, 128]: it computes the padding too."""
     from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms
 
-    flash_fwd, flash_bwd, flash_varlen = ops["flash_fwd"], ops["flash_bwd"], ops["flash_varlen"]
+    flash_fwd, flash_varlen = ops["flash_fwd"], ops["flash_varlen"]
     f = torch.nn.functional
     b, hq, hkv, s, d = TRAIN_B, 32, 8, TRAIN_S, 128
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
-    q, do = randn(b, hq, s, d), randn(b, hq, s, d)
-    k, v = randn(b, hkv, s, d), randn(b, hkv, s, d)
-    o, lse = flash_fwd.flash_attention_fwd(q, k, v, causal=True, return_lse=True)
-    delta = (do.float() * o.float()).sum(-1)
-    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    pairs = b * hq * s * (s + 1) // 2
-    io = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * 2 * lse.numel()  # q, dO, k, v; lse, delta
-    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
-
-    def sdpa():
-        return f.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
-
-    lib_ms = (cuda_time_ms(lambda: torch.autograd.grad(sdpa(), (qs, ks, vs), do), 10)
-              - cuda_time_ms(sdpa, 10))
-    plain_ms = cuda_time_ms(lambda: flash_bwd.flash_attention_bwd_plain(q, k, v, o, do, lse,
-                                                                        causal=True), 3)
     rows = []
-    for name, kernel, outs, ops_per_pair, out_bytes, line in (
-            ("flash_bwd_dkv", flash_bwd.DKV, (dk, dv), 8, 2 * 2 * k.numel(), 84),
-            ("flash_bwd_dq", flash_bwd.DQ, (dq, None), 6, 2 * q.numel(), 173)):
-        def fn(kernel=kernel, outs=outs):
-            flash_bwd.launch(kernel, q, k, v, do, lse, delta, *outs, d ** -0.5, True, 0)
+    for name, entry in bwd_timings(torch, ops, randn, b, hq, hkv, s, d).items():
+        library = entry.pop("library")
         rows.append({
             "name": name, "route": "cuda", "source": "flash_attention_cute_tpu_torch/csrc/flash_bwd.cu",
-            "replaces": f"flash_attention_cute_tpu/ops/flash_bwd.py:{line}",
+            "replaces": "flash_attention_cute_tpu/ops/flash_bwd.py:"
+                        + ("84" if name == "flash_bwd_dkv" else "173"),
             "shape": f"B {b}, S {s}, causal, Hq {hq}, Hkv {hkv}, D {d}; plain_ms: the whole plain "
-                     "backward; library_ms: SDPA backward (is_causal, enable_gqa), fwd + bwd - fwd, "
-                     "all three gradients",
-            "ms": cuda_time_ms(fn, 10), "call_ms": call_time_ms(fn, 10), "plain_ms": plain_ms,
-            "library_ms": lib_ms, "ops": ops_per_pair * d * pairs, "bytes": io + out_bytes,
-            "peak": PEAK_BF16})
+                     f"backward; library_ms: {library}, all three gradients", **entry})
     # The lse's cost: P at the training shape, B2 at its row's (Mistral-7B
     # greedy prefill, W 4096).
     lse_cost = {}
-    del do, o, lse, delta, dq, dk, dv, qs, ks, vs
+    q, k, v = randn(b, hq, s, d), randn(b, hkv, s, d), randn(b, hkv, s, d)
     for name, bb, ss, w in (("flash_fwd", b, s, None),
                             ("flash_fwd_window", MISTRAL_B, MISTRAL_PROMPT, WINDOW)):
         if ss != s:
@@ -3505,9 +3571,71 @@ def training_rows(torch, ops, gen, path_counts):
         "peak": PEAK_BF16})
     del q, k, v, qp, kp, vp
     torch.cuda.empty_cache()
-    for r in rows:
-        r.update(bound(r.pop("ops"), r.pop("bytes"), r.pop("peak")))
+    rows[-1].update(bound(rows[-1].pop("ops"), rows[-1].pop("bytes"), rows[-1].pop("peak")))
     return rows, lse_cost
+
+
+def bwd_timings(torch, ops, randn, b, hq, hkv, s, d):
+    """B13a and B13b, each launched alone over the kernel forward's o and
+    lse at (B, Hq, Hkv, S, D), causal: {name: ms, call_ms, plain_ms (the
+    whole plain backward: it computes dq, dk and dv at once), library_ms
+    (SDPA's backward, is_causal and enable_gqa, timed as forward + backward
+    minus forward, all three gradients; None where SDPA raises), "library"
+    (what library_ms is, or why it is null) and the bound (B13a 8 D and
+    B13b 6 D operations per visible pair and q head at the bf16 peak, or
+    the bytes of the inputs and outputs once, whichever is longer)}."""
+    from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms
+
+    flash_fwd, flash_bwd = ops["flash_fwd"], ops["flash_bwd"]
+    f = torch.nn.functional
+    q, do = randn(b, hq, s, d), randn(b, hq, s, d)
+    k, v = randn(b, hkv, s, d), randn(b, hkv, s, d)
+    o, lse = flash_fwd.flash_attention_fwd(q, k, v, causal=True, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    pairs = b * hq * s * (s + 1) // 2
+    io = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * 2 * lse.numel()  # q, dO, k, v; lse, delta
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def sdpa():
+        return f.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+
+    try:
+        lib_ms = (cuda_time_ms(lambda: torch.autograd.grad(sdpa(), (qs, ks, vs), do), 10)
+                  - cuda_time_ms(sdpa, 10))
+        library = "SDPA backward (is_causal, enable_gqa), fwd + bwd - fwd"
+    except RuntimeError as err:  # no SDPA backend of the card takes the shape
+        lib_ms, library = None, f"null: SDPA's backward raised ({str(err)[:160]})"
+    plain_ms = cuda_time_ms(lambda: flash_bwd.flash_attention_bwd_plain(q, k, v, o, do, lse,
+                                                                        causal=True), 3)
+    out = {}
+    for name, kernel, outs, ops_per_pair, out_bytes in (
+            ("flash_bwd_dkv", flash_bwd.DKV, (dk, dv), 8, 2 * 2 * k.numel()),
+            ("flash_bwd_dq", flash_bwd.DQ, (dq, None), 6, 2 * q.numel())):
+        def fn(kernel=kernel, outs=outs):
+            flash_bwd.launch(kernel, q, k, v, do, lse, delta, *outs, d ** -0.5, True, 0)
+        out[name] = {"ms": cuda_time_ms(fn, 10), "call_ms": call_time_ms(fn, 10),
+                     "plain_ms": plain_ms, "library_ms": lib_ms, "library": library,
+                     **bound(ops_per_pair * d * pairs, io + out_bytes, PEAK_BF16)}
+    del q, k, v, do, o, lse, delta, dq, dk, dv, qs, ks, vs
+    torch.cuda.empty_cache()
+    return out
+
+
+def gemma2_training_rows(torch, ops, gen):
+    """The "gemma2" entries of the B13a / B13b rows (`bwd_timings`) at phase
+    4l's global layer: B 1, S 4608, 16 / 8 heads, D 256, causal."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    out = bwd_timings(torch, ops, randn, GEMMA2_TRAIN_B, 16, 8, GEMMA2_TRAIN_S, 256)
+    for entry in out.values():
+        library = entry.pop("library")
+        entry["shape"] = (f"B {GEMMA2_TRAIN_B}, S {GEMMA2_TRAIN_S}, causal, Hq 16, Hkv 8, D 256 "
+                          f"(phase 4l's global layer); plain_ms: the whole plain backward; "
+                          f"library_ms: {library} at D 256")
+    print(f"  gemma2 entries of B13a / B13b: {library} at D 256")
+    return out
 
 
 # Phases 3h / 4j / 5d: Gemma-2-9B (head dim 256, a window of 4096 on the
@@ -4375,7 +4503,9 @@ def main() -> int:
     ops.update(flash_bwd=flash_bwd, flash_varlen=flash_varlen, autodiff=autodiff)
     rel_errs: dict = {}
     print("[3f] training kernels: the lse of P / B2, B13a (dK, dV) and B13b (dQ) vs plain")
+    t0 = time.perf_counter()
     phase_training_kernels(torch, ops, errs, rel_errs)
+    print(f"  phase 3f: {time.perf_counter() - t0:.1f} s")
     print("[3g] packed ragged batch: B12 vs plain (per-sequence dense attention)")
     phase_varlen_kernels(torch, flash_varlen, errs)
     print("[3h] Gemma2: soft caps 50 and 1.0 at D 256 (Hq 16, Hkv 8) in P / B2, D1 + D2, B5, "
@@ -4478,6 +4608,18 @@ def main() -> int:
     training = phase_training(torch, tcfg, kernels, path_counts)
     print("[4i] varlen: the cu_seqlens entry point over the packed batch of 3g")
     phase_varlen_path(torch, kernels, path_counts)
+    gcfg, why = gemma2_training_config(args.layers)
+    print(f"[4l] training: Gemma-2-9B widths with the attention cap off (hidden "
+          f"{gcfg.hidden_size}, {gcfg.num_q_heads} / {gcfg.num_kv_heads} heads, D "
+          f"{gcfg.head_dim}, window {gcfg.layer_window_pattern}, final cap "
+          f"{gcfg.final_logit_softcap}), depth cut {gemma2_9b_config().num_layers} -> "
+          f"{gcfg.num_layers} layers: {why}; B {GEMMA2_TRAIN_B} x S {GEMMA2_TRAIN_S}, "
+          f"{TRAIN_STEPS} AdamW steps")
+    t0 = time.perf_counter()
+    training_gemma2 = phase_training(torch, gcfg, kernels, path_counts, GEMMA2_TRAIN_B,
+                                     GEMMA2_TRAIN_S, GEMMA2_TRAIN_PATH, seed=4)
+    training_gemma2["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 4l: {training_gemma2['phase_s']:.1f} s")
 
     for name in kernels:
         check(sum(c[name] for c in path_counts.values()) > 0,
@@ -4494,15 +4636,23 @@ def main() -> int:
     for r in rows:
         if r["name"] in windowed:
             r["window"] = windowed[r["name"]]
-    print("[5c] numbers of the training kernels (B 2, S 2048) and of B12 (the packed batch)")
+    print("[5c] numbers of the training kernels (B 2, S 2048; B13a / B13b also at Gemma-2-9B's "
+          "D 256, B 1, S 4608) and of B12 (the packed batch)")
     trows, lse_cost = training_rows(torch, ops, torch.Generator(device="cuda").manual_seed(78),
                                     path_counts)
+    gemma_bwd = gemma2_training_rows(torch, ops, torch.Generator(device="cuda").manual_seed(81))
     for r in trows:
         if r["name"] in rel_errs:
             r["max_rel_err"] = rel_errs[r["name"]]
         if r["name"] in ("flash_bwd_dkv", "flash_bwd_dq"):
-            label = "B13a D128 bf16" if r["name"] == "flash_bwd_dkv" else "B13b D128 bf16"
-            r["runtime_attributes"] = runtime_attributes(bwd_report, label)
+            label = "B13a" if r["name"] == "flash_bwd_dkv" else "B13b"
+            r["runtime_attributes"] = runtime_attributes(bwd_report, f"{label} D128 bf16")
+            r["gemma2"] = {**gemma_bwd[r["name"]],
+                           "launches": path_counts[GEMMA2_TRAIN_PATH][r["name"]],
+                           "max_abs_err": errs[f"{r['name']} d256"],
+                           "max_rel_err": rel_errs[f"{r['name']} d256"],
+                           "runtime_attributes": runtime_attributes(bwd_report,
+                                                                    f"{label} D256 bf16")}
     rows += trows
     paged_reports = {"decode_partials": (d1_report, "D1 bf16 D128", "D1 bf16 D256 cap"),
                      "quant_decode": (b7_report, "B7 bf16 int8 D128", "B7 bf16 int8 D256 cap"),
@@ -4549,13 +4699,15 @@ def main() -> int:
     numbers["max_memory_allocated_gb"] = max(
         [numbers["max_memory_allocated_gb"], serving.pop("peak_before_serving_gb")]
         + [r["peak_memory_gb"] for r in serving.values()]
-        + [f["peak_memory_gb"] for f in families.values()] + [training["peak_memory_gb"]])
+        + [f["peak_memory_gb"] for f in families.values()] + [training["peak_memory_gb"]]
+        + [training_gemma2["peak_memory_gb"]])
     print(json.dumps(profile))
     print(json.dumps(numbers))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"speculative": speculative}))
     print(json.dumps({"families": families}))
     print(json.dumps({"training": training}))
+    print(json.dumps({"training_gemma2": training_gemma2}))
     print(json.dumps({"hf": hf_numbers}))
     print(json.dumps({"kernels": kernel_entries(rows, errs, path_counts)}))
     print(nvidia_smi())

@@ -74,7 +74,9 @@
 //     of dK and dV; a second pass in the same C call adds them in split
 //     order, scales dK and rounds.
 // The group is summed inside a B13a block (and across its splits) in a
-// fixed order: no atomics, and two calls give the same bits.
+// fixed order: no atomics, and two calls give the same bits. That is the
+// layout of D 64 / 128; D 256 has one of its own (flash_bwd_dkv_kernel_d256,
+// flash_bwd_dq_kernel_d256, below), under the same rules.
 #include "hopper.cuh"
 
 namespace fact {
@@ -506,6 +508,422 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// Head dim 256 (Gemma 2, Gemma-7B): B13a and B13b redesigned to fit the
+// H100. The layout above needs about 385 KB of shared memory for B13a at D
+// 256 (K and V of 128 keys, four 64 KB (Q, dO) stages), and its dK, dV of
+// 64 keys x 256 would take 256 fp32 registers a consumer thread. Here:
+//
+//   * Blocks of 64 keys (B13a) or 64 q rows (B13b), two stages, so that
+//     the fixed tiles, the ring and the exchange below fit 227 KB (B13a
+//     226 KB, B13b 210 KB). The tiles are 64 rows of 256 columns: four
+//     boxes of 64 columns, rows past S read as zeros.
+//   * Both consumers work on every tile. Consumer c owns the 128-column
+//     half c of the block's accumulators (dK, dV or dQ: 64 fp32 registers
+//     each), and computes half of S and dP (depth 256): B13a the rows
+//     32 c ... of S^T = K Q^T and dP^T = V dO^T, B13b the keys 32 c ... of
+//     S = Q K^T and dP = dO V^T, as m64n32 wgmma.
+//   * The products into the accumulators need all 64 rows (keys) of the
+//     tile as their depth, so each consumer writes its half of P^T and dS^T
+//     (B13b: dS) into shared memory in the register A fragments' layout
+//     (16 bytes a thread and k-step, so no swizzle and no bank conflict),
+//     the two meet at a named barrier, and each reads all four k-steps
+//     back as the A operand of dV += P^T dO, dK += dS^T Q (B13b: dQ += dS K)
+//     over its column half. The exchange is double buffered by tile
+//     parity: a consumer writes tile i + 1's fragments while the other may
+//     still read tile i's, and cannot reach tile i + 2 before the other
+//     has passed tile i + 1's barrier.
+//   * The walks are exact: every tile of B13a's q range and of B13b's key
+//     range holds a visible pair (the ranges stop at Sq, and a 64-key
+//     block's rows from the causal edge to the window's far edge all see a
+//     key of it), so no product sits in a data-dependent branch.
+// The splits of B13a, the combine pass and the fixed summation order are
+// those of D 64 / 128.
+
+constexpr int kStages256 = 2;
+constexpr int kXchgPart = 2 * 128 * 16;  // a consumer's two k-steps of A fragments
+
+template <bool kDkv>
+struct Smem256 {
+  static constexpr int kFixed = 2 * 4 * kBox;  // B13a: K, V of 64 keys; B13b: Q, dO of 64 rows
+  static constexpr int kStage = 2 * 4 * kBox;  // B13a: (Q, dO); B13b: (K, V) of 64
+  static constexpr int kRows = 2 * kTile * 4;  // lse, delta of 64 rows
+  static constexpr int kRowsAll = kDkv ? kStages256 * kRows : kRows;
+  static constexpr int kKinds = kDkv ? 2 : 1;          // P^T and dS^T, or dS
+  static constexpr int kXchgBuf = kKinds * 2 * kXchgPart;
+  static constexpr int kRowsOff = kFixed + kStages256 * kStage;
+  static constexpr int kXchgOff = kRowsOff + kRowsAll;
+  static constexpr int kBars = kXchgOff + 2 * kXchgBuf;
+  static constexpr int kBytes = 1024 + kBars + (1 + 2 * kStages256) * 8;
+};
+static_assert(Smem256<true>::kBytes <= 232448 && Smem256<false>::kBytes <= 232448,
+              "D-256 backward tiles exceed the H100's 227 KB a block");
+
+// The two consumer warpgroups meet (named barrier 1; the producer takes no
+// part).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// A consumer's half of a 64 x 64 operand (k-steps 2 wg, 2 wg + 1) into the
+// exchange buffer `xb` of its kind, and all four k-steps back.
+__device__ __forceinline__ void xchg_put(unsigned char* xb, int wg, int tid,
+                                         const uint32_t (&a)[2][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+    *reinterpret_cast<uint4*>(xb + (wg * 2 + kk) * 128 * 16 + tid * 16) =
+        make_uint4(a[kk][0], a[kk][1], a[kk][2], a[kk][3]);
+}
+__device__ __forceinline__ void xchg_get(const unsigned char* xb, int tid, uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint4 v = *reinterpret_cast<const uint4*>(xb + kk * 128 * 16 + tid * 16);
+    a[kk][0] = v.x, a[kk][1] = v.y, a[kk][2] = v.z, a[kk][3] = v.w;
+  }
+}
+
+// B13a at D 256: dK, dV of 64 keys of one kv head, summed over its group.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_kernel_d256(const __grid_constant__ CUtensorMap qmap,
+                              const __grid_constant__ CUtensorMap omap,
+                              const __grid_constant__ CUtensorMap kmap,
+                              const __grid_constant__ CUtensorMap vmap, const BwdParams p) {
+  using S = Smem256<true>;
+  constexpr int D = 256;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gbase = smem + (base - raw);
+  const uint32_t sK = base, sV = base + 4 * kBox, sQ0 = base + S::kFixed;
+  const uint32_t bars = base + S::kBars;
+  const uint32_t kv_full = bars;
+  auto sQ = [&](int s) { return sQ0 + s * S::kStage; };
+  auto sO = [&](int s) { return sQ0 + s * S::kStage + 4 * kBox; };
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + kStages256 + s); };
+
+  const int heads = p.hkv * p.batch, per = heads * p.splits;
+  const int n0 = (blockIdx.x / per) * kTile;  // the keys with the most causal rows first
+  const int split = blockIdx.x % per / heads, hb = blockIdx.x % heads;
+  const int hk = hb % p.hkv, b = hb / p.hkv;
+  const int offset = p.skv - p.sq;
+
+  // The q rows that see a key of the block, as in flash_bwd_dkv_kernel.
+  int m_begin = p.causal ? max(0, n0 - offset) : 0;
+  int m_end = p.sq;
+  if (p.window > 0) m_end = min(m_end, min(n0 + kTile, p.skv) - 1 - offset + p.window);
+  m_begin = m_begin / kTile * kTile;
+  const int nm = m_end > m_begin ? (m_end - m_begin + kTile - 1) / kTile : 0;
+  const int it0 = nm * p.group * split / p.splits, it1 = nm * p.group * (split + 1) / p.splits;
+  const int total = it1 - it0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages256; ++s) mbar_init(full(s), 1), mbar_init(empty(s), 8);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0 && total > 0) {
+      mbar_expect_tx(kv_full, S::kFixed);
+      for (int h = 0; h < 4; ++h) {
+        tma_load_4d(sK + h * kBox, &kmap, 64 * h, n0, hk, b, kv_full);
+        tma_load_4d(sV + h * kBox, &vmap, 64 * h, n0, hk, b, kv_full);
+      }
+      for (int it = 0; it < total; ++it) {
+        const int s = it % kStages256, h = hk * p.group + (it0 + it) / nm;
+        const int m0 = m_begin + (it0 + it) % nm * kTile;
+        mbar_wait(empty(s), ((it / kStages256) & 1) ^ 1);
+        mbar_expect_tx(full(s), S::kStage + S::kRows);
+        for (int hh = 0; hh < 4; ++hh) {
+          tma_load_4d(sQ(s) + hh * kBox, &qmap, 64 * hh, m0, h, b, full(s));
+          tma_load_4d(sO(s) + hh * kBox, &omap, 64 * hh, m0, h, b, full(s));
+        }
+        const int64_t row = (static_cast<int64_t>(b) * p.hq + h) * p.sq_pad + m0;
+        const uint32_t rows = base + S::kRowsOff + s * S::kRows;
+        bulk_load(rows, p.lse + row, kTile * 4, full(s));
+        bulk_load(rows + kTile * 4, p.delta + row, kTile * 4, full(s));
+      }
+    }
+  } else {
+    setmaxnreg_inc<240>();
+    const int ct = threadIdx.x - 128, wg = ct >> 7, wi = (ct >> 5) & 3, lane = ct & 31;
+    const int g = lane >> 2, t = lane & 3, tid = ct & 127;
+
+    float dk[D / 4], dv[D / 4];  // keys n0 + 16 wi + g (+ 8), columns 128 wg ...
+#pragma unroll
+    for (int i = 0; i < D / 4; ++i) dk[i] = dv[i] = 0.f;
+    if (total > 0) mbar_wait(kv_full, 0);
+
+    for (int it = 0; it < total; ++it) {
+      const int st = it % kStages256;
+      const int m0 = m_begin + (it0 + it) % nm * kTile;
+      unsigned char* xp = gbase + S::kXchgOff + (it & 1) * S::kXchgBuf;  // P^T
+      unsigned char* xs = xp + 2 * kXchgPart;                            // dS^T
+      mbar_wait(full(st), (it / kStages256) & 1);
+      const bool edge = !tile_full(p, m0, n0, offset);
+      // S^T = K Q^T and dP^T = V dO^T over this consumer's 32 rows: 64 keys
+      // x 32 rows, two groups, so that P^T is computed while dP^T runs.
+      const uint32_t qh = sQ(st) + wg * 32 * 128, oh = sO(st) + wg * 32 * 128;
+      float s[16], dp[16];
+      wgmma_fence();
+      wgmma_ss<T, 32, false>(s, kmajor(sK, 0, kBox), kmajor(qh, 0, kBox));
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk)
+        wgmma_ss<T, 32, true>(s, kmajor(sK, kk, kBox), kmajor(qh, kk, kBox));
+      wgmma_commit();
+      wgmma_ss<T, 32, false>(dp, kmajor(sV, 0, kBox), kmajor(oh, 0, kBox));
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk)
+        wgmma_ss<T, 32, true>(dp, kmajor(sV, kk, kBox), kmajor(oh, kk, kBox));
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(s);
+
+      // P^T = exp2(S^T * scale_log2 - lse) on visible pairs. Element 4 j + e:
+      // key n0 + 16 wi + g + 8 (e >> 1), row m0 + 32 wg + 8 j + 2 t + (e & 1).
+      const float* rows =
+          reinterpret_cast<const float*>(gbase + S::kRowsOff + st * S::kRows) + 32 * wg;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(rows + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          float pr = exp2f(s[i] * p.scale_log2 - ((e & 1) ? l.y : l.x));
+          if (edge && !visible(p, m0 + 32 * wg + 8 * j + 2 * t + (e & 1),
+                               n0 + 16 * wi + g + 8 * (e >> 1), offset))
+            pr = 0.f;
+          s[i] = pr;
+        }
+      }
+      uint32_t half[2][4];
+      to_a<T>(s, half);
+      xchg_put(xp, wg, tid, half);
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 dl = *reinterpret_cast<const float2*>(rows + kTile + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? dl.y : dl.x));
+      }
+      to_a<T>(dp, half);
+      xchg_put(xs, wg, tid, half);
+      consumers_sync();
+
+      // dV += P^T dO and dK += dS^T Q over the tile's 64 rows and this
+      // consumer's 128 columns, dO and Q MN-major from the stage.
+      uint32_t pa[4][4], sa[4][4];
+      xchg_get(xp, tid, pa);
+      xchg_get(xs, tid, sa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<T, 128, true>(dv, pa[kk], mnmajor(sO(st) + wg * 2 * kBox, kk, kBox), 1);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<T, 128, true>(dk, sa[kk], mnmajor(sQ(st) + wg * 2 * kBox, kk, kBox), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]), fence_regs(sa[kk]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(st));
+    }
+
+    const int64_t out = (static_cast<int64_t>(b) * p.hkv + hk) * p.skv * D + 128 * wg;
+    const int64_t part = static_cast<int64_t>(p.batch) * p.hkv * p.skv * D;
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = n0 + 16 * wi + g + 8 * r;
+        if (key < p.skv) {
+          const int64_t at = out + static_cast<int64_t>(key) * D + 8 * j + 2 * t;
+          const int e = 4 * j + 2 * r;
+          if (p.splits > 1) {  // fp32 partials, added by flash_bwd_dkv_combine
+            *reinterpret_cast<float2*>(p.ws + split * part + at) = make_float2(dk[e], dk[e + 1]);
+            *reinterpret_cast<float2*>(p.ws + (p.splits + split) * part + at) =
+                make_float2(dv[e], dv[e + 1]);
+          } else {
+            *reinterpret_cast<uint32_t*>(static_cast<T*>(p.out0) + at) =
+                Elem<T>::pack(dk[e] * p.scale, dk[e + 1] * p.scale);
+            *reinterpret_cast<uint32_t*>(static_cast<T*>(p.out1) + at) =
+                Elem<T>::pack(dv[e], dv[e + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// B13b at D 256: dQ of 64 rows of one q head.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_kernel_d256(const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap omap,
+                             const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap, const BwdParams p) {
+  using S = Smem256<false>;
+  constexpr int D = 256;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gbase = smem + (base - raw);
+  const uint32_t sQ = base, sO = base + 4 * kBox, sK0 = base + S::kFixed;
+  const uint32_t bars = base + S::kBars;
+  const uint32_t q_full = bars;
+  auto sK = [&](int s) { return sK0 + s * S::kStage; };
+  auto sV = [&](int s) { return sK0 + s * S::kStage + 4 * kBox; };
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + kStages256 + s); };
+
+  const int per = p.hq * p.batch;
+  const int nqb = (p.sq + kTile - 1) / kTile;
+  const int m0 = (nqb - 1 - static_cast<int>(blockIdx.x) / per) * kTile;  // most keys first
+  const int h = blockIdx.x % per % p.hq, b = blockIdx.x % per / p.hq, hk = h / p.group;
+  const int offset = p.skv - p.sq;
+
+  // Keys from the window's near edge (row m0's first visible key) to the
+  // causal edge of the block's last row within Sq.
+  int n_end = p.skv;
+  if (p.causal) n_end = min(n_end, min(m0 + kTile, p.sq) + offset);
+  const int n_begin = (p.window > 0 ? max(0, m0 + offset - p.window + 1) : 0) / kTile * kTile;
+  const int total = n_end > n_begin ? (n_end - n_begin + kTile - 1) / kTile : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages256; ++s) mbar_init(full(s), 1), mbar_init(empty(s), 8);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0 && total > 0) {
+      mbar_expect_tx(q_full, S::kFixed + S::kRows);
+      for (int hh = 0; hh < 4; ++hh) {
+        tma_load_4d(sQ + hh * kBox, &qmap, 64 * hh, m0, h, b, q_full);
+        tma_load_4d(sO + hh * kBox, &omap, 64 * hh, m0, h, b, q_full);
+      }
+      const int64_t row = (static_cast<int64_t>(b) * p.hq + h) * p.sq_pad + m0;
+      bulk_load(base + S::kRowsOff, p.lse + row, kTile * 4, q_full);
+      bulk_load(base + S::kRowsOff + kTile * 4, p.delta + row, kTile * 4, q_full);
+      for (int it = 0; it < total; ++it) {
+        const int s = it % kStages256, n0 = n_begin + it * kTile;
+        mbar_wait(empty(s), ((it / kStages256) & 1) ^ 1);
+        mbar_expect_tx(full(s), S::kStage);
+        for (int hh = 0; hh < 4; ++hh) {
+          tma_load_4d(sK(s) + hh * kBox, &kmap, 64 * hh, n0, hk, b, full(s));
+          tma_load_4d(sV(s) + hh * kBox, &vmap, 64 * hh, n0, hk, b, full(s));
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<240>();
+    const int ct = threadIdx.x - 128, wg = ct >> 7, wi = (ct >> 5) & 3, lane = ct & 31;
+    const int g = lane >> 2, t = lane & 3, tid = ct & 127;
+
+    float dq[D / 4];  // rows m0 + 16 wi + g (+ 8), columns 128 wg ...
+#pragma unroll
+    for (int i = 0; i < D / 4; ++i) dq[i] = 0.f;
+    float row_lse[2] = {INFINITY, INFINITY}, row_delta[2] = {0.f, 0.f};
+    if (total > 0) {
+      mbar_wait(q_full, 0);
+      const float* rows = reinterpret_cast<const float*>(gbase + S::kRowsOff);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        row_lse[r] = rows[16 * wi + g + 8 * r];
+        row_delta[r] = rows[kTile + 16 * wi + g + 8 * r];
+      }
+    }
+
+    for (int it = 0; it < total; ++it) {
+      const int st = it % kStages256, n0 = n_begin + it * kTile;
+      unsigned char* xs = gbase + S::kXchgOff + (it & 1) * S::kXchgBuf;
+      mbar_wait(full(st), (it / kStages256) & 1);
+      const bool edge = !tile_full(p, m0, n0, offset);
+      // S = Q K^T and dP = dO V^T over this consumer's 32 keys: 64 rows x
+      // 32 keys, two groups, so that P is computed while dP runs.
+      const uint32_t kh = sK(st) + wg * 32 * 128, vh = sV(st) + wg * 32 * 128;
+      float s[16], dp[16];
+      wgmma_fence();
+      wgmma_ss<T, 32, false>(s, kmajor(sQ, 0, kBox), kmajor(kh, 0, kBox));
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk)
+        wgmma_ss<T, 32, true>(s, kmajor(sQ, kk, kBox), kmajor(kh, kk, kBox));
+      wgmma_commit();
+      wgmma_ss<T, 32, false>(dp, kmajor(sO, 0, kBox), kmajor(vh, 0, kBox));
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk)
+        wgmma_ss<T, 32, true>(dp, kmajor(sO, kk, kBox), kmajor(vh, kk, kBox));
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(s);
+
+      // P = exp2(S * scale_log2 - lse) on visible pairs, then dS = P (dP -
+      // delta). Element 4 j + e: row m0 + 16 wi + g + 8 (e >> 1), key n0 +
+      // 32 wg + 8 j + 2 t + (e & 1).
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e, r = e >> 1;
+          float pr = exp2f(s[i] * p.scale_log2 - row_lse[r]);
+          if (edge && !visible(p, m0 + 16 * wi + g + 8 * r, n0 + 32 * wg + 8 * j + 2 * t + (e & 1),
+                               offset))
+            pr = 0.f;
+          s[i] = pr;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) dp[i] = s[i] * (dp[i] - row_delta[(i >> 1) & 1]);
+      uint32_t half[2][4];
+      to_a<T>(dp, half);
+      xchg_put(xs, wg, tid, half);
+      consumers_sync();
+
+      // dQ += dS K over the tile's 64 keys and this consumer's 128 columns,
+      // K MN-major from the stage.
+      uint32_t sa[4][4];
+      xchg_get(xs, tid, sa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<T, 128, true>(dq, sa[kk], mnmajor(sK(st) + wg * 2 * kBox, kk, kBox), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fence_regs(sa[kk]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(st));
+    }
+
+    T* dqp = static_cast<T*>(p.out0) + (static_cast<int64_t>(b) * p.hq + h) * p.sq * D + 128 * wg;
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = m0 + 16 * wi + g + 8 * r;
+        if (row < p.sq)
+          *reinterpret_cast<uint32_t*>(dqp + static_cast<int64_t>(row) * D + 8 * j + 2 * t) =
+              Elem<T>::pack(dq[4 * j + 2 * r] * p.scale, dq[4 * j + 2 * r + 1] * p.scale);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Host side.
 
 struct BwdViews {
@@ -515,12 +933,25 @@ struct BwdViews {
 };
 
 template <typename T, int D, bool kDkv>
+auto bwd_kernel() {
+  if constexpr (D == 256) return kDkv ? flash_bwd_dkv_kernel_d256<T> : flash_bwd_dq_kernel_d256<T>;
+  else return kDkv ? flash_bwd_dkv_kernel<T, D> : flash_bwd_dq_kernel<T, D>;
+}
+template <int D, bool kDkv>
+constexpr int bwd_smem() {
+  if constexpr (D == 256) return Smem256<kDkv>::kBytes;
+  else return kDkv ? DkvSmem<D>::kBytes : DqSmem<D>::kBytes;
+}
+
+template <typename T, int D, bool kDkv>
 int launch_bwd(const BwdParams& p, const BwdViews& w, cudaStream_t stream) {
-  constexpr int kSmem = kDkv ? DkvSmem<D>::kBytes : DqSmem<D>::kBytes;
-  auto kernel = kDkv ? flash_bwd_dkv_kernel<T, D> : flash_bwd_dq_kernel<T, D>;
+  constexpr int kSmem = bwd_smem<D, kDkv>();
+  const auto kernel = bwd_kernel<T, D, kDkv>();
   static const int configured = allow_smem(kernel, kSmem);  // above 48 KB needs an opt-in
   if (configured != cudaSuccess) return configured;
-  const int q_rows = kDkv ? kTile : kBlock, kv_rows = kDkv ? kBlock : kTile;
+  // Rows of a block: 128 keys (B13a) or q rows (B13b), 64 of both at D 256.
+  constexpr int block = D == 256 ? kTile : kBlock;
+  const int q_rows = kDkv ? kTile : block, kv_rows = kDkv ? block : kTile;
   CUtensorMap qmap, omap, kmap, vmap;
   if (!head_map(&qmap, w.dtype, w.q, p.batch, p.hq, p.sq, D, w.q_sb, w.q_sh, w.q_ss, q_rows) ||
       !head_map(&omap, w.dtype, w.dout, p.batch, p.hq, p.sq, D, w.o_sb, w.o_sh, w.o_ss, q_rows) ||
@@ -528,8 +959,8 @@ int launch_bwd(const BwdParams& p, const BwdViews& w, cudaStream_t stream) {
       !head_map(&vmap, w.dtype, w.v, p.batch, p.hkv, p.skv, D, w.v_sb, w.v_sh, w.v_ss, kv_rows))
     return cudaErrorInvalidValue;
   const long long blocks =
-      kDkv ? static_cast<long long>((p.skv + kBlock - 1) / kBlock) * p.hkv * p.batch * p.splits
-           : static_cast<long long>((p.sq + kBlock - 1) / kBlock) * p.hq * p.batch;
+      kDkv ? static_cast<long long>((p.skv + block - 1) / block) * p.hkv * p.batch * p.splits
+           : static_cast<long long>((p.sq + block - 1) / block) * p.hq * p.batch;
   if (blocks <= 0) return cudaSuccess;
   if (blocks > 0x7FFFFFFF) return cudaErrorInvalidValue;
   kernel<<<static_cast<unsigned>(blocks), kThreads, kSmem, stream>>>(qmap, omap, kmap, vmap, p);
@@ -548,6 +979,8 @@ int dispatch_bwd(const BwdParams& p, const BwdViews& w, cudaStream_t s) {
   if (w.dtype == kBF16 && w.d == 128) return launch_bwd<bf16, 128, kDkv>(p, w, s);
   if (w.dtype == kF16 && w.d == 64) return launch_bwd<h16, 64, kDkv>(p, w, s);
   if (w.dtype == kF16 && w.d == 128) return launch_bwd<h16, 128, kDkv>(p, w, s);
+  if (w.dtype == kBF16 && w.d == 256) return launch_bwd<bf16, 256, kDkv>(p, w, s);
+  if (w.dtype == kF16 && w.d == 256) return launch_bwd<h16, 256, kDkv>(p, w, s);
   return cudaErrorInvalidValue;
 }
 
@@ -561,6 +994,8 @@ static void report_type(char* out, int cap, int& used, const char* t) {
   BWD_REPORT("B13a D128", (flash_bwd_dkv_kernel<T, 128>), DkvSmem<128>::kBytes);
   BWD_REPORT("B13b D64", (flash_bwd_dq_kernel<T, 64>), DqSmem<64>::kBytes);
   BWD_REPORT("B13b D128", (flash_bwd_dq_kernel<T, 128>), DqSmem<128>::kBytes);
+  BWD_REPORT("B13a D256", (flash_bwd_dkv_kernel_d256<T>), Smem256<true>::kBytes);
+  BWD_REPORT("B13b D256", (flash_bwd_dq_kernel_d256<T>), Smem256<false>::kBytes);
   BWD_REPORT("B13a split combine", (flash_bwd_dkv_combine<T>), 0);
 #undef BWD_REPORT
 }

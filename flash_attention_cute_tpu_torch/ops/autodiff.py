@@ -9,8 +9,9 @@ the device of q: on CPU tensors the same Function runs the plain forward
 with its lse and the plain recompute backward, so the lse that crosses
 from forward to backward is the one the kernels exchange on the card.
 Layout [B, H, S, D] like `flash_attn_func`; GQA / MQA gradients of k and v
-sum over the q-head group. On CUDA tensors a head dim the backward kernels
-do not take (D 256: ROADMAP.md A10b) raises before the forward launches.
+sum over the q-head group. The kernels take D 64, 128 and 256; on CUDA
+tensors another head dim (ROADMAP.md A10b) raises before the forward
+launches.
 """
 
 from __future__ import annotations

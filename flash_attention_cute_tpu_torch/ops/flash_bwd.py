@@ -12,19 +12,22 @@ PyTorch expression, as it is one XLA expression in the JAX package.
 `flash_attention_bwd` routes on the device of `q`: a CPU tensor takes the
 plain version, a CUDA tensor launches B13a then B13b (csrc/flash_bwd.cu),
 which replace `_flash_bwd_dkv_kernel` and `_flash_bwd_dq_kernel`. The
-kernels take bf16 / f16, D 64 / 128, bottom-right causal masking, the
-sliding window, GQA / MQA (dK and dV sum over the q-head group inside a
-block, deterministically) and the strided views `_build.check_cuda_tensor`
-takes (head dim contiguous, 16-byte aligned rows), which they read by TMA
-in place. What they do not take raises (the soft cap is not an argument
-here, as in JAX; D 256 is ROADMAP.md A10b); nothing falls back. The TPU
-block arguments `block_q` / `block_kv` are accepted and ignored.
+kernels take bf16 / f16, D 64 / 128 / 256, bottom-right causal masking,
+the sliding window, GQA / MQA (dK and dV sum over the q-head group inside
+a block, deterministically) and the strided views
+`_build.check_cuda_tensor` takes (head dim contiguous, 16-byte aligned
+rows), which they read by TMA in place. What they do not take raises (the
+soft cap is not an argument here, as in JAX; other head dims are
+ROADMAP.md A10b); nothing falls back. The TPU block arguments `block_q` /
+`block_kv` are accepted and ignored.
 
-B13a runs one block per (128 keys, kv head, batch row). Where those are
-too few to fill the card, `dkv_splits` (pure Python, from the shapes
-alone) cuts each block's walk over the group's q tiles into parts, one
-block each, whose fp32 partials a second pass of the same C call adds in
-split order: the result still repeats bit for bit.
+B13a runs one block per (key block, kv head, batch row): 128 keys at D 64
+/ 128, 64 at D 256 (`key_block`), whose kernels have a layout of their own
+to fit the H100's shared memory and registers. Where those blocks are too
+few to fill the card, `dkv_splits` (pure Python, from the shapes alone)
+cuts each block's walk over the group's q tiles into parts, one block
+each, whose fp32 partials a second pass of the same C call adds in split
+order: the result still repeats bit for bit.
 
 The kernels read the lse and delta rows by bulk copies of whole 64- or
 128-row tiles, so they take both as fp32 [B, Hq, Sq rounded up to
@@ -44,10 +47,11 @@ from flash_attention_cute_tpu_torch.ops import _build
 from flash_attention_cute_tpu_torch.ops.reference import prefill_mask
 
 LOG2E = math.log2(math.e)
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 ROW_PAD = 128  # csrc/flash_bwd.cu kRowPad: the lse / delta rows a B13b block reads
-KEY_BLOCK = 128  # keys of a B13a block (csrc/flash_bwd.cu kBlock)
-Q_TILE = 64  # q rows of a B13a tile
+KEY_BLOCK = 128  # keys of a B13a block at D 64 / 128 (csrc/flash_bwd.cu kBlock)
+KEY_BLOCK_D256 = 64  # keys of a B13a block at D 256 (kTile: flash_bwd_dkv_kernel_d256)
+Q_TILE = 64  # q rows of a B13a tile, at every head dim
 MAX_SPLITS = 8
 MIN_SPLIT_TILES = 4  # q tiles a split walks at the least, on the longest walk
 
@@ -58,15 +62,21 @@ DKV = _build.Kernel("flash_bwd_dkv", "flash_bwd.cu", "fact_flash_bwd", _ARGS)
 DQ = _build.Kernel("flash_bwd_dq", "flash_bwd.cu", "fact_flash_bwd", _ARGS)
 
 
-def dkv_splits(batch: int, hkv: int, group: int, sq: int, skv: int) -> int:
+def key_block(head_dim: int) -> int:
+    """Keys of a B13a block at this head dim."""
+    return KEY_BLOCK_D256 if head_dim == 256 else KEY_BLOCK
+
+
+def dkv_splits(batch: int, hkv: int, group: int, sq: int, skv: int, head_dim: int = 128) -> int:
     """Parts into which B13a cuts each key block's walk (1: no split).
 
-    A block walks up to group x ceil(Sq / 64) q tiles. Split only while
-    the blocks cover at most half the SMs: then to about one block an SM
-    (NUM_SMS // blocks), at most MAX_SPLITS, and no finer than MIN_SPLIT_TILES
-    tiles a part on the longest walk. Each part beyond the first costs an
-    fp32 round trip of dK and dV through the workspace."""
-    blocks = -(-skv // KEY_BLOCK) * hkv * batch
+    A block (`key_block(head_dim)` keys) walks up to group x ceil(Sq / 64)
+    q tiles. Split only while the blocks cover at most half the SMs: then
+    to about one block an SM (NUM_SMS // blocks), at most MAX_SPLITS, and
+    no finer than MIN_SPLIT_TILES tiles a part on the longest walk. Each
+    part beyond the first costs an fp32 round trip of dK and dV through the
+    workspace."""
+    blocks = -(-skv // key_block(head_dim)) * hkv * batch
     if blocks == 0 or 2 * blocks > NUM_SMS:
         return 1
     walk = group * -(-sq // Q_TILE)
@@ -172,17 +182,19 @@ def flash_attention_bwd(
     return dq, dk, dv
 
 
-def launch(kernel, q, k, v, do, lse, delta, out0, out1, sm_scale, causal, window: int) -> None:
+def launch(kernel, q, k, v, do, lse, delta, out0, out1, sm_scale, causal, window: int,
+           splits: int | None = None) -> None:
     """One launch of B13a (`DKV`: out0 = dK, out1 = dV, split as `dkv_splits`
-    plans) or B13b (`DQ`: out0 = dQ) on inputs `flash_attention_bwd` has
-    checked (window 0 for none); lse and delta [B, Hq, Sq], or already
-    padded (`padded_rows`)."""
+    plans, or in `splits` parts: for comparisons only) or B13b (`DQ`: out0 =
+    dQ) on inputs `flash_attention_bwd` has checked (window 0 for none); lse
+    and delta [B, Hq, Sq], or already padded (`padded_rows`)."""
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     lse, delta = padded_rows(lse, sq, math.inf), padded_rows(delta, sq, 0.0)
     ws = None
     if kernel is DKV:
-        splits = dkv_splits(b, hkv, hq // hkv, sq, skv)
+        if splits is None:
+            splits = dkv_splits(b, hkv, hq // hkv, sq, skv, d)
         if splits > 1:
             ws = torch.empty((2, splits, b, hkv, skv, d), dtype=torch.float32, device=q.device)
     else:

@@ -19,8 +19,8 @@ Both take the tanh soft cap (`logit_softcap`, Gemma2's 50) and head dims
 log-sum-exp the backward needs (ops/flash_bwd.py), in the TPU kernels'
 convention: log2 units of the scaled scores, +inf on a row with no visible
 key, at every head dim and with the cap, as the JAX forward returns it
-(the backward kernels take neither: ops/autodiff.py refuses D 256 on CUDA
-before the forward runs).
+(the backward kernels take D 256 but not the cap: api.py keeps a capped
+prefill forward-only).
 
 With `score_dtype="int8"` (opt-in, forward only, as in the JAX package)
 the scores Q K^T are an int8 product: K8 (`QUANTIZE_K`, `quantize_k_rows`)

@@ -57,7 +57,9 @@ kernel forward's o and lse): at the training step's attention (B 2, S 2048,
 32 / 8 heads, D 128), at D 64 (B 2, S 1024), with the window of 4096 at B 1,
 S 5120, at Qwen2-7B's 28 / 4 heads (B 1, S 1024), and non-causal at B 1, S
 2048 (as many visible pairs as the training shape, in blocks of equal
-work). Their bounds ("bound" entries, the same for every tree): B13a 8 D
+work), and at the global layer of Gemma-2-9B's training step (B 1, S 4608,
+16 / 8 heads, D 256; null in a tree whose backward refuses D 256). Their
+bounds ("bound" entries, the same for every tree): B13a 8 D
 and B13b 6 D operations per visible (row, key) pair and q head at the bf16
 peak, or their bytes (inputs and outputs once) at 3.35 TB/s, whichever is
 longer. int8 scores (where the tree takes `score_dtype`), at chip_smoke.py's
@@ -273,8 +275,12 @@ def backward_times(randn, timed, out):
                                          ("D64 B2 S1024", 2, 32, 1024, 64, True, None),
                                          ("W4096 B1 S5120", 1, 32, 5120, 128, True, 4096),
                                          ("qwen2 28/4 B1 S1024", 1, 28, 1024, 128, True, None),
-                                         ("non-causal B1 S2048", 1, 32, 2048, 128, False, None)):
+                                         ("non-causal B1 S2048", 1, 32, 2048, 128, False, None),
+                                         ("gemma2 D256 B1 S4608", 1, 16, 4608, 256, True, None)):
         hkv = 4 if hq == 28 else 8
+        if d not in flash_bwd.HEAD_DIMS:  # a tree whose backward refuses D 256
+            out[f"B13a {name}"] = out[f"B13b {name}"] = None
+            continue
         q, do = randn(b, hq, s, d), randn(b, hq, s, d)
         k, v = randn(b, hkv, s, d), randn(b, hkv, s, d)
         o, lse = flash_fwd.flash_attention_fwd(q, k, v, causal=causal, window=w, return_lse=True)

@@ -102,6 +102,9 @@ GRAD_CASES = {
     "window_48": (1, 4, 2, 160, 160, 32, True, 48),
     "cross_96_256": (1, 4, 2, 96, 256, 64, True, None),
     "cross_256_96": (1, 4, 2, 256, 96, 64, True, None),
+    # head dim 256 (Gemma 2, Gemma-7B): B13a / B13b's own layout on the card
+    "d256_causal": (1, 2, 1, 128, 128, 256, True, None),
+    "d256_window_48": (1, 4, 2, 160, 160, 256, True, 48),
 }
 
 
@@ -134,11 +137,26 @@ def next_token_loss(params, cfg, ids):
     return torch.nn.functional.cross_entropy(logits[:, :-1].flatten(0, 1), ids[:, 1:].flatten())
 
 
-@pytest.mark.parametrize("family", ["llama", "mistral_window"])
+MODEL_FAMILIES = {
+    "llama": {},
+    "mistral_window": dict(sliding_window=8, use_sliding_window=True),
+    # Gemma 2 without the attention cap (a capped prefill stays forward
+    # only): head dim 256, windows (8, None), the query_pre_attn_scalar
+    # scale, the final-logit cap, sandwich norms, GeGLU, scaled and tied
+    # embeddings.
+    "gemma2_uncapped_d256": dict(
+        head_dim=256, layer_window_pattern=(8, None), attention_scale=24 ** -0.5,
+        logit_softcap=None, final_logit_softcap=30.0, hidden_activation="gelu_tanh",
+        sandwich_norms=True, scale_embeddings=True, rms_norm_plus_one=True,
+        tie_word_embeddings=True),
+}
+
+
+@pytest.mark.parametrize("family", list(MODEL_FAMILIES))
 def test_model_grads_match_jax_grad(family):
     """loss.backward() through the port's forward against jax.grad through
     the JAX forward on its Pallas kernels, every parameter leaf."""
-    extra = {} if family == "llama" else dict(sliding_window=8, use_sliding_window=True)
+    extra = MODEL_FAMILIES[family]
     jcfg = jax_tiny(num_layers=2, dtype=jnp.float32, **extra)
     cfg = tiny_test_config(num_layers=2, **extra)
     jparams = jax_init(jcfg, jax.random.key(3))

@@ -32,7 +32,8 @@ probabilities in another order) with an identical +inf pattern, also at
 D 256 and with the soft cap, and at the edges of the kernel's tiles (S 1,
 63, 65, 130, rows with no key, GQA groups 1 / 7 / 32, windows 1 / 45 / 400),
 where a second call repeats output and lse bit for bit. The
-backward kernels B13a / B13b take the kernel forward's o and lse and are
+backward kernels B13a / B13b (D 64 / 128, and D 256 in its own layout at
+Gemma-2-9B's and Gemma-7B's widths) take the kernel forward's o and lse and are
 held to `flash_attention_bwd_plain` on the same inputs by max |diff| over
 max |plain| <= 2e-2: gradients grow with the sequence, and the kernels
 round P and dS to bf16 / f16 before their products (one step is 2^-8
@@ -1139,7 +1140,19 @@ BACKWARD = {
     "sq1000_skv64_zero_rows": (1, 32, 8, 1000, 64, 128, True, None, torch.bfloat16),
     "mqa_group32": (1, 32, 1, 512, 512, 128, True, None, torch.bfloat16),
     "window_48_ragged_d64": (1, 8, 2, 300, 300, 64, True, 48, torch.bfloat16),
+    # D 256 (its own layout: 64-key / 64-row blocks), chip_smoke.py's cases
+    "gemma2_d256_s4608": (1, 16, 8, 4608, 4608, 256, True, None, torch.bfloat16),
+    "gemma2_d256_window4096_s4608": (1, 16, 8, 4608, 4608, 256, True, 4096, torch.bfloat16),
+    "gemma7b_mha_d256_s2048": (1, 16, 16, 2048, 2048, 256, True, None, torch.bfloat16),
+    "d256_ragged_s1000": (1, 16, 8, 1000, 1000, 256, True, None, torch.bfloat16),
+    "d256_offset_256_1024": (1, 16, 8, 256, 1024, 256, True, None, torch.bfloat16),
+    "d256_zero_rows_1024_256": (1, 16, 8, 1024, 256, 256, True, None, torch.bfloat16),
+    "d256_mqa_group32": (1, 32, 1, 1024, 1024, 256, True, None, torch.bfloat16),
+    "d256_f16_s1024": (1, 16, 8, 1024, 1024, 256, True, None, torch.float16),
+    "d256_window_48_s300": (1, 4, 2, 300, 300, 256, True, 48, torch.bfloat16),
+    "d256_noncausal_700": (1, 16, 8, 700, 700, 256, False, None, torch.bfloat16),
 }
+SPLIT_REL_TOL = 2 ** -7
 
 
 def rel_err(a, b) -> float:
@@ -1206,6 +1219,31 @@ def test_backward_kernels_repeat_bit_for_bit(device, case):
     second = flash_bwd.flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window)
     for name, a, c in zip(("dq", "dk", "dv"), first, second):
         assert torch.equal(a, c), name
+
+
+@pytest.mark.parametrize("case", [c for c, x in BACKWARD.items()
+                                  if flash_bwd.dkv_splits(x[0], x[2], x[1] // x[2], x[3], x[4],
+                                                          x[5]) > 1])
+def test_backward_split_walk_matches_one_pass(device, case):
+    """Where `dkv_splits` cuts B13a's walk, its dK / dV are held to one pass
+    over the walk (`launch(..., splits=1)`) within SPLIT_REL_TOL: the same
+    fp32 sums grouped otherwise, each rounded once."""
+    b, hq, hkv, sq, skv, d, causal, window, dtype = BACKWARD[case]
+    gen = torch.Generator(device="cuda").manual_seed(38)
+    q = randn(gen, b, sq, hq, d, dtype=dtype).transpose(1, 2)
+    k = randn(gen, b, skv, hkv, d, dtype=dtype).transpose(1, 2)
+    v = randn(gen, b, skv, hkv, d, dtype=dtype).transpose(1, 2)
+    do = randn(gen, b, sq, hq, d, dtype=dtype).transpose(1, 2)
+    o, lse = flash_fwd.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                           return_lse=True)
+    _, dk, dv = flash_bwd.flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window)
+    one = (torch.empty_like(dk), torch.empty_like(dv))
+    before = flash_bwd.DKV.launches
+    flash_bwd.launch(flash_bwd.DKV, q, k, v, do, lse, (do.float() * o.float()).sum(-1), *one,
+                     d ** -0.5, causal, window or 0, splits=1)
+    torch.cuda.synchronize()
+    assert flash_bwd.DKV.launches == before + 1
+    assert rel_err(dk, one[0]) <= SPLIT_REL_TOL and rel_err(dv, one[1]) <= SPLIT_REL_TOL
 
 
 @pytest.mark.parametrize("window", [None, 48])
@@ -1287,13 +1325,24 @@ def test_varlen_kernel_matches_plain(device, case):
 
 
 def test_training_and_varlen_kernels_refuse_what_they_do_not_take(device):
-    """The backward refuses D 256 (A10b); B12 takes the soft cap and D 256
-    since its Hopper redesign: both launch it."""
+    """The backward refuses head dims outside 64 / 128 / 256 (D 96: A10b)
+    and launches B13a / B13b at D 256, within GRAD_REL_TOL of the plain
+    backward; B12 takes the soft cap and D 256 since its Hopper redesign:
+    both launch it."""
     gen = torch.Generator(device="cuda").manual_seed(35)
     q = randn(gen, 1, 4, 64, 256)
-    lse = torch.zeros(1, 4, 64, device="cuda")
+    q96 = randn(gen, 1, 4, 64, 96)
     with pytest.raises(NotImplementedError, match="A10b"):
-        flash_bwd.flash_attention_bwd(q, q[:, :2], q[:, :2], q, q, lse)
+        flash_bwd.flash_attention_bwd(q96, q96[:, :2], q96[:, :2], q96, q96,
+                                      torch.zeros(1, 4, 64, device="cuda"))
+    k, v, do = randn(gen, 1, 2, 64, 256), randn(gen, 1, 2, 64, 256), randn(gen, 1, 4, 64, 256)
+    o, lse = flash_fwd.flash_attention_fwd(q, k, v, return_lse=True)
+    before = (flash_bwd.DKV.launches, flash_bwd.DQ.launches)
+    got = flash_bwd.flash_attention_bwd(q, k, v, o, do, lse)
+    torch.cuda.synchronize()
+    assert (flash_bwd.DKV.launches, flash_bwd.DQ.launches) == (before[0] + 1, before[1] + 1)
+    want = flash_bwd.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o, do, lse)
+    assert all(rel_err(a, w) <= GRAD_REL_TOL for a, w in zip(got, want))
     qv = randn(gen, 64, 4, 128)
     cu = torch.tensor([0, 64], dtype=torch.int32, device="cuda")
     for args, kw in (((qv, qv[:, :2], qv[:, :2]), {"logit_softcap": 30.0}),
@@ -1322,17 +1371,32 @@ def test_prefill_lse_takes_d256_and_the_cap(device, d, cap):
 
 
 def test_autodiff_refuses_d256_before_the_forward_launches(device):
-    """The backward kernels take no D 256 (ROADMAP.md A10b): the autograd op
-    raises before P runs, not after a forward whose gradient cannot come."""
+    """Under autograd a head dim the backward kernels do not take (D 96,
+    ROADMAP.md A10b) raises before P runs, not after a forward whose
+    gradient cannot come. D 256, refused so until the backward kernels took
+    it, now runs P, then B13a and B13b, and its gradients match autograd
+    through the fp32 reference within GRAD_REL_TOL."""
     gen = torch.Generator(device="cuda").manual_seed(37)
-    q = randn(gen, 1, 4, 64, 256).requires_grad_()
-    k, v = randn(gen, 1, 2, 64, 256), randn(gen, 1, 2, 64, 256)
+    q = randn(gen, 1, 4, 64, 96).requires_grad_()
+    k, v = randn(gen, 1, 2, 64, 96), randn(gen, 1, 2, 64, 96)
     before = (flash_fwd.PREFILL.launches, flash_fwd.WINDOWED_PREFILL.launches)
     with pytest.raises(NotImplementedError, match="A10b"):
         autodiff.flash_attention(q, k, v, causal=True)
     with pytest.raises(NotImplementedError, match="A10b"):
         api.flash_attn_func(q, k, v, causal=True)
     assert (flash_fwd.PREFILL.launches, flash_fwd.WINDOWED_PREFILL.launches) == before
+    q = randn(gen, 1, 4, 300, 256).requires_grad_()
+    k, v = randn(gen, 1, 2, 300, 256).requires_grad_(), randn(gen, 1, 2, 300, 256).requires_grad_()
+    do = randn(gen, 1, 4, 300, 256)
+    counters = (flash_fwd.PREFILL, flash_bwd.DKV, flash_bwd.DQ)
+    before = [c.launches for c in counters]
+    got = torch.autograd.grad(api.flash_attn_func(q, k, v, causal=True), (q, k, v), do)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1]
+    leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(flash_fwd.flash_attention_fwd_plain(*leaves, causal=True), leaves,
+                               do.float())
+    assert all(rel_err(a, w) <= GRAD_REL_TOL for a, w in zip(got, want))
 
 
 # P / B2 at the edges of their tiles (128 q rows a block, 128 keys a tile at
@@ -1493,8 +1557,9 @@ def test_gemma2_paged_append_at_d256_writes_what_plain_writes(device):
 
 
 def test_gemma2_routes_outside_the_slice_raise(device):
-    """The soft cap and D 256 stay refused by B13, naming ROADMAP.md A10b;
-    nothing falls back to a plain version. B4, B7, B8, B9 (here), B12 and
+    """The soft cap stays refused by B13 under autograd, naming ROADMAP.md
+    A10b, while B13a / B13b take D 256; nothing falls back to a plain
+    version. B4, B7, B8, B9 (here), B12 and
     QA take both (test_chunked_extend_kernel_geometry,
     test_contiguous_decode_kernels_geometry,
     test_paged_decode_kernels_geometry,
@@ -1525,8 +1590,19 @@ def test_gemma2_routes_outside_the_slice_raise(device):
         out = fn(*args, logit_softcap=50.0)
         torch.cuda.synchronize()
         assert kernel.launches == before + 1 and torch.isfinite(out).all()
-    with pytest.raises(NotImplementedError, match="A10b"):
-        flash_bwd.flash_attention_bwd(q, k, v, q, q, torch.zeros(2, 16, 5, device="cuda"))
+    # B13a / B13b take D 256 (Gemma's 16 / 8 heads, a chunk of 5 rows over
+    # 64 keys: bottom-right causal) but not the cap, which stays refused
+    # under autograd.
+    kb, vb, dob = randn(gen, 2, 8, 64, 256), randn(gen, 2, 8, 64, 256), randn(gen, 2, 16, 5, 256)
+    qb = randn(gen, 2, 16, 5, 256)
+    o, lse = flash_fwd.flash_attention_fwd(qb, kb, vb, causal=True, return_lse=True)
+    before = (flash_bwd.DKV.launches, flash_bwd.DQ.launches)
+    got = flash_bwd.flash_attention_bwd(qb, kb, vb, o, dob, lse, causal=True)
+    torch.cuda.synchronize()
+    assert (flash_bwd.DKV.launches, flash_bwd.DQ.launches) == (before[0] + 1, before[1] + 1)
+    want = flash_bwd.flash_attention_bwd_plain(qb.float(), kb.float(), vb.float(), o, dob, lse,
+                                               causal=True)
+    assert all(rel_err(a, w) <= GRAD_REL_TOL for a, w in zip(got, want))
     q.requires_grad_()
     with pytest.raises(NotImplementedError, match="A10b"):  # no backward takes the cap
         api.flash_attn_func(q, k, v, causal=True, logit_softcap=50.0)

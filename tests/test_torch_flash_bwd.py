@@ -1,5 +1,6 @@
 """The backward wrapper's arithmetic on the CPU: the split plan of B13a
-(`dkv_splits`, pure Python, from the shapes alone) and the padded lse /
+(`dkv_splits`, pure Python, from the shapes alone; 128-key blocks at D 64 /
+128, 64-key blocks at D 256) and the padded lse /
 delta rows the kernels read by bulk copies (`padded_rows`). The kernels
 themselves run only on the card (tests/test_torch_cuda_kernels.py); their
 plain version is held to JAX's backward in tests/test_torch_autodiff.py."""
@@ -46,6 +47,42 @@ def test_dkv_splits_bounds(batch, hkv, group, s):
     if splits > 1:
         assert 2 * blocks <= flash_bwd.NUM_SMS
         assert splits * blocks <= flash_bwd.NUM_SMS
+        assert walk // splits >= flash_bwd.MIN_SPLIT_TILES
+    else:
+        assert (2 * blocks > flash_bwd.NUM_SMS or flash_bwd.NUM_SMS // blocks == 1
+                or walk < 2 * flash_bwd.MIN_SPLIT_TILES)
+
+
+PLAN_D256 = {
+    # (batch, hkv, group, sq, skv): splits of B13a at D 256 (blocks of 64 keys)
+    "gemma2_training_b1_s4608": ((1, 8, 2, 4608, 4608), 1),  # 576 blocks
+    "gemma7b_mha_s2048": ((1, 16, 1, 2048, 2048), 1),
+    "mqa_group32_s1024": ((1, 1, 32, 1024, 1024), 8),  # 16 blocks
+    "sq1024_skv256": ((1, 8, 2, 1024, 256), 4),  # 32 blocks, 32 tiles a walk
+    "window_s300": ((1, 2, 2, 300, 300), 2),  # 10 blocks, 10 tiles a walk
+    "no_keys": ((1, 8, 2, 64, 0), 1),
+}
+
+
+@pytest.mark.parametrize("case", list(PLAN_D256), ids=list(PLAN_D256))
+def test_dkv_splits_d256(case):
+    shape, want = PLAN_D256[case]
+    assert flash_bwd.key_block(256) == flash_bwd.KEY_BLOCK_D256 == 64
+    assert flash_bwd.dkv_splits(*shape, head_dim=256) == want
+    # The same shapes plan with 128-key blocks below D 256.
+    assert flash_bwd.dkv_splits(*shape, head_dim=128) == flash_bwd.dkv_splits(*shape)
+
+
+@pytest.mark.parametrize("group", [1, 2, 32])
+@pytest.mark.parametrize("s", [64, 300, 1024, 4608])
+def test_dkv_splits_bounds_d256(group, s):
+    """The bounds of test_dkv_splits_bounds with D 256's 64-key blocks."""
+    splits = flash_bwd.dkv_splits(1, 8 if group < 32 else 1, group, s, s, head_dim=256)
+    blocks = -(-s // 64) * (8 if group < 32 else 1)
+    walk = group * -(-s // flash_bwd.Q_TILE)
+    assert 1 <= splits <= flash_bwd.MAX_SPLITS
+    if splits > 1:
+        assert 2 * blocks <= flash_bwd.NUM_SMS and splits * blocks <= flash_bwd.NUM_SMS
         assert walk // splits >= flash_bwd.MIN_SPLIT_TILES
     else:
         assert (2 * blocks > flash_bwd.NUM_SMS or flash_bwd.NUM_SMS // blocks == 1
