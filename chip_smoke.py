@@ -100,7 +100,13 @@ Phases, in order; any failure exits non-zero:
      repeated bit for bit; then the API's int8 route (path "int8 scores"):
      `api.flash_attention_forward(score_dtype="int8")` at Llama B 4 S 512
      and Mistral B 2 S 5120 W 4096, counted (K8 2, P-i8 1, B2-i8 1, nothing
-     else), each output against the plain int8 version.
+     else), each output against the plain int8 version; (3j) head dims
+     outside 64 / 128 / 256, which P / B2, D1 + D2, B5, B6 and the append
+     run in the layout of the next of 64, 128 and 256 (ODD_HEAD_DIMS: D 96
+     at 32 / 32 heads, D 80 at 32 / 8, D 32, D 160 in f16, D 192; D 96
+     also with a window and with the cap 50): each against its fp32 plain
+     version, over NaN tails and poisoned pools (`poison_past`), repeated
+     bit for bit, D1's partials at 5 splits, the append bit-identical.
   4. main paths: greedy generation of Llama-3-8B (random weights from a
      seeded CUDA generator) at B 4, prompt 512, 64 new tokens; launch
      counters show the kernels carried it; teacher-forced logits of the
@@ -193,7 +199,16 @@ Phases, in order; any failure exits non-zero:
      runs G1 (whole-prompt, page_size 128), G2 (chunked 512, page_size 16)
      and G3 (G2 over int8 pages: B9, B8 and QA at D 256 with the cap;
      teacher-forced over int8 pages as runs D / E are), launch counts per
-     forward, every token teacher-forced.
+     forward, every token teacher-forced. (4m) A model at Phi-3-mini's
+     widths (`phi3_mini_widths_config`: 32 layers, hidden 3072, 32 / 32
+     heads, D 96, SwiGLU 8192, vocab 32064, untied; its sliding window of
+     2047 left out, which no sequence of the phase reaches), random
+     weights: teacher-forced prefill and decode-step logits at B 4, prompt
+     512, kernel route against the plain route; greedy generation of 64
+     tokens (P 32, D1 + D2 63 x 32); serving runs A and B over the 24
+     requests (P at admission, B6, B5 + D2, the append), every token
+     teacher-forced; launches on paths "phi3-widths ...", each run's
+     exact; prefill ms, decode ms/token, serving wall s, tokens/s, peak GB.
      (4k, run after 4e over the Llama tree; launches counted as path "hf")
      The HF surface: (a) HF-named transposed views of the parameters
      through `params_from_state_dict`, then greedy generation: phase 4's
@@ -255,7 +270,9 @@ Phases, in order; any failure exits non-zero:
      of "long"): the kernel alone ("ms"), the wrapper's K8 + kernel
      ("with_k8_ms"), the bf16-score P / B2 on the same inputs ("bf16_ms"),
      bounds of QK^T at the int8 peak plus PV at the bf16 peak (or the
-     bytes), library_ms null; every timed entry its
+     bytes), library_ms null; (5f) the "phi3" entries of the P, D1, D2,
+     B5, B6 and append rows at 4m's shapes (D 96; bounds at D 96;
+     library_ms: SDPA at D 96, over a contiguous copy for B5 / B6); every timed entry its
      share of its bound ("of_bound"); the card's name and power limit.
 The last line is {"ok": true, "device": {...}}.
 
@@ -355,12 +372,12 @@ PREFILL_CASES = (
 )
 
 
-def held_prefill(torch, flash_fwd, errs, what, q, k, v, causal, window, cap=None, gemma=False):
+def held_prefill(torch, flash_fwd, errs, what, q, k, v, causal, window, cap=None, tag=None):
     """One P / B2 call with its lse against the fp32 plain version run on q's
     fp32 image: output within BF16_TOL and finite, lse within LSE_TOL on
     finite entries with the same +inf rows, rows with no key exact zeros; a
     second call (with and without the lse) repeats the bits. Errors go to
-    the kernel's entries of `errs` (also "<kernel> gemma2" with `gemma`)."""
+    the kernel's entries of `errs` (also "<kernel> <tag>" with a `tag`)."""
     kw = dict(causal=causal, window=window, logit_softcap=cap)
     out, lse = flash_fwd.flash_attention_fwd(q, k, v, return_lse=True, **kw)
     again, lse_again = flash_fwd.flash_attention_fwd(q, k, v, return_lse=True, **kw)
@@ -373,7 +390,7 @@ def held_prefill(torch, flash_fwd, errs, what, q, k, v, causal, window, cap=None
     fin = torch.isfinite(ref_lse)
     e_lse = (lse[fin] - ref_lse[fin]).abs().max().item() if bool(fin.any()) else 0.0
     name = "flash_fwd_window" if window and window < k.shape[2] else "flash_fwd"
-    for key in (name, f"{name} gemma2") if gemma else (name,):
+    for key in (name, f"{name} {tag}") if tag else (name,):
         errs[key] = max(errs.get(key, 0.0), e)
         errs[f"{key} lse"] = max(errs.get(f"{key} lse", 0.0), e_lse)
     print(f"  {what}: max|diff| {e:.3e}, lse {e_lse:.2e}, repeated bit for bit: {same}")
@@ -466,14 +483,14 @@ CONTIG_DECODE_CASES = {
 
 
 def held_contiguous_decodes(torch, flash_decode, quantized, errs, gen, cases,
-                            values=(None, "int8", "float8_e4m3fn")):
+                            values=(None, "int8", "float8_e4m3fn"), tag=None):
     """D1 + D2 (`values` None: a cache in q's dtype) and B7 + D2 (int8 and
     e4m3 caches, NaN in the scales and e4m3 values past the lengths) on each
     case of `cases`
     against their fp32 plain versions run on q's fp32 image; a length-0 row
     of exact zeros, a second call bit-identical to the first. D1 + D2's
     errors go to "decode_combine", B7's to "quant_decode" (at D 256 also
-    "quant_decode gemma2")."""
+    "quant_decode gemma2"); with a `tag` also to "<key> <tag>"."""
     for name, d, hq, hkv, cap_len, w, cap, dt in cases:
         dtype = getattr(torch, dt)
         lens = [0, 1, 37, cap_len - 1, cap_len, cap_len // 2 + 3]
@@ -503,7 +520,8 @@ def held_contiguous_decodes(torch, flash_decode, quantized, errs, gen, cases,
             kw = dict(window=w, logit_softcap=cap, layer=1)
             out, again = fn(q, *caches, lengths, **kw), fn(q, *caches, lengths, **kw)
             e = max_err(out, plain(q.float(), *caches, lengths, **kw))
-            for k in (key, f"{key} gemma2") if vname is not None and d == 256 else (key,):
+            keys = [key] + ([f"{key} gemma2"] if vname is not None and d == 256 else [])
+            for k in keys + ([f"{key} {tag}"] if tag else []):
                 errs[k] = max(errs.get(k, 0.0), e)
             print(f"  {what}, lengths {lens}: max|diff| {e:.3e}")
             check(bool(torch.isfinite(out).all()), f"{what}: output finite over NaN tails")
@@ -2083,16 +2101,15 @@ def phase_quant_weights(torch, cfg, params, ids, bf16_tokens, kernels, path_coun
     return numbers
 
 
-def phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode):
-    from flash_attention_cute_tpu_torch.runtime.generate import decode_loop, prefill
-    from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms, wall_time_s
+def dense_rows(torch, cfg, randn, flash_fwd, flash_decode):
+    """Kernel rows of P at the greedy prefill (B 4, S 512, causal) and of D1
+    and D2 at its middle decode step (B 4, every row 512 + 32 keys of 576)
+    at `cfg`'s attention widths, with their operations and bytes at its
+    head dim, and the decode numbers of D1 + D2 beside one SDPA call."""
+    from flash_attention_cute_tpu_torch import dispatch
+    from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms
 
     f = torch.nn.functional
-    gen = torch.Generator(device="cuda").manual_seed(99)
-
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-
     # P at the main path's prefill shape.
     hq, hkv, d = cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim
     q, k, v = randn(B, hq, PROMPT, d), randn(B, hkv, PROMPT, d), randn(B, hkv, PROMPT, d)
@@ -2116,7 +2133,6 @@ def phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode):
     qd = randn(B, hq, 1, d)
     live = PROMPT + NEW // 2
     lengths = torch.full((B,), live, dtype=torch.int32, device="cuda")
-    from flash_attention_cute_tpu_torch import dispatch
     splits = dispatch.decode_num_splits(B, hkv, CAPACITY, d)
     scale = d ** -0.5
     acc, m, l = flash_decode.decode_partials(qd, kc, vc, lengths, scale, splits)
@@ -2154,12 +2170,24 @@ def phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode):
         "library_ms": None,  # no single PyTorch call merges split partials
         "ops": 4 * acc.numel(), "bytes": part_bytes + 2 * qd.numel(), "peak": PEAK_F32,
     })
+    return rows, {"decode_attention_ms": dec_ms, "decode_attention_call_ms": dec_call_ms,
+                  "decode_attention_sdpa_ms": sdpa_dec_ms, "decode_num_splits": splits}
+
+
+def phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode):
+    from flash_attention_cute_tpu_torch.runtime.generate import decode_loop, prefill
+    from flash_attention_cute_tpu_torch.utils.timing import wall_time_s
+
+    gen = torch.Generator(device="cuda").manual_seed(99)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    rows, decode_numbers = dense_rows(torch, cfg, randn, flash_fwd, flash_decode)
     rows += chunked_rows(torch, cfg, gen)
     rows += paged_rows(torch, cfg, randn, gen)
     rows += quant_rows(torch, cfg, randn, gen)
     rows += qmm_rows(torch, cfg, gen)
-
-    del kr, vr
 
     for r in rows:
         r.update(bound(r.pop("ops"), r.pop("bytes"), r.pop("peak")))
@@ -2183,10 +2211,7 @@ def phase_numbers(torch, cfg, params, ids, flash_fwd, flash_decode):
         "decode_tokens_per_s": B * (NEW - 1) / dec_s,
         "weights_gb": weight_bytes / 1e9,
         "weights_floor_ms_per_token": 1e3 * weight_bytes / PEAK_BYTES,
-        "decode_attention_ms": dec_ms,
-        "decode_attention_call_ms": dec_call_ms,
-        "decode_attention_sdpa_ms": sdpa_dec_ms,
-        "decode_num_splits": splits,
+        **decode_numbers,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
         "layers": cfg.num_layers,
     }, profile
@@ -2199,7 +2224,7 @@ def kernel_entries(rows, errs, path_counts) -> list:
     def share_of_bound(entry):  # each timed shape's share of its bound, nested ones too
         if entry.get("ms") and entry.get("bound_ms"):
             entry["of_bound"] = entry["bound_ms"] / entry["ms"]
-        for key in ("chunk", "window", "gemma2", "long"):
+        for key in ("chunk", "window", "gemma2", "long", "phi3"):
             if isinstance(entry.get(key), dict):
                 share_of_bound(entry[key])
 
@@ -2218,7 +2243,7 @@ def kernel_entries(rows, errs, path_counts) -> list:
             **{key: r[key] for key in ("library_of", "with_combine_ms", "prefill", "chunk",
                                        "window", "lse", "max_rel_err", "gemma2", "projections",
                                        "runtime_attributes", "with_k8_ms", "bf16_ms", "long",
-                                       "oracle_max_abs_err") if key in r},
+                                       "oracle_max_abs_err", "phi3") if key in r},
         })
     return out
 
@@ -2240,7 +2265,8 @@ def paged_rows(torch, cfg, randn, gen):
     rows = []
 
     def pool(b, ps, pps):
-        kp, vp, table = paged_pool(torch, randn, gen, ps, rows=b, capacity=pps * ps, layers=1)
+        kp, vp, table = paged_pool(torch, randn, gen, ps, rows=b, capacity=pps * ps, layers=1,
+                                   d=d, hkv=hkv)
         return kp[0], vp[0], table
 
     # B5 + D2: the whole paged decode call.
@@ -2675,10 +2701,10 @@ def quantized_greedy(torch, cfg, params, ids, new, kernels, path_counts, label, 
     return results
 
 
-def serve_long_requests(torch, cfg, params, kernels, path_counts, label, runs):
-    """The serving engine over `mistral_requests` (8 prompts of 4200-5000
-    tokens, past every window) in each run of `runs` (name -> engine
-    options; a `kv_dtype` name takes quantized pages): every request
+def serve_long_requests(torch, cfg, params, kernels, path_counts, label, runs, reqs=None):
+    """The serving engine over `reqs` (default `mistral_requests`: 8 prompts
+    of 4200-5000 tokens, past every window) in each run of `runs` (name ->
+    engine options; a `kv_dtype` name takes quantized pages): every request
     finishes, launch counts match the forwards (a prefill forward runs
     `prefill_counts` at its padded length, an extend B6 or B9, a decode B5
     or B8 + D2, every forward the append or QA, per layer), and every token
@@ -2687,7 +2713,7 @@ def serve_long_requests(torch, cfg, params, kernels, path_counts, label, runs):
     from flash_attention_cute_tpu_torch.runtime.engine import ServingEngine
 
     n, results = cfg.num_layers, {}
-    reqs = mistral_requests(cfg.vocab_size)
+    reqs = reqs or mistral_requests(cfg.vocab_size)
     per_prefill = prefill_counts(cfg, min(len(p) for _, p, _ in reqs))
     for name, kw in runs.items():
         quant = "kv_dtype" in kw
@@ -3692,7 +3718,7 @@ def phase_gemma2_kernels(torch, ops, errs):
             q, k, v = randn(b, hq, sq, d, dtype=dt), randn(b, hkv, skv, d, dtype=dt), \
                 randn(b, hkv, skv, d, dtype=dt)
             held_prefill(torch, flash_fwd, errs, f"{'B2' if w else 'P'} D {d} cap {cap:g} {name}",
-                         q, k, v, True, w, cap, gemma=d == 256)
+                         q, k, v, True, w, cap, tag="gemma2" if d == 256 else None)
             del q, k, v
         torch.cuda.empty_cache()
 
@@ -4398,6 +4424,207 @@ def int8_rows(torch, flash_fwd, gen):
     ]
 
 
+# Phases 3j / 4m / 5f: head dims outside {64, 128, 256}. P / B2, D1 + D2,
+# B5, B6 and the paged append run every multiple of 8 up to 256 in the
+# layout of the next of 64, 128 and 256, TMA reading zeros past the true
+# head dim. (head dim, q heads, kv heads, q's dtype): Phi-3-mini's D 96
+# (32 / 32), H2O-Danube's D 80 (32 / 8), D 32 (a 64-column box over a
+# 32-column row), D 160 (a box of D 256's layout wholly past the row; f16)
+# and D 192; D 96 also windowed and capped.
+ODD_HEAD_DIMS = ((96, 32, 32, "bfloat16"), (80, 32, 8, "bfloat16"), (32, 16, 4, "bfloat16"),
+                 (160, 16, 8, "float16"), (192, 16, 4, "bfloat16"))
+PHI3_LABEL = "phi3-widths"  # the launch-count path of phase 4m
+PHI3_WINDOW = 2047  # Phi-3-mini's sliding_window, left out of the config (see phase_phi3)
+
+
+def phase_odd_head_dims(torch, ops, paged_cache, errs):
+    """Phase 3j: each kernel of the head-dim rule at each ODD_HEAD_DIMS case
+    against its fp32 plain version (3e-2), over NaN-poisoned pool tails and
+    cache tails, every call repeated bit for bit; D1's partials against the
+    plain partials (1e-2); the append bit-identical. D 96's errors also go
+    to "<kernel> phi3"."""
+    flash_fwd, flash_decode, pa = ops["flash_fwd"], ops["flash_decode"], ops["paged_attention"]
+    gen = torch.Generator(device="cuda").manual_seed(4390)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def note(key, e, tag):
+        for k in (key, f"{key} {tag}") if tag else (key,):
+            errs[k] = max(errs.get(k, 0.0), e)
+
+    def held(what, key, tag, fn, plain, *args, **kw):
+        out, again = fn(*args, **kw), fn(*args, **kw)
+        e = max_err(out, plain(args[0].float(), *args[1:], **kw))
+        note(key, e, tag)
+        print(f"  {what}: max|diff| {e:.3e}")
+        check(bool(torch.isfinite(out).all()), f"{what}: finite over NaN tails")
+        check(torch.equal(out, again), f"{what}: a second call repeats bit for bit")
+        check(e <= BF16_TOL, f"{what} within {BF16_TOL}")
+        return out
+
+    for d, hq, hkv, dt in ODD_HEAD_DIMS:
+        dtype = getattr(torch, dt)
+        tag = "phi3" if d == 96 else None
+        # (window, cap) variants: D 96 also windowed and capped.
+        variants = ((None, None), (100, None), (None, 50.0)) if d == 96 else ((None, None),)
+        for w, cap in variants:
+            name = f"D {d} ({hq} / {hkv} heads, {dt}{f', window {w}' if w else ''}" \
+                   f"{f', cap {cap:g}' if cap else ''})"
+            q = randn(2, 333, hq, d, dtype=dtype).transpose(1, 2)  # the model's views
+            k, v = (randn(2, 333, hkv, d, dtype=dtype).transpose(1, 2) for _ in "kv")
+            held_prefill(torch, flash_fwd, errs, f"{'B2' if w else 'P'} {name} S 333", q, k, v,
+                         True, w, cap, tag=tag)
+            del q, k, v
+            held_contiguous_decodes(torch, flash_decode, None, errs, gen, (
+                (f"{name} capacity 577", d, hq, hkv, 577, w and 45, cap, dt),), (None,), tag)
+
+            for ps in (16, 128):
+                kp, vp, table = paged_pool(torch, lambda *sh: randn(*sh, dtype=dtype), gen, ps,
+                                           rows=8, capacity=1024, d=d, hkv=hkv)
+                full = table.shape[1] * ps
+                lens = torch.tensor([0, 1, ps - 1, ps, ps + 1, full, 777, 2 * ps + 1],
+                                    dtype=torch.int32, device="cuda")
+                poison_past(torch, kp, table, lens)
+                poison_past(torch, vp, table, lens)
+                qd = randn(8, hq, 1, d, dtype=dtype)
+                out = held(f"B5 + D2 {name} page_size {ps}", "paged_decode", tag,
+                           pa.paged_attention_decode, pa.paged_attention_decode_plain, qd, kp[1],
+                           vp[1], lens, table, window=w and 45, logit_softcap=cap)
+                check(bool((out[0] == 0).all()), f"B5 {name}: row of length 0 is exactly 0")
+
+                offs, s = [0, 61, 599], 130
+                off = torch.tensor(offs + [0], dtype=torch.int32, device="cuda")
+                kvl = torch.tensor([o + s for o in offs] + [0], dtype=torch.int32, device="cuda")
+                kp, vp, table = paged_pool(torch, lambda *sh: randn(*sh, dtype=dtype), gen, ps,
+                                           rows=4, capacity=1024, d=d, hkv=hkv)
+                poison_past(torch, kp, table, kvl)
+                poison_past(torch, vp, table, kvl)
+                qe = randn(4, s, hq, d, dtype=dtype).transpose(1, 2)
+                out = held(f"B6 {name} page_size {ps}, S {s}, q_offset {offs}", "paged_extend",
+                           tag, pa.paged_attention_extend, pa.paged_attention_extend_plain, qe,
+                           kp[1], vp[1], off, kvl, table, window=w, logit_softcap=cap)
+                check(bool((out[3] == 0).all()), f"B6 {name}: inactive row is exactly 0")
+
+                if w is None and cap is None:  # the append: decode rows and a chunk
+                    for sa, starts in ((1, [0, 5, ps - 1, full, 37, 2 * ps, 1, 9]),
+                                       (100, [0, ps - 3, full - 40, 3, 0, 0, 0, 0])):
+                        ka, va = kp[1].clone(), vp[1].clone()
+                        tab = torch.arange(1, 1 + 4 * (full // ps), dtype=torch.int32,
+                                           device="cuda").view(4, -1).repeat(2, 1)
+                        new_k = randn(8, sa, hkv, d, dtype=dtype).transpose(1, 2)
+                        new_v = randn(8, sa, hkv, d, dtype=dtype).transpose(1, 2)
+                        lengths = torch.tensor(starts, dtype=torch.int32, device="cuda")
+                        active = torch.tensor([1, 1, 1, 1, 0, 0, 0, 0], dtype=torch.bool,
+                                              device="cuda")
+                        ref_k, ref_v = ka.clone(), va.clone()
+                        paged_cache.paged_append_layer(ka, va, new_k, new_v, tab, lengths,
+                                                       active)
+                        paged_cache.paged_append_layer_plain(ref_k, ref_v, new_k, new_v, tab,
+                                                             lengths, active)
+                        same = torch.equal(ka.nan_to_num(), ref_k.nan_to_num()) and \
+                            torch.equal(va.nan_to_num(), ref_v.nan_to_num())
+                        note("paged_append", 0.0 if same else float("inf"), tag)
+                        print(f"  append {name} page_size {ps}, S {sa}: identical to plain: "
+                              f"{same}")
+                        check(same, f"append {name}: writes exactly what the plain scatter writes")
+                del kp, vp
+            if w is None and cap is None:  # D1's partials at 5 splits
+                kc = randn(4, hkv, 577, d, dtype=dtype)
+                vc = randn(4, hkv, 577, d, dtype=dtype)
+                qd = randn(4, hq, 1, d, dtype=dtype)
+                lengths = torch.tensor([577, 300, 37, 0], dtype=torch.int32, device="cuda")
+                got = flash_decode.decode_partials(qd, kc, vc, lengths, d ** -0.5, 5)
+                want = flash_decode.decode_partials_plain(qd, kc, vc, lengths, d ** -0.5, 5)
+                e = max(max_err(x, y) for x, y in zip(got, want))
+                note("decode_partials", e, tag)
+                print(f"  D1 partials {name}, 5 splits: max|diff| {e:.3e}")
+                check(e <= 1e-2, f"D1 partials {name} within 1e-2")
+        torch.cuda.empty_cache()
+
+
+def phi3_mini_widths_config(layers=0):
+    """A Llama-family config at the widths of microsoft/Phi-3-mini-4k-instruct
+    (its config.json): 32 layers, hidden 3072, 32 q / 32 kv heads, head dim
+    96, SwiGLU 8192, vocab 32064, RMSNorm eps 1e-5, RoPE theta 10000,
+    untied embeddings. Its sliding_window of 2047 is left out: phase 4m's
+    sequences all stay below 2047 keys, where it masks nothing."""
+    import torch
+    from flash_attention_cute_tpu_torch.models.config import ModelConfig
+
+    return ModelConfig(vocab_size=32064, hidden_size=3072, intermediate_size=8192,
+                       num_layers=layers or 32, num_q_heads=32, num_kv_heads=32, head_dim=96,
+                       max_position_embeddings=4096, rms_norm_eps=1e-5, rope_theta=10000.0,
+                       tie_word_embeddings=False, dtype=torch.bfloat16)
+
+
+PHI3_SERVING_RUNS = {name: SERVING_RUNS[name] for name in ("A whole-prompt", "B chunked")}
+
+
+def phase_phi3(torch, cfg, params, kernels, path_counts):
+    """Phase 4m, at Phi-3-mini's widths (D 96): teacher-forced prefill and
+    decode-step logits of the kernel route against the plain route, greedy
+    generation (B 4, prompt 512, 64 new: P, then D1 + D2) over a bf16
+    cache, then the serving engine in runs A (whole-prompt, page_size 128)
+    and B (chunked 256, page_size 16) over `serving_requests` (B5 + D2, B6,
+    the append, P at admission), every token teacher-forced; launch counts
+    on paths "phi3-widths ...", each run's exact."""
+    reqs = serving_requests(cfg)
+    longest = max(max(len(p) + n for _, p, n in reqs), PROMPT + NEW)
+    print(f"  sliding_window {PHI3_WINDOW} left out of the config: the longest sequence of "
+          f"the phase holds {longest} keys, where a window of {PHI3_WINDOW} masks nothing")
+    check(longest < PHI3_WINDOW, "every sequence of phase 4m stays below the window")
+    _, _, results = phase_family(torch, cfg, params, 10, B, PROMPT, NEW, kernels, path_counts,
+                                 PHI3_LABEL)
+    results.update(serve_long_requests(torch, cfg, params, kernels, path_counts, PHI3_LABEL,
+                                       PHI3_SERVING_RUNS, reqs))
+    counts: dict = {}
+    for path, c in path_counts.items():
+        if path.startswith(PHI3_LABEL):
+            add_counts(counts, c)
+    for name in ("flash_fwd", "decode_partials", "decode_combine", "paged_decode",
+                 "paged_extend", "paged_append"):
+        check(counts[name] > 0, f"{name} launched on path {PHI3_LABEL}")
+    print(f"  {PHI3_LABEL}: prefill B{B} x {PROMPT} {results['prefill_ms']:.2f} ms, decode "
+          f"{results['decode_ms_per_token']:.2f} ms/token; serving A / B wall "
+          + " / ".join(f"{results[r]['wall_s']:.3f}" for r in PHI3_SERVING_RUNS) + " s, "
+          + " / ".join(f"{results[r]['generated_tokens_per_s']:.1f}" for r in PHI3_SERVING_RUNS)
+          + " tokens/s, peak " + " / ".join(f"{results[r]['peak_memory_gb']:.3f}"
+                                             for r in PHI3_SERVING_RUNS) + " GB; launches "
+          + ", ".join(f"{k} {counts[k]}" for k in sorted(counts) if counts[k]))
+    return results
+
+
+def phi3_rows(torch, ops, gen):
+    """Phase 5f: the "phi3" entries of the P, D1, D2, B5, B6 and append
+    rows at phase 4m's shapes (Phi-3-mini's 32 / 32 heads, D 96): P at the
+    greedy prefill (B 4, S 512), D1 / D2 at its middle decode step, B5 at
+    run A's decode, B6 at run B's extend, the append at run A's decode
+    (`dense_rows`, `paged_rows`). library_ms: SDPA at D 96 (its flash
+    backend takes D 96), over a contiguous copy where the kernel reads
+    pages. Bounds count bytes and operations at D 96; P, D1, B5 and B6 run
+    D 128's layout, so a quarter of their tile columns and products is
+    padding, which counts against them (D2 and the append touch d
+    columns only)."""
+    cfg = phi3_mini_widths_config()
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    rows = dense_rows(torch, cfg, randn, ops["flash_fwd"], ops["flash_decode"])[0]
+    rows += paged_rows(torch, cfg, randn, gen)
+    out = {}
+    for r in rows:
+        r.update(bound(r.pop("ops"), r.pop("bytes"), r.pop("peak")))
+        out[r["name"]] = {k: v for k, v in r.items()
+                          if k not in ("name", "route", "source", "replaces")}
+        out[r["name"]].setdefault("shape", "phase 4m's")
+        if r["name"] in ("flash_fwd", "decode_partials", "paged_decode", "paged_extend"):
+            out[r["name"]]["padding"] = ("bound at D 96; the kernel runs in D 128's layout, "
+                                         "a quarter of its tile columns zeros")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--layers", type=int, default=0,
@@ -4521,6 +4748,12 @@ def main() -> int:
     phase_int8_path(torch, api, flash_fwd, kernels, path_counts["int8 scores"])
     torch.cuda.synchronize()
     print(f"  phase 3i: {time.perf_counter() - t0:.1f} s")
+    print("[3j] head dims outside 64 / 128 / 256: P / B2, D1 + D2, B5, B6 and the append at D "
+          "96, 80, 32, 160 (f16) and 192 vs plain, D 96 also windowed and capped")
+    t0 = time.perf_counter()
+    phase_odd_head_dims(torch, ops, paged_cache, errs)
+    torch.cuda.synchronize()
+    print(f"  phase 3j: {time.perf_counter() - t0:.1f} s")
 
     # 4. main paths
     from flash_attention_cute_tpu_torch.models.llama import llama3_8b_config
@@ -4577,7 +4810,9 @@ def main() -> int:
     families = {}
     for step, name, make, phase, seed in (("4f", "Mistral-7B", mistral_7b_config, phase_mistral, 1),
                                           ("4g", "Qwen2-7B", qwen2_7b_config, phase_qwen2, 2),
-                                          ("4j", "Gemma-2-9B", gemma2_9b_config, phase_gemma2, 3)):
+                                          ("4j", "Gemma-2-9B", gemma2_9b_config, phase_gemma2, 3),
+                                          ("4m", "Phi-3-mini widths", phi3_mini_widths_config,
+                                           phase_phi3, 10)):
         fcfg = make()
         if args.layers:
             fcfg = dataclasses.replace(fcfg, num_layers=args.layers)
@@ -4595,6 +4830,8 @@ def main() -> int:
         families[name] = phase(torch, fcfg, fparams, kernels, path_counts)
         families[name]["weights_gb"] = tree_bytes(fparams) / 1e9
         families[name]["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        families[name]["phase_s"] = time.perf_counter() - t0
+        print(f"  phase {step}: {families[name]['phase_s']:.1f} s")
         del fparams
         torch.cuda.empty_cache()
 
@@ -4695,6 +4932,15 @@ def main() -> int:
     r = next(r for r in i8_rows if r["name"] == "flash_fwd_int8")
     r["gemma2"]["runtime_attributes"] = runtime_attributes(fwd_report, "P-i8 / B2-i8 D256 bf16 cap")
     rows += i8_rows
+    print("[5f] numbers of the kernels at Phi-3-mini's widths (D 96 in D 128's layout)")
+    t0 = time.perf_counter()
+    phi3 = phi3_rows(torch, ops, torch.Generator(device="cuda").manual_seed(82))
+    for r in rows:
+        if r["name"] in phi3:
+            r["phi3"] = {"max_abs_err": errs[f"{r['name']} phi3"], "launches": sum(
+                c[r["name"]] for p, c in path_counts.items() if p.startswith(PHI3_LABEL)),
+                **phi3[r["name"]]}
+    print(f"  phase 5f: {time.perf_counter() - t0:.1f} s")
     # Peak over the whole script: serving reset the counter before each run.
     numbers["max_memory_allocated_gb"] = max(
         [numbers["max_memory_allocated_gb"], serving.pop("peak_before_serving_gb")]

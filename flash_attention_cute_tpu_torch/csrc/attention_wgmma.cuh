@@ -468,10 +468,13 @@ __device__ __forceinline__ void mask_tile(const Segments<kMetaOff, kKStages>& v,
 
 // A consumer warpgroup's whole part of a block (threads 128..383): its 64
 // rows of the walk over `total` tiles from key n_begin, then its rows of O
-// (rows < Sq) into `o` ([B * Hq, Sq, D]) at head `head` (b * Hq + h) and,
+// (rows < Sq) into `o` ([B * Hq, Sq, d]) at head `head` (b * Hq + h) and,
 // with `lse` not null, each row's m + log2(l) (+inf on a row with no
 // visible key). The output's address is formed only then, so that it takes
-// no register through the walk.
+// no register through the walk. d: the true head dim, D where it is
+// D; P / B2 and B6 also run a d below D (a multiple of 8) in D's layout,
+// the Q, K and V columns past d read as zeros by TMA, so S is exact and
+// O's columns past d, which are zeros too, are not stored.
 // kScaleOff (B9; 0 for none): each tile's kN K and V scales lie at
 // base + kScaleOff (kKStages K slots, then kVStages V slots) and land with
 // the tile: S is multiplied by
@@ -493,7 +496,8 @@ template <typename T, int D, bool kCap, int kScaleOff, bool kI8 = false, int kKS
           int kVStages, int kBars, int kKSlot, int kQBytes, typename Vis>
 __device__ __forceinline__ void consume(
     const Rings<D, kKStages, kVStages, kBars, kKSlot, kQBytes>& ring, const Vis& vis,
-    const Scores& sco, int m0, int n_begin, int total, T* o, float* lse, int head) {
+    const Scores& sco, int m0, int n_begin, int total, T* o, float* lse, int head,
+    int d = D) {
   constexpr int kN = Tiles<D>::kN;
   constexpr bool kScaled = kScaleOff > 0 && !kI8;
   constexpr bool kDense = std::is_same_v<Vis, Visible>, kKeyMeta = KeyMeta<Vis>::value;
@@ -762,16 +766,16 @@ __device__ __forceinline__ void consume(
     if (lse != nullptr && t == 0 && row < vis.sq)  // the backward's residual
       lse[static_cast<int64_t>(head) * vis.sq + row] = l > 0.f ? row_max[r] + log2f(l) : INFINITY;
   }
-  T* out = o + static_cast<int64_t>(head) * vis.sq * D;
+  T* out = o + static_cast<int64_t>(head) * vis.sq * d;
 #pragma unroll
   for (int c = 0; c < kOBlocks; ++c)
 #pragma unroll
     for (int j = 0; j < kON / 8; ++j)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const int row = row0 + 8 * r;
-        if (row < vis.sq)
-          *reinterpret_cast<uint32_t*>(out + static_cast<int64_t>(row) * D + c * kON + 8 * j + 2 * t) =
+        const int row = row0 + 8 * r, col = c * kON + 8 * j + 2 * t;
+        if (row < vis.sq && col < d)
+          *reinterpret_cast<uint32_t*>(out + static_cast<int64_t>(row) * d + col) =
               Elem<T>::pack(acc[c][4 * j + 2 * r] * inv[r], acc[c][4 * j + 2 * r + 1] * inv[r]);
       }
 }

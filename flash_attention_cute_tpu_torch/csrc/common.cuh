@@ -82,6 +82,16 @@ __device__ __forceinline__ void kv_round(float x, int8_t* out) {
 }
 __device__ __forceinline__ void kv_round(float x, e4m3* out) { *out = e4m3(x); }
 
+// The head dim of the layout that P / B2, D1, B5 and B6 run a true head
+// dim d in: the least of 64, 128 and 256 at or above d, whose TMA boxes
+// read d's columns and zeros past them (ops/_build.py padded_head_dim);
+// 0 for a d that no layout takes: not a multiple of 8 (a row of 2 d bytes
+// breaks TMA's 16-byte stride rule) or outside 8..256.
+inline int padded_head_dim(int d) {
+  if (d < 8 || d > 256 || d % 8) return 0;
+  return d <= 64 ? 64 : d <= 128 ? 128 : 256;
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));

@@ -3,8 +3,9 @@
 //
 // D1 replaces the TPU kernel flash_attention_cute_tpu/ops/flash_decode.py
 // `_flash_decode_kernel` (pallas_call at :311), sliding window (keys
-// n >= length - W), tanh soft cap, head dims 64, 128 and 256 and GQA groups
-// up to 32 included; D2 replaces the XLA combine at flash_decode.py:345-358
+// n >= length - W), tanh soft cap, every head dim that is a multiple of 8
+// up to 256 (run in the layout of 64, 128 or 256: paged_decode.cuh) and
+// GQA groups up to 32 included; D2 replaces the XLA combine at flash_decode.py:345-358
 // and also merges the splits of B5, B7 and B8, whose partials have the
 // same layout.
 //
@@ -65,7 +66,7 @@ extern "C" int fact_decode_partials(const void* q, const void* k, const void* v,
   p.l = static_cast<float*>(l);
   p.q_sb = q_sb, p.q_sh = q_sh;
   p.hkv = hkv, p.group = group, p.num_splits = num_splits;
-  p.pps = 1, p.page_size = capacity, p.chunk = chunk;
+  p.pps = 1, p.page_size = capacity, p.chunk = chunk, p.d = d;
   p.sc = scores(scale_log2, softcap_log2);
   p.window = window;
   const PagedViews w{q, k, v, q_sb, q_sh, 0, k_sh, k_sb, k_ss, v_sh, v_sb, v_ss,

@@ -22,7 +22,13 @@
 // Both take the tanh soft cap (`softcap_log2`, c * log2(e), 0 for none),
 // applied to every score before the mask in the base-2 units of the body:
 // x = c2 * tanh(x / c2), c2 = c * log2(e), which is log2(e) times the TPU
-// kernels' c * tanh(s / c) of the natural score s. Head dims 64, 128, 256.
+// kernels' c * tanh(s / c) of the natural score s. Head dims: every
+// multiple of 8 from 8 to 256, each run in the layout of the next of 64,
+// 128 and 256 at or above it (padded_head_dim): the maps hold the true d
+// columns, so TMA reads zeros past them, S is exact and O's columns past d
+// are not stored (the TPU wrapper pads D up to its 128 lanes likewise and
+// keeps a D above 128 native, flash_fwd.py:926-938). P-i8 / B2-i8 take 64,
+// 128 and 256.
 // With `lse` not null they also write the per-row lse the backward
 // (flash_bwd.cu) reads (`return_lse`, flash_fwd.py:845): m + log2(l) in the
 // base-2 units of the scores, +inf on a row with no visible key, the TPU
@@ -55,7 +61,7 @@
 namespace fact {
 
 struct FwdParams {
-  void* o;     // [B, Hq, Sq, D] contiguous
+  void* o;     // [B, Hq, Sq, d] contiguous
   float* lse;  // [B, Hq, Sq] fp32 contiguous, or null
   int batch, hq, group, sq, skv;
   Scores sc;
@@ -65,6 +71,7 @@ struct FwdParams {
   // multiple of 128 >= Skv, 0 past Skv).
   const float* kscale;
   int kscale_rows;
+  int d;  // the true head dim: D, or below it in D's layout (P / B2)
 };
 
 // K and V stream through rings of their own (attention_wgmma.cuh): a K tile
@@ -150,7 +157,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   setmaxnreg_inc<240>();
   consume<T, D, kCap, kI8 ? S::kScaleOff : 0, kI8>(
       r, Visible{p.sq, p.skv, offset, p.causal, p.window}, p.sc, m0, n_begin, total,
-      static_cast<T*>(p.o), p.lse, b * p.hq + h);
+      static_cast<T*>(p.o), p.lse, b * p.hq + h, kI8 ? D : p.d);
 }
 
 // ---------------------------------------------------------------------------
@@ -246,13 +253,14 @@ int launch_fwd(const FwdParams& p, const FwdViews& w, cudaStream_t stream) {
   if (blocks <= 0) return cudaSuccess;
   if (blocks > 0x7FFFFFFF) return cudaErrorInvalidValue;
   CUtensorMap qmap, kmap, vmap;
-  const int sq = p.sq, skv = p.skv, kN = Tiles<D>::kN;
+  // The maps hold the true d columns: a box reads zeros past them.
+  const int sq = p.sq, skv = p.skv, kN = Tiles<D>::kN, d = kI8 ? D : p.d;
   const bool kmap_ok = kI8 ? int8_head_map(&kmap, w.k, p.batch, w.hkv, skv, D, kN)
-                            : head_map(&kmap, w.dtype, w.k, p.batch, w.hkv, skv, D, w.k_sb,
+                            : head_map(&kmap, w.dtype, w.k, p.batch, w.hkv, skv, d, w.k_sb,
                                        w.k_sh, w.k_ss, kN);
-  if (!head_map(&qmap, w.dtype, w.q, p.batch, p.hq, sq, D, w.q_sb, w.q_sh, w.q_ss, kBlockM) ||
+  if (!head_map(&qmap, w.dtype, w.q, p.batch, p.hq, sq, d, w.q_sb, w.q_sh, w.q_ss, kBlockM) ||
       !kmap_ok ||
-      !head_map(&vmap, w.dtype, w.v, p.batch, w.hkv, skv, D, w.v_sb, w.v_sh, w.v_ss, kN))
+      !head_map(&vmap, w.dtype, w.v, p.batch, w.hkv, skv, d, w.v_sb, w.v_sh, w.v_ss, kN))
     return cudaErrorInvalidValue;
   kernel<<<static_cast<unsigned>(blocks), kThreads, S::kBytes, stream>>>(qmap, kmap, vmap, p);
   return cudaGetLastError();
@@ -264,11 +272,14 @@ int launch_cap(const FwdParams& p, const FwdViews& w, cudaStream_t s) {
                                  : launch_fwd<T, D, false, kI8>(p, w, s);
 }
 
+// P / B2 run d in the layout of padded_head_dim(d); P-i8 / B2-i8 take
+// d 64, 128 and 256 only.
 template <typename T, bool kI8>
 int dispatch_fwd(const FwdParams& p, const FwdViews& w, int d, cudaStream_t s) {
-  if (d == 64) return launch_cap<T, 64, kI8>(p, w, s);
-  if (d == 128) return launch_cap<T, 128, kI8>(p, w, s);
-  if (d == 256) return launch_cap<T, 256, kI8>(p, w, s);
+  const int layout = kI8 ? d : padded_head_dim(d);
+  if (layout == 64) return launch_cap<T, 64, kI8>(p, w, s);
+  if (layout == 128) return launch_cap<T, 128, kI8>(p, w, s);
+  if (layout == 256) return launch_cap<T, 256, kI8>(p, w, s);
   return cudaErrorInvalidValue;
 }
 
@@ -326,6 +337,7 @@ extern "C" int fact_flash_fwd(const void* q, const void* k, const void* v, void*
   p.sc = scores(scale_log2, softcap_log2);
   p.causal = causal;
   p.window = window;
+  p.d = d;
   const FwdViews w{q, k, v, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, hkv, dtype};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) return dispatch_fwd<__nv_bfloat16, false>(p, w, d, s);

@@ -7,8 +7,10 @@
 //     merged by D2 (flash_decode.cu), whose partials layout [B, Hkv, S, G,
 //     D] is the same. With a sliding window W the splits cut the visible
 //     range [max(0, length - W), length). B5 and B6 take the tanh soft cap
-//     (`softcap_log2`, c * log2(e), 0 for none) and head dims 64, 128 and
-//     256; the append takes any row of a multiple of 16 bytes.
+//     (`softcap_log2`, c * log2(e), 0 for none) and every head dim that is
+//     a multiple of 8 up to 256, each run in the layout of 64, 128 or 256
+//     (padded_head_dim; zeros past d); the append takes any row of a
+//     multiple of 16 bytes.
 //   * B6, paged extend: replaces `_paged_extend_kernel` (:391, pallas_call at
 //     :742). Chunked prefill: the chunk's S query rows sit at global
 //     positions q_offset[b] + r and attend keys `col <= q_offset + r`,
@@ -95,7 +97,7 @@ extern "C" int fact_paged_decode_partials(
   p.l = static_cast<float*>(l);
   p.q_sb = q_sb, p.q_sh = q_sh;
   p.hkv = hkv, p.group = group, p.num_splits = num_splits;
-  p.pps = pps, p.page_size = page_size, p.box_rows = box_rows;
+  p.pps = pps, p.page_size = page_size, p.box_rows = box_rows, p.d = d;
   p.sc = scores(scale_log2, softcap_log2);
   p.window = window;
   const PagedViews w{q, k, v, q_sb, q_sh, 0, k_sh, k_sp, k_ss, v_sh, v_sp, v_ss,
@@ -120,7 +122,7 @@ extern "C" int fact_paged_extend(
   p.kv_length = static_cast<const int*>(kv_length);
   p.page_table = static_cast<const int*>(page_table);
   p.batch = batch, p.hq = hq, p.group = hq / hkv, p.sq = sq;
-  p.pps = pps, p.page_size = page_size, p.box_rows = box_rows;
+  p.pps = pps, p.page_size = page_size, p.box_rows = box_rows, p.d = d;
   p.sc = scores(scale_log2, softcap_log2);
   p.window = window;
   const PagedViews w{q, k, v, q_sb, q_sh, q_ss, k_sh, k_sp, k_ss, v_sh, v_sp, v_ss,

@@ -15,8 +15,14 @@
 //
 // One block per (split, kv head, batch row) writes the partials of the
 // whole GQA group (G = Hq / Hkv <= 32 query rows) over its split's keys:
-// acc [B, Hkv, S, G, D] unnormalised, m and l [B, Hkv, S, G] in base 2;
-// D2 (flash_decode.cu) merges the splits. How keys are found is a template
+// acc [B, Hkv, S, G, d] unnormalised, m and l [B, Hkv, S, G] in base 2;
+// D2 (flash_decode.cu) merges the splits. D1 and B5 take every head dim d
+// that is a multiple of 8 up to 256, in the layout D of
+// padded_head_dim(d): the maps hold d columns, so TMA reads zeros past
+// them into the tiles, q is zero past d in shared memory, and only d
+// columns of the partials are written (the TPU kernels pad D to their 128
+// lanes likewise, flash_decode.py:215, paged_attention.py:302). B7 and B8
+// take d = D of 64, 128 and 256. How keys are found is a template
 // choice, kContig. Paged (B5 / B8): key n of batch row b sits at page
 // page_table[b, n / ps], row n % ps, of one layer's pool [Hkv, P, ps, D].
 // Contiguous (D1 / B7): key n of row b is row n of one layer's cache [B,
@@ -98,7 +104,7 @@ struct PagedDecodeParams {
   const int* page_table;  // [B, pps] int32
   const float* k_scale;   // B7 / B8: one layer's scales [Hkv, P, ps] (B7: [B, Hkv, C]),
   const float* v_scale;   // position stride 1
-  float* acc;             // [B, Hkv, S, G, D] unnormalised partial outputs
+  float* acc;             // [B, Hkv, S, G, d] unnormalised partial outputs
   float* m;               // [B, Hkv, S, G] running max (base 2)
   float* l;               // [B, Hkv, S, G] running sum
   int64_t q_sb, q_sh, ks_sh, ks_sp, vs_sh, vs_sp;  // contiguous: ks_sp / vs_sp step b
@@ -107,6 +113,7 @@ struct PagedDecodeParams {
   Scores sc;
   int window;  // W > 0, or 0 for none
   int chunk;   // contiguous: keys a split, ceil(C / num_splits)
+  int d;       // D1 / B5: the true head dim, D or below it in D's layout
 };
 
 // Shared memory from a 1 KB aligned base: the ring (stage s: its K tile,
@@ -203,8 +210,9 @@ __device__ __forceinline__ void decode_body(const CUtensorMap& kmap, const CUten
   const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;  // the 128-byte swizzle needs 1 KB
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int G = p.group, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int d = kQuant ? D : p.d;  // the partials' row; columns of q past it are zeros
   const int64_t part = (static_cast<int64_t>(b) * p.hkv + hk) * p.num_splits + split;
-  float* acc_out = p.acc + part * G * D;
+  float* acc_out = p.acc + part * G * d;
 
   // This split's tiles [t0, t0 + total) of the visible ones; contiguous,
   // [lo, len) is first cut to the split's chunk.
@@ -221,7 +229,7 @@ __device__ __forceinline__ void decode_body(const CUtensorMap& kmap, const CUten
     total = first + static_cast<int>(static_cast<int64_t>(count) * (split + 1) / p.num_splits) - t0;
   }
   if (total <= 0) {  // weight 0 in the combine
-    for (int i = threadIdx.x; i < G * D; i += kPagedDecodeThreads) acc_out[i] = 0.f;
+    for (int i = threadIdx.x; i < G * d; i += kPagedDecodeThreads) acc_out[i] = 0.f;
     if (threadIdx.x < G) {
       p.m[part * G + threadIdx.x] = -INFINITY;
       p.l[part * G + threadIdx.x] = 0.f;
@@ -317,8 +325,8 @@ __device__ __forceinline__ void decode_body(const CUtensorMap& kmap, const CUten
   const uint32_t sQ = base + L::kQOff;
   for (int i = threadIdx.x - 32; i < 16 * mts * (D / 8); i += 32 * kDecodeConsumers) {
     const int g = i / (D / 8), col = i % (D / 8);
-    uint4 v = make_uint4(0, 0, 0, 0);  // rows past the group are zero
-    if (g < G)
+    uint4 v = make_uint4(0, 0, 0, 0);  // rows past the group and columns past d are zero
+    if (g < G && col < d / 8)
       v = *reinterpret_cast<const uint4*>(static_cast<const T*>(p.q) + b * p.q_sb +
                                           (hk * G + g) * p.q_sh + col * 8);
     sts_u32x4(sQ + g * L::kQPitch + col * 16, v);
@@ -538,11 +546,12 @@ __device__ __forceinline__ void decode_body(const CUtensorMap& kmap, const CUten
   named_sync(1, 32 * kDecodeConsumers);
   const int tid = threadIdx.x - 32;
   for (int i = tid; i < G * D; i += 32 * kDecodeConsumers) {
-    const int g = i / D, d = i % D;
+    const int g = i / D, e = i % D;
+    if (e >= d) continue;  // the layout's columns past d
     float sum = 0.f;
     for (int v = g / 16; v < kDecodeConsumers; v += mts)
-      sum += lds_f32(base + ((v * 16 + g % 16) * D + d) * 4);
-    acc_out[i] = sum;
+      sum += lds_f32(base + ((v * 16 + g % 16) * D + e) * 4);
+    acc_out[kQuant ? i : g * d + e] = sum;
   }
   if (tid < G) {
     float top = -INFINITY, sum = 0.f;
@@ -601,10 +610,11 @@ int launch_paged_decode(const PagedDecodeParams& p, const PagedViews& w, int bat
       L::kSegBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   const int elem = static_cast<int>(sizeof(KV));
   const int rows = kContig ? L::kN : p.box_rows;  // contiguous: a whole tile a box
+  const int d = L::kQuant ? D : p.d;  // the maps hold d columns: zeros past them
   CUtensorMap kmap, vmap;
-  if (!pool_map(&kmap, type, elem, w.k, D, p.page_size, w.num_pages, w.hkv, w.k_ss, w.k_sp, w.k_sh,
+  if (!pool_map(&kmap, type, elem, w.k, d, p.page_size, w.num_pages, w.hkv, w.k_ss, w.k_sp, w.k_sh,
                 L::kSegD, rows, swizzle) ||
-      !pool_map(&vmap, type, elem, w.v, D, p.page_size, w.num_pages, w.hkv, w.v_ss, w.v_sp, w.v_sh,
+      !pool_map(&vmap, type, elem, w.v, d, p.page_size, w.num_pages, w.hkv, w.v_ss, w.v_sp, w.v_sh,
                 L::kSegD, rows, swizzle))
     return cudaErrorInvalidValue;
   const dim3 grid(p.num_splits, p.hkv, batch);
@@ -619,15 +629,17 @@ int launch_paged_decode_cap(const PagedDecodeParams& p, const PagedViews& w, int
                                  : launch_paged_decode<T, KV, D, false, kContig>(p, w, batch, s);
 }
 
-// kContig: `p` and `w` describe one layer's contiguous cache [B, Hkv, C, D]
+// kContig: `p` and `w` describe one layer's contiguous cache [B, Hkv, C, d]
 // as a pool of B pages of C keys (pps 1, page_size C, num_pages B, the page
-// strides those of b), its scales' page strides those of b too.
+// strides those of b), its scales' page strides those of b too. D1 / B5 run
+// p.d in the layout of padded_head_dim; B7 / B8 take d 64, 128 and 256.
 template <typename T, typename KV, bool kContig = false>
 int dispatch_paged_decode(const PagedDecodeParams& p, const PagedViews& w, int batch, int d,
                           cudaStream_t s) {
-  if (d == 64) return launch_paged_decode_cap<T, KV, 64, kContig>(p, w, batch, s);
-  if (d == 128) return launch_paged_decode_cap<T, KV, 128, kContig>(p, w, batch, s);
-  if (d == 256) return launch_paged_decode_cap<T, KV, 256, kContig>(p, w, batch, s);
+  const int layout = sizeof(KV) == 1 ? d : padded_head_dim(d);
+  if (layout == 64) return launch_paged_decode_cap<T, KV, 64, kContig>(p, w, batch, s);
+  if (layout == 128) return launch_paged_decode_cap<T, KV, 128, kContig>(p, w, batch, s);
+  if (layout == 256) return launch_paged_decode_cap<T, KV, 256, kContig>(p, w, batch, s);
   return cudaErrorInvalidValue;
 }
 

@@ -45,20 +45,21 @@ def select_block_config(
 
 def decode_tile(head_dim: int) -> int:
     """Keys of a tile of the decode kernels D1, B5, B7 and B8
-    (csrc/paged_decode.cuh, `DecodeTiles::kN`): 64 at head dim 64, else
-    32."""
-    return 64 if head_dim == 64 else 32
+    (csrc/paged_decode.cuh, `DecodeTiles::kN`): 64 in the layout of head
+    dim 64 (which runs every head dim up to 64), else 32."""
+    return 64 if head_dim <= 64 else 32
 
 
 def decode_num_splits(batch: int, num_kv_heads: int, capacity: int, head_dim: int) -> int:
     """Splits of the decode kernels D1, B5, B7 and B8 from shapes alone
     (never the live lengths): the count whose blocks fill the card's slots
-    (132 SMs x the kernel's blocks an SM: one at D 256, two below) in the
-    fewest waves for the work each split carries, i.e. the least
+    (132 SMs x the kernel's blocks an SM: one in the layout of D 256, which
+    runs every head dim above 128, two below) in the fewest waves for the
+    work each split carries, i.e. the least
     ceil(blocks / slots) / splits, the fewer splits on a tie; at least one,
     and no more than the tiles of the capacity, so that no split is shorter
     than a tile."""
-    slots = NUM_SMS * (1 if head_dim == 256 else 2)
+    slots = NUM_SMS * (1 if head_dim > 128 else 2)
     rows = max(batch * num_kv_heads, 1)
     most = max(1, min(capacity // decode_tile(head_dim), 2 * -(-slots // rows)))
     return min(range(1, most + 1), key=lambda s: (-(-rows * s // slots) / s, s))

@@ -184,8 +184,31 @@ def softcap_arg(logit_softcap: float | None) -> float:
     return float(logit_softcap) * LOG2E
 
 
+# Head dims a kernel lays out natively: each kernel is compiled for these.
+LAYOUT_HEAD_DIMS = (64, 128, 256)
+HEAD_DIM_ITEM = "ROADMAP.md A10b (A.1)"  # the roadmap item of the head dims still refused
+
+
 def check_head_dim(d: int, head_dims: tuple, what: str) -> None:
+    """Raise unless `d` is one of `head_dims`: the kernels that take only
+    the head dims of their layouts (B4, B7-B9, B12, B13a / B13b, QA, K8 and
+    the int8 scores)."""
     if d not in head_dims:
         raise NotImplementedError(
             f"{what} kernel takes head_dim in {head_dims}, got {d} (other head dims: "
-            "ROADMAP.md A10b)")
+            f"{HEAD_DIM_ITEM})")
+
+
+def padded_head_dim(d: int, what: str = "this") -> int:
+    """The head-dim rule of P / B2, D1 + D2, B5, B6 and the paged append:
+    every multiple of 8 from 8 to 256 runs in the layout of the least of
+    `LAYOUT_HEAD_DIMS` at or above it, with the columns past `d` read as
+    zeros (csrc/common.cuh `padded_head_dim`). A row of 2 d bytes must be a
+    multiple of 16 (TMA's stride rule), hence the multiple of 8. Returns
+    that layout's head dim; any other `d` raises, naming the roadmap item,
+    before a launch."""
+    if not (isinstance(d, int) and 8 <= d <= 256 and d % 8 == 0):
+        raise NotImplementedError(
+            f"{what} kernel takes a head_dim that is a multiple of 8 from 8 to 256, got {d} "
+            f"(other head dims: {HEAD_DIM_ITEM})")
+    return next(x for x in LAYOUT_HEAD_DIMS if d <= x)

@@ -11,12 +11,14 @@ total l of 0 gives 0. D1 replaces `_flash_decode_kernel` and D2 the XLA
 combine of flash_attention_cute_tpu/ops/flash_decode.py. With a sliding
 window W the query at position length - 1 sees keys [length - W, length):
 D1 cuts each split to that range, and a split wholly below it is dead.
-D1 takes the tanh soft cap (Gemma2), head dims 64, 128 and 256 and GQA
-groups up to 32; its kernel is B5's (csrc/paged_decode.cuh: a TMA ring of
-tiles feeding tensor-core consumers) over the contiguous cache, with P
-taken into P V in two bf16 / f16 parts (P to about 2^-16). The default
-split count is `dispatch.decode_num_splits`. D2 merges partials of any
-head dim (one thread per entry).
+D1 takes the tanh soft cap (Gemma2), every head dim that is a multiple of
+8 from 8 to 256 (`_build.padded_head_dim`: D 96 runs in D 128's layout,
+its columns past 96 zeros) and GQA groups up to 32; its kernel is B5's
+(csrc/paged_decode.cuh: a TMA ring of tiles feeding tensor-core
+consumers) over the contiguous cache, with P taken into P V in two bf16 /
+f16 parts (P to about 2^-16). The default
+split count is `dispatch.decode_num_splits`. D2 merges partials of the
+same head dims (one thread per entry).
 
 Each wrapper routes on the device of `q`: CPU -> plain version, CUDA -> the
 kernel; what the kernel does not take raises. Cache positions at or past a
@@ -34,7 +36,6 @@ from flash_attention_cute_tpu_torch import dispatch
 from flash_attention_cute_tpu_torch.ops import _build
 
 LOG2E = math.log2(math.e)
-HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 32  # larger groups: ROADMAP.md B.5
 
 P, I, L, F = _build.P, _build.I, _build.L, _build.F
@@ -113,7 +114,7 @@ def decode_partials(q, k, v, lengths, sm_scale, num_splits, window=None, logit_s
     window = _build.window_arg(window)
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"decode kernel takes bf16/f16, got {q.dtype}")
-    _build.check_head_dim(d, HEAD_DIMS, "decode")
+    _build.padded_head_dim(d, "decode")
     if g > MAX_GROUP:
         raise NotImplementedError(f"decode kernel takes Hq/Hkv <= {MAX_GROUP}, got {g} "
                                   "(larger groups: ROADMAP.md B.5)")
@@ -148,6 +149,7 @@ def decode_combine(acc, m, l, dtype):
     b, hkv, splits, g, d = acc.shape
     if dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"combine kernel writes bf16/f16, got {dtype}")
+    _build.padded_head_dim(d, "combine")
     for name, t in (("acc", acc), ("m", m), ("l", l)):
         if t.device != acc.device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous fp32 on {acc.device}")

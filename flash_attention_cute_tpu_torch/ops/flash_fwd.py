@@ -14,18 +14,21 @@ flash_attention_cute_tpu/ops/flash_fwd.py:
     walks only the tiles its rows' windows reach. Replaces the windowed
     geometry of `_flash_fwd_kernel_fused` and `_flash_fwd_kernel`.
 
-Both take the tanh soft cap (`logit_softcap`, Gemma2's 50) and head dims
-64, 128 and 256. With `return_lse` either kernel also writes the per-row
-log-sum-exp the backward needs (ops/flash_bwd.py), in the TPU kernels'
+Both take the tanh soft cap (`logit_softcap`, Gemma2's 50) and every head
+dim that is a multiple of 8 from 8 to 256 (`_build.padded_head_dim`: D 96
+runs in D 128's layout, its columns past 96 read as zeros). With
+`return_lse` either kernel also writes the per-row log-sum-exp the
+backward needs (ops/flash_bwd.py), in the TPU kernels'
 convention: log2 units of the scaled scores, +inf on a row with no visible
 key, at every head dim and with the cap, as the JAX forward returns it
-(the backward kernels take D 256 but not the cap: api.py keeps a capped
-prefill forward-only).
+(the backward kernels take D 64, 128 and 256 but not the cap: api.py
+keeps a capped prefill forward-only).
 
 With `score_dtype="int8"` (opt-in, forward only, as in the JAX package)
-the scores Q K^T are an int8 product: K8 (`QUANTIZE_K`, `quantize_k_rows`)
-quantizes each K row once a call (b = max |k_row|, replacing the TPU
-kernels' `_quantize_k_rows`), and P-i8 / B2-i8 (`PREFILL_INT8`,
+the scores Q K^T are an int8 product (head dims `HEAD_DIMS` only): K8
+(`QUANTIZE_K`, `quantize_k_rows`) quantizes each K row once a call (b =
+max |k_row|, replacing the TPU kernels' `_quantize_k_rows`), and P-i8 /
+B2-i8 (`PREFILL_INT8`,
 `WINDOWED_PREFILL_INT8`, the same P / B2 split by window) quantize each
 pre-scaled q row in the kernel and run S as an s8 wgmma, s = i32 * b *
 (a / 127) / 127 in base-2 units, before the cap, the mask and the softmax
@@ -56,7 +59,7 @@ from flash_attention_cute_tpu_torch.ops import _build
 from flash_attention_cute_tpu_torch.ops.reference import attention_reference, prefill_mask
 
 LOG2E = math.log2(math.e)
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = _build.LAYOUT_HEAD_DIMS  # K8, P-i8 and B2-i8; P / B2 take `_build.padded_head_dim`
 # fp32(1 / 127), as the TPU kernels' `1.0 / 127.0` becomes in fp32.
 _INV127 = torch.tensor(1.0 / 127.0, dtype=torch.float32).item()
 
@@ -269,7 +272,10 @@ def flash_attention_fwd(
         window = 0  # cannot bind: P's geometry
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"prefill kernel takes bf16/f16, got {q.dtype}")
-    _build.check_head_dim(d, HEAD_DIMS, "prefill")
+    if score_dtype == "int8":
+        _build.check_head_dim(d, HEAD_DIMS, "int8-score prefill")
+    else:
+        _build.padded_head_dim(d, "prefill")
     if hq % hkv or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):

@@ -19,7 +19,9 @@ D]` pool); key n of batch row b sits at page `page_table[b, n // ps]`, row
     B9) is wgmma fed by TMA copies of single pages, in the parts
     `extend_plan` picks.
 
-B5 and B6 take the tanh soft cap (Gemma2) and head dims 64, 128 and 256.
+B5 and B6 take the tanh soft cap (Gemma2) and every head dim that is a
+multiple of 8 from 8 to 256 (`_build.padded_head_dim`: D 96 runs in D
+128's layout, its columns past 96 zeros).
 Each wrapper routes on the device of `q`: CPU -> plain version, CUDA -> the
 kernel; what the kernel does not take raises (a pool whose dtype differs
 from q's). Positions at or past a row's length are never read
@@ -39,7 +41,6 @@ from flash_attention_cute_tpu_torch.ops import _build, flash_decode
 from flash_attention_cute_tpu_torch.ops.reference import attention_reference
 
 LOG2E = math.log2(math.e)
-HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 8  # B6 and B9; their groups above 8 are ROADMAP.md B.5
 DECODE_MAX_GROUP = 32  # B5, B7 and B8 (D1: flash_decode.MAX_GROUP)
 
@@ -56,12 +57,13 @@ PAGED_EXTEND = _build.Kernel(
 
 def extend_plan(head_dim: int, page_size: int) -> tuple[int, int]:
     """(keys of a tile, keys of one copy) of the paged extend kernels B6 /
-    B9: tiles of 128 keys (64 at D 256, where O takes twice the registers),
-    each copied by TMA in parts of `gcd(tile, page_size)` keys, a whole page
-    where pages are no wider than the tile. Parts start on a tile's and a
+    B9: tiles of 128 keys (64 in D 256's layout, every head dim above 128,
+    where O takes twice the registers), each copied by TMA in parts of
+    `gcd(tile, page_size)` keys, a whole page where pages are no wider
+    than the tile. Parts start on a tile's and a
     page's boundaries alike, and page_size % 8 == 0 keeps each one at least
     eight 128-byte rows (the 1 KB the swizzle's pattern spans)."""
-    tile = 64 if head_dim == 256 else 128
+    tile = 64 if head_dim > 128 else 128
     return tile, math.gcd(tile, page_size)
 
 
@@ -138,16 +140,20 @@ def paged_attention_extend_plain(q, k_pages, v_pages, q_offset, kv_length, page_
 
 
 def _check_cuda_call(name, q, k_pages, v_pages, page_table, row_tensors, window,
-                     pool_dtype=None, head_dims=HEAD_DIMS, max_group=MAX_GROUP) -> int:
+                     pool_dtype=None, head_dims=None, max_group=MAX_GROUP) -> int:
     """Shared refusals of the CUDA routes; the pools must be `pool_dtype`
-    (default q's dtype), GQA groups at most `max_group`. Returns the window
-    as the kernels take it."""
+    (default q's dtype), head dims one of `head_dims` (default
+    `_build.padded_head_dim`'s rule), GQA groups at most `max_group`.
+    Returns the window as the kernels take it."""
     window = _build.window_arg(window)
     b, hq, _, d = q.shape
     hkv = k_pages.shape[0]
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"{name} kernel takes bf16/f16, got {q.dtype}")
-    _build.check_head_dim(d, head_dims, name)
+    if head_dims is None:
+        _build.padded_head_dim(d, name)
+    else:
+        _build.check_head_dim(d, head_dims, name)
     if hq % hkv or hq // hkv > max_group:
         raise NotImplementedError(f"{name} kernel takes Hq/Hkv <= {max_group}, got {hq}/{hkv}")
     if k_pages.shape != v_pages.shape or k_pages.shape[3] != d or k_pages.ndim != 4:

@@ -11,7 +11,9 @@ and the libraries are disassembled with `cuobjdump -sass`. Prints one JSON
 line: for each source, the kernel functions whose SASS is byte-identical,
 and for each one that differs, whether it is identical once the offsets
 into the kernel's parameter bank (`c[0x0][...]`) are masked, i.e. whether
-only the layout of its argument struct moved. Needs the CUDA toolkit
+only the layout of its argument struct moved, and otherwise its first
+differing instruction (jump targets masked too) beside the index of its
+last tensor-core product. Needs the CUDA toolkit
 (nvcc, cuobjdump); no card.
 """
 
@@ -71,6 +73,33 @@ def masked(sass: str) -> str:
     return re.sub(r"/\* 0x[0-9a-f]+ \*/", "", sass)
 
 
+def instructions(sass: str) -> list[str]:
+    """A function's instructions in order, masked as `masked` does and with
+    the targets of its jumps and calls masked too: code that grows late in
+    a function moves every target past it."""
+    out = []
+    for line in masked(sass).splitlines():
+        m = re.match(r"/\*[0-9a-f]+\*/ (.*?) ;", line)
+        if m:
+            ins = m.group(1)
+            if re.search(r"\b(BRA|BRX|CALL|BSSY|JMP|JMX)\b", ins):
+                ins = re.sub(r"0x[0-9a-f]+", "0x.", ins)
+            out.append(ins)
+    return out
+
+
+def where(sass_a: str, sass_b: str) -> str:
+    """Where two versions of a function part: the first instruction that
+    differs once offsets and targets are masked, against the last tensor
+    core product (HGMMA / HMMA) of A, so that a change confined to a
+    kernel's epilogue shows as such."""
+    a, b = instructions(sass_a), instructions(sass_b)
+    first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+    mma = [i for i, x in enumerate(a) if "MMA" in x.split()[0 if not x.startswith("@") else 1]]
+    return (f"differs from instruction {first} of {len(a)} ({len(b)} in B); A's last tensor "
+            f"core product is instruction {mma[-1] if mma else None}")
+
+
 def main() -> None:
     tree_a, tree_b, sources = sys.argv[1], sys.argv[2], sys.argv[3:]
     libs_a, libs_b = build(tree_a, sources), build(tree_b, sources)
@@ -83,7 +112,8 @@ def main() -> None:
                 same.append(name)
             elif name in fa and name in fb:
                 differ[name] = ("differs only in parameter offsets"
-                                if masked(fa[name]) == masked(fb[name]) else "differs")
+                                if masked(fa[name]) == masked(fb[name])
+                                else where(fa[name], fb[name]))
             else:
                 differ[name] = "only in " + ("A" if name in fa else "B")
         report[src] = {"identical": len(same), "of": len(set(fa) | set(fb)), "differing": differ}

@@ -168,9 +168,10 @@ def test_decode_kernels_match_plain_on_stacked_cache(device, num_splits):
 
 
 def test_kernels_refuse_what_they_do_not_take(device):
-    q = torch.zeros(1, 4, 64, 96, dtype=torch.bfloat16, device="cuda")
-    with pytest.raises(NotImplementedError, match="head_dim"):
-        flash_fwd.flash_attention_fwd(q, q[:, :2], q[:, :2])
+    for d in (100, 264):  # not a multiple of 8; above 256 (D 96 is taken since its layout)
+        q = torch.zeros(1, 4, 64, d, dtype=torch.bfloat16, device="cuda")
+        with pytest.raises(NotImplementedError, match="head_dim"):
+            flash_fwd.flash_attention_fwd(q, q[:, :2], q[:, :2])
     q = torch.zeros(1, 4, 64, 64, dtype=torch.float32, device="cuda")
     with pytest.raises(NotImplementedError, match="bf16/f16"):
         flash_fwd.flash_attention_fwd(q, q, q)
@@ -1784,3 +1785,138 @@ def test_api_int8_scores_launch_k8_and_p_i8(device):
     assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
     with pytest.raises(NotImplementedError, match="forward-only"):
         api.flash_attention_forward(q.requires_grad_(), k, v, causal=True, score_dtype="int8")
+
+
+# Head dims outside {64, 128, 256}: P / B2, D1 + D2, B5, B6 and the paged
+# append run every multiple of 8 up to 256 in the layout of the next of
+# 64, 128 and 256 (TMA reads zeros past d). D 32 (a 64-column box over a
+# 32-column row), 80 (Danube's 32 / 8 heads), 96 (Phi-3-mini's 32 / 32),
+# 160 (a box of D 256's layout wholly past d) and 192, in bf16 and f16,
+# each held to its fp32 plain version at 3e-2 over NaN tails and repeated
+# bit for bit; D 100 and D 264 refused before any launch.
+ODD_DIMS = {32: (16, 4), 80: (32, 8), 96: (32, 32), 160: (16, 8), 192: (16, 4)}
+DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16}
+
+
+def held(fn, plain, kernel, *args, **kw):
+    """Two calls of `fn` (one launch of `kernel` each, bit for bit), and the
+    first's max |diff| against the fp32 plain version on q's fp32 image."""
+    before = kernel.launches
+    out, again = fn(*args, **kw), fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2 and torch.equal(out, again)
+    assert torch.isfinite(out).all()
+    ref = plain(args[0].float(), *args[1:], **kw)
+    return out, (out.float() - ref.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("d", list(ODD_DIMS))
+def test_prefill_kernels_at_odd_head_dims(device, d, dtype):
+    """P (causal, ragged S, the model's transposed views) and B2 (a window
+    of 100 keys), one launch each a call."""
+    hq, hkv = ODD_DIMS[d]
+    gen = torch.Generator(device="cuda").manual_seed(90 + d)
+    q = randn(gen, 2, 333, hq, d, dtype=DTYPES[dtype]).transpose(1, 2)
+    k = randn(gen, 2, 333, hkv, d, dtype=DTYPES[dtype]).transpose(1, 2)
+    v = randn(gen, 2, 333, hkv, d, dtype=DTYPES[dtype]).transpose(1, 2)
+    for kernel, window in ((flash_fwd.PREFILL, None), (flash_fwd.WINDOWED_PREFILL, 100)):
+        out, err = held(flash_fwd.flash_attention_fwd, flash_fwd.flash_attention_fwd_plain,
+                        kernel, q, k, v, causal=True, window=window)
+        assert out.shape == (2, hq, 333, d) and err <= BF16_TOL
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("d", list(ODD_DIMS))
+def test_decode_kernels_at_odd_head_dims(device, d, dtype):
+    """D1 + D2 over a stacked cache with NaN tails (rows of lengths 0, 1,
+    37, C, C - 1 and C / 2 + 3) through `layer`; D1's partials against the
+    plain partials at 7 splits."""
+    hq, hkv = ODD_DIMS[d]
+    gen = torch.Generator(device="cuda").manual_seed(100 + d)
+    lens = [0, 1, 37, 577, 576, 291]
+    k, v = stacked_cache(gen, lens, layers=2, hkv=hkv, cap=577, d=d)
+    k, v = k.to(DTYPES[dtype]), v.to(DTYPES[dtype])
+    q = randn(gen, len(lens), hq, 1, d, dtype=DTYPES[dtype])
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    before = flash_decode.COMBINE.launches
+    out, err = held(flash_decode.flash_attention_decode, flash_decode.flash_attention_decode_plain,
+                    flash_decode.PARTIALS, q, k, v, lengths, layer=1)
+    assert flash_decode.COMBINE.launches == before + 2
+    assert err <= BF16_TOL and (out[0] == 0).all()
+    got = flash_decode.decode_partials(q, k[1], v[1], lengths, d ** -0.5, 7)
+    want = flash_decode.decode_partials_plain(q, k[1], v[1], lengths, d ** -0.5, 7)
+    assert got[0].shape == want[0].shape == (len(lens), hkv, 7, hq // hkv, d)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("d", list(ODD_DIMS))
+@pytest.mark.parametrize("ps", [16, 128])
+def test_paged_kernels_at_odd_head_dims(device, ps, d, dtype):
+    """B5 + D2 (a decode), B6 (a chunk of 130 rows at offsets off the tiles,
+    an inactive row) and the append, over NaN-poisoned pools behind a
+    permuted table."""
+    hq, hkv = ODD_DIMS[d]
+    dt = DTYPES[dtype]
+    gen = torch.Generator(device="cuda").manual_seed(110 + d + ps)
+    lens = [0, 1, ps - 1, ps + 1, 1024, 777]
+    kp, vp, table = paged_pool(gen, ps, len(lens), hkv=hkv, d=d, lengths=lens)
+    kp, vp = kp.to(dt), vp.to(dt)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = randn(gen, len(lens), hq, 1, d, dtype=dt)
+    out, err = held(paged_attention.paged_attention_decode,
+                    paged_attention.paged_attention_decode_plain, paged_attention.PAGED_DECODE,
+                    q, kp, vp, lengths, table)
+    assert err <= BF16_TOL and (out[0] == 0).all()
+
+    offs = torch.tensor([0, 61, 599, 0, 200, 700], dtype=torch.int32, device="cuda")
+    kvl = torch.tensor([130, 191, 729, 0, 330, 830], dtype=torch.int32, device="cuda")
+    kp, vp, table = paged_pool(gen, ps, len(lens), hkv=hkv, d=d, lengths=kvl.tolist())
+    kp, vp = kp.to(dt), vp.to(dt)
+    qe = randn(gen, len(lens), 130, hq, d, dtype=dt).transpose(1, 2)
+    out, err = held(paged_attention.paged_attention_extend,
+                    paged_attention.paged_attention_extend_plain, paged_attention.PAGED_EXTEND,
+                    qe, kp, vp, offs, kvl, table)
+    assert err <= BF16_TOL and (out[3] == 0).all()
+
+    new_k = randn(gen, len(lens), 5, hkv, d, dtype=dt).transpose(1, 2)
+    new_v = randn(gen, len(lens), 5, hkv, d, dtype=dt).transpose(1, 2)
+    active = torch.tensor([1, 1, 1, 0, 1, 1], dtype=torch.bool, device="cuda")
+    ref_k, ref_v = kp.clone(), vp.clone()
+    before = paged_cache.APPEND.launches
+    paged_cache.paged_append_layer(kp, vp, new_k, new_v, table, lengths, active)
+    torch.cuda.synchronize()
+    assert paged_cache.APPEND.launches == before + 1
+    paged_cache.paged_append_layer_plain(ref_k, ref_v, new_k, new_v, table, lengths, active)
+    assert torch.equal(kp.nan_to_num(), ref_k.nan_to_num())
+    assert torch.equal(vp.nan_to_num(), ref_v.nan_to_num())
+
+
+@pytest.mark.parametrize("d", [100, 264])
+def test_odd_head_dim_kernels_refuse_what_no_layout_takes(device, d):
+    """A head dim no layout takes raises naming the roadmap item before any
+    launch, in each kernel of the rule; nothing falls back."""
+    gen = torch.Generator(device="cuda").manual_seed(120)
+    q, k = randn(gen, 2, 4, 64, d), randn(gen, 2, 2, 64, d)
+    lengths = torch.tensor([3, 5], dtype=torch.int32, device="cuda")
+    kp, vp = randn(gen, 2, 9, 16, d), randn(gen, 2, 9, 16, d)
+    table = torch.arange(1, 9, dtype=torch.int32, device="cuda").view(2, 4)
+    counted = (flash_fwd.PREFILL, flash_decode.PARTIALS, flash_decode.COMBINE,
+               paged_attention.PAGED_DECODE, paged_attention.PAGED_EXTEND, paged_cache.APPEND)
+    before = [x.launches for x in counted]
+    calls = [
+        lambda: flash_fwd.flash_attention_fwd(q, k, k, causal=True),
+        lambda: flash_decode.flash_attention_decode(q[:, :, :1], k, k, lengths),
+        lambda: paged_attention.paged_attention_decode(q[:, :, :1], kp, vp, lengths, table),
+        lambda: paged_attention.paged_attention_extend(q[:, :, :4], kp, vp, lengths,
+                                                       lengths + 4, table),
+        lambda: paged_cache.paged_append_layer(kp, vp, k[:, :, :2], k[:, :, :2], table,
+                                               lengths),
+    ]
+    for call in calls:
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md .*A\.1"):
+            call()
+    assert [x.launches for x in counted] == before
+
