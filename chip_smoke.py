@@ -106,7 +106,15 @@ Phases, in order; any failure exits non-zero:
      at 32 / 32 heads, D 80 at 32 / 8, D 32, D 160 in f16, D 192; D 96
      also with a window and with the cap 50): each against its fp32 plain
      version, over NaN tails and poisoned pools (`poison_past`), repeated
-     bit for bit, D1's partials at 5 splits, the append bit-identical.
+     bit for bit, D1's partials at 5 splits, the append bit-identical;
+     (3k) the same head dims in B7 + D2, B8 + D2 (page sizes 16 / 128), B9
+     and QA over int8 and e4m3 values (one-byte rows, every multiple of 16
+     up to 256) and in B4 (a verify round of 5 rows with a kv_length-0
+     row, a chunk of 256; bf16 / f16), D 96 also windowed and capped, each
+     against its fp32 plain version over NaN tails, repeated bit for bit,
+     QA's whole pools bit-identical to the plain version's; D 40 over
+     one-byte rows (d % 16 == 8) in B7, B8, B9 and QA and D 100 in B4
+     refused before any launch.
   4. main paths: greedy generation of Llama-3-8B (random weights from a
      seeded CUDA generator) at B 4, prompt 512, 64 new tokens; launch
      counters show the kernels carried it; teacher-forced logits of the
@@ -209,6 +217,18 @@ Phases, in order; any failure exits non-zero:
      requests (P at admission, B6, B5 + D2, the append), every token
      teacher-forced; launches on paths "phi3-widths ...", each run's
      exact; prefill ms, decode ms/token, serving wall s, tokens/s, peak GB.
+     (4n, on the same tree) At Phi-3-mini's widths and full depth, paths
+     "phi3-widths ...", each run's launch counts exact: greedy generation
+     (B 4, prompt 512, 64 new) over an int8 and an e4m3 contiguous cache
+     (P 32, QA 64 x 32, B7 + D2 63 x 32; the first decode step's kernel
+     route against the plain route), serving runs D (int8 pages of 128)
+     and E (e4m3 pages of 16, chunked 256) over the 24 requests (P or B9 at
+     admission, B8 + D2, QA), every token teacher-forced over quantized
+     pages, and speculation at gamma 4 as in 4e (a prompt drawn as 4e's,
+     numpy seed 0): self-draft, a 2-layer draft and prompt lookup (P, B4
+     layers x rounds, D1 + D2), every token teacher-forced, self-draft
+     acceptance >= 0.75; QA, B7, B8, B9 and B4 each launched on these
+     paths.
      (4k, run after 4e over the Llama tree; launches counted as path "hf")
      The HF surface: (a) HF-named transposed views of the parameters
      through `params_from_state_dict`, then greedy generation: phase 4's
@@ -272,7 +292,12 @@ Phases, in order; any failure exits non-zero:
      bounds of QK^T at the int8 peak plus PV at the bf16 peak (or the
      bytes), library_ms null; (5f) the "phi3" entries of the P, D1, D2,
      B5, B6 and append rows at 4m's shapes (D 96; bounds at D 96;
-     library_ms: SDPA at D 96, over a contiguous copy for B5 / B6); every timed entry its
+     library_ms: SDPA at D 96, over a contiguous copy for B5 / B6); (5g)
+     those of the B7, B8, B9, QA and B4 rows at 4n's shapes (B7 at the int8
+     greedy path's middle decode step, B8 and QA at run D's decode, B9 at
+     run E's extend, B4 at the last verify round and a chunk of 256;
+     library_ms: SDPA at D 96 over a dequantized contiguous copy, none for
+     QA); every timed entry its
      share of its bound ("of_bound"); the card's name and power limit.
 The last line is {"ok": true, "device": {...}}.
 
@@ -1543,14 +1568,15 @@ GAMMA = 4
 SPEC_SAMPLING = {"temperature": 1.0, "top_k": 50}
 
 
-def phase_speculative(torch, cfg, params, ids, kernels, path_counts, greedy_wall_s):
+def phase_speculative(torch, cfg, params, ids, kernels, path_counts, greedy_wall_s, label="",
+                      sampled=True):
     """(i) speculative_generate with the target as its own draft, (ii) with
-    a 2-layer draft of Llama-3-8B widths (random weights from its own
+    a 2-layer draft of the target's widths (random weights from its own
     seeded generator), (iii) prompt_lookup_generate (ngram 2) on prompts
-    that repeat a seeded 64-token segment 8 times, (iv) a sampled run of
-    (i), called twice with one seed. Launch counts per run; every greedy
-    token teacher-forced through one contiguous prefill; (i)'s acceptance
-    share >= 0.75."""
+    that repeat a seeded 64-token segment 8 times, (iv) with `sampled`, a
+    sampled run of (i), called twice with one seed. Launch counts per run
+    (path `label` + the run's name); every greedy token teacher-forced
+    through one contiguous prefill; (i)'s acceptance share >= 0.75."""
     import dataclasses
     import numpy as np
     from flash_attention_cute_tpu_torch.models.transformer import init_params
@@ -1570,28 +1596,30 @@ def phase_speculative(torch, cfg, params, ids, kernels, path_counts, greedy_wall
             params, cfg, draft, dcfg, ids, NEW, gamma=GAMMA, return_stats=True)),
         "prompt lookup": (lookup_ids, 0, lambda: prompt_lookup_generate(
             params, cfg, lookup_ids, NEW, gamma=GAMMA, ngram=2, return_stats=True)),
-        "spec self-draft sampled": (ids, n, lambda: speculative_generate(
-            params, cfg, params, cfg, ids, NEW, gamma=GAMMA, return_stats=True,
-            sampling=SamplingParams(**SPEC_SAMPLING), seed=3)),
     }
+    if sampled:
+        runs["spec self-draft sampled"] = (ids, n, lambda: speculative_generate(
+            params, cfg, params, cfg, ids, NEW, gamma=GAMMA, return_stats=True,
+            sampling=SamplingParams(**SPEC_SAMPLING), seed=3))
     results = {}
     for name, (prompt_ids, draft_layers, fn) in runs.items():
         (tokens, stats), wall, counts = counted_run(torch, kernels, fn)
-        path_counts[name] = counts
+        path_counts[label + name] = counts
         rounds = stats["rounds"]
         share = stats["accepted_drafts"] / (rounds * GAMMA * B)
-        print(f"  ({name}) B{B} prompt {PROMPT} new {NEW} gamma {GAMMA}: {wall:.3f} s, "
+        print(f"  ({label}{name}) B{B} prompt {PROMPT} new {NEW} gamma {GAMMA}: {wall:.3f} s, "
               f"rounds {rounds}, accepted drafts {stats['accepted_drafts']} (share "
               f"{share:.4f}), launches {counts}")
-        check(tuple(tokens.shape) == (B, NEW), f"({name}) token shape")
-        check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()), f"({name}) tokens in vocab")
+        check(tuple(tokens.shape) == (B, NEW), f"({label}{name}) token shape")
+        check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+              f"({label}{name}) tokens in vocab")
         # Prefills (P), one extend per model a round (B4), the draft's
         # gamma - 1 decodes a round (D1 + D2); nothing else.
         want = {"flash_fwd": n + draft_layers, "flash_chunked": (n + draft_layers) * rounds,
                 "decode_partials": draft_layers * rounds * (GAMMA - 1),
                 "decode_combine": draft_layers * rounds * (GAMMA - 1)}
         for kname, c in counts.items():
-            check(c == want.get(kname, 0), f"({name}) {kname} launched {want.get(kname, 0)} "
+            check(c == want.get(kname, 0), f"({label}{name}) {kname} launched {want.get(kname, 0)} "
                   f"times, got {c}")
         results[name] = {
             "wall_s": wall, "tokens_per_s": B * NEW / wall, "rounds": rounds,
@@ -1601,8 +1629,8 @@ def phase_speculative(torch, cfg, params, ids, kernels, path_counts, greedy_wall
         if "sampled" in name:
             again, _, _ = counted_run(torch, kernels, fn)
             same = torch.equal(again[0], tokens)
-            print(f"  ({name}) second call with the same seed: tokens equal {same}")
-            check(same, f"({name}) one seed gives the same tokens")
+            print(f"  ({label}{name}) second call with the same seed: tokens equal {same}")
+            check(same, f"({label}{name}) one seed gives the same tokens")
             continue
         near, top = [], []
         for row in range(B):
@@ -1610,11 +1638,11 @@ def phase_speculative(torch, cfg, params, ids, kernels, path_counts, greedy_wall
                                   tokens[row].tolist())
             near += a
             top += b
-        print(f"  ({name}) teacher-forced: {sum(near)}/{len(near)} tokens within "
+        print(f"  ({label}{name}) teacher-forced: {sum(near)}/{len(near)} tokens within "
               f"{LOGIT_MAX_TOL} of the top logit, argmax share {sum(top) / len(top):.4f}")
-        check(all(near), f"({name}) every token within {LOGIT_MAX_TOL} of the top logit")
+        check(all(near), f"({label}{name}) every token within {LOGIT_MAX_TOL} of the top logit")
         check(sum(top) / len(top) >= ARGMAX_SHARE_MIN,
-              f"({name}) argmax share >= {ARGMAX_SHARE_MIN}")
+              f"({label}{name}) argmax share >= {ARGMAX_SHARE_MIN}")
         results[name]["teacher_forced_argmax_share"] = sum(top) / len(top)
     check(results["spec self-draft"]["acceptance_share"] >= 0.75,
           "self-draft acceptance share >= 0.75 (a wrong B4 mask or offset drives it to 0)")
@@ -2409,7 +2437,7 @@ def quant_rows(torch, cfg, randn, gen):
 
     # B8 + D2 at run D's decode.
     b, ps, pps = 8, 128, 16
-    k, v, table = quant_pool(torch, qz, randn, gen, ps, b, torch.int8)
+    k, v, table = quant_pool(torch, qz, randn, gen, ps, b, torch.int8, d=d, hkv=hkv)
     lens_list = [len(p) + 32 for _, p, _ in serving_requests(cfg)[:b]]
     lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
     q = randn(b, hq, 1, d)
@@ -2435,7 +2463,8 @@ def quant_rows(torch, cfg, randn, gen):
 
     # B9 at run E's extend.
     b, ps, pps, s = 8, 16, 128, 256
-    k, v, table = quant_pool(torch, qz, randn, gen, ps, b, torch.float8_e4m3fn)
+    k, v, table = quant_pool(torch, qz, randn, gen, ps, b, torch.float8_e4m3fn, d=d,
+                          hkv=hkv)
     offs = [0, 256, 512, 768] * 2
     off = torch.tensor(offs, dtype=torch.int32, device="cuda")
     kvl = off + s
@@ -2463,7 +2492,7 @@ def quant_rows(torch, cfg, randn, gen):
 
     # QA at run D's decode: one token per row into int8 pages of 128.
     b, ps, pps = 8, 128, 16
-    k, v, table = quant_pool(torch, qz, randn, gen, ps, b, torch.int8)
+    k, v, table = quant_pool(torch, qz, randn, gen, ps, b, torch.int8, d=d, hkv=hkv)
     nk, nv = (randn(b, 1, hkv, d).transpose(1, 2) for _ in "kv")
     active = torch.ones(b, dtype=torch.bool, device="cuda")
     assert bool(append_targets(table, lens, 1, ps)[1].all())  # every row writes
@@ -2496,7 +2525,8 @@ def chunked_rows(torch, cfg, gen):
     hq, hkv, d = cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim
 
     def measure(s, cap, offs, iters):
-        q, k, v, off, kvl = chunked_inputs(torch, gen, torch.bfloat16, s, cap, offs, None, d)
+        q, k, v, off, kvl = chunked_inputs(torch, gen, torch.bfloat16, s, cap, offs, None, d,
+                                           hq, hkv)
         kr, vr = (x.nan_to_num().repeat_interleave(hq // hkv, dim=1) for x in (k, v))
         cols = torch.arange(cap, device="cuda")[None, None, :]
         mask = ((cols <= off[:, None, None] + torch.arange(s, device="cuda")[None, :, None])
@@ -4437,6 +4467,26 @@ PHI3_LABEL = "phi3-widths"  # the launch-count path of phase 4m
 PHI3_WINDOW = 2047  # Phi-3-mini's sliding_window, left out of the config (see phase_phi3)
 
 
+def note_err(errs, key, e, tag=None):
+    """Keep the largest error of `key` (and, with a tag, of "<key> <tag>")."""
+    for k in (key, f"{key} {tag}") if tag else (key,):
+        errs[k] = max(errs.get(k, 0.0), e)
+
+
+def held_call(torch, errs, what, key, tag, fn, plain, *args, **kw):
+    """Two calls of `fn` (bit for bit, finite over NaN tails) and the
+    first's max |diff| against `plain` run on q's fp32 image (within
+    BF16_TOL), noted under `key` (and "<key> <tag>")."""
+    out, again = fn(*args, **kw), fn(*args, **kw)
+    e = max_err(out, plain(args[0].float(), *args[1:], **kw))
+    note_err(errs, key, e, tag)
+    print(f"  {what}: max|diff| {e:.3e}")
+    check(bool(torch.isfinite(out).all()), f"{what}: finite over NaN tails")
+    check(torch.equal(out, again), f"{what}: a second call repeats bit for bit")
+    check(e <= BF16_TOL, f"{what} within {BF16_TOL}")
+    return out
+
+
 def phase_odd_head_dims(torch, ops, paged_cache, errs):
     """Phase 3j: each kernel of the head-dim rule at each ODD_HEAD_DIMS case
     against its fp32 plain version (3e-2), over NaN-poisoned pool tails and
@@ -4450,18 +4500,10 @@ def phase_odd_head_dims(torch, ops, paged_cache, errs):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     def note(key, e, tag):
-        for k in (key, f"{key} {tag}") if tag else (key,):
-            errs[k] = max(errs.get(k, 0.0), e)
+        note_err(errs, key, e, tag)
 
     def held(what, key, tag, fn, plain, *args, **kw):
-        out, again = fn(*args, **kw), fn(*args, **kw)
-        e = max_err(out, plain(args[0].float(), *args[1:], **kw))
-        note(key, e, tag)
-        print(f"  {what}: max|diff| {e:.3e}")
-        check(bool(torch.isfinite(out).all()), f"{what}: finite over NaN tails")
-        check(torch.equal(out, again), f"{what}: a second call repeats bit for bit")
-        check(e <= BF16_TOL, f"{what} within {BF16_TOL}")
-        return out
+        return held_call(torch, errs, what, key, tag, fn, plain, *args, **kw)
 
     for d, hq, hkv, dt in ODD_HEAD_DIMS:
         dtype = getattr(torch, dt)
@@ -4543,6 +4585,144 @@ def phase_odd_head_dims(torch, ops, paged_cache, errs):
         torch.cuda.empty_cache()
 
 
+def phase_odd_head_dims_quantized(torch, ops, errs):
+    """Phase 3k: B7 + D2, B8 + D2, B9 and QA over int8 and e4m3 values, and
+    B4, at each ODD_HEAD_DIMS case (D 96 also windowed and capped) against
+    their fp32 plain versions (3e-2), over NaN-poisoned pool and cache
+    tails, every call repeated bit for bit, length-0 and inactive rows
+    exact zeros; QA's whole pools bit-identical to the plain version's;
+    then a one-byte row of d % 16 == 8 (D 40) in B7, B8, B9 and QA, and a
+    d that is no multiple of 8 (D 100) in B4, refused before any launch.
+    D 96's errors also go to "<kernel> phi3"."""
+    from flash_attention_cute_tpu_torch.ops.quantized import QuantizedKV
+
+    quantized, flash_chunked = ops["quantized"], ops["flash_chunked"]
+    gen = torch.Generator(device="cuda").manual_seed(4391)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def held(what, key, tag, fn, plain, *args, **kw):
+        return held_call(torch, errs, what, key, tag, fn, plain, *args, **kw)
+
+    for d, hq, hkv, dt in ODD_HEAD_DIMS:
+        dtype = getattr(torch, dt)
+        tag = "phi3" if d == 96 else None
+        variants = ((None, None), (100, None), (None, 50.0)) if d == 96 else ((None, None),)
+        for w, cap in variants:
+            name = f"D {d} ({hq} / {hkv} heads, {dt}{f', window {w}' if w else ''}" \
+                   f"{f', cap {cap:g}' if cap else ''})"
+            held_contiguous_decodes(torch, None, quantized, errs, gen, (
+                (f"{name} capacity 577", d, hq, hkv, 577, w and 45, cap, dt),), QUANT_DTYPES, tag)
+            for ps in (16, 128):
+                for vname in QUANT_DTYPES:
+                    vdtype, what = getattr(torch, vname), f"{name} {vname} page_size {ps}"
+                    full = 1024
+                    lens = [0, 1, ps - 1, ps, ps + 1, full, 777, 2 * ps + 1]
+                    k, v, table = quant_pool(torch, quantized, randn, gen, ps, len(lens), vdtype,
+                                             lens, capacity=full, d=d, hkv=hkv)
+                    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+                    out = held(f"B8 + D2 {what}", "quant_paged_decode", tag,
+                               quantized.paged_attention_decode_quantized,
+                               quantized.paged_attention_decode_quantized_plain,
+                               randn(len(lens), hq, 1, d, dtype=dtype), k, v, lengths, table,
+                               window=w and 45, logit_softcap=cap)
+                    check(bool((out[0] == 0).all()), f"B8 {what}: row of length 0 is exactly 0")
+
+                    offs, s = [0, 61, 599], 130
+                    off = torch.tensor(offs + [0], dtype=torch.int32, device="cuda")
+                    kvl = torch.tensor([o + s for o in offs] + [0], dtype=torch.int32,
+                                       device="cuda")
+                    k, v, table = quant_pool(torch, quantized, randn, gen, ps, 4, vdtype,
+                                             kvl.tolist(), capacity=full, d=d, hkv=hkv)
+                    qe = randn(4, s, hq, d, dtype=dtype).transpose(1, 2)
+                    out = held(f"B9 {what}, S {s}, q_offset {offs}", "quant_paged_extend", tag,
+                               quantized.paged_attention_extend_quantized,
+                               quantized.paged_attention_extend_quantized_plain, qe, k, v, off,
+                               kvl, table, window=w, logit_softcap=cap)
+                    check(bool((out[3] == 0).all()), f"B9 {what}: inactive row is exactly 0")
+                    if w is not None or cap is not None:
+                        continue
+                    # QA: decode rows and a chunk, through the table (an
+                    # inactive row, rows past the table) and into a
+                    # contiguous cache; the whole pools against the plain
+                    # version's.
+                    for sa, starts in ((1, [0, 5, ps - 1, full, 37, 2 * ps, 1, 9]),
+                                       (100, [0, ps - 3, full - 40, 3, 0, 0, 0, 0])):
+                        b = len(starts)
+                        nk, nv = (randn(b, sa, hkv, d, dtype=dtype).transpose(1, 2) for _ in "kv")
+                        lengths = torch.tensor(starts, dtype=torch.int32, device="cuda")
+                        active = torch.tensor([1, 1, 1, 1, 0, 0, 0, 0], dtype=torch.bool,
+                                              device="cuda")
+                        kq, vq, tbl = quant_pool(torch, quantized, randn, gen, ps, b, vdtype,
+                                                 capacity=full, d=d, hkv=hkv)
+                        cont = [quantized.quantize_kv(randn(b, hkv, full + sa, d), vdtype)
+                                for _ in "kv"]
+                        for mode, (kc, vc), t_, a_ in (("paged", (kq, vq), tbl, active),
+                                                       ("contiguous", cont, None, None)):
+                            ref = [QuantizedKV(x.values.clone(), x.scales.clone()) for x in (kc, vc)]
+                            quantized.quantize_append(nk, nv, kc, vc, lengths, t_, a_)
+                            quantized.quantize_append_plain(nk, nv, *ref, lengths, t_, a_)
+                            same = all(
+                                torch.equal(g.values.view(torch.uint8), r.values.view(torch.uint8))
+                                and torch.equal(g.scales.view(torch.int32),
+                                                r.scales.view(torch.int32))
+                                for g, r in zip((kc, vc), ref))
+                            note_err(errs, "quant_append", 0.0 if same else float("inf"), tag)
+                            print(f"  QA {what} {mode}, S {sa}: whole pools bit-identical to "
+                                  f"plain: {same}")
+                            check(same, f"QA {what} {mode}: writes exactly what the plain "
+                                  "quantize_kv + indexed write writes, nothing else")
+                        del cont, kq, vq
+                    del k, v
+            # B4: a verify round (one row of kv_length 0) and a chunk.
+            for s, cap_len, offs, kvl in ((5, 582, [571, 0, 300, 13], [576, 0, 305, 18]),
+                                          (256, 1100, [0, 77, 300, 768], None)):
+                q, k, v, off, lens = chunked_inputs(torch, gen, dtype, s, cap_len, offs, kvl, d,
+                                                    hq, hkv)
+                out = held(f"B4 {name} S {s}, capacity {cap_len}, q_offset {offs}",
+                           "flash_chunked", tag, flash_chunked.flash_attention_chunked,
+                           flash_chunked.flash_attention_chunked_plain, q, k, v, off, lens,
+                           causal=True, window=w, logit_softcap=cap)
+                for i, n in enumerate(lens.tolist()):
+                    if n == 0:
+                        check(bool((out[i] == 0).all()), f"B4 {name}: a kv_length-0 row is 0")
+                del q, k, v
+        torch.cuda.empty_cache()
+
+    # Refusals before any launch: a one-byte row of 40 bytes (d % 16 == 8)
+    # breaks TMA's 16-byte stride rule; B4 takes multiples of 8.
+    counted = (quantized.QUANT_DECODE, quantized.QUANT_PAGED_DECODE,
+               quantized.QUANT_PAGED_EXTEND, quantized.QUANT_APPEND, flash_chunked.CHUNKED,
+               ops["flash_decode"].COMBINE)
+    before = [x.launches for x in counted]
+    k, v, table = quant_pool(torch, quantized, randn, gen, 16, 2, torch.int8, capacity=64, d=40,
+                             hkv=2)
+    cache = quantized.quantize_kv(randn(2, 2, 64, 40), torch.int8)
+    q40, rows = randn(2, 4, 1, 40), torch.tensor([3, 5], dtype=torch.int32, device="cuda")
+    q100, k100 = randn(2, 4, 5, 100), randn(2, 2, 64, 100)
+    for what, call in (
+            ("B7 at D 40 over int8", lambda: quantized.flash_attention_decode_quantized(
+                q40, cache, cache, rows)),
+            ("B8 at D 40 over int8", lambda: quantized.paged_attention_decode_quantized(
+                q40, k, v, rows, table)),
+            ("B9 at D 40 over int8", lambda: quantized.paged_attention_extend_quantized(
+                q40, k, v, rows, rows + 1, table)),
+            ("QA at D 40 over int8", lambda: quantized.quantize_append(
+                q40[:, :2], q40[:, :2], cache, cache, rows)),
+            ("B4 at D 100", lambda: flash_chunked.flash_attention_chunked(
+                q100, k100, k100, rows, rows + 5))):
+        try:
+            call()
+            refused = ""
+        except NotImplementedError as err:
+            refused = str(err)
+        print(f"  {what}: refused: {refused or 'no'}")
+        check("A.1" in refused, f"{what} raises NotImplementedError naming ROADMAP.md A.1")
+    torch.cuda.synchronize()
+    check([x.launches for x in counted] == before, "the refused calls launched nothing")
+
+
 def phi3_mini_widths_config(layers=0):
     """A Llama-family config at the widths of microsoft/Phi-3-mini-4k-instruct
     (its config.json): 32 layers, hidden 3072, 32 q / 32 kv heads, head dim
@@ -4574,8 +4754,8 @@ def phase_phi3(torch, cfg, params, kernels, path_counts):
     print(f"  sliding_window {PHI3_WINDOW} left out of the config: the longest sequence of "
           f"the phase holds {longest} keys, where a window of {PHI3_WINDOW} masks nothing")
     check(longest < PHI3_WINDOW, "every sequence of phase 4m stays below the window")
-    _, _, results = phase_family(torch, cfg, params, 10, B, PROMPT, NEW, kernels, path_counts,
-                                 PHI3_LABEL)
+    ids, _, results = phase_family(torch, cfg, params, 10, B, PROMPT, NEW, kernels, path_counts,
+                                   PHI3_LABEL)
     results.update(serve_long_requests(torch, cfg, params, kernels, path_counts, PHI3_LABEL,
                                        PHI3_SERVING_RUNS, reqs))
     counts: dict = {}
@@ -4592,20 +4772,74 @@ def phase_phi3(torch, cfg, params, kernels, path_counts):
           + " tokens/s, peak " + " / ".join(f"{results[r]['peak_memory_gb']:.3f}"
                                              for r in PHI3_SERVING_RUNS) + " GB; launches "
           + ", ".join(f"{k} {counts[k]}" for k in sorted(counts) if counts[k]))
+    print("[4n] Phi-3-mini widths over int8 / e4m3 caches and in speculation: greedy over "
+          "int8 and e4m3 caches (QA, B7 + D2), serving runs D / E (QA, B8 + D2, B9), "
+          "self-draft, 2-layer-draft and prompt-lookup speculation (B4, D1 + D2, P)")
+    t0 = time.perf_counter()
+    results["quantized_and_speculative"] = phase_phi3_quantized(
+        torch, cfg, params, ids, results["greedy_wall_s"], kernels, path_counts)
+    results["phase_4n_s"] = time.perf_counter() - t0
+    print(f"  phase 4n: {results['phase_4n_s']:.1f} s")
+    return results
+
+
+PHI3_QUANT_SERVING_RUNS = {name: SERVING_RUNS[name]
+                           for name in ("D int8 whole-prompt", "E e4m3 chunked")}
+# The kernels of this slice, each of which must launch on phase 4n's paths.
+PHI3_QUANT_KERNELS = ("quant_append", "quant_decode", "quant_paged_decode",
+                      "quant_paged_extend", "flash_chunked")
+
+
+def phase_phi3_quantized(torch, cfg, params, ids, greedy_wall_s, kernels, path_counts):
+    """Phase 4n, at Phi-3-mini's widths and full depth, on paths
+    "phi3-widths ...", each with its exact launch counts: (a) greedy
+    generation (B 4, prompt 512, 64 new) over an int8 and an e4m3
+    contiguous cache, the first decode step's kernel route against the plain
+    route (`quantized_greedy`: QA, B7 + D2); (b) serving runs D (int8 pages
+    of 128) and E (e4m3 pages of 16, chunked 256) over `serving_requests`
+    (QA, B8 + D2, B9), every token teacher-forced over quantized pages; (c)
+    self-draft, 2-layer-draft and prompt-lookup speculation at gamma 4 (B4,
+    D1 + D2, P) as run 4e's for Llama, on a prompt drawn as run 4e draws
+    its (numpy seed 0), every token teacher-forced, self-draft acceptance
+    >= 0.75. QA, B7, B8, B9 and B4 each launch on these paths."""
+    import numpy as np
+
+    before = set(path_counts)
+    results = quantized_greedy(torch, cfg, params, ids, NEW, kernels, path_counts, PHI3_LABEL,
+                               QUANT_DTYPES)
+    results.update(serve_long_requests(torch, cfg, params, kernels, path_counts, PHI3_LABEL,
+                                       PHI3_QUANT_SERVING_RUNS, serving_requests(cfg)))
+    spec_ids = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (B, PROMPT))).to("cuda")
+    results["speculative"] = phase_speculative(torch, cfg, params, spec_ids, kernels,
+                                               path_counts, greedy_wall_s, f"{PHI3_LABEL} ",
+                                               sampled=False)
+    counts: dict = {}
+    for path in set(path_counts) - before:
+        check(path.startswith(PHI3_LABEL), f"phase 4n's path {path} is labelled {PHI3_LABEL}")
+        add_counts(counts, path_counts[path])
+    for name in PHI3_QUANT_KERNELS:
+        check(counts.get(name, 0) > 0, f"{name} launched on phase 4n's paths")
+    print(f"  {PHI3_LABEL} 4n launches: "
+          + ", ".join(f"{k} {counts[k]}" for k in sorted(counts) if counts[k]))
     return results
 
 
 def phi3_rows(torch, ops, gen):
-    """Phase 5f: the "phi3" entries of the P, D1, D2, B5, B6 and append
-    rows at phase 4m's shapes (Phi-3-mini's 32 / 32 heads, D 96): P at the
-    greedy prefill (B 4, S 512), D1 / D2 at its middle decode step, B5 at
-    run A's decode, B6 at run B's extend, the append at run A's decode
-    (`dense_rows`, `paged_rows`). library_ms: SDPA at D 96 (its flash
-    backend takes D 96), over a contiguous copy where the kernel reads
-    pages. Bounds count bytes and operations at D 96; P, D1, B5 and B6 run
-    D 128's layout, so a quarter of their tile columns and products is
-    padding, which counts against them (D2 and the append touch d
-    columns only)."""
+    """Phases 5f and 5g: the "phi3" entries of the P, D1, D2, B5, B6 and
+    append rows at phase 4m's shapes (Phi-3-mini's 32 / 32 heads, D 96): P
+    at the greedy prefill (B 4, S 512), D1 / D2 at its middle decode step,
+    B5 at run A's decode, B6 at run B's extend, the append at run A's
+    decode (`dense_rows`, `paged_rows`); and of the B7, B8, B9, QA and B4
+    rows at phase 4n's: B7 at the int8 greedy path's middle decode step, B8
+    and QA at run D's decode, B9 at run E's extend (`quant_rows`), B4 at the
+    last verify round of its speculation and at a chunk of 256
+    (`chunked_rows`). library_ms: SDPA at D 96 (its flash backend takes D
+    96), over a contiguous copy where the kernel reads pages, dequantized
+    where it reads int8 / e4m3 values. Bounds count bytes and operations at
+    D 96; P, D1, B4, B5, B6, B7, B8 and B9 run D 128's layout, so a quarter
+    of their tile columns and products is padding, which counts against
+    them (D2, the append and QA touch d columns only)."""
     cfg = phi3_mini_widths_config()
 
     def randn(*shape):
@@ -4613,13 +4847,17 @@ def phi3_rows(torch, ops, gen):
 
     rows = dense_rows(torch, cfg, randn, ops["flash_fwd"], ops["flash_decode"])[0]
     rows += paged_rows(torch, cfg, randn, gen)
+    rows += quant_rows(torch, cfg, randn, gen)
+    rows += chunked_rows(torch, cfg, gen)
     out = {}
     for r in rows:
         r.update(bound(r.pop("ops"), r.pop("bytes"), r.pop("peak")))
         out[r["name"]] = {k: v for k, v in r.items()
                           if k not in ("name", "route", "source", "replaces")}
         out[r["name"]].setdefault("shape", "phase 4m's")
-        if r["name"] in ("flash_fwd", "decode_partials", "paged_decode", "paged_extend"):
+        if r["name"] in ("flash_fwd", "decode_partials", "paged_decode", "paged_extend",
+                         "flash_chunked", "quant_decode", "quant_paged_decode",
+                         "quant_paged_extend"):
             out[r["name"]]["padding"] = ("bound at D 96; the kernel runs in D 128's layout, "
                                          "a quarter of its tile columns zeros")
     return out
@@ -4754,6 +4992,13 @@ def main() -> int:
     phase_odd_head_dims(torch, ops, paged_cache, errs)
     torch.cuda.synchronize()
     print(f"  phase 3j: {time.perf_counter() - t0:.1f} s")
+    print("[3k] head dims outside 64 / 128 / 256 over int8 / e4m3 caches and in the extend: "
+          "B7 + D2, B8 + D2, B9, QA and B4 at D 96, 80, 32, 160 (f16) and 192 vs plain, D 96 "
+          "also windowed and capped; D 40 over one-byte rows and D 100 refused")
+    t0 = time.perf_counter()
+    phase_odd_head_dims_quantized(torch, ops, errs)
+    torch.cuda.synchronize()
+    print(f"  phase 3k: {time.perf_counter() - t0:.1f} s")
 
     # 4. main paths
     from flash_attention_cute_tpu_torch.models.llama import llama3_8b_config
@@ -4932,7 +5177,8 @@ def main() -> int:
     r = next(r for r in i8_rows if r["name"] == "flash_fwd_int8")
     r["gemma2"]["runtime_attributes"] = runtime_attributes(fwd_report, "P-i8 / B2-i8 D256 bf16 cap")
     rows += i8_rows
-    print("[5f] numbers of the kernels at Phi-3-mini's widths (D 96 in D 128's layout)")
+    print("[5f / 5g] numbers of the kernels at Phi-3-mini's widths (D 96 in D 128's layout): "
+          "P, D1, D2, B5, B6 and the append (5f); B7, B8, B9, QA and B4 (5g)")
     t0 = time.perf_counter()
     phi3 = phi3_rows(torch, ops, torch.Generator(device="cuda").manual_seed(82))
     for r in rows:
@@ -4940,7 +5186,7 @@ def main() -> int:
             r["phi3"] = {"max_abs_err": errs[f"{r['name']} phi3"], "launches": sum(
                 c[r["name"]] for p, c in path_counts.items() if p.startswith(PHI3_LABEL)),
                 **phi3[r["name"]]}
-    print(f"  phase 5f: {time.perf_counter() - t0:.1f} s")
+    print(f"  phases 5f / 5g: {time.perf_counter() - t0:.1f} s")
     # Peak over the whole script: serving reset the counter before each run.
     numbers["max_memory_allocated_gb"] = max(
         [numbers["max_memory_allocated_gb"], serving.pop("peak_before_serving_gb")]

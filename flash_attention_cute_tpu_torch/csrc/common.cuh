@@ -82,13 +82,15 @@ __device__ __forceinline__ void kv_round(float x, int8_t* out) {
 }
 __device__ __forceinline__ void kv_round(float x, e4m3* out) { *out = e4m3(x); }
 
-// The head dim of the layout that P / B2, D1, B5 and B6 run a true head
-// dim d in: the least of 64, 128 and 256 at or above d, whose TMA boxes
-// read d's columns and zeros past them (ops/_build.py padded_head_dim);
-// 0 for a d that no layout takes: not a multiple of 8 (a row of 2 d bytes
-// breaks TMA's 16-byte stride rule) or outside 8..256.
-inline int padded_head_dim(int d) {
-  if (d < 8 || d > 256 || d % 8) return 0;
+// The head dim of the layout that P / B2, D1, B4, B5, B6 and, over rows of
+// one-byte elements (elem 1), B7, B8, B9 and QA run a true head dim d in:
+// the least of 64, 128 and 256 at or above d, whose TMA boxes read d's
+// columns and zeros past them (ops/_build.py padded_head_dim); 0 for a d
+// that no layout takes: a row of elem d bytes that is not a multiple of 16
+// (TMA's stride rule: d a multiple of 8 for 2-byte elements, of 16 for
+// one-byte ones), or d outside 1..256.
+inline int padded_head_dim(int d, int elem = 2) {
+  if (d < 1 || d > 256 || d * elem % 16) return 0;
   return d <= 64 ? 64 : d <= 128 ? 128 : 256;
 }
 

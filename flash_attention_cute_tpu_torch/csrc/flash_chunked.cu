@@ -4,8 +4,12 @@
 // with a sliding window W > 0, `col > q_offset[b] + r - W`; a row with no
 // visible key, and a batch row of kv_length 0, is exact zeros. The tanh
 // soft cap (`softcap_log2`, c * log2(e), 0 for none) applies to every score
-// before the mask. Head dims 64, 128, 256. GQA: q head h reads kv head
-// h / (Hq / Hkv).
+// before the mask. Head dims: every multiple of 8 from 8 to 256, each run
+// in the layout of the next of 64, 128 and 256 at or above it
+// (padded_head_dim), as P: the maps hold the true d columns, so TMA reads
+// zeros past them, S is exact and O's columns past d are not stored (the
+// TPU wrapper pads D to its 128 lanes, flash_chunked.py:283). GQA: q head
+// h reads kv head h / (Hq / Hkv).
 //
 // Replaces the TPU kernel flash_attention_cute_tpu/ops/flash_chunked.py
 // `_flash_chunked_kernel` (:47, pallas_call at :372). It computes what that
@@ -44,8 +48,8 @@
 //     key is masked by a select. The walk's last tile, if it crosses
 //     kv_length, lands its V on a barrier of its own; warp 0 zeroes its
 //     rows at and past kv_length and hands the tile on (B6's way).
-//   * Verify rounds (S <= 16, D 64 / 128) take P into P V in two bf16
-//     parts, so that their attention matches the decode kernels' (fp32 P),
+//   * Verify rounds (S <= 16, the layouts of D 64 / 128) take P into P V
+//     in two bf16 parts, so that their attention matches the decode kernels' (fp32 P),
 //     whose logits drafted the tokens: with P rounded once, a Llama-3-8B
 //     self-draft run (32 layers, random weights, an H100) accepted 0.74 of
 //     its drafts, with two parts 0.91.
@@ -62,7 +66,7 @@
 namespace fact {
 
 struct ChunkedParams {
-  void* o;               // [B, Hq, S, D] contiguous
+  void* o;               // [B, Hq, S, d] contiguous
   const int* q_offset;   // [B] int32: global position of q row 0
   const int* kv_length;  // [B] int32: keys visible to the chunk (0 = inactive)
   int batch, hq, group, sq, capacity;
@@ -73,6 +77,7 @@ struct ChunkedParams {
   Scores sc;
   int causal;
   int window;  // W > 0, or 0 for none
+  int d;       // the true head dim, D or below it in D's layout
 };
 
 template <int D>
@@ -176,7 +181,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   setmaxnreg_inc<240>();
   asm volatile("" ::: "memory");
   consume<T, D, kCap, 0>(r, vis, sco, blk.m0, blk.n_begin, blk.total, static_cast<T*>(p.o),
-                         nullptr, blk.head);
+                         nullptr, blk.head, p.d);
 }
 
 // ---------------------------------------------------------------------------
@@ -216,11 +221,12 @@ int launch_chunked(const ChunkedParams& p, const ChunkedViews& w, cudaStream_t s
   const long long blocks = (rows + kBlockM - 1) / kBlockM * (p.hq / p.heads) * p.batch;
   if (blocks <= 0) return cudaSuccess;
   if (blocks > 0x7FFFFFFF) return cudaErrorInvalidValue;
-  // Q as (D, S, Hq, B) with boxes of (64, box_rows, heads, 1).
+  // Q as (d, S, Hq, B) with boxes of (64, box_rows, heads, 1); every map
+  // holds the true d columns, so a box reads zeros past them.
   const CUtensorMapDataType type = w.dtype == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
-  const long long row = 2LL * D;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(p.sq),
+  const long long row = 2LL * p.d;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(p.d), static_cast<cuuint64_t>(p.sq),
                               static_cast<cuuint64_t>(p.hq), static_cast<cuuint64_t>(p.batch)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(p.sq > 1 ? 2 * w.q_ss : row),
                                  static_cast<cuuint64_t>(p.hq > 1 ? 2 * w.q_sh : row),
@@ -230,8 +236,10 @@ int launch_chunked(const ChunkedParams& p, const ChunkedViews& w, cudaStream_t s
   CUtensorMap qmap, kmap, vmap;
   const int kN = Tiles<D>::kN;
   if (!make_map(&qmap, type, 4, w.q, dims, strides, box) ||
-      !head_map(&kmap, w.dtype, w.k, p.batch, w.hkv, p.capacity, D, w.k_sb, w.k_sh, w.k_ss, kN) ||
-      !head_map(&vmap, w.dtype, w.v, p.batch, w.hkv, p.capacity, D, w.v_sb, w.v_sh, w.v_ss, kN))
+      !head_map(&kmap, w.dtype, w.k, p.batch, w.hkv, p.capacity, p.d, w.k_sb, w.k_sh, w.k_ss,
+                kN) ||
+      !head_map(&vmap, w.dtype, w.v, p.batch, w.hkv, p.capacity, p.d, w.v_sb, w.v_sh, w.v_ss,
+                kN))
     return cudaErrorInvalidValue;
   kernel<<<static_cast<unsigned>(blocks), kThreads, S::kBytes, stream>>>(qmap, kmap, vmap, p);
   return cudaGetLastError();
@@ -250,11 +258,14 @@ int launch_chunked_cap(const ChunkedParams& p, const ChunkedViews& w, cudaStream
                                  : launch_chunked_split<T, D, false>(p, w, s);
 }
 
+// d runs in the layout of padded_head_dim(d); splits_p is decided on that
+// layout, so D 96 keeps P in two parts at verify rounds as D 128 does.
 template <typename T>
 int dispatch_chunked(const ChunkedParams& p, const ChunkedViews& w, int d, cudaStream_t s) {
-  if (d == 64) return launch_chunked_cap<T, 64>(p, w, s);
-  if (d == 128) return launch_chunked_cap<T, 128>(p, w, s);
-  if (d == 256) return launch_chunked_cap<T, 256>(p, w, s);
+  const int layout = padded_head_dim(d);
+  if (layout == 64) return launch_chunked_cap<T, 64>(p, w, s);
+  if (layout == 128) return launch_chunked_cap<T, 128>(p, w, s);
+  if (layout == 256) return launch_chunked_cap<T, 256>(p, w, s);
   return cudaErrorInvalidValue;
 }
 
@@ -316,6 +327,7 @@ extern "C" int fact_flash_chunked(const void* q, const void* k, const void* v, v
   p.sc = scores(scale_log2, softcap_log2);
   p.causal = causal;
   p.window = window;
+  p.d = d;
   const ChunkedViews w{q, k, v, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, hkv, dtype};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) return dispatch_chunked<__nv_bfloat16>(p, w, d, s);

@@ -16,13 +16,14 @@
 // One block per (split, kv head, batch row) writes the partials of the
 // whole GQA group (G = Hq / Hkv <= 32 query rows) over its split's keys:
 // acc [B, Hkv, S, G, d] unnormalised, m and l [B, Hkv, S, G] in base 2;
-// D2 (flash_decode.cu) merges the splits. D1 and B5 take every head dim d
-// that is a multiple of 8 up to 256, in the layout D of
-// padded_head_dim(d): the maps hold d columns, so TMA reads zeros past
-// them into the tiles, q is zero past d in shared memory, and only d
-// columns of the partials are written (the TPU kernels pad D to their 128
-// lanes likewise, flash_decode.py:215, paged_attention.py:302). B7 and B8
-// take d = D of 64, 128 and 256. How keys are found is a template
+// D2 (flash_decode.cu) merges the splits. Every head dim d runs in the
+// layout D of padded_head_dim(d, sizeof(KV)): D1 and B5 take every multiple
+// of 8 up to 256, B7 and B8 (one-byte rows) every multiple of 16. The maps
+// hold d columns, so TMA reads zeros past them into the tiles (int8 0 and
+// e4m3 +0 widen to exact zeros), q is zero past d in shared memory, and only
+// d columns of the partials are written (the TPU kernels pad D to their 128
+// lanes likewise, flash_decode.py:215, paged_attention.py:302,
+// quantized.py:249, :614). How keys are found is a template
 // choice, kContig. Paged (B5 / B8): key n of batch row b sits at page
 // page_table[b, n / ps], row n % ps, of one layer's pool [Hkv, P, ps, D].
 // Contiguous (D1 / B7): key n of row b is row n of one layer's cache [B,
@@ -113,7 +114,7 @@ struct PagedDecodeParams {
   Scores sc;
   int window;  // W > 0, or 0 for none
   int chunk;   // contiguous: keys a split, ceil(C / num_splits)
-  int d;       // D1 / B5: the true head dim, D or below it in D's layout
+  int d;       // the true head dim, D or below it in D's layout
 };
 
 // Shared memory from a 1 KB aligned base: the ring (stage s: its K tile,
@@ -210,7 +211,7 @@ __device__ __forceinline__ void decode_body(const CUtensorMap& kmap, const CUten
   const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;  // the 128-byte swizzle needs 1 KB
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int G = p.group, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int d = kQuant ? D : p.d;  // the partials' row; columns of q past it are zeros
+  const int d = p.d;  // the partials' row; columns of q past it are zeros
   const int64_t part = (static_cast<int64_t>(b) * p.hkv + hk) * p.num_splits + split;
   float* acc_out = p.acc + part * G * d;
 
@@ -551,7 +552,7 @@ __device__ __forceinline__ void decode_body(const CUtensorMap& kmap, const CUten
     float sum = 0.f;
     for (int v = g / 16; v < kDecodeConsumers; v += mts)
       sum += lds_f32(base + ((v * 16 + g % 16) * D + e) * 4);
-    acc_out[kQuant ? i : g * d + e] = sum;
+    acc_out[g * d + e] = sum;
   }
   if (tid < G) {
     float top = -INFINITY, sum = 0.f;
@@ -610,11 +611,10 @@ int launch_paged_decode(const PagedDecodeParams& p, const PagedViews& w, int bat
       L::kSegBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   const int elem = static_cast<int>(sizeof(KV));
   const int rows = kContig ? L::kN : p.box_rows;  // contiguous: a whole tile a box
-  const int d = L::kQuant ? D : p.d;  // the maps hold d columns: zeros past them
-  CUtensorMap kmap, vmap;
-  if (!pool_map(&kmap, type, elem, w.k, d, p.page_size, w.num_pages, w.hkv, w.k_ss, w.k_sp, w.k_sh,
+  CUtensorMap kmap, vmap;  // the maps hold d columns: zeros past them
+  if (!pool_map(&kmap, type, elem, w.k, p.d, p.page_size, w.num_pages, w.hkv, w.k_ss, w.k_sp, w.k_sh,
                 L::kSegD, rows, swizzle) ||
-      !pool_map(&vmap, type, elem, w.v, d, p.page_size, w.num_pages, w.hkv, w.v_ss, w.v_sp, w.v_sh,
+      !pool_map(&vmap, type, elem, w.v, p.d, p.page_size, w.num_pages, w.hkv, w.v_ss, w.v_sp, w.v_sh,
                 L::kSegD, rows, swizzle))
     return cudaErrorInvalidValue;
   const dim3 grid(p.num_splits, p.hkv, batch);
@@ -631,12 +631,12 @@ int launch_paged_decode_cap(const PagedDecodeParams& p, const PagedViews& w, int
 
 // kContig: `p` and `w` describe one layer's contiguous cache [B, Hkv, C, d]
 // as a pool of B pages of C keys (pps 1, page_size C, num_pages B, the page
-// strides those of b), its scales' page strides those of b too. D1 / B5 run
-// p.d in the layout of padded_head_dim; B7 / B8 take d 64, 128 and 256.
+// strides those of b), its scales' page strides those of b too. Each runs
+// p.d in the layout of padded_head_dim for its element size.
 template <typename T, typename KV, bool kContig = false>
 int dispatch_paged_decode(const PagedDecodeParams& p, const PagedViews& w, int batch, int d,
                           cudaStream_t s) {
-  const int layout = sizeof(KV) == 1 ? d : padded_head_dim(d);
+  const int layout = padded_head_dim(d, sizeof(KV));
   if (layout == 64) return launch_paged_decode_cap<T, KV, 64, kContig>(p, w, batch, s);
   if (layout == 128) return launch_paged_decode_cap<T, KV, 128, kContig>(p, w, batch, s);
   if (layout == 256) return launch_paged_decode_cap<T, KV, 256, kContig>(p, w, batch, s);

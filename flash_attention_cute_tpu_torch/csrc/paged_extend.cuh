@@ -17,11 +17,13 @@
 // kernel computes: values widened exactly to q's type, S multiplied by each
 // key's K scale in fp32 before the cap, P by each key's V scale before it is
 // rounded to q's type (the TPU kernel's `(p * vscale).astype(...)`); no
-// scale is folded into a rounded K / V value. B6 takes every head dim d
-// that is a multiple of 8 up to 256, in the layout D of padded_head_dim(d)
-// (as P: the maps hold d columns, TMA reads zeros past them, O's columns
-// past d are not stored; the TPU kernel pads D to its 128 lanes,
-// paged_attention.py:665); B9 takes d = D of 64, 128 and 256.
+// scale is folded into a rounded K / V value. Every head dim d runs in the
+// layout D of padded_head_dim(d, sizeof(KV)): B6 takes every multiple of 8
+// up to 256, B9 (one-byte rows) every multiple of 16. As in P, the maps
+// hold d columns, TMA reads zeros past them (B9's raw boxes too, which the
+// widening turns into exact zeros), O's columns past d are not stored (the
+// TPU kernels pad D to their 128 lanes, paged_attention.py:665,
+// quantized.py:995).
 //
 // What bounds them on the H100: tensor-core operations (4 D per visible
 // (row, key) pair and q head) at chunk lengths, far above the card's ~295
@@ -72,7 +74,7 @@ struct PagedParams {
   int box_rows;  // keys of one copy: a page, or a part of one
   Scores sc;
   int window;  // W > 0, or 0 for none
-  int d;       // B6: the true head dim, D or below it in D's layout
+  int d;       // the true head dim, D or below it in D's layout
 };
 
 // Shared memory: Q, the K and V slots (Rings), B9's raw slots at D 64 and
@@ -333,8 +335,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   setmaxnreg_inc<(504 - kProducerRegs) / 2>();
   consume<T, D, kCap, kQuant ? S::kScaleOff : 0>(r, vis, sco, m0, n_begin, total,
-                                                 static_cast<T*>(p.o), nullptr, b * p.hq + h,
-                                                 kQuant ? D : p.d);
+                                                 static_cast<T*>(p.o), nullptr, b * p.hq + h, p.d);
 }
 
 // ---------------------------------------------------------------------------
@@ -380,7 +381,7 @@ int launch_paged_extend(const PagedParams& p, const PagedViews& w, cudaStream_t 
   const int cols = kQuant ? (D < 128 ? D : 128) : 64;
   const CUtensorMapSwizzle swizzle = kQuant ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B;
   const int elem = static_cast<int>(sizeof(KV));
-  const int d = kQuant ? D : p.d;  // the maps hold d columns: zeros past them
+  const int d = p.d;  // the maps hold d columns: zeros past them
   CUtensorMap qmap, kmap, vmap;
   if (!head_map(&qmap, w.dtype, w.q, p.batch, p.hq, p.sq, d, w.q_sb, w.q_sh, w.q_ss, kBlockM) ||
       !pool_map(&kmap, type, elem, w.k, d, p.page_size, w.num_pages, w.hkv, w.k_ss, w.k_sp, w.k_sh,
@@ -398,10 +399,10 @@ int launch_paged_extend_cap(const PagedParams& p, const PagedViews& w, cudaStrea
                                  : launch_paged_extend<T, KV, D, false>(p, w, s);
 }
 
-// B6 runs d in the layout of padded_head_dim(d); B9 takes d 64, 128 and 256.
+// B6 and B9 run d in the layout of padded_head_dim for their element size.
 template <typename T, typename KV>
 int dispatch_paged_extend(const PagedParams& p, const PagedViews& w, int d, cudaStream_t s) {
-  const int layout = sizeof(KV) == 1 ? d : padded_head_dim(d);
+  const int layout = padded_head_dim(d, sizeof(KV));
   if (layout == 64) return launch_paged_extend_cap<T, KV, 64>(p, w, s);
   if (layout == 128) return launch_paged_extend_cap<T, KV, 128>(p, w, s);
   if (layout == 256) return launch_paged_extend_cap<T, KV, 256>(p, w, s);

@@ -4,9 +4,11 @@
 // q heads a kv head) over one layer's int8 / e4m3 pool [Hkv, P, ps, D] with
 // f32 scales [Hkv, P, ps] through the page table; D2 (flash_decode.cu)
 // merges the splits. It takes B2's sliding window, the tanh soft cap and
-// head dims 64, 128 and 256. The kernel is B5's (paged_decode.cuh): a TMA
-// ring of pages, their scales beside them, feeding tensor-core consumers
-// that widen the values exactly to q's type in registers; the K scale
+// every head dim that is a multiple of 16 up to 256, in the layout of 64,
+// 128 or 256 (padded_head_dim over one-byte rows). The kernel is B5's
+// (paged_decode.cuh): a TMA ring of pages, their scales beside them,
+// feeding tensor-core consumers that widen the values exactly to q's type
+// in registers; the K scale
 // multiplies each score before the cap, the V scale each probability, the
 // running sum keeps the unscaled one. Bound by memory bytes, which 1-byte
 // values halve. A translation unit of its own, so that its 24
@@ -39,7 +41,7 @@ extern "C" int fact_quant_paged_decode_partials(
   p.q_sb = q_sb, p.q_sh = q_sh;
   p.ks_sh = ks_sh, p.ks_sp = ks_sp, p.vs_sh = vs_sh, p.vs_sp = vs_sp;
   p.hkv = hkv, p.group = group, p.num_splits = num_splits;
-  p.pps = pps, p.page_size = page_size, p.box_rows = box_rows;
+  p.pps = pps, p.page_size = page_size, p.box_rows = box_rows, p.d = d;
   p.sc = scores(scale_log2, softcap_log2);
   p.window = window;
   const PagedViews w{q, k, v, q_sb, q_sh, 0, k_sh, k_sp, k_ss, v_sh, v_sp, v_ss,

@@ -2,10 +2,11 @@
 // one f32 scale per token and kv head): replaces the TPU kernel
 // flash_attention_cute_tpu/ops/quantized.py `_quant_paged_extend_kernel`
 // (:717, pallas_call at :1076), with its soft cap, its sliding window and
-// head dims 64, 128 and 256. The kernel is B6's (paged_extend.cuh), whose
-// producer warpgroup widens each tile of raw values exactly into q's type
-// before the wgmma products read it; what bounds it and the design are
-// there. A translation unit of its own: its 24 instantiations (bf16 / f16 q
+// every head dim that is a multiple of 16 up to 256, in the layout of 64,
+// 128 or 256 (padded_head_dim over one-byte rows). The kernel is B6's
+// (paged_extend.cuh), whose producer warpgroup widens each tile of raw
+// values exactly into q's type before the wgmma products read it; what
+// bounds it and the design are there. A translation unit of its own: its 24 instantiations (bf16 / f16 q
 // x int8 / e4m3 values x D x cap) build beside quantized.cu's.
 #include "paged_extend.cuh"
 
@@ -43,7 +44,7 @@ extern "C" int fact_quant_paged_extend(
   p.v_scale = static_cast<const float*>(v_scale);
   p.ks_sh = ks_sh, p.ks_sp = ks_sp, p.vs_sh = vs_sh, p.vs_sp = vs_sp;
   p.batch = batch, p.hq = hq, p.group = hq / hkv, p.sq = sq;
-  p.pps = pps, p.page_size = page_size, p.box_rows = box_rows;
+  p.pps = pps, p.page_size = page_size, p.box_rows = box_rows, p.d = d;
   p.sc = scores(scale_log2, softcap_log2);
   p.window = window;
   const PagedViews w{q, k, v, q_sb, q_sh, q_ss, k_sh, k_sp, k_ss, v_sh, v_sp, v_ss,

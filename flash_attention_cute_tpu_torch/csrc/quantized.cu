@@ -6,8 +6,9 @@
 //     pallas_call at :337). Split-KV decode partials over one layer of the
 //     contiguous cache [B, Hkv, C, D] with scales [B, Hkv, C]; D2
 //     (flash_decode.cu) merges the splits. It takes B2's sliding window (0
-//     for none), the tanh soft cap, head dims 64, 128 and 256 and GQA groups
-//     up to 32, as D1 does. B8, the quantized paged decode, is
+//     for none), the tanh soft cap, every head dim that is a multiple of 16
+//     up to 256 (in the layout of 64, 128 or 256: padded_head_dim over
+//     one-byte rows) and GQA groups up to 32, as D1 does. B8, the quantized paged decode, is
 //     quant_paged_decode.cu; B9, the quantized paged extend,
 //     quant_paged_extend.cu.
 //   * QA, quantize-and-append (not a TPU kernel): replaces the XLA
@@ -17,7 +18,8 @@
 //     (:167-175). Writes S new K/V rows per batch row, quantized per token,
 //     at positions lengths[b] + s of the contiguous cache or through the
 //     page table; rows of inactive batch rows and positions past the table
-//     (or past the cache) write nothing. Head dims 64, 128 and 256.
+//     (or past the cache) write nothing. Every head dim that is a multiple
+//     of 16 up to 256.
 //
 // What bounds them on the H100, and the design. B7 is B8's kernel
 // (paged_decode.cuh) over a contiguous cache, as D1 is B5's: bound by
@@ -29,9 +31,13 @@
 // (each new row read once, its values and scale written once): one block
 // per (token, batch row), one warp per (K or V, kv head) row, an fp32 amax
 // over the row by a warp reduction, scale = amax / qmax (1 where amax is
-// 0), values x / scale rounded half to even. The division is IEEE (no
-// fast-math flags in ops/_build.py), so the values are bit-identical to the
-// plain version's.
+// 0), values x / scale rounded half to even. Compiled for the layout's D
+// (D / 32 values a lane); below D `quant_append_tail_kernel` reads and
+// writes the row's d values only: a lane past d would read the next head's
+// or token's row into the amax and write over it. At d = D
+// `quant_append_kernel` has no such bound (it cost 16 % at D 256, PERF.md).
+// The division is IEEE (no fast-math flags in ops/_build.py), so the values
+// are bit-identical to the plain version's.
 #include "paged_decode.cuh"
 
 namespace fact {
@@ -50,11 +56,13 @@ struct QuantAppendParams {
   int64_t c_sb, c_sh, c_ss, c_sp;  // value strides (K and V pools alike); sb contiguous, sp paged
   int64_t s_sb, s_sh, s_sp;        // scale strides (K and V alike)
   int hkv, capacity, pps, page_size;
+  int d;  // the true head dim, D or below it in D's layout
 };
 
-template <typename T, typename KV, int D, bool kPaged>
-__global__ void __launch_bounds__(128) quant_append_kernel(const QuantAppendParams p) {
-  constexpr int kPer = D / 32;  // elements of a row per lane
+// The kernel's body; kTail: the row's d is below the layout's D.
+template <typename T, typename KV, int D, bool kPaged, bool kTail>
+__device__ __forceinline__ void quant_append_body(const QuantAppendParams& p) {
+  constexpr int kPer = D / 32;  // elements of the layout's row per lane
   const int s = blockIdx.x, b = blockIdx.y;
   if (p.active != nullptr && p.active[b] == 0) return;
   const int pos = p.lengths[b] + s;
@@ -82,24 +90,44 @@ __global__ void __launch_bounds__(128) quant_append_kernel(const QuantAppendPara
     float amax = 0.f;
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
-      x[i] = Elem<T>::to_float(src[lane + 32 * i]);
+      x[i] = !kTail || lane + 32 * i < p.d ? Elem<T>::to_float(src[lane + 32 * i]) : 0.f;
       amax = fmaxf(amax, fabsf(x[i]));
     }
     amax = warp_max(amax);
     const float scale = amax == 0.f ? 1.f : amax / kv_qmax<KV>();
     KV* dst = static_cast<KV*>(is_v ? p.v_vals : p.k_vals) + h * p.c_sh + vrow;
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) kv_round(x[i] / scale, dst + lane + 32 * i);
+    for (int i = 0; i < kPer; ++i)
+      if (!kTail || lane + 32 * i < p.d) kv_round(x[i] / scale, dst + lane + 32 * i);
     if (lane == 0) (is_v ? p.v_scales : p.k_scales)[h * p.s_sh + srow] = scale;
   }
+}
+
+// d = D.
+template <typename T, typename KV, int D, bool kPaged>
+__global__ void __launch_bounds__(128) quant_append_kernel(const QuantAppendParams p) {
+  quant_append_body<T, KV, D, kPaged, false>(p);
+}
+
+// d below D, in D's layout.
+template <typename T, typename KV, int D, bool kPaged>
+__global__ void __launch_bounds__(128) quant_append_tail_kernel(const QuantAppendParams p) {
+  quant_append_body<T, KV, D, kPaged, true>(p);
+}
+
+template <typename T, typename KV, int D, bool kPaged>
+void launch_append_layout(const QuantAppendParams& p, dim3 grid, int d, cudaStream_t stream) {
+  if (d == D) quant_append_kernel<T, KV, D, kPaged><<<grid, 128, 0, stream>>>(p);
+  else quant_append_tail_kernel<T, KV, D, kPaged><<<grid, 128, 0, stream>>>(p);
 }
 
 template <typename T, typename KV, bool kPaged>
 int launch_append(const QuantAppendParams& p, int batch, int s, int d, cudaStream_t stream) {
   const dim3 grid(s, batch);
-  if (d == 64) quant_append_kernel<T, KV, 64, kPaged><<<grid, 128, 0, stream>>>(p);
-  else if (d == 128) quant_append_kernel<T, KV, 128, kPaged><<<grid, 128, 0, stream>>>(p);
-  else if (d == 256) quant_append_kernel<T, KV, 256, kPaged><<<grid, 128, 0, stream>>>(p);
+  const int layout = padded_head_dim(d, 1);
+  if (layout == 64) launch_append_layout<T, KV, 64, kPaged>(p, grid, d, stream);
+  else if (layout == 128) launch_append_layout<T, KV, 128, kPaged>(p, grid, d, stream);
+  else if (layout == 256) launch_append_layout<T, KV, 256, kPaged>(p, grid, d, stream);
   else return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
@@ -146,7 +174,7 @@ extern "C" int fact_quant_decode_partials(
   p.q_sb = q_sb, p.q_sh = q_sh;
   p.ks_sh = ks_sh, p.ks_sp = ks_sb, p.vs_sh = vs_sh, p.vs_sp = vs_sb;
   p.hkv = hkv, p.group = group, p.num_splits = num_splits;
-  p.pps = 1, p.page_size = capacity, p.chunk = chunk;
+  p.pps = 1, p.page_size = capacity, p.chunk = chunk, p.d = d;
   p.sc = scores(scale_log2, softcap_log2);
   p.window = window;
   const PagedViews w{q, k, v, q_sb, q_sh, 0, k_sh, k_sb, k_ss, v_sh, v_sb, v_ss,
@@ -197,7 +225,7 @@ extern "C" int fact_quant_append(
   p.vn_sb = vn_sb, p.vn_sh = vn_sh, p.vn_ss = vn_ss;
   p.c_sb = c_sb, p.c_sh = c_sh, p.c_ss = c_ss, p.c_sp = c_sp;
   p.s_sb = s_sb, p.s_sh = s_sh, p.s_sp = s_sp;
-  p.hkv = hkv, p.capacity = capacity, p.pps = pps, p.page_size = page_size;
+  p.hkv = hkv, p.capacity = capacity, p.pps = pps, p.page_size = page_size, p.d = d;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return paged ? dispatch_append<true>(p, batch, s, d, dtype, kv_dtype, st)
                : dispatch_append<false>(p, batch, s, d, dtype, kv_dtype, st);

@@ -191,24 +191,28 @@ HEAD_DIM_ITEM = "ROADMAP.md A10b (A.1)"  # the roadmap item of the head dims sti
 
 def check_head_dim(d: int, head_dims: tuple, what: str) -> None:
     """Raise unless `d` is one of `head_dims`: the kernels that take only
-    the head dims of their layouts (B4, B7-B9, B12, B13a / B13b, QA, K8 and
-    the int8 scores)."""
+    the head dims of their layouts (B12, B13a / B13b, K8 and the int8
+    scores)."""
     if d not in head_dims:
         raise NotImplementedError(
             f"{what} kernel takes head_dim in {head_dims}, got {d} (other head dims: "
             f"{HEAD_DIM_ITEM})")
 
 
-def padded_head_dim(d: int, what: str = "this") -> int:
-    """The head-dim rule of P / B2, D1 + D2, B5, B6 and the paged append:
-    every multiple of 8 from 8 to 256 runs in the layout of the least of
-    `LAYOUT_HEAD_DIMS` at or above it, with the columns past `d` read as
-    zeros (csrc/common.cuh `padded_head_dim`). A row of 2 d bytes must be a
-    multiple of 16 (TMA's stride rule), hence the multiple of 8. Returns
-    that layout's head dim; any other `d` raises, naming the roadmap item,
-    before a launch."""
-    if not (isinstance(d, int) and 8 <= d <= 256 and d % 8 == 0):
+def padded_head_dim(d: int, what: str = "this", elem_bytes: int = 2) -> int:
+    """The head-dim rule of P / B2, D1 + D2, B4, B5, B6, the paged append
+    and, over one-byte (int8 / e4m3) rows, B7, B8, B9 and QA: a head dim
+    runs in the layout of the least of `LAYOUT_HEAD_DIMS` at or above it,
+    with the columns past `d` read as zeros (csrc/common.cuh
+    `padded_head_dim`). A row of `elem_bytes` d bytes must be a multiple of
+    16 (TMA's stride rule): rows of 2-byte elements take every multiple of
+    8 from 8 to 256, one-byte rows every multiple of 16 from 16 to 256.
+    Returns that layout's head dim; any other `d` raises, naming the
+    roadmap item, before a launch."""
+    step = 16 // elem_bytes
+    if not (isinstance(d, int) and step <= d <= 256 and d % step == 0):
+        rows = " over one-byte rows" if elem_bytes == 1 else ""
         raise NotImplementedError(
-            f"{what} kernel takes a head_dim that is a multiple of 8 from 8 to 256, got {d} "
-            f"(other head dims: {HEAD_DIM_ITEM})")
+            f"{what} kernel takes a head_dim that is a multiple of {step} from {step} to 256"
+            f"{rows}, got {d} (other head dims: {HEAD_DIM_ITEM})")
     return next(x for x in LAYOUT_HEAD_DIMS if d <= x)

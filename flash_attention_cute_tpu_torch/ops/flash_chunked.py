@@ -19,8 +19,10 @@ the device of `q`: a CPU tensor takes the plain version (the fp32
 reference), a CUDA tensor launches B4 (csrc/flash_chunked.cu: wgmma fed by
 TMA, the GQA group's heads packed into a block where their rows fit),
 which replaces the TPU kernel `_flash_chunked_kernel`. Both take the tanh
-soft cap (Gemma2's 50) and head dims 64, 128 and 256. What the kernel does
-not take raises; nothing falls back. Cache positions at or past a row's
+soft cap (Gemma2's 50) and every head dim that is a multiple of 8 from 8 to
+256 (`_build.padded_head_dim`: D 96 runs in D 128's layout, its columns
+past 96 zeros, as the TPU wrapper pads D to its 128 lanes). What the kernel
+does not take raises; nothing falls back. Cache positions at or past a row's
 length may hold uninitialised memory, even NaN: the kernel masks their
 scores and zeroes their V rows before P V, and the plain version zeroes
 them out of its products. The TPU-only arguments `block_q`, `block_kv`,
@@ -40,7 +42,6 @@ from flash_attention_cute_tpu_torch.ops.reference import (
 )
 
 LOG2E = math.log2(math.e)
-HEAD_DIMS = (64, 128, 256)
 
 P, I, L, F = _build.P, _build.I, _build.L, _build.F
 CHUNKED = _build.Kernel(
@@ -117,7 +118,7 @@ def flash_attention_chunked(
         )
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"extend kernel takes bf16/f16, got {q.dtype}")
-    _build.check_head_dim(d, HEAD_DIMS, "extend")
+    _build.padded_head_dim(d, "extend")
     if hq % hkv or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):

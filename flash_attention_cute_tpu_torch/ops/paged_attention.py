@@ -140,20 +140,17 @@ def paged_attention_extend_plain(q, k_pages, v_pages, q_offset, kv_length, page_
 
 
 def _check_cuda_call(name, q, k_pages, v_pages, page_table, row_tensors, window,
-                     pool_dtype=None, head_dims=None, max_group=MAX_GROUP) -> int:
+                     pool_dtype=None, max_group=MAX_GROUP) -> int:
     """Shared refusals of the CUDA routes; the pools must be `pool_dtype`
-    (default q's dtype), head dims one of `head_dims` (default
-    `_build.padded_head_dim`'s rule), GQA groups at most `max_group`.
-    Returns the window as the kernels take it."""
+    (default q's dtype), head dims those of `_build.padded_head_dim`'s rule
+    for the pools' element size, GQA groups at most `max_group`. Returns
+    the window as the kernels take it."""
     window = _build.window_arg(window)
     b, hq, _, d = q.shape
     hkv = k_pages.shape[0]
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"{name} kernel takes bf16/f16, got {q.dtype}")
-    if head_dims is None:
-        _build.padded_head_dim(d, name)
-    else:
-        _build.check_head_dim(d, head_dims, name)
+    _build.padded_head_dim(d, name, k_pages.element_size())
     if hq % hkv or hq // hkv > max_group:
         raise NotImplementedError(f"{name} kernel takes Hq/Hkv <= {max_group}, got {hq}/{hkv}")
     if k_pages.shape != v_pages.shape or k_pages.shape[3] != d or k_pages.ndim != 4:

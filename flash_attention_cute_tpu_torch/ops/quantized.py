@@ -14,30 +14,33 @@ per-token scales s_j the kernels never dequantize a K/V row:
     one layer of the contiguous cache (values [B, Hkv, C, D], scales
     [B, Hkv, C] of any capacity, or the stacked [L, ...] cache with
     `layer`) for GQA groups up to 32, D2 (`flash_decode.decode_combine`)
-    merges them. It takes the soft cap and head dim 256.
+    merges them. It takes the soft cap.
   * `paged_attention_decode_quantized`: B8 (csrc/quant_paged_decode.cu, the
     kernel of B5 whose consumers widen the values exactly to q's type in
     registers), the same over a pool (values [Hkv, P, ps, D], scales
     [Hkv, P, ps]) through the page table for GQA groups up to 32; D2
-    merges. It takes the soft cap and head dim 256.
+    merges. It takes the soft cap.
   * `paged_attention_extend_quantized`: B9 (csrc/quant_paged_extend.cu, the
     kernel of B6 whose producer widens the values exactly to q's type),
     chunked prefill over quantized pages with per-row causality
-    `col <= q_offset + row`, `col < kv_length`; it takes the soft cap and
-    head dim 256.
+    `col <= q_offset + row`, `col < kv_length`; it takes the soft cap.
   * `quantize_append`: QA, quantizes new K/V rows per token and writes them
     in place, into the contiguous cache or through the page table.
 
 Each wrapper routes on the device of its tensors: CPU -> plain version,
 CUDA -> the kernel; what the kernel does not take raises (values that are
 neither int8 nor e4m3, scales that are not f32, groups above 32 in B7 /
-B8 and above 8 in B9). QA takes D 256. B7 - B9 take a sliding window as
-D1, B5 and B6 do. The plain versions dequantize to fp32 and run the port's
-`attention_reference` over the gathered rows. Positions at or past a row's
-length are never read by the kernels and are masked out of the plain
-versions, so they may hold anything, even NaN. The TPU-only arguments
-`block_kv`,
-`pages_per_compute_block`, `interpret` and `debug` are gone.
+B8 and above 8 in B9). B7 - B9 take a sliding window as D1, B5 and B6
+do. All four take every head dim whose one-byte row is a multiple of 16
+bytes, 16 to 256 (`_build.padded_head_dim` with one-byte elements): D 96
+runs in D 128's layout, the TMA boxes reading zeros past the row, which
+widen to exact zeros (the TPU kernels pad D to their 128 lanes); a d with
+d % 16 == 8 raises before any launch. The plain versions dequantize to
+fp32 and run the port's `attention_reference` over the gathered rows.
+Positions at or past a row's length are never read by the kernels and are
+masked out of the plain versions, so they may hold anything, even NaN. The
+TPU-only arguments `block_kv`, `pages_per_compute_block`, `interpret` and
+`debug` are gone.
 """
 
 from __future__ import annotations
@@ -61,7 +64,6 @@ from flash_attention_cute_tpu_torch.ops.paged_attention import (
 )
 from flash_attention_cute_tpu_torch.ops.reference import attention_reference
 
-HEAD_DIMS = (64, 128, 256)  # B7, B8, B9 and QA
 INT8_MAX = 127.0
 FP8_E4M3_MAX = 448.0
 KV_DTYPES = tuple(_build.KV_DTYPE_CODES)
@@ -213,7 +215,7 @@ def flash_attention_decode_quantized(
     g = hq // hkv
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"quantized decode kernel takes bf16/f16 q, got {q.dtype}")
-    _build.check_head_dim(d, HEAD_DIMS, "quantized decode")
+    _build.padded_head_dim(d, "quantized decode", 1)
     if hq % hkv or g > DECODE_MAX_GROUP:
         raise NotImplementedError(f"quantized decode kernel takes Hq/Hkv <= {DECODE_MAX_GROUP}, "
                                   f"got {hq}/{hkv} (larger groups: ROADMAP.md B.5)")
@@ -297,7 +299,7 @@ def _check_paged(name, q, k_pages, v_pages, page_table, row_tensors, window,
     """The refusals of B8 / B9: those of B5 / B6, the quantized pools', and
     scales each page part of which one 16-byte aligned bulk copy brings."""
     window = _check_cuda_call(name, q, k_pages.values, v_pages.values, page_table, row_tensors,
-                              window, k_pages.values.dtype, HEAD_DIMS, max_group)
+                              window, k_pages.values.dtype, max_group)
     _check_quantized("k_pages", k_pages)
     _check_quantized("v_pages", v_pages, k_pages.values.dtype)
     for pname, kv in (("k_pages", k_pages), ("v_pages", v_pages)):
@@ -487,7 +489,7 @@ def quantize_append(
     kv_dtype = k_cache.values.dtype
     if k_new.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"quantize-append kernel takes bf16/f16 rows, got {k_new.dtype}")
-    _build.check_head_dim(d, HEAD_DIMS, "quantize-append")
+    _build.padded_head_dim(d, "quantize-append", 1)
     if v_new.shape != k_new.shape or v_new.dtype != k_new.dtype:
         raise ValueError(f"bad new rows {tuple(k_new.shape)} {tuple(v_new.shape)}")
     _check_quantized("k_cache", k_cache)

@@ -2,7 +2,8 @@
 """Device times of the port's attention kernels on one NVIDIA H100, for
 comparing two trees of the repository in one call:
 
-    cd <tree> && python3 <this script> [prefill] [decode] [paged] [extends] [backward] [int8]
+    cd <tree> && python3 <this script> [prefill] [decode] [paged] [extends] [backward] [int8] \
+        [layouts]
 
 The package is imported from the current directory; the arguments pick
 groups of kernels to time (all without any). Llama / Mistral shapes
@@ -69,8 +70,13 @@ views): "int8 ..." the wrapper's call (K8 + P-i8 / B2-i8), "int8 kernel
 ..." P-i8 / B2-i8 alone over K8's output, "bf16 ..." P / B2 at the same
 inputs, "K8 ..." K8 alone, and "bound int8 ..." (QK^T at the int8 peak
 plus PV at the bf16 peak, or the bytes of q, K8's K and scales, v and the
-output, whichever is longer). Prints one JSON line with the card's name
-and power limit.
+output, whichever is longer). "layouts": QA (quantize-and-append) at run
+D's decode (8 rows of one token into int8 pages of 128, 8 kv heads) at D 64,
+128 and 256, and B7 + D2 (int8, Llama's middle decode step), B8 + D2 (e4m3,
+run E's decode at page_size 16), B9 (int8, run E's extend) and B4 (the
+smoke's last verify round, and a chunk of 256) at D 64 (32 / 8 heads), the
+head dim of the layout the other groups do not time them at. Prints one
+JSON line with the card's name and power limit.
 """
 
 import json
@@ -266,6 +272,47 @@ def paged_decodes(randn, pool, timed, out):
         del kp, vp, quant
 
 
+def layouts(randn, pool, timed, out):
+    """QA at D 64, 128 and 256, and B7, B8, B9 and B4 at D 64 (module
+    docstring, "layouts")."""
+    run_a = [923, 731, 618, 401, 436, 196, 227, 174]  # chip_smoke.serving_requests' first 8, 32 in
+    lens = torch.tensor(run_a, dtype=torch.int32, device="cuda")
+    for d in (64, 128, 256):
+        kp, vp, table = pool(8, 128, 16, 8, d)
+        quant = tuple(qz.quantize_kv(x, torch.int8) for x in (kp, vp))
+        nk, nv = (randn(8, 1, 8, d).transpose(1, 2) for _ in "kv")
+        active = torch.ones(8, dtype=torch.bool, device="cuda")
+        out[f"QA D{d} B8 S1 ps128"] = timed(lambda: qz.quantize_append(
+            nk, nv, *quant, lens, table, active), 50)
+        del kp, vp, quant
+    d, hq = 64, 32
+    kc, vc, q = randn(4, 8, 576, d), randn(4, 8, 576, d), randn(4, hq, 1, d)
+    quant = tuple(qz.quantize_kv(x, torch.int8) for x in (kc, vc))
+    lengths = torch.full((4,), 544, dtype=torch.int32, device="cuda")
+    out["B7 int8 D64 B4 C576 L544 (+ D2)"] = timed(lambda: qz.flash_attention_decode_quantized(
+        q, *quant, kv_length=lengths), 50)
+    kp, vp, table = pool(8, 16, 128, 8, d)
+    quant = tuple(qz.quantize_kv(x, torch.float8_e4m3fn) for x in (kp, vp))
+    q = randn(8, hq, 1, d)
+    out["B8 e4m3 D64 B8 ps16 (+ D2)"] = timed(lambda: qz.paged_attention_decode_quantized(
+        q, *quant, lens, table), 50)
+    quant = tuple(qz.quantize_kv(x, torch.int8) for x in (kp, vp))
+    off = torch.tensor([0, 256, 512, 768] * 2, dtype=torch.int32, device="cuda")
+    q = randn(8, 256, hq, d).transpose(1, 2)
+    out["B9 int8 D64 B8 S256 ps16"] = timed(lambda: qz.paged_attention_extend_quantized(
+        q, *quant, off, off + 256, table), 20)
+    del kp, vp, quant
+    for name, s, cap_len, offs in (("B4 verify D64 B4 S5 C582 q_offset 571", 5, 582, [571] * 4),
+                                   ("B4 chunk D64 B4 S256 C1100", 256, 1100,
+                                    [0, 256, 512, 768])):
+        q = randn(4, s, hq, d).transpose(1, 2)
+        kc, vc = randn(4, 8, cap_len, d), randn(4, 8, cap_len, d)
+        off = torch.tensor(offs, dtype=torch.int32, device="cuda")
+        out[name] = timed(lambda: flash_chunked.flash_attention_chunked(q, kc, vc, off, off + s),
+                          20)
+        del q, kc, vc
+
+
 def capped(cap):  # no keyword at all without a cap: older trees lack it
     return {} if cap is None else {"logit_softcap": cap}
 
@@ -347,8 +394,9 @@ def main() -> None:
             return None
 
     # Groups to time (all by default): prefill, decode, paged, extends,
-    # backward, int8.
-    groups = set(sys.argv[1:]) or {"prefill", "decode", "paged", "extends", "backward", "int8"}
+    # backward, int8, layouts.
+    groups = set(sys.argv[1:]) or {"prefill", "decode", "paged", "extends", "backward", "int8",
+                                   "layouts"}
     out = {"card": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(), "tree": os.getcwd()}
@@ -388,6 +436,8 @@ def main() -> None:
         backward_times(randn, timed, out)
     if "int8" in groups:
         int8_times(randn, timed, out)
+    if "layouts" in groups:
+        layouts(randn, pool, timed, out)
     print(json.dumps(out))
 
 

@@ -902,8 +902,8 @@ def test_chunked_extend_refuses_what_it_does_not_take(device):
     ref = flash_chunked.flash_attention_chunked_plain(q.float(), k, v, off, lens,
                                                       logit_softcap=30.0)
     assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
-    with pytest.raises(NotImplementedError, match="head_dim"):
-        flash_chunked.flash_attention_chunked(q[..., :96], k[..., :96], v[..., :96], off, lens)
+    with pytest.raises(NotImplementedError, match="head_dim"):  # D 96 is taken since its layout
+        flash_chunked.flash_attention_chunked(q[..., :100], k[..., :100], v[..., :100], off, lens)
     with pytest.raises(ValueError, match="q_offset"):
         flash_chunked.flash_attention_chunked(q, k, v, off.cpu(), lens)
 
@@ -1920,3 +1920,143 @@ def test_odd_head_dim_kernels_refuse_what_no_layout_takes(device, d):
             call()
     assert [x.launches for x in counted] == before
 
+
+# Head dims outside {64, 128, 256} over one-byte caches and in the extend:
+# B7, B8, B9 and QA take every head dim whose int8 / e4m3 row is a multiple
+# of 16 bytes, B4 every multiple of 8, each in the layout of the next of 64,
+# 128 and 256 (TMA reads zeros past d, which widen to exact zeros). At
+# ODD_DIMS' head dims and heads, over int8 and e4m3 (B4: bf16 and f16),
+# each held to its fp32 plain version at 3e-2 over NaN tails and repeated
+# bit for bit; QA's whole pools bit-identical; a one-byte row of d % 16 ==
+# 8 refused before any launch.
+@pytest.mark.parametrize("name", list(KV_DTYPES))
+@pytest.mark.parametrize("d", list(ODD_DIMS))
+def test_quant_decode_kernel_at_odd_head_dims(device, d, name):
+    """B7 + D2 over a stacked cache (NaN scales, and e4m3 NaN values, past
+    lengths 0, 1, 37, C, C - 1 and C / 2 + 3) through `layer`."""
+    hq, hkv = ODD_DIMS[d]
+    gen = torch.Generator(device="cuda").manual_seed(130 + d)
+    lens = [0, 1, 37, 577, 576, 291]
+    k, v = (quant.quantize_kv(randn(gen, 2, len(lens), hkv, 577, d, dtype=torch.float32),
+                              KV_DTYPES[name]) for _ in "kv")
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    dead = torch.arange(577, device="cuda")[None, :] >= lengths[:, None]
+    for kv in (k, v):
+        poison(kv, dead[None, :, None, :].expand(2, -1, hkv, -1))
+    q = randn(gen, len(lens), hq, 1, d)
+    before = flash_decode.COMBINE.launches
+    out, err = held(quant.flash_attention_decode_quantized,
+                    quant.flash_attention_decode_quantized_plain, quant.QUANT_DECODE,
+                    q, k, v, lengths, layer=1)
+    assert flash_decode.COMBINE.launches == before + 2
+    assert out.shape == (len(lens), hq, 1, d) and err <= BF16_TOL and (out[0] == 0).all()
+
+
+@pytest.mark.parametrize("name", list(KV_DTYPES))
+@pytest.mark.parametrize("d", list(ODD_DIMS))
+@pytest.mark.parametrize("ps", [16, 128])
+def test_quant_paged_kernels_at_odd_head_dims(device, ps, d, name):
+    """B8 + D2 (a decode) and B9 (a chunk of 130 rows at offsets off the
+    tiles, an inactive row) over NaN-poisoned pools behind a permuted
+    table."""
+    hq, hkv = ODD_DIMS[d]
+    gen = torch.Generator(device="cuda").manual_seed(140 + d + ps)
+    lens = [0, 1, ps - 1, ps + 1, 1024, 777]
+    k, v, table = quant_paged_pool(gen, ps, len(lens), KV_DTYPES[name], lens, hkv=hkv, d=d)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    out, err = held(quant.paged_attention_decode_quantized,
+                    quant.paged_attention_decode_quantized_plain, quant.QUANT_PAGED_DECODE,
+                    randn(gen, len(lens), hq, 1, d), k, v, lengths, table)
+    assert err <= BF16_TOL and (out[0] == 0).all()
+
+    offs = torch.tensor([0, 61, 599, 0, 200, 700], dtype=torch.int32, device="cuda")
+    kvl = torch.tensor([130, 191, 729, 0, 330, 830], dtype=torch.int32, device="cuda")
+    k, v, table = quant_paged_pool(gen, ps, len(lens), KV_DTYPES[name], kvl.tolist(), hkv=hkv,
+                                   d=d)
+    qe = randn(gen, len(lens), 130, hq, d).transpose(1, 2)
+    out, err = held(quant.paged_attention_extend_quantized,
+                    quant.paged_attention_extend_quantized_plain, quant.QUANT_PAGED_EXTEND,
+                    qe, k, v, offs, kvl, table)
+    assert out.shape == (len(lens), hq, 130, d) and err <= BF16_TOL and (out[3] == 0).all()
+
+
+@pytest.mark.parametrize("name", list(KV_DTYPES))
+@pytest.mark.parametrize("d", list(ODD_DIMS))
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_quant_append_kernel_at_odd_head_dims(device, paged, d, name):
+    """QA of a 100-token chunk (paged: a row across the end of its table,
+    an inactive row): the whole pools, values and scales, bit-identical to
+    the plain version's, so no lane wrote past its row's d bytes or read
+    the next row into its scale."""
+    _, hkv = ODD_DIMS[d]
+    gen = torch.Generator(device="cuda").manual_seed(150 + d)
+    starts = [0, 13, 1024 - 40, 37]
+    new_k, new_v = (randn(gen, len(starts), 100, hkv, d).transpose(1, 2) for _ in "kv")
+    lengths = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    if paged:
+        k, v, table = quant_paged_pool(gen, 16, len(starts), KV_DTYPES[name], [1024] * 4,
+                                       hkv=hkv, d=d)
+        active = torch.tensor([1, 1, 1, 0], dtype=torch.bool, device="cuda")
+    else:
+        k, v = (quant.quantize_kv(randn(gen, len(starts), hkv, 1124, d), KV_DTYPES[name])
+                for _ in "kv")
+        table = active = None
+    ref = [QuantizedKV(x.values.clone(), x.scales.clone()) for x in (k, v)]
+    before = quant.QUANT_APPEND.launches
+    quant.quantize_append(new_k, new_v, k, v, lengths, table, active)
+    torch.cuda.synchronize()
+    assert quant.QUANT_APPEND.launches == before + 1
+    quant.quantize_append_plain(new_k, new_v, *ref, lengths, table, active)
+    for got, want in zip((k, v), ref):
+        assert torch.equal(got.values.view(torch.uint8), want.values.view(torch.uint8))
+        assert torch.equal(got.scales.view(torch.int32), want.scales.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("d", list(ODD_DIMS))
+def test_chunked_extend_kernel_at_odd_head_dims(device, d, dtype):
+    """B4 at a verify round (S 5, a row of kv_length 0) and a chunk (S
+    256), over caches NaN past every kv_length, the model's transposed
+    views."""
+    hq, hkv = ODD_DIMS[d]
+    gen = torch.Generator(device="cuda").manual_seed(160 + d)
+    for s, cap, offs, kvl in ((5, 582, [571, 0, 300, 13], [576, 0, 305, 18]),
+                              (256, 1100, [0, 77, 300, 768], None)):
+        q, k, v, off, lens = chunked_inputs(gen, hq, hkv, s, cap, offs, kvl, d, DTYPES[dtype])
+        out, err = held(flash_chunked.flash_attention_chunked,
+                        flash_chunked.flash_attention_chunked_plain, flash_chunked.CHUNKED,
+                        q, k, v, off, lens)
+        assert out.shape == (len(offs), hq, s, d) and err <= BF16_TOL
+        for i, n in enumerate(lens.tolist()):
+            if n == 0:
+                assert (out[i] == 0).all()
+
+
+@pytest.mark.parametrize("d", [40, 24])
+def test_one_byte_rows_of_d_mod_16_8_are_refused(device, d):
+    """A one-byte row of d bytes, d % 16 == 8, breaks TMA's 16-byte stride
+    rule: B7, B8, B9 and QA raise naming the roadmap item before any
+    launch; B4, over bf16 rows of 2 d bytes, takes such a d."""
+    gen = torch.Generator(device="cuda").manual_seed(170)
+    k, v, table = quant_paged_pool(gen, 16, 2, torch.int8, [64, 64], capacity=64, hkv=2, d=d)
+    cache = quant.quantize_kv(randn(gen, 2, 2, 64, d), torch.int8)
+    q = randn(gen, 2, 4, 1, d)
+    lengths = torch.tensor([3, 5], dtype=torch.int32, device="cuda")
+    counted = (quant.QUANT_DECODE, quant.QUANT_PAGED_DECODE, quant.QUANT_PAGED_EXTEND,
+               quant.QUANT_APPEND, flash_decode.COMBINE)
+    before = [x.launches for x in counted]
+    calls = [
+        lambda: quant.flash_attention_decode_quantized(q, cache, cache, lengths),
+        lambda: quant.paged_attention_decode_quantized(q, k, v, lengths, table),
+        lambda: quant.paged_attention_extend_quantized(q, k, v, lengths, lengths + 1, table),
+        lambda: quant.quantize_append(q[:, :2], q[:, :2], cache, cache, lengths),
+    ]
+    for call in calls:
+        with pytest.raises(NotImplementedError, match=r"multiple of 16 .*ROADMAP\.md .*A\.1"):
+            call()
+    assert [x.launches for x in counted] == before
+    qc, kc, vc, off, lens = chunked_inputs(gen, 4, 2, 5, 64, [0, 20], None, d, torch.bfloat16)
+    out, err = held(flash_chunked.flash_attention_chunked,
+                    flash_chunked.flash_attention_chunked_plain, flash_chunked.CHUNKED,
+                    qc, kc, vc, off, lens)
+    assert err <= BF16_TOL
