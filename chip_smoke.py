@@ -114,7 +114,15 @@ Phases, in order; any failure exits non-zero:
      against its fp32 plain version over NaN tails, repeated bit for bit,
      QA's whole pools bit-identical to the plain version's; D 40 over
      one-byte rows (d % 16 == 8) in B7, B8, B9 and QA and D 100 in B4
-     refused before any launch.
+     refused before any launch; (3l) the same rule in training and packed
+     batches (ODD_TRAINING_DIMS: D 8, 24, 40, 96, 136, 200 and 248, GQA
+     groups 1 and 4, bf16 and f16): B13a / B13b causal, windowed with Sq <
+     Skv and non-causal with Sq > Skv on transposed views, held to the
+     plain backward within 2e-2 of the gradient's max, B13a also forced
+     into 3 parts (within 2^-7 of one pass) and one pass, and B12 causal,
+     with kv longer and a window, and full, within 3e-2, every call
+     repeated bit for bit; D 100 and D 264 refused by the backward, the
+     autograd op (before P) and B12 with no launch.
   4. main paths: greedy generation of Llama-3-8B (random weights from a
      seeded CUDA generator) at B 4, prompt 512, 64 new tokens; launch
      counters show the kernels carried it; teacher-forced logits of the
@@ -228,7 +236,15 @@ Phases, in order; any failure exits non-zero:
      numpy seed 0): self-draft, a 2-layer draft and prompt lookup (P, B4
      layers x rounds, D1 + D2), every token teacher-forced, self-draft
      acceptance >= 0.75; QA, B7, B8, B9 and B4 each launched on these
-     paths.
+     paths. (4o, after 4l) Training at Phi-3-mini's widths
+     (`phi3_mini_widths_config`, depth cut to 8 layers, printed) as 4h
+     trains Llama, over B 2 x S 2040 (below its left-out window of 2047,
+     checked): P, B13a and B13b at D 96 each once a layer and step (24 in
+     3 steps) on path "phi3-widths training", the loss falling, first-step
+     gradients within 0.05 of the plain route's, peak memory; then
+     `flash_attention_varlen` at D 96 (32 / 32 heads) over 3g's packed
+     batch, causal: B12 once (path "phi3-widths varlen"), held to its plain
+     version within 3e-2.
      (4k, run after 4e over the Llama tree; launches counted as path "hf")
      The HF surface: (a) HF-named transposed views of the parameters
      through `params_from_state_dict`, then greedy generation: phase 4's
@@ -297,8 +313,13 @@ Phases, in order; any failure exits non-zero:
      greedy path's middle decode step, B8 and QA at run D's decode, B9 at
      run E's extend, B4 at the last verify round and a chunk of 256;
      library_ms: SDPA at D 96 over a dequantized contiguous copy, none for
-     QA); every timed entry its
-     share of its bound ("of_bound"); the card's name and power limit.
+     QA); (5h) the "phi3" entries of the B13a / B13b rows at 4o's step (B
+     2, S 2040, 32 / 32 heads, D 96; library_ms: SDPA's backward at D 96,
+     fwd + bwd - fwd) and of the B12 row at 4o's packed batch (library_ms:
+     SDPA over the padded batch), bounds at D 96, with the runtime report
+     of the instantiation they run (B13a / B13b: D 128's padded ones);
+     every timed entry its share of its bound ("of_bound"); the card's
+     name and power limit.
 The last line is {"ok": true, "device": {...}}.
 
 Tolerances: kernel outputs are bf16 results of fp32 arithmetic on bf16
@@ -3301,6 +3322,17 @@ def varlen_inputs(torch, gen, lens_q, lens_kv, hq=32, hkv=8, d=128):
             cu(lens_q), cu(lens_kv))
 
 
+def varlen_plain(torch, flash_varlen, q, k, v, cu_q, cu_kv, **kw):
+    """B12's plain version behind the cu_seqlens front end, on q's fp32
+    image: each sequence's dense attention in fp32, run per segment."""
+    seg_q, pos_q = flash_varlen._seg_metadata(cu_q, q.shape[0])
+    seg_kv, pos_kv = flash_varlen._seg_metadata(cu_kv, k.shape[0])
+    bounds = pos_q + (cu_kv.diff() - cu_q.diff())[seg_q.long()]
+    return flash_varlen.flash_attention_packed_plain(
+        q.float().transpose(0, 1), k.transpose(0, 1), v.transpose(0, 1), seg_q, seg_kv,
+        bounds, pos_kv, **kw).transpose(0, 1)
+
+
 def phase_varlen_kernels(torch, flash_varlen, errs):
     """B12 against its plain version (each sequence's dense attention in
     fp32 on q's fp32 image, run per segment: never a [T, T] matrix) over 32
@@ -3331,12 +3363,7 @@ def phase_varlen_kernels(torch, flash_varlen, errs):
         again = flash_varlen.flash_attention_varlen(q, k, v, cu_q, cu_kv, **kw)
         torch.cuda.synchronize()
         check(flash_varlen.VARLEN.launches == before + 2, f"B12 {name}: one launch a call")
-        seg_q, pos_q = flash_varlen._seg_metadata(cu_q, q.shape[0])
-        seg_kv, pos_kv = flash_varlen._seg_metadata(cu_kv, k.shape[0])
-        bounds = pos_q + (cu_kv.diff() - cu_q.diff())[seg_q.long()]
-        ref = flash_varlen.flash_attention_packed_plain(
-            q.float().transpose(0, 1), k.transpose(0, 1), v.transpose(0, 1), seg_q, seg_kv,
-            bounds, pos_kv, **kw).transpose(0, 1)
+        ref = varlen_plain(torch, flash_varlen, q, k, v, cu_q, cu_kv, **kw)
         e = max_err(out, ref)
         for key in ("flash_varlen", "flash_varlen gemma2") if d == 256 else ("flash_varlen",):
             errs[key] = max(errs.get(key, 0.0), e)
@@ -3596,8 +3623,25 @@ def training_rows(torch, ops, gen, path_counts):
     del q, k, v
     torch.cuda.empty_cache()
 
+    rows.append({"name": "flash_varlen", "route": "cuda",
+                 "source": "flash_attention_cute_tpu_torch/csrc/flash_varlen.cu",
+                 "replaces": "flash_attention_cute_tpu/ops/flash_varlen.py:48",
+                 **varlen_row(torch, flash_varlen, gen, hq, hkv, d)})
+    return rows, lse_cost
+
+
+def varlen_row(torch, flash_varlen, gen, hq, hkv, d):
+    """B12 at the 32-sequence packed batch (`varlen_batch`), causal, at
+    (Hq, Hkv, D): ms, call_ms, plain_ms, library_ms (SDPA, is_causal and
+    enable_gqa, over the batch padded to [32, Hq, 2048, D]: it computes the
+    padding too), the bound at D (4 D operations per visible pair and q head
+    at the bf16 rate, or the bytes of q, k, v, the output and the metadata
+    once, whichever is longer) and the shape."""
+    from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms
+
+    f = torch.nn.functional
     lens, _ = varlen_batch()
-    q, k, v, cu, _ = varlen_inputs(torch, gen, lens, lens)
+    q, k, v, cu, _ = varlen_inputs(torch, gen, lens, lens, hq, hkv, d)
     seg, pos = flash_varlen._seg_metadata(cu, q.shape[0])
     qp, kp, vp = (torch.zeros((len(lens), h, max(lens), d), dtype=torch.bfloat16, device="cuda")
                   for h in (hq, hkv, hkv))
@@ -3610,10 +3654,7 @@ def training_rows(torch, ops, gen, path_counts):
     def run():
         return flash_varlen.flash_attention_varlen(q, k, v, cu, causal=True)
 
-    rows.append({
-        "name": "flash_varlen", "route": "cuda",
-        "source": "flash_attention_cute_tpu_torch/csrc/flash_varlen.cu",
-        "replaces": "flash_attention_cute_tpu/ops/flash_varlen.py:48",
+    row = {
         "shape": f"{len(lens)} sequences of {min(lens)}-{max(lens)} tokens ({q.shape[0]} packed), "
                  f"causal, Hq {hq}, Hkv {hkv}, D {d}; library_ms: SDPA (is_causal, enable_gqa) over "
                  f"the batch padded to [{len(lens)}, {hq}, {max(lens)}, {d}], padding computed too",
@@ -3623,12 +3664,11 @@ def training_rows(torch, ops, gen, path_counts):
             causal=True), 2),
         "library_ms": cuda_time_ms(lambda: f.scaled_dot_product_attention(
             qp, kp, vp, is_causal=True, enable_gqa=True), 10),
-        "ops": 4 * d * hq * pairs, "bytes": 2 * (2 * q.numel() + 2 * k.numel()) + 4 * 4 * q.shape[0],
-        "peak": PEAK_BF16})
+        **bound(4 * d * hq * pairs, 2 * (2 * q.numel() + 2 * k.numel()) + 4 * 4 * q.shape[0],
+                PEAK_BF16)}
     del q, k, v, qp, kp, vp
     torch.cuda.empty_cache()
-    rows[-1].update(bound(rows[-1].pop("ops"), rows[-1].pop("bytes"), rows[-1].pop("peak")))
-    return rows, lse_cost
+    return row
 
 
 def bwd_timings(torch, ops, randn, b, hq, hkv, s, d):
@@ -4863,6 +4903,203 @@ def phi3_rows(torch, ops, gen):
     return out
 
 
+# Phase 3l: head dims outside {64, 128, 256} in B13a / B13b and B12, each in
+# the layout of the next of 64, 128 and 256 (D 8-56 in D 64's, 72-120 in D
+# 128's, 136-248 in D 256's, whose second 128-column half is partial):
+# (d, Hq, Hkv, dtype), GQA groups 1 and 4, bf16 and f16; and the shapes of
+# each backward case, (Sq, Skv, causal, window).
+ODD_TRAINING_DIMS = ((8, 16, 16, "bfloat16"), (24, 32, 8, "float16"), (40, 16, 16, "bfloat16"),
+                     (96, 32, 32, "bfloat16"), (136, 16, 4, "float16"),
+                     (200, 16, 16, "bfloat16"), (248, 16, 4, "bfloat16"))
+ODD_TRAINING_SHAPES = ((333, 333, True, None), (256, 517, True, 100), (517, 256, False, None))
+ODD_PACKED_LENS = ([333, 1, 190, 517, 64], [400, 17, 190, 600, 200])  # q, and kv longer
+
+
+def phase_odd_head_dims_training(torch, ops, errs, rel_errs):
+    """Phase 3l: B13a / B13b and B12 at each ODD_TRAINING_DIMS case against
+    their plain versions. The backward over the model's transposed views and
+    a non-contiguous dO, fed the kernel forward's o and lse, causal,
+    windowed with Sq < Skv and non-causal with Sq > Skv, within
+    GRAD_REL_TOL of the plain backward (max |diff| / max |plain|), B13a
+    also forced into 3 parts (within SPLIT_REL_TOL of one pass) and into
+    one pass (within GRAD_REL_TOL of plain); B12 over a packed batch
+    causal, with kv longer and a window of 100, and full, within BF16_TOL;
+    every call repeated bit for bit. Then D 100 and D 264 refused by the
+    backward, the autograd op (before P) and B12, naming ROADMAP.md A.1,
+    with no launch. D 96's errors also go to "<kernel> phi3"."""
+    flash_fwd, flash_bwd, flash_varlen = ops["flash_fwd"], ops["flash_bwd"], ops["flash_varlen"]
+    gen = torch.Generator(device="cuda").manual_seed(4392)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def cu(lens):
+        return torch.tensor([0] + lens, device="cuda").cumsum(0).to(torch.int32)
+
+    for d, hq, hkv, dt in ODD_TRAINING_DIMS:
+        dtype = getattr(torch, dt)
+        tag = "phi3" if d == 96 else None
+        for sq, skv, causal, window in ODD_TRAINING_SHAPES:
+            name = (f"D {d} ({hq} / {hkv} heads, {dt}) Sq {sq} Skv {skv}, "
+                    f"{'causal' if causal else 'non-causal'}{f', window {window}' if window else ''}")
+            q = randn(1, sq, hq, d, dtype=dtype).transpose(1, 2)
+            k, v = (randn(1, skv, hkv, d, dtype=dtype).transpose(1, 2) for _ in "kv")
+            do = randn(1, sq, hq, d, dtype=dtype).transpose(1, 2)
+            o, lse = flash_fwd.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                                   return_lse=True)
+            before = (flash_bwd.DKV.launches, flash_bwd.DQ.launches)
+            got = flash_bwd.flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window)
+            again = flash_bwd.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                                  window=window)
+            torch.cuda.synchronize()
+            check((flash_bwd.DKV.launches - before[0], flash_bwd.DQ.launches - before[1]) == (2, 2),
+                  f"B13 {name}: one launch each of B13a and B13b a call")
+            check(all(torch.equal(a, b2) for a, b2 in zip(got, again)),
+                  f"B13 {name}: a second call gives bit-identical dq / dk / dv")
+            want = flash_bwd.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o, do, lse,
+                                                       causal=causal, window=window)
+            rel = [rel_err(a, w) for a, w in zip(got, want)]
+            for kname, idx in (("flash_bwd_dq", (0,)), ("flash_bwd_dkv", (1, 2))):
+                note_err(errs, kname, max(max_err(got[i], want[i]) for i in idx), tag)
+                note_err(rel_errs, kname, max(rel[i] for i in idx), tag)
+            delta = (do.float() * o.float()).sum(-1)
+            parts = {}
+            for splits in (3, 1):
+                parts[splits] = (torch.empty_like(got[1]), torch.empty_like(got[2]))
+                flash_bwd.launch(flash_bwd.DKV, q, k, v, do, lse, delta, *parts[splits],
+                                 d ** -0.5, causal, window or 0, splits=splits)
+            torch.cuda.synchronize()
+            e_split = max(rel_err(parts[3][i], parts[1][i]) for i in (0, 1))
+            e_one = max(rel_err(parts[1][i], want[1 + i]) for i in (0, 1))
+            print(f"  B13 {name}: dq / dk / dv max|diff| / max|plain| "
+                  + " / ".join(f"{r:.2e}" for r in rel)
+                  + f"; B13a in 3 parts against one pass {e_split:.2e}, one pass against plain "
+                  f"{e_one:.2e}; repeated bit for bit")
+            check(all(bool(torch.isfinite(g).all()) for g in got), f"B13 {name}: finite")
+            check(max(rel) <= GRAD_REL_TOL, f"B13 {name}: within {GRAD_REL_TOL} (relative)")
+            check(e_split <= SPLIT_REL_TOL,
+                  f"B13a {name}: 3 parts within {SPLIT_REL_TOL} of one pass")
+            check(e_one <= GRAD_REL_TOL, f"B13a {name}: one pass within {GRAD_REL_TOL} of plain")
+            del q, k, v, do, o, lse, got, again, want, parts, delta
+        lens_q, lens_kv = ODD_PACKED_LENS
+        for what, lk, kw in (("causal", lens_q, {"causal": True}),
+                             ("kv longer, window 100", lens_kv, {"causal": True, "window": 100}),
+                             ("full", lens_q, {})):
+            q = randn(sum(lens_q), hq, d, dtype=dtype)
+            k, v = (randn(sum(lk), hkv, d, dtype=dtype) for _ in "kv")
+            before = flash_varlen.VARLEN.launches
+            out = flash_varlen.flash_attention_varlen(q, k, v, cu(lens_q), cu(lk), **kw)
+            again = flash_varlen.flash_attention_varlen(q, k, v, cu(lens_q), cu(lk), **kw)
+            torch.cuda.synchronize()
+            ref = varlen_plain(torch, flash_varlen, q, k, v, cu(lens_q), cu(lk), **kw)
+            e = max_err(out, ref)
+            note_err(errs, "flash_varlen", e, tag)
+            name = f"B12 D {d} ({hq} / {hkv} heads, {dt}), {len(lens_q)} sequences, {what}"
+            print(f"  {name}: max|diff| {e:.3e}")
+            check(flash_varlen.VARLEN.launches == before + 2, f"{name}: one launch a call")
+            check(bool(torch.isfinite(out).all()) and torch.equal(out, again),
+                  f"{name}: finite, repeated bit for bit")
+            check(e <= BF16_TOL, f"{name} within {BF16_TOL}")
+            del q, k, v, out, again, ref
+        torch.cuda.empty_cache()
+
+    # Refusals before any launch: head dims no layout takes.
+    counted = (flash_fwd.PREFILL, flash_fwd.WINDOWED_PREFILL, flash_bwd.DKV, flash_bwd.DQ,
+               flash_varlen.VARLEN)
+    before = [x.launches for x in counted]
+    for d in (100, 264):
+        q = randn(1, 4, 64, d).requires_grad_()
+        k = randn(1, 2, 64, d)
+        lse = torch.zeros(1, 4, 64, device="cuda")
+        one = torch.tensor([0, 64], dtype=torch.int32, device="cuda")
+        for what, call in (
+                (f"B13a / B13b at D {d}", lambda: flash_bwd.flash_attention_bwd(
+                    q.detach(), k, k, q.detach(), q.detach(), lse, causal=True)),
+                (f"the autograd op at D {d}", lambda: ops["autodiff"].flash_attention(
+                    q, k, k, causal=True)),
+                (f"B12 at D {d}", lambda: flash_varlen.flash_attention_varlen(
+                    q[0].detach().transpose(0, 1), k[0].transpose(0, 1), k[0].transpose(0, 1),
+                    one, causal=True))):
+            try:
+                call()
+                refused = ""
+            except NotImplementedError as err:
+                refused = str(err)
+            print(f"  {what}: refused: {refused or 'no'}")
+            check("A.1" in refused, f"{what} raises NotImplementedError naming ROADMAP.md A.1")
+    torch.cuda.synchronize()
+    check([x.launches for x in counted] == before, "the refused calls launched nothing (P too)")
+
+
+PHI3_TRAIN_PATH = f"{PHI3_LABEL} training"
+PHI3_TRAIN_S = 2040  # below Phi-3-mini's window of 2047, which the config leaves out
+
+
+def phase_phi3_training(torch, ops, layers, kernels, path_counts, errs):
+    """Phase 4o: `phase_training` at Phi-3-mini's widths, depth cut to
+    TRAIN_LAYERS (or --layers), B TRAIN_B x S PHI3_TRAIN_S: P, B13a and
+    B13b at D 96 in D 128's layout, each once a layer and step, on path
+    PHI3_TRAIN_PATH. Then the cu_seqlens entry point at D 96 (32 / 32
+    heads) over `varlen_batch`'s 32 sequences, causal (B12 once, path
+    "phi3-widths varlen"), held to its plain version within BF16_TOL."""
+    from flash_attention_cute_tpu_torch import flash_attention_varlen
+
+    cfg = phi3_mini_widths_config(min(TRAIN_LAYERS, layers or TRAIN_LAYERS))
+    print(f"  depth cut {phi3_mini_widths_config().num_layers} -> {cfg.num_layers} layers "
+          f"(widths unchanged); sliding_window {PHI3_WINDOW} left out of the config: a "
+          f"sequence of {PHI3_TRAIN_S} keys, where a window of {PHI3_WINDOW} masks nothing")
+    check(PHI3_TRAIN_S < PHI3_WINDOW, "phase 4o's sequences stay below the window")
+    out = phase_training(torch, cfg, kernels, path_counts, TRAIN_B, PHI3_TRAIN_S,
+                         PHI3_TRAIN_PATH, seed=12)
+
+    lens, _ = varlen_batch()
+    hq, hkv, d = cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v, cu, _ = varlen_inputs(torch, torch.Generator(device="cuda").manual_seed(7373),
+                                   lens, lens, hq, hkv, d)
+    got, wall, counts = counted_run(torch, kernels,
+                                    lambda: flash_attention_varlen(q, k, v, cu, causal=True))
+    path_counts[f"{PHI3_LABEL} varlen"] = counts
+    check_counts(counts, {"flash_varlen": 1}, f"{PHI3_LABEL} varlen")
+    e = max_err(got, varlen_plain(torch, ops["flash_varlen"], q, k, v, cu, cu, causal=True))
+    note_err(errs, "flash_varlen", e, "phi3")
+    print(f"  flash_attention_varlen at D {d} ({hq} / {hkv} heads) over {len(lens)} sequences "
+          f"({q.shape[0]} tokens): {wall * 1e3:.2f} ms (host clock), B12 1 launch, max|diff| "
+          f"{e:.3e} against the plain version")
+    check(tuple(got.shape) == tuple(q.shape) and bool(torch.isfinite(got).all()),
+          "phi3 varlen output finite, [T, Hq, D]")
+    check(e <= BF16_TOL, f"phi3 varlen within {BF16_TOL} of the plain version")
+    out["varlen"] = {"sequences": len(lens), "tokens": q.shape[0], "wall_ms": wall * 1e3,
+                     "max_abs_err": e}
+    del q, k, v, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def phi3_training_rows(torch, ops, gen):
+    """Phase 5h: the "phi3" entries of the B13a / B13b rows at phase 4o's
+    attention (B 2, S 2040, 32 / 32 heads, D 96, causal; `bwd_timings`:
+    library_ms SDPA's backward at D 96, fwd + bwd - fwd) and of the B12 row
+    at its packed batch (`varlen_row`: SDPA over the padded batch). Bounds
+    at D 96: the kernels run D 128's layout, so a quarter of their tile
+    columns and products is padding, which counts against them."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    cfg = phi3_mini_widths_config()
+    hq, hkv, d = cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim
+    out = bwd_timings(torch, ops, randn, TRAIN_B, hq, hkv, PHI3_TRAIN_S, d)
+    for entry in out.values():
+        library = entry.pop("library")
+        entry["shape"] = (f"B {TRAIN_B}, S {PHI3_TRAIN_S}, causal, Hq {hq}, Hkv {hkv}, D {d} "
+                          f"(phase 4o's step); plain_ms: the whole plain backward; library_ms: "
+                          f"{library} at D {d}")
+    out["flash_varlen"] = varlen_row(torch, ops["flash_varlen"], gen, hq, hkv, d)
+    for entry in out.values():
+        entry["padding"] = ("bound at D 96; the kernel runs in D 128's layout, a quarter of its "
+                            "tile columns zeros")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--layers", type=int, default=0,
@@ -4999,6 +5236,13 @@ def main() -> int:
     phase_odd_head_dims_quantized(torch, ops, errs)
     torch.cuda.synchronize()
     print(f"  phase 3k: {time.perf_counter() - t0:.1f} s")
+    print("[3l] head dims outside 64 / 128 / 256 in training and packed batches: B13a / B13b "
+          "(B13a also in 3 parts and in one) and B12 at D 8, 24, 40, 96, 136, 200 and 248 vs "
+          "plain; D 100 and D 264 refused")
+    t0 = time.perf_counter()
+    phase_odd_head_dims_training(torch, ops, errs, rel_errs)
+    torch.cuda.synchronize()
+    print(f"  phase 3l: {time.perf_counter() - t0:.1f} s")
 
     # 4. main paths
     from flash_attention_cute_tpu_torch.models.llama import llama3_8b_config
@@ -5102,6 +5346,13 @@ def main() -> int:
                                      GEMMA2_TRAIN_S, GEMMA2_TRAIN_PATH, seed=4)
     training_gemma2["phase_s"] = time.perf_counter() - t0
     print(f"  phase 4l: {training_gemma2['phase_s']:.1f} s")
+    print(f"[4o] training at Phi-3-mini's widths (hidden 3072, 32 / 32 heads, D 96 in D 128's "
+          f"layout), B {TRAIN_B} x S {PHI3_TRAIN_S}, {TRAIN_STEPS} AdamW steps; then a packed "
+          f"batch at D 96 (B12)")
+    t0 = time.perf_counter()
+    training_phi3 = phase_phi3_training(torch, ops, args.layers, kernels, path_counts, errs)
+    training_phi3["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 4o: {training_phi3['phase_s']:.1f} s")
 
     for name in kernels:
         check(sum(c[name] for c in path_counts.values()) > 0,
@@ -5187,12 +5438,29 @@ def main() -> int:
                 c[r["name"]] for p, c in path_counts.items() if p.startswith(PHI3_LABEL)),
                 **phi3[r["name"]]}
     print(f"  phases 5f / 5g: {time.perf_counter() - t0:.1f} s")
+    print("[5h] numbers of the training kernels at Phi-3-mini's widths (D 96 in D 128's layout): "
+          "B13a / B13b at 4o's step, B12 at its packed batch")
+    t0 = time.perf_counter()
+    phi3_train = phi3_training_rows(torch, ops, torch.Generator(device="cuda").manual_seed(83))
+    for r in rows:
+        if r["name"] in phi3_train:
+            label = {"flash_bwd_dkv": "B13a D128 padded bf16",
+                     "flash_bwd_dq": "B13b D128 padded bf16",
+                     "flash_varlen": "B12 D128 bf16"}[r["name"]]
+            report = b12_report if r["name"] == "flash_varlen" else bwd_report
+            r["phi3"] = {"max_abs_err": errs[f"{r['name']} phi3"], "launches": sum(
+                c[r["name"]] for p, c in path_counts.items() if p.startswith(PHI3_LABEL)),
+                **({"max_rel_err": rel_errs[f"{r['name']} phi3"]}
+                   if f"{r['name']} phi3" in rel_errs else {}),
+                "runtime_attributes": runtime_attributes(report, label),
+                **phi3_train[r["name"]]}
+    print(f"  phase 5h: {time.perf_counter() - t0:.1f} s")
     # Peak over the whole script: serving reset the counter before each run.
     numbers["max_memory_allocated_gb"] = max(
         [numbers["max_memory_allocated_gb"], serving.pop("peak_before_serving_gb")]
         + [r["peak_memory_gb"] for r in serving.values()]
         + [f["peak_memory_gb"] for f in families.values()] + [training["peak_memory_gb"]]
-        + [training_gemma2["peak_memory_gb"]])
+        + [training_gemma2["peak_memory_gb"], training_phi3["peak_memory_gb"]])
     print(json.dumps(profile))
     print(json.dumps(numbers))
     print(json.dumps({"serving": serving}))
@@ -5200,6 +5468,7 @@ def main() -> int:
     print(json.dumps({"families": families}))
     print(json.dumps({"training": training}))
     print(json.dumps({"training_gemma2": training_gemma2}))
+    print(json.dumps({"training_phi3": training_phi3}))
     print(json.dumps({"hf": hf_numbers}))
     print(json.dumps({"kernels": kernel_entries(rows, errs, path_counts)}))
     print(nvidia_smi())

@@ -82,8 +82,9 @@ __device__ __forceinline__ void kv_round(float x, int8_t* out) {
 }
 __device__ __forceinline__ void kv_round(float x, e4m3* out) { *out = e4m3(x); }
 
-// The head dim of the layout that P / B2, D1, B4, B5, B6 and, over rows of
-// one-byte elements (elem 1), B7, B8, B9 and QA run a true head dim d in:
+// The head dim of the layout that P / B2, D1, B4, B5, B6, B12, B13a / B13b
+// and, over rows of one-byte elements (elem 1), B7, B8, B9 and QA run a true
+// head dim d in:
 // the least of 64, 128 and 256 at or above d, whose TMA boxes read d's
 // columns and zeros past them (ops/_build.py padded_head_dim); 0 for a d
 // that no layout takes: a row of elem d bytes that is not a multiple of 16

@@ -77,6 +77,19 @@
 // fixed order: no atomics, and two calls give the same bits. That is the
 // layout of D 64 / 128; D 256 has one of its own (flash_bwd_dkv_kernel_d256,
 // flash_bwd_dq_kernel_d256, below), under the same rules.
+//
+// Head dims: every multiple of 8 from 8 to 256, each run in the layout of
+// the next of 64, 128 and 256 at or above it (padded_head_dim), as P / B2
+// run theirs (flash_fwd.cu). The maps hold the true d columns, so TMA reads
+// zeros past them (each box still credits its whole size to the mbarrier):
+// S, dP, P and dS are exact, and the columns of dK, dV and dQ past d are
+// zeros, which are not stored. d is the row stride and the column bound of
+// every store and of the split partials: each kernel has a `kPad`
+// instantiation that reads d from its parameters, launched for d < D, and
+// one for d == D whose stores keep D as a constant, the code of the layout
+// before the rule (a runtime bound in every instantiation cost B13a 3 % at
+// D 256: PERF.md). The TPU wrapper pads D to its 128 lanes instead
+// (flash_bwd.py:287, :300-302).
 #include "hopper.cuh"
 
 namespace fact {
@@ -84,15 +97,16 @@ namespace fact {
 struct BwdParams {
   const float* lse;    // [B, Hq, sq_pad] contiguous, log2 units; +inf past Sq
   const float* delta;  // [B, Hq, sq_pad] contiguous; 0 past Sq
-  void* out0;  // B13a: dK [B, Hkv, Skv, D]; B13b: dQ [B, Hq, Sq, D] (contiguous)
-  void* out1;  // B13a: dV [B, Hkv, Skv, D]
-  float* ws;   // B13a with splits > 1: fp32 partials [2][splits][B, Hkv, Skv, D]
+  void* out0;  // B13a: dK [B, Hkv, Skv, d]; B13b: dQ [B, Hq, Sq, d] (contiguous)
+  void* out1;  // B13a: dV [B, Hkv, Skv, d]
+  float* ws;   // B13a with splits > 1: fp32 partials [2][splits][B, Hkv, Skv, d]
   int batch, hq, hkv, group, sq, skv, sq_pad;
   int splits;  // B13a: parts of each key block's walk, one block each
   float scale_log2;  // softmax_scale * log2(e)
   float scale;
   int causal;
   int window;  // W > 0, or 0 for none
+  int d;       // the true head dim: D, or below it in D's layout
 };
 
 constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
@@ -129,7 +143,7 @@ struct DkvSmem {
 };
 
 // B13a: dK, dV of 128 keys of one kv head, summed over its q-head group.
-template <typename T, int D>
+template <typename T, int D, bool kPad>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
                          const __grid_constant__ CUtensorMap omap,
@@ -283,18 +297,20 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (lane == 0) mbar_arrive(empty(st));
     }
 
-    const int64_t out = (static_cast<int64_t>(b) * p.hkv + hk) * p.skv * D;
+    // Rows of d columns; the columns past d (zeros) are not stored.
+    const int d = kPad ? p.d : D;
+    const int64_t out = (static_cast<int64_t>(b) * p.hkv + hk) * p.skv * d;
     if (p.splits > 1) {  // fp32 partials, added by flash_bwd_dkv_combine
-      const int64_t part = static_cast<int64_t>(p.batch) * p.hkv * p.skv * D;
+      const int64_t part = static_cast<int64_t>(p.batch) * p.hkv * p.skv * d;
       float* wk = p.ws + split * part + out;
       float* wv = p.ws + (p.splits + split) * part + out;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          const int key = nw + 16 * wi + g + 8 * r;
-          if (key < p.skv) {
-            const int64_t at = static_cast<int64_t>(key) * D + 8 * j + 2 * t;
+          const int key = nw + 16 * wi + g + 8 * r, col = 8 * j + 2 * t;
+          if (key < p.skv && (!kPad || col < d)) {
+            const int64_t at = static_cast<int64_t>(key) * d + col;
             const int e = 4 * j + 2 * r;
             *reinterpret_cast<float2*>(wk + at) = make_float2(dk[e], dk[e + 1]);
             *reinterpret_cast<float2*>(wv + at) = make_float2(dv[e], dv[e + 1]);
@@ -309,9 +325,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int j = 0; j < D / 8; ++j) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const int key = nw + 16 * wi + g + 8 * r;
-        if (key < p.skv) {
-          const int64_t at = static_cast<int64_t>(key) * D + 8 * j + 2 * t;
+        const int key = nw + 16 * wi + g + 8 * r, col = 8 * j + 2 * t;
+        if (key < p.skv && (!kPad || col < d)) {
+          const int64_t at = static_cast<int64_t>(key) * d + col;
           const int e = 4 * j + 2 * r;
           *reinterpret_cast<uint32_t*>(dkp + at) = Elem<T>::pack(dk[e] * p.scale, dk[e + 1] * p.scale);
           *reinterpret_cast<uint32_t*>(dvp + at) = Elem<T>::pack(dv[e], dv[e + 1]);
@@ -322,7 +338,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // dK = scale * (sum of the splits' partials in split order), dV = the same
-// sum unscaled, four elements a thread.
+// sum unscaled, four elements a thread (`part`, B Hkv Skv d, is a multiple
+// of 8).
 template <typename T>
 __global__ void __launch_bounds__(256) flash_bwd_dkv_combine(const BwdParams p, int64_t part) {
   const int64_t i = (static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x) * 4;
@@ -354,7 +371,7 @@ struct DqSmem {
 };
 
 // B13b: dQ of 128 rows of one q head.
-template <typename T, int D>
+template <typename T, int D, bool kPad>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
                         const __grid_constant__ CUtensorMap omap,
@@ -493,14 +510,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (lane == 0) mbar_arrive(empty(st));
     }
 
-    T* dqp = static_cast<T*>(p.out0) + (static_cast<int64_t>(b) * p.hq + h) * p.sq * D;
+    const int d = kPad ? p.d : D;
+    T* dqp = static_cast<T*>(p.out0) + (static_cast<int64_t>(b) * p.hq + h) * p.sq * d;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const int row = mw + 16 * wi + g + 8 * r;
-        if (row < p.sq)
-          *reinterpret_cast<uint32_t*>(dqp + static_cast<int64_t>(row) * D + 8 * j + 2 * t) =
+        const int row = mw + 16 * wi + g + 8 * r, col = 8 * j + 2 * t;
+        if (row < p.sq && (!kPad || col < d))
+          *reinterpret_cast<uint32_t*>(dqp + static_cast<int64_t>(row) * d + col) =
               Elem<T>::pack(dq[4 * j + 2 * r] * p.scale, dq[4 * j + 2 * r + 1] * p.scale);
       }
     }
@@ -582,7 +600,7 @@ __device__ __forceinline__ void xchg_get(const unsigned char* xb, int tid, uint3
 }
 
 // B13a at D 256: dK, dV of 64 keys of one kv head, summed over its group.
-template <typename T>
+template <typename T, bool kPad>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_kernel_d256(const __grid_constant__ CUtensorMap qmap,
                               const __grid_constant__ CUtensorMap omap,
@@ -738,15 +756,18 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (lane == 0) mbar_arrive(empty(st));
     }
 
-    const int64_t out = (static_cast<int64_t>(b) * p.hkv + hk) * p.skv * D + 128 * wg;
-    const int64_t part = static_cast<int64_t>(p.batch) * p.hkv * p.skv * D;
+    // This consumer's half of rows of d columns: at d 136-248 the second
+    // half is partial, its columns past d (zeros) not stored.
+    const int d = kPad ? p.d : D, cols = d - 128 * wg;
+    const int64_t out = (static_cast<int64_t>(b) * p.hkv + hk) * p.skv * d + 128 * wg;
+    const int64_t part = static_cast<int64_t>(p.batch) * p.hkv * p.skv * d;
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const int key = n0 + 16 * wi + g + 8 * r;
-        if (key < p.skv) {
-          const int64_t at = out + static_cast<int64_t>(key) * D + 8 * j + 2 * t;
+        const int key = n0 + 16 * wi + g + 8 * r, col = 8 * j + 2 * t;
+        if (key < p.skv && (!kPad || col < cols)) {
+          const int64_t at = out + static_cast<int64_t>(key) * d + col;
           const int e = 4 * j + 2 * r;
           if (p.splits > 1) {  // fp32 partials, added by flash_bwd_dkv_combine
             *reinterpret_cast<float2*>(p.ws + split * part + at) = make_float2(dk[e], dk[e + 1]);
@@ -765,7 +786,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // B13b at D 256: dQ of 64 rows of one q head.
-template <typename T>
+template <typename T, bool kPad>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_kernel_d256(const __grid_constant__ CUtensorMap qmap,
                              const __grid_constant__ CUtensorMap omap,
@@ -909,14 +930,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (lane == 0) mbar_arrive(empty(st));
     }
 
-    T* dqp = static_cast<T*>(p.out0) + (static_cast<int64_t>(b) * p.hq + h) * p.sq * D + 128 * wg;
+    // This consumer's half of rows of d columns, as flash_bwd_dkv_kernel_d256.
+    const int d = kPad ? p.d : D, cols = d - 128 * wg;
+    T* dqp = static_cast<T*>(p.out0) + (static_cast<int64_t>(b) * p.hq + h) * p.sq * d + 128 * wg;
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const int row = m0 + 16 * wi + g + 8 * r;
-        if (row < p.sq)
-          *reinterpret_cast<uint32_t*>(dqp + static_cast<int64_t>(row) * D + 8 * j + 2 * t) =
+        const int row = m0 + 16 * wi + g + 8 * r, col = 8 * j + 2 * t;
+        if (row < p.sq && (!kPad || col < cols))
+          *reinterpret_cast<uint32_t*>(dqp + static_cast<int64_t>(row) * d + col) =
               Elem<T>::pack(dq[4 * j + 2 * r] * p.scale, dq[4 * j + 2 * r + 1] * p.scale);
       }
     }
@@ -932,10 +955,11 @@ struct BwdViews {
   int d, dtype;
 };
 
-template <typename T, int D, bool kDkv>
+template <typename T, int D, bool kDkv, bool kPad>
 auto bwd_kernel() {
-  if constexpr (D == 256) return kDkv ? flash_bwd_dkv_kernel_d256<T> : flash_bwd_dq_kernel_d256<T>;
-  else return kDkv ? flash_bwd_dkv_kernel<T, D> : flash_bwd_dq_kernel<T, D>;
+  if constexpr (D == 256)
+    return kDkv ? flash_bwd_dkv_kernel_d256<T, kPad> : flash_bwd_dq_kernel_d256<T, kPad>;
+  else return kDkv ? flash_bwd_dkv_kernel<T, D, kPad> : flash_bwd_dq_kernel<T, D, kPad>;
 }
 template <int D, bool kDkv>
 constexpr int bwd_smem() {
@@ -943,20 +967,21 @@ constexpr int bwd_smem() {
   else return kDkv ? DkvSmem<D>::kBytes : DqSmem<D>::kBytes;
 }
 
-template <typename T, int D, bool kDkv>
+template <typename T, int D, bool kDkv, bool kPad>
 int launch_bwd(const BwdParams& p, const BwdViews& w, cudaStream_t stream) {
   constexpr int kSmem = bwd_smem<D, kDkv>();
-  const auto kernel = bwd_kernel<T, D, kDkv>();
+  const auto kernel = bwd_kernel<T, D, kDkv, kPad>();
   static const int configured = allow_smem(kernel, kSmem);  // above 48 KB needs an opt-in
   if (configured != cudaSuccess) return configured;
   // Rows of a block: 128 keys (B13a) or q rows (B13b), 64 of both at D 256.
   constexpr int block = D == 256 ? kTile : kBlock;
   const int q_rows = kDkv ? kTile : block, kv_rows = kDkv ? block : kTile;
+  // The maps hold the true d columns: a box reads zeros past them.
   CUtensorMap qmap, omap, kmap, vmap;
-  if (!head_map(&qmap, w.dtype, w.q, p.batch, p.hq, p.sq, D, w.q_sb, w.q_sh, w.q_ss, q_rows) ||
-      !head_map(&omap, w.dtype, w.dout, p.batch, p.hq, p.sq, D, w.o_sb, w.o_sh, w.o_ss, q_rows) ||
-      !head_map(&kmap, w.dtype, w.k, p.batch, p.hkv, p.skv, D, w.k_sb, w.k_sh, w.k_ss, kv_rows) ||
-      !head_map(&vmap, w.dtype, w.v, p.batch, p.hkv, p.skv, D, w.v_sb, w.v_sh, w.v_ss, kv_rows))
+  if (!head_map(&qmap, w.dtype, w.q, p.batch, p.hq, p.sq, p.d, w.q_sb, w.q_sh, w.q_ss, q_rows) ||
+      !head_map(&omap, w.dtype, w.dout, p.batch, p.hq, p.sq, p.d, w.o_sb, w.o_sh, w.o_ss, q_rows) ||
+      !head_map(&kmap, w.dtype, w.k, p.batch, p.hkv, p.skv, p.d, w.k_sb, w.k_sh, w.k_ss, kv_rows) ||
+      !head_map(&vmap, w.dtype, w.v, p.batch, p.hkv, p.skv, p.d, w.v_sb, w.v_sh, w.v_ss, kv_rows))
     return cudaErrorInvalidValue;
   const long long blocks =
       kDkv ? static_cast<long long>((p.skv + block - 1) / block) * p.hkv * p.batch * p.splits
@@ -965,22 +990,29 @@ int launch_bwd(const BwdParams& p, const BwdViews& w, cudaStream_t stream) {
   if (blocks > 0x7FFFFFFF) return cudaErrorInvalidValue;
   kernel<<<static_cast<unsigned>(blocks), kThreads, kSmem, stream>>>(qmap, omap, kmap, vmap, p);
   if (!kDkv || p.splits == 1) return cudaGetLastError();
-  const int64_t part = static_cast<int64_t>(p.batch) * p.hkv * p.skv * D;
+  const int64_t part = static_cast<int64_t>(p.batch) * p.hkv * p.skv * p.d;
   const unsigned combine_blocks = static_cast<unsigned>((part / 4 + 255) / 256);
   flash_bwd_dkv_combine<T><<<combine_blocks, 256, 0, stream>>>(p, part);
   return cudaGetLastError();
 }
 
+template <typename T, int D, bool kDkv>
+int launch_layout(const BwdParams& p, const BwdViews& w, cudaStream_t s) {
+  return p.d < D ? launch_bwd<T, D, kDkv, true>(p, w, s) : launch_bwd<T, D, kDkv, false>(p, w, s);
+}
+
+// d runs in the layout of padded_head_dim(d), padded below it.
 template <bool kDkv>
 int dispatch_bwd(const BwdParams& p, const BwdViews& w, cudaStream_t s) {
   using bf16 = __nv_bfloat16;
   using h16 = __half;
-  if (w.dtype == kBF16 && w.d == 64) return launch_bwd<bf16, 64, kDkv>(p, w, s);
-  if (w.dtype == kBF16 && w.d == 128) return launch_bwd<bf16, 128, kDkv>(p, w, s);
-  if (w.dtype == kF16 && w.d == 64) return launch_bwd<h16, 64, kDkv>(p, w, s);
-  if (w.dtype == kF16 && w.d == 128) return launch_bwd<h16, 128, kDkv>(p, w, s);
-  if (w.dtype == kBF16 && w.d == 256) return launch_bwd<bf16, 256, kDkv>(p, w, s);
-  if (w.dtype == kF16 && w.d == 256) return launch_bwd<h16, 256, kDkv>(p, w, s);
+  const int layout = padded_head_dim(w.d);
+  if (w.dtype == kBF16 && layout == 64) return launch_layout<bf16, 64, kDkv>(p, w, s);
+  if (w.dtype == kBF16 && layout == 128) return launch_layout<bf16, 128, kDkv>(p, w, s);
+  if (w.dtype == kF16 && layout == 64) return launch_layout<h16, 64, kDkv>(p, w, s);
+  if (w.dtype == kF16 && layout == 128) return launch_layout<h16, 128, kDkv>(p, w, s);
+  if (w.dtype == kBF16 && layout == 256) return launch_layout<bf16, 256, kDkv>(p, w, s);
+  if (w.dtype == kF16 && layout == 256) return launch_layout<h16, 256, kDkv>(p, w, s);
   return cudaErrorInvalidValue;
 }
 
@@ -990,12 +1022,19 @@ static void report_type(char* out, int cap, int& used, const char* t) {
 #define BWD_REPORT(label, kernel, smem)             \
   snprintf(name, sizeof(name), "%s %s", label, t); \
   report_one(out, cap, used, name, kernel, smem)
-  BWD_REPORT("B13a D64", (flash_bwd_dkv_kernel<T, 64>), DkvSmem<64>::kBytes);
-  BWD_REPORT("B13a D128", (flash_bwd_dkv_kernel<T, 128>), DkvSmem<128>::kBytes);
-  BWD_REPORT("B13b D64", (flash_bwd_dq_kernel<T, 64>), DqSmem<64>::kBytes);
-  BWD_REPORT("B13b D128", (flash_bwd_dq_kernel<T, 128>), DqSmem<128>::kBytes);
-  BWD_REPORT("B13a D256", (flash_bwd_dkv_kernel_d256<T>), Smem256<true>::kBytes);
-  BWD_REPORT("B13b D256", (flash_bwd_dq_kernel_d256<T>), Smem256<false>::kBytes);
+  BWD_REPORT("B13a D64", (flash_bwd_dkv_kernel<T, 64, false>), DkvSmem<64>::kBytes);
+  BWD_REPORT("B13a D128", (flash_bwd_dkv_kernel<T, 128, false>), DkvSmem<128>::kBytes);
+  BWD_REPORT("B13b D64", (flash_bwd_dq_kernel<T, 64, false>), DqSmem<64>::kBytes);
+  BWD_REPORT("B13b D128", (flash_bwd_dq_kernel<T, 128, false>), DqSmem<128>::kBytes);
+  BWD_REPORT("B13a D256", (flash_bwd_dkv_kernel_d256<T, false>), Smem256<true>::kBytes);
+  BWD_REPORT("B13b D256", (flash_bwd_dq_kernel_d256<T, false>), Smem256<false>::kBytes);
+  // The instantiations of d below the layout's D (kPad).
+  BWD_REPORT("B13a D64 padded", (flash_bwd_dkv_kernel<T, 64, true>), DkvSmem<64>::kBytes);
+  BWD_REPORT("B13a D128 padded", (flash_bwd_dkv_kernel<T, 128, true>), DkvSmem<128>::kBytes);
+  BWD_REPORT("B13b D64 padded", (flash_bwd_dq_kernel<T, 64, true>), DqSmem<64>::kBytes);
+  BWD_REPORT("B13b D128 padded", (flash_bwd_dq_kernel<T, 128, true>), DqSmem<128>::kBytes);
+  BWD_REPORT("B13a D256 padded", (flash_bwd_dkv_kernel_d256<T, true>), Smem256<true>::kBytes);
+  BWD_REPORT("B13b D256 padded", (flash_bwd_dq_kernel_d256<T, true>), Smem256<false>::kBytes);
   BWD_REPORT("B13a split combine", (flash_bwd_dkv_combine<T>), 0);
 #undef BWD_REPORT
 }
@@ -1019,8 +1058,9 @@ extern "C" int fact_bwd_report(char* out, int cap) {
 // One launch function for both kernels, counted apart by the wrapper
 // (ops/flash_bwd.py): `dkv` 1 launches B13a into out0 = dK and out1 = dV
 // (with `splits` > 1, through the fp32 workspace `ws` of 2 x splits x
-// B x Hkv x Skv x D floats and the combine pass), 0 launches B13b into
-// out0 = dQ (`ws`, `splits` unused). lse and delta are [B, Hq, Sq rounded
+// B x Hkv x Skv x d floats and the combine pass), 0 launches B13b into
+// out0 = dQ (`ws`, `splits` unused); outputs contiguous, rows of d. d: a
+// multiple of 8 from 8 to 256 (padded_head_dim). lse and delta are [B, Hq, Sq rounded
 // up to 128] fp32, contiguous, +inf / 0 past Sq. Returns a cudaError_t code
 // (0 on success). Shapes, strides, dtypes and the plan are checked by the
 // wrapper.
@@ -1045,6 +1085,7 @@ extern "C" int fact_flash_bwd(const void* q, const void* k, const void* v, const
   p.sq_pad = (sq + kRowPad - 1) / kRowPad * kRowPad;
   p.scale_log2 = scale_log2, p.scale = scale;
   p.causal = causal, p.window = window;
+  p.d = d;
   const BwdViews w{q, k, v, dout, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
                    v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, d, dtype};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -8,8 +8,13 @@
 // kv_pos[n] <= q_bound[m] (bottom-right alignment per sequence), and with a
 // sliding window W kv_pos[n] > q_bound[m] - W. The tanh soft cap
 // (`softcap_log2`, c * log2(e), 0 for none) applies to every score before
-// the mask. Head dims 64, 128, 256. A row with no visible key (q longer than
-// kv in a sequence, an empty kv sequence) is exact zeros.
+// the mask. Head dims: every multiple of 8 from 8 to 256, each run in the
+// layout of the next of 64, 128 and 256 at or above it (padded_head_dim),
+// as P does (flash_fwd.cu): the maps hold the true d columns, so TMA
+// reads zeros past them, S is exact and O's columns past d are not stored
+// (the TPU wrapper pads D to its 128 lanes, flash_varlen.py:255). A row
+// with no visible key (q longer than kv in a sequence, an empty kv
+// sequence) is exact zeros.
 //
 // Replaces the TPU kernel flash_attention_cute_tpu/ops/flash_varlen.py
 // `_flash_varlen_kernel` (:48, pallas_call at :378). It computes what that
@@ -56,7 +61,7 @@
 namespace fact {
 
 struct VarlenParams {
-  void* o;              // [Hq, Tq, D] contiguous
+  void* o;              // [Hq, Tq, d] contiguous
   const int* q_seg;     // [Tq]
   const int* q_bound;   // [Tq]
   const int* kv_meta;   // [2, meta_stride]: kv_seg, then kv_pos; padded past Tkv
@@ -65,6 +70,7 @@ struct VarlenParams {
   Scores sc;
   int causal;
   int window;  // W > 0, or 0 for none
+  int d;       // the true head dim: D, or below it in D's layout
 };
 
 template <int D>
@@ -172,7 +178,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   setmaxnreg_inc<240>();
-  consume<T, D, kCap, 0>(r, vis, sco, m0, n_begin, total, static_cast<T*>(p.o), nullptr, h);
+  consume<T, D, kCap, 0>(r, vis, sco, m0, n_begin, total, static_cast<T*>(p.o), nullptr, h,
+                        p.d);
 }
 
 // ---------------------------------------------------------------------------
@@ -194,11 +201,12 @@ int launch_varlen(const VarlenParams& p, const VarlenViews& w, cudaStream_t stre
   if (blocks <= 0) return cudaSuccess;
   if (blocks > 0x7FFFFFFF || p.meta_stride % 4 || p.meta_stride < p.tkv + Tiles<D>::kN)
     return cudaErrorInvalidValue;
+  // The maps hold the true d columns: a box reads zeros past them.
   CUtensorMap qmap, kmap, vmap;
   const int kN = Tiles<D>::kN;
-  if (!head_map(&qmap, w.dtype, w.q, 1, p.hq, p.tq, D, 0, w.q_sh, w.q_ss, kBlockM) ||
-      !head_map(&kmap, w.dtype, w.k, 1, w.hkv, p.tkv, D, 0, w.k_sh, w.k_ss, kN) ||
-      !head_map(&vmap, w.dtype, w.v, 1, w.hkv, p.tkv, D, 0, w.v_sh, w.v_ss, kN))
+  if (!head_map(&qmap, w.dtype, w.q, 1, p.hq, p.tq, p.d, 0, w.q_sh, w.q_ss, kBlockM) ||
+      !head_map(&kmap, w.dtype, w.k, 1, w.hkv, p.tkv, p.d, 0, w.k_sh, w.k_ss, kN) ||
+      !head_map(&vmap, w.dtype, w.v, 1, w.hkv, p.tkv, p.d, 0, w.v_sh, w.v_ss, kN))
     return cudaErrorInvalidValue;
   kernel<<<static_cast<unsigned>(blocks), kThreads, S::kBytes, stream>>>(qmap, kmap, vmap, p);
   return cudaGetLastError();
@@ -210,11 +218,13 @@ int launch_varlen_cap(const VarlenParams& p, const VarlenViews& w, cudaStream_t 
                                  : launch_varlen<T, D, false>(p, w, s);
 }
 
+// d runs in the layout of padded_head_dim(d).
 template <typename T>
 int dispatch_varlen(const VarlenParams& p, const VarlenViews& w, int d, cudaStream_t s) {
-  if (d == 64) return launch_varlen_cap<T, 64>(p, w, s);
-  if (d == 128) return launch_varlen_cap<T, 128>(p, w, s);
-  if (d == 256) return launch_varlen_cap<T, 256>(p, w, s);
+  const int layout = padded_head_dim(d);
+  if (layout == 64) return launch_varlen_cap<T, 64>(p, w, s);
+  if (layout == 128) return launch_varlen_cap<T, 128>(p, w, s);
+  if (layout == 256) return launch_varlen_cap<T, 256>(p, w, s);
   return cudaErrorInvalidValue;
 }
 
@@ -269,6 +279,7 @@ extern "C" int fact_flash_varlen(const void* q, const void* k, const void* v, vo
   p.sc = scores(scale_log2, softcap_log2);
   p.causal = causal;
   p.window = window;
+  p.d = d;
   const VarlenViews w{q, k, v, q_sh, q_ss, k_sh, k_ss, v_sh, v_ss, hkv, dtype};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) return dispatch_varlen<__nv_bfloat16>(p, w, d, s);

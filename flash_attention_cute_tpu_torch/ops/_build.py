@@ -191,8 +191,7 @@ HEAD_DIM_ITEM = "ROADMAP.md A10b (A.1)"  # the roadmap item of the head dims sti
 
 def check_head_dim(d: int, head_dims: tuple, what: str) -> None:
     """Raise unless `d` is one of `head_dims`: the kernels that take only
-    the head dims of their layouts (B12, B13a / B13b, K8 and the int8
-    scores)."""
+    the head dims of their layouts (K8 and the int8 scores)."""
     if d not in head_dims:
         raise NotImplementedError(
             f"{what} kernel takes head_dim in {head_dims}, got {d} (other head dims: "
@@ -200,10 +199,10 @@ def check_head_dim(d: int, head_dims: tuple, what: str) -> None:
 
 
 def padded_head_dim(d: int, what: str = "this", elem_bytes: int = 2) -> int:
-    """The head-dim rule of P / B2, D1 + D2, B4, B5, B6, the paged append
-    and, over one-byte (int8 / e4m3) rows, B7, B8, B9 and QA: a head dim
-    runs in the layout of the least of `LAYOUT_HEAD_DIMS` at or above it,
-    with the columns past `d` read as zeros (csrc/common.cuh
+    """The head-dim rule of P / B2, D1 + D2, B4, B5, B6, B12, B13a / B13b,
+    the paged append and, over one-byte (int8 / e4m3) rows, B7, B8, B9 and
+    QA: a head dim runs in the layout of the least of `LAYOUT_HEAD_DIMS` at
+    or above it, with the columns past `d` read as zeros (csrc/common.cuh
     `padded_head_dim`). A row of `elem_bytes` d bytes must be a multiple of
     16 (TMA's stride rule): rows of 2-byte elements take every multiple of
     8 from 8 to 256, one-byte rows every multiple of 16 from 16 to 256.

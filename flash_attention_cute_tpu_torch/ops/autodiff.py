@@ -9,9 +9,9 @@ the device of q: on CPU tensors the same Function runs the plain forward
 with its lse and the plain recompute backward, so the lse that crosses
 from forward to backward is the one the kernels exchange on the card.
 Layout [B, H, S, D] like `flash_attn_func`; GQA / MQA gradients of k and v
-sum over the q-head group. The kernels take D 64, 128 and 256; on CUDA
-tensors another head dim (ROADMAP.md A10b) raises before the forward
-launches.
+sum over the q-head group. The kernels take every head dim that is a
+multiple of 8 from 8 to 256 (`_build.padded_head_dim`); on CUDA tensors
+another head dim (ROADMAP.md A.1) raises before the forward launches.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from flash_attention_cute_tpu_torch.ops import _build
-from flash_attention_cute_tpu_torch.ops.flash_bwd import HEAD_DIMS, flash_attention_bwd
+from flash_attention_cute_tpu_torch.ops.flash_bwd import flash_attention_bwd
 from flash_attention_cute_tpu_torch.ops.flash_fwd import flash_attention_fwd
 
 
@@ -29,7 +29,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, sm_scale, causal, window):
         if q.device.type != "cpu":  # refused before the forward runs, not at the backward
-            _build.check_head_dim(q.shape[-1], HEAD_DIMS, "backward")
+            _build.padded_head_dim(q.shape[-1], "backward")
         out, lse = flash_attention_fwd(q, k, v, sm_scale=sm_scale, causal=causal, window=window,
                                        return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)

@@ -12,18 +12,21 @@ PyTorch expression, as it is one XLA expression in the JAX package.
 `flash_attention_bwd` routes on the device of `q`: a CPU tensor takes the
 plain version, a CUDA tensor launches B13a then B13b (csrc/flash_bwd.cu),
 which replace `_flash_bwd_dkv_kernel` and `_flash_bwd_dq_kernel`. The
-kernels take bf16 / f16, D 64 / 128 / 256, bottom-right causal masking,
-the sliding window, GQA / MQA (dK and dV sum over the q-head group inside
-a block, deterministically) and the strided views
-`_build.check_cuda_tensor` takes (head dim contiguous, 16-byte aligned
-rows), which they read by TMA in place. What they do not take raises (the
-soft cap is not an argument here, as in JAX; other head dims are
-ROADMAP.md A10b); nothing falls back. The TPU block arguments `block_q` /
-`block_kv` are accepted and ignored.
+kernels take bf16 / f16, every head dim that is a multiple of 8 from 8 to
+256 (`_build.padded_head_dim`: a d runs in the layout of the next of 64,
+128 and 256, its TMA boxes reading zeros past d, as the JAX wrapper pads D
+to 128 lanes), bottom-right causal masking, the sliding window, GQA / MQA
+(dK and dV sum over the q-head group inside a block, deterministically)
+and the strided views `_build.check_cuda_tensor` takes (head dim
+contiguous, 16-byte aligned rows), which they read by TMA in place. What
+they do not take raises (the soft cap is not an argument here, as in JAX;
+other head dims name ROADMAP.md A.1); nothing falls back. The TPU block
+arguments `block_q` / `block_kv` are accepted and ignored.
 
-B13a runs one block per (key block, kv head, batch row): 128 keys at D 64
-/ 128, 64 at D 256 (`key_block`), whose kernels have a layout of their own
-to fit the H100's shared memory and registers. Where those blocks are too
+B13a runs one block per (key block, kv head, batch row): 128 keys in the
+layouts of D 64 / 128, 64 in D 256's (`key_block`: d 136-256), whose
+kernels have a layout of their own to fit the H100's shared memory and
+registers. Where those blocks are too
 few to fill the card, `dkv_splits` (pure Python, from the shapes alone)
 cuts each block's walk over the group's q tiles into parts, one block
 each, whose fp32 partials a second pass of the same C call adds in split
@@ -47,10 +50,9 @@ from flash_attention_cute_tpu_torch.ops import _build
 from flash_attention_cute_tpu_torch.ops.reference import prefill_mask
 
 LOG2E = math.log2(math.e)
-HEAD_DIMS = (64, 128, 256)
 ROW_PAD = 128  # csrc/flash_bwd.cu kRowPad: the lse / delta rows a B13b block reads
-KEY_BLOCK = 128  # keys of a B13a block at D 64 / 128 (csrc/flash_bwd.cu kBlock)
-KEY_BLOCK_D256 = 64  # keys of a B13a block at D 256 (kTile: flash_bwd_dkv_kernel_d256)
+KEY_BLOCK = 128  # keys of a B13a block in D 64 / 128's layouts (csrc/flash_bwd.cu kBlock)
+KEY_BLOCK_D256 = 64  # keys of a B13a block in D 256's (kTile: flash_bwd_dkv_kernel_d256)
 Q_TILE = 64  # q rows of a B13a tile, at every head dim
 MAX_SPLITS = 8
 MIN_SPLIT_TILES = 4  # q tiles a split walks at the least, on the longest walk
@@ -63,8 +65,9 @@ DQ = _build.Kernel("flash_bwd_dq", "flash_bwd.cu", "fact_flash_bwd", _ARGS)
 
 
 def key_block(head_dim: int) -> int:
-    """Keys of a B13a block at this head dim."""
-    return KEY_BLOCK_D256 if head_dim == 256 else KEY_BLOCK
+    """Keys of a B13a block at this head dim: those of the layout it runs
+    in (raises for a head dim no layout takes)."""
+    return KEY_BLOCK_D256 if _build.padded_head_dim(head_dim, "backward") == 256 else KEY_BLOCK
 
 
 def dkv_splits(batch: int, hkv: int, group: int, sq: int, skv: int, head_dim: int = 128) -> int:
@@ -160,7 +163,7 @@ def flash_attention_bwd(
         window = 0  # cannot bind, as in the forward
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"backward kernels take bf16/f16, got {q.dtype}")
-    _build.check_head_dim(d, HEAD_DIMS, "backward")
+    _build.padded_head_dim(d, "backward")
     if (hq % hkv or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
             or o.shape != q.shape or do.shape != q.shape or lse.shape != (b, hq, sq)):
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} "

@@ -21,7 +21,7 @@ runs in D 128's layout, its columns past 96 read as zeros). With
 backward needs (ops/flash_bwd.py), in the TPU kernels'
 convention: log2 units of the scaled scores, +inf on a row with no visible
 key, at every head dim and with the cap, as the JAX forward returns it
-(the backward kernels take D 64, 128 and 256 but not the cap: api.py
+(the backward kernels take the same head dims but not the cap: api.py
 keeps a capped prefill forward-only).
 
 With `score_dtype="int8"` (opt-in, forward only, as in the JAX package)

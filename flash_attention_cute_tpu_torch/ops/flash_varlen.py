@@ -14,9 +14,11 @@ flash-attn layout); `flash_attention_packed` is the core ([H, T, D]).
 Both route on the device of `q`: a CPU tensor takes the plain version (per
 segment dense attention in fp32, never a [Tq, Tkv] matrix), a CUDA tensor
 launches B12 (csrc/flash_varlen.cu: wgmma fed by TMA), which replaces
-`_flash_varlen_kernel`. Both take the tanh soft cap and head dims 64, 128
-and 256. The metadata are derived and read on the device: no length, offset
-or segment id becomes a Python int on the kernel route. Rows with no
+`_flash_varlen_kernel`. Both take the tanh soft cap and every head dim
+that is a multiple of 8 from 8 to 256 (`_build.padded_head_dim`: the
+kernel runs a d in the layout of the next of 64, 128 and 256). The
+metadata are derived and read on the device: no length, offset or segment
+id becomes a Python int on the kernel route. Rows with no
 visible key are exact zeros. `equal_lengths`, `max_seqlen`, `block_q`,
 `block_kv` and `stable` (TPU grid and softmax knobs) are accepted and
 ignored: the kernel finds each block's live key range itself and its
@@ -32,7 +34,6 @@ import torch
 from flash_attention_cute_tpu_torch.ops import _build
 
 LOG2E = math.log2(math.e)
-HEAD_DIMS = (64, 128, 256)
 # Keys past Tkv in the kernel's padded copy of the kv metadata: no row sees
 # them (segment INT_MIN, position INT_MAX); a tile of 128 keys may start at
 # any key below Tkv.
@@ -147,7 +148,7 @@ def flash_attention_packed(
     window = _build.window_arg(window)
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"varlen kernel takes bf16/f16, got {q.dtype}")
-    _build.check_head_dim(d, HEAD_DIMS, "varlen")
+    _build.padded_head_dim(d, "varlen")
     if hq % hkv or k.shape != v.shape or k.shape[2] != d:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):

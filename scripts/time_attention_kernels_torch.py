@@ -37,7 +37,9 @@ B4 at a verify round (B 4, S 5, capacity 640; and chip_smoke.py's: capacity
 Mistral-7B's window ("W": B 2, S 256, offsets 4608 / 4864, W 4096); B12 over
 8 packed causal sequences of 100-2048 tokens and over chip_smoke.py's 32
 (35874 tokens); B4 (a verify round and a chunk, capacity 4640) and B12
-(the 32 sequences) at Gemma-2-9B's widths with and without the cap 50.
+(the 32 sequences) at Gemma-2-9B's widths with and without the cap 50; B12
+over the 32 sequences at Phi-3-mini's widths ("phi3": 32 / 32 heads, D 96
+in D 128's layout; null in a tree that refuses D 96).
 Every P / B2, B4 and B12 shape also has a "bound" entry: 4 D operations per
 visible (row, key) pair and q head at the bf16 peak, or its bytes (q, the
 live k / v read once, the output written once) at 3.35 TB/s, whichever is
@@ -59,7 +61,9 @@ kernel forward's o and lse): at the training step's attention (B 2, S 2048,
 S 5120, at Qwen2-7B's 28 / 4 heads (B 1, S 1024), and non-causal at B 1, S
 2048 (as many visible pairs as the training shape, in blocks of equal
 work), and at the global layer of Gemma-2-9B's training step (B 1, S 4608,
-16 / 8 heads, D 256; null in a tree whose backward refuses D 256). Their
+16 / 8 heads, D 256; null in a tree whose backward refuses D 256), and at
+Phi-3-mini's training step ("phi3": B 2, S 2040, 32 / 32 heads, D 96 in D
+128's layout; null in a tree whose backward refuses D 96). Their
 bounds ("bound" entries, the same for every tree): B13a 8 D
 and B13b 6 D operations per visible (row, key) pair and q head at the bf16
 peak, or their bytes (inputs and outputs once) at 3.35 TB/s, whichever is
@@ -74,8 +78,9 @@ output, whichever is longer). "layouts": QA (quantize-and-append) at run
 D's decode (8 rows of one token into int8 pages of 128, 8 kv heads) at D 64,
 128 and 256, and B7 + D2 (int8, Llama's middle decode step), B8 + D2 (e4m3,
 run E's decode at page_size 16), B9 (int8, run E's extend) and B4 (the
-smoke's last verify round, and a chunk of 256) at D 64 (32 / 8 heads), the
-head dim of the layout the other groups do not time them at. Prints one
+smoke's last verify round, and a chunk of 256) and B12 (the 32 sequences,
+causal) at D 64 (32 / 8 heads), the head dim of the layout the other groups
+do not time them at. Prints one
 JSON line with the card's name and power limit.
 """
 
@@ -150,9 +155,10 @@ def extends_and_varlen(randn, timed, out):
     lens = varlen_batch()
     cu = torch.tensor([0] + lens, device="cuda").cumsum(0).to(torch.int32)
     pairs = sum(n * (n + 1) // 2 for n in lens)
-    for name, hq, d, caps in (("B12 32 sequences causal", 32, 128, (None,)),
-                              ("gemma2 B12 32 sequences causal", 16, 256, (None, 50.0))):
-        q, k, v = randn(sum(lens), hq, d), randn(sum(lens), 8, d), randn(sum(lens), 8, d)
+    for name, hq, hkv, d, caps in (("B12 32 sequences causal", 32, 8, 128, (None,)),
+                                   ("gemma2 B12 32 sequences causal", 16, 8, 256, (None, 50.0)),
+                                   ("phi3 B12 D96 32 sequences causal", 32, 32, 96, (None,))):
+        q, k, v = randn(sum(lens), hq, d), randn(sum(lens), hkv, d), randn(sum(lens), hkv, d)
         for cap in caps:
             label = name + (f" cap {cap:g}" if cap else "")
             out[label] = timed(lambda: flash_varlen.flash_attention_varlen(
@@ -302,6 +308,12 @@ def layouts(randn, pool, timed, out):
     out["B9 int8 D64 B8 S256 ps16"] = timed(lambda: qz.paged_attention_extend_quantized(
         q, *quant, off, off + 256, table), 20)
     del kp, vp, quant
+    lens = varlen_batch()
+    cu = torch.tensor([0] + lens, device="cuda").cumsum(0).to(torch.int32)
+    qv, kv, vv = randn(sum(lens), hq, d), randn(sum(lens), 8, d), randn(sum(lens), 8, d)
+    out["B12 D64 32 sequences causal"] = timed(lambda: flash_varlen.flash_attention_varlen(
+        qv, kv, vv, cu, causal=True), 10)
+    del qv, kv, vv
     for name, s, cap_len, offs in (("B4 verify D64 B4 S5 C582 q_offset 571", 5, 582, [571] * 4),
                                    ("B4 chunk D64 B4 S256 C1100", 256, 1100,
                                     [0, 256, 512, 768])):
@@ -323,9 +335,12 @@ def backward_times(randn, timed, out):
                                          ("W4096 B1 S5120", 1, 32, 5120, 128, True, 4096),
                                          ("qwen2 28/4 B1 S1024", 1, 28, 1024, 128, True, None),
                                          ("non-causal B1 S2048", 1, 32, 2048, 128, False, None),
-                                         ("gemma2 D256 B1 S4608", 1, 16, 4608, 256, True, None)):
-        hkv = 4 if hq == 28 else 8
-        if d not in flash_bwd.HEAD_DIMS:  # a tree whose backward refuses D 256
+                                         ("gemma2 D256 B1 S4608", 1, 16, 4608, 256, True, None),
+                                         ("phi3 D96 B2 S2040", 2, 32, 2040, 96, True, None)):
+        hkv = 4 if hq == 28 else 32 if d == 96 else 8
+        # A tree whose backward refuses this head dim (D 256 before its
+        # layout, D 96 before the head-dim rule: `launch` does not check it).
+        if d not in getattr(flash_bwd, "HEAD_DIMS", (d,)):
             out[f"B13a {name}"] = out[f"B13b {name}"] = None
             continue
         q, do = randn(b, hq, s, d), randn(b, hq, s, d)

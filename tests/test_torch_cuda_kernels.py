@@ -1326,34 +1326,45 @@ def test_varlen_kernel_matches_plain(device, case):
 
 
 def test_training_and_varlen_kernels_refuse_what_they_do_not_take(device):
-    """The backward refuses head dims outside 64 / 128 / 256 (D 96: A10b)
-    and launches B13a / B13b at D 256, within GRAD_REL_TOL of the plain
-    backward; B12 takes the soft cap and D 256 since its Hopper redesign:
-    both launch it."""
+    """The backward and B12 refuse a head dim no layout takes (D 100,
+    ROADMAP.md A.1) before any launch, and launch B13a / B13b at D 256 and
+    at D 96 (in D 128's layout), within GRAD_REL_TOL of the plain backward;
+    B12 takes the soft cap, D 256 and D 96: each call launches it."""
     gen = torch.Generator(device="cuda").manual_seed(35)
-    q = randn(gen, 1, 4, 64, 256)
-    q96 = randn(gen, 1, 4, 64, 96)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        flash_bwd.flash_attention_bwd(q96, q96[:, :2], q96[:, :2], q96, q96,
-                                      torch.zeros(1, 4, 64, device="cuda"))
-    k, v, do = randn(gen, 1, 2, 64, 256), randn(gen, 1, 2, 64, 256), randn(gen, 1, 4, 64, 256)
-    o, lse = flash_fwd.flash_attention_fwd(q, k, v, return_lse=True)
-    before = (flash_bwd.DKV.launches, flash_bwd.DQ.launches)
-    got = flash_bwd.flash_attention_bwd(q, k, v, o, do, lse)
-    torch.cuda.synchronize()
-    assert (flash_bwd.DKV.launches, flash_bwd.DQ.launches) == (before[0] + 1, before[1] + 1)
-    want = flash_bwd.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o, do, lse)
-    assert all(rel_err(a, w) <= GRAD_REL_TOL for a, w in zip(got, want))
-    qv = randn(gen, 64, 4, 128)
+    q100 = randn(gen, 1, 4, 64, 100)
     cu = torch.tensor([0, 64], dtype=torch.int32, device="cuda")
+    counted = (flash_bwd.DKV, flash_bwd.DQ, flash_varlen.VARLEN)
+    before = [c.launches for c in counted]
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md .*A\.1"):
+        flash_bwd.flash_attention_bwd(q100, q100[:, :2], q100[:, :2], q100, q100,
+                                      torch.zeros(1, 4, 64, device="cuda"))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md .*A\.1"):
+        flash_varlen.flash_attention_varlen(q100[0].transpose(0, 1), q100[0, :2].transpose(0, 1),
+                                            q100[0, :2].transpose(0, 1), cu)
+    assert [c.launches for c in counted] == before
+    for d in (256, 96):
+        q = randn(gen, 1, 4, 64, d)
+        k, v, do = randn(gen, 1, 2, 64, d), randn(gen, 1, 2, 64, d), randn(gen, 1, 4, 64, d)
+        o, lse = flash_fwd.flash_attention_fwd(q, k, v, return_lse=True)
+        before = (flash_bwd.DKV.launches, flash_bwd.DQ.launches)
+        got = flash_bwd.flash_attention_bwd(q, k, v, o, do, lse)
+        torch.cuda.synchronize()
+        assert (flash_bwd.DKV.launches, flash_bwd.DQ.launches) == (before[0] + 1, before[1] + 1)
+        want = flash_bwd.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o, do, lse)
+        assert all(a.shape == w.shape and rel_err(a, w) <= GRAD_REL_TOL
+                   for a, w in zip(got, want)), d
+    qv = randn(gen, 64, 4, 128)
+    q96 = randn(gen, 64, 4, 96)
     for args, kw in (((qv, qv[:, :2], qv[:, :2]), {"logit_softcap": 30.0}),
                      ((q[0].transpose(0, 1), q[0, :2].transpose(0, 1),
-                       q[0, :2].transpose(0, 1)), {})):
+                       q[0, :2].transpose(0, 1)), {}),
+                     ((q96, q96[:, :2], q96[:, :2]), {"causal": True})):
         before = flash_varlen.VARLEN.launches
         out = flash_varlen.flash_attention_varlen(*args, cu, **kw)
         assert flash_varlen.VARLEN.launches == before + 1
         ref = flash_varlen.flash_attention_varlen(*(x.cpu().float() for x in args), cu.cpu(),
                                                   **kw)
+        assert out.shape == ref.shape
         assert (out.float().cpu() - ref).abs().max().item() <= BF16_TOL
 
 
@@ -1372,32 +1383,34 @@ def test_prefill_lse_takes_d256_and_the_cap(device, d, cap):
 
 
 def test_autodiff_refuses_d256_before_the_forward_launches(device):
-    """Under autograd a head dim the backward kernels do not take (D 96,
-    ROADMAP.md A10b) raises before P runs, not after a forward whose
-    gradient cannot come. D 256, refused so until the backward kernels took
-    it, now runs P, then B13a and B13b, and its gradients match autograd
-    through the fp32 reference within GRAD_REL_TOL."""
+    """Under autograd a head dim no backward layout takes (D 100, ROADMAP.md
+    A.1) raises before P runs, not after a forward whose gradient cannot
+    come. D 96 (in D 128's layout, refused so until the backward took the
+    head-dim rule) and D 256 (refused so until the backward kernels took it)
+    run P, then B13a and B13b, and their gradients match autograd through
+    the fp32 reference within GRAD_REL_TOL."""
     gen = torch.Generator(device="cuda").manual_seed(37)
-    q = randn(gen, 1, 4, 64, 96).requires_grad_()
-    k, v = randn(gen, 1, 2, 64, 96), randn(gen, 1, 2, 64, 96)
+    q = randn(gen, 1, 4, 64, 100).requires_grad_()
+    k, v = randn(gen, 1, 2, 64, 100), randn(gen, 1, 2, 64, 100)
     before = (flash_fwd.PREFILL.launches, flash_fwd.WINDOWED_PREFILL.launches)
-    with pytest.raises(NotImplementedError, match="A10b"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md .*A\.1"):
         autodiff.flash_attention(q, k, v, causal=True)
-    with pytest.raises(NotImplementedError, match="A10b"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md .*A\.1"):
         api.flash_attn_func(q, k, v, causal=True)
     assert (flash_fwd.PREFILL.launches, flash_fwd.WINDOWED_PREFILL.launches) == before
-    q = randn(gen, 1, 4, 300, 256).requires_grad_()
-    k, v = randn(gen, 1, 2, 300, 256).requires_grad_(), randn(gen, 1, 2, 300, 256).requires_grad_()
-    do = randn(gen, 1, 4, 300, 256)
-    counters = (flash_fwd.PREFILL, flash_bwd.DKV, flash_bwd.DQ)
-    before = [c.launches for c in counters]
-    got = torch.autograd.grad(api.flash_attn_func(q, k, v, causal=True), (q, k, v), do)
-    torch.cuda.synchronize()
-    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1]
-    leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
-    want = torch.autograd.grad(flash_fwd.flash_attention_fwd_plain(*leaves, causal=True), leaves,
-                               do.float())
-    assert all(rel_err(a, w) <= GRAD_REL_TOL for a, w in zip(got, want))
+    for hq, hkv, s, d in ((32, 32, 300, 96), (4, 2, 300, 256)):
+        q = randn(gen, 1, hq, s, d).requires_grad_()
+        k, v = randn(gen, 1, hkv, s, d).requires_grad_(), randn(gen, 1, hkv, s, d).requires_grad_()
+        do = randn(gen, 1, hq, s, d)
+        counters = (flash_fwd.PREFILL, flash_bwd.DKV, flash_bwd.DQ)
+        before = [c.launches for c in counters]
+        got = torch.autograd.grad(api.flash_attn_func(q, k, v, causal=True), (q, k, v), do)
+        torch.cuda.synchronize()
+        assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1]
+        leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
+        want = torch.autograd.grad(flash_fwd.flash_attention_fwd_plain(*leaves, causal=True),
+                                   leaves, do.float())
+        assert all(rel_err(a, w) <= GRAD_REL_TOL for a, w in zip(got, want)), d
 
 
 # P / B2 at the edges of their tiles (128 q rows a block, 128 keys a tile at
@@ -1919,6 +1932,92 @@ def test_odd_head_dim_kernels_refuse_what_no_layout_takes(device, d):
         with pytest.raises(NotImplementedError, match=r"ROADMAP\.md .*A\.1"):
             call()
     assert [x.launches for x in counted] == before
+
+
+# Head dims outside {64, 128, 256} in training and packed batches: B13a /
+# B13b and B12 run every multiple of 8 up to 256 in the layout of the next
+# of 64, 128 and 256 (D 8-56 in D 64's, 72-120 in D 128's, 136-248 in D
+# 256's, whose second 128-column half is partial). Causal, windowed and
+# non-causal, Sq != Skv, GQA groups 1 and 4, bf16 and f16; B13a also forced
+# into 3 parts and into one; each held to its plain version (backward
+# GRAD_REL_TOL of the gradient's max, B12 3e-2) and repeated bit for bit.
+ODD_TRAINING_DIMS = {8: (4, 1), 24: (8, 2), 40: (8, 8), 96: (32, 32), 136: (16, 4),
+                     200: (8, 2), 248: (8, 8)}
+ODD_BACKWARD = {
+    # name: (sq, skv, causal, window)
+    "causal_s300": (300, 300, True, None),
+    "window_48_sq200_skv333": (200, 333, True, 48),
+    "full_sq333_skv200": (333, 200, False, None),
+}
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("d", list(ODD_TRAINING_DIMS))
+def test_backward_kernels_at_odd_head_dims(device, d, dtype):
+    """B13a / B13b on the model's transposed views and a non-contiguous dO,
+    fed the kernel forward's o and lse, against the plain backward; B13a
+    again in 3 parts and in one pass (`launch(..., splits=)`)."""
+    hq, hkv = ODD_TRAINING_DIMS[d]
+    dt = DTYPES[dtype]
+    gen = torch.Generator(device="cuda").manual_seed(130 + d)
+    for name, (sq, skv, causal, window) in ODD_BACKWARD.items():
+        q = randn(gen, 1, sq, hq, d, dtype=dt).transpose(1, 2)
+        k, v = (randn(gen, 1, skv, hkv, d, dtype=dt).transpose(1, 2) for _ in "kv")
+        do = randn(gen, 1, sq, hq, d, dtype=dt).transpose(1, 2)
+        o, lse = flash_fwd.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                               return_lse=True)
+        before = (flash_bwd.DKV.launches, flash_bwd.DQ.launches)
+        got = flash_bwd.flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window)
+        again = flash_bwd.flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert (flash_bwd.DKV.launches, flash_bwd.DQ.launches) == (before[0] + 2, before[1] + 2)
+        want = flash_bwd.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o, do, lse,
+                                                   causal=causal, window=window)
+        for g, a, c, w in zip(("dq", "dk", "dv"), got, again, want):
+            assert a.shape == w.shape and a.dtype == dt and torch.isfinite(a).all(), (name, g)
+            assert torch.equal(a, c), (name, g)
+            assert rel_err(a, w) <= GRAD_REL_TOL, (name, g, rel_err(a, w))
+        delta = (do.float() * o.float()).sum(-1)
+        parts = {}
+        for splits in (3, 1):
+            parts[splits] = (torch.empty_like(got[1]), torch.empty_like(got[2]))
+            flash_bwd.launch(flash_bwd.DKV, q, k, v, do, lse, delta, *parts[splits], d ** -0.5,
+                             causal, window or 0, splits=splits)
+        torch.cuda.synchronize()
+        for i, w in ((0, want[1]), (1, want[2])):
+            assert rel_err(parts[1][i], w) <= GRAD_REL_TOL, name
+            assert rel_err(parts[3][i], parts[1][i]) <= SPLIT_REL_TOL, name
+
+
+def varlen_plain(q, k, v, cu_q, cu_kv, **kw):
+    """B12's plain version behind the cu_seqlens front end, on the card."""
+    seg_q, pos_q = flash_varlen._seg_metadata(cu_q, q.shape[0])
+    seg_kv, pos_kv = flash_varlen._seg_metadata(cu_kv, k.shape[0])
+    bounds = pos_q + (cu_kv.diff() - cu_q.diff())[seg_q.long()]
+    return flash_varlen.flash_attention_packed_plain(
+        q.transpose(0, 1), k.transpose(0, 1), v.transpose(0, 1), seg_q, seg_kv, bounds, pos_kv,
+        **kw).transpose(0, 1)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("d", list(ODD_TRAINING_DIMS))
+def test_varlen_kernel_at_odd_head_dims(device, d, dtype):
+    """B12 over packed batches (causal, kv longer with a window, full), one
+    launch a call, against its fp32 plain version on q's fp32 image."""
+    hq, hkv = ODD_TRAINING_DIMS[d]
+    dt = DTYPES[dtype]
+    gen = torch.Generator(device="cuda").manual_seed(140 + d)
+    for lens_q, lens_kv, kw in (([100, 37, 256, 1, 190], None, {"causal": True}),
+                                ([64, 200, 32], [128, 100, 300], {"causal": True, "window": 64}),
+                                ([100, 37, 256], None, {})):
+        lens_kv = lens_kv or lens_q
+        q = randn(gen, sum(lens_q), hq, d, dtype=dt)
+        k, v = (randn(gen, sum(lens_kv), hkv, d, dtype=dt) for _ in "kv")
+        cu_q, cu_kv = (torch.tensor([0] + x, device="cuda").cumsum(0).to(torch.int32)
+                       for x in (lens_q, lens_kv))
+        out, err = held(flash_varlen.flash_attention_varlen, varlen_plain, flash_varlen.VARLEN,
+                        q, k, v, cu_q, cu_kv, **kw)
+        assert out.shape == q.shape and err <= BF16_TOL, (lens_q, kw, err)
 
 
 # Head dims outside {64, 128, 256} over one-byte caches and in the extend:
