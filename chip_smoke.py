@@ -122,7 +122,22 @@ Phases, in order; any failure exits non-zero:
      into 3 parts (within 2^-7 of one pass) and one pass, and B12 causal,
      with kv longer and a window, and full, within 3e-2, every call
      repeated bit for bit; D 100 and D 264 refused by the backward, the
-     autograd op (before P) and B12 with no launch.
+     autograd op (before P) and B12 with no launch; (3m) GQA groups above
+     32 in the decodes, which cut a group into chunks of at most 32 q rows,
+     a block each, and above 8 in the paged extends (LARGE_GROUP_DECODES:
+     groups 33, 48 at StarCoder's 48 / 1 heads, 64, 71 at Falcon-7B's 71 /
+     1 heads and over two kv heads, 128 / 1; D 64, 96, 128 and 256; windows
+     of 100 and 45, the caps 50 and 1.0, f16): D1 + D2 and B7 + D2 (int8,
+     e4m3) over NaN-tailed stacked caches, B5 + D2 and B8 + D2 over
+     NaN-poisoned pools of page_size 16 or 128, lengths with 0 among them,
+     D1's partials at 7 splits (dead splits among them) within 1e-2 of the
+     plain partials; B6 and B9 (int8, e4m3) at groups 12 (96 / 8), 16 (128
+     / 8, window 45) and 71 (71 / 1, D 64, cap 50, f16) with an inactive
+     row; each within 3e-2 of its fp32 plain version and repeated bit for
+     bit; then `api.flash_attention_forward` at Sq 1 on Falcon-7B's 71 / 1
+     heads (B 8, 2048 keys, ragged lengths with a 0, NaN tails), counted on
+     path "mqa-71": D1 once, D2 once, nothing else, within 3e-2 of the
+     plain decode.
   4. main paths: greedy generation of Llama-3-8B (random weights from a
      seeded CUDA generator) at B 4, prompt 512, 64 new tokens; launch
      counters show the kernels carried it; teacher-forced logits of the
@@ -244,7 +259,17 @@ Phases, in order; any failure exits non-zero:
      gradients within 0.05 of the plain route's, peak memory; then
      `flash_attention_varlen` at D 96 (32 / 32 heads) over 3g's packed
      batch, causal: B12 once (path "phi3-widths varlen"), held to its plain
-     version within 3e-2.
+     version within 3e-2. (4p, after 4m / 4n, on a tree of its own) A
+     model at Llama-3.1-405B's widths (`llama31_405b_widths_config`:
+     hidden 16384, 128 / 8 heads (a GQA group of 16), D 128, SwiGLU 53248,
+     vocab 128256, untied, RoPE theta 500000 with llama3 scaling; depth cut
+     from 126 to 4 layers, printed), random weights: as 4m, teacher-forced
+     prefill and decode-step logits, greedy generation (B 4, prompt 512, 64
+     new: P 4, D1 + D2 63 x 4), then as 4n greedy over an int8 cache (QA,
+     B7 + D2), and serving runs A, B, D and E over the 24 requests (P or B6
+     / B9 at admission, B5 / B8 + D2, the append / QA), every token
+     teacher-forced; launches on paths "405b-widths ...", each run's exact,
+     and the paged extends B6 and B9 launched on them.
      (4k, run after 4e over the Llama tree; launches counted as path "hf")
      The HF surface: (a) HF-named transposed views of the parameters
      through `params_from_state_dict`, then greedy generation: phase 4's
@@ -318,8 +343,14 @@ Phases, in order; any failure exits non-zero:
      fwd + bwd - fwd) and of the B12 row at 4o's packed batch (library_ms:
      SDPA over the padded batch), bounds at D 96, with the runtime report
      of the instantiation they run (B13a / B13b: D 128's padded ones);
-     every timed entry its share of its bound ("of_bound"); the card's
-     name and power limit.
+     (5i) the "g16" entries of the P, D1, D2, B5, B6, append, B7, B8, B9
+     and QA rows at 4p's shapes (Llama-3.1-405B's 128 / 8 heads; library_ms
+     SDPA with the group expanded, over a contiguous or dequantized copy)
+     and the "m71" entries of the D1, B5, B7 and B8 rows at Falcon-7B's 71
+     / 1 heads, D 64, a decode of B 8 over 2048 keys a row (bounds: the
+     visible K / V read once at 3.35 TB/s; library_ms one SDPA call over the
+     cache with the group expanded); every timed entry its share of its
+     bound ("of_bound"); the card's name and power limit.
 The last line is {"ok": true, "device": {...}}.
 
 Tolerances: kernel outputs are bf16 results of fp32 arithmetic on bf16
@@ -2273,7 +2304,7 @@ def kernel_entries(rows, errs, path_counts) -> list:
     def share_of_bound(entry):  # each timed shape's share of its bound, nested ones too
         if entry.get("ms") and entry.get("bound_ms"):
             entry["of_bound"] = entry["bound_ms"] / entry["ms"]
-        for key in ("chunk", "window", "gemma2", "long", "phi3"):
+        for key in ("chunk", "window", "gemma2", "long", "phi3", "g16", "m71"):
             if isinstance(entry.get(key), dict):
                 share_of_bound(entry[key])
 
@@ -2292,7 +2323,8 @@ def kernel_entries(rows, errs, path_counts) -> list:
             **{key: r[key] for key in ("library_of", "with_combine_ms", "prefill", "chunk",
                                        "window", "lse", "max_rel_err", "gemma2", "projections",
                                        "runtime_attributes", "with_k8_ms", "bf16_ms", "long",
-                                       "oracle_max_abs_err", "phi3") if key in r},
+                                       "oracle_max_abs_err", "phi3", "g16", "m71")
+               if key in r},
         })
     return out
 
@@ -4880,26 +4912,13 @@ def phi3_rows(torch, ops, gen):
     D 96; P, D1, B4, B5, B6, B7, B8 and B9 run D 128's layout, so a quarter
     of their tile columns and products is padding, which counts against
     them (D2, the append and QA touch d columns only)."""
-    cfg = phi3_mini_widths_config()
-
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-
-    rows = dense_rows(torch, cfg, randn, ops["flash_fwd"], ops["flash_decode"])[0]
-    rows += paged_rows(torch, cfg, randn, gen)
-    rows += quant_rows(torch, cfg, randn, gen)
-    rows += chunked_rows(torch, cfg, gen)
-    out = {}
-    for r in rows:
-        r.update(bound(r.pop("ops"), r.pop("bytes"), r.pop("peak")))
-        out[r["name"]] = {k: v for k, v in r.items()
-                          if k not in ("name", "route", "source", "replaces")}
-        out[r["name"]].setdefault("shape", "phase 4m's")
-        if r["name"] in ("flash_fwd", "decode_partials", "paged_decode", "paged_extend",
-                         "flash_chunked", "quant_decode", "quant_paged_decode",
-                         "quant_paged_extend"):
-            out[r["name"]]["padding"] = ("bound at D 96; the kernel runs in D 128's layout, "
-                                         "a quarter of its tile columns zeros")
+    out = widths_rows(torch, ops, gen, phi3_mini_widths_config(), chunked=True)
+    for name, entry in out.items():
+        entry.setdefault("shape", "phase 4m's")
+        if name in ("flash_fwd", "decode_partials", "paged_decode", "paged_extend",
+                    "flash_chunked", "quant_decode", "quant_paged_decode", "quant_paged_extend"):
+            entry["padding"] = ("bound at D 96; the kernel runs in D 128's layout, a quarter of "
+                                "its tile columns zeros")
     return out
 
 
@@ -5100,6 +5119,352 @@ def phi3_training_rows(torch, ops, gen):
     return out
 
 
+# Phase 3m: GQA groups above 32 in the decodes D1, B5, B7 and B8, which cut
+# such a group into chunks of at most 32 q rows, a block each
+# (`dispatch.decode_group_chunks`), and above 8 in the paged extends B6 /
+# B9, a block of which runs one q head. Decodes (name, head dim, q heads,
+# kv heads, capacity, window, soft cap, q's dtype): groups of 33, 48
+# (StarCoder's 48 / 1 heads), 64, 71 (Falcon-7B's 71 / 1; and over two kv
+# heads) and 128 (128 / 1), at D 64, 96, 128 and 256, windows of 100 and
+# 45, the caps 50 and 1.0, f16. Extends (name, page_size, head dim, q
+# heads, kv heads, S, q_offset of rows 0-2, window, soft cap, q's dtype):
+# Mistral-Large-2's group of 12 (96 / 8), Llama-3.1-405B's 16 (128 / 8)
+# and Falcon-7B's 71 (71 / 1, D 64).
+LARGE_GROUP_DECODES = (
+    ("group 33 (66 / 2 heads), D 128, window 100", 128, 66, 2, 1030, 100, None, "bfloat16"),
+    ("StarCoder's 48 / 1 heads, D 128", 128, 48, 1, 2051, None, None, "bfloat16"),
+    ("group 64 (64 / 1 heads), D 256, cap 50", 256, 64, 1, 770, None, 50.0, "bfloat16"),
+    ("Falcon-7B's 71 / 1 heads, D 64", 64, 71, 1, 2051, None, None, "bfloat16"),
+    ("group 71 (142 / 2 heads), D 64, window 45, f16", 64, 142, 2, 1031, 45, None, "float16"),
+    ("group 128 (128 / 1 heads), D 96, cap 1.0", 96, 128, 1, 577, None, 1.0, "bfloat16"),
+)
+M71_CASE = "Falcon-7B's 71 / 1 heads, D 64"  # its errors also go to "<kernel> m71"
+LARGE_GROUP_EXTENDS = (
+    ("Mistral-Large-2's group 12 (96 / 8 heads), S 256, page_size 16", 16, 128, 96, 8, 256,
+     [0, 256, 1000], None, None, "bfloat16"),
+    ("Llama-3.1-405B's group 16 (128 / 8 heads), S 130, page_size 128, window 45", 128, 128,
+     128, 8, 130, [0, 61, 999], 45, None, "bfloat16"),
+    ("Falcon-7B's group 71 (71 / 1 heads), D 64, S 65, page_size 16, cap 50, f16", 16, 64, 71,
+     1, 65, [5, 300, 77], None, 50.0, "float16"),
+)
+MQA71_LABEL = "mqa-71"  # the launch-count path of the API call at Falcon-7B's heads
+
+
+def phase_large_groups(torch, ops, errs):
+    """Phase 3m: D1 + D2 and B7 + D2 (int8, e4m3) over each
+    LARGE_GROUP_DECODES case's stacked cache (`held_contiguous_decodes`:
+    lengths 0, 1, 37, C - 1, C, C / 2 + 3, NaN tails), B5 + D2 and B8 + D2
+    (int8, e4m3) over NaN-poisoned pools of page_size 16 or 128 (lengths 0,
+    1, a page edge either side, the whole table, 777), B6 and B9 (int8,
+    e4m3) over each LARGE_GROUP_EXTENDS case (an inactive row), each against
+    its fp32 plain version (3e-2), every call repeated bit for bit,
+    length-0 and inactive rows exact zeros; D1's partials at Falcon-7B's
+    heads at 7 splits (splits of no key among them) against the plain
+    partials (1e-2). Falcon-7B's errors also go to "<kernel> m71",
+    Llama-3.1-405B's group of 16 to "<kernel> g16"."""
+    from flash_attention_cute_tpu_torch import dispatch
+
+    flash_decode, pa, quantized = ops["flash_decode"], ops["paged_attention"], ops["quantized"]
+    gen = torch.Generator(device="cuda").manual_seed(4392)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def held(what, key, tag, fn, plain, *args, **kw):
+        return held_call(torch, errs, what, key, tag, fn, plain, *args, **kw)
+
+    for i, (case, d, hq, hkv, cap_len, w, cap, dt) in enumerate(LARGE_GROUP_DECODES):
+        dtype = getattr(torch, dt)
+        tag = "m71" if case == M71_CASE else None
+        chunks, rows = dispatch.decode_group_chunks(hq // hkv)
+        name = f"{case} ({chunks} chunks of <= {rows} q rows)"
+        held_contiguous_decodes(torch, flash_decode, quantized, errs, gen, (
+            (f"{name}, capacity {cap_len}", d, hq, hkv, cap_len, w, cap, dt),),
+            (None,) + QUANT_DTYPES, tag)
+        ps, full = (16, 128)[i % 2], 1024
+        lens = [0, 1, ps - 1, ps, ps + 1, full, 777, 2 * ps + 1]
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        qd = randn(len(lens), hq, 1, d, dtype=dtype)
+        kp, vp, table = paged_pool(torch, lambda *sh: randn(*sh, dtype=dtype), gen, ps,
+                                   rows=len(lens), capacity=full, layers=1, d=d, hkv=hkv)
+        poison_past(torch, kp, table, lengths)
+        poison_past(torch, vp, table, lengths)
+        out = held(f"B5 + D2 {name}, page_size {ps}", "paged_decode", tag,
+                   pa.paged_attention_decode, pa.paged_attention_decode_plain, qd, kp[0], vp[0],
+                   lengths, table, window=w, logit_softcap=cap)
+        check(bool((out[0] == 0).all()), f"B5 {name}: row of length 0 is exactly 0")
+        del kp, vp
+        for vname in QUANT_DTYPES:
+            k, v, table = quant_pool(torch, quantized, randn, gen, ps, len(lens),
+                                     getattr(torch, vname), lens, capacity=full, d=d, hkv=hkv)
+            out = held(f"B8 + D2 {name}, {vname} page_size {ps}", "quant_paged_decode", tag,
+                       quantized.paged_attention_decode_quantized,
+                       quantized.paged_attention_decode_quantized_plain, qd, k, v, lengths,
+                       table, window=w, logit_softcap=cap)
+            check(bool((out[0] == 0).all()), f"B8 {name} {vname}: row of length 0 is exactly 0")
+            del k, v
+        if tag:  # D1's partials: chunk rows written at their offsets, dead splits too
+            kc, vc = (randn(4, hkv, 577, d, dtype=dtype) for _ in "kv")
+            q4 = qd[:4]
+            lengths = torch.tensor([577, 300, 37, 0], dtype=torch.int32, device="cuda")
+            got = flash_decode.decode_partials(q4, kc, vc, lengths, d ** -0.5, 7)
+            want = flash_decode.decode_partials_plain(q4, kc, vc, lengths, d ** -0.5, 7)
+            e = max(max_err(x, y) for x, y in zip(got, want))
+            note_err(errs, "decode_partials", e, tag)
+            print(f"  D1 partials {name}, 7 splits, lengths [577, 300, 37, 0]: max|diff| {e:.3e}")
+            check(e <= 1e-2, f"D1 partials {name} within 1e-2")
+            del kc, vc
+        torch.cuda.empty_cache()
+
+    for case, ps, d, hq, hkv, s, offs, w, cap, dt in LARGE_GROUP_EXTENDS:
+        dtype = getattr(torch, dt)
+        tag = "g16" if hq // hkv == 16 else ("m71" if hq // hkv == 71 else None)
+        off = torch.tensor(offs + [0], dtype=torch.int32, device="cuda")
+        kvl = torch.tensor([o + s for o in offs] + [0], dtype=torch.int32, device="cuda")
+        kp, vp, table = paged_pool(torch, lambda *sh: randn(*sh, dtype=dtype), gen, ps, rows=4,
+                                   capacity=2048, layers=1, d=d, hkv=hkv)
+        poison_past(torch, kp, table, kvl)
+        poison_past(torch, vp, table, kvl)
+        qe = randn(4, s, hq, d, dtype=dtype).transpose(1, 2)  # the model's views
+        out = held(f"B6 {case}, q_offset {offs}", "paged_extend", tag, pa.paged_attention_extend,
+                   pa.paged_attention_extend_plain, qe, kp[0], vp[0], off, kvl, table, window=w,
+                   logit_softcap=cap)
+        check(bool((out[3] == 0).all()), f"B6 {case}: inactive row is exactly 0")
+        del kp, vp
+        for vname in QUANT_DTYPES:
+            k, v, table = quant_pool(torch, quantized, randn, gen, ps, 4, getattr(torch, vname),
+                                     kvl.tolist(), capacity=2048, d=d, hkv=hkv)
+            out = held(f"B9 {case}, {vname}, q_offset {offs}", "quant_paged_extend", tag,
+                       quantized.paged_attention_extend_quantized,
+                       quantized.paged_attention_extend_quantized_plain, qe, k, v, off, kvl,
+                       table, window=w, logit_softcap=cap)
+            check(bool((out[3] == 0).all()), f"B9 {case} {vname}: inactive row is exactly 0")
+            del k, v
+        torch.cuda.empty_cache()
+
+
+def phase_mqa71_path(torch, api, flash_decode, kernels, counts):
+    """`api.flash_attention_forward` at Sq 1 on Falcon-7B's 71 q / 1 kv
+    heads (D 64): B 8 over a cache of 2048 keys, lengths 2048, 1, 0, 777,
+    2047, 1024, 64 and 1500, NaN past each; counted on path "mqa-71": D1
+    once and D2 once, nothing else; held to the plain decode (3e-2), the
+    length-0 row exactly 0."""
+    gen = torch.Generator(device="cuda").manual_seed(4393)
+    b, hq, cap_len, d = 8, 71, 2048, 64
+    q = torch.randn((b, hq, 1, d), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((b, 1, cap_len, d), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in "kv")
+    lens = [2048, 1, 0, 777, 2047, 1024, 64, 1500]
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    dead = torch.arange(cap_len, device="cuda")[None, :] >= lengths[:, None]
+    for x in (k, v):
+        x[dead[:, None, :].expand(-1, 1, -1)] = float("nan")
+    out, wall, launched = counted_run(torch, kernels, lambda: api.flash_attention_forward(
+        q, k, v, kv_length=lengths))
+    counts.update(launched)
+    print(f"  api.flash_attention_forward at Sq 1, Falcon-7B's 71 / 1 heads, D {d}, B {b}, "
+          f"cache {cap_len}, lengths {lens}: {wall * 1e3:.2f} ms (host clock), launches "
+          f"{ {n: c for n, c in counts.items() if c} }")
+    check_launched(counts, {"decode_partials": 1, "decode_combine": 1}, "the API at 71 / 1 heads")
+    e = max_err(out, flash_decode.flash_attention_decode_plain(q.float(), k, v, lengths))
+    print(f"  API decode at 71 / 1 heads: max|diff| {e:.3e} against the plain decode")
+    check(bool(torch.isfinite(out).all()) and bool((out[2] == 0).all()),
+          "API decode at 71 / 1 heads: finite over NaN tails, the length-0 row exactly 0")
+    check(e <= BF16_TOL, f"API decode at 71 / 1 heads within {BF16_TOL}")
+
+
+LLAMA405_LABEL = "405b-widths"  # the launch-count path of phase 4p
+LLAMA405_LAYERS = 4  # of Llama-3.1-405B's 126 (see llama31_405b_widths_config)
+LLAMA405_SERVING_RUNS = {name: SERVING_RUNS[name] for name in (
+    "A whole-prompt", "B chunked", "D int8 whole-prompt", "E e4m3 chunked")}
+# The kernels that must launch on phase 4p's paths: the group of 16 in the
+# prefill, every decode and both paged extends.
+LLAMA405_KERNELS = ("flash_fwd", "decode_partials", "decode_combine", "quant_append",
+                    "quant_decode", "paged_decode", "paged_extend", "paged_append",
+                    "quant_paged_decode", "quant_paged_extend")
+
+
+def llama31_405b_widths_config(layers=0):
+    """A Llama-family config at the widths of meta-llama/Llama-3.1-405B (its
+    config.json): hidden 16384, 128 q / 8 kv heads (a GQA group of 16),
+    head dim 128, SwiGLU 53248, vocab 128256, RMSNorm eps 1e-5, untied
+    embeddings, RoPE theta 500000 with llama3 scaling (factor 8, low /
+    high frequency factors 1 / 4, 8192 original positions), 131072
+    positions. Depth is cut from 126 layers to `layers` (default
+    LLAMA405_LAYERS): a layer holds 3.19 B parameters (6.38 GB in bf16) and
+    the embeddings and the untied head 4.2 B (8.4 GB), so 4 layers take
+    about 34 GB of the card's 80."""
+    import torch
+    from flash_attention_cute_tpu_torch.models.config import ModelConfig, RopeScaling
+
+    return ModelConfig(vocab_size=128256, hidden_size=16384, intermediate_size=53248,
+                       num_layers=layers or LLAMA405_LAYERS, num_q_heads=128, num_kv_heads=8,
+                       head_dim=128, max_position_embeddings=131072, rms_norm_eps=1e-5,
+                       rope_theta=500000.0,
+                       rope_scaling=RopeScaling(rope_type="llama3", factor=8.0,
+                                                low_freq_factor=1.0, high_freq_factor=4.0,
+                                                original_max_position_embeddings=8192),
+                       tie_word_embeddings=False, dtype=torch.bfloat16)
+
+
+def phase_405b(torch, cfg, params, kernels, path_counts):
+    """Phase 4p, at Llama-3.1-405B's widths (128 / 8 heads, group 16; depth
+    cut, printed), on paths "405b-widths ...", each run's launch counts
+    exact: teacher-forced prefill and decode-step logits of the kernel route
+    against the plain route, greedy generation (B 4, prompt 512, 64 new: P,
+    then D1 + D2) over a bf16 cache, the decode step and greedy over an int8
+    cache (`quantized_greedy`: QA, B7 + D2), then the serving engine over
+    `serving_requests` in runs A (whole-prompt, page_size 128: P, B5 + D2,
+    the append), B (chunked 256, page_size 16: B6), D (A over int8 pages:
+    QA, B8 + D2) and E (B over e4m3 pages: B9), every token teacher-forced;
+    every kernel of LLAMA405_KERNELS launched on these paths."""
+    import dataclasses
+
+    full = llama31_405b_widths_config()
+    per_layer = sum(t.numel() for t in params["layers"].values()) / cfg.num_layers
+    print(f"  depth cut: 126 -> {cfg.num_layers} layers (widths unchanged: {full.num_q_heads} / "
+          f"{full.num_kv_heads} heads, {per_layer / 1e9:.3f} B parameters a layer); "
+          f"rope_scaling {dataclasses.asdict(cfg.rope_scaling)}")
+    before = set(path_counts)
+    ids, _, results = phase_family(torch, cfg, params, 11, B, PROMPT, NEW, kernels, path_counts,
+                                   LLAMA405_LABEL)
+    results.update(quantized_greedy(torch, cfg, params, ids, NEW, kernels, path_counts,
+                                    LLAMA405_LABEL, ("int8",)))
+    results.update(serve_long_requests(torch, cfg, params, kernels, path_counts, LLAMA405_LABEL,
+                                       LLAMA405_SERVING_RUNS, serving_requests(cfg)))
+    counts: dict = {}
+    for path in set(path_counts) - before:
+        check(path.startswith(LLAMA405_LABEL), f"phase 4p's path {path} is labelled "
+              f"{LLAMA405_LABEL}")
+        add_counts(counts, path_counts[path])
+    for name in LLAMA405_KERNELS:
+        check(counts.get(name, 0) > 0, f"{name} launched on path {LLAMA405_LABEL}")
+    print(f"  {LLAMA405_LABEL}: prefill B{B} x {PROMPT} {results['prefill_ms']:.2f} ms, decode "
+          f"{results['decode_ms_per_token']:.2f} ms/token; serving "
+          + " / ".join(f"{r.split()[0]} {results[r]['wall_s']:.3f} s "
+                       f"{results[r]['generated_tokens_per_s']:.1f} tokens/s"
+                       for r in LLAMA405_SERVING_RUNS) + "; launches "
+          + ", ".join(f"{k} {counts[k]}" for k in sorted(counts) if counts[k]))
+    return results
+
+
+def widths_rows(torch, ops, gen, cfg, chunked):
+    """The entries of a model's widths (`cfg`) in the kernel rows: P, D1,
+    D2 (`dense_rows`), B5, B6, the append (`paged_rows`), B7, B8, B9, QA
+    (`quant_rows`) and, with `chunked`, B4 (`chunked_rows`), each with its
+    bound; name -> entry."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    rows = dense_rows(torch, cfg, randn, ops["flash_fwd"], ops["flash_decode"])[0]
+    rows += paged_rows(torch, cfg, randn, gen)
+    rows += quant_rows(torch, cfg, randn, gen)
+    if chunked:
+        rows += chunked_rows(torch, cfg, gen)
+    out = {}
+    for r in rows:
+        r.update(bound(r.pop("ops"), r.pop("bytes"), r.pop("peak")))
+        out[r["name"]] = {k: v for k, v in r.items()
+                          if k not in ("name", "route", "source", "replaces")}
+    return out
+
+
+def llama405_rows(torch, ops, gen):
+    """Phase 5i: the "g16" entries of the P, D1, D2, B5, B6, append, B7,
+    B8, B9 and QA rows at phase 4p's shapes (Llama-3.1-405B's 128 / 8
+    heads, D 128): P at the greedy prefill (B 4, S 512), D1 / D2 / B7 at its
+    middle decode step, B5 / B8 / the append / QA at run A's / D's decode,
+    B6 / B9 at run B's / E's extend (`widths_rows`). library_ms: SDPA with
+    the group expanded, over a contiguous copy where the kernel reads
+    pages, dequantized where it reads int8 / e4m3 values."""
+    out = widths_rows(torch, ops, gen, llama31_405b_widths_config(), chunked=False)
+    for entry in out.values():
+        entry.setdefault("shape", "phase 4p's")
+    return out
+
+
+def mqa71_rows(torch, ops, gen):
+    """Phase 5i: the "m71" entries of the D1, B5, B7 and B8 rows at
+    Falcon-7B's 71 / 1 heads, D 64, a decode of B 8 over 2048 keys a row
+    (every key live): D1 (its partials alone, "with_combine_ms" D1 + D2)
+    over a contiguous bf16 cache, B5 + D2 over bf16 pages of 16, B7 + D2
+    over an int8 cache, B8 + D2 over int8 pages of 16. Each bound counts
+    the visible K / V read once (B7 / B8: one-byte values and f32 scales),
+    q read and the output written, at 3.35 TB/s, or 4 D operations a key
+    and q head at the bf16 peak; library_ms one SDPA call over the cache
+    with the group expanded (dequantized for B7 / B8; the copy not
+    timed)."""
+    from flash_attention_cute_tpu_torch import dispatch
+    from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms
+
+    f = torch.nn.functional
+    fd, pa, qz = ops["flash_decode"], ops["paged_attention"], ops["quantized"]
+    b, hq, hkv, cap_len, d, ps = 8, 71, 1, 2048, 64, 16
+    chunks, rows_ = dispatch.decode_group_chunks(hq // hkv)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    q = randn(b, hq, 1, d)
+    lengths = torch.full((b,), cap_len, dtype=torch.int32, device="cuda")
+    live = b * cap_len
+    io = 2 * 2 * q.numel() + 4 * b
+    ops_ = 4 * hq * live * d
+    splits = dispatch.decode_num_splits(b, hkv, cap_len, d, hq // hkv)
+    plan = (f"B {b}, Hq {hq}, Hkv {hkv}, D {d}, every row {cap_len} keys, {chunks} chunks of "
+            f"<= {rows_} q rows, {splits} splits")
+    out = {}
+
+    def entry(fn, plain, library, nbytes, shape, **extra):
+        return {"ms": cuda_time_ms(fn, 50), "call_ms": call_time_ms(fn, 50),
+                "plain_ms": cuda_time_ms(plain, 10), "library_ms": cuda_time_ms(library, 50),
+                **bound(ops_, nbytes, PEAK_BF16), "shape": shape, **extra}
+
+    kc, vc = randn(b, hkv, cap_len, d), randn(b, hkv, cap_len, d)
+    kr, vr = (x.repeat_interleave(hq // hkv, dim=1) for x in (kc, vc))
+    scale = d ** -0.5
+    out["decode_partials"] = entry(
+        lambda: fd.decode_partials(q, kc, vc, lengths, scale, splits),
+        lambda: fd.decode_partials_plain(q, kc, vc, lengths, scale, splits),
+        lambda: f.scaled_dot_product_attention(q, kr, vr), io + 2 * 2 * hkv * live * d,
+        f"{plan}; contiguous bf16 cache; ms D1 alone", library_of=LIBRARY_OF_D1,
+        with_combine_ms=cuda_time_ms(lambda: fd.flash_attention_decode(q, kc, vc, lengths), 50))
+    del kr, vr
+
+    cache = [qz.quantize_kv(x, torch.int8) for x in (kc, vc)]
+    kr, vr = (qz.dequantize_kv(x, torch.bfloat16).repeat_interleave(hq // hkv, dim=1)
+              for x in cache)
+    out["quant_decode"] = entry(
+        lambda: qz.flash_attention_decode_quantized(q, *cache, lengths),
+        lambda: qz.flash_attention_decode_quantized_plain(q, *cache, lengths),
+        lambda: f.scaled_dot_product_attention(q, kr, vr), io + 2 * hkv * live * (d + 4),
+        f"{plan}; contiguous int8 cache; ms includes D2")
+    del kc, vc, kr, vr, cache
+
+    kp, vp, table = paged_pool(torch, randn, gen, ps, rows=b, capacity=cap_len, layers=1, d=d,
+                               hkv=hkv)
+    kp, vp = kp[0], vp[0]
+    pages = 4 * b * (cap_len // ps)  # the page-table entries read
+    kr, vr = (pa.gather_pages(x, table).repeat_interleave(hq // hkv, dim=1) for x in (kp, vp))
+    out["paged_decode"] = entry(
+        lambda: pa.paged_attention_decode(q, kp, vp, lengths, table),
+        lambda: pa.paged_attention_decode_plain(q, kp, vp, lengths, table),
+        lambda: f.scaled_dot_product_attention(q, kr, vr), io + pages + 2 * 2 * hkv * live * d,
+        f"{plan}; bf16 pages of {ps}; ms includes D2")
+    del kr, vr
+    pool = [qz.quantize_kv(x, torch.int8) for x in (kp, vp)]
+    kr, vr = (qz._gather_dequantized(x, table).bfloat16().repeat_interleave(hq // hkv, dim=1)
+              for x in pool)
+    out["quant_paged_decode"] = entry(
+        lambda: qz.paged_attention_decode_quantized(q, *pool, lengths, table),
+        lambda: qz.paged_attention_decode_quantized_plain(q, *pool, lengths, table),
+        lambda: f.scaled_dot_product_attention(q, kr, vr),
+        io + pages + 2 * hkv * live * (d + 4), f"{plan}; int8 pages of {ps}; ms includes D2")
+    del kp, vp, kr, vr, pool
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--layers", type=int, default=0,
@@ -5243,6 +5608,16 @@ def main() -> int:
     phase_odd_head_dims_training(torch, ops, errs, rel_errs)
     torch.cuda.synchronize()
     print(f"  phase 3l: {time.perf_counter() - t0:.1f} s")
+    print("[3m] GQA groups above 32 in D1 + D2, B5 + D2, B7 + D2 and B8 + D2 (groups 33, 48, "
+          "64, 71, 128: chunks of at most 32 q rows a block) and above 8 in B6 / B9 (groups 12, "
+          "16, 71) vs plain; then the API's decode at Falcon-7B's 71 / 1 heads (path "
+          f"{MQA71_LABEL!r})")
+    t0 = time.perf_counter()
+    phase_large_groups(torch, ops, errs)
+    path_counts[MQA71_LABEL] = {}
+    phase_mqa71_path(torch, api, flash_decode, kernels, path_counts[MQA71_LABEL])
+    torch.cuda.synchronize()
+    print(f"  phase 3m: {time.perf_counter() - t0:.1f} s")
 
     # 4. main paths
     from flash_attention_cute_tpu_torch.models.llama import llama3_8b_config
@@ -5301,7 +5676,9 @@ def main() -> int:
                                           ("4g", "Qwen2-7B", qwen2_7b_config, phase_qwen2, 2),
                                           ("4j", "Gemma-2-9B", gemma2_9b_config, phase_gemma2, 3),
                                           ("4m", "Phi-3-mini widths", phi3_mini_widths_config,
-                                           phase_phi3, 10)):
+                                           phase_phi3, 10),
+                                          ("4p", "Llama-3.1-405B widths",
+                                           llama31_405b_widths_config, phase_405b, 11)):
         fcfg = make()
         if args.layers:
             fcfg = dataclasses.replace(fcfg, num_layers=args.layers)
@@ -5455,6 +5832,25 @@ def main() -> int:
                 "runtime_attributes": runtime_attributes(report, label),
                 **phi3_train[r["name"]]}
     print(f"  phase 5h: {time.perf_counter() - t0:.1f} s")
+    print("[5i] numbers at large GQA groups: the \"g16\" entries of the P, D1, D2, B5, B6, "
+          "append, B7, B8, B9 and QA rows at phase 4p's shapes (Llama-3.1-405B's 128 / 8 heads); "
+          "the \"m71\" entries of the D1, B5, B7 and B8 rows at Falcon-7B's 71 / 1 heads, D 64, "
+          "B 8 x 2048 keys")
+    t0 = time.perf_counter()
+    g16 = llama405_rows(torch, ops, torch.Generator(device="cuda").manual_seed(84))
+    m71 = mqa71_rows(torch, ops, torch.Generator(device="cuda").manual_seed(85))
+    for r in rows:
+        if r["name"] in g16:
+            # max_abs_err at the group of 16 where phase 3m held the kernel there (B6 /
+            # B9); the others are held at 4p's widths through the teacher-forced logits.
+            r["g16"] = {"max_abs_err": errs.get(f"{r['name']} g16"),
+                        "launches": sum(c[r["name"]] for p, c in path_counts.items()
+                                        if p.startswith(LLAMA405_LABEL)),
+                        **g16[r["name"]]}
+        if r["name"] in m71:
+            r["m71"] = {"max_abs_err": errs[f"{r['name']} m71"],
+                        "launches": path_counts[MQA71_LABEL][r["name"]], **m71[r["name"]]}
+    print(f"  phase 5i: {time.perf_counter() - t0:.1f} s")
     # Peak over the whole script: serving reset the counter before each run.
     numbers["max_memory_allocated_gb"] = max(
         [numbers["max_memory_allocated_gb"], serving.pop("peak_before_serving_gb")]

@@ -5,7 +5,8 @@
 // `_flash_decode_kernel` (pallas_call at :311), sliding window (keys
 // n >= length - W), tanh soft cap, every head dim that is a multiple of 8
 // up to 256 (run in the layout of 64, 128 or 256: paged_decode.cuh) and
-// GQA groups up to 32 included; D2 replaces the XLA combine at flash_decode.py:345-358
+// every GQA group (above 32 in chunks of at most 32 rows, a block each:
+// paged_decode.cuh); D2 replaces the XLA combine at flash_decode.py:345-358
 // and also merges the splits of B5, B7 and B8, whose partials have the
 // same layout.
 //
@@ -45,13 +46,14 @@ __global__ void decode_combine_kernel(const float* __restrict__ acc, const float
 
 }  // namespace fact
 
-// Both return a cudaError_t code (0 on success). Shapes, strides, their
-// 16-byte alignment and the group bound (G <= 32) are checked by the
-// Python wrapper (ops/flash_decode.py).
+// Both return a cudaError_t code (0 on success). Shapes, strides and
+// their 16-byte alignment are checked by the Python wrapper
+// (ops/flash_decode.py); `chunks` and `rows` are the group's chunk plan
+// (dispatch.decode_group_chunks).
 extern "C" int fact_decode_partials(const void* q, const void* k, const void* v,
                                     const void* lengths, void* acc, void* m, void* l,
-                                    int batch, int hkv, int group, int capacity, int d,
-                                    int num_splits, int chunk,
+                                    int batch, int hkv, int group, int chunks, int rows,
+                                    int capacity, int d, int num_splits, int chunk,
                                     long long q_sb, long long q_sh,
                                     long long k_sb, long long k_sh, long long k_ss,
                                     long long v_sb, long long v_sh, long long v_ss,
@@ -65,7 +67,8 @@ extern "C" int fact_decode_partials(const void* q, const void* k, const void* v,
   p.m = static_cast<float*>(m);
   p.l = static_cast<float*>(l);
   p.q_sb = q_sb, p.q_sh = q_sh;
-  p.hkv = hkv, p.group = group, p.num_splits = num_splits;
+  p.hkv = hkv, p.group = group, p.chunks = chunks, p.rows = rows;
+  p.num_splits = num_splits;
   p.pps = 1, p.page_size = capacity, p.chunk = chunk, p.d = d;
   p.sc = scores(scale_log2, softcap_log2);
   p.window = window;

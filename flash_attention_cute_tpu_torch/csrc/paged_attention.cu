@@ -3,7 +3,8 @@
 //   * B5, paged decode: replaces the TPU kernel
 //     flash_attention_cute_tpu/ops/paged_attention.py `_paged_decode_kernel`
 //     (:85, pallas_call at :341). Split-KV decode partials of a GQA group
-//     (up to 32 q heads a kv head) through the page table; the splits are
+//     of any size (above 32 in chunks of at most 32 rows, a block each:
+//     paged_decode.cuh) through the page table; the splits are
 //     merged by D2 (flash_decode.cu), whose partials layout [B, Hkv, S, G,
 //     D] is the same. With a sliding window W the splits cut the visible
 //     range [max(0, length - W), length). B5 and B6 take the tanh soft cap
@@ -77,14 +78,16 @@ __global__ void paged_append_kernel(const AppendParams p) {
 
 }  // namespace fact
 
-// Each returns a cudaError_t code (0 on success). Shapes, strides, dtypes and
-// the group bounds (B5: G <= 32, B6: G <= 8) are checked by the Python
-// wrapper (ops/paged_attention.py, runtime/paged_cache.py).
+// Each returns a cudaError_t code (0 on success). Shapes, strides and dtypes
+// are checked by the Python wrapper (ops/paged_attention.py,
+// runtime/paged_cache.py). Both attention kernels take every GQA group: a
+// B6 block runs one q head (paged_extend.cuh); B5's `chunks` and `rows` are
+// the group's chunk plan (dispatch.decode_group_chunks).
 extern "C" int fact_paged_decode_partials(
     const void* q, const void* k, const void* v, const void* lengths, const void* page_table,
-    void* acc, void* m, void* l, int batch, int hkv, int group, int d, int num_splits,
-    int pps, int page_size, int num_pages, int box_rows, long long q_sb, long long q_sh,
-    long long k_sh, long long k_sp, long long k_ss,
+    void* acc, void* m, void* l, int batch, int hkv, int group, int chunks, int rows, int d,
+    int num_splits, int pps, int page_size, int num_pages, int box_rows, long long q_sb,
+    long long q_sh, long long k_sh, long long k_sp, long long k_ss,
     long long v_sh, long long v_sp, long long v_ss,
     float scale_log2, float softcap_log2, int window, int dtype, void* stream) {
   using namespace fact;
@@ -96,7 +99,8 @@ extern "C" int fact_paged_decode_partials(
   p.m = static_cast<float*>(m);
   p.l = static_cast<float*>(l);
   p.q_sb = q_sb, p.q_sh = q_sh;
-  p.hkv = hkv, p.group = group, p.num_splits = num_splits;
+  p.hkv = hkv, p.group = group, p.chunks = chunks, p.rows = rows;
+  p.num_splits = num_splits;
   p.pps = pps, p.page_size = page_size, p.box_rows = box_rows, p.d = d;
   p.sc = scores(scale_log2, softcap_log2);
   p.window = window;

@@ -13,10 +13,18 @@
 //     per token and kv head): replaces flash_attention_cute_tpu/ops/
 //     quantized.py `_quant_decode_kernel` (:73, pallas_call at :337).
 //
-// One block per (split, kv head, batch row) writes the partials of the
-// whole GQA group (G = Hq / Hkv <= 32 query rows) over its split's keys:
-// acc [B, Hkv, S, G, d] unnormalised, m and l [B, Hkv, S, G] in base 2;
-// D2 (flash_decode.cu) merges the splits. Every head dim d runs in the
+// One block per (split, kv head and chunk of its group, batch row) writes
+// the partials of up to 32 query rows of the GQA group (G = Hq / Hkv, any
+// size) over its split's keys: acc [B, Hkv, S, G, d] unnormalised, m and l
+// [B, Hkv, S, G] in base 2; D2 (flash_decode.cu) merges the splits. A group
+// above 32 is cut into c = ceil(G / 32) chunks of ceil(G / c) rows (the
+// last one fewer: 71 rows as 24 / 24 / 23; dispatch.decode_group_chunks
+// plans it, the launch checks the plan),
+// each a block along grid y (kv head hk's chunk j at y = hk c + j) that
+// stages and writes its own rows only and reads its kv head's keys itself;
+// a group of at most 32 is one chunk, the block of the whole group. The TPU
+// kernels pad the group to a multiple of 8 instead (flash_decode.py:209-212,
+// paged_attention.py:301, quantized.py:248). Every head dim d runs in the
 // layout D of padded_head_dim(d, sizeof(KV)): D1 and B5 take every multiple
 // of 8 up to 256, B7 and B8 (one-byte rows) every multiple of 16. The maps
 // hold d columns, so TMA reads zeros past them into the tiles (int8 0 and
@@ -44,8 +52,9 @@
 //
 // What bounds it on the H100: decode reads every visible K / V row once
 // and does 4 G D operations a row, about G operations a byte (2 G over
-// int8): memory bytes, far below the card's ~295 operations a byte. The
-// design keeps the bytes moving:
+// int8): memory bytes, far below the card's ~295 operations a byte. A
+// group above 32 has each chunk's block read the rows again, the later
+// reads mostly from L2. The design keeps the bytes moving:
 //
 //   * The walk is cut into tiles of kN keys aligned to multiples of kN
 //     (64 at D 64, else 32). Paged: the tiles that hold a visible key are
@@ -73,8 +82,8 @@
 //     keeps 64-195 KB in flight a block, one or two blocks an SM.
 //   * Four consumer warps take the tiles in turn, each with its own online
 //     softmax, on tensor cores (mma.sync m16n8k16): S = Q K^T with the
-//     group's rows as M (padded to 16; groups above 16 give each warp pair
-//     one of two m-tiles, so a tile is read by both), then O += P V with P
+//     chunk's rows as M (padded to 16; chunks above 16 rows give each warp
+//     pair one of two m-tiles, so a tile is read by both), then O += P V with P
 //     from S's registers and V read MN-major by ldmatrix.trans (B7 / B8: its
 //     byte pairs regrouped by key and widened in registers); no V^T copy,
 //     no round trip of P through shared memory. The contraction order over
@@ -115,6 +124,8 @@ struct PagedDecodeParams {
   int window;  // W > 0, or 0 for none
   int chunk;   // contiguous: keys a split, ceil(C / num_splits)
   int d;       // the true head dim, D or below it in D's layout
+  int chunks;  // blocks a kv head's group is cut into (grid y = hkv chunks)
+  int rows;    // q rows of a chunk (<= 32); the last may hold fewer
 };
 
 // Shared memory from a 1 KB aligned base: the ring (stage s: its K tile,
@@ -209,11 +220,14 @@ __device__ __forceinline__ void decode_body(const CUtensorMap& kmap, const CUten
   constexpr int kN = L::kN, kStages = L::kStages;
   extern __shared__ __align__(16) unsigned char smem[];
   const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;  // the 128-byte swizzle needs 1 KB
-  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int G = p.group, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int split = blockIdx.x, hk = blockIdx.y / p.chunks, b = blockIdx.z;
+  const int g0 = blockIdx.y % p.chunks * p.rows;  // the chunk's first row of the group
+  const int G = p.group, R = min(p.rows, G - g0);  // R: this block's q rows
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int d = p.d;  // the partials' row; columns of q past it are zeros
   const int64_t part = (static_cast<int64_t>(b) * p.hkv + hk) * p.num_splits + split;
-  float* acc_out = p.acc + part * G * d;
+  const int64_t stat0 = part * G + g0;  // the chunk's first m / l entry
+  float* acc_out = p.acc + stat0 * d;
 
   // This split's tiles [t0, t0 + total) of the visible ones; contiguous,
   // [lo, len) is first cut to the split's chunk.
@@ -230,14 +244,19 @@ __device__ __forceinline__ void decode_body(const CUtensorMap& kmap, const CUten
     total = first + static_cast<int>(static_cast<int64_t>(count) * (split + 1) / p.num_splits) - t0;
   }
   if (total <= 0) {  // weight 0 in the combine
-    for (int i = threadIdx.x; i < G * d; i += kPagedDecodeThreads) acc_out[i] = 0.f;
-    if (threadIdx.x < G) {
-      p.m[part * G + threadIdx.x] = -INFINITY;
-      p.l[part * G + threadIdx.x] = 0.f;
+    for (int i = threadIdx.x; i < R * d; i += kPagedDecodeThreads) acc_out[i] = 0.f;
+    if (threadIdx.x < R) {
+      p.m[stat0 + threadIdx.x] = -INFINITY;
+      p.l[stat0 + threadIdx.x] = 0.f;
     }
     return;
   }
-  const int mts = G > 16 ? 2 : 1;  // m-tiles of 16 q rows
+  const int mts = R > 16 ? 2 : 1;  // m-tiles of 16 q rows
+  // The chunk's rows and first m / l entry for the merge, through shared
+  // memory: held in registers across the walk they spilled D1 at D 256
+  // with the cap (255 registers, PERF.md).
+  __shared__ int64_t chunk_stat0;
+  __shared__ int chunk_rows;
   auto sK = [&](int s) { return base + s * 2 * L::kTile; };
   auto sV = [&](int s) { return base + s * 2 * L::kTile + L::kTile; };
   auto k_scales = [&](int s) { return base + L::kScaleOff + s * 8 * kN; };
@@ -247,6 +266,7 @@ __device__ __forceinline__ void decode_body(const CUtensorMap& kmap, const CUten
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) mbar_init(full(s), 1), mbar_init(empty(s), mts);
     mbar_fence_init();
+    chunk_stat0 = stat0, chunk_rows = R;
   }
   __syncthreads();
 
@@ -326,10 +346,10 @@ __device__ __forceinline__ void decode_body(const CUtensorMap& kmap, const CUten
   const uint32_t sQ = base + L::kQOff;
   for (int i = threadIdx.x - 32; i < 16 * mts * (D / 8); i += 32 * kDecodeConsumers) {
     const int g = i / (D / 8), col = i % (D / 8);
-    uint4 v = make_uint4(0, 0, 0, 0);  // rows past the group and columns past d are zero
-    if (g < G && col < d / 8)
+    uint4 v = make_uint4(0, 0, 0, 0);  // rows past the chunk and columns past d are zero
+    if (g < R && col < d / 8)
       v = *reinterpret_cast<const uint4*>(static_cast<const T*>(p.q) + b * p.q_sb +
-                                          (hk * G + g) * p.q_sh + col * 8);
+                                          (hk * G + g0 + g) * p.q_sh + col * 8);
     sts_u32x4(sQ + g * L::kQPitch + col * 16, v);
   }
   named_sync(1, 32 * kDecodeConsumers);
@@ -545,16 +565,18 @@ __device__ __forceinline__ void decode_body(const CUtensorMap& kmap, const CUten
     }
   }
   named_sync(1, 32 * kDecodeConsumers);
-  const int tid = threadIdx.x - 32;
-  for (int i = tid; i < G * D; i += 32 * kDecodeConsumers) {
+  const int tid = threadIdx.x - 32, rows = chunk_rows;
+  const int64_t stat = chunk_stat0;
+  float* out = p.acc + stat * d;
+  for (int i = tid; i < rows * D; i += 32 * kDecodeConsumers) {
     const int g = i / D, e = i % D;
     if (e >= d) continue;  // the layout's columns past d
     float sum = 0.f;
     for (int v = g / 16; v < kDecodeConsumers; v += mts)
       sum += lds_f32(base + ((v * 16 + g % 16) * D + e) * 4);
-    acc_out[g * d + e] = sum;
+    out[g * d + e] = sum;
   }
-  if (tid < G) {
+  if (tid < rows) {
     float top = -INFINITY, sum = 0.f;
     for (int v = tid / 16; v < kDecodeConsumers; v += mts)
       top = fmaxf(top, lds_f32(stat_m + (v * 16 + tid % 16) * 4));
@@ -562,8 +584,8 @@ __device__ __forceinline__ void decode_body(const CUtensorMap& kmap, const CUten
       const float mv = lds_f32(stat_m + (v * 16 + tid % 16) * 4);
       sum += mv == -INFINITY ? 0.f : lds_f32(stat_l + (v * 16 + tid % 16) * 4) * ex2(mv - top);
     }
-    p.m[part * G + tid] = top;
-    p.l[part * G + tid] = sum;
+    p.m[stat + tid] = top;
+    p.l[stat + tid] = sum;
   }
 }
 
@@ -599,7 +621,11 @@ int launch_paged_decode(const PagedDecodeParams& p, const PagedViews& w, int bat
   auto kernel = decode_kernel<T, KV, D, kCap, kContig>();
   static const int configured = allow_smem(kernel, L::kBytes);  // above 48 KB needs an opt-in
   if (configured != cudaSuccess) return configured;
-  if (p.group < 1 || p.group > 32 || p.num_splits < 1) return cudaErrorInvalidValue;
+  // The chunk plan (dispatch.decode_group_chunks) must cover the group,
+  // hold at most 32 rows a chunk and leave no chunk empty.
+  if (p.group < 1 || p.num_splits < 1 || p.chunks < 1 || p.rows < 1 || p.rows > 32 ||
+      p.chunks * p.rows < p.group || (p.chunks - 1) * p.rows >= p.group)
+    return cudaErrorInvalidValue;
   if (kContig ? p.chunk < 1 || p.pps != 1
               : p.box_rows < 8 || L::kN % p.box_rows || p.page_size % p.box_rows)
     return cudaErrorInvalidValue;
@@ -617,7 +643,8 @@ int launch_paged_decode(const PagedDecodeParams& p, const PagedViews& w, int bat
       !pool_map(&vmap, type, elem, w.v, p.d, p.page_size, w.num_pages, w.hkv, w.v_ss, w.v_sp, w.v_sh,
                 L::kSegD, rows, swizzle))
     return cudaErrorInvalidValue;
-  const dim3 grid(p.num_splits, p.hkv, batch);
+  if (static_cast<long long>(p.hkv) * p.chunks > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(p.num_splits, p.hkv * p.chunks, batch);
   kernel<<<grid, kPagedDecodeThreads, L::kBytes, stream>>>(kmap, vmap, p);
   return cudaGetLastError();
 }

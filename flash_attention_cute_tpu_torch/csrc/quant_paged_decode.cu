@@ -1,7 +1,8 @@
 // B8, the quantized paged decode: replaces the TPU kernel
 // flash_attention_cute_tpu/ops/quantized.py `_quant_paged_kernel` (:395,
-// pallas_call at :658). Split-KV decode partials of a GQA group (up to 32
-// q heads a kv head) over one layer's int8 / e4m3 pool [Hkv, P, ps, D] with
+// pallas_call at :658). Split-KV decode partials of a GQA group of any size
+// (above 32 in chunks of at most 32 rows, a block each) over one layer's
+// int8 / e4m3 pool [Hkv, P, ps, D] with
 // f32 scales [Hkv, P, ps] through the page table; D2 (flash_decode.cu)
 // merges the splits. It takes B2's sliding window, the tanh soft cap and
 // every head dim that is a multiple of 16 up to 256, in the layout of 64,
@@ -15,15 +16,16 @@
 // instantiations build beside quantized.cu's, not after them.
 #include "paged_decode.cuh"
 
-// Returns a cudaError_t code (0 on success). Shapes, strides, dtypes, the
-// group bound (G <= 32) and the scales' 16-byte alignment are checked by
-// the Python wrapper (ops/quantized.py). `dtype` is q's (and the output's)
-// code, `kv_dtype` the values' code (common.cuh).
+// Returns a cudaError_t code (0 on success). Shapes, strides, dtypes and
+// the scales' 16-byte alignment are checked by the Python wrapper
+// (ops/quantized.py); `chunks` and `rows` are the group's chunk plan
+// (dispatch.decode_group_chunks). `dtype` is q's (and the output's) code,
+// `kv_dtype` the values' code (common.cuh).
 extern "C" int fact_quant_paged_decode_partials(
     const void* q, const void* k, const void* v, const void* k_scale, const void* v_scale,
     const void* lengths, const void* page_table, void* acc, void* m, void* l, int batch,
-    int hkv, int group, int d, int num_splits, int pps, int page_size, int num_pages,
-    int box_rows, long long q_sb, long long q_sh, long long k_sh, long long k_sp, long long k_ss,
+    int hkv, int group, int chunks, int rows, int d, int num_splits, int pps, int page_size,
+    int num_pages, int box_rows, long long q_sb, long long q_sh, long long k_sh, long long k_sp, long long k_ss,
     long long v_sh, long long v_sp, long long v_ss, long long ks_sh, long long ks_sp,
     long long vs_sh, long long vs_sp, float scale_log2, float softcap_log2, int window, int dtype,
     int kv_dtype, void* stream) {
@@ -40,7 +42,8 @@ extern "C" int fact_quant_paged_decode_partials(
   p.l = static_cast<float*>(l);
   p.q_sb = q_sb, p.q_sh = q_sh;
   p.ks_sh = ks_sh, p.ks_sp = ks_sp, p.vs_sh = vs_sh, p.vs_sp = vs_sp;
-  p.hkv = hkv, p.group = group, p.num_splits = num_splits;
+  p.hkv = hkv, p.group = group, p.chunks = chunks, p.rows = rows;
+  p.num_splits = num_splits;
   p.pps = pps, p.page_size = page_size, p.box_rows = box_rows, p.d = d;
   p.sc = scores(scale_log2, softcap_log2);
   p.window = window;

@@ -22,10 +22,10 @@ int dispatch_quant_paged_extend(const PagedParams& p, const PagedViews& w, int d
 
 }  // namespace fact
 
-// Returns a cudaError_t code (0 on success). Shapes, strides, dtypes, the
-// group bound (G <= 8) and the plan (`box_rows`) are checked by the Python
-// wrapper (ops/quantized.py). `dtype` is q's (and the output's) code,
-// `kv_dtype` the values' code (common.cuh).
+// Returns a cudaError_t code (0 on success). Shapes, strides, dtypes and
+// the plan (`box_rows`) are checked by the Python wrapper
+// (ops/quantized.py). Every GQA group: a block runs one q head. `dtype` is
+// q's (and the output's) code, `kv_dtype` the values' code (common.cuh).
 extern "C" int fact_quant_paged_extend(
     const void* q, const void* k, const void* v, const void* k_scale, const void* v_scale,
     void* o, const void* q_offset, const void* kv_length, const void* page_table, int batch,

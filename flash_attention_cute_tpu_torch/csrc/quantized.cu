@@ -8,7 +8,8 @@
 //     (flash_decode.cu) merges the splits. It takes B2's sliding window (0
 //     for none), the tanh soft cap, every head dim that is a multiple of 16
 //     up to 256 (in the layout of 64, 128 or 256: padded_head_dim over
-//     one-byte rows) and GQA groups up to 32, as D1 does. B8, the quantized paged decode, is
+//     one-byte rows) and every GQA group (above 32 in chunks of at most 32
+//     rows, a block each), as D1 does. B8, the quantized paged decode, is
 //     quant_paged_decode.cu; B9, the quantized paged extend,
 //     quant_paged_extend.cu.
 //   * QA, quantize-and-append (not a TPU kernel): replaces the XLA
@@ -150,14 +151,15 @@ int dispatch_append(const QuantAppendParams& p, int batch, int s, int d, int dty
 
 }  // namespace fact
 
-// Each returns a cudaError_t code (0 on success). Shapes, strides, dtypes,
-// their 16-byte alignment (the values') and B7's group bound (G <= 32) are
-// checked by the Python wrapper (ops/quantized.py). `dtype` is q's (and the
-// output's) code, `kv_dtype` the values' code (common.cuh).
+// Each returns a cudaError_t code (0 on success). Shapes, strides, dtypes
+// and their 16-byte alignment (the values') are checked by the Python
+// wrapper (ops/quantized.py); B7's `chunks` and `rows` are the group's
+// chunk plan (dispatch.decode_group_chunks). `dtype` is q's (and the output's) code,
+// `kv_dtype` the values' code (common.cuh).
 extern "C" int fact_quant_decode_partials(
     const void* q, const void* k, const void* v, const void* k_scale, const void* v_scale,
     const void* lengths, void* acc, void* m, void* l, int batch, int hkv, int group,
-    int capacity, int d, int num_splits, int chunk, long long q_sb, long long q_sh,
+    int chunks, int rows, int capacity, int d, int num_splits, int chunk, long long q_sb, long long q_sh,
     long long k_sb, long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, long long ks_sb, long long ks_sh, long long vs_sb, long long vs_sh,
     float scale_log2, float softcap_log2, int window, int dtype, int kv_dtype, void* stream) {
@@ -173,7 +175,8 @@ extern "C" int fact_quant_decode_partials(
   p.l = static_cast<float*>(l);
   p.q_sb = q_sb, p.q_sh = q_sh;
   p.ks_sh = ks_sh, p.ks_sp = ks_sb, p.vs_sh = vs_sh, p.vs_sp = vs_sb;
-  p.hkv = hkv, p.group = group, p.num_splits = num_splits;
+  p.hkv = hkv, p.group = group, p.chunks = chunks, p.rows = rows;
+  p.num_splits = num_splits;
   p.pps = 1, p.page_size = capacity, p.chunk = chunk, p.d = d;
   p.sc = scores(scale_log2, softcap_log2);
   p.window = window;

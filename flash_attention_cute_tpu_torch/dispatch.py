@@ -50,17 +50,37 @@ def decode_tile(head_dim: int) -> int:
     return 64 if head_dim <= 64 else 32
 
 
-def decode_num_splits(batch: int, num_kv_heads: int, capacity: int, head_dim: int) -> int:
+# q rows a block of the decode kernels D1, B5, B7 and B8 holds
+# (csrc/paged_decode.cuh: q staged for 32 rows, two m-tiles of 16).
+DECODE_BLOCK_ROWS = 32
+
+
+def decode_group_chunks(group: int) -> tuple[int, int]:
+    """(chunks, rows) of a GQA group in the decode kernels D1, B5, B7 and
+    B8: a group of at most 32 q rows is one chunk, a block's; a larger one
+    is cut into c = ceil(G / 32) chunks of ceil(G / c) rows, a block each,
+    the last holding the rest (71 -> 3 chunks of 24 / 24 / 23, 48 -> 24 /
+    24). The wrappers pass both to the kernels, whose launch checks that
+    the chunks cover the group (csrc/paged_decode.cuh)."""
+    if group < 1:
+        raise ValueError(f"a GQA group holds at least one q head, got {group}")
+    chunks = -(-group // DECODE_BLOCK_ROWS)
+    return chunks, -(-group // chunks)
+
+
+def decode_num_splits(batch: int, num_kv_heads: int, capacity: int, head_dim: int,
+                      group: int = 1) -> int:
     """Splits of the decode kernels D1, B5, B7 and B8 from shapes alone
-    (never the live lengths): the count whose blocks fill the card's slots
-    (132 SMs x the kernel's blocks an SM: one in the layout of D 256, which
-    runs every head dim above 128, two below) in the fewest waves for the
-    work each split carries, i.e. the least
+    (never the live lengths): the count whose blocks (batch x kv heads x
+    the group's chunks of `decode_group_chunks` x splits) fill the card's
+    slots (132 SMs x the kernel's blocks an SM: one in the layout of D 256,
+    which runs every head dim above 128, two below) in the fewest waves for
+    the work each split carries, i.e. the least
     ceil(blocks / slots) / splits, the fewer splits on a tie; at least one,
     and no more than the tiles of the capacity, so that no split is shorter
     than a tile."""
     slots = NUM_SMS * (1 if head_dim > 128 else 2)
-    rows = max(batch * num_kv_heads, 1)
+    rows = max(batch * num_kv_heads * decode_group_chunks(group)[0], 1)
     most = max(1, min(capacity // decode_tile(head_dim), 2 * -(-slots // rows)))
     return min(range(1, most + 1), key=lambda s: (-(-rows * s // slots) / s, s))
 

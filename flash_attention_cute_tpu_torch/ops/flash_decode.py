@@ -13,9 +13,10 @@ window W the query at position length - 1 sees keys [length - W, length):
 D1 cuts each split to that range, and a split wholly below it is dead.
 D1 takes the tanh soft cap (Gemma2), every head dim that is a multiple of
 8 from 8 to 256 (`_build.padded_head_dim`: D 96 runs in D 128's layout,
-its columns past 96 zeros) and GQA groups up to 32; its kernel is B5's
-(csrc/paged_decode.cuh: a TMA ring of tiles feeding tensor-core
-consumers) over the contiguous cache, with P taken into P V in two bf16 /
+its columns past 96 zeros) and every GQA group (above 32 cut into
+chunks of at most 32 q rows, a block each: `dispatch.decode_group_chunks`);
+its kernel is B5's (csrc/paged_decode.cuh: a TMA ring of tiles feeding
+tensor-core consumers) over the contiguous cache, with P taken into P V in two bf16 /
 f16 parts (P to about 2^-16). The default
 split count is `dispatch.decode_num_splits`. D2 merges partials of the
 same head dims (one thread per entry).
@@ -36,12 +37,11 @@ from flash_attention_cute_tpu_torch import dispatch
 from flash_attention_cute_tpu_torch.ops import _build
 
 LOG2E = math.log2(math.e)
-MAX_GROUP = 32  # larger groups: ROADMAP.md B.5
 
 P, I, L, F = _build.P, _build.I, _build.L, _build.F
 PARTIALS = _build.Kernel(
     "decode_partials", "flash_decode.cu", "fact_decode_partials",
-    [P, P, P, P, P, P, P, I, I, I, I, I, I, I, L, L, L, L, L, L, L, L, F, F, I, I, P],
+    [P] * 7 + [I] * 9 + [L] * 8 + [F, F, I, I, P],
 )
 COMBINE = _build.Kernel(
     "decode_combine", "flash_decode.cu", "fact_decode_combine",
@@ -115,9 +115,6 @@ def decode_partials(q, k, v, lengths, sm_scale, num_splits, window=None, logit_s
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"decode kernel takes bf16/f16, got {q.dtype}")
     _build.padded_head_dim(d, "decode")
-    if g > MAX_GROUP:
-        raise NotImplementedError(f"decode kernel takes Hq/Hkv <= {MAX_GROUP}, got {g} "
-                                  "(larger groups: ROADMAP.md B.5)")
     if sq != 1 or hq % hkv or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):  # k, v: also TMA's 16-byte rule
@@ -135,7 +132,8 @@ def decode_partials(q, k, v, lengths, sm_scale, num_splits, window=None, logit_s
         PARTIALS(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
             acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-            b, hkv, g, cap, d, num_splits, -(-cap // num_splits),
+            b, hkv, g, *dispatch.decode_group_chunks(g), cap, d, num_splits,
+            -(-cap // num_splits),
             q.stride(0), q.stride(1), *k.stride()[:3], *v.stride()[:3],
             float(sm_scale) * LOG2E, softcap, window, _build.DTYPE_CODES[q.dtype],
         )
@@ -183,7 +181,7 @@ def flash_attention_decode_plain(q, k, v, kv_length=None, sm_scale=None, window=
     if sm_scale is None:
         sm_scale = d ** -0.5
     if num_splits <= 0:
-        num_splits = dispatch.decode_num_splits(b, k.shape[1], cap, d)
+        num_splits = dispatch.decode_num_splits(b, k.shape[1], cap, d, hq // k.shape[1])
     if kv_length is None:
         kv_length = torch.full((b,), cap, dtype=torch.int32, device=q.device)
     acc, m, l = decode_partials_plain(
@@ -227,7 +225,7 @@ def flash_attention_decode(
     if sm_scale is None:
         sm_scale = d ** -0.5
     if num_splits <= 0:
-        num_splits = dispatch.decode_num_splits(b, k.shape[1], cap, d)
+        num_splits = dispatch.decode_num_splits(b, k.shape[1], cap, d, hq // k.shape[1])
     if kv_length is None:
         kv_length = torch.full((b,), cap, dtype=torch.int32, device=q.device)
     acc, m, l = decode_partials(q, k, v, kv_length, sm_scale, num_splits, window,

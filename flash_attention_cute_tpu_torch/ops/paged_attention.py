@@ -8,8 +8,10 @@ D]` pool); key n of batch row b sits at page `page_table[b, n // ps]`, row
 
   * `paged_attention_decode`: B5 (csrc/paged_attention.cu, the kernel of
     csrc/paged_decode.cuh shared with B8: a TMA ring of pages feeding
-    tensor-core consumers) writes split-KV partials of GQA groups up to 32,
-    D2 (`flash_decode.decode_combine`) merges them. The splits come from
+    tensor-core consumers) writes split-KV partials of any GQA group (above
+    32 in chunks of at most 32 q rows, a block each:
+    `dispatch.decode_group_chunks`), D2 (`flash_decode.decode_combine`)
+    merges them. The splits come from
     shapes alone (`dispatch.decode_num_splits`). With a sliding window W
     only keys [length - W, length) are read.
   * `paged_attention_extend`: B6, chunked prefill with per-row global
@@ -17,7 +19,8 @@ D]` pool); key n of batch row b sits at page `page_table[b, n // ps]`, row
     window `col > q_offset + row - W`); kv_length 0 marks an inactive row,
     which outputs exact zeros. The kernel (csrc/paged_extend.cuh, shared with
     B9) is wgmma fed by TMA copies of single pages, in the parts
-    `extend_plan` picks.
+    `extend_plan` picks; a block runs one q head, so any GQA group runs
+    (each q head's block reads its kv head's pages itself).
 
 B5 and B6 take the tanh soft cap (Gemma2) and every head dim that is a
 multiple of 8 from 8 to 256 (`_build.padded_head_dim`: D 96 runs in D
@@ -41,13 +44,11 @@ from flash_attention_cute_tpu_torch.ops import _build, flash_decode
 from flash_attention_cute_tpu_torch.ops.reference import attention_reference
 
 LOG2E = math.log2(math.e)
-MAX_GROUP = 8  # B6 and B9; their groups above 8 are ROADMAP.md B.5
-DECODE_MAX_GROUP = 32  # B5, B7 and B8 (D1: flash_decode.MAX_GROUP)
 
 P, I, L, F = _build.P, _build.I, _build.L, _build.F
 PAGED_DECODE = _build.Kernel(
     "paged_decode", "paged_attention.cu", "fact_paged_decode_partials",
-    [P] * 8 + [I] * 9 + [L] * 8 + [F, F, I, I, P],
+    [P] * 8 + [I] * 11 + [L] * 8 + [F, F, I, I, P],
 )
 PAGED_EXTEND = _build.Kernel(
     "paged_extend", "paged_attention.cu", "fact_paged_extend",
@@ -140,10 +141,10 @@ def paged_attention_extend_plain(q, k_pages, v_pages, q_offset, kv_length, page_
 
 
 def _check_cuda_call(name, q, k_pages, v_pages, page_table, row_tensors, window,
-                     pool_dtype=None, max_group=MAX_GROUP) -> int:
+                     pool_dtype=None) -> int:
     """Shared refusals of the CUDA routes; the pools must be `pool_dtype`
     (default q's dtype), head dims those of `_build.padded_head_dim`'s rule
-    for the pools' element size, GQA groups at most `max_group`. Returns
+    for the pools' element size, Hq a multiple of Hkv (any group). Returns
     the window as the kernels take it."""
     window = _build.window_arg(window)
     b, hq, _, d = q.shape
@@ -151,8 +152,8 @@ def _check_cuda_call(name, q, k_pages, v_pages, page_table, row_tensors, window,
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"{name} kernel takes bf16/f16, got {q.dtype}")
     _build.padded_head_dim(d, name, k_pages.element_size())
-    if hq % hkv or hq // hkv > max_group:
-        raise NotImplementedError(f"{name} kernel takes Hq/Hkv <= {max_group}, got {hq}/{hkv}")
+    if hq % hkv:
+        raise ValueError(f"{name}: num q heads {hq} must be a multiple of kv heads {hkv}")
     if k_pages.shape != v_pages.shape or k_pages.shape[3] != d or k_pages.ndim != 4:
         raise ValueError(f"bad pools k {tuple(k_pages.shape)} v {tuple(v_pages.shape)}")
     if k_pages.shape[2] % 8:
@@ -201,11 +202,11 @@ def paged_attention_decode(
                                             sm_scale, window, logit_softcap)
     softcap = _build.softcap_arg(logit_softcap)
     window = _check_cuda_call("paged decode", q, k_pages, v_pages, page_table,
-                              [("lengths", lengths)], window, max_group=DECODE_MAX_GROUP)
+                              [("lengths", lengths)], window)
     hkv, num_pages, ps, _ = k_pages.shape
     pps = page_table.shape[1]
     g = hq // hkv
-    splits = dispatch.decode_num_splits(b, hkv, pps * ps, d)
+    splits = dispatch.decode_num_splits(b, hkv, pps * ps, d, g)
     acc = torch.empty((b, hkv, splits, g, d), dtype=torch.float32, device=q.device)
     m = torch.empty((b, hkv, splits, g), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
@@ -213,7 +214,8 @@ def paged_attention_decode(
         PAGED_DECODE(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), lengths.data_ptr(),
             page_table.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-            b, hkv, g, d, splits, pps, ps, num_pages, decode_plan(d, ps)[1],
+            b, hkv, g, *dispatch.decode_group_chunks(g), d, splits, pps, ps, num_pages,
+            decode_plan(d, ps)[1],
             q.stride(0), q.stride(1), *k_pages.stride()[:3], *v_pages.stride()[:3],
             float(sm_scale) * LOG2E, softcap, window, _build.DTYPE_CODES[q.dtype],
         )

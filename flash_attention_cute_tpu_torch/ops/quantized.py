@@ -13,25 +13,26 @@ per-token scales s_j the kernels never dequantize a K/V row:
     over a contiguous cache, as D1 is B5's) writes split-KV partials over
     one layer of the contiguous cache (values [B, Hkv, C, D], scales
     [B, Hkv, C] of any capacity, or the stacked [L, ...] cache with
-    `layer`) for GQA groups up to 32, D2 (`flash_decode.decode_combine`)
-    merges them. It takes the soft cap.
+    `layer`) for any GQA group (above 32 in chunks of at most 32 q rows,
+    a block each: `dispatch.decode_group_chunks`), D2
+    (`flash_decode.decode_combine`) merges them. It takes the soft cap.
   * `paged_attention_decode_quantized`: B8 (csrc/quant_paged_decode.cu, the
     kernel of B5 whose consumers widen the values exactly to q's type in
     registers), the same over a pool (values [Hkv, P, ps, D], scales
-    [Hkv, P, ps]) through the page table for GQA groups up to 32; D2
-    merges. It takes the soft cap.
+    [Hkv, P, ps]) through the page table for any GQA group, chunked as
+    B7's; D2 merges. It takes the soft cap.
   * `paged_attention_extend_quantized`: B9 (csrc/quant_paged_extend.cu, the
     kernel of B6 whose producer widens the values exactly to q's type),
     chunked prefill over quantized pages with per-row causality
-    `col <= q_offset + row`, `col < kv_length`; it takes the soft cap.
+    `col <= q_offset + row`, `col < kv_length`, any GQA group (a block
+    runs one q head); it takes the soft cap.
   * `quantize_append`: QA, quantizes new K/V rows per token and writes them
     in place, into the contiguous cache or through the page table.
 
 Each wrapper routes on the device of its tensors: CPU -> plain version,
 CUDA -> the kernel; what the kernel does not take raises (values that are
-neither int8 nor e4m3, scales that are not f32, groups above 32 in B7 /
-B8 and above 8 in B9). B7 - B9 take a sliding window as D1, B5 and B6
-do. All four take every head dim whose one-byte row is a multiple of 16
+neither int8 nor e4m3, scales that are not f32). B7 - B9 take every GQA
+group and a sliding window as D1, B5 and B6 do. All four take every head dim whose one-byte row is a multiple of 16
 bytes, 16 to 256 (`_build.padded_head_dim` with one-byte elements): D 96
 runs in D 128's layout, the TMA boxes reading zeros past the row, which
 widen to exact zeros (the TPU kernels pad D to their 128 lanes); a d with
@@ -53,8 +54,6 @@ import torch
 from flash_attention_cute_tpu_torch import dispatch
 from flash_attention_cute_tpu_torch.ops import _build, flash_decode
 from flash_attention_cute_tpu_torch.ops.paged_attention import (
-    DECODE_MAX_GROUP,
-    MAX_GROUP,
     _check_cuda_call,
     _clamp,
     append_targets,
@@ -72,11 +71,11 @@ LOG2E = math.log2(math.e)
 P, I, L, F = _build.P, _build.I, _build.L, _build.F
 QUANT_DECODE = _build.Kernel(
     "quant_decode", "quantized.cu", "fact_quant_decode_partials",
-    [P] * 9 + [I] * 7 + [L] * 12 + [F, F, I, I, I, P],
+    [P] * 9 + [I] * 9 + [L] * 12 + [F, F, I, I, I, P],
 )
 QUANT_PAGED_DECODE = _build.Kernel(
     "quant_paged_decode", "quant_paged_decode.cu", "fact_quant_paged_decode_partials",
-    [P] * 10 + [I] * 9 + [L] * 12 + [F, F, I, I, I, P],
+    [P] * 10 + [I] * 11 + [L] * 12 + [F, F, I, I, I, P],
 )
 QUANT_PAGED_EXTEND = _build.Kernel(
     "quant_paged_extend", "quant_paged_extend.cu", "fact_quant_paged_extend",
@@ -216,10 +215,7 @@ def flash_attention_decode_quantized(
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"quantized decode kernel takes bf16/f16 q, got {q.dtype}")
     _build.padded_head_dim(d, "quantized decode", 1)
-    if hq % hkv or g > DECODE_MAX_GROUP:
-        raise NotImplementedError(f"quantized decode kernel takes Hq/Hkv <= {DECODE_MAX_GROUP}, "
-                                  f"got {hq}/{hkv} (larger groups: ROADMAP.md B.5)")
-    if sq != 1 or k.values.shape != v.values.shape or k.values.shape[0] != b \
+    if sq != 1 or hq % hkv or k.values.shape != v.values.shape or k.values.shape[0] != b \
             or k.values.shape[3] != d:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.values.shape)} "
                          f"v {tuple(v.values.shape)}")
@@ -231,7 +227,7 @@ def flash_attention_decode_quantized(
     if (kv_length.device != q.device or kv_length.dtype != torch.int32
             or kv_length.shape != (b,) or not kv_length.is_contiguous()):
         raise ValueError("kv_length must be a contiguous [B] int32 tensor on q's device")
-    splits = num_splits if num_splits > 0 else dispatch.decode_num_splits(b, hkv, cap, d)
+    splits = num_splits if num_splits > 0 else dispatch.decode_num_splits(b, hkv, cap, d, g)
     if not (0 < splits <= cap):
         raise ValueError(f"num_splits {splits} outside 1..{cap}")
 
@@ -242,7 +238,8 @@ def flash_attention_decode_quantized(
         QUANT_DECODE(
             q.data_ptr(), k.values.data_ptr(), v.values.data_ptr(), k.scales.data_ptr(),
             v.scales.data_ptr(), kv_length.data_ptr(), acc.data_ptr(), m.data_ptr(),
-            l.data_ptr(), b, hkv, g, cap, d, splits, -(-cap // splits),
+            l.data_ptr(), b, hkv, g, *dispatch.decode_group_chunks(g), cap, d, splits,
+            -(-cap // splits),
             q.stride(0), q.stride(1), *k.values.stride()[:3], *v.values.stride()[:3],
             *k.scales.stride()[:2], *v.scales.stride()[:2],
             float(sm_scale) * LOG2E, softcap, window, _build.DTYPE_CODES[q.dtype],
@@ -294,12 +291,11 @@ def contiguous_decode_kernel_report() -> str:
     return _build.runtime_report(QUANT_DECODE.source, "fact_quant_decode_report")
 
 
-def _check_paged(name, q, k_pages, v_pages, page_table, row_tensors, window,
-                 max_group=MAX_GROUP) -> int:
+def _check_paged(name, q, k_pages, v_pages, page_table, row_tensors, window) -> int:
     """The refusals of B8 / B9: those of B5 / B6, the quantized pools', and
     scales each page part of which one 16-byte aligned bulk copy brings."""
     window = _check_cuda_call(name, q, k_pages.values, v_pages.values, page_table, row_tensors,
-                              window, k_pages.values.dtype, max_group)
+                              window, k_pages.values.dtype)
     _check_quantized("k_pages", k_pages)
     _check_quantized("v_pages", v_pages, k_pages.values.dtype)
     for pname, kv in (("k_pages", k_pages), ("v_pages", v_pages)):
@@ -345,11 +341,11 @@ def paged_attention_decode_quantized(
                                                       sm_scale, window, logit_softcap)
     softcap = _build.softcap_arg(logit_softcap)
     window = _check_paged("quantized paged decode", q, k_pages, v_pages, page_table,
-                          [("lengths", lengths)], window, DECODE_MAX_GROUP)
+                          [("lengths", lengths)], window)
     hkv, num_pages, ps, _ = k_pages.values.shape
     pps = page_table.shape[1]
     g = hq // hkv
-    splits = dispatch.decode_num_splits(b, hkv, pps * ps, d)
+    splits = dispatch.decode_num_splits(b, hkv, pps * ps, d, g)
     acc = torch.empty((b, hkv, splits, g, d), dtype=torch.float32, device=q.device)
     m = torch.empty((b, hkv, splits, g), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
@@ -358,8 +354,8 @@ def paged_attention_decode_quantized(
             q.data_ptr(), k_pages.values.data_ptr(), v_pages.values.data_ptr(),
             k_pages.scales.data_ptr(), v_pages.scales.data_ptr(), lengths.data_ptr(),
             page_table.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-            b, hkv, g, d, splits, pps, ps, num_pages, decode_plan(d, ps)[1],
-            q.stride(0), q.stride(1), *k_pages.values.stride()[:3],
+            b, hkv, g, *dispatch.decode_group_chunks(g), d, splits, pps, ps, num_pages,
+            decode_plan(d, ps)[1], q.stride(0), q.stride(1), *k_pages.values.stride()[:3],
             *v_pages.values.stride()[:3], *k_pages.scales.stride()[:2],
             *v_pages.scales.stride()[:2], float(sm_scale) * LOG2E, softcap, window,
             _build.DTYPE_CODES[q.dtype], _build.KV_DTYPE_CODES[k_pages.values.dtype],

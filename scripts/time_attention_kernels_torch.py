@@ -3,7 +3,7 @@
 comparing two trees of the repository in one call:
 
     cd <tree> && python3 <this script> [prefill] [decode] [paged] [extends] [backward] [int8] \
-        [layouts]
+        [layouts] [groups]
 
 The package is imported from the current directory; the arguments pick
 groups of kernels to time (all without any). Llama / Mistral shapes
@@ -80,7 +80,9 @@ D's decode (8 rows of one token into int8 pages of 128, 8 kv heads) at D 64,
 run E's decode at page_size 16), B9 (int8, run E's extend) and B4 (the
 smoke's last verify round, and a chunk of 256) and B12 (the 32 sequences,
 causal) at D 64 (32 / 8 heads), the head dim of the layout the other groups
-do not time them at. Prints one
+do not time them at. "groups": D1, B7, B5 and B8 (+ D2; int8 values) over
+8 rows of 2048 keys at GQA groups 16 (128 / 8 heads), 32 (32 / 1), 48 (48
+/ 1) and 71 (71 / 1, D 64), null where a tree refuses the group. Prints one
 JSON line with the card's name and power limit.
 """
 
@@ -325,6 +327,32 @@ def layouts(randn, pool, timed, out):
         del q, kc, vc
 
 
+def large_groups(randn, pool, timed, out):
+    """D1, B7 (int8), B5 and B8 (int8) (+ D2) at GQA groups 16 (Llama-3.1-405B's
+    128 / 8 heads), 32 (32 / 1), 48 (StarCoder's 48 / 1) and 71 (Falcon-7B's
+    71 / 1, D 64): a decode of B 8 over 2048 keys a row (every key live;
+    pages of 16). Null in a tree that refuses the group."""
+    for name, hq, hkv, d in (("G16 128/8", 128, 8, 128), ("G32 32/1", 32, 1, 128),
+                             ("G48 48/1", 48, 1, 128), ("G71 71/1 D64", 71, 1, 64)):
+        b, cap_len = 8, 2048
+        q = randn(b, hq, 1, d)
+        lengths = torch.full((b,), cap_len, dtype=torch.int32, device="cuda")
+        kc, vc = randn(b, hkv, cap_len, d), randn(b, hkv, cap_len, d)
+        quant = tuple(qz.quantize_kv(x, torch.int8) for x in (kc, vc))
+        out[f"D1 {name} B8 C2048 (+ D2)"] = timed(lambda: flash_decode.flash_attention_decode(
+            q, kc, vc, kv_length=lengths), 50)
+        out[f"B7 int8 {name} B8 C2048 (+ D2)"] = timed(
+            lambda: qz.flash_attention_decode_quantized(q, *quant, kv_length=lengths), 50)
+        del kc, vc, quant
+        kp, vp, table = pool(b, 16, cap_len // 16, hkv, d)
+        quant = tuple(qz.quantize_kv(x, torch.int8) for x in (kp, vp))
+        out[f"B5 {name} B8 ps16 L2048 (+ D2)"] = timed(lambda: pa.paged_attention_decode(
+            q, kp, vp, lengths, table), 50)
+        out[f"B8 int8 {name} B8 ps16 L2048 (+ D2)"] = timed(
+            lambda: qz.paged_attention_decode_quantized(q, *quant, lengths, table), 50)
+        del kp, vp, quant
+
+
 def capped(cap):  # no keyword at all without a cap: older trees lack it
     return {} if cap is None else {"logit_softcap": cap}
 
@@ -409,9 +437,9 @@ def main() -> None:
             return None
 
     # Groups to time (all by default): prefill, decode, paged, extends,
-    # backward, int8, layouts.
+    # backward, int8, layouts, groups.
     groups = set(sys.argv[1:]) or {"prefill", "decode", "paged", "extends", "backward", "int8",
-                                   "layouts"}
+                                   "layouts", "groups"}
     out = {"card": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(), "tree": os.getcwd()}
@@ -453,6 +481,8 @@ def main() -> None:
         int8_times(randn, timed, out)
     if "layouts" in groups:
         layouts(randn, pool, timed, out)
+    if "groups" in groups:
+        large_groups(randn, pool, timed, out)
     print(json.dumps(out))
 
 

@@ -223,8 +223,10 @@ def test_paged_decode_kernel_matches_plain(device, ps):
 # head_dim, hq, hkv, capacity, window, soft cap, q's dtype): page sizes 8,
 # 16, 24 and 128 (copies of a part of a page, of whole pages, several pages
 # a tile, parts of 8 keys of a page that no tile size divides), head dims
-# 64, 128 and 256, GQA groups 1, 2, 4, 7, 8, 16 and 32
-# (two m-tiles), windows of 1, 45 and 4096 keys, caps 50 and 1.0, f16.
+# 64, 128 and 256 (and 96), GQA groups 1, 2, 4, 7, 8, 16 and 32 (two
+# m-tiles), and above 32 in chunks of at most 32 q rows a block (33: 17 /
+# 16; 48: StarCoder's 48 / 1; 64; 71: Falcon-7B's 71 / 1, 24 / 24 / 23),
+# windows of 1, 45 and 4096 keys, caps 50 and 1.0, f16.
 # Rows of lengths 0, 1, a page edge either side, the full table and 777,
 # NaN at and past every length and in page 0, behind a permuted table.
 PAGED_DECODE = {
@@ -240,6 +242,11 @@ PAGED_DECODE = {
     "ps8_d256_g32_f16_cap1": (8, 256, 32, 1, 1024, None, 1.0, torch.float16),
     "ps128_d64_g32": (128, 64, 32, 1, 1024, None, None, torch.bfloat16),
     "ps24_d128_g4_w45": (24, 128, 32, 8, 1032, 45, None, torch.bfloat16),
+    "ps16_d128_g33_w45": (16, 128, 66, 2, 1024, 45, None, torch.bfloat16),
+    "ps128_d128_g48": (128, 128, 48, 1, 2048, None, None, torch.bfloat16),
+    "ps8_d256_g64_f16_cap50": (8, 256, 64, 1, 1024, None, 50.0, torch.float16),
+    "ps16_d64_g71": (16, 64, 71, 1, 2048, None, None, torch.bfloat16),
+    "ps16_d96_g71_cap1_w4096": (16, 96, 142, 2, 5120, 4096, 1.0, torch.bfloat16),
 }
 
 
@@ -289,7 +296,8 @@ def test_paged_decode_kernels_geometry(device, case, values):
 
 # Geometry of the contiguous decodes D1 and B7 since they run B5 / B8's
 # kernel (name: head_dim, hq, hkv, capacity, window, soft cap, q's dtype):
-# head dims 64, 128 and 256, GQA groups 1, 2, 4, 7, 8, 16 and 32,
+# head dims 64, 128 and 256 (and 96), GQA groups 1, 2, 4, 7, 8, 16 and 32
+# and above 32 (33, 48, 64, 71, 128: chunks of at most 32 q rows a block),
 # capacities that are no multiple of 4 nor of a tile (B7's scale rows start
 # off any 16-byte boundary), windows of 1, 45, 100 and 4096 keys, caps 50
 # and 1.0, f16. Rows of lengths 0, 1, 37, the capacity, one short of it and
@@ -306,6 +314,11 @@ CONTIG_DECODE = {
     "d256_g2_c4641_cap50_w4096": (256, 16, 8, 4641, 4096, 50.0, torch.bfloat16),
     "d256_g2_c1023_cap1": (256, 16, 8, 1023, None, 1.0, torch.bfloat16),
     "d256_g32_c770_f16": (256, 32, 1, 770, None, None, torch.float16),
+    "d128_g33_c1030_w100": (128, 66, 2, 1030, 100, None, torch.bfloat16),
+    "d128_g48_c2051": (128, 48, 1, 2051, None, None, torch.bfloat16),
+    "d256_g64_c770_cap50": (256, 64, 1, 770, None, 50.0, torch.bfloat16),
+    "d64_g71_c2051_f16": (64, 71, 1, 2051, None, None, torch.float16),
+    "d96_g128_c577_cap1_w45": (96, 128, 1, 577, 45, 1.0, torch.bfloat16),
 }
 
 
@@ -370,7 +383,8 @@ def test_contiguous_decode_kernels_geometry(device, case, values):
 # hkv, S, q_offset of rows 0-2, window, soft cap, q's dtype): page sizes 8,
 # 16 and 128, head dims 64, 128 and 256, chunks across the kernels' 128-row
 # blocks and 128- / 64-key tiles, offsets off every tile and page boundary,
-# windows of 1, 45 and 4096 keys, GQA groups 1, 7 and 8, f16, the soft cap.
+# windows of 1, 45 and 4096 keys, GQA groups 1, 7, 8, 12, 16 and 71, f16,
+# the soft cap.
 # Row 3 is inactive (kv_length 0); pools hold NaN at and past every length.
 EXTEND_CASES = {
     "ps16_s256": (16, 128, 32, 8, 256, [0, 256, 700], None, None, torch.bfloat16),
@@ -385,6 +399,10 @@ EXTEND_CASES = {
     "window45_ps8_s65": (8, 128, 32, 8, 65, [10, 90, 900], 45, None, torch.bfloat16),
     "window4096_s512": (16, 128, 32, 8, 512, [3584, 4096, 100], 4096, None, torch.bfloat16),
     "group8_s130_f16": (16, 128, 8, 1, 130, [3, 700, 899], None, None, torch.float16),
+    "group12_s130_w45": (16, 128, 96, 8, 130, [0, 256, 700], 45, None, torch.bfloat16),
+    "group16_ps128_s256_cap50": (128, 128, 128, 8, 256, [5, 300, 900], None, 50.0,
+                                 torch.bfloat16),
+    "group71_d64_s65_f16": (16, 64, 71, 1, 65, [0, 130, 600], None, None, torch.float16),
 }
 
 
@@ -611,8 +629,9 @@ def test_quant_append_kernel_writes_what_plain_writes(device, s, paged, name):
 
 def test_quantized_kernels_refuse_what_they_do_not_take(device):
     """Every quantized kernel refuses values other than int8 / e4m3 and
-    scales other than f32; B7 and B8 a group above 32. B7, B8 and QA take
-    the cap and D 256 (test_contiguous_decode_kernels_geometry,
+    scales other than f32; B7 and B8 take a group above 32 (33 here, two
+    chunks: held to their plain versions). B7, B8 and QA take the cap and
+    D 256 (test_contiguous_decode_kernels_geometry,
     test_paged_decode_kernels_geometry,
     test_quant_append_kernel_writes_what_plain_writes_at_d256)."""
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -625,13 +644,14 @@ def test_quantized_kernels_refuse_what_they_do_not_take(device):
     with pytest.raises(ValueError, match="float32"):
         quant.paged_attention_decode_quantized(q, QuantizedKV(k.values, k.scales.half()), v,
                                                lengths, table)
-    with pytest.raises(NotImplementedError, match="Hq/Hkv <= 32"):
-        quant.paged_attention_decode_quantized(randn(gen, 2, 8 * 33, 1, 128), k, v, lengths,
-                                               table)
+    q33 = randn(gen, 2, 8 * 33, 1, 128)
+    out = quant.paged_attention_decode_quantized(q33, k, v, lengths, table)
+    ref = quant.paged_attention_decode_quantized_plain(q33.float(), k, v, lengths, table)
+    assert (out.float() - ref).abs().max().item() <= BF16_TOL
     cache = quant.quantize_kv(randn(gen, 2, 8, 64, 128), torch.int8)
-    with pytest.raises(NotImplementedError, match="Hq/Hkv <= 32"):
-        quant.flash_attention_decode_quantized(randn(gen, 2, 8 * 33, 1, 128), cache, cache,
-                                               lengths)
+    out = quant.flash_attention_decode_quantized(q33, cache, cache, lengths)
+    ref = quant.flash_attention_decode_quantized_plain(q33.float(), cache, cache, lengths)
+    assert (out.float() - ref).abs().max().item() <= BF16_TOL
     with pytest.raises(ValueError, match="float32"):
         quant.quantize_append(randn(gen, 2, 8, 1, 128), randn(gen, 2, 8, 1, 128),
                               QuantizedKV(cache.values, cache.scales.double()), cache, lengths)

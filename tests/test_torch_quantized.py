@@ -243,9 +243,9 @@ def test_quant_paged_extend_plain_matches_jax_kernel(case):
 
 def test_cuda_routes_take_or_refuse_the_cap_and_d256():
     """Off the CPU (here the `meta` device, on which no kernel runs) B7, B8
-    and B9 take the soft cap, head dim 256 and B7 / B8 groups up to 32, and
-    stop only at the CUDA-tensor check; B7 and B8 refuse a group above 32,
-    naming ROADMAP.md."""
+    and B9 take the soft cap, head dim 256 and B7 / B8 groups of 32 and
+    above (34: two chunks of 17 q rows), and stop only at the CUDA-tensor
+    check."""
     meta = torch.device("meta")
     qm = torch.empty(2, 16, 8, 256, dtype=torch.bfloat16, device=meta)
     kv = QuantizedKV(torch.empty(8, 9, 16, 256, dtype=torch.int8, device=meta),
@@ -260,7 +260,7 @@ def test_cuda_routes_take_or_refuse_the_cap_and_d256():
     q32 = torch.empty(2, 8 * 32, 1, 256, dtype=torch.bfloat16, device=meta)
     with pytest.raises(ValueError, match="must be a CUDA tensor"):  # D 256, group 32
         q.paged_attention_decode_quantized(q32, kv, kv, rows, table, window=4096)
-    with pytest.raises(NotImplementedError, match="Hq/Hkv <= 32"):
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):  # group 34
         q.paged_attention_decode_quantized(torch.cat([q32, q32[:, :8]], 1), kv, kv, rows, table)
     cache = QuantizedKV(torch.empty(2, 8, 64, 256, dtype=torch.int8, device=meta),
                         torch.empty(2, 8, 64, device=meta))
@@ -268,7 +268,7 @@ def test_cuda_routes_take_or_refuse_the_cap_and_d256():
         q.flash_attention_decode_quantized(qm[:, :, :1], cache, cache, rows, logit_softcap=50.0)
     with pytest.raises(ValueError, match="must be a CUDA tensor"):  # D 256, group 32
         q.flash_attention_decode_quantized(q32, cache, cache, rows, window=4096)
-    with pytest.raises(NotImplementedError, match="Hq/Hkv <= 32.*ROADMAP.md"):
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):  # group 34
         q.flash_attention_decode_quantized(torch.cat([q32, q32[:, :8]], 1), cache, cache, rows)
 
 
