@@ -137,7 +137,14 @@ Phases, in order; any failure exits non-zero:
      bit; then `api.flash_attention_forward` at Sq 1 on Falcon-7B's 71 / 1
      heads (B 8, 2048 keys, ragged lengths with a 0, NaN tails), counted on
      path "mqa-71": D1 once, D2 once, nothing else, within 3e-2 of the
-     plain decode.
+     plain decode; (3n) B4's (o, m, l) partials (PARTIALS_CASES: one ring
+     step's offsets S_local / 0 / -S_local, the zig-zag's half shapes at
+     S_local 4096, D 96, D 256 with the cap 50, Llama-3.1-405B's group of
+     16 at S 5 and 256, the window of 4096 with the cap 30, a row of
+     kv_length 0, f16 S 12 (two-part P), non-causal D 64; NaN tails)
+     against the plain partials: o and l within 3e-2 of l, m within 3e-2
+     (`partials_err`), rows with no key m = l = o = 0, repeated bit for
+     bit.
   4. main paths: greedy generation of Llama-3-8B (random weights from a
      seeded CUDA generator) at B 4, prompt 512, 64 new tokens; launch
      counters show the kernels carried it; teacher-forced logits of the
@@ -269,7 +276,19 @@ Phases, in order; any failure exits non-zero:
      B7 + D2), and serving runs A, B, D and E over the 24 requests (P or B6
      / B9 at admission, B5 / B8 + D2, the append / QA), every token
      teacher-forced; launches on paths "405b-widths ...", each run's exact,
-     and the paged extends B6 and B9 launched on them.
+     and the paged extends B6 and B9 launched on them. (4q, last)
+     Sequence-parallel attention (parallel/sequence.py) at Llama-3.1-8B's
+     attention widths (32 / 8 heads, D 128, bf16, B 1, random inputs): the
+     ring over 8 ranks of 4096 tokens (S 32768) unrolled in one process,
+     causal (zig-zag stripes) and non-causal, and the all-gather route,
+     counted on path "sp" (B4-partials 8 x 9 + 8 x 8, B4 8, nothing else),
+     each within 3e-2 of P over the whole sequence, the ring within 3e-2
+     of the all-gather; at S 4096 over 4 ranks the ring causal, non-causal
+     and at an odd S_local (S 4092: the three offsets) and the all-gather
+     with a window of 1000 within 3e-2 of the fp32 plain dense reference;
+     the public `ring_attention` (causal, non-causal) and
+     `allgather_attention` over a one-rank NCCL `DeviceMesh` on cuda:0
+     (path "sp nccl": B4-partials 3, B4 1) within 3e-2 of P.
      (4k, run after 4e over the Llama tree; launches counted as path "hf")
      The HF surface: (a) HF-named transposed views of the parameters
      through `params_from_state_dict`, then greedy generation: phase 4's
@@ -349,7 +368,13 @@ Phases, in order; any failure exits non-zero:
      and the "m71" entries of the D1, B5, B7 and B8 rows at Falcon-7B's 71
      / 1 heads, D 64, a decode of B 8 over 2048 keys a row (bounds: the
      visible K / V read once at 3.35 TB/s; library_ms one SDPA call over the
-     cache with the group expanded); every timed entry its share of its
+     cache with the group expanded); (5j) the row of B4's partials
+     ("flash_chunked_partials") at a non-causal ring step of 4q's shape
+     (4096 rows, 4096 keys) and, under "zigzag_step", at a zig-zag step
+     (4096 rows, 2048 keys), library_ms null (no PyTorch call returns the
+     partials), and under "sequence_parallel" the unrolled ring (causal,
+     non-causal) and all-gather over 32768 tokens beside P and one SDPA
+     call (causal) over the same; every timed entry its share of its
      bound ("of_bound"); the card's name and power limit.
 The last line is {"ok": true, "device": {...}}.
 
@@ -2304,7 +2329,7 @@ def kernel_entries(rows, errs, path_counts) -> list:
     def share_of_bound(entry):  # each timed shape's share of its bound, nested ones too
         if entry.get("ms") and entry.get("bound_ms"):
             entry["of_bound"] = entry["bound_ms"] / entry["ms"]
-        for key in ("chunk", "window", "gemma2", "long", "phi3", "g16", "m71"):
+        for key in ("chunk", "window", "gemma2", "long", "phi3", "g16", "m71", "zigzag_step"):
             if isinstance(entry.get(key), dict):
                 share_of_bound(entry[key])
 
@@ -2323,7 +2348,8 @@ def kernel_entries(rows, errs, path_counts) -> list:
             **{key: r[key] for key in ("library_of", "with_combine_ms", "prefill", "chunk",
                                        "window", "lse", "max_rel_err", "gemma2", "projections",
                                        "runtime_attributes", "with_k8_ms", "bf16_ms", "long",
-                                       "oracle_max_abs_err", "phi3", "g16", "m71")
+                                       "oracle_max_abs_err", "phi3", "g16", "m71",
+                                       "zigzag_step", "sequence_parallel")
                if key in r},
         })
     return out
@@ -5465,6 +5491,277 @@ def mqa71_rows(torch, ops, gen):
     return out
 
 
+# Phases 3n / 4q / 5j: B4's (o, m, l) partials and sequence-parallel
+# attention (parallel/sequence.py) at Llama-3.1-8B's attention widths
+# (32 / 8 heads, D 128, bf16, B 1): a global sequence of 32768 tokens, a
+# quarter of Llama-3.1's 131072-token context, over 8 ranks of 4096, the
+# ring unrolled in one process; the fp32 plain dense reference at S 4096
+# over 4 ranks; the public entry points over a one-rank NCCL mesh.
+SP_LABEL = "sp"  # the launch-count path of phase 4q's unrolled ring and all-gather
+SP_NCCL_LABEL = "sp nccl"  # the entry points over the one-rank NCCL mesh
+SP_HEADS, SP_D, SP_S, SP_RANKS = (32, 8), 128, 32768, 8
+SP_CHECK_S, SP_CHECK_RANKS = 4096, 4
+
+# Phase 3n: B4's partials at ring attention's step geometries (name, dtype,
+# (hq, hkv), S, capacity, q_offset per row, kv_length per row or None for
+# the capacity, D, causal, window, cap): the offsets S_local, 0 and
+# -S_local of one ring step (every key seen, the own chunk, a later chunk:
+# an empty walk), the zig-zag's half shapes at S_local 4096 (the diagonal
+# stripe, the high stripe against the pair at S_local / 2 and at S_local,
+# both stripes against the low one), D 96 at Phi-3-mini's 32 / 32 heads,
+# D 256 with the cap 50 at Gemma-2-9B's 16 / 8, the group of 16 at
+# Llama-3.1-405B's 128 / 8 (S 5: sixteen heads a block; S 256: one), the
+# window of 4096 with the cap 30 and NaN tails, a row of kv_length 0, a
+# verify-sized chunk in f16 (two-part P), non-causal at D 64.
+PARTIALS_CASES = (
+    ("ring step offsets S / 0 / -S", "bfloat16", (32, 8), 2048, 2048, [2048, 0, -2048], None,
+     128, True, None, None),
+    ("zig-zag diagonal stripe", "bfloat16", (32, 8), 2048, 2048, [0], None, 128, True, None,
+     None),
+    ("zig-zag own pair, high stripe", "bfloat16", (32, 8), 2048, 4096, [2048], None, 128, True,
+     None, None),
+    ("zig-zag later pair, high stripe", "bfloat16", (32, 8), 2048, 4096, [4096], None, 128,
+     True, None, None),
+    ("zig-zag earlier pair, both stripes", "bfloat16", (32, 8), 4096, 2048, [4096], None, 128,
+     True, None, None),
+    ("D 96 (32 / 32)", "bfloat16", (32, 32), 1024, 1024, [1024, 0, -1024], None, 96, True, None,
+     None),
+    ("D 256 cap 50 (16 / 8)", "bfloat16", (16, 8), 1024, 1024, [1024, 0, -1024], None, 256,
+     True, None, 50.0),
+    ("group 16 S 5 (128 / 8)", "bfloat16", (128, 8), 5, 2048, [2048, 700, -5], None, 128, True,
+     None, None),
+    ("group 16 S 256 (128 / 8)", "bfloat16", (128, 8), 256, 1024, [1024, 300, -256], None, 128,
+     True, None, None),
+    ("window 4096 cap 30, NaN tails", "bfloat16", (32, 8), 512, 8192, [7000, 3000, 0],
+     [7400, 3512, 300], 128, True, 4096, 30.0),
+    ("kv_length 0 row", "bfloat16", (32, 8), 256, 1024, [1024, 100, 0], [1024, 356, 0], 128,
+     True, None, None),
+    ("f16 S 12 (two-part P), NaN tails", "float16", (32, 8), 12, 640, [640, 300, -12],
+     [600, 312, 640], 128, True, None, None),
+    ("non-causal D 64", "bfloat16", (8, 2), 300, 1000, [0, 0, 0], [1000, 400, 0], 64, False,
+     None, None),
+)
+
+
+def partials_err(got, want) -> float:
+    """B4's (o, m, l) partials against the plain ones: the largest of
+    |o - o'| and |l - l'| over max(l', 1) (o and l grow with the visible
+    keys; over l they are errors of the normalised output) and |m - m'|."""
+    (o, m, l), (o_p, m_p, l_p) = got, want
+    scale = l_p.clamp(min=1.0)
+    return max(((o - o_p).abs() / scale[..., None]).max().item(),
+               ((l - l_p).abs() / scale).max().item(), (m - m_p).abs().max().item())
+
+
+def phase_partials_kernels(torch, flash_chunked, errs):
+    """Phase 3n: B4's partials against the plain partials over
+    PARTIALS_CASES, the model's transposed views, NaN at and past every
+    kv_length: `partials_err` within BF16_TOL, rows with no visible key
+    exact (m = l = o = 0), every value finite, a second call bit for bit.
+    Errors go to errs["flash_chunked_partials"]."""
+    gen = torch.Generator(device="cuda").manual_seed(5353)
+    for name, dt, (hq, hkv), s, cap, offs, kvl, d, causal, w, sc in PARTIALS_CASES:
+        kvl = kvl or [cap] * len(offs)
+        q, k, v, off, lens = chunked_inputs(torch, gen, getattr(torch, dt), s, cap, offs, kvl, d,
+                                            hq, hkv)
+        kw = dict(causal=causal, window=w, logit_softcap=sc, return_partials=True)
+        got = flash_chunked.flash_attention_chunked(q, k, v, off, lens, **kw)
+        again = flash_chunked.flash_attention_chunked(q, k, v, off, lens, **kw)
+        want = flash_chunked.flash_attention_chunked_plain(q, k, v, off, lens, **kw)
+        e = partials_err(got, want)
+        note_err(errs, "flash_chunked_partials", e)
+        dead = want[2] == 0
+        print(f"  B4-partials {name} (q_offset {offs}, kv_length {kvl}): error {e:.3e}, "
+              f"{int(dead.sum())} rows with no key")
+        check(e <= BF16_TOL, f"B4-partials {name} within {BF16_TOL}")
+        check(all(bool(torch.isfinite(x).all()) for x in got), f"B4-partials {name} finite")
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"B4-partials {name} repeats bit for bit")
+        check(bool((got[1][dead] == 0).all()) and bool((got[2][dead] == 0).all())
+              and bool((got[0][dead] == 0).all()),
+              f"B4-partials {name}: rows with no key are m = l = o = 0")
+        del q, k, v, got, again, want
+    torch.cuda.empty_cache()
+
+
+def sp_inputs(torch, gen, s):
+    """q [1, 32, s, 128], k / v [1, 8, s, 128] in bf16 (unit normal)."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    hq, hkv = SP_HEADS
+    return randn(1, hq, s, SP_D), randn(1, hkv, s, SP_D), randn(1, hkv, s, SP_D)
+
+
+def sp_partials_launches(n: int, s_local: int, causal: bool) -> int:
+    """B4-partials launches of an n-rank ring: two at each rank's own pair
+    on the zig-zag (causal, even S_local), one at every other step."""
+    return n * (n + 1) if causal and s_local % 2 == 0 else n * n
+
+
+def phase_sequence_parallel(torch, flash_fwd, kernels, path_counts, errs):
+    """Phase 4q: (a) path "sp": the ring over SP_RANKS ranks unrolled in one
+    process (`ring_attention_unrolled`), causal (zig-zag) and non-causal,
+    and the all-gather route (`allgather_attention_unrolled`) at SP_S
+    tokens, counted: B4-partials n (n + 1) + n^2, B4 n, nothing else; each
+    against P over the whole sequence (and the ring against the all-gather)
+    within BF16_TOL; (b) at SP_CHECK_S over SP_CHECK_RANKS ranks, causal
+    (zig-zag), non-causal, an odd S_local (S - 4, the three offsets) and
+    the all-gather with a window of 1000, against the fp32 plain dense
+    reference; (c) path "sp nccl": the public entry points
+    `ring_attention` (causal, non-causal) and `allgather_attention` over a
+    one-rank NCCL `DeviceMesh` on cuda:0 at SP_CHECK_S, against P."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from flash_attention_cute_tpu_torch.ops.reference import attention_reference
+    from flash_attention_cute_tpu_torch.parallel import mesh as pmesh
+    from flash_attention_cute_tpu_torch.parallel import sequence as seq
+
+    numbers = {}
+    gen = torch.Generator(device="cuda").manual_seed(4040)
+    n, s_local = SP_RANKS, SP_S // SP_RANKS
+    q, k, v = sp_inputs(torch, gen, SP_S)
+
+    def held(what, got, want, key="flash_chunked_partials"):
+        e = max_err(got, want)
+        note_err(errs, key, e, "sp")
+        print(f"  {what}: max|diff| {e:.3e}")
+        check(bool(torch.isfinite(got).all()), f"{what}: finite")
+        check(e <= BF16_TOL, f"{what} within {BF16_TOL}")
+        return e
+
+    (ring_c, ring_n, gathered), wall, counts = counted_run(torch, kernels, lambda: (
+        seq.ring_attention_unrolled(q, k, v, n, causal=True),
+        seq.ring_attention_unrolled(q, k, v, n, causal=False),
+        seq.allgather_attention_unrolled(q, k, v, n, causal=True)))
+    want = {"flash_chunked_partials": sp_partials_launches(n, s_local, True)
+            + sp_partials_launches(n, s_local, False), "flash_chunked": n}
+    check_counts(counts, want, SP_LABEL)
+    add_counts(path_counts.setdefault(SP_LABEL, {}), counts)
+    print(f"  path {SP_LABEL!r}: {n} ranks of {s_local} tokens, {wall:.3f} s; launches "
+          f"B4-partials {counts['flash_chunked_partials']}, B4 {counts['flash_chunked']}")
+    p_c = flash_fwd.flash_attention_fwd(q, k, v, causal=True)
+    held(f"ring, causal (zig-zag), {n} ranks, vs P over {SP_S}", ring_c, p_c)
+    held(f"all-gather, causal, {n} ranks, vs P over {SP_S}", gathered, p_c, "flash_chunked")
+    numbers["ring_vs_allgather_max_abs_err"] = held("ring vs all-gather", ring_c, gathered)
+    del p_c, ring_c, gathered
+    p_n = flash_fwd.flash_attention_fwd(q, k, v, causal=False)
+    held(f"ring, non-causal, {n} ranks, vs P over {SP_S}", ring_n, p_n)
+    del p_n, ring_n, q, k, v
+    torch.cuda.empty_cache()
+
+    # (b) the fp32 plain dense reference at SP_CHECK_S over SP_CHECK_RANKS.
+    m = SP_CHECK_RANKS
+    for what, s, causal, fn, kw in (
+            ("ring causal (zig-zag)", SP_CHECK_S, True, seq.ring_attention_unrolled, {}),
+            ("ring non-causal", SP_CHECK_S, False, seq.ring_attention_unrolled, {}),
+            ("ring causal, odd S_local (three offsets)", SP_CHECK_S - m, True,
+             seq.ring_attention_unrolled, {}),
+            ("all-gather causal, window 1000", SP_CHECK_S, True,
+             seq.allgather_attention_unrolled, {"window": 1000})):
+        q, k, v = sp_inputs(torch, gen, s)
+        got = fn(q, k, v, m, causal=causal, **kw)
+        ref = attention_reference(q.float(), k.float(), v.float(), causal=causal,
+                                  window=kw.get("window"))
+        held(f"{what}, S {s} over {m} ranks, vs the fp32 plain reference", got, ref,
+             "flash_chunked" if fn is seq.allgather_attention_unrolled else
+             "flash_chunked_partials")
+        del q, k, v, got, ref
+
+    # (c) the public entry points over a one-rank NCCL mesh.
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    pmesh.init_distributed(backend="nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                           rank=0, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("sp",))
+        q, k, v = sp_inputs(torch, gen, SP_CHECK_S)
+        (r_c, r_n, a_c), wall, counts = counted_run(torch, kernels, lambda: (
+            seq.ring_attention(q, k, v, mesh, causal=True),
+            seq.ring_attention(q, k, v, mesh, causal=False),
+            seq.allgather_attention(q, k, v, mesh, causal=True)))
+        check_counts(counts, {"flash_chunked_partials": 3, "flash_chunked": 1}, SP_NCCL_LABEL)
+        add_counts(path_counts.setdefault(SP_NCCL_LABEL, {}), counts)
+        print(f"  path {SP_NCCL_LABEL!r}: one-rank {dist.get_backend()} mesh on "
+              f"{torch.cuda.get_device_name(0)}, {wall:.3f} s; B4-partials "
+              f"{counts['flash_chunked_partials']}, B4 {counts['flash_chunked']}")
+        p_c = flash_fwd.flash_attention_fwd(q, k, v, causal=True)
+        held("ring_attention over NCCL, causal, vs P", r_c, p_c)
+        held("allgather_attention over NCCL, causal, vs P", a_c, p_c, "flash_chunked")
+        held("ring_attention over NCCL, non-causal, vs P", r_n,
+             flash_fwd.flash_attention_fwd(q, k, v, causal=False))
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def sp_rows(torch, flash_chunked, flash_fwd):
+    """Phase 5j: the row of B4's partials ("flash_chunked_partials", the
+    ring's kernel) at a non-causal ring step of phase 4q's shape (4096 rows
+    against a chunk of 4096 keys, q_offset 4096: every key visible) and,
+    under "zigzag_step", at a zig-zag step (4096 rows against the low
+    stripe of 2048 keys); bounds: 4 D operations a visible (row, key) pair
+    and q head at the bf16 peak, or q, k, v read and o (fp32), m, l written
+    once; library_ms null (no PyTorch call returns the partials). Under
+    "sequence_parallel": the unrolled ring over 8 ranks at 32768 tokens,
+    causal and non-causal, the all-gather route, P over the whole sequence
+    and one SDPA call (causal, GQA expanded) beside them."""
+    from flash_attention_cute_tpu_torch.parallel import sequence as seq
+    from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms
+
+    f = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(86)
+    hq, hkv = SP_HEADS
+    s_local = SP_S // SP_RANKS
+
+    def step(rows, keys, offset, iters):
+        q, k, v = sp_inputs(torch, gen, rows)[0], *sp_inputs(torch, gen, keys)[1:]
+        off = torch.full((1,), offset, dtype=torch.int32, device="cuda")
+        kvl = torch.full((1,), keys, dtype=torch.int32, device="cuda")
+        fn = lambda: flash_chunked.flash_attention_chunked(q, k, v, off, kvl,  # noqa: E731
+                                                           return_partials=True)
+        nbytes = 2 * q.numel() + 2 * 2 * k.numel() + 4 * q.numel() + 2 * 4 * hq * rows + 8
+        return {"shape": f"B 1, {hq} / {hkv} heads, D {SP_D}, {rows} rows against {keys} "
+                         f"keys, q_offset {offset} (every key visible)",
+                "ms": cuda_time_ms(fn, iters), "call_ms": call_time_ms(fn, iters),
+                "plain_ms": cuda_time_ms(lambda: flash_chunked.flash_attention_chunked_plain(
+                    q, k, v, off, kvl, return_partials=True), 3, 1),
+                "library_ms": None, **bound(4 * hq * SP_D * rows * keys, nbytes, PEAK_BF16)}
+
+    row = step(s_local, s_local, s_local, 20)
+    row["zigzag_step"] = step(s_local, s_local // 2, s_local, 20)
+    q, k, v = sp_inputs(torch, gen, SP_S)
+    kr, vr = (x.repeat_interleave(hq // hkv, dim=1) for x in (k, v))
+    pairs = SP_S * (SP_S + 1) // 2
+    row["sequence_parallel"] = {
+        "shape": f"B 1, {hq} / {hkv} heads, D {SP_D}, S {SP_S} over {SP_RANKS} ranks of "
+                 f"{s_local}, unrolled on one card",
+        "ring_causal_ms": cuda_time_ms(
+            lambda: seq.ring_attention_unrolled(q, k, v, SP_RANKS, causal=True), 3, 1),
+        "ring_noncausal_ms": cuda_time_ms(
+            lambda: seq.ring_attention_unrolled(q, k, v, SP_RANKS, causal=False), 3, 1),
+        "allgather_causal_ms": cuda_time_ms(
+            lambda: seq.allgather_attention_unrolled(q, k, v, SP_RANKS, causal=True), 3, 1),
+        "p_causal_ms": cuda_time_ms(lambda: flash_fwd.flash_attention_fwd(q, k, v, causal=True),
+                                    5, 1),
+        "sdpa_causal_ms": cuda_time_ms(
+            lambda: f.scaled_dot_product_attention(q, kr, vr, is_causal=True), 5, 1),
+        "causal_bound_ms": 1e3 * 4 * hq * SP_D * pairs / PEAK_BF16,
+    }
+    del q, k, v, kr, vr
+    torch.cuda.empty_cache()
+    return [{"name": "flash_chunked_partials", "route": "cuda",
+             "source": "flash_attention_cute_tpu_torch/csrc/flash_chunked.cu",
+             "replaces": "flash_attention_cute_tpu/ops/flash_chunked.py:47",
+             "library_of": "none: no single PyTorch call returns the (o, m, l) partials", **row}]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--layers", type=int, default=0,
@@ -5540,6 +5837,7 @@ def main() -> int:
                "quantize_k_rows": flash_fwd.QUANTIZE_K,
                "decode_partials": flash_decode.PARTIALS,
                "decode_combine": flash_decode.COMBINE, "flash_chunked": flash_chunked.CHUNKED,
+               "flash_chunked_partials": flash_chunked.PARTIALS,
                "paged_decode": paged_attention.PAGED_DECODE,
                "paged_extend": paged_attention.PAGED_EXTEND, "paged_append": paged_cache.APPEND,
                "quant_decode": quantized.QUANT_DECODE,
@@ -5618,6 +5916,13 @@ def main() -> int:
     phase_mqa71_path(torch, api, flash_decode, kernels, path_counts[MQA71_LABEL])
     torch.cuda.synchronize()
     print(f"  phase 3m: {time.perf_counter() - t0:.1f} s")
+    print("[3n] B4's (o, m, l) partials vs plain at ring attention's step geometries (offsets "
+          "S_local / 0 / -S_local, the zig-zag's halves, D 96 and 256, a group of 16, a window "
+          "and caps, a kv_length-0 row, two-part P in f16, non-causal)")
+    t0 = time.perf_counter()
+    phase_partials_kernels(torch, flash_chunked, errs)
+    torch.cuda.synchronize()
+    print(f"  phase 3n: {time.perf_counter() - t0:.1f} s")
 
     # 4. main paths
     from flash_attention_cute_tpu_torch.models.llama import llama3_8b_config
@@ -5730,6 +6035,16 @@ def main() -> int:
     training_phi3 = phase_phi3_training(torch, ops, args.layers, kernels, path_counts, errs)
     training_phi3["phase_s"] = time.perf_counter() - t0
     print(f"  phase 4o: {training_phi3['phase_s']:.1f} s")
+    print(f"[4q] sequence-parallel attention at Llama-3.1-8B's attention widths ({SP_HEADS[0]} / "
+          f"{SP_HEADS[1]} heads, D {SP_D}): the ring over {SP_RANKS} ranks of "
+          f"{SP_S // SP_RANKS} tokens (S {SP_S}) unrolled on one card, causal (zig-zag) and "
+          f"non-causal, and the all-gather route (path {SP_LABEL!r}); S {SP_CHECK_S} over "
+          f"{SP_CHECK_RANKS} ranks vs the fp32 plain reference; the entry points over a one-rank "
+          f"NCCL mesh (path {SP_NCCL_LABEL!r})")
+    t0 = time.perf_counter()
+    sp_numbers = phase_sequence_parallel(torch, flash_fwd, kernels, path_counts, errs)
+    sp_numbers["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 4q: {sp_numbers['phase_s']:.1f} s")
 
     for name in kernels:
         check(sum(c[name] for c in path_counts.values()) > 0,
@@ -5851,6 +6166,13 @@ def main() -> int:
             r["m71"] = {"max_abs_err": errs[f"{r['name']} m71"],
                         "launches": path_counts[MQA71_LABEL][r["name"]], **m71[r["name"]]}
     print(f"  phase 5i: {time.perf_counter() - t0:.1f} s")
+    print("[5j] numbers of B4's partials at a ring step of phase 4q's shape, and the unrolled "
+          "ring, the all-gather route, P and SDPA over its 32768 tokens")
+    t0 = time.perf_counter()
+    rows += sp_rows(torch, flash_chunked, flash_fwd)
+    rows[-1]["runtime_attributes"] = runtime_attributes(b4_report, "B4 D128 bf16 partials")
+    rows[-1]["sequence_parallel"].update(sp_numbers)
+    print(f"  phase 5j: {time.perf_counter() - t0:.1f} s")
     # Peak over the whole script: serving reset the counter before each run.
     numbers["max_memory_allocated_gb"] = max(
         [numbers["max_memory_allocated_gb"], serving.pop("peak_before_serving_gb")]

@@ -6,7 +6,9 @@
 // Each kernel has a producer warpgroup of its own that fills the rings
 // below; this header holds the rings' layout and the consumers' side, which
 // is the same for all six but for the mask (`Visible`, `Extend`,
-// `Segments`, a template choice) and B4's P in two parts at verify rounds:
+// `Segments`, a template choice), B4's P in two parts at verify rounds and
+// B4's (o, m, l) partials (`Extend<kSplit, true>`, `PartialsOut`), which it
+// stores instead of O:
 //
 //   * One block per (128 q rows, q head, batch row), three warpgroups:
 //     warpgroup 0 produces, warpgroups 1 and 2 consume 64 rows each.
@@ -24,9 +26,10 @@
 //   * The softmax is exact, in fp32 (the `stable="strict"` semantics: the
 //     row max is updated at every tile, no lazy rescale); 1/l is applied
 //     once at the end, and a row with no visible key (l = 0) is written as
-//     exact zeros. Row statistics are reduced over the four threads (a
-//     quad) that hold a row in the accumulator layout. No atomics: a second
-//     call writes the same bits.
+//     exact zeros (B4's partials store O, m and l as they stand). Row
+//     statistics are reduced over the four threads (a quad) that hold a row
+//     in the accumulator layout. No atomics: a second call writes the same
+//     bits.
 //   * Overlap: a consumer issues S of tile j together with P V of tile
 //     j - 1 and computes tile j's exponentials while P V runs; the two
 //     consumers take turns issuing (named barriers, "ping-pong"), so one's
@@ -347,27 +350,48 @@ struct KeyMeta<Visible> {
 // kSplit: P enters P V as two parts rounded to T, hi = P rounded and
 // lo = P - hi rounded (about 2^-16 of P lost, not 2^-9), so that a verify
 // round's attention matches the decode kernels', which keep P in fp32.
-template <bool kSplit>
+// kPartials: the block writes B4's (o, m, l) partials (ring attention's
+// per-chunk state) instead of O, into `PartialsOut`: o_unnorm [B, Hq, S, d]
+// fp32, O before its division by l; m [B, Hq, S] fp32, the row's running
+// max in base-2 units of the scaled (and capped) scores, started at 0, so
+// m = max(0, the row's max); l [B, Hq, S] fp32, the row's sum of
+// 2^(s - m). A row with no visible key is m = 0, l = 0, o_unnorm = 0, so
+// any two partials merge exactly.
+template <bool kSplit, bool kPartials = false>
 struct Extend {
   int sq;  // rows of a run of heads (heads x S): the stores' bound and a run's stride
   int s;   // S, the positions of a head
   int skv, offset, causal, window;
   static constexpr bool kKeyMeta = false;
 };
+// The partials' outputs, each from [B, Hq, ...]'s first row: kernel
+// parameters, so that the epilogue's addresses take no register before it.
+struct PartialsOut {
+  float *o, *m, *l;
+};
 template <typename Vis>
 struct SplitP {
   static constexpr bool value = false;
 };
-template <bool kSplit>
-struct SplitP<Extend<kSplit>> {
+template <bool kSplit, bool kPartials>
+struct SplitP<Extend<kSplit, kPartials>> {
   static constexpr bool value = kSplit;
+};
+template <typename Vis>
+struct Partials {
+  static constexpr bool value = false;
+};
+template <bool kSplit, bool kPartials>
+struct Partials<Extend<kSplit, kPartials>> {
+  static constexpr bool value = kPartials;
 };
 struct ExtendRows {
   int bound0, bound1;  // this thread's rows' causal bound: pos + offset
   int start, end;      // keys some row of the consumer sees
 };
-template <bool kSplit>
-__device__ __forceinline__ ExtendRows row_state(const Extend<kSplit>& v, int mw, int row0) {
+template <bool kSplit, bool kPartials>
+__device__ __forceinline__ ExtendRows row_state(const Extend<kSplit, kPartials>& v, int mw,
+                                                int row0) {
   ExtendRows r;
   r.bound0 = row0 % v.s + v.offset;
   r.bound1 = (row0 + 8) % v.s + v.offset;
@@ -379,9 +403,10 @@ __device__ __forceinline__ ExtendRows row_state(const Extend<kSplit>& v, int mw,
   r.end = mw < v.sq ? min(v.skv, v.causal ? hi + v.offset + 1 : v.skv) : 0;
   return r;
 }
-template <int kN, bool kSplit>
-__device__ __forceinline__ void mask_tile(const Extend<kSplit>& v, float (&s)[kN / 2],
-                                          const ExtendRows& r, int n0, uint32_t, int, int t) {
+template <int kN, bool kSplit, bool kPartials>
+__device__ __forceinline__ void mask_tile(const Extend<kSplit, kPartials>& v,
+                                          float (&s)[kN / 2], const ExtendRows& r, int n0,
+                                          uint32_t, int, int t) {
   // A tile whose every key both of this thread's rows see needs no mask.
   if (n0 + kN <= v.skv && (!v.causal || n0 + kN - 1 <= min(r.bound0, r.bound1)) &&
       (v.window <= 0 || n0 > max(r.bound0, r.bound1) - v.window))
@@ -497,11 +522,11 @@ template <typename T, int D, bool kCap, int kScaleOff, bool kI8 = false, int kKS
 __device__ __forceinline__ void consume(
     const Rings<D, kKStages, kVStages, kBars, kKSlot, kQBytes>& ring, const Vis& vis,
     const Scores& sco, int m0, int n_begin, int total, T* o, float* lse, int head,
-    int d = D) {
+    int d = D, PartialsOut part = {}) {
   constexpr int kN = Tiles<D>::kN;
   constexpr bool kScaled = kScaleOff > 0 && !kI8;
   constexpr bool kDense = std::is_same_v<Vis, Visible>, kKeyMeta = KeyMeta<Vis>::value;
-  constexpr bool kSplit = SplitP<Vis>::value;
+  constexpr bool kSplit = SplitP<Vis>::value, kPartials = Partials<Vis>::value;
   const int ct = threadIdx.x - 128, wg = ct >> 7, wi = (ct >> 5) & 3, lane = ct & 31;
   const int g = lane >> 2, t = lane & 3;
   const int mw = m0 + kTileM * wg;       // this warpgroup's first row
@@ -517,9 +542,11 @@ __device__ __forceinline__ void consume(
   for (int c = 0; c < kOBlocks; ++c)
 #pragma unroll
     for (int i = 0; i < kON / 2; ++i) acc[c][i] = 0.f;
-  // Each row's running max (base-2 units of the scaled score) and this
-  // thread's part of its running sum, reduced over the quad at the end.
-  float row_max[2] = {-INFINITY, -INFINITY}, row_sum[2] = {0.f, 0.f};
+  // Each row's running max (base-2 units of the scaled score; from 0 for
+  // B4's partials) and this thread's part of its running sum, reduced over
+  // the quad at the end.
+  const float kMax0 = kPartials ? 0.f : -INFINITY;
+  float row_max[2] = {kMax0, kMax0}, row_sum[2] = {0.f, 0.f};
   // Scores leave the product raw; the cap scales them inside the tanh, B9
   // with its keys' scales (the TPU kernel's s * (kscale * scale)), which
   // then also carry the cap's factor.
@@ -755,29 +782,54 @@ __device__ __forceinline__ void consume(
   }
   for (int it = it_hi; it < total; ++it) skip(it);
 
-  float inv[2];
+  if constexpr (kPartials) {  // B4's partials: O, m and l as they stand, in fp32
+    const int64_t first = static_cast<int64_t>(head) * vis.sq;  // the run's first row
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = row_sum[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    inv[r] = l > 0.f ? 1.f / l : 0.f;  // no visible key -> exact zero row
-    const int row = row0 + 8 * r;
-    if (lse != nullptr && t == 0 && row < vis.sq)  // the backward's residual
-      lse[static_cast<int64_t>(head) * vis.sq + row] = l > 0.f ? row_max[r] + log2f(l) : INFINITY;
+    for (int r = 0; r < 2; ++r) {
+      float l = row_sum[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int row = row0 + 8 * r;
+      if (t == 0 && row < vis.sq) part.m[first + row] = row_max[r], part.l[first + row] = l;
+    }
+    float* out = part.o + first * d;
+#pragma unroll
+    for (int c = 0; c < kOBlocks; ++c)
+#pragma unroll
+      for (int j = 0; j < kON / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = row0 + 8 * r, col = c * kON + 8 * j + 2 * t;
+          if (row < vis.sq && col < d)
+            *reinterpret_cast<float2*>(out + static_cast<int64_t>(row) * d + col) =
+                make_float2(acc[c][4 * j + 2 * r], acc[c][4 * j + 2 * r + 1]);
+        }
+  } else {
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = row_sum[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      inv[r] = l > 0.f ? 1.f / l : 0.f;  // no visible key -> exact zero row
+      const int row = row0 + 8 * r;
+      if (lse != nullptr && t == 0 && row < vis.sq)  // the backward's residual
+        lse[static_cast<int64_t>(head) * vis.sq + row] =
+            l > 0.f ? row_max[r] + log2f(l) : INFINITY;
+    }
+    T* out = o + static_cast<int64_t>(head) * vis.sq * d;
+#pragma unroll
+    for (int c = 0; c < kOBlocks; ++c)
+#pragma unroll
+      for (int j = 0; j < kON / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = row0 + 8 * r, col = c * kON + 8 * j + 2 * t;
+          if (row < vis.sq && col < d)
+            *reinterpret_cast<uint32_t*>(out + static_cast<int64_t>(row) * d + col) =
+                Elem<T>::pack(acc[c][4 * j + 2 * r] * inv[r], acc[c][4 * j + 2 * r + 1] * inv[r]);
+        }
   }
-  T* out = o + static_cast<int64_t>(head) * vis.sq * d;
-#pragma unroll
-  for (int c = 0; c < kOBlocks; ++c)
-#pragma unroll
-    for (int j = 0; j < kON / 8; ++j)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = row0 + 8 * r, col = c * kON + 8 * j + 2 * t;
-        if (row < vis.sq && col < d)
-          *reinterpret_cast<uint32_t*>(out + static_cast<int64_t>(row) * d + col) =
-              Elem<T>::pack(acc[c][4 * j + 2 * r] * inv[r], acc[c][4 * j + 2 * r + 1] * inv[r]);
-      }
 }
 
 }  // namespace fact

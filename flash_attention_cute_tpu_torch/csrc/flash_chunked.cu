@@ -59,8 +59,18 @@
 //     P's rings (K slots 4 / 4 / 3, V slots 4 / 2 / 2 at D 64 / 128 / 256),
 //     one block an SM.
 //
-// The (o, m, l) partials are not in this kernel: the wrapper
-// (ops/flash_chunked.py) raises on them.
+//   * The (o, m, l) partials (the TPU kernel's `return_partials`, :58,
+//     :198-206; ring attention's per-chunk state, parallel/sequence.py):
+//     instantiations of their own (kPartials) whose consumers start the
+//     running max at 0 and store O unnormalised, m and l in fp32
+//     (attention_wgmma.cuh `Extend<kSplit, true>`, `PartialsOut`, the
+//     addresses read from the kernel's parameters), so m = max(0, the row's
+//     max) as the plain version's. The walk is the same: a q_offset of -S
+//     (a chunk wholly in the future) gives an empty walk and rows of m = 0,
+//     l = 0, o = 0 with no tile read; a q_offset at or past the capacity
+//     makes every key below kv_length visible. Their bytes: 4 D + 8 a row
+//     written, against 2 D for O, which matters only where S is long and
+//     the walk short.
 #include "attention_wgmma.cuh"
 
 namespace fact {
@@ -78,6 +88,7 @@ struct ChunkedParams {
   int causal;
   int window;  // W > 0, or 0 for none
   int d;       // the true head dim, D or below it in D's layout
+  float *m, *l;  // the partials' m and l [B, Hq, S] (kPartials; `o` then fp32)
 };
 
 template <int D>
@@ -97,8 +108,9 @@ struct ChunkedBlock {
 };
 
 // kCap: the soft cap is compiled in (a launch with softcap_log2 > 0);
-// kSplit: P enters P V in two parts (a chunk of at most kSplitRows rows).
-template <typename T, int D, bool kCap, bool kSplit>
+// kSplit: P enters P V in two parts (a chunk of at most kSplitRows rows);
+// kPartials: the block stores the (o, m, l) partials instead of O.
+template <typename T, int D, bool kCap, bool kSplit, bool kPartials>
 __global__ void __launch_bounds__(kThreads, 1)
     chunked_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
@@ -114,7 +126,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // prologue lives in a register across it (the producer keeps 24), and
   // the consumers read the mask's scalars there.
   __shared__ ChunkedBlock blk;
-  __shared__ Extend<kSplit> vis;
+  __shared__ Extend<kSplit, kPartials> vis;
   __shared__ Scores sco;
 
   if (threadIdx.x == 0) {
@@ -131,7 +143,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int n_begin = (p.window > 0 ? max(0, lo + offset - p.window + 1) : 0) / kN * kN;
     const int total = n_end > n_begin ? (n_end - n_begin + kN - 1) / kN : 0;
     blk = ChunkedBlock{m0, h0, h0 / p.group, b, head, n_begin, total, skv};
-    vis = Extend<kSplit>{p.rows, p.sq, skv, offset, p.causal, p.window};
+    vis = Extend<kSplit, kPartials>{p.rows, p.sq, skv, offset, p.causal, p.window};
     sco = p.sc;
     r.init(1);
     mbar_init(r.extra(0), 1);
@@ -181,7 +193,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   setmaxnreg_inc<240>();
   asm volatile("" ::: "memory");
   consume<T, D, kCap, 0>(r, vis, sco, blk.m0, blk.n_begin, blk.total, static_cast<T*>(p.o),
-                         nullptr, blk.head, p.d);
+                         nullptr, blk.head, p.d,
+                         PartialsOut{static_cast<float*>(p.o), p.m, p.l});
 }
 
 // ---------------------------------------------------------------------------
@@ -211,10 +224,10 @@ inline int packed_heads(int group, int sq) {
   return 1;
 }
 
-template <typename T, int D, bool kCap, bool kSplit>
+template <typename T, int D, bool kCap, bool kSplit, bool kPartials>
 int launch_chunked(const ChunkedParams& p, const ChunkedViews& w, cudaStream_t stream) {
   using S = ChunkedSmem<D>;
-  auto kernel = chunked_kernel<T, D, kCap, kSplit>;
+  auto kernel = chunked_kernel<T, D, kCap, kSplit, kPartials>;
   static const int configured = allow_smem(kernel, S::kBytes);  // above 48 KB needs an opt-in
   if (configured != cudaSuccess) return configured;
   const long long rows = static_cast<long long>(p.heads) * p.sq;
@@ -245,46 +258,51 @@ int launch_chunked(const ChunkedParams& p, const ChunkedViews& w, cudaStream_t s
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool kCap>
+template <typename T, int D, bool kCap, bool kPartials>
 int launch_chunked_split(const ChunkedParams& p, const ChunkedViews& w, cudaStream_t s) {
   if constexpr (splits_p(D))
-    if (p.sq <= kSplitRows) return launch_chunked<T, D, kCap, true>(p, w, s);
-  return launch_chunked<T, D, kCap, false>(p, w, s);
+    if (p.sq <= kSplitRows) return launch_chunked<T, D, kCap, true, kPartials>(p, w, s);
+  return launch_chunked<T, D, kCap, false, kPartials>(p, w, s);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kPartials>
 int launch_chunked_cap(const ChunkedParams& p, const ChunkedViews& w, cudaStream_t s) {
-  return p.sc.softcap_log2 > 0.f ? launch_chunked_split<T, D, true>(p, w, s)
-                                 : launch_chunked_split<T, D, false>(p, w, s);
+  return p.sc.softcap_log2 > 0.f ? launch_chunked_split<T, D, true, kPartials>(p, w, s)
+                                 : launch_chunked_split<T, D, false, kPartials>(p, w, s);
 }
 
 // d runs in the layout of padded_head_dim(d); splits_p is decided on that
 // layout, so D 96 keeps P in two parts at verify rounds as D 128 does.
-template <typename T>
+template <typename T, bool kPartials>
 int dispatch_chunked(const ChunkedParams& p, const ChunkedViews& w, int d, cudaStream_t s) {
   const int layout = padded_head_dim(d);
-  if (layout == 64) return launch_chunked_cap<T, 64>(p, w, s);
-  if (layout == 128) return launch_chunked_cap<T, 128>(p, w, s);
-  if (layout == 256) return launch_chunked_cap<T, 256>(p, w, s);
+  if (layout == 64) return launch_chunked_cap<T, 64, kPartials>(p, w, s);
+  if (layout == 128) return launch_chunked_cap<T, 128, kPartials>(p, w, s);
+  if (layout == 256) return launch_chunked_cap<T, 256, kPartials>(p, w, s);
   return cudaErrorInvalidValue;
 }
 
 template <typename T>
 static void report_type(char* out, int cap, int& used, const char* t) {
   char name[96];
-#define CHUNKED_REPORT(d, c, sp)                                                           \
-  snprintf(name, sizeof(name), "B4 D%d %s%s%s", d, t, c ? " cap" : "", sp ? " split-P" : ""); \
-  report_one(out, cap, used, name, (chunked_kernel<T, d, c, sp>), ChunkedSmem<d>::kBytes)
-  CHUNKED_REPORT(64, false, false);
-  CHUNKED_REPORT(64, true, false);
-  CHUNKED_REPORT(128, false, false);
-  CHUNKED_REPORT(128, true, false);
-  CHUNKED_REPORT(256, false, false);
-  CHUNKED_REPORT(256, true, false);
-  CHUNKED_REPORT(64, false, true);
-  CHUNKED_REPORT(64, true, true);
-  CHUNKED_REPORT(128, false, true);
-  CHUNKED_REPORT(128, true, true);
+#define CHUNKED_REPORT(d, c, sp, pa)                                                        \
+  snprintf(name, sizeof(name), "B4 D%d %s%s%s%s", d, t, c ? " cap" : "", sp ? " split-P" : "", \
+           pa ? " partials" : "");                                                          \
+  report_one(out, cap, used, name, (chunked_kernel<T, d, c, sp, pa>), ChunkedSmem<d>::kBytes)
+#define CHUNKED_REPORTS(pa)            \
+  CHUNKED_REPORT(64, false, false, pa);  \
+  CHUNKED_REPORT(64, true, false, pa);   \
+  CHUNKED_REPORT(128, false, false, pa); \
+  CHUNKED_REPORT(128, true, false, pa);  \
+  CHUNKED_REPORT(256, false, false, pa); \
+  CHUNKED_REPORT(256, true, false, pa);  \
+  CHUNKED_REPORT(64, false, true, pa);   \
+  CHUNKED_REPORT(64, true, true, pa);    \
+  CHUNKED_REPORT(128, false, true, pa);  \
+  CHUNKED_REPORT(128, true, true, pa)
+  CHUNKED_REPORTS(false);
+  CHUNKED_REPORTS(true);
+#undef CHUNKED_REPORTS
 #undef CHUNKED_REPORT
 }
 
@@ -303,17 +321,15 @@ extern "C" int fact_chunked_report(char* out, int cap) {
   return 0;
 }
 
-// Returns a cudaError_t code (0 on success). Shapes, strides and dtypes are
-// checked by the Python wrapper (ops/flash_chunked.py).
-extern "C" int fact_flash_chunked(const void* q, const void* k, const void* v, void* o,
-                                  const void* q_offset, const void* kv_length,
-                                  int batch, int hq, int hkv, int sq, int capacity, int d,
-                                  long long q_sb, long long q_sh, long long q_ss,
-                                  long long k_sb, long long k_sh, long long k_ss,
-                                  long long v_sb, long long v_sh, long long v_ss,
-                                  float scale_log2, float softcap_log2, int causal, int window,
-                                  int dtype, void* stream) {
-  using namespace fact;
+namespace fact {
+
+// The launch of both entry points: O (normalised, q's type) or, with
+// partials, O unnormalised in fp32 at `o` and m, l at `m`, `l`.
+static int chunked_entry(const void* q, const void* k, const void* v, void* o, void* m, void* l,
+                         bool partials, const void* q_offset, const void* kv_length, int batch,
+                         int hq, int hkv, int sq, int capacity, int d, const long long (&st)[9],
+                         float scale_log2, float softcap_log2, int causal, int window, int dtype,
+                         void* stream) {
   if (hkv <= 0 || hq % hkv) return cudaErrorInvalidValue;
   ChunkedParams p{};
   p.o = o;
@@ -328,9 +344,47 @@ extern "C" int fact_flash_chunked(const void* q, const void* k, const void* v, v
   p.causal = causal;
   p.window = window;
   p.d = d;
-  const ChunkedViews w{q, k, v, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, hkv, dtype};
+  p.m = static_cast<float*>(m), p.l = static_cast<float*>(l);
+  const ChunkedViews w{q, k, v, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+                       hkv, dtype};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16) return dispatch_chunked<__nv_bfloat16>(p, w, d, s);
-  if (dtype == kF16) return dispatch_chunked<__half>(p, w, d, s);
+  if (dtype == kBF16)
+    return partials ? dispatch_chunked<__nv_bfloat16, true>(p, w, d, s)
+                    : dispatch_chunked<__nv_bfloat16, false>(p, w, d, s);
+  if (dtype == kF16)
+    return partials ? dispatch_chunked<__half, true>(p, w, d, s)
+                    : dispatch_chunked<__half, false>(p, w, d, s);
   return cudaErrorInvalidValue;
+}
+
+}  // namespace fact
+
+// Returns a cudaError_t code (0 on success). Shapes, strides and dtypes are
+// checked by the Python wrapper (ops/flash_chunked.py).
+extern "C" int fact_flash_chunked(const void* q, const void* k, const void* v, void* o,
+                                  const void* q_offset, const void* kv_length,
+                                  int batch, int hq, int hkv, int sq, int capacity, int d,
+                                  long long q_sb, long long q_sh, long long q_ss,
+                                  long long k_sb, long long k_sh, long long k_ss,
+                                  long long v_sb, long long v_sh, long long v_ss,
+                                  float scale_log2, float softcap_log2, int causal, int window,
+                                  int dtype, void* stream) {
+  const long long st[9] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss};
+  return fact::chunked_entry(q, k, v, o, nullptr, nullptr, false, q_offset, kv_length, batch, hq,
+                             hkv, sq, capacity, d, st, scale_log2, softcap_log2, causal, window,
+                             dtype, stream);
+}
+
+// The (o, m, l) partials: `o` [B, Hq, S, d] fp32 (not divided by l), `m`
+// and `l` [B, Hq, S] fp32, all contiguous; the other arguments as above.
+extern "C" int fact_flash_chunked_partials(
+    const void* q, const void* k, const void* v, void* o, void* m, void* l,
+    const void* q_offset, const void* kv_length, int batch, int hq, int hkv, int sq,
+    int capacity, int d, long long q_sb, long long q_sh, long long q_ss, long long k_sb,
+    long long k_sh, long long k_ss, long long v_sb, long long v_sh, long long v_ss,
+    float scale_log2, float softcap_log2, int causal, int window, int dtype, void* stream) {
+  const long long st[9] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss};
+  return fact::chunked_entry(q, k, v, o, m, l, true, q_offset, kv_length, batch, hq, hkv, sq,
+                             capacity, d, st, scale_log2, softcap_log2, causal, window, dtype,
+                             stream);
 }

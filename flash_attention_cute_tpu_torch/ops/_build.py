@@ -110,7 +110,7 @@ def runtime_report(source: str, symbol: str) -> str:
     card)."""
     fn = getattr(load(source), symbol)
     fn.argtypes, fn.restype = [ctypes.c_char_p, ctypes.c_int], ctypes.c_int
-    buf = ctypes.create_string_buffer(4096)
+    buf = ctypes.create_string_buffer(16384)
     fn(buf, len(buf))
     return buf.value.decode()
 

@@ -25,8 +25,10 @@ past 96 zeros, as the TPU wrapper pads D to its 128 lanes). What the kernel
 does not take raises; nothing falls back. Cache positions at or past a row's
 length may hold uninitialised memory, even NaN: the kernel masks their
 scores and zeroes their V rows before P V, and the plain version zeroes
-them out of its products. The TPU-only arguments `block_q`, `block_kv`,
-`interpret` and `debug` are gone.
+them out of its products. With `return_partials` a CUDA tensor launches
+B4's partials instantiations (counted apart, as `PARTIALS`): the (o, m, l)
+state that ring attention folds (parallel/sequence.py). The TPU-only
+arguments `block_q`, `block_kv`, `interpret` and `debug` are gone.
 """
 
 from __future__ import annotations
@@ -47,6 +49,10 @@ P, I, L, F = _build.P, _build.I, _build.L, _build.F
 CHUNKED = _build.Kernel(
     "flash_chunked", "flash_chunked.cu", "fact_flash_chunked",
     [P] * 6 + [I] * 6 + [L] * 9 + [F, F, I, I, I, P],
+)
+PARTIALS = _build.Kernel(
+    "B4-partials", "flash_chunked.cu", "fact_flash_chunked_partials",
+    [P] * 8 + [I] * 6 + [L] * 9 + [F, F, I, I, I, P],
 )
 
 
@@ -96,9 +102,11 @@ def flash_attention_chunked(
       window: sliding window W: row r also masks keys n <= q_offset + r - W.
       logit_softcap: tanh soft cap c (Gemma2's 50): scores become
         c * tanh(s / c) before the mask.
-      return_partials: plain version only (ring attention, ROADMAP.md A12):
-        (o_unnorm [B, Hq, S, D] f32, m [B, Hq, S] f32 in log2 units,
-        l [B, Hq, S] f32).
+      return_partials: return the unnormalised online-softmax state that
+        ring attention folds: (o_unnorm [B, Hq, S, D] f32, m [B, Hq, S] f32
+        in log2 units of the scaled (and capped) scores, l [B, Hq, S] f32),
+        m = max(0, the row's largest visible score), so a row with no
+        visible key is m = 0, l = 0, o_unnorm = 0.
 
     Returns [B, Hq, S, D] in q's dtype, contiguous (or the partials).
     """
@@ -111,11 +119,6 @@ def flash_attention_chunked(
                                              window, logit_softcap, return_partials)
     softcap = _build.softcap_arg(logit_softcap)
     window = _build.window_arg(window)
-    if return_partials:
-        raise NotImplementedError(
-            "return_partials on CUDA is not in kernel B4 yet (plain version only; needed "
-            "by ring attention, ROADMAP.md A12)"
-        )
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"extend kernel takes bf16/f16, got {q.dtype}")
     _build.padded_head_dim(d, "extend")
@@ -131,14 +134,20 @@ def flash_attention_chunked(
             raise ValueError(f"{name} must be a [{b}] integer tensor on q's device")
         rows.append(t.to(torch.int32).contiguous())
 
+    args = (rows[0].data_ptr(), rows[1].data_ptr(), b, hq, hkv, sq, cap, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            float(sm_scale) * LOG2E, softcap, int(causal), window, _build.DTYPE_CODES[q.dtype])
+    if return_partials:
+        o = torch.empty((b, hq, sq, d), dtype=torch.float32, device=q.device)
+        m, l = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) for _ in "ml")
+        if o.numel():
+            with torch.cuda.device(q.device):
+                PARTIALS(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), m.data_ptr(),
+                         l.data_ptr(), *args)
+        return o, m, l
     out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     with torch.cuda.device(q.device):
-        CHUNKED(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            rows[0].data_ptr(), rows[1].data_ptr(), b, hq, hkv, sq, cap, d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            float(sm_scale) * LOG2E, softcap, int(causal), window, _build.DTYPE_CODES[q.dtype],
-        )
+        CHUNKED(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *args)
     return out

@@ -2,7 +2,8 @@
 """Compare the SASS of kernel libraries built from two trees of the
 repository, function by function:
 
-    python3 scripts/compare_sass_torch.py [--drop-in-b TEXT] <tree A> <tree B> flash_decode.cu \
+    python3 scripts/compare_sass_torch.py [--sub-in-b PATTERN REPLACEMENT] \
+        <tree A> <tree B> flash_decode.cu \
         quantized.cu flash_fwd.cu flash_chunked.cu paged_attention.cu quant_paged_extend.cu
 
 Each source is built in each tree by that tree's own build code
@@ -13,10 +14,12 @@ and for each one that differs, whether it is identical once the offsets
 into the kernel's parameter bank (`c[0x0][...]`) are masked, i.e. whether
 only the layout of its argument struct moved, and otherwise its first
 differing instruction (jump targets masked too) beside the index of its
-last tensor-core product. `--drop-in-b TEXT` removes TEXT from tree B's
-mangled kernel names before they are matched with tree A's: a kernel that
-gained a template argument in B (`Lb0E`, a `false`) is then compared with
-its old self. Needs the CUDA toolkit (nvcc, cuobjdump); no card.
+last tensor-core product. `--sub-in-b PATTERN REPLACEMENT` rewrites tree
+B's mangled kernel names by a regular expression (`re.sub`) before they are
+matched with tree A's: a kernel that gained a template argument in B is
+then compared with its old self (a `false`, `Lb0E`, anywhere: `--sub-in-b
+Lb0E ''`; B4's kPartials, its last argument: `--sub-in-b 'Lb0E(EEv)'
+'\\1'`). Needs the CUDA toolkit (nvcc, cuobjdump); no card.
 """
 
 import json
@@ -103,16 +106,16 @@ def where(sass_a: str, sass_b: str) -> str:
 
 
 def main() -> None:
-    args, drop = sys.argv[1:], None
-    if args[0] == "--drop-in-b":
-        drop, args = args[1], args[2:]
+    args, sub = sys.argv[1:], None
+    if args[0] == "--sub-in-b":
+        sub, args = (args[1], args[2]), args[3:]
     tree_a, tree_b, sources = args[0], args[1], args[2:]
     libs_a, libs_b = build(tree_a, sources), build(tree_b, sources)
     report = {}
     for src, la, lb in zip(sources, libs_a, libs_b):
         fa, fb = functions(la), functions(lb)
-        if drop:
-            fb = {name.replace(drop, ""): sass for name, sass in fb.items()}
+        if sub:
+            fb = {re.sub(*sub, name): sass for name, sass in fb.items()}
         same, differ = [], {}
         for name in sorted(set(fa) | set(fb)):
             if fa.get(name) == fb.get(name):

@@ -3,7 +3,7 @@
 comparing two trees of the repository in one call:
 
     cd <tree> && python3 <this script> [prefill] [decode] [paged] [extends] [backward] [int8] \
-        [layouts] [groups]
+        [layouts] [groups] [partials]
 
 The package is imported from the current directory; the arguments pick
 groups of kernels to time (all without any). Llama / Mistral shapes
@@ -82,8 +82,16 @@ smoke's last verify round, and a chunk of 256) and B12 (the 32 sequences,
 causal) at D 64 (32 / 8 heads), the head dim of the layout the other groups
 do not time them at. "groups": D1, B7, B5 and B8 (+ D2; int8 values) over
 8 rows of 2048 keys at GQA groups 16 (128 / 8 heads), 32 (32 / 1), 48 (48
-/ 1) and 71 (71 / 1, D 64), null where a tree refuses the group. Prints one
-JSON line with the card's name and power limit.
+/ 1) and 71 (71 / 1, D 64), null where a tree refuses the group.
+"partials": B4 at ring attention's steps (Llama-3.1-8B's 32 / 8 heads, D
+128, B 1, a rank's 4096 rows of a 32768-token sequence over 8 ranks): a
+non-causal step (4096 keys, q_offset 4096), a zig-zag step (the low stripe
+of 2048 keys) and the own pair's two calls (2048 rows against 2048 keys at
+q_offset 0, and against 4096 at 2048), each with its (o, m, l) partials
+("partials ...", null in a tree that refuses them) and normalised ("B4
+..."), with its "bound" (4 D operations a visible (row, key) pair and q
+head at the bf16 peak, or q, k, v read and the partials written once at
+3.35 TB/s). Prints one JSON line with the card's name and power limit.
 """
 
 import json
@@ -353,6 +361,27 @@ def large_groups(randn, pool, timed, out):
         del kp, vp, quant
 
 
+def ring_partials(randn, timed, out):
+    """B4 with and without its partials at ring attention's steps (module
+    docstring, "partials")."""
+    hq, hkv, d = 32, 8, 128
+    for name, rows, keys, offset in (("step non-causal 4096x4096", 4096, 4096, 4096),
+                                     ("step zig-zag 4096x2048", 4096, 2048, 4096),
+                                     ("own pair diagonal 2048x2048", 2048, 2048, 0),
+                                     ("own pair high 2048x4096", 2048, 4096, 2048)):
+        q, k, v = randn(1, hq, rows, d), randn(1, hkv, keys, d), randn(1, hkv, keys, d)
+        off = torch.full((1,), offset, dtype=torch.int32, device="cuda")
+        kvl = torch.full((1,), keys, dtype=torch.int32, device="cuda")
+        out[f"partials {name}"] = timed(lambda: flash_chunked.flash_attention_chunked(
+            q, k, v, off, kvl, return_partials=True), 20)
+        out[f"B4 {name}"] = timed(lambda: flash_chunked.flash_attention_chunked(
+            q, k, v, off, kvl), 20)
+        pairs = sum(min(keys, r + offset + 1) for r in range(rows))
+        nbytes = 2 * (q.numel() + k.numel() + v.numel()) + 4 * q.numel() + 8 * hq * rows
+        out[f"bound {name}"] = 1e3 * max(4 * d * hq * pairs / PEAK_BF16, nbytes / PEAK_BYTES)
+        del q, k, v
+
+
 def capped(cap):  # no keyword at all without a cap: older trees lack it
     return {} if cap is None else {"logit_softcap": cap}
 
@@ -437,9 +466,9 @@ def main() -> None:
             return None
 
     # Groups to time (all by default): prefill, decode, paged, extends,
-    # backward, int8, layouts, groups.
+    # backward, int8, layouts, groups, partials.
     groups = set(sys.argv[1:]) or {"prefill", "decode", "paged", "extends", "backward", "int8",
-                                   "layouts", "groups"}
+                                   "layouts", "groups", "partials"}
     out = {"card": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(), "tree": os.getcwd()}
@@ -483,6 +512,8 @@ def main() -> None:
         layouts(randn, pool, timed, out)
     if "groups" in groups:
         large_groups(randn, pool, timed, out)
+    if "partials" in groups:
+        ring_partials(randn, timed, out)
     print(json.dumps(out))
 
 

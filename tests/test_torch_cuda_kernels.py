@@ -909,13 +909,27 @@ def test_chunked_extend_kernel_matches_plain(device, case):
             assert (out[i] == 0).all()
 
 
+def partials_err(got, want) -> float:
+    """B4's (o, m, l) partials against the plain ones: the largest of
+    |o - o'| and |l - l'| over max(l', 1) (o and l grow with the visible
+    keys; over l they are errors of the normalised output) and |m - m'|."""
+    (o, m, l), (o_p, m_p, l_p) = got, want
+    scale = l_p.clamp(min=1.0)
+    return max(((o - o_p).abs() / scale[..., None]).max().item(),
+               ((l - l_p).abs() / scale).max().item(), (m - m_p).abs().max().item())
+
+
 def test_chunked_extend_refuses_what_it_does_not_take(device):
-    """The (o, m, l) partials raise (A12); the soft cap, which the kernel
-    takes since its Hopper redesign, launches it."""
+    """The (o, m, l) partials, refused before ring attention came (A12),
+    launch B4's partials mode: held to the plain partials. The soft cap,
+    which the kernel takes since its Hopper redesign, launches it."""
     gen = torch.Generator(device="cuda").manual_seed(17)
     q, k, v, off, lens = chunked_inputs(gen, 32, 8, 5, 64, [0, 3], None, 128, torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A12"):
-        flash_chunked.flash_attention_chunked(q, k, v, off, lens, return_partials=True)
+    before = flash_chunked.PARTIALS.launches
+    parts = flash_chunked.flash_attention_chunked(q, k, v, off, lens, return_partials=True)
+    assert flash_chunked.PARTIALS.launches == before + 1
+    plain = flash_chunked.flash_attention_chunked_plain(q, k, v, off, lens, return_partials=True)
+    assert partials_err(parts, plain) <= BF16_TOL
     before = flash_chunked.CHUNKED.launches
     out = flash_chunked.flash_attention_chunked(q, k, v, off, lens, logit_softcap=30.0)
     assert flash_chunked.CHUNKED.launches == before + 1
@@ -1693,6 +1707,92 @@ def test_chunked_extend_kernel_geometry(device, case):
     assert out.dtype == dtype and torch.isfinite(out).all()
     assert (out[1] == 0).all()
     assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+
+
+# B4's (o, m, l) partials at ring attention's step geometries
+# (parallel/sequence.py): (hq, hkv, s, capacity, q_offset, kv_length, d,
+# causal, window, cap, dtype), kv_length None = the capacity. A chunk of
+# 256 rows against one of 256 keys at the offsets S_local (every key seen),
+# 0 (its own chunk) and -S_local (a later chunk: an empty walk) in one
+# call; the zig-zag's half shapes (the diagonal stripe, the high stripe
+# against the pair at S_local / 2 and at S_local, both stripes against the
+# low one); D 96 and 256; a group of 16 (S 5: sixteen heads a block, S 100:
+# one); the window and the cap; a row of kv_length 0; the two-part P of a
+# chunk of at most 16 rows; f16; caches NaN at and past every kv_length.
+PARTIALS = {
+    "offsets_s_0_minus_s": (32, 8, 256, 256, [256, 0, -256], None, 128, True, None, None,
+                            torch.bfloat16),
+    "zigzag_diagonal": (32, 8, 128, 128, [0, 0], None, 128, True, None, None, torch.bfloat16),
+    "zigzag_own_high": (32, 8, 128, 256, [128, 128], None, 128, True, None, None,
+                        torch.bfloat16),
+    "zigzag_later_high": (32, 8, 128, 256, [256, 256], None, 128, True, None, None,
+                          torch.bfloat16),
+    "zigzag_earlier": (32, 8, 256, 128, [256, 256], None, 128, True, None, None,
+                       torch.bfloat16),
+    "d96_offsets": (32, 32, 200, 200, [200, 0, -200], None, 96, True, None, None,
+                    torch.bfloat16),
+    "d256_cap50": (16, 8, 192, 192, [192, 0, -192], None, 256, True, None, 50.0, torch.bfloat16),
+    "group16_s5": (32, 2, 5, 300, [300, 2, -5], None, 128, True, None, None, torch.bfloat16),
+    "group16_s100": (32, 2, 100, 300, [300, 40, -100], None, 128, True, None, None,
+                     torch.bfloat16),
+    "window45_cap30": (32, 8, 150, 400, [400, 90, 0], None, 128, True, 45, 30.0, torch.bfloat16),
+    "kv_length_0": (32, 8, 64, 256, [256, 10, 0], [256, 74, 0], 128, True, None, None,
+                    torch.bfloat16),
+    "split_p_s12_f16": (32, 8, 12, 640, [640, 300, -12], None, 128, True, None, None,
+                        torch.float16),
+    "noncausal_d64": (8, 2, 70, 333, [0, 33, 263], [333, 100, 0], 64, False, None, None,
+                      torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("case", list(PARTIALS), ids=list(PARTIALS))
+def test_chunked_partials_kernel_matches_plain(device, case):
+    """B4's partials against the plain partials on the same inputs
+    (`partials_err` <= 3e-2), rows with no visible key exact (m = l = o =
+    0), every value finite over NaN tails, a second call bit for bit."""
+    hq, hkv, s, cap_len, offs, kvl, d, causal, window, cap, dtype = PARTIALS[case]
+    kvl = kvl or [cap_len] * len(offs)
+    gen = torch.Generator(device="cuda").manual_seed(39)
+    q, k, v, off, lens = chunked_inputs(gen, hq, hkv, s, cap_len, offs, kvl, d, dtype)
+    kw = dict(causal=causal, window=window, logit_softcap=cap, return_partials=True)
+    before = flash_chunked.PARTIALS.launches, flash_chunked.CHUNKED.launches
+    got = flash_chunked.flash_attention_chunked(q, k, v, off, lens, **kw)
+    again = flash_chunked.flash_attention_chunked(q, k, v, off, lens, **kw)
+    torch.cuda.synchronize()
+    assert (flash_chunked.PARTIALS.launches, flash_chunked.CHUNKED.launches) == (
+        before[0] + 2, before[1])
+    want = flash_chunked.flash_attention_chunked_plain(q, k, v, off, lens, **kw)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert torch.equal(g, a) and torch.isfinite(g).all()
+    assert partials_err(got, want) <= BF16_TOL
+    dead = want[2] == 0
+    assert (got[1][dead] == 0).all() and (got[2][dead] == 0).all()
+    assert (got[0][dead] == 0).all()
+
+
+@pytest.mark.parametrize("s,causal,launches", [(2048, True, 4 * 5), (2048, False, 4 * 4),
+                                               (2044, True, 4 * 4)],
+                         ids=["zigzag", "noncausal", "odd_s_local"])
+def test_ring_attention_unrolled_launches_b4_partials(device, s, causal, launches):
+    """The ring over 4 ranks, unrolled in one process (parallel/sequence.py),
+    at Llama widths against P over the whole sequence: B4's partials n (n
+    + 1) times on the zig-zag (two calls at each rank's own pair), n^2
+    otherwise; the all-gather route launches B4 once a rank."""
+    from flash_attention_cute_tpu_torch.parallel import sequence as seq
+
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    q, k, v = randn(gen, 1, 32, s, 128), randn(gen, 1, 8, s, 128), randn(gen, 1, 8, s, 128)
+    want = flash_fwd.flash_attention_fwd(q, k, v, causal=causal).float()
+    before = flash_chunked.PARTIALS.launches, flash_chunked.CHUNKED.launches
+    ring = seq.ring_attention_unrolled(q, k, v, 4, causal=causal)
+    gathered = seq.allgather_attention_unrolled(q, k, v, 4, causal=causal)
+    torch.cuda.synchronize()
+    assert (flash_chunked.PARTIALS.launches, flash_chunked.CHUNKED.launches) == (
+        before[0] + launches, before[1] + 4)
+    assert ring.dtype == q.dtype and torch.isfinite(ring).all()
+    assert (ring.float() - want).abs().max().item() <= BF16_TOL
+    assert (gathered.float() - want).abs().max().item() <= BF16_TOL
 
 
 @pytest.mark.parametrize("d,cap,window", [(64, None, None), (64, 50.0, 64), (128, 30.0, None),
