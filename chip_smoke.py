@@ -113,7 +113,8 @@ Phases, in order; any failure exits non-zero:
      row, a chunk of 256; bf16 / f16), D 96 also windowed and capped, each
      against its fp32 plain version over NaN tails, repeated bit for bit,
      QA's whole pools bit-identical to the plain version's; D 40 over
-     one-byte rows (d % 16 == 8) in B7, B8, B9 and QA and D 100 in B4
+     one-byte rows (d % 16 == 8) in B7, B8, B9 and QA and D 100 in B4,
+     refused before the pitched rows, launch once each; D 264 and D 0
      refused before any launch; (3l) the same rule in training and packed
      batches (ODD_TRAINING_DIMS: D 8, 24, 40, 96, 136, 200 and 248, GQA
      groups 1 and 4, bf16 and f16): B13a / B13b causal, windowed with Sq <
@@ -121,8 +122,9 @@ Phases, in order; any failure exits non-zero:
      plain backward within 2e-2 of the gradient's max, B13a also forced
      into 3 parts (within 2^-7 of one pass) and one pass, and B12 causal,
      with kv longer and a window, and full, within 3e-2, every call
-     repeated bit for bit; D 100 and D 264 refused by the backward, the
-     autograd op (before P) and B12 with no launch; (3m) GQA groups above
+     repeated bit for bit; D 100 (refused before the pitched rows) run by
+     the backward, the autograd op and B12 with their launch counts, D 264
+     and D 0 refused by all three with no launch; (3m) GQA groups above
      32 in the decodes, which cut a group into chunks of at most 32 q rows,
      a block each, and above 8 in the paged extends (LARGE_GROUP_DECODES:
      groups 33, 48 at StarCoder's 48 / 1 heads, 64, 71 at Falcon-7B's 71 /
@@ -144,7 +146,22 @@ Phases, in order; any failure exits non-zero:
      kv_length 0, f16 S 12 (two-part P), non-causal D 64; NaN tails)
      against the plain partials: o and l within 3e-2 of l, m within 3e-2
      (`partials_err`), rows with no key m = l = o = 0, repeated bit for
-     bit.
+     bit; also at D 100, 36 and 4 (rows at the pitch); (3o) every head dim
+     from 1 to 256: a d whose rows are no whole 16 bytes runs over rows at
+     the port's pitch (`_build.row_pitch`; caches, pools and outputs
+     allocated so, a caller's tensor at another stride copied once by
+     `_build.rows`, counted in `_build.copies`): K8 (bit-identical) and
+     P-i8 / B2-i8 at D 4, 40, 96 and 100 (PITCHED_INT8_CASES) as in 3i;
+     P / B2, D1 + D2, B5, B6, the append and B4 at D 4, 36 and 100
+     (PITCHED_HEAD_DIMS, 32 / 8 heads; D 100 also windowed and capped) as
+     in 3j / 3k; B7 + D2, B8 + D2, B9, QA and B4 at D 24, 40 and 72 over
+     int8 / e4m3 (PITCHED_ONE_BYTE_DIMS; D 40 also windowed and capped) as
+     in 3k; B13a / B13b and B12 at D 36 and 100 as in 3l; D 264 and D 0
+     refused before any launch; then the API's int8 scores at Phi-3-mini's
+     widths (32 / 32 heads, D 96, path "phi3-widths int8 scores"): causal
+     at B 4 x 512 and Phi-3-mini-4k's window of 2047 at B 1 x 4096,
+     counted (K8 2, P-i8 1, B2-i8 1, nothing else), each output within
+     3e-2 of the plain int8 version and 5e-2 of the fp32 oracle.
   4. main paths: greedy generation of Llama-3-8B (random weights from a
      seeded CUDA generator) at B 4, prompt 512, 64 new tokens; launch
      counters show the kernels carried it; teacher-forced logits of the
@@ -288,7 +305,17 @@ Phases, in order; any failure exits non-zero:
      with a window of 1000 within 3e-2 of the fp32 plain dense reference;
      the public `ring_attention` (causal, non-causal) and
      `allgather_attention` over a one-rank NCCL `DeviceMesh` on cuda:0
-     (path "sp nccl": B4-partials 3, B4 1) within 3e-2 of P.
+     (path "sp nccl": B4-partials 3, B4 1) within 3e-2 of P. (4r, after
+     4q) Shallow models at head dims outside TMA's stride rule
+     (`pitched_model_config`: Llama-3-8B's widths at head dim D, 2 layers
+     or --layers): D 100 over bf16 caches and pages (rows of 104): as 4m,
+     teacher-forced logits, greedy (B 4, prompt 512, 64 new) and serving
+     runs A / B; D 40 over int8 and e4m3 caches and pages (rows of 48
+     bytes): as 4n, greedy over int8 / e4m3 caches and serving runs D / E;
+     each over the first 8 of the 24 requests, every token teacher-forced,
+     launches exact on paths "pitched d100 ..." / "pitched d40 ...", no
+     cache or pool copied (`_build.copies["cache"]` 0), the activations'
+     padded copies printed.
      (4k, run after 4e over the Llama tree; launches counted as path "hf")
      The HF surface: (a) HF-named transposed views of the parameters
      through `params_from_state_dict`, then greedy generation: phase 4's
@@ -374,8 +401,15 @@ Phases, in order; any failure exits non-zero:
      (4096 rows, 2048 keys), library_ms null (no PyTorch call returns the
      partials), and under "sequence_parallel" the unrolled ring (causal,
      non-causal) and all-gather over 32768 tokens beside P and one SDPA
-     call (causal) over the same; every timed entry its share of its
-     bound ("of_bound"); the card's name and power limit.
+     call (causal) over the same; (5k) the "o" entries of every kernel row
+     with a head dim at D 100 (two-byte rows, pitch 104; P, B2, D1, D2, B5,
+     B6, the append, B4 and its partials, B12, B13a / B13b, P-i8, B2-i8,
+     K8) or D 40 (one-byte rows, pitch 48 bytes; B7, B8, B9, QA), at 4r's
+     widths, inputs at the port's pitch, each with "pitch_cost": the same
+     kernel's ms at D 104 / 48, whose rows need no pitch; and the "phi3"
+     entries of the P-i8, B2-i8 and K8 rows at 3o's int8-score path; every
+     timed entry its share of its bound ("of_bound"); the card's name and
+     power limit.
 The last line is {"ok": true, "device": {...}}.
 
 Tolerances: kernel outputs are bf16 results of fp32 arithmetic on bf16
@@ -451,6 +485,18 @@ def max_err(a, b) -> float:
 # main path's shape, the edges of the kernel's 128-row blocks and 128-key
 # tiles, rows with no key, GQA groups 1, 7 (Qwen2) and 32, f16, non-causal,
 # windows of 1, 45 and 400 keys, the model's transposed views.
+def pitched(torch, x):
+    """`x` copied into rows at `_build.row_pitch` (views of its head dim, as
+    the port's caches, pools and outputs lie), or `x` itself where its head
+    dim needs no pitch."""
+    from flash_attention_cute_tpu_torch.ops import _build
+
+    d = x.shape[-1]
+    if _build.row_pitch(d, x.element_size()) == d:
+        return x
+    return _build.empty_rows(x.shape, x.dtype, x.device).copy_(x)
+
+
 PREFILL_CASES = (
     ("B4 S512 main path", 4, 32, 8, 512, 512, True, None, "bfloat16", False),
     ("B2 S1024 causal", 2, 32, 8, 1024, 1024, True, None, "bfloat16", False),
@@ -607,9 +653,11 @@ def held_contiguous_decodes(torch, flash_decode, quantized, errs, gen, cases,
                 if vname is None:
                     x = x.to(dtype)
                     x[dead] = float("nan")
+                    x = pitched(torch, x)
                 else:
                     x = quantized.quantize_kv(x, getattr(torch, vname))
                     poison_quant(torch, x, dead)
+                    x = type(x)(pitched(torch, x.values), x.scales)
                 caches.append(x)
             if vname is None:
                 key, what = "decode_combine", f"D1 + D2 {name}"
@@ -679,8 +727,8 @@ def chunked_inputs(torch, gen, dtype, s, cap, offs, kvl, d, hq=32, hkv=8):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     b = len(offs)
-    q = randn(b, s, hq, d).transpose(1, 2)
-    k, v = (randn(b, cap, hkv, d).transpose(1, 2) for _ in "kv")
+    q = pitched(torch, randn(b, s, hq, d)).transpose(1, 2)
+    k, v = (pitched(torch, randn(b, cap, hkv, d)).transpose(1, 2) for _ in "kv")
     for i, n in enumerate(kvl):  # uninitialised cache tail
         k[i, :, n:] = float("nan")
         v[i, :, n:] = float("nan")
@@ -715,14 +763,21 @@ def phase_chunked_kernels(torch, flash_chunked, errs):
                 check(bool((out[i] == 0).all()), f"B4 {name}: a kv_length-0 row is 0")
 
 
+def flat_pool(x):
+    """One layer's pool [Hkv, P, ps, d] as [Hkv, P * ps, d] sharing its
+    storage, whatever its row pitch (no `view`: a pitched pool has none)."""
+    hkv, p, ps, d = x.shape
+    return x.as_strided((hkv, p * ps, d), (x.stride(0), x.stride(2), 1), x.storage_offset())
+
+
 def paged_pool(torch, randn, gen, ps, rows, capacity=2048, layers=2, d=128, hkv=8):
-    """A stacked pool [layers, hkv, P, ps, d] (randn's dtype) with room for
-    `rows` rows of `capacity` tokens, and a page table from a seeded
-    permutation of its pages (page 0 in no table)."""
+    """A stacked pool [layers, hkv, P, ps, d] (randn's dtype, rows at the
+    port's pitch) with room for `rows` rows of `capacity` tokens, and a page
+    table from a seeded permutation of its pages (page 0 in no table)."""
     pps = capacity // ps
     num_pages = rows * pps + 1
-    kp = randn(layers, hkv, num_pages, ps, d)
-    vp = randn(layers, hkv, num_pages, ps, d)
+    kp = pitched(torch, randn(layers, hkv, num_pages, ps, d))
+    vp = pitched(torch, randn(layers, hkv, num_pages, ps, d))
     perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
     table = perm[: rows * pps].view(rows, pps).to(torch.int32).contiguous()
     return kp, vp, table
@@ -730,13 +785,11 @@ def paged_pool(torch, randn, gen, ps, rows, capacity=2048, layers=2, d=128, hkv=
 
 def poison_past(torch, pool, table, lengths):
     """NaN into every pool row at or past each row's length, and page 0."""
-    _, hkv, num_pages, ps, d = pool.shape
-    pps = table.shape[1]
+    ps, pps = pool.shape[3], table.shape[1]
     pos = torch.arange(pps * ps, device="cuda")
     for b, n in enumerate(lengths.tolist()):
         dead = pos[pos >= n]
-        flat = table[b].long()[dead // ps] * ps + dead % ps
-        pool.view(pool.shape[0], hkv, num_pages * ps, d)[:, :, flat] = float("nan")
+        pool[:, :, table[b].long()[dead // ps], dead % ps] = float("nan")  # no flat view: pitched
     pool[:, :, 0] = float("nan")
 
 
@@ -865,12 +918,13 @@ def poison_quant(torch, kv, dead):
 
 def quant_pool(torch, quantized, randn, gen, ps, rows, dtype, lengths=None, capacity=2048, d=128,
                hkv=8):
-    """One layer's quantized pools [hkv, P, ps, d] behind a seeded permuted
-    table (page 0 in no table); with `lengths`, NaN-poisoned at and past
-    each row's length and in page 0."""
+    """One layer's quantized pools [hkv, P, ps, d] (values at the port's
+    pitch) behind a seeded permuted table (page 0 in no table); with
+    `lengths`, NaN-poisoned at and past each row's length and in page 0."""
     pps = capacity // ps
     num_pages = rows * pps + 1
     k, v = (quantized.quantize_kv(randn(hkv, num_pages, ps, d), dtype) for _ in "kv")
+    k, v = (type(x)(pitched(torch, x.values), x.scales) for x in (k, v))
     perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
     table = perm[: rows * pps].view(rows, pps).to(torch.int32).contiguous()
     if lengths is None:
@@ -2329,7 +2383,8 @@ def kernel_entries(rows, errs, path_counts) -> list:
     def share_of_bound(entry):  # each timed shape's share of its bound, nested ones too
         if entry.get("ms") and entry.get("bound_ms"):
             entry["of_bound"] = entry["bound_ms"] / entry["ms"]
-        for key in ("chunk", "window", "gemma2", "long", "phi3", "g16", "m71", "zigzag_step"):
+        for key in ("chunk", "window", "gemma2", "long", "phi3", "g16", "m71", "zigzag_step",
+                    "o"):
             if isinstance(entry.get(key), dict):
                 share_of_bound(entry[key])
 
@@ -2349,7 +2404,7 @@ def kernel_entries(rows, errs, path_counts) -> list:
                                        "window", "lse", "max_rel_err", "gemma2", "projections",
                                        "runtime_attributes", "with_k8_ms", "bf16_ms", "long",
                                        "oracle_max_abs_err", "phi3", "g16", "m71",
-                                       "zigzag_step", "sequence_parallel")
+                                       "zigzag_step", "sequence_parallel", "o")
                if key in r},
         })
     return out
@@ -2438,7 +2493,7 @@ def paged_rows(torch, cfg, randn, gen):
     active = torch.ones(b, dtype=torch.bool, device="cuda")
     flat, _ = paged_cache.append_targets(table, lens, 1, ps)
     flat = flat.view(-1)
-    kflat, vflat = (x.view(hkv, -1, d) for x in (kp, vp))
+    kflat, vflat = (flat_pool(x) for x in (kp, vp))
     krows, vrows = (x.permute(1, 0, 2, 3).reshape(hkv, b, d) for x in (nk, nv))
 
     def library_append():
@@ -2495,6 +2550,7 @@ def quant_rows(torch, cfg, randn, gen):
     # B7 + D2.
     b, cap, live = B, CAPACITY, PROMPT + NEW // 2
     k, v = (qz.quantize_kv(randn(b, hkv, cap, d), torch.int8) for _ in "kv")
+    k, v = (qz.QuantizedKV(pitched(torch, x.values), x.scales) for x in (k, v))
     q = randn(b, hq, 1, d)
     lengths = torch.full((b,), live, dtype=torch.int32, device="cuda")
     splits = dispatch.decode_num_splits(b, hkv, cap, d)
@@ -3370,8 +3426,8 @@ def varlen_batch(rng_seed=0, count=32):
 
 
 def varlen_inputs(torch, gen, lens_q, lens_kv, hq=32, hkv=8, d=128):
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    def randn(*shape):  # at the port's row pitch
+        return pitched(torch, torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16))
 
     def cu(lens):
         return torch.tensor([0] + lens, device="cuda").cumsum(0).to(torch.int32)
@@ -3738,6 +3794,7 @@ def bwd_timings(torch, ops, randn, b, hq, hkv, s, d):
     (what library_ms is, or why it is null) and the bound (B13a 8 D and
     B13b 6 D operations per visible pair and q head at the bf16 peak, or
     the bytes of the inputs and outputs once, whichever is longer)}."""
+    from flash_attention_cute_tpu_torch.ops import _build
     from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms
 
     flash_fwd, flash_bwd = ops["flash_fwd"], ops["flash_bwd"]
@@ -3746,7 +3803,7 @@ def bwd_timings(torch, ops, randn, b, hq, hkv, s, d):
     k, v = randn(b, hkv, s, d), randn(b, hkv, s, d)
     o, lse = flash_fwd.flash_attention_fwd(q, k, v, causal=True, return_lse=True)
     delta = (do.float() * o.float()).sum(-1)
-    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    dq, dk, dv = (_build.empty_rows(x.shape, x.dtype, x.device) for x in (q, k, v))
     pairs = b * hq * s * (s + 1) // 2
     io = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * 2 * lse.numel()  # q, dO, k, v; lse, delta
     qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
@@ -4248,7 +4305,7 @@ def gemma2_rows(torch, ops, gen):
     nk, nv = randn(b, 1, hkv, d).transpose(1, 2), randn(b, 1, hkv, d).transpose(1, 2)
     active = torch.ones(b, dtype=torch.bool, device="cuda")
     flat = paged_cache.append_targets(table, lens, 1, ps)[0].view(-1)
-    kflat, vflat = (x.view(hkv, -1, d) for x in (kp, vp))
+    kflat, vflat = (flat_pool(x) for x in (kp, vp))
     krows, vrows = (x.permute(1, 0, 2, 3).reshape(hkv, b, d) for x in (nk, nv))
 
     def library_append():
@@ -4396,20 +4453,22 @@ def int8_inputs(torch, gen, b, hq, hkv, sq, skv, d, dt, views):
     return randn(b, hq, sq, d), randn(b, hkv, skv, d), randn(b, hkv, skv, d)
 
 
-def phase_int8_kernels(torch, flash_fwd, errs):
-    """K8 bit-identical to its plain version; P-i8 / B2-i8 over INT8_CASES
+def phase_int8_kernels(torch, flash_fwd, errs, cases=INT8_CASES, tags=None):
+    """K8 bit-identical to its plain version; P-i8 / B2-i8 over `cases`
     against the plain int8 version (fp32 output, BF16_TOL; lse LSE_TOL),
     the fp32 oracle of bf16 scores (INT8_ORACLE_TOL), the bf16-score kernel
-    (more than INT8_MIN_DIFF apart), each call repeated bit for bit."""
+    (more than INT8_MIN_DIFF apart), each call repeated bit for bit. The
+    errors at a head dim of `tags` ({d: tag}) also go to "<key> <tag>"."""
     gen = torch.Generator(device="cuda").manual_seed(4321)
-    for name, b, hq, hkv, sq, skv, d, causal, w, cap, dt, views in INT8_CASES:
+    for name, b, hq, hkv, sq, skv, d, causal, w, cap, dt, views in cases:
+        tag = (tags or {}).get(d)
         q, k, v = int8_inputs(torch, gen, b, hq, hkv, sq, skv, d, dt, views)
         kw = dict(causal=causal, window=w, logit_softcap=cap)
         values, scales = flash_fwd.quantize_k_rows(k)
         want_v, want_s = flash_fwd.quantize_rows_plain(k)
         k8_same = torch.equal(values, want_v) and torch.equal(scales, want_s)
-        errs["quantize_k_rows"] = max(errs.get("quantize_k_rows", 0.0), max_err(values, want_v),
-                                      max_err(scales, want_s))
+        note_err(errs, "quantize_k_rows", max(max_err(values, want_v), max_err(scales, want_s)),
+                 tag)
         del values, scales, want_v, want_s
         out, lse = flash_fwd.flash_attention_fwd(q, k, v, return_lse=True, score_dtype="int8",
                                                  **kw)
@@ -4431,9 +4490,9 @@ def phase_int8_kernels(torch, flash_fwd, errs):
         del oracle
         e_bf16 = max_err(out, flash_fwd.flash_attention_fwd(q, k, v, **kw))
         key = "flash_fwd_window_int8" if w and w < skv else "flash_fwd_int8"
-        errs[key] = max(errs.get(key, 0.0), e)
-        errs[f"{key} oracle"] = max(errs.get(f"{key} oracle", 0.0), e_oracle)
-        errs[f"{key} lse"] = max(errs.get(f"{key} lse", 0.0), e_lse)
+        note_err(errs, key, e, tag)
+        note_err(errs, f"{key} oracle", e_oracle, tag)
+        note_err(errs, f"{key} lse", e_lse)
         what = (f"{'B2-i8' if key.endswith('window_int8') else 'P-i8'} {name} ({hq} / {hkv} "
                 f"heads, D {d}, {dt}{', transposed views' if views else ''})")
         print(f"  {what}: K8 bit-identical {k8_same}; vs plain int8 {e:.3e}, lse {e_lse:.2e}; "
@@ -4478,6 +4537,54 @@ def phase_int8_path(torch, api, flash_fwd, kernels, counts):
         check(e <= BF16_TOL, f"API int8 route (window {w}) within {BF16_TOL}")
 
 
+def int8_entry(torch, flash_fwd, gen, b, hq, hkv, s, d, w, cap, shape, plain=True, iters=20):
+    """The P-i8 (B2-i8 where `w` binds) entry of `int8_rows` at (B, Hq,
+    Hkv, S, D), causal, over the model's transposed views, and K8's on its
+    K: (kernel entry, K8 entry)."""
+    from flash_attention_cute_tpu_torch.ops import _build
+    from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms
+
+    def pairs(b, sq, skv, causal, w):
+        """Visible (query, key) pairs over the batch."""
+        return b * sum(max(0, min(skv, m + skv - sq + 1 if causal else skv)
+                           - (max(0, m + skv - sq - w + 1) if w else 0)) for m in range(sq))
+
+    q, k, v = int8_inputs(torch, gen, b, hq, hkv, s, s, d, "bfloat16", True)
+    q, k, v = (_build.rows(n, x) for n, x in (("q", q), ("k", k), ("v", v)))
+    kw = dict(causal=True, window=w, logit_softcap=cap)
+    k8, kscale = flash_fwd._quantize_k_padded(k)
+    out = _build.empty_rows((b, hq, s, d), q.dtype, "cuda")
+    win = _build.window_arg(w) if w and w < s else 0
+    n = pairs(b, s, s, True, w) * hq
+    nbytes = (2 * q.numel() + k8.numel() + 4 * kscale.numel() + 2 * v.numel()
+              + 2 * out.numel())
+    t_ops = 2 * d * n / PEAK_I8 + 2 * d * n / PEAK_BF16
+
+    def kernel():
+        flash_fwd.launch_int8(q, k8, kscale, v, out, None, d ** -0.5, True, win,
+                              _build.softcap_arg(cap))
+
+    e = {"shape": shape, "ms": cuda_time_ms(kernel, iters),
+         "call_ms": call_time_ms(kernel, iters),
+         "with_k8_ms": cuda_time_ms(lambda: flash_fwd.flash_attention_fwd(
+             q, k, v, score_dtype="int8", **kw), iters),
+         "bf16_ms": cuda_time_ms(lambda: flash_fwd.flash_attention_fwd(q, k, v, **kw), iters),
+         "plain_ms": cuda_time_ms(lambda: flash_fwd.flash_attention_fwd_plain(
+             q, k, v, score_dtype="int8", **kw), 3, 1) if plain else None,
+         "library_ms": None,
+         "bound_ms": 1e3 * max(nbytes / PEAK_BYTES, t_ops),
+         "bound_by": "operations" if t_ops >= nbytes / PEAK_BYTES else "bytes"}
+    k_entry = {"shape": f"K of {shape}",
+               "ms": cuda_time_ms(lambda: flash_fwd._quantize_k_padded(k), iters),
+               "call_ms": call_time_ms(lambda: flash_fwd._quantize_k_padded(k), iters),
+               "plain_ms": cuda_time_ms(lambda: flash_fwd.quantize_rows_plain(k), 5),
+               "library_ms": None,
+               **bound(3 * k.numel(), 3 * k.numel() + 4 * kscale.numel(), PEAK_F32)}
+    del q, k, v, k8, kscale, out
+    torch.cuda.empty_cache()
+    return e, k_entry
+
+
 def int8_rows(torch, flash_fwd, gen):
     """Kernel rows of P-i8 (at the main path's B 4 S 512; "long": B 1 S
     8192; "gemma2": Gemma-2-9B's B 2 S 4608, D 256, cap 50), B2-i8 (Mistral
@@ -4489,46 +4596,8 @@ def int8_rows(torch, flash_fwd, gen):
     peak, whichever is longer; K8's are its bytes. library_ms: null, no
     single PyTorch call computes attention over int8 scores or quantizes
     rows so."""
-    from flash_attention_cute_tpu_torch.ops import _build
-    from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms
-
-    def pairs(b, sq, skv, causal, w):
-        """Visible (query, key) pairs over the batch."""
-        return b * sum(max(0, min(skv, m + skv - sq + 1 if causal else skv)
-                           - (max(0, m + skv - sq - w + 1) if w else 0)) for m in range(sq))
-
-    def entry(b, hq, hkv, s, d, w, cap, shape, plain=True, iters=20):
-        q, k, v = int8_inputs(torch, gen, b, hq, hkv, s, s, d, "bfloat16", True)
-        kw = dict(causal=True, window=w, logit_softcap=cap)
-        k8, kscale = flash_fwd._quantize_k_padded(k)
-        out = torch.empty((b, hq, s, d), dtype=q.dtype, device="cuda")
-        win = _build.window_arg(w) if w and w < s else 0
-        n = pairs(b, s, s, True, w) * hq
-        nbytes = 2 * q.numel() + k8.numel() + 4 * kscale.numel() + 2 * v.numel() + 2 * out.numel()
-        t_ops = 2 * d * n / PEAK_I8 + 2 * d * n / PEAK_BF16
-        def kernel():
-            flash_fwd.launch_int8(q, k8, kscale, v, out, None, d ** -0.5, True, win,
-                                  _build.softcap_arg(cap))
-
-        e = {"shape": shape, "ms": cuda_time_ms(kernel, iters),
-             "call_ms": call_time_ms(kernel, iters),
-             "with_k8_ms": cuda_time_ms(lambda: flash_fwd.flash_attention_fwd(
-                 q, k, v, score_dtype="int8", **kw), iters),
-             "bf16_ms": cuda_time_ms(lambda: flash_fwd.flash_attention_fwd(q, k, v, **kw), iters),
-             "plain_ms": cuda_time_ms(lambda: flash_fwd.flash_attention_fwd_plain(
-                 q, k, v, score_dtype="int8", **kw), 3, 1) if plain else None,
-             "library_ms": None,
-             "bound_ms": 1e3 * max(nbytes / PEAK_BYTES, t_ops),
-             "bound_by": "operations" if t_ops >= nbytes / PEAK_BYTES else "bytes"}
-        k_entry = {"shape": f"K of {shape}",
-                   "ms": cuda_time_ms(lambda: flash_fwd._quantize_k_padded(k), iters),
-                   "call_ms": call_time_ms(lambda: flash_fwd._quantize_k_padded(k), iters),
-                   "plain_ms": cuda_time_ms(lambda: flash_fwd.quantize_rows_plain(k), 5),
-                   "library_ms": None,
-                   **bound(3 * k.numel(), 3 * k.numel() + 4 * kscale.numel(), PEAK_F32)}
-        del q, k, v, k8, kscale, out
-        torch.cuda.empty_cache()
-        return e, k_entry
+    def entry(*args, **kw):
+        return int8_entry(torch, flash_fwd, gen, *args, **kw)
 
     p_i8, k8_row = entry(B, 32, 8, PROMPT, 128, None, None,
                          f"B {B}, S {PROMPT}, Hq 32, Hkv 8, D 128, causal (the main path's)")
@@ -4585,12 +4654,16 @@ def held_call(torch, errs, what, key, tag, fn, plain, *args, **kw):
     return out
 
 
-def phase_odd_head_dims(torch, ops, paged_cache, errs):
-    """Phase 3j: each kernel of the head-dim rule at each ODD_HEAD_DIMS case
-    against its fp32 plain version (3e-2), over NaN-poisoned pool tails and
-    cache tails, every call repeated bit for bit; D1's partials against the
-    plain partials (1e-2); the append bit-identical. D 96's errors also go
-    to "<kernel> phi3"."""
+def phase_odd_head_dims(torch, ops, paged_cache, errs, dims=ODD_HEAD_DIMS, tags=None):
+    """Phase 3j (and 3o at `dims` PITCHED_HEAD_DIMS): each kernel of the
+    head-dim rule at each case of `dims` against its fp32 plain version
+    (3e-2), over NaN-poisoned pool tails and cache tails (pools and caches
+    at the port's row pitch, q as the model's transposed views), every call
+    repeated bit for bit; D1's partials against the plain partials (1e-2);
+    the append bit-identical. A head dim of `tags` ({d: tag}, default D
+    96's "phi3") is also windowed and capped, its errors also go to
+    "<kernel> <tag>"."""
+    tags = {96: "phi3"} if tags is None else tags
     flash_fwd, flash_decode, pa = ops["flash_fwd"], ops["flash_decode"], ops["paged_attention"]
     gen = torch.Generator(device="cuda").manual_seed(4390)
 
@@ -4603,11 +4676,11 @@ def phase_odd_head_dims(torch, ops, paged_cache, errs):
     def held(what, key, tag, fn, plain, *args, **kw):
         return held_call(torch, errs, what, key, tag, fn, plain, *args, **kw)
 
-    for d, hq, hkv, dt in ODD_HEAD_DIMS:
+    for d, hq, hkv, dt in dims:
         dtype = getattr(torch, dt)
-        tag = "phi3" if d == 96 else None
-        # (window, cap) variants: D 96 also windowed and capped.
-        variants = ((None, None), (100, None), (None, 50.0)) if d == 96 else ((None, None),)
+        tag = tags.get(d)
+        # (window, cap) variants: a tagged head dim also windowed and capped.
+        variants = ((None, None), (100, None), (None, 50.0)) if tag else ((None, None),)
         for w, cap in variants:
             name = f"D {d} ({hq} / {hkv} heads, {dt}{f', window {w}' if w else ''}" \
                    f"{f', cap {cap:g}' if cap else ''})"
@@ -4649,7 +4722,7 @@ def phase_odd_head_dims(torch, ops, paged_cache, errs):
                 if w is None and cap is None:  # the append: decode rows and a chunk
                     for sa, starts in ((1, [0, 5, ps - 1, full, 37, 2 * ps, 1, 9]),
                                        (100, [0, ps - 3, full - 40, 3, 0, 0, 0, 0])):
-                        ka, va = kp[1].clone(), vp[1].clone()
+                        ka, va = (pitched(torch, x.clone()) for x in (kp[1], vp[1]))
                         tab = torch.arange(1, 1 + 4 * (full // ps), dtype=torch.int32,
                                            device="cuda").view(4, -1).repeat(2, 1)
                         new_k = randn(8, sa, hkv, d, dtype=dtype).transpose(1, 2)
@@ -4683,17 +4756,22 @@ def phase_odd_head_dims(torch, ops, paged_cache, errs):
         torch.cuda.empty_cache()
 
 
-def phase_odd_head_dims_quantized(torch, ops, errs):
-    """Phase 3k: B7 + D2, B8 + D2, B9 and QA over int8 and e4m3 values, and
-    B4, at each ODD_HEAD_DIMS case (D 96 also windowed and capped) against
-    their fp32 plain versions (3e-2), over NaN-poisoned pool and cache
-    tails, every call repeated bit for bit, length-0 and inactive rows
-    exact zeros; QA's whole pools bit-identical to the plain version's;
-    then a one-byte row of d % 16 == 8 (D 40) in B7, B8, B9 and QA, and a
-    d that is no multiple of 8 (D 100) in B4, refused before any launch.
-    D 96's errors also go to "<kernel> phi3"."""
+def phase_odd_head_dims_quantized(torch, ops, errs, dims=ODD_HEAD_DIMS, tags=None,
+                                  one_byte=True, formerly_refused=True):
+    """Phase 3k (and 3o at PITCHED_ONE_BYTE_DIMS, and B4 alone, `one_byte`
+    False, at PITCHED_HEAD_DIMS): B7 + D2, B8 + D2, B9 and QA over int8 and
+    e4m3 values, and B4, at each case of `dims` (a head dim of `tags`, {d:
+    tag}, default D 96's "phi3", also windowed and capped, its errors also
+    under "<kernel> <tag>") against their fp32 plain versions (3e-2), over
+    NaN-poisoned pool and cache tails, every call repeated bit for bit,
+    length-0 and inactive rows exact zeros; QA's whole pools bit-identical
+    to the plain version's. With `formerly_refused`: the calls refused
+    before the pitched rows (a one-byte row of d % 16 == 8, D 40, in B7,
+    B8, B9 and QA; D 100 in B4) launch once each; D 0 and D 264 are
+    refused before any launch."""
     from flash_attention_cute_tpu_torch.ops.quantized import QuantizedKV
 
+    tags = {96: "phi3"} if tags is None else tags
     quantized, flash_chunked = ops["quantized"], ops["flash_chunked"]
     gen = torch.Generator(device="cuda").manual_seed(4391)
 
@@ -4703,16 +4781,18 @@ def phase_odd_head_dims_quantized(torch, ops, errs):
     def held(what, key, tag, fn, plain, *args, **kw):
         return held_call(torch, errs, what, key, tag, fn, plain, *args, **kw)
 
-    for d, hq, hkv, dt in ODD_HEAD_DIMS:
+    for d, hq, hkv, dt in dims:
         dtype = getattr(torch, dt)
-        tag = "phi3" if d == 96 else None
-        variants = ((None, None), (100, None), (None, 50.0)) if d == 96 else ((None, None),)
+        tag = tags.get(d)
+        variants = ((None, None), (100, None), (None, 50.0)) if tag else ((None, None),)
         for w, cap in variants:
             name = f"D {d} ({hq} / {hkv} heads, {dt}{f', window {w}' if w else ''}" \
                    f"{f', cap {cap:g}' if cap else ''})"
-            held_contiguous_decodes(torch, None, quantized, errs, gen, (
-                (f"{name} capacity 577", d, hq, hkv, 577, w and 45, cap, dt),), QUANT_DTYPES, tag)
-            for ps in (16, 128):
+            if one_byte:
+                held_contiguous_decodes(torch, None, quantized, errs, gen, (
+                    (f"{name} capacity 577", d, hq, hkv, 577, w and 45, cap, dt),), QUANT_DTYPES,
+                    tag)
+            for ps in (16, 128) if one_byte else ():
                 for vname in QUANT_DTYPES:
                     vdtype, what = getattr(torch, vname), f"{name} {vname} page_size {ps}"
                     full = 1024
@@ -4788,37 +4868,76 @@ def phase_odd_head_dims_quantized(torch, ops, errs):
                 del q, k, v
         torch.cuda.empty_cache()
 
-    # Refusals before any launch: a one-byte row of 40 bytes (d % 16 == 8)
-    # breaks TMA's 16-byte stride rule; B4 takes multiples of 8.
+    if not formerly_refused:
+        return
+    # Refused before the pitched rows, now run: a one-byte row of 40 bytes
+    # (d % 16 == 8, which breaks TMA's 16-byte stride rule unpitched) in B7,
+    # B8, B9 and QA, the pools at the port's pitch of 48 bytes and the
+    # contiguous cache through one padded copy (QA writes it in place: any
+    # stride); D 100 in B4 (rows of 200 bytes: one padded copy each).
     counted = (quantized.QUANT_DECODE, quantized.QUANT_PAGED_DECODE,
                quantized.QUANT_PAGED_EXTEND, quantized.QUANT_APPEND, flash_chunked.CHUNKED,
                ops["flash_decode"].COMBINE)
-    before = [x.launches for x in counted]
     k, v, table = quant_pool(torch, quantized, randn, gen, 16, 2, torch.int8, capacity=64, d=40,
                              hkv=2)
     cache = quantized.quantize_kv(randn(2, 2, 64, 40), torch.int8)
     q40, rows = randn(2, 4, 1, 40), torch.tensor([3, 5], dtype=torch.int32, device="cuda")
     q100, k100 = randn(2, 4, 5, 100), randn(2, 2, 64, 100)
-    for what, call in (
-            ("B7 at D 40 over int8", lambda: quantized.flash_attention_decode_quantized(
+    for what, i, call in (
+            ("B7 at D 40 over int8", 0, lambda: quantized.flash_attention_decode_quantized(
                 q40, cache, cache, rows)),
-            ("B8 at D 40 over int8", lambda: quantized.paged_attention_decode_quantized(
+            ("B8 at D 40 over int8", 1, lambda: quantized.paged_attention_decode_quantized(
                 q40, k, v, rows, table)),
-            ("B9 at D 40 over int8", lambda: quantized.paged_attention_extend_quantized(
+            ("B9 at D 40 over int8", 2, lambda: quantized.paged_attention_extend_quantized(
                 q40, k, v, rows, rows + 1, table)),
-            ("QA at D 40 over int8", lambda: quantized.quantize_append(
+            ("QA at D 40 over int8", 3, lambda: quantized.quantize_append(
                 q40[:, :2], q40[:, :2], cache, cache, rows)),
-            ("B4 at D 100", lambda: flash_chunked.flash_attention_chunked(
+            ("B4 at D 100", 4, lambda: flash_chunked.flash_attention_chunked(
                 q100, k100, k100, rows, rows + 5))):
-        try:
-            call()
-            refused = ""
-        except NotImplementedError as err:
-            refused = str(err)
-        print(f"  {what}: refused: {refused or 'no'}")
-        check("A.1" in refused, f"{what} raises NotImplementedError naming ROADMAP.md A.1")
+        before = counted[i].launches
+        out = call()
+        torch.cuda.synchronize()
+        print(f"  {what}: launched {counted[i].launches - before}")
+        check(counted[i].launches == before + 1, f"{what} (refused before the pitched rows) "
+              "launches its kernel once")
+        check(out is None or bool(torch.isfinite(out).all()), f"{what}: finite")
+    def kv(*shape):  # zero values, unit scales: no quantization of a 0-wide row
+        return QuantizedKV(torch.zeros(shape, dtype=torch.int8, device="cuda"),
+                           torch.ones(shape[:-1], device="cuda"))
+
+    head_dims_refused(torch, ops, "B7, B8, B9, QA and B4", [
+        lambda d: quantized.flash_attention_decode_quantized(
+            randn(2, 4, 1, d), kv(2, 2, 64, d), kv(2, 2, 64, d), rows, sm_scale=1.0),
+        lambda d: quantized.paged_attention_decode_quantized(
+            randn(2, 4, 1, d), kv(2, 9, 16, d), kv(2, 9, 16, d), rows, table, sm_scale=1.0),
+        lambda d: quantized.paged_attention_extend_quantized(
+            randn(2, 4, 1, d), kv(2, 9, 16, d), kv(2, 9, 16, d), rows, rows + 1, table,
+            sm_scale=1.0),
+        lambda d: quantized.quantize_append(randn(2, 2, 1, d), randn(2, 2, 1, d),
+                                            kv(2, 2, 64, d), kv(2, 2, 64, d), rows),
+        lambda d: flash_chunked.flash_attention_chunked(randn(2, 4, 5, d), randn(2, 2, 64, d),
+                                                        randn(2, 2, 64, d), rows, rows + 5,
+                                                        sm_scale=1.0)],
+        counted)
+
+
+def head_dims_refused(torch, ops, what, calls, counted):
+    """Each of `calls` (a function of the head dim) at D 264 (above 256:
+    ROADMAP.md A14) and at D 0 raises NotImplementedError naming the item
+    before any launch of `counted`."""
+    before = [x.launches for x in counted]
+    for d in (264, 0):
+        for i, call in enumerate(calls):
+            try:
+                call(d)
+                refused = ""
+            except NotImplementedError as err:
+                refused = str(err)
+            check("ROADMAP.md A14" in refused,
+                  f"{what}: call {i} at D {d} raises NotImplementedError naming ROADMAP.md A14")
     torch.cuda.synchronize()
-    check([x.launches for x in counted] == before, "the refused calls launched nothing")
+    print(f"  {what} at D 264 and D 0: refused, naming ROADMAP.md A14")
+    check([x.launches for x in counted] == before, f"{what}: the refused calls launched nothing")
 
 
 def phi3_mini_widths_config(layers=0):
@@ -4960,19 +5079,24 @@ ODD_TRAINING_SHAPES = ((333, 333, True, None), (256, 517, True, 100), (517, 256,
 ODD_PACKED_LENS = ([333, 1, 190, 517, 64], [400, 17, 190, 600, 200])  # q, and kv longer
 
 
-def phase_odd_head_dims_training(torch, ops, errs, rel_errs):
-    """Phase 3l: B13a / B13b and B12 at each ODD_TRAINING_DIMS case against
-    their plain versions. The backward over the model's transposed views and
+def phase_odd_head_dims_training(torch, ops, errs, rel_errs, dims=ODD_TRAINING_DIMS, tags=None,
+                                 formerly_refused=True):
+    """Phase 3l (and 3o at PITCHED_TRAINING_DIMS): B13a / B13b and B12 at
+    each case of `dims` against their plain versions. The backward over the model's transposed views and
     a non-contiguous dO, fed the kernel forward's o and lse, causal,
     windowed with Sq < Skv and non-causal with Sq > Skv, within
     GRAD_REL_TOL of the plain backward (max |diff| / max |plain|), B13a
     also forced into 3 parts (within SPLIT_REL_TOL of one pass) and into
     one pass (within GRAD_REL_TOL of plain); B12 over a packed batch
     causal, with kv longer and a window of 100, and full, within BF16_TOL;
-    every call repeated bit for bit. Then D 100 and D 264 refused by the
-    backward, the autograd op (before P) and B12, naming ROADMAP.md A.1,
-    with no launch. D 96's errors also go to "<kernel> phi3"."""
+    every call repeated bit for bit. With `formerly_refused`: D 100,
+    refused before the pitched rows, runs the backward, the autograd op and
+    B12 once each; D 264 and D 0 are refused by all three, naming
+    ROADMAP.md A14, with no launch. The errors at a head dim of `tags` ({d:
+    tag}, default D 96's "phi3") also go to "<kernel> <tag>"."""
+    tags = {96: "phi3"} if tags is None else tags
     flash_fwd, flash_bwd, flash_varlen = ops["flash_fwd"], ops["flash_bwd"], ops["flash_varlen"]
+    from flash_attention_cute_tpu_torch.ops import _build
     gen = torch.Generator(device="cuda").manual_seed(4392)
 
     def randn(*shape, dtype=torch.bfloat16):
@@ -4981,9 +5105,9 @@ def phase_odd_head_dims_training(torch, ops, errs, rel_errs):
     def cu(lens):
         return torch.tensor([0] + lens, device="cuda").cumsum(0).to(torch.int32)
 
-    for d, hq, hkv, dt in ODD_TRAINING_DIMS:
+    for d, hq, hkv, dt in dims:
         dtype = getattr(torch, dt)
-        tag = "phi3" if d == 96 else None
+        tag = tags.get(d)
         for sq, skv, causal, window in ODD_TRAINING_SHAPES:
             name = (f"D {d} ({hq} / {hkv} heads, {dt}) Sq {sq} Skv {skv}, "
                     f"{'causal' if causal else 'non-causal'}{f', window {window}' if window else ''}")
@@ -5010,7 +5134,8 @@ def phase_odd_head_dims_training(torch, ops, errs, rel_errs):
             delta = (do.float() * o.float()).sum(-1)
             parts = {}
             for splits in (3, 1):
-                parts[splits] = (torch.empty_like(got[1]), torch.empty_like(got[2]))
+                parts[splits] = tuple(_build.empty_rows(g.shape, g.dtype, g.device)
+                                      for g in got[1:])
                 flash_bwd.launch(flash_bwd.DKV, q, k, v, do, lse, delta, *parts[splits],
                                  d ** -0.5, causal, window or 0, splits=splits)
             torch.cuda.synchronize()
@@ -5048,32 +5173,38 @@ def phase_odd_head_dims_training(torch, ops, errs, rel_errs):
             del q, k, v, out, again, ref
         torch.cuda.empty_cache()
 
-    # Refusals before any launch: head dims no layout takes.
+    if not formerly_refused:
+        return
+    # D 100, refused before the pitched rows, now runs (rows of 104, its
+    # views through one padded copy each); D 264 and D 0 stay refused.
     counted = (flash_fwd.PREFILL, flash_fwd.WINDOWED_PREFILL, flash_bwd.DKV, flash_bwd.DQ,
                flash_varlen.VARLEN)
-    before = [x.launches for x in counted]
-    for d in (100, 264):
+    one = torch.tensor([0, 64], dtype=torch.int32, device="cuda")
+
+    def calls(d):
         q = randn(1, 4, 64, d).requires_grad_()
         k = randn(1, 2, 64, d)
         lse = torch.zeros(1, 4, 64, device="cuda")
-        one = torch.tensor([0, 64], dtype=torch.int32, device="cuda")
-        for what, call in (
-                (f"B13a / B13b at D {d}", lambda: flash_bwd.flash_attention_bwd(
-                    q.detach(), k, k, q.detach(), q.detach(), lse, causal=True)),
-                (f"the autograd op at D {d}", lambda: ops["autodiff"].flash_attention(
-                    q, k, k, causal=True)),
-                (f"B12 at D {d}", lambda: flash_varlen.flash_attention_varlen(
-                    q[0].detach().transpose(0, 1), k[0].transpose(0, 1), k[0].transpose(0, 1),
-                    one, causal=True))):
-            try:
-                call()
-                refused = ""
-            except NotImplementedError as err:
-                refused = str(err)
-            print(f"  {what}: refused: {refused or 'no'}")
-            check("A.1" in refused, f"{what} raises NotImplementedError naming ROADMAP.md A.1")
-    torch.cuda.synchronize()
-    check([x.launches for x in counted] == before, "the refused calls launched nothing (P too)")
+        return (
+            ("B13a / B13b", lambda: flash_bwd.flash_attention_bwd(
+                q.detach(), k, k, q.detach(), q.detach(), lse, sm_scale=1.0, causal=True),
+             (0, 0, 1, 1, 0)),
+            ("the autograd op", lambda: ops["autodiff"].flash_attention(
+                q, k, k, sm_scale=1.0, causal=True).sum().backward(), (1, 0, 1, 1, 0)),
+            ("B12", lambda: flash_varlen.flash_attention_varlen(
+                q[0].detach().transpose(0, 1), k[0].transpose(0, 1), k[0].transpose(0, 1),
+                one, sm_scale=1.0, causal=True), (0, 0, 0, 0, 1)))
+
+    for what, call, want in calls(100):
+        before = [x.launches for x in counted]
+        call()
+        torch.cuda.synchronize()
+        got = tuple(x.launches - n for x, n in zip(counted, before))
+        print(f"  {what} at D 100: launches (P, B2, B13a, B13b, B12) {got}")
+        check(got == want, f"{what} at D 100 (refused before the pitched rows) launches "
+              f"{want}")
+    head_dims_refused(torch, ops, "B13a / B13b, the autograd op and B12",
+                      [lambda d, i=i: calls(d)[i][1]() for i in range(3)], counted)
 
 
 PHI3_TRAIN_PATH = f"{PHI3_LABEL} training"
@@ -5379,8 +5510,8 @@ def widths_rows(torch, ops, gen, cfg, chunked):
     D2 (`dense_rows`), B5, B6, the append (`paged_rows`), B7, B8, B9, QA
     (`quant_rows`) and, with `chunked`, B4 (`chunked_rows`), each with its
     bound; name -> entry."""
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    def randn(*shape):  # at the port's row pitch, as the model's tensors lie
+        return pitched(torch, torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16))
 
     rows = dense_rows(torch, cfg, randn, ops["flash_fwd"], ops["flash_decode"])[0]
     rows += paged_rows(torch, cfg, randn, gen)
@@ -5540,6 +5671,12 @@ PARTIALS_CASES = (
      [600, 312, 640], 128, True, None, None),
     ("non-causal D 64", "bfloat16", (8, 2), 300, 1000, [0, 0, 0], [1000, 400, 0], 64, False,
      None, None),
+    # Head dims outside TMA's stride rule unpitched (rows of 104, 40 and 8).
+    ("D 100 (32 / 8)", "bfloat16", (32, 8), 256, 1024, [1024, 0, -256], None, 100, True, None,
+     None),
+    ("D 36 (32 / 8)", "bfloat16", (32, 8), 256, 1024, [1024, 0, -256], None, 36, True, None,
+     None),
+    ("D 4 (32 / 8)", "bfloat16", (32, 8), 256, 1024, [1024, 0, -256], None, 4, True, None, None),
 )
 
 
@@ -5569,7 +5706,7 @@ def phase_partials_kernels(torch, flash_chunked, errs):
         again = flash_chunked.flash_attention_chunked(q, k, v, off, lens, **kw)
         want = flash_chunked.flash_attention_chunked_plain(q, k, v, off, lens, **kw)
         e = partials_err(got, want)
-        note_err(errs, "flash_chunked_partials", e)
+        note_err(errs, "flash_chunked_partials", e, O_TAGS.get(d))
         dead = want[2] == 0
         print(f"  B4-partials {name} (q_offset {offs}, kv_length {kvl}): error {e:.3e}, "
               f"{int(dead.sum())} rows with no key")
@@ -5762,6 +5899,305 @@ def sp_rows(torch, flash_chunked, flash_fwd):
              "library_of": "none: no single PyTorch call returns the (o, m, l) partials", **row}]
 
 
+# Phases 3o / 4r / 5k: every head dim from 1 to 256. A head dim whose rows
+# are no whole 16 bytes runs over rows at the port's pitch
+# (`_build.row_pitch`): the port allocates its caches, pools and outputs so,
+# and copies once a caller's tensor at another stride (`_build.rows`,
+# counted in `_build.copies` by kind). (head dim, q heads, kv heads, q's
+# dtype) at Llama-3-8B's 32 / 8 heads: two-byte rows of D 4, 36 and 100
+# (pitches 8, 40, 104), one-byte rows of D 24, 40 and 72 (pitches 32, 48,
+# 80 bytes), the backward and B12 at D 36 and 100; the int8 scores at D 4,
+# 40, 96 (Phi-3-mini's 32 / 32 heads) and 100.
+PITCHED_HEAD_DIMS = ((4, 32, 8, "bfloat16"), (36, 32, 8, "bfloat16"), (100, 32, 8, "bfloat16"))
+PITCHED_ONE_BYTE_DIMS = ((24, 32, 8, "bfloat16"), (40, 32, 8, "bfloat16"),
+                         (72, 32, 8, "bfloat16"))
+PITCHED_TRAINING_DIMS = ((36, 32, 8, "bfloat16"), (100, 32, 8, "bfloat16"))
+PITCHED_INT8_CASES = (
+    ("Phi-3-mini B4 S512 D96", B, 32, 32, PROMPT, PROMPT, 96, True, None, None, "bfloat16",
+     True),
+    ("D100 B1 S1000 W100", 1, 32, 8, 1000, 1000, 100, True, 100, None, "bfloat16", True),
+    ("D40 f16 S333 cap 30", 2, 32, 8, 333, 333, 40, True, None, 30.0, "float16", False),
+    ("D4 non-causal Sq200 Skv700", 2, 32, 8, 200, 700, 4, False, None, None, "bfloat16", True),
+    ("D100 B2 S333 causal", 2, 32, 8, 333, 333, 100, True, None, None, "bfloat16", False),
+)
+# The tags of errs under which the "O" entries' errors go: two-byte rows at
+# D 100, one-byte rows at D 40.
+O_TAGS, O_ONE_BYTE_TAGS = {100: "o100"}, {40: "o40"}
+PITCHED_LABEL = "pitched"  # the launch-count paths of phase 4r: "pitched d100 ...", "... d40"
+PHI3_INT8_LABEL = f"{PHI3_LABEL} int8 scores"  # phase 3o's int8-score path
+PHI3_INT8_LONG = 4096  # phase 3o's windowed int8 prefill: 4096 keys, Phi-3-mini-4k's window binds
+
+
+def phase_pitched_head_dims(torch, ops, paged_cache, errs, rel_errs):
+    """Phase 3o: K8 (bit-identical) and P-i8 / B2-i8 at PITCHED_INT8_CASES;
+    P / B2, D1 + D2, B5 + D2, B6 and the append at PITCHED_HEAD_DIMS (D 100
+    also windowed and capped); B4 there too; B7 + D2, B8 + D2, B9, QA and
+    B4 at PITCHED_ONE_BYTE_DIMS (D 40 also windowed and capped); B13a /
+    B13b and B12 at PITCHED_TRAINING_DIMS: each against its fp32 plain
+    version within the tolerances of phases 3i-3l, over NaN tails and
+    poisoned pools at the port's row pitch and the model's transposed views
+    (one padded copy each), every call repeated bit for bit. Then D 264 and
+    D 0 refused by P / B2, P-i8 (K8), D1, B5, B6 and the append before any
+    launch. Prints the padded copies the phase made."""
+    from flash_attention_cute_tpu_torch.ops import _build
+
+    flash_fwd, flash_decode, pa = ops["flash_fwd"], ops["flash_decode"], ops["paged_attention"]
+    before = dict(_build.copies)
+    phase_int8_kernels(torch, flash_fwd, errs, PITCHED_INT8_CASES, {96: "phi3", **O_TAGS})
+    phase_odd_head_dims(torch, ops, paged_cache, errs, PITCHED_HEAD_DIMS, O_TAGS)
+    phase_odd_head_dims_quantized(torch, ops, errs, PITCHED_HEAD_DIMS, O_TAGS, one_byte=False,
+                                  formerly_refused=False)
+    phase_odd_head_dims_quantized(torch, ops, errs, PITCHED_ONE_BYTE_DIMS, O_ONE_BYTE_TAGS,
+                                  formerly_refused=False)
+    phase_odd_head_dims_training(torch, ops, errs, rel_errs, PITCHED_TRAINING_DIMS, O_TAGS,
+                                 formerly_refused=False)
+    gen = torch.Generator(device="cuda").manual_seed(4393)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    rows = torch.tensor([3, 5], dtype=torch.int32, device="cuda")
+    table = torch.arange(1, 9, dtype=torch.int32, device="cuda").view(2, 4)
+    head_dims_refused(torch, ops, "P / B2, P-i8 (K8), D1, B5, B6 and the append", [
+        lambda d: flash_fwd.flash_attention_fwd(randn(2, 4, 64, d), randn(2, 2, 64, d),
+                                                randn(2, 2, 64, d), sm_scale=1.0, causal=True),
+        lambda d: flash_fwd.flash_attention_fwd(randn(2, 4, 64, d), randn(2, 2, 64, d),
+                                                randn(2, 2, 64, d), sm_scale=1.0, window=8,
+                                                causal=True),
+        lambda d: flash_fwd.flash_attention_fwd(randn(2, 4, 64, d), randn(2, 2, 64, d),
+                                                randn(2, 2, 64, d), sm_scale=1.0, causal=True,
+                                                score_dtype="int8"),
+        lambda d: flash_fwd.quantize_k_rows(randn(2, 2, 64, d)),
+        lambda d: flash_decode.flash_attention_decode(randn(2, 4, 1, d), randn(2, 2, 64, d),
+                                                      randn(2, 2, 64, d), rows, sm_scale=1.0),
+        lambda d: pa.paged_attention_decode(randn(2, 4, 1, d), randn(2, 9, 16, d),
+                                            randn(2, 9, 16, d), rows, table, sm_scale=1.0),
+        lambda d: pa.paged_attention_extend(randn(2, 4, 5, d), randn(2, 9, 16, d),
+                                            randn(2, 9, 16, d), rows, rows + 5, table,
+                                            sm_scale=1.0),
+        lambda d: paged_cache.paged_append_layer(randn(2, 9, 16, d), randn(2, 9, 16, d),
+                                                 randn(2, 2, 1, d), randn(2, 2, 1, d), table,
+                                                 rows)],
+        (flash_fwd.PREFILL, flash_fwd.WINDOWED_PREFILL, flash_fwd.PREFILL_INT8,
+         flash_fwd.QUANTIZE_K, flash_decode.PARTIALS, pa.PAGED_DECODE, pa.PAGED_EXTEND,
+         paged_cache.APPEND))
+    print(f"  padded copies in phase 3o: "
+          + ", ".join(f"{k} {_build.copies[k] - before[k]}" for k in before)
+          + " (the transposed views of q / k / v and contiguous caches at D 4, 36 and 100)")
+
+
+def phase_int8_phi3_path(torch, api, flash_fwd, kernels, counts, errs):
+    """Phase 3o's path: the API's dense prefill with score_dtype="int8" at
+    Phi-3-mini's widths (32 / 32 heads, D 96 in D 128's layout): causal at
+    B 4 x 512, then Phi-3-mini-4k's window of 2047 at B 1 x 4096, where it
+    binds; counted exactly: K8 twice, P-i8 once, B2-i8 once, nothing else.
+    Each output against the plain int8 version (BF16_TOL) and the fp32
+    oracle of bf16 scores (INT8_ORACLE_TOL)."""
+    cfg = phi3_mini_widths_config()
+    hq, hkv, d = cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(4394)
+    causal = int8_inputs(torch, gen, B, hq, hkv, PROMPT, PROMPT, d, "bfloat16", True)
+    long = int8_inputs(torch, gen, 1, hq, hkv, PHI3_INT8_LONG, PHI3_INT8_LONG, d, "bfloat16",
+                       True)
+    outs, wall, launched = counted_run(torch, kernels, lambda: (
+        api.flash_attention_forward(*causal, causal=True, score_dtype="int8"),
+        api.flash_attention_forward(*long, causal=True, window=PHI3_WINDOW, score_dtype="int8")))
+    counts.update(launched)
+    print(f"  api.flash_attention_forward(score_dtype='int8') at Phi-3-mini's widths: B{B} "
+          f"S{PROMPT} causal, B1 S{PHI3_INT8_LONG} W{PHI3_WINDOW}: {wall:.3f} s, launches "
+          f"{ {n: c for n, c in counts.items() if c} }")
+    check_launched(counts, {"quantize_k_rows": 2, "flash_fwd_int8": 1, "flash_fwd_window_int8": 1},
+                   f"the int8-score API route at Phi-3-mini's widths ({PHI3_INT8_LABEL})")
+    for (q, k, v), out, w in zip((causal, long), outs, (None, PHI3_WINDOW)):
+        ref = by_kv_head(torch, lambda q_, k_, v_: flash_fwd.int8_attention_plain(
+            q_, k_, v_, d ** -0.5, True, w, None, False, out_dtype=torch.float32), q, k, v)
+        e = max_err(out, ref)
+        del ref
+        oracle = by_kv_head(torch, lambda q_, k_, v_: flash_fwd.flash_attention_fwd_plain(
+            q_.float(), k_.float(), v_.float(), causal=True, window=w), q, k, v)
+        e_oracle = max_err(out, oracle)
+        del oracle
+        note_err(errs, "flash_fwd_window_int8" if w else "flash_fwd_int8", e, "phi3")
+        print(f"  {PHI3_INT8_LABEL} (window {w}): vs plain int8 {e:.3e}, vs fp32 oracle "
+              f"{e_oracle:.3e}")
+        check(bool(torch.isfinite(out).all()), f"{PHI3_INT8_LABEL} (window {w}) finite")
+        check(e <= BF16_TOL, f"{PHI3_INT8_LABEL} (window {w}) within {BF16_TOL} of plain int8")
+        check(e_oracle <= INT8_ORACLE_TOL,
+              f"{PHI3_INT8_LABEL} (window {w}) within {INT8_ORACLE_TOL} of the fp32 oracle")
+    del causal, long, outs
+    torch.cuda.empty_cache()
+
+
+def pitched_model_config(d, layers=0):
+    """Llama-3-8B's widths (hidden 4096, 32 / 8 heads, SwiGLU 14336, vocab
+    128256) at head dim `d`, cut to 2 layers (or `layers`): the shallow
+    models of phase 4r. No public config has such a head dim (PERF.md
+    section 4)."""
+    import dataclasses
+    from flash_attention_cute_tpu_torch.models.llama import llama3_8b_config
+
+    return dataclasses.replace(llama3_8b_config(), head_dim=d, num_layers=layers or 2)
+
+
+PITCHED_SERVING_REQUESTS = 8  # the first 8 of `serving_requests`: phase 4r stays short
+
+
+def phase_pitched_models(torch, kernels, path_counts, layers):
+    """Phase 4r: shallow models (`pitched_model_config`, 2 layers) at D 100
+    over bf16 caches and pages (rows of 104) and at D 40 over int8 and e4m3
+    pages (rows of 48 bytes). D 100: teacher-forced prefill and decode-step
+    logits, kernel route against the plain route, and greedy generation (B 4,
+    prompt 512, 64 new: P, D1 + D2) with exact launch counts (`phase_family`),
+    then serving runs A (whole-prompt) and B (chunked) over 8 requests of
+    `serving_requests` (P, B5 + D2, B6, the append), every token teacher-
+    forced (`serve_long_requests`). D 40: greedy over int8 and e4m3 caches
+    (`quantized_greedy`: QA, B7 + D2, the decode step against the plain
+    route) and serving runs D (int8, whole-prompt) and E (e4m3, chunked: QA,
+    B8 + D2, B9). No cache or pool is copied (`_build.copies["cache"]` 0 on
+    every path); the activations' padded copies are printed."""
+    import numpy as np
+
+    from flash_attention_cute_tpu_torch.models.transformer import init_params
+    from flash_attention_cute_tpu_torch.ops import _build
+
+    results = {}
+    for seed, d, runs in ((13, 100, PHI3_SERVING_RUNS), (14, 40, PHI3_QUANT_SERVING_RUNS)):
+        cfg = pitched_model_config(d, layers)
+        label = f"{PITCHED_LABEL} d{d}"
+        params = init_params(cfg, generator=torch.Generator(device="cuda").manual_seed(seed))
+        before = dict(_build.copies)
+        t0 = time.perf_counter()
+        if d == 100:
+            _, _, out = phase_family(torch, cfg, params, seed, B, PROMPT, NEW, kernels,
+                                     path_counts, label)
+        else:
+            ids = torch.from_numpy(np.random.default_rng(seed).integers(
+                0, cfg.vocab_size, (B, PROMPT))).to("cuda")
+            out = quantized_greedy(torch, cfg, params, ids, NEW, kernels, path_counts, label,
+                                   QUANT_DTYPES)
+        out.update(serve_long_requests(torch, cfg, params, kernels, path_counts, label, runs,
+                                       serving_requests(cfg)[:PITCHED_SERVING_REQUESTS]))
+        copies = {k: _build.copies[k] - before[k] for k in before}
+        out["padded_copies"], out["phase_s"] = copies, time.perf_counter() - t0
+        print(f"  {label} ({cfg.num_layers} layers, {cfg.num_q_heads} / {cfg.num_kv_heads} "
+              f"heads, D {d}): padded copies {copies} in {out['phase_s']:.1f} s")
+        check(copies["cache"] == 0, f"{label}: no cache or pool copied on any path")
+        results[label] = out
+        del params
+        torch.cuda.empty_cache()
+    return results
+
+
+def pitched_rows(torch, ops, gen):
+    """Phase 5k: the "o" entries of every kernel row with a head dim at D
+    100 over two-byte rows (pitch 104) and, for the one-byte rows (B7, B8,
+    B9, QA), at D 40 (pitch 48 bytes), at phase 4r's widths (32 / 8 heads)
+    and shapes (`widths_rows`: P, D1, D2, B5, B6, the append, B4, B7, B8,
+    B9, QA; `int8_entry`: P-i8, B2-i8 and K8; `bwd_timings`: B13a / B13b at
+    B 2 x S 2048; `varlen_row`: B12; B4's partials at a ring step; B2 at B 2
+    x S 2048, window 1024), each with its bound and SDPA's time where SDPA
+    takes the shape; inputs at the port's pitch, so no copy is timed. Each
+    entry's "pitch_cost" holds the same kernel's ms at D 104 (two-byte) or D
+    48 (one-byte), the next head dim whose rows need no pitch. Returns
+    {row name: entry}."""
+    from flash_attention_cute_tpu_torch.ops import _build
+    from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms
+
+    f = torch.nn.functional
+    one_byte = ("quant_decode", "quant_paged_decode", "quant_paged_extend", "quant_append")
+
+    def randn(*shape):
+        return pitched(torch, torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16))
+
+    def rows_at(d, names):
+        cfg = pitched_model_config(d)
+        got = widths_rows(torch, ops, gen, cfg, chunked=True)
+        return {n: e for n, e in got.items() if n in names}
+
+    out = {}
+    two_byte = ("flash_fwd", "decode_partials", "decode_combine", "paged_decode",
+                "paged_extend", "paged_append", "flash_chunked")
+    for names, d, unpitched in ((two_byte, 100, 104), (one_byte, 40, 48)):
+        at, ref = rows_at(d, names), rows_at(unpitched, names)
+        for n in names:
+            out[n] = {**at[n], "shape": f"{at[n].get('shape', 'phase 4r')}, D {d}",
+                      "pitch_cost": {"d": unpitched, "ms": ref[n]["ms"]}}
+
+    def b2(d):
+        q, k, v = randn(2, 32, 2048, d), randn(2, 8, 2048, d), randn(2, 8, 2048, d)
+        fn = lambda: ops["flash_fwd"].flash_attention_fwd(q, k, v, causal=True, window=1024)
+        kr, vr = (x.repeat_interleave(4, dim=1) for x in (k, v))
+        mask = torch.ones(2048, 2048, dtype=torch.bool, device="cuda").tril()
+        mask &= ~torch.ones_like(mask).tril(-1024)
+        pairs = sum(min(m + 1, 1024) for m in range(2048))
+        e = {"ms": cuda_time_ms(fn, 20), "call_ms": call_time_ms(fn, 20),
+             "plain_ms": cuda_time_ms(lambda: ops["flash_fwd"].flash_attention_fwd_plain(
+                 q, k, v, causal=True, window=1024), 3),
+             "library_ms": cuda_time_ms(lambda: f.scaled_dot_product_attention(
+                 q, kr, vr, attn_mask=mask), 20),
+             **bound(4 * 2 * 32 * pairs * d, 2 * (2 * q.numel() + k.numel() + v.numel()),
+                     PEAK_BF16), "shape": f"B 2, S 2048, window 1024, Hq 32, Hkv 8, D {d}"}
+        return e
+
+    out["flash_fwd_window"] = {**b2(100), "pitch_cost": {"d": 104, "ms": b2(104)["ms"]}}
+    p_i8, k8 = int8_entry(torch, ops["flash_fwd"], gen, B, 32, 8, PROMPT, 100, None, None,
+                          f"B {B}, S {PROMPT}, Hq 32, Hkv 8, D 100, causal")
+    b2_i8, _ = int8_entry(torch, ops["flash_fwd"], gen, 1, 32, 8, 4096, 100, 2047, None,
+                          "B 1, S 4096, window 2047, Hq 32, Hkv 8, D 100", iters=10)
+    ref = [int8_entry(torch, ops["flash_fwd"], gen, B, 32, 8, PROMPT, 104, None, None, "",
+                      plain=False)]
+    ref.append(int8_entry(torch, ops["flash_fwd"], gen, 1, 32, 8, 4096, 104, 2047, None, "",
+                          plain=False, iters=10))
+    out["flash_fwd_int8"] = {**p_i8, "pitch_cost": {"d": 104, "ms": ref[0][0]["ms"]}}
+    out["flash_fwd_window_int8"] = {**b2_i8, "pitch_cost": {"d": 104, "ms": ref[1][0]["ms"]}}
+    out["quantize_k_rows"] = {**k8, "pitch_cost": {"d": 104, "ms": ref[0][1]["ms"]}}
+
+    for d in (100, 104):
+        bwd = bwd_timings(torch, ops, randn, 2, 32, 8, 2048, d)
+        var = varlen_row(torch, ops["flash_varlen"], gen, 32, 8, d)
+        for n, e in (*bwd.items(), ("flash_varlen", var)):
+            if d == 100:
+                e.pop("library", None)
+                out[n] = {**e, "shape": f"{e.get('shape', 'B 2, S 2048, causal')}, Hq 32, "
+                                        f"Hkv 8, D 100"}
+            else:
+                out[n]["pitch_cost"] = {"d": 104, "ms": e["ms"]}
+
+    def partials(d):
+        q, k, v, off, kvl = chunked_inputs(torch, gen, torch.bfloat16, 4096, 4096, [4096],
+                                           [4096], d)
+        fc = ops["flash_chunked"]
+        fn = lambda: fc.flash_attention_chunked(q, k, v, off, kvl, causal=False,
+                                                return_partials=True)
+        pairs = 4096 * 4096
+        return {"ms": cuda_time_ms(fn, 10), "call_ms": call_time_ms(fn, 10),
+                "plain_ms": cuda_time_ms(lambda: fc.flash_attention_chunked_plain(
+                    q, k, v, off, kvl, causal=False, return_partials=True), 3),
+                "library_ms": None,
+                **bound(4 * 32 * pairs * d, 2 * q.numel() + 2 * 2 * 8 * 4096 * d
+                        + 4 * (q.numel() + 2 * 32 * 4096), PEAK_BF16),
+                "shape": f"a non-causal ring step: B 1, S 4096 over 4096 keys, Hq 32, Hkv 8, "
+                         f"D {d}"}
+
+    out["flash_chunked_partials"] = {**partials(100), "pitch_cost": {"d": 104,
+                                                                     "ms": partials(104)["ms"]}}
+    torch.cuda.empty_cache()
+    return out
+
+
+def phi3_int8_rows(torch, flash_fwd, gen):
+    """Phase 5k: the "phi3" entries of the P-i8, B2-i8 and K8 rows at phase
+    3o's int8-score path (Phi-3-mini's 32 / 32 heads, D 96 in D 128's
+    layout): P-i8 at B 4 x 512 causal, B2-i8 at B 1 x 4096 with the window
+    of 2047, K8 on the K of P-i8's (`int8_entry`)."""
+    p_i8, k8 = int8_entry(torch, flash_fwd, gen, B, 32, 32, PROMPT, 96, None, None,
+                          f"B {B}, S {PROMPT}, Hq 32, Hkv 32, D 96, causal (phase 3o's path)")
+    b2_i8, _ = int8_entry(torch, flash_fwd, gen, 1, 32, 32, PHI3_INT8_LONG, 96, PHI3_WINDOW,
+                          None, f"B 1, S {PHI3_INT8_LONG}, window {PHI3_WINDOW}, Hq 32, Hkv 32, "
+                          f"D 96 (phase 3o's path)", iters=10)
+    return {"flash_fwd_int8": p_i8, "flash_fwd_window_int8": b2_i8, "quantize_k_rows": k8}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--layers", type=int, default=0,
@@ -5894,14 +6330,15 @@ def main() -> int:
     print(f"  phase 3j: {time.perf_counter() - t0:.1f} s")
     print("[3k] head dims outside 64 / 128 / 256 over int8 / e4m3 caches and in the extend: "
           "B7 + D2, B8 + D2, B9, QA and B4 at D 96, 80, 32, 160 (f16) and 192 vs plain, D 96 "
-          "also windowed and capped; D 40 over one-byte rows and D 100 refused")
+          "also windowed and capped; D 40 over one-byte rows and D 100 in B4, refused before "
+          "the pitched rows, launched; D 264 and D 0 refused")
     t0 = time.perf_counter()
     phase_odd_head_dims_quantized(torch, ops, errs)
     torch.cuda.synchronize()
     print(f"  phase 3k: {time.perf_counter() - t0:.1f} s")
     print("[3l] head dims outside 64 / 128 / 256 in training and packed batches: B13a / B13b "
           "(B13a also in 3 parts and in one) and B12 at D 8, 24, 40, 96, 136, 200 and 248 vs "
-          "plain; D 100 and D 264 refused")
+          "plain; D 100 (refused before the pitched rows) launched; D 264 and D 0 refused")
     t0 = time.perf_counter()
     phase_odd_head_dims_training(torch, ops, errs, rel_errs)
     torch.cuda.synchronize()
@@ -5923,6 +6360,18 @@ def main() -> int:
     phase_partials_kernels(torch, flash_chunked, errs)
     torch.cuda.synchronize()
     print(f"  phase 3n: {time.perf_counter() - t0:.1f} s")
+    print("[3o] every head dim from 1 to 256, rows at the port's pitch: K8 and P-i8 / B2-i8 at "
+          "D 4, 40, 96 and 100; P / B2, D1 + D2, B5, B6, the append and B4 at D 4, 36 and 100 "
+          "(32 / 8 heads; D 100 also windowed and capped); B7, B8, B9, QA and B4 at D 24, 40 "
+          "and 72 over int8 / e4m3; B13a / B13b and B12 at D 36 and 100; D 264 and D 0 "
+          f"refused; then the API's int8 scores at Phi-3-mini's widths (path "
+          f"{PHI3_INT8_LABEL!r})")
+    t0 = time.perf_counter()
+    phase_pitched_head_dims(torch, ops, paged_cache, errs, rel_errs)
+    path_counts[PHI3_INT8_LABEL] = {}
+    phase_int8_phi3_path(torch, api, flash_fwd, kernels, path_counts[PHI3_INT8_LABEL], errs)
+    torch.cuda.synchronize()
+    print(f"  phase 3o: {time.perf_counter() - t0:.1f} s")
 
     # 4. main paths
     from flash_attention_cute_tpu_torch.models.llama import llama3_8b_config
@@ -6045,6 +6494,15 @@ def main() -> int:
     sp_numbers = phase_sequence_parallel(torch, flash_fwd, kernels, path_counts, errs)
     sp_numbers["phase_s"] = time.perf_counter() - t0
     print(f"  phase 4q: {sp_numbers['phase_s']:.1f} s")
+    print(f"[4r] shallow models at head dims outside TMA's stride rule (Llama-3-8B's widths, "
+          f"32 / 8 heads, {pitched_model_config(100, args.layers).num_layers} layers): D 100 "
+          f"over bf16 caches and pages (rows of 104), D 40 over int8 and e4m3 caches and pages "
+          f"(rows of 48 bytes); greedy and serving runs A / B (D 100), D / E (D 40) over "
+          f"{PITCHED_SERVING_REQUESTS} requests, no cache copied (paths {PITCHED_LABEL!r} ...)")
+    t0 = time.perf_counter()
+    pitched_models = phase_pitched_models(torch, kernels, path_counts, args.layers)
+    pitched_models["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 4r: {pitched_models['phase_s']:.1f} s")
 
     for name in kernels:
         check(sum(c[name] for c in path_counts.values()) > 0,
@@ -6173,6 +6631,23 @@ def main() -> int:
     rows[-1]["runtime_attributes"] = runtime_attributes(b4_report, "B4 D128 bf16 partials")
     rows[-1]["sequence_parallel"].update(sp_numbers)
     print(f"  phase 5j: {time.perf_counter() - t0:.1f} s")
+    print("[5k] numbers at pitched head dims: the \"o\" entries of every kernel row with a head "
+          "dim at D 100 (two-byte rows, pitch 104) or D 40 (one-byte rows, pitch 48), each with "
+          "the kernel's ms at D 104 / D 48 (\"pitch_cost\"); the \"phi3\" entries of the "
+          "P-i8, B2-i8 and K8 rows at phase 3o's path")
+    t0 = time.perf_counter()
+    o_rows = pitched_rows(torch, ops, torch.Generator(device="cuda").manual_seed(86))
+    phi3_i8 = phi3_int8_rows(torch, flash_fwd, torch.Generator(device="cuda").manual_seed(87))
+    for r in rows:
+        name = r["name"]
+        if name in o_rows:
+            r["o"] = {"max_abs_err": errs.get(f"{name} o100", errs.get(f"{name} o40")),
+                      "launches": sum(c[name] for p, c in path_counts.items()
+                                      if p.startswith(PITCHED_LABEL)), **o_rows[name]}
+        if name in phi3_i8:
+            r["phi3"] = {"max_abs_err": errs[f"{name} phi3"],
+                         "launches": path_counts[PHI3_INT8_LABEL][name], **phi3_i8[name]}
+    print(f"  phase 5k: {time.perf_counter() - t0:.1f} s")
     # Peak over the whole script: serving reset the counter before each run.
     numbers["max_memory_allocated_gb"] = max(
         [numbers["max_memory_allocated_gb"], serving.pop("peak_before_serving_gb")]
@@ -6188,6 +6663,7 @@ def main() -> int:
     print(json.dumps({"training_gemma2": training_gemma2}))
     print(json.dumps({"training_phi3": training_phi3}))
     print(json.dumps({"hf": hf_numbers}))
+    print(json.dumps({"pitched_models": pitched_models}))
     print(json.dumps({"kernels": kernel_entries(rows, errs, path_counts)}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

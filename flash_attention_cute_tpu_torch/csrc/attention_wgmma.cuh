@@ -496,10 +496,11 @@ __device__ __forceinline__ void mask_tile(const Segments<kMetaOff, kKStages>& v,
 // (rows < Sq) into `o` ([B * Hq, Sq, d]) at head `head` (b * Hq + h) and,
 // with `lse` not null, each row's m + log2(l) (+inf on a row with no
 // visible key). The output's address is formed only then, so that it takes
-// no register through the walk. d: the true head dim, D where it is
-// D; P / B2 and B6 also run a d below D (a multiple of 8) in D's layout,
-// the Q, K and V columns past d read as zeros by TMA, so S is exact and
-// O's columns past d, which are zeros too, are not stored.
+// no register through the walk. d: the output's row pitch, D where the
+// true head dim is D; a true head dim below D runs in D's layout, the Q,
+// K and V columns past it read as zeros by TMA, so S is exact, and O is
+// stored at its pitch (row_pitch of the true head dim), the columns past
+// the true head dim zeros, those past the pitch not stored.
 // kScaleOff (B9; 0 for none): each tile's kN K and V scales lie at
 // base + kScaleOff (kKStages K slots, then kVStages V slots) and land with
 // the tile: S is multiplied by

@@ -82,17 +82,23 @@ __device__ __forceinline__ void kv_round(float x, int8_t* out) {
 }
 __device__ __forceinline__ void kv_round(float x, e4m3* out) { *out = e4m3(x); }
 
-// The head dim of the layout that P / B2, D1, B4, B5, B6, B12, B13a / B13b
-// and, over rows of one-byte elements (elem 1), B7, B8, B9 and QA run a true
-// head dim d in:
-// the least of 64, 128 and 256 at or above d, whose TMA boxes read d's
-// columns and zeros past them (ops/_build.py padded_head_dim); 0 for a d
-// that no layout takes: a row of elem d bytes that is not a multiple of 16
-// (TMA's stride rule: d a multiple of 8 for 2-byte elements, of 16 for
-// one-byte ones), or d outside 1..256.
-inline int padded_head_dim(int d, int elem = 2) {
-  if (d < 1 || d > 256 || d * elem % 16) return 0;
+// The head dim of the layout that every attention kernel (P / B2 and
+// P-i8 / B2-i8, K8, D1, B4, B5, B6, B12, B13a / B13b and, over rows of
+// one-byte elements, B7, B8, B9 and QA) runs a true head dim d in: the
+// least of 64, 128 and 256 at or above d, whose TMA boxes read d's columns
+// and zeros past them (ops/_build.py padded_head_dim); 0 for a d outside
+// 1..256. Rows at row_pitch(d, elem) meet TMA's stride rule at every d.
+inline int padded_head_dim(int d) {
+  if (d < 1 || d > 256) return 0;
   return d <= 64 ? 64 : d <= 128 ? 128 : 256;
+}
+
+// Elements from one row of head dim d to the next in a buffer read by TMA:
+// d rounded up to a whole 16 bytes of `elem`-byte elements
+// (ops/_build.py row_pitch). The kernels that store rows in pairs of
+// columns write their outputs at row_pitch(d, 2).
+__host__ __device__ constexpr int row_pitch(int d, int elem = 2) {
+  return (d + 16 / elem - 1) / (16 / elem) * (16 / elem);
 }
 
 __device__ __forceinline__ float warp_max(float v) {

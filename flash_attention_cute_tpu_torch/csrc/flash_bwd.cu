@@ -78,17 +78,19 @@
 // layout of D 64 / 128; D 256 has one of its own (flash_bwd_dkv_kernel_d256,
 // flash_bwd_dq_kernel_d256, below), under the same rules.
 //
-// Head dims: every multiple of 8 from 8 to 256, each run in the layout of
-// the next of 64, 128 and 256 at or above it (padded_head_dim), as P / B2
-// run theirs (flash_fwd.cu). The maps hold the true d columns, so TMA reads
-// zeros past them (each box still credits its whole size to the mbarrier):
-// S, dP, P and dS are exact, and the columns of dK, dV and dQ past d are
-// zeros, which are not stored. d is the row stride and the column bound of
-// every store and of the split partials: each kernel has a `kPad`
-// instantiation that reads d from its parameters, launched for d < D, and
-// one for d == D whose stores keep D as a constant, the code of the layout
-// before the rule (a runtime bound in every instantiation cost B13a 3 % at
-// D 256: PERF.md). The TPU wrapper pads D to its 128 lanes instead
+// Head dims: every d from 1 to 256, each run in the layout of the next of
+// 64, 128 and 256 at or above it (padded_head_dim), as P / B2 run theirs
+// (flash_fwd.cu). The maps hold the true d columns (rows at any 16-byte
+// stride), so TMA reads zeros past them (each box still credits its whole
+// size to the mbarrier): S, dP, P and dS are exact, and the columns of dK,
+// dV and dQ past d are zeros. The kernels store rows of the pitch
+// row_pitch(d) (zeros past d), which the launch hands them as `d`: it is
+// the row stride and the column bound of every store and of the split
+// partials. Each kernel has a `kPad` instantiation that reads the pitch
+// from its parameters, launched for a pitch below D, and one for a pitch
+// of D whose stores keep D as a constant, the code of the layout before
+// the rule (a runtime bound in every instantiation cost B13a 3 % at D 256:
+// PERF.md). The TPU wrapper pads D to its 128 lanes instead
 // (flash_bwd.py:287, :300-302).
 #include "hopper.cuh"
 
@@ -106,7 +108,7 @@ struct BwdParams {
   float scale;
   int causal;
   int window;  // W > 0, or 0 for none
-  int d;       // the true head dim: D, or below it in D's layout
+  int d;       // the true head dim (D or below it); on the device the outputs' row pitch
 };
 
 constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
@@ -978,6 +980,8 @@ int launch_bwd(const BwdParams& p, const BwdViews& w, cudaStream_t stream) {
   const int q_rows = kDkv ? kTile : block, kv_rows = kDkv ? block : kTile;
   // The maps hold the true d columns: a box reads zeros past them.
   CUtensorMap qmap, omap, kmap, vmap;
+  BwdParams kp = p;
+  kp.d = row_pitch(p.d);  // the outputs' row pitch
   if (!head_map(&qmap, w.dtype, w.q, p.batch, p.hq, p.sq, p.d, w.q_sb, w.q_sh, w.q_ss, q_rows) ||
       !head_map(&omap, w.dtype, w.dout, p.batch, p.hq, p.sq, p.d, w.o_sb, w.o_sh, w.o_ss, q_rows) ||
       !head_map(&kmap, w.dtype, w.k, p.batch, p.hkv, p.skv, p.d, w.k_sb, w.k_sh, w.k_ss, kv_rows) ||
@@ -988,20 +992,22 @@ int launch_bwd(const BwdParams& p, const BwdViews& w, cudaStream_t stream) {
            : static_cast<long long>((p.sq + block - 1) / block) * p.hq * p.batch;
   if (blocks <= 0) return cudaSuccess;
   if (blocks > 0x7FFFFFFF) return cudaErrorInvalidValue;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, kSmem, stream>>>(qmap, omap, kmap, vmap, p);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, kSmem, stream>>>(qmap, omap, kmap, vmap, kp);
   if (!kDkv || p.splits == 1) return cudaGetLastError();
-  const int64_t part = static_cast<int64_t>(p.batch) * p.hkv * p.skv * p.d;
+  const int64_t part = static_cast<int64_t>(p.batch) * p.hkv * p.skv * kp.d;
   const unsigned combine_blocks = static_cast<unsigned>((part / 4 + 255) / 256);
-  flash_bwd_dkv_combine<T><<<combine_blocks, 256, 0, stream>>>(p, part);
+  flash_bwd_dkv_combine<T><<<combine_blocks, 256, 0, stream>>>(kp, part);
   return cudaGetLastError();
 }
 
 template <typename T, int D, bool kDkv>
 int launch_layout(const BwdParams& p, const BwdViews& w, cudaStream_t s) {
-  return p.d < D ? launch_bwd<T, D, kDkv, true>(p, w, s) : launch_bwd<T, D, kDkv, false>(p, w, s);
+  return row_pitch(p.d) < D ? launch_bwd<T, D, kDkv, true>(p, w, s)
+                            : launch_bwd<T, D, kDkv, false>(p, w, s);
 }
 
-// d runs in the layout of padded_head_dim(d), padded below it.
+// d runs in the layout of padded_head_dim(d), padded where its pitch is
+// below the layout's D.
 template <bool kDkv>
 int dispatch_bwd(const BwdParams& p, const BwdViews& w, cudaStream_t s) {
   using bf16 = __nv_bfloat16;
@@ -1058,9 +1064,10 @@ extern "C" int fact_bwd_report(char* out, int cap) {
 // One launch function for both kernels, counted apart by the wrapper
 // (ops/flash_bwd.py): `dkv` 1 launches B13a into out0 = dK and out1 = dV
 // (with `splits` > 1, through the fp32 workspace `ws` of 2 x splits x
-// B x Hkv x Skv x d floats and the combine pass), 0 launches B13b into
-// out0 = dQ (`ws`, `splits` unused); outputs contiguous, rows of d. d: a
-// multiple of 8 from 8 to 256 (padded_head_dim). lse and delta are [B, Hq, Sq rounded
+// B x Hkv x Skv x row_pitch(d) floats and the combine pass), 0 launches
+// B13b into out0 = dQ (`ws`, `splits` unused); outputs contiguous but for
+// their rows, which lie at row_pitch(d). d: from 1 to 256
+// (padded_head_dim). lse and delta are [B, Hq, Sq rounded
 // up to 128] fp32, contiguous, +inf / 0 past Sq. Returns a cudaError_t code
 // (0 on success). Shapes, strides, dtypes and the plan are checked by the
 // wrapper.

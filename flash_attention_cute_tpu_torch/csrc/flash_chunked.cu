@@ -4,11 +4,12 @@
 // with a sliding window W > 0, `col > q_offset[b] + r - W`; a row with no
 // visible key, and a batch row of kv_length 0, is exact zeros. The tanh
 // soft cap (`softcap_log2`, c * log2(e), 0 for none) applies to every score
-// before the mask. Head dims: every multiple of 8 from 8 to 256, each run
-// in the layout of the next of 64, 128 and 256 at or above it
-// (padded_head_dim), as P: the maps hold the true d columns, so TMA reads
-// zeros past them, S is exact and O's columns past d are not stored (the
-// TPU wrapper pads D to its 128 lanes, flash_chunked.py:283). GQA: q head
+// before the mask. Head dims: every d from 1 to 256, each run in the
+// layout of the next of 64, 128 and 256 at or above it (padded_head_dim),
+// as P: the maps hold the true d columns, so TMA reads zeros past them, S
+// is exact and O (and the partials' o) is stored at the row pitch
+// row_pitch(d), its columns past d zeros (the TPU wrapper pads D to its
+// 128 lanes, flash_chunked.py:283). GQA: q head
 // h reads kv head h / (Hq / Hkv).
 //
 // Replaces the TPU kernel flash_attention_cute_tpu/ops/flash_chunked.py
@@ -76,7 +77,7 @@
 namespace fact {
 
 struct ChunkedParams {
-  void* o;               // [B, Hq, S, d] contiguous
+  void* o;               // [B, Hq, S, d], rows at the pitch `d` holds on the device
   const int* q_offset;   // [B] int32: global position of q row 0
   const int* kv_length;  // [B] int32: keys visible to the chunk (0 = inactive)
   int batch, hq, group, sq, capacity;
@@ -87,7 +88,7 @@ struct ChunkedParams {
   Scores sc;
   int causal;
   int window;  // W > 0, or 0 for none
-  int d;       // the true head dim, D or below it in D's layout
+  int d;       // the true head dim (D or below it); on the device O's row pitch
   float *m, *l;  // the partials' m and l [B, Hq, S] (kPartials; `o` then fp32)
 };
 
@@ -238,7 +239,7 @@ int launch_chunked(const ChunkedParams& p, const ChunkedViews& w, cudaStream_t s
   // holds the true d columns, so a box reads zeros past them.
   const CUtensorMapDataType type = w.dtype == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
-  const long long row = 2LL * p.d;
+  const long long row = 2LL * row_pitch(p.d);  // size-1 dims' stride
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(p.d), static_cast<cuuint64_t>(p.sq),
                               static_cast<cuuint64_t>(p.hq), static_cast<cuuint64_t>(p.batch)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(p.sq > 1 ? 2 * w.q_ss : row),
@@ -254,7 +255,9 @@ int launch_chunked(const ChunkedParams& p, const ChunkedViews& w, cudaStream_t s
       !head_map(&vmap, w.dtype, w.v, p.batch, w.hkv, p.capacity, p.d, w.v_sb, w.v_sh, w.v_ss,
                 kN))
     return cudaErrorInvalidValue;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, S::kBytes, stream>>>(qmap, kmap, vmap, p);
+  ChunkedParams kp = p;
+  kp.d = row_pitch(p.d);  // O's row pitch
+  kernel<<<static_cast<unsigned>(blocks), kThreads, S::kBytes, stream>>>(qmap, kmap, vmap, kp);
   return cudaGetLastError();
 }
 
@@ -375,8 +378,9 @@ extern "C" int fact_flash_chunked(const void* q, const void* k, const void* v, v
                              dtype, stream);
 }
 
-// The (o, m, l) partials: `o` [B, Hq, S, d] fp32 (not divided by l), `m`
-// and `l` [B, Hq, S] fp32, all contiguous; the other arguments as above.
+// The (o, m, l) partials: `o` [B, Hq, S, d] fp32 (not divided by l) at
+// rows of row_pitch(d) floats, `m` and `l` [B, Hq, S] fp32, all otherwise
+// contiguous; the other arguments as above.
 extern "C" int fact_flash_chunked_partials(
     const void* q, const void* k, const void* v, void* o, void* m, void* l,
     const void* q_offset, const void* kv_length, int batch, int hq, int hkv, int sq,

@@ -22,13 +22,16 @@
 // Both take the tanh soft cap (`softcap_log2`, c * log2(e), 0 for none),
 // applied to every score before the mask in the base-2 units of the body:
 // x = c2 * tanh(x / c2), c2 = c * log2(e), which is log2(e) times the TPU
-// kernels' c * tanh(s / c) of the natural score s. Head dims: every
-// multiple of 8 from 8 to 256, each run in the layout of the next of 64,
-// 128 and 256 at or above it (padded_head_dim): the maps hold the true d
-// columns, so TMA reads zeros past them, S is exact and O's columns past d
-// are not stored (the TPU wrapper pads D up to its 128 lanes likewise and
-// keeps a D above 128 native, flash_fwd.py:926-938). P-i8 / B2-i8 take 64,
-// 128 and 256.
+// kernels' c * tanh(s / c) of the natural score s. Head dims: every d
+// from 1 to 256, each run in the layout of the next of 64, 128 and 256 at
+// or above it (padded_head_dim): the maps hold the true d columns (rows at
+// any 16-byte stride, row_pitch), so TMA reads zeros past them, S is exact
+// and O is stored at the row pitch row_pitch(d), its columns past d zeros
+// (the TPU wrapper pads D up to its 128 lanes likewise and keeps a D above
+// 128 native, flash_fwd.py:926-938). P-i8 / B2-i8 likewise: K8 writes its
+// int8 rows at row_pitch(d, 1) with zeros past d, and their kPad
+// instantiation (a pitch below the layout's D) stores the pitch's columns
+// only, so at d == D they keep the kernels they had.
 // With `lse` not null they also write the per-row lse the backward
 // (flash_bwd.cu) reads (`return_lse`, flash_fwd.py:845): m + log2(l) in the
 // base-2 units of the scores, +inf on a row with no visible key, the TPU
@@ -61,7 +64,7 @@
 namespace fact {
 
 struct FwdParams {
-  void* o;     // [B, Hq, Sq, d] contiguous
+  void* o;     // [B, Hq, Sq, d], rows at the pitch `d` holds on the device
   float* lse;  // [B, Hq, Sq] fp32 contiguous, or null
   int batch, hq, group, sq, skv;
   Scores sc;
@@ -71,7 +74,9 @@ struct FwdParams {
   // multiple of 128 >= Skv, 0 past Skv).
   const float* kscale;
   int kscale_rows;
-  int d;  // the true head dim: D, or below it in D's layout (P / B2)
+  // The true head dim (D, or below it in D's layout) on the host; the
+  // kernel is launched with O's row pitch, row_pitch(d), in its place.
+  int d;
 };
 
 // K and V stream through rings of their own (attention_wgmma.cuh): a K tile
@@ -91,8 +96,10 @@ struct FwdSmem {
 };
 
 // kCap: the soft cap is compiled in (a launch with softcap_log2 > 0).
-// kI8: int8 scores (P-i8 / B2-i8): k is K8's int8 [B, Hkv, Skv, D].
-template <typename T, int D, bool kCap, bool kI8>
+// kI8: int8 scores (P-i8 / B2-i8): k is K8's int8 [B, Hkv, Skv, d].
+// kPad (kI8 only): O's row pitch p.d is below D, and only its columns are
+// stored; P / B2 store p.d columns at every d.
+template <typename T, int D, bool kCap, bool kI8, bool kPad = false>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap kmap,
@@ -157,7 +164,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   setmaxnreg_inc<240>();
   consume<T, D, kCap, kI8 ? S::kScaleOff : 0, kI8>(
       r, Visible{p.sq, p.skv, offset, p.causal, p.window}, p.sc, m0, n_begin, total,
-      static_cast<T*>(p.o), p.lse, b * p.hq + h, kI8 ? D : p.d);
+      static_cast<T*>(p.o), p.lse, b * p.hq + h, kI8 && !kPad ? D : p.d);
 }
 
 // ---------------------------------------------------------------------------
@@ -165,19 +172,22 @@ __global__ void __launch_bounds__(kThreads, 1)
 // call (the TPU kernels quantize each K sub-block again for every q tile,
 // `_quantize_k_rows`, flash_attention_cute_tpu/ops/flash_fwd.py:79): for
 // each row of a strided [B, Hkv, Skv, D] view, b = max |k_row| (1 where 0),
-// values rint(k * (127 / b)) clipped to +-127 into a contiguous int8
-// [B, Hkv, Skv, D], and b into fp32 [B, Hkv, kscale_rows], 0 past Skv.
+// values rint(k * (127 / b)) clipped to +-127 into int8
+// [B, Hkv, Skv, d] at a row pitch of row_pitch(d, 1) bytes (zeros past d,
+// so that P-i8's 128-byte K boxes read zeros there), and b into fp32
+// [B, Hkv, kscale_rows], 0 past Skv.
 // Bit-identical to the plain version: one IEEE quotient, one product, ties
-// to even. It moves 2 D + D + 4 bytes a row and computes next to nothing:
+// to even. It moves 2 d + d + 4 bytes a row and computes next to nothing:
 // bytes bound it, so a warp takes a row with coalesced 4-byte loads and
-// 2-byte stores, eight warps a block.
+// 2-byte stores, eight warps a block; below the layout's D (kPad) with
+// 2-byte loads and 1-byte stores of the row's d columns and its pitch.
 constexpr int kQuantRowsPerBlock = 8;
 
-template <typename T, int D>
+template <typename T, int D, bool kPad>
 __global__ void __launch_bounds__(32 * kQuantRowsPerBlock)
     quantize_k_rows_kernel(const T* k, int8_t* values, float* scales, int hkv, int skv,
                            int kscale_rows, long long rows, long long sb, long long sh,
-                           long long ss) {
+                           long long ss, int d) {
   const long long row = static_cast<long long>(blockIdx.x) * kQuantRowsPerBlock + threadIdx.x / 32;
   if (row >= rows) return;
   const int lane = threadIdx.x & 31;
@@ -187,8 +197,32 @@ __global__ void __launch_bounds__(32 * kQuantRowsPerBlock)
     if (lane == 0) scales[row] = 0.f;
     return;
   }
-  const uint32_t* src = reinterpret_cast<const uint32_t*>(
-      k + bh / hkv * sb + bh % hkv * sh + static_cast<long long>(n) * ss);
+  const T* row_src = k + bh / hkv * sb + bh % hkv * sh + static_cast<long long>(n) * ss;
+  if constexpr (kPad) {
+    constexpr int kPer = D / 32;  // values a lane
+    float x[kPer];
+    float amax = 0.f;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int col = lane + 32 * i;
+      x[i] = col < d ? Elem<T>::to_float(row_src[col]) : 0.f;
+      amax = fmaxf(amax, fabsf(x[i]));
+    }
+    amax = warp_max(amax);
+    const float b = amax == 0.f ? 1.f : amax;
+    const float mul = 127.f / b;
+    const int pitch = row_pitch(d, 1);
+    int8_t* dst = values + (bh * skv + n) * pitch;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int col = lane + 32 * i;
+      if (col < pitch)
+        dst[col] = col < d ? static_cast<int8_t>(min(127, max(-127, __float2int_rn(x[i] * mul)))) : 0;
+    }
+    if (lane == 0) scales[row] = b;
+    return;
+  }
+  const uint32_t* src = reinterpret_cast<const uint32_t*>(row_src);
   constexpr int kPairs = D / 64;  // pairs of values a lane
   float x[2 * kPairs];
   float amax = 0.f;
@@ -223,14 +257,17 @@ int launch_quantize_k(const void* k, void* values, void* scales, int batch, int 
   const T* kt = static_cast<const T*>(k);
   int8_t* vt = static_cast<int8_t*>(values);
   float* st = static_cast<float*>(scales);
-  if (d == 64)
-    quantize_k_rows_kernel<T, 64><<<grid, block, 0, stream>>>(kt, vt, st, hkv, skv, kscale_rows, rows, sb, sh, ss);
-  else if (d == 128)
-    quantize_k_rows_kernel<T, 128><<<grid, block, 0, stream>>>(kt, vt, st, hkv, skv, kscale_rows, rows, sb, sh, ss);
-  else if (d == 256)
-    quantize_k_rows_kernel<T, 256><<<grid, block, 0, stream>>>(kt, vt, st, hkv, skv, kscale_rows, rows, sb, sh, ss);
-  else
-    return cudaErrorInvalidValue;
+  const int layout = padded_head_dim(d);
+#define K8_LAUNCH(D_, pad) \
+  quantize_k_rows_kernel<T, D_, pad><<<grid, block, 0, stream>>>(kt, vt, st, hkv, skv, kscale_rows, rows, sb, sh, ss, d)
+  if (d == 64) K8_LAUNCH(64, false);
+  else if (d == 128) K8_LAUNCH(128, false);
+  else if (d == 256) K8_LAUNCH(256, false);
+  else if (layout == 64) K8_LAUNCH(64, true);
+  else if (layout == 128) K8_LAUNCH(128, true);
+  else if (layout == 256) K8_LAUNCH(256, true);
+  else return cudaErrorInvalidValue;
+#undef K8_LAUNCH
   return cudaGetLastError();
 }
 
@@ -243,10 +280,10 @@ struct FwdViews {
   int hkv, dtype;
 };
 
-template <typename T, int D, bool kCap, bool kI8>
+template <typename T, int D, bool kCap, bool kI8, bool kPad>
 int launch_fwd(const FwdParams& p, const FwdViews& w, cudaStream_t stream) {
   using S = FwdSmem<D, kI8>;
-  auto kernel = flash_fwd_kernel<T, D, kCap, kI8>;
+  auto kernel = flash_fwd_kernel<T, D, kCap, kI8, kPad>;
   static const int configured = allow_smem(kernel, S::kBytes);  // above 48 KB needs an opt-in
   if (configured != cudaSuccess) return configured;
   const long long blocks = static_cast<long long>((p.sq + kBlockM - 1) / kBlockM) * p.hq * p.batch;
@@ -254,42 +291,51 @@ int launch_fwd(const FwdParams& p, const FwdViews& w, cudaStream_t stream) {
   if (blocks > 0x7FFFFFFF) return cudaErrorInvalidValue;
   CUtensorMap qmap, kmap, vmap;
   // The maps hold the true d columns: a box reads zeros past them.
-  const int sq = p.sq, skv = p.skv, kN = Tiles<D>::kN, d = kI8 ? D : p.d;
-  const bool kmap_ok = kI8 ? int8_head_map(&kmap, w.k, p.batch, w.hkv, skv, D, kN)
+  const int sq = p.sq, skv = p.skv, kN = Tiles<D>::kN, d = p.d;
+  const bool kmap_ok = kI8 ? int8_head_map(&kmap, w.k, p.batch, w.hkv, skv, d, D, kN)
                             : head_map(&kmap, w.dtype, w.k, p.batch, w.hkv, skv, d, w.k_sb,
                                        w.k_sh, w.k_ss, kN);
   if (!head_map(&qmap, w.dtype, w.q, p.batch, p.hq, sq, d, w.q_sb, w.q_sh, w.q_ss, kBlockM) ||
       !kmap_ok ||
       !head_map(&vmap, w.dtype, w.v, p.batch, w.hkv, skv, d, w.v_sb, w.v_sh, w.v_ss, kN))
     return cudaErrorInvalidValue;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, S::kBytes, stream>>>(qmap, kmap, vmap, p);
+  FwdParams kp = p;
+  kp.d = row_pitch(d);  // O's row pitch
+  kernel<<<static_cast<unsigned>(blocks), kThreads, S::kBytes, stream>>>(qmap, kmap, vmap, kp);
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool kI8>
+template <typename T, int D, bool kI8, bool kPad>
 int launch_cap(const FwdParams& p, const FwdViews& w, cudaStream_t s) {
-  return p.sc.softcap_log2 > 0.f ? launch_fwd<T, D, true, kI8>(p, w, s)
-                                 : launch_fwd<T, D, false, kI8>(p, w, s);
+  return p.sc.softcap_log2 > 0.f ? launch_fwd<T, D, true, kI8, kPad>(p, w, s)
+                                 : launch_fwd<T, D, false, kI8, kPad>(p, w, s);
 }
 
-// P / B2 run d in the layout of padded_head_dim(d); P-i8 / B2-i8 take
-// d 64, 128 and 256 only.
+template <typename T, int D, bool kI8>
+int launch_pad(const FwdParams& p, const FwdViews& w, cudaStream_t s) {
+  if constexpr (kI8)
+    if (row_pitch(p.d) < D) return launch_cap<T, D, true, true>(p, w, s);
+  return launch_cap<T, D, kI8, false>(p, w, s);
+}
+
+// P / B2 and P-i8 / B2-i8 run d in the layout of padded_head_dim(d).
 template <typename T, bool kI8>
 int dispatch_fwd(const FwdParams& p, const FwdViews& w, int d, cudaStream_t s) {
-  const int layout = kI8 ? d : padded_head_dim(d);
-  if (layout == 64) return launch_cap<T, 64, kI8>(p, w, s);
-  if (layout == 128) return launch_cap<T, 128, kI8>(p, w, s);
-  if (layout == 256) return launch_cap<T, 256, kI8>(p, w, s);
+  const int layout = padded_head_dim(d);
+  if (layout == 64) return launch_pad<T, 64, kI8>(p, w, s);
+  if (layout == 128) return launch_pad<T, 128, kI8>(p, w, s);
+  if (layout == 256) return launch_pad<T, 256, kI8>(p, w, s);
   return cudaErrorInvalidValue;
 }
 
 template <typename T>
 static void report_type(char* out, int cap, int& used, const char* t) {
   char name[96];
-#define FWD_REPORT(d, c, i)                                                                  \
-  snprintf(name, sizeof(name), "%s D%d %s%s", i ? "P-i8 / B2-i8" : "P / B2", d, t,           \
-           c ? " cap" : "");                                                                \
-  report_one(out, cap, used, name, (flash_fwd_kernel<T, d, c, i>), FwdSmem<d, i>::kBytes)
+#define FWD_REPORT_PAD(d, c, i, pad)                                                          \
+  snprintf(name, sizeof(name), "%s D%d %s%s%s", i ? "P-i8 / B2-i8" : "P / B2", d, t,         \
+           c ? " cap" : "", pad ? " padded" : "");                                          \
+  report_one(out, cap, used, name, (flash_fwd_kernel<T, d, c, i, pad>), FwdSmem<d, i>::kBytes)
+#define FWD_REPORT(d, c, i) FWD_REPORT_PAD(d, c, i, false)
   FWD_REPORT(64, false, false);
   FWD_REPORT(64, true, false);
   FWD_REPORT(128, false, false);
@@ -302,7 +348,14 @@ static void report_type(char* out, int cap, int& used, const char* t) {
   FWD_REPORT(128, true, true);
   FWD_REPORT(256, false, true);
   FWD_REPORT(256, true, true);
+  FWD_REPORT_PAD(64, false, true, true);
+  FWD_REPORT_PAD(64, true, true, true);
+  FWD_REPORT_PAD(128, false, true, true);
+  FWD_REPORT_PAD(128, true, true, true);
+  FWD_REPORT_PAD(256, false, true, true);
+  FWD_REPORT_PAD(256, true, true, true);
 #undef FWD_REPORT
+#undef FWD_REPORT_PAD
 }
 
 }  // namespace fact
@@ -345,8 +398,8 @@ extern "C" int fact_flash_fwd(const void* q, const void* k, const void* v, void*
   return cudaErrorInvalidValue;
 }
 
-// P-i8 / B2-i8: as fact_flash_fwd, with k8 K8's int8 [B, Hkv, Skv, D]
-// (contiguous) and kscale its fp32 scales [B, Hkv, kscale_rows]
+// P-i8 / B2-i8: as fact_flash_fwd, with k8 K8's int8 [B, Hkv, Skv, d]
+// (rows at row_pitch(d, 1) bytes, otherwise contiguous) and kscale its fp32 scales [B, Hkv, kscale_rows]
 // (kscale_rows a multiple of 128 >= Skv); q and v as there. scale_log2
 // pre-scales q (sm_scale * log2(e)) before its quantization.
 extern "C" int fact_flash_fwd_int8(const void* q, const void* k8, const void* kscale,
@@ -369,6 +422,7 @@ extern "C" int fact_flash_fwd_int8(const void* q, const void* k8, const void* ks
   p.window = window;
   p.kscale = static_cast<const float*>(kscale);
   p.kscale_rows = kscale_rows;
+  p.d = d;
   const FwdViews w{q, k8, v, q_sb, q_sh, q_ss, 0, 0, 0, v_sb, v_sh, v_ss, hkv, dtype};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) return dispatch_fwd<__nv_bfloat16, true>(p, w, d, s);
@@ -376,9 +430,10 @@ extern "C" int fact_flash_fwd_int8(const void* q, const void* k8, const void* ks
   return cudaErrorInvalidValue;
 }
 
-// K8: k a strided [B, Hkv, Skv, D] bf16 / f16 view (strides in elements,
-// D contiguous); values int8 [B, Hkv, Skv, D] and scales fp32
-// [B, Hkv, kscale_rows] contiguous (kscale_rows a multiple of 128 >= Skv).
+// K8: k a strided [B, Hkv, Skv, d] bf16 / f16 view (strides in elements,
+// d contiguous); values int8 [B, Hkv, Skv, d] at rows of row_pitch(d, 1)
+// bytes, otherwise contiguous, and scales fp32 [B, Hkv, kscale_rows]
+// contiguous (kscale_rows a multiple of 128 >= Skv).
 extern "C" int fact_quantize_k_rows(const void* k, void* values, void* scales, int batch, int hkv,
                                     int skv, int d, int kscale_rows, long long k_sb,
                                     long long k_sh, long long k_ss, int dtype, void* stream) {

@@ -8,11 +8,12 @@
 // kv_pos[n] <= q_bound[m] (bottom-right alignment per sequence), and with a
 // sliding window W kv_pos[n] > q_bound[m] - W. The tanh soft cap
 // (`softcap_log2`, c * log2(e), 0 for none) applies to every score before
-// the mask. Head dims: every multiple of 8 from 8 to 256, each run in the
-// layout of the next of 64, 128 and 256 at or above it (padded_head_dim),
-// as P does (flash_fwd.cu): the maps hold the true d columns, so TMA
-// reads zeros past them, S is exact and O's columns past d are not stored
-// (the TPU wrapper pads D to its 128 lanes, flash_varlen.py:255). A row
+// the mask. Head dims: every d from 1 to 256, each run in the layout of
+// the next of 64, 128 and 256 at or above it (padded_head_dim), as P does
+// (flash_fwd.cu): the maps hold the true d columns, so TMA reads zeros
+// past them, S is exact and O is stored at the row pitch row_pitch(d),
+// its columns past d zeros (the TPU wrapper pads D to its 128 lanes,
+// flash_varlen.py:255). A row
 // with no visible key (q longer than kv in a sequence, an empty kv
 // sequence) is exact zeros.
 //
@@ -61,7 +62,7 @@
 namespace fact {
 
 struct VarlenParams {
-  void* o;              // [Hq, Tq, d] contiguous
+  void* o;              // [Hq, Tq, d], rows at the pitch `d` holds on the device
   const int* q_seg;     // [Tq]
   const int* q_bound;   // [Tq]
   const int* kv_meta;   // [2, meta_stride]: kv_seg, then kv_pos; padded past Tkv
@@ -70,7 +71,7 @@ struct VarlenParams {
   Scores sc;
   int causal;
   int window;  // W > 0, or 0 for none
-  int d;       // the true head dim: D, or below it in D's layout
+  int d;       // the true head dim (D or below it); on the device O's row pitch
 };
 
 template <int D>
@@ -208,7 +209,9 @@ int launch_varlen(const VarlenParams& p, const VarlenViews& w, cudaStream_t stre
       !head_map(&kmap, w.dtype, w.k, 1, w.hkv, p.tkv, p.d, 0, w.k_sh, w.k_ss, kN) ||
       !head_map(&vmap, w.dtype, w.v, 1, w.hkv, p.tkv, p.d, 0, w.v_sh, w.v_ss, kN))
     return cudaErrorInvalidValue;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, S::kBytes, stream>>>(qmap, kmap, vmap, p);
+  VarlenParams kp = p;
+  kp.d = row_pitch(p.d);  // O's row pitch
+  kernel<<<static_cast<unsigned>(blocks), kThreads, S::kBytes, stream>>>(qmap, kmap, vmap, kp);
   return cudaGetLastError();
 }
 

@@ -398,14 +398,14 @@ static bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* bas
   return make_map(map, type, 2, base, dims, strides, box);
 }
 
-// A [B, H, S, D] view (strides in elements, D contiguous) as a 4-D TMA map
+// A [B, H, S, d] view (strides in elements, d contiguous) as a 4-D TMA map
 // with boxes of 64 columns x `box_rows` rows. A dimension of size 1 gets
-// the row's byte count as its stride (never stepped; any multiple of 16
-// would do); no dimension of size 0 reaches the map (S is taken as at
-// least 1, and a block with nothing to load issues no copy).
+// the row's byte count rounded up to 16 as its stride (never stepped; any
+// multiple of 16 would do); no dimension of size 0 reaches the map (S is
+// taken as at least 1, and a block with nothing to load issues no copy).
 static bool head_map(CUtensorMap* map, int dtype, const void* base, int batch, int heads, int s,
                      int d, long long sb, long long sh, long long ss, int box_rows) {
-  const long long row = 2LL * d;
+  const long long row = 2LL * row_pitch(d);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(s > 1 ? s : 1),
                               static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s > 1 ? 2 * ss : row),
@@ -417,20 +417,21 @@ static bool head_map(CUtensorMap* map, int dtype, const void* base, int batch, i
                   4, base, dims, strides, box);
 }
 
-// A contiguous int8 [B, H, S, D] array as a 4-D TMA map with boxes of
-// min(D, 128) bytes x `box_rows` rows: the 128-byte swizzle, the 64-byte
-// one at D 64 (whose rows are 64 bytes).
+// An int8 [B, H, S, d] array, its rows at row_pitch(d, 1) bytes and
+// otherwise contiguous, as a 4-D TMA map of d columns with boxes of
+// min(D, 128) bytes x `box_rows` rows (D the layout's head dim): the
+// 128-byte swizzle, the 64-byte one at D 64 (whose rows are 64 bytes).
 static bool int8_head_map(CUtensorMap* map, const void* base, int batch, int heads, int s, int d,
-                          int box_rows) {
-  const long long row = d, head = static_cast<long long>(s > 1 ? s : 1) * row;
+                          int D, int box_rows) {
+  const long long row = row_pitch(d, 1), head = static_cast<long long>(s > 1 ? s : 1) * row;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(s > 1 ? s : 1),
                               static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(row), static_cast<cuuint64_t>(head),
                                  static_cast<cuuint64_t>(heads * head)};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(d < 128 ? d : 128),
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(D < 128 ? D : 128),
                              static_cast<cuuint32_t>(box_rows), 1, 1};
   return make_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, base, dims, strides, box,
-                  d == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
+                  D == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <typename Kernel>

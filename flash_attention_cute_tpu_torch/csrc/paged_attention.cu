@@ -8,10 +8,11 @@
 //     merged by D2 (flash_decode.cu), whose partials layout [B, Hkv, S, G,
 //     D] is the same. With a sliding window W the splits cut the visible
 //     range [max(0, length - W), length). B5 and B6 take the tanh soft cap
-//     (`softcap_log2`, c * log2(e), 0 for none) and every head dim that is
-//     a multiple of 8 up to 256, each run in the layout of 64, 128 or 256
-//     (padded_head_dim; zeros past d); the append takes any row of a
-//     multiple of 16 bytes.
+//     (`softcap_log2`, c * log2(e), 0 for none) and every head dim from 1
+//     to 256, each run in the layout of 64, 128 or 256 (padded_head_dim;
+//     zeros past d); the append takes rows of any byte count, each at a
+//     16-byte stride, and writes no byte past it (a pool's pitch columns
+//     stay zero).
 //   * B6, paged extend: replaces `_paged_extend_kernel` (:391, pallas_call at
 //     :742). Chunked prefill: the chunk's S query rows sit at global
 //     positions q_offset[b] + r and attend keys `col <= q_offset + r`,
@@ -54,7 +55,19 @@ struct AppendParams {
   int64_t kn_sb, kn_sh, kn_ss, vn_sb, vn_sh, vn_ss;  // byte strides
   int64_t kp_sh, kp_sp, kp_ss, vp_sh, vp_sp, vp_ss;
   int hkv, pps, page_size, row_chunks;  // row_chunks: 16-byte chunks per head row
+  int row_bytes;                        // the row's bytes: the last chunk may hold fewer
 };
+
+// The first `live` bytes of a 16-byte chunk, zeros past them.
+__device__ __forceinline__ uint4 keep_bytes(uint4 v, int live) {
+  uint32_t* w = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int n = min(max(live - 4 * e, 0), 4);  // bytes of word e to keep
+    w[e] &= n == 4 ? 0xFFFFFFFFu : (1u << (8 * n)) - 1u;
+  }
+  return v;
+}
 
 __global__ void paged_append_kernel(const AppendParams p) {
   const int s = blockIdx.x, b = blockIdx.y;
@@ -67,10 +80,14 @@ __global__ void paged_append_kernel(const AppendParams p) {
   for (int c = threadIdx.x; c < p.hkv * p.row_chunks; c += blockDim.x) {
     const int h = c / p.row_chunks;
     const int64_t col = (c % p.row_chunks) * 16;
-    const uint4 kv = *reinterpret_cast<const uint4*>(
+    uint4 kv = *reinterpret_cast<const uint4*>(
         p.k_new + b * p.kn_sb + h * p.kn_sh + s * p.kn_ss + col);
-    const uint4 vv = *reinterpret_cast<const uint4*>(
+    uint4 vv = *reinterpret_cast<const uint4*>(
         p.v_new + b * p.vn_sb + h * p.vn_sh + s * p.vn_ss + col);
+    if (col + 16 > p.row_bytes) {  // the row's last chunk: the pitch stays zero
+      kv = keep_bytes(kv, p.row_bytes - static_cast<int>(col));
+      vv = keep_bytes(vv, p.row_bytes - static_cast<int>(col));
+    }
     *reinterpret_cast<uint4*>(p.k_pages + h * p.kp_sh + page * p.kp_sp + off * p.kp_ss + col) = kv;
     *reinterpret_cast<uint4*>(p.v_pages + h * p.vp_sh + page * p.vp_sp + off * p.vp_ss + col) = vv;
   }
@@ -170,7 +187,7 @@ extern "C" int fact_paged_append(
     long long kp_sh, long long kp_sp, long long kp_ss,
     long long vp_sh, long long vp_sp, long long vp_ss, void* stream) {
   using namespace fact;
-  if (row_bytes % 16) return cudaErrorInvalidValue;
+  if (row_bytes < 1) return cudaErrorInvalidValue;
   AppendParams p{};
   p.k_new = static_cast<const unsigned char*>(k_new);
   p.v_new = static_cast<const unsigned char*>(v_new);
@@ -183,7 +200,8 @@ extern "C" int fact_paged_append(
   p.vn_sb = vn_sb, p.vn_sh = vn_sh, p.vn_ss = vn_ss;
   p.kp_sh = kp_sh, p.kp_sp = kp_sp, p.kp_ss = kp_ss;
   p.vp_sh = vp_sh, p.vp_sp = vp_sp, p.vp_ss = vp_ss;
-  p.hkv = hkv, p.pps = pps, p.page_size = page_size, p.row_chunks = row_bytes / 16;
+  p.hkv = hkv, p.pps = pps, p.page_size = page_size, p.row_chunks = (row_bytes + 15) / 16;
+  p.row_bytes = row_bytes;
   const dim3 grid(s, batch);
   paged_append_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return cudaGetLastError();

@@ -24,11 +24,12 @@
 // stages and writes its own rows only and reads its kv head's keys itself;
 // a group of at most 32 is one chunk, the block of the whole group. The TPU
 // kernels pad the group to a multiple of 8 instead (flash_decode.py:209-212,
-// paged_attention.py:301, quantized.py:248). Every head dim d runs in the
-// layout D of padded_head_dim(d, sizeof(KV)): D1 and B5 take every multiple
-// of 8 up to 256, B7 and B8 (one-byte rows) every multiple of 16. The maps
+// paged_attention.py:301, quantized.py:248). Every head dim d from 1 to
+// 256 runs in the layout D of padded_head_dim(d), the cache's rows at any
+// 16-byte stride (row_pitch(d, sizeof(KV)) in the port's caches). The maps
 // hold d columns, so TMA reads zeros past them into the tiles (int8 0 and
-// e4m3 +0 widen to exact zeros), q is zero past d in shared memory, and only
+// e4m3 +0 widen to exact zeros), q is zero past d in shared memory (its
+// last 16-byte chunk masked: q's rows lie at a 16-byte stride), and only
 // d columns of the partials are written (the TPU kernels pad D to their 128
 // lanes likewise, flash_decode.py:215, paged_attention.py:302,
 // quantized.py:249, :614). How keys are found is a template
@@ -347,9 +348,17 @@ __device__ __forceinline__ void decode_body(const CUtensorMap& kmap, const CUten
   for (int i = threadIdx.x - 32; i < 16 * mts * (D / 8); i += 32 * kDecodeConsumers) {
     const int g = i / (D / 8), col = i % (D / 8);
     uint4 v = make_uint4(0, 0, 0, 0);  // rows past the chunk and columns past d are zero
-    if (g < R && col < d / 8)
+    if (g < R && col * 8 < d) {
       v = *reinterpret_cast<const uint4*>(static_cast<const T*>(p.q) + b * p.q_sb +
                                           (hk * G + g0 + g) * p.q_sh + col * 8);
+      const int live = d - col * 8;  // the chunk's columns before d
+      if (live < 8) {  // the 16-byte chunk that holds column d
+        uint32_t* w = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          w[e] &= 2 * e + 1 < live ? 0xFFFFFFFFu : 2 * e < live ? 0x0000FFFFu : 0u;
+      }
+    }
     sts_u32x4(sQ + g * L::kQPitch + col * 16, v);
   }
   named_sync(1, 32 * kDecodeConsumers);
@@ -663,7 +672,7 @@ int launch_paged_decode_cap(const PagedDecodeParams& p, const PagedViews& w, int
 template <typename T, typename KV, bool kContig = false>
 int dispatch_paged_decode(const PagedDecodeParams& p, const PagedViews& w, int batch, int d,
                           cudaStream_t s) {
-  const int layout = padded_head_dim(d, sizeof(KV));
+  const int layout = padded_head_dim(d);
   if (layout == 64) return launch_paged_decode_cap<T, KV, 64, kContig>(p, w, batch, s);
   if (layout == 128) return launch_paged_decode_cap<T, KV, 128, kContig>(p, w, batch, s);
   if (layout == 256) return launch_paged_decode_cap<T, KV, 256, kContig>(p, w, batch, s);

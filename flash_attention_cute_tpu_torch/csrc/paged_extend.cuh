@@ -18,12 +18,12 @@
 // key's K scale in fp32 before the cap, P by each key's V scale before it is
 // rounded to q's type (the TPU kernel's `(p * vscale).astype(...)`); no
 // scale is folded into a rounded K / V value. Every head dim d runs in the
-// layout D of padded_head_dim(d, sizeof(KV)): B6 takes every multiple of 8
-// up to 256, B9 (one-byte rows) every multiple of 16. As in P, the maps
-// hold d columns, TMA reads zeros past them (B9's raw boxes too, which the
-// widening turns into exact zeros), O's columns past d are not stored (the
-// TPU kernels pad D to their 128 lanes, paged_attention.py:665,
-// quantized.py:995).
+// layout D of padded_head_dim(d), from 1 to 256, its pool rows at any
+// 16-byte stride (row_pitch(d, sizeof(KV)) in the port's pools). As in P,
+// the maps hold d columns, TMA reads zeros past them (B9's raw boxes too,
+// which the widening turns into exact zeros), and O is stored at the row
+// pitch row_pitch(d), its columns past d zeros (the TPU kernels pad D to
+// their 128 lanes, paged_attention.py:665, quantized.py:995).
 //
 // What bounds them on the H100: tensor-core operations (4 D per visible
 // (row, key) pair and q head) at chunk lengths, far above the card's ~295
@@ -63,7 +63,7 @@
 namespace fact {
 
 struct PagedParams {
-  void* o;                // [B, Hq, Sq, d] contiguous
+  void* o;                // [B, Hq, Sq, d], rows at the pitch `d` holds on the device
   const int* q_offset;    // [B] int32: global position of q row 0
   const int* kv_length;   // [B] int32: keys visible to the chunk (0 = inactive)
   const int* page_table;  // [B, pps] int32
@@ -74,7 +74,7 @@ struct PagedParams {
   int box_rows;  // keys of one copy: a page, or a part of one
   Scores sc;
   int window;  // W > 0, or 0 for none
-  int d;       // the true head dim, D or below it in D's layout
+  int d;       // the true head dim (D or below it); on the device O's row pitch
 };
 
 // Shared memory: Q, the K and V slots (Rings), B9's raw slots at D 64 and
@@ -349,11 +349,12 @@ struct PagedViews {
 
 // A 4-D map (D, ps, P, Hkv) of one layer's pool [Hkv, P, ps, D] (element
 // strides, D contiguous) with boxes of `cols` values x `rows` keys of one
-// page. A dimension of size 1 gets the row's byte count as its stride.
+// page. A dimension of size 1 gets the row's byte count, rounded up to 16,
+// as its stride.
 static bool pool_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* base, int d,
                      int ps, int pages, int hkv, long long ss, long long sp, long long sh, int cols,
                      int rows, CUtensorMapSwizzle swizzle) {
-  const long long row = static_cast<long long>(elem) * d;
+  const long long row = static_cast<long long>(elem) * row_pitch(d, elem);  // size-1 dims' stride
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(ps),
                               static_cast<cuuint64_t>(pages), static_cast<cuuint64_t>(hkv)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ps > 1 ? elem * ss : row),
@@ -389,7 +390,9 @@ int launch_paged_extend(const PagedParams& p, const PagedViews& w, cudaStream_t 
       !pool_map(&vmap, type, elem, w.v, d, p.page_size, w.num_pages, w.hkv, w.v_ss, w.v_sp, w.v_sh,
                 cols, p.box_rows, swizzle))
     return cudaErrorInvalidValue;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, S::kBytes, stream>>>(qmap, kmap, vmap, p);
+  PagedParams kp = p;
+  kp.d = row_pitch(d);  // O's row pitch
+  kernel<<<static_cast<unsigned>(blocks), kThreads, S::kBytes, stream>>>(qmap, kmap, vmap, kp);
   return cudaGetLastError();
 }
 
@@ -399,10 +402,10 @@ int launch_paged_extend_cap(const PagedParams& p, const PagedViews& w, cudaStrea
                                  : launch_paged_extend<T, KV, D, false>(p, w, s);
 }
 
-// B6 and B9 run d in the layout of padded_head_dim for their element size.
+// B6 and B9 run d in the layout of padded_head_dim(d).
 template <typename T, typename KV>
 int dispatch_paged_extend(const PagedParams& p, const PagedViews& w, int d, cudaStream_t s) {
-  const int layout = padded_head_dim(d, sizeof(KV));
+  const int layout = padded_head_dim(d);
   if (layout == 64) return launch_paged_extend_cap<T, KV, 64>(p, w, s);
   if (layout == 128) return launch_paged_extend_cap<T, KV, 128>(p, w, s);
   if (layout == 256) return launch_paged_extend_cap<T, KV, 256>(p, w, s);

@@ -5,8 +5,8 @@
 // int8 / e4m3 pool [Hkv, P, ps, D] with
 // f32 scales [Hkv, P, ps] through the page table; D2 (flash_decode.cu)
 // merges the splits. It takes B2's sliding window, the tanh soft cap and
-// every head dim that is a multiple of 16 up to 256, in the layout of 64,
-// 128 or 256 (padded_head_dim over one-byte rows). The kernel is B5's
+// every head dim from 1 to 256, in the layout of 64, 128 or 256
+// (padded_head_dim; rows at any 16-byte stride). The kernel is B5's
 // (paged_decode.cuh): a TMA ring of pages, their scales beside them,
 // feeding tensor-core consumers that widen the values exactly to q's type
 // in registers; the K scale

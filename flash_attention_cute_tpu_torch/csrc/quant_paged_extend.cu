@@ -2,8 +2,8 @@
 // one f32 scale per token and kv head): replaces the TPU kernel
 // flash_attention_cute_tpu/ops/quantized.py `_quant_paged_extend_kernel`
 // (:717, pallas_call at :1076), with its soft cap, its sliding window and
-// every head dim that is a multiple of 16 up to 256, in the layout of 64,
-// 128 or 256 (padded_head_dim over one-byte rows). The kernel is B6's
+// every head dim from 1 to 256, in the layout of 64, 128 or 256
+// (padded_head_dim; rows at any 16-byte stride). The kernel is B6's
 // (paged_extend.cuh), whose producer warpgroup widens each tile of raw
 // values exactly into q's type before the wgmma products read it; what
 // bounds it and the design are there. A translation unit of its own: its 24 instantiations (bf16 / f16 q

@@ -6,9 +6,8 @@
 //     pallas_call at :337). Split-KV decode partials over one layer of the
 //     contiguous cache [B, Hkv, C, D] with scales [B, Hkv, C]; D2
 //     (flash_decode.cu) merges the splits. It takes B2's sliding window (0
-//     for none), the tanh soft cap, every head dim that is a multiple of 16
-//     up to 256 (in the layout of 64, 128 or 256: padded_head_dim over
-//     one-byte rows) and every GQA group (above 32 in chunks of at most 32
+//     for none), the tanh soft cap, every head dim from 1 to 256 (in the
+//     layout of 64, 128 or 256: padded_head_dim) and every GQA group (above 32 in chunks of at most 32
 //     rows, a block each), as D1 does. B8, the quantized paged decode, is
 //     quant_paged_decode.cu; B9, the quantized paged extend,
 //     quant_paged_extend.cu.
@@ -19,8 +18,8 @@
 //     (:167-175). Writes S new K/V rows per batch row, quantized per token,
 //     at positions lengths[b] + s of the contiguous cache or through the
 //     page table; rows of inactive batch rows and positions past the table
-//     (or past the cache) write nothing. Every head dim that is a multiple
-//     of 16 up to 256.
+//     (or past the cache) write nothing. Every head dim from 1 to 256, its
+//     rows at any stride (it reads and writes single elements).
 //
 // What bounds them on the H100, and the design. B7 is B8's kernel
 // (paged_decode.cuh) over a contiguous cache, as D1 is B5's: bound by
@@ -125,7 +124,7 @@ void launch_append_layout(const QuantAppendParams& p, dim3 grid, int d, cudaStre
 template <typename T, typename KV, bool kPaged>
 int launch_append(const QuantAppendParams& p, int batch, int s, int d, cudaStream_t stream) {
   const dim3 grid(s, batch);
-  const int layout = padded_head_dim(d, 1);
+  const int layout = padded_head_dim(d);
   if (layout == 64) launch_append_layout<T, KV, 64, kPaged>(p, grid, d, stream);
   else if (layout == 128) launch_append_layout<T, KV, 128, kPaged>(p, grid, d, stream);
   else if (layout == 256) launch_append_layout<T, KV, 256, kPaged>(p, grid, d, stream);

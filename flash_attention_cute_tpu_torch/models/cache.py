@@ -6,6 +6,12 @@ memory (possibly NaN). No attention path reads them: the decode kernel
 never loads past `lengths`, and the plain versions zero those positions out
 of their products. The model writes new K/V into the buffers in place.
 
+Both caches lay each row of head_dim values at the pitch the kernels read
+through TMA, `_build.row_pitch(head_dim, element size)`: the tensors are
+views of head_dim columns of buffers that wide, whose pitch columns are
+zeros. At a head dim of a multiple of 8 (16 over one-byte values) the
+pitch is head_dim and the tensors are contiguous.
+
 `QuantizedKVCache` (port of the JAX package's) holds int8 / float8_e4m3fn
 values with one f32 scale per token and kv head; the model quantizes each
 new row as it writes it (kernel QA) and decode attention folds the scales
@@ -18,6 +24,7 @@ import dataclasses
 
 import torch
 
+from flash_attention_cute_tpu_torch.ops import _build
 from flash_attention_cute_tpu_torch.ops.quantized import QuantizedKV
 
 
@@ -35,8 +42,8 @@ class KVCache:
         dtype = dtype or cfg.dtype
         shape = (cfg.num_layers, batch, cfg.num_kv_heads, capacity, cfg.head_dim)
         return cls(
-            k=torch.empty(shape, dtype=dtype, device=device),
-            v=torch.empty(shape, dtype=dtype, device=device),
+            k=_build.empty_rows(shape, dtype, device),
+            v=_build.empty_rows(shape, dtype, device),
             lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
         )
 
@@ -88,9 +95,9 @@ class QuantizedKVCache:
         """Zero values and unit scales, as the JAX package's."""
         shape = (cfg.num_layers, batch, cfg.num_kv_heads, capacity, cfg.head_dim)
         return cls(
-            k_values=torch.zeros(shape, dtype=dtype, device=device),
+            k_values=_build.empty_rows(shape, dtype, device, zero=True),
             k_scales=torch.ones(shape[:-1], dtype=torch.float32, device=device),
-            v_values=torch.zeros(shape, dtype=dtype, device=device),
+            v_values=_build.empty_rows(shape, dtype, device, zero=True),
             v_scales=torch.ones(shape[:-1], dtype=torch.float32, device=device),
             lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
         )

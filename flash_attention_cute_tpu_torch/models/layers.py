@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from flash_attention_cute_tpu_torch.models.config import ModelConfig
+from flash_attention_cute_tpu_torch.ops import _build
 from flash_attention_cute_tpu_torch.ops.quantized_matmul import QUANTIZED, quantized_matmul
 
 
@@ -66,12 +67,22 @@ def rope_cos_sin(positions: torch.Tensor, inv_freq: torch.Tensor, dtype):
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x [B, H, S, D]; cos/sin [B, S, D] (rotate-half convention)."""
+    """x [B, H, S, D]; cos/sin [B, S, D] (rotate-half convention). On the
+    GPU, at a D whose rows are no whole 16 bytes, the result lies at rows of
+    `_build.row_pitch(D)` (`_build.out_rows`; no kernel reads the pitch
+    columns as data), as the kernels read it: the tensor RoPE builds
+    anyway, so q and k reach them with no copy."""
     c = cos[:, None]
     s = sin[:, None]
     half = x.shape[-1] // 2
     rotated = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
-    return x * c + rotated * s
+    d = x.shape[-1]
+    if x.device.type == "cpu" or _build.row_pitch(d, x.element_size()) == d:
+        return x * c + rotated * s
+    out = _build.out_rows(x.shape, torch.result_type(x, c), x.device)
+    if torch.is_grad_enabled() and x.requires_grad:  # autograd takes no out=
+        return out.copy_(x * c + rotated * s)
+    return torch.add(x * c, rotated * s, out=out)
 
 
 def dense(x: torch.Tensor, w) -> torch.Tensor:

@@ -148,21 +148,32 @@ class Kernel:
         self.launches += 1
 
 
-def check_cuda_tensor(name: str, t: torch.Tensor, dtype=None) -> None:
+def check_cuda_tensor(name: str, t: torch.Tensor, dtype=None, aligned: bool = True) -> None:
     """Raise unless `t` can be handed to a kernel as a strided pointer:
-    on the GPU, head dim contiguous, 16-byte aligned rows."""
+    on the GPU, head dim contiguous, and (`aligned`, for the kernels that
+    read or write whole 16-byte chunks) 16-byte aligned rows."""
+    _check_placed(name, t, dtype)
+    if aligned and not _aligned(t):
+        raise ValueError(
+            f"{name} rows must be 16-byte aligned (pointer {t.data_ptr():#x}, "
+            f"strides {t.stride()})"
+        )
+
+
+def _check_placed(name: str, t: torch.Tensor, dtype) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if dtype is not None and t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if t.stride(-1) != 1:
         raise ValueError(f"{name} needs a contiguous last dim, strides {t.stride()}")
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """A 16-byte aligned pointer and every stride (of a dim above 1) a
+    whole number of 16 bytes: TMA's rule."""
     strides = [s for s, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1]
-    if t.data_ptr() % 16 or any(s * t.element_size() % 16 for s in strides):
-        raise ValueError(
-            f"{name} rows must be 16-byte aligned (pointer {t.data_ptr():#x}, "
-            f"strides {t.stride()})"
-        )
+    return t.data_ptr() % 16 == 0 and not any(s * t.element_size() % 16 for s in strides)
 
 
 def window_arg(window: int | None) -> int:
@@ -186,32 +197,99 @@ def softcap_arg(logit_softcap: float | None) -> float:
 
 # Head dims a kernel lays out natively: each kernel is compiled for these.
 LAYOUT_HEAD_DIMS = (64, 128, 256)
-HEAD_DIM_ITEM = "ROADMAP.md A10b (A.1)"  # the roadmap item of the head dims still refused
-
-
-def check_head_dim(d: int, head_dims: tuple, what: str) -> None:
-    """Raise unless `d` is one of `head_dims`: the kernels that take only
-    the head dims of their layouts (K8 and the int8 scores)."""
-    if d not in head_dims:
-        raise NotImplementedError(
-            f"{what} kernel takes head_dim in {head_dims}, got {d} (other head dims: "
-            f"{HEAD_DIM_ITEM})")
+HEAD_DIM_ITEM = "ROADMAP.md A14"  # the roadmap item of the head dims above 256
 
 
 def padded_head_dim(d: int, what: str = "this", elem_bytes: int = 2) -> int:
-    """The head-dim rule of P / B2, D1 + D2, B4, B5, B6, B12, B13a / B13b,
-    the paged append and, over one-byte (int8 / e4m3) rows, B7, B8, B9 and
-    QA: a head dim runs in the layout of the least of `LAYOUT_HEAD_DIMS` at
-    or above it, with the columns past `d` read as zeros (csrc/common.cuh
-    `padded_head_dim`). A row of `elem_bytes` d bytes must be a multiple of
-    16 (TMA's stride rule): rows of 2-byte elements take every multiple of
-    8 from 8 to 256, one-byte rows every multiple of 16 from 16 to 256.
-    Returns that layout's head dim; any other `d` raises, naming the
-    roadmap item, before a launch."""
-    step = 16 // elem_bytes
-    if not (isinstance(d, int) and step <= d <= 256 and d % step == 0):
-        rows = " over one-byte rows" if elem_bytes == 1 else ""
+    """The head-dim rule of every attention kernel (P / B2 and P-i8 /
+    B2-i8, K8, D1 + D2, B4, B5, B6, B12, B13a / B13b, the paged append and,
+    over one-byte (int8 / e4m3) rows, B7, B8, B9 and QA): a head dim d from
+    1 to 256 runs in the layout of the least of `LAYOUT_HEAD_DIMS` at or
+    above it, with the columns past d read as zeros (csrc/common.cuh
+    `padded_head_dim`). Its rows lie at `row_pitch(d, elem_bytes)`, which
+    meets TMA's 16-byte stride rule for every d. Returns that layout's head
+    dim; d 0 or above 256 raises, naming the roadmap item, before a
+    launch."""
+    if not (isinstance(d, int) and 1 <= d <= 256):
         raise NotImplementedError(
-            f"{what} kernel takes a head_dim that is a multiple of {step} from {step} to 256"
-            f"{rows}, got {d} (other head dims: {HEAD_DIM_ITEM})")
+            f"{what} kernel takes a head_dim from 1 to 256, got {d} (head dims above 256: "
+            f"{HEAD_DIM_ITEM})")
     return next(x for x in LAYOUT_HEAD_DIMS if d <= x)
+
+
+def row_pitch(d: int, elem_bytes: int = 2) -> int:
+    """Elements from one row of head dim d to the next in a buffer the
+    kernels read through TMA: d rounded up to a whole 16 bytes
+    (csrc/common.cuh `row_pitch`). The kernels that store rows of d
+    columns in pairs (P / B2, B4, B6 / B9, B12, B13a / B13b) write their
+    outputs at `row_pitch(d, 2)`, whatever the output's element size."""
+    step = 16 // elem_bytes
+    return -(-d // step) * step
+
+
+def empty_rows(shape, dtype, device, pitch: int | None = None, zero: bool = False):
+    """A tensor of `shape` whose last dim d lies at a row pitch (default
+    `row_pitch(d, dtype.itemsize)`): a view `[..., :d]` of a buffer of the
+    pitch's width, whose pitch columns are zeros. `zero` zeroes the d
+    columns too. At d == pitch it is a contiguous tensor, as torch.empty /
+    torch.zeros give it."""
+    *lead, d = shape
+    if pitch is None:
+        pitch = row_pitch(d, dtype.itemsize)
+    alloc = torch.zeros if zero else torch.empty
+    buf = alloc((*lead, pitch), dtype=dtype, device=device)
+    if pitch == d:
+        return buf
+    if not zero:
+        buf[..., d:].zero_()
+    return buf[..., :d]
+
+
+def out_rows(shape, dtype, device, pitch: int | None = None):
+    """`empty_rows` for a kernel's output, with nothing zeroed first: the
+    kernels that store rows at the pitch (P / B2 and P-i8 / B2-i8, K8, B4
+    and its partials, B6 / B9, B12, B13a / B13b) write the pitch columns
+    too, as zeros."""
+    *lead, d = shape
+    if pitch is None:
+        pitch = row_pitch(d, dtype.itemsize)
+    buf = torch.empty((*lead, pitch), dtype=dtype, device=device)
+    return buf if pitch == d else buf[..., :d]
+
+
+def check_out_rows(name: str, t: torch.Tensor, pitch: int) -> None:
+    """Raise unless the output `t` lies as `out_rows(..., pitch)` lays it
+    (rows `pitch` apart, otherwise contiguous), where a kernel that stores
+    rows of the pitch writes it."""
+    want, step = [], 1
+    for n in reversed((*t.shape[:-1], pitch)):
+        want.append(step)
+        step *= n
+    if t.stride() != tuple(reversed(want)) or t.shape[-1] > pitch:
+        raise ValueError(f"{name} must lie at rows of {pitch} elements (`out_rows`), got "
+                         f"strides {t.stride()}")
+
+
+# Padded copies `pad_rows` made, by kind: "activation" (q, k, v, dO handed in
+# by the caller) and "cache" (a caller's cache or pool read by a kernel).
+copies = {"activation": 0, "cache": 0}
+
+
+def rows(name: str, t: torch.Tensor, dtype=None, kind: str = "activation") -> torch.Tensor:
+    """`t` as a kernel reads it (`pad_rows`). Raises, as `check_cuda_tensor`,
+    for a tensor off the GPU, of another dtype or with a strided head dim."""
+    _check_placed(name, t, dtype)
+    return pad_rows(t, kind)
+
+
+def pad_rows(t: torch.Tensor, kind: str = "activation") -> torch.Tensor:
+    """`t` itself where its rows meet TMA's 16-byte rule (as
+    `check_cuda_tensor` asks), else one padded copy into a buffer at
+    `row_pitch` (`out_rows`: no kernel reads the pitch columns as data),
+    counted in `copies[kind]`."""
+    if _aligned(t):
+        return t
+    out = out_rows(t.shape, t.dtype, t.device)
+    out.copy_(t)
+    copies[kind] += 1
+    return out

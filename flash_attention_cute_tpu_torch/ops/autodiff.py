@@ -9,9 +9,9 @@ the device of q: on CPU tensors the same Function runs the plain forward
 with its lse and the plain recompute backward, so the lse that crosses
 from forward to backward is the one the kernels exchange on the card.
 Layout [B, H, S, D] like `flash_attn_func`; GQA / MQA gradients of k and v
-sum over the q-head group. The kernels take every head dim that is a
-multiple of 8 from 8 to 256 (`_build.padded_head_dim`); on CUDA tensors
-another head dim (ROADMAP.md A.1) raises before the forward launches.
+sum over the q-head group. The kernels take every head dim from 1 to 256
+(`_build.padded_head_dim`); on CUDA tensors a head dim above 256
+(ROADMAP.md A14) raises before the forward launches.
 """
 
 from __future__ import annotations

@@ -12,15 +12,17 @@ PyTorch expression, as it is one XLA expression in the JAX package.
 `flash_attention_bwd` routes on the device of `q`: a CPU tensor takes the
 plain version, a CUDA tensor launches B13a then B13b (csrc/flash_bwd.cu),
 which replace `_flash_bwd_dkv_kernel` and `_flash_bwd_dq_kernel`. The
-kernels take bf16 / f16, every head dim that is a multiple of 8 from 8 to
-256 (`_build.padded_head_dim`: a d runs in the layout of the next of 64,
-128 and 256, its TMA boxes reading zeros past d, as the JAX wrapper pads D
-to 128 lanes), bottom-right causal masking, the sliding window, GQA / MQA
+kernels take bf16 / f16, every head dim from 1 to 256
+(`_build.padded_head_dim`: a d runs in the layout of the next of 64, 128
+and 256, its TMA boxes reading zeros past d, as the JAX wrapper pads D to
+128 lanes), bottom-right causal masking, the sliding window, GQA / MQA
 (dK and dV sum over the q-head group inside a block, deterministically)
-and the strided views `_build.check_cuda_tensor` takes (head dim
-contiguous, 16-byte aligned rows), which they read by TMA in place. What
-they do not take raises (the soft cap is not an argument here, as in JAX;
-other head dims name ROADMAP.md A.1); nothing falls back. The TPU block
+and strided views with the head dim contiguous, which they read by TMA in
+place where their rows lie at a 16-byte stride (one padded copy of those
+that do not, `_build.rows`); dq, dk and dv come at rows of
+`_build.row_pitch(d)`. What they do not take raises (the soft cap is not
+an argument here, as in JAX; head dims above 256 name ROADMAP.md A14);
+nothing falls back. The TPU block
 arguments `block_q` / `block_kv` are accepted and ignored.
 
 B13a runs one block per (key block, kv head, batch row): 128 keys in the
@@ -149,8 +151,9 @@ def flash_attention_bwd(
       sm_scale, causal, window: those of the forward.
       block_q, block_kv: accepted for call-site parity, ignored.
 
-    Returns (dq [B, Hq, Sq, D], dk, dv [B, Hkv, Skv, D]), contiguous, in the
-    dtypes of q, k, v.
+    Returns (dq [B, Hq, Sq, D], dk, dv [B, Hkv, Skv, D]) in the dtypes of
+    q, k, v; on CUDA at rows of `_build.row_pitch(D)`, contiguous where D is
+    a multiple of 8.
     """
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
@@ -168,16 +171,16 @@ def flash_attention_bwd(
             or o.shape != q.shape or do.shape != q.shape or lse.shape != (b, hq, sq)):
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} "
                          f"o {tuple(o.shape)} do {tuple(do.shape)} lse {tuple(lse.shape)}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
-        _build.check_cuda_tensor(name, t, q.dtype)
+    q, k, v, do = (_build.rows(name, t, q.dtype)
+                   for name, t in (("q", q), ("k", k), ("v", v), ("do", do)))
     if not (q.device == k.device == v.device == do.device == o.device == lse.device):
         raise ValueError("q, k, v, o, do, lse must be on one device")
 
     lse = padded_rows(lse, sq, math.inf)
     delta = padded_rows((do.float() * o.float()).sum(-1), sq, 0.0)
-    dq = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
-    dk = torch.empty((b, hkv, skv, d), dtype=k.dtype, device=q.device)
-    dv = torch.empty_like(dk)
+    dq = _build.out_rows((b, hq, sq, d), q.dtype, q.device)
+    dk = _build.out_rows((b, hkv, skv, d), k.dtype, q.device)
+    dv = _build.out_rows((b, hkv, skv, d), v.dtype, q.device)
     if dk.numel():
         launch(DKV, q, k, v, do, lse, delta, dk, dv, sm_scale, causal, window)
     if dq.numel():
@@ -193,13 +196,19 @@ def launch(kernel, q, k, v, do, lse, delta, out0, out1, sm_scale, causal, window
     and delta [B, Hq, Sq], or already padded (`padded_rows`)."""
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
+    q, k, v, do = (_build.rows(name, t, q.dtype)
+                   for name, t in (("q", q), ("k", k), ("v", v), ("do", do)))
+    for name, out in (("out0", out0), ("out1", out1)):
+        if out is not None:
+            _build.check_out_rows(name, out, _build.row_pitch(d))
     lse, delta = padded_rows(lse, sq, math.inf), padded_rows(delta, sq, 0.0)
     ws = None
     if kernel is DKV:
         if splits is None:
             splits = dkv_splits(b, hkv, hq // hkv, sq, skv, d)
         if splits > 1:
-            ws = torch.empty((2, splits, b, hkv, skv, d), dtype=torch.float32, device=q.device)
+            ws = torch.empty((2, splits, b, hkv, skv, _build.row_pitch(d)), dtype=torch.float32,
+                             device=q.device)
     else:
         splits = 1
     with torch.cuda.device(q.device):

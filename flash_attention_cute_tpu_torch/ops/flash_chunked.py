@@ -19,9 +19,11 @@ the device of `q`: a CPU tensor takes the plain version (the fp32
 reference), a CUDA tensor launches B4 (csrc/flash_chunked.cu: wgmma fed by
 TMA, the GQA group's heads packed into a block where their rows fit),
 which replaces the TPU kernel `_flash_chunked_kernel`. Both take the tanh
-soft cap (Gemma2's 50) and every head dim that is a multiple of 8 from 8 to
-256 (`_build.padded_head_dim`: D 96 runs in D 128's layout, its columns
-past 96 zeros, as the TPU wrapper pads D to its 128 lanes). What the kernel
+soft cap (Gemma2's 50) and every head dim from 1 to 256
+(`_build.padded_head_dim`: D 96 runs in D 128's layout, its columns past 96
+zeros, as the TPU wrapper pads D to its 128 lanes; rows at a 16-byte
+stride, q or a cache that breaks it taking one padded copy, `_build.rows`,
+and the outputs at `_build.row_pitch(D)`). What the kernel
 does not take raises; nothing falls back. Cache positions at or past a row's
 length may hold uninitialised memory, even NaN: the kernel masks their
 scores and zeroes their V rows before P V, and the plain version zeroes
@@ -108,7 +110,8 @@ def flash_attention_chunked(
         m = max(0, the row's largest visible score), so a row with no
         visible key is m = 0, l = 0, o_unnorm = 0.
 
-    Returns [B, Hq, S, D] in q's dtype, contiguous (or the partials).
+    Returns [B, Hq, S, D] in q's dtype (or the partials), on CUDA at rows
+    of `_build.row_pitch(D)`: contiguous where D is a multiple of 8.
     """
     b, hq, sq, d = q.shape
     _, hkv, cap, _ = k.shape
@@ -124,8 +127,8 @@ def flash_attention_chunked(
     _build.padded_head_dim(d, "extend")
     if hq % hkv or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _build.check_cuda_tensor(name, t, q.dtype)
+    q = _build.rows("q", q, q.dtype)
+    k, v = _build.rows("k", k, q.dtype, "cache"), _build.rows("v", v, q.dtype, "cache")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
     rows = []
@@ -138,14 +141,14 @@ def flash_attention_chunked(
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             float(sm_scale) * LOG2E, softcap, int(causal), window, _build.DTYPE_CODES[q.dtype])
     if return_partials:
-        o = torch.empty((b, hq, sq, d), dtype=torch.float32, device=q.device)
+        o = _build.out_rows((b, hq, sq, d), torch.float32, q.device, _build.row_pitch(d))
         m, l = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) for _ in "ml")
         if o.numel():
             with torch.cuda.device(q.device):
                 PARTIALS(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), m.data_ptr(),
                          l.data_ptr(), *args)
         return o, m, l
-    out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+    out = _build.out_rows((b, hq, sq, d), q.dtype, q.device)
     if out.numel() == 0:
         return out
     with torch.cuda.device(q.device):

@@ -11,9 +11,11 @@ total l of 0 gives 0. D1 replaces `_flash_decode_kernel` and D2 the XLA
 combine of flash_attention_cute_tpu/ops/flash_decode.py. With a sliding
 window W the query at position length - 1 sees keys [length - W, length):
 D1 cuts each split to that range, and a split wholly below it is dead.
-D1 takes the tanh soft cap (Gemma2), every head dim that is a multiple of
-8 from 8 to 256 (`_build.padded_head_dim`: D 96 runs in D 128's layout,
-its columns past 96 zeros) and every GQA group (above 32 cut into
+D1 takes the tanh soft cap (Gemma2), every head dim from 1 to 256
+(`_build.padded_head_dim`: D 96 runs in D 128's layout, its columns past
+96 zeros; rows at a 16-byte stride, the port's caches at
+`_build.row_pitch`, and a q or cache that breaks that rule takes one
+padded copy, `_build.rows`) and every GQA group (above 32 cut into
 chunks of at most 32 q rows, a block each: `dispatch.decode_group_chunks`);
 its kernel is B5's (csrc/paged_decode.cuh: a TMA ring of tiles feeding
 tensor-core consumers) over the contiguous cache, with P taken into P V in two bf16 /
@@ -117,8 +119,8 @@ def decode_partials(q, k, v, lengths, sm_scale, num_splits, window=None, logit_s
     _build.padded_head_dim(d, "decode")
     if sq != 1 or hq % hkv or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    for name, t in (("q", q), ("k", k), ("v", v)):  # k, v: also TMA's 16-byte rule
-        _build.check_cuda_tensor(name, t, q.dtype)
+    q = _build.rows("q", q, q.dtype)
+    k, v = _build.rows("k", k, q.dtype, "cache"), _build.rows("v", v, q.dtype, "cache")
     if (lengths.device != q.device or lengths.dtype != torch.int32
             or lengths.shape != (b,) or not lengths.is_contiguous()):
         raise ValueError("lengths must be a contiguous [B] int32 tensor on q's device")

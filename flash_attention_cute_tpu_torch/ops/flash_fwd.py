@@ -15,8 +15,12 @@ flash_attention_cute_tpu/ops/flash_fwd.py:
     geometry of `_flash_fwd_kernel_fused` and `_flash_fwd_kernel`.
 
 Both take the tanh soft cap (`logit_softcap`, Gemma2's 50) and every head
-dim that is a multiple of 8 from 8 to 256 (`_build.padded_head_dim`: D 96
-runs in D 128's layout, its columns past 96 read as zeros). With
+dim from 1 to 256 (`_build.padded_head_dim`: D 96 runs in D 128's layout,
+its columns past 96 read as zeros). Rows reach the kernels at a 16-byte
+stride: q, k and v whose strides break that rule take one padded copy
+(`_build.rows`, counted in `_build.copies`), and the output is allocated
+at the row pitch `_build.row_pitch(d)` (`_build.out_rows`: a view of d
+columns, contiguous where d is a multiple of 8). With
 `return_lse` either kernel also writes the per-row log-sum-exp the
 backward needs (ops/flash_bwd.py), in the TPU kernels'
 convention: log2 units of the scaled scores, +inf on a row with no visible
@@ -25,7 +29,7 @@ key, at every head dim and with the cap, as the JAX forward returns it
 keeps a capped prefill forward-only).
 
 With `score_dtype="int8"` (opt-in, forward only, as in the JAX package)
-the scores Q K^T are an int8 product (head dims `HEAD_DIMS` only): K8
+the scores Q K^T are an int8 product, at the same head dims: K8
 (`QUANTIZE_K`, `quantize_k_rows`) quantizes each K row once a call (b =
 max |k_row|, replacing the TPU kernels' `_quantize_k_rows`), and P-i8 /
 B2-i8 (`PREFILL_INT8`,
@@ -59,7 +63,6 @@ from flash_attention_cute_tpu_torch.ops import _build
 from flash_attention_cute_tpu_torch.ops.reference import attention_reference, prefill_mask
 
 LOG2E = math.log2(math.e)
-HEAD_DIMS = _build.LAYOUT_HEAD_DIMS  # K8, P-i8 and B2-i8; P / B2 take `_build.padded_head_dim`
 # fp32(1 / 127), as the TPU kernels' `1.0 / 127.0` becomes in fp32.
 _INV127 = torch.tensor(1.0 / 127.0, dtype=torch.float32).item()
 
@@ -113,9 +116,10 @@ def quantize_rows_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def quantize_k_rows(k: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """K8: the int8 rows of K and their scales b (`quantize_rows_plain`):
-    int8 [B, Hkv, Skv, D] contiguous, fp32 [B, Hkv, Skv]. A CPU tensor takes
-    the plain version; a CUDA one launches the kernel (bf16 / f16, D 64 /
-    128 / 256, any strides with D contiguous), bit-identical to it."""
+    int8 [B, Hkv, Skv, D] (on CUDA rows at `_build.row_pitch(D, 1)`, zeros
+    past D), fp32 [B, Hkv, Skv]. A CPU tensor takes the plain version; a
+    CUDA one launches the kernel (bf16 / f16, D 1 to 256, any strides with
+    D contiguous), bit-identical to it."""
     if k.device.type == "cpu":
         return quantize_rows_plain(k)
     values, scales = _quantize_k_padded(k)
@@ -127,10 +131,10 @@ def _quantize_k_padded(k):
     b, hkv, skv, d = k.shape
     if k.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"K8 takes bf16/f16, got {k.dtype}")
-    _build.check_head_dim(d, HEAD_DIMS, "K8")
-    _build.check_cuda_tensor("k", k, k.dtype)
+    _build.padded_head_dim(d, "K8")
+    k = _build.rows("k", k, k.dtype)
     rows = kscale_rows(skv)
-    values = torch.empty((b, hkv, skv, d), dtype=torch.int8, device=k.device)
+    values = _build.out_rows((b, hkv, skv, d), torch.int8, k.device)
     scales = torch.empty((b, hkv, rows), dtype=torch.float32, device=k.device)
     if values.numel():
         with torch.cuda.device(k.device):
@@ -145,6 +149,7 @@ def launch_int8(q, k8, kscale, v, out, lse, sm_scale, causal, window, softcap):
     `window` and `softcap` as `_build.window_arg` / `softcap_arg` give
     them, a window of at least Skv already taken as 0."""
     b, hq, sq, d = q.shape
+    _build.check_out_rows("out", out, _build.row_pitch(d))
     with torch.cuda.device(q.device):
         (WINDOWED_PREFILL_INT8 if window else PREFILL_INT8)(
             q.data_ptr(), k8.data_ptr(), kscale.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -255,8 +260,9 @@ def flash_attention_fwd(
       score_dtype: None, or "int8" for int8 scores (P-i8 / B2-i8 after K8
         on CUDA); the lse is then that of the int8 scores.
 
-    Returns [B, Hq, Sq, D] in q's dtype, contiguous; (out, lse) with
-    `return_lse`.
+    Returns [B, Hq, Sq, D] in q's dtype (on CUDA rows at
+    `_build.row_pitch(D)`: contiguous where D is a multiple of 8); (out,
+    lse) with `return_lse`.
     """
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
@@ -272,18 +278,14 @@ def flash_attention_fwd(
         window = 0  # cannot bind: P's geometry
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"prefill kernel takes bf16/f16, got {q.dtype}")
-    if score_dtype == "int8":
-        _build.check_head_dim(d, HEAD_DIMS, "int8-score prefill")
-    else:
-        _build.padded_head_dim(d, "prefill")
+    _build.padded_head_dim(d, "int8-score prefill" if score_dtype == "int8" else "prefill")
     if hq % hkv or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _build.check_cuda_tensor(name, t, q.dtype)
+    q, k, v = (_build.rows(name, t, q.dtype) for name, t in (("q", q), ("k", k), ("v", v)))
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
 
-    out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+    out = _build.out_rows((b, hq, sq, d), q.dtype, q.device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if return_lse else None
     if out.numel() == 0:
         return (out, lse) if return_lse else out

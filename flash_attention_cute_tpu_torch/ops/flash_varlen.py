@@ -15,8 +15,10 @@ Both route on the device of `q`: a CPU tensor takes the plain version (per
 segment dense attention in fp32, never a [Tq, Tkv] matrix), a CUDA tensor
 launches B12 (csrc/flash_varlen.cu: wgmma fed by TMA), which replaces
 `_flash_varlen_kernel`. Both take the tanh soft cap and every head dim
-that is a multiple of 8 from 8 to 256 (`_build.padded_head_dim`: the
-kernel runs a d in the layout of the next of 64, 128 and 256). The
+from 1 to 256 (`_build.padded_head_dim`: the kernel runs a d in the layout
+of the next of 64, 128 and 256; rows at a 16-byte stride, q, k or v that
+break it taking one padded copy, `_build.rows`, and O at
+`_build.row_pitch(d)`). The
 metadata are derived and read on the device: no length, offset or segment
 id becomes a Python int on the kernel route. Rows with no
 visible key are exact zeros. `equal_lengths`, `max_seqlen`, `block_q`,
@@ -134,7 +136,8 @@ def flash_attention_packed(
       logit_softcap: tanh soft cap c: scores become c * tanh(s / c) before
         the mask.
 
-    Returns [Hq, Tq, D] in q's dtype, contiguous.
+    Returns [Hq, Tq, D] in q's dtype (on CUDA rows at
+    `_build.row_pitch(D)`: contiguous where D is a multiple of 8).
     """
     hq, tq, d = q.shape
     hkv, tkv, _ = k.shape
@@ -151,8 +154,7 @@ def flash_attention_packed(
     _build.padded_head_dim(d, "varlen")
     if hq % hkv or k.shape != v.shape or k.shape[2] != d:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _build.check_cuda_tensor(name, t, q.dtype)
+    q, k, v = (_build.rows(name, t, q.dtype) for name, t in (("q", q), ("k", k), ("v", v)))
     if sm_scale is None:
         sm_scale = d ** -0.5
 
@@ -164,7 +166,7 @@ def flash_attention_packed(
         return x.to(device=q.device, dtype=torch.int32).contiguous()
 
     q_seg, q_bound = meta(q_segment_ids, tq), meta(q_bounds, tq)
-    out = torch.empty((hq, tq, d), dtype=q.dtype, device=q.device)
+    out = _build.out_rows((hq, tq, d), q.dtype, q.device)
     if tq == 0:
         return out
     kv_meta = kv_metadata(meta(kv_segment_ids, tkv), meta(kv_positions, tkv))

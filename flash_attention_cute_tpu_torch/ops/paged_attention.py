@@ -22,9 +22,12 @@ D]` pool); key n of batch row b sits at page `page_table[b, n // ps]`, row
     `extend_plan` picks; a block runs one q head, so any GQA group runs
     (each q head's block reads its kv head's pages itself).
 
-B5 and B6 take the tanh soft cap (Gemma2) and every head dim that is a
-multiple of 8 from 8 to 256 (`_build.padded_head_dim`: D 96 runs in D
-128's layout, its columns past 96 zeros).
+B5 and B6 take the tanh soft cap (Gemma2) and every head dim from 1 to
+256 (`_build.padded_head_dim`: D 96 runs in D 128's layout, its columns
+past 96 zeros). Rows reach them at a 16-byte stride: the port's pools lie
+at `_build.row_pitch`, and a q or pool that breaks the rule takes one
+padded copy (`_build.rows`, counted by kind); B6's output lies at
+`_build.row_pitch(D)`.
 Each wrapper routes on the device of `q`: CPU -> plain version, CUDA -> the
 kernel; what the kernel does not take raises (a pool whose dtype differs
 from q's). Positions at or past a row's length are never read
@@ -141,32 +144,32 @@ def paged_attention_extend_plain(q, k_pages, v_pages, q_offset, kv_length, page_
 
 
 def _check_cuda_call(name, q, k_pages, v_pages, page_table, row_tensors, window,
-                     pool_dtype=None) -> int:
+                     pool_dtype=None):
     """Shared refusals of the CUDA routes; the pools must be `pool_dtype`
-    (default q's dtype), head dims those of `_build.padded_head_dim`'s rule
-    for the pools' element size, Hq a multiple of Hkv (any group). Returns
-    the window as the kernels take it."""
+    (default q's dtype), head dims those of `_build.padded_head_dim`'s rule,
+    Hq a multiple of Hkv (any group). Returns the window as the kernels
+    take it, and q, k_pages, v_pages as they read them (`_build.rows`)."""
     window = _build.window_arg(window)
     b, hq, _, d = q.shape
     hkv = k_pages.shape[0]
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"{name} kernel takes bf16/f16, got {q.dtype}")
-    _build.padded_head_dim(d, name, k_pages.element_size())
+    _build.padded_head_dim(d, name)
     if hq % hkv:
         raise ValueError(f"{name}: num q heads {hq} must be a multiple of kv heads {hkv}")
     if k_pages.shape != v_pages.shape or k_pages.shape[3] != d or k_pages.ndim != 4:
         raise ValueError(f"bad pools k {tuple(k_pages.shape)} v {tuple(v_pages.shape)}")
     if k_pages.shape[2] % 8:
         raise ValueError(f"page_size must be a multiple of 8, got {k_pages.shape[2]}")
-    _build.check_cuda_tensor("q", q, q.dtype)
-    for n, t in (("k_pages", k_pages), ("v_pages", v_pages)):
-        # The pool is never cast here: a cast would copy the layer's whole pool.
-        _build.check_cuda_tensor(n, t, pool_dtype or q.dtype)
+    q = _build.rows("q", q, q.dtype)
+    # The pool is never cast here: a cast would copy the layer's whole pool.
+    k_pages, v_pages = (_build.rows(n, t, pool_dtype or q.dtype, "cache")
+                        for n, t in (("k_pages", k_pages), ("v_pages", v_pages)))
     for n, t in (("page_table", page_table), *row_tensors):
         want = (b, page_table.shape[1]) if n == "page_table" else (b,)
         if t.device != q.device or t.dtype != torch.int32 or t.shape != want or not t.is_contiguous():
             raise ValueError(f"{n} must be a contiguous {list(want)} int32 tensor on q's device")
-    return window
+    return window, q, k_pages, v_pages
 
 
 def paged_attention_decode(
@@ -201,8 +204,8 @@ def paged_attention_decode(
         return paged_attention_decode_plain(q, k_pages, v_pages, lengths, page_table,
                                             sm_scale, window, logit_softcap)
     softcap = _build.softcap_arg(logit_softcap)
-    window = _check_cuda_call("paged decode", q, k_pages, v_pages, page_table,
-                              [("lengths", lengths)], window)
+    window, q, k_pages, v_pages = _check_cuda_call(
+        "paged decode", q, k_pages, v_pages, page_table, [("lengths", lengths)], window)
     hkv, num_pages, ps, _ = k_pages.shape
     pps = page_table.shape[1]
     g = hq // hkv
@@ -260,10 +263,11 @@ def paged_attention_extend(
                                            page_table, sm_scale, window, logit_softcap)
         return (out, 0) if return_clamps else out
     softcap = _build.softcap_arg(logit_softcap)
-    window = _check_cuda_call("paged extend", q, k_pages, v_pages, page_table,
-                              [("q_offset", q_offset), ("kv_length", kv_length)], window)
+    window, q, k_pages, v_pages = _check_cuda_call(
+        "paged extend", q, k_pages, v_pages, page_table,
+        [("q_offset", q_offset), ("kv_length", kv_length)], window)
     hkv, num_pages, ps, _ = k_pages.shape
-    out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+    out = _build.out_rows((b, hq, sq, d), q.dtype, q.device)
     if out.numel():
         with torch.cuda.device(q.device):
             PAGED_EXTEND(

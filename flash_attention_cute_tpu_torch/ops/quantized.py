@@ -32,11 +32,14 @@ per-token scales s_j the kernels never dequantize a K/V row:
 Each wrapper routes on the device of its tensors: CPU -> plain version,
 CUDA -> the kernel; what the kernel does not take raises (values that are
 neither int8 nor e4m3, scales that are not f32). B7 - B9 take every GQA
-group and a sliding window as D1, B5 and B6 do. All four take every head dim whose one-byte row is a multiple of 16
-bytes, 16 to 256 (`_build.padded_head_dim` with one-byte elements): D 96
-runs in D 128's layout, the TMA boxes reading zeros past the row, which
-widen to exact zeros (the TPU kernels pad D to their 128 lanes); a d with
-d % 16 == 8 raises before any launch. The plain versions dequantize to
+group and a sliding window as D1, B5 and B6 do. All four take every head
+dim from 1 to 256 (`_build.padded_head_dim`): D 96 runs in D 128's
+layout, the TMA boxes reading zeros past the row, which widen to exact
+zeros (the TPU kernels pad D to their 128 lanes). B7 - B9 read rows at a
+16-byte stride: the port's caches and pools lie at
+`_build.row_pitch(D, 1)`, and a q or cache that breaks the rule takes one
+padded copy (`_build.rows`, counted by kind); QA reads and writes single
+elements and takes rows at any stride. The plain versions dequantize to
 fp32 and run the port's `attention_reference` over the gathered rows.
 Positions at or past a row's length are never read by the kernels and are
 masked out of the plain versions, so they may hold anything, even NaN. The
@@ -142,13 +145,20 @@ def _gather_dequantized(kv: QuantizedKV, page_table) -> torch.Tensor:
     return vals.float() * scales
 
 
-def _check_quantized(name, kv: QuantizedKV, values_dtype=None) -> None:
-    """Refusals shared by the CUDA routes for one quantized cache or pool."""
+def _check_quantized(name, kv: QuantizedKV, values_dtype=None, read=True) -> QuantizedKV:
+    """Refusals shared by the CUDA routes for one quantized cache or pool;
+    returns it as a kernel that `read`s it through TMA takes it (values at
+    a 16-byte stride, `_build.rows`). QA, which writes single elements,
+    takes any stride."""
     vals, scales = kv.values, kv.scales
     if vals.dtype not in KV_DTYPES:
         raise NotImplementedError(
             f"quantized kernels take int8 / float8_e4m3fn {name} values, got {vals.dtype}")
-    _build.check_cuda_tensor(f"{name} values", vals, values_dtype or vals.dtype)
+    if read:
+        vals = _build.rows(f"{name} values", vals, values_dtype or vals.dtype, "cache")
+    else:
+        _build.check_cuda_tensor(f"{name} values", vals, values_dtype or vals.dtype,
+                                 aligned=False)
     if scales.dtype != torch.float32:
         raise ValueError(f"{name} scales must be float32, got {scales.dtype}")
     if (scales.device != vals.device or scales.shape != vals.shape[:-1]
@@ -156,6 +166,7 @@ def _check_quantized(name, kv: QuantizedKV, values_dtype=None) -> None:
         raise ValueError(
             f"{name} scales must be {list(vals.shape[:-1])} with a contiguous last dim on "
             f"the values' device, got {list(scales.shape)} strides {scales.stride()}")
+    return QuantizedKV(vals, scales)
 
 
 # ---- B7: decode over the contiguous cache ----
@@ -214,14 +225,14 @@ def flash_attention_decode_quantized(
     g = hq // hkv
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"quantized decode kernel takes bf16/f16 q, got {q.dtype}")
-    _build.padded_head_dim(d, "quantized decode", 1)
+    _build.padded_head_dim(d, "quantized decode")
     if sq != 1 or hq % hkv or k.values.shape != v.values.shape or k.values.shape[0] != b \
             or k.values.shape[3] != d:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.values.shape)} "
                          f"v {tuple(v.values.shape)}")
-    _build.check_cuda_tensor("q", q, q.dtype)
-    _check_quantized("k", k)
-    _check_quantized("v", v, k.values.dtype)
+    q = _build.rows("q", q, q.dtype)
+    k = _check_quantized("k", k)
+    v = _check_quantized("v", v, k.values.dtype)
     if kv_length is None:
         kv_length = torch.full((b,), cap, dtype=torch.int32, device=q.device)
     if (kv_length.device != q.device or kv_length.dtype != torch.int32
@@ -291,19 +302,20 @@ def contiguous_decode_kernel_report() -> str:
     return _build.runtime_report(QUANT_DECODE.source, "fact_quant_decode_report")
 
 
-def _check_paged(name, q, k_pages, v_pages, page_table, row_tensors, window) -> int:
+def _check_paged(name, q, k_pages, v_pages, page_table, row_tensors, window):
     """The refusals of B8 / B9: those of B5 / B6, the quantized pools', and
-    scales each page part of which one 16-byte aligned bulk copy brings."""
-    window = _check_cuda_call(name, q, k_pages.values, v_pages.values, page_table, row_tensors,
-                              window, k_pages.values.dtype)
-    _check_quantized("k_pages", k_pages)
-    _check_quantized("v_pages", v_pages, k_pages.values.dtype)
+    scales each page part of which one 16-byte aligned bulk copy brings.
+    Returns the window, and q and the pools as the kernels read them."""
+    window, q, kv, vv = _check_cuda_call(name, q, k_pages.values, v_pages.values, page_table,
+                                         row_tensors, window, k_pages.values.dtype)
+    k_pages = _check_quantized("k_pages", QuantizedKV(kv, k_pages.scales))
+    v_pages = _check_quantized("v_pages", QuantizedKV(vv, v_pages.scales), kv.dtype)
     for pname, kv in (("k_pages", k_pages), ("v_pages", v_pages)):
         sc = kv.scales
         if sc.data_ptr() % 16 or sc.stride(0) % 4 or sc.stride(1) % 4:
             raise ValueError(f"{pname} scales need a 16-byte aligned base and head and page "
                              f"strides, got {sc.data_ptr():#x} strides {sc.stride()}")
-    return window
+    return window, q, k_pages, v_pages
 
 
 def paged_attention_decode_quantized(
@@ -340,8 +352,8 @@ def paged_attention_decode_quantized(
         return paged_attention_decode_quantized_plain(q, k_pages, v_pages, lengths, page_table,
                                                       sm_scale, window, logit_softcap)
     softcap = _build.softcap_arg(logit_softcap)
-    window = _check_paged("quantized paged decode", q, k_pages, v_pages, page_table,
-                          [("lengths", lengths)], window)
+    window, q, k_pages, v_pages = _check_paged(
+        "quantized paged decode", q, k_pages, v_pages, page_table, [("lengths", lengths)], window)
     hkv, num_pages, ps, _ = k_pages.values.shape
     pps = page_table.shape[1]
     g = hq // hkv
@@ -402,10 +414,11 @@ def paged_attention_extend_quantized(
                                                      page_table, sm_scale, window, logit_softcap)
         return (out, 0) if return_clamps else out
     softcap = _build.softcap_arg(logit_softcap)
-    window = _check_paged("quantized paged extend", q, k_pages, v_pages, page_table,
-                          [("q_offset", q_offset), ("kv_length", kv_length)], window)
+    window, q, k_pages, v_pages = _check_paged(
+        "quantized paged extend", q, k_pages, v_pages, page_table,
+        [("q_offset", q_offset), ("kv_length", kv_length)], window)
     hkv, num_pages, ps, _ = k_pages.values.shape
-    out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+    out = _build.out_rows((b, hq, sq, d), q.dtype, q.device)
     if out.numel():
         with torch.cuda.device(q.device):
             QUANT_PAGED_EXTEND(
@@ -448,9 +461,9 @@ def quantize_append_plain(k_new, v_new, k_cache: QuantizedKV, v_cache: Quantized
             pool[index] = vals
             cache.scales[index] = nq.scales
         else:
-            _, p, ps, d = pool.shape
-            pool.view(hkv, p * ps, d)[:, idx] = vals.permute(1, 0, 2, 3)[:, keep]
-            cache.scales.view(hkv, p * ps)[:, idx] = nq.scales.permute(1, 0, 2)[:, keep]
+            ps = pool.shape[2]  # pages and slots apart: a pitched pool has no flat view
+            pool[:, idx // ps, idx % ps] = vals.permute(1, 0, 2, 3)[:, keep]
+            cache.scales[:, idx // ps, idx % ps] = nq.scales.permute(1, 0, 2)[:, keep]
 
 
 def quantize_append(
@@ -485,11 +498,11 @@ def quantize_append(
     kv_dtype = k_cache.values.dtype
     if k_new.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"quantize-append kernel takes bf16/f16 rows, got {k_new.dtype}")
-    _build.padded_head_dim(d, "quantize-append", 1)
+    _build.padded_head_dim(d, "quantize-append")
     if v_new.shape != k_new.shape or v_new.dtype != k_new.dtype:
         raise ValueError(f"bad new rows {tuple(k_new.shape)} {tuple(v_new.shape)}")
-    _check_quantized("k_cache", k_cache)
-    _check_quantized("v_cache", v_cache, kv_dtype)
+    _check_quantized("k_cache", k_cache, read=False)
+    _check_quantized("v_cache", v_cache, kv_dtype, read=False)
     if (v_cache.values.shape != k_cache.values.shape
             or v_cache.values.stride() != k_cache.values.stride()
             or v_cache.scales.stride() != k_cache.scales.stride()):
@@ -501,7 +514,7 @@ def quantize_append(
         raise ValueError(f"new rows {tuple(k_new.shape)} do not fit the cache "
                          f"{tuple(k_cache.values.shape)}")
     for name, t in (("k_new", k_new), ("v_new", v_new)):
-        _build.check_cuda_tensor(name, t, k_new.dtype)
+        _build.check_cuda_tensor(name, t, k_new.dtype, aligned=False)
     rows = [("lengths", lengths, (b,))]
     if paged:
         rows.append(("page_table", page_table, (b, page_table.shape[1])))

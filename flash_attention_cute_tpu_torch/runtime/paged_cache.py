@@ -59,12 +59,14 @@ def create_paged_state(
     cfg, num_pages: int, page_size: int, batch: int, pages_per_seq: int,
     dtype=None, device="cuda",
 ) -> PagedKVState:
-    """A zeroed pool (as the JAX package's), an all-page-0 table, lengths 0."""
+    """A zeroed pool (as the JAX package's), its rows at
+    `_build.row_pitch(head_dim)` (views of head_dim columns), an all-page-0
+    table, lengths 0."""
     dtype = dtype or cfg.dtype
     shape = (cfg.num_layers, cfg.num_kv_heads, num_pages, page_size, cfg.head_dim)
     return PagedKVState(
-        k_pages=torch.zeros(shape, dtype=dtype, device=device),
-        v_pages=torch.zeros(shape, dtype=dtype, device=device),
+        k_pages=_build.empty_rows(shape, dtype, device, zero=True),
+        v_pages=_build.empty_rows(shape, dtype, device, zero=True),
         page_table=torch.zeros((batch, pages_per_seq), dtype=torch.int32, device=device),
         lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
     )
@@ -101,13 +103,13 @@ def create_quantized_paged_state(
     cfg, num_pages: int, page_size: int, batch: int, pages_per_seq: int,
     dtype=torch.int8, device="cuda",
 ) -> QuantizedPagedKVState:
-    """Zero values and unit scales (as the JAX package's), an all-page-0
-    table, lengths 0."""
+    """Zero values (rows at `_build.row_pitch(head_dim, 1)`) and unit
+    scales (as the JAX package's), an all-page-0 table, lengths 0."""
     shape = (cfg.num_layers, cfg.num_kv_heads, num_pages, page_size, cfg.head_dim)
     return QuantizedPagedKVState(
-        k_values=torch.zeros(shape, dtype=dtype, device=device),
+        k_values=_build.empty_rows(shape, dtype, device, zero=True),
         k_scales=torch.ones(shape[:-1], dtype=torch.float32, device=device),
-        v_values=torch.zeros(shape, dtype=dtype, device=device),
+        v_values=_build.empty_rows(shape, dtype, device, zero=True),
         v_scales=torch.ones(shape[:-1], dtype=torch.float32, device=device),
         page_table=torch.zeros((batch, pages_per_seq), dtype=torch.int32, device=device),
         lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
@@ -133,13 +135,12 @@ def paged_append_layer_quantized(k_slab, v_slab, k_new, v_new, page_table, lengt
 def paged_append_layer_plain(k_pages_l, v_pages_l, k_new, v_new, page_table, lengths,
                              active=None):
     """Plain version of the append kernel: a masked scatter (CPU)."""
-    hkv, p, ps, d = k_pages_l.shape
-    b, _, s, _ = k_new.shape
+    ps, s = k_pages_l.shape[2], k_new.shape[2]
     flat_idx, keep = append_targets(page_table, lengths, s, ps, active)
     idx = flat_idx[keep]
     for pages, new in ((k_pages_l, k_new), (v_pages_l, v_new)):
         rows = new.to(pages.dtype).permute(1, 0, 2, 3)[:, keep]  # [Hkv, n, D]
-        pages.view(hkv, p * ps, d)[:, idx] = rows
+        pages[:, idx // ps, idx % ps] = rows  # no flat view: a pool may be pitched
     return k_pages_l, v_pages_l
 
 
@@ -162,9 +163,9 @@ def paged_append_layer(k_pages_l, v_pages_l, k_new, v_new, page_table, lengths, 
         raise ValueError("k and v pools differ")
     if k_new.shape != (b, hkv, s, d) or v_new.shape != k_new.shape:
         raise ValueError(f"bad new rows {tuple(k_new.shape)} {tuple(v_new.shape)}")
-    for name, t in (("k_pages", k_pages_l), ("v_pages", v_pages_l), ("k_new", k_new),
-                    ("v_new", v_new)):
-        _build.check_cuda_tensor(name, t, dt)
+    for name, t in (("k_pages", k_pages_l), ("v_pages", v_pages_l)):
+        _build.check_cuda_tensor(name, t, dt)  # written in place: never a copy
+    k_new, v_new = _build.rows("k_new", k_new, dt), _build.rows("v_new", v_new, dt)
     rows = [("page_table", page_table, (b, page_table.shape[1])), ("lengths", lengths, (b,))]
     if active is not None:
         active = active.to(torch.int32)

@@ -3,7 +3,7 @@
 comparing two trees of the repository in one call:
 
     cd <tree> && python3 <this script> [prefill] [decode] [paged] [extends] [backward] [int8] \
-        [layouts] [groups] [partials]
+        [layouts] [groups] [partials] [copies]
 
 The package is imported from the current directory; the arguments pick
 groups of kernels to time (all without any). Llama / Mistral shapes
@@ -75,8 +75,9 @@ views): "int8 ..." the wrapper's call (K8 + P-i8 / B2-i8), "int8 kernel
 inputs, "K8 ..." K8 alone, and "bound int8 ..." (QK^T at the int8 peak
 plus PV at the bf16 peak, or the bytes of q, K8's K and scales, v and the
 output, whichever is longer). "layouts": QA (quantize-and-append) at run
-D's decode (8 rows of one token into int8 pages of 128, 8 kv heads) at D 64,
-128 and 256, and B7 + D2 (int8, Llama's middle decode step), B8 + D2 (e4m3,
+D's decode (8 rows of one token into int8 pages of 128, 8 kv heads) and
+the paged append of run A's decode (the same rows into bf16 pages of 128)
+at D 64, 128 and 256, and B7 + D2 (int8, Llama's middle decode step), B8 + D2 (e4m3,
 run E's decode at page_size 16), B9 (int8, run E's extend) and B4 (the
 smoke's last verify round, and a chunk of 256) and B12 (the 32 sequences,
 causal) at D 64 (32 / 8 heads), the head dim of the layout the other groups
@@ -91,7 +92,12 @@ q_offset 0, and against 4096 at 2048), each with its (o, m, l) partials
 ("partials ...", null in a tree that refuses them) and normalised ("B4
 ..."), with its "bound" (4 D operations a visible (row, key) pair and q
 head at the bf16 peak, or q, k, v read and the partials written once at
-3.35 TB/s). Prints one JSON line with the card's name and power limit.
+3.35 TB/s). "copies": the padded copy `_build.rows` makes of a caller's
+tensor whose rows break TMA's 16-byte stride rule, at a model's v at D 100
+(the projection's [B, S, Hkv, D] transposed: rows of 200 bytes, copied to
+a pitch of 104; B 4, 8 kv heads) at a prefill of S 512 and at a decode
+step (S 1); null in a tree without `_build.rows`. Prints one JSON line
+with the card's name and power limit.
 """
 
 import json
@@ -109,6 +115,7 @@ from flash_attention_cute_tpu_torch.ops import flash_bwd, flash_chunked, flash_d
 from flash_attention_cute_tpu_torch.ops import flash_varlen  # noqa: E402
 from flash_attention_cute_tpu_torch.ops import paged_attention as pa  # noqa: E402
 from flash_attention_cute_tpu_torch.ops import quantized as qz  # noqa: E402
+from flash_attention_cute_tpu_torch.runtime import paged_cache  # noqa: E402
 from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms  # noqa: E402
 
 PEAK_BF16, PEAK_I8, PEAK_BYTES = 989e12, 1979e12, 3.35e12
@@ -289,8 +296,8 @@ def paged_decodes(randn, pool, timed, out):
 
 
 def layouts(randn, pool, timed, out):
-    """QA at D 64, 128 and 256, and B7, B8, B9 and B4 at D 64 (module
-    docstring, "layouts")."""
+    """QA and the paged append at D 64, 128 and 256, and B7, B8, B9 and B4
+    at D 64 (module docstring, "layouts")."""
     run_a = [923, 731, 618, 401, 436, 196, 227, 174]  # chip_smoke.serving_requests' first 8, 32 in
     lens = torch.tensor(run_a, dtype=torch.int32, device="cuda")
     for d in (64, 128, 256):
@@ -300,6 +307,8 @@ def layouts(randn, pool, timed, out):
         active = torch.ones(8, dtype=torch.bool, device="cuda")
         out[f"QA D{d} B8 S1 ps128"] = timed(lambda: qz.quantize_append(
             nk, nv, *quant, lens, table, active), 50)
+        out[f"append D{d} B8 S1 ps128"] = timed(lambda: paged_cache.paged_append_layer(
+            kp, vp, nk, nv, table, lens, active), 50)
         del kp, vp, quant
     d, hq = 64, 32
     kc, vc, q = randn(4, 8, 576, d), randn(4, 8, 576, d), randn(4, hq, 1, d)
@@ -445,6 +454,17 @@ def int8_times(randn, timed, out):
         del q, k, v, k8, kscale, o
 
 
+def copy_times(randn, timed, out):
+    """The padded copy `_build.rows` makes of a caller's tensor whose rows
+    break TMA's 16-byte stride rule (module docstring, "copies")."""
+    from flash_attention_cute_tpu_torch.ops import _build
+
+    for s in (512, 1):
+        v = randn(4, s, 8, 100).transpose(1, 2)  # the projection's view: rows of 200 bytes
+        out[f"copy v D100 B4 S{s}"] = (timed(lambda: _build.rows("v", v), 50)
+                                       if hasattr(_build, "rows") else None)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -466,9 +486,9 @@ def main() -> None:
             return None
 
     # Groups to time (all by default): prefill, decode, paged, extends,
-    # backward, int8, layouts, groups, partials.
+    # backward, int8, layouts, groups, partials, copies.
     groups = set(sys.argv[1:]) or {"prefill", "decode", "paged", "extends", "backward", "int8",
-                                   "layouts", "groups", "partials"}
+                                   "layouts", "groups", "partials", "copies"}
     out = {"card": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(), "tree": os.getcwd()}
@@ -514,6 +534,8 @@ def main() -> None:
         large_groups(randn, pool, timed, out)
     if "partials" in groups:
         ring_partials(randn, timed, out)
+    if "copies" in groups:
+        copy_times(randn, timed, out)
     print(json.dumps(out))
 
 

@@ -308,9 +308,10 @@ def test_non_cpu_tensors_take_the_kernel_route_and_never_fall_back():
         flash_bwd.flash_attention_bwd(q, k, k, q, q, lse, causal=True)
     with pytest.raises(ValueError, match="CUDA tensor"):
         autodiff.flash_attention(q.requires_grad_(), k, k, causal=True)
-    # D 256 and D 96 under autograd: the backward kernels take them (D 96 in
-    # D 128's layout), so the op reaches the forward's CUDA-tensor check; D
-    # 100, which no layout takes, is refused before the forward.
+    # D 256, D 96 and D 100 under autograd: the backward kernels take them
+    # (D 96 and D 100 in D 128's layout, D 100's rows at a pitch of 104), so
+    # the op reaches the forward's CUDA-tensor check; D 264, which no layout
+    # takes, is refused before the forward.
     q256 = torch.empty(1, 4, 64, 256, dtype=torch.bfloat16, device="meta")
     k256 = torch.empty(1, 2, 64, 256, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -329,18 +330,28 @@ def test_non_cpu_tensors_take_the_kernel_route_and_never_fall_back():
                                       torch.empty(1, 4, 64, device="meta"), causal=True)
     q100 = torch.empty(1, 4, 64, 100, dtype=torch.bfloat16, device="meta")
     k100 = torch.empty(1, 2, 64, 100, dtype=torch.bfloat16, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10b"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         autodiff.flash_attention(q100.requires_grad_(), k100, k100, causal=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10b"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         flash_bwd.flash_attention_bwd(q100, k100, k100, q100, q100,
+                                      torch.empty(1, 4, 64, device="meta"), causal=True)
+    q264 = torch.empty(1, 4, 64, 264, dtype=torch.bfloat16, device="meta")
+    k264 = torch.empty(1, 2, 64, 264, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A14"):
+        autodiff.flash_attention(q264.requires_grad_(), k264, k264, causal=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A14"):
+        flash_bwd.flash_attention_bwd(q264, k264, k264, q264, q264,
                                       torch.empty(1, 4, 64, device="meta"), causal=True)
     cu = torch.tensor([0, 64], dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensor"):  # B12 at D 96
         flash_varlen.flash_attention_varlen(q96[0].transpose(0, 1), k96[0].transpose(0, 1),
                                             k96[0].transpose(0, 1), cu, causal=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10b"):
+    with pytest.raises(ValueError, match="CUDA tensor"):  # B12 at D 100
         flash_varlen.flash_attention_varlen(q100[0].transpose(0, 1), k100[0].transpose(0, 1),
                                             k100[0].transpose(0, 1), cu, causal=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A14"):
+        flash_varlen.flash_attention_varlen(q264[0].transpose(0, 1), k264[0].transpose(0, 1),
+                                            k264[0].transpose(0, 1), cu, causal=True)
     with pytest.raises(ValueError, match="CUDA tensor"):
         flash_varlen.flash_attention_varlen(q[0].transpose(0, 1), k[0].transpose(0, 1),
                                             k[0].transpose(0, 1), cu, causal=True)

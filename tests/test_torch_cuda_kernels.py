@@ -60,7 +60,7 @@ from flash_attention_cute_tpu_torch import api
 from flash_attention_cute_tpu_torch.models.cache import KVCache
 from flash_attention_cute_tpu_torch.models.config import tiny_test_config
 from flash_attention_cute_tpu_torch.models.transformer import forward, init_params
-from flash_attention_cute_tpu_torch.ops import autodiff, flash_bwd, flash_varlen
+from flash_attention_cute_tpu_torch.ops import _build, autodiff, flash_bwd, flash_varlen
 from flash_attention_cute_tpu_torch.ops import flash_chunked, flash_decode, flash_fwd, paged_attention
 from flash_attention_cute_tpu_torch.ops import quantized as quant
 from flash_attention_cute_tpu_torch.ops import quantized_matmul as qmm
@@ -83,6 +83,13 @@ def device():
 
 def randn(gen, *shape, dtype=torch.bfloat16):
     return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
+
+
+def pitched(t):
+    """`t` copied into rows at `_build.row_pitch` (a view of its head dim),
+    as the port's caches and pools lie; `t`'s own layout where the head dim
+    needs no pitch."""
+    return _build.empty_rows(t.shape, t.dtype, t.device).copy_(t)
 
 
 PREFILL = {
@@ -168,8 +175,14 @@ def test_decode_kernels_match_plain_on_stacked_cache(device, num_splits):
 
 
 def test_kernels_refuse_what_they_do_not_take(device):
-    for d in (100, 264):  # not a multiple of 8; above 256 (D 96 is taken since its layout)
+    for d in (100, 264):  # D 100 runs since the pitched rows; above 256 is refused
         q = torch.zeros(1, 4, 64, d, dtype=torch.bfloat16, device="cuda")
+        if d == 100:
+            before = flash_fwd.PREFILL.launches
+            out = flash_fwd.flash_attention_fwd(q, q[:, :2], q[:, :2])
+            torch.cuda.synchronize()
+            assert flash_fwd.PREFILL.launches == before + 1 and (out == 0).all()
+            continue
         with pytest.raises(NotImplementedError, match="head_dim"):
             flash_fwd.flash_attention_fwd(q, q[:, :2], q[:, :2])
     q = torch.zeros(1, 4, 64, 64, dtype=torch.float32, device="cuda")
@@ -198,7 +211,7 @@ def paged_pool(gen, ps, rows, capacity=1024, hkv=8, d=128, lengths=None):
             for pool in (kp, vp):
                 pool.view(hkv, num_pages * ps, d)[:, flat] = float("nan")
                 pool[:, 0] = float("nan")
-    return kp, vp, table
+    return pitched(kp), pitched(vp), table
 
 
 @pytest.mark.parametrize("ps", [16, 128])
@@ -537,7 +550,7 @@ def quant_paged_pool(gen, ps, rows, dtype, lengths, capacity=1024, hkv=8, d=128)
         dead[table[b].long()[p // ps] * ps + p % ps] = True
     for kv in (k, v):
         poison(kv, dead.view(1, num_pages, ps).expand(hkv, -1, -1))
-    return k, v, table
+    return (*(QuantizedKV(pitched(x.values), x.scales) for x in (k, v)), table)
 
 
 @pytest.mark.parametrize("name", list(KV_DTYPES))
@@ -936,8 +949,18 @@ def test_chunked_extend_refuses_what_it_does_not_take(device):
     ref = flash_chunked.flash_attention_chunked_plain(q.float(), k, v, off, lens,
                                                       logit_softcap=30.0)
     assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
-    with pytest.raises(NotImplementedError, match="head_dim"):  # D 96 is taken since its layout
-        flash_chunked.flash_attention_chunked(q[..., :100], k[..., :100], v[..., :100], off, lens)
+    # D 100, refused before the pitched rows, runs (a view of d columns at a
+    # row stride of 128); a head dim above 256 is refused.
+    before = flash_chunked.CHUNKED.launches
+    out = flash_chunked.flash_attention_chunked(q[..., :100], k[..., :100], v[..., :100], off,
+                                                lens)
+    assert flash_chunked.CHUNKED.launches == before + 1
+    ref = flash_chunked.flash_attention_chunked_plain(q[..., :100].float(), k[..., :100],
+                                                      v[..., :100], off, lens)
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+    wide = torch.zeros(*q.shape[:3], 264, dtype=q.dtype, device=q.device)
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        flash_chunked.flash_attention_chunked(wide, wide[:, :8], wide[:, :8], off, lens)
     with pytest.raises(ValueError, match="q_offset"):
         flash_chunked.flash_attention_chunked(q, k, v, off.cpu(), lens)
 
@@ -1360,23 +1383,24 @@ def test_varlen_kernel_matches_plain(device, case):
 
 
 def test_training_and_varlen_kernels_refuse_what_they_do_not_take(device):
-    """The backward and B12 refuse a head dim no layout takes (D 100,
-    ROADMAP.md A.1) before any launch, and launch B13a / B13b at D 256 and
-    at D 96 (in D 128's layout), within GRAD_REL_TOL of the plain backward;
-    B12 takes the soft cap, D 256 and D 96: each call launches it."""
+    """The backward and B12 refuse a head dim no layout takes (D 264,
+    ROADMAP.md A14) before any launch, and launch B13a / B13b at D 256, at
+    D 96 (in D 128's layout) and at D 100 (rows of 104, refused so before
+    the pitched rows), within GRAD_REL_TOL of the plain backward; B12 takes
+    the soft cap, D 256 and D 96: each call launches it."""
     gen = torch.Generator(device="cuda").manual_seed(35)
-    q100 = randn(gen, 1, 4, 64, 100)
+    q264 = randn(gen, 1, 4, 64, 264)
     cu = torch.tensor([0, 64], dtype=torch.int32, device="cuda")
     counted = (flash_bwd.DKV, flash_bwd.DQ, flash_varlen.VARLEN)
     before = [c.launches for c in counted]
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md .*A\.1"):
-        flash_bwd.flash_attention_bwd(q100, q100[:, :2], q100[:, :2], q100, q100,
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A14"):
+        flash_bwd.flash_attention_bwd(q264, q264[:, :2], q264[:, :2], q264, q264,
                                       torch.zeros(1, 4, 64, device="cuda"))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md .*A\.1"):
-        flash_varlen.flash_attention_varlen(q100[0].transpose(0, 1), q100[0, :2].transpose(0, 1),
-                                            q100[0, :2].transpose(0, 1), cu)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A14"):
+        flash_varlen.flash_attention_varlen(q264[0].transpose(0, 1), q264[0, :2].transpose(0, 1),
+                                            q264[0, :2].transpose(0, 1), cu)
     assert [c.launches for c in counted] == before
-    for d in (256, 96):
+    for d in (256, 96, 100):
         q = randn(gen, 1, 4, 64, d)
         k, v, do = randn(gen, 1, 2, 64, d), randn(gen, 1, 2, 64, d), randn(gen, 1, 4, 64, d)
         o, lse = flash_fwd.flash_attention_fwd(q, k, v, return_lse=True)
@@ -1417,22 +1441,23 @@ def test_prefill_lse_takes_d256_and_the_cap(device, d, cap):
 
 
 def test_autodiff_refuses_d256_before_the_forward_launches(device):
-    """Under autograd a head dim no backward layout takes (D 100, ROADMAP.md
-    A.1) raises before P runs, not after a forward whose gradient cannot
+    """Under autograd a head dim no backward layout takes (D 264, ROADMAP.md
+    A14) raises before P runs, not after a forward whose gradient cannot
     come. D 96 (in D 128's layout, refused so until the backward took the
-    head-dim rule) and D 256 (refused so until the backward kernels took it)
-    run P, then B13a and B13b, and their gradients match autograd through
-    the fp32 reference within GRAD_REL_TOL."""
+    head-dim rule), D 100 (rows of 104, refused so until the pitched rows)
+    and D 256 (refused so until the backward kernels took it) run P, then
+    B13a and B13b, and their gradients match autograd through the fp32
+    reference within GRAD_REL_TOL."""
     gen = torch.Generator(device="cuda").manual_seed(37)
-    q = randn(gen, 1, 4, 64, 100).requires_grad_()
-    k, v = randn(gen, 1, 2, 64, 100), randn(gen, 1, 2, 64, 100)
+    q = randn(gen, 1, 4, 64, 264).requires_grad_()
+    k, v = randn(gen, 1, 2, 64, 264), randn(gen, 1, 2, 64, 264)
     before = (flash_fwd.PREFILL.launches, flash_fwd.WINDOWED_PREFILL.launches)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md .*A\.1"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A14"):
         autodiff.flash_attention(q, k, v, causal=True)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md .*A\.1"):
+    with pytest.raises(ValueError, match="> 256 unsupported"):  # the API's own shape check
         api.flash_attn_func(q, k, v, causal=True)
     assert (flash_fwd.PREFILL.launches, flash_fwd.WINDOWED_PREFILL.launches) == before
-    for hq, hkv, s, d in ((32, 32, 300, 96), (4, 2, 300, 256)):
+    for hq, hkv, s, d in ((32, 32, 300, 96), (4, 2, 300, 256), (32, 8, 300, 100)):
         q = randn(gen, 1, hq, s, d).requires_grad_()
         k, v = randn(gen, 1, hkv, s, d).requires_grad_(), randn(gen, 1, hkv, s, d).requires_grad_()
         do = randn(gen, 1, hq, s, d)
@@ -1838,6 +1863,13 @@ INT8_PREFILL = {
     "d256_cap50_ragged": (2, 16, 8, 333, 333, 256, True, None, 50.0, torch.bfloat16, True, True),
     "d256_window64_cap1_f16": (1, 16, 8, 600, 600, 256, True, 64, 1.0, torch.float16, False,
                                True),
+    # Head dims outside {64, 128, 256} (the head-dim rule; D 4 and 100 at
+    # rows of 8 and 104, through the padded copy of the views).
+    "d96_b4_s512": (4, 32, 32, 512, 512, 96, True, None, None, torch.bfloat16, True, True),
+    "d100_window100_views": (1, 32, 8, 1000, 1000, 100, True, 100, None, torch.bfloat16, True,
+                             True),
+    "d40_f16_cap30": (2, 32, 8, 333, 333, 40, True, None, 30.0, torch.float16, False, True),
+    "d4_noncausal_cross": (2, 32, 8, 200, 700, 4, False, None, None, torch.bfloat16, True, True),
 }
 
 
@@ -1881,10 +1913,12 @@ def test_int8_prefill_kernels_match_plain(device, case):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256, 4, 40, 96, 100])
 def test_k8_is_bit_identical_to_plain(device, d, dtype):
     """K8 over a transposed view with a zero row and a ragged length: the
-    plain quantizer's values and scales exactly, zeros past Skv."""
+    plain quantizer's values and scales exactly, zeros past Skv; below the
+    layout's D its int8 rows lie at `_build.row_pitch(d, 1)` with zeros
+    past d."""
     gen = torch.Generator(device="cuda").manual_seed(42)
     k = (4 * randn(gen, 2, 333, 8, d, dtype=dtype)).transpose(1, 2)
     k[1, 3, 7] = 0
@@ -1897,6 +1931,11 @@ def test_k8_is_bit_identical_to_plain(device, d, dtype):
     assert values.dtype == torch.int8 and torch.equal(values, want_v)
     assert torch.equal(scales, want_s) and scales[1, 3, 7] == 1
     assert padded.shape[2] == 384 and (padded[..., 333:] == 0).all()
+    pitch = _build.row_pitch(d, 1)
+    assert values.stride(2) == pitch
+    if pitch > d:
+        assert (values.as_strided(values.shape[:3] + (pitch,), values.stride())[..., d:]
+                == 0).all()
     cpu_v, cpu_s = flash_fwd.quantize_rows_plain(k.cpu())
     assert torch.equal(values.cpu(), cpu_v) and torch.equal(scales.cpu(), cpu_s)
 
@@ -1926,8 +1965,13 @@ def test_api_int8_scores_launch_k8_and_p_i8(device):
 # 32-column row), 80 (Danube's 32 / 8 heads), 96 (Phi-3-mini's 32 / 32),
 # 160 (a box of D 256's layout wholly past d) and 192, in bf16 and f16,
 # each held to its fp32 plain version at 3e-2 over NaN tails and repeated
-# bit for bit; D 100 and D 264 refused before any launch.
-ODD_DIMS = {32: (16, 4), 80: (32, 8), 96: (32, 32), 160: (16, 8), 192: (16, 4)}
+# bit for bit; D 264 refused before any launch. Since the pitched rows also
+# D 4, 36 and 100 (rows of 8, 40 and 104 elements) at Llama-3-8B's 32 / 8
+# heads, and over one-byte rows (ONE_BYTE_DIMS) D 24, 40 and 72 (rows of
+# 32, 48 and 80 bytes).
+ODD_DIMS = {32: (16, 4), 80: (32, 8), 96: (32, 32), 160: (16, 8), 192: (16, 4),
+            4: (32, 8), 36: (32, 8), 100: (32, 8)}
+ONE_BYTE_DIMS = {**ODD_DIMS, 24: (32, 8), 40: (32, 8), 72: (32, 8)}
 DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16}
 
 
@@ -1996,7 +2040,7 @@ def test_paged_kernels_at_odd_head_dims(device, ps, d, dtype):
     gen = torch.Generator(device="cuda").manual_seed(110 + d + ps)
     lens = [0, 1, ps - 1, ps + 1, 1024, 777]
     kp, vp, table = paged_pool(gen, ps, len(lens), hkv=hkv, d=d, lengths=lens)
-    kp, vp = kp.to(dt), vp.to(dt)
+    kp, vp = pitched(kp.to(dt)), pitched(vp.to(dt))
     lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
     q = randn(gen, len(lens), hq, 1, d, dtype=dt)
     out, err = held(paged_attention.paged_attention_decode,
@@ -2007,7 +2051,7 @@ def test_paged_kernels_at_odd_head_dims(device, ps, d, dtype):
     offs = torch.tensor([0, 61, 599, 0, 200, 700], dtype=torch.int32, device="cuda")
     kvl = torch.tensor([130, 191, 729, 0, 330, 830], dtype=torch.int32, device="cuda")
     kp, vp, table = paged_pool(gen, ps, len(lens), hkv=hkv, d=d, lengths=kvl.tolist())
-    kp, vp = kp.to(dt), vp.to(dt)
+    kp, vp = pitched(kp.to(dt)), pitched(vp.to(dt))
     qe = randn(gen, len(lens), 130, hq, d, dtype=dt).transpose(1, 2)
     out, err = held(paged_attention.paged_attention_extend,
                     paged_attention.paged_attention_extend_plain, paged_attention.PAGED_EXTEND,
@@ -2029,12 +2073,14 @@ def test_paged_kernels_at_odd_head_dims(device, ps, d, dtype):
 
 @pytest.mark.parametrize("d", [100, 264])
 def test_odd_head_dim_kernels_refuse_what_no_layout_takes(device, d):
-    """A head dim no layout takes raises naming the roadmap item before any
-    launch, in each kernel of the rule; nothing falls back."""
+    """A head dim no layout takes (264) raises naming the roadmap item
+    before any launch, in each kernel of the rule; nothing falls back. D
+    100, refused so before the pitched rows, launches each kernel once
+    (its pool at rows of 104)."""
     gen = torch.Generator(device="cuda").manual_seed(120)
     q, k = randn(gen, 2, 4, 64, d), randn(gen, 2, 2, 64, d)
     lengths = torch.tensor([3, 5], dtype=torch.int32, device="cuda")
-    kp, vp = randn(gen, 2, 9, 16, d), randn(gen, 2, 9, 16, d)
+    kp, vp = pitched(randn(gen, 2, 9, 16, d)), pitched(randn(gen, 2, 9, 16, d))
     table = torch.arange(1, 9, dtype=torch.int32, device="cuda").view(2, 4)
     counted = (flash_fwd.PREFILL, flash_decode.PARTIALS, flash_decode.COMBINE,
                paged_attention.PAGED_DECODE, paged_attention.PAGED_EXTEND, paged_cache.APPEND)
@@ -2048,8 +2094,14 @@ def test_odd_head_dim_kernels_refuse_what_no_layout_takes(device, d):
         lambda: paged_cache.paged_append_layer(kp, vp, k[:, :, :2], k[:, :, :2], table,
                                                lengths),
     ]
+    if d <= 256:
+        for call in calls:
+            call()
+        torch.cuda.synchronize()
+        assert [x.launches - n for x, n in zip(counted, before)] == [1, 1, 2, 1, 1, 1]
+        return
     for call in calls:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md .*A\.1"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A14"):
             call()
     assert [x.launches for x in counted] == before
 
@@ -2061,8 +2113,9 @@ def test_odd_head_dim_kernels_refuse_what_no_layout_takes(device, d):
 # non-causal, Sq != Skv, GQA groups 1 and 4, bf16 and f16; B13a also forced
 # into 3 parts and into one; each held to its plain version (backward
 # GRAD_REL_TOL of the gradient's max, B12 3e-2) and repeated bit for bit.
+# Since the pitched rows also D 36 and 100 (rows of 40 and 104).
 ODD_TRAINING_DIMS = {8: (4, 1), 24: (8, 2), 40: (8, 8), 96: (32, 32), 136: (16, 4),
-                     200: (8, 2), 248: (8, 8)}
+                     200: (8, 2), 248: (8, 8), 36: (8, 2), 100: (8, 2)}
 ODD_BACKWARD = {
     # name: (sq, skv, causal, window)
     "causal_s300": (300, 300, True, None),
@@ -2100,7 +2153,8 @@ def test_backward_kernels_at_odd_head_dims(device, d, dtype):
         delta = (do.float() * o.float()).sum(-1)
         parts = {}
         for splits in (3, 1):
-            parts[splits] = (torch.empty_like(got[1]), torch.empty_like(got[2]))
+            parts[splits] = tuple(_build.empty_rows(g.shape, g.dtype, g.device)
+                                  for g in got[1:])
             flash_bwd.launch(flash_bwd.DKV, q, k, v, do, lse, delta, *parts[splits], d ** -0.5,
                              causal, window or 0, splits=splits)
         torch.cuda.synchronize()
@@ -2149,11 +2203,12 @@ def test_varlen_kernel_at_odd_head_dims(device, d, dtype):
 # bit for bit; QA's whole pools bit-identical; a one-byte row of d % 16 ==
 # 8 refused before any launch.
 @pytest.mark.parametrize("name", list(KV_DTYPES))
-@pytest.mark.parametrize("d", list(ODD_DIMS))
+@pytest.mark.parametrize("d", list(ONE_BYTE_DIMS))
 def test_quant_decode_kernel_at_odd_head_dims(device, d, name):
     """B7 + D2 over a stacked cache (NaN scales, and e4m3 NaN values, past
-    lengths 0, 1, 37, C, C - 1 and C / 2 + 3) through `layer`."""
-    hq, hkv = ODD_DIMS[d]
+    lengths 0, 1, 37, C, C - 1 and C / 2 + 3) through `layer`, its rows at
+    `_build.row_pitch(d, 1)`."""
+    hq, hkv = ONE_BYTE_DIMS[d]
     gen = torch.Generator(device="cuda").manual_seed(130 + d)
     lens = [0, 1, 37, 577, 576, 291]
     k, v = (quant.quantize_kv(randn(gen, 2, len(lens), hkv, 577, d, dtype=torch.float32),
@@ -2162,6 +2217,7 @@ def test_quant_decode_kernel_at_odd_head_dims(device, d, name):
     dead = torch.arange(577, device="cuda")[None, :] >= lengths[:, None]
     for kv in (k, v):
         poison(kv, dead[None, :, None, :].expand(2, -1, hkv, -1))
+    k, v = (QuantizedKV(pitched(x.values), x.scales) for x in (k, v))
     q = randn(gen, len(lens), hq, 1, d)
     before = flash_decode.COMBINE.launches
     out, err = held(quant.flash_attention_decode_quantized,
@@ -2172,13 +2228,13 @@ def test_quant_decode_kernel_at_odd_head_dims(device, d, name):
 
 
 @pytest.mark.parametrize("name", list(KV_DTYPES))
-@pytest.mark.parametrize("d", list(ODD_DIMS))
+@pytest.mark.parametrize("d", list(ONE_BYTE_DIMS))
 @pytest.mark.parametrize("ps", [16, 128])
 def test_quant_paged_kernels_at_odd_head_dims(device, ps, d, name):
     """B8 + D2 (a decode) and B9 (a chunk of 130 rows at offsets off the
     tiles, an inactive row) over NaN-poisoned pools behind a permuted
     table."""
-    hq, hkv = ODD_DIMS[d]
+    hq, hkv = ONE_BYTE_DIMS[d]
     gen = torch.Generator(device="cuda").manual_seed(140 + d + ps)
     lens = [0, 1, ps - 1, ps + 1, 1024, 777]
     k, v, table = quant_paged_pool(gen, ps, len(lens), KV_DTYPES[name], lens, hkv=hkv, d=d)
@@ -2200,14 +2256,14 @@ def test_quant_paged_kernels_at_odd_head_dims(device, ps, d, name):
 
 
 @pytest.mark.parametrize("name", list(KV_DTYPES))
-@pytest.mark.parametrize("d", list(ODD_DIMS))
+@pytest.mark.parametrize("d", list(ONE_BYTE_DIMS))
 @pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
 def test_quant_append_kernel_at_odd_head_dims(device, paged, d, name):
     """QA of a 100-token chunk (paged: a row across the end of its table,
     an inactive row): the whole pools, values and scales, bit-identical to
     the plain version's, so no lane wrote past its row's d bytes or read
     the next row into its scale."""
-    _, hkv = ODD_DIMS[d]
+    _, hkv = ONE_BYTE_DIMS[d]
     gen = torch.Generator(device="cuda").manual_seed(150 + d)
     starts = [0, 13, 1024 - 40, 37]
     new_k, new_v = (randn(gen, len(starts), 100, hkv, d).transpose(1, 2) for _ in "kv")
@@ -2253,9 +2309,11 @@ def test_chunked_extend_kernel_at_odd_head_dims(device, d, dtype):
 
 @pytest.mark.parametrize("d", [40, 24])
 def test_one_byte_rows_of_d_mod_16_8_are_refused(device, d):
-    """A one-byte row of d bytes, d % 16 == 8, breaks TMA's 16-byte stride
-    rule: B7, B8, B9 and QA raise naming the roadmap item before any
-    launch; B4, over bf16 rows of 2 d bytes, takes such a d."""
+    """A one-byte row of d bytes, d % 16 == 8, refused before the pitched
+    rows (it breaks TMA's 16-byte stride rule): B7, B8, B9 and QA now
+    launch once each, the contiguous cache through one padded copy of
+    its values (counted as a cache copy), the pools at the pitch; B4, over
+    bf16 rows of 2 d bytes, takes such a d."""
     gen = torch.Generator(device="cuda").manual_seed(170)
     k, v, table = quant_paged_pool(gen, 16, 2, torch.int8, [64, 64], capacity=64, hkv=2, d=d)
     cache = quant.quantize_kv(randn(gen, 2, 2, 64, d), torch.int8)
@@ -2270,10 +2328,12 @@ def test_one_byte_rows_of_d_mod_16_8_are_refused(device, d):
         lambda: quant.paged_attention_extend_quantized(q, k, v, lengths, lengths + 1, table),
         lambda: quant.quantize_append(q[:, :2], q[:, :2], cache, cache, lengths),
     ]
+    copies = _build.copies["cache"]
     for call in calls:
-        with pytest.raises(NotImplementedError, match=r"multiple of 16 .*ROADMAP\.md .*A\.1"):
-            call()
-    assert [x.launches for x in counted] == before
+        call()
+    torch.cuda.synchronize()
+    assert [x.launches - n for x, n in zip(counted, before)] == [1, 1, 1, 1, 2]
+    assert _build.copies["cache"] == copies + 2  # B7's contiguous K and V: one copy each
     qc, kc, vc, off, lens = chunked_inputs(gen, 4, 2, 5, 64, [0, 20], None, d, torch.bfloat16)
     out, err = held(flash_chunked.flash_attention_chunked,
                     flash_chunked.flash_attention_chunked_plain, flash_chunked.CHUNKED,

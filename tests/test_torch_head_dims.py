@@ -171,11 +171,20 @@ def test_head_dim_rule_takes_multiples_of_8_up_to_256(d, layout):
     """The layout a taken head dim runs in, and the decode tiles and
     extend tiles that follow it (csrc/paged_decode.cuh `kN`, Tiles::kN)."""
     assert _build.padded_head_dim(d) == layout
+    assert _build.row_pitch(d) == d  # a multiple of 8: rows need no pitch
     assert dispatch.decode_tile(d) == (64 if layout == 64 else 32)
     assert pa.extend_plan(d, 16) == (64 if layout == 256 else 128, 16)
 
 
 @pytest.mark.parametrize("d", [100, 264, 0, 4, 250])
 def test_head_dim_rule_refuses_the_rest_naming_the_roadmap_item(d):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md .*A\.1"):
+    """Every d from 1 to 256 runs (d 100, 4 and 250, refused before the
+    pitched rows, now take their layout and a 16-byte row pitch); d 0 and
+    264 still raise, naming the item of the head dims above 256."""
+    if 1 <= d <= 256:
+        layout = 64 if d <= 64 else 128 if d <= 128 else 256
+        assert _build.padded_head_dim(d, "prefill") == layout
+        assert _build.row_pitch(d) == -(-d // 8) * 8 and _build.row_pitch(d) * 2 % 16 == 0
+        return
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A14"):
         _build.padded_head_dim(d, "prefill")

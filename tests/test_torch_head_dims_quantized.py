@@ -311,7 +311,14 @@ def test_one_byte_rule_takes_multiples_of_16_up_to_256(d, layout):
 
 @pytest.mark.parametrize("d", [24, 40, 264, 8, 0])
 def test_one_byte_rule_refuses_the_rest_naming_the_roadmap_item(d):
-    with pytest.raises(NotImplementedError, match=r"multiple of 16 .*ROADMAP\.md .*A\.1"):
+    """One-byte rows of d 24, 40 and 8, refused before the pitched rows,
+    now run in D 64's layout at a pitch of 32, 48 and 16 bytes; d 264 and 0
+    still raise, naming the item of the head dims above 256."""
+    if 1 <= d <= 256:
+        assert _build.padded_head_dim(d, "quantized paged decode", 1) == 64
+        assert _build.row_pitch(d, 1) == {24: 32, 40: 48, 8: 16}[d]
+        return
+    with pytest.raises(NotImplementedError, match=r"from 1 to 256.*ROADMAP\.md A14"):
         _build.padded_head_dim(d, "quantized paged decode", 1)
 
 
@@ -319,9 +326,12 @@ def test_one_byte_rule_refuses_the_rest_naming_the_roadmap_item(d):
                                        (256, 256), (100, None), (264, None)])
 def test_two_byte_rule_keeps_its_answers(d, layout):
     """bf16 / f16 rows (the default element size) keep the rule of P / B2,
-    D1 + D2, B5, B6 and the append, which B4 now follows too."""
-    if layout is None:
-        with pytest.raises(NotImplementedError, match=r"multiple of 8 .*ROADMAP\.md .*A\.1"):
+    D1 + D2, B5, B6 and the append, which B4 now follows too; D 100 runs
+    in D 128's layout at rows of 104, and D 264 stays refused."""
+    if d == 100:
+        assert _build.padded_head_dim(d, "extend") == 128 and _build.row_pitch(d) == 104
+    elif layout is None:
+        with pytest.raises(NotImplementedError, match=r"from 1 to 256.*ROADMAP\.md A14"):
             _build.padded_head_dim(d, "extend")
     else:
         assert _build.padded_head_dim(d, "extend") == _build.padded_head_dim(d, "extend", 2) \
@@ -330,11 +340,11 @@ def test_two_byte_rule_keeps_its_answers(d, layout):
 
 def test_cuda_routes_refuse_a_one_byte_row_of_d_mod_16_8_before_the_device_check():
     """Off the CPU (the `meta` device, on which no kernel runs) D 40 over
-    int8 values raises naming the roadmap item in B7, B8, B9 and QA before
-    any other check of the CUDA route, while D 48 reaches the CUDA-tensor
-    check; B4 takes D 40 over bf16 rows."""
+    int8 values, refused before the pitched rows, now reaches the
+    CUDA-tensor check in B7, B8, B9 and QA, as D 48 does; B4 takes D 40
+    over bf16 rows."""
     meta = torch.device("meta")
-    for d, err in ((40, NotImplementedError), (48, ValueError)):
+    for d, err in ((40, ValueError), (48, ValueError)):
         qm = torch.empty(2, 4, 1, d, dtype=torch.bfloat16, device=meta)
         pool = QuantizedKV(torch.empty(2, 9, 16, d, dtype=torch.int8, device=meta),
                            torch.empty(2, 9, 16, device=meta))
@@ -349,7 +359,7 @@ def test_cuda_routes_refuse_a_one_byte_row_of_d_mod_16_8_before_the_device_check
             lambda: q.quantize_append(qm[:, :2], qm[:, :2], cache, cache, rows),
         ]
         for call in calls:
-            with pytest.raises(err, match="A.1" if d == 40 else "CUDA tensor"):
+            with pytest.raises(err, match="CUDA tensor"):
                 call()
     qb = torch.empty(2, 4, 5, 40, dtype=torch.bfloat16, device=meta)
     kb = torch.empty(2, 2, 64, 40, dtype=torch.bfloat16, device=meta)

@@ -48,13 +48,18 @@ EXACT_CASES = {
     "cap": (128, 128, dict(causal=True, logit_softcap=10.0)),
     "window": (128, 128, dict(causal=True, window=40)),
     "cross_lse": (64, 256, dict(causal=True, return_lse=True, block_q=64, block_kv=128)),
+    # Head dims outside {64, 128, 256}: Phi-3-mini's 96 and 100 (whose
+    # bf16 rows the card reads at a pitch of 104); JAX pads both to 128.
+    "causal_diag_d96": (128, 128, dict(causal=True, block_q=128, block_kv=128)),
+    "cross_lse_d100": (64, 256, dict(causal=True, return_lse=True, block_q=64, block_kv=128)),
 }
 
 
 @pytest.mark.parametrize("case", list(EXACT_CASES), ids=list(EXACT_CASES))
 def test_plain_int8_route_equals_jax_kernels_at_equal_row_maxima(case):
     sq, skv, kw = EXACT_CASES[case]
-    q, k, v = equal_row_max_qkv(7, 1, 4, 2, sq, skv, 64)
+    d = int(case.rsplit("_d", 1)[1]) if case.endswith(("_d96", "_d100")) else 64
+    q, k, v = equal_row_max_qkv(7, 1, 4, 2, sq, skv, d)
     want = jax_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), score_dtype="int8",
                    interpret=True, **kw)
     port_kw = {n: x for n, x in kw.items() if n not in ("block_q", "block_kv")}
@@ -87,7 +92,7 @@ def test_int8_routes_on_random_bf16_stay_in_the_envelope(kw):
     assert np.abs(got - bf16_scores).max() > 1e-4
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256, 4, 40, 96, 100])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_k_row_quantizer_is_bit_identical_to_jax(dtype, d):
     """K8's plain version against JAX `_quantize_k_rows`: values and scales
@@ -96,7 +101,7 @@ def test_k_row_quantizer_is_bit_identical_to_jax(dtype, d):
     rng = np.random.default_rng(d)
     k = 3 * rng.standard_normal((300, d), dtype=np.float32)
     k[5] = 0
-    k[6, :6] = [127.0, 0.5, 1.5, 2.5, -0.5, -1.5]
+    k[6, :6] = [127.0, 0.5, 1.5, 2.5, -0.5, -1.5][:d]  # D 4 takes the first four
     k[6, 6:] = 0.25
     kj = jnp.asarray(k).astype(getattr(jnp, dtype))
     want_v, want_s = _quantize_k_rows(kj)
@@ -106,7 +111,7 @@ def test_k_row_quantizer_is_bit_identical_to_jax(dtype, d):
     np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
     np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s)[:, 0])
     assert got_s[5] == 1 and (got_v[5] == 0).all()
-    assert got_v[6, :6].tolist() == [127, 0, 2, 2, 0, -2]
+    assert got_v[6, :6].tolist() == [127, 0, 2, 2, 0, -2][:d]
 
 
 def test_api_score_dtype_and_stable_follow_jax():
