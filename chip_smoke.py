@@ -124,7 +124,8 @@ Phases, in order; any failure exits non-zero:
      with kv longer and a window, and full, within 3e-2, every call
      repeated bit for bit; D 100 (refused before the pitched rows) run by
      the backward, the autograd op and B12 with their launch counts, D 264
-     and D 0 refused by all three with no launch; (3m) GQA groups above
+     and D 0 refused by the backward and the autograd op, D 520 and D 0 by
+     B12 (it takes 257-512 in the wide layout, 5l), with no launch; (3m) GQA groups above
      32 in the decodes, which cut a group into chunks of at most 32 q rows,
      a block each, and above 8 in the paged extends (LARGE_GROUP_DECODES:
      groups 33, 48 at StarCoder's 48 / 1 heads, 64, 71 at Falcon-7B's 71 /
@@ -157,7 +158,8 @@ Phases, in order; any failure exits non-zero:
      in 3j / 3k; B7 + D2, B8 + D2, B9, QA and B4 at D 24, 40 and 72 over
      int8 / e4m3 (PITCHED_ONE_BYTE_DIMS; D 40 also windowed and capped) as
      in 3k; B13a / B13b and B12 at D 36 and 100 as in 3l; D 264 and D 0
-     refused before any launch; then the API's int8 scores at Phi-3-mini's
+     refused before any launch (P / B2 at D 520 and D 0: they take 257-512
+     in the wide layout, 5l); then the API's int8 scores at Phi-3-mini's
      widths (32 / 32 heads, D 96, path "phi3-widths int8 scores"): causal
      at B 4 x 512 and Phi-3-mini-4k's window of 2047 at B 1 x 4096,
      counted (K8 2, P-i8 1, B2-i8 1, nothing else), each output within
@@ -407,9 +409,23 @@ Phases, in order; any failure exits non-zero:
      K8) or D 40 (one-byte rows, pitch 48 bytes; B7, B8, B9, QA), at 4r's
      widths, inputs at the port's pitch, each with "pitch_cost": the same
      kernel's ms at D 104 / 48, whose rows need no pitch; and the "phi3"
-     entries of the P-i8, B2-i8 and K8 rows at 3o's int8-score path; every
-     timed entry its share of its bound ("of_bound"); the card's name and
-     power limit.
+     entries of the P-i8, B2-i8 and K8 rows at 3o's int8-score path; (5l)
+     head dims from 257 to 512, which P / B2 and B12 run in the wide layout
+     of 512, at DeepSeek-V4-Flash's attention widths (64 / 1 heads, D 512,
+     bf16; no model: JAX's API and model path refuse a head dim above 256,
+     as the port's do): the entry points `flash_attention_fwd` and
+     `flash_attention_varlen` on path "v4-widths" (P causal at B 1 x 8192
+     with and without the lse, B2 with the config's window of 128 and with
+     a cap of 50 too, B12 over 8 packed causal sequences of 517-4096
+     tokens, 16384 in all; counted exactly: P 2, B2 2, B12 1), each output
+     within 3e-2 of its fp32 plain version (8 q heads at a time), the lse
+     within 1e-3 with the same +inf rows, a second call bit for bit; d 260
+     (rows of 264), 320 and 384 alike at B 1 x 2048 and a packed batch of
+     4096 tokens; then the "v4" entries of the P, B2 and B12 rows (ms,
+     plain, bound, SDPA's time over k / v expanded to the q heads with the
+     backend torch picks there, P's time with its lse, B2's with the cap,
+     the D 512 instantiation's runtime attributes); every timed entry its
+     share of its bound ("of_bound"); the card's name and power limit.
 The last line is {"ok": true, "device": {...}}.
 
 Tolerances: kernel outputs are bf16 results of fp32 arithmetic on bf16
@@ -520,20 +536,26 @@ PREFILL_CASES = (
 )
 
 
-def held_prefill(torch, flash_fwd, errs, what, q, k, v, causal, window, cap=None, tag=None):
+def held_prefill(torch, flash_fwd, errs, what, q, k, v, causal, window, cap=None, tag=None,
+                 step=0):
     """One P / B2 call with its lse against the fp32 plain version run on q's
-    fp32 image: output within BF16_TOL and finite, lse within LSE_TOL on
-    finite entries with the same +inf rows, rows with no key exact zeros; a
-    second call (with and without the lse) repeats the bits. Errors go to
-    the kernel's entries of `errs` (also "<kernel> <tag>" with a `tag`)."""
+    fp32 image (`step` q heads at a time where `step`, `by_kv_head`): output within
+    BF16_TOL and finite, lse within LSE_TOL on finite entries with the same
+    +inf rows, rows with no key exact zeros; a second call (with and without
+    the lse) repeats the bits. Errors go to the kernel's entries of `errs`
+    (also "<kernel> <tag>" with a `tag`)."""
     kw = dict(causal=causal, window=window, logit_softcap=cap)
     out, lse = flash_fwd.flash_attention_fwd(q, k, v, return_lse=True, **kw)
     again, lse_again = flash_fwd.flash_attention_fwd(q, k, v, return_lse=True, **kw)
     bare = flash_fwd.flash_attention_fwd(q, k, v, **kw)
     same = torch.equal(out, again) and torch.equal(lse, lse_again) and torch.equal(out, bare)
     del again, lse_again, bare
-    ref, ref_lse = flash_fwd.flash_attention_fwd_plain(q.float(), k.float(), v.float(),
-                                                       return_lse=True, **kw)
+
+    def plain(q_, k_, v_):
+        return flash_fwd.flash_attention_fwd_plain(q_.float(), k_.float(), v_.float(),
+                                                   return_lse=True, **kw)
+
+    ref, ref_lse = by_kv_head(torch, plain, q, k, v, step) if step else plain(q, k, v)
     e = max_err(out, ref)
     fin = torch.isfinite(ref_lse)
     e_lse = (lse[fin] - ref_lse[fin]).abs().max().item() if bool(fin.any()) else 0.0
@@ -552,6 +574,7 @@ def held_prefill(torch, flash_fwd, errs, what, q, k, v, causal, window, cap=None
         dead = slice(0, sq - skv)
         check(bool((out[:, :, dead] == 0).all()) and bool(torch.isinf(lse[:, :, dead]).all()),
               f"{what}: rows with no key are exact zeros with lse +inf")
+    return out
 
 
 def phase_kernels(torch, flash_fwd, flash_decode, errs):
@@ -2384,7 +2407,7 @@ def kernel_entries(rows, errs, path_counts) -> list:
         if entry.get("ms") and entry.get("bound_ms"):
             entry["of_bound"] = entry["bound_ms"] / entry["ms"]
         for key in ("chunk", "window", "gemma2", "long", "phi3", "g16", "m71", "zigzag_step",
-                    "o"):
+                    "o", "v4"):
             if isinstance(entry.get(key), dict):
                 share_of_bound(entry[key])
 
@@ -2404,7 +2427,7 @@ def kernel_entries(rows, errs, path_counts) -> list:
                                        "window", "lse", "max_rel_err", "gemma2", "projections",
                                        "runtime_attributes", "with_k8_ms", "bf16_ms", "long",
                                        "oracle_max_abs_err", "phi3", "g16", "m71",
-                                       "zigzag_step", "sequence_parallel", "o")
+                                       "zigzag_step", "sequence_parallel", "o", "v4")
                if key in r},
         })
     return out
@@ -4431,11 +4454,15 @@ INT8_MIN_DIFF = 1e-4  # int8 scores must move the output: they do quantize
 PEAK_I8 = 1979e12  # published H100 SXM dense int8 tensor-core rate
 
 
-def by_kv_head(torch, fn, q, k, v):
-    """fn over one kv head and its q heads at a time, concatenated over the
-    heads: the plain versions at full width within the card's memory."""
+def by_kv_head(torch, fn, q, k, v, step=0):
+    """fn over one kv head and its q heads at a time (`step`: that many q
+    heads of a group at a time, a divisor of the group), concatenated over
+    the heads: the plain versions at full width within the card's memory
+    (64 q heads of one kv head x 8192 keys: 8 at a time)."""
     g = q.shape[1] // k.shape[1]
-    outs = [fn(q[:, h * g:(h + 1) * g], k[:, h:h + 1], v[:, h:h + 1]) for h in range(k.shape[1])]
+    step = step or g
+    outs = [fn(q[:, h:h + step], k[:, h // g:h // g + 1], v[:, h // g:h // g + 1])
+            for h in range(0, q.shape[1], step)]
     if isinstance(outs[0], tuple):
         return tuple(torch.cat(x, 1) for x in zip(*outs))
     return torch.cat(outs, 1)
@@ -4921,12 +4948,13 @@ def phase_odd_head_dims_quantized(torch, ops, errs, dims=ODD_HEAD_DIMS, tags=Non
         counted)
 
 
-def head_dims_refused(torch, ops, what, calls, counted):
-    """Each of `calls` (a function of the head dim) at D 264 (above 256:
-    ROADMAP.md A14) and at D 0 raises NotImplementedError naming the item
+def head_dims_refused(torch, ops, what, calls, counted, dims=(264, 0)):
+    """Each of `calls` (a function of the head dim) at each of `dims` (D 264,
+    above 256: ROADMAP.md A14, and D 0; D 520 for the kernels with the wide
+    layout, which take 257-512) raises NotImplementedError naming the item
     before any launch of `counted`."""
     before = [x.launches for x in counted]
-    for d in (264, 0):
+    for d in dims:
         for i, call in enumerate(calls):
             try:
                 call(d)
@@ -4936,7 +4964,7 @@ def head_dims_refused(torch, ops, what, calls, counted):
             check("ROADMAP.md A14" in refused,
                   f"{what}: call {i} at D {d} raises NotImplementedError naming ROADMAP.md A14")
     torch.cuda.synchronize()
-    print(f"  {what} at D 264 and D 0: refused, naming ROADMAP.md A14")
+    print(f"  {what} at D {' and D '.join(map(str, dims))}: refused, naming ROADMAP.md A14")
     check([x.launches for x in counted] == before, f"{what}: the refused calls launched nothing")
 
 
@@ -5091,8 +5119,9 @@ def phase_odd_head_dims_training(torch, ops, errs, rel_errs, dims=ODD_TRAINING_D
     causal, with kv longer and a window of 100, and full, within BF16_TOL;
     every call repeated bit for bit. With `formerly_refused`: D 100,
     refused before the pitched rows, runs the backward, the autograd op and
-    B12 once each; D 264 and D 0 are refused by all three, naming
-    ROADMAP.md A14, with no launch. The errors at a head dim of `tags` ({d:
+    B12 once each; D 264 and D 0 are refused by the backward and the
+    autograd op, D 520 and D 0 by B12 (which takes 257-512 in its wide
+    layout, phase 5l), naming ROADMAP.md A14, with no launch. The errors at a head dim of `tags` ({d:
     tag}, default D 96's "phi3") also go to "<kernel> <tag>"."""
     tags = {96: "phi3"} if tags is None else tags
     flash_fwd, flash_bwd, flash_varlen = ops["flash_fwd"], ops["flash_bwd"], ops["flash_varlen"]
@@ -5176,7 +5205,9 @@ def phase_odd_head_dims_training(torch, ops, errs, rel_errs, dims=ODD_TRAINING_D
     if not formerly_refused:
         return
     # D 100, refused before the pitched rows, now runs (rows of 104, its
-    # views through one padded copy each); D 264 and D 0 stay refused.
+    # views through one padded copy each); D 264 and D 0 stay refused by
+    # the backward and the autograd op, D 520 and D 0 by B12 (phase 5l runs
+    # its wide layout).
     counted = (flash_fwd.PREFILL, flash_fwd.WINDOWED_PREFILL, flash_bwd.DKV, flash_bwd.DQ,
                flash_varlen.VARLEN)
     one = torch.tensor([0, 64], dtype=torch.int32, device="cuda")
@@ -5203,8 +5234,10 @@ def phase_odd_head_dims_training(torch, ops, errs, rel_errs, dims=ODD_TRAINING_D
         print(f"  {what} at D 100: launches (P, B2, B13a, B13b, B12) {got}")
         check(got == want, f"{what} at D 100 (refused before the pitched rows) launches "
               f"{want}")
-    head_dims_refused(torch, ops, "B13a / B13b, the autograd op and B12",
-                      [lambda d, i=i: calls(d)[i][1]() for i in range(3)], counted)
+    head_dims_refused(torch, ops, "B13a / B13b and the autograd op",
+                      [lambda d, i=i: calls(d)[i][1]() for i in range(2)], counted)
+    head_dims_refused(torch, ops, "B12 (wide layout up to 512)",
+                      [lambda d: calls(d)[2][1]()], counted, dims=(520, 0))
 
 
 PHI3_TRAIN_PATH = f"{PHI3_LABEL} training"
@@ -5937,7 +5970,8 @@ def phase_pitched_head_dims(torch, ops, paged_cache, errs, rel_errs):
     version within the tolerances of phases 3i-3l, over NaN tails and
     poisoned pools at the port's row pitch and the model's transposed views
     (one padded copy each), every call repeated bit for bit. Then D 264 and
-    D 0 refused by P / B2, P-i8 (K8), D1, B5, B6 and the append before any
+    D 0 refused by P-i8 (K8), D1, B5, B6 and the append, D 520 and D 0 by P
+    / B2 (which take 257-512 in the wide layout, phase 5l), before any
     launch. Prints the padded copies the phase made."""
     from flash_attention_cute_tpu_torch.ops import _build
 
@@ -5958,12 +5992,16 @@ def phase_pitched_head_dims(torch, ops, paged_cache, errs, rel_errs):
 
     rows = torch.tensor([3, 5], dtype=torch.int32, device="cuda")
     table = torch.arange(1, 9, dtype=torch.int32, device="cuda").view(2, 4)
-    head_dims_refused(torch, ops, "P / B2, P-i8 (K8), D1, B5, B6 and the append", [
+    counted = (flash_fwd.PREFILL, flash_fwd.WINDOWED_PREFILL, flash_fwd.PREFILL_INT8,
+               flash_fwd.QUANTIZE_K, flash_decode.PARTIALS, pa.PAGED_DECODE, pa.PAGED_EXTEND,
+               paged_cache.APPEND)
+    head_dims_refused(torch, ops, "P / B2 (wide layout up to 512)", [
         lambda d: flash_fwd.flash_attention_fwd(randn(2, 4, 64, d), randn(2, 2, 64, d),
                                                 randn(2, 2, 64, d), sm_scale=1.0, causal=True),
         lambda d: flash_fwd.flash_attention_fwd(randn(2, 4, 64, d), randn(2, 2, 64, d),
                                                 randn(2, 2, 64, d), sm_scale=1.0, window=8,
-                                                causal=True),
+                                                causal=True)], counted, dims=(520, 0))
+    head_dims_refused(torch, ops, "P-i8 (K8), D1, B5, B6 and the append", [
         lambda d: flash_fwd.flash_attention_fwd(randn(2, 4, 64, d), randn(2, 2, 64, d),
                                                 randn(2, 2, 64, d), sm_scale=1.0, causal=True,
                                                 score_dtype="int8"),
@@ -5977,10 +6015,7 @@ def phase_pitched_head_dims(torch, ops, paged_cache, errs, rel_errs):
                                             sm_scale=1.0),
         lambda d: paged_cache.paged_append_layer(randn(2, 9, 16, d), randn(2, 9, 16, d),
                                                  randn(2, 2, 1, d), randn(2, 2, 1, d), table,
-                                                 rows)],
-        (flash_fwd.PREFILL, flash_fwd.WINDOWED_PREFILL, flash_fwd.PREFILL_INT8,
-         flash_fwd.QUANTIZE_K, flash_decode.PARTIALS, pa.PAGED_DECODE, pa.PAGED_EXTEND,
-         paged_cache.APPEND))
+                                                 rows)], counted)
     print(f"  padded copies in phase 3o: "
           + ", ".join(f"{k} {_build.copies[k] - before[k]}" for k in before)
           + " (the transposed views of q / k / v and contiguous caches at D 4, 36 and 100)")
@@ -6198,6 +6233,222 @@ def phi3_int8_rows(torch, flash_fwd, gen):
     return {"flash_fwd_int8": p_i8, "flash_fwd_window_int8": b2_i8, "quantize_k_rows": k8}
 
 
+# Phase 5l: head dims from 257 to 512 in P / B2 (with the lse) and B12,
+# which run them in the wide layout of 512 (csrc/attention_wgmma.cuh: a
+# block computes 256 of O's columns, grid y picks which, recomputing S over
+# the whole d; 32-key tiles), at DeepSeek-V4-Flash's attention widths
+# (config.json: 64 q heads, 1 kv head, head_dim 512, sliding_window 128;
+# bf16). JAX's API and model path refuse a head dim above 256 (as the
+# port's `dispatch.validate_inputs` does), so no model runs: the path is
+# the public kernel-level entry points `ops.flash_fwd.flash_attention_fwd`
+# and `flash_attention_varlen`. The cap of 50 is not the config's: it
+# covers the capped instantiation. The packed batch: 8 sequences of
+# 517-4096 tokens, 16384 in all. Then d 260 (rows of 264), 320 and 384 at
+# B 1 x 2048 and a packed batch of 4096 tokens, the same heads.
+V4_LABEL = "v4-widths"
+V4_HQ, V4_HKV, V4_D, V4_S, V4_WINDOW, V4_CAP = 64, 1, 512, 8192, 128, 50.0
+V4_PACKED_LENS = [4096, 517, 2048, 1000, 3072, 1531, 2560, 1560]
+V4_SMALL_DIMS, V4_SMALL_S, V4_SMALL_LENS = (260, 320, 384), 2048, [1024, 1, 700, 371, 2000]
+
+
+def v4_randn(torch, gen, *shape):
+    """bf16 normal values at the port's row pitch (`pitched`)."""
+    return pitched(torch, torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16))
+
+
+def cu_seqlens(torch, lens):
+    return torch.tensor([0] + list(lens), device="cuda").cumsum(0).to(torch.int32)
+
+
+def held_varlen(torch, flash_varlen, errs, what, q, k, v, cu, out=None, tag=V4_LABEL):
+    """B12 through `flash_attention_varlen` (causal) against its fp32 plain
+    version (`varlen_plain`), within BF16_TOL and finite, a second call (or
+    `out`, a call made before) repeated bit for bit."""
+    from flash_attention_cute_tpu_torch import flash_attention_varlen
+
+    got = flash_attention_varlen(q, k, v, cu, causal=True)
+    ref = varlen_plain(torch, flash_varlen, q, k, v, cu, cu, causal=True)
+    e = max_err(got, ref)
+    same = torch.equal(got, out if out is not None else flash_attention_varlen(q, k, v, cu,
+                                                                               causal=True))
+    note_err(errs, "flash_varlen", e, tag)
+    print(f"  {what}: max|diff| {e:.3e}, repeated bit for bit: {same}")
+    check(bool(torch.isfinite(got).all()), f"{what}: finite")
+    check(e <= BF16_TOL, f"{what} within {BF16_TOL}")
+    check(same, f"{what}: repeated bit for bit")
+
+
+def phase_v4_widths(torch, ops, kernels, path_counts, errs):
+    """Phase 5l's checks and path: the entry points at DeepSeek-V4-Flash's
+    widths on path "v4-widths" (P causal at B 1 x 8192 with and without the
+    lse, B2 with the window of 128 and with the cap 50 too, B12 over the
+    packed batch: P 2, B2 2, B12 1, nothing else), each output within
+    BF16_TOL of its fp32 plain version (the lse within LSE_TOL) and equal to
+    a second call; then d 260, 320 and 384 alike at the smaller size."""
+    from flash_attention_cute_tpu_torch import flash_attention_varlen
+
+    flash_fwd, flash_varlen = ops["flash_fwd"], ops["flash_varlen"]
+    gen = torch.Generator(device="cuda").manual_seed(4396)
+    q, k, v = (v4_randn(torch, gen, 1, h, V4_S, V4_D) for h in (V4_HQ, V4_HKV, V4_HKV))
+    cu = cu_seqlens(torch, V4_PACKED_LENS)
+    pq, pk, pv = (v4_randn(torch, gen, int(cu[-1]), h, V4_D) for h in (V4_HQ, V4_HKV, V4_HKV))
+    fwd = flash_fwd.flash_attention_fwd
+    outs, wall, counts = counted_run(torch, kernels, lambda: (
+        fwd(q, k, v, causal=True), fwd(q, k, v, causal=True, return_lse=True),
+        fwd(q, k, v, causal=True, window=V4_WINDOW),
+        fwd(q, k, v, causal=True, window=V4_WINDOW, logit_softcap=V4_CAP),
+        flash_attention_varlen(pq, pk, pv, cu, causal=True)))
+    path_counts[V4_LABEL] = counts
+    print(f"  path {V4_LABEL!r}: P causal (and with its lse) and B2 (window {V4_WINDOW}, also "
+          f"with the cap {V4_CAP}) at B 1 x {V4_S}, {V4_HQ} / {V4_HKV} heads, D {V4_D}; B12 over "
+          f"{len(V4_PACKED_LENS)} sequences ({int(cu[-1])} tokens): {wall * 1e3:.1f} ms (host "
+          f"clock), launches { {n: c for n, c in counts.items() if c} }")
+    check_launched(counts, {"flash_fwd": 2, "flash_fwd_window": 2, "flash_varlen": 1},
+                   f"path {V4_LABEL}")
+    check(all(tuple(o.shape) == tuple(q.shape) for o in (outs[0], outs[1][0], outs[2], outs[3]))
+          and tuple(outs[1][1].shape) == tuple(q.shape[:3])
+          and tuple(outs[4].shape) == tuple(pq.shape), f"path {V4_LABEL}: output shapes")
+    for (what, window, cap), path_out in zip(
+            (("P causal", None, None), ("B2 window", V4_WINDOW, None),
+             ("B2 window, cap", V4_WINDOW, V4_CAP)), (outs[1][0], outs[2], outs[3])):
+        out = held_prefill(torch, flash_fwd, errs, f"{V4_LABEL} {what} D {V4_D}", q, k, v, True,
+                           window, cap, tag=V4_LABEL, step=8)
+        check(torch.equal(out, path_out) and (window or torch.equal(out, outs[0])),
+              f"{V4_LABEL} {what}: the path's calls repeat bit for bit")
+        del out
+        torch.cuda.empty_cache()
+    held_varlen(torch, flash_varlen, errs, f"{V4_LABEL} B12 D {V4_D}", pq, pk, pv, cu, outs[4])
+    del q, k, v, pq, pk, pv, outs
+    torch.cuda.empty_cache()
+    cu = cu_seqlens(torch, V4_SMALL_LENS)
+    for d in V4_SMALL_DIMS:
+        q, k, v = (v4_randn(torch, gen, 1, h, V4_SMALL_S, d) for h in (V4_HQ, V4_HKV, V4_HKV))
+        held_prefill(torch, flash_fwd, errs, f"P causal D {d} (rows of {q.stride(-2)})", q, k, v,
+                     True, None, tag=V4_LABEL)
+        held_prefill(torch, flash_fwd, errs, f"B2 window {V4_WINDOW}, cap {V4_CAP}, D {d}", q, k,
+                     v, True, V4_WINDOW, V4_CAP, tag=V4_LABEL)
+        pq, pk, pv = (v4_randn(torch, gen, int(cu[-1]), h, d) for h in (V4_HQ, V4_HKV, V4_HKV))
+        held_varlen(torch, flash_varlen, errs, f"B12 D {d}, {len(V4_SMALL_LENS)} sequences "
+                    f"({int(cu[-1])} tokens)", pq, pk, pv, cu)
+        del q, k, v, pq, pk, pv
+    torch.cuda.empty_cache()
+
+
+def sdpa_entry(torch, q, k, v, **kw) -> dict:
+    """library_ms of one SDPA call over q and k / v expanded to q's heads
+    (bf16), and "library": the backend torch picks there
+    (`torch._fused_sdp_choice`), or null with the reason where SDPA raises."""
+    from flash_attention_cute_tpu_torch.utils.timing import cuda_time_ms
+
+    f = torch.nn.functional
+    kx, vx = (x.repeat_interleave(q.shape[1] // x.shape[1], dim=1) for x in (k, v))
+    try:
+        from torch.nn.attention import SDPBackend
+
+        backend = SDPBackend(torch._fused_sdp_choice(q, kx, vx, kw.get("attn_mask"), 0.0,
+                                                     kw.get("is_causal", False))).name
+    except (AttributeError, RuntimeError, TypeError, ValueError) as err:  # a private call
+        backend = f"not named ({type(err).__name__})"
+    try:
+        ms = cuda_time_ms(lambda: f.scaled_dot_product_attention(q, kx, vx, **kw), 3, warmup=1)
+        out = {"library_ms": ms, "library": f"SDPA, backend {backend}, group expanded"}
+    except RuntimeError as err:  # no SDPA backend of the card takes the shape
+        out = {"library_ms": None, "library": f"null: SDPA raised ({str(err)[:160]})"}
+    del kx, vx
+    torch.cuda.empty_cache()
+    return out
+
+
+def v4_rows(torch, ops, gen, path_counts, errs, reports):
+    """Phase 5l's numbers: the "v4" entries of the P, B2 and B12 rows at the
+    path's shapes: ms, call_ms, the fp32 plain version's ms (8 q heads at a
+    time; B12's per sequence), SDPA's ms and backend (`sdpa_entry`: P
+    is_causal; B2 with the window as a boolean mask; B12 over the batch
+    padded to [8, 64, 4096, 512], is_causal, padding computed too), the
+    bound (4 D operations a visible pair and q head at the bf16 rate, or q,
+    k, v and the output once at 3.35 TB/s), P's time with its lse and B2's
+    with the cap, the runtime attributes of the D 512 instantiation, the
+    errors and launches of path "v4-widths"."""
+    from flash_attention_cute_tpu_torch import flash_attention_varlen
+    from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms
+
+    flash_fwd, flash_varlen = ops["flash_fwd"], ops["flash_varlen"]
+    fwd_report, b12_report = reports
+    q, k, v = (v4_randn(torch, gen, 1, h, V4_S, V4_D) for h in (V4_HQ, V4_HKV, V4_HKV))
+    io = 2 * (2 * q.numel() + k.numel() + v.numel())
+    heads = f"Hq {V4_HQ}, Hkv {V4_HKV}, D {V4_D} (DeepSeek-V4-Flash's attention)"
+    out = {}
+    for name, window, pairs in (
+            ("flash_fwd", None, V4_S * (V4_S + 1) // 2),
+            ("flash_fwd_window", V4_WINDOW, sum(min(m + 1, V4_WINDOW) for m in range(V4_S)))):
+        def fn(cap=None, lse=False, window=window):
+            return flash_fwd.flash_attention_fwd(q, k, v, causal=True, window=window,
+                                                 logit_softcap=cap, return_lse=lse)
+
+        def plain(window=window):
+            return by_kv_head(torch, lambda q_, k_, v_: flash_fwd.flash_attention_fwd_plain(
+                q_.float(), k_.float(), v_.float(), causal=True, window=window), q, k, v, 8)
+
+        if window:
+            mask = torch.ones(V4_S, V4_S, dtype=torch.bool, device="cuda").tril()
+            mask &= ~torch.ones_like(mask).tril(-window)
+            lib = sdpa_entry(torch, q, k, v, attn_mask=mask)
+            del mask
+        else:
+            lib = sdpa_entry(torch, q, k, v, is_causal=True)
+        e = {"shape": f"B 1, S {V4_S}, causal" + (f", window {window}" if window else "")
+                      + f", {heads}",
+             "ms": cuda_time_ms(fn, 10), "call_ms": call_time_ms(fn, 10),
+             "plain_ms": cuda_time_ms(plain, 2, warmup=1), **lib,
+             **bound(4 * V4_D * V4_HQ * pairs, io, PEAK_BF16),
+             "max_abs_err": errs[f"{name} {V4_LABEL}"],
+             "launches": path_counts[V4_LABEL][name]}
+        if window:
+            e["cap_ms"] = cuda_time_ms(lambda: fn(cap=V4_CAP), 10)
+            e["runtime_attributes"] = runtime_attributes(fwd_report, "P / B2 D512 bf16")
+            e["cap_runtime_attributes"] = runtime_attributes(fwd_report, "P / B2 D512 bf16 cap")
+        else:
+            e["lse_ms"] = cuda_time_ms(lambda: fn(lse=True), 10)
+            e["lse_max_abs_err"] = errs[f"{name} {V4_LABEL} lse"]
+            e["runtime_attributes"] = runtime_attributes(fwd_report, "P / B2 D512 bf16")
+        out[name] = e
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    lens = V4_PACKED_LENS
+    cu = cu_seqlens(torch, lens)
+    q, k, v = (v4_randn(torch, gen, int(cu[-1]), h, V4_D) for h in (V4_HQ, V4_HKV, V4_HKV))
+    seg, pos = flash_varlen._seg_metadata(cu, q.shape[0])
+    qp, kp, vp = (torch.zeros((len(lens), h, max(lens), V4_D), dtype=torch.bfloat16,
+                              device="cuda") for h in (V4_HQ, V4_HKV, V4_HKV))
+    for i, n in enumerate(lens):
+        a = int(cu[i])
+        for dst, src in ((qp, q), (kp, k), (vp, v)):
+            dst[i, :, :n] = src[a:a + n].transpose(0, 1)
+    pairs = sum(n * (n + 1) // 2 for n in lens)
+
+    def run():
+        return flash_attention_varlen(q, k, v, cu, causal=True)
+
+    out["flash_varlen"] = {
+        "shape": f"{len(lens)} sequences of {min(lens)}-{max(lens)} tokens ({q.shape[0]} "
+                 f"packed), causal, {heads}; library_ms: SDPA over the batch padded to "
+                 f"[{len(lens)}, {V4_HQ}, {max(lens)}, {V4_D}], padding computed too",
+        "ms": cuda_time_ms(run, 10), "call_ms": call_time_ms(run, 10),
+        "plain_ms": cuda_time_ms(lambda: flash_varlen.flash_attention_packed_plain(
+            q.transpose(0, 1), k.transpose(0, 1), v.transpose(0, 1), seg, seg, pos, pos,
+            causal=True), 2, warmup=1),
+        **sdpa_entry(torch, qp, kp, vp, is_causal=True),
+        **bound(4 * V4_D * V4_HQ * pairs,
+                2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * 4 * q.shape[0], PEAK_BF16),
+        "max_abs_err": errs[f"flash_varlen {V4_LABEL}"],
+        "launches": path_counts[V4_LABEL]["flash_varlen"],
+        "runtime_attributes": runtime_attributes(b12_report, "B12 D512 bf16")}
+    del q, k, v, qp, kp, vp
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--layers", type=int, default=0,
@@ -6338,7 +6589,8 @@ def main() -> int:
     print(f"  phase 3k: {time.perf_counter() - t0:.1f} s")
     print("[3l] head dims outside 64 / 128 / 256 in training and packed batches: B13a / B13b "
           "(B13a also in 3 parts and in one) and B12 at D 8, 24, 40, 96, 136, 200 and 248 vs "
-          "plain; D 100 (refused before the pitched rows) launched; D 264 and D 0 refused")
+          "plain; D 100 (refused before the pitched rows) launched; D 264 and D 0 refused (B12: "
+          "D 520 and D 0)")
     t0 = time.perf_counter()
     phase_odd_head_dims_training(torch, ops, errs, rel_errs)
     torch.cuda.synchronize()
@@ -6364,7 +6616,7 @@ def main() -> int:
           "D 4, 40, 96 and 100; P / B2, D1 + D2, B5, B6, the append and B4 at D 4, 36 and 100 "
           "(32 / 8 heads; D 100 also windowed and capped); B7, B8, B9, QA and B4 at D 24, 40 "
           "and 72 over int8 / e4m3; B13a / B13b and B12 at D 36 and 100; D 264 and D 0 "
-          f"refused; then the API's int8 scores at Phi-3-mini's widths (path "
+          f"refused (P / B2: D 520 and D 0); then the API's int8 scores at Phi-3-mini's widths (path "
           f"{PHI3_INT8_LABEL!r})")
     t0 = time.perf_counter()
     phase_pitched_head_dims(torch, ops, paged_cache, errs, rel_errs)
@@ -6648,6 +6900,18 @@ def main() -> int:
             r["phi3"] = {"max_abs_err": errs[f"{name} phi3"],
                          "launches": path_counts[PHI3_INT8_LABEL][name], **phi3_i8[name]}
     print(f"  phase 5k: {time.perf_counter() - t0:.1f} s")
+    print(f"[5l] head dims from 257 to 512 (the wide layout of P / B2 and B12) at "
+          f"DeepSeek-V4-Flash's attention widths ({V4_HQ} / {V4_HKV} heads, D {V4_D}, bf16): "
+          f"the entry points on path {V4_LABEL!r} vs plain, d {V4_SMALL_DIMS} at B 1 x "
+          f"{V4_SMALL_S}, then the \"v4\" entries of the P, B2 and B12 rows")
+    t0 = time.perf_counter()
+    phase_v4_widths(torch, ops, kernels, path_counts, errs)
+    v4 = v4_rows(torch, ops, torch.Generator(device="cuda").manual_seed(88), path_counts, errs,
+                 (fwd_report, b12_report))
+    for r in rows:
+        if r["name"] in v4:
+            r["v4"] = v4[r["name"]]
+    print(f"  phase 5l: {time.perf_counter() - t0:.1f} s")
     # Peak over the whole script: serving reset the counter before each run.
     numbers["max_memory_allocated_gb"] = max(
         [numbers["max_memory_allocated_gb"], serving.pop("peak_before_serving_gb")]

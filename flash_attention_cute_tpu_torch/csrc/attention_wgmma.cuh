@@ -43,6 +43,15 @@
 //   * D 64 / 128: tiles of 128 keys, S 64 fp32 registers a thread, O 32 /
 //     64, P 32; D 256: tiles of 64 keys, S 32, O 128 (two products of N 128
 //     per k-step of P V), P 16.
+//   * The wide layout, D 512 (P / B2 and B12 only: d from 257 to 512): O
+//     of 512 columns would take 256 registers a thread and a 64-key K or V
+//     tile 64 KB, so a block computes one chunk of 256 of O's columns (grid
+//     y; Tiles::kDO), recomputing S over the whole depth in each chunk (6 d
+//     operations a visible pair where one pass takes 4 d); Q stays whole
+//     (128 KB), tiles are of 32 keys: a K tile of 32 KB, a V tile holds its
+//     chunk's 256 columns (16 KB). S 16 registers, O 128 (as D 256), P 8.
+//     Every chunk computes the same S, max and sum bit for bit; the lse is
+//     written by chunk 0 alone.
 #pragma once
 
 #include "hopper.cuh"
@@ -56,17 +65,20 @@ constexpr int kTileM = 64;     // q rows of a consumer
 // Tile sizes by head dim, in bytes: a 64-column box of Q or of a K / V tile.
 template <int D>
 struct Tiles {
-  static constexpr int kN = D == 256 ? 64 : 128;  // keys of a tile
+  static constexpr int kN = D > 256 ? 32 : D == 256 ? 64 : 128;  // keys of a tile
+  static constexpr int kDO = D > 256 ? 256 : D;  // O's columns a block computes: a chunk
+  static constexpr int kChunks = D / kDO;        // blocks along grid y
   static constexpr int kQBox = kBlockM * 128;
   static constexpr int kKVBox = kN * 128;
   static constexpr int kQ = D / 64 * kQBox;
-  static constexpr int kKV = D / 64 * kKVBox;  // a K or a V tile
+  static constexpr int kKV = D / 64 * kKVBox;  // a K tile (and a V tile where kDO == D)
+  static constexpr int kV = kDO / 64 * kKVBox;  // a V tile: its chunk's columns
 };
 
 // A block's shared memory from `base` (1 KB aligned, for the swizzle): the
 // Q tile (kQBytes; P-i8 / B2-i8 follow it with their int8 Q tile), the K
 // ring (kKStages slots of kKSlot bytes: a tile, or P-i8's int8 tile), the V
-// ring (kVStages slots of a tile), the kernel's own bytes, and at `kBars`
+// ring (kVStages slots of a V tile), the kernel's own bytes, and at `kBars`
 // the mbarriers: q_full, then a full and an empty barrier a slot (K's, then
 // V's), then `extra(i)`, the producer's own. Tile `it` of the walk takes
 // slot it % stages. Every address is base plus a constant, so the consumers
@@ -84,7 +96,7 @@ struct Rings {
     return base + kK0 + it % kKStages * kKSlot;
   }
   __device__ __forceinline__ uint32_t sV(int it) const {
-    return base + kV0 + it % kVStages * Tiles<D>::kKV;
+    return base + kV0 + it % kVStages * Tiles<D>::kV;
   }
   __device__ __forceinline__ uint32_t full_k(int it) const {
     return base + kBars + 8 * (1 + it % kKStages);
@@ -193,8 +205,8 @@ __device__ __forceinline__ void qk_products_i8(uint32_t (&s)[kN / 2], uint32_t q
 }
 
 // O += P V over a tile's kN keys: P in registers (the A fragments of each
-// k-step of 16 keys), V MN-major from its slot; at D 256 two products of N
-// 128 a k-step.
+// k-step of 16 keys), V MN-major from its slot; D: O's columns (Tiles::kDO),
+// at 256 two products of N 128 a k-step.
 template <typename T, int D, int kN>
 __device__ __forceinline__ void pv_products(float (&o)[D == 256 ? 2 : 1][D == 256 ? 64 : D / 2],
                                             const uint32_t (&pa)[kN / 16][4], uint32_t v) {
@@ -508,6 +520,11 @@ __device__ __forceinline__ void mask_tile(const Segments<kMetaOff, kKStages>& v,
 // before the cap, P by the V scale of its key after its row sum and before its
 // rounding to T.
 // Vis: which keys a row sees, `Visible` or a mode above (B4, B12).
+// The wide layout (D > 256; bf16 / f16 scores, no B9 scales, no partials):
+// the block's O chunk (Tiles::kDO columns) lies at `o`, which the kernel
+// points at the chunk's first column, and `cols` of its columns are stored
+// (the row pitch d past that column, at most kDO); below it `cols` is
+// unused.
 // kI8 (P-i8 / B2-i8): S is the s8 product of the int8 Q tile, which the
 // consumers quantize from the Q tile first (quantize_q, with
 // sco.scale_log2 as q's pre-scale), and of int8 K tiles, whose keys'
@@ -523,19 +540,21 @@ template <typename T, int D, bool kCap, int kScaleOff, bool kI8 = false, int kKS
 __device__ __forceinline__ void consume(
     const Rings<D, kKStages, kVStages, kBars, kKSlot, kQBytes>& ring, const Vis& vis,
     const Scores& sco, int m0, int n_begin, int total, T* o, float* lse, int head,
-    int d = D, PartialsOut part = {}) {
-  constexpr int kN = Tiles<D>::kN;
+    int d = D, PartialsOut part = {}, int cols = 0) {
+  constexpr int kN = Tiles<D>::kN, kDO = Tiles<D>::kDO;
   constexpr bool kScaled = kScaleOff > 0 && !kI8;
   constexpr bool kDense = std::is_same_v<Vis, Visible>, kKeyMeta = KeyMeta<Vis>::value;
   constexpr bool kSplit = SplitP<Vis>::value, kPartials = Partials<Vis>::value;
+  static_assert(kDO == D || !(kScaleOff > 0 || kI8 || kSplit || kPartials),
+                "the wide layout takes bf16 / f16 scores and stores O");
   const int ct = threadIdx.x - 128, wg = ct >> 7, wi = (ct >> 5) & 3, lane = ct & 31;
   const int g = lane >> 2, t = lane & 3;
   const int mw = m0 + kTileM * wg;       // this warpgroup's first row
   const int row0 = mw + 16 * wi + g;     // this thread's rows: row0, row0 + 8
   const uint32_t qa = ring.sQ() + wg * kTileM * 128;
   [[maybe_unused]] const auto rows = row_state(vis, mw, row0);
-  constexpr int kOBlocks = D == 256 ? 2 : 1;  // PV products of N = D / kOBlocks a k-step
-  constexpr int kON = D / kOBlocks;
+  constexpr int kOBlocks = kDO == 256 ? 2 : 1;  // PV products of N = kDO / kOBlocks a k-step
+  constexpr int kON = kDO / kOBlocks;
   // Element 4 j + e of an accumulator: row row0 + 8 (e >> 1), column
   // 8 j + 2 t + (e & 1) (of keys for S, of D within the block for O).
   float acc[kOBlocks][kON / 2];
@@ -671,8 +690,8 @@ __device__ __forceinline__ void consume(
   // O += P V of tile it's slot (kSplit: hi V, then lo V).
   auto pv = [&](uint32_t (&pa)[kN / 16][4], uint32_t (&pl)[kSplit ? kN / 16 : 1][4],
                 int it) {
-    pv_products<T, D, kN>(acc, pa, ring.sV(it));
-    if constexpr (kSplit) pv_products<T, D, kN>(acc, pl, ring.sV(it));
+    pv_products<T, kDO, kN>(acc, pa, ring.sV(it));
+    if constexpr (kSplit) pv_products<T, kDO, kN>(acc, pl, ring.sV(it));
   };
   auto fence_p = [&](uint32_t (&pa)[kN / 16][4], uint32_t (&pl)[kSplit ? kN / 16 : 1][4]) {
 #pragma unroll
@@ -819,6 +838,7 @@ __device__ __forceinline__ void consume(
             l > 0.f ? row_max[r] + log2f(l) : INFINITY;
     }
     T* out = o + static_cast<int64_t>(head) * vis.sq * d;
+    const int stored = kDO == D ? d : cols;  // columns of the row (of the chunk) stored
 #pragma unroll
     for (int c = 0; c < kOBlocks; ++c)
 #pragma unroll
@@ -826,7 +846,7 @@ __device__ __forceinline__ void consume(
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int row = row0 + 8 * r, col = c * kON + 8 * j + 2 * t;
-          if (row < vis.sq && col < d)
+          if (row < vis.sq && col < stored)
             *reinterpret_cast<uint32_t*>(out + static_cast<int64_t>(row) * d + col) =
                 Elem<T>::pack(acc[c][4 * j + 2 * r] * inv[r], acc[c][4 * j + 2 * r + 1] * inv[r]);
         }

@@ -24,11 +24,14 @@
 // x = c2 * tanh(x / c2), c2 = c * log2(e), which is log2(e) times the TPU
 // kernels' c * tanh(s / c) of the natural score s. Head dims: every d
 // from 1 to 256, each run in the layout of the next of 64, 128 and 256 at
-// or above it (padded_head_dim): the maps hold the true d columns (rows at
+// or above it (padded_head_dim), and P / B2 also every d from 257 to 512 in
+// the wide layout of 512 (attention_wgmma.cuh: two blocks along grid y,
+// each O's columns [256 y, 256 y + 256), S recomputed in each; 32-key
+// tiles): the maps hold the true d columns (rows at
 // any 16-byte stride, row_pitch), so TMA reads zeros past them, S is exact
 // and O is stored at the row pitch row_pitch(d), its columns past d zeros
 // (the TPU wrapper pads D up to its 128 lanes likewise and keeps a D above
-// 128 native, flash_fwd.py:926-938). P-i8 / B2-i8 likewise: K8 writes its
+// 128 native, flash_fwd.py:926-938). P-i8 / B2-i8 (up to 256) likewise: K8 writes its
 // int8 rows at row_pitch(d, 1) with zeros past d, and their kPad
 // instantiation (a pitch below the layout's D) stores the pitch's columns
 // only, so at d == D they keep the kernels they had.
@@ -56,7 +59,9 @@
 // causal grids start with the rows that see the most keys. The tanh of the
 // soft cap is two MUFU operations (softcap()). Shared memory: Q 16 / 32 /
 // 64 KB, K slots 4 / 4 / 3 and V slots 4 / 2 / 2 of 16 / 32 / 32 KB at D 64
-// / 128 / 256: 144 / 224 / 224 KB, one block an SM. P-i8 / B2-i8 add the
+// / 128 / 256: 144 / 224 / 224 KB, one block an SM; at D 512 Q 128 KB, two
+// K slots of 32 KB and two V slots of 16 KB (a chunk's 256 columns): 224
+// KB. P-i8 / B2-i8 add the
 // int8 Q tile (8 / 16 / 32 KB) and take K slots of half the size, with the
 // keys' scales beside them: about 122 / 178 / 209 KB.
 #include "attention_wgmma.cuh"
@@ -85,11 +90,11 @@ struct FwdParams {
 // and the keys' scales of each K slot follow the V ring.
 template <int D, bool kI8 = false>
 struct FwdSmem {
-  static constexpr int kKStages = D == 256 ? 3 : 4;
+  static constexpr int kKStages = D > 256 ? 2 : D == 256 ? 3 : 4;
   static constexpr int kVStages = D == 64 ? 4 : 2;
   static constexpr int kQBytes = Tiles<D>::kQ + (kI8 ? kBlockM * D : 0);
   static constexpr int kKSlot = kI8 ? Tiles<D>::kN * D : Tiles<D>::kKV;
-  static constexpr int kScaleOff = kQBytes + kKStages * kKSlot + kVStages * Tiles<D>::kKV;
+  static constexpr int kScaleOff = kQBytes + kKStages * kKSlot + kVStages * Tiles<D>::kV;
   static constexpr int kBars = kScaleOff + (kI8 ? kKStages * Tiles<D>::kN * 4 : 0);
   using Ring = Rings<D, kKStages, kVStages, kBars, kKSlot, kQBytes>;
   static constexpr int kBytes = 1024 + kBars + Ring::kBarriers * 8;
@@ -117,6 +122,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int m0 = (nqb - 1 - static_cast<int>(blockIdx.x) / per) * kBlockM;  // most keys first
   const int h = blockIdx.x % per % p.hq, b = blockIdx.x % per / p.hq, hk = h / p.group;
   const int offset = p.skv - p.sq;
+  // The first of O's (and V's) columns of this block's chunk (the wide layout).
+  const int c0 = Tl::kChunks > 1 ? Tl::kDO * static_cast<int>(blockIdx.y) : 0;
 
   // Keys from the window's near edge (row m0's first visible key) to the
   // causal edge (the last row's last).
@@ -153,18 +160,20 @@ __global__ void __launch_bounds__(kThreads, 1)
             tma_load_4d(r.sK(it) + c * Tl::kKVBox, &kmap, 64 * c, n0, hk, b, r.full_k(it));
         }
         mbar_wait(r.empty_v(it), r.v_pass(it) ^ 1);
-        mbar_expect_tx(r.full_v(it), Tl::kKV);
-        for (int c = 0; c < D / 64; ++c)
-          tma_load_4d(r.sV(it) + c * Tl::kKVBox, &vmap, 64 * c, n0, hk, b, r.full_v(it));
+        mbar_expect_tx(r.full_v(it), Tl::kV);
+        for (int c = 0; c < Tl::kDO / 64; ++c)  // V's columns of the block's chunk
+          tma_load_4d(r.sV(it) + c * Tl::kKVBox, &vmap, c0 + 64 * c, n0, hk, b, r.full_v(it));
       }
     }
     return;
   }
 
   setmaxnreg_inc<240>();
+  // The chunk's O columns (the wide layout; chunk 0 writes the lse).
   consume<T, D, kCap, kI8 ? S::kScaleOff : 0, kI8>(
       r, Visible{p.sq, p.skv, offset, p.causal, p.window}, p.sc, m0, n_begin, total,
-      static_cast<T*>(p.o), p.lse, b * p.hq + h, kI8 && !kPad ? D : p.d);
+      static_cast<T*>(p.o) + c0, c0 == 0 ? p.lse : nullptr, b * p.hq + h,
+      kI8 && !kPad ? D : p.d, {}, min(Tl::kDO, p.d - c0));
 }
 
 // ---------------------------------------------------------------------------
@@ -301,7 +310,8 @@ int launch_fwd(const FwdParams& p, const FwdViews& w, cudaStream_t stream) {
     return cudaErrorInvalidValue;
   FwdParams kp = p;
   kp.d = row_pitch(d);  // O's row pitch
-  kernel<<<static_cast<unsigned>(blocks), kThreads, S::kBytes, stream>>>(qmap, kmap, vmap, kp);
+  const dim3 grid(static_cast<unsigned>(blocks), Tiles<D>::kChunks);
+  kernel<<<grid, kThreads, S::kBytes, stream>>>(qmap, kmap, vmap, kp);
   return cudaGetLastError();
 }
 
@@ -318,13 +328,16 @@ int launch_pad(const FwdParams& p, const FwdViews& w, cudaStream_t s) {
   return launch_cap<T, D, kI8, false>(p, w, s);
 }
 
-// P / B2 and P-i8 / B2-i8 run d in the layout of padded_head_dim(d).
+// P / B2 run d in the layout of padded_head_dim(d, true) (up to 512),
+// P-i8 / B2-i8 in that of padded_head_dim(d) (up to 256).
 template <typename T, bool kI8>
 int dispatch_fwd(const FwdParams& p, const FwdViews& w, int d, cudaStream_t s) {
-  const int layout = padded_head_dim(d);
+  const int layout = padded_head_dim(d, !kI8);
   if (layout == 64) return launch_pad<T, 64, kI8>(p, w, s);
   if (layout == 128) return launch_pad<T, 128, kI8>(p, w, s);
   if (layout == 256) return launch_pad<T, 256, kI8>(p, w, s);
+  if constexpr (!kI8)
+    if (layout == 512) return launch_cap<T, 512, false, false>(p, w, s);
   return cudaErrorInvalidValue;
 }
 
@@ -342,6 +355,8 @@ static void report_type(char* out, int cap, int& used, const char* t) {
   FWD_REPORT(128, true, false);
   FWD_REPORT(256, false, false);
   FWD_REPORT(256, true, false);
+  FWD_REPORT(512, false, false);
+  FWD_REPORT(512, true, false);
   FWD_REPORT(64, false, true);
   FWD_REPORT(64, true, true);
   FWD_REPORT(128, false, true);

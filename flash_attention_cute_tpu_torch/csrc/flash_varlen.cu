@@ -9,7 +9,9 @@
 // sliding window W kv_pos[n] > q_bound[m] - W. The tanh soft cap
 // (`softcap_log2`, c * log2(e), 0 for none) applies to every score before
 // the mask. Head dims: every d from 1 to 256, each run in the layout of
-// the next of 64, 128 and 256 at or above it (padded_head_dim), as P does
+// the next of 64, 128 and 256 at or above it (padded_head_dim), and every d
+// from 257 to 512 in the wide layout of 512 (two blocks along grid y, each
+// 256 of O's columns, S recomputed in each; 32-key tiles), as P does
 // (flash_fwd.cu): the maps hold the true d columns, so TMA reads zeros
 // past them, S is exact and O is stored at the row pitch row_pitch(d),
 // its columns past d zeros (the TPU wrapper pads D to its 128 lanes,
@@ -54,9 +56,9 @@
 //     no mask. The K slot goes back after the mask reads its keys' ids.
 //   * Registers: the producer keeps 24, the consumers 240 (setmaxnreg
 //     moves registers only within the block); the mask's scalars sit in
-//     shared memory. Shared memory: K slots 4 / 3 / 3 and V slots 4 / 2 / 2
-//     at D 64 / 128 / 256 (one K slot fewer than P at D 128 for the keys'
-//     ids), one block an SM.
+//     shared memory. Shared memory: K slots 4 / 3 / 3 / 2 and V slots 4 / 2
+//     / 2 / 2 at D 64 / 128 / 256 / 512 (one K slot fewer than P at D 128
+//     for the keys' ids), one block an SM.
 #include "attention_wgmma.cuh"
 
 namespace fact {
@@ -76,9 +78,10 @@ struct VarlenParams {
 
 template <int D>
 struct VarlenSmem {
-  static constexpr int kKStages = D == 64 ? 4 : 3;
+  static constexpr int kKStages = D == 64 ? 4 : D > 256 ? 2 : 3;
   static constexpr int kVStages = D == 64 ? 4 : 2;
-  static constexpr int kMetaOff = Tiles<D>::kQ + (kKStages + kVStages) * Tiles<D>::kKV;
+  static constexpr int kMetaOff =
+      Tiles<D>::kQ + kKStages * Tiles<D>::kKV + kVStages * Tiles<D>::kV;
   static constexpr int kBars = kMetaOff + kKStages * 8 * Tiles<D>::kN;
   static constexpr int kBytes = 1024 + kBars + Rings<D, kKStages, kVStages, kBars>::kBarriers * 8;
 };
@@ -122,6 +125,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int m0 = (nqb - 1 - static_cast<int>(blockIdx.x) / p.hq) * kBlockM;
   const int h = blockIdx.x % p.hq, hk = h / p.group;
   const int last = min(m0 + kBlockM, p.tq) - 1;
+  // The first of O's (and V's) columns of this block's chunk (the wide layout).
+  const int c0 = Tl::kChunks > 1 ? Tl::kDO * static_cast<int>(blockIdx.y) : 0;
   const int* kv_seg = p.kv_meta;
 
   // The block's range: warp 0 the first key of seg_lo, 1 past the last key
@@ -170,17 +175,17 @@ __global__ void __launch_bounds__(kThreads, 1)
         bulk_load(meta, p.kv_meta + n0, 4 * kN, r.full_k(it));
         bulk_load(meta + 4 * kN, p.kv_meta + p.meta_stride + n0, 4 * kN, r.full_k(it));
         mbar_wait(r.empty_v(it), r.v_pass(it) ^ 1);
-        mbar_expect_tx(r.full_v(it), Tl::kKV);
-        for (int c = 0; c < D / 64; ++c)
-          tma_load_4d(r.sV(it) + c * Tl::kKVBox, &vmap, 64 * c, n0, hk, 0, r.full_v(it));
+        mbar_expect_tx(r.full_v(it), Tl::kV);
+        for (int c = 0; c < Tl::kDO / 64; ++c)  // V's columns of the block's chunk
+          tma_load_4d(r.sV(it) + c * Tl::kKVBox, &vmap, c0 + 64 * c, n0, hk, 0, r.full_v(it));
       }
     }
     return;
   }
 
   setmaxnreg_inc<240>();
-  consume<T, D, kCap, 0>(r, vis, sco, m0, n_begin, total, static_cast<T*>(p.o), nullptr, h,
-                        p.d);
+  consume<T, D, kCap, 0>(r, vis, sco, m0, n_begin, total, static_cast<T*>(p.o) + c0, nullptr, h,
+                        p.d, {}, min(Tl::kDO, p.d - c0));
 }
 
 // ---------------------------------------------------------------------------
@@ -211,7 +216,8 @@ int launch_varlen(const VarlenParams& p, const VarlenViews& w, cudaStream_t stre
     return cudaErrorInvalidValue;
   VarlenParams kp = p;
   kp.d = row_pitch(p.d);  // O's row pitch
-  kernel<<<static_cast<unsigned>(blocks), kThreads, S::kBytes, stream>>>(qmap, kmap, vmap, kp);
+  const dim3 grid(static_cast<unsigned>(blocks), Tiles<D>::kChunks);
+  kernel<<<grid, kThreads, S::kBytes, stream>>>(qmap, kmap, vmap, kp);
   return cudaGetLastError();
 }
 
@@ -221,13 +227,14 @@ int launch_varlen_cap(const VarlenParams& p, const VarlenViews& w, cudaStream_t 
                                  : launch_varlen<T, D, false>(p, w, s);
 }
 
-// d runs in the layout of padded_head_dim(d).
+// d runs in the layout of padded_head_dim(d, true): up to 512.
 template <typename T>
 int dispatch_varlen(const VarlenParams& p, const VarlenViews& w, int d, cudaStream_t s) {
-  const int layout = padded_head_dim(d);
+  const int layout = padded_head_dim(d, true);
   if (layout == 64) return launch_varlen_cap<T, 64>(p, w, s);
   if (layout == 128) return launch_varlen_cap<T, 128>(p, w, s);
   if (layout == 256) return launch_varlen_cap<T, 256>(p, w, s);
+  if (layout == 512) return launch_varlen_cap<T, 512>(p, w, s);
   return cudaErrorInvalidValue;
 }
 
@@ -243,6 +250,8 @@ static void report_type(char* out, int cap, int& used, const char* t) {
   VARLEN_REPORT(128, true);
   VARLEN_REPORT(256, false);
   VARLEN_REPORT(256, true);
+  VARLEN_REPORT(512, false);
+  VARLEN_REPORT(512, true);
 #undef VARLEN_REPORT
 }
 

@@ -15,8 +15,9 @@ flash_attention_cute_tpu/ops/flash_fwd.py:
     geometry of `_flash_fwd_kernel_fused` and `_flash_fwd_kernel`.
 
 Both take the tanh soft cap (`logit_softcap`, Gemma2's 50) and every head
-dim from 1 to 256 (`_build.padded_head_dim`: D 96 runs in D 128's layout,
-its columns past 96 read as zeros). Rows reach the kernels at a 16-byte
+dim from 1 to 512 (`_build.padded_head_dim(..., wide=True)`: D 96 runs in
+D 128's layout, its columns past 96 read as zeros; D 257-512 in the wide
+layout of 512, DeepSeek-V4's D 512 among them). Rows reach the kernels at a 16-byte
 stride: q, k and v whose strides break that rule take one padded copy
 (`_build.rows`, counted in `_build.copies`), and the output is allocated
 at the row pitch `_build.row_pitch(d)` (`_build.out_rows`: a view of d
@@ -29,7 +30,7 @@ key, at every head dim and with the cap, as the JAX forward returns it
 keeps a capped prefill forward-only).
 
 With `score_dtype="int8"` (opt-in, forward only, as in the JAX package)
-the scores Q K^T are an int8 product, at the same head dims: K8
+the scores Q K^T are an int8 product, at head dims from 1 to 256: K8
 (`QUANTIZE_K`, `quantize_k_rows`) quantizes each K row once a call (b =
 max |k_row|, replacing the TPU kernels' `_quantize_k_rows`), and P-i8 /
 B2-i8 (`PREFILL_INT8`,
@@ -278,7 +279,8 @@ def flash_attention_fwd(
         window = 0  # cannot bind: P's geometry
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"prefill kernel takes bf16/f16, got {q.dtype}")
-    _build.padded_head_dim(d, "int8-score prefill" if score_dtype == "int8" else "prefill")
+    int8 = score_dtype == "int8"
+    _build.padded_head_dim(d, "int8-score prefill" if int8 else "prefill", wide=not int8)
     if hq % hkv or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     q, k, v = (_build.rows(name, t, q.dtype) for name, t in (("q", q), ("k", k), ("v", v)))
@@ -289,7 +291,7 @@ def flash_attention_fwd(
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if return_lse else None
     if out.numel() == 0:
         return (out, lse) if return_lse else out
-    if score_dtype == "int8":
+    if int8:
         k8, kscale = _quantize_k_padded(k)
         launch_int8(q, k8, kscale, v, out, lse, sm_scale, causal, window, softcap)
         return (out, lse) if return_lse else out

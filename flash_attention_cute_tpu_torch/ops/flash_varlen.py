@@ -15,8 +15,8 @@ Both route on the device of `q`: a CPU tensor takes the plain version (per
 segment dense attention in fp32, never a [Tq, Tkv] matrix), a CUDA tensor
 launches B12 (csrc/flash_varlen.cu: wgmma fed by TMA), which replaces
 `_flash_varlen_kernel`. Both take the tanh soft cap and every head dim
-from 1 to 256 (`_build.padded_head_dim`: the kernel runs a d in the layout
-of the next of 64, 128 and 256; rows at a 16-byte stride, q, k or v that
+from 1 to 512 (`_build.padded_head_dim(..., wide=True)`: the kernel runs
+a d in the layout of the next of 64, 128, 256 and 512; rows at a 16-byte stride, q, k or v that
 break it taking one padded copy, `_build.rows`, and O at
 `_build.row_pitch(d)`). The
 metadata are derived and read on the device: no length, offset or segment
@@ -151,7 +151,7 @@ def flash_attention_packed(
     window = _build.window_arg(window)
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"varlen kernel takes bf16/f16, got {q.dtype}")
-    _build.padded_head_dim(d, "varlen")
+    _build.padded_head_dim(d, "varlen", wide=True)
     if hq % hkv or k.shape != v.shape or k.shape[2] != d:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     q, k, v = (_build.rows(name, t, q.dtype) for name, t in (("q", q), ("k", k), ("v", v)))

@@ -310,8 +310,9 @@ def test_non_cpu_tensors_take_the_kernel_route_and_never_fall_back():
         autodiff.flash_attention(q.requires_grad_(), k, k, causal=True)
     # D 256, D 96 and D 100 under autograd: the backward kernels take them
     # (D 96 and D 100 in D 128's layout, D 100's rows at a pitch of 104), so
-    # the op reaches the forward's CUDA-tensor check; D 264, which no layout
-    # takes, is refused before the forward.
+    # the op reaches the forward's CUDA-tensor check; D 264, which no
+    # backward layout takes (P and B12 do, in the wide layout), is refused
+    # before the forward.
     q256 = torch.empty(1, 4, 64, 256, dtype=torch.bfloat16, device="meta")
     k256 = torch.empty(1, 2, 64, 256, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -349,9 +350,13 @@ def test_non_cpu_tensors_take_the_kernel_route_and_never_fall_back():
     with pytest.raises(ValueError, match="CUDA tensor"):  # B12 at D 100
         flash_varlen.flash_attention_varlen(q100[0].transpose(0, 1), k100[0].transpose(0, 1),
                                             k100[0].transpose(0, 1), cu, causal=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A14"):
+    with pytest.raises(ValueError, match="CUDA tensor"):  # B12 at D 264, in the wide layout
         flash_varlen.flash_attention_varlen(q264[0].transpose(0, 1), k264[0].transpose(0, 1),
                                             k264[0].transpose(0, 1), cu, causal=True)
+    q520 = torch.empty(1, 4, 64, 520, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A14"):  # above the wide layout
+        flash_varlen.flash_attention_varlen(q520[0].transpose(0, 1), q520[0].transpose(0, 1),
+                                            q520[0].transpose(0, 1), cu, causal=True)
     with pytest.raises(ValueError, match="CUDA tensor"):
         flash_varlen.flash_attention_varlen(q[0].transpose(0, 1), k[0].transpose(0, 1),
                                             k[0].transpose(0, 1), cu, causal=True)

@@ -175,9 +175,11 @@ def test_decode_kernels_match_plain_on_stacked_cache(device, num_splits):
 
 
 def test_kernels_refuse_what_they_do_not_take(device):
-    for d in (100, 264):  # D 100 runs since the pitched rows; above 256 is refused
+    # D 100 runs since the pitched rows, D 264 since the wide layout of 512;
+    # above 512 is refused.
+    for d in (100, 264, 520):
         q = torch.zeros(1, 4, 64, d, dtype=torch.bfloat16, device="cuda")
-        if d == 100:
+        if d <= 512:
             before = flash_fwd.PREFILL.launches
             out = flash_fwd.flash_attention_fwd(q, q[:, :2], q[:, :2])
             torch.cuda.synchronize()
@@ -1383,13 +1385,15 @@ def test_varlen_kernel_matches_plain(device, case):
 
 
 def test_training_and_varlen_kernels_refuse_what_they_do_not_take(device):
-    """The backward and B12 refuse a head dim no layout takes (D 264,
-    ROADMAP.md A14) before any launch, and launch B13a / B13b at D 256, at
-    D 96 (in D 128's layout) and at D 100 (rows of 104, refused so before
-    the pitched rows), within GRAD_REL_TOL of the plain backward; B12 takes
-    the soft cap, D 256 and D 96: each call launches it."""
+    """The backward refuses a head dim no backward layout takes (D 264,
+    ROADMAP.md A14) and B12 one above its wide layout (D 520) before any
+    launch; B12 launches at D 264, in the wide layout of 512. B13a / B13b
+    launch at D 256, at D 96 (in D 128's layout) and at D 100 (rows of 104,
+    refused so before the pitched rows), within GRAD_REL_TOL of the plain
+    backward; B12 takes the soft cap, D 256 and D 96: each call launches
+    it."""
     gen = torch.Generator(device="cuda").manual_seed(35)
-    q264 = randn(gen, 1, 4, 64, 264)
+    q264, q520 = randn(gen, 1, 4, 64, 264), randn(gen, 1, 4, 64, 520)
     cu = torch.tensor([0, 64], dtype=torch.int32, device="cuda")
     counted = (flash_bwd.DKV, flash_bwd.DQ, flash_varlen.VARLEN)
     before = [c.launches for c in counted]
@@ -1397,9 +1401,15 @@ def test_training_and_varlen_kernels_refuse_what_they_do_not_take(device):
         flash_bwd.flash_attention_bwd(q264, q264[:, :2], q264[:, :2], q264, q264,
                                       torch.zeros(1, 4, 64, device="cuda"))
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A14"):
-        flash_varlen.flash_attention_varlen(q264[0].transpose(0, 1), q264[0, :2].transpose(0, 1),
-                                            q264[0, :2].transpose(0, 1), cu)
+        flash_varlen.flash_attention_varlen(q520[0].transpose(0, 1), q520[0, :2].transpose(0, 1),
+                                            q520[0, :2].transpose(0, 1), cu)
     assert [c.launches for c in counted] == before
+    args = (q264[0].transpose(0, 1), q264[0, :2].transpose(0, 1), q264[0, :2].transpose(0, 1))
+    out = flash_varlen.flash_attention_varlen(*args, cu)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counted] == [*before[:2], before[2] + 1]
+    ref = flash_varlen.flash_attention_varlen(*(x.cpu().float() for x in args), cu.cpu())
+    assert (out.float().cpu() - ref).abs().max().item() <= BF16_TOL
     for d in (256, 96, 100):
         q = randn(gen, 1, 4, 64, d)
         k, v, do = randn(gen, 1, 2, 64, d), randn(gen, 1, 2, 64, d), randn(gen, 1, 4, 64, d)
@@ -2073,10 +2083,11 @@ def test_paged_kernels_at_odd_head_dims(device, ps, d, dtype):
 
 @pytest.mark.parametrize("d", [100, 264])
 def test_odd_head_dim_kernels_refuse_what_no_layout_takes(device, d):
-    """A head dim no layout takes (264) raises naming the roadmap item
-    before any launch, in each kernel of the rule; nothing falls back. D
-    100, refused so before the pitched rows, launches each kernel once
-    (its pool at rows of 104)."""
+    """A head dim no layout of theirs takes (264) raises naming the roadmap
+    item before any launch, in the decode, paged and append kernels;
+    nothing falls back. P takes it in the wide layout of 512 and launches
+    once. D 100, refused so before the pitched rows, launches each kernel
+    once (its pool at rows of 104)."""
     gen = torch.Generator(device="cuda").manual_seed(120)
     q, k = randn(gen, 2, 4, 64, d), randn(gen, 2, 2, 64, d)
     lengths = torch.tensor([3, 5], dtype=torch.int32, device="cuda")
@@ -2100,10 +2111,12 @@ def test_odd_head_dim_kernels_refuse_what_no_layout_takes(device, d):
         torch.cuda.synchronize()
         assert [x.launches - n for x, n in zip(counted, before)] == [1, 1, 2, 1, 1, 1]
         return
-    for call in calls:
+    calls[0]()  # P, in the wide layout
+    for call in calls[1:]:
         with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A14"):
             call()
-    assert [x.launches for x in counted] == before
+    torch.cuda.synchronize()
+    assert [x.launches - n for x, n in zip(counted, before)] == [1, 0, 0, 0, 0, 0]
 
 
 # Head dims outside {64, 128, 256} in training and packed batches: B13a /
@@ -2339,3 +2352,66 @@ def test_one_byte_rows_of_d_mod_16_8_are_refused(device, d):
                     flash_chunked.flash_attention_chunked_plain, flash_chunked.CHUNKED,
                     qc, kc, vc, off, lens)
     assert err <= BF16_TOL
+
+
+# Head dims from 257 to 512: P / B2 (with the lse) and B12 run them in the
+# wide layout of 512 (a block computes 256 of O's columns, grid y picks
+# which, and recomputes S over the whole d; 32-key tiles). D 260 (rows of
+# 264, a second chunk of 4 live columns), 320, 384 and 512 (DeepSeek-V4's
+# MQA group of 64 cut to 16 heads), causal, a window with the soft cap,
+# rows of no key, non-causal f16; each held to its fp32 plain version, the
+# lse at LSE_TOL with the same +inf rows, a second call bit for bit.
+WIDE_PREFILL = {
+    # name: (d, batch, hq, hkv, sq, skv, causal, window, cap, dtype)
+    "d512_mqa_causal": (512, 1, 16, 1, 1000, 1000, True, None, None, torch.bfloat16),
+    "d512_window_cap": (512, 2, 8, 1, 700, 700, True, 128, 50.0, torch.bfloat16),
+    "d260_zero_rows": (260, 1, 8, 2, 600, 300, True, None, None, torch.bfloat16),
+    "d320_f16_full": (320, 1, 8, 8, 130, 1000, False, None, None, torch.float16),
+    "d384_window": (384, 1, 8, 2, 513, 513, True, 45, None, torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("case", list(WIDE_PREFILL), ids=list(WIDE_PREFILL))
+def test_wide_head_dim_prefill_matches_plain(device, case):
+    d, b, hq, hkv, sq, skv, causal, window, cap, dtype = WIDE_PREFILL[case]
+    gen = torch.Generator(device="cuda").manual_seed(250)
+    q, k, v = (pitched(randn(gen, b, h, s, d, dtype=dtype))
+               for h, s in ((hq, sq), (hkv, skv), (hkv, skv)))
+    kw = dict(causal=causal, window=window, logit_softcap=cap)
+    kernel = flash_fwd.WINDOWED_PREFILL if window else flash_fwd.PREFILL
+    before = kernel.launches
+    out, lse = flash_fwd.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    again = flash_fwd.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    ref, ref_lse = flash_fwd.flash_attention_fwd_plain(q.float(), k.float(), v.float(),
+                                                       return_lse=True, **kw)
+    assert out.shape == ref.shape and out.stride(-2) == _build.row_pitch(d)
+    assert (out.float() - ref).abs().max().item() <= BF16_TOL
+    assert torch.equal(out, again)
+    assert torch.equal(torch.isinf(lse), torch.isinf(ref_lse))
+    fin = torch.isfinite(ref_lse)
+    assert (lse[fin] - ref_lse[fin]).abs().max().item() <= LSE_TOL
+    if causal and sq > skv:
+        assert (out[:, :, : sq - skv] == 0).all()
+
+
+@pytest.mark.parametrize("d", [260, 320, 384, 512])
+def test_wide_head_dim_varlen_matches_plain(device, d):
+    """B12 at a wide head dim over a packed batch (a 1-token sequence, kv
+    longer than q), causal with a window of 100 and the soft cap 30."""
+    gen = torch.Generator(device="cuda").manual_seed(251)
+    lens_q, lens_kv = [300, 1, 190, 517, 64], [400, 17, 190, 600, 200]
+    q, k, v = (pitched(randn(gen, sum(n), h, d)) for n, h in ((lens_q, 8), (lens_kv, 2),
+                                                              (lens_kv, 2)))
+    cu_q, cu_kv = (torch.tensor([0] + n, device="cuda").cumsum(0).to(torch.int32)
+                   for n in (lens_q, lens_kv))
+    kw = dict(causal=True, window=100, logit_softcap=30.0)
+    before = flash_varlen.VARLEN.launches
+    out = flash_varlen.flash_attention_varlen(q, k, v, cu_q, cu_kv, **kw)
+    again = flash_varlen.flash_attention_varlen(q, k, v, cu_q, cu_kv, **kw)
+    torch.cuda.synchronize()
+    assert flash_varlen.VARLEN.launches == before + 2
+    ref = varlen_plain(q.float(), k, v, cu_q, cu_kv, **kw)
+    assert (out.float() - ref).abs().max().item() <= BF16_TOL
+    assert torch.equal(out, again)

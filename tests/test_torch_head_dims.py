@@ -179,12 +179,22 @@ def test_head_dim_rule_takes_multiples_of_8_up_to_256(d, layout):
 @pytest.mark.parametrize("d", [100, 264, 0, 4, 250])
 def test_head_dim_rule_refuses_the_rest_naming_the_roadmap_item(d):
     """Every d from 1 to 256 runs (d 100, 4 and 250, refused before the
-    pitched rows, now take their layout and a 16-byte row pitch); d 0 and
-    264 still raise, naming the item of the head dims above 256."""
+    pitched rows, now take their layout and a 16-byte row pitch); d 264
+    runs in the prefill's wide layout of 512 (P / B2 and B12 take d 257 to
+    512), while the kernels without that layout still refuse it, as the
+    wide layout refuses d 520; d 0 still raises, naming the item of the
+    head dims above 256."""
     if 1 <= d <= 256:
         layout = 64 if d <= 64 else 128 if d <= 128 else 256
         assert _build.padded_head_dim(d, "prefill") == layout
         assert _build.row_pitch(d) == -(-d // 8) * 8 and _build.row_pitch(d) * 2 % 16 == 0
         return
+    if d == 264:
+        assert _build.padded_head_dim(d, "prefill", wide=True) == 512
+        assert _build.row_pitch(d) == 264
+        for what, kw in (("decode", {}), ("prefill", {"wide": True})):
+            with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A14"):
+                _build.padded_head_dim(d if what == "decode" else d + 256, what, **kw)
+        return
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A14"):
-        _build.padded_head_dim(d, "prefill")
+        _build.padded_head_dim(d, "prefill", wide=True)

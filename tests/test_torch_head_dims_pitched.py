@@ -102,6 +102,10 @@ def test_rule_takes_every_head_dim_from_1_to_256(elem):
     for d in (0, 257, 264):
         with pytest.raises(NotImplementedError, match=r"from 1 to 256.*ROADMAP\.md A14"):
             _build.padded_head_dim(d, "x", elem)
+        if d and elem == 2:  # P / B2 and B12 take them in the wide layout of 512
+            assert _build.padded_head_dim(d, "x", elem, wide=True) == 512
+    with pytest.raises(NotImplementedError, match=r"from 1 to 512.*ROADMAP\.md A14"):
+        _build.padded_head_dim(513, "x", elem, wide=True)
 
 
 def cfg_at(d, layers=2):
