@@ -115,7 +115,10 @@ Phases, in order; any failure exits non-zero:
      QA's whole pools bit-identical to the plain version's; D 40 over
      one-byte rows (d % 16 == 8) in B7, B8, B9 and QA and D 100 in B4,
      refused before the pitched rows, launch once each; D 264 and D 0
-     refused before any launch; (3l) the same rule in training and packed
+     refused by B7, B8, B9 and QA before any launch, while B4 and its
+     partials launch once each at D 264 (the wide layout, 5m), held to
+     their plain versions within 3e-2 and, row by row, ROW_TOL, and refuse
+     D 520 and D 0; (3l) the same rule in training and packed
      batches (ODD_TRAINING_DIMS: D 8, 24, 40, 96, 136, 200 and 248, GQA
      groups 1 and 4, bf16 and f16): B13a / B13b causal, windowed with Sq <
      Skv and non-causal with Sq > Skv on transposed views, held to the
@@ -158,8 +161,10 @@ Phases, in order; any failure exits non-zero:
      in 3j / 3k; B7 + D2, B8 + D2, B9, QA and B4 at D 24, 40 and 72 over
      int8 / e4m3 (PITCHED_ONE_BYTE_DIMS; D 40 also windowed and capped) as
      in 3k; B13a / B13b and B12 at D 36 and 100 as in 3l; D 264 and D 0
-     refused before any launch (P / B2 at D 520 and D 0: they take 257-512
-     in the wide layout, 5l); then the API's int8 scores at Phi-3-mini's
+     refused before any launch (P / B2 and B6 at D 520 and D 0: they take
+     257-512 in the wide layout, 5l / 5m, and B6 launches once at D 264,
+     held to its plain version as B4 in 3k);
+     then the API's int8 scores at Phi-3-mini's
      widths (32 / 32 heads, D 96, path "phi3-widths int8 scores"): causal
      at B 4 x 512 and Phi-3-mini-4k's window of 2047 at B 1 x 4096,
      counted (K8 2, P-i8 1, B2-i8 1, nothing else), each output within
@@ -307,7 +312,8 @@ Phases, in order; any failure exits non-zero:
      with a window of 1000 within 3e-2 of the fp32 plain dense reference;
      the public `ring_attention` (causal, non-causal) and
      `allgather_attention` over a one-rank NCCL `DeviceMesh` on cuda:0
-     (path "sp nccl": B4-partials 3, B4 1) within 3e-2 of P. (4r, after
+     (path "sp nccl": B4-partials 3, B4 1) within 3e-2 of P; every one of
+     these also row by row within ROW_TOL (`row_err`). (4r, after
      4q) Shallow models at head dims outside TMA's stride rule
      (`pitched_model_config`: Llama-3-8B's widths at head dim D, 2 layers
      or --layers): D 100 over bf16 caches and pages (rows of 104): as 4m,
@@ -424,8 +430,35 @@ Phases, in order; any failure exits non-zero:
      4096 tokens; then the "v4" entries of the P, B2 and B12 rows (ms,
      plain, bound, SDPA's time over k / v expanded to the q heads with the
      backend torch picks there, P's time with its lse, B2's with the cap,
-     the D 512 instantiation's runtime attributes); every timed entry its
-     share of its bound ("of_bound"); the card's name and power limit.
+     the D 512 instantiation's runtime attributes); (5m) head dims from 257
+     to 512 in B4 (with its (o, m, l) partials) and B6, which run them in
+     the same wide layout, and sequence-parallel attention, at the same
+     widths with the config's window of 128, on path "v4-extend" through
+     `flash_attention_chunked` (B 1 over a cache of 8192 keys: a chunk of
+     1024 rows at q_offset 7168, causal and windowed, a verify round of 5
+     rows, the partials of both), `paged_attention_extend` (B 4 chunks of
+     512 rows at offsets 0-3584, pages of 16 and 64 behind a shuffled
+     table, NaN past every length, once windowed) and the ring (causal
+     zig-zag, non-causal) and all-gather (windowed) unrolled over 8 ranks
+     at 16384 tokens as in 4q, counted exactly (path "v4-extend": B4 3,
+     B4-partials 2, B6 3; path "v4-extend sp": B4 8, B4-partials 72 + 64;
+     nothing else): each kernel output within 3e-2 of its fp32 plain
+     version (8 q heads at a time; the partials by `partials_err`) and row
+     by row within ROW_TOL (`row_err`), repeated bit for bit; ROW_TOL's
+     reach (B4's chunk against its plain version over a V tile of 32 keys
+     zeroed and with one key past the diagonal: row_err above ROW_TOL); a
+     wholly-future chunk's partials m = l = o = 0; the ring and all-gather
+     within 3e-2 and ROW_TOL of P / B2 over the whole sequence and of the
+     fp32 plain reference at 2048 tokens, the entry points over a one-rank
+     NCCL mesh at 4096 (path "v4-extend nccl": B4-partials 3, B4 1)
+     against P / B2; d 260 (rows of 264), 320 and 384 alike at a small
+     size; then the "v4" entries of the B4, B4-partials and B6 rows (ms,
+     plain, bound, SDPA with the visibility as a boolean mask over k / v
+     expanded to the 64 q heads, B6's over a gathered copy, null for the
+     partials; the verify round, the window and pages of 64 beside them;
+     the unrolled ring beside P and one SDPA call over the 16384 tokens);
+     every timed entry its share of its bound ("of_bound"); the card's name
+     and power limit.
 The last line is {"ok": true, "device": {...}}.
 
 Tolerances: kernel outputs are bf16 results of fp32 arithmetic on bf16
@@ -449,7 +482,10 @@ kernel route against its plain_attention route. Serving tokens come from
 bf16 kernels and are held against one contiguous teacher-forced prefill:
 each within 1.0 of the top logit, and at least 0.9 of them its argmax (an
 H100 gave 0.97 at 32 layers and 0.99 at 2: with 128k logits of std 1, an
-error of a few tenths reorders the top and lowers the share).
+error of a few tenths reorders the top and lowers the share). Long-context
+outputs (3k / 3o at D 264, 4q, 5m) are also held row by row: max |diff|
+over the row's largest |value| <= ROW_TOL = 2e-2 (`row_err`), since a row
+over n unit-normal keys has values of about sqrt(e / n), far below 3e-2.
 
 Kernel times ("ms") are device times from CUDA events with the host's
 launch overhead hidden; "call_ms" is the time per call of back-to-back
@@ -465,9 +501,18 @@ import re
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BF16_TOL = 3e-2
+# Phases 3k / 3o (D 264), 4q and 5m also hold each row of an output at its
+# own scale (`row_err`: max |diff| over the row's largest |value|). A row
+# that sees n unit-normal keys has values of about sqrt(e / n), 0.019 at
+# 7169 keys, so BF16_TOL alone cannot see a key tile dropped or a key
+# unmasked there; bf16 rounding stays near 2^-8 of the row's scale, and two
+# bf16 outputs of one attention differ by at most two ulps, 2^-6 of it.
+# Phase 5m measures the reach of the limit ("reach" in its output).
+ROW_TOL = 2e-2
 LOGIT_MAX_TOL, LOGIT_MEAN_TOL = 1.0, 0.1
 ARGMAX_SHARE_MIN = 0.9
 # D1 computes split partials, which no PyTorch call does: its row's
@@ -494,6 +539,22 @@ def nvidia_smi() -> str:
 
 def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
+
+
+def row_err(a, b) -> float:
+    """The largest over the rows (the last axis) of max |a - b| over the
+    row's max |b|: each row's error at its own scale (a row of b that is all
+    zero must be matched exactly)."""
+    a, b = a.float(), b.float()
+    return ((a - b).abs().amax(-1) / b.abs().amax(-1).clamp(min=1e-30)).max().item()
+
+
+def partials_row_err(got, want) -> float:
+    """`row_err` of B4's (o, m, l) partials: o's rows at their own scale, l
+    relative to l' (a row of l' = 0 must give 0), and |m - m'|."""
+    (o, m, l), (o_p, m_p, l_p) = got, want
+    return max(row_err(o, o_p), ((l - l_p).abs() / l_p.clamp(min=1e-30)).max().item(),
+               (m - m_p).abs().max().item())
 
 
 # Phase 3: (name, batch, hq, hkv, sq, skv, causal, window, dtype, transposed)
@@ -2407,7 +2468,7 @@ def kernel_entries(rows, errs, path_counts) -> list:
         if entry.get("ms") and entry.get("bound_ms"):
             entry["of_bound"] = entry["bound_ms"] / entry["ms"]
         for key in ("chunk", "window", "gemma2", "long", "phi3", "g16", "m71", "zigzag_step",
-                    "o", "v4"):
+                    "o", "v4", "verify", "page64"):
             if isinstance(entry.get(key), dict):
                 share_of_bound(entry[key])
 
@@ -4454,14 +4515,16 @@ INT8_MIN_DIFF = 1e-4  # int8 scores must move the output: they do quantize
 PEAK_I8 = 1979e12  # published H100 SXM dense int8 tensor-core rate
 
 
-def by_kv_head(torch, fn, q, k, v, step=0):
+def by_kv_head(torch, fn, q, k, v, step=0, kv_dim=1):
     """fn over one kv head and its q heads at a time (`step`: that many q
     heads of a group at a time, a divisor of the group), concatenated over
-    the heads: the plain versions at full width within the card's memory
-    (64 q heads of one kv head x 8192 keys: 8 at a time)."""
-    g = q.shape[1] // k.shape[1]
+    the heads (each part of a tuple): the plain versions at full width
+    within the card's memory (64 q heads of one kv head x 8192 keys: 8 at a
+    time). k / v hold their heads on axis `kv_dim` (a pool [Hkv, P, ps, D]:
+    0)."""
+    g = q.shape[1] // k.shape[kv_dim]
     step = step or g
-    outs = [fn(q[:, h:h + step], k[:, h // g:h // g + 1], v[:, h // g:h // g + 1])
+    outs = [fn(q[:, h:h + step], k.narrow(kv_dim, h // g, 1), v.narrow(kv_dim, h // g, 1))
             for h in range(0, q.shape[1], step)]
     if isinstance(outs[0], tuple):
         return tuple(torch.cat(x, 1) for x in zip(*outs))
@@ -4795,7 +4858,9 @@ def phase_odd_head_dims_quantized(torch, ops, errs, dims=ODD_HEAD_DIMS, tags=Non
     to the plain version's. With `formerly_refused`: the calls refused
     before the pitched rows (a one-byte row of d % 16 == 8, D 40, in B7,
     B8, B9 and QA; D 100 in B4) launch once each; D 0 and D 264 are
-    refused before any launch."""
+    refused by B7, B8, B9 and QA before any launch; B4 and its partials
+    launch once each at D 264 (the wide layout), held to their fp32 plain
+    versions by `held_rows`, and refuse D 520 and D 0."""
     from flash_attention_cute_tpu_torch.ops.quantized import QuantizedKV
 
     tags = {96: "phi3"} if tags is None else tags
@@ -4932,7 +4997,7 @@ def phase_odd_head_dims_quantized(torch, ops, errs, dims=ODD_HEAD_DIMS, tags=Non
         return QuantizedKV(torch.zeros(shape, dtype=torch.int8, device="cuda"),
                            torch.ones(shape[:-1], device="cuda"))
 
-    head_dims_refused(torch, ops, "B7, B8, B9, QA and B4", [
+    head_dims_refused(torch, ops, "B7, B8, B9 and QA", [
         lambda d: quantized.flash_attention_decode_quantized(
             randn(2, 4, 1, d), kv(2, 2, 64, d), kv(2, 2, 64, d), rows, sm_scale=1.0),
         lambda d: quantized.paged_attention_decode_quantized(
@@ -4941,11 +5006,30 @@ def phase_odd_head_dims_quantized(torch, ops, errs, dims=ODD_HEAD_DIMS, tags=Non
             randn(2, 4, 1, d), kv(2, 9, 16, d), kv(2, 9, 16, d), rows, rows + 1, table,
             sm_scale=1.0),
         lambda d: quantized.quantize_append(randn(2, 2, 1, d), randn(2, 2, 1, d),
-                                            kv(2, 2, 64, d), kv(2, 2, 64, d), rows),
-        lambda d: flash_chunked.flash_attention_chunked(randn(2, 4, 5, d), randn(2, 2, 64, d),
-                                                        randn(2, 2, 64, d), rows, rows + 5,
-                                                        sm_scale=1.0)],
+                                            kv(2, 2, 64, d), kv(2, 2, 64, d), rows)],
         counted)
+    # B4 and its partials take 257-512 in the wide layout (phase 5m): D 264
+    # launches each once, held to its fp32 plain version by `held_rows`; D
+    # 520 and D 0 are refused.
+    q264, k264, v264 = randn(2, 4, 5, 264), randn(2, 2, 64, 264), randn(2, 2, 64, 264)
+    for partials in (False, True):
+        kernel = flash_chunked.PARTIALS if partials else flash_chunked.CHUNKED
+        before = kernel.launches
+        out = flash_chunked.flash_attention_chunked(q264, k264, v264, rows, rows + 5,
+                                                    return_partials=partials)
+        torch.cuda.synchronize()
+        what = "B4-partials" if partials else "B4"
+        print(f"  {what} at D 264 (the wide layout): launched {kernel.launches - before}")
+        check(kernel.launches == before + 1, f"{what} at D 264 launches its kernel once")
+        held_rows(torch, errs, f"{what} at D 264", "flash_chunked_partials" if partials
+                  else "flash_chunked", "wide", out,
+                  flash_chunked.flash_attention_chunked_plain(q264.float(), k264, v264, rows,
+                                                              rows + 5, return_partials=partials))
+    head_dims_refused(torch, ops, "B4 and B4-partials (wide layout up to 512)", [
+        lambda d, pa_=pa_: flash_chunked.flash_attention_chunked(
+            randn(2, 4, 5, d), randn(2, 2, 64, d), randn(2, 2, 64, d), rows, rows + 5,
+            sm_scale=1.0, return_partials=pa_) for pa_ in (False, True)],
+        (*counted, flash_chunked.PARTIALS), dims=(520, 0))
 
 
 def head_dims_refused(torch, ops, what, calls, counted, dims=(264, 0)):
@@ -5666,6 +5750,33 @@ SP_NCCL_LABEL = "sp nccl"  # the entry points over the one-rank NCCL mesh
 SP_HEADS, SP_D, SP_S, SP_RANKS = (32, 8), 128, 32768, 8
 SP_CHECK_S, SP_CHECK_RANKS = 4096, 4
 
+
+class SpShape(NamedTuple):
+    """A sequence-parallel phase (`phase_sequence_parallel`): (hq, hkv)
+    heads and the head dim; the ring over `ranks` ranks at `s` tokens; the
+    fp32 plain reference at `check_s` over `check_ranks` (its all-gather
+    with the window `check_window`; `step` q heads at a time, 0: a kv head's
+    group); the one-rank NCCL mesh at `nccl_s`; the all-gather's window
+    (None: causal, then also held to the ring); the launch-count paths
+    (and tags of the errors); the inputs' seed."""
+    heads: tuple
+    d: int
+    s: int
+    ranks: int
+    check_s: int
+    check_ranks: int
+    nccl_s: int
+    window: int | None
+    check_window: int
+    step: int
+    label: str
+    nccl_label: str
+    seed: int
+
+
+SP = SpShape(SP_HEADS, SP_D, SP_S, SP_RANKS, SP_CHECK_S, SP_CHECK_RANKS, SP_CHECK_S, None, 1000,
+             0, SP_LABEL, SP_NCCL_LABEL, 4040)
+
 # Phase 3n: B4's partials at ring attention's step geometries (name, dtype,
 # (hq, hkv), S, capacity, q_offset per row, kv_length per row or None for
 # the capacity, D, causal, window, cap): the offsets S_local, 0 and
@@ -5754,13 +5865,41 @@ def phase_partials_kernels(torch, flash_chunked, errs):
     torch.cuda.empty_cache()
 
 
-def sp_inputs(torch, gen, s):
-    """q [1, 32, s, 128], k / v [1, 8, s, 128] in bf16 (unit normal)."""
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+def held_rows(torch, errs, what, key, tag, got, ref, again=None, pitch=None) -> tuple:
+    """A kernel's output, or its (o, m, l) partials, against `ref`: the
+    same shape, finite, max |diff| (the partials: `partials_err`) within
+    BF16_TOL and `row_err` (`partials_row_err`) within ROW_TOL, equal to
+    `again` bit for bit where given, rows at the pitch `pitch` where given;
+    noted under `key` and "<key> row_err" (and "<...> <tag>"). Returns the
+    two errors."""
+    parts = isinstance(got, tuple)
+    e, r = ((partials_err(got, ref), partials_row_err(got, ref)) if parts
+            else (max_err(got, ref), row_err(got, ref)))
+    got_, ref_ = (got, ref) if parts else ((got,), (ref,))
+    note_err(errs, key, e, tag)
+    note_err(errs, f"{key} row_err", r, tag)
+    same = again is None or all(torch.equal(a, b)
+                                for a, b in zip(got_, again if parts else (again,)))
+    print(f"  {what}: {'partials_err' if parts else 'max|diff|'} {e:.3e}, row_err {r:.3e}"
+          + ("" if again is None else f", repeated bit for bit: {same}"))
+    check(all(a.shape == b.shape for a, b in zip(got_, ref_)), f"{what}: the plain shape")
+    check(all(bool(torch.isfinite(x).all()) for x in got_), f"{what}: finite")
+    check(e <= BF16_TOL, f"{what} within {BF16_TOL}")
+    check(r <= ROW_TOL, f"{what}: row_err within {ROW_TOL}")
+    check(same, f"{what}: a second call repeats bit for bit")
+    if pitch is not None:
+        check(got_[0].stride(-2) == pitch, f"{what}: rows at the pitch {pitch}")
+    return e, r
 
-    hq, hkv = SP_HEADS
-    return randn(1, hq, s, SP_D), randn(1, hkv, s, SP_D), randn(1, hkv, s, SP_D)
+
+def sp_inputs(torch, gen, s, sp=SP):
+    """q [1, hq, s, d], k / v [1, hkv, s, d] of `sp` in bf16 (unit normal),
+    rows at the port's pitch."""
+    def randn(*shape):
+        return pitched(torch, torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16))
+
+    hq, hkv = sp.heads
+    return randn(1, hq, s, sp.d), randn(1, hkv, s, sp.d), randn(1, hkv, s, sp.d)
 
 
 def sp_partials_launches(n: int, s_local: int, causal: bool) -> int:
@@ -5769,80 +5908,101 @@ def sp_partials_launches(n: int, s_local: int, causal: bool) -> int:
     return n * (n + 1) if causal and s_local % 2 == 0 else n * n
 
 
-def phase_sequence_parallel(torch, flash_fwd, kernels, path_counts, errs):
-    """Phase 4q: (a) path "sp": the ring over SP_RANKS ranks unrolled in one
-    process (`ring_attention_unrolled`), causal (zig-zag) and non-causal,
-    and the all-gather route (`allgather_attention_unrolled`) at SP_S
-    tokens, counted: B4-partials n (n + 1) + n^2, B4 n, nothing else; each
-    against P over the whole sequence (and the ring against the all-gather)
-    within BF16_TOL; (b) at SP_CHECK_S over SP_CHECK_RANKS ranks, causal
-    (zig-zag), non-causal, an odd S_local (S - 4, the three offsets) and
-    the all-gather with a window of 1000, against the fp32 plain dense
-    reference; (c) path "sp nccl": the public entry points
+def sp_reference_checks(torch, errs, gen, sp, numbers=None):
+    """The unrolled ring over sp.check_ranks ranks at sp.check_s tokens,
+    causal (zig-zag), non-causal and causal at S - ranks (an odd S_local:
+    the three offsets), and the unrolled all-gather (causal, window
+    sp.check_window) against the fp32 plain dense reference (`by_kv_head`,
+    sp.step q heads at a time), by `held_rows` under sp.label."""
+    from flash_attention_cute_tpu_torch.ops.reference import attention_reference
+    from flash_attention_cute_tpu_torch.parallel import sequence as seq
+
+    m = sp.check_ranks
+    for what, s, causal, fn, kw in (
+            ("ring causal (zig-zag)", sp.check_s, True, seq.ring_attention_unrolled, {}),
+            ("ring non-causal", sp.check_s, False, seq.ring_attention_unrolled, {}),
+            ("ring causal, odd S_local (three offsets)", sp.check_s - m, True,
+             seq.ring_attention_unrolled, {}),
+            (f"all-gather causal, window {sp.check_window}", sp.check_s, True,
+             seq.allgather_attention_unrolled, {"window": sp.check_window})):
+        q, k, v = sp_inputs(torch, gen, s, sp)
+        got = fn(q, k, v, m, causal=causal, **kw)
+        ref = by_kv_head(torch, lambda q_, k_, v_: attention_reference(
+            q_.float(), k_.float(), v_.float(), causal=causal, window=kw.get("window")),
+            q, k, v, sp.step)
+        name = f"{what}, D {sp.d}, S {s} over {m} ranks, vs the fp32 plain reference"
+        e, r = held_rows(torch, errs, name, "flash_chunked" if kw else "flash_chunked_partials",
+                         sp.label, got, ref)
+        if numbers is not None:
+            numbers[f"{name} max_abs_err"], numbers[f"{name} row_err"] = e, r
+        del q, k, v, got, ref
+    torch.cuda.empty_cache()
+
+
+def phase_sequence_parallel(torch, flash_fwd, kernels, path_counts, errs, sp=SP):
+    """Phases 4q (SP) and 5m (V4X_SP): (a) path sp.label: the ring over
+    sp.ranks ranks unrolled in one process (`ring_attention_unrolled`),
+    causal (zig-zag) and non-causal, and the all-gather route
+    (`allgather_attention_unrolled`, causal, the window sp.window) at sp.s
+    tokens, counted: B4-partials n (n + 1) + n^2, B4 n, nothing else; (b)
+    `sp_reference_checks`; (c) path sp.nccl_label: the public entry points
     `ring_attention` (causal, non-causal) and `allgather_attention` over a
-    one-rank NCCL `DeviceMesh` on cuda:0 at SP_CHECK_S, against P."""
+    one-rank NCCL `DeviceMesh` on cuda:0 at sp.nccl_s. In (a) and (c) each
+    output against P / B2 over the whole sequence (without a window the
+    ring against the all-gather too) by `held_rows`. Returns the errors of
+    every comparison."""
     import datetime
     import socket
 
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
-    from flash_attention_cute_tpu_torch.ops.reference import attention_reference
     from flash_attention_cute_tpu_torch.parallel import mesh as pmesh
     from flash_attention_cute_tpu_torch.parallel import sequence as seq
 
     numbers = {}
-    gen = torch.Generator(device="cuda").manual_seed(4040)
-    n, s_local = SP_RANKS, SP_S // SP_RANKS
-    q, k, v = sp_inputs(torch, gen, SP_S)
+    gen = torch.Generator(device="cuda").manual_seed(sp.seed)
+    n, s_local = sp.ranks, sp.s // sp.ranks
+    gather = f"all-gather, window {sp.window}" if sp.window else "all-gather, causal"
 
     def held(what, got, want, key="flash_chunked_partials"):
-        e = max_err(got, want)
-        note_err(errs, key, e, "sp")
-        print(f"  {what}: max|diff| {e:.3e}")
-        check(bool(torch.isfinite(got).all()), f"{what}: finite")
-        check(e <= BF16_TOL, f"{what} within {BF16_TOL}")
+        e, r = held_rows(torch, errs, what, key, sp.label, got, want)
+        numbers[f"{what} max_abs_err"], numbers[f"{what} row_err"] = e, r
         return e
 
-    (ring_c, ring_n, gathered), wall, counts = counted_run(torch, kernels, lambda: (
+    def against_p(q, k, v, outs, where):
+        ring_c, ring_n, gathered = outs
+        p_c = flash_fwd.flash_attention_fwd(q, k, v, causal=True)
+        held(f"ring causal (zig-zag), {where}, vs P", ring_c, p_c)
+        if sp.window is None:
+            held(f"{gather}, {where}, vs P", gathered, p_c, "flash_chunked")
+            numbers[f"ring vs all-gather, {where}"] = held(
+                f"ring vs all-gather, {where}", ring_c, gathered)
+        del p_c, ring_c
+        held(f"ring non-causal, {where}, vs P", ring_n,
+             flash_fwd.flash_attention_fwd(q, k, v, causal=False))
+        if sp.window:
+            held(f"{gather}, {where}, vs B2", gathered,
+                 flash_fwd.flash_attention_fwd(q, k, v, causal=True, window=sp.window),
+                 "flash_chunked")
+
+    q, k, v = sp_inputs(torch, gen, sp.s, sp)
+    outs, wall, counts = counted_run(torch, kernels, lambda: (
         seq.ring_attention_unrolled(q, k, v, n, causal=True),
         seq.ring_attention_unrolled(q, k, v, n, causal=False),
-        seq.allgather_attention_unrolled(q, k, v, n, causal=True)))
+        seq.allgather_attention_unrolled(q, k, v, n, causal=True, window=sp.window)))
     want = {"flash_chunked_partials": sp_partials_launches(n, s_local, True)
             + sp_partials_launches(n, s_local, False), "flash_chunked": n}
-    check_counts(counts, want, SP_LABEL)
-    add_counts(path_counts.setdefault(SP_LABEL, {}), counts)
-    print(f"  path {SP_LABEL!r}: {n} ranks of {s_local} tokens, {wall:.3f} s; launches "
+    check_counts(counts, want, sp.label)
+    add_counts(path_counts.setdefault(sp.label, {}), counts)
+    print(f"  path {sp.label!r}: {n} ranks of {s_local} tokens, {wall:.3f} s; launches "
           f"B4-partials {counts['flash_chunked_partials']}, B4 {counts['flash_chunked']}")
-    p_c = flash_fwd.flash_attention_fwd(q, k, v, causal=True)
-    held(f"ring, causal (zig-zag), {n} ranks, vs P over {SP_S}", ring_c, p_c)
-    held(f"all-gather, causal, {n} ranks, vs P over {SP_S}", gathered, p_c, "flash_chunked")
-    numbers["ring_vs_allgather_max_abs_err"] = held("ring vs all-gather", ring_c, gathered)
-    del p_c, ring_c, gathered
-    p_n = flash_fwd.flash_attention_fwd(q, k, v, causal=False)
-    held(f"ring, non-causal, {n} ranks, vs P over {SP_S}", ring_n, p_n)
-    del p_n, ring_n, q, k, v
+    against_p(q, k, v, outs, f"{n} ranks over {sp.s}")
+    del outs, q, k, v
     torch.cuda.empty_cache()
 
-    # (b) the fp32 plain dense reference at SP_CHECK_S over SP_CHECK_RANKS.
-    m = SP_CHECK_RANKS
-    for what, s, causal, fn, kw in (
-            ("ring causal (zig-zag)", SP_CHECK_S, True, seq.ring_attention_unrolled, {}),
-            ("ring non-causal", SP_CHECK_S, False, seq.ring_attention_unrolled, {}),
-            ("ring causal, odd S_local (three offsets)", SP_CHECK_S - m, True,
-             seq.ring_attention_unrolled, {}),
-            ("all-gather causal, window 1000", SP_CHECK_S, True,
-             seq.allgather_attention_unrolled, {"window": 1000})):
-        q, k, v = sp_inputs(torch, gen, s)
-        got = fn(q, k, v, m, causal=causal, **kw)
-        ref = attention_reference(q.float(), k.float(), v.float(), causal=causal,
-                                  window=kw.get("window"))
-        held(f"{what}, S {s} over {m} ranks, vs the fp32 plain reference", got, ref,
-             "flash_chunked" if fn is seq.allgather_attention_unrolled else
-             "flash_chunked_partials")
-        del q, k, v, got, ref
+    sp_reference_checks(torch, errs, gen, sp, numbers)
 
-    # (c) the public entry points over a one-rank NCCL mesh.
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
@@ -5850,25 +6010,58 @@ def phase_sequence_parallel(torch, flash_fwd, kernels, path_counts, errs):
                            rank=0, timeout=datetime.timedelta(seconds=120))
     try:
         mesh = DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("sp",))
-        q, k, v = sp_inputs(torch, gen, SP_CHECK_S)
-        (r_c, r_n, a_c), wall, counts = counted_run(torch, kernels, lambda: (
+        q, k, v = sp_inputs(torch, gen, sp.nccl_s, sp)
+        outs, wall, counts = counted_run(torch, kernels, lambda: (
             seq.ring_attention(q, k, v, mesh, causal=True),
             seq.ring_attention(q, k, v, mesh, causal=False),
-            seq.allgather_attention(q, k, v, mesh, causal=True)))
-        check_counts(counts, {"flash_chunked_partials": 3, "flash_chunked": 1}, SP_NCCL_LABEL)
-        add_counts(path_counts.setdefault(SP_NCCL_LABEL, {}), counts)
-        print(f"  path {SP_NCCL_LABEL!r}: one-rank {dist.get_backend()} mesh on "
-              f"{torch.cuda.get_device_name(0)}, {wall:.3f} s; B4-partials "
+            seq.allgather_attention(q, k, v, mesh, causal=True, window=sp.window)))
+        check_counts(counts, {"flash_chunked_partials": 3, "flash_chunked": 1}, sp.nccl_label)
+        add_counts(path_counts.setdefault(sp.nccl_label, {}), counts)
+        print(f"  path {sp.nccl_label!r}: one-rank {dist.get_backend()} mesh on "
+              f"{torch.cuda.get_device_name(0)} at S {sp.nccl_s}, {wall:.3f} s; B4-partials "
               f"{counts['flash_chunked_partials']}, B4 {counts['flash_chunked']}")
-        p_c = flash_fwd.flash_attention_fwd(q, k, v, causal=True)
-        held("ring_attention over NCCL, causal, vs P", r_c, p_c)
-        held("allgather_attention over NCCL, causal, vs P", a_c, p_c, "flash_chunked")
-        held("ring_attention over NCCL, non-causal, vs P", r_n,
-             flash_fwd.flash_attention_fwd(q, k, v, causal=False))
+        against_p(q, k, v, outs, "over NCCL")
+        del outs, q, k, v
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
     return numbers
+
+
+def sp_times(torch, flash_fwd, sp, gen) -> dict:
+    """The unrolled ring over sp.ranks ranks at sp.s tokens, causal and
+    non-causal, and the all-gather route (sp.window) beside P (and B2 at
+    the window) over the whole sequence and one SDPA call (causal,
+    `sdpa_entry`); the causal bound (4 d operations a visible pair and q
+    head at the bf16 rate) and the ring's causal time over P's and SDPA's."""
+    from flash_attention_cute_tpu_torch.parallel import sequence as seq
+    from flash_attention_cute_tpu_torch.utils.timing import cuda_time_ms
+
+    q, k, v = sp_inputs(torch, gen, sp.s, sp)
+    n, w = sp.ranks, sp.window
+    out = {
+        "shape": f"B 1, {sp.heads[0]} / {sp.heads[1]} heads, D {sp.d}, S {sp.s} over {n} "
+                 f"ranks of {sp.s // n}, unrolled on one card",
+        "ring_causal_ms": cuda_time_ms(
+            lambda: seq.ring_attention_unrolled(q, k, v, n, causal=True), 3, 1),
+        "ring_noncausal_ms": cuda_time_ms(
+            lambda: seq.ring_attention_unrolled(q, k, v, n, causal=False), 3, 1),
+        f"allgather_{'window' if w else 'causal'}_ms": cuda_time_ms(
+            lambda: seq.allgather_attention_unrolled(q, k, v, n, causal=True, window=w), 3, 1),
+        "p_causal_ms": cuda_time_ms(lambda: flash_fwd.flash_attention_fwd(q, k, v, causal=True),
+                                    3, 1),
+        "causal_bound_ms": 1e3 * 4 * sp.heads[0] * sp.d * (sp.s * (sp.s + 1) // 2) / PEAK_BF16}
+    if w:
+        out["b2_window_ms"] = cuda_time_ms(
+            lambda: flash_fwd.flash_attention_fwd(q, k, v, causal=True, window=w), 3, 1)
+    lib = sdpa_entry(torch, q, k, v, is_causal=True)
+    out.update(sdpa_causal_ms=lib["library_ms"], sdpa=lib["library"],
+               ring_causal_over_p=out["ring_causal_ms"] / out["p_causal_ms"])
+    if out["sdpa_causal_ms"]:
+        out["ring_causal_over_sdpa"] = out["ring_causal_ms"] / out["sdpa_causal_ms"]
+    del q, k, v
+    torch.cuda.empty_cache()
+    return out
 
 
 def sp_rows(torch, flash_chunked, flash_fwd):
@@ -5879,13 +6072,9 @@ def sp_rows(torch, flash_chunked, flash_fwd):
     stripe of 2048 keys); bounds: 4 D operations a visible (row, key) pair
     and q head at the bf16 peak, or q, k, v read and o (fp32), m, l written
     once; library_ms null (no PyTorch call returns the partials). Under
-    "sequence_parallel": the unrolled ring over 8 ranks at 32768 tokens,
-    causal and non-causal, the all-gather route, P over the whole sequence
-    and one SDPA call (causal, GQA expanded) beside them."""
-    from flash_attention_cute_tpu_torch.parallel import sequence as seq
+    "sequence_parallel": `sp_times` over 8 ranks at 32768 tokens."""
     from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms
 
-    f = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(86)
     hq, hkv = SP_HEADS
     s_local = SP_S // SP_RANKS
@@ -5906,26 +6095,7 @@ def sp_rows(torch, flash_chunked, flash_fwd):
 
     row = step(s_local, s_local, s_local, 20)
     row["zigzag_step"] = step(s_local, s_local // 2, s_local, 20)
-    q, k, v = sp_inputs(torch, gen, SP_S)
-    kr, vr = (x.repeat_interleave(hq // hkv, dim=1) for x in (k, v))
-    pairs = SP_S * (SP_S + 1) // 2
-    row["sequence_parallel"] = {
-        "shape": f"B 1, {hq} / {hkv} heads, D {SP_D}, S {SP_S} over {SP_RANKS} ranks of "
-                 f"{s_local}, unrolled on one card",
-        "ring_causal_ms": cuda_time_ms(
-            lambda: seq.ring_attention_unrolled(q, k, v, SP_RANKS, causal=True), 3, 1),
-        "ring_noncausal_ms": cuda_time_ms(
-            lambda: seq.ring_attention_unrolled(q, k, v, SP_RANKS, causal=False), 3, 1),
-        "allgather_causal_ms": cuda_time_ms(
-            lambda: seq.allgather_attention_unrolled(q, k, v, SP_RANKS, causal=True), 3, 1),
-        "p_causal_ms": cuda_time_ms(lambda: flash_fwd.flash_attention_fwd(q, k, v, causal=True),
-                                    5, 1),
-        "sdpa_causal_ms": cuda_time_ms(
-            lambda: f.scaled_dot_product_attention(q, kr, vr, is_causal=True), 5, 1),
-        "causal_bound_ms": 1e3 * 4 * hq * SP_D * pairs / PEAK_BF16,
-    }
-    del q, k, v, kr, vr
-    torch.cuda.empty_cache()
+    row["sequence_parallel"] = sp_times(torch, flash_fwd, SP, gen)
     return [{"name": "flash_chunked_partials", "route": "cuda",
              "source": "flash_attention_cute_tpu_torch/csrc/flash_chunked.cu",
              "replaces": "flash_attention_cute_tpu/ops/flash_chunked.py:47",
@@ -5970,9 +6140,11 @@ def phase_pitched_head_dims(torch, ops, paged_cache, errs, rel_errs):
     version within the tolerances of phases 3i-3l, over NaN tails and
     poisoned pools at the port's row pitch and the model's transposed views
     (one padded copy each), every call repeated bit for bit. Then D 264 and
-    D 0 refused by P-i8 (K8), D1, B5, B6 and the append, D 520 and D 0 by P
-    / B2 (which take 257-512 in the wide layout, phase 5l), before any
-    launch. Prints the padded copies the phase made."""
+    D 0 refused by P-i8 (K8), D1, B5 and the append, D 520 and D 0 by P /
+    B2 and B6 (which take 257-512 in the wide layout, phases 5l / 5m; B6
+    launches once at D 264, held to its fp32 plain version by
+    `held_rows`), before any launch. Prints the padded copies the phase
+    made."""
     from flash_attention_cute_tpu_torch.ops import _build
 
     flash_fwd, flash_decode, pa = ops["flash_fwd"], ops["flash_decode"], ops["paged_attention"]
@@ -5995,13 +6167,27 @@ def phase_pitched_head_dims(torch, ops, paged_cache, errs, rel_errs):
     counted = (flash_fwd.PREFILL, flash_fwd.WINDOWED_PREFILL, flash_fwd.PREFILL_INT8,
                flash_fwd.QUANTIZE_K, flash_decode.PARTIALS, pa.PAGED_DECODE, pa.PAGED_EXTEND,
                paged_cache.APPEND)
-    head_dims_refused(torch, ops, "P / B2 (wide layout up to 512)", [
+    # B6 takes 257-512 in the wide layout (phase 5m): D 264 launches it once,
+    # held to its fp32 plain version by `held_rows`.
+    q264, kp264, vp264 = randn(2, 4, 5, 264), randn(2, 9, 16, 264), randn(2, 9, 16, 264)
+    launched = pa.PAGED_EXTEND.launches
+    out = pa.paged_attention_extend(q264, kp264, vp264, rows, rows + 5, table)
+    torch.cuda.synchronize()
+    launched = pa.PAGED_EXTEND.launches - launched
+    print(f"  B6 at D 264 (the wide layout): launched {launched}")
+    check(launched == 1, "B6 at D 264 launches its kernel once")
+    held_rows(torch, errs, "B6 at D 264", "paged_extend", "wide", out,
+              pa.paged_attention_extend_plain(q264.float(), kp264, vp264, rows, rows + 5, table))
+    head_dims_refused(torch, ops, "P / B2 and B6 (wide layout up to 512)", [
         lambda d: flash_fwd.flash_attention_fwd(randn(2, 4, 64, d), randn(2, 2, 64, d),
                                                 randn(2, 2, 64, d), sm_scale=1.0, causal=True),
         lambda d: flash_fwd.flash_attention_fwd(randn(2, 4, 64, d), randn(2, 2, 64, d),
                                                 randn(2, 2, 64, d), sm_scale=1.0, window=8,
-                                                causal=True)], counted, dims=(520, 0))
-    head_dims_refused(torch, ops, "P-i8 (K8), D1, B5, B6 and the append", [
+                                                causal=True),
+        lambda d: pa.paged_attention_extend(randn(2, 4, 5, d), randn(2, 9, 16, d),
+                                            randn(2, 9, 16, d), rows, rows + 5, table,
+                                            sm_scale=1.0)], counted, dims=(520, 0))
+    head_dims_refused(torch, ops, "P-i8 (K8), D1, B5 and the append", [
         lambda d: flash_fwd.flash_attention_fwd(randn(2, 4, 64, d), randn(2, 2, 64, d),
                                                 randn(2, 2, 64, d), sm_scale=1.0, causal=True,
                                                 score_dtype="int8"),
@@ -6010,9 +6196,6 @@ def phase_pitched_head_dims(torch, ops, paged_cache, errs, rel_errs):
                                                       randn(2, 2, 64, d), rows, sm_scale=1.0),
         lambda d: pa.paged_attention_decode(randn(2, 4, 1, d), randn(2, 9, 16, d),
                                             randn(2, 9, 16, d), rows, table, sm_scale=1.0),
-        lambda d: pa.paged_attention_extend(randn(2, 4, 5, d), randn(2, 9, 16, d),
-                                            randn(2, 9, 16, d), rows, rows + 5, table,
-                                            sm_scale=1.0),
         lambda d: paged_cache.paged_append_layer(randn(2, 9, 16, d), randn(2, 9, 16, d),
                                                  randn(2, 2, 1, d), randn(2, 2, 1, d), table,
                                                  rows)], counted)
@@ -6449,6 +6632,311 @@ def v4_rows(torch, ops, gen, path_counts, errs, reports):
     return out
 
 
+# Phase 5m: head dims from 257 to 512 in B4 (with its (o, m, l) partials)
+# and B6, which run them in the wide layout of 512 as P does, and
+# sequence-parallel attention over B4, at DeepSeek-V4-Flash's attention
+# widths (64 / 1 heads, D 512, bf16, the config's window of 128), on path
+# "v4-extend" through the public kernel-level entry points
+# `ops.flash_chunked.flash_attention_chunked`,
+# `ops.paged_attention.paged_attention_extend` and the ring / all-gather of
+# `parallel.sequence` (no model: JAX's API and model path refuse a head dim
+# above 256, as the port's do). B4 at B 1 over a contiguous cache of 8192
+# keys: a prefill chunk of 1024 rows at q_offset 7168, causal and with the
+# window, and a verify-size chunk of 5 rows at kv_length 8192 (16 q heads a
+# block), each also as partials; B6 at B 4, a chunk of 512 rows a row at
+# offsets 0-3584, pages of 16 and 64 tokens behind a shuffled table, NaN
+# past every length, once with the window. V4X_SP: the ring (causal
+# zig-zag, non-causal) and the all-gather (the window) unrolled over 8
+# ranks at 16384 tokens (path "v4-extend sp"), at 2048 over 4 ranks against
+# the fp32 plain dense reference, the entry points over a one-rank NCCL
+# mesh at 4096 (path "v4-extend nccl"). Then d 260 (rows of 264), 320 and
+# 384 at a small size.
+V4X_LABEL = "v4-extend"
+V4X_CACHE, V4X_CHUNK, V4X_VERIFY = 8192, 1024, 5
+V4X_PAGED_OFFS, V4X_PAGED_S, V4X_PAGED_CAP, V4X_PAGE_SIZES = [0, 1200, 2400, 3584], 512, 4096, (
+    16, 64)
+V4X_SP = SpShape((V4_HQ, V4_HKV), V4_D, 16384, 8, 2048, 4, 4096, V4_WINDOW, V4_WINDOW, 8,
+                 "v4-extend sp", "v4-extend nccl", 4399)
+# The small head dims: a cache of 2048, a chunk of 256 rows, B6 at B 4 x 128
+# rows, the ring over 4 ranks at 1024 tokens.
+V4X_SMALL_CACHE, V4X_SMALL_CHUNK, V4X_SMALL_PAGED_S, V4X_SMALL_SP_S = 2048, 256, 128, 1024
+V4X_SMALL_PAGED_OFFS = [0, 500, 1000, 1920]
+# ROW_TOL's reach: B4's chunk at D 512 against its plain version with the
+# keys of one 32-key V tile zeroed, and with one key past the diagonal.
+V4X_ZEROED_KEYS = (4096, 4128)
+
+
+def v4x_ints(torch, *values):
+    """int32 tensors on the card, one a value (an int: [1])."""
+    return [torch.tensor([x] if isinstance(x, int) else list(x), dtype=torch.int32,
+                         device="cuda") for x in values]
+
+
+def v4x_contiguous(torch, gen, d, cache, chunk):
+    """A chunk's q [1, 64, chunk, d], a verify round's [1, 64, 5, d] and
+    the cache's k, v [1, 1, cache, d], bf16 at the port's pitch."""
+    q, qv = (v4_randn(torch, gen, 1, V4_HQ, s, d) for s in (chunk, V4X_VERIFY))
+    k, v = (v4_randn(torch, gen, 1, V4_HKV, cache, d) for _ in "kv")
+    return q, qv, k, v
+
+
+def v4x_pool(torch, gen, ps, d, lengths, capacity):
+    """One layer's pools [1, P, ps, d] (bf16 at the port's pitch, NaN at and
+    past every row's length and in page 0) and their shuffled table, for
+    len(lengths) rows of `capacity` keys."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    kp, vp, table = paged_pool(torch, randn, gen, ps, len(lengths), capacity, layers=1, d=d,
+                               hkv=V4_HKV)
+    lens, = v4x_ints(torch, lengths)
+    for pool in (kp, vp):
+        poison_past(torch, pool, table, lens)
+    return kp[0], vp[0], table
+
+
+def v4x_chunked_plain(torch, fc, q, k, v, off, kvl, **kw):
+    """B4's fp32 plain version over q's fp32 image, 8 q heads at a time."""
+    return by_kv_head(torch, lambda q_, k_, v_: fc.flash_attention_chunked_plain(
+        q_.float(), k_, v_, off, kvl, **kw), q, k, v, 8)
+
+
+def v4x_paged_plain(torch, pa, q, kp, vp, off, kvl, table, **kw):
+    """B6's fp32 plain version over q's fp32 image, 8 q heads at a time."""
+    return by_kv_head(torch, lambda q_, k_, v_: pa.paged_attention_extend_plain(
+        q_.float(), k_, v_, off, kvl, table, **kw), q, kp, vp, 8, kv_dim=0)
+
+
+def v4x_extend_calls(torch, ops, gen, d, cache, chunk, paged_s, offs, capacity, page_sizes):
+    """{name: (kernel name, call, its fp32 plain version)} of B4 (the chunk
+    causal and windowed, the verify round, the partials of both) and B6 (a
+    chunk of `paged_s` rows at each of `offs`, rows of `capacity` keys, each
+    page size, once more windowed) at head dim d, and B4's chunk inputs (q,
+    k, v, q_offset, kv_length)."""
+    fc, pa = ops["flash_chunked"], ops["paged_attention"]
+    q, qv, k, v = v4x_contiguous(torch, gen, d, cache, chunk)
+    off, off_v, kvl = v4x_ints(torch, cache - chunk, cache - V4X_VERIFY, cache)
+    lengths = [o + paged_s for o in offs]
+    p_off, p_kvl = v4x_ints(torch, offs, lengths)
+    qp = v4_randn(torch, gen, len(offs), paged_s, V4_HQ, d).transpose(1, 2)
+    pools = {ps: v4x_pool(torch, gen, ps, d, lengths, capacity) for ps in page_sizes}
+
+    def chunked(x, o, **kw):
+        return (lambda: fc.flash_attention_chunked(x, k, v, o, kvl, **kw),
+                lambda: v4x_chunked_plain(torch, fc, x, k, v, o, kvl, **kw))
+
+    def paged(ps, **kw):
+        kp, vp, table = pools[ps]
+        return (lambda: pa.paged_attention_extend(qp, kp, vp, p_off, p_kvl, table, **kw),
+                lambda: v4x_paged_plain(torch, pa, qp, kp, vp, p_off, p_kvl, table, **kw))
+
+    calls = {
+        f"B4 chunk of {chunk} at q_offset {cache - chunk}": ("flash_chunked", *chunked(q, off)),
+        f"B4 chunk, window {V4_WINDOW}": ("flash_chunked", *chunked(q, off, window=V4_WINDOW)),
+        f"B4 verify round of {V4X_VERIFY}": ("flash_chunked", *chunked(qv, off_v)),
+        "B4-partials chunk": ("flash_chunked_partials", *chunked(q, off, return_partials=True)),
+        "B4-partials verify round": ("flash_chunked_partials",
+                                     *chunked(qv, off_v, return_partials=True)),
+    }
+    for ps in page_sizes:
+        calls[f"B6 pages of {ps}"] = ("paged_extend", *paged(ps))
+    calls[f"B6 pages of {page_sizes[0]}, window {V4_WINDOW}"] = (
+        "paged_extend", *paged(page_sizes[0], window=V4_WINDOW))
+    return calls, (q, k, v, off, kvl)
+
+
+def phase_v4_extend(torch, ops, kernels, path_counts, errs):
+    """Phase 5m's checks and paths (the constants above): path "v4-extend"
+    counted exactly (B4 3, B4-partials 2, B6 3, nothing else), each output
+    held by `held_rows` to its fp32 plain version (8 q heads at a time) and
+    to a second call; ROW_TOL's reach: B4's chunk against its plain version
+    over V4X_ZEROED_KEYS zeroed in V, and with one key past the diagonal,
+    row_err above ROW_TOL (max |diff| printed beside it); a wholly-future
+    chunk's partials m = l = o = 0; `phase_sequence_parallel` at V4X_SP;
+    then d 260, 320 and 384 alike at the small size, the ring by
+    `sp_reference_checks`. Returns the sequence-parallel errors and the
+    reach."""
+    from flash_attention_cute_tpu_torch.ops import _build
+
+    fc = ops["flash_chunked"]
+    gen = torch.Generator(device="cuda").manual_seed(4398)
+    d = V4_D
+    calls, (q, k, v, off, kvl) = v4x_extend_calls(torch, ops, gen, d, V4X_CACHE, V4X_CHUNK,
+                                                  V4X_PAGED_S, V4X_PAGED_OFFS, V4X_PAGED_CAP,
+                                                  V4X_PAGE_SIZES)
+    outs, wall, counts = counted_run(torch, kernels, lambda: {
+        name: call() for name, (_, call, _) in calls.items()})
+    add_counts(path_counts.setdefault(V4X_LABEL, {}), counts)
+    print(f"  path {V4X_LABEL!r}: B4 (chunk of {V4X_CHUNK} at q_offset {V4X_CACHE - V4X_CHUNK}, "
+          f"causal and window {V4_WINDOW}; verify round of {V4X_VERIFY}; their partials) over "
+          f"B 1 x {V4X_CACHE} keys, B6 (B {len(V4X_PAGED_OFFS)} x {V4X_PAGED_S} rows at "
+          f"{V4X_PAGED_OFFS}, pages of {V4X_PAGE_SIZES}, window {V4_WINDOW}), {V4_HQ} / "
+          f"{V4_HKV} heads, D {d}: {wall * 1e3:.1f} ms (host clock), launches "
+          f"{ {name: c for name, c in counts.items() if c} }")
+    check_launched(counts, {"flash_chunked": 3, "paged_extend": 3, "flash_chunked_partials": 2},
+                   f"path {V4X_LABEL}")
+    for name, (key, call, plain) in calls.items():
+        held_rows(torch, errs, f"{V4X_LABEL} {name} D {d}", key, V4X_LABEL, outs[name], plain(),
+                  call())
+    del outs, calls
+    reach = {}
+    got = fc.flash_attention_chunked(q, k, v, off, kvl)
+    zeroed = v.clone()
+    zeroed[:, :, slice(*V4X_ZEROED_KEYS)] = 0
+    for fault, ref in (
+            (f"V zero at keys {V4X_ZEROED_KEYS[0]}-{V4X_ZEROED_KEYS[1] - 1}",
+             v4x_chunked_plain(torch, fc, q, k, zeroed, off, kvl)),
+            ("one key past the causal diagonal",
+             v4x_chunked_plain(torch, fc, q, k, v, off + 1, kvl))):
+        reach[fault] = {"max_abs_err": max_err(got, ref), "row_err": row_err(got, ref)}
+        print(f"  ROW_TOL's reach: B4's chunk D {d} against its plain version with {fault}: "
+              f"max|diff| {reach[fault]['max_abs_err']:.3e} (BF16_TOL {BF16_TOL}), row_err "
+              f"{reach[fault]['row_err']:.3e} (ROW_TOL {ROW_TOL})")
+        check(reach[fault]["row_err"] > ROW_TOL, f"{V4X_LABEL}: row_err sees B4's chunk held "
+                                                 f"to a plain version with {fault}")
+        del ref
+    fut, = v4x_ints(torch, -V4X_CHUNK)
+    future = fc.flash_attention_chunked(q, k, v, fut, kvl, return_partials=True)
+    dead = all(bool((x == 0).all()) for x in future)
+    print(f"  {V4X_LABEL} B4-partials, a wholly-future chunk (q_offset -{V4X_CHUNK}): m = l = o = "
+          f"0: {dead}")
+    check(dead, f"{V4X_LABEL}: a wholly-future chunk's partials are m = l = o = 0")
+    del got, zeroed, future, q, k, v
+    torch.cuda.empty_cache()
+
+    numbers = phase_sequence_parallel(torch, ops["flash_fwd"], kernels, path_counts, errs,
+                                      V4X_SP)
+    for dd in V4_SMALL_DIMS:
+        calls, _ = v4x_extend_calls(torch, ops, gen, dd, V4X_SMALL_CACHE, V4X_SMALL_CHUNK,
+                                    V4X_SMALL_PAGED_S, V4X_SMALL_PAGED_OFFS, V4X_SMALL_CACHE,
+                                    (16,))
+        for name, (key, call, plain) in calls.items():
+            held_rows(torch, errs, f"{name} D {dd}", key, V4X_LABEL, call(), plain(), call(),
+                      _build.row_pitch(dd))
+        del calls
+        sp_reference_checks(torch, errs, gen, V4X_SP._replace(d=dd, check_s=V4X_SMALL_SP_S))
+    torch.cuda.empty_cache()
+    return numbers, reach
+
+
+def v4x_rows(torch, ops, gen, path_counts, errs, reports):
+    """Phase 5m's numbers: the "v4" entries of the B4, B4-partials and B6
+    rows at path "v4-extend"'s shapes: ms, call_ms, the fp32 plain
+    version's ms (8 q heads at a time), library_ms (`sdpa_entry`: SDPA with
+    the visibility as a boolean mask, k / v expanded to the 64 q heads, the
+    backend torch picks at D 512; B6's over a contiguous gathered copy;
+    null for the partials, which no PyTorch call returns), the bound (4 D
+    operations a visible pair and q head at the bf16 rate, or q, the keys
+    some row sees and the output once at 3.35 TB/s), the D 512
+    instantiation's runtime attributes, the errors (max |diff| and
+    `row_err`) of path "v4-extend" and the launches of paths "v4-extend",
+    "v4-extend sp" and "v4-extend nccl"; B4's and its partials' verify
+    round under "verify", B4's and B6's window under "window", B6 at pages
+    of 64 under "page64"; under the partials' "sequence_parallel"
+    `sp_times` at V4X_SP."""
+    from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms
+
+    fc, pa, flash_fwd = ops["flash_chunked"], ops["paged_attention"], ops["flash_fwd"]
+    b4_report, b6_report = reports
+    d = V4_D
+    heads = f"Hq {V4_HQ}, Hkv {V4_HKV}, D {d} (DeepSeek-V4-Flash's attention)"
+    q, qv, k, v = v4x_contiguous(torch, gen, d, V4X_CACHE, V4X_CHUNK)
+    kvl, = v4x_ints(torch, V4X_CACHE)
+
+    def visible(o0, rows, length, window):
+        """Visible (row, key) pairs of rows at positions o0.., and the keys
+        some row sees (each read once)."""
+        lo = [max(0, o0 + r - window + 1) if window else 0 for r in range(rows)]
+        hi = [min(length, o0 + r + 1) for r in range(rows)]
+        return sum(max(0, h - l) for l, h in zip(lo, hi)), max(hi) - min(lo)
+
+    def timed(fn, plain, iters):
+        return {"ms": cuda_time_ms(fn, iters), "call_ms": call_time_ms(fn, iters),
+                "plain_ms": cuda_time_ms(plain, 2, warmup=1)}
+
+    def chunk_entry(x, window=None, partials=False, iters=10):
+        s = x.shape[2]
+        o0 = V4X_CACHE - s
+        off, = v4x_ints(torch, o0)
+        kw = dict(window=window, return_partials=partials)
+        pairs, live = visible(o0, s, V4X_CACHE, window)
+        rows = x.numel() // d
+        out_bytes = 4 * x.numel() + 2 * 4 * rows if partials else 2 * x.numel()
+        e = {"shape": f"B 1, S {s}, q_offset {o0}, kv_length {V4X_CACHE}, causal"
+                      + (f", window {window}" if window else "") + f", {heads}",
+             **timed(lambda: fc.flash_attention_chunked(x, k, v, off, kvl, **kw),
+                     lambda: v4x_chunked_plain(torch, fc, x, k, v, off, kvl, **kw), iters),
+             **bound(4 * d * V4_HQ * pairs, 2 * x.numel() + out_bytes
+                     + 2 * 2 * V4_HKV * d * live + 2 * 4, PEAK_BF16)}
+        if partials:
+            e.update(library_ms=None, library="null: no PyTorch call returns the (o, m, l) "
+                                              "partials")
+            return e
+        cols = torch.arange(V4X_CACHE, device="cuda")[None, :]
+        pos = o0 + torch.arange(s, device="cuda")[:, None]
+        mask = cols <= pos
+        if window:
+            mask &= cols > pos - window
+        e.update(sdpa_entry(torch, x, k, v, attn_mask=mask))
+        return e
+
+    def extend_extra(name):
+        return {"max_abs_err": errs[f"{name} {V4X_LABEL}"],
+                "max_row_err": errs[f"{name} row_err {V4X_LABEL}"], "launches": sum(
+                    path_counts[p][name] for p in (V4X_LABEL, V4X_SP.label, V4X_SP.nccl_label))}
+
+    out = {"flash_chunked": {
+        **chunk_entry(q), "window": chunk_entry(q, window=V4_WINDOW),
+        "verify": chunk_entry(qv, iters=50), **extend_extra("flash_chunked"),
+        "runtime_attributes": runtime_attributes(b4_report, "B4 D512 bf16")}}
+    out["flash_chunked_partials"] = {
+        **chunk_entry(q, partials=True), "verify": chunk_entry(qv, partials=True, iters=50),
+        **extend_extra("flash_chunked_partials"),
+        "runtime_attributes": runtime_attributes(b4_report, "B4 D512 bf16 partials")}
+    del q, qv, k, v
+    torch.cuda.empty_cache()
+
+    lengths = [o + V4X_PAGED_S for o in V4X_PAGED_OFFS]
+    p_off, p_kvl = v4x_ints(torch, V4X_PAGED_OFFS, lengths)
+    qp = v4_randn(torch, gen, len(lengths), V4X_PAGED_S, V4_HQ, d).transpose(1, 2)
+
+    def paged_entry(ps, window=None, iters=10):
+        kp, vp, table = v4x_pool(torch, gen, ps, d, lengths, V4X_PAGED_CAP)
+        kw = dict(window=window)
+        pairs, live, pages = 0, 0, 0
+        for o0, n in zip(V4X_PAGED_OFFS, lengths):
+            p_, l_ = visible(o0, V4X_PAGED_S, n, window)
+            pairs, live = pairs + p_, live + l_
+            pages += -(-n // ps) - (n - l_) // ps
+        e = {"shape": f"B {len(lengths)}, S {V4X_PAGED_S}, q_offset {V4X_PAGED_OFFS}, page_size "
+                      f"{ps}" + (f", window {window}" if window else "") + f", {heads}; "
+                      "library_ms: SDPA over a contiguous gathered copy",
+             **timed(lambda: pa.paged_attention_extend(qp, kp, vp, p_off, p_kvl, table, **kw),
+                     lambda: v4x_paged_plain(torch, pa, qp, kp, vp, p_off, p_kvl, table, **kw),
+                     iters),
+             **bound(4 * d * V4_HQ * pairs, 2 * 2 * qp.numel() + 2 * 2 * V4_HKV * d * live
+                     + 4 * (2 * len(lengths) + pages), PEAK_BF16)}
+        kc, vc = (pa.gather_pages(x, table).nan_to_num() for x in (kp, vp))
+        cols = torch.arange(V4X_PAGED_CAP, device="cuda")[None, None, :]
+        pos = p_off[:, None, None] + torch.arange(V4X_PAGED_S, device="cuda")[None, :, None]
+        mask = (cols <= pos) & (cols < p_kvl[:, None, None])
+        if window:
+            mask &= cols > pos - window
+        e.update(sdpa_entry(torch, qp, kc, vc, attn_mask=mask[:, None]))
+        del kp, vp, kc, vc, mask
+        return e
+
+    out["paged_extend"] = {
+        **paged_entry(16), "page64": paged_entry(64), "window": paged_entry(16, V4_WINDOW),
+        **extend_extra("paged_extend"),
+        "runtime_attributes": runtime_attributes(b6_report, "B6 bf16 D512")}
+    del qp
+    torch.cuda.empty_cache()
+
+    out["flash_chunked_partials"]["sequence_parallel"] = sp_times(torch, flash_fwd, V4X_SP, gen)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--layers", type=int, default=0,
@@ -6582,7 +7070,8 @@ def main() -> int:
     print("[3k] head dims outside 64 / 128 / 256 over int8 / e4m3 caches and in the extend: "
           "B7 + D2, B8 + D2, B9, QA and B4 at D 96, 80, 32, 160 (f16) and 192 vs plain, D 96 "
           "also windowed and capped; D 40 over one-byte rows and D 100 in B4, refused before "
-          "the pitched rows, launched; D 264 and D 0 refused")
+          "the pitched rows, launched; D 264 and D 0 refused (B4 and its partials: D 264 "
+          "launched, D 520 and D 0 refused)")
     t0 = time.perf_counter()
     phase_odd_head_dims_quantized(torch, ops, errs)
     torch.cuda.synchronize()
@@ -6616,7 +7105,7 @@ def main() -> int:
           "D 4, 40, 96 and 100; P / B2, D1 + D2, B5, B6, the append and B4 at D 4, 36 and 100 "
           "(32 / 8 heads; D 100 also windowed and capped); B7, B8, B9, QA and B4 at D 24, 40 "
           "and 72 over int8 / e4m3; B13a / B13b and B12 at D 36 and 100; D 264 and D 0 "
-          f"refused (P / B2: D 520 and D 0); then the API's int8 scores at Phi-3-mini's widths (path "
+          f"refused (P / B2 and B6: D 520 and D 0, B6 launched at D 264); then the API's int8 scores at Phi-3-mini's widths (path "
           f"{PHI3_INT8_LABEL!r})")
     t0 = time.perf_counter()
     phase_pitched_head_dims(torch, ops, paged_cache, errs, rel_errs)
@@ -6912,6 +7401,24 @@ def main() -> int:
         if r["name"] in v4:
             r["v4"] = v4[r["name"]]
     print(f"  phase 5l: {time.perf_counter() - t0:.1f} s")
+    print(f"[5m] head dims from 257 to 512 in B4 (with its partials) and B6 (the wide layout) "
+          f"and sequence-parallel attention at DeepSeek-V4-Flash's attention widths ({V4_HQ} / "
+          f"{V4_HKV} heads, D {V4_D}, bf16, window {V4_WINDOW}): the entry points on path "
+          f"{V4X_LABEL!r} vs plain, the ring and all-gather over {V4X_SP.ranks} ranks at "
+          f"{V4X_SP.s} tokens vs P / B2 (path {V4X_SP.label!r}), the one-rank NCCL mesh (path "
+          f"{V4X_SP.nccl_label!r}), d "
+          f"{V4_SMALL_DIMS} at a small size, then the \"v4\" entries of the B4, B4-partials and "
+          f"B6 rows")
+    t0 = time.perf_counter()
+    v4x_numbers, reach = phase_v4_extend(torch, ops, kernels, path_counts, errs)
+    v4x = v4x_rows(torch, ops, torch.Generator(device="cuda").manual_seed(89), path_counts, errs,
+                   (b4_report, b6_report))
+    v4x["flash_chunked_partials"]["sequence_parallel"].update(v4x_numbers)
+    v4x["flash_chunked"]["row_tol_reach"] = reach
+    for r in rows:
+        if r["name"] in v4x:
+            r["v4"] = v4x[r["name"]]
+    print(f"  phase 5m: {time.perf_counter() - t0:.1f} s")
     # Peak over the whole script: serving reset the counter before each run.
     numbers["max_memory_allocated_gb"] = max(
         [numbers["max_memory_allocated_gb"], serving.pop("peak_before_serving_gb")]

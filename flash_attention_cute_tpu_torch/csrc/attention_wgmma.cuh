@@ -43,15 +43,17 @@
 //   * D 64 / 128: tiles of 128 keys, S 64 fp32 registers a thread, O 32 /
 //     64, P 32; D 256: tiles of 64 keys, S 32, O 128 (two products of N 128
 //     per k-step of P V), P 16.
-//   * The wide layout, D 512 (P / B2 and B12 only: d from 257 to 512): O
-//     of 512 columns would take 256 registers a thread and a 64-key K or V
-//     tile 64 KB, so a block computes one chunk of 256 of O's columns (grid
-//     y; Tiles::kDO), recomputing S over the whole depth in each chunk (6 d
-//     operations a visible pair where one pass takes 4 d); Q stays whole
-//     (128 KB), tiles are of 32 keys: a K tile of 32 KB, a V tile holds its
-//     chunk's 256 columns (16 KB). S 16 registers, O 128 (as D 256), P 8.
-//     Every chunk computes the same S, max and sum bit for bit; the lse is
-//     written by chunk 0 alone.
+//   * The wide layout, D 512 (P / B2, B4 with its partials, B6 and B12: d
+//     from 257 to 512): O of 512 columns would take 256 registers a thread
+//     and a 64-key K or V tile 64 KB, so a block computes one chunk of 256
+//     of O's columns (grid y; Tiles::kDO), recomputing S over the whole
+//     depth in each chunk (6 d operations a visible pair where one pass
+//     takes 4 d); Q stays whole (128 KB), tiles are of 32 keys: a K tile of
+//     32 KB, a V tile holds its chunk's 256 columns (16 KB). S 16
+//     registers, O 128 (as D 256), P 8. Every chunk computes the same S,
+//     max and sum bit for bit; the lse, and B4's partials' m and l, are
+//     written by chunk 0 alone, each chunk its columns of O (or of the
+//     partials' o).
 #pragma once
 
 #include "hopper.cuh"
@@ -520,11 +522,12 @@ __device__ __forceinline__ void mask_tile(const Segments<kMetaOff, kKStages>& v,
 // before the cap, P by the V scale of its key after its row sum and before its
 // rounding to T.
 // Vis: which keys a row sees, `Visible` or a mode above (B4, B12).
-// The wide layout (D > 256; bf16 / f16 scores, no B9 scales, no partials):
-// the block's O chunk (Tiles::kDO columns) lies at `o`, which the kernel
-// points at the chunk's first column, and `cols` of its columns are stored
-// (the row pitch d past that column, at most kDO); below it `cols` is
-// unused.
+// The wide layout (D > 256; bf16 / f16 scores, no B9 scales, no two-part
+// P): the block's O chunk (Tiles::kDO columns) lies at `o` (B4's partials:
+// at `part.o`), which the kernel points at the chunk's first column, and
+// `cols` of its columns are stored (the row pitch d past that column, at
+// most kDO); the partials' m and l are stored where `part.m` is not null
+// (chunk 0). Below it `cols` is unused.
 // kI8 (P-i8 / B2-i8): S is the s8 product of the int8 Q tile, which the
 // consumers quantize from the Q tile first (quantize_q, with
 // sco.scale_log2 as q's pre-scale), and of int8 K tiles, whose keys'
@@ -545,8 +548,8 @@ __device__ __forceinline__ void consume(
   constexpr bool kScaled = kScaleOff > 0 && !kI8;
   constexpr bool kDense = std::is_same_v<Vis, Visible>, kKeyMeta = KeyMeta<Vis>::value;
   constexpr bool kSplit = SplitP<Vis>::value, kPartials = Partials<Vis>::value;
-  static_assert(kDO == D || !(kScaleOff > 0 || kI8 || kSplit || kPartials),
-                "the wide layout takes bf16 / f16 scores and stores O");
+  static_assert(kDO == D || !(kScaleOff > 0 || kI8 || kSplit),
+                "the wide layout takes bf16 / f16 scores and P in one part");
   const int ct = threadIdx.x - 128, wg = ct >> 7, wi = (ct >> 5) & 3, lane = ct & 31;
   const int g = lane >> 2, t = lane & 3;
   const int mw = m0 + kTileM * wg;       // this warpgroup's first row
@@ -810,9 +813,11 @@ __device__ __forceinline__ void consume(
       l += __shfl_xor_sync(0xffffffffu, l, 1);
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       const int row = row0 + 8 * r;
-      if (t == 0 && row < vis.sq) part.m[first + row] = row_max[r], part.l[first + row] = l;
+      if (t == 0 && row < vis.sq && (kDO == D || part.m != nullptr))
+        part.m[first + row] = row_max[r], part.l[first + row] = l;
     }
     float* out = part.o + first * d;
+    const int stored = kDO == D ? d : cols;  // columns of the row (of the chunk) stored
 #pragma unroll
     for (int c = 0; c < kOBlocks; ++c)
 #pragma unroll
@@ -820,7 +825,7 @@ __device__ __forceinline__ void consume(
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int row = row0 + 8 * r, col = c * kON + 8 * j + 2 * t;
-          if (row < vis.sq && col < d)
+          if (row < vis.sq && col < stored)
             *reinterpret_cast<float2*>(out + static_cast<int64_t>(row) * d + col) =
                 make_float2(acc[c][4 * j + 2 * r], acc[c][4 * j + 2 * r + 1]);
         }

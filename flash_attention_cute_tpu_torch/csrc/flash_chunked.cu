@@ -5,12 +5,15 @@
 // visible key, and a batch row of kv_length 0, is exact zeros. The tanh
 // soft cap (`softcap_log2`, c * log2(e), 0 for none) applies to every score
 // before the mask. Head dims: every d from 1 to 256, each run in the
-// layout of the next of 64, 128 and 256 at or above it (padded_head_dim),
-// as P: the maps hold the true d columns, so TMA reads zeros past them, S
-// is exact and O (and the partials' o) is stored at the row pitch
-// row_pitch(d), its columns past d zeros (the TPU wrapper pads D to its
-// 128 lanes, flash_chunked.py:283). GQA: q head
-// h reads kv head h / (Hq / Hkv).
+// layout of the next of 64, 128 and 256 at or above it, and every d from
+// 257 to 512 in P's wide layout of 512 (padded_head_dim(d, true);
+// attention_wgmma.cuh: two blocks along grid y, each O's (or the partials'
+// o's) columns [256 y, 256 y + 256), S recomputed in each, chunk 0 writing
+// the partials' m and l; 32-key tiles): the maps hold the true d columns,
+// so TMA reads zeros past them, S is exact and O (and the partials' o) is
+// stored at the row pitch row_pitch(d), its columns past d zeros (the TPU
+// wrapper pads D to its 128 lanes and has no upper bound,
+// flash_chunked.py:283). GQA: q head h reads kv head h / (Hq / Hkv).
 //
 // Replaces the TPU kernel flash_attention_cute_tpu/ops/flash_chunked.py
 // `_flash_chunked_kernel` (:47, pallas_call at :372). It computes what that
@@ -48,7 +51,8 @@
 //     tests), and 0 x NaN is NaN in P V. K needs nothing: a score of such a
 //     key is masked by a select. The walk's last tile, if it crosses
 //     kv_length, lands its V on a barrier of its own; warp 0 zeroes its
-//     rows at and past kv_length and hands the tile on (B6's way).
+//     rows at and past kv_length (the chunk's columns in the wide layout)
+//     and hands the tile on (B6's way).
 //   * Verify rounds (S <= 16, the layouts of D 64 / 128) take P into P V
 //     in two bf16 parts, so that their attention matches the decode kernels' (fp32 P),
 //     whose logits drafted the tokens: with P rounded once, a Llama-3-8B
@@ -57,8 +61,9 @@
 //   * Registers: the producer keeps 24, the consumers 240 (setmaxnreg moves
 //     registers only within the block, 3 x 168 a thread); the block's
 //     place and the mask's scalars sit in shared memory. Shared memory:
-//     P's rings (K slots 4 / 4 / 3, V slots 4 / 2 / 2 at D 64 / 128 / 256),
-//     one block an SM.
+//     P's rings (K slots 4 / 4 / 3 / 2, V slots 4 / 2 / 2 / 2 at D 64 / 128
+//     / 256 / 512; at D 512 Q 128 KB, K slots of 32 KB and V slots of the
+//     chunk's 16 KB: 230,480 bytes with the barriers), one block an SM.
 //
 //   * The (o, m, l) partials (the TPU kernel's `return_partials`, :58,
 //     :198-206; ring attention's per-chunk state, parallel/sequence.py):
@@ -92,11 +97,14 @@ struct ChunkedParams {
   float *m, *l;  // the partials' m and l [B, Hq, S] (kPartials; `o` then fp32)
 };
 
+// V slots hold a V tile's chunk columns (Tiles::kV: kKV but in the wide
+// layout).
 template <int D>
 struct ChunkedSmem {
-  static constexpr int kKStages = D == 256 ? 3 : 4;
+  static constexpr int kKStages = D > 256 ? 2 : D == 256 ? 3 : 4;
   static constexpr int kVStages = D == 64 ? 4 : 2;
-  static constexpr int kBars = Tiles<D>::kQ + (kKStages + kVStages) * Tiles<D>::kKV;
+  static constexpr int kBars =
+      Tiles<D>::kQ + kKStages * Tiles<D>::kKV + kVStages * Tiles<D>::kV;
   // Rings' barriers and the tail's.
   static constexpr int kBytes =
       1024 + kBars + (Rings<D, kKStages, kVStages, kBars>::kBarriers + 1) * 8;
@@ -129,6 +137,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   __shared__ ChunkedBlock blk;
   __shared__ Extend<kSplit, kPartials> vis;
   __shared__ Scores sco;
+  // The first of O's (and V's) columns of this block's chunk (the wide layout).
+  const int c0 = Tl::kChunks > 1 ? Tl::kDO * static_cast<int>(blockIdx.y) : 0;
 
   if (threadIdx.x == 0) {
     const int per = p.runs * p.batch;
@@ -173,14 +183,14 @@ __global__ void __launch_bounds__(kThreads, 1)
           tma_load_4d(r.sK(it) + c * Tl::kKVBox, &kmap, 64 * c, n0, hk, b, r.full_k(it));
         const uint32_t vbar = live < kN ? r.extra(0) : r.full_v(it);
         mbar_wait(r.empty_v(it), r.v_pass(it) ^ 1);
-        mbar_expect_tx(vbar, Tl::kKV);
-        for (int c = 0; c < D / 64; ++c)
-          tma_load_4d(r.sV(it) + c * Tl::kKVBox, &vmap, 64 * c, n0, hk, b, vbar);
+        mbar_expect_tx(vbar, Tl::kV);
+        for (int c = 0; c < Tl::kDO / 64; ++c)  // V's columns of the block's chunk
+          tma_load_4d(r.sV(it) + c * Tl::kKVBox, &vmap, c0 + 64 * c, n0, hk, b, vbar);
       }
       if (live < kN) {  // only the walk's last tile crosses kv_length
         mbar_wait(r.extra(0), 0);
         const int dead = (kN - live) * 8;  // 16-byte chunks of a box's dead rows
-        for (int i = lane; i < D / 64 * dead; i += 32)
+        for (int i = lane; i < Tl::kDO / 64 * dead; i += 32)
           sts_u32x4(r.sV(it) + i / dead * Tl::kKVBox + live * 128 + i % dead * 16,
                     make_uint4(0, 0, 0, 0));
         fence_proxy_async();
@@ -193,9 +203,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   setmaxnreg_inc<240>();
   asm volatile("" ::: "memory");
-  consume<T, D, kCap, 0>(r, vis, sco, blk.m0, blk.n_begin, blk.total, static_cast<T*>(p.o),
+  // The chunk's columns of O or of the partials' o (the wide layout; chunk
+  // 0 writes m and l).
+  consume<T, D, kCap, 0>(r, vis, sco, blk.m0, blk.n_begin, blk.total, static_cast<T*>(p.o) + c0,
                          nullptr, blk.head, p.d,
-                         PartialsOut{static_cast<float*>(p.o), p.m, p.l});
+                         PartialsOut{static_cast<float*>(p.o) + c0, c0 == 0 ? p.m : nullptr,
+                                     c0 == 0 ? p.l : nullptr},
+                         min(Tl::kDO, p.d - c0));
 }
 
 // ---------------------------------------------------------------------------
@@ -214,7 +228,7 @@ struct ChunkedViews {
 // flip between draft and verify. Such chunks are bound by the bytes of K / V,
 // not by the products a second P V adds; longer chunks keep one. Not at
 // D 256: there the second P's fragments do not fit the consumers' 240
-// registers (ptxas spilled 64-72 bytes).
+// registers (ptxas spilled 64-72 bytes), nor in the wide layout.
 constexpr int kSplitRows = 16;
 constexpr bool splits_p(int d) { return d <= 128; }
 
@@ -257,7 +271,8 @@ int launch_chunked(const ChunkedParams& p, const ChunkedViews& w, cudaStream_t s
     return cudaErrorInvalidValue;
   ChunkedParams kp = p;
   kp.d = row_pitch(p.d);  // O's row pitch
-  kernel<<<static_cast<unsigned>(blocks), kThreads, S::kBytes, stream>>>(qmap, kmap, vmap, kp);
+  const dim3 grid(static_cast<unsigned>(blocks), Tiles<D>::kChunks);
+  kernel<<<grid, kThreads, S::kBytes, stream>>>(qmap, kmap, vmap, kp);
   return cudaGetLastError();
 }
 
@@ -274,14 +289,16 @@ int launch_chunked_cap(const ChunkedParams& p, const ChunkedViews& w, cudaStream
                                  : launch_chunked_split<T, D, false, kPartials>(p, w, s);
 }
 
-// d runs in the layout of padded_head_dim(d); splits_p is decided on that
-// layout, so D 96 keeps P in two parts at verify rounds as D 128 does.
+// d runs in the layout of padded_head_dim(d, true) (up to 512); splits_p
+// is decided on that layout, so D 96 keeps P in two parts at verify rounds
+// as D 128 does.
 template <typename T, bool kPartials>
 int dispatch_chunked(const ChunkedParams& p, const ChunkedViews& w, int d, cudaStream_t s) {
-  const int layout = padded_head_dim(d);
+  const int layout = padded_head_dim(d, true);
   if (layout == 64) return launch_chunked_cap<T, 64, kPartials>(p, w, s);
   if (layout == 128) return launch_chunked_cap<T, 128, kPartials>(p, w, s);
   if (layout == 256) return launch_chunked_cap<T, 256, kPartials>(p, w, s);
+  if (layout == 512) return launch_chunked_cap<T, 512, kPartials>(p, w, s);
   return cudaErrorInvalidValue;
 }
 
@@ -299,6 +316,8 @@ static void report_type(char* out, int cap, int& used, const char* t) {
   CHUNKED_REPORT(128, true, false, pa);  \
   CHUNKED_REPORT(256, false, false, pa); \
   CHUNKED_REPORT(256, true, false, pa);  \
+  CHUNKED_REPORT(512, false, false, pa); \
+  CHUNKED_REPORT(512, true, false, pa);  \
   CHUNKED_REPORT(64, false, true, pa);   \
   CHUNKED_REPORT(64, true, true, pa);    \
   CHUNKED_REPORT(128, false, true, pa);  \
@@ -380,7 +399,7 @@ extern "C" int fact_flash_chunked(const void* q, const void* k, const void* v, v
 
 // The (o, m, l) partials: `o` [B, Hq, S, d] fp32 (not divided by l) at
 // rows of row_pitch(d) floats, `m` and `l` [B, Hq, S] fp32, all otherwise
-// contiguous; the other arguments as above.
+// contiguous; the other arguments as above (d from 1 to 512).
 extern "C" int fact_flash_chunked_partials(
     const void* q, const void* k, const void* v, void* o, void* m, void* l,
     const void* q_offset, const void* kv_length, int batch, int hq, int hkv, int sq,

@@ -19,7 +19,11 @@
 // rounded to q's type (the TPU kernel's `(p * vscale).astype(...)`); no
 // scale is folded into a rounded K / V value. Every head dim d runs in the
 // layout D of padded_head_dim(d), from 1 to 256, its pool rows at any
-// 16-byte stride (row_pitch(d, sizeof(KV)) in the port's pools). As in P,
+// 16-byte stride (row_pitch(d, sizeof(KV)) in the port's pools), and B6
+// also every d from 257 to 512 in P's wide layout of 512
+// (padded_head_dim(d, true); attention_wgmma.cuh: two blocks along grid y,
+// each O's columns [256 y, 256 y + 256), S recomputed in each, a V copy
+// holding the chunk's columns; 32-key tiles). As in P,
 // the maps hold d columns, TMA reads zeros past them (B9's raw boxes too,
 // which the widening turns into exact zeros), and O is stored at the row
 // pitch row_pitch(d), its columns past d zeros (the TPU kernels pad D to
@@ -45,7 +49,8 @@
 //     tests), and 0 x NaN is NaN in P V. K needs nothing: a score of such a
 //     key is masked by a select. B6's last tile, if it crosses kv_length,
 //     lands on a barrier of its own; warp 0 then zeroes its V rows at and
-//     past kv_length (copied or not) and hands the tile on.
+//     past kv_length (copied or not; the chunk's columns in the wide
+//     layout) and hands the tile on.
 //   * B9: the raw values land by TMA in the upper half of their slot (at D
 //     64 in a raw slot beside it), the scales by bulk copies beside the
 //     slots. Warps 1-3 of the producer widen each tile in place into the
@@ -54,8 +59,10 @@
 //     keeps 40 registers for it, the consumers 232 (B6: 24 and 240;
 //     setmaxnreg moves registers only within the block, 3 x 168 a thread).
 //   * Shared memory (K slots / V slots of kN keys): B6 as P (D 64 / 128 /
-//     256: 4 / 4, 4 / 2, 3 / 2); B9 4 / 4, 3 / 2, 3 / 2 and the scales, up to
-//     231,808 bytes at D 256; one block an SM.
+//     256 / 512: 4 / 4, 4 / 2, 3 / 2, 2 / 2; at D 512 Q 128 KB, K slots of
+//     32 KB, V slots of the chunk's 16 KB: 230,480 bytes with the
+//     barriers); B9 4 / 4, 3 / 2, 3 / 2 and the scales, up to 231,808 bytes
+//     at D 256; one block an SM.
 #pragma once
 
 #include "attention_wgmma.cuh"
@@ -77,16 +84,17 @@ struct PagedParams {
   int d;       // the true head dim (D or below it); on the device O's row pitch
 };
 
-// Shared memory: Q, the K and V slots (Rings), B9's raw slots at D 64 and
-// its scales (kN floats a slot, K's then V's), the barriers (Rings', then
-// B6's tail barrier or B9's landing barriers, K's then V's).
+// Shared memory: Q, the K and V slots (Rings; a V slot holds its chunk's
+// columns, Tiles::kV), B9's raw slots at D 64 and its scales (kN floats a
+// slot, K's then V's), the barriers (Rings', then B6's tail barrier or B9's
+// landing barriers, K's then V's).
 template <int D, bool kQuant>
 struct PagedSmem {
   using Tl = Tiles<D>;
-  static constexpr int kKStages = kQuant ? (D == 64 ? 4 : 3) : (D == 256 ? 3 : 4);
+  static constexpr int kKStages = kQuant ? (D == 64 ? 4 : 3) : (D > 256 ? 2 : D == 256 ? 3 : 4);
   static constexpr int kVStages = D == 64 ? 4 : 2;
   static constexpr int kRaw = kQuant && D == 64 ? Tl::kN * 64 : 0;
-  static constexpr int kRawOff = Tl::kQ + (kKStages + kVStages) * Tl::kKV;
+  static constexpr int kRawOff = Tl::kQ + kKStages * Tl::kKV + kVStages * Tl::kV;
   static constexpr int kScaleOff = kRawOff + (kKStages + kVStages) * kRaw;
   static constexpr int kBars = kScaleOff + (kQuant ? (kKStages + kVStages) * Tl::kN * 4 : 0);
   static constexpr int kExtra = kQuant ? kKStages + kVStages : 1;
@@ -218,6 +226,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int h = blockIdx.x % per % p.hq, b = blockIdx.x % per / p.hq, hk = h / p.group;
   const int skv = min(max(p.kv_length[b], 0), p.pps * p.page_size);
   const int offset = p.q_offset[b];
+  // The first of O's (and V's) columns of this block's chunk (the wide layout).
+  const int c0 = Tl::kChunks > 1 ? Tl::kDO * static_cast<int>(blockIdx.y) : 0;
   // The consumers read which keys the rows see and the softmax's scalars
   // from shared memory, so that they take none of their registers (B9's
   // consumers spill at D 256 otherwise).
@@ -273,6 +283,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       // B9's raw boxes of 128 (D 64: 64) values a row; B6's swizzled ones of 64.
       constexpr int kCols = kQuant ? (D < 128 ? D : 128) : 64, kColBoxes = D / kCols;
       constexpr int kPitch = kCols * static_cast<int>(sizeof(KV));  // bytes of a box's row
+      // V's boxes and row bytes: its chunk's columns (B6's wide layout).
+      constexpr int kVColBoxes = kQuant ? kColBoxes : Tl::kDO / kCols;
+      constexpr int kVRowBytes = kQuant ? kRowBytes : Tl::kDO * static_cast<int>(sizeof(KV));
       int page_next = page_of(0);
       for (int it = 0; it < total; ++it) {
         const int n0 = n_begin + it * kN, page = page_next;
@@ -280,6 +293,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int row = (n0 + lane * br) % p.page_size;
         const int live = min(kN, skv - n0);  // keys of the tile below kv_length
         const int bytes = (live + br - 1) / br * br * kRowBytes;
+        const int vbytes = kVRowBytes == kRowBytes ? bytes : (live + br - 1) / br * br * kVRowBytes;
         const bool tail = !kQuant && live < kN;  // B6: V rows to zero
         const uint32_t kbar = kQuant ? landed_k(it) : r.full_k(it);
         const uint32_t vbar = kQuant ? landed_v(it) : tail ? r.extra(0) : r.full_v(it);
@@ -298,13 +312,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         if (lane == 0) {
           mbar_wait(r.empty_v(it), r.v_pass(it) ^ 1);
-          mbar_expect_tx(vbar, bytes);
+          mbar_expect_tx(vbar, vbytes);
         }
         __syncwarp();
         if (page >= 0) {
-          for (int c = 0; c < kColBoxes; ++c)
+          for (int c = 0; c < kVColBoxes; ++c)
             tma_load_4d((kQuant ? raw_v(it) : r.sV(it)) + c * Tl::kKVBox + lane * br * kPitch,
-                        &vmap, kCols * c, row, page, hk, vbar);
+                        &vmap, c0 + kCols * c, row, page, hk, vbar);
           if constexpr (kQuant)
             bulk_load(scales_v(it) + lane * br * 4, p.v_scale + hk * p.vs_sh + page * p.vs_sp + row,
                       br * 4, vbar);
@@ -312,7 +326,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (tail) {  // only the walk's last tile crosses kv_length
           mbar_wait(r.extra(0), 0);
           const int dead = (kN - live) * 8;  // 16-byte chunks of a box's dead rows
-          for (int i = lane; i < D / 64 * dead; i += 32)
+          for (int i = lane; i < Tl::kDO / 64 * dead; i += 32)
             sts_u32x4(r.sV(it) + i / dead * Tl::kKVBox + live * 128 + i % dead * 16,
                       make_uint4(0, 0, 0, 0));
           fence_proxy_async();
@@ -334,8 +348,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   setmaxnreg_inc<(504 - kProducerRegs) / 2>();
+  // The chunk's O columns (the wide layout).
   consume<T, D, kCap, kQuant ? S::kScaleOff : 0>(r, vis, sco, m0, n_begin, total,
-                                                 static_cast<T*>(p.o), nullptr, b * p.hq + h, p.d);
+                                                 static_cast<T*>(p.o) + c0, nullptr, b * p.hq + h,
+                                                 p.d, {}, min(Tl::kDO, p.d - c0));
 }
 
 // ---------------------------------------------------------------------------
@@ -392,7 +408,8 @@ int launch_paged_extend(const PagedParams& p, const PagedViews& w, cudaStream_t 
     return cudaErrorInvalidValue;
   PagedParams kp = p;
   kp.d = row_pitch(d);  // O's row pitch
-  kernel<<<static_cast<unsigned>(blocks), kThreads, S::kBytes, stream>>>(qmap, kmap, vmap, kp);
+  const dim3 grid(static_cast<unsigned>(blocks), Tiles<D>::kChunks);
+  kernel<<<grid, kThreads, S::kBytes, stream>>>(qmap, kmap, vmap, kp);
   return cudaGetLastError();
 }
 
@@ -402,17 +419,22 @@ int launch_paged_extend_cap(const PagedParams& p, const PagedViews& w, cudaStrea
                                  : launch_paged_extend<T, KV, D, false>(p, w, s);
 }
 
-// B6 and B9 run d in the layout of padded_head_dim(d).
+// B6 runs d in the layout of padded_head_dim(d, true) (up to 512), B9 in
+// that of padded_head_dim(d) (up to 256: its widening has no wide layout).
 template <typename T, typename KV>
 int dispatch_paged_extend(const PagedParams& p, const PagedViews& w, int d, cudaStream_t s) {
-  const int layout = padded_head_dim(d);
+  constexpr bool kWide = sizeof(KV) == 2;
+  const int layout = padded_head_dim(d, kWide);
   if (layout == 64) return launch_paged_extend_cap<T, KV, 64>(p, w, s);
   if (layout == 128) return launch_paged_extend_cap<T, KV, 128>(p, w, s);
   if (layout == 256) return launch_paged_extend_cap<T, KV, 256>(p, w, s);
+  if constexpr (kWide)
+    if (layout == 512) return launch_paged_extend_cap<T, KV, 512>(p, w, s);
   return cudaErrorInvalidValue;
 }
 
-// The report lines of the six instantiations (D x cap) of one T and KV.
+// The report lines of the instantiations (D x cap) of one T and KV: six,
+// and B6's two of D 512.
 template <typename T, typename KV>
 static void report_paged_extend(char* out, int cap, int& used, const char* what) {
   char name[96];
@@ -426,6 +448,10 @@ static void report_paged_extend(char* out, int cap, int& used, const char* what)
   PAGED_REPORT(128, true);
   PAGED_REPORT(256, false);
   PAGED_REPORT(256, true);
+  if constexpr (sizeof(KV) == 2) {
+    PAGED_REPORT(512, false);
+    PAGED_REPORT(512, true);
+  }
 #undef PAGED_REPORT
 }
 

@@ -19,11 +19,12 @@ the device of `q`: a CPU tensor takes the plain version (the fp32
 reference), a CUDA tensor launches B4 (csrc/flash_chunked.cu: wgmma fed by
 TMA, the GQA group's heads packed into a block where their rows fit),
 which replaces the TPU kernel `_flash_chunked_kernel`. Both take the tanh
-soft cap (Gemma2's 50) and every head dim from 1 to 256
-(`_build.padded_head_dim`: D 96 runs in D 128's layout, its columns past 96
-zeros, as the TPU wrapper pads D to its 128 lanes; rows at a 16-byte
-stride, q or a cache that breaks it taking one padded copy, `_build.rows`,
-and the outputs at `_build.row_pitch(D)`). What the kernel
+soft cap (Gemma2's 50) and every head dim from 1 to 512
+(`_build.padded_head_dim(..., wide=True)`: D 96 runs in D 128's layout, its
+columns past 96 zeros, as the TPU wrapper pads D to its 128 lanes; D
+257-512 in the wide layout of 512, csrc/attention_wgmma.cuh; rows at a
+16-byte stride, q or a cache that breaks it taking one padded copy,
+`_build.rows`, and the outputs at `_build.row_pitch(D)`). What the kernel
 does not take raises; nothing falls back. Cache positions at or past a row's
 length may hold uninitialised memory, even NaN: the kernel masks their
 scores and zeroes their V rows before P V, and the plain version zeroes
@@ -124,7 +125,7 @@ def flash_attention_chunked(
     window = _build.window_arg(window)
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"extend kernel takes bf16/f16, got {q.dtype}")
-    _build.padded_head_dim(d, "extend")
+    _build.padded_head_dim(d, "extend", wide=True)
     if hq % hkv or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     q = _build.rows("q", q, q.dtype)

@@ -24,7 +24,8 @@ D]` pool); key n of batch row b sits at page `page_table[b, n // ps]`, row
 
 B5 and B6 take the tanh soft cap (Gemma2) and every head dim from 1 to
 256 (`_build.padded_head_dim`: D 96 runs in D 128's layout, its columns
-past 96 zeros). Rows reach them at a 16-byte stride: the port's pools lie
+past 96 zeros), B6 also every head dim from 257 to 512 in the wide layout
+of 512 (csrc/attention_wgmma.cuh). Rows reach them at a 16-byte stride: the port's pools lie
 at `_build.row_pitch`, and a q or pool that breaks the rule takes one
 padded copy (`_build.rows`, counted by kind); B6's output lies at
 `_build.row_pitch(D)`.
@@ -62,12 +63,13 @@ PAGED_EXTEND = _build.Kernel(
 def extend_plan(head_dim: int, page_size: int) -> tuple[int, int]:
     """(keys of a tile, keys of one copy) of the paged extend kernels B6 /
     B9: tiles of 128 keys (64 in D 256's layout, every head dim above 128,
-    where O takes twice the registers), each copied by TMA in parts of
-    `gcd(tile, page_size)` keys, a whole page where pages are no wider
-    than the tile. Parts start on a tile's and a
+    where O takes twice the registers; 32 in B6's wide layout of 512, every
+    head dim above 256, where a K tile of 64 keys would take 64 KB), each
+    copied by TMA in parts of `gcd(tile, page_size)` keys, a whole page
+    where pages are no wider than the tile. Parts start on a tile's and a
     page's boundaries alike, and page_size % 8 == 0 keeps each one at least
     eight 128-byte rows (the 1 KB the swizzle's pattern spans)."""
-    tile = 64 if head_dim > 128 else 128
+    tile = 32 if head_dim > 256 else 64 if head_dim > 128 else 128
     return tile, math.gcd(tile, page_size)
 
 
@@ -144,17 +146,18 @@ def paged_attention_extend_plain(q, k_pages, v_pages, q_offset, kv_length, page_
 
 
 def _check_cuda_call(name, q, k_pages, v_pages, page_table, row_tensors, window,
-                     pool_dtype=None):
+                     pool_dtype=None, wide=False):
     """Shared refusals of the CUDA routes; the pools must be `pool_dtype`
-    (default q's dtype), head dims those of `_build.padded_head_dim`'s rule,
-    Hq a multiple of Hkv (any group). Returns the window as the kernels
-    take it, and q, k_pages, v_pages as they read them (`_build.rows`)."""
+    (default q's dtype), head dims those of `_build.padded_head_dim`'s rule
+    (with `wide`, B6's, up to 512), Hq a multiple of Hkv (any group).
+    Returns the window as the kernels take it, and q, k_pages, v_pages as
+    they read them (`_build.rows`)."""
     window = _build.window_arg(window)
     b, hq, _, d = q.shape
     hkv = k_pages.shape[0]
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"{name} kernel takes bf16/f16, got {q.dtype}")
-    _build.padded_head_dim(d, name)
+    _build.padded_head_dim(d, name, wide=wide)
     if hq % hkv:
         raise ValueError(f"{name}: num q heads {hq} must be a multiple of kv heads {hkv}")
     if k_pages.shape != v_pages.shape or k_pages.shape[3] != d or k_pages.ndim != 4:
@@ -265,7 +268,7 @@ def paged_attention_extend(
     softcap = _build.softcap_arg(logit_softcap)
     window, q, k_pages, v_pages = _check_cuda_call(
         "paged extend", q, k_pages, v_pages, page_table,
-        [("q_offset", q_offset), ("kv_length", kv_length)], window)
+        [("q_offset", q_offset), ("kv_length", kv_length)], window, wide=True)
     hkv, num_pages, ps, _ = k_pages.shape
     out = _build.out_rows((b, hq, sq, d), q.dtype, q.device)
     if out.numel():

@@ -27,7 +27,9 @@ shard of the output back:
 B4 runs on a CUDA tensor; on a CPU tensor `flash_attention_chunked` takes
 its plain version, so one route serves every device (JAX's XLA `inner`
 recurrence has no counterpart: it exists there because JAX's kernel route
-off the TPU needs interpret mode).
+off the TPU needs interpret mode). Head dims: B4's, every d from 1 to 512
+(257-512 in the wide layout of 512, DeepSeek-V4-Flash's 512 among them),
+as JAX's functions check none; above 512 B4 raises before any launch.
 
 One rank's work is `allgather_rank` / `ring_rank`, a function of its index,
 n and how its next chunk arrives (`rotate`). The entry points hand it the

@@ -952,7 +952,8 @@ def test_chunked_extend_refuses_what_it_does_not_take(device):
                                                       logit_softcap=30.0)
     assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
     # D 100, refused before the pitched rows, runs (a view of d columns at a
-    # row stride of 128); a head dim above 256 is refused.
+    # row stride of 128); D 264, refused before the wide layout of 512,
+    # runs in it; a head dim above 512 is refused.
     before = flash_chunked.CHUNKED.launches
     out = flash_chunked.flash_attention_chunked(q[..., :100], k[..., :100], v[..., :100], off,
                                                 lens)
@@ -960,9 +961,19 @@ def test_chunked_extend_refuses_what_it_does_not_take(device):
     ref = flash_chunked.flash_attention_chunked_plain(q[..., :100].float(), k[..., :100],
                                                       v[..., :100], off, lens)
     assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
-    wide = torch.zeros(*q.shape[:3], 264, dtype=q.dtype, device=q.device)
+    wide = randn(gen, *q.shape[:3], 264)
+    before = flash_chunked.CHUNKED.launches
+    out = flash_chunked.flash_attention_chunked(wide, wide[:, :8], wide[:, :8], off, lens)
+    torch.cuda.synchronize()
+    assert flash_chunked.CHUNKED.launches == before + 1
+    ref = flash_chunked.flash_attention_chunked_plain(wide.float(), wide[:, :8], wide[:, :8],
+                                                      off, lens)
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+    wide = torch.zeros(*q.shape[:3], 520, dtype=q.dtype, device=q.device)
+    before = flash_chunked.CHUNKED.launches
     with pytest.raises(NotImplementedError, match="head_dim"):
         flash_chunked.flash_attention_chunked(wide, wide[:, :8], wide[:, :8], off, lens)
+    assert flash_chunked.CHUNKED.launches == before
     with pytest.raises(ValueError, match="q_offset"):
         flash_chunked.flash_attention_chunked(q, k, v, off.cpu(), lens)
 
@@ -2084,10 +2095,11 @@ def test_paged_kernels_at_odd_head_dims(device, ps, d, dtype):
 @pytest.mark.parametrize("d", [100, 264])
 def test_odd_head_dim_kernels_refuse_what_no_layout_takes(device, d):
     """A head dim no layout of theirs takes (264) raises naming the roadmap
-    item before any launch, in the decode, paged and append kernels;
-    nothing falls back. P takes it in the wide layout of 512 and launches
-    once. D 100, refused so before the pitched rows, launches each kernel
-    once (its pool at rows of 104)."""
+    item before any launch, in the decode kernels and the append; nothing
+    falls back. P and B6 take it in the wide layout of 512 and launch once
+    each, B6 within BF16_TOL of its plain version. D 100, refused so before
+    the pitched rows, launches each kernel once (its pool at rows of
+    104)."""
     gen = torch.Generator(device="cuda").manual_seed(120)
     q, k = randn(gen, 2, 4, 64, d), randn(gen, 2, 2, 64, d)
     lengths = torch.tensor([3, 5], dtype=torch.int32, device="cuda")
@@ -2112,11 +2124,15 @@ def test_odd_head_dim_kernels_refuse_what_no_layout_takes(device, d):
         assert [x.launches - n for x, n in zip(counted, before)] == [1, 1, 2, 1, 1, 1]
         return
     calls[0]()  # P, in the wide layout
-    for call in calls[1:]:
+    out = calls[3]()  # B6, in the wide layout
+    for call in (calls[1], calls[2], calls[4]):
         with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A14"):
             call()
     torch.cuda.synchronize()
-    assert [x.launches - n for x, n in zip(counted, before)] == [1, 0, 0, 0, 0, 0]
+    assert [x.launches - n for x, n in zip(counted, before)] == [1, 0, 0, 0, 1, 0]
+    ref = paged_attention.paged_attention_extend_plain(q[:, :, :4].float(), kp, vp, lengths,
+                                                       lengths + 4, table)
+    assert (out.float() - ref).abs().max().item() <= BF16_TOL
 
 
 # Head dims outside {64, 128, 256} in training and packed batches: B13a /
@@ -2415,3 +2431,74 @@ def test_wide_head_dim_varlen_matches_plain(device, d):
     ref = varlen_plain(q.float(), k, v, cu_q, cu_kv, **kw)
     assert (out.float() - ref).abs().max().item() <= BF16_TOL
     assert torch.equal(out, again)
+
+
+# B4 (with and without its (o, m, l) partials) and B6 at head dims from 257
+# to 512, in the wide layout of 512 as P: DeepSeek-V4-Flash's MQA group of
+# 64 cut to 16 heads at D 512, a verify-size chunk (S 5: the 16 heads
+# packed into one block) and a chunk of 300 rows, NaN at and past every
+# kv_length, a row of kv_length 0, a window with the soft cap, D 260 (rows
+# of 264, a second chunk of 4 live columns), 320 and 384; each held to its
+# fp32 plain version (the partials by `partials_err`), a second call bit
+# for bit, rows with no key exact zeros (m = l = o = 0).
+WIDE_CHUNKED = {
+    # name: (d, hq, hkv, s, capacity, q_offset, kv_length, window, cap, dtype);
+    # kv_length None = q_offset + s
+    "d512_verify_s5": (512, 16, 1, 5, 700, [0, 130, 511, 600], None, None, None,
+                       torch.bfloat16),
+    "d512_chunk_s300_inactive": (512, 16, 1, 300, 1100, [0, 77, 0, 768], [300, 377, 0, 1068],
+                                 None, None, torch.bfloat16),
+    "d512_window_cap": (512, 8, 1, 200, 900, [0, 300, 650], None, 128, 50.0, torch.bfloat16),
+    "d260_gqa": (260, 8, 2, 130, 600, [0, 33, 400], None, None, None, torch.bfloat16),
+    "d320_f16": (320, 8, 2, 64, 400, [10, 0, 300], [74, 0, 364], None, None, torch.float16),
+    "d384_window": (384, 8, 2, 100, 500, [0, 250, 380], None, 45, None, torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("partials", [False, True], ids=["output", "partials"])
+@pytest.mark.parametrize("case", list(WIDE_CHUNKED), ids=list(WIDE_CHUNKED))
+def test_wide_head_dim_chunked_matches_plain(device, case, partials):
+    d, hq, hkv, s, cap, offs, kvl, window, softcap, dtype = WIDE_CHUNKED[case]
+    gen = torch.Generator(device="cuda").manual_seed(260)
+    q, k, v, off, lens = chunked_inputs(gen, hq, hkv, s, cap, offs, kvl, d, dtype)
+    kw = dict(window=window, logit_softcap=softcap, return_partials=partials)
+    kernel = flash_chunked.PARTIALS if partials else flash_chunked.CHUNKED
+    before = kernel.launches
+    out = flash_chunked.flash_attention_chunked(q, k, v, off, lens, **kw)
+    again = flash_chunked.flash_attention_chunked(q, k, v, off, lens, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    ref = flash_chunked.flash_attention_chunked_plain(q.float(), k, v, off, lens, **kw)
+    dead = lens == 0
+    if partials:
+        assert all(torch.equal(x, y) for x, y in zip(out, again))
+        assert all(torch.isfinite(x).all() for x in out)
+        assert out[0].stride(-2) == _build.row_pitch(d)
+        assert partials_err(out, ref) <= BF16_TOL
+        assert all((x[dead] == 0).all() for x in out)
+        return
+    assert torch.equal(out, again) and torch.isfinite(out).all()
+    assert out.shape == ref.shape and out.dtype == dtype and out.stride(-2) == _build.row_pitch(d)
+    assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+    assert (out[dead] == 0).all()
+
+
+@pytest.mark.parametrize("d", [260, 320, 384, 512])
+@pytest.mark.parametrize("ps", [16, 64])
+def test_wide_head_dim_paged_extend_matches_plain(device, ps, d):
+    """B6 over NaN-poisoned pools behind a permuted table (pages of 16 keys:
+    two copies a 32-key tile; of 64: half a page a tile), chunks at offsets
+    off the tiles, an inactive row, once more with a window of 128 and the
+    soft cap 50; MQA 16 / 1 heads at D 512, 8 / 2 below."""
+    hq, hkv = (16, 1) if d == 512 else (8, 2)
+    gen = torch.Generator(device="cuda").manual_seed(261 + d + ps)
+    offs = torch.tensor([0, 61, 599, 0, 200], dtype=torch.int32, device="cuda")
+    kvl = torch.tensor([130, 191, 729, 0, 330], dtype=torch.int32, device="cuda")
+    kp, vp, table = paged_pool(gen, ps, len(offs), hkv=hkv, d=d, lengths=kvl.tolist())
+    q = randn(gen, len(offs), 130, hq, d).transpose(1, 2)
+    for kw in ({}, {"window": 128, "logit_softcap": 50.0}):
+        out, err = held(paged_attention.paged_attention_extend,
+                        paged_attention.paged_attention_extend_plain,
+                        paged_attention.PAGED_EXTEND, q, kp, vp, offs, kvl, table, **kw)
+        assert out.shape == q.shape and out.stride(-2) == _build.row_pitch(d)
+        assert err <= BF16_TOL and (out[3] == 0).all(), kw

@@ -327,12 +327,15 @@ def test_one_byte_rule_refuses_the_rest_naming_the_roadmap_item(d):
 def test_two_byte_rule_keeps_its_answers(d, layout):
     """bf16 / f16 rows (the default element size) keep the rule of P / B2,
     D1 + D2, B5, B6 and the append, which B4 now follows too; D 100 runs
-    in D 128's layout at rows of 104, and D 264 stays refused."""
+    in D 128's layout at rows of 104, and D 264 stays refused by the rule
+    up to 256, while the wide rule of B4 and B6 (`wide`) runs it in the
+    layout of 512."""
     if d == 100:
         assert _build.padded_head_dim(d, "extend") == 128 and _build.row_pitch(d) == 104
     elif layout is None:
         with pytest.raises(NotImplementedError, match=r"from 1 to 256.*ROADMAP\.md A14"):
             _build.padded_head_dim(d, "extend")
+        assert _build.padded_head_dim(d, "extend", wide=True) == 512
     else:
         assert _build.padded_head_dim(d, "extend") == _build.padded_head_dim(d, "extend", 2) \
             == layout

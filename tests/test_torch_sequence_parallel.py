@@ -37,6 +37,11 @@ CASES = {
     "allgather causal": (2, 4, 2, 64, 16, "allgather", True, {}),
     "allgather noncausal": (2, 4, 2, 64, 16, "allgather", False, {}),
     "allgather window": (1, 4, 2, 64, 16, "allgather", True, {"window": 21}),
+    # Head dim 320, which B4's partials run in the wide layout of 512 on the
+    # card (MQA, ranks of 16 tokens).
+    "ring d320 causal": (1, 4, 1, 64, 320, "ring", True, {}),
+    "ring d320 noncausal": (1, 4, 1, 64, 320, "ring", False, {}),
+    "allgather d320 window": (1, 4, 1, 64, 320, "allgather", True, {"window": 21}),
 }
 # JAX's Pallas partials in interpret mode run on this case alone: the
 # three-offset path, whose later chunk gives the kernel an empty walk.
@@ -183,7 +188,7 @@ def test_world_of_one(world, route):
 
 
 @pytest.mark.parametrize("name", ["ring noncausal", "ring causal even", "ring causal odd",
-                                  "ring gqa"])
+                                  "ring gqa", "ring d320 causal", "ring d320 noncausal"])
 def test_unrolled_ring_equals_the_distributed_one_bit_for_bit(world, name):
     from flash_attention_cute_tpu_torch.parallel import sequence as seq
 
