@@ -114,11 +114,11 @@ Phases, in order; any failure exits non-zero:
      against its fp32 plain version over NaN tails, repeated bit for bit,
      QA's whole pools bit-identical to the plain version's; D 40 over
      one-byte rows (d % 16 == 8) in B7, B8, B9 and QA and D 100 in B4,
-     refused before the pitched rows, launch once each; D 264 and D 0
-     refused by B7, B8, B9 and QA before any launch, while B4 and its
-     partials launch once each at D 264 (the wide layout, 5m), held to
-     their plain versions within 3e-2 and, row by row, ROW_TOL, and refuse
-     D 520 and D 0; (3l) the same rule in training and packed
+     refused before the pitched rows, launch once each; B7, B8, B9 and
+     QA (the wide layouts, 5n) launch once each at D 264 over zero values
+     (zero outputs), and B4 and its partials (the wide layout, 5m), held
+     to their plain versions within 3e-2 and, row by row, ROW_TOL; all of
+     them refuse D 520 and D 0 before any launch; (3l) the same rule in training and packed
      batches (ODD_TRAINING_DIMS: D 8, 24, 40, 96, 136, 200 and 248, GQA
      groups 1 and 4, bf16 and f16): B13a / B13b causal, windowed with Sq <
      Skv and non-causal with Sq > Skv on transposed views, held to the
@@ -160,10 +160,11 @@ Phases, in order; any failure exits non-zero:
      (PITCHED_HEAD_DIMS, 32 / 8 heads; D 100 also windowed and capped) as
      in 3j / 3k; B7 + D2, B8 + D2, B9, QA and B4 at D 24, 40 and 72 over
      int8 / e4m3 (PITCHED_ONE_BYTE_DIMS; D 40 also windowed and capped) as
-     in 3k; B13a / B13b and B12 at D 36 and 100 as in 3l; D 264 and D 0
-     refused before any launch (P / B2 and B6 at D 520 and D 0: they take
-     257-512 in the wide layout, 5l / 5m, and B6 launches once at D 264,
-     held to its plain version as B4 in 3k);
+     in 3k; B13a / B13b and B12 at D 36 and 100 as in 3l; P-i8 (K8)
+     refuses D 264 and D 0 before any launch, and P / B2, B6, D1, B5 and
+     the append D 520 and D 0 (they take 257-512 in the wide layouts,
+     5l-5n; B6, D1 and B5 launch once at D 264, held to their plain
+     versions as B4 in 3k, and the append once);
      then the API's int8 scores at Phi-3-mini's
      widths (32 / 32 heads, D 96, path "phi3-widths int8 scores"): causal
      at B 4 x 512 and Phi-3-mini-4k's window of 2047 at B 1 x 4096,
@@ -457,8 +458,33 @@ Phases, in order; any failure exits non-zero:
      expanded to the 64 q heads, B6's over a gathered copy, null for the
      partials; the verify round, the window and pages of 64 beside them;
      the unrolled ring beside P and one SDPA call over the 16384 tokens);
-     every timed entry its share of its bound ("of_bound"); the card's name
-     and power limit.
+     (5n) head dims from 257 to 512 in the decodes D1, B5, B7 and B8 (the
+     wide layout of paged_decode.cuh: each consumer warp owns 256 of O's
+     columns, 16-key tiles) with D2, the append and QA, and in B9 (B6's
+     wide layout), at the same widths, on path "v4-decode": B 4 rows admit
+     prompts of 4096, 2900, 1537 and 517 tokens one row at a time (the
+     append then B6 over bf16 pages, QA then B9 over int8 and e4m3 pages;
+     pages of 16 and 64 behind shuffled tables, NaN everywhere before) and
+     run 32 decode steps (each row's new K / V through the append or QA,
+     then B5 or B8 and D2, plainly and with the window of 128 over pages of
+     16 or the cap 50 over pages of 64), and over contiguous caches [1, 4,
+     1, 8192, 512] (bf16, int8, e4m3; NaN past the lengths) the same steps
+     through D1 or B7 and D2 (the window and the cap together), the new
+     K / V written by indexing (bf16, as the model does) or QA; counted
+     exactly (append 72, B6 8, B5 128, QA 208, B9 16, B8 256, D1 64, B7
+     128, D2 576; nothing else); every output within 3e-2 of its fp32
+     plain version (B6 / B9 8 q heads at a time) and, row by row, within
+     ROW_TOL, repeated bit for bit after the path (the pools then hold the
+     later rows past each call's lengths), the appends and QA replayed by
+     their plain versions on copies of the pools giving the same bytes; D2
+     alone on D1's partials; d 260 (rows of 264) and 320 alike at a small
+     size, each kernel launched; then the "v4" entries of the D1, D2, B5,
+     B7, B8, B9, append and QA rows (ms, plain, bound, SDPA over a
+     contiguous, gathered or dequantized copy with the group expanded,
+     `index_copy_` for the append; pages of 64, the window, e4m3 beside
+     them; the D 512 instantiations' runtime attributes); every timed entry
+     its share of its bound ("of_bound"); the card's name and power
+     limit.
 The last line is {"ok": true, "device": {...}}.
 
 Tolerances: kernel outputs are bf16 results of fp32 arithmetic on bf16
@@ -2468,7 +2494,7 @@ def kernel_entries(rows, errs, path_counts) -> list:
         if entry.get("ms") and entry.get("bound_ms"):
             entry["of_bound"] = entry["bound_ms"] / entry["ms"]
         for key in ("chunk", "window", "gemma2", "long", "phi3", "g16", "m71", "zigzag_step",
-                    "o", "v4", "verify", "page64"):
+                    "o", "v4", "verify", "page64", "e4m3", "b6"):
             if isinstance(entry.get(key), dict):
                 share_of_bound(entry[key])
 
@@ -4857,10 +4883,11 @@ def phase_odd_head_dims_quantized(torch, ops, errs, dims=ODD_HEAD_DIMS, tags=Non
     length-0 and inactive rows exact zeros; QA's whole pools bit-identical
     to the plain version's. With `formerly_refused`: the calls refused
     before the pitched rows (a one-byte row of d % 16 == 8, D 40, in B7,
-    B8, B9 and QA; D 100 in B4) launch once each; D 0 and D 264 are
-    refused by B7, B8, B9 and QA before any launch; B4 and its partials
-    launch once each at D 264 (the wide layout), held to their fp32 plain
-    versions by `held_rows`, and refuse D 520 and D 0."""
+    B8, B9 and QA; D 100 in B4) launch once each; B7, B8, B9 and QA launch
+    once each at D 264 (the wide layouts, over zero values: zero outputs)
+    and refuse D 520 and D 0 before any launch; B4 and its partials launch
+    once each at D 264 (the wide layout), held to their fp32 plain versions
+    by `held_rows`, and refuse D 520 and D 0."""
     from flash_attention_cute_tpu_torch.ops.quantized import QuantizedKV
 
     tags = {96: "phi3"} if tags is None else tags
@@ -4997,7 +5024,7 @@ def phase_odd_head_dims_quantized(torch, ops, errs, dims=ODD_HEAD_DIMS, tags=Non
         return QuantizedKV(torch.zeros(shape, dtype=torch.int8, device="cuda"),
                            torch.ones(shape[:-1], device="cuda"))
 
-    head_dims_refused(torch, ops, "B7, B8, B9 and QA", [
+    quant_calls = [
         lambda d: quantized.flash_attention_decode_quantized(
             randn(2, 4, 1, d), kv(2, 2, 64, d), kv(2, 2, 64, d), rows, sm_scale=1.0),
         lambda d: quantized.paged_attention_decode_quantized(
@@ -5006,8 +5033,22 @@ def phase_odd_head_dims_quantized(torch, ops, errs, dims=ODD_HEAD_DIMS, tags=Non
             randn(2, 4, 1, d), kv(2, 9, 16, d), kv(2, 9, 16, d), rows, rows + 1, table,
             sm_scale=1.0),
         lambda d: quantized.quantize_append(randn(2, 2, 1, d), randn(2, 2, 1, d),
-                                            kv(2, 2, 64, d), kv(2, 2, 64, d), rows)],
-        counted)
+                                            kv(2, 2, 64, d), kv(2, 2, 64, d), rows)]
+    # B7, B8, B9 and QA take 257-512 in the wide layouts (phase 5n): D 264
+    # (one-byte rows of 264 bytes: padded copies of the caches they read)
+    # launches each once, over zero values: zero outputs; D 520 and D 0 are
+    # refused.
+    before = [x.launches for x in counted[:4]]
+    outs = [call(264) for call in quant_calls]
+    torch.cuda.synchronize()
+    print(f"  B7, B8, B9 and QA at D 264 (the wide layouts): launched "
+          f"{[x.launches - n for x, n in zip(counted[:4], before)]}")
+    check([x.launches - n for x, n in zip(counted[:4], before)] == [1, 1, 1, 1],
+          "B7, B8, B9 and QA at D 264 launch their kernels once each")
+    check(all(bool((out == 0).all()) for out in outs[:3]),
+          "B7, B8 and B9 at D 264 over zero values: zero outputs")
+    head_dims_refused(torch, ops, "B7, B8, B9 and QA (wide layouts up to 512)", quant_calls,
+                      counted, dims=(520, 0))
     # B4 and its partials take 257-512 in the wide layout (phase 5m): D 264
     # launches each once, held to its fp32 plain version by `held_rows`; D
     # 520 and D 0 are refused.
@@ -6140,11 +6181,11 @@ def phase_pitched_head_dims(torch, ops, paged_cache, errs, rel_errs):
     version within the tolerances of phases 3i-3l, over NaN tails and
     poisoned pools at the port's row pitch and the model's transposed views
     (one padded copy each), every call repeated bit for bit. Then D 264 and
-    D 0 refused by P-i8 (K8), D1, B5 and the append, D 520 and D 0 by P /
-    B2 and B6 (which take 257-512 in the wide layout, phases 5l / 5m; B6
-    launches once at D 264, held to its fp32 plain version by
-    `held_rows`), before any launch. Prints the padded copies the phase
-    made."""
+    D 0 refused by P-i8 (K8), D 520 and D 0 by P / B2, B6, D1, B5 and the
+    append (which take 257-512 in the wide layouts, phases 5l-5n; B6, D1,
+    B5 and the append launch once at D 264, B6 and the decodes held to
+    their fp32 plain versions by `held_rows`), before any launch. Prints
+    the padded copies the phase made."""
     from flash_attention_cute_tpu_torch.ops import _build
 
     flash_fwd, flash_decode, pa = ops["flash_fwd"], ops["flash_decode"], ops["paged_attention"]
@@ -6187,18 +6228,40 @@ def phase_pitched_head_dims(torch, ops, paged_cache, errs, rel_errs):
         lambda d: pa.paged_attention_extend(randn(2, 4, 5, d), randn(2, 9, 16, d),
                                             randn(2, 9, 16, d), rows, rows + 5, table,
                                             sm_scale=1.0)], counted, dims=(520, 0))
-    head_dims_refused(torch, ops, "P-i8 (K8), D1, B5 and the append", [
+    head_dims_refused(torch, ops, "P-i8 (K8)", [
         lambda d: flash_fwd.flash_attention_fwd(randn(2, 4, 64, d), randn(2, 2, 64, d),
                                                 randn(2, 2, 64, d), sm_scale=1.0, causal=True,
                                                 score_dtype="int8"),
-        lambda d: flash_fwd.quantize_k_rows(randn(2, 2, 64, d)),
+        lambda d: flash_fwd.quantize_k_rows(randn(2, 2, 64, d))], counted)
+    # D1, B5 and the append take 257-512 (the wide layout of the decodes,
+    # phase 5n): D 264 launches each once (D1 and B5 with D2), the decodes
+    # held to their fp32 plain versions by `held_rows`; D 520 and D 0 are
+    # refused.
+    q264, k264, v264 = randn(2, 4, 1, 264), randn(2, 2, 64, 264), randn(2, 2, 64, 264)
+    kp264, vp264 = randn(2, 9, 16, 264), randn(2, 9, 16, 264)
+    wide = (flash_decode.PARTIALS, pa.PAGED_DECODE, paged_cache.APPEND, flash_decode.COMBINE)
+    wide_before = [x.launches for x in wide]
+    got = (flash_decode.flash_attention_decode(q264, k264, v264, rows),
+           pa.paged_attention_decode(q264, kp264, vp264, rows, table))
+    paged_cache.paged_append_layer(kp264, vp264, k264[:, :, :1], v264[:, :, :1], table, rows)
+    torch.cuda.synchronize()
+    launched = [x.launches - n for x, n in zip(wide, wide_before)]
+    print(f"  D1, B5, the append and D2 at D 264 (the wide layout): launched {launched}")
+    check(launched == [1, 1, 1, 2], "D1, B5 and the append at D 264 launch their kernels once "
+                                    "each, D2 after each decode")
+    held_rows(torch, errs, "D1 + D2 at D 264", "decode_partials", "wide", got[0],
+              flash_decode.flash_attention_decode_plain(q264.float(), k264, v264, rows))
+    # (the append wrote at the lengths, which the decode does not read)
+    held_rows(torch, errs, "B5 + D2 at D 264", "paged_decode", "wide", got[1],
+              pa.paged_attention_decode_plain(q264.float(), kp264, vp264, rows, table))
+    head_dims_refused(torch, ops, "D1, B5 and the append (wide layout up to 512)", [
         lambda d: flash_decode.flash_attention_decode(randn(2, 4, 1, d), randn(2, 2, 64, d),
                                                       randn(2, 2, 64, d), rows, sm_scale=1.0),
         lambda d: pa.paged_attention_decode(randn(2, 4, 1, d), randn(2, 9, 16, d),
                                             randn(2, 9, 16, d), rows, table, sm_scale=1.0),
         lambda d: paged_cache.paged_append_layer(randn(2, 9, 16, d), randn(2, 9, 16, d),
                                                  randn(2, 2, 1, d), randn(2, 2, 1, d), table,
-                                                 rows)], counted)
+                                                 rows)], counted, dims=(520, 0))
     print(f"  padded copies in phase 3o: "
           + ", ".join(f"{k} {_build.copies[k] - before[k]}" for k in before)
           + " (the transposed views of q / k / v and contiguous caches at D 4, 36 and 100)")
@@ -6819,6 +6882,15 @@ def phase_v4_extend(torch, ops, kernels, path_counts, errs):
     return numbers, reach
 
 
+def timed_v4(fn, plain, iters) -> dict:
+    """The "ms" and "call_ms" of `iters` calls of fn and its plain
+    version's ms (2 calls after one warm-up), as phases 5m / 5n time."""
+    from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms
+
+    return {"ms": cuda_time_ms(fn, iters), "call_ms": call_time_ms(fn, iters),
+            "plain_ms": cuda_time_ms(plain, 2, warmup=1)}
+
+
 def v4x_rows(torch, ops, gen, path_counts, errs, reports):
     """Phase 5m's numbers: the "v4" entries of the B4, B4-partials and B6
     rows at path "v4-extend"'s shapes: ms, call_ms, the fp32 plain
@@ -6834,8 +6906,6 @@ def v4x_rows(torch, ops, gen, path_counts, errs, reports):
     round under "verify", B4's and B6's window under "window", B6 at pages
     of 64 under "page64"; under the partials' "sequence_parallel"
     `sp_times` at V4X_SP."""
-    from flash_attention_cute_tpu_torch.utils.timing import call_time_ms, cuda_time_ms
-
     fc, pa, flash_fwd = ops["flash_chunked"], ops["paged_attention"], ops["flash_fwd"]
     b4_report, b6_report = reports
     d = V4_D
@@ -6850,10 +6920,6 @@ def v4x_rows(torch, ops, gen, path_counts, errs, reports):
         hi = [min(length, o0 + r + 1) for r in range(rows)]
         return sum(max(0, h - l) for l, h in zip(lo, hi)), max(hi) - min(lo)
 
-    def timed(fn, plain, iters):
-        return {"ms": cuda_time_ms(fn, iters), "call_ms": call_time_ms(fn, iters),
-                "plain_ms": cuda_time_ms(plain, 2, warmup=1)}
-
     def chunk_entry(x, window=None, partials=False, iters=10):
         s = x.shape[2]
         o0 = V4X_CACHE - s
@@ -6864,7 +6930,7 @@ def v4x_rows(torch, ops, gen, path_counts, errs, reports):
         out_bytes = 4 * x.numel() + 2 * 4 * rows if partials else 2 * x.numel()
         e = {"shape": f"B 1, S {s}, q_offset {o0}, kv_length {V4X_CACHE}, causal"
                       + (f", window {window}" if window else "") + f", {heads}",
-             **timed(lambda: fc.flash_attention_chunked(x, k, v, off, kvl, **kw),
+             **timed_v4(lambda: fc.flash_attention_chunked(x, k, v, off, kvl, **kw),
                      lambda: v4x_chunked_plain(torch, fc, x, k, v, off, kvl, **kw), iters),
              **bound(4 * d * V4_HQ * pairs, 2 * x.numel() + out_bytes
                      + 2 * 2 * V4_HKV * d * live + 2 * 4, PEAK_BF16)}
@@ -6911,7 +6977,7 @@ def v4x_rows(torch, ops, gen, path_counts, errs, reports):
         e = {"shape": f"B {len(lengths)}, S {V4X_PAGED_S}, q_offset {V4X_PAGED_OFFS}, page_size "
                       f"{ps}" + (f", window {window}" if window else "") + f", {heads}; "
                       "library_ms: SDPA over a contiguous gathered copy",
-             **timed(lambda: pa.paged_attention_extend(qp, kp, vp, p_off, p_kvl, table, **kw),
+             **timed_v4(lambda: pa.paged_attention_extend(qp, kp, vp, p_off, p_kvl, table, **kw),
                      lambda: v4x_paged_plain(torch, pa, qp, kp, vp, p_off, p_kvl, table, **kw),
                      iters),
              **bound(4 * d * V4_HQ * pairs, 2 * 2 * qp.numel() + 2 * 2 * V4_HKV * d * live
@@ -6934,6 +7000,514 @@ def v4x_rows(torch, ops, gen, path_counts, errs, reports):
     torch.cuda.empty_cache()
 
     out["flash_chunked_partials"]["sequence_parallel"] = sp_times(torch, flash_fwd, V4X_SP, gen)
+    return out
+
+
+# Phase 5n: head dims from 257 to 512 in the decodes D1, B5, B7 and B8
+# (the wide layout of csrc/paged_decode.cuh: each consumer warp owns 256 of
+# O's columns and computes S over the whole d; 16-key tiles), with D2, the
+# paged append and QA, and in the quantized paged extend B9 (B6's wide
+# layout), at DeepSeek-V4-Flash's attention widths (64 / 1 heads, D 512,
+# bf16 q; the config's window of 128, and the cap of 50 of 5l), on path
+# "v4-decode": the kernels a serving stream runs after admission, through
+# the public kernel-level entry points (no model: JAX's API and model path
+# refuse a head dim above 256, as the port's do). Over pools of 16- and
+# 64-token pages of bf16, int8 and e4m3 values, B 4 rows admit prompts of
+# V4D_PROMPTS tokens one row at a time (the append or QA, then B6 or B9),
+# then run V4D_STEPS decode steps, each writing every row's new K / V (the
+# append or QA) and decoding through B5 or B8 and D2 twice: plainly, and
+# with the window (pages of 16) or the cap (pages of 64). Over contiguous
+# caches [1, B, 1, V4D_CACHE, D] filled to V4D_CONTIG_LENGTHS the same
+# steps through D1 or B7 and D2, plainly and with both the window and the
+# cap; their new K / V are written by indexing (bf16, as the model does)
+# or QA. Pools and caches hold NaN at and past every length (one-byte
+# ones: NaN scales and the e4m3 NaN byte). Then d 260 (rows of 264) and
+# 320 at a small size, off the counted path.
+V4D_LABEL = "v4-decode"
+V4D_PROMPTS, V4D_STEPS, V4D_PAGE_SIZES = [4096, 2900, 1537, 517], 32, (16, 64)
+V4D_CACHE, V4D_CONTIG_LENGTHS = 8192, [8160, 6001, 3000, 1]
+V4D_KINDS = ("bfloat16", "int8", "float8_e4m3fn")
+V4D_VARIANTS = {16: {"window": V4_WINDOW}, 64: {"logit_softcap": V4_CAP},
+                "contiguous": {"window": V4_WINDOW, "logit_softcap": V4_CAP}}
+# The small head dims: pages of 16 and a contiguous cache of 1024, 2 steps.
+V4D_SMALL_PROMPTS, V4D_SMALL_STEPS, V4D_SMALL_CACHE = [300, 129, 17, 1], 2, 1024
+# Each stream's kernels: (append, extend, decode), None where no kernel runs.
+V4D_KERNELS = {("bfloat16", "paged"): ("paged_append", "paged_extend", "paged_decode"),
+               ("bfloat16", "contiguous"): (None, None, "decode_partials"),
+               ("one-byte", "paged"): ("quant_append", "quant_paged_extend",
+                                       "quant_paged_decode"),
+               ("one-byte", "contiguous"): ("quant_append", None, "quant_decode")}
+
+
+def raw_bits(torch, x):
+    """x's elements as integers of their width: equal bits compare equal,
+    NaN too."""
+    return x.view({1: torch.uint8, 2: torch.int16, 4: torch.int32}[x.element_size()])
+
+
+class V4Stream(NamedTuple):
+    """One decode stream of phase 5n: its values' `kind`, its page size
+    `ps` (or "contiguous"), its K and V (one layer's pools, or a stacked
+    cache [1, B, Hkv, C, d]; QuantizedKV for one-byte values) and page
+    table (None for a cache), copies of K and V as they stood before the
+    path ran (the plain appends replay the path on them), each row's prompt
+    length and (q, new K, new V) of its admission, and each step's q, new K,
+    new V and lengths before the step."""
+    kind: str
+    ps: object
+    k: object
+    v: object
+    table: object
+    k0: object
+    v0: object
+    prompts: list
+    admit: list
+    steps: list
+
+    def kernels(self):
+        """(append, extend, decode) kernel names of the stream."""
+        return V4D_KERNELS[("bfloat16" if self.kind == "bfloat16" else "one-byte",
+                            "contiguous" if self.ps == "contiguous" else "paged")]
+
+
+def v4d_stream(torch, qz, gen, kind, ps, d, prompts, steps, capacity):
+    """A stream's inputs: pools NaN-poisoned everywhere (the admission
+    fills them), or a cache filled to `prompts` and NaN past them; every
+    row's prompt and every step's tensors (bf16 at the port's pitch)."""
+    b = len(prompts)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    lens, = v4x_ints(torch, prompts)
+    if ps == "contiguous":
+        if kind == "bfloat16":
+            k, v = (v4_randn(torch, gen, 1, b, V4_HKV, capacity, d) for _ in "kv")
+            for x in (k, v):
+                for row, n in enumerate(prompts):
+                    x[:, row, :, n:] = float("nan")
+        else:
+            k, v = (qz.quantize_kv(randn(1, b, V4_HKV, capacity, d), getattr(torch, kind))
+                    for _ in "kv")
+            k, v = (qz.QuantizedKV(pitched(torch, x.values), x.scales) for x in (k, v))
+            dead = torch.arange(capacity, device="cuda")[None, :] >= lens[:, None]
+            for x in (k, v):
+                poison_quant(torch, x, dead[None, :, None, :].expand(1, -1, V4_HKV, -1))
+        table, admit = None, []
+    else:
+        pps = -(-capacity // ps)
+        none, = v4x_ints(torch, [0] * b)
+        if kind == "bfloat16":
+            kp, vp, table = paged_pool(torch, randn, gen, ps, b, pps * ps, layers=1, d=d,
+                                       hkv=V4_HKV)
+            for x in (kp, vp):
+                poison_past(torch, x, table, none)
+            k, v = kp[0], vp[0]
+        else:
+            k, v, table = quant_pool(torch, qz, randn, gen, ps, b, getattr(torch, kind),
+                                     [0] * b, pps * ps, d, V4_HKV)
+        admit = [(v4_randn(torch, gen, 1, n, V4_HQ, d).transpose(1, 2),
+                  *(v4_randn(torch, gen, 1, n, V4_HKV, d).transpose(1, 2) for _ in "kv"))
+                 for n in prompts]
+    steps_in = [(v4_randn(torch, gen, b, V4_HQ, 1, d),
+                 *(v4_randn(torch, gen, b, 1, V4_HKV, d).transpose(1, 2) for _ in "kv"),
+                 lens + t) for t in range(steps)]
+    if kind == "bfloat16":
+        k0, v0 = k.clone(), v.clone()
+    else:
+        k0, v0 = (qz.QuantizedKV(x.values.clone(), x.scales.clone()) for x in (k, v))
+    return V4Stream(kind, ps, k, v, table, k0, v0, prompts, admit, steps_in)
+
+
+def v4d_append(torch, ops, paged_cache, s, k, v, nk, nv, lens, table, plain=False):
+    """Write new K / V rows at `lens` into (k, v), the stream's K / V or
+    their copies: the append (bf16 pages) or QA (one-byte values), or with
+    `plain` their plain versions; a bf16 cache by indexing, as the model
+    writes it."""
+    qz = ops["quantized"]
+    if s.kind != "bfloat16":
+        if s.ps == "contiguous":  # one layer's views
+            k, v = (qz.QuantizedKV(x.values[0], x.scales[0]) for x in (k, v))
+        fn = qz.quantize_append_plain if plain else qz.quantize_append
+        fn(nk, nv, k, v, lens, table)
+    elif s.ps == "contiguous":
+        rows = torch.arange(len(lens), device="cuda")[:, None]
+        heads = torch.arange(V4_HKV, device="cuda")[None, :]
+        for x, new in ((k, nk), (v, nv)):
+            x[0][rows, heads, lens.long()[:, None]] = new[:, :, 0]
+    else:
+        fn = paged_cache.paged_append_layer_plain if plain else paged_cache.paged_append_layer
+        fn(k, v, nk, nv, table, lens)
+
+
+def v4d_decode(torch, ops, s, q, lens, plain=False, **kw):
+    """The stream's decode of q over the keys below `lens`: B5 / B8 (pages)
+    or D1 / B7 (a cache), each with D2; with `plain` its fp32 plain version
+    on q's fp32 image."""
+    qz, pa, fd = ops["quantized"], ops["paged_attention"], ops["flash_decode"]
+    quant = s.kind != "bfloat16"
+    q = q.float() if plain else q
+    if s.ps == "contiguous":
+        fn = ((qz.flash_attention_decode_quantized_plain if plain
+               else qz.flash_attention_decode_quantized) if quant
+              else fd.flash_attention_decode_plain if plain else fd.flash_attention_decode)
+        return fn(q, s.k, s.v, lens, layer=0, **kw)
+    fn = ((qz.paged_attention_decode_quantized_plain if plain
+           else qz.paged_attention_decode_quantized) if quant
+          else pa.paged_attention_decode_plain if plain else pa.paged_attention_decode)
+    return fn(q, s.k, s.v, lens, s.table, **kw)
+
+
+def v4d_extend(torch, ops, s, row, plain=False):
+    """Row `row`'s admission: B6 / B9 over its prompt (q_offset 0,
+    kv_length the prompt) through its table row; with `plain` the fp32
+    plain version on q's fp32 image, 8 q heads at a time."""
+    qz, pa = ops["quantized"], ops["paged_attention"]
+    quant = s.kind != "bfloat16"
+    q = s.admit[row][0]
+    off, kvl = v4x_ints(torch, [0], [s.prompts[row]])
+    table = s.table[row:row + 1]
+    if not plain:
+        fn = qz.paged_attention_extend_quantized if quant else pa.paged_attention_extend
+        return fn(q, s.k, s.v, off, kvl, table)
+    fn = qz.paged_attention_extend_quantized_plain if quant else pa.paged_attention_extend_plain
+    return torch.cat([fn(q[:, h:h + 8].float(), s.k, s.v, off, kvl, table)
+                      for h in range(0, q.shape[1], 8)], 1)
+
+
+def v4d_path(torch, ops, paged_cache, s):
+    """Drive stream s: each row's admission (pools), then the steps, each
+    decoding plainly and with the stream's variant. Returns the outputs:
+    {"admit": [per row], "steps": [(plain, variant) per step]}."""
+    out = {"admit": [], "steps": []}
+    none, = v4x_ints(torch, [0])
+    for row, (_, nk, nv) in enumerate(s.admit):
+        v4d_append(torch, ops, paged_cache, s, s.k, s.v, nk, nv, none, s.table[row:row + 1])
+        out["admit"].append(v4d_extend(torch, ops, s, row))
+    for q, nk, nv, lens in s.steps:
+        v4d_append(torch, ops, paged_cache, s, s.k, s.v, nk, nv, lens, s.table)
+        out["steps"].append((v4d_decode(torch, ops, s, q, lens + 1),
+                             v4d_decode(torch, ops, s, q, lens + 1, **V4D_VARIANTS[s.ps])))
+    return out
+
+
+def v4d_expected(streams) -> dict:
+    """The launches of path "v4-decode" over `streams`: each row's append
+    and extend, each step's append and two decodes, each with D2."""
+    want = {}
+    for s in streams:
+        append, extend, decode = s.kernels()
+        for name, n in ((append, len(s.admit) + len(s.steps)), (extend, len(s.admit)),
+                        (decode, 2 * len(s.steps)), ("decode_combine", 2 * len(s.steps))):
+            if name is not None:
+                want[name] = want.get(name, 0) + n
+    return want
+
+
+def v4d_check(torch, ops, paged_cache, errs, s, outs, what, tag=V4D_LABEL, pitch=None):
+    """Stream s's outputs after its path: every admission and decode held by
+    `held_rows`-style checks (BF16_TOL, ROW_TOL, finite, the plain shape)
+    to its fp32 plain version and to a second call now (the pools hold the
+    later steps' rows past each call's lengths, which must not reach it:
+    the repeat is bit for bit); the appends (or QA) replayed by their plain
+    versions on the copies give the same pools bit for bit. Errors noted
+    under `tag`; one line per kernel. Returns {kernel: (max |diff|, max
+    row_err)}."""
+    append, extend, decode = s.kernels()
+    worst = {}
+
+    def hold(key, got, ref, again, where, pitched_out=False):
+        e, r = max_err(got, ref), row_err(got, ref)
+        check(got.shape == ref.shape, f"{what} {where}: the plain shape")
+        check(bool(torch.isfinite(got).all()), f"{what} {where}: finite")
+        check(e <= BF16_TOL, f"{what} {where} within {BF16_TOL} ({e:.3e})")
+        check(r <= ROW_TOL, f"{what} {where}: row_err within {ROW_TOL} ({r:.3e})")
+        check(torch.equal(got, again), f"{what} {where}: a second call repeats bit for bit")
+        if pitched_out and pitch is not None:  # the extends' outputs lie at the pitch
+            check(got.stride(-2) == pitch, f"{what} {where}: rows at the pitch {pitch}")
+        note_err(errs, key, e, tag)
+        note_err(errs, f"{key} row_err", r, tag)
+        we, wr = worst.get(key, (0.0, 0.0))
+        worst[key] = (max(we, e), max(wr, r))
+
+    for row, got in enumerate(outs["admit"]):
+        hold(extend, got, v4d_extend(torch, ops, s, row, plain=True),
+             v4d_extend(torch, ops, s, row), f"admission of row {row} ({s.prompts[row]} tokens)",
+             True)
+    for t, (q, _, _, lens) in enumerate(s.steps):
+        for got, kw in zip(outs["steps"][t], ({}, V4D_VARIANTS[s.ps])):
+            hold(decode, got, v4d_decode(torch, ops, s, q, lens + 1, plain=True, **kw),
+                 v4d_decode(torch, ops, s, q, lens + 1, **kw), f"step {t} {kw or ''}")
+    if append is not None:
+        none, = v4x_ints(torch, [0])
+        for row, (_, nk, nv) in enumerate(s.admit):
+            v4d_append(torch, ops, paged_cache, s, s.k0, s.v0, nk, nv, none,
+                       s.table[row:row + 1], plain=True)
+        for _, nk, nv, lens in s.steps:
+            v4d_append(torch, ops, paged_cache, s, s.k0, s.v0, nk, nv, lens, s.table, plain=True)
+        pairs = ((s.k, s.k0), (s.v, s.v0)) if s.kind == "bfloat16" else (
+            (s.k.values, s.k0.values), (s.k.scales, s.k0.scales), (s.v.values, s.v0.values),
+            (s.v.scales, s.v0.scales))
+        same = all(torch.equal(raw_bits(torch, a), raw_bits(torch, b)) for a, b in pairs)
+        check(same, f"{what}: {append} writes the pools its plain version writes, bit for bit")
+        note_err(errs, append, 0.0, tag)
+        worst[append] = "bit-identical"
+    print(f"  {what}: " + "; ".join(
+        f"{k} " + (v if isinstance(v, str) else f"max|diff| {v[0]:.3e}, row_err {v[1]:.3e}")
+        for k, v in worst.items()) + ", every call repeated bit for bit")
+    return worst
+
+
+def v4d_streams(torch, qz, gen, d, prompts, steps, contig_lengths, capacity, cache, page_sizes):
+    """The streams of one head dim: each kind over each page size, then
+    over a contiguous cache."""
+    streams = [v4d_stream(torch, qz, gen, kind, ps, d, prompts, steps, capacity)
+               for kind in V4D_KINDS for ps in page_sizes]
+    streams += [v4d_stream(torch, qz, gen, kind, "contiguous", d, contig_lengths, steps, cache)
+                for kind in V4D_KINDS]
+    return streams
+
+
+def phase_v4_decode(torch, ops, paged_cache, kernels, path_counts, errs):
+    """Phase 5n's checks and path (the constants above): path "v4-decode"
+    counted exactly (`v4d_expected`: the append 72, B6 8, B5 128, QA 208,
+    B9 16, B8 256, D1 64, B7 128, D2 576; nothing else), then every output
+    held by `v4d_check`, D2 alone on D1's partials of the last step held to
+    its plain version and repeated bit for bit; then d 260 and 320 alike at
+    the small size, each kernel launched there. Returns the D 512 streams
+    (their pools as the path left them) for the numbers."""
+    from flash_attention_cute_tpu_torch.ops import _build
+
+    qz, fd = ops["quantized"], ops["flash_decode"]
+    gen = torch.Generator(device="cuda").manual_seed(4400)
+    d = V4_D
+    streams = v4d_streams(torch, qz, gen, d, V4D_PROMPTS, V4D_STEPS, V4D_CONTIG_LENGTHS,
+                          V4X_PAGED_CAP + V4D_STEPS, V4D_CACHE, V4D_PAGE_SIZES)
+    outs, wall, counts = counted_run(torch, kernels, lambda: [
+        v4d_path(torch, ops, paged_cache, s) for s in streams])
+    add_counts(path_counts.setdefault(V4D_LABEL, {}), counts)
+    want = v4d_expected(streams)
+    print(f"  path {V4D_LABEL!r}: {len(V4D_PROMPTS)} rows admitting {V4D_PROMPTS} tokens over "
+          f"pages of {V4D_PAGE_SIZES}, then {V4D_STEPS} decode steps (plain, and window "
+          f"{V4_WINDOW} / cap {V4_CAP:g}), over bf16, int8 and e4m3 pools and contiguous "
+          f"caches of {V4D_CACHE} from {V4D_CONTIG_LENGTHS}, {V4_HQ} / {V4_HKV} heads, D {d}: "
+          f"{wall * 1e3:.1f} ms (host clock), launches "
+          f"{ {name: c for name, c in counts.items() if c} }")
+    check_launched(counts, want, f"path {V4D_LABEL}")
+    for s, out in zip(streams, outs):
+        v4d_check(torch, ops, paged_cache, errs, s, out, f"{V4D_LABEL} {s.kind} "
+                  f"{s.ps if s.ps == 'contiguous' else f'pages of {s.ps}'} D {d}")
+    del outs
+    s = next(x for x in streams if x.kind == "bfloat16" and x.ps == "contiguous")
+    q, _, _, lens = s.steps[-1]
+    splits = ops["dispatch"].decode_num_splits(len(lens), V4_HKV, V4D_CACHE, d, V4_HQ)
+    acc, m, l = fd.decode_partials(q, s.k[0], s.v[0], lens + 1, d ** -0.5, splits)
+    got = fd.decode_combine(acc, m, l, torch.bfloat16)
+    held_rows(torch, errs, f"{V4D_LABEL} D2 alone on D1's partials ({splits} splits) D {d}",
+              "decode_combine", V4D_LABEL, got, fd.decode_combine_plain(acc, m, l, torch.float32),
+              fd.decode_combine(acc, m, l, torch.bfloat16))
+    del acc, m, l, got
+    torch.cuda.empty_cache()
+    for dd in (260, 320):
+        small = v4d_streams(torch, qz, gen, dd, V4D_SMALL_PROMPTS, V4D_SMALL_STEPS,
+                            [V4D_SMALL_CACHE - V4D_SMALL_STEPS, V4D_SMALL_CACHE // 2 + 3,
+                             V4D_SMALL_CACHE // 8 + 1, 1],
+                            max(V4D_SMALL_PROMPTS) + V4D_SMALL_STEPS, V4D_SMALL_CACHE, (16,))
+        before = {name: k.launches for name, k in kernels.items()}
+        for s in small:
+            v4d_check(torch, ops, paged_cache, errs, s, v4d_path(torch, ops, paged_cache, s),
+                      f"{s.kind} {s.ps if s.ps == 'contiguous' else f'pages of {s.ps}'} D {dd}",
+                      f"{V4D_LABEL} d{dd}", _build.row_pitch(dd))
+        ran = {name: k.launches - before[name] for name, k in kernels.items()}
+        check(all(ran[name] > 0 for name in want), f"every kernel of path {V4D_LABEL} "
+              f"launched at D {dd}: {ran}")
+        del small
+    torch.cuda.empty_cache()
+    return streams
+
+
+def v4d_rows(torch, ops, paged_cache, streams, path_counts, errs, reports):
+    """Phase 5n's numbers: the "v4" entries of the D1, D2, B5, B7, B8, B9,
+    append and QA rows at path "v4-decode"'s shapes, timed on the D 512
+    streams as the path left them (every row `V4D_STEPS` tokens past its
+    prompt, or past V4D_CONTIG_LENGTHS in a cache): a decode step of B 4
+    (D1 alone, its "with_combine_ms" D1 + D2; B5, B7 and B8 with D2; B5 /
+    B8 over pages of 16, "page64" over pages of 64, "window" with the window
+    of 128; B7 / B8 over int8, "e4m3" over e4m3), D2 alone on D1's
+    partials, one step's append (bf16 pages of 16) and QA (int8 pages of
+    16), B9's admission of the 4096-token prompt (int8 pages of 16, "e4m3";
+    "b6": B6's over bf16 pages of 16, the same shape).
+    ms / call_ms as elsewhere, the fp32 plain version's ms, library_ms one
+    SDPA call (`sdpa_entry`) over a contiguous, gathered or dequantized bf16
+    copy (NaN past the lengths zeroed; the copy not timed) with the group
+    expanded and the lengths (and window) as a mask, `index_copy_` for the
+    append, null for D2 and QA; bounds by bytes: q and the output once, each
+    visible K / V row once (one-byte rows with their f32 scales), the
+    tables' entries; B9's by operations (4 d a visible pair and q head);
+    the D 512 instantiation's runtime attributes, the path's launches and
+    errors."""
+    from flash_attention_cute_tpu_torch.utils.timing import cuda_time_ms
+
+    qz, pa, fd = ops["quantized"], ops["paged_attention"], ops["flash_decode"]
+    d1_report, b7_report, b5_report, b8_report, b9_report = reports
+    d, hq, hkv = V4_D, V4_HQ, V4_HKV
+    heads = f"Hq {hq}, Hkv {hkv}, D {d} (DeepSeek-V4-Flash's attention)"
+    launches = path_counts[V4D_LABEL]
+
+    def stream(kind, ps):
+        return next(s for s in streams if s.kind == kind and s.ps == ps)
+
+    def extra(name, label):
+        return {"launches": launches[name], "max_abs_err": errs[f"{name} {V4D_LABEL}"],
+                **({"max_row_err": errs[f"{name} row_err {V4D_LABEL}"]}
+                   if f"{name} row_err {V4D_LABEL}" in errs else {}),
+                "runtime_attributes": runtime_attributes(reports_of[name], label)}
+
+    reports_of = {"decode_partials": d1_report, "quant_decode": b7_report,
+                  "paged_decode": b5_report, "quant_paged_decode": b8_report,
+                  "quant_paged_extend": b9_report}
+
+    def decode_entry(s, kw=None, name=None):
+        """One decode step of stream s over every row's keys so far."""
+        kw = kw or {}
+        q, _, _, lens = s.steps[-1]
+        lens = lens + 1
+        lengths = lens.tolist()
+        window = kw.get("window")
+        live = sum(min(n, window) if window else n for n in lengths)
+        elem = 2 if s.kind == "bfloat16" else 1
+        kv_bytes = 2 * hkv * live * (d * elem + (0 if elem == 2 else 4))
+        cap_len = s.k.shape[3] if s.ps == "contiguous" and elem == 2 else (
+            s.k.values.shape[3] if s.ps == "contiguous" else s.table.shape[1] * s.ps)
+        tables = 0 if s.ps == "contiguous" else 4 * sum(-(-n // s.ps) for n in lengths)
+        nbytes = 2 * 2 * q.numel() + kv_bytes + tables + 4 * len(lengths)
+        if s.ps == "contiguous" and elem == 2:
+            splits = ops["dispatch"].decode_num_splits(len(lengths), hkv, cap_len, d, hq)
+            fn = lambda: fd.decode_partials(q, s.k[0], s.v[0], lens, d ** -0.5, splits, **kw)
+            plain = lambda: fd.decode_partials_plain(q.float(), s.k[0], s.v[0], lens, d ** -0.5,
+                                                     splits, **kw)
+        else:
+            fn = lambda: v4d_decode(torch, ops, s, q, lens, **kw)
+            plain = lambda: v4d_decode(torch, ops, s, q, lens, plain=True, **kw)
+        if s.ps == "contiguous":
+            kc, vc = ((s.k[0], s.v[0]) if elem == 2 else
+                      (qz.dequantize_kv(qz.QuantizedKV(x.values[0], x.scales[0]), torch.bfloat16)
+                       for x in (s.k, s.v)))
+        elif elem == 2:
+            kc, vc = (pa.gather_pages(x, s.table) for x in (s.k, s.v))
+        else:
+            kc, vc = (qz._gather_dequantized(x, s.table).to(torch.bfloat16) for x in (s.k, s.v))
+        kc, vc = kc.nan_to_num(), vc.nan_to_num()
+        pos = torch.arange(kc.shape[2], device="cuda")[None, :]
+        mask = pos < lens[:, None]
+        if window:
+            mask &= pos >= lens[:, None] - window
+        where = (f"page_size {s.ps}" if s.ps != "contiguous" else f"a contiguous cache of "
+                 f"{cap_len}")
+        e = {"shape": f"B {len(lengths)}, lengths {lengths}, {where}, {s.kind}"
+                      + "".join(f", {k} {v:g}" for k, v in kw.items()) + f", {heads}; "
+                      + ("ms D1 alone" if s.ps == "contiguous" and elem == 2 else
+                         "ms includes D2"),
+             **timed_v4(fn, plain, 50), **bound(4 * hq * live * d, nbytes, PEAK_BF16),
+             **sdpa_entry(torch, q, kc, vc, attn_mask=mask[:, None, None, :])}
+        if s.ps == "contiguous" and elem == 2:
+            e.update(library_of=LIBRARY_OF_D1, with_combine_ms=cuda_time_ms(
+                lambda: v4d_decode(torch, ops, s, q, lens, **kw), 50))
+        del kc, vc, mask
+        torch.cuda.empty_cache()
+        return e
+
+    out = {}
+    s = stream("bfloat16", "contiguous")
+    out["decode_partials"] = {**decode_entry(s), "window": decode_entry(
+        s, V4D_VARIANTS["contiguous"]), **extra("decode_partials", "D1 bf16 D512")}
+    q, _, _, lens = s.steps[-1]
+    splits = ops["dispatch"].decode_num_splits(len(lens), hkv, V4D_CACHE, d, hq)
+    acc, m, l = fd.decode_partials(q, s.k[0], s.v[0], lens + 1, d ** -0.5, splits)
+    part_bytes = 4 * (acc.numel() + 2 * m.numel())
+    out["decode_combine"] = {
+        "shape": f"D1's partials of the step above: B 4, {splits} splits, {heads}",
+        **timed_v4(lambda: fd.decode_combine(acc, m, l, torch.bfloat16),
+                   lambda: fd.decode_combine_plain(acc, m, l, torch.bfloat16), 50),
+        **bound(4 * acc.numel(), part_bytes + 2 * q.numel(), PEAK_F32), "library_ms": None,
+        "library": "null: no PyTorch call merges split partials",
+        "launches": launches["decode_combine"],
+        "max_abs_err": errs[f"decode_combine {V4D_LABEL}"]}
+    del acc, m, l
+    out["quant_decode"] = {**decode_entry(stream("int8", "contiguous")),
+                           "e4m3": decode_entry(stream("float8_e4m3fn", "contiguous")),
+                           **extra("quant_decode", "B7 bf16 int8 D512")}
+    s16, s64 = stream("bfloat16", 16), stream("bfloat16", 64)
+    out["paged_decode"] = {**decode_entry(s16), "page64": decode_entry(s64),
+                           "window": decode_entry(s16, V4D_VARIANTS[16]),
+                           **extra("paged_decode", "B5 bf16 D512")}
+    out["quant_paged_decode"] = {**decode_entry(stream("int8", 16)),
+                                 "page64": decode_entry(stream("int8", 64)),
+                                 "e4m3": decode_entry(stream("float8_e4m3fn", 16)),
+                                 **extra("quant_paged_decode", "B8 bf16 int8 D512")}
+
+    # One step's writes at the path's end (rows past their last step: the
+    # pools' room is V4D_STEPS keys past the longest prompt + 32).
+    q, nk, nv, lens = s16.steps[-1]
+    b = len(V4D_PROMPTS)
+    flat = pa.append_targets(s16.table, lens, 1, 16)[0].view(-1)
+    kflat, vflat = (flat_pool(x) for x in (s16.k, s16.v))
+    krows, vrows = (x.permute(1, 0, 2, 3).reshape(hkv, b, d) for x in (nk, nv))
+    k0, v0 = s16.k.clone(), s16.v.clone()
+
+    def library_append():
+        kflat.index_copy_(1, flat, krows)
+        vflat.index_copy_(1, flat, vrows)
+
+    out["paged_append"] = {
+        "shape": f"B {b}, S 1, page_size 16, bf16, {heads}; library_ms is index_copy_ on K and "
+                 "on V",
+        **timed_v4(lambda: paged_cache.paged_append_layer(s16.k, s16.v, nk, nv, s16.table, lens),
+                   lambda: paged_cache.paged_append_layer_plain(k0, v0, nk, nv, s16.table, lens),
+                   50),
+        "library_ms": cuda_time_ms(library_append, 50),
+        **bound(0, 2 * 2 * 2 * nk.numel() + 4 * 2 * b, PEAK_F32),
+        "launches": launches["paged_append"], "max_abs_err": errs[f"paged_append {V4D_LABEL}"]}
+    del k0, v0
+    s8 = stream("int8", 16)
+    q, nk, nv, lens = s8.steps[-1]
+    c8 = [qz.QuantizedKV(x.values.clone(), x.scales.clone()) for x in (s8.k, s8.v)]
+    out["quant_append"] = {
+        "shape": f"B {b}, S 1, page_size 16, int8, {heads}; library_ms: null (no single call "
+                 "quantizes)",
+        **timed_v4(lambda: qz.quantize_append(nk, nv, s8.k, s8.v, lens, s8.table),
+                   lambda: qz.quantize_append_plain(nk, nv, *c8, lens, s8.table), 50),
+        "library_ms": None,
+        **bound(0, 2 * 2 * nk.numel() + 2 * (nk.numel() + 4 * b * hkv) + 4 * 2 * b, PEAK_F32),
+        "launches": launches["quant_append"], "max_abs_err": errs[f"quant_append {V4D_LABEL}"]}
+    del c8
+
+    def admission_entry(s):
+        """B9's (B6's over bf16 pages) admission of row 0's prompt (B 1,
+        causal from 0)."""
+        n = s.prompts[0]
+        q = s.admit[0][0]
+        quant = s.kind != "bfloat16"
+        kd, vd = ((qz._gather_dequantized(x, s.table[:1]).to(torch.bfloat16) if quant
+                   else pa.gather_pages(x, s.table[:1]))[:, :, :n] for x in (s.k, s.v))
+        pairs = n * (n + 1) // 2
+        e = {"shape": f"B 1, S {n}, q_offset 0, page_size {s.ps}, {s.kind}, {heads}",
+             **timed_v4(lambda: v4d_extend(torch, ops, s, 0),
+                        lambda: v4d_extend(torch, ops, s, 0, plain=True), 10),
+             **bound(4 * d * hq * pairs, 2 * 2 * q.numel()
+                     + 2 * hkv * (d + 4 if quant else 2 * d) * n + 4 * (2 + -(-n // s.ps)),
+                     PEAK_BF16),
+             **sdpa_entry(torch, q, kd, vd, is_causal=True)}
+        del kd, vd
+        torch.cuda.empty_cache()
+        return e
+
+    # "b6": B6 on the same admission over bf16 pages: B9's widening (and its
+    # 56 / 224 register split) is the difference.
+    out["quant_paged_extend"] = {**admission_entry(s8),
+                                 "e4m3": admission_entry(stream("float8_e4m3fn", 16)),
+                                 "b6": admission_entry(s16),
+                                 **extra("quant_paged_extend", "B9 bf16 int8 D512")}
     return out
 
 
@@ -6990,7 +7564,7 @@ def main() -> int:
     print("  B10 / B11, P / B2, B4, D1, B7, B5, B6, B8, B9, B12 and B13a / B13b instantiations "
           "(the runtime's "
           "attributes, launch shared memory; the consumers of P / B2, B4, B6, B12 and B13a / "
-          "B13b raise theirs to 240 by setmaxnreg, B9's to 232):")
+          "B13b raise theirs to 240 by setmaxnreg, B9's to 232, at D 512 to 224):")
     fwd_report, bwd_report = flash_fwd.kernel_report(), flash_bwd.kernel_report()
     b6_report, b9_report = paged_attention.kernel_report(), quantized.extend_kernel_report()
     b4_report, b12_report = flash_chunked.kernel_report(), flash_varlen.kernel_report()
@@ -7070,8 +7644,8 @@ def main() -> int:
     print("[3k] head dims outside 64 / 128 / 256 over int8 / e4m3 caches and in the extend: "
           "B7 + D2, B8 + D2, B9, QA and B4 at D 96, 80, 32, 160 (f16) and 192 vs plain, D 96 "
           "also windowed and capped; D 40 over one-byte rows and D 100 in B4, refused before "
-          "the pitched rows, launched; D 264 and D 0 refused (B4 and its partials: D 264 "
-          "launched, D 520 and D 0 refused)")
+          "the pitched rows, launched; B7, B8, B9, QA, B4 and its partials launched at D 264, "
+          "D 520 and D 0 refused")
     t0 = time.perf_counter()
     phase_odd_head_dims_quantized(torch, ops, errs)
     torch.cuda.synchronize()
@@ -7104,8 +7678,9 @@ def main() -> int:
     print("[3o] every head dim from 1 to 256, rows at the port's pitch: K8 and P-i8 / B2-i8 at "
           "D 4, 40, 96 and 100; P / B2, D1 + D2, B5, B6, the append and B4 at D 4, 36 and 100 "
           "(32 / 8 heads; D 100 also windowed and capped); B7, B8, B9, QA and B4 at D 24, 40 "
-          "and 72 over int8 / e4m3; B13a / B13b and B12 at D 36 and 100; D 264 and D 0 "
-          f"refused (P / B2 and B6: D 520 and D 0, B6 launched at D 264); then the API's int8 scores at Phi-3-mini's widths (path "
+          "and 72 over int8 / e4m3; B13a / B13b and B12 at D 36 and 100; P-i8 (K8): D 264 and "
+          "D 0 refused; P / B2, B6, D1, B5 and the append: D 520 and D 0 refused, B6, D1, B5 "
+          f"and the append launched at D 264; then the API's int8 scores at Phi-3-mini's widths (path "
           f"{PHI3_INT8_LABEL!r})")
     t0 = time.perf_counter()
     phase_pitched_head_dims(torch, ops, paged_cache, errs, rel_errs)
@@ -7419,6 +7994,21 @@ def main() -> int:
         if r["name"] in v4x:
             r["v4"] = v4x[r["name"]]
     print(f"  phase 5m: {time.perf_counter() - t0:.1f} s")
+    print(f"[5n] head dims from 257 to 512 in the decodes D1, B5, B7 and B8 with D2, the append "
+          f"and QA, and in B9, at DeepSeek-V4-Flash's attention widths ({V4_HQ} / {V4_HKV} "
+          f"heads, D {V4_D}, bf16 q over bf16, int8 and e4m3 values): admission and "
+          f"{V4D_STEPS} decode steps on path {V4D_LABEL!r} vs plain, d 260 and 320 at a small "
+          f"size, then the \"v4\" entries of the D1, D2, B5, B7, B8, B9, append and QA rows")
+    t0 = time.perf_counter()
+    streams = phase_v4_decode(torch, ops, paged_cache, kernels, path_counts, errs)
+    v4d = v4d_rows(torch, ops, paged_cache, streams, path_counts, errs,
+                   (d1_report, b7_report, b5_report, b8_report, b9_report))
+    del streams
+    torch.cuda.empty_cache()
+    for r in rows:
+        if r["name"] in v4d:
+            r["v4"] = v4d[r["name"]]
+    print(f"  phase 5n: {time.perf_counter() - t0:.1f} s")
     # Peak over the whole script: serving reset the counter before each run.
     numbers["max_memory_allocated_gb"] = max(
         [numbers["max_memory_allocated_gb"], serving.pop("peak_before_serving_gb")]

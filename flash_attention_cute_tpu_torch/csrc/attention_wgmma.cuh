@@ -43,8 +43,8 @@
 //   * D 64 / 128: tiles of 128 keys, S 64 fp32 registers a thread, O 32 /
 //     64, P 32; D 256: tiles of 64 keys, S 32, O 128 (two products of N 128
 //     per k-step of P V), P 16.
-//   * The wide layout, D 512 (P / B2, B4 with its partials, B6 and B12: d
-//     from 257 to 512): O of 512 columns would take 256 registers a thread
+//   * The wide layout, D 512 (P / B2, B4 with its partials, B6, B9 and
+//     B12: d from 257 to 512): O of 512 columns would take 256 registers a thread
 //     and a 64-key K or V tile 64 KB, so a block computes one chunk of 256
 //     of O's columns (grid y; Tiles::kDO), recomputing S over the whole
 //     depth in each chunk (6 d operations a visible pair where one pass
@@ -522,7 +522,7 @@ __device__ __forceinline__ void mask_tile(const Segments<kMetaOff, kKStages>& v,
 // before the cap, P by the V scale of its key after its row sum and before its
 // rounding to T.
 // Vis: which keys a row sees, `Visible` or a mode above (B4, B12).
-// The wide layout (D > 256; bf16 / f16 scores, no B9 scales, no two-part
+// The wide layout (D > 256; bf16 / f16 scores, B9's scales, no two-part
 // P): the block's O chunk (Tiles::kDO columns) lies at `o` (B4's partials:
 // at `part.o`), which the kernel points at the chunk's first column, and
 // `cols` of its columns are stored (the row pitch d past that column, at
@@ -548,7 +548,7 @@ __device__ __forceinline__ void consume(
   constexpr bool kScaled = kScaleOff > 0 && !kI8;
   constexpr bool kDense = std::is_same_v<Vis, Visible>, kKeyMeta = KeyMeta<Vis>::value;
   constexpr bool kSplit = SplitP<Vis>::value, kPartials = Partials<Vis>::value;
-  static_assert(kDO == D || !(kScaleOff > 0 || kI8 || kSplit),
+  static_assert(kDO == D || !(kI8 || kSplit),
                 "the wide layout takes bf16 / f16 scores and P in one part");
   const int ct = threadIdx.x - 128, wg = ct >> 7, wi = (ct >> 5) & 3, lane = ct & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -609,9 +609,21 @@ __device__ __forceinline__ void consume(
     }
   };
   // S of tile it (the s8 product with kI8).
+  // B9 in the wide layout: its consumers' 224 registers hold O, S and the
+  // scales' products but not also the q descriptors of S's 32 k-steps,
+  // which the compiler would keep across the walk (they spilled): an opaque
+  // copy of q's address a tile makes them recomputed, a few integer
+  // operations a k-step.
   auto s_products = [&](float (&s)[kN / 2], uint32_t (&si)[kI8 ? kN / 2 : 1], int it) {
-    if constexpr (kI8) qk_products_i8<D, kN>(si, qa8, ring.sK(it));
-    else qk_products<T, D, kN>(s, qa, ring.sK(it));
+    if constexpr (kI8) {
+      qk_products_i8<D, kN>(si, qa8, ring.sK(it));
+    } else if constexpr (kScaled && kDO != D) {
+      uint32_t q = qa;
+      asm volatile("" : "+r"(q));
+      qk_products<T, D, kN>(s, q, ring.sK(it));
+    } else {
+      qk_products<T, D, kN>(s, qa, ring.sK(it));
+    }
   };
   // S of tile it times its keys' scales (B9), before the slot goes back.
   auto scale_keys = [&](float (&s)[kN / 2], int it) {

@@ -3,8 +3,8 @@
 //
 // D1 replaces the TPU kernel flash_attention_cute_tpu/ops/flash_decode.py
 // `_flash_decode_kernel` (pallas_call at :311), sliding window (keys
-// n >= length - W), tanh soft cap, every head dim from 1 to 256 (run in
-// the layout of 64, 128 or 256: paged_decode.cuh) and
+// n >= length - W), tanh soft cap, every head dim from 1 to 512 (run in
+// the layout of 64, 128, 256 or 512: paged_decode.cuh) and
 // every GQA group (above 32 in chunks of at most 32 rows, a block each:
 // paged_decode.cuh); D2 replaces the XLA combine at flash_decode.py:345-358
 // and also merges the splits of B5, B7 and B8, whose partials have the

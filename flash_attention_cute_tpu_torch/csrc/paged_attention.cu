@@ -9,9 +9,9 @@
 //     D] is the same. With a sliding window W the splits cut the visible
 //     range [max(0, length - W), length). B5 and B6 take the tanh soft cap
 //     (`softcap_log2`, c * log2(e), 0 for none) and every head dim from 1
-//     to 256, each run in the layout of 64, 128 or 256 (padded_head_dim;
-//     zeros past d), B6 also every d from 257 to 512 in the wide layout of
-//     512 (paged_extend.cuh); the append takes rows of any byte count, each at a
+//     to 512, each run in the layout of 64, 128, 256 or 512
+//     (padded_head_dim(d, true); zeros past d; the wide layouts of
+//     paged_decode.cuh and paged_extend.cuh); the append takes rows of any byte count, each at a
 //     16-byte stride, and writes no byte past it (a pool's pitch columns
 //     stay zero).
 //   * B6, paged extend: replaces `_paged_extend_kernel` (:391, pallas_call at

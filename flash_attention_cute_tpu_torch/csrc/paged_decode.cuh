@@ -25,8 +25,8 @@
 // a group of at most 32 is one chunk, the block of the whole group. The TPU
 // kernels pad the group to a multiple of 8 instead (flash_decode.py:209-212,
 // paged_attention.py:301, quantized.py:248). Every head dim d from 1 to
-// 256 runs in the layout D of padded_head_dim(d), the cache's rows at any
-// 16-byte stride (row_pitch(d, sizeof(KV)) in the port's caches). The maps
+// 512 runs in the layout D of padded_head_dim(d, true), the cache's rows at
+// any 16-byte stride (row_pitch(d, sizeof(KV)) in the port's caches). The maps
 // hold d columns, so TMA reads zeros past them into the tiles (int8 0 and
 // e4m3 +0 widen to exact zeros), q is zero past d in shared memory (its
 // last 16-byte chunk masked: q's rows lie at a 16-byte stride), and only
@@ -58,7 +58,7 @@
 // reads mostly from L2. The design keeps the bytes moving:
 //
 //   * The walk is cut into tiles of kN keys aligned to multiples of kN
-//     (64 at D 64, else 32). Paged: the tiles that hold a visible key are
+//     (64 at D 64, 16 at D 512, else 32). Paged: the tiles that hold a visible key are
 //     shared out evenly among the splits, so only a walk's first and last
 //     tiles hold keys outside [lo, len). Contiguous: split s takes the keys
 //     [s chunk, (s + 1) chunk) of [lo, len), chunk = ceil(C / S) (the
@@ -80,7 +80,8 @@
 //     [B, Hkv, C] start at any 4-byte boundary (any capacity), which a bulk
 //     copy's 16-byte rule would refuse. A ring of kStages tiles (a multiple
 //     of the consumers' slots, so a slot always refills the same stages)
-//     keeps 64-195 KB in flight a block, one or two blocks an SM.
+//     keeps 64-195 KB in flight a block, one or two blocks an SM (D 512:
+//     128 KB, one).
 //   * Four consumer warps take the tiles in turn, each with its own online
 //     softmax, on tensor cores (mma.sync m16n8k16): S = Q K^T with the
 //     chunk's rows as M (padded to 16; chunks above 16 rows give each warp
@@ -96,6 +97,19 @@
 //     registers (D / 2 a thread) until the warps of an m-tile merge it
 //     through the idle ring in a fixed order: a second call writes the same
 //     bits.
+//   * The wide layout, D 512 (d 257-512): O of 512 columns would take 256
+//     registers a thread, so O's columns are split across the warps of an
+//     m-tile (kOwners 2 warps, kDO 256 columns each, O 128 registers) and
+//     every warp of a slot reads the slot's tiles: a group of 17-32 rows
+//     takes all four warps on every tile (two m-tiles x two column
+//     owners), one of at most 16 two slots of two owners. Each owner
+//     computes the tile's S over the whole d itself (the same instructions
+//     on the same inputs: the owners' m and l agree bit for bit, and only
+//     the first owner's enter the merge), so S costs twice its single
+//     pass; each K / V row still arrives once a block. A stage's empty
+//     barrier counts its readers, kOwners x m-tiles. 16-key tiles (a bf16
+//     stage 32 KB) keep 4 bf16 / 8 one-byte stages (128 KB) beside q's 33
+//     KB; the merge stages O in the ring as below.
 //   * Masks run only on a walk's edge tiles: scores of keys outside
 //     [lo, len) become -inf by a select, their V rows (and B7 / B8's V
 //     scales) are zeroed in registers, so stale or NaN bytes of a tile's
@@ -140,14 +154,23 @@ struct DecodeTiles {
   static constexpr int kSegBytes = kRowBytes < 128 ? kRowBytes : 128;  // a box's row
   static constexpr int kSegs = kRowBytes / kSegBytes;
   static constexpr int kSegD = kSegBytes / static_cast<int>(sizeof(KV));  // values of a box row
-  // Keys of a tile: 64 at D 64, else 32 (B8's int8 rows of 128 bytes in
-  // tiles of 64 spilled at the 168 registers of two blocks an SM).
-  static constexpr int kN = D == 64 ? 64 : 32;
+  // The wide layout (D 512): each warp of an m-tile owns kDO of O's
+  // columns (kOwners warps an m-tile), so O takes kDO / 2 registers a thread.
+  static constexpr bool kWide = D > 256;
+  static constexpr int kDO = kWide ? 256 : D;
+  static constexpr int kOwners = D / kDO;
+  // Keys of a tile: 64 at D 64, 16 at D 512, else 32 (B8's int8 rows of
+  // 128 bytes in tiles of 64 spilled at the 168 registers of two blocks an
+  // SM; at D 512 a bf16 stage of 32 keys would take 64 KB).
+  static constexpr int kN = D == 64 ? 64 : kWide ? 16 : 32;
   static constexpr int kBox = kN * kSegBytes;
   static constexpr int kTile = kSegs * kBox;  // a K or a V tile
-  static constexpr int kMinBlocks = D == 256 ? 1 : 2;  // O takes D / 2 registers a thread
+  static constexpr int kMinBlocks = D >= 256 ? 1 : 2;  // O takes kDO / 2 registers a thread
   static constexpr int kStageBytes = 2 * kTile + (kQuant ? 8 * kN : 0);
-  static constexpr int kFit = (kMinBlocks == 1 ? 200 * 1024 : 96 * 1024) / kStageBytes;
+  // D 512: a ring of 128 KB (4 bf16 / 8 one-byte stages), which the merge
+  // fills, beside q's 33 KB.
+  static constexpr int kFit =
+      (kWide ? 136 * 1024 : kMinBlocks == 1 ? 200 * 1024 : 96 * 1024) / kStageBytes;
   static constexpr int kStages = (kFit < 16 ? kFit : 16) / kDecodeConsumers * kDecodeConsumers;
   static constexpr int kScaleOff = kStages * 2 * kTile;
   static constexpr int kQOff = kScaleOff + (kQuant ? kStages * 8 * kN : 0);
@@ -265,7 +288,8 @@ __device__ __forceinline__ void decode_body(const CUtensorMap& kmap, const CUten
   auto full = [&](int s) { return base + L::kBarOff + 8 * s; };
   auto empty = [&](int s) { return base + L::kBarOff + 8 * (kStages + s); };
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) mbar_init(full(s), 1), mbar_init(empty(s), mts);
+    // A stage is read by the warps of one slot: kOwners an m-tile.
+    for (int s = 0; s < kStages; ++s) mbar_init(full(s), 1), mbar_init(empty(s), L::kOwners * mts);
     mbar_fence_init();
     chunk_stat0 = stat0, chunk_rows = R;
   }
@@ -341,8 +365,12 @@ __device__ __forceinline__ void decode_body(const CUtensorMap& kmap, const CUten
     }
   }
 
-  // Consumers: warp w takes m-tile w % mts and tiles w / mts, + slots, ...
-  const int w = warp - 1, mt = w % mts, slots = kDecodeConsumers / mts;
+  // Consumers: warp w takes m-tile w % mts, its columns' part (w / mts) %
+  // kOwners (the wide layout) and tiles of its slot w / (kOwners mts), +
+  // slots, ...
+  constexpr int kOwners = L::kOwners, kDO = L::kDO;
+  const int w = warp - 1, mt = w % mts, slots = kDecodeConsumers / (kOwners * mts);
+  const int part_x = L::kWide ? w / mts % kOwners * (kDO / 8) : 0;  // its first n-tile of O
   const int r = lane >> 2, c = lane & 3;
   const uint32_t sQ = base + L::kQOff;
   for (int i = threadIdx.x - 32; i < 16 * mts * (D / 8); i += 32 * kDecodeConsumers) {
@@ -366,14 +394,14 @@ __device__ __forceinline__ void decode_body(const CUtensorMap& kmap, const CUten
   const float scale = kCap ? p.sc.cap_exp : p.sc.scale_log2;
   const Scores sco = p.sc;
   const uint32_t q_lo = sQ + (16 * mt + r) * L::kQPitch, q_hi = q_lo + 8 * L::kQPitch;
-  float o[D / 8][4];  // O of rows r, r + 8: n-tile x (B8: see phys_d below)
+  float o[kDO / 8][4];  // O of rows r, r + 8: n-tile x (B8: see phys_d below)
 #pragma unroll
-  for (int x = 0; x < D / 8; ++x)
+  for (int x = 0; x < kDO / 8; ++x)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[x][e] = 0.f;
   float row_max[2] = {-INFINITY, -INFINITY}, row_sum[2] = {0.f, 0.f};
 
-  for (int it = w / mts; it < total; it += slots) {
+  for (int it = w / (kOwners * mts); it < total; it += slots) {
     const int s = it % kStages, n0 = (t0 + it) * kN;
     const bool edge = n0 < lo || n0 + kN > len;
     auto live = [&](int key) { return key >= lo && key < len; };
@@ -467,7 +495,7 @@ __device__ __forceinline__ void decode_body(const CUtensorMap& kmap, const CUten
 #pragma unroll
     for (int h = 0; h < 2; ++h) row_sum[h] = row_sum[h] * alpha[h] + tile_sum[h];
 #pragma unroll
-    for (int x = 0; x < D / 8; ++x)
+    for (int x = 0; x < kDO / 8; ++x)
       o[x][0] *= alpha[0], o[x][1] *= alpha[0], o[x][2] *= alpha[1], o[x][3] *= alpha[1];
     if constexpr (kQuant) {  // V's scale folds into P (dead keys' scales may be NaN)
 #pragma unroll
@@ -511,8 +539,8 @@ __device__ __forceinline__ void decode_body(const CUtensorMap& kmap, const CUten
       const int sw = L::kSegBytes == 128 ? key & 7 : (key >> 1) & 3;
       constexpr int kChunks = L::kSegBytes / 16, kStep = kQuant ? 4 : 2;  // n-tiles a load
 #pragma unroll
-      for (int x = 0; x < D / 8; x += kStep) {
-        const int chunk = x / (kStep / 2) + (lane >> 4);  // of the row's 16-byte chunks
+      for (int x = 0; x < kDO / 8; x += kStep) {
+        const int chunk = (part_x + x) / (kStep / 2) + (lane >> 4);  // of the row's 16-byte chunks
         uint32_t v[4];
         ldmatrix_x4_trans(v, sV(s) + chunk / kChunks * L::kBox + key * L::kSegBytes +
                                  (((chunk % kChunks) ^ sw) << 4));
@@ -558,8 +586,11 @@ __device__ __forceinline__ void decode_body(const CUtensorMap& kmap, const CUten
     }
   }
   named_sync(1, 32 * kDecodeConsumers);  // every walk is done: the ring is free
-  // Value d of column j of n-tile x: B5 8 x + j, B8 16 (x / 2) + 2 j + x % 2.
-  auto phys_d = [](int x, int j) { return L::kQuant ? 16 * (x >> 1) + 2 * j + (x & 1) : 8 * x + j; };
+  // Value d of column j of n-tile x: B5 8 x + j, B8 16 (x / 2) + 2 j + x % 2;
+  // the wide layout's part of the columns starts at 8 part_x.
+  auto phys_d = [&](int x, int j) {
+    return 8 * part_x + (L::kQuant ? 16 * (x >> 1) + 2 * j + (x & 1) : 8 * x + j);
+  };
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float top = -INFINITY;
@@ -568,7 +599,7 @@ __device__ __forceinline__ void decode_body(const CUtensorMap& kmap, const CUten
     const float f = row_max[h] == -INFINITY ? 0.f : ex2(row_max[h] - top);
     const uint32_t row = base + (w * 16 + r + 8 * h) * D * 4;
 #pragma unroll
-    for (int x = 0; x < D / 8; ++x) {
+    for (int x = 0; x < kDO / 8; ++x) {
       sts_f32(row + phys_d(x, 2 * c) * 4, o[x][2 * h] * f);
       sts_f32(row + phys_d(x, 2 * c + 1) * 4, o[x][2 * h + 1] * f);
     }
@@ -580,16 +611,17 @@ __device__ __forceinline__ void decode_body(const CUtensorMap& kmap, const CUten
   for (int i = tid; i < rows * D; i += 32 * kDecodeConsumers) {
     const int g = i / D, e = i % D;
     if (e >= d) continue;  // the layout's columns past d
-    float sum = 0.f;
-    for (int v = g / 16; v < kDecodeConsumers; v += mts)
+    float sum = 0.f;  // over the slots of the warps that own column e
+    for (int v = g / 16 + (L::kWide ? e / kDO * mts : 0); v < kDecodeConsumers; v += kOwners * mts)
       sum += lds_f32(base + ((v * 16 + g % 16) * D + e) * 4);
     out[g * d + e] = sum;
   }
   if (tid < rows) {
     float top = -INFINITY, sum = 0.f;
-    for (int v = tid / 16; v < kDecodeConsumers; v += mts)
+    // The owners of an m-tile's columns hold the same m and l: the first's.
+    for (int v = tid / 16; v < kDecodeConsumers; v += kOwners * mts)
       top = fmaxf(top, lds_f32(stat_m + (v * 16 + tid % 16) * 4));
-    for (int v = tid / 16; v < kDecodeConsumers; v += mts) {
+    for (int v = tid / 16; v < kDecodeConsumers; v += kOwners * mts) {
       const float mv = lds_f32(stat_m + (v * 16 + tid % 16) * 4);
       sum += mv == -INFINITY ? 0.f : lds_f32(stat_l + (v * 16 + tid % 16) * 4) * ex2(mv - top);
     }
@@ -668,19 +700,21 @@ int launch_paged_decode_cap(const PagedDecodeParams& p, const PagedViews& w, int
 // kContig: `p` and `w` describe one layer's contiguous cache [B, Hkv, C, d]
 // as a pool of B pages of C keys (pps 1, page_size C, num_pages B, the page
 // strides those of b), its scales' page strides those of b too. Each runs
-// p.d in the layout of padded_head_dim for its element size.
+// p.d in the layout of padded_head_dim(d, true): a d from 257 to 512 in the
+// wide layout of 512.
 template <typename T, typename KV, bool kContig = false>
 int dispatch_paged_decode(const PagedDecodeParams& p, const PagedViews& w, int batch, int d,
                           cudaStream_t s) {
-  const int layout = padded_head_dim(d);
+  const int layout = padded_head_dim(d, true);
   if (layout == 64) return launch_paged_decode_cap<T, KV, 64, kContig>(p, w, batch, s);
   if (layout == 128) return launch_paged_decode_cap<T, KV, 128, kContig>(p, w, batch, s);
   if (layout == 256) return launch_paged_decode_cap<T, KV, 256, kContig>(p, w, batch, s);
+  if (layout == 512) return launch_paged_decode_cap<T, KV, 512, kContig>(p, w, batch, s);
   return cudaErrorInvalidValue;
 }
 
-// The report lines of the six instantiations (D x cap) of one T, KV and way
-// of finding keys.
+// The report lines of the eight instantiations (D x cap) of one T, KV and
+// way of finding keys.
 template <typename T, typename KV, bool kContig = false>
 static void report_paged_decode(char* out, int cap, int& used, const char* what) {
   char name[96];
@@ -694,6 +728,8 @@ static void report_paged_decode(char* out, int cap, int& used, const char* what)
   DECODE_REPORT(128, true);
   DECODE_REPORT(256, false);
   DECODE_REPORT(256, true);
+  DECODE_REPORT(512, false);
+  DECODE_REPORT(512, true);
 #undef DECODE_REPORT
 }
 

@@ -18,12 +18,12 @@
 // key's K scale in fp32 before the cap, P by each key's V scale before it is
 // rounded to q's type (the TPU kernel's `(p * vscale).astype(...)`); no
 // scale is folded into a rounded K / V value. Every head dim d runs in the
-// layout D of padded_head_dim(d), from 1 to 256, its pool rows at any
-// 16-byte stride (row_pitch(d, sizeof(KV)) in the port's pools), and B6
-// also every d from 257 to 512 in P's wide layout of 512
-// (padded_head_dim(d, true); attention_wgmma.cuh: two blocks along grid y,
-// each O's columns [256 y, 256 y + 256), S recomputed in each, a V copy
-// holding the chunk's columns; 32-key tiles). As in P,
+// layout D of padded_head_dim(d, true), from 1 to 256, its pool rows at
+// any 16-byte stride (row_pitch(d, sizeof(KV)) in the port's pools), and
+// every d from 257 to 512 in P's wide layout of 512 (attention_wgmma.cuh:
+// two blocks along grid y, each O's columns [256 y, 256 y + 256), S
+// recomputed in each, a V copy holding the chunk's columns; 32-key tiles;
+// B9 widens the chunk's columns of V only). As in P,
 // the maps hold d columns, TMA reads zeros past them (B9's raw boxes too,
 // which the widening turns into exact zeros), and O is stored at the row
 // pitch row_pitch(d), its columns past d zeros (the TPU kernels pad D to
@@ -52,17 +52,20 @@
 //     past kv_length (copied or not; the chunk's columns in the wide
 //     layout) and hands the tile on.
 //   * B9: the raw values land by TMA in the upper half of their slot (at D
-//     64 in a raw slot beside it), the scales by bulk copies beside the
+//     64 in a raw slot beside it; at D 512 a V slot's upper half holds the
+//     chunk's 256 raw columns, 8 KB), the scales by bulk copies beside the
 //     slots. Warps 1-3 of the producer widen each tile in place into the
 //     swizzled bf16 / f16 layout wgmma reads (every row: zeros at and past
 //     kv_length, its scales too), then hand it on. The producer warpgroup
-//     keeps 40 registers for it, the consumers 232 (B6: 24 and 240;
-//     setmaxnreg moves registers only within the block, 3 x 168 a thread).
+//     keeps 40 registers for it, the consumers 232 (at D 512 56 and 224;
+//     B6: 24 and 240; setmaxnreg moves registers only within the block, 3
+//     x 168 a thread).
 //   * Shared memory (K slots / V slots of kN keys): B6 as P (D 64 / 128 /
 //     256 / 512: 4 / 4, 4 / 2, 3 / 2, 2 / 2; at D 512 Q 128 KB, K slots of
 //     32 KB, V slots of the chunk's 16 KB: 230,480 bytes with the
-//     barriers); B9 4 / 4, 3 / 2, 3 / 2 and the scales, up to 231,808 bytes
-//     at D 256; one block an SM.
+//     barriers); B9 4 / 4, 3 / 2, 3 / 2, 2 / 2 and the scales, up to
+//     231,808 bytes at D 256 and 231,016 at D 512 (512 bytes of scales,
+//     four landing barriers); one block an SM.
 #pragma once
 
 #include "attention_wgmma.cuh"
@@ -91,7 +94,7 @@ struct PagedParams {
 template <int D, bool kQuant>
 struct PagedSmem {
   using Tl = Tiles<D>;
-  static constexpr int kKStages = kQuant ? (D == 64 ? 4 : 3) : (D > 256 ? 2 : D == 256 ? 3 : 4);
+  static constexpr int kKStages = D > 256 ? 2 : kQuant ? (D == 64 ? 4 : 3) : D == 256 ? 3 : 4;
   static constexpr int kVStages = D == 64 ? 4 : 2;
   static constexpr int kRaw = kQuant && D == 64 ? Tl::kN * 64 : 0;
   static constexpr int kRawOff = Tl::kQ + kKStages * Tl::kKV + kVStages * Tl::kV;
@@ -147,17 +150,19 @@ __device__ __forceinline__ uint2 widen4(uint32_t w) {
 
 // B9: widen tile it of a ring in place (warps 1-3 of the producer, `wt` in
 // 0..95), once its raw values and scales have landed on `landed`: row r of
-// the raw tile (min(D, 128) bytes a row, a second box of them at D 256)
-// becomes row r of the slot's D / 64 swizzled boxes of T, zeros at and past
-// `live`, where its scale is zeroed too. At D 128 / 256 the raw rows lie in
-// the slot's upper half, each under the wide row of its own index: a warp
-// reads whole rows, a batch of steps at a time, before it writes them.
-// Then hands the tile on (`full`).
-template <typename T, typename KV, int D>
+// the raw tile (kCols values: D, or a V slot's chunk of the wide layout;
+// min(kCols, 128) bytes a row, kCols / 128 boxes of them above 128)
+// becomes row r of the slot's kCols / 64 swizzled boxes of T, zeros at and
+// past `live`, where its scale is zeroed too. Above 64 columns the raw rows
+// lie in the slot's upper half, each under the wide row of its own index:
+// a warp (at 512 columns), half-warp (256) or quarter (128) reads whole
+// rows, a batch of steps at a time, before it writes them. Then hands the
+// tile on (`full`).
+template <typename T, typename KV, int D, int kCols = D>
 __device__ __forceinline__ void widen_tile(uint32_t slot, uint32_t raw, uint32_t scales, int live,
                                            int wt, uint32_t landed, int parity, uint32_t full) {
   constexpr int kN = Tiles<D>::kN, kBox = Tiles<D>::kKVBox;
-  constexpr int kPitch = D < 128 ? D : 128, kRowSteps = D / 16;  // 16 raw values a step
+  constexpr int kPitch = kCols < 128 ? kCols : 128, kRowSteps = kCols / 16;  // 16 raw values a step
   constexpr int kRows = 96 / kRowSteps;  // rows the 96 threads step over at once
   // Steps loaded before any is written: two, where the producer's 40
   // registers hold them (int8 to bf16 takes more temporaries: one).
@@ -213,8 +218,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   using Tl = Tiles<D>;
   constexpr int kN = Tl::kN, kKStages = S::kKStages, kVStages = S::kVStages;
   // setmaxnreg moves registers only within the block (3 x 168 a thread of
-  // each warpgroup): B6's producer keeps 24, B9's 40 for the widening.
-  constexpr int kProducerRegs = kQuant ? 40 : 24;
+  // each warpgroup): B6's producer keeps 24, B9's 40 for the widening (56
+  // at D 512, whose two widenings of 512 and 256 columns spilled at 40; its
+  // consumers take 224, recomputing q's descriptors a tile: consume).
+  constexpr int kProducerRegs = kQuant ? (D > 256 ? 56 : 40) : 24;
   extern __shared__ __align__(16) unsigned char smem[];
   const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;  // the 128-byte swizzle needs 1 KB
   const uint32_t sQ = base, scales = base + S::kScaleOff;
@@ -252,13 +259,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     setmaxnreg_dec<kProducerRegs>();
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     if (total == 0) return;
-    // B9's raw slots and scales of tile it, and the barriers they land on.
+    // B9's raw slots and scales of tile it, and the barriers they land on
+    // (raw V: the chunk's Tl::kDO columns in the wide layout).
     auto raw_k = [&](int it) {
       return D == 64 ? base + S::kRawOff + it % kKStages * S::kRaw : r.sK(it) + D / 128 * Tl::kKVBox;
     };
     auto raw_v = [&](int it) {
       return D == 64 ? base + S::kRawOff + (kKStages + it % kVStages) * S::kRaw
-                     : r.sV(it) + D / 128 * Tl::kKVBox;
+                     : r.sV(it) + Tl::kDO / 128 * Tl::kKVBox;
     };
     auto scales_k = [&](int it) { return scales + it % kKStages * kN * 4; };
     auto scales_v = [&](int it) { return scales + (kKStages + it % kVStages) * kN * 4; };
@@ -283,9 +291,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       // B9's raw boxes of 128 (D 64: 64) values a row; B6's swizzled ones of 64.
       constexpr int kCols = kQuant ? (D < 128 ? D : 128) : 64, kColBoxes = D / kCols;
       constexpr int kPitch = kCols * static_cast<int>(sizeof(KV));  // bytes of a box's row
-      // V's boxes and row bytes: its chunk's columns (B6's wide layout).
-      constexpr int kVColBoxes = kQuant ? kColBoxes : Tl::kDO / kCols;
-      constexpr int kVRowBytes = kQuant ? kRowBytes : Tl::kDO * static_cast<int>(sizeof(KV));
+      // V's boxes and row bytes: its chunk's columns (the wide layout).
+      constexpr int kVColBoxes = Tl::kDO / kCols;
+      constexpr int kVRowBytes = Tl::kDO * static_cast<int>(sizeof(KV)) + (kQuant ? 4 : 0);
       int page_next = page_of(0);
       for (int it = 0; it < total; ++it) {
         const int n0 = n_begin + it * kN, page = page_next;
@@ -340,8 +348,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int live = min(kN, skv - (n_begin + it * kN));
         widen_tile<T, KV, D>(r.sK(it), raw_k(it), scales_k(it), live, wt, landed_k(it),
                              r.k_pass(it), r.full_k(it));
-        widen_tile<T, KV, D>(r.sV(it), raw_v(it), scales_v(it), live, wt, landed_v(it),
-                             r.v_pass(it), r.full_v(it));
+        widen_tile<T, KV, D, Tl::kDO>(r.sV(it), raw_v(it), scales_v(it), live, wt, landed_v(it),
+                                      r.v_pass(it), r.full_v(it));
       }
     }
     return;
@@ -419,22 +427,18 @@ int launch_paged_extend_cap(const PagedParams& p, const PagedViews& w, cudaStrea
                                  : launch_paged_extend<T, KV, D, false>(p, w, s);
 }
 
-// B6 runs d in the layout of padded_head_dim(d, true) (up to 512), B9 in
-// that of padded_head_dim(d) (up to 256: its widening has no wide layout).
+// B6 and B9 run d in the layout of padded_head_dim(d, true) (up to 512).
 template <typename T, typename KV>
 int dispatch_paged_extend(const PagedParams& p, const PagedViews& w, int d, cudaStream_t s) {
-  constexpr bool kWide = sizeof(KV) == 2;
-  const int layout = padded_head_dim(d, kWide);
+  const int layout = padded_head_dim(d, true);
   if (layout == 64) return launch_paged_extend_cap<T, KV, 64>(p, w, s);
   if (layout == 128) return launch_paged_extend_cap<T, KV, 128>(p, w, s);
   if (layout == 256) return launch_paged_extend_cap<T, KV, 256>(p, w, s);
-  if constexpr (kWide)
-    if (layout == 512) return launch_paged_extend_cap<T, KV, 512>(p, w, s);
+  if (layout == 512) return launch_paged_extend_cap<T, KV, 512>(p, w, s);
   return cudaErrorInvalidValue;
 }
 
-// The report lines of the instantiations (D x cap) of one T and KV: six,
-// and B6's two of D 512.
+// The report lines of the eight instantiations (D x cap) of one T and KV.
 template <typename T, typename KV>
 static void report_paged_extend(char* out, int cap, int& used, const char* what) {
   char name[96];
@@ -448,10 +452,8 @@ static void report_paged_extend(char* out, int cap, int& used, const char* what)
   PAGED_REPORT(128, true);
   PAGED_REPORT(256, false);
   PAGED_REPORT(256, true);
-  if constexpr (sizeof(KV) == 2) {
-    PAGED_REPORT(512, false);
-    PAGED_REPORT(512, true);
-  }
+  PAGED_REPORT(512, false);
+  PAGED_REPORT(512, true);
 #undef PAGED_REPORT
 }
 

@@ -5,14 +5,14 @@
 // int8 / e4m3 pool [Hkv, P, ps, D] with
 // f32 scales [Hkv, P, ps] through the page table; D2 (flash_decode.cu)
 // merges the splits. It takes B2's sliding window, the tanh soft cap and
-// every head dim from 1 to 256, in the layout of 64, 128 or 256
-// (padded_head_dim; rows at any 16-byte stride). The kernel is B5's
+// every head dim from 1 to 512, in the layout of 64, 128, 256 or 512
+// (padded_head_dim(d, true); rows at any 16-byte stride). The kernel is B5's
 // (paged_decode.cuh): a TMA ring of pages, their scales beside them,
 // feeding tensor-core consumers that widen the values exactly to q's type
 // in registers; the K scale
 // multiplies each score before the cap, the V scale each probability, the
 // running sum keeps the unscaled one. Bound by memory bytes, which 1-byte
-// values halve. A translation unit of its own, so that its 24
+// values halve. A translation unit of its own, so that its 32
 // instantiations build beside quantized.cu's, not after them.
 #include "paged_decode.cuh"
 

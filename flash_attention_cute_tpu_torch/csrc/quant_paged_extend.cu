@@ -2,11 +2,12 @@
 // one f32 scale per token and kv head): replaces the TPU kernel
 // flash_attention_cute_tpu/ops/quantized.py `_quant_paged_extend_kernel`
 // (:717, pallas_call at :1076), with its soft cap, its sliding window and
-// every head dim from 1 to 256, in the layout of 64, 128 or 256
-// (padded_head_dim; rows at any 16-byte stride). The kernel is B6's
+// every head dim from 1 to 512, in the layout of 64, 128, 256 or 512
+// (padded_head_dim(d, true); rows at any 16-byte stride; D 512 is B6's
+// wide layout). The kernel is B6's
 // (paged_extend.cuh), whose producer warpgroup widens each tile of raw
 // values exactly into q's type before the wgmma products read it; what
-// bounds it and the design are there. A translation unit of its own: its 24 instantiations (bf16 / f16 q
+// bounds it and the design are there. A translation unit of its own: its 32 instantiations (bf16 / f16 q
 // x int8 / e4m3 values x D x cap) build beside quantized.cu's.
 #include "paged_extend.cuh"
 
@@ -56,8 +57,8 @@ extern "C" int fact_quant_paged_extend(
 }
 
 // Writes the report of every B9 instantiation (the launch's registers: the
-// consumers raise theirs to 240 by setmaxnreg; local (spill) bytes; shared
-// memory) into `out` (at most `cap` bytes, NUL-terminated); returns 0.
+// consumers raise theirs to 232 by setmaxnreg, 224 at D 512; local (spill)
+// bytes; shared memory) into `out` (at most `cap` bytes, NUL-terminated); returns 0.
 extern "C" int fact_quant_paged_extend_report(char* out, int cap) {
   int used = 0;
   if (cap <= 0) return 0;

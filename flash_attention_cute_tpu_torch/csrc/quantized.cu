@@ -6,9 +6,10 @@
 //     pallas_call at :337). Split-KV decode partials over one layer of the
 //     contiguous cache [B, Hkv, C, D] with scales [B, Hkv, C]; D2
 //     (flash_decode.cu) merges the splits. It takes B2's sliding window (0
-//     for none), the tanh soft cap, every head dim from 1 to 256 (in the
-//     layout of 64, 128 or 256: padded_head_dim) and every GQA group (above 32 in chunks of at most 32
-//     rows, a block each), as D1 does. B8, the quantized paged decode, is
+//     for none), the tanh soft cap, every head dim from 1 to 512 (in the
+//     layout of 64, 128, 256 or 512: padded_head_dim(d, true)) and every
+//     GQA group (above 32 in chunks of at most 32 rows, a block each), as
+//     D1 does. B8, the quantized paged decode, is
 //     quant_paged_decode.cu; B9, the quantized paged extend,
 //     quant_paged_extend.cu.
 //   * QA, quantize-and-append (not a TPU kernel): replaces the XLA
@@ -18,7 +19,7 @@
 //     (:167-175). Writes S new K/V rows per batch row, quantized per token,
 //     at positions lengths[b] + s of the contiguous cache or through the
 //     page table; rows of inactive batch rows and positions past the table
-//     (or past the cache) write nothing. Every head dim from 1 to 256, its
+//     (or past the cache) write nothing. Every head dim from 1 to 512, its
 //     rows at any stride (it reads and writes single elements).
 //
 // What bounds them on the H100, and the design. B7 is B8's kernel
@@ -32,7 +33,7 @@
 // per (token, batch row), one warp per (K or V, kv head) row, an fp32 amax
 // over the row by a warp reduction, scale = amax / qmax (1 where amax is
 // 0), values x / scale rounded half to even. Compiled for the layout's D
-// (D / 32 values a lane); below D `quant_append_tail_kernel` reads and
+// (D / 32 values a lane: 16 at D 512); below D `quant_append_tail_kernel` reads and
 // writes the row's d values only: a lane past d would read the next head's
 // or token's row into the amax and write over it. At d = D
 // `quant_append_kernel` has no such bound (it cost 16 % at D 256, PERF.md).
@@ -124,10 +125,11 @@ void launch_append_layout(const QuantAppendParams& p, dim3 grid, int d, cudaStre
 template <typename T, typename KV, bool kPaged>
 int launch_append(const QuantAppendParams& p, int batch, int s, int d, cudaStream_t stream) {
   const dim3 grid(s, batch);
-  const int layout = padded_head_dim(d);
+  const int layout = padded_head_dim(d, true);
   if (layout == 64) launch_append_layout<T, KV, 64, kPaged>(p, grid, d, stream);
   else if (layout == 128) launch_append_layout<T, KV, 128, kPaged>(p, grid, d, stream);
   else if (layout == 256) launch_append_layout<T, KV, 256, kPaged>(p, grid, d, stream);
+  else if (layout == 512) launch_append_layout<T, KV, 512, kPaged>(p, grid, d, stream);
   else return cudaErrorInvalidValue;
   return cudaGetLastError();
 }

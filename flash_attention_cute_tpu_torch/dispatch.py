@@ -46,8 +46,9 @@ def select_block_config(
 def decode_tile(head_dim: int) -> int:
     """Keys of a tile of the decode kernels D1, B5, B7 and B8
     (csrc/paged_decode.cuh, `DecodeTiles::kN`): 64 in the layout of head
-    dim 64 (which runs every head dim up to 64), else 32."""
-    return 64 if head_dim <= 64 else 32
+    dim 64 (which runs every head dim up to 64), 16 in the wide layout of
+    512 (257-512), else 32."""
+    return 64 if head_dim <= 64 else 16 if head_dim > 256 else 32
 
 
 # q rows a block of the decode kernels D1, B5, B7 and B8 holds
@@ -73,8 +74,8 @@ def decode_num_splits(batch: int, num_kv_heads: int, capacity: int, head_dim: in
     """Splits of the decode kernels D1, B5, B7 and B8 from shapes alone
     (never the live lengths): the count whose blocks (batch x kv heads x
     the group's chunks of `decode_group_chunks` x splits) fill the card's
-    slots (132 SMs x the kernel's blocks an SM: one in the layout of D 256,
-    which runs every head dim above 128, two below) in the fewest waves for
+    slots (132 SMs x the kernel's blocks an SM: one in the layouts of D 256
+    and 512, which run every head dim above 128, two below) in the fewest waves for
     the work each split carries, i.e. the least
     ceil(blocks / slots) / splits, the fewer splits on a tie; at least one,
     and no more than the tiles of the capacity, so that no split is shorter

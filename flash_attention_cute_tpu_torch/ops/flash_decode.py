@@ -11,9 +11,10 @@ total l of 0 gives 0. D1 replaces `_flash_decode_kernel` and D2 the XLA
 combine of flash_attention_cute_tpu/ops/flash_decode.py. With a sliding
 window W the query at position length - 1 sees keys [length - W, length):
 D1 cuts each split to that range, and a split wholly below it is dead.
-D1 takes the tanh soft cap (Gemma2), every head dim from 1 to 256
-(`_build.padded_head_dim`: D 96 runs in D 128's layout, its columns past
-96 zeros; rows at a 16-byte stride, the port's caches at
+D1 takes the tanh soft cap (Gemma2), every head dim from 1 to 512
+(`_build.padded_head_dim(..., wide=True)`: D 96 runs in D 128's layout,
+its columns past 96 zeros, D 260 in the wide layout of 512, whose
+consumer warps split O's columns; rows at a 16-byte stride, the port's caches at
 `_build.row_pitch`, and a q or cache that breaks that rule takes one
 padded copy, `_build.rows`) and every GQA group (above 32 cut into
 chunks of at most 32 q rows, a block each: `dispatch.decode_group_chunks`);
@@ -116,7 +117,7 @@ def decode_partials(q, k, v, lengths, sm_scale, num_splits, window=None, logit_s
     window = _build.window_arg(window)
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"decode kernel takes bf16/f16, got {q.dtype}")
-    _build.padded_head_dim(d, "decode")
+    _build.padded_head_dim(d, "decode", wide=True)
     if sq != 1 or hq % hkv or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     q = _build.rows("q", q, q.dtype)
@@ -149,7 +150,7 @@ def decode_combine(acc, m, l, dtype):
     b, hkv, splits, g, d = acc.shape
     if dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"combine kernel writes bf16/f16, got {dtype}")
-    _build.padded_head_dim(d, "combine")
+    _build.padded_head_dim(d, "combine", wide=True)
     for name, t in (("acc", acc), ("m", m), ("l", l)):
         if t.device != acc.device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous fp32 on {acc.device}")

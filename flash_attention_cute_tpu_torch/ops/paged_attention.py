@@ -23,9 +23,10 @@ D]` pool); key n of batch row b sits at page `page_table[b, n // ps]`, row
     (each q head's block reads its kv head's pages itself).
 
 B5 and B6 take the tanh soft cap (Gemma2) and every head dim from 1 to
-256 (`_build.padded_head_dim`: D 96 runs in D 128's layout, its columns
-past 96 zeros), B6 also every head dim from 257 to 512 in the wide layout
-of 512 (csrc/attention_wgmma.cuh). Rows reach them at a 16-byte stride: the port's pools lie
+512 (`_build.padded_head_dim(..., wide=True)`: D 96 runs in D 128's
+layout, its columns past 96 zeros, and 257-512 in the wide layouts of 512,
+csrc/paged_decode.cuh's and csrc/attention_wgmma.cuh's), and so does the
+append. Rows reach them at a 16-byte stride: the port's pools lie
 at `_build.row_pitch`, and a q or pool that breaks the rule takes one
 padded copy (`_build.rows`, counted by kind); B6's output lies at
 `_build.row_pitch(D)`.
@@ -146,10 +147,11 @@ def paged_attention_extend_plain(q, k_pages, v_pages, q_offset, kv_length, page_
 
 
 def _check_cuda_call(name, q, k_pages, v_pages, page_table, row_tensors, window,
-                     pool_dtype=None, wide=False):
-    """Shared refusals of the CUDA routes; the pools must be `pool_dtype`
-    (default q's dtype), head dims those of `_build.padded_head_dim`'s rule
-    (with `wide`, B6's, up to 512), Hq a multiple of Hkv (any group).
+                     pool_dtype=None):
+    """Shared refusals of the CUDA routes of B5, B6, B8 and B9; the pools
+    must be `pool_dtype` (default q's dtype), head dims those of
+    `_build.padded_head_dim`'s rule with its wide layout (up to 512), Hq a
+    multiple of Hkv (any group).
     Returns the window as the kernels take it, and q, k_pages, v_pages as
     they read them (`_build.rows`)."""
     window = _build.window_arg(window)
@@ -157,7 +159,7 @@ def _check_cuda_call(name, q, k_pages, v_pages, page_table, row_tensors, window,
     hkv = k_pages.shape[0]
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"{name} kernel takes bf16/f16, got {q.dtype}")
-    _build.padded_head_dim(d, name, wide=wide)
+    _build.padded_head_dim(d, name, wide=True)
     if hq % hkv:
         raise ValueError(f"{name}: num q heads {hq} must be a multiple of kv heads {hkv}")
     if k_pages.shape != v_pages.shape or k_pages.shape[3] != d or k_pages.ndim != 4:
@@ -268,7 +270,7 @@ def paged_attention_extend(
     softcap = _build.softcap_arg(logit_softcap)
     window, q, k_pages, v_pages = _check_cuda_call(
         "paged extend", q, k_pages, v_pages, page_table,
-        [("q_offset", q_offset), ("kv_length", kv_length)], window, wide=True)
+        [("q_offset", q_offset), ("kv_length", kv_length)], window)
     hkv, num_pages, ps, _ = k_pages.shape
     out = _build.out_rows((b, hq, sq, d), q.dtype, q.device)
     if out.numel():

@@ -33,9 +33,12 @@ Each wrapper routes on the device of its tensors: CPU -> plain version,
 CUDA -> the kernel; what the kernel does not take raises (values that are
 neither int8 nor e4m3, scales that are not f32). B7 - B9 take every GQA
 group and a sliding window as D1, B5 and B6 do. All four take every head
-dim from 1 to 256 (`_build.padded_head_dim`): D 96 runs in D 128's
-layout, the TMA boxes reading zeros past the row, which widen to exact
-zeros (the TPU kernels pad D to their 128 lanes). B7 - B9 read rows at a
+dim from 1 to 512 (`_build.padded_head_dim(..., wide=True)`): D 96 runs
+in D 128's layout, the TMA boxes reading zeros past the row, which widen
+to exact zeros (the TPU kernels pad D to their 128 lanes), and 257-512 in
+the wide layouts of 512 (B7 / B8: csrc/paged_decode.cuh's, O's columns
+split across the consumer warps; B9: B6's, V widened at its chunk's
+columns). B7 - B9 read rows at a
 16-byte stride: the port's caches and pools lie at
 `_build.row_pitch(D, 1)`, and a q or cache that breaks the rule takes one
 padded copy (`_build.rows`, counted by kind); QA reads and writes single
@@ -225,7 +228,7 @@ def flash_attention_decode_quantized(
     g = hq // hkv
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"quantized decode kernel takes bf16/f16 q, got {q.dtype}")
-    _build.padded_head_dim(d, "quantized decode")
+    _build.padded_head_dim(d, "quantized decode", wide=True)
     if sq != 1 or hq % hkv or k.values.shape != v.values.shape or k.values.shape[0] != b \
             or k.values.shape[3] != d:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.values.shape)} "
@@ -498,7 +501,7 @@ def quantize_append(
     kv_dtype = k_cache.values.dtype
     if k_new.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"quantize-append kernel takes bf16/f16 rows, got {k_new.dtype}")
-    _build.padded_head_dim(d, "quantize-append")
+    _build.padded_head_dim(d, "quantize-append", wide=True)
     if v_new.shape != k_new.shape or v_new.dtype != k_new.dtype:
         raise ValueError(f"bad new rows {tuple(k_new.shape)} {tuple(v_new.shape)}")
     _check_quantized("k_cache", k_cache, read=False)

@@ -156,7 +156,7 @@ def paged_append_layer(k_pages_l, v_pages_l, k_new, v_new, page_table, lengths, 
                                         lengths, active)
     hkv, _, ps, d = k_pages_l.shape
     b, _, s, _ = k_new.shape
-    _build.padded_head_dim(d, "paged append")
+    _build.padded_head_dim(d, "paged append", wide=True)
     dt = k_pages_l.dtype
     k_new, v_new = k_new.to(dt), v_new.to(dt)
     if v_pages_l.shape != k_pages_l.shape or v_pages_l.dtype != dt:

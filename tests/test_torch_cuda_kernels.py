@@ -1986,7 +1986,8 @@ def test_api_int8_scores_launch_k8_and_p_i8(device):
 # 32-column row), 80 (Danube's 32 / 8 heads), 96 (Phi-3-mini's 32 / 32),
 # 160 (a box of D 256's layout wholly past d) and 192, in bf16 and f16,
 # each held to its fp32 plain version at 3e-2 over NaN tails and repeated
-# bit for bit; D 264 refused before any launch. Since the pitched rows also
+# bit for bit; D 520 refused before any launch (D 264 runs in the wide
+# layouts of 512). Since the pitched rows also
 # D 4, 36 and 100 (rows of 8, 40 and 104 elements) at Llama-3-8B's 32 / 8
 # heads, and over one-byte rows (ONE_BYTE_DIMS) D 24, 40 and 72 (rows of
 # 32, 48 and 80 bytes).
@@ -2094,45 +2095,51 @@ def test_paged_kernels_at_odd_head_dims(device, ps, d, dtype):
 
 @pytest.mark.parametrize("d", [100, 264])
 def test_odd_head_dim_kernels_refuse_what_no_layout_takes(device, d):
-    """A head dim no layout of theirs takes (264) raises naming the roadmap
-    item before any launch, in the decode kernels and the append; nothing
-    falls back. P and B6 take it in the wide layout of 512 and launch once
-    each, B6 within BF16_TOL of its plain version. D 100, refused so before
-    the pitched rows, launches each kernel once (its pool at rows of
-    104)."""
+    """D 100, refused so before the pitched rows, and D 264, refused so
+    before the wide layouts of 512 (P and B6, then the decodes and the
+    append), launch each kernel once (D 100's pool at rows of 104), B6 and
+    B5 within BF16_TOL of their plain versions; D 520, which no layout
+    takes, raises naming the roadmap item before any launch; nothing falls
+    back."""
     gen = torch.Generator(device="cuda").manual_seed(120)
-    q, k = randn(gen, 2, 4, 64, d), randn(gen, 2, 2, 64, d)
     lengths = torch.tensor([3, 5], dtype=torch.int32, device="cuda")
-    kp, vp = pitched(randn(gen, 2, 9, 16, d)), pitched(randn(gen, 2, 9, 16, d))
     table = torch.arange(1, 9, dtype=torch.int32, device="cuda").view(2, 4)
     counted = (flash_fwd.PREFILL, flash_decode.PARTIALS, flash_decode.COMBINE,
                paged_attention.PAGED_DECODE, paged_attention.PAGED_EXTEND, paged_cache.APPEND)
+
+    def calls(dd):
+        q, k = randn(gen, 2, 4, 64, dd), randn(gen, 2, 2, 64, dd)
+        kp, vp = pitched(randn(gen, 2, 9, 16, dd)), pitched(randn(gen, 2, 9, 16, dd))
+        return kp, vp, q, [
+            lambda: flash_fwd.flash_attention_fwd(q, k, k, causal=True),
+            lambda: flash_decode.flash_attention_decode(q[:, :, :1], k, k, lengths),
+            lambda: paged_attention.paged_attention_decode(q[:, :, :1], kp, vp, lengths, table),
+            lambda: paged_attention.paged_attention_extend(q[:, :, :4], kp, vp, lengths,
+                                                           lengths + 4, table),
+            lambda: paged_cache.paged_append_layer(kp, vp, k[:, :, :2], k[:, :, :2], table,
+                                                   lengths),
+        ]
+
+    kp, vp, q, taken = calls(d)
+    kc, vc = kp.clone(), vp.clone()  # the pools before the append writes them
     before = [x.launches for x in counted]
-    calls = [
-        lambda: flash_fwd.flash_attention_fwd(q, k, k, causal=True),
-        lambda: flash_decode.flash_attention_decode(q[:, :, :1], k, k, lengths),
-        lambda: paged_attention.paged_attention_decode(q[:, :, :1], kp, vp, lengths, table),
-        lambda: paged_attention.paged_attention_extend(q[:, :, :4], kp, vp, lengths,
-                                                       lengths + 4, table),
-        lambda: paged_cache.paged_append_layer(kp, vp, k[:, :, :2], k[:, :, :2], table,
-                                               lengths),
-    ]
-    if d <= 256:
-        for call in calls:
-            call()
-        torch.cuda.synchronize()
-        assert [x.launches - n for x, n in zip(counted, before)] == [1, 1, 2, 1, 1, 1]
+    outs = [call() for call in taken]
+    torch.cuda.synchronize()
+    assert [x.launches - n for x, n in zip(counted, before)] == [1, 1, 2, 1, 1, 1]
+    for out, ref in ((outs[3], paged_attention.paged_attention_extend_plain(
+            q[:, :, :4].float(), kc, vc, lengths, lengths + 4, table)),
+                     (outs[2], paged_attention.paged_attention_decode_plain(
+                         q[:, :, :1].float(), kc, vc, lengths, table))):
+        assert (out.float() - ref).abs().max().item() <= BF16_TOL
+    if d < 256:
         return
-    calls[0]()  # P, in the wide layout
-    out = calls[3]()  # B6, in the wide layout
-    for call in (calls[1], calls[2], calls[4]):
+    _, _, _, refused = calls(d + 256)
+    before = [x.launches for x in counted]
+    for call in refused:
         with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A14"):
             call()
     torch.cuda.synchronize()
-    assert [x.launches - n for x, n in zip(counted, before)] == [1, 0, 0, 0, 1, 0]
-    ref = paged_attention.paged_attention_extend_plain(q[:, :, :4].float(), kp, vp, lengths,
-                                                       lengths + 4, table)
-    assert (out.float() - ref).abs().max().item() <= BF16_TOL
+    assert [x.launches for x in counted] == before
 
 
 # Head dims outside {64, 128, 256} in training and packed batches: B13a /
@@ -2502,3 +2509,136 @@ def test_wide_head_dim_paged_extend_matches_plain(device, ps, d):
                         paged_attention.PAGED_EXTEND, q, kp, vp, offs, kvl, table, **kw)
         assert out.shape == q.shape and out.stride(-2) == _build.row_pitch(d)
         assert err <= BF16_TOL and (out[3] == 0).all(), kw
+
+
+# The decodes D1, B5, B7 and B8 at head dims from 257 to 512, in the wide
+# layout of csrc/paged_decode.cuh (each consumer warp owns 256 of O's
+# columns and computes S over the whole d itself; 16-key tiles), with D2;
+# B9 in B6's wide layout (V widened at its chunk's columns); the append and
+# QA. DeepSeek-V4-Flash's group of 64 over 1 kv head (two chunks of 32
+# rows: both m-tiles, all four warps on every tile), a window of 128 with
+# the soft cap 50 at a group of 16 (one m-tile: two slots of two column
+# owners), d 264 at a group of 24 and d 320 at 8 / 2; NaN at and past every
+# length (one-byte caches: NaN scales, and the e4m3 NaN byte); each held to
+# its fp32 plain version and repeated bit for bit, the appends bit-identical.
+WIDE_DECODE = {
+    # name: (d, hq, hkv, window, cap)
+    "d512_group64": (512, 64, 1, None, None),
+    "d512_window_cap": (512, 16, 1, 128, 50.0),
+    "d264_group24": (264, 24, 1, None, None),
+    "d320_gqa": (320, 8, 2, None, 30.0),
+}
+WIDE_LENGTHS = [0, 1, 37, 577, 576, 291]
+
+
+@pytest.mark.parametrize("case", list(WIDE_DECODE), ids=list(WIDE_DECODE))
+def test_wide_head_dim_contiguous_decodes_match_plain(device, case):
+    """D1 + D2 over a stacked bf16 cache, and B7 + D2 over stacked int8 and
+    e4m3 caches, through `layer` (capacity 577, no multiple of a tile)."""
+    d, hq, hkv, window, cap = WIDE_DECODE[case]
+    gen = torch.Generator(device="cuda").manual_seed(270 + d)
+    lengths = torch.tensor(WIDE_LENGTHS, dtype=torch.int32, device="cuda")
+    q = randn(gen, len(WIDE_LENGTHS), hq, 1, d)
+    kw = dict(window=window, logit_softcap=cap, layer=1)
+    k, v = stacked_cache(gen, WIDE_LENGTHS, layers=2, hkv=hkv, cap=577, d=d)
+    before = flash_decode.COMBINE.launches
+    out, err = held(flash_decode.flash_attention_decode, flash_decode.flash_attention_decode_plain,
+                    flash_decode.PARTIALS, q, k, v, lengths, **kw)
+    assert flash_decode.COMBINE.launches == before + 2
+    assert out.shape == q.shape and err <= BF16_TOL and (out[0] == 0).all()
+    dead = torch.arange(577, device="cuda")[None, :] >= lengths[:, None]
+    for dtype in KV_DTYPES.values():
+        kq, vq = (quant.quantize_kv(randn(gen, 2, len(WIDE_LENGTHS), hkv, 577, d,
+                                          dtype=torch.float32), dtype) for _ in "kv")
+        for kv in (kq, vq):
+            poison(kv, dead[None, :, None, :].expand(2, -1, hkv, -1))
+        out, err = held(quant.flash_attention_decode_quantized,
+                        quant.flash_attention_decode_quantized_plain, quant.QUANT_DECODE,
+                        q, kq, vq, lengths, **kw)
+        assert err <= BF16_TOL and (out[0] == 0).all(), dtype
+
+
+@pytest.mark.parametrize("ps", [16, 64])
+@pytest.mark.parametrize("case", list(WIDE_DECODE), ids=list(WIDE_DECODE))
+def test_wide_head_dim_paged_decodes_match_plain(device, case, ps):
+    """B5 + D2 over bf16 pools and B8 + D2 over int8 and e4m3 pools behind a
+    permuted table, NaN at and past every length and in page 0."""
+    d, hq, hkv, window, cap = WIDE_DECODE[case]
+    gen = torch.Generator(device="cuda").manual_seed(280 + d + ps)
+    lens = [0, 1, ps - 1, ps + 1, 1024, 777]
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = randn(gen, len(lens), hq, 1, d)
+    kw = dict(window=window, logit_softcap=cap)
+    kp, vp, table = paged_pool(gen, ps, len(lens), hkv=hkv, d=d, lengths=lens)
+    out, err = held(paged_attention.paged_attention_decode,
+                    paged_attention.paged_attention_decode_plain, paged_attention.PAGED_DECODE,
+                    q, kp, vp, lengths, table, **kw)
+    assert out.shape == q.shape and err <= BF16_TOL and (out[0] == 0).all()
+    for dtype in KV_DTYPES.values():
+        k, v, table = quant_paged_pool(gen, ps, len(lens), dtype, lens, hkv=hkv, d=d)
+        out, err = held(quant.paged_attention_decode_quantized,
+                        quant.paged_attention_decode_quantized_plain, quant.QUANT_PAGED_DECODE,
+                        q, k, v, lengths, table, **kw)
+        assert err <= BF16_TOL and (out[0] == 0).all(), dtype
+
+
+@pytest.mark.parametrize("name", list(KV_DTYPES))
+@pytest.mark.parametrize("d", [264, 320, 512])
+@pytest.mark.parametrize("ps", [16, 64])
+def test_wide_head_dim_quant_paged_extend_matches_plain(device, ps, d, name):
+    """B9 over NaN-poisoned quantized pools behind a permuted table: chunks
+    of 130 rows at offsets off the tiles, an inactive row, once more with a
+    window of 128 and the soft cap 50; 16 / 1 heads at D 512, 8 / 2 below."""
+    hq, hkv = (16, 1) if d == 512 else (8, 2)
+    gen = torch.Generator(device="cuda").manual_seed(290 + d + ps)
+    offs = torch.tensor([0, 61, 599, 0, 200], dtype=torch.int32, device="cuda")
+    kvl = torch.tensor([130, 191, 729, 0, 330], dtype=torch.int32, device="cuda")
+    k, v, table = quant_paged_pool(gen, ps, len(offs), KV_DTYPES[name], kvl.tolist(), hkv=hkv,
+                                   d=d)
+    q = randn(gen, len(offs), 130, hq, d).transpose(1, 2)
+    for kw in ({}, {"window": 128, "logit_softcap": 50.0}):
+        out, err = held(quant.paged_attention_extend_quantized,
+                        quant.paged_attention_extend_quantized_plain, quant.QUANT_PAGED_EXTEND,
+                        q, k, v, offs, kvl, table, **kw)
+        assert out.shape == q.shape and out.stride(-2) == _build.row_pitch(d)
+        assert err <= BF16_TOL and (out[3] == 0).all(), kw
+
+
+@pytest.mark.parametrize("d", [264, 320, 512])
+def test_wide_head_dim_appends_write_what_plain_writes(device, d):
+    """The append of a 100-token chunk (a row across the end of its table,
+    an inactive row) into bf16 pools, and QA into int8 / e4m3 pools and
+    contiguous caches: the whole pools bit-identical to the plain
+    versions'."""
+    gen = torch.Generator(device="cuda").manual_seed(300 + d)
+    starts = [0, 13, 1024 - 40, 37]
+    new_k, new_v = (randn(gen, len(starts), 100, 2, d).transpose(1, 2) for _ in "kv")
+    lengths = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    active = torch.tensor([1, 1, 1, 0], dtype=torch.bool, device="cuda")
+    kp, vp, table = paged_pool(gen, 16, len(starts), hkv=2, d=d)
+    ref_k, ref_v = kp.clone(), vp.clone()
+    before = paged_cache.APPEND.launches
+    paged_cache.paged_append_layer(kp, vp, new_k, new_v, table, lengths, active)
+    torch.cuda.synchronize()
+    assert paged_cache.APPEND.launches == before + 1
+    paged_cache.paged_append_layer_plain(ref_k, ref_v, new_k, new_v, table, lengths, active)
+    assert torch.equal(kp, ref_k) and torch.equal(vp, ref_v)
+    for dtype in KV_DTYPES.values():
+        for paged in (True, False):
+            if paged:
+                k, v, table = quant_paged_pool(gen, 16, len(starts), dtype, [1024] * 4, hkv=2,
+                                               d=d)
+                rows = (lengths, table, active)
+            else:
+                k, v = (quant.quantize_kv(randn(gen, len(starts), 2, 1124, d), dtype)
+                        for _ in "kv")
+                rows = (lengths,)
+            ref = [QuantizedKV(x.values.clone(), x.scales.clone()) for x in (k, v)]
+            before = quant.QUANT_APPEND.launches
+            quant.quantize_append(new_k, new_v, k, v, *rows)
+            torch.cuda.synchronize()
+            assert quant.QUANT_APPEND.launches == before + 1
+            quant.quantize_append_plain(new_k, new_v, *ref, *rows)
+            for got, want in zip((k, v), ref):
+                assert torch.equal(got.values.view(torch.uint8), want.values.view(torch.uint8))
+                assert torch.equal(got.scales.view(torch.int32), want.scales.view(torch.int32))
