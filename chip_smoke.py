@@ -126,9 +126,10 @@ Phases, in order; any failure exits non-zero:
      into 3 parts (within 2^-7 of one pass) and one pass, and B12 causal,
      with kv longer and a window, and full, within 3e-2, every call
      repeated bit for bit; D 100 (refused before the pitched rows) run by
-     the backward, the autograd op and B12 with their launch counts, D 264
-     and D 0 refused by the backward and the autograd op, D 520 and D 0 by
-     B12 (it takes 257-512 in the wide layout, 5l), with no launch; (3m) GQA groups above
+     the backward, the autograd op and B12 with their launch counts, D 520
+     and D 0 refused by the backward and the autograd op (they take
+     257-512 in the layout of 512, 5o) and by B12 (its wide layout, 5l),
+     with no launch; (3m) GQA groups above
      32 in the decodes, which cut a group into chunks of at most 32 q rows,
      a block each, and above 8 in the paged extends (LARGE_GROUP_DECODES:
      groups 33, 48 at StarCoder's 48 / 1 heads, 64, 71 at Falcon-7B's 71 /
@@ -482,9 +483,25 @@ Phases, in order; any failure exits non-zero:
      B7, B8, B9, append and QA rows (ms, plain, bound, SDPA over a
      contiguous, gathered or dequantized copy with the group expanded,
      `index_copy_` for the append; pages of 64, the window, e4m3 beside
-     them; the D 512 instantiations' runtime attributes); every timed entry
-     its share of its bound ("of_bound"); the card's name and power
-     limit.
+     them; the D 512 instantiations' runtime attributes); (5o) head dims
+     from 257 to 512 in the backward B13a / B13b (the layout of 512 of
+     csrc/flash_bwd.cu: B13a two blocks a 64-key block, 256 of dK's and
+     dV's columns each, over 32-row q tiles; B13b 16-key tiles, its
+     consumers splitting the depth of S and dP), at the same widths:
+     gradients through `ops.autodiff.flash_attention` at B 1 x 4096,
+     causal and with the window of 128, within 2e-2 of each gradient's
+     largest value of the fp32 plain backward (fed the kernel forward's o
+     and lse, 8 q heads at a time) and, row by row, ROW_TOL, repeated bit
+     for bit; three AdamW steps over leaf q, k, v against a fixed random
+     target, causal and windowed, on path "v4-train" (counted exactly:
+     causal P 3, B13a 3, B13b 3; windowed B2 3, B13a 3, B13b 3; nothing
+     else), the loss falling; d 260 (rows of 264) and 320 alike at B 1 x
+     256, 8 / 1 heads; D 520 and D 0 refused by the backward and the
+     autograd op before any launch; then the "v4" entries of the B13a and
+     B13b rows (ms, plain, the operations bound, SDPA's backward or null
+     with its reason, the D 512 instantiations' runtime attributes); every
+     timed entry its share of its bound ("of_bound"); the card's name and
+     power limit.
 The last line is {"ok": true, "device": {...}}.
 
 Tolerances: kernel outputs are bf16 results of fp32 arithmetic on bf16
@@ -5244,9 +5261,10 @@ def phase_odd_head_dims_training(torch, ops, errs, rel_errs, dims=ODD_TRAINING_D
     causal, with kv longer and a window of 100, and full, within BF16_TOL;
     every call repeated bit for bit. With `formerly_refused`: D 100,
     refused before the pitched rows, runs the backward, the autograd op and
-    B12 once each; D 264 and D 0 are refused by the backward and the
-    autograd op, D 520 and D 0 by B12 (which takes 257-512 in its wide
-    layout, phase 5l), naming ROADMAP.md A14, with no launch. The errors at a head dim of `tags` ({d:
+    B12 once each; D 520 and D 0 are refused by the backward and the
+    autograd op (which take 257-512 in the layout of 512, phase 5o) and by
+    B12 (its wide layout, phase 5l), naming ROADMAP.md A14, with no
+    launch. The errors at a head dim of `tags` ({d:
     tag}, default D 96's "phi3") also go to "<kernel> <tag>"."""
     tags = {96: "phi3"} if tags is None else tags
     flash_fwd, flash_bwd, flash_varlen = ops["flash_fwd"], ops["flash_bwd"], ops["flash_varlen"]
@@ -5330,9 +5348,9 @@ def phase_odd_head_dims_training(torch, ops, errs, rel_errs, dims=ODD_TRAINING_D
     if not formerly_refused:
         return
     # D 100, refused before the pitched rows, now runs (rows of 104, its
-    # views through one padded copy each); D 264 and D 0 stay refused by
-    # the backward and the autograd op, D 520 and D 0 by B12 (phase 5l runs
-    # its wide layout).
+    # views through one padded copy each); D 520 and D 0 stay refused by
+    # the backward and the autograd op (phase 5o runs the layout of 512)
+    # and by B12 (phase 5l runs its wide layout).
     counted = (flash_fwd.PREFILL, flash_fwd.WINDOWED_PREFILL, flash_bwd.DKV, flash_bwd.DQ,
                flash_varlen.VARLEN)
     one = torch.tensor([0, 64], dtype=torch.int32, device="cuda")
@@ -5359,10 +5377,9 @@ def phase_odd_head_dims_training(torch, ops, errs, rel_errs, dims=ODD_TRAINING_D
         print(f"  {what} at D 100: launches (P, B2, B13a, B13b, B12) {got}")
         check(got == want, f"{what} at D 100 (refused before the pitched rows) launches "
               f"{want}")
-    head_dims_refused(torch, ops, "B13a / B13b and the autograd op",
-                      [lambda d, i=i: calls(d)[i][1]() for i in range(2)], counted)
-    head_dims_refused(torch, ops, "B12 (wide layout up to 512)",
-                      [lambda d: calls(d)[2][1]()], counted, dims=(520, 0))
+    head_dims_refused(torch, ops, "B13a / B13b, the autograd op and B12 (wide layouts up to 512)",
+                      [lambda d, i=i: calls(d)[i][1]() for i in range(3)], counted,
+                      dims=(520, 0))
 
 
 PHI3_TRAIN_PATH = f"{PHI3_LABEL} training"
@@ -7511,6 +7528,204 @@ def v4d_rows(torch, ops, paged_cache, streams, path_counts, errs, reports):
     return out
 
 
+# Phase 5o: head dims from 257 to 512 in the attention backward B13a /
+# B13b (csrc/flash_bwd.cu's layout of 512: B13a two blocks a 64-key block,
+# 256 of dK's and dV's columns each, over q tiles of 32 rows; B13b 64 q
+# rows over 16-key tiles, its consumers splitting the depth of S and dP),
+# and so in training through the autograd op `ops.autodiff.flash_attention`
+# (P or B2 with the lse forward, B13a / B13b backward), at
+# DeepSeek-V4-Flash's attention widths (64 / 1 heads, D 512, bf16, its
+# window of 128). JAX's API and model path refuse a head dim above 256, as
+# the port's do, so the path is the kernel-level entry point: three AdamW
+# steps over leaf q, k, v [1, 64 / 1, V4T_S, 512] against a fixed random
+# target, causal and windowed, on path "v4-train". Gradients are held to
+# the fp32 plain backward fed the kernel forward's o and lse, 8 q heads at
+# a time (its [64, 4096, 4096] score matrices would take 4.3 GB each).
+# Then d 260 (rows of 264) and 320 at a small size.
+V4T_LABEL = "v4-train"
+V4T_S, V4T_STEPS, V4T_LR = 4096, 3, 1e-3
+V4T_SMALL_DIMS, V4T_SMALL_S, V4T_SMALL_HEADS = (260, 320), 256, (8, 1)
+
+
+def v4t_inputs(torch, gen, d, s, hq, hkv):
+    """Leaf bf16 q, k, v (at the port's row pitch) that record gradients,
+    and a cotangent dO."""
+    q, k, v = (v4_randn(torch, gen, 1, h, s, d).requires_grad_() for h in (hq, hkv, hkv))
+    return q, k, v, v4_randn(torch, gen, 1, hq, s, d)
+
+
+def v4t_plain_grads(torch, ops, q, k, v, do, window, step=8):
+    """(dq, dk, dv) of the fp32 plain backward (`flash_attention_bwd_plain`)
+    fed the kernel forward's o and lse, `step` q heads of one group at a
+    time, dk and dv summed over the chunks in fp32."""
+    flash_fwd, flash_bwd = ops["flash_fwd"], ops["flash_bwd"]
+    q, k, v = q.detach(), k.detach(), v.detach()
+    o, lse = flash_fwd.flash_attention_fwd(q, k, v, causal=True, window=window, return_lse=True)
+    group = q.shape[1] // k.shape[1]
+    step = min(step, group)
+    check(group % step == 0, "the plain backward's chunks stay inside a group")
+    dq = torch.empty(q.shape, device="cuda")
+    dk, dv = torch.zeros(k.shape, device="cuda"), torch.zeros(v.shape, device="cuda")
+    for h in range(0, q.shape[1], step):
+        kv = slice(h // group, h // group + 1)
+        a, b, c = flash_bwd.flash_attention_bwd_plain(
+            q[:, h:h + step].float(), k[:, kv].float(), v[:, kv].float(), o[:, h:h + step],
+            do[:, h:h + step], lse[:, h:h + step], causal=True, window=window)
+        dq[:, h:h + step] = a
+        dk[:, kv] += b
+        dv[:, kv] += c
+        del a, b, c
+    del o, lse
+    return dq, dk, dv
+
+
+def held_grads(torch, ops, errs, rel_errs, what, window, q, k, v, do, tag):
+    """Gradients through `ops.autodiff.flash_attention` (P or B2, then B13a
+    and B13b, each launched once) within GRAD_REL_TOL of the fp32 plain
+    backward (max |diff| over max |plain|, each gradient) and, row by row,
+    within ROW_TOL (`row_err`; dq from row 1 on: row 0 sees one key, where
+    dS = p (dP - delta) is 0 but for the fp32 rounding of either version),
+    finite, and a second call bit for bit."""
+    flash_bwd, autodiff = ops["flash_bwd"], ops["autodiff"]
+    before = (flash_bwd.DKV.launches, flash_bwd.DQ.launches)
+    got = torch.autograd.grad(autodiff.flash_attention(q, k, v, causal=True, window=window),
+                              (q, k, v), do)
+    again = torch.autograd.grad(autodiff.flash_attention(q, k, v, causal=True, window=window),
+                                (q, k, v), do)
+    torch.cuda.synchronize()
+    check((flash_bwd.DKV.launches - before[0], flash_bwd.DQ.launches - before[1]) == (2, 2),
+          f"{what}: B13a and B13b launched once a call")
+    want = v4t_plain_grads(torch, ops, q, k, v, do, window)
+    rel = [rel_err(a, w) for a, w in zip(got, want)]
+    rows = [row_err(got[0][:, :, 1:], want[0][:, :, 1:])] + [
+        row_err(a, w) for a, w in zip(got[1:], want[1:])]
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    for name, idx in (("flash_bwd_dq", (0,)), ("flash_bwd_dkv", (1, 2))):
+        note_err(errs, name, max(max_err(got[i], want[i]) for i in idx), tag)
+        note_err(rel_errs, name, max(rel[i] for i in idx), tag)
+        note_err(errs, f"{name} row_err", max(rows[i] for i in idx), tag)
+    print(f"  {what}: dq / dk / dv max|diff| / max|plain| " + " / ".join(f"{r:.2e}" for r in rel)
+          + ", row_err " + " / ".join(f"{r:.2e}" for r in rows)
+          + f"; repeated bit for bit: {same}")
+    check(all(tuple(a.shape) == tuple(x.shape) and bool(torch.isfinite(a).all())
+              for a, x in zip(got, (q, k, v))), f"{what}: gradients finite, of q / k / v's shapes")
+    check(max(rel) <= GRAD_REL_TOL, f"{what}: gradients within {GRAD_REL_TOL} (relative)")
+    check(max(rows) <= ROW_TOL, f"{what}: gradients within {ROW_TOL} row by row")
+    check(same, f"{what}: a second call gives bit-identical dq / dk / dv")
+    del got, again, want
+
+
+def v4t_train(torch, ops, kernels, window, seed):
+    """V4T_STEPS AdamW steps (lr V4T_LR) over leaf q, k, v at V4's widths
+    through `ops.autodiff.flash_attention` against a fixed random target
+    (mean squared error in fp32), every launch count set to 0 just before
+    and read just after: (losses, wall s, counts)."""
+    autodiff = ops["autodiff"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, target = v4t_inputs(torch, gen, V4_D, V4T_S, V4_HQ, V4_HKV)
+    opt = torch.optim.AdamW([q, k, v], lr=V4T_LR)
+    losses = []
+    for kern in kernels.values():
+        kern.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(V4T_STEPS):
+        opt.zero_grad(set_to_none=True)
+        out = autodiff.flash_attention(q, k, v, causal=True, window=window)
+        loss = torch.nn.functional.mse_loss(out.float(), target.float())
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: kern.launches for name, kern in kernels.items()}
+    check(all(bool(torch.isfinite(x).all()) for x in (q, k, v)), "v4-train: finite leaves")
+    del q, k, v, target, opt, out, loss
+    torch.cuda.empty_cache()
+    return losses, wall, counts
+
+
+def phase_v4_train(torch, ops, kernels, path_counts, errs, rel_errs):
+    """Phase 5o's checks and path (the constants above): gradients at V4's
+    widths, causal and with the window (`held_grads`), the three AdamW
+    steps of each on path "v4-train" counted exactly (causal: P 3, B13a 3,
+    B13b 3; windowed: B2 3, B13a 3, B13b 3; nothing else; B13a's combine
+    pass, one C call with it, is not counted apart) with a loss that falls;
+    d 260 and 320 at B 1 x V4T_SMALL_S, 8 / 1 heads; D 520 and D 0 refused
+    by the backward and the autograd op before any launch."""
+    flash_fwd, flash_bwd, autodiff = ops["flash_fwd"], ops["flash_bwd"], ops["autodiff"]
+    gen = torch.Generator(device="cuda").manual_seed(4401)
+    for window in (None, V4_WINDOW):
+        what = f"{V4T_LABEL} gradients B 1 x S {V4T_S}, {V4_HQ} / {V4_HKV} heads, D {V4_D}, " + (
+            f"window {window}" if window else "causal")
+        q, k, v, do = v4t_inputs(torch, gen, V4_D, V4T_S, V4_HQ, V4_HKV)
+        held_grads(torch, ops, errs, rel_errs, what, window, q, k, v, do, V4T_LABEL)
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    path_counts[V4T_LABEL] = {}
+    for window, fwd, seed in ((None, "flash_fwd", 4402), (V4_WINDOW, "flash_fwd_window", 4403)):
+        losses, wall, counts = v4t_train(torch, ops, kernels, window, seed)
+        add_counts(path_counts[V4T_LABEL], counts)
+        what = f"path {V4T_LABEL!r} " + (f"window {window}" if window else "causal")
+        print(f"  {what}: {V4T_STEPS} AdamW steps (lr {V4T_LR}) over q, k, v [1, {V4_HQ} / "
+              f"{V4_HKV}, {V4T_S}, {V4_D}]: {wall * 1e3:.1f} ms (host clock), losses "
+              f"{[round(x, 6) for x in losses]}, launches "
+              f"{ {name: c for name, c in counts.items() if c} }")
+        check_launched(counts, {fwd: V4T_STEPS, "flash_bwd_dkv": V4T_STEPS,
+                                "flash_bwd_dq": V4T_STEPS}, what)
+        check(all(x == x for x in losses) and losses[-1] < losses[0],
+              f"{what}: the loss falls from step 1 to step {V4T_STEPS}: {losses}")
+    hq, hkv = V4T_SMALL_HEADS
+    for d in V4T_SMALL_DIMS:
+        q, k, v, do = v4t_inputs(torch, gen, d, V4T_SMALL_S, hq, hkv)
+        held_grads(torch, ops, errs, rel_errs, f"gradients D {d} (rows of {q.stride(-2)}), B 1 x "
+                   f"S {V4T_SMALL_S}, {hq} / {hkv} heads, causal", None, q, k, v, do, V4T_LABEL)
+        del q, k, v, do
+    counted = (flash_fwd.PREFILL, flash_fwd.WINDOWED_PREFILL, flash_bwd.DKV, flash_bwd.DQ)
+
+    def refused(d, autograd):
+        q = v4_randn(torch, gen, 1, 4, 64, d).requires_grad_()
+        k = v4_randn(torch, gen, 1, 1, 64, d)
+        if autograd:
+            autodiff.flash_attention(q, k, k, sm_scale=1.0, causal=True).sum().backward()
+        else:
+            flash_bwd.flash_attention_bwd(q.detach(), k, k, q.detach(), q.detach(),
+                                          torch.zeros(1, 4, 64, device="cuda"), sm_scale=1.0,
+                                          causal=True)
+
+    head_dims_refused(torch, ops, "B13a / B13b and the autograd op (the layout of 512)",
+                      [lambda d: refused(d, False), lambda d: refused(d, True)], counted,
+                      dims=(520, 0))
+    torch.cuda.empty_cache()
+
+
+def v4t_rows(torch, ops, gen, path_counts, errs, rel_errs, bwd_report):
+    """Phase 5o's numbers: the "v4" entries of the B13a and B13b rows at
+    path "v4-train"'s causal attention (B 1, S V4T_S, 64 / 1 heads, D 512;
+    `bwd_timings`: each kernel launched alone, ms and call_ms; plain_ms the
+    whole fp32 plain backward; library_ms SDPA's backward, fwd + bwd - fwd,
+    or null with the reason SDPA raised; the operations bound, 8 D (B13a)
+    and 6 D (B13b) a visible pair and q head at the bf16 rate: B13a's
+    recompute of S^T and dP^T in each of its two column blocks is not
+    counted), the D 512 instantiation's runtime attributes, the path's
+    launches and the phase's errors."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    out = bwd_timings(torch, ops, randn, 1, V4_HQ, V4_HKV, V4T_S, V4_D)
+    for name, entry in out.items():
+        label = "B13a" if name == "flash_bwd_dkv" else "B13b"
+        entry.update(
+            shape=f"B 1, S {V4T_S}, causal, Hq {V4_HQ}, Hkv {V4_HKV}, D {V4_D} "
+                  f"(DeepSeek-V4-Flash's attention); plain_ms: the whole plain backward",
+            launches=path_counts[V4T_LABEL][name],
+            max_abs_err=errs[f"{name} {V4T_LABEL}"], max_rel_err=rel_errs[f"{name} {V4T_LABEL}"],
+            max_row_err=errs[f"{name} row_err {V4T_LABEL}"],
+            runtime_attributes=runtime_attributes(bwd_report, f"{label} D512 bf16"),
+            padded_runtime_attributes=runtime_attributes(bwd_report, f"{label} D512 padded bf16"))
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--layers", type=int, default=0,
@@ -7652,8 +7867,7 @@ def main() -> int:
     print(f"  phase 3k: {time.perf_counter() - t0:.1f} s")
     print("[3l] head dims outside 64 / 128 / 256 in training and packed batches: B13a / B13b "
           "(B13a also in 3 parts and in one) and B12 at D 8, 24, 40, 96, 136, 200 and 248 vs "
-          "plain; D 100 (refused before the pitched rows) launched; D 264 and D 0 refused (B12: "
-          "D 520 and D 0)")
+          "plain; D 100 (refused before the pitched rows) launched; D 520 and D 0 refused")
     t0 = time.perf_counter()
     phase_odd_head_dims_training(torch, ops, errs, rel_errs)
     torch.cuda.synchronize()
@@ -8009,6 +8223,20 @@ def main() -> int:
         if r["name"] in v4d:
             r["v4"] = v4d[r["name"]]
     print(f"  phase 5n: {time.perf_counter() - t0:.1f} s")
+    print(f"[5o] head dims from 257 to 512 in the backward B13a / B13b (the layout of 512) and "
+          f"training through ops.autodiff.flash_attention at DeepSeek-V4-Flash's attention "
+          f"widths ({V4_HQ} / {V4_HKV} heads, D {V4_D}, bf16): gradients at S {V4T_S} vs plain, "
+          f"causal and with the window of {V4_WINDOW}; {V4T_STEPS} AdamW steps of each on path "
+          f"{V4T_LABEL!r}; d {V4T_SMALL_DIMS} at a small size; D 520 refused; then the \"v4\" "
+          f"entries of the B13a and B13b rows")
+    t0 = time.perf_counter()
+    phase_v4_train(torch, ops, kernels, path_counts, errs, rel_errs)
+    v4t = v4t_rows(torch, ops, torch.Generator(device="cuda").manual_seed(90), path_counts, errs,
+                   rel_errs, bwd_report)
+    for r in rows:
+        if r["name"] in v4t:
+            r["v4"] = v4t[r["name"]]
+    print(f"  phase 5o: {time.perf_counter() - t0:.1f} s")
     # Peak over the whole script: serving reset the counter before each run.
     numbers["max_memory_allocated_gb"] = max(
         [numbers["max_memory_allocated_gb"], serving.pop("peak_before_serving_gb")]

@@ -89,7 +89,8 @@ __device__ __forceinline__ void kv_round(float x, e4m3* out) { *out = e4m3(x); }
 // and zeros past them (ops/_build.py padded_head_dim); with `wide` (P / B2,
 // B4 with its partials, B6, B9 and B12, whose wgmma body has a wide layout:
 // attention_wgmma.cuh; the decodes D1, B5, B7 and B8, whose body has one:
-// paged_decode.cuh; D2, the paged append and QA, which take any row) 512
+// paged_decode.cuh; B13a / B13b: flash_bwd.cu; D2, the paged append and
+// QA, which take any row) 512
 // for a d from 257 to 512. 0 for a d outside 1..256 (1..512 with `wide`).
 // Rows at row_pitch(d, elem) meet TMA's stride rule at every d.
 inline int padded_head_dim(int d, bool wide = false) {

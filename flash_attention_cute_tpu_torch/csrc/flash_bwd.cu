@@ -75,12 +75,13 @@
 //     order, scales dK and rounds.
 // The group is summed inside a B13a block (and across its splits) in a
 // fixed order: no atomics, and two calls give the same bits. That is the
-// layout of D 64 / 128; D 256 has one of its own (flash_bwd_dkv_kernel_d256,
-// flash_bwd_dq_kernel_d256, below), under the same rules.
+// layout of D 64 / 128; D 256 and D 512 have one each of their own
+// (flash_bwd_dkv_kernel_d256, flash_bwd_dq_kernel_d256, flash_bwd_dkv_kernel_
+// d512, flash_bwd_dq_kernel_d512, below), under the same rules.
 //
-// Head dims: every d from 1 to 256, each run in the layout of the next of
-// 64, 128 and 256 at or above it (padded_head_dim), as P / B2 run theirs
-// (flash_fwd.cu). The maps hold the true d columns (rows at any 16-byte
+// Head dims: every d from 1 to 512, each run in the layout of the next of
+// 64, 128, 256 and 512 at or above it (padded_head_dim with `wide`), as P /
+// B2 run theirs (flash_fwd.cu). The maps hold the true d columns (rows at any 16-byte
 // stride), so TMA reads zeros past them (each box still credits its whole
 // size to the mbarrier): S, dP, P and dS are exact, and the columns of dK,
 // dV and dQ past d are zeros. The kernels store rows of the pitch
@@ -949,6 +950,483 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// Head dims 257-512 (DeepSeek-V4-Flash's 512): B13a and B13b laid out anew
+// once more. At D 512 a 64-row tile of one operand is 64 KB, so D 256's
+// layout would need 128 KB for B13a's fixed K and V plus 128 KB for one (Q,
+// dO) stage, and its dK, dV of 64 keys x 512 in fp32 would take 256 KB,
+// the SM's whole register file. Here (bytes of shared memory, fp32
+// registers a consumer thread):
+//
+//   * B13a, the forward's wide layout (attention_wgmma.cuh Tiles<512>): two
+//     blocks a 64-key block, `chunk` 0 and 1 (grid y folded into the grid),
+//     each for 256 of dK's and dV's columns; consumer c owns 128 of them,
+//     dK and dV of 64 keys x 128 columns: 64 + 64 registers, as at D 256.
+//     Each block holds K and V of its 64 keys over the whole depth (2 x 64
+//     KB) and recomputes S^T = K Q^T and dP^T = V dO^T over depth 512 (4 D
+//     operations a pair) beside dV's and dK's products over its 256
+//     columns (2 D): 6 D a block, 12 D for the two where the bound counts
+//     8 D. The (Q, dO) tiles are 32 rows: consumer c computes
+//     rows 16 c ... of S^T and dP^T (m64n16, 64 keys x 16 rows), and the
+//     two exchange their k-step of P^T and dS^T (2 KB each) through shared
+//     memory, double buffered by tile parity, as at D 256. A tile arrives
+//     in two depth halves of 32 rows x 256 columns (2 x 16 KB), each in a
+//     slot of its own: slot 0 the half outside the chunk, read only by S^T
+//     and dP^T and released as soon as they are done, slot 1 the chunk's
+//     half (and the 32 rows of lse and delta), also the B operand of dV +=
+//     P^T dO and dK += dS^T Q. So the next tile's first half loads while
+//     this tile's exchange and its dV / dK products run, and its second
+//     half while the first half's products run. Shared memory: 1 KB of
+//     alignment + 128 KB (K, V) + 64 KB (two slots) + 256 (lse, delta) +
+//     16 KB (exchange) + 40 (barriers) = 214,312 bytes.
+//   * B13b: a block per 64 q rows, whose Q and dO (2 x 64 KB) stay; (K, V)
+//     tiles of 16 keys (2 x 16 KB) stream through two stages. Consumer c
+//     owns dQ's columns 256 c ...: 64 rows x 256 = 128 registers. Both
+//     consumers need all of S and dP (64 rows x 16 keys), the A operand of
+//     dQ += dS K, so they split the depth: consumer c computes S and dP over
+//     depth half c (m64n16, 16 k-steps), writes its fp32 partials (16 a
+//     thread) to shared memory and adds the other's, in the same order on
+//     both (a + b = b + a in fp32), so both hold the same bits. No
+//     operation is recomputed: 6 D a pair, as the bound counts. Shared
+//     memory: 1 KB + 128 KB (Q, dO) + 64 KB (two stages) + 512 (lse, delta)
+//     + 32 KB (partials, double buffered by tile parity) + 40 = 230,952
+//     bytes.
+//   * Every d from 257 to 511 runs these kernels' kPad instantiations: TMA
+//     reads zeros past d (a box wholly past it reads only zeros, and
+//     credits its bytes all the same), and the stores stop at the pitch.
+//   * The walks, the splits of B13a (fp32 partials over both chunks'
+//     columns, the same combine pass), the fixed summation order, the edge
+//     masks and the heaviest-first order are those of D 256.
+
+constexpr int kRows512 = 32;  // q rows of a B13a tile
+constexpr int kKeys512 = 16;  // keys of a B13b tile
+constexpr int kBoxQ512 = kRows512 * 128;  // one 64-column box of a 32-row tile
+constexpr int kBoxK512 = kKeys512 * 128;  // of a 16-key tile
+constexpr int kChunks512 = 2;             // B13a blocks a key block: 256 columns each
+
+// Every pair of the kM rows x kN keys from (m0, n0) is visible.
+template <int kM, int kN>
+__device__ __forceinline__ bool rect_full(const BwdParams& p, int m0, int n0, int offset) {
+  return m0 + kM <= p.sq && n0 + kN <= p.skv && (!p.causal || n0 + kN - 1 <= m0 + offset) &&
+         (p.window <= 0 || n0 > m0 + kM - 1 + offset - p.window);
+}
+
+struct Dkv512Smem {
+  static constexpr int kFixed = 2 * 8 * kBox;         // K, V: 64 keys x 512
+  static constexpr int kHalf = 2 * 4 * kBoxQ512;      // a slot: Q, dO of 32 rows x 256
+  static constexpr int kRowsOff = kFixed + 2 * kHalf;
+  static constexpr int kRows = 2 * kRows512 * 4;      // lse, delta of 32 rows
+  static constexpr int kXchgPart = 128 * 16;          // one k-step of A fragments
+  static constexpr int kXchgBuf = 2 * 2 * kXchgPart;  // P^T and dS^T, two k-steps each
+  static constexpr int kXchgOff = kRowsOff + kRows;
+  static constexpr int kBars = kXchgOff + 2 * kXchgBuf;
+  static constexpr int kBytes = 1024 + kBars + 5 * 8;  // kv_full, full and empty of 2 slots
+};
+struct Dq512Smem {
+  static constexpr int kFixed = 2 * 8 * kBox;          // Q, dO: 64 rows x 512
+  static constexpr int kStage = 2 * 8 * kBoxK512;      // K, V: 16 keys x 512
+  static constexpr int kRowsOff = kFixed + kStages256 * kStage;
+  static constexpr int kRows = 2 * kTile * 4;          // lse, delta of 64 rows
+  static constexpr int kXchgBuf = 2 * 128 * 16 * 4;    // both consumers' partials, 64 B a thread
+  static constexpr int kXchgOff = kRowsOff + kRows;
+  static constexpr int kBars = kXchgOff + 2 * kXchgBuf;
+  static constexpr int kBytes = 1024 + kBars + (1 + 2 * kStages256) * 8;
+};
+static_assert(Dkv512Smem::kBytes <= 232448 && Dq512Smem::kBytes <= 232448,
+              "D-512 backward tiles exceed the H100's 227 KB a block");
+
+// B13a at D 512: dK, dV of 64 keys and 256 columns (`chunk`) of one kv
+// head, summed over its group.
+template <typename T, bool kPad>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_kernel_d512(const __grid_constant__ CUtensorMap qmap,
+                              const __grid_constant__ CUtensorMap omap,
+                              const __grid_constant__ CUtensorMap kmap,
+                              const __grid_constant__ CUtensorMap vmap, const BwdParams p) {
+  using S = Dkv512Smem;
+  constexpr int D = 512;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gbase = smem + (base - raw);
+  const uint32_t sK = base, sV = base + 8 * kBox;
+  auto sQ = [&](int slot) { return base + S::kFixed + slot * S::kHalf; };
+  auto sO = [&](int slot) { return base + S::kFixed + slot * S::kHalf + 4 * kBoxQ512; };
+  const uint32_t bars = base + S::kBars;
+  const uint32_t kv_full = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (3 + s); };
+
+  const int heads = p.hkv * p.batch, per = heads * p.splits * kChunks512;
+  const int n0 = (blockIdx.x / per) * kTile;  // the keys with the most causal rows first
+  const int r = blockIdx.x % per;
+  const int chunk = r / (heads * p.splits), split = r % (heads * p.splits) / heads;
+  const int hb = r % heads, hk = hb % p.hkv, b = hb / p.hkv;
+  const int other = 1 - chunk;  // the depth half outside the chunk, slot 0
+  const int offset = p.skv - p.sq;
+
+  // The q rows that see a key of the block, as in flash_bwd_dkv_kernel.
+  int m_begin = p.causal ? max(0, n0 - offset) : 0;
+  int m_end = p.sq;
+  if (p.window > 0) m_end = min(m_end, min(n0 + kTile, p.skv) - 1 - offset + p.window);
+  m_begin = m_begin / kRows512 * kRows512;
+  const int nm = m_end > m_begin ? (m_end - m_begin + kRows512 - 1) / kRows512 : 0;
+  const int it0 = nm * p.group * split / p.splits, it1 = nm * p.group * (split + 1) / p.splits;
+  const int total = it1 - it0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < 2; ++s) mbar_init(full(s), 1), mbar_init(empty(s), 8);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0 && total > 0) {
+      mbar_expect_tx(kv_full, S::kFixed);
+      for (int h = 0; h < 8; ++h) {
+        tma_load_4d(sK + h * kBox, &kmap, 64 * h, n0, hk, b, kv_full);
+        tma_load_4d(sV + h * kBox, &vmap, 64 * h, n0, hk, b, kv_full);
+      }
+      for (int it = 0; it < total; ++it) {
+        const int h = hk * p.group + (it0 + it) / nm;
+        const int m0 = m_begin + (it0 + it) % nm * kRows512;
+        for (int slot = 0; slot < 2; ++slot) {
+          const int col0 = 256 * (slot ? chunk : other);
+          mbar_wait(empty(slot), (it & 1) ^ 1);
+          mbar_expect_tx(full(slot), S::kHalf + (slot ? S::kRows : 0));
+          for (int hh = 0; hh < 4; ++hh) {
+            tma_load_4d(sQ(slot) + hh * kBoxQ512, &qmap, col0 + 64 * hh, m0, h, b, full(slot));
+            tma_load_4d(sO(slot) + hh * kBoxQ512, &omap, col0 + 64 * hh, m0, h, b, full(slot));
+          }
+        }
+        const int64_t row = (static_cast<int64_t>(b) * p.hq + h) * p.sq_pad + m0;
+        bulk_load(base + S::kRowsOff, p.lse + row, kRows512 * 4, full(1));
+        bulk_load(base + S::kRowsOff + kRows512 * 4, p.delta + row, kRows512 * 4, full(1));
+      }
+    }
+  } else {
+    setmaxnreg_inc<240>();
+    const int ct = threadIdx.x - 128, wg = ct >> 7, wi = (ct >> 5) & 3, lane = ct & 31;
+    const int g = lane >> 2, t = lane & 3, tid = ct & 127;
+
+    float dk[64], dv[64];  // keys n0 + 16 wi + g (+ 8), columns 256 chunk + 128 wg ...
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+    if (total > 0) mbar_wait(kv_full, 0);
+
+    for (int it = 0; it < total; ++it) {
+      const int ph = it & 1;
+      const int m0 = m_begin + (it0 + it) % nm * kRows512;
+      unsigned char* xp = gbase + S::kXchgOff + ph * S::kXchgBuf;  // P^T
+      unsigned char* xs = xp + 2 * S::kXchgPart;                  // dS^T
+      const bool edge = !rect_full<kRows512, kTile>(p, m0, n0, offset);
+      // S^T = K Q^T and dP^T = V dO^T over this consumer's 16 rows (64 keys
+      // x 16 rows, depth 512): slot 0's half, then slot 1's; S^T's last
+      // products and dP^T's second half are groups of their own, so that P^T
+      // is computed while dP^T runs.
+      const uint32_t q0 = sQ(0) + wg * 16 * 128, o0 = sO(0) + wg * 16 * 128;
+      const uint32_t q1 = sQ(1) + wg * 16 * 128, o1 = sO(1) + wg * 16 * 128;
+      float s[8], dp[8];
+      mbar_wait(full(0), ph);
+      wgmma_fence();
+      wgmma_ss<T, 16, false>(s, kmajor(sK, 16 * other, kBox), kmajor(q0, 0, kBoxQ512));
+#pragma unroll
+      for (int kk = 1; kk < 16; ++kk)
+        wgmma_ss<T, 16, true>(s, kmajor(sK, 16 * other + kk, kBox), kmajor(q0, kk, kBoxQ512));
+      wgmma_ss<T, 16, false>(dp, kmajor(sV, 16 * other, kBox), kmajor(o0, 0, kBoxQ512));
+#pragma unroll
+      for (int kk = 1; kk < 16; ++kk)
+        wgmma_ss<T, 16, true>(dp, kmajor(sV, 16 * other + kk, kBox), kmajor(o0, kk, kBoxQ512));
+      wgmma_commit();
+      mbar_wait(full(1), ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 16; ++kk)
+        wgmma_ss<T, 16, true>(s, kmajor(sK, 16 * chunk + kk, kBox), kmajor(q1, kk, kBoxQ512));
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < 16; ++kk)
+        wgmma_ss<T, 16, true>(dp, kmajor(sV, 16 * chunk + kk, kBox), kmajor(o1, kk, kBoxQ512));
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(s);
+
+      // P^T = exp2(S^T * scale_log2 - lse) on visible pairs. Element 4 j + e:
+      // key n0 + 16 wi + g + 8 (e >> 1), row m0 + 16 wg + 8 j + 2 t + (e & 1).
+      const float* rows = reinterpret_cast<const float*>(gbase + S::kRowsOff) + 16 * wg;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(rows + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          float pr = exp2f(s[i] * p.scale_log2 - ((e & 1) ? l.y : l.x));
+          if (edge && !visible(p, m0 + 16 * wg + 8 * j + 2 * t + (e & 1),
+                               n0 + 16 * wi + g + 8 * (e >> 1), offset))
+            pr = 0.f;
+          s[i] = pr;
+        }
+      }
+      uint32_t step[1][4];
+      to_a<T>(s, step);
+      *reinterpret_cast<uint4*>(xp + wg * S::kXchgPart + tid * 16) =
+          make_uint4(step[0][0], step[0][1], step[0][2], step[0][3]);
+      wgmma_wait<0>();
+      fence_regs(dp);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(0));  // slot 0 has no reader left
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float2 dl = *reinterpret_cast<const float2*>(rows + kRows512 + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? dl.y : dl.x));
+      }
+      to_a<T>(dp, step);
+      *reinterpret_cast<uint4*>(xs + wg * S::kXchgPart + tid * 16) =
+          make_uint4(step[0][0], step[0][1], step[0][2], step[0][3]);
+      consumers_sync();
+
+      // dV += P^T dO and dK += dS^T Q over the tile's 32 rows and this
+      // consumer's 128 columns of the chunk, dO and Q MN-major from slot 1.
+      uint32_t pa[2][4], sa[2][4];
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const uint4 a = *reinterpret_cast<const uint4*>(xp + kk * S::kXchgPart + tid * 16);
+        const uint4 c = *reinterpret_cast<const uint4*>(xs + kk * S::kXchgPart + tid * 16);
+        pa[kk][0] = a.x, pa[kk][1] = a.y, pa[kk][2] = a.z, pa[kk][3] = a.w;
+        sa[kk][0] = c.x, sa[kk][1] = c.y, sa[kk][2] = c.z, sa[kk][3] = c.w;
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+        wgmma_rs<T, 128, true>(dv, pa[kk], mnmajor(sO(1) + wg * 2 * kBoxQ512, kk, kBoxQ512), 1);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+        wgmma_rs<T, 128, true>(dk, sa[kk], mnmajor(sQ(1) + wg * 2 * kBoxQ512, kk, kBoxQ512), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) fence_regs(pa[kk]), fence_regs(sa[kk]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(1));
+    }
+
+    // This consumer's 128 columns of rows of d columns: at d 257-511 they
+    // may be partial or wholly past d (zeros, not stored).
+    const int d = kPad ? p.d : D, cols = d - 256 * chunk - 128 * wg;
+    const int64_t out =
+        (static_cast<int64_t>(b) * p.hkv + hk) * p.skv * d + 256 * chunk + 128 * wg;
+    const int64_t part = static_cast<int64_t>(p.batch) * p.hkv * p.skv * d;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int key = n0 + 16 * wi + g + 8 * rr, col = 8 * j + 2 * t;
+        if (key < p.skv && (!kPad || col < cols)) {
+          const int64_t at = out + static_cast<int64_t>(key) * d + col;
+          const int e = 4 * j + 2 * rr;
+          if (p.splits > 1) {  // fp32 partials, added by flash_bwd_dkv_combine
+            *reinterpret_cast<float2*>(p.ws + split * part + at) = make_float2(dk[e], dk[e + 1]);
+            *reinterpret_cast<float2*>(p.ws + (p.splits + split) * part + at) =
+                make_float2(dv[e], dv[e + 1]);
+          } else {
+            *reinterpret_cast<uint32_t*>(static_cast<T*>(p.out0) + at) =
+                Elem<T>::pack(dk[e] * p.scale, dk[e + 1] * p.scale);
+            *reinterpret_cast<uint32_t*>(static_cast<T*>(p.out1) + at) =
+                Elem<T>::pack(dv[e], dv[e + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// B13b at D 512: dQ of 64 rows of one q head.
+template <typename T, bool kPad>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_kernel_d512(const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap omap,
+                             const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap, const BwdParams p) {
+  using S = Dq512Smem;
+  constexpr int D = 512;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gbase = smem + (base - raw);
+  const uint32_t sQ = base, sO = base + 8 * kBox, sK0 = base + S::kFixed;
+  const uint32_t bars = base + S::kBars;
+  const uint32_t q_full = bars;
+  auto sK = [&](int s) { return sK0 + s * S::kStage; };
+  auto sV = [&](int s) { return sK0 + s * S::kStage + 8 * kBoxK512; };
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + kStages256 + s); };
+
+  const int per = p.hq * p.batch;
+  const int nqb = (p.sq + kTile - 1) / kTile;
+  const int m0 = (nqb - 1 - static_cast<int>(blockIdx.x) / per) * kTile;  // most keys first
+  const int h = blockIdx.x % per % p.hq, b = blockIdx.x % per / p.hq, hk = h / p.group;
+  const int offset = p.skv - p.sq;
+
+  // Keys from the window's near edge to the causal edge of the block's last
+  // row within Sq, as in flash_bwd_dq_kernel_d256, in tiles of 16.
+  int n_end = p.skv;
+  if (p.causal) n_end = min(n_end, min(m0 + kTile, p.sq) + offset);
+  const int n_begin =
+      (p.window > 0 ? max(0, m0 + offset - p.window + 1) : 0) / kKeys512 * kKeys512;
+  const int total = n_end > n_begin ? (n_end - n_begin + kKeys512 - 1) / kKeys512 : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages256; ++s) mbar_init(full(s), 1), mbar_init(empty(s), 8);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0 && total > 0) {
+      mbar_expect_tx(q_full, S::kFixed + S::kRows);
+      for (int hh = 0; hh < 8; ++hh) {
+        tma_load_4d(sQ + hh * kBox, &qmap, 64 * hh, m0, h, b, q_full);
+        tma_load_4d(sO + hh * kBox, &omap, 64 * hh, m0, h, b, q_full);
+      }
+      const int64_t row = (static_cast<int64_t>(b) * p.hq + h) * p.sq_pad + m0;
+      bulk_load(base + S::kRowsOff, p.lse + row, kTile * 4, q_full);
+      bulk_load(base + S::kRowsOff + kTile * 4, p.delta + row, kTile * 4, q_full);
+      for (int it = 0; it < total; ++it) {
+        const int s = it % kStages256, n0 = n_begin + it * kKeys512;
+        mbar_wait(empty(s), ((it / kStages256) & 1) ^ 1);
+        mbar_expect_tx(full(s), S::kStage);
+        for (int hh = 0; hh < 8; ++hh) {
+          tma_load_4d(sK(s) + hh * kBoxK512, &kmap, 64 * hh, n0, hk, b, full(s));
+          tma_load_4d(sV(s) + hh * kBoxK512, &vmap, 64 * hh, n0, hk, b, full(s));
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<240>();
+    const int ct = threadIdx.x - 128, wg = ct >> 7, wi = (ct >> 5) & 3, lane = ct & 31;
+    const int g = lane >> 2, t = lane & 3, tid = ct & 127;
+
+    float dq[2][64];  // rows m0 + 16 wi + g (+ 8), columns 256 wg + 128 i ...
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dq[0][i] = dq[1][i] = 0.f;
+    float row_lse[2] = {INFINITY, INFINITY}, row_delta[2] = {0.f, 0.f};
+    if (total > 0) {
+      mbar_wait(q_full, 0);
+      const float* rows = reinterpret_cast<const float*>(gbase + S::kRowsOff);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        row_lse[r] = rows[16 * wi + g + 8 * r];
+        row_delta[r] = rows[kTile + 16 * wi + g + 8 * r];
+      }
+    }
+
+    for (int it = 0; it < total; ++it) {
+      const int st = it % kStages256, n0 = n_begin + it * kKeys512;
+      unsigned char* xb = gbase + S::kXchgOff + (it & 1) * S::kXchgBuf;
+      mbar_wait(full(st), (it / kStages256) & 1);
+      const bool edge = !rect_full<kTile, kKeys512>(p, m0, n0, offset);
+      // This consumer's depth half of S = Q K^T and dP = dO V^T (64 rows x
+      // 16 keys), two groups, so that S's partial is written while dP runs.
+      float s[8], dp[8];
+      wgmma_fence();
+      wgmma_ss<T, 16, false>(s, kmajor(sQ, 16 * wg, kBox), kmajor(sK(st), 16 * wg, kBoxK512));
+#pragma unroll
+      for (int kk = 1; kk < 16; ++kk)
+        wgmma_ss<T, 16, true>(s, kmajor(sQ, 16 * wg + kk, kBox),
+                              kmajor(sK(st), 16 * wg + kk, kBoxK512));
+      wgmma_commit();
+      wgmma_ss<T, 16, false>(dp, kmajor(sO, 16 * wg, kBox), kmajor(sV(st), 16 * wg, kBoxK512));
+#pragma unroll
+      for (int kk = 1; kk < 16; ++kk)
+        wgmma_ss<T, 16, true>(dp, kmajor(sO, 16 * wg + kk, kBox),
+                              kmajor(sV(st), 16 * wg + kk, kBoxK512));
+      wgmma_commit();
+      // Partials as float4 k of thread tid at (4 wg + k) * 2 KB + 16 tid
+      // (k 0-1: S, 2-3: dP), so that a warp's stores fill whole banks.
+      unsigned char* mine = xb + wg * 4 * 128 * 16 + tid * 16;
+      const unsigned char* theirs = xb + (1 - wg) * 4 * 128 * 16 + tid * 16;
+      wgmma_wait<1>();
+      fence_regs(s);
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        *reinterpret_cast<float4*>(mine + k * 128 * 16) =
+            make_float4(s[4 * k], s[4 * k + 1], s[4 * k + 2], s[4 * k + 3]);
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        *reinterpret_cast<float4*>(mine + (2 + k) * 128 * 16) =
+            make_float4(dp[4 * k], dp[4 * k + 1], dp[4 * k + 2], dp[4 * k + 3]);
+      consumers_sync();
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const float4 os = *reinterpret_cast<const float4*>(theirs + k * 128 * 16);
+        const float4 od = *reinterpret_cast<const float4*>(theirs + (2 + k) * 128 * 16);
+        s[4 * k] += os.x, s[4 * k + 1] += os.y, s[4 * k + 2] += os.z, s[4 * k + 3] += os.w;
+        dp[4 * k] += od.x, dp[4 * k + 1] += od.y, dp[4 * k + 2] += od.z, dp[4 * k + 3] += od.w;
+      }
+
+      // P = exp2(S * scale_log2 - lse) on visible pairs, then dS = P (dP -
+      // delta). Element 4 j + e: row m0 + 16 wi + g + 8 (e >> 1), key n0 +
+      // 8 j + 2 t + (e & 1).
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e, r = e >> 1;
+          float pr = exp2f(s[i] * p.scale_log2 - row_lse[r]);
+          if (edge && !visible(p, m0 + 16 * wi + g + 8 * r, n0 + 8 * j + 2 * t + (e & 1), offset))
+            pr = 0.f;
+          dp[i] = pr * (dp[i] - row_delta[r]);
+        }
+      }
+      uint32_t sa[1][4];
+      to_a<T>(dp, sa);
+
+      // dQ += dS K over the tile's 16 keys and this consumer's 256 columns,
+      // K MN-major from the stage.
+      wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wgmma_rs<T, 128, true>(dq[i], sa[0], mnmajor(sK(st) + (4 * wg + 2 * i) * kBoxK512, 0,
+                                                     kBoxK512), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq[0]);
+      fence_regs(dq[1]);
+      fence_regs(sa[0]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(st));
+    }
+
+    // This consumer's 256 columns of rows of d columns, as B13a's.
+    const int d = kPad ? p.d : D;
+    T* dqp = static_cast<T*>(p.out0) + (static_cast<int64_t>(b) * p.hq + h) * p.sq * d;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = m0 + 16 * wi + g + 8 * r, col = 256 * wg + 128 * i + 8 * j + 2 * t;
+          if (row < p.sq && (!kPad || col < d))
+            *reinterpret_cast<uint32_t*>(dqp + static_cast<int64_t>(row) * d + col) =
+                Elem<T>::pack(dq[i][4 * j + 2 * r] * p.scale, dq[i][4 * j + 2 * r + 1] * p.scale);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Host side.
 
 struct BwdViews {
@@ -959,13 +1437,16 @@ struct BwdViews {
 
 template <typename T, int D, bool kDkv, bool kPad>
 auto bwd_kernel() {
-  if constexpr (D == 256)
+  if constexpr (D == 512)
+    return kDkv ? flash_bwd_dkv_kernel_d512<T, kPad> : flash_bwd_dq_kernel_d512<T, kPad>;
+  else if constexpr (D == 256)
     return kDkv ? flash_bwd_dkv_kernel_d256<T, kPad> : flash_bwd_dq_kernel_d256<T, kPad>;
   else return kDkv ? flash_bwd_dkv_kernel<T, D, kPad> : flash_bwd_dq_kernel<T, D, kPad>;
 }
 template <int D, bool kDkv>
 constexpr int bwd_smem() {
-  if constexpr (D == 256) return Smem256<kDkv>::kBytes;
+  if constexpr (D == 512) return kDkv ? Dkv512Smem::kBytes : Dq512Smem::kBytes;
+  else if constexpr (D == 256) return Smem256<kDkv>::kBytes;
   else return kDkv ? DkvSmem<D>::kBytes : DqSmem<D>::kBytes;
 }
 
@@ -975,9 +1456,13 @@ int launch_bwd(const BwdParams& p, const BwdViews& w, cudaStream_t stream) {
   const auto kernel = bwd_kernel<T, D, kDkv, kPad>();
   static const int configured = allow_smem(kernel, kSmem);  // above 48 KB needs an opt-in
   if (configured != cudaSuccess) return configured;
-  // Rows of a block: 128 keys (B13a) or q rows (B13b), 64 of both at D 256.
-  constexpr int block = D == 256 ? kTile : kBlock;
-  const int q_rows = kDkv ? kTile : block, kv_rows = kDkv ? block : kTile;
+  // Rows of a block: 128 keys (B13a) or q rows (B13b), 64 of both at D 256
+  // and 512; rows of a streamed tile: 64, at D 512 32 q rows (B13a) or 16
+  // keys (B13b). At D 512 B13a runs kChunks512 blocks a key block.
+  constexpr int block = D >= 256 ? kTile : kBlock;
+  constexpr int q_tile = D == 512 ? kRows512 : kTile, kv_tile = D == 512 ? kKeys512 : kTile;
+  constexpr int chunks = D == 512 ? kChunks512 : 1;
+  const int q_rows = kDkv ? q_tile : block, kv_rows = kDkv ? block : kv_tile;
   // The maps hold the true d columns: a box reads zeros past them.
   CUtensorMap qmap, omap, kmap, vmap;
   BwdParams kp = p;
@@ -988,7 +1473,8 @@ int launch_bwd(const BwdParams& p, const BwdViews& w, cudaStream_t stream) {
       !head_map(&vmap, w.dtype, w.v, p.batch, p.hkv, p.skv, p.d, w.v_sb, w.v_sh, w.v_ss, kv_rows))
     return cudaErrorInvalidValue;
   const long long blocks =
-      kDkv ? static_cast<long long>((p.skv + block - 1) / block) * p.hkv * p.batch * p.splits
+      kDkv ? static_cast<long long>((p.skv + block - 1) / block) * p.hkv * p.batch * p.splits *
+                 chunks
            : static_cast<long long>((p.sq + block - 1) / block) * p.hq * p.batch;
   if (blocks <= 0) return cudaSuccess;
   if (blocks > 0x7FFFFFFF) return cudaErrorInvalidValue;
@@ -1012,13 +1498,15 @@ template <bool kDkv>
 int dispatch_bwd(const BwdParams& p, const BwdViews& w, cudaStream_t s) {
   using bf16 = __nv_bfloat16;
   using h16 = __half;
-  const int layout = padded_head_dim(w.d);
+  const int layout = padded_head_dim(w.d, true);
   if (w.dtype == kBF16 && layout == 64) return launch_layout<bf16, 64, kDkv>(p, w, s);
   if (w.dtype == kBF16 && layout == 128) return launch_layout<bf16, 128, kDkv>(p, w, s);
   if (w.dtype == kF16 && layout == 64) return launch_layout<h16, 64, kDkv>(p, w, s);
   if (w.dtype == kF16 && layout == 128) return launch_layout<h16, 128, kDkv>(p, w, s);
   if (w.dtype == kBF16 && layout == 256) return launch_layout<bf16, 256, kDkv>(p, w, s);
   if (w.dtype == kF16 && layout == 256) return launch_layout<h16, 256, kDkv>(p, w, s);
+  if (w.dtype == kBF16 && layout == 512) return launch_layout<bf16, 512, kDkv>(p, w, s);
+  if (w.dtype == kF16 && layout == 512) return launch_layout<h16, 512, kDkv>(p, w, s);
   return cudaErrorInvalidValue;
 }
 
@@ -1034,6 +1522,8 @@ static void report_type(char* out, int cap, int& used, const char* t) {
   BWD_REPORT("B13b D128", (flash_bwd_dq_kernel<T, 128, false>), DqSmem<128>::kBytes);
   BWD_REPORT("B13a D256", (flash_bwd_dkv_kernel_d256<T, false>), Smem256<true>::kBytes);
   BWD_REPORT("B13b D256", (flash_bwd_dq_kernel_d256<T, false>), Smem256<false>::kBytes);
+  BWD_REPORT("B13a D512", (flash_bwd_dkv_kernel_d512<T, false>), Dkv512Smem::kBytes);
+  BWD_REPORT("B13b D512", (flash_bwd_dq_kernel_d512<T, false>), Dq512Smem::kBytes);
   // The instantiations of d below the layout's D (kPad).
   BWD_REPORT("B13a D64 padded", (flash_bwd_dkv_kernel<T, 64, true>), DkvSmem<64>::kBytes);
   BWD_REPORT("B13a D128 padded", (flash_bwd_dkv_kernel<T, 128, true>), DkvSmem<128>::kBytes);
@@ -1041,6 +1531,8 @@ static void report_type(char* out, int cap, int& used, const char* t) {
   BWD_REPORT("B13b D128 padded", (flash_bwd_dq_kernel<T, 128, true>), DqSmem<128>::kBytes);
   BWD_REPORT("B13a D256 padded", (flash_bwd_dkv_kernel_d256<T, true>), Smem256<true>::kBytes);
   BWD_REPORT("B13b D256 padded", (flash_bwd_dq_kernel_d256<T, true>), Smem256<false>::kBytes);
+  BWD_REPORT("B13a D512 padded", (flash_bwd_dkv_kernel_d512<T, true>), Dkv512Smem::kBytes);
+  BWD_REPORT("B13b D512 padded", (flash_bwd_dq_kernel_d512<T, true>), Dq512Smem::kBytes);
   BWD_REPORT("B13a split combine", (flash_bwd_dkv_combine<T>), 0);
 #undef BWD_REPORT
 }
@@ -1066,8 +1558,8 @@ extern "C" int fact_bwd_report(char* out, int cap) {
 // (with `splits` > 1, through the fp32 workspace `ws` of 2 x splits x
 // B x Hkv x Skv x row_pitch(d) floats and the combine pass), 0 launches
 // B13b into out0 = dQ (`ws`, `splits` unused); outputs contiguous but for
-// their rows, which lie at row_pitch(d). d: from 1 to 256
-// (padded_head_dim). lse and delta are [B, Hq, Sq rounded
+// their rows, which lie at row_pitch(d). d: from 1 to 512
+// (padded_head_dim with `wide`). lse and delta are [B, Hq, Sq rounded
 // up to 128] fp32, contiguous, +inf / 0 past Sq. Returns a cudaError_t code
 // (0 on success). Shapes, strides, dtypes and the plan are checked by the
 // wrapper.

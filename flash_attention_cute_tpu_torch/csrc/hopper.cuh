@@ -142,8 +142,16 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N]) {
 #define FACT_WO(x) "=f"(x)
 
 // d[64 x N] (+)= A[64 x 16] @ B[16 x N], both from shared memory, K-major,
-// N 32, 64 or 128. Without kAcc, d = A B: the old values of d are neither
-// read nor kept.
+// N 16, 32, 64 or 128. Without kAcc, d = A B: the old values of d are
+// neither read nor kept.
+#define FACT_WGMMA_SS_16(TYPE, C)                                            \
+  asm volatile(                                                              \
+      "{\n .reg .pred p;\n setp.ne.b32 p, %10, 0;\n"                         \
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32." TYPE "." TYPE            \
+      " {%0,%1,%2,%3,%4,%5,%6,%7}, %8, %9, p, 1, 1, 0, 0;\n}\n"               \
+      : FACT_D8(C, 0)                                                        \
+      : "l"(da), "l"(db), "r"(kAcc ? 1 : 0))
+
 #define FACT_WGMMA_SS_32(TYPE, C)                                                             \
   asm volatile(                                                                               \
       "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"                                          \
@@ -175,9 +183,14 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N]) {
 
 template <typename T, int N, bool kAcc>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db) {
-  static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss takes N 32, 64 or 128");
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128, "wgmma_ss takes N 16, 32, 64 or 128");
   constexpr bool kBF16 = std::is_same_v<T, __nv_bfloat16>;
-  if constexpr (N == 32) {
+  if constexpr (N == 16) {
+    if constexpr (kBF16 && kAcc) FACT_WGMMA_SS_16("bf16", FACT_RW);
+    else if constexpr (kBF16) FACT_WGMMA_SS_16("bf16", FACT_WO);
+    else if constexpr (kAcc) FACT_WGMMA_SS_16("f16", FACT_RW);
+    else FACT_WGMMA_SS_16("f16", FACT_WO);
+  } else if constexpr (N == 32) {
     if constexpr (kBF16 && kAcc) FACT_WGMMA_SS_32("bf16", FACT_RW);
     else if constexpr (kBF16) FACT_WGMMA_SS_32("bf16", FACT_WO);
     else if constexpr (kAcc) FACT_WGMMA_SS_32("f16", FACT_RW);
@@ -274,6 +287,7 @@ __device__ __forceinline__ void wgmma_ss_s8(uint32_t (&d)[N / 2], uint64_t da, u
   }
 }
 
+#undef FACT_WGMMA_SS_16
 #undef FACT_WGMMA_SS_32
 #undef FACT_WGMMA_SS_64
 #undef FACT_WGMMA_SS_128

@@ -198,8 +198,9 @@ def softcap_arg(logit_softcap: float | None) -> float:
 # Head dims a kernel lays out natively: each kernel is compiled for these.
 LAYOUT_HEAD_DIMS = (64, 128, 256)
 # The wide layouts (csrc/attention_wgmma.cuh: P / B2, B4 with its
-# partials, B6, B9 and B12; csrc/paged_decode.cuh: D1, B5, B7 and B8; and
-# D2, the paged append and QA, which take any row): d 257-512.
+# partials, B6, B9 and B12; csrc/paged_decode.cuh: D1, B5, B7 and B8;
+# csrc/flash_bwd.cu: B13a / B13b; and D2, the paged append and QA, which
+# take any row): d 257-512.
 WIDE_HEAD_DIM = 512
 HEAD_DIM_ITEM = "ROADMAP.md A14"  # the roadmap item of the head dims above 256
 
@@ -211,8 +212,8 @@ def padded_head_dim(d: int, what: str = "this", elem_bytes: int = 2, wide: bool 
     1 to 256 runs in the layout of the least of `LAYOUT_HEAD_DIMS` at or
     above it, with the columns past d read as zeros (csrc/common.cuh
     `padded_head_dim`). `wide` (every kernel but the int8 scores P-i8 /
-    B2-i8 / K8 and the backward B13a / B13b) also takes d from 257 to
-    512, in the layout of `WIDE_HEAD_DIM`. Its
+    B2-i8 / K8) also takes d from 257 to 512, in the layout of
+    `WIDE_HEAD_DIM`. Its
     rows lie at `row_pitch(d, elem_bytes)`, which meets TMA's 16-byte
     stride rule for every d. Returns that layout's head dim; d 0 or above
     256 (512 with `wide`) raises, naming the roadmap item, before a

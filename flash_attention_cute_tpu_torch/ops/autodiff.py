@@ -9,9 +9,9 @@ the device of q: on CPU tensors the same Function runs the plain forward
 with its lse and the plain recompute backward, so the lse that crosses
 from forward to backward is the one the kernels exchange on the card.
 Layout [B, H, S, D] like `flash_attn_func`; GQA / MQA gradients of k and v
-sum over the q-head group. The kernels take every head dim from 1 to 256
-(`_build.padded_head_dim`); on CUDA tensors a head dim above 256
-(ROADMAP.md A14) raises before the forward launches.
+sum over the q-head group. The kernels take every head dim from 1 to 512
+(`_build.padded_head_dim(..., wide=True)`); on CUDA tensors a head dim
+above 512 (ROADMAP.md A14) raises before the forward launches.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, sm_scale, causal, window):
         if q.device.type != "cpu":  # refused before the forward runs, not at the backward
-            _build.padded_head_dim(q.shape[-1], "backward")
+            _build.padded_head_dim(q.shape[-1], "backward", wide=True)
         out, lse = flash_attention_fwd(q, k, v, sm_scale=sm_scale, causal=causal, window=window,
                                        return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)

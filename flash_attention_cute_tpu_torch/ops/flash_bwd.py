@@ -12,27 +12,29 @@ PyTorch expression, as it is one XLA expression in the JAX package.
 `flash_attention_bwd` routes on the device of `q`: a CPU tensor takes the
 plain version, a CUDA tensor launches B13a then B13b (csrc/flash_bwd.cu),
 which replace `_flash_bwd_dkv_kernel` and `_flash_bwd_dq_kernel`. The
-kernels take bf16 / f16, every head dim from 1 to 256
-(`_build.padded_head_dim`: a d runs in the layout of the next of 64, 128
-and 256, its TMA boxes reading zeros past d, as the JAX wrapper pads D to
-128 lanes), bottom-right causal masking, the sliding window, GQA / MQA
-(dK and dV sum over the q-head group inside a block, deterministically)
-and strided views with the head dim contiguous, which they read by TMA in
-place where their rows lie at a 16-byte stride (one padded copy of those
-that do not, `_build.rows`); dq, dk and dv come at rows of
-`_build.row_pitch(d)`. What they do not take raises (the soft cap is not
-an argument here, as in JAX; head dims above 256 name ROADMAP.md A14);
-nothing falls back. The TPU block
+kernels take bf16 / f16, every head dim from 1 to 512
+(`_build.padded_head_dim(..., wide=True)`: a d runs in the layout of the
+next of 64, 128, 256 and 512, its TMA boxes reading zeros past d, as the
+JAX wrapper pads D to 128 lanes), bottom-right causal masking, the
+sliding window, GQA / MQA (dK and dV sum over the q-head group inside a
+block, deterministically) and strided views with the head dim
+contiguous, which they read by TMA in place where their rows lie at a
+16-byte stride (one padded copy of those that do not, `_build.rows`);
+dq, dk and dv come at rows of `_build.row_pitch(d)`. What they do not
+take raises (the soft cap is not an argument here, as in JAX; head dims
+above 512 name ROADMAP.md A14); nothing falls back. The TPU block
 arguments `block_q` / `block_kv` are accepted and ignored.
 
 B13a runs one block per (key block, kv head, batch row): 128 keys in the
-layouts of D 64 / 128, 64 in D 256's (`key_block`: d 136-256), whose
-kernels have a layout of their own to fit the H100's shared memory and
-registers. Where those blocks are too
-few to fill the card, `dkv_splits` (pure Python, from the shapes alone)
-cuts each block's walk over the group's q tiles into parts, one block
-each, whose fp32 partials a second pass of the same C call adds in split
-order: the result still repeats bit for bit.
+layouts of D 64 / 128, 64 in D 256's and D 512's (`key_block`: d
+136-512), whose kernels have layouts of their own to fit the H100's shared
+memory and registers. D 512's B13a also runs two blocks a key block (grid
+y of the forward's wide layout, folded into the grid), each for 256 of dK's
+and dV's columns, over q tiles of 32 rows (`q_tile`). Where those blocks
+are too few to fill the card, `dkv_splits` (pure Python, from the shapes
+alone) cuts each block's walk over the group's q tiles into parts, one
+block each, whose fp32 partials a second pass of the same C call adds in
+split order: the result still repeats bit for bit.
 
 The kernels read the lse and delta rows by bulk copies of whole 64- or
 128-row tiles, so they take both as fp32 [B, Hq, Sq rounded up to
@@ -54,8 +56,10 @@ from flash_attention_cute_tpu_torch.ops.reference import prefill_mask
 LOG2E = math.log2(math.e)
 ROW_PAD = 128  # csrc/flash_bwd.cu kRowPad: the lse / delta rows a B13b block reads
 KEY_BLOCK = 128  # keys of a B13a block in D 64 / 128's layouts (csrc/flash_bwd.cu kBlock)
-KEY_BLOCK_D256 = 64  # keys of a B13a block in D 256's (kTile: flash_bwd_dkv_kernel_d256)
-Q_TILE = 64  # q rows of a B13a tile, at every head dim
+KEY_BLOCK_D256 = 64  # keys of a B13a block in D 256's and D 512's layouts (kTile)
+Q_TILE = 64  # q rows of a B13a tile, at every head dim up to 256
+Q_TILE_D512 = 32  # in D 512's layout (kRows512: flash_bwd_dkv_kernel_d512)
+CHUNKS_D512 = 2  # B13a blocks a key block in D 512's layout: 256 columns each
 MAX_SPLITS = 8
 MIN_SPLIT_TILES = 4  # q tiles a split walks at the least, on the longest walk
 
@@ -69,22 +73,31 @@ DQ = _build.Kernel("flash_bwd_dq", "flash_bwd.cu", "fact_flash_bwd", _ARGS)
 def key_block(head_dim: int) -> int:
     """Keys of a B13a block at this head dim: those of the layout it runs
     in (raises for a head dim no layout takes)."""
-    return KEY_BLOCK_D256 if _build.padded_head_dim(head_dim, "backward") == 256 else KEY_BLOCK
+    layout = _build.padded_head_dim(head_dim, "backward", wide=True)
+    return KEY_BLOCK_D256 if layout >= 256 else KEY_BLOCK
+
+
+def q_tile(head_dim: int) -> int:
+    """q rows of a B13a tile at this head dim: its layout's."""
+    layout = _build.padded_head_dim(head_dim, "backward", wide=True)
+    return Q_TILE_D512 if layout == 512 else Q_TILE
 
 
 def dkv_splits(batch: int, hkv: int, group: int, sq: int, skv: int, head_dim: int = 128) -> int:
     """Parts into which B13a cuts each key block's walk (1: no split).
 
-    A block (`key_block(head_dim)` keys) walks up to group x ceil(Sq / 64)
+    A block (`key_block(head_dim)` keys; in D 512's layout CHUNKS_D512
+    blocks a key block) walks up to group x ceil(Sq / `q_tile(head_dim)`)
     q tiles. Split only while the blocks cover at most half the SMs: then
     to about one block an SM (NUM_SMS // blocks), at most MAX_SPLITS, and
     no finer than MIN_SPLIT_TILES tiles a part on the longest walk. Each
     part beyond the first costs an fp32 round trip of dK and dV through the
     workspace."""
-    blocks = -(-skv // key_block(head_dim)) * hkv * batch
+    chunks = CHUNKS_D512 if q_tile(head_dim) == Q_TILE_D512 else 1
+    blocks = -(-skv // key_block(head_dim)) * chunks * hkv * batch
     if blocks == 0 or 2 * blocks > NUM_SMS:
         return 1
-    walk = group * -(-sq // Q_TILE)
+    walk = group * -(-sq // q_tile(head_dim))
     return max(1, min(NUM_SMS // blocks, MAX_SPLITS, walk // MIN_SPLIT_TILES))
 
 
@@ -166,7 +179,7 @@ def flash_attention_bwd(
         window = 0  # cannot bind, as in the forward
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(f"backward kernels take bf16/f16, got {q.dtype}")
-    _build.padded_head_dim(d, "backward")
+    _build.padded_head_dim(d, "backward", wide=True)
     if (hq % hkv or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
             or o.shape != q.shape or do.shape != q.shape or lse.shape != (b, hq, sq)):
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} "

@@ -308,10 +308,10 @@ def test_non_cpu_tensors_take_the_kernel_route_and_never_fall_back():
         flash_bwd.flash_attention_bwd(q, k, k, q, q, lse, causal=True)
     with pytest.raises(ValueError, match="CUDA tensor"):
         autodiff.flash_attention(q.requires_grad_(), k, k, causal=True)
-    # D 256, D 96 and D 100 under autograd: the backward kernels take them
-    # (D 96 and D 100 in D 128's layout, D 100's rows at a pitch of 104), so
-    # the op reaches the forward's CUDA-tensor check; D 264, which no
-    # backward layout takes (P and B12 do, in the wide layout), is refused
+    # D 256, D 96, D 100 and D 264 under autograd: the backward kernels take
+    # them (D 96 and D 100 in D 128's layout, D 100's rows at a pitch of 104,
+    # D 264 in the layout of 512), so the op reaches the forward's
+    # CUDA-tensor check; D 520, which no backward layout takes, is refused
     # before the forward.
     q256 = torch.empty(1, 4, 64, 256, dtype=torch.bfloat16, device="meta")
     k256 = torch.empty(1, 2, 64, 256, dtype=torch.bfloat16, device="meta")
@@ -338,10 +338,17 @@ def test_non_cpu_tensors_take_the_kernel_route_and_never_fall_back():
                                       torch.empty(1, 4, 64, device="meta"), causal=True)
     q264 = torch.empty(1, 4, 64, 264, dtype=torch.bfloat16, device="meta")
     k264 = torch.empty(1, 2, 64, 264, dtype=torch.bfloat16, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A14"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         autodiff.flash_attention(q264.requires_grad_(), k264, k264, causal=True)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_bwd.flash_attention_bwd(q264.detach(), k264, k264, q264.detach(), q264.detach(),
+                                      torch.empty(1, 4, 64, device="meta"), causal=True)
+    q520 = torch.empty(1, 4, 64, 520, dtype=torch.bfloat16, device="meta")
     with pytest.raises(NotImplementedError, match="ROADMAP.md A14"):
-        flash_bwd.flash_attention_bwd(q264, k264, k264, q264, q264,
+        autodiff.flash_attention(q520.detach().requires_grad_(), q520[:, :2], q520[:, :2],
+                                 causal=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A14"):
+        flash_bwd.flash_attention_bwd(q520, q520[:, :2], q520[:, :2], q520, q520,
                                       torch.empty(1, 4, 64, device="meta"), causal=True)
     cu = torch.tensor([0, 64], dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensor"):  # B12 at D 96
@@ -353,7 +360,6 @@ def test_non_cpu_tensors_take_the_kernel_route_and_never_fall_back():
     with pytest.raises(ValueError, match="CUDA tensor"):  # B12 at D 264, in the wide layout
         flash_varlen.flash_attention_varlen(q264[0].transpose(0, 1), k264[0].transpose(0, 1),
                                             k264[0].transpose(0, 1), cu, causal=True)
-    q520 = torch.empty(1, 4, 64, 520, dtype=torch.bfloat16, device="meta")
     with pytest.raises(NotImplementedError, match="ROADMAP.md A14"):  # above the wide layout
         flash_varlen.flash_attention_varlen(q520[0].transpose(0, 1), q520[0].transpose(0, 1),
                                             q520[0].transpose(0, 1), cu, causal=True)

@@ -32,8 +32,9 @@ probabilities in another order) with an identical +inf pattern, also at
 D 256 and with the soft cap, and at the edges of the kernel's tiles (S 1,
 63, 65, 130, rows with no key, GQA groups 1 / 7 / 32, windows 1 / 45 / 400),
 where a second call repeats output and lse bit for bit. The
-backward kernels B13a / B13b (D 64 / 128, and D 256 in its own layout at
-Gemma-2-9B's and Gemma-7B's widths) take the kernel forward's o and lse and are
+backward kernels B13a / B13b (D 64 / 128, D 256 in its own layout at
+Gemma-2-9B's and Gemma-7B's widths, and D 257-512 in the layout of 512 at
+DeepSeek-V4-Flash's 64 / 1 heads) take the kernel forward's o and lse and are
 held to `flash_attention_bwd_plain` on the same inputs by max |diff| over
 max |plain| <= 2e-2: gradients grow with the sequence, and the kernels
 round P and dS to bf16 / f16 before their products (one step is 2^-8
@@ -1222,6 +1223,17 @@ BACKWARD = {
     "d256_f16_s1024": (1, 16, 8, 1024, 1024, 256, True, None, torch.float16),
     "d256_window_48_s300": (1, 4, 2, 300, 300, 256, True, 48, torch.bfloat16),
     "d256_noncausal_700": (1, 16, 8, 700, 700, 256, False, None, torch.bfloat16),
+    # D 257-512 (the layout of 512: B13a two blocks a 64-key block over
+    # 32-row q tiles, B13b 16-key tiles): DeepSeek-V4-Flash's 64 / 1 heads
+    # with and without its window of 128, rows of no key, d 264 and 320 in
+    # the padded instantiation, d 260 at a pitch of 264
+    "d512_v4_s2048": (1, 64, 1, 2048, 2048, 512, True, None, torch.bfloat16),
+    "d512_v4_window128_s2048": (1, 64, 1, 2048, 2048, 512, True, 128, torch.bfloat16),
+    "d512_f16_zero_rows_600_200": (1, 8, 2, 600, 200, 512, True, None, torch.float16),
+    "d512_noncausal_300": (1, 8, 8, 300, 300, 512, False, None, torch.bfloat16),
+    "d264_ragged_s517": (1, 16, 4, 517, 517, 264, True, None, torch.bfloat16),
+    "d320_window_48_s300": (1, 4, 2, 300, 300, 320, True, 48, torch.bfloat16),
+    "d260_offset_256_700": (1, 8, 1, 256, 700, 260, True, None, torch.bfloat16),
 }
 SPLIT_REL_TOL = 2 ** -7
 
@@ -1308,7 +1320,7 @@ def test_backward_split_walk_matches_one_pass(device, case):
     o, lse = flash_fwd.flash_attention_fwd(q, k, v, causal=causal, window=window,
                                            return_lse=True)
     _, dk, dv = flash_bwd.flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window)
-    one = (torch.empty_like(dk), torch.empty_like(dv))
+    one = tuple(_build.empty_rows(x.shape, x.dtype, x.device) for x in (dk, dv))  # at the pitch
     before = flash_bwd.DKV.launches
     flash_bwd.launch(flash_bwd.DKV, q, k, v, do, lse, (do.float() * o.float()).sum(-1), *one,
                      d ** -0.5, causal, window or 0, splits=1)
@@ -1396,20 +1408,20 @@ def test_varlen_kernel_matches_plain(device, case):
 
 
 def test_training_and_varlen_kernels_refuse_what_they_do_not_take(device):
-    """The backward refuses a head dim no backward layout takes (D 264,
-    ROADMAP.md A14) and B12 one above its wide layout (D 520) before any
-    launch; B12 launches at D 264, in the wide layout of 512. B13a / B13b
-    launch at D 256, at D 96 (in D 128's layout) and at D 100 (rows of 104,
-    refused so before the pitched rows), within GRAD_REL_TOL of the plain
-    backward; B12 takes the soft cap, D 256 and D 96: each call launches
-    it."""
+    """The backward and B12 refuse a head dim above their wide layouts (D
+    520, ROADMAP.md A14) before any launch; B12 launches at D 264, in the
+    wide layout of 512. B13a / B13b launch at D 256, at D 96 (in D 128's
+    layout), at D 100 (rows of 104, refused so before the pitched rows) and
+    at D 264 (refused so before the layout of 512), within GRAD_REL_TOL of
+    the plain backward; B12 takes the soft cap, D 256 and D 96: each call
+    launches it."""
     gen = torch.Generator(device="cuda").manual_seed(35)
     q264, q520 = randn(gen, 1, 4, 64, 264), randn(gen, 1, 4, 64, 520)
     cu = torch.tensor([0, 64], dtype=torch.int32, device="cuda")
     counted = (flash_bwd.DKV, flash_bwd.DQ, flash_varlen.VARLEN)
     before = [c.launches for c in counted]
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A14"):
-        flash_bwd.flash_attention_bwd(q264, q264[:, :2], q264[:, :2], q264, q264,
+        flash_bwd.flash_attention_bwd(q520, q520[:, :2], q520[:, :2], q520, q520,
                                       torch.zeros(1, 4, 64, device="cuda"))
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A14"):
         flash_varlen.flash_attention_varlen(q520[0].transpose(0, 1), q520[0, :2].transpose(0, 1),
@@ -1421,7 +1433,7 @@ def test_training_and_varlen_kernels_refuse_what_they_do_not_take(device):
     assert [c.launches for c in counted] == [*before[:2], before[2] + 1]
     ref = flash_varlen.flash_attention_varlen(*(x.cpu().float() for x in args), cu.cpu())
     assert (out.float().cpu() - ref).abs().max().item() <= BF16_TOL
-    for d in (256, 96, 100):
+    for d in (256, 96, 100, 264):
         q = randn(gen, 1, 4, 64, d)
         k, v, do = randn(gen, 1, 2, 64, d), randn(gen, 1, 2, 64, d), randn(gen, 1, 4, 64, d)
         o, lse = flash_fwd.flash_attention_fwd(q, k, v, return_lse=True)
@@ -1462,29 +1474,34 @@ def test_prefill_lse_takes_d256_and_the_cap(device, d, cap):
 
 
 def test_autodiff_refuses_d256_before_the_forward_launches(device):
-    """Under autograd a head dim no backward layout takes (D 264, ROADMAP.md
+    """Under autograd a head dim no backward layout takes (D 520, ROADMAP.md
     A14) raises before P runs, not after a forward whose gradient cannot
-    come. D 96 (in D 128's layout, refused so until the backward took the
-    head-dim rule), D 100 (rows of 104, refused so until the pitched rows)
-    and D 256 (refused so until the backward kernels took it) run P, then
-    B13a and B13b, and their gradients match autograd through the fp32
-    reference within GRAD_REL_TOL."""
+    come; the API refuses D 264 by its own shape check, as JAX's does. D 96
+    (in D 128's layout, refused so until the backward took the head-dim
+    rule), D 100 (rows of 104, refused so until the pitched rows) and D 256
+    (refused so until the backward kernels took it) run P, then B13a and
+    B13b, and their gradients match autograd through the fp32 reference
+    within GRAD_REL_TOL; D 264 and 512 (refused so until the layout of 512)
+    alike through `ops.autodiff.flash_attention`."""
     gen = torch.Generator(device="cuda").manual_seed(37)
-    q = randn(gen, 1, 4, 64, 264).requires_grad_()
-    k, v = randn(gen, 1, 2, 64, 264), randn(gen, 1, 2, 64, 264)
+    q = randn(gen, 1, 4, 64, 520).requires_grad_()
+    k, v = randn(gen, 1, 2, 64, 520), randn(gen, 1, 2, 64, 520)
     before = (flash_fwd.PREFILL.launches, flash_fwd.WINDOWED_PREFILL.launches)
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A14"):
         autodiff.flash_attention(q, k, v, causal=True)
+    q264 = randn(gen, 1, 4, 64, 264).requires_grad_()
     with pytest.raises(ValueError, match="> 256 unsupported"):  # the API's own shape check
-        api.flash_attn_func(q, k, v, causal=True)
+        api.flash_attn_func(q264, q264[:, :2], q264[:, :2], causal=True)
     assert (flash_fwd.PREFILL.launches, flash_fwd.WINDOWED_PREFILL.launches) == before
-    for hq, hkv, s, d in ((32, 32, 300, 96), (4, 2, 300, 256), (32, 8, 300, 100)):
+    for hq, hkv, s, d in ((32, 32, 300, 96), (4, 2, 300, 256), (32, 8, 300, 100),
+                          (8, 1, 300, 264), (8, 2, 300, 512)):
         q = randn(gen, 1, hq, s, d).requires_grad_()
         k, v = randn(gen, 1, hkv, s, d).requires_grad_(), randn(gen, 1, hkv, s, d).requires_grad_()
         do = randn(gen, 1, hq, s, d)
         counters = (flash_fwd.PREFILL, flash_bwd.DKV, flash_bwd.DQ)
         before = [c.launches for c in counters]
-        got = torch.autograd.grad(api.flash_attn_func(q, k, v, causal=True), (q, k, v), do)
+        attend = api.flash_attn_func if d <= 256 else autodiff.flash_attention
+        got = torch.autograd.grad(attend(q, k, v, causal=True), (q, k, v), do)
         torch.cuda.synchronize()
         assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1]
         leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]

@@ -149,9 +149,11 @@ def test_key_block_and_splits_follow_the_layout(d, block):
 @pytest.mark.parametrize("d", [100, 264, 4])
 def test_key_block_refuses_what_no_layout_takes(d):
     """d 100 and 4, refused before the pitched rows, now take the 128-key
-    blocks of their layouts (D 128, D 64); d 264 stays refused."""
+    blocks of their layouts (D 128, D 64); d 264, refused before the wide
+    layout of 512, takes its 64-key blocks, and 520 stays refused."""
     if d <= 256:
         assert flash_bwd.key_block(d) == 128
         return
+    assert flash_bwd.key_block(d) == 64
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A14"):
-        flash_bwd.key_block(d)
+        flash_bwd.key_block(520)

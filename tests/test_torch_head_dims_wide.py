@@ -8,11 +8,13 @@ On the card P / B2, B4, B6, B9 and B12 run a d from 257 to 512 in the wide
 layout of 512 (csrc/attention_wgmma.cuh: each block computes 256 of O's
 columns and recomputes S over the whole d), the decodes D1, B5, B7 and B8
 in the wide layout of csrc/paged_decode.cuh (O's columns split across the
-consumer warps of a block, 16-key tiles), D2, the append and QA at any
-row; rows at `_build.row_pitch(d)` (d 260 at a pitch of 264). The int8
-scores (P-i8 / B2-i8, K8), the backward B13a / B13b and the autograd op
-still refuse a head dim above 256, naming ROADMAP.md A14, and so does the
-port's API (`dispatch.validate_inputs`, JAX `dispatch.py`'s own refusal).
+consumer warps of a block, 16-key tiles), the backward B13a / B13b (and
+so the autograd op) in the layout of 512 of csrc/flash_bwd.cu
+(tests/test_torch_head_dims_wide_backward.py), D2, the append and QA at
+any row; rows at `_build.row_pitch(d)` (d 260 at a pitch of 264). The
+int8 scores (P-i8 / B2-i8, K8) still refuse a head dim above 256, naming
+ROADMAP.md A14, and so does the port's API (`dispatch.validate_inputs`,
+JAX `dispatch.py`'s own refusal).
 Here the plain versions, which those kernels are held to on the card, are
 held to the JAX kernels in interpret mode (which keep a D above 128 native,
 or pad it to 128 lanes in the varlen front end), in fp32 at atol 1e-5, as
@@ -480,6 +482,7 @@ def slice_calls(d):
     qd = qx[:, :, :1]
     qpool = QuantizedKV(meta(2, 9, 16, d, dtype=torch.int8), meta(2, 9, 16, dtype=torch.float32))
     qcache = QuantizedKV(meta(2, 2, 64, d, dtype=torch.int8), meta(2, 2, 64, dtype=torch.float32))
+    lse = meta(1, 4, 64, dtype=torch.float32)
     return {
         "P": lambda: flash_fwd.flash_attention_fwd(q, k, k, causal=True),
         "P lse": lambda: flash_fwd.flash_attention_fwd(q, k, k, causal=True, return_lse=True),
@@ -501,18 +504,17 @@ def slice_calls(d):
         "append": lambda: paged_cache.paged_append_layer(pool, pool, kx[:, :, :1], kx[:, :, :1],
                                                          table, rows),
         "QA": lambda: quant.quantize_append(qx[:, :2, :1], qx[:, :2, :1], qcache, qcache, rows),
+        "B13a / B13b": lambda: flash_bwd.flash_attention_bwd(q, k, k, q, q, lse, causal=True),
+        "autograd op": lambda: autodiff.flash_attention(q.requires_grad_(), k, k, causal=True),
     }
 
 
 def other_calls(d):
     """Every other kernel's entry point at head dim d on the `meta` device."""
     q, k = meta(2, 4, 5, d), meta(2, 2, 64, d)
-    lse = meta(2, 4, 5, dtype=torch.float32)
     return {
         "P-i8": lambda: flash_fwd.flash_attention_fwd(q, k, k, causal=True, score_dtype="int8"),
         "K8": lambda: flash_fwd.quantize_k_rows(k),
-        "B13a / B13b": lambda: flash_bwd.flash_attention_bwd(q, k, k, q, q, lse, causal=True),
-        "autograd op": lambda: autodiff.flash_attention(q.requires_grad_(), k, k, causal=True),
     }
 
 
@@ -520,11 +522,11 @@ def other_calls(d):
 def test_entry_points_take_or_refuse_each_kernel(d):
     """Off the CPU the wide layouts' entry points (P / B2, B12, B4 with its
     partials and B6, and since the decodes and B9 took it, D1 + D2, B5, B7,
-    B8, B9, the append and QA) take d 264 and 512 (up to the CUDA-tensor
-    check) and refuse 520; every other kernel's entry point (the int8
-    scores, the backward, the autograd op) raises at d 264 and 512, naming
-    ROADMAP.md A14, before any launch; the API keeps JAX's own refusal
-    above 256 on every device."""
+    B8, B9, the append and QA, and since the backward took it B13a / B13b
+    and the autograd op) take d 264 and 512 (up to the CUDA-tensor check)
+    and refuse 520; every other kernel's entry point (the int8 scores)
+    raises at d 264 and 512, naming ROADMAP.md A14, before any launch; the
+    API keeps JAX's own refusal above 256 on every device."""
     for name, call in slice_calls(d).items():
         with pytest.raises(ValueError, match="CUDA tensor"):
             call()
